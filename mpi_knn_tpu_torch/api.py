@@ -1,0 +1,98 @@
+"""Public functional API of the port: ``all_knn`` and ``knn_classify``.
+
+Every entry point takes ``device=`` and runs on ``"cuda"`` unless the caller
+passes ``"cpu"``; without a card the default raises (device.py).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from mpi_knn_tpu_torch.config import KNNConfig
+from mpi_knn_tpu_torch.device import DEFAULT_DEVICE, resolve_device
+from mpi_knn_tpu_torch.ops.vote import classify_from_labels
+from mpi_knn_tpu_torch.types import ClassifyResult, KNNResult
+
+
+def resolve_backend(cfg: KNNConfig) -> str:
+    """``auto`` is ``serial`` on one device. On more it would be the ring,
+    which is not ported, so that is refused rather than run on one card."""
+    if cfg.backend != "auto":
+        return cfg.backend
+    if (cfg.num_devices or 1) > 1:
+        raise ValueError(
+            f"backend='auto' with num_devices={cfg.num_devices} resolves to "
+            "the ring backend: not yet ported"
+        )
+    return "serial"
+
+
+def all_knn(corpus, queries=None, config: Optional[KNNConfig] = None,
+            query_ids=None, device=DEFAULT_DEVICE, **overrides) -> KNNResult:
+    """All-kNN search.
+
+    Args:
+      corpus: (m, d) numpy array or tensor.
+      queries: (q, d) queries, or None for all-pairs leave-one-out mode
+        (every corpus row queries the corpus with itself excluded).
+      config: KNNConfig; fields may be overridden by kwargs.
+      query_ids: optional (q,) corpus identities of explicit ``queries``
+        (keeps self-exclusion for sampled corpus rows; -1 = none).
+      device: where the search runs ("cuda" unless told otherwise).
+
+    Returns:
+      KNNResult with (q, k) distances (sortable space, ascending) and
+      0-based int32 global ids, on ``device``.
+    """
+    cfg = (config or KNNConfig()).replace(**overrides)
+    dev = resolve_device(device)
+    backend = resolve_backend(cfg)
+    if isinstance(corpus, torch.Tensor):
+        corpus = corpus.to(dev)
+    else:
+        corpus = np.asarray(corpus)
+    m = corpus.shape[0]
+
+    if queries is None:
+        q_arr = corpus
+        q_ids = np.arange(m, dtype=np.int32)
+    else:
+        q_arr = (queries.to(dev) if isinstance(queries, torch.Tensor)
+                 else np.asarray(queries))
+        if query_ids is not None:
+            q_ids = np.asarray(query_ids, dtype=np.int32)
+            if q_ids.shape != (q_arr.shape[0],):
+                raise ValueError(
+                    f"query_ids shape {q_ids.shape} != ({q_arr.shape[0]},)"
+                )
+        else:
+            # -1 never matches a valid candidate id: self-exclusion is off
+            q_ids = np.full(q_arr.shape[0], -1, dtype=np.int32)
+
+    if cfg.center and cfg.metric == "l2":
+        from mpi_knn_tpu_torch.ops.distance import center_for_l2
+
+        corpus, q_arr = center_for_l2(corpus, q_arr, all_pairs=queries is None)
+
+    if backend == "serial":
+        from mpi_knn_tpu_torch.backends.serial import all_knn_serial
+
+        d, i = all_knn_serial(corpus, q_arr, q_ids, cfg, dev)
+    elif backend == "pallas":
+        from mpi_knn_tpu_torch.backends.fused_backend import all_knn_pallas
+
+        d, i = all_knn_pallas(corpus, q_arr, q_ids, cfg, dev)
+    else:
+        raise ValueError(f"unknown backend {backend!r}")
+    return KNNResult(dists=d, ids=i)
+
+
+def knn_classify(result: KNNResult, labels, num_classes: int = 10,
+                 tie_break: str = "nearest") -> ClassifyResult:
+    """Majority-vote classification over a KNNResult, on its device."""
+    labels = torch.as_tensor(labels, device=result.ids.device)
+    return classify_from_labels(result.ids, labels, num_classes,
+                                tie_break=tie_break)

@@ -1,0 +1,107 @@
+"""Fused-kernel backend (``backend="pallas"``): the routing of the JAX
+package's ``backends/pallas_backend.py`` around the hand-written Hopper
+kernels of ``ops/fused_knn.py``.
+
+- ``pallas_variant="tiles"``: each corpus tile's k survivors from the
+  kernel, then one ``smallest_k`` merge outside it (honors
+  ``topk_method``);
+- ``"sweep"``: the kernel merges the whole corpus itself and emits (Q, k).
+
+Same observable semantics as the serial backend. Only float32 runs here,
+and only the exact policy.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from mpi_knn_tpu_torch.config import KNNConfig
+from mpi_knn_tpu_torch.ops.distance import _NORM_EPS, _l2_normalize, sq_norms
+from mpi_knn_tpu_torch.ops.fused_knn import (
+    _ZERO_RTOL,
+    fused_knn_sweep,
+    fused_knn_tiles,
+)
+from mpi_knn_tpu_torch.ops.topk import smallest_k
+from mpi_knn_tpu_torch.parallel.partition import pad_rows_any, pad_to_multiple
+
+
+def _fused_all_knn(queries, corpus, cfg, q_tile, c_tile, m_corpus,
+                   all_pairs, variant):
+    common = dict(
+        m_corpus=m_corpus,
+        q_tile=q_tile,
+        c_tile=c_tile,
+        exclude_self=cfg.exclude_self,
+        exclude_zero=cfg.exclude_zero,
+        all_pairs=all_pairs,
+        zero_eps=cfg.zero_eps,
+    )
+    if variant == "sweep":
+        # the in-kernel merge is exact; topk_method does not apply
+        return fused_knn_sweep(queries, corpus, k=cfg.k, **common)
+    outd, outi = fused_knn_tiles(queries, corpus, k=min(cfg.k, c_tile),
+                                 **common)
+    # cross-tile merge: k survivors per corpus tile -> final k
+    return smallest_k(outd, outi, cfg.k, method=cfg.topk_method,
+                      block=cfg.topk_block)
+
+
+def all_knn_pallas(corpus, queries, query_ids, cfg: KNNConfig, device):
+    if cfg.dtype != "float32":
+        raise ValueError(
+            f"the fused backend computes in float32; dtype={cfg.dtype!r} is "
+            "not supported (use the serial backend for bf16/f64)"
+        )
+    m, _ = corpus.shape
+    nq = queries.shape[0]
+
+    # Cosine rides the L2 kernels on unit rows (d² = 2·d_cos), halved on
+    # the way out; the zero-exclusion epsilon doubles into d² space.
+    cosine = cfg.metric == "cosine"
+    if cosine:
+        all_pairs_same = queries is corpus
+        corpus = torch.as_tensor(corpus, dtype=torch.float32).to(device)
+        queries = corpus if all_pairs_same else torch.as_tensor(
+            queries, dtype=torch.float32).to(device)
+        # a row _l2_normalize would clamp (zero or sub-clamp norm) breaks
+        # the identity: route the whole call to serial, decided from the
+        # data before any launch
+        any_zero = (sq_norms(corpus) <= _NORM_EPS).any()
+        if not all_pairs_same:
+            any_zero = any_zero | (sq_norms(queries) <= _NORM_EPS).any()
+        if bool(any_zero):
+            from mpi_knn_tpu_torch.backends.serial import all_knn_serial
+
+            return all_knn_serial(corpus, queries, query_ids, cfg, device)
+        corpus = _l2_normalize(corpus)
+        queries = corpus if all_pairs_same else _l2_normalize(queries)
+        zero_eps = 2.0 * (cfg.zero_eps if cfg.zero_eps > 0 else _ZERO_RTOL * 2.0)
+        cfg = cfg.replace(zero_eps=zero_eps)
+    # candidate/query ids come from position: all-pairs (query i is corpus
+    # row i) or query mode (queries carry no corpus identity)
+    all_pairs = bool(
+        nq == m and np.array_equal(np.asarray(query_ids),
+                                   np.arange(m, dtype=np.int32))
+    )
+
+    q_tile = min(max(8, pad_to_multiple(cfg.query_tile, 8)), 512,
+                 pad_to_multiple(nq, 8))
+    c_tile = min(max(128, pad_to_multiple(cfg.corpus_tile, 128)), 2048,
+                 pad_to_multiple(m, 128))
+    corpus_p = pad_rows_any(corpus, pad_to_multiple(m, c_tile),
+                            dtype=torch.float32, device=device)
+    queries_p = pad_rows_any(queries, pad_to_multiple(nq, q_tile),
+                             dtype=torch.float32, device=device)
+
+    # k > c_tile: route to tiles, whose cross-tile merge tops up
+    variant = cfg.pallas_variant
+    if variant == "sweep" and cfg.k > c_tile:
+        variant = "tiles"
+
+    best_d, best_i = _fused_all_knn(queries_p, corpus_p, cfg, q_tile, c_tile,
+                                    m, all_pairs, variant)
+    if cosine:
+        best_d = best_d * 0.5
+    return best_d[:nq], best_i[:nq]

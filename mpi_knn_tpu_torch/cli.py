@@ -1,0 +1,125 @@
+"""Command-line run path of the port.
+
+    python -m mpi_knn_tpu_torch --data mnist --k 10 --backend pallas --loo
+    python -m mpi_knn_tpu_torch --data synthetic:512x32c4 --k 5 --loo \\
+        --device cpu --report r.json
+
+Only the flags below exist; the JAX CLI's other flags are not ported.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import re
+import sys
+
+import torch
+
+from mpi_knn_tpu_torch.config import (
+    BACKENDS,
+    METRICS,
+    PALLAS_VARIANTS,
+    TIE_BREAKS,
+    KNNConfig,
+)
+from mpi_knn_tpu_torch.device import DEFAULT_DEVICE
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="mpi_knn_tpu_torch",
+        description="brute-force kNN search + classification (PyTorch/CUDA)",
+    )
+    p.add_argument("--data", default="mnist",
+                   help="'mnist' (IDX files if found, else synthetic) or "
+                   "'synthetic:MxDcC' (e.g. synthetic:4096x128c10)")
+    p.add_argument("--k", type=int, default=30)
+    p.add_argument("--metric", choices=METRICS, default="l2")
+    p.add_argument("--backend", choices=BACKENDS, default="auto")
+    p.add_argument("--pallas-variant", choices=PALLAS_VARIANTS,
+                   default="tiles")
+    p.add_argument("--tie-break", choices=TIE_BREAKS, default="nearest")
+    p.add_argument("--query-tile", type=int, default=1024)
+    p.add_argument("--corpus-tile", type=int, default=2048)
+    p.add_argument("--loo", action="store_true",
+                   help="leave-one-out classification (the reference's "
+                   "workload; the only mode, as --queries is not ported)")
+    p.add_argument("--device", default=DEFAULT_DEVICE,
+                   help="torch device (default cuda; 'cpu' runs the plain "
+                   "versions of the kernels)")
+    p.add_argument("--report", default=None, help="write a JSON report here")
+    return p
+
+
+def load_corpus(spec: str):
+    """(X, labels, source) for 'mnist' or 'synthetic:MxDcC'."""
+    m = re.fullmatch(r"synthetic:(\d+)x(\d+)(?:c(\d+))?", spec)
+    if m:
+        from mpi_knn_tpu_torch.data.synthetic import make_blobs
+
+        X, y = make_blobs(int(m[1]), int(m[2]), num_classes=int(m[3] or 10),
+                          seed=0)
+        return X, y, spec
+    if spec == "mnist":
+        from mpi_knn_tpu_torch.data.mnist import load_mnist
+
+        X, y, src = load_mnist()
+        return X, y, f"mnist({src})"
+    raise SystemExit(f"error: --data {spec!r}: expected mnist or synthetic:MxDcC")
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    from mpi_knn_tpu_torch.api import all_knn, knn_classify, resolve_backend
+    from mpi_knn_tpu_torch.device import resolve_device
+    from mpi_knn_tpu_torch.utils.timing import PhaseTimer
+
+    device = resolve_device(args.device)
+    timer = PhaseTimer()
+    with timer.phase("load"):
+        X, labels, source = load_corpus(args.data)
+    cfg = KNNConfig(
+        k=args.k,
+        metric=args.metric,
+        backend=args.backend,
+        pallas_variant=args.pallas_variant,
+        tie_break=args.tie_break,
+        query_tile=args.query_tile,
+        corpus_tile=args.corpus_tile,
+    )
+    with timer.phase("knn"):
+        result = all_knn(X, config=cfg, device=device)
+        timer.block_on(result.dists)
+    with timer.phase("vote"):
+        cls = knn_classify(result, labels, num_classes=cfg.num_classes,
+                           tie_break=cfg.tie_break)
+        matches = int(cls.matches(labels))
+    report = {
+        "data_source": source,
+        "shape": list(X.shape),
+        "backend": resolve_backend(cfg),
+        "pallas_variant": cfg.pallas_variant,
+        "device": str(device),
+        "device_name": (torch.cuda.get_device_name(device)
+                        if device.type == "cuda" else "cpu"),
+        "k": cfg.k,
+        "metric": cfg.metric,
+        "matches": matches,
+        "total": int(len(labels)),
+        "accuracy": matches / len(labels),
+        "phase_seconds": dict(timer.seconds),
+    }
+    print(f"Clock time = {timer.seconds['knn']:.6f}")
+    print(f"Matches: {matches}")
+    print(f"[mpi_knn_tpu_torch] backend={report['backend']} "
+          f"device={device} shape={tuple(X.shape)} k={cfg.k} "
+          f"accuracy={report['accuracy']:.4f} knn={timer.seconds['knn']:.3f}s")
+    if args.report:
+        with open(args.report, "w") as f:
+            json.dump(report, f, indent=2)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

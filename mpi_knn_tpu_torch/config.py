@@ -1,0 +1,152 @@
+"""Configuration of the PyTorch/CUDA port.
+
+``KNNConfig`` carries the same field names and defaults as the JAX package's
+config, so ``dataclasses.asdict`` of one drives the other (see
+``convert.py``). The value domains are validated the same way. On top of
+that, settings whose machinery is not ported yet are refused here with a
+``ValueError`` that names the setting and says "not yet ported" — a refused
+setting never silently runs as something else.
+
+Fields that only the serving, clustered-index or ring layers read are kept
+so a config dict round-trips, and are inert in this package until those
+layers are ported.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+# "pallas" keeps the JAX package's name for the fused backend; in this port
+# it selects the hand-written Hopper kernels (backends/fused_backend.py)
+BACKENDS = ("auto", "serial", "ring", "ring-overlap", "pallas")
+METRICS = ("l2", "cosine")
+RING_TRANSFER_DTYPES = (None, "bfloat16", "float32", "int8")
+TOPK_METHODS = ("exact", "approx", "approx-rerank", "block", "bf16")
+PRECISION_POLICIES = ("exact", "mixed")
+MERGE_SCHEDULES = ("stream", "twolevel")
+RING_SCHEDULES = ("uni", "bidir")
+RING_FUSIONS = ("xla", "fused")
+RING_FUSED_ROTATIONS = ("round", "grid")
+TIE_BREAKS = ("nearest", "lowest", "quirk-serial", "quirk-mpi")
+PALLAS_VARIANTS = ("tiles", "sweep")
+KMEANS_INITS = ("kmeans++", "random")
+DTYPES = ("float32", "float64", "bfloat16", "int8", "int4")
+
+# what the port runs today; anything else in the domains above is refused
+PORTED_TOPK_METHODS = ("exact", "block")
+PORTED_MATMUL_PRECISIONS = (None, "highest")
+
+
+@dataclasses.dataclass(frozen=True)
+class KNNConfig:
+    """All knobs for an all-kNN run (field docs: the JAX package's
+    ``mpi_knn_tpu/config.py``; semantics are identical where ported).
+
+    Ported: k, metric, backend in {auto, serial, pallas}, query_tile,
+    corpus_tile, dtype in {float32, float64, bfloat16}, matmul_precision in
+    {None, "highest"} (both mean full f32, never TF32), center,
+    exclude_self, exclude_zero, zero_eps, topk_method in {exact, block},
+    topk_block, merge_schedule, tie_break, num_classes, pallas_variant,
+    max_tile_elems.
+    """
+
+    k: int = 30
+    metric: str = "l2"
+    backend: str = "auto"
+    query_tile: int = 1024
+    corpus_tile: int = 2048
+    dtype: str = "float32"
+    matmul_precision: Optional[str] = None
+    precision_policy: str = "exact"
+    center: bool = True
+    exclude_self: bool = True
+    exclude_zero: bool = True
+    zero_eps: float = 0.0
+    topk_method: str = "exact"
+    recall_target: float = 0.95
+    topk_block: int = 128
+    merge_schedule: str = "twolevel"
+    tie_break: str = "nearest"
+    num_classes: int = 10
+    mesh_axis: str = "ring"
+    num_devices: Optional[int] = None
+    ring_transfer_dtype: Optional[str] = None
+    ring_schedule: str = "uni"
+    ring_fusion: str = "xla"
+    ring_fused_rotation: str = "round"
+    pallas_variant: str = "tiles"
+    max_tile_elems: int = 1 << 28
+    # --- inert until the serving / clustered-index layers are ported ---
+    query_bucket: int = 1024
+    dispatch_depth: int = 2
+    partitions: Optional[int] = None
+    nprobe: Optional[int] = None
+    kmeans_iters: int = 25
+    kmeans_init: str = "kmeans++"
+    ivf_seed: int = 0
+    ivf_shards: Optional[int] = None
+    ivf_route_cap: Optional[int] = None
+    bucket_headroom: float = 0.0
+    mutation_bucket: int = 256
+    compact_fill_threshold: float = 0.9
+    compact_tombstone_fraction: float = 0.3
+    donate: bool = True
+
+    def __post_init__(self):
+        for name, allowed in (
+            ("backend", BACKENDS),
+            ("metric", METRICS),
+            ("topk_method", TOPK_METHODS),
+            ("tie_break", TIE_BREAKS),
+            ("pallas_variant", PALLAS_VARIANTS),
+            ("ring_transfer_dtype", RING_TRANSFER_DTYPES),
+            ("ring_schedule", RING_SCHEDULES),
+            ("ring_fusion", RING_FUSIONS),
+            ("ring_fused_rotation", RING_FUSED_ROTATIONS),
+            ("merge_schedule", MERGE_SCHEDULES),
+            ("precision_policy", PRECISION_POLICIES),
+            ("kmeans_init", KMEANS_INITS),
+            ("dtype", DTYPES),
+        ):
+            value = getattr(self, name)
+            if value not in allowed:
+                raise ValueError(f"{name} must be one of {allowed}, got {value!r}")
+        for name in ("k", "topk_block", "query_bucket", "dispatch_depth",
+                     "mutation_bucket", "kmeans_iters"):
+            if getattr(self, name) < 1:
+                raise ValueError(f"{name} must be >= 1, got {getattr(self, name)}")
+        if self.dtype in ("int8", "int4") and self.partitions is None:
+            raise ValueError(
+                f"dtype={self.dtype!r} is the clustered index's at-rest "
+                "compression; the dense backends have no dequantization path"
+            )
+        self._refuse_unported()
+
+    def _refuse_unported(self):
+        refused = []
+        if self.precision_policy != "exact":
+            refused.append(f"precision_policy={self.precision_policy!r}")
+        if self.topk_method not in PORTED_TOPK_METHODS:
+            refused.append(f"topk_method={self.topk_method!r}")
+        if self.matmul_precision not in PORTED_MATMUL_PRECISIONS:
+            refused.append(f"matmul_precision={self.matmul_precision!r}")
+        if self.backend in ("ring", "ring-overlap"):
+            refused.append(f"backend={self.backend!r}")
+        for name, default in (
+            ("ring_transfer_dtype", None),
+            ("ring_schedule", "uni"),
+            ("ring_fusion", "xla"),
+            ("ring_fused_rotation", "round"),
+            ("partitions", None),
+        ):
+            if getattr(self, name) != default:
+                refused.append(f"{name}={getattr(self, name)!r}")
+        if refused:
+            raise ValueError(
+                f"{', '.join(refused)}: not yet ported to mpi_knn_tpu_torch "
+                "(see ROADMAP.md)"
+            )
+
+    def replace(self, **kw) -> KNNConfig:
+        return dataclasses.replace(self, **kw)

@@ -1,0 +1,44 @@
+"""Named wall-clock phases that wait for the card.
+
+CUDA work is asynchronous: the host returns before the device finishes, so
+a phase that launched device work calls ``block_on`` before it ends, which
+synchronises the device of every CUDA tensor it is given.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import time
+from typing import Dict
+
+import torch
+
+
+class PhaseTimer:
+    """Usage::
+
+        timer = PhaseTimer()
+        with timer.phase("knn"):
+            result = all_knn(...)
+            timer.block_on(result.dists)
+        timer.seconds["knn"]
+    """
+
+    def __init__(self):
+        self.seconds: Dict[str, float] = {}
+
+    @contextlib.contextmanager
+    def phase(self, name: str):
+        t0 = time.perf_counter()
+        try:
+            yield self
+        finally:
+            self.seconds[name] = self.seconds.get(name, 0.0) + (
+                time.perf_counter() - t0
+            )
+
+    @staticmethod
+    def block_on(*tensors):
+        """Wait for the device work producing ``tensors``."""
+        for dev in {t.device for t in tensors if t.is_cuda}:
+            torch.cuda.synchronize(dev)

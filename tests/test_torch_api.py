@@ -1,0 +1,151 @@
+"""End-to-end parity of the port's API (all_knn, KNNClassifier through
+convert.py) with the JAX package on the CPU, and the settings the port
+refuses."""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+import mpi_knn_tpu as jax_pkg
+from mpi_knn_tpu_torch import KNNConfig, all_knn
+from mpi_knn_tpu_torch.convert import (
+    classifier_from_reference,
+    config_from_reference,
+)
+from tests.oracle import recall_against_oracle
+
+PATHS = [("serial", "tiles"), ("pallas", "tiles"), ("pallas", "sweep")]
+TILES = dict(query_tile=64, corpus_tile=128)
+
+
+def _data(seed=0, m=300, d=24, offset=0.0):
+    rng = np.random.default_rng(seed)
+    X = (rng.standard_normal((m, d)) * 3.0 + offset).astype(np.float32)
+    y = rng.integers(0, 4, m).astype(np.int32)
+    return X, y
+
+
+def _assert_same_knn(port, ref, k):
+    gd, gi = port.dists.numpy(), port.ids.numpy()
+    wd, wi = np.asarray(ref.dists), np.asarray(ref.ids)
+    np.testing.assert_allclose(gd, wd, rtol=1e-5, atol=1e-4)
+    assert recall_against_oracle(gi, wd, wi, k) == 1.0
+
+
+@pytest.mark.parametrize("backend,variant", PATHS)
+@pytest.mark.parametrize("metric", ["l2", "cosine"])
+@pytest.mark.parametrize("center", [True, False])
+def test_all_knn_all_pairs_matches_jax(backend, variant, metric, center):
+    X, _ = _data(offset=5.0)
+    kw = dict(k=7, backend=backend, pallas_variant=variant, metric=metric,
+              center=center, **TILES)
+    _assert_same_knn(all_knn(X, device="cpu", **kw), jax_pkg.all_knn(X, **kw), 7)
+
+
+@pytest.mark.parametrize("backend,variant", PATHS)
+def test_all_knn_query_ids_matches_jax(backend, variant):
+    X, _ = _data(1)
+    rows = np.arange(0, 300, 7)
+    kw = dict(k=5, backend=backend, pallas_variant=variant, **TILES)
+    port = all_knn(X, queries=X[rows], query_ids=rows, device="cpu", **kw)
+    ref = jax_pkg.all_knn(X, queries=X[rows], query_ids=rows, **kw)
+    _assert_same_knn(port, ref, 5)
+    assert not (port.ids.numpy() == rows[:, None]).any()  # self excluded
+
+
+@pytest.mark.parametrize("variant", ["tiles", "sweep"])
+def test_cosine_zero_row_falls_back_to_serial_like_jax(variant):
+    X, _ = _data(2, m=96, d=16)
+    X[17] = 0.0
+    kw = dict(k=5, backend="pallas", pallas_variant=variant, metric="cosine",
+              query_tile=32, corpus_tile=64)
+    port = all_knn(X, device="cpu", **kw)
+    _assert_same_knn(port, jax_pkg.all_knn(X, **kw), 5)
+    fused = all_knn(X, device="cpu", **{**kw, "backend": "serial"})
+    np.testing.assert_array_equal(port.ids.numpy(), fused.ids.numpy())
+
+
+@pytest.mark.parametrize("variant", ["tiles", "sweep"])
+def test_k_exceeding_corpus_tile_routes_to_tiles(variant):
+    X, _ = _data(3, m=300, d=8)
+    kw = dict(k=150, backend="pallas", pallas_variant=variant,
+              query_tile=32, corpus_tile=128)
+    _assert_same_knn(all_knn(X, device="cpu", **kw), jax_pkg.all_knn(X, **kw),
+                     150)
+
+
+@pytest.mark.parametrize(
+    "overrides",
+    [dict(dtype="float64"), dict(dtype="bfloat16"),
+     dict(merge_schedule="stream"), dict(topk_method="block", topk_block=16)],
+)
+def test_serial_policies_match_jax(overrides):
+    X, _ = _data(4, m=200)
+    kw = dict(k=6, backend="serial", **TILES, **overrides)
+    port = all_knn(X, device="cpu", **kw)
+    ref = jax_pkg.all_knn(X, **kw)
+    rtol = 1e-2 if overrides.get("dtype") == "bfloat16" else 1e-5
+    np.testing.assert_allclose(port.dists.numpy(), np.asarray(ref.dists),
+                               rtol=rtol, atol=1e-3)
+    assert recall_against_oracle(port.ids.numpy(), np.asarray(ref.dists),
+                                 np.asarray(ref.ids), 6) == 1.0
+
+
+@pytest.mark.parametrize("backend,variant", PATHS)
+@pytest.mark.parametrize("tie_break", ["nearest", "quirk-serial"])
+def test_loo_report_matches_jax_through_convert(backend, variant, tie_break):
+    X, y = _data(5, m=256, d=16)
+    ref_cfg = jax_pkg.KNNConfig(k=5, num_classes=4, backend=backend,
+                                pallas_variant=variant, tie_break=tie_break,
+                                **TILES)
+    ref = jax_pkg.KNNClassifier(config=ref_cfg).fit(X, y).loo_report()
+    port = classifier_from_reference(dataclasses.asdict(ref_cfg), X, y,
+                                     device="cpu").loo_report()
+    assert port.matches == ref.matches
+    np.testing.assert_array_equal(port.classify.predictions.numpy(),
+                                  np.asarray(ref.classify.predictions))
+
+
+def test_default_config_dict_round_trips():
+    d = dataclasses.asdict(jax_pkg.KNNConfig())
+    assert dataclasses.asdict(config_from_reference(d)) == d
+
+
+@pytest.mark.parametrize(
+    "setting",
+    [dict(precision_policy="mixed"), dict(topk_method="approx"),
+     dict(topk_method="approx-rerank"), dict(topk_method="bf16"),
+     dict(matmul_precision="default"), dict(backend="ring"),
+     dict(backend="ring-overlap"), dict(ring_schedule="bidir"),
+     dict(ring_transfer_dtype="bfloat16"), dict(partitions=16)],
+)
+def test_refused_settings_name_themselves(setting):
+    (name, value), = setting.items()
+    with pytest.raises(ValueError, match=f"{name}.*not yet ported"):
+        KNNConfig(**setting)
+    d = dataclasses.asdict(jax_pkg.KNNConfig(**setting))
+    with pytest.raises(ValueError, match="not yet ported"):
+        config_from_reference(d)
+
+
+def test_auto_with_several_devices_is_refused():
+    X, _ = _data(6, m=64)
+    with pytest.raises(ValueError, match="not yet ported"):
+        all_knn(X, k=3, num_devices=2, device="cpu")
+    assert all_knn(X, k=3, device="cpu").ids.shape == (64, 3)  # auto = serial
+
+
+def test_unknown_reference_field_is_refused():
+    d = dataclasses.asdict(jax_pkg.KNNConfig())
+    d["no_such_knob"] = 1
+    with pytest.raises(ValueError, match="no_such_knob"):
+        config_from_reference(d)
+
+
+def test_tensor_input_centers_in_place_of_the_host():
+    X, _ = _data(7, m=128, offset=50.0)
+    kw = dict(k=4, backend="pallas", **TILES)
+    port = all_knn(torch.from_numpy(X), device="cpu", **kw)
+    _assert_same_knn(port, jax_pkg.all_knn(X, **kw), 4)
