@@ -7,27 +7,45 @@ Phases, each printing one JSON line; any failure raises, so the exit code
 is not 0:
 
 1. device: the card's name and power limit (nvidia-smi), TF32 off;
-2. build: every kernel source compiles with nvcc;
-3. kernel vs plain: each kernel against its plain PyTorch version on the
-   same card inputs — small-integer data (every product exact in f32: ids
-   and distances must be equal), MNIST-shaped 8192x784 all-pairs, a
-   query-mode case with a ragged corpus and the main path's 60000x784
-   shape. Every id must be -1 exactly on non-finite slots, else inside its
-   list's corpus range, below m_corpus and (all pairs) not the row itself.
-   Off the small-integer cases, distances lie within rtol 1e-5 +
-   1e-4*(q^2+c^2) of the plain version's and of the f64 distance of the id
-   beside them, and ids agree at >= 0.999, an id the plain version did not
-   pick counting when its own f64 distance ties the plain k-th. Each
-   kernel and its plain version are timed by CUDA events at the main
-   path's shapes, and the serial backend (torch.matmul + stable sort) on
-   the same card inputs as the library yardstick;
-4. main path: KNNClassifier(k=10, backend="pallas").fit(60000x784).
-   loo_report() for both kernel variants, with launch counts reset just
-   before and read just after; then the median of 3 synchronised all-kNN
-   reps (warm-up excluded); recall@10 against an f64 host oracle on 256
-   rows (>= 0.999 or fail); the same for the serial backend;
-5. kernels: one line with every kernel's launches, error, times and bound
-   (the FP32 FLOPs of 60000 real queries against 60000 real rows).
+2. build: every kernel source compiles with nvcc, all started together;
+3. kernel vs plain: each kernel mode against its plain PyTorch version on
+   the same card inputs. The fused kNN kernels (K1 tiles, K2 sweep), exact
+   and compress: small-integer data (every product exact in f32 and every
+   value exact in bf16: ids and distances must be equal), MNIST-shaped
+   8192x784 all-pairs, a query-mode case with a ragged corpus and the main
+   path's 60000x784 shape. The ring block merge (K3a exact, K3b compress):
+   small-integer cases on f32, bf16 and int8 wires with rotated ids,
+   padding, a duplicate, a self id and a carry that ties block entries
+   (bitwise), then the ring's P=1 MNIST shape (60416 queries, a 61440-row
+   block) and a P=4 shard shape (15360 queries, a 16384-row block, a
+   carry from the rank's own block). Off the small-integer cases every id
+   is judged by its own f64 key from the inputs (the squared distance, or
+   in compress mode q^2 - 2 bf16(q).bf16(c) + c^2): -1 exactly on
+   non-finite slots, never the row itself, no id twice in a list, inside
+   its list's range; keys within rtol 1e-5 + 1e-4*(q^2+c^2) of the plain
+   version's and of the id's own; ids agree at >= 0.999, an id the plain
+   version did not pick counting when its own key ties the plain k-th.
+   Each mode and its plain version are timed by CUDA events at the main
+   shapes, beside one PyTorch yardstick each (the serial backend, or the
+   ring's xla-form round, on the same card inputs). Then planted
+   duplicates (an exact pair, a near-twin at d^2 = 64) go through every
+   mixed path on the card: the rerank must drop the pair and keep the
+   twin first at 64;
+4. main paths, at full width (60000x784, k=10), each driven with the
+   launch counts set to 0 just before it and read just after, then the
+   median of 3 synchronised all-kNN reps (host input, then device input;
+   warm-up excluded), and recall@10 against an f64 host oracle on 256 rows
+   (>= 0.999 or fail):
+   - KNNClassifier(backend="pallas"), exact and mixed, tiles and sweep;
+   - the serial backend;
+   - KNNClassifier(backend="ring-overlap", ring_fusion="fused",
+     num_devices=1): exact, mixed, and mixed with the int8 wire;
+   - all_knn on a 4-rank mesh (4 cards when the machine has them, else one
+     card named 4 times): fused exact uni and bidir, and one xla-form run.
+   The exact ring's ids must agree with the exact fused path's (tie-aware,
+   by f64 distance, >= 0.999);
+5. kernels: one line with every kernel mode's launches, error, times and
+   bound.
 
 The last line is {"ok": true, "device": {...}}. Without a card, or without
 the package beside it, the script exits non-zero and prints no result.
@@ -41,14 +59,17 @@ import time
 
 import numpy as np
 
-# H100 SXM data sheet: FP32 (non-tensor) peak and HBM3 bandwidth
+# H100 SXM data sheet: FP32 (non-tensor) and dense bf16 tensor peaks, HBM3
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
 RECALL_GATE = 0.999
 AGREEMENT_GATE = 0.999
 K = 10
+OV = 4 * K  # the mixed policy's overfetch width at the main path's tiles
 M_FULL = 60000
 Q_TILE, C_TILE = 512, 2048  # the fused backend's clamps at the main path
+SAMPLE_ROWS = 4096  # rows whose ids are judged in f64 at the largest shapes
 
 
 def emit(obj):
@@ -88,9 +109,24 @@ def centered(corpus: np.ndarray, queries=None):
     return c if all_pairs else (c, q.astype(np.float32))
 
 
-def true_sq_dists(q, c, ids):
-    """f64 ||q_r - c_id||^2 for every (row r, id) of ``ids`` (Q, L), computed
-    from the inputs alone (inf where id < 0), in row chunks of ~2^26 values."""
+def reset_counts():
+    from mpi_knn_tpu_torch.ops import fused_knn, fused_ring
+
+    fused_knn.reset_launch_counts()
+    fused_ring.reset_launch_counts()
+
+
+def read_counts() -> dict:
+    from mpi_knn_tpu_torch.ops import fused_knn, fused_ring
+
+    return {**fused_knn.LAUNCHES, **fused_ring.LAUNCHES}
+
+
+def true_keys(q, c, ids, compress=False, clamp=True, mask=None):
+    """f64 key of every (row r, id) of ``ids`` (R, L) from the inputs alone:
+    ||q_r - c_id||^2, or in compress mode q^2 - 2 bf16(q).bf16(c) + c^2
+    (max 0 when ``clamp``). inf where id < 0 or ``mask(rows, ids)``. In row
+    chunks of ~2^26 values."""
     import torch
 
     out = torch.full(ids.shape, float("inf"), dtype=torch.float64,
@@ -98,28 +134,41 @@ def true_sq_dists(q, c, ids):
     rows = max(1, (1 << 26) // (ids.shape[1] * q.shape[1]))
     for r0 in range(0, ids.shape[0], rows):
         idc = ids[r0:r0 + rows]
-        diff = q[r0:r0 + rows, None, :].double() - c[idc.clamp_min(0).long()].double()
-        d = (diff * diff).sum(-1)
-        out[r0:r0 + rows] = torch.where(idc >= 0, d, out[r0:r0 + rows])
+        qr, cr = q[r0:r0 + rows, None, :], c[idc.clamp_min(0).long()]
+        if compress:
+            b = torch.bfloat16
+            dot = (qr.to(b).double() * cr.to(b).double()).sum(-1)
+            d = ((qr.double() ** 2).sum(-1) - 2.0 * dot
+                 + (cr.double() ** 2).sum(-1))
+            if clamp:
+                d = d.clamp_min(0.0)
+        else:
+            d = ((qr.double() - cr.double()) ** 2).sum(-1)
+        bad = idc < 0
+        if mask is not None:
+            bad |= mask(torch.arange(r0, r0 + idc.shape[0],
+                                     device=ids.device)[:, None], idc)
+        out[r0:r0 + rows] = torch.where(bad, out[r0:r0 + rows], d)
     return out
 
 
-def check_ids(name, gd, gi, m, all_pairs, k, span):
-    """Ids the kernel wrote, judged on their own: −1 exactly on non-finite
-    slots; else below m_corpus, inside the slot's own corpus range (list l
-    of a row covers [l·span, (l+1)·span)), not the row itself in all-pairs
-    mode, and no id twice in one list."""
+def check_ids(name, gd, gi, m, self_ids, k, span):
+    """Ids the kernel wrote, judged on their own: -1 exactly on non-finite
+    slots; else below m, not the row's own id, no id twice in one list,
+    and (``span`` given) inside the slot's own corpus range (list l of a
+    row covers [l*span, (l+1)*span))."""
     import torch
 
     Q, L = gi.shape
     fin = torch.isfinite(gd)
     if not torch.equal(gi < 0, ~fin) or bool((gi < -1).any()):
         raise AssertionError(f"{name}: id -1 must mark exactly the non-finite slots")
-    lo = (torch.arange(L, device=gi.device) // k * span)[None, :]
-    row = torch.arange(Q, device=gi.device)[:, None]
-    bad = fin & ((gi >= m) | (gi < lo) | (gi >= lo + span))
-    if all_pairs:
-        bad |= fin & (gi == row)
+    bad = fin & (gi >= m)
+    if span is not None:
+        lo = (torch.arange(L, device=gi.device) // k * span)[None, :]
+        bad |= fin & ((gi < lo) | (gi >= lo + span))
+    if self_ids is not None:
+        bad |= fin & (gi == self_ids[:, None])
     if bool(bad.any()):
         raise AssertionError(f"{name}: {int(bad.sum())} ids out of range or self")
     s = gi.reshape(Q, L // k, k).sort(-1).values
@@ -127,18 +176,19 @@ def check_ids(name, gd, gi, m, all_pairs, k, span):
         raise AssertionError(f"{name}: an id appears twice in one list")
 
 
-def compare(name, got, want, q, c, m, all_pairs, exact: bool, k: int,
-            span: int) -> float:
+def compare(name, got, want, q, c, m, self_ids, exact: bool, k: int,
+            span, compress=False, sample=None) -> float:
     """Hold a kernel's (dists, ids) against its plain version's; returns the
     largest absolute distance difference over finite slots. Each sorted
-    list of k is compared on its own (the tiles kernel emits one per query
-    and corpus tile of ``span`` columns)."""
+    list of k is compared on its own (a tiles kernel emits one per query
+    and corpus tile of ``span`` columns). The f64 checks run on the rows
+    of ``sample`` when given, else on every row."""
     import torch
 
     (gd, gi), (wd, wi) = got, want
     if gd.shape != wd.shape or gi.shape != wi.shape:
         raise AssertionError(f"{name}: shape {tuple(gd.shape)} != {tuple(wd.shape)}")
-    check_ids(name, gd, gi, m, all_pairs, k, span)
+    check_ids(name, gd, gi, m, self_ids, k, span)
     same_nan = torch.isnan(gd) == torch.isnan(wd)
     same_inf = torch.isinf(gd) == torch.isinf(wd)
     if not bool(same_nan.all() and same_inf.all()):
@@ -152,11 +202,14 @@ def compare(name, got, want, q, c, m, all_pairs, exact: bool, k: int,
         emit({"phase": "kernel_vs_plain", "case": name, "exact": True,
               "max_abs_err": max_err, "ok": True})
         return max_err
-    # every id is judged by its own f64 distance from the inputs, never by
-    # the distance the kernel reported beside it
+    if sample is not None:
+        gd, gi, wd, wi, fin, diff, q = (t[sample] for t in
+                                        (gd, gi, wd, wi, fin, diff, q))
+    # every id is judged by its own f64 key from the inputs, never by the
+    # distance the kernel reported beside it
     q_sq = (q.double() ** 2).sum(1)
     c_sq = (c.double() ** 2).sum(1)
-    true_g = true_sq_dists(q, c, gi)
+    true_g = true_keys(q, c, gi, compress=compress)
     lists = gd.shape[1] // k
     shape = (-1, k)
     gd, gi, wd, wi, true_g = (t.reshape(shape) for t in (gd, gi, wd, wi, true_g))
@@ -167,12 +220,13 @@ def compare(name, got, want, q, c, m, all_pairs, exact: bool, k: int,
 
     if not bool(torch.where(fin.reshape(shape), diff.reshape(shape) <= tol(wd, wi),
                             True).all()):
-        raise AssertionError(f"{name}: distances outside tolerance of the plain version")
+        raise AssertionError(
+            f"{name}: distances outside tolerance of the plain version")
     gfin = torch.isfinite(gd)
     if not bool(torch.where(gfin, (gd - true_g).abs() <= tol(true_g, gi), True).all()):
         raise AssertionError(f"{name}: a reported distance is not its id's distance")
     # tie-aware agreement: an id the plain version did not pick counts if its
-    # own distance is within tolerance of the plain k-th distance
+    # own key is within tolerance of the plain k-th key
     in_set = (gi[:, :, None] == wi[:, None, :]).any(-1)
     tie = true_g <= wd[:, -1:] + tol(wd[:, -1:], wi[:, -1:])
     valid = wi >= 0
@@ -180,7 +234,73 @@ def compare(name, got, want, q, c, m, all_pairs, exact: bool, k: int,
     if agree < AGREEMENT_GATE:
         raise AssertionError(f"{name}: id agreement {agree} < {AGREEMENT_GATE}")
     emit({"phase": "kernel_vs_plain", "case": name, "exact": False,
-          "max_abs_err": max_err, "id_agreement": agree, "ok": True})
+          "max_abs_err": max_err, "id_agreement": agree,
+          "rows_judged_in_f64": int(gd.shape[0] // lists), "ok": True})
+    return max_err
+
+
+def compare_positions(name, got, want, q, rows, bids, qids, c_tile,
+                      exact: bool, sample=None) -> float:
+    """Hold K3b's (n_c, Q, ov) tile-local positions against the plain
+    version's. Every position lies in its tile and appears once per list;
+    on small integers the positions are equal. Else each chosen column is
+    judged by its own f64 compressed key (inf when masked), the sorted
+    keys of both lists must agree within tolerance, and the columns agree
+    tie-aware at >= 0.999. Returns the largest key difference at equal
+    rank."""
+    import torch
+
+    if got.shape != want.shape:
+        raise AssertionError(f"{name}: shape {tuple(got.shape)} != {tuple(want.shape)}")
+    n_c, Q, ov = got.shape
+    if bool(((got < 0) | (got >= c_tile)).any()):
+        raise AssertionError(f"{name}: a position outside its tile")
+    s = got.sort(-1).values
+    if bool((s[..., 1:] == s[..., :-1]).any()):
+        raise AssertionError(f"{name}: a position appears twice in one list")
+    if exact:
+        if not torch.equal(got, want):
+            raise AssertionError(f"{name}: small-integer data must match bitwise")
+        emit({"phase": "kernel_vs_plain", "case": name, "exact": True,
+              "max_abs_err": 0.0, "ok": True})
+        return 0.0
+    if sample is not None:
+        got, want, q, qids = got[:, sample], want[:, sample], q[sample], qids[sample]
+    base = (torch.arange(n_c, device=got.device) * c_tile)[:, None, None]
+    # (Q, n_c*ov) block rows, lists of ov per tile
+    g_rows = (got + base).permute(1, 0, 2).reshape(q.shape[0], -1)
+    w_rows = (want + base).permute(1, 0, 2).reshape(q.shape[0], -1)
+
+    def masked(r, idx):
+        bid = bids[idx.long()]
+        return (bid < 0) | (bid == qids[r])
+
+    kg = true_keys(q, rows, g_rows, compress=True, clamp=False, mask=masked)
+    kw = true_keys(q, rows, w_rows, compress=True, clamp=False, mask=masked)
+    kg, kw = kg.reshape(-1, ov), kw.reshape(-1, ov)
+    g_rows, w_rows = g_rows.reshape(-1, ov), w_rows.reshape(-1, ov)
+    q_sq = (q.double() ** 2).sum(1).repeat_interleave(n_c)[:, None]
+    c_sq = (rows.double() ** 2).sum(1)
+    sg, sw = kg.sort(-1).values, kw.sort(-1).values
+    fin = torch.isfinite(sw)
+    if not torch.equal(torch.isfinite(sg), fin):
+        raise AssertionError(f"{name}: masked columns chosen differently")
+    c_big = c_sq[w_rows.long()].max(-1, keepdim=True).values
+    tol = 1e-5 * sw.abs() + 1e-4 * (q_sq + c_big)
+    diff = torch.where(fin, (sg - sw).abs(), torch.zeros_like(sg))
+    if not bool((diff <= tol).all()):
+        raise AssertionError(
+            f"{name}: chosen keys outside tolerance of the plain version's")
+    in_set = (g_rows[:, :, None] == w_rows[:, None, :]).any(-1)
+    kth = sw[:, -1:]
+    tie = kg <= kth + tol[:, -1:]
+    agree = float((in_set | tie).sum()) / in_set.numel()
+    if agree < AGREEMENT_GATE:
+        raise AssertionError(f"{name}: position agreement {agree} < {AGREEMENT_GATE}")
+    max_err = float(diff.max())
+    emit({"phase": "kernel_vs_plain", "case": name, "exact": False,
+          "max_abs_err": max_err, "id_agreement": agree,
+          "rows_judged_in_f64": int(q.shape[0]), "ok": True})
     return max_err
 
 
@@ -219,17 +339,63 @@ def kernel_cases(device):
         yield name, qp, cp, len(c), all_pairs, exact, k, qt, ct
 
 
+def ring_small_cases(device):
+    """Small-integer K3a/K3b operands on each wire: rows of integers in
+    [-127, 127] over 16 with one +-127/16 entry (exact in f32 and bf16,
+    lossless in int8), rotated block ids with -1 padding, a duplicate of a
+    query, a query whose own id is in the block, and a carry of real block
+    distances under lower ids (ties)."""
+    import torch
+
+    from mpi_knn_tpu_torch.ops.quant import quantize_rows
+
+    rng = np.random.default_rng(1)
+
+    def rows(n, dim=96):
+        x = rng.integers(-127, 128, (n, dim)).astype(np.float32)
+        x[np.arange(n), rng.integers(0, dim, n)] = 127.0
+        return x / 16
+
+    q, blk = rows(300), rows(1024)
+    blk[100] = q[4]
+    bids = (rng.permutation(50000)[:1024] + 1000).astype(np.int32)
+    bids[-40:] = -1
+    qids = np.arange(300, dtype=np.int32) + 60000
+    qids[7] = bids[500]
+    d = ((q[:, None].astype(np.float64) - blk[None]) ** 2).sum(-1)
+    order = np.argsort(d, axis=1, kind="stable")
+    cd = np.take_along_axis(d, order[:, 2:2 + K], 1).astype(np.float32)
+    ci = np.stack([rng.choice(1000, K, replace=False)
+                   for _ in range(300)]).astype(np.int32)
+    t = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
+    for wire in ("float32", "bfloat16", "int8"):
+        b, scale = t(blk), None
+        if wire == "int8":
+            b, scale = quantize_rows(b)
+        elif wire == "bfloat16":
+            b = b.to(torch.bfloat16)
+        yield wire, (t(q), t(qids), b, t(bids), scale), (t(cd), t(ci))
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 2
-    from mpi_knn_tpu_torch import KNNClassifier, KNNConfig, all_knn
+    from mpi_knn_tpu_torch import KNNClassifier, KNNConfig, all_knn, knn_classify
+    from mpi_knn_tpu_torch.backends import ring
     from mpi_knn_tpu_torch.backends.serial import all_knn_serial
     from mpi_knn_tpu_torch.data.synthetic import make_mnist_like
-    from mpi_knn_tpu_torch.ops import _build, fused_knn
-    from mpi_knn_tpu_torch.parallel.partition import pad_rows_any, pad_to_multiple
+    from mpi_knn_tpu_torch.ops import _build, fused_knn, fused_ring
+    from mpi_knn_tpu_torch.ops.topk import init_topk
+    from mpi_knn_tpu_torch.ops.quant import dequantize_rows, quantize_rows
+    from mpi_knn_tpu_torch.parallel.mesh import make_ring_mesh
+    from mpi_knn_tpu_torch.parallel.partition import (
+        make_global_ids,
+        pad_rows_any,
+        pad_to_multiple,
+    )
 
     device = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
@@ -248,28 +414,36 @@ def main() -> int:
         emit({"phase": "build", "source": f"csrc/{name}.cu",
               "seconds": entry["seconds"], "cached": entry["log"] == "cached"})
 
-    kernels = {
-        "fused_knn_tiles": (fused_knn.fused_knn_tiles,
-                            fused_knn.fused_knn_tiles_reference),
-        "fused_knn_sweep": (fused_knn.fused_knn_sweep,
-                            fused_knn.fused_knn_sweep_reference),
+    # ---- the fused kNN kernels against their plain versions -------------
+    knn_modes = {  # mode name -> (wrapper, plain version, compress)
+        f"{base}{suffix}": (getattr(fused_knn, base),
+                            getattr(fused_knn, base + "_reference"),
+                            bool(suffix))
+        for suffix in ("", "[compress]")
+        for base in ("fused_knn_tiles", "fused_knn_sweep")
     }
-    # the corpus columns one output list covers: a corpus tile, or all of it
-    spans = {"fused_knn_tiles": lambda ct, C: ct, "fused_knn_sweep": lambda ct, C: C}
-    max_err = {name: 0.0 for name in kernels}
+
+    def span_of(name, ct, C):  # the corpus columns one output list covers
+        return ct if name.startswith("fused_knn_tiles") else C
+
+    max_err = {}
     for case, qp, cp, m, all_pairs, exact, k, qt, ct in kernel_cases(device):
-        for name, (kern, plain) in kernels.items():
-            args = (qp, cp, m, k, qt, ct)
-            kw = dict(all_pairs=all_pairs)
+        self_ids = torch.arange(qp.shape[0], device=device) if all_pairs else None
+        for name, (kern, plain, compress) in knn_modes.items():
+            kk = min(4 * k, ct) if compress else k
+            args = (qp, cp, m, kk, qt, ct)
+            kw = dict(all_pairs=all_pairs, compress=compress)
             got = kern(*args, **kw)
             torch.cuda.synchronize()
             err = compare(f"{name}/{case}", got, plain(*args, **kw), qp, cp, m,
-                          all_pairs, exact, k, spans[name](ct, cp.shape[0]))
-            max_err[name] = max(max_err[name], err)
+                          self_ids, exact, kk, span_of(name, ct, cp.shape[0]),
+                          compress=compress)
+            max_err[name] = max(max_err.get(name, 0.0), err)
 
     # ---- kernels alone at the main path's shapes -------------------------
     X, y = make_mnist_like(M_FULL)
     Xc = centered(X)
+    Xcd = torch.from_numpy(Xc).to(device)
     qp = pad_rows_any(Xc, pad_to_multiple(M_FULL, Q_TILE), dtype=torch.float32,
                       device=device)
     cp = pad_rows_any(Xc, pad_to_multiple(M_FULL, C_TILE), dtype=torch.float32,
@@ -277,58 +451,211 @@ def main() -> int:
     Q, D = qp.shape
     C = cp.shape[0]
     n_c = C // C_TILE
+    rng = np.random.default_rng(2)
+    sample = torch.from_numpy(
+        np.sort(rng.choice(M_FULL, SAMPLE_ROWS, replace=False))).to(device)
+    needed_ops = 2.0 * M_FULL * M_FULL * D  # real queries x real rows
+
+    def bound(ops, nbytes, peak):
+        t_ops, t_bytes = ops / peak, nbytes / PEAK_BYTES_PER_S
+        return {"bound_ms": 1e3 * max(t_ops, t_bytes),
+                "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
     timing = {}
-    for name, (kern, plain) in kernels.items():
-        args = (qp, cp, M_FULL, K, Q_TILE, C_TILE)
-        got, want = kern(*args), plain(*args)  # also the warm-ups
-        ms = cuda_ms(lambda: kern(*args), reps=3)
-        plain_ms = cuda_ms(lambda: plain(*args), reps=3)
+    self_all = torch.arange(Q, device=device)
+    for name, (kern, plain, compress) in knn_modes.items():
+        kk = OV if compress else K
+        args = (qp, cp, M_FULL, kk, Q_TILE, C_TILE)
+        kw = dict(compress=compress)
+        got, want = kern(*args, **kw), plain(*args, **kw)  # also the warm-ups
+        ms = cuda_ms(lambda: kern(*args, **kw), reps=3)
+        plain_ms = cuda_ms(lambda: plain(*args, **kw), reps=3)
+        # the exact lists are judged on every row; compress lists are 4x as
+        # long, so a sample of rows
         err = compare(f"{name}/mnist60k_main_shape", got, want, qp, cp, M_FULL,
-                      True, False, K, spans[name](C_TILE, C))
+                      self_all, False, kk, span_of(name, C_TILE, C),
+                      compress=compress, sample=sample if compress else None)
         max_err[name] = max(max_err[name], err)
-        # the work the main path needs: its 60000 real queries against the
-        # 60000 real corpus rows (padding rows and columns are not needed)
-        out_slots = (n_c if name == "fused_knn_tiles" else 1) * M_FULL * K
-        ops = 2.0 * M_FULL * M_FULL * D
+        out_slots = (n_c if name.startswith("fused_knn_tiles") else 1) * M_FULL * kk
         nbytes = 4.0 * (2 * M_FULL * D) + 8.0 * out_slots
-        t_ops, t_bytes = ops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S
-        timing[name] = {
-            "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": 1e3 * max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "tflops": ops / (ms * 1e-3) / 1e12,
-        }
+        timing[name] = {"ms": ms, "plain_ms": plain_ms,
+                        **bound(needed_ops, nbytes,
+                                PEAK_BF16_FLOPS if compress else PEAK_FP32_FLOPS)}
+        timing[name]["tflops"] = needed_ops / (ms * 1e-3) / 1e12
         emit({"phase": "kernel_time", "kernel": name, "Q": Q, "C": C, "D": D,
-              "k": K, **timing[name]})
+              "k": kk, **timing[name]})
+        del got, want
     del qp, cp
 
-    # the library yardstick: the serial backend (torch.matmul + stable sort)
-    # on the same centered corpus, already on the card
-    Xcd = torch.from_numpy(Xc).to(device)
-    serial_cfg = KNNConfig(k=K, backend="serial")
+    # ---- the ring block merge against its plain versions -----------------
+    merge_modes = {
+        "fused_block_merge[exact]": (fused_ring.block_merge_exact,
+                                     fused_ring.block_merge_exact_reference),
+        "fused_block_merge[compress]": (fused_ring.block_merge_compress,
+                                        fused_ring.block_merge_compress_reference),
+    }
+    for name in merge_modes:
+        max_err[name] = 0.0
+    for wire, ops, (cd, ci) in ring_small_cases(device):
+        kern, plain = merge_modes["fused_block_merge[exact]"]
+        got = kern(*ops, cd, ci, c_tile=256)
+        torch.cuda.synchronize()
+        compare(f"fused_block_merge[exact]/small_int_{wire}", got,
+                plain(*ops, cd, ci, c_tile=256), ops[0], None, 1 << 30, ops[1],
+                True, K, None)
+        kern, plain = merge_modes["fused_block_merge[compress]"]
+        got = kern(*ops, ov=OV, c_tile=256)
+        torch.cuda.synchronize()
+        compare_positions(f"fused_block_merge[compress]/small_int_{wire}", got,
+                          plain(*ops, ov=OV, c_tile=256), None, None, None,
+                          None, 256, True)
+
+    def ring_operands(P, rank_q, rank_b, wire=None):
+        """Rank ``rank_q``'s query shard and rank ``rank_b``'s block of the
+        main path's ring at P ranks (ring_tiles' padding), on the card."""
+        cfg = KNNConfig(k=K)
+        q_tile, c_tile, q_pad, c_pad = ring.ring_tiles(cfg, M_FULL, M_FULL, 1, P)
+        ql, b = q_pad // P, c_pad // P
+        rows = slice(rank_q * ql, (rank_q + 1) * ql)
+        cols = slice(rank_b * b, (rank_b + 1) * b)
+        qs = pad_rows_any(Xcd, q_pad)[rows].contiguous()
+        ids = torch.from_numpy(make_global_ids(M_FULL, c_pad)).to(device)
+        qids = torch.arange(q_pad, dtype=torch.int32, device=device)
+        qids = torch.where(qids < M_FULL, qids, -1)[rows].contiguous()
+        blk = pad_rows_any(Xcd, c_pad)[cols].contiguous()
+        scale = None
+        if wire == "int8":
+            blk, scale = ring.quantize_ring_block(blk)
+        return (qs, qids, blk, ids[cols].contiguous(), scale), q_tile, c_tile
+
+    ring_timing = {}
+    merge_shapes = [("p1_mnist60k", 1, 0, 0, None),
+                    ("p4_shard", 4, 0, 1, None), ("p4_shard_int8", 4, 0, 1, "int8")]
+    for shape, P, rq, rb, wire in merge_shapes:
+        ops, q_tile, c_tile = ring_operands(P, rq, rb, wire)
+        qs, qids, blk, bids, scale = ops
+        rows_f32 = blk.float() if scale is None else blk.float() * scale[:, None]
+        # the rows the kernels see, by global id: dequantized on the int8 wire
+        c_true = Xcd if wire is None else dequantize_rows(*quantize_rows(Xcd))
+        ql, b = qs.shape[0], blk.shape[0]
+        if rq == rb:
+            carry = init_topk(ql, K, device=device)
+        else:  # the carry the rank holds after merging its own block
+            carry = fused_ring.block_merge_exact_reference(
+                *ring_operands(P, rq, rq, wire)[0], *init_topk(ql, K, device=device),
+                c_tile=c_tile)
+        sub = sample[sample < ql] if ql < M_FULL else sample
+        real_q = int((qids >= 0).sum())
+        real_b = int((bids >= 0).sum())
+        for name, (kern, plain) in merge_modes.items():
+            if name.endswith("[exact]"):
+                call = lambda: kern(*ops, *carry, c_tile=c_tile)  # noqa: E731
+                pcall = lambda: plain(*ops, *carry, c_tile=c_tile)  # noqa: E731
+            else:
+                call = lambda: kern(*ops, ov=OV, c_tile=c_tile)  # noqa: E731
+                pcall = lambda: plain(*ops, ov=OV, c_tile=c_tile)  # noqa: E731
+            got, want = call(), pcall()
+            ms = cuda_ms(call, reps=3)
+            plain_ms = cuda_ms(pcall, reps=3)
+            if name.endswith("[exact]"):
+                err = compare(f"{name}/{shape}", got, want, qs, c_true, M_FULL,
+                              qids, False, K, None,
+                              sample=sub if ql >= SAMPLE_ROWS else None)
+                out_bytes = 8.0 * ql * K + 8.0 * ql * K  # carry in and out
+            else:
+                err = compare_positions(f"{name}/{shape}", got, want, qs,
+                                        rows_f32, bids, qids, c_tile, False,
+                                        sample=sub)
+                out_bytes = 4.0 * real_q * (b // c_tile) * OV
+            max_err[name] = max(max_err[name], err)
+            in_bytes = 4.0 * real_q * D + blk.element_size() * real_b * D
+            ops_needed = 2.0 * real_q * real_b * D
+            entry = {"ms": ms, "plain_ms": plain_ms,
+                     **bound(ops_needed, in_bytes + out_bytes,
+                             PEAK_FP32_FLOPS if name.endswith("[exact]")
+                             else PEAK_BF16_FLOPS)}
+            ring_timing[(name, shape)] = entry
+            emit({"phase": "kernel_time", "kernel": name, "shape": shape,
+                  "q_local": ql, "b": b, "D": D, "k": K, "ov": OV,
+                  "wire": wire or "float32", **entry})
+            del got, want
+
+    # ---- planted duplicates through the mixed paths' rerank on the card ---
+    # An exact duplicate pair and a near-twin one pixel off by 8: the
+    # compress keys of the two collapse; only the exact rerank drops the
+    # duplicate by the zero rule and keeps the twin first at d^2 = 64.
+    Xdup, _ = make_mnist_like(8192, seed=3)
+    Xdup[7] = Xdup[3]
+    Xdup[42] = Xdup[11]
+    Xdup[42, 0] += 8.0
+    for label, kw in (
+            ("pallas/tiles", dict(backend="pallas", pallas_variant="tiles")),
+            ("pallas/sweep", dict(backend="pallas", pallas_variant="sweep")),
+            ("ring/P1", dict(backend="ring-overlap", ring_fusion="fused",
+                             num_devices=1)),
+            ("ring/P4/bidir", dict(backend="ring-overlap", ring_fusion="fused",
+                                   mesh=[device] * 4, ring_schedule="bidir")),
+            ("serial", dict(backend="serial"))):
+        res = all_knn(Xdup, k=K, precision_policy="mixed", device=device, **kw)
+        ids, dists = res.ids.cpu().numpy(), res.dists.cpu().numpy()
+        ok = (7 not in ids[3] and 3 not in ids[7] and ids[11][0] == 42
+              and ids[42][0] == 11 and abs(float(dists[11][0]) - 64.0) < 0.01)
+        emit({"phase": "mixed_duplicates", "path": label,
+              "twin_d2": float(dists[11][0]), "ok": ok})
+        if not ok:
+            raise AssertionError(f"{label}: planted duplicates not handled")
+
+    # ---- the PyTorch yardsticks (library_ms), on the same card inputs -----
     row_ids = np.arange(M_FULL, dtype=np.int32)
+    library = {}
+    for policy in ("exact", "mixed"):
+        cfg = KNNConfig(k=K, backend="serial", precision_policy=policy)
 
-    def serial():
-        return all_knn_serial(Xcd, Xcd, row_ids, serial_cfg, device)
+        def serial():
+            return all_knn_serial(Xcd, Xcd, row_ids, cfg, device)
 
-    serial()  # warm-up
-    library_ms = cuda_ms(serial, reps=3)
-    emit({"phase": "library_time", "call": "backends.serial.all_knn_serial",
-          "m": M_FULL, "d": D, "k": K, "ms": library_ms})
-    del Xcd
+        serial()  # warm-up
+        library[("serial", policy)] = cuda_ms(serial, reps=3)
+        emit({"phase": "library_time", "call": "backends.serial.all_knn_serial",
+              "precision_policy": policy, "m": M_FULL, "d": D, "k": K,
+              "ms": library[("serial", policy)]})
+    ops, q_tile, c_tile = ring_operands(1, 0, 0)
+    for policy in ("exact", "mixed"):
+        cfg = KNNConfig(k=K, precision_policy=policy)
 
-    # ---- the main path ------------------------------------------------------
-    sample = np.linspace(0, M_FULL - 1, num=256, dtype=np.int64)
-    Xs = X.astype(np.float64)
-    d = ((Xs[sample] ** 2).sum(1)[:, None] + (Xs ** 2).sum(1)[None, :]
-         - 2.0 * (Xs[sample] @ Xs.T))
-    d[d <= 1e-9] = np.inf  # the reference's zero exclusion
-    d[np.arange(len(sample)), sample] = np.inf  # leave-one-out
-    want_ids = np.argsort(d, axis=1, kind="stable")[:, :K]
+        def xla_round():
+            return ring._merge(ops[0], ops[1], ops[2:], init_topk(
+                ops[0].shape[0], K, device=device), cfg, q_tile, c_tile)
 
-    def recall(ids) -> float:
-        got = ids[torch.as_tensor(sample, device=ids.device)].cpu().numpy()
-        return float((want_ids[:, :, None] == got[:, None, :]).any(-1).mean())
+        xla_round()  # warm-up
+        library[("xla_round", policy)] = cuda_ms(xla_round, reps=3)
+        emit({"phase": "library_time", "call": "backends.ring._merge (xla form)",
+              "precision_policy": policy, "shape": "p1_mnist60k",
+              "ms": library[("xla_round", policy)]})
+    del ops
+
+    # ---- the main paths ---------------------------------------------------
+    sample256 = np.linspace(0, M_FULL - 1, num=256, dtype=np.int64)
+
+    def oracle(corpus, rtol):
+        """f64 ids of the 256 sampled rows' k nearest corpus rows: self
+        excluded, and zero distance (d <= rtol (q^2 + c^2), or d <= 1e-9
+        when rtol is 0), ties to the lower id."""
+        c = corpus.astype(np.float64)
+        q = c[sample256] if corpus is X else Xc[sample256].astype(np.float64)
+        q_sq, c_sq = (q ** 2).sum(1)[:, None], (c ** 2).sum(1)[None, :]
+        d = q_sq + c_sq - 2.0 * (q @ c.T)
+        d[d <= (rtol * (q_sq + c_sq) if rtol else 1e-9)] = np.inf
+        d[np.arange(len(sample256)), sample256] = np.inf  # leave-one-out
+        return np.argsort(d, axis=1, kind="stable")[:, :K]
+
+    want_ids = oracle(X, 0.0)  # the reference's workload, on the input data
+    # what the int8 wire hands the rerank: each row's dequantized codes
+    want_wire = oracle(dequantize_rows(*quantize_rows(Xcd)).cpu().numpy(), 1e-6)
+
+    def recall(ids, want=want_ids) -> float:
+        got = ids[torch.as_tensor(sample256, device=ids.device)].cpu().numpy()
+        return float((want[:, :, None] == got[:, None, :]).any(-1).mean())
 
     Xd = torch.from_numpy(X).to(device)
 
@@ -342,58 +669,143 @@ def main() -> int:
             times.append(time.perf_counter() - t0)
         return out, 1e3 * statistics.median(times), times
 
-    def drive(backend, variant):
-        """One main-path run, the LOO report: launch counts reset just
-        before it and read just after. Then the timing reps (warm-up
-        excluded): the host-input form is what KNNClassifier users call;
-        the device-input form (corpus already on the card, centered there)
-        is what the JAX package's bench times. Returns the JSON line."""
-        clf = KNNClassifier(k=K, backend=backend, pallas_variant=variant,
-                            device="cuda").fit(X, y)
-        fused_knn.reset_launch_counts()
-        report = clf.loo_report()  # the main path; also the timing warm-up
-        counts = dict(fused_knn.LAUNCHES)
-        res, host_ms, host_s = median_ms(lambda: clf.kneighbors(None))
-        _, dev_ms, dev_s = median_ms(
-            lambda: all_knn(Xd, config=clf.config, device=device))
-        ids = report.result.ids
-        if ids.shape != (M_FULL, K) or not bool(torch.isfinite(report.result.dists).all()):
-            raise AssertionError(f"{backend}/{variant}: bad result shape or values")
+    def drive(label, run, host, dev_input, expect, wire_oracle=False):
+        """One main-path run (``run`` returns (KNNResult, matches)) with the
+        launch counts set to 0 just before it and read just after, then the
+        timing reps (warm-up excluded): the host-input form (numpy corpus,
+        what KNNClassifier users call) and the device-input form (corpus
+        already on the card, centered there). ``expect`` maps kernel modes
+        to the launches the run must show. The recall gate holds against
+        the input data's oracle, or with ``wire_oracle`` (the int8 wire)
+        against the oracle of the rows the wire delivers: quantization is a
+        configured loss the exact rerank cannot undo, so there the input
+        data's recall is reported beside it. Returns (line, ids)."""
+        reset_counts()
+        result, matches = run()
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in read_counts().items() if v}
+        res, host_ms, host_s = median_ms(host)
+        _, dev_ms, dev_s = median_ms(dev_input)
+        ids = result.ids
+        if ids.shape != (M_FULL, K) or not bool(torch.isfinite(result.dists).all()):
+            raise AssertionError(f"{label}: bad result shape or values")
         if not torch.equal(res.ids, ids):
-            raise AssertionError(f"{backend}/{variant}: reps disagree")
+            raise AssertionError(f"{label}: reps disagree")
         rec = recall(ids)
-        line = {"phase": "main_path", "backend": backend, "variant": variant,
-                "m": M_FULL, "d": D, "k": K, "allknn_ms_median": host_ms,
-                "allknn_s_reps": host_s, "device_input_ms_median": dev_ms,
-                "device_input_s_reps": dev_s, "matches": report.matches,
-                "total": report.total, "recall_at_10": rec,
+        line = {"phase": "main_path", "path": label, "m": M_FULL, "d": D,
+                "k": K, "allknn_ms_median": host_ms, "allknn_s_reps": host_s,
+                "device_input_ms_median": dev_ms, "device_input_s_reps": dev_s,
+                "matches": matches, "total": M_FULL, "recall_at_10": rec,
                 "launches": counts}
+        if wire_oracle:
+            line["recall_at_10_input_data"] = rec
+            line["recall_at_10"] = rec = recall(ids, want_wire)
         emit(line)
         if rec < RECALL_GATE:
-            raise AssertionError(f"{backend}/{variant}: recall@10 {rec} < {RECALL_GATE}")
-        return line
+            raise AssertionError(f"{label}: recall@10 {rec} < {RECALL_GATE}")
+        if counts != expect:
+            raise AssertionError(f"{label}: launches {counts}, expected {expect}")
+        return line, ids
 
-    launches = {}
+    def drive_clf(label, expect, **kw):
+        clf = KNNClassifier(k=K, device="cuda", **kw).fit(X, y)
+
+        def run():
+            report = clf.loo_report()
+            return report.result, report.matches
+
+        return drive(label, run, lambda: clf.kneighbors(None),
+                     lambda: all_knn(Xd, config=clf.config, device=device),
+                     expect, wire_oracle=clf.config.ring_transfer_dtype == "int8")
+
+    launches, ids_of = {}, {}
     for variant, kname in (("tiles", "fused_knn_tiles"),
                            ("sweep", "fused_knn_sweep")):
-        launches[kname] = drive("pallas", variant)["launches"][kname]
-        if launches[kname] <= 0:
-            raise AssertionError(f"{kname} was not launched on the main path")
-    drive("serial", "tiles")
+        for policy, suffix in (("exact", ""), ("mixed", "[compress]")):
+            label = f"pallas/{variant}/{policy}"
+            line, ids_of[label] = drive_clf(
+                label, {kname + suffix: 1}, backend="pallas",
+                pallas_variant=variant, precision_policy=policy)
+            launches[kname + suffix] = line["launches"][kname + suffix]
+    drive_clf("serial/exact", {}, backend="serial")
+
+    ring_p1 = [("exact", None, "fused_block_merge[exact]"),
+               ("mixed", None, "fused_block_merge[compress]"),
+               ("mixed", "int8", "fused_block_merge[compress]")]
+    for policy, wire, kname in ring_p1:
+        label = f"ring-overlap/fused/P1/{policy}/{wire or 'float32'}"
+        line, ids_of[label] = drive_clf(
+            label, {kname: 1}, backend="ring-overlap", ring_fusion="fused",
+            num_devices=1, precision_policy=policy, ring_transfer_dtype=wire)
+        if (policy, wire) in (("exact", None), ("mixed", None)):
+            launches[kname] = line["launches"][kname]
+
+    mesh = make_ring_mesh(4) if count >= 4 else make_ring_mesh(devices=[device] * 4)
+    emit({"phase": "mesh", "ranks": [str(d) for d in mesh]})
+    for schedule, fusion, expect in (
+            ("uni", "fused", {"fused_block_merge[exact]": 16}),
+            ("bidir", "fused", {"fused_block_merge[exact]": 16}),
+            ("uni", "xla", {})):
+        cfg = KNNConfig(k=K, backend="ring-overlap", ring_schedule=schedule,
+                        ring_fusion=fusion)
+        label = f"ring-overlap/{fusion}/P4/exact/{schedule}"
+
+        def run():
+            res = all_knn(X, config=cfg, mesh=mesh, device=device)
+            return res, int(knn_classify(res, y).matches(y))
+
+        _, ids_of[label] = drive(
+            label, run, lambda: all_knn(X, config=cfg, mesh=mesh, device=device),
+            lambda: all_knn(Xd, config=cfg, mesh=mesh, device=device), expect)
+
+    # the exact ring must find the exact fused path's neighbours (by f64
+    # distance, tie-aware) on the sampled rows
+    ref = ids_of["pallas/tiles/exact"][sample]
+    ref_d = true_keys(Xcd[sample], Xcd, ref)
+    for label, ids in ids_of.items():
+        if not label.startswith("ring") or "/exact" not in label:
+            continue
+        got = ids[sample]
+        got_d = true_keys(Xcd[sample], Xcd, got)
+        in_set = (got[:, :, None] == ref[:, None, :]).any(-1)
+        kth = ref_d[:, -1:]
+        scale = 2.0 * (Xcd[sample].double() ** 2).sum(1, keepdim=True)
+        tie = got_d <= kth + 1e-5 * kth + 1e-4 * scale
+        agree = float((in_set | tie).float().mean())
+        emit({"phase": "ring_vs_fused", "path": label, "rows": SAMPLE_ROWS,
+              "id_agreement": agree})
+        if agree < AGREEMENT_GATE:
+            raise AssertionError(f"{label}: agreement with the fused path {agree}")
 
     replaces = {
         "fused_knn_tiles": "mpi_knn_tpu/ops/pallas_knn.py:249",
         "fused_knn_sweep": "mpi_knn_tpu/ops/pallas_knn.py:330",
+        "fused_knn_tiles[compress]": "mpi_knn_tpu/ops/pallas_knn.py:249",
+        "fused_knn_sweep[compress]": "mpi_knn_tpu/ops/pallas_knn.py:330",
+        "fused_block_merge[exact]": "mpi_knn_tpu/ops/pallas_ring.py:337",
+        "fused_block_merge[compress]": "mpi_knn_tpu/ops/pallas_ring.py:363",
     }
+    library_of = {
+        "fused_knn_tiles": library[("serial", "exact")],
+        "fused_knn_sweep": library[("serial", "exact")],
+        "fused_knn_tiles[compress]": library[("serial", "mixed")],
+        "fused_knn_sweep[compress]": library[("serial", "mixed")],
+        "fused_block_merge[exact]": library[("xla_round", "exact")],
+        "fused_block_merge[compress]": library[("xla_round", "mixed")],
+    }
+    times = {**timing, **{name: ring_timing[(name, "p1_mnist60k")]
+                          for name in merge_modes}}
     emit({"kernels": [
         {"name": name, "route": "cuda",
-         "source": "mpi_knn_tpu_torch/csrc/fused_knn.cu",
+         "source": "mpi_knn_tpu_torch/csrc/"
+                   + ("fused_knn.cu" if name.startswith("fused_knn")
+                      else "fused_ring.cu"),
          "replaces": replaces[name], "launches": launches[name],
-         "max_abs_err": max_err[name], "ms": timing[name]["ms"],
-         "plain_ms": timing[name]["plain_ms"],
-         "bound_ms": timing[name]["bound_ms"],
-         "bound_by": timing[name]["bound_by"], "library_ms": library_ms}
-        for name in kernels
+         "max_abs_err": max_err[name], "ms": times[name]["ms"],
+         "plain_ms": times[name]["plain_ms"],
+         "bound_ms": times[name]["bound_ms"],
+         "bound_by": times[name]["bound_by"], "library_ms": library_of[name]}
+        for name in replaces
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -17,21 +17,26 @@ from mpi_knn_tpu_torch.ops.vote import classify_from_labels
 from mpi_knn_tpu_torch.types import ClassifyResult, KNNResult
 
 
-def resolve_backend(cfg: KNNConfig) -> str:
-    """``auto`` is ``serial`` on one device. On more it would be the ring,
-    which is not ported, so that is refused rather than run on one card."""
+def resolve_backend(cfg: KNNConfig, mesh=None, device=DEFAULT_DEVICE) -> str:
+    """``auto`` is ``ring-overlap`` when the ring has more than one rank
+    (``num_devices``, else the mesh, else the visible cards; the CPU counts
+    one), else ``serial``, as in the JAX package."""
     if cfg.backend != "auto":
         return cfg.backend
-    if (cfg.num_devices or 1) > 1:
-        raise ValueError(
-            f"backend='auto' with num_devices={cfg.num_devices} resolves to "
-            "the ring backend: not yet ported"
-        )
-    return "serial"
+    if cfg.num_devices is not None:
+        n = cfg.num_devices
+    elif mesh is not None:
+        n = len(mesh)
+    elif torch.device(device).type == "cuda":
+        n = torch.cuda.device_count()
+    else:
+        n = 1
+    return "ring-overlap" if n > 1 else "serial"
 
 
 def all_knn(corpus, queries=None, config: Optional[KNNConfig] = None,
-            query_ids=None, device=DEFAULT_DEVICE, **overrides) -> KNNResult:
+            mesh=None, query_ids=None, device=DEFAULT_DEVICE,
+            **overrides) -> KNNResult:
     """All-kNN search.
 
     Args:
@@ -39,6 +44,8 @@ def all_knn(corpus, queries=None, config: Optional[KNNConfig] = None,
       queries: (q, d) queries, or None for all-pairs leave-one-out mode
         (every corpus row queries the corpus with itself excluded).
       config: KNNConfig; fields may be overridden by kwargs.
+      mesh: optional ring mesh for the ring backends: a list of devices,
+        one per rank (parallel/mesh.py); default ``num_devices`` ranks.
       query_ids: optional (q,) corpus identities of explicit ``queries``
         (keeps self-exclusion for sampled corpus rows; -1 = none).
       device: where the search runs ("cuda" unless told otherwise).
@@ -49,7 +56,7 @@ def all_knn(corpus, queries=None, config: Optional[KNNConfig] = None,
     """
     cfg = (config or KNNConfig()).replace(**overrides)
     dev = resolve_device(device)
-    backend = resolve_backend(cfg)
+    backend = resolve_backend(cfg, mesh, dev)
     if isinstance(corpus, torch.Tensor):
         corpus = corpus.to(dev)
     else:
@@ -81,6 +88,11 @@ def all_knn(corpus, queries=None, config: Optional[KNNConfig] = None,
         from mpi_knn_tpu_torch.backends.serial import all_knn_serial
 
         d, i = all_knn_serial(corpus, q_arr, q_ids, cfg, dev)
+    elif backend in ("ring", "ring-overlap"):
+        from mpi_knn_tpu_torch.backends.ring import all_knn_ring
+
+        d, i = all_knn_ring(corpus, q_arr, q_ids, cfg, mesh=mesh,
+                            overlap=backend == "ring-overlap", device=dev)
     elif backend == "pallas":
         from mpi_knn_tpu_torch.backends.fused_backend import all_knn_pallas
 

@@ -7,8 +7,13 @@ kernels of ``ops/fused_knn.py``.
   ``topk_method``);
 - ``"sweep"``: the kernel merges the whole corpus itself and emits (Q, k).
 
-Same observable semantics as the serial backend. Only float32 runs here,
-and only the exact policy.
+Under ``precision_policy="mixed"`` (when the overfetch can drop anything)
+the kernels run in compress mode and keep the overfetch width ``ov = 4k``
+per list; the tiles variant first preselects the global ov of its n_c·ov
+survivors by compressed key, then ``_mixed_exact_finish`` reranks the
+survivors exactly, one query tile at a time.
+
+Same observable semantics as the serial backend. Only float32 runs here.
 """
 
 from __future__ import annotations
@@ -23,12 +28,54 @@ from mpi_knn_tpu_torch.ops.fused_knn import (
     fused_knn_sweep,
     fused_knn_tiles,
 )
+from mpi_knn_tpu_torch.ops.rerank import (
+    mixed_applies,
+    overfetch_width,
+    rerank_exact_topk,
+)
 from mpi_knn_tpu_torch.ops.topk import smallest_k
 from mpi_knn_tpu_torch.parallel.partition import pad_rows_any, pad_to_multiple
 
 
+def _mixed_exact_finish(queries, corpus, cand_i, cfg, q_tile, all_pairs):
+    """Pass 2 of the mixed policy: gather each query tile's survivors
+    (never a (Q, V, d) gather at once), rerank exactly, final top-k."""
+    Q = queries.shape[0]
+    out_d, out_i = [], []
+    for r0 in range(0, Q, q_tile):
+        ci = cand_i[r0:r0 + q_tile]
+        q_ids = (torch.arange(r0, r0 + ci.shape[0], dtype=torch.int32,
+                              device=ci.device) if all_pairs
+                 else torch.full((ci.shape[0],), -1, dtype=torch.int32,
+                                 device=ci.device))
+        d, i = rerank_exact_topk(
+            queries[r0:r0 + q_tile], q_ids, corpus[ci.clamp_min(0).long()],
+            ci, cfg.k, metric="l2",
+            exclude_self=cfg.exclude_self and all_pairs,
+            exclude_zero=cfg.exclude_zero, zero_eps=cfg.zero_eps,
+        )
+        out_d.append(d)
+        out_i.append(i)
+    return torch.cat(out_d), torch.cat(out_i)
+
+
 def _fused_all_knn(queries, corpus, cfg, q_tile, c_tile, m_corpus,
                    all_pairs, variant):
+    if cfg.precision_policy == "mixed" and mixed_applies(cfg.k, c_tile):
+        ov = overfetch_width(cfg.k, c_tile)
+        common = dict(m_corpus=m_corpus, k=ov, q_tile=q_tile, c_tile=c_tile,
+                      exclude_self=cfg.exclude_self,
+                      exclude_zero=cfg.exclude_zero, all_pairs=all_pairs,
+                      zero_eps=cfg.zero_eps, compress=True)
+        if variant == "sweep":
+            _, cand_i = fused_knn_sweep(queries, corpus, **common)
+        else:
+            cand_d, cand_i = fused_knn_tiles(queries, corpus, **common)
+            # n_c·ov survivors per query -> the global ov by compressed key
+            if cand_i.shape[1] > ov:
+                _, cand_i = smallest_k(cand_d, cand_i, ov, method="exact")
+        return _mixed_exact_finish(queries, corpus, cand_i, cfg, q_tile,
+                                   all_pairs)
     common = dict(
         m_corpus=m_corpus,
         q_tile=q_tile,

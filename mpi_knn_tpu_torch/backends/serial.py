@@ -1,10 +1,13 @@
-"""Serial (single-device) backend: the exact tile policy of the JAX
-package's ``backends/serial.py`` in plain PyTorch.
+"""Serial (single-device) backend: the tile policy of the JAX package's
+``backends/serial.py`` in plain PyTorch.
 
 Query tiles are walked in a Python loop; inside each, corpus tiles are
 either reduced to k survivors each and merged once ("twolevel") or merged
-into the carry tile by tile ("stream"). The product is ``torch.matmul`` at
-full precision (ops/distance.py), as the JAX package leaves it to XLA.
+into the carry tile by tile ("stream"). Under the exact policy the product
+is ``torch.matmul`` at full precision (ops/distance.py), as the JAX package
+leaves it to XLA; under the mixed policy each tile's reduction is the
+compress-and-rerank pipeline of ops/rerank.py. The ring backends merge
+their blocks through the same functions.
 """
 
 from __future__ import annotations
@@ -14,6 +17,7 @@ import torch
 
 from mpi_knn_tpu_torch.config import KNNConfig
 from mpi_knn_tpu_torch.ops.distance import pairwise_dist, sq_norms
+from mpi_knn_tpu_torch.ops.rerank import compress_rerank_tile
 from mpi_knn_tpu_torch.ops.topk import (
     cascade_smallest_k,
     init_topk_tiles,
@@ -60,7 +64,11 @@ def masked_dist_tile(q_x, q_ids, q_sq, blk, blk_ids, blk_sq, cfg: KNNConfig):
 
 
 def local_tile_topk(q_x, q_ids, q_sq, blk, blk_ids, blk_sq, cfg, out_dtype):
-    """One corpus tile's (q, k) survivors."""
+    """One corpus tile's (q, k) survivors, per ``cfg.precision_policy``."""
+    if cfg.precision_policy == "mixed":
+        ld, li = compress_rerank_tile(q_x, q_ids, q_sq, blk, blk_ids, blk_sq,
+                                      cfg)
+        return ld.to(out_dtype), li
     d = masked_dist_tile(q_x, q_ids, q_sq, blk, blk_ids, blk_sq, cfg)
     return smallest_k(d.to(out_dtype), blk_ids, cfg.k,
                       method=cfg.topk_method, block=cfg.topk_block)
@@ -68,10 +76,17 @@ def local_tile_topk(q_x, q_ids, q_sq, blk, blk_ids, blk_sq, cfg, out_dtype):
 
 def knn_tile_step(q_x, q_ids, q_sq, blk, blk_ids, blk_sq, carry_d, carry_i,
                   cfg: KNNConfig):
-    """One (query_tile × corpus_tile) step merged into the carry."""
-    d = masked_dist_tile(q_x, q_ids, q_sq, blk, blk_ids, blk_sq, cfg)
-    all_d = torch.cat([carry_d, d.to(carry_d.dtype)], dim=-1)
-    all_i = torch.cat([carry_i, blk_ids[None, :].expand(d.shape)], dim=-1)
+    """One (query_tile × corpus_tile) step merged into the carry. Under the
+    mixed policy the tile is first reduced to k exact survivors."""
+    if cfg.precision_policy == "mixed":
+        ld, li = local_tile_topk(q_x, q_ids, q_sq, blk, blk_ids, blk_sq, cfg,
+                                 carry_d.dtype)
+        all_d = torch.cat([carry_d, ld], dim=-1)
+        all_i = torch.cat([carry_i, li], dim=-1)
+    else:
+        d = masked_dist_tile(q_x, q_ids, q_sq, blk, blk_ids, blk_sq, cfg)
+        all_d = torch.cat([carry_d, d.to(carry_d.dtype)], dim=-1)
+        all_i = torch.cat([carry_i, blk_ids[None, :].expand(d.shape)], dim=-1)
     return smallest_k(all_d, all_i, cfg.k, method=cfg.topk_method,
                       block=cfg.topk_block)
 

@@ -3,6 +3,8 @@
     python -m mpi_knn_tpu_torch --data mnist --k 10 --backend pallas --loo
     python -m mpi_knn_tpu_torch --data synthetic:512x32c4 --k 5 --loo \\
         --device cpu --report r.json
+    python -m mpi_knn_tpu_torch --data synthetic:512x32c4 --k 5 --loo \\
+        --device cpu --devices 4 --backend ring-overlap --ring-fusion fused
 
 Only the flags below exist; the JAX CLI's other flags are not ported.
 """
@@ -20,6 +22,10 @@ from mpi_knn_tpu_torch.config import (
     BACKENDS,
     METRICS,
     PALLAS_VARIANTS,
+    PRECISION_POLICIES,
+    RING_FUSIONS,
+    RING_SCHEDULES,
+    RING_TRANSFER_DTYPES,
     TIE_BREAKS,
     KNNConfig,
 )
@@ -40,6 +46,24 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--pallas-variant", choices=PALLAS_VARIANTS,
                    default="tiles")
     p.add_argument("--tie-break", choices=TIE_BREAKS, default="nearest")
+    p.add_argument("--devices", type=int, default=None,
+                   help="ring size for the ring backends (default: the "
+                   "visible cards; on the CPU, logical ranks)")
+    p.add_argument("--precision-policy", choices=PRECISION_POLICIES,
+                   default="exact",
+                   help="exact (one full-f32 pass) or mixed (bf16 compress "
+                   "pass overfetching 4k candidates, exact rerank)")
+    p.add_argument("--ring-schedule", choices=RING_SCHEDULES, default="uni",
+                   help="uni (P rounds) or bidir (both directions, "
+                   "floor(P/2)+1 rounds)")
+    p.add_argument("--ring-fusion", choices=RING_FUSIONS, default="xla",
+                   help="per-round merge: xla (the serial tile loop) or "
+                   "fused (the block-merge kernels; needs ring-overlap)")
+    p.add_argument("--ring-transfer-dtype",
+                   choices=[d for d in RING_TRANSFER_DTYPES if d],
+                   default=None,
+                   help="wire type of the rotating block (int8 needs "
+                   "--precision-policy mixed)")
     p.add_argument("--query-tile", type=int, default=1024)
     p.add_argument("--corpus-tile", type=int, default=2048)
     p.add_argument("--loo", action="store_true",
@@ -87,6 +111,11 @@ def main(argv=None) -> int:
         tie_break=args.tie_break,
         query_tile=args.query_tile,
         corpus_tile=args.corpus_tile,
+        num_devices=args.devices,
+        precision_policy=args.precision_policy,
+        ring_schedule=args.ring_schedule,
+        ring_fusion=args.ring_fusion,
+        ring_transfer_dtype=args.ring_transfer_dtype,
     )
     with timer.phase("knn"):
         result = all_knn(X, config=cfg, device=device)
@@ -98,8 +127,13 @@ def main(argv=None) -> int:
     report = {
         "data_source": source,
         "shape": list(X.shape),
-        "backend": resolve_backend(cfg),
+        "backend": resolve_backend(cfg, device=device),
         "pallas_variant": cfg.pallas_variant,
+        "precision_policy": cfg.precision_policy,
+        "num_devices": cfg.num_devices,
+        "ring_schedule": cfg.ring_schedule,
+        "ring_fusion": cfg.ring_fusion,
+        "ring_transfer_dtype": cfg.ring_transfer_dtype,
         "device": str(device),
         "device_name": (torch.cuda.get_device_name(device)
                         if device.type == "cuda" else "cpu"),

@@ -2,14 +2,14 @@
 
 ``KNNConfig`` carries the same field names and defaults as the JAX package's
 config, so ``dataclasses.asdict`` of one drives the other (see
-``convert.py``). The value domains are validated the same way. On top of
-that, settings whose machinery is not ported yet are refused here with a
-``ValueError`` that names the setting and says "not yet ported" — a refused
-setting never silently runs as something else.
+``convert.py``). The value domains and the cross-field rules are validated
+the same way. On top of that, settings whose machinery is not ported yet
+are refused here with a ``ValueError`` that names the setting and says "not
+yet ported" — a refused setting never silently runs as something else.
 
-Fields that only the serving, clustered-index or ring layers read are kept
-so a config dict round-trips, and are inert in this package until those
-layers are ported.
+Fields that only the serving or clustered-index layers read are kept so a
+config dict round-trips, and are inert in this package until those layers
+are ported.
 """
 
 from __future__ import annotations
@@ -43,12 +43,13 @@ class KNNConfig:
     """All knobs for an all-kNN run (field docs: the JAX package's
     ``mpi_knn_tpu/config.py``; semantics are identical where ported).
 
-    Ported: k, metric, backend in {auto, serial, pallas}, query_tile,
-    corpus_tile, dtype in {float32, float64, bfloat16}, matmul_precision in
-    {None, "highest"} (both mean full f32, never TF32), center,
+    Ported: k, metric, backend (all five), query_tile, corpus_tile, dtype
+    in {float32, float64, bfloat16}, matmul_precision in {None, "highest"}
+    (both mean full f32, never TF32), precision_policy, center,
     exclude_self, exclude_zero, zero_eps, topk_method in {exact, block},
-    topk_block, merge_schedule, tie_break, num_classes, pallas_variant,
-    max_tile_elems.
+    topk_block, merge_schedule, tie_break, num_classes, mesh_axis,
+    num_devices, ring_transfer_dtype, ring_schedule, ring_fusion,
+    ring_fused_rotation="round", pallas_variant, max_tile_elems.
     """
 
     k: int = 30
@@ -121,27 +122,58 @@ class KNNConfig:
                 f"dtype={self.dtype!r} is the clustered index's at-rest "
                 "compression; the dense backends have no dequantization path"
             )
+        self._check_cross_fields()
         self._refuse_unported()
+
+    def _check_cross_fields(self):
+        """The JAX package's cross-field rules, with the same meaning."""
+        if self.ring_transfer_dtype == "int8" and self.precision_policy != "mixed":
+            raise ValueError(
+                "ring_transfer_dtype='int8' requires precision_policy="
+                "'mixed': only the exact rerank absorbs the quantization "
+                f"noise (got precision_policy={self.precision_policy!r})"
+            )
+        if self.ring_fusion == "fused":
+            if self.metric != "l2":
+                raise ValueError(
+                    "ring_fusion='fused' supports metric='l2' only (got "
+                    f"metric={self.metric!r})"
+                )
+            if self.dtype != "float32":
+                raise ValueError(
+                    "ring_fusion='fused' requires dtype='float32'; compress "
+                    "the wire with ring_transfer_dtype instead (got "
+                    f"dtype={self.dtype!r})"
+                )
+            if self.topk_method != "exact":
+                raise ValueError(
+                    "ring_fusion='fused' requires topk_method='exact': the "
+                    "in-kernel carry merge is exact (got "
+                    f"{self.topk_method!r})"
+                )
+        if self.precision_policy == "mixed":
+            if self.dtype not in ("float32", "int8", "int4"):
+                raise ValueError(
+                    "precision_policy='mixed' requires dtype='float32' (got "
+                    f"{self.dtype!r})"
+                )
+            if self.matmul_precision is not None:
+                raise ValueError(
+                    "precision_policy='mixed' owns both dot precisions; "
+                    "matmul_precision must be None, got "
+                    f"{self.matmul_precision!r}"
+                )
 
     def _refuse_unported(self):
         refused = []
-        if self.precision_policy != "exact":
-            refused.append(f"precision_policy={self.precision_policy!r}")
         if self.topk_method not in PORTED_TOPK_METHODS:
             refused.append(f"topk_method={self.topk_method!r}")
         if self.matmul_precision not in PORTED_MATMUL_PRECISIONS:
             refused.append(f"matmul_precision={self.matmul_precision!r}")
-        if self.backend in ("ring", "ring-overlap"):
-            refused.append(f"backend={self.backend!r}")
-        for name, default in (
-            ("ring_transfer_dtype", None),
-            ("ring_schedule", "uni"),
-            ("ring_fusion", "xla"),
-            ("ring_fused_rotation", "round"),
-            ("partitions", None),
-        ):
-            if getattr(self, name) != default:
-                refused.append(f"{name}={getattr(self, name)!r}")
+        if self.ring_fused_rotation != "round":
+            refused.append(f"ring_fused_rotation={self.ring_fused_rotation!r}")
+        if self.partitions is not None:
+            refused.append(f"partitions={self.partitions!r}")
         if refused:
             raise ValueError(
                 f"{', '.join(refused)}: not yet ported to mpi_knn_tpu_torch "

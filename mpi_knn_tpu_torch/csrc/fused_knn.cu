@@ -9,50 +9,44 @@
 //       the block (the TPU ran that sweep as a sequential grid axis; blocks
 //       on Hopper run in parallel and in no order) and writes the final
 //       (Q, k) once.
-//
-// Both run the same tile routine (knn_rows) and differ only in the corpus
+// Both run the tile routine of knn_tile.cuh and differ only in the corpus
 // column range a CTA owns and where its output lands.
 //
-// What bounds it on this card. The exact policy computes every product in
-// full f32 with FFMA: no TF32, no tensor cores, because the zero-distance
-// exclusion threshold rtol 1e-6 * (q^2 + c^2) is calibrated to f32-accurate
-// products. The main path (60000 queries x 60000 corpus rows x 784, k = 10)
-// needs 2*60000*60000*784 ~ 5.64e12 FLOP against the H100 SXM's 67 TFLOP/s
-// FP32 peak: ~84 ms (the kernels also compute the 416 padded query rows, but
-// skip the padded corpus columns). The only bytes
-// that must cross device memory are the corpus and queries (~0.4 GB, ~0.1 ms
-// at 3.35 TB/s) and the k survivors per row, so the kernels are bound by
-// operations. The design is an SGEMM-style register tile (64 x 64 outputs
-// per CTA, 4 x 4 per thread, 32-deep k slices staged in shared memory); the
-// selection costs O(1) compares per candidate against each row's current
-// k-th best, so the FFMA loop dominates. Faster forms (3xTF32 on wgmma,
-// TMA staging, a persistent schedule, a resident query tile) are later work.
+// Modes (the `compress` flag of the TPU kernels):
+//   exact     every product in full f32 with FFMA: no TF32, no tensor
+//             cores, because the zero-distance exclusion threshold
+//             rtol 1e-6 * (q^2 + c^2) is calibrated to f32-accurate
+//             products. Masks: padding columns (>= m_corpus), zero distance
+//             (d <= zero_eps if > 0, else d <= 1e-6 (q^2 + c^2)), and self
+//             in all-pairs mode.
+//   compress  the mixed policy's pass 1: bf16-rounded dot operands, f32
+//             accumulation, norms from the unrounded rows, keys clamped at
+//             0, the zero mask off (padding and self stay), k is the
+//             overfetch width 4k.
 //
-// Numerics. ||q||^2 and ||c||^2 are computed in-kernel with the same FMA
-// order as the dot (one accumulator, d = 0..D-1 ascending), so an exact
-// duplicate pair gives q^2 - 2 q.c + c^2 == 0 bit for bit and is excluded
-// by the zero rule regardless of the rounding of the sums.
+// What bounds it on this card. The main path (60000 queries x 60000 corpus
+// rows x 784, k = 10) needs 2*60000*60000*784 ~ 5.64e12 FLOP. Exact mode
+// runs them on FFMA against the H100 SXM's 67 TFLOP/s FP32 peak: ~84 ms.
+// Compress mode could run them on bf16 tensor cores (989 TFLOP/s dense:
+// ~5.7 ms) but this simple form still uses FFMA over the rounded values, so
+// it costs what exact mode costs. The only bytes that must cross device
+// memory are the corpus and queries (~0.4 GB, ~0.1 ms at 3.35 TB/s) and the
+// survivors, so both modes are bound by operations. Faster forms (wgmma in
+// bf16 for compress, 3xTF32 for exact, TMA staging, a persistent schedule)
+// are later work.
 //
-// Selection rule. Candidates are ordered by (distance, global id)
-// lexicographically: the TPU kernels' "ties to the leftmost column, carry
-// first" rule, since ids rise with the column. A slot whose distance is not
-// finite gets id -1. A NaN distance anywhere in a row's range (after the
-// masks, as in the TPU kernel) turns the whole row's output into (NaN, -1),
-// which is what the TPU's k-pass min extraction emits for such a row.
+// Selection rule. Candidates are ordered by (distance, global id): the TPU
+// kernels' "ties to the leftmost column, carry first" rule, since ids rise
+// with the column. A slot whose distance is not finite gets id -1. A NaN
+// distance anywhere in a row's range (after the masks, as in the TPU kernel)
+// turns the whole row's output into (NaN, -1), which is what the TPU's
+// k-pass min extraction emits for such a row.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "knn_tile.cuh"
 
 namespace {
 
-constexpr int QB = 64;        // query rows per CTA
-constexpr int CB = 64;        // corpus columns per chunk
-constexpr int KD = 32;        // depth of one staged k slice
-constexpr int THREADS = 256;  // 16 x 16 threads, 4 x 4 outputs each
-constexpr int PAD = 4;        // keeps float4 alignment of smem rows
-constexpr int KMAX_SMEM = 128;  // larger k keeps its lists in the output
-constexpr unsigned FULL = 0xffffffffu;
-static_assert(QB == CB, "the staging loop loads query and corpus rows together");
+using namespace knn;
 
 struct Params {
   const float* q;     // (Q, D) queries
@@ -67,193 +61,55 @@ struct Params {
   float zero_eps;     // > 0: absolute threshold; 0: rtol * (q^2 + c^2)
 };
 
-__device__ __forceinline__ bool lex_less(float d, int i, float wd, int wi) {
-  // NaN compares false both ways, so a NaN never enters a list
-  return d < wd || (d == wd && i < wi);
-}
-
-// Insert (cd, cid) into the ascending list L[0..k) of one row; the whole
-// warp takes part. The caller guarantees (cd, cid) < L[k-1].
-__device__ void warp_insert(float* Ld, int* Li, int k, float cd, int cid,
-                            int lane) {
-  int pos = 0;
-  for (int base = 0; base < k; base += 32) {
-    int j = base + lane;
-    bool lt = j < k && lex_less(Ld[j], Li[j], cd, cid);
-    pos += __popc(__ballot_sync(FULL, lt));
+// Columns of a dense f32 corpus whose ids are the column numbers.
+template <bool COMPRESS>
+struct AffineCols {
+  const float* c;
+  int D;
+  bool self, zero;
+  float zero_eps;
+  static constexpr bool compress = COMPRESS;
+  static constexpr bool clamp = true;
+  static constexpr bool nan_as_inf = false;
+  __device__ float load(int col, int dim) const {
+    return c[(size_t)col * D + dim];
   }
-  // shift [pos, k-1) up by one, highest segment first
-  for (int base = ((k - 1) / 32) * 32; base >= 0; base -= 32) {
-    int j = base + lane;
-    bool mv = j >= pos && j + 1 < k;
-    float v = 0.f;
-    int vi = 0;
-    if (mv) { v = Ld[j]; vi = Li[j]; }
-    __syncwarp();
-    if (mv) { Ld[j + 1] = v; Li[j + 1] = vi; }
-    __syncwarp();
+  __device__ bool masked(int row, int col, float d, float qs, float cs) const {
+    if (zero) {
+      float th = zero_eps > 0.f ? zero_eps : __fmul_rn(1e-6f, __fadd_rn(qs, cs));
+      if (d <= th) return true;
+    }
+    return self && col == row;
   }
-  if (lane == 0) { Ld[pos] = cd; Li[pos] = cid; }
-  __syncwarp();
-}
+  __device__ int key(int col) const { return col; }
+};
 
-// One CTA: query rows [q0, q0+QB) against corpus columns [c_begin, c_end),
-// selecting each row's k smallest into lists that end up at `out_row0`.
+// One CTA: query rows [q0, q0+QB) against corpus columns [c_begin, c_end).
 // Padding columns (>= m_corpus) are never computed: a CTA whose range is all
 // padding writes only (INF, -1).
+template <bool COMPRESS>
 __device__ void knn_rows(const Params& p, int q0, int c_begin, int c_end,
                          size_t out_row0, unsigned char* smem) {
   c_end = min(c_end, p.m_corpus);
-  float* As = reinterpret_cast<float*>(smem);          // [KD][QB+PAD]
-  float* Bs = As + KD * (QB + PAD);                     // [KD][CB+PAD]
-  float* Ds = Bs + KD * (CB + PAD);                     // [QB][CB+1]
-  float* qn = Ds + QB * (CB + 1);                       // [QB]
-  float* cn = qn + QB;                                  // [CB]
-  int* nanf = reinterpret_cast<int*>(cn + CB);          // [QB]
-  float* Lsd = reinterpret_cast<float*>(nanf + QB);     // [QB][k] (small k)
-  int* Lsi = reinterpret_cast<int*>(Lsd + QB * p.k);
-
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int lane = tid % 32, warp = tid / 32;
-  const int k = p.k;
-  const bool smem_lists = k <= KMAX_SMEM;
-  const float INF = __int_as_float(0x7f800000);
-
-  // list base of query row r (in shared memory, or in place in the output)
-  auto list_d = [&](int r) -> float* {
-    return smem_lists ? Lsd + r * k : p.out_d + (out_row0 + r) * (size_t)k;
-  };
-  auto list_i = [&](int r) -> int* {
-    return smem_lists ? Lsi + r * k : p.out_i + (out_row0 + r) * (size_t)k;
-  };
-
-  for (int r = warp; r < QB; r += THREADS / 32) {
-    if (q0 + r >= p.Q) continue;
-    float* Ld = list_d(r);
-    int* Li = list_i(r);
-    for (int j = lane; j < k; j += 32) { Ld[j] = INF; Li[j] = -1; }
-    if (lane == 0) nanf[r] = 0;
-  }
-
-  for (int col0 = c_begin; col0 < c_end; col0 += CB) {
-    float acc[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-    float nacc = 0.f;  // tid < CB: ||c||^2; CB <= tid < CB+QB: ||q||^2
-    const bool first = col0 == c_begin;
-
-    for (int k0 = 0; k0 < p.D; k0 += KD) {
-      __syncthreads();
-      for (int e = tid; e < QB * KD; e += THREADS) {
-        int r = e / KD, d = e % KD;
-        int row = q0 + r, dim = k0 + d;
-        As[d * (QB + PAD) + r] =
-            (row < p.Q && dim < p.D) ? p.q[(size_t)row * p.D + dim] : 0.f;
-        int col = col0 + r;
-        Bs[d * (CB + PAD) + r] =
-            (col < c_end && dim < p.D) ? p.c[(size_t)col * p.D + dim] : 0.f;
-      }
-      __syncthreads();
-#pragma unroll 8
-      for (int kk = 0; kk < KD; ++kk) {
-        float4 a = *reinterpret_cast<const float4*>(&As[kk * (QB + PAD) + ty * 4]);
-        float4 b = *reinterpret_cast<const float4*>(&Bs[kk * (CB + PAD) + tx * 4]);
-        float av[4] = {a.x, a.y, a.z, a.w};
-        float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-      }
-      // norms in the dot's FMA order (zero padding past D adds exact zeros)
-      if (tid < CB) {
-        for (int kk = 0; kk < KD; ++kk) {
-          float v = Bs[kk * (CB + PAD) + tid];
-          nacc = fmaf(v, v, nacc);
-        }
-      } else if (first && tid < CB + QB) {
-        for (int kk = 0; kk < KD; ++kk) {
-          float v = As[kk * (QB + PAD) + tid - CB];
-          nacc = fmaf(v, v, nacc);
-        }
-      }
-    }
-    if (tid < CB) cn[tid] = nacc;
-    else if (first && tid < CB + QB) qn[tid - CB] = nacc;
-    __syncthreads();
-
-    // masked distances -> Ds (the _masked_tile_dists rules)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      int r = ty * 4 + i;
-      int row = q0 + r;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        int cc = tx * 4 + j;
-        int col = col0 + cc;
-        float qs = qn[r], cs = cn[cc];
-        float d = __fadd_rn(__fsub_rn(qs, __fmul_rn(2.f, acc[i][j])), cs);
-        d = d < 0.f ? 0.f : d;  // max(d, 0) that keeps NaN
-        bool invalid = col >= c_end;  // c_end <= m_corpus
-        if (p.exclude_zero) {
-          float th = p.zero_eps > 0.f ? p.zero_eps
-                                      : __fmul_rn(1e-6f, __fadd_rn(qs, cs));
-          invalid = invalid || d <= th;
-        }
-        if (p.exclude_self && p.all_pairs) invalid = invalid || col == row;
-        Ds[r * (CB + 1) + cc] = invalid ? INF : d;
-      }
-    }
-    __syncthreads();
-
-    // selection: warp w owns rows w, w+8, ...; each lane two columns
-    for (int r = warp; r < QB; r += THREADS / 32) {
-      if (q0 + r >= p.Q) continue;
-      float* Ld = list_d(r);
-      int* Li = list_i(r);
-      bool any_nan = false;
-      for (int h = 0; h < 2; ++h) {
-        int cc = lane + 32 * h;
-        float d = Ds[r * (CB + 1) + cc];
-        int id = col0 + cc;
-        any_nan = any_nan || d != d;
-        float wd = Ld[k - 1];
-        int wi = Li[k - 1];
-        bool pass = lex_less(d, id, wd, wi);
-        unsigned m = __ballot_sync(FULL, pass);
-        while (m) {
-          int src = __ffs(m) - 1;
-          float cd = __shfl_sync(FULL, d, src);
-          int cid = __shfl_sync(FULL, id, src);
-          warp_insert(Ld, Li, k, cd, cid, lane);
-          wd = Ld[k - 1];
-          wi = Li[k - 1];
-          if (lane == src) pass = false;
-          pass = pass && lex_less(d, id, wd, wi);
-          m = __ballot_sync(FULL, pass);
-        }
-      }
-      if (__any_sync(FULL, any_nan) && lane == 0) nanf[r] = 1;
-      __syncwarp();
-    }
-  }
+  Lists L{carve(smem, p.k), p.out_d, p.out_i, out_row0, p.k};
+  init_lists(L, q0, p.Q, -1);
+  AffineCols<COMPRESS> src{p.c, p.D, p.exclude_self && p.all_pairs,
+                           !COMPRESS && p.exclude_zero, p.zero_eps};
+  sweep(src, p.q, p.Q, p.D, q0, c_begin, c_end, L);
 
   // emit: non-finite slots get id -1; a row that saw NaN is all (NaN, -1)
-  const float NaN = __int_as_float(0x7fffffff);
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   for (int r = warp; r < QB; r += THREADS / 32) {
     if (q0 + r >= p.Q) continue;
-    float* Ld = list_d(r);
-    int* Li = list_i(r);
-    float* od = p.out_d + (out_row0 + r) * (size_t)k;
-    int* oi = p.out_i + (out_row0 + r) * (size_t)k;
-    bool poisoned = nanf[r] != 0;
-    for (int j = lane; j < k; j += 32) {
+    float* Ld = L.d(r);
+    int* Li = L.i(r);
+    float* od = p.out_d + (out_row0 + r) * (size_t)p.k;
+    int* oi = p.out_i + (out_row0 + r) * (size_t)p.k;
+    bool poisoned = L.sm.nanf[r] != 0;
+    for (int j = lane; j < p.k; j += 32) {
       float d = Ld[j];
       int id = Li[j];
-      if (poisoned) { d = NaN; id = -1; }
+      if (poisoned) { d = nan_f(); id = -1; }
       else if (!isfinite(d)) id = -1;
       od[j] = d;
       oi[j] = id;
@@ -261,39 +117,32 @@ __device__ void knn_rows(const Params& p, int q0, int c_begin, int c_end,
   }
 }
 
+template <bool COMPRESS>
 __global__ void __launch_bounds__(THREADS)
 fused_knn_tiles_kernel(Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
   int q0 = blockIdx.x * QB;
   int c_begin = blockIdx.y * p.c_span;
   int c_end = min(c_begin + p.c_span, p.C);
-  knn_rows(p, q0, c_begin, c_end, (size_t)blockIdx.y * p.Q + q0, smem);
+  knn_rows<COMPRESS>(p, q0, c_begin, c_end, (size_t)blockIdx.y * p.Q + q0,
+                     smem);
 }
 
+template <bool COMPRESS>
 __global__ void __launch_bounds__(THREADS)
 fused_knn_sweep_kernel(Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
   int q0 = blockIdx.x * QB;
-  knn_rows(p, q0, 0, p.C, (size_t)q0, smem);
-}
-
-size_t smem_bytes(int k) {
-  size_t b = sizeof(float) * (KD * (QB + PAD) + KD * (CB + PAD) +
-                              QB * (CB + 1) + QB + CB) +
-             sizeof(int) * QB;
-  if (k <= KMAX_SMEM) b += (sizeof(float) + sizeof(int)) * (size_t)QB * k;
-  return b;
+  knn_rows<COMPRESS>(p, q0, 0, p.C, (size_t)q0, smem);
 }
 
 cudaError_t launch(void (*kernel)(Params), const Params& p, int grid_y,
                    cudaStream_t stream) {
   if (p.Q <= 0 || p.C <= 0 || p.D <= 0 || p.k <= 0) return cudaErrorInvalidValue;
-  size_t smem = smem_bytes(p.k);
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t err = set_smem((const void*)kernel, p.k);
   if (err != cudaSuccess) return err;
   dim3 grid((p.Q + QB - 1) / QB, grid_y);
-  kernel<<<grid, THREADS, smem, stream>>>(p);
+  kernel<<<grid, THREADS, smem_bytes(p.k), stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -305,22 +154,27 @@ extern "C" {
 int fused_knn_tiles_launch(const float* q, const float* c, float* out_d,
                            int* out_i, int Q, int C, int D, int m_corpus,
                            int k, int c_tile, int exclude_self,
-                           int exclude_zero, int all_pairs, float zero_eps,
-                           cudaStream_t stream) {
+                           int exclude_zero, int all_pairs, int compress,
+                           float zero_eps, cudaStream_t stream) {
   if (c_tile <= 0 || C % c_tile) return (int)cudaErrorInvalidValue;
   Params p{q, c, out_d, out_i, Q, C, D, m_corpus, k, c_tile,
            exclude_self, exclude_zero, all_pairs, zero_eps};
-  return (int)launch(fused_knn_tiles_kernel, p, C / c_tile, stream);
+  return (int)launch(compress ? fused_knn_tiles_kernel<true>
+                              : fused_knn_tiles_kernel<false>,
+                     p, C / c_tile, stream);
 }
 
 // out_d / out_i: (Q, k)
 int fused_knn_sweep_launch(const float* q, const float* c, float* out_d,
                            int* out_i, int Q, int C, int D, int m_corpus,
                            int k, int exclude_self, int exclude_zero,
-                           int all_pairs, float zero_eps, cudaStream_t stream) {
+                           int all_pairs, int compress, float zero_eps,
+                           cudaStream_t stream) {
   Params p{q, c, out_d, out_i, Q, C, D, m_corpus, k, C,
            exclude_self, exclude_zero, all_pairs, zero_eps};
-  return (int)launch(fused_knn_sweep_kernel, p, 1, stream);
+  return (int)launch(compress ? fused_knn_sweep_kernel<true>
+                              : fused_knn_sweep_kernel<false>,
+                     p, 1, stream);
 }
 
 }  // extern "C"

@@ -1,9 +1,10 @@
 """Build and load the hand-written CUDA kernels (plain C interface, ctypes).
 
 Each ``csrc/<name>.cu`` compiles with nvcc into its own shared library
-under ``mpi_knn_tpu_torch/_build/<hash of the sources>/``, at first use.
-Nothing is built when a module is imported, and a missing ``nvcc`` is an
-error when a CUDA tensor needs a kernel: there is no fallback.
+under ``mpi_knn_tpu_torch/_build/<hash>/``, at first use; the hash covers
+the source, every ``csrc/*.cuh`` header and the flags. Nothing is built
+when a module is imported, and a missing ``nvcc`` is an error when a CUDA
+tensor needs a kernel: there is no fallback.
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
-SOURCES = ("fused_knn",)
+SOURCES = ("fused_knn", "fused_ring")
 
 
 def _nvcc() -> str:
@@ -41,37 +42,53 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
     h = hashlib.sha256()
-    h.update(src.read_bytes())
+    for path in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
+        h.update(path.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_ROOT / h.hexdigest()[:16] / f"lib{name}.so"
 
 
-def build(name: str) -> str:
-    """Compile ``csrc/<name>.cu`` unless already built; returns nvcc's
-    output, or "cached"."""
+def _start(name: str):
+    """Start nvcc for ``csrc/<name>.cu`` unless already built: returns
+    (process, temporary output) or None."""
     out = _lib_path(name)
     if out.exists():
-        return "cached"
+        return None
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    log = proc.stdout + proc.stderr
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True), tmp
+
+
+def _finish(name: str, started) -> str:
+    """Wait for a build that ``_start`` began; returns nvcc's output, or
+    "cached" when nothing was built."""
+    if started is None:
+        return "cached"
+    proc, tmp = started
+    log, _ = proc.communicate()
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
-    os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
+    os.replace(tmp, _lib_path(name))  # atomic: a loader sees all or nothing
     return log
 
 
+def build(name: str) -> str:
+    """Compile ``csrc/<name>.cu`` unless already built."""
+    return _finish(name, _start(name))
+
+
 def build_all() -> dict:
-    """Build every kernel source. Returns {name: {"seconds": s, "log": nvcc
-    output or "cached"}}."""
+    """Build every kernel source, one nvcc process each, all started
+    together. Returns {name: {"seconds": s, "log": nvcc output or
+    "cached"}}, seconds counted from the common start."""
+    t0 = time.perf_counter()
+    started = {name: _start(name) for name in SOURCES}
     info = {}
     for name in SOURCES:
-        t0 = time.perf_counter()
-        log = build(name)
+        log = _finish(name, started[name])
         info[name] = {"seconds": time.perf_counter() - t0, "log": log}
     return info
 

@@ -1,0 +1,292 @@
+"""The ring block merge (``ring_fusion="fused"``): the wrappers of the two
+Hopper kernels in ``csrc/fused_ring.cu``, their plain PyTorch versions, and
+the mixed policy's finish around the compress kernel.
+
+``fused_block_merge`` replaces ``mpi_knn_tpu/ops/pallas_ring.py::
+fused_block_merge``: one resident ring block (at its wire type: f32, bf16,
+or int8 codes with per-row scales) merged into the (q_local, k) carry.
+
+- exact policy, or mixed where the overfetch cannot drop anything:
+  ``block_merge_exact`` (K3a) returns the merged carry. Candidates rank by
+  (distance, arrival): the carry's slots first, then the block's columns
+  in order, which is the reference's concat(carry ‖ block tile) with ties
+  to the leftmost column. Any NaN among a row's candidates makes the row
+  (NaN, −1).
+- mixed policy: ``block_merge_compress`` (K3b) returns each block tile's
+  top-ov column positions by unclamped compressed key (untaken columns in
+  index order once the finite keys run out; a NaN key counts as +inf).
+  The survivors' gather, the exact rerank and the carry merge then run in
+  torch, tile after tile, one chunk of query rows at a time, so no
+  (q_local, ov, d) gather is ever made whole.
+
+A kernel wrapper takes its plain version only because the tensors it was
+given lie on the CPU; for CUDA tensors it launches the kernel or raises.
+Each launch adds one to ``LAUNCHES[name]``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from mpi_knn_tpu_torch.ops import _build
+from mpi_knn_tpu_torch.ops.distance import _mm_t, sq_norms
+from mpi_knn_tpu_torch.ops.fused_knn import _ZERO_RTOL, _select
+from mpi_knn_tpu_torch.ops.quant import dequantize_rows
+from mpi_knn_tpu_torch.ops.rerank import (
+    compress_tile,
+    mixed_applies,
+    overfetch_width,
+    rerank_exact_topk,
+)
+from mpi_knn_tpu_torch.ops.topk import preselect_smallest, smallest_k
+
+LAUNCHES = {"fused_block_merge[exact]": 0, "fused_block_merge[compress]": 0}
+
+_WIRE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+# query rows per step of the plain versions and of the mixed finish, sized
+# so a step's temporaries stay near a gigabyte at D=784
+_PLAIN_ROWS = 8192
+_FINISH_BYTES = 1 << 30
+
+
+def reset_launch_counts():
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    """The kernel library, with its C signatures set once at first load."""
+    lib = _build.load("fused_ring")
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.block_merge_exact_launch.argtypes = (
+        [ptr] * 9 + [i32] * 8 + [ctypes.c_float, ptr])
+    lib.block_merge_compress_launch.argtypes = [ptr] * 7 + [i32] * 7 + [ptr]
+    lib.block_merge_exact_launch.restype = i32
+    lib.block_merge_compress_launch.restype = i32
+    return lib
+
+
+def _check(queries, query_ids, block, block_ids, block_scale):
+    dev = queries.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+    if queries.dtype != torch.float32 or queries.ndim != 2:
+        raise TypeError("queries must be a 2-D float32 tensor")
+    if block.dtype not in _WIRE or block.ndim != 2:
+        raise TypeError(f"block must be 2-D float32/bfloat16/int8, got {block.dtype}")
+    if block.shape[1] != queries.shape[1]:
+        raise ValueError("queries and block differ in width")
+    if (block.dtype == torch.int8) != (block_scale is not None):
+        raise ValueError("an int8 block needs its per-row scales, and only it")
+    for name, t, n in (("query_ids", query_ids, queries.shape[0]),
+                       ("block_ids", block_ids, block.shape[0])):
+        if t.dtype != torch.int32 or t.shape != (n,):
+            raise TypeError(f"{name} must be int32 of shape ({n},)")
+    tensors = [queries, query_ids, block, block_ids]
+    if block_scale is not None:
+        if block_scale.dtype != torch.float32 or block_scale.shape != (block.shape[0],):
+            raise TypeError("block_scale must be float32 of shape (b,)")
+        tensors.append(block_scale)
+    for t in tensors:
+        if t.device != dev:
+            raise ValueError(f"operands on {t.device} and {dev}")
+        if not t.is_contiguous():
+            raise ValueError("operands must be contiguous")
+
+
+def _rc(rc, name):
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {rc}")
+    LAUNCHES[name] += 1
+
+
+def _wire_rows(block, block_scale):
+    """The block as f32 rows: dequantized, widened, or as is."""
+    if block.dtype == torch.int8:
+        return dequantize_rows(block, block_scale)
+    return block.to(torch.float32)
+
+
+# ---------------------------------------------------------------- K3a
+
+def block_merge_exact(queries, query_ids, block, block_ids, block_scale,
+                      carry_d, carry_i, *, c_tile: int,
+                      exclude_self: bool = True, exclude_zero: bool = True,
+                      zero_eps: float = 0.0):
+    """The exact merge of one block into the carry -> (q_local, k)."""
+    _check(queries, query_ids, block, block_ids, block_scale)
+    Q, k = carry_d.shape
+    if carry_d.dtype != torch.float32 or carry_i.dtype != torch.int32 or \
+            carry_i.shape != (Q, k) or Q != queries.shape[0]:
+        raise TypeError("carry must be (q_local, k) float32 and int32")
+    if carry_d.device != queries.device or carry_i.device != queries.device:
+        raise ValueError(f"carry on {carry_d.device}, queries on {queries.device}")
+    if block.shape[0] % c_tile:
+        raise ValueError("caller must pad the block to a c_tile multiple")
+    if queries.device.type == "cpu":
+        return block_merge_exact_reference(
+            queries, query_ids, block, block_ids, block_scale, carry_d,
+            carry_i, c_tile=c_tile, exclude_self=exclude_self,
+            exclude_zero=exclude_zero, zero_eps=zero_eps)
+    carry_d, carry_i = carry_d.contiguous(), carry_i.contiguous()
+    out_d = torch.empty_like(carry_d)
+    out_i = torch.empty_like(carry_i)
+    with torch.cuda.device(queries.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = _lib().block_merge_exact_launch(
+            queries.data_ptr(), query_ids.data_ptr(), block.data_ptr(),
+            block_scale.data_ptr() if block_scale is not None else None,
+            block_ids.data_ptr(), carry_d.data_ptr(), carry_i.data_ptr(),
+            out_d.data_ptr(), out_i.data_ptr(), Q, block.shape[0],
+            queries.shape[1], k, c_tile, _WIRE[block.dtype],
+            int(exclude_self), int(exclude_zero), float(zero_eps), stream)
+    _rc(rc, "fused_block_merge[exact]")
+    return out_d, out_i
+
+
+def block_merge_exact_reference(queries, query_ids, block, block_ids,
+                                block_scale, carry_d, carry_i, *, c_tile,
+                                exclude_self=True, exclude_zero=True,
+                                zero_eps=0.0):
+    """Plain PyTorch version of ``block_merge_exact`` (any device): the
+    reference's tile-by-tile merge, carry first."""
+    blk = _wire_rows(block, block_scale)
+    k = carry_d.shape[1]
+    out_d, out_i = [], []
+    for r0 in range(0, queries.shape[0], _PLAIN_ROWS):
+        q = queries[r0:r0 + _PLAIN_ROWS]
+        qid = query_ids[r0:r0 + _PLAIN_ROWS]
+        q_sq = sq_norms(q)
+        cd, ci = carry_d[r0:r0 + _PLAIN_ROWS], carry_i[r0:r0 + _PLAIN_ROWS]
+        for t0 in range(0, blk.shape[0], c_tile):
+            tile, tid = blk[t0:t0 + c_tile], block_ids[t0:t0 + c_tile]
+            c_sq = sq_norms(tile)
+            d = torch.clamp_min(
+                q_sq[:, None] - 2.0 * _mm_t(q, tile) + c_sq[None, :], 0.0)
+            invalid = (tid < 0)[None, :].expand_as(d)
+            if exclude_zero:
+                thresh = (zero_eps if zero_eps > 0.0
+                          else _ZERO_RTOL * (q_sq[:, None] + c_sq[None, :]))
+                invalid = invalid | (d <= thresh)
+            if exclude_self:
+                invalid = invalid | (tid[None, :] == qid[:, None])
+            d = torch.where(invalid, float("inf"), d)
+            cd, ci = _select(torch.cat([cd, d], 1),
+                             torch.cat([ci, tid[None, :].expand_as(d)], 1), k)
+        out_d.append(cd)
+        out_i.append(ci)
+    return torch.cat(out_d), torch.cat(out_i)
+
+
+# ---------------------------------------------------------------- K3b
+
+def block_merge_compress(queries, query_ids, block, block_ids, block_scale,
+                         *, ov: int, c_tile: int, exclude_self: bool = True):
+    """Each block tile's top-ov column positions by compressed key ->
+    (b // c_tile, q_local, ov) int32, tile-local."""
+    _check(queries, query_ids, block, block_ids, block_scale)
+    b = block.shape[0]
+    if b % c_tile or not 1 <= ov <= c_tile:
+        raise ValueError(f"need c_tile | b and 1 <= ov <= c_tile (ov={ov})")
+    if queries.device.type == "cpu":
+        return block_merge_compress_reference(
+            queries, query_ids, block, block_ids, block_scale, ov=ov,
+            c_tile=c_tile, exclude_self=exclude_self)
+    Q = queries.shape[0]
+    shape = (b // c_tile, Q, ov)
+    pos = torch.empty(shape, dtype=torch.int32, device=queries.device)
+    # lists longer than the kernel keeps in shared memory need a scratch
+    scratch = (torch.empty(shape, dtype=torch.float32, device=queries.device)
+               if ov > 128 else None)
+    with torch.cuda.device(queries.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = _lib().block_merge_compress_launch(
+            queries.data_ptr(), query_ids.data_ptr(), block.data_ptr(),
+            block_scale.data_ptr() if block_scale is not None else None,
+            block_ids.data_ptr(),
+            scratch.data_ptr() if scratch is not None else None,
+            pos.data_ptr(), Q, b, queries.shape[1], ov, c_tile,
+            _WIRE[block.dtype], int(exclude_self), stream)
+    _rc(rc, "fused_block_merge[compress]")
+    return pos
+
+
+def block_merge_compress_reference(queries, query_ids, block, block_ids,
+                                   block_scale, *, ov, c_tile,
+                                   exclude_self=True):
+    """Plain PyTorch version of ``block_merge_compress`` (any device)."""
+    blk = _wire_rows(block, block_scale)
+    tiles = []
+    for t0 in range(0, blk.shape[0], c_tile):
+        tile, tid = blk[t0:t0 + c_tile], block_ids[t0:t0 + c_tile]
+        c_sq = sq_norms(tile)
+        parts = []
+        for r0 in range(0, queries.shape[0], _PLAIN_ROWS):
+            q = queries[r0:r0 + _PLAIN_ROWS]
+            keys = compress_tile(q, tile, sq_norms(q), c_sq)
+            invalid = (tid < 0)[None, :] | torch.isnan(keys)
+            if exclude_self:
+                invalid = invalid | (
+                    tid[None, :] == query_ids[r0:r0 + _PLAIN_ROWS, None])
+            keys = torch.where(invalid, float("inf"), keys)
+            parts.append(preselect_smallest(keys, ov))
+        tiles.append(torch.cat(parts))
+    return torch.stack(tiles).to(torch.int32)
+
+
+def _mixed_finish(queries, query_ids, block, block_ids, block_scale, pos,
+                  carry_d, carry_i, cfg, c_tile):
+    """Around K3b: per chunk of query rows, tile after tile, gather the
+    survivors at the wire level (dequantizing only them), rerank exactly
+    and merge into the carry."""
+    n_c, Q, ov = pos.shape
+    rows = max(1, _FINISH_BYTES // (ov * queries.shape[1] * 8))
+    out_d, out_i = [], []
+    for r0 in range(0, Q, rows):
+        q, qid = queries[r0:r0 + rows], query_ids[r0:r0 + rows]
+        cd, ci = carry_d[r0:r0 + rows], carry_i[r0:r0 + rows]
+        for t in range(n_c):
+            pos_g = (t * c_tile + pos[t, r0:r0 + rows]).long()
+            cand = block[pos_g]
+            cand = (dequantize_rows(cand, block_scale[pos_g])
+                    if block_scale is not None else cand.to(torch.float32))
+            ld, li = rerank_exact_topk(
+                q, qid, cand, block_ids[pos_g], cfg.k, metric=cfg.metric,
+                exclude_self=cfg.exclude_self, exclude_zero=cfg.exclude_zero,
+                zero_eps=cfg.zero_eps)
+            cd, ci = smallest_k(torch.cat([cd, ld], 1), torch.cat([ci, li], 1),
+                                cfg.k, method="exact")
+        out_d.append(cd)
+        out_i.append(ci)
+    return torch.cat(out_d), torch.cat(out_i)
+
+
+def fused_block_merge(queries, query_ids, block, block_ids, block_scale,
+                      carry_d, carry_i, *, cfg, q_tile: int, c_tile: int):
+    """Merge one resident ring block into the carry: the per-round compute
+    of ``ring_fusion="fused"``. Returns the merged ((q_local, k) dists,
+    ids)."""
+    q_local, b = queries.shape[0], block.shape[0]
+    if q_local % q_tile or b % c_tile:
+        raise ValueError("caller must pad to tile multiples")
+    if (cfg.ring_transfer_dtype == "int8") != (block.dtype == torch.int8):
+        raise ValueError(
+            "ring_transfer_dtype='int8' circulates int8 codes with their "
+            f"scales; got a {block.dtype} block")
+    carry_d = carry_d.to(torch.float32)
+    if not (cfg.precision_policy == "mixed" and mixed_applies(cfg.k, c_tile)):
+        # the exact policy, and the mixed policy's degenerate tile
+        return block_merge_exact(
+            queries, query_ids, block, block_ids, block_scale, carry_d,
+            carry_i, c_tile=c_tile, exclude_self=cfg.exclude_self,
+            exclude_zero=cfg.exclude_zero, zero_eps=cfg.zero_eps)
+    pos = block_merge_compress(
+        queries, query_ids, block, block_ids, block_scale,
+        ov=overfetch_width(cfg.k, c_tile), c_tile=c_tile,
+        exclude_self=cfg.exclude_self)
+    return _mixed_finish(queries, query_ids, block, block_ids, block_scale,
+                         pos, carry_d, carry_i, cfg, c_tile)

@@ -67,6 +67,14 @@ def _fold_topk(dists, ids, k: int, width: int):
     return vals.reshape(q, nch * k), out_ids.reshape(q, nch * k)
 
 
+def preselect_smallest(dists, n: int):
+    """Column positions of each row's ``n`` smallest entries: the positions
+    ``lax.top_k(-dists, n)`` gives in the JAX package — ascending, ties to
+    the leftmost column, and once the finite entries run out the +inf
+    columns in index order (a stable sort hands them out that way)."""
+    return torch.sort(dists, dim=-1, stable=True).indices[..., :n]
+
+
 def smallest_k(dists, ids, k: int, method: str = "exact", block: int = 128):
     """Per-row k smallest entries of a (q, c) tile.
 

@@ -113,13 +113,28 @@ def test_default_config_dict_round_trips():
     assert dataclasses.asdict(config_from_reference(d)) == d
 
 
+LIFTED = [dict(precision_policy="mixed"), dict(backend="ring"),
+          dict(backend="ring-overlap"), dict(ring_schedule="bidir"),
+          dict(ring_transfer_dtype="bfloat16")]
+
+
+@pytest.mark.parametrize("setting", LIFTED)
+def test_lifted_settings_run_and_match_jax(setting):
+    """Settings the port refused before the ring and the mixed policy were
+    ported now run on the CPU and agree with the JAX package (a ring of 4;
+    ``auto`` resolves to the overlap ring on both sides)."""
+    X, _ = _data(8, m=160)
+    kw = dict(k=5, num_devices=4, query_tile=16, corpus_tile=32, **setting)
+    _assert_same_knn(all_knn(X, device="cpu", **kw), jax_pkg.all_knn(X, **kw),
+                     5)
+
+
 @pytest.mark.parametrize(
     "setting",
-    [dict(precision_policy="mixed"), dict(topk_method="approx"),
-     dict(topk_method="approx-rerank"), dict(topk_method="bf16"),
-     dict(matmul_precision="default"), dict(backend="ring"),
-     dict(backend="ring-overlap"), dict(ring_schedule="bidir"),
-     dict(ring_transfer_dtype="bfloat16"), dict(partitions=16)],
+    [dict(topk_method="approx"), dict(topk_method="approx-rerank"),
+     dict(topk_method="bf16"), dict(matmul_precision="default"),
+     dict(matmul_precision="high"), dict(partitions=16),
+     dict(ring_fused_rotation="grid")],
 )
 def test_refused_settings_name_themselves(setting):
     (name, value), = setting.items()
@@ -130,10 +145,41 @@ def test_refused_settings_name_themselves(setting):
         config_from_reference(d)
 
 
-def test_auto_with_several_devices_is_refused():
+@pytest.mark.parametrize(
+    "setting",
+    [dict(precision_policy="mixed"), dict(backend="ring"),
+     dict(backend="ring-overlap"), dict(ring_schedule="bidir"),
+     dict(ring_transfer_dtype="bfloat16"), dict(ring_transfer_dtype="float32"),
+     dict(ring_transfer_dtype="int8", precision_policy="mixed"),
+     dict(ring_fusion="fused"), dict(num_devices=4, mesh_axis="r")],
+)
+def test_ported_reference_configs_convert(setting):
+    d = dataclasses.asdict(jax_pkg.KNNConfig(**setting))
+    assert dataclasses.asdict(config_from_reference(d)) == d
+
+
+@pytest.mark.parametrize(
+    "setting,words",
+    [(dict(ring_transfer_dtype="int8"), "requires precision_policy='mixed'"),
+     (dict(ring_fusion="fused", metric="cosine"), "metric='l2' only"),
+     (dict(ring_fusion="fused", dtype="bfloat16"), "dtype='float32'"),
+     (dict(ring_fusion="fused", topk_method="block"), "topk_method='exact'"),
+     (dict(precision_policy="mixed", dtype="float64"), "dtype='float32'"),
+     (dict(precision_policy="mixed", matmul_precision="highest"),
+      "matmul_precision must be None")],
+)
+def test_cross_field_rules_match_jax(setting, words):
+    with pytest.raises(ValueError):
+        jax_pkg.KNNConfig(**setting)
+    with pytest.raises(ValueError, match=words):
+        KNNConfig(**setting)
+
+
+def test_auto_with_several_devices_runs_the_ring():
     X, _ = _data(6, m=64)
-    with pytest.raises(ValueError, match="not yet ported"):
-        all_knn(X, k=3, num_devices=2, device="cpu")
+    kw = dict(k=3, num_devices=2, query_tile=16, corpus_tile=32)
+    _assert_same_knn(all_knn(X, device="cpu", **kw), jax_pkg.all_knn(X, **kw),
+                     3)
     assert all_knn(X, k=3, device="cpu").ids.shape == (64, 3)  # auto = serial
 
 

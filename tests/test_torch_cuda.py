@@ -1,14 +1,20 @@
 """The CUDA kernels against their plain versions on the card. These need a
 CUDA device and nvcc; they skip elsewhere. On the card:
 
-    python -m pytest tests/test_torch_cuda.py -m cuda -q
+    python -m pytest --noconftest tests/test_torch_cuda.py -m cuda -q
+
+The data are multiples of 1/16 or 1/4 small enough that every product and
+sum is exact in f32 and every value is exact in bf16, and rows whose
+largest magnitude is 127/16 quantize to int8 without loss: kernel and plain
+version must then agree bit for bit, ids, positions and distances.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from mpi_knn_tpu_torch.ops import fused_knn
+from mpi_knn_tpu_torch.ops import fused_knn, fused_ring
+from mpi_knn_tpu_torch.ops.quant import quantize_rows
 
 
 @pytest.fixture
@@ -18,11 +24,18 @@ def cuda_device():
     return torch.device("cuda")
 
 
+def _same(got, want):
+    assert torch.equal(torch.nan_to_num(got, posinf=-1.0),
+                       torch.nan_to_num(want, posinf=-1.0))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["fused_knn_tiles", "fused_knn_sweep"])
 @pytest.mark.parametrize("all_pairs", [True, False])
 @pytest.mark.parametrize("k", [10, 150])  # 150: lists kept in the output
-def test_kernel_equals_plain_on_small_integers(cuda_device, name, all_pairs, k):
+@pytest.mark.parametrize("compress", [False, True])
+def test_kernel_equals_plain_on_small_integers(cuda_device, name, all_pairs,
+                                               k, compress):
     rng = np.random.default_rng(0)
     X = torch.from_numpy((rng.integers(0, 8, (512, 32)) * 0.25).astype(np.float32))
     X[5] = X[60]
@@ -30,11 +43,116 @@ def test_kernel_equals_plain_on_small_integers(cuda_device, name, all_pairs, k):
     Q, X = Q.to(cuda_device), X.to(cuda_device)
     kern = getattr(fused_knn, name)
     plain = getattr(fused_knn, name + "_reference")
-    before = fused_knn.LAUNCHES[name]
-    gd, gi = kern(Q, X, 500, k, 128, 256, all_pairs=all_pairs)
+    key = name + ("[compress]" if compress else "")
+    before = fused_knn.LAUNCHES[key]
+    gd, gi = kern(Q, X, 500, k, 128, 256, all_pairs=all_pairs,
+                  compress=compress)
     torch.cuda.synchronize()
-    wd, wi = plain(Q, X, 500, k, 128, 256, all_pairs=all_pairs)
-    assert fused_knn.LAUNCHES[name] == before + 1
+    wd, wi = plain(Q, X, 500, k, 128, 256, all_pairs=all_pairs,
+                   compress=compress)
+    assert fused_knn.LAUNCHES[key] == before + 1
     assert torch.equal(gi, wi)
-    assert torch.equal(torch.nan_to_num(gd, posinf=-1.0),
-                       torch.nan_to_num(wd, posinf=-1.0))
+    _same(gd, wd)
+
+
+def _ring_operands(device, wire, q_local=96, b=256, dim=24, seed=0):
+    """Queries, ids, a wire block with permuted ids and -1 padding, a
+    duplicate of a query, a query whose id is in the block, and a carry
+    whose distances tie block entries."""
+    rng = np.random.default_rng(seed)
+
+    def rows(n):
+        x = rng.integers(-127, 128, (n, dim)).astype(np.float32)
+        x[np.arange(n), rng.integers(0, dim, n)] = 127.0
+        return x / 16
+
+    q, blk = rows(q_local), rows(b)
+    blk[17] = q[4]                     # a duplicate row
+    bids = rng.permutation(10 * b)[:b].astype(np.int32)
+    bids[-9:] = -1                     # padding
+    qids = np.arange(q_local, dtype=np.int32) + 5000
+    qids[7] = bids[30]                 # self by id
+    qt = torch.from_numpy(q).to(device)
+    bt = torch.from_numpy(blk).to(device)
+    scale = None
+    if wire == "int8":
+        bt, scale = quantize_rows(bt)
+    elif wire == "bfloat16":
+        bt = bt.to(torch.bfloat16)
+    return (qt, torch.from_numpy(qids).to(device), bt,
+            torch.from_numpy(bids).to(device), scale)
+
+
+def _carry(q, blk, bids, k):
+    """A carry of real block distances under other ids, so ties with the
+    block's own entries happen."""
+    d = ((q.double()[:, None] - blk.double()[None]) ** 2).sum(-1).float()
+    cd, pos = torch.sort(d, dim=1, stable=True)
+    cd = cd[:, 3:3 + k].contiguous()
+    ci = (bids[pos[:, 3:3 + k]] + 20000).to(torch.int32).contiguous()
+    return cd, ci
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wire", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("k", [10, 150])
+def test_block_merge_exact_equals_plain(cuda_device, wire, k):
+    q, qids, blk, bids, scale = _ring_operands(cuda_device, wire)
+    q[9] = float("nan")
+    rows = blk.float() if scale is None else blk.float() * scale[:, None]
+    cd, ci = _carry(q, rows, bids, k)
+    before = fused_ring.LAUNCHES["fused_block_merge[exact]"]
+    got = fused_ring.block_merge_exact(q, qids, blk, bids, scale, cd, ci,
+                                       c_tile=64)
+    torch.cuda.synchronize()
+    want = fused_ring.block_merge_exact_reference(q, qids, blk, bids, scale,
+                                                  cd, ci, c_tile=64)
+    assert fused_ring.LAUNCHES["fused_block_merge[exact]"] == before + 1
+    assert torch.equal(got[1], want[1])
+    _same(got[0], want[0])
+    assert bool(torch.isnan(got[0][9]).all()) and bool((got[1][9] == -1).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend,fusion,schedule,policy,wire", [
+    ("ring-overlap", "fused", "uni", "exact", None),
+    ("ring-overlap", "fused", "bidir", "mixed", "int8"),
+    ("ring-overlap", "xla", "bidir", "exact", "bfloat16"),
+    ("ring", "xla", "uni", "mixed", None),
+])
+def test_ring_across_cards_equals_one_shared_card(cuda_device, backend, fusion,
+                                                  schedule, policy, wire):
+    """The blocks really move between cards (side streams under overlap):
+    the result must equal, bit for bit, the same ring on one card named
+    once per rank, where no bytes move."""
+    from mpi_knn_tpu_torch import all_knn
+    from mpi_knn_tpu_torch.parallel.mesh import make_ring_mesh
+
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        pytest.skip("needs at least two cards")
+    rng = np.random.default_rng(1)
+    X = (rng.standard_normal((3000, 64)) * 3.0).astype(np.float32)
+    kw = dict(k=10, backend=backend, ring_fusion=fusion,
+              ring_schedule=schedule, precision_policy=policy,
+              ring_transfer_dtype=wire, query_tile=128, corpus_tile=256)
+    spread = all_knn(X, mesh=make_ring_mesh(cards), **kw)
+    shared = all_knn(X, mesh=make_ring_mesh(devices=[cuda_device] * cards),
+                     **kw)
+    assert torch.equal(spread.ids, shared.ids)
+    assert torch.equal(spread.dists, shared.dists)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wire", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("ov", [12, 200])  # 200: lists in a global scratch
+def test_block_merge_compress_equals_plain(cuda_device, wire, ov):
+    q, qids, blk, bids, scale = _ring_operands(cuda_device, wire, b=512)
+    before = fused_ring.LAUNCHES["fused_block_merge[compress]"]
+    got = fused_ring.block_merge_compress(q, qids, blk, bids, scale, ov=ov,
+                                          c_tile=256)
+    torch.cuda.synchronize()
+    want = fused_ring.block_merge_compress_reference(q, qids, blk, bids,
+                                                     scale, ov=ov, c_tile=256)
+    assert fused_ring.LAUNCHES["fused_block_merge[compress]"] == before + 1
+    assert got.shape == (2, 96, ov) and torch.equal(got, want)

@@ -3,9 +3,10 @@ run for CPU tensors) against the JAX package's Pallas kernels, run in
 interpret mode on the CPU as its own tests run them.
 
 Small-integer data (multiples of 0.25 below 2) makes every product and sum
-exact in f32, so ids AND distances must be equal: that pins the tie rule.
-On Gaussian data the sum orders differ between XLA and torch, so distances
-are held at rtol 1e-5 + 1e-4·(q²+c²) and ids at tie-aware recall 1.0.
+exact in f32 and every value exact in bf16, so ids AND distances must be
+equal, in exact and in compress mode: that pins the tie rule. On Gaussian
+data the sum orders differ between XLA and torch, so distances are held at
+rtol 1e-5 + 1e-4·(q²+c²) and ids at tie-aware recall 1.0.
 """
 
 import numpy as np
@@ -87,6 +88,23 @@ def test_plain_kernel_equals_pallas_on_small_integers(variant, case):
         assert 60 not in gi[5] and 5 not in gi[60]
 
 
+@pytest.mark.parametrize("variant", ["tiles", "sweep"])
+@pytest.mark.parametrize("case", ["all_pairs", "non_divisible", "query_mode",
+                                  "duplicates", "nan_query_row"])
+def test_plain_compress_equals_pallas_on_small_integers(variant, case):
+    """compress=True: bf16-rounded dot, no zero mask, clamp at 0, k as the
+    overfetch width."""
+    X, Q, k, q_tile, c_tile, kw = EXACT[case]
+    queries = X if Q is None else Q
+    ov = min(4 * k, c_tile)
+    (wd, wi), (gd, gi), _, _ = _both(variant, queries, X, len(X), ov, q_tile,
+                                     c_tile, compress=True, **kw)
+    np.testing.assert_array_equal(gi, wi)
+    np.testing.assert_array_equal(gd, wd)
+    if case == "duplicates":  # zero distances are kept in compress mode
+        assert 60 in gi[5]
+
+
 GAUSS = {
     "all_pairs": (_gauss(2, 300, 32), None, 8, 64, 128, {}),
     "query_mode": (_gauss(3, 250, 24), _gauss(4, 50, 24), 6, 32, 128,
@@ -131,4 +149,8 @@ def test_launch_counts_untouched_by_plain_versions():
     x = torch.from_numpy(_small_int(5, 64, 8))
     fused_knn.fused_knn_tiles(x, x, 64, 4, 32, 64)
     fused_knn.fused_knn_sweep(x, x, 64, 4, 32, 64)
-    assert fused_knn.LAUNCHES == {"fused_knn_tiles": 0, "fused_knn_sweep": 0}
+    fused_knn.fused_knn_tiles(x, x, 64, 4, 32, 64, compress=True)
+    fused_knn.fused_knn_sweep(x, x, 64, 4, 32, 64, compress=True)
+    assert fused_knn.LAUNCHES == {
+        "fused_knn_tiles": 0, "fused_knn_sweep": 0,
+        "fused_knn_tiles[compress]": 0, "fused_knn_sweep[compress]": 0}

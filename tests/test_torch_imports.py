@@ -34,7 +34,9 @@ def test_importing_the_port_loads_no_jax():
         text=True, timeout=120, check=True,
     )
     loaded = json.loads(out.stdout.strip().splitlines()[-1])
-    assert "mpi_knn_tpu_torch.ops.fused_knn" in loaded
+    for mod in ("ops.fused_knn", "ops.fused_ring", "ops.rerank", "ops.quant",
+                "backends.ring", "parallel.mesh"):
+        assert f"mpi_knn_tpu_torch.{mod}" in loaded
     assert "chip_smoke" in loaded
     bad = [m for m in loaded
            if m == "jax" or m.startswith(("jax.", "jaxlib"))
