@@ -18,7 +18,13 @@ is not 0:
    padding, a duplicate, a self id and a carry that ties block entries
    (bitwise), then the ring's P=1 MNIST shape (60416 queries, a 61440-row
    block) and a P=4 shard shape (15360 queries, a 16384-row block, a
-   carry from the rank's own block). Off the small-integer cases every id
+   carry from the rank's own block). The ring transport (K4 one round,
+   K5 the whole rotation) on the 4-rank mesh: small-integer cases at P=1
+   (the block copied to itself) and P=4 on f32 and bf16 (K4 also int8),
+   bitwise, with every rank's landing buffers equal to its predecessor's
+   block; then K4 at the P=1 shape and one P=4 round (round 1: the own
+   blocks merged, the blocks one rank on), and K5 over the P=4 rotation.
+   Off the small-integer cases every id
    is judged by its own f64 key from the inputs (the squared distance, or
    in compress mode q^2 - 2 bf16(q).bf16(c) + c^2): -1 exactly on
    non-finite slots, never the row itself, no id twice in a list, inside
@@ -26,8 +32,13 @@ is not 0:
    version's and of the id's own; ids agree at >= 0.999, an id the plain
    version did not pick counting when its own key ties the plain k-th.
    Each mode and its plain version are timed by CUDA events at the main
-   shapes, beside one PyTorch yardstick each (the serial backend, or the
-   ring's xla-form round, on the same card inputs). Then planted
+   shapes (across cards by the host clock between synchronizations; K4
+   and K5, whose wrappers synchronize after each launch, by the
+   profiler's device time per launch, their per-call time beside it),
+   beside one yardstick each on the same card inputs: the serial backend,
+   the ring's xla-form round, for K4 K3a plus the block's Tensor.copy_ on
+   the launch's ranks, for K5 the driver-transport rotation with K3a.
+   Then planted
    duplicates (an exact pair, a near-twin at d^2 = 64) go through every
    mixed path on the card: the rerank must drop the pair and keep the
    twin first at 64;
@@ -41,7 +52,15 @@ is not 0:
    - KNNClassifier(backend="ring-overlap", ring_fusion="fused",
      num_devices=1): exact, mixed, and mixed with the int8 wire;
    - all_knn on a 4-rank mesh (4 cards when the machine has them, else one
-     card named 4 times): fused exact uni and bidir, and one xla-form run.
+     card named 4 times): fused exact uni (K4: rounds x cards launches)
+     and bidir (16 K3a launches), and one xla-form run;
+   - the transport on that mesh: fused-dma (K4 each round, 4 x cards
+     launches) and fused-grid (K5, one launch per card); each must equal,
+     bit for bit, the driver-transport K3a ring on the same inputs;
+   - resume: all_knn_ring_resumable on that mesh, stopped after 2 of 4
+     rounds into a temporary checkpoint directory and resumed; it must
+     equal the one-shot fused-dma ring bit for bit, with K4 in every round
+     that moves the block and K3a in the last.
    The exact ring's ids must agree with the exact fused path's (tie-aware,
    by f64 distance, >= 0.999);
 5. kernels: one line with every kernel mode's launches, error, times and
@@ -55,6 +74,7 @@ import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -72,6 +92,15 @@ Q_TILE, C_TILE = 512, 2048  # the fused backend's clamps at the main path
 SAMPLE_ROWS = 4096  # rows whose ids are judged in f64 at the largest shapes
 
 
+def source_of(kernel: str) -> str:
+    """The CUDA source of a kernel mode, under mpi_knn_tpu_torch/csrc/."""
+    if kernel.startswith("fused_knn"):
+        return "fused_knn.cu"
+    if kernel.startswith("fused_block_merge"):
+        return "fused_ring.cu"
+    return "fused_ring_dma.cu"
+
+
 def emit(obj):
     print(json.dumps(obj), flush=True)
 
@@ -82,6 +111,39 @@ def nvidia_smi_line() -> str:
         capture_output=True, text=True, timeout=60, check=True,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def mesh_ms(fn, reps: int, devices) -> float:
+    """Mean milliseconds of ``fn()``: by CUDA events when every rank of
+    ``devices`` is on the current card, else by the host clock between
+    synchronizations of every card."""
+    if len({str(d) for d in devices}) == 1:
+        return cuda_ms(fn, reps)
+    sync_all()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    sync_all()
+    return 1e3 * (time.perf_counter() - t0) / reps
+
+
+def launch_device_ms(fn, reps: int, kernel: str) -> float:
+    """Mean device milliseconds per launch of the kernels whose name holds
+    ``kernel`` over ``reps`` calls of ``fn``, by torch.profiler. For
+    wrappers that synchronize after each launch (K4, K5 read their error
+    word), so that host work between calls is not counted."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        sync_all()
+    evs = [ev for ev in prof.key_averages() if kernel in ev.key]
+    total = sum(getattr(ev, "device_time_total", 0) for ev in evs)
+    count = sum(ev.count for ev in evs)
+    if total <= 0 or count == 0:
+        raise AssertionError(f"the profiler saw no device time for {kernel}")
+    return total / 1e3 / count
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -110,16 +172,25 @@ def centered(corpus: np.ndarray, queries=None):
 
 
 def reset_counts():
-    from mpi_knn_tpu_torch.ops import fused_knn, fused_ring
+    from mpi_knn_tpu_torch.ops import fused_knn, fused_ring, fused_rotation
 
     fused_knn.reset_launch_counts()
     fused_ring.reset_launch_counts()
+    fused_rotation.reset_launch_counts()
 
 
 def read_counts() -> dict:
-    from mpi_knn_tpu_torch.ops import fused_knn, fused_ring
+    from mpi_knn_tpu_torch.ops import fused_knn, fused_ring, fused_rotation
 
-    return {**fused_knn.LAUNCHES, **fused_ring.LAUNCHES}
+    return {**fused_knn.LAUNCHES, **fused_ring.LAUNCHES,
+            **fused_rotation.LAUNCHES}
+
+
+def sync_all():
+    import torch
+
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
 
 
 def true_keys(q, c, ids, compress=False, clamp=True, mask=None):
@@ -339,7 +410,7 @@ def kernel_cases(device):
         yield name, qp, cp, len(c), all_pairs, exact, k, qt, ct
 
 
-def ring_small_cases(device):
+def ring_small_cases(device, seed=1, id_base=0):
     """Small-integer K3a/K3b operands on each wire: rows of integers in
     [-127, 127] over 16 with one +-127/16 entry (exact in f32 and bf16,
     lossless in int8), rotated block ids with -1 padding, a duplicate of a
@@ -349,7 +420,7 @@ def ring_small_cases(device):
 
     from mpi_knn_tpu_torch.ops.quant import quantize_rows
 
-    rng = np.random.default_rng(1)
+    rng = np.random.default_rng(seed)
 
     def rows(n, dim=96):
         x = rng.integers(-127, 128, (n, dim)).astype(np.float32)
@@ -358,7 +429,7 @@ def ring_small_cases(device):
 
     q, blk = rows(300), rows(1024)
     blk[100] = q[4]
-    bids = (rng.permutation(50000)[:1024] + 1000).astype(np.int32)
+    bids = (rng.permutation(50000)[:1024] + 1000 + id_base).astype(np.int32)
     bids[-40:] = -1
     qids = np.arange(300, dtype=np.int32) + 60000
     qids[7] = bids[500]
@@ -387,7 +458,8 @@ def main() -> int:
     from mpi_knn_tpu_torch.backends import ring
     from mpi_knn_tpu_torch.backends.serial import all_knn_serial
     from mpi_knn_tpu_torch.data.synthetic import make_mnist_like
-    from mpi_knn_tpu_torch.ops import _build, fused_knn, fused_ring
+    from mpi_knn_tpu_torch.backends.ring_resumable import all_knn_ring_resumable
+    from mpi_knn_tpu_torch.ops import _build, fused_knn, fused_ring, fused_rotation
     from mpi_knn_tpu_torch.ops.topk import init_topk
     from mpi_knn_tpu_torch.ops.quant import dequantize_rows, quantize_rows
     from mpi_knn_tpu_torch.parallel.mesh import make_ring_mesh
@@ -580,6 +652,189 @@ def main() -> int:
                   "wire": wire or "float32", **entry})
             del got, want
 
+    # ---- the ring transport (K4, K5) against its plain versions ----------
+    mesh = make_ring_mesh(4) if count >= 4 else make_ring_mesh(devices=[device] * 4)
+    devices4 = list(mesh)
+    cards = len({str(d) for d in devices4})
+    emit({"phase": "mesh", "ranks": [str(d) for d in mesh], "cards": cards})
+    for name in ("fused_round_dma", "fused_rotation_grid"):
+        max_err[name] = 0.0
+    slot, landing_slots = fused_rotation.slot, fused_rotation.landing_slots
+
+    def cat(carries):
+        return (torch.cat([c[0].to(device) for c in carries]),
+                torch.cat([c[1].to(device) for c in carries]))
+
+    def same_landing(name, land, blocks):
+        P = len(blocks)
+        for r in range(P):
+            for have, sent in zip(land[(r + 1) % P], blocks[r]):
+                if (have is None) != (sent is None) or (
+                        sent is not None
+                        and not torch.equal(have, sent.to(have.device))):
+                    raise AssertionError(
+                        f"{name}: rank {(r + 1) % P} did not land rank {r}'s block")
+
+    def lands(blocks, i):
+        return [slot(landing_slots(*b), i) for b in blocks]
+
+    for devs in ([device], devices4):
+        P = len(devs)
+        for wire in ("float32", "bfloat16", "int8"):
+            qs, qi, bl, ca = [], [], [], []
+            for r, d in enumerate(devs):
+                _, (q, qids, b, bids, scale), carry = next(
+                    c for c in ring_small_cases(d, seed=1 + r, id_base=100000 * r)
+                    if c[0] == wire)
+                qs.append(q)
+                qi.append(qids)
+                bl.append((b, bids, scale))
+                ca.append(carry)
+            tr = fused_rotation.ring_transport(devs)
+            land = lands(bl, 0)
+            got = fused_rotation.fused_round_dma(tr, qs, qi, bl, ca, land,
+                                                 c_tile=256)
+            sync_all()
+            want = fused_rotation.fused_round_dma_reference(
+                qs, qi, bl, ca, lands(bl, 0), c_tile=256)
+            case = f"small_int_P{P}_{wire}"
+            same_landing(f"fused_round_dma/{case}", land, bl)
+            qid_all = torch.cat([t.to(device) for t in qi])
+            compare(f"fused_round_dma/{case}", cat(got), cat(want), None, None,
+                    1 << 30, qid_all, True, K, None)
+            if wire == "int8":
+                continue
+            got = fused_rotation.fused_rotation_grid(
+                tr, qs, qi, bl, ca, [landing_slots(*b) for b in bl], c_tile=256)
+            sync_all()
+            want = fused_rotation.fused_rotation_grid_reference(
+                qs, qi, bl, ca, [landing_slots(*b) for b in bl], c_tile=256)
+            compare(f"fused_rotation_grid/{case}", cat(got), cat(want), None,
+                    None, 1 << 30, qid_all, True, K, None)
+
+    cfg_fused = KNNConfig(k=K, ring_fusion="fused")
+    row_ids = np.arange(M_FULL, dtype=np.int32)
+    transport_timing = {}
+
+    def real_ops_bytes(q_sh, qid_sh, blocks, ranks, rounds):
+        """Needed FLOP and bytes of one launch over ``ranks``: each rank
+        merges ``rounds`` blocks of real rows; bytes count its queries,
+        blocks and ids read once, its carry read and written once."""
+        ops = nbytes = 0.0
+        for r in ranks:
+            real_q = int((qid_sh[r] >= 0).sum())
+            ql = q_sh[r].shape[0]
+            nbytes += 4.0 * real_q * D + 16.0 * ql * K
+            for j in range(rounds):
+                blk, bids, scl = blocks[(r - j) % len(blocks)]
+                real_b = int((bids >= 0).sum())
+                ops += 2.0 * real_q * real_b * D
+                nbytes += (blk.element_size() * real_b * D + 4.0 * bids.numel()
+                           + (0 if scl is None else 4.0 * scl.numel()))
+        return ops, nbytes
+
+    for shape, devs in (("p1_mnist60k", [device]), ("p4_round", devices4)):
+        P = len(devs)
+        q_tile, c_tile, q_sh, qid_sh, travelers = ring.ring_shards(
+            cfg_fused, Xc, Xc, row_ids, devs)
+        blocks0 = travelers[0]
+        init = [init_topk(q.shape[0], K, device=q.device) for q in q_sh]
+        blocks, carries = blocks0, init
+        tr = fused_rotation.ring_transport(devs)
+        if P > 1:  # round 1: own blocks merged, the blocks one rank on
+            blocks = lands(blocks0, 1)
+            carries = fused_rotation.fused_round_dma_reference(
+                q_sh, qid_sh, blocks0, init, blocks, c_tile=c_tile)
+        land, want_land = lands(blocks, 0), lands(blocks, 0)
+
+        def k4():
+            return fused_rotation.fused_round_dma(tr, q_sh, qid_sh, blocks,
+                                                  carries, land, c_tile=c_tile)
+
+        def k4_plain():
+            return fused_rotation.fused_round_dma_reference(
+                q_sh, qid_sh, blocks, carries, want_land, c_tile=c_tile)
+
+        one_card = tr.local[tr.cards[0]]  # the ranks of one launch
+
+        def k3a_and_copy():  # per K4 launch: K3a and the block's copy_
+            for r in one_card:
+                fused_ring.block_merge_exact(q_sh[r], qid_sh[r], *blocks[r],
+                                             *carries[r], c_tile=c_tile)
+                for dst, src in zip(land[(r + 1) % P], blocks[r]):
+                    if src is not None:
+                        dst.copy_(src)
+
+        got, want = k4(), k4_plain()
+        sync_all()
+        same_landing(f"fused_round_dma/{shape}", land, blocks)
+        ms = launch_device_ms(k4, 3, "round_dma_kernel")
+        call_ms = mesh_ms(k4, 3, devs)
+        plain_ms = mesh_ms(k4_plain, 3, devs)
+        k3a_and_copy()
+        lib_ms = mesh_ms(k3a_and_copy, 3, devs)
+        q_all = torch.cat([q.to(device) for q in q_sh])
+        qid_all = torch.cat([t.to(device) for t in qid_sh])
+        err = compare(f"fused_round_dma/{shape}", cat(got), cat(want), q_all,
+                      Xcd, M_FULL, qid_all, False, K, None, sample=sample)
+        max_err["fused_round_dma"] = max(max_err["fused_round_dma"], err)
+        ops, nbytes = real_ops_bytes(q_sh, qid_sh, blocks, one_card, 1)
+        for r in one_card:  # the landed block and ids, written once
+            nbytes += sum(t.numel() * t.element_size()
+                          for t in blocks[r] if t is not None)
+        entry = {"ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
+                 "library_ms": lib_ms, **bound(ops, nbytes, PEAK_FP32_FLOPS)}
+        transport_timing[("fused_round_dma", shape)] = entry
+        emit({"phase": "kernel_time", "kernel": "fused_round_dma",
+              "shape": shape, "ranks": P, "ranks_per_launch": len(one_card),
+              "q_local": q_sh[0].shape[0], "b": blocks[0][0].shape[0], "D": D,
+              "k": K, "library": "K3a + Tensor.copy_ per rank of the launch",
+              **entry})
+        del got, want, land, want_land
+        if P == 1:
+            continue
+
+        slots, want_slots = ([landing_slots(*b) for b in blocks0]
+                             for _ in range(2))
+
+        def k5():
+            return fused_rotation.fused_rotation_grid(
+                tr, q_sh, qid_sh, blocks0, init, slots, c_tile=c_tile)
+
+        def k5_plain():
+            return fused_rotation.fused_rotation_grid_reference(
+                q_sh, qid_sh, blocks0, init, want_slots, c_tile=c_tile)
+
+        def driver_rotation():  # the same rotation: Tensor.to and K3a
+            run = ring.RingRun(cfg_fused, devs, True, "driver", q_sh, qid_sh,
+                               [list(blocks0)], list(init), q_tile, c_tile)
+            for rnd in range(P):
+                run.round(merge_bwd=False, rotate=rnd < P - 1)
+            return run.carries
+
+        got, want = k5(), k5_plain()
+        sync_all()
+        ms = launch_device_ms(k5, 3, "rotation_grid_kernel")
+        call_ms = mesh_ms(k5, 3, devs)
+        plain_ms = mesh_ms(k5_plain, 3, devs)
+        driver_rotation()
+        lib_ms = mesh_ms(driver_rotation, 3, devs)
+        err = compare(f"fused_rotation_grid/p4_rotation", cat(got), cat(want),
+                      q_all, Xcd, M_FULL, qid_all, False, K, None,
+                      sample=sample)
+        max_err["fused_rotation_grid"] = max(max_err["fused_rotation_grid"], err)
+        ops, nbytes = real_ops_bytes(q_sh, qid_sh, blocks0, one_card, P)
+        entry = {"ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
+                 "library_ms": lib_ms, **bound(ops, nbytes, PEAK_FP32_FLOPS)}
+        transport_timing[("fused_rotation_grid", "p4_rotation")] = entry
+        emit({"phase": "kernel_time", "kernel": "fused_rotation_grid",
+              "shape": "p4_rotation", "ranks": P,
+              "ranks_per_launch": len(one_card), "q_local": q_sh[0].shape[0],
+              "b": blocks0[0][0].shape[0], "D": D, "k": K,
+              "library": "the driver-transport rotation with K3a", **entry})
+        del got, want, slots, want_slots
+    del q_sh, qid_sh, travelers, blocks0, blocks, carries, init
+
     # ---- planted duplicates through the mixed paths' rerank on the card ---
     # An exact duplicate pair and a near-twin one pixel off by 8: the
     # compress keys of the two collapse; only the exact rerank drops the
@@ -606,7 +861,6 @@ def main() -> int:
             raise AssertionError(f"{label}: planted duplicates not handled")
 
     # ---- the PyTorch yardsticks (library_ms), on the same card inputs -----
-    row_ids = np.arange(M_FULL, dtype=np.int32)
     library = {}
     for policy in ("exact", "mixed"):
         cfg = KNNConfig(k=K, backend="serial", precision_policy=policy)
@@ -662,10 +916,10 @@ def main() -> int:
     def median_ms(fn):
         times = []
         for _ in range(3):
-            torch.cuda.synchronize()
+            sync_all()
             t0 = time.perf_counter()
             out = fn()
-            torch.cuda.synchronize()
+            sync_all()
             times.append(time.perf_counter() - t0)
         return out, 1e3 * statistics.median(times), times
 
@@ -679,10 +933,11 @@ def main() -> int:
         the input data's oracle, or with ``wire_oracle`` (the int8 wire)
         against the oracle of the rows the wire delivers: quantization is a
         configured loss the exact rerank cannot undo, so there the input
-        data's recall is reported beside it. Returns (line, ids)."""
+        data's recall is reported beside it. Returns (line, ids); the
+        result is kept in ``results``."""
         reset_counts()
         result, matches = run()
-        torch.cuda.synchronize()
+        sync_all()
         counts = {k: v for k, v in read_counts().items() if v}
         res, host_ms, host_s = median_ms(host)
         _, dev_ms, dev_s = median_ms(dev_input)
@@ -701,6 +956,7 @@ def main() -> int:
             line["recall_at_10_input_data"] = rec
             line["recall_at_10"] = rec = recall(ids, want_wire)
         emit(line)
+        results[label] = result
         if rec < RECALL_GATE:
             raise AssertionError(f"{label}: recall@10 {rec} < {RECALL_GATE}")
         if counts != expect:
@@ -718,7 +974,7 @@ def main() -> int:
                      lambda: all_knn(Xd, config=clf.config, device=device),
                      expect, wire_oracle=clf.config.ring_transfer_dtype == "int8")
 
-    launches, ids_of = {}, {}
+    launches, ids_of, results = {}, {}, {}
     for variant, kname in (("tiles", "fused_knn_tiles"),
                            ("sweep", "fused_knn_sweep")):
         for policy, suffix in (("exact", ""), ("mixed", "[compress]")):
@@ -729,7 +985,10 @@ def main() -> int:
             launches[kname + suffix] = line["launches"][kname + suffix]
     drive_clf("serial/exact", {}, backend="serial")
 
-    ring_p1 = [("exact", None, "fused_block_merge[exact]"),
+    # the exact fused ring on cards moves its blocks with K4 (one launch per
+    # card per round, P=1 included); bidir and mixed keep the driver's
+    # transport with K3a/K3b
+    ring_p1 = [("exact", None, "fused_round_dma"),
                ("mixed", None, "fused_block_merge[compress]"),
                ("mixed", "int8", "fused_block_merge[compress]")]
     for policy, wire, kname in ring_p1:
@@ -737,26 +996,83 @@ def main() -> int:
         line, ids_of[label] = drive_clf(
             label, {kname: 1}, backend="ring-overlap", ring_fusion="fused",
             num_devices=1, precision_policy=policy, ring_transfer_dtype=wire)
-        if (policy, wire) in (("exact", None), ("mixed", None)):
+        if (policy, wire) == ("mixed", None):
             launches[kname] = line["launches"][kname]
 
-    mesh = make_ring_mesh(4) if count >= 4 else make_ring_mesh(devices=[device] * 4)
-    emit({"phase": "mesh", "ranks": [str(d) for d in mesh]})
+    def drive_mesh(label, cfg, expect):
+        def run():
+            res = all_knn(X, config=cfg, mesh=mesh, device=device)
+            return res, int(knn_classify(res, y).matches(y))
+
+        return drive(
+            label, run, lambda: all_knn(X, config=cfg, mesh=mesh, device=device),
+            lambda: all_knn(Xd, config=cfg, mesh=mesh, device=device), expect)
+
     for schedule, fusion, expect in (
-            ("uni", "fused", {"fused_block_merge[exact]": 16}),
+            ("uni", "fused", {"fused_round_dma": 4 * cards}),
             ("bidir", "fused", {"fused_block_merge[exact]": 16}),
             ("uni", "xla", {})):
         cfg = KNNConfig(k=K, backend="ring-overlap", ring_schedule=schedule,
                         ring_fusion=fusion)
         label = f"ring-overlap/{fusion}/P4/exact/{schedule}"
+        line, ids_of[label] = drive_mesh(label, cfg, expect)
+        if schedule == "bidir":
+            launches["fused_block_merge[exact]"] = \
+                line["launches"]["fused_block_merge[exact]"]
 
-        def run():
-            res = all_knn(X, config=cfg, mesh=mesh, device=device)
-            return res, int(knn_classify(res, y).matches(y))
+    # the ring's in-kernel transport: K4 each round, K5 the whole rotation;
+    # each must equal the driver-transport K3a ring on the same inputs
+    k3a_ring = ring.all_knn_ring(Xc, Xc, row_ids, KNNConfig(
+        k=K, backend="ring-overlap", ring_fusion="fused"), mesh=mesh,
+        device=device, form="driver")
+    for rotation, kname, expect in (
+            ("round", "fused_round_dma", {"fused_round_dma": 4 * cards}),
+            ("grid", "fused_rotation_grid", {"fused_rotation_grid": cards})):
+        cfg = KNNConfig(k=K, backend="ring-overlap", ring_fusion="fused",
+                        ring_fused_rotation=rotation)
+        label = ("ring-overlap/fused-"
+                 f"{'dma' if rotation == 'round' else 'grid'}/P4/exact/uni")
+        line, ids_of[label] = drive_mesh(label, cfg, expect)
+        launches[kname] = line["launches"][kname]
+        res = results[label]
+        same = (torch.equal(res.ids, k3a_ring[1])
+                and torch.equal(res.dists, k3a_ring[0]))
+        emit({"phase": "transport_vs_driver", "path": label,
+              "bitwise_equal_to_k3a_ring": same})
+        if not same:
+            raise AssertionError(f"{label}: differs from the driver-transport "
+                                 "K3a ring")
 
-        _, ids_of[label] = drive(
-            label, run, lambda: all_knn(X, config=cfg, mesh=mesh, device=device),
-            lambda: all_knn(Xd, config=cfg, mesh=mesh, device=device), expect)
+    # the resumable ring: stopped after 2 of 4 rounds, then resumed from its
+    # checkpoint; K4 every round that moves the block, K3a in the last one
+    dma_label = "ring-overlap/fused-dma/P4/exact/uni"
+    cfg = KNNConfig(k=K, backend="ring-overlap", ring_fusion="fused")
+    with tempfile.TemporaryDirectory() as ckpt:
+        reset_counts()
+        all_knn_ring_resumable(X, X, row_ids, cfg, mesh=mesh, device=device,
+                               checkpoint_dir=ckpt, stop_after_rounds=2)
+        sync_all()
+        first = {k: v for k, v in read_counts().items() if v}
+        reset_counts()
+        t0 = time.perf_counter()
+        d, i = all_knn_ring_resumable(X, X, row_ids, cfg, mesh=mesh,
+                                      device=device, checkpoint_dir=ckpt)
+        sync_all()
+        resume_s = time.perf_counter() - t0
+        second = {k: v for k, v in read_counts().items() if v}
+    same = (torch.equal(i, results[dma_label].ids)
+            and torch.equal(d, results[dma_label].dists))
+    expect_first = {"fused_round_dma": 2 * cards}
+    expect_second = {"fused_round_dma": cards, "fused_block_merge[exact]": 4}
+    emit({"phase": "resume", "path": "all_knn_ring_resumable/P4/exact/uni",
+          "stopped_after_rounds": 2, "launches_first": first,
+          "launches_resumed": second, "resumed_s": resume_s,
+          "bitwise_equal_to_one_shot": same})
+    if not same:
+        raise AssertionError("resumed ring differs from the one-shot ring")
+    if first != expect_first or second != expect_second:
+        raise AssertionError(f"resume launches {first} / {second}, expected "
+                             f"{expect_first} / {expect_second}")
 
     # the exact ring must find the exact fused path's neighbours (by f64
     # distance, tie-aware) on the sampled rows
@@ -784,6 +1100,8 @@ def main() -> int:
         "fused_knn_sweep[compress]": "mpi_knn_tpu/ops/pallas_knn.py:330",
         "fused_block_merge[exact]": "mpi_knn_tpu/ops/pallas_ring.py:337",
         "fused_block_merge[compress]": "mpi_knn_tpu/ops/pallas_ring.py:363",
+        "fused_round_dma": "mpi_knn_tpu/ops/pallas_ring.py:553",
+        "fused_rotation_grid": "mpi_knn_tpu/ops/pallas_ring.py:806",
     }
     library_of = {
         "fused_knn_tiles": library[("serial", "exact")],
@@ -792,14 +1110,19 @@ def main() -> int:
         "fused_knn_sweep[compress]": library[("serial", "mixed")],
         "fused_block_merge[exact]": library[("xla_round", "exact")],
         "fused_block_merge[compress]": library[("xla_round", "mixed")],
+        "fused_round_dma":
+            transport_timing[("fused_round_dma", "p4_round")]["library_ms"],
+        "fused_rotation_grid":
+            transport_timing[("fused_rotation_grid", "p4_rotation")]["library_ms"],
     }
     times = {**timing, **{name: ring_timing[(name, "p1_mnist60k")]
-                          for name in merge_modes}}
+                          for name in merge_modes},
+             "fused_round_dma": transport_timing[("fused_round_dma", "p4_round")],
+             "fused_rotation_grid":
+                 transport_timing[("fused_rotation_grid", "p4_rotation")]}
     emit({"kernels": [
         {"name": name, "route": "cuda",
-         "source": "mpi_knn_tpu_torch/csrc/"
-                   + ("fused_knn.cu" if name.startswith("fused_knn")
-                      else "fused_ring.cu"),
+         "source": "mpi_knn_tpu_torch/csrc/" + source_of(name),
          "replaces": replaces[name], "launches": launches[name],
          "max_abs_err": max_err[name], "ms": times[name]["ms"],
          "plain_ms": times[name]["plain_ms"],

@@ -4,26 +4,37 @@ package's ``backends/ring.py``, run by one controlling process.
 The corpus is padded and cut into one block per ring rank, the queries
 into one shard per rank. Rank r keeps its query shard, its carry and its
 current block on ``mesh[r]``. Every round each rank merges its resident
-block into its carry, then the blocks move one rank on with
-``Tensor.to(mesh[r + 1])``: P rounds for the ``"uni"`` schedule, so every
-rank merges every block once. The ``"bidir"`` schedule sends every block
-both ways at once and takes ⌊P/2⌋+1 rounds; its degenerate rounds (round 0,
-and for even P the antipodal block arriving from both sides) merge once.
+block into its carry, then the blocks move one rank on: P rounds for the
+``"uni"`` schedule, so every rank merges every block once. The ``"bidir"``
+schedule sends every block both ways at once and takes ⌊P/2⌋+1 rounds; its
+degenerate rounds (round 0, and for even P the antipodal block arriving
+from both sides) merge once.
 
-- ``ring-overlap``: a round's copies are started on side streams before its
-  compute, so the transfer runs under the merge.
-- ``ring``: the copies are started after the compute, with a sync between
-  (the reference's compute-then-send schedule).
+Who moves the blocks is the transport form, chosen by ``ring_form`` as the
+JAX package chooses between its ppermutes and the kernel's own copies:
 
-When two ranks share a device (the CPU ranks, or a mesh naming one card
-several times) the block is handed on and no bytes move.
+- ``"dma"`` (fused, uni, exact, ``ring_fused_rotation="round"``, every rank
+  on a card): each round is one launch of K4 (``ops/fused_rotation.
+  fused_round_dma``) per card, which merges and copies the resident block
+  into the successor's landing slot; two slots per rank, swapped each
+  round.
+- ``"grid"`` (fused, ``ring_fused_rotation="grid"``, on cards): the whole
+  rotation is one launch of K5 per card.
+- ``"driver"``, otherwise: the blocks move with ``Tensor.to(mesh[r + 1])``.
+  Under ``ring-overlap`` a round's copies start on side streams before its
+  compute, so the transfer runs under the merge; under ``ring`` they start
+  after the compute, with a sync between (the reference's compute-then-send
+  schedule). When two ranks share a device the block is handed on and no
+  bytes move.
 
-The per-round merge is the serial backend's tile loop (``ring_fusion=
-"xla"``, through ``knn_chunk_update``) or the fused block merge of
-``ops/fused_ring.py`` (``"fused"``), on an f32, bf16 or int8 wire.
-Padding and tiling come from ``ring_tiles``, so the layouts are the JAX
-package's. A dp×ring mesh, a resumable ring and a multi-process
-``torch.distributed`` form are not ported yet.
+The per-round merge of the driver form is the serial backend's tile loop
+(``ring_fusion="xla"``, through ``knn_chunk_update``) or the fused block
+merge of ``ops/fused_ring.py`` (``"fused"``: K3a, K3b), on an f32, bf16 or
+int8 wire. Padding and tiling come from ``ring_tiles``, so the layouts are
+the JAX package's. ``RingRun`` holds one call's ranks and runs its rounds;
+the resumable ring (``backends/ring_resumable.py``) drives the same rounds
+one at a time. A dp×ring mesh and a multi-process ``torch.distributed``
+form are not ported yet.
 """
 
 from __future__ import annotations
@@ -39,6 +50,13 @@ from mpi_knn_tpu_torch.backends.serial import (
 from mpi_knn_tpu_torch.config import KNNConfig
 from mpi_knn_tpu_torch.device import DEFAULT_DEVICE
 from mpi_knn_tpu_torch.ops.fused_ring import fused_block_merge
+from mpi_knn_tpu_torch.ops.fused_rotation import (
+    fused_rotation_grid,
+    fused_round_dma,
+    landing_slots,
+    ring_transport,
+    slot,
+)
 from mpi_knn_tpu_torch.ops.quant import (
     dequantize_rows,
     quantize_rows,
@@ -183,75 +201,192 @@ def _merge(queries, qids, traveler, carry, cfg: KNNConfig, q_tile, c_tile):
     return d.reshape(ql, cfg.k), i.reshape(ql, cfg.k)
 
 
-def all_knn_ring(corpus, queries, query_ids, cfg: KNNConfig, mesh=None,
-                 overlap: bool = True, device=DEFAULT_DEVICE):
-    """Pad and shard corpus and queries over the ring, rotate, gather the
-    carries. Returns ((q, k) dists, (q, k) ids) on ``device``."""
-    if cfg.ring_fusion == "fused" and not overlap:
-        raise fused_blocking_undefined_error()
-    dev = torch.device(device)
-    if mesh is None:
-        mesh = make_ring_mesh(cfg.num_devices, axis_name=cfg.mesh_axis,
-                              device=dev)
-    devices = _mesh_devices(mesh)
+def grid_off_card_error() -> ValueError:
+    """The refusal of ``ring_fused_rotation="grid"`` off the cards, in the
+    JAX package's words with "a CUDA card" for "TPU"."""
+    return ValueError(
+        "ring_fused_rotation='grid' runs the whole rotation as one "
+        "kernel launch on a CUDA card with real inter-device copies and "
+        "cannot be emulated on the CPU — use ring_fused_rotation="
+        "'round' off a CUDA card"
+    )
+
+
+def grid_resumable_error() -> ValueError:
+    """The resumable ring's refusal of the grid form, in the JAX package's
+    words."""
+    return ValueError(
+        "ring_fused_rotation='grid' runs the whole rotation as ONE "
+        "kernel launch — there is no per-round boundary for the "
+        "resumable driver to checkpoint at; use "
+        "ring_fused_rotation='round' with backend='ring-resumable'"
+    )
+
+
+def ring_form(cfg: KNNConfig, devices) -> str:
+    """Who moves the blocks: ``"dma"`` (K4 each round), ``"grid"`` (K5,
+    the whole rotation) or ``"driver"`` (``Tensor.to`` between rounds).
+    The JAX package's rule (its ``backends/ring.py:211-217, 429``), with
+    "every rank on a CUDA card" for "on a TPU"; the grid form off the cards
+    raises as the JAX package's does off the TPU."""
+    fused = cfg.ring_fusion == "fused"
+    on_cards = all(torch.device(d).type == "cuda" for d in devices)
+    if fused and cfg.ring_fused_rotation == "grid":
+        if not on_cards:
+            raise grid_off_card_error()
+        return "grid"
+    if (fused and cfg.ring_schedule == "uni"
+            and cfg.precision_policy == "exact"
+            and cfg.ring_fused_rotation == "round" and on_cards):
+        return "dma"
+    return "driver"
+
+
+class RingRun:
+    """One call's ring: each rank's query shard, carry and traveler(s),
+    and the transport of ``form``. ``round`` runs one round of the
+    schedule; ``rotation_grid`` the whole uni rotation (the grid form)."""
+
+    def __init__(self, cfg: KNNConfig, devices, overlap: bool, form: str,
+                 q_sh, qid_sh, travelers, carries, q_tile: int, c_tile: int):
+        self.cfg, self.devices, self.overlap, self.form = (
+            cfg, devices, overlap, form)
+        self.q_sh, self.qid_sh = q_sh, qid_sh
+        self.travelers = travelers  # per direction: per rank (blk, ids, scale)
+        self.carries = carries
+        self.q_tile, self.c_tile = q_tile, c_tile
+        self.shifts = (1, -1) if len(travelers) == 2 else (1,)
+        if form == "driver":
+            self.transport = _Transport(devices, overlap)
+        else:
+            self.transport = ring_transport(devices)
+            self.slots = [landing_slots(*t) for t in travelers[0]]
+            self.parity = 0
+
+    def _merge_all(self, held):
+        for r in range(len(self.devices)):
+            self.carries[r] = _merge(self.q_sh[r], self.qid_sh[r], held[r],
+                                     self.carries[r], self.cfg, self.q_tile,
+                                     self.c_tile)
+
+    def _kernel_kw(self):
+        return dict(c_tile=self.c_tile, exclude_self=self.cfg.exclude_self,
+                    exclude_zero=self.cfg.exclude_zero,
+                    zero_eps=self.cfg.zero_eps)
+
+    def round(self, merge_bwd: bool, rotate: bool):
+        """Merge the resident block(s), and move them on when ``rotate``."""
+        if self.form == "dma" and rotate:
+            land = [slot(s, self.parity) for s in self.slots]
+            self.carries = fused_round_dma(
+                self.transport, self.q_sh, self.qid_sh, self.travelers[0],
+                self.carries, land, **self._kernel_kw())
+            self.travelers[0] = land
+            self.parity ^= 1
+            return
+        if self.form == "dma":  # a last round that moves nothing: K3a
+            self._merge_all(self.travelers[0])
+            return
+
+        def rotate_all():
+            return [self.transport.rotate(t, s)
+                    for t, s in zip(self.travelers, self.shifts)]
+
+        if self.overlap and rotate:
+            nxt = rotate_all()  # started before the compute
+        self._merge_all(self.travelers[0])
+        if merge_bwd:
+            self._merge_all(self.travelers[1])
+        if rotate:
+            self.travelers = nxt if self.overlap else rotate_all()
+            self.transport.land()
+
+    def rotation_grid(self):
+        self.carries = fused_rotation_grid(
+            self.transport, self.q_sh, self.qid_sh, self.travelers[0],
+            self.carries, self.slots, **self._kernel_kw())
+
+    def gathered(self, dev, nq: int):
+        """The carries of every rank, in rank order, cut to ``nq`` rows."""
+        best_d = torch.cat([c[0].to(dev) for c in self.carries])[:nq]
+        best_i = torch.cat([c[1].to(dev) for c in self.carries])[:nq]
+        return best_d, best_i
+
+
+def ring_shards(cfg: KNNConfig, corpus, queries, query_ids, devices,
+                start_round: int = 0):
+    """Pad and place one call's operands: returns (q_tile, c_tile, q_sh,
+    qid_sh, travelers), the travelers as they stand after ``start_round``
+    rounds (rank i holds block i − r, and under bidir also block i + r: the
+    padded corpus rolled r blocks each way)."""
     P = len(devices)
     m, dim = corpus.shape
     nq = queries.shape[0]
     q_tile, c_tile, q_pad, c_pad = ring_tiles(cfg, m, nq, 1, P)
     dtype = torch_dtype(cfg.dtype)
+    b, ql = c_pad // P, q_pad // P
+    shift = start_round * b
 
     corpus_p = pad_rows_any(corpus, c_pad, dtype=dtype)
-    scale = None
-    if cfg.ring_transfer_dtype == "int8":
-        corpus_p, scale = quantize_ring_block(corpus_p)
-    elif cfg.ring_transfer_dtype is not None:
-        corpus_p = corpus_p.to(torch_dtype(cfg.ring_transfer_dtype))
     ids = torch.from_numpy(make_global_ids(m, c_pad))
+
+    def traveler_blocks(s):
+        rows = torch.roll(corpus_p, s, 0) if s else corpus_p
+        rid = torch.roll(ids, s, 0) if s else ids
+        scale = None
+        if cfg.ring_transfer_dtype == "int8":
+            rows, scale = quantize_ring_block(rows)
+        elif cfg.ring_transfer_dtype is not None:
+            rows = rows.to(torch_dtype(cfg.ring_transfer_dtype))
+        return [(rows[r * b:(r + 1) * b].to(d), rid[r * b:(r + 1) * b].to(d),
+                 None if scale is None else scale[r * b:(r + 1) * b].to(d))
+                for r, d in enumerate(devices)]
+
+    travelers = [traveler_blocks(shift)]
+    if cfg.ring_schedule == "bidir":
+        travelers.append(traveler_blocks(-shift) if shift else travelers[0])
     queries_p = pad_rows_any(queries, q_pad, dtype=dtype)
     qids_p = pad_rows_any(np.asarray(query_ids, dtype=np.int32), q_pad,
                           fill=-1)
+    q_sh = [queries_p[r * ql:(r + 1) * ql].to(d) for r, d in enumerate(devices)]
+    qid_sh = [qids_p[r * ql:(r + 1) * ql].to(d) for r, d in enumerate(devices)]
+    return q_tile, c_tile, q_sh, qid_sh, travelers
 
-    b, ql = c_pad // P, q_pad // P
-    acc = torch.float64 if dtype == torch.float64 else torch.float32
-    q_sh, qid_sh, blocks, carries = [], [], [], []
-    for r, d in enumerate(devices):
-        rows = slice(r * ql, (r + 1) * ql)
-        cols = slice(r * b, (r + 1) * b)
-        q_sh.append(queries_p[rows].to(d))
-        qid_sh.append(qids_p[rows].to(d))
-        blocks.append((corpus_p[cols].to(d), ids[cols].to(d),
-                       None if scale is None else scale[cols].to(d)))
-        carries.append(init_topk(ql, cfg.k, dtype=acc, device=d))
 
-    ring = _Transport(devices, overlap)
+def ring_devices(cfg: KNNConfig, mesh, dev) -> list:
+    if mesh is None:
+        mesh = make_ring_mesh(cfg.num_devices, axis_name=cfg.mesh_axis,
+                              device=dev)
+    return _mesh_devices(mesh)
 
-    def merge_all(held):
-        for r in range(P):
-            carries[r] = _merge(q_sh[r], qid_sh[r], held[r], carries[r], cfg,
-                                q_tile, c_tile)
 
-    # uni: one traveler, P rounds; bidir: a second one moving the other
-    # way, merged only on the rounds that are not degenerate
-    if cfg.ring_schedule == "bidir":
-        (rounds, bwd_limit), shifts = bidir_rounds(P), (1, -1)
+def all_knn_ring(corpus, queries, query_ids, cfg: KNNConfig, mesh=None,
+                 overlap: bool = True, device=DEFAULT_DEVICE, form=None):
+    """Pad and shard corpus and queries over the ring, rotate, gather the
+    carries. ``form`` overrides ``ring_form`` (the CPU tests run the dma
+    and grid forms over logical ranks on the kernels' plain versions).
+    Returns ((q, k) dists, (q, k) ids) on ``device``."""
+    if cfg.ring_fusion == "fused" and not overlap:
+        raise fused_blocking_undefined_error()
+    dev = torch.device(device)
+    devices = ring_devices(cfg, mesh, dev)
+    form = form or ring_form(cfg, devices)
+    q_tile, c_tile, q_sh, qid_sh, travelers = ring_shards(
+        cfg, corpus, queries, query_ids, devices)
+    acc = torch.float64 if torch_dtype(cfg.dtype) == torch.float64 else torch.float32
+    carries = [init_topk(q.shape[0], cfg.k, dtype=acc, device=d)
+               for q, d in zip(q_sh, devices)]
+    run = RingRun(cfg, devices, overlap, form, q_sh, qid_sh, travelers,
+                  carries, q_tile, c_tile)
+    if form == "grid":
+        run.rotation_grid()
     else:
-        (rounds, bwd_limit), shifts = (P, 0), (1,)
-    travelers = [blocks] * len(shifts)
-
-    def rotate_all():
-        return [ring.rotate(t, s) for t, s in zip(travelers, shifts)]
-
-    for rnd in range(rounds):
-        last = rnd == rounds - 1
-        if overlap and not last:
-            nxt = rotate_all()  # started before the compute
-        merge_all(travelers[0])
-        if 1 <= rnd < bwd_limit:
-            merge_all(travelers[1])
-        if not last:
-            travelers = nxt if overlap else rotate_all()
-            ring.land()
-
-    best_d = torch.cat([c[0].to(dev) for c in carries])[:nq]
-    best_i = torch.cat([c[1].to(dev) for c in carries])[:nq]
-    return best_d, best_i
+        P = len(devices)
+        rounds, bwd_limit = (bidir_rounds(P) if cfg.ring_schedule == "bidir"
+                             else (P, 0))
+        for rnd in range(rounds):
+            # the dma form moves the block every round, the last included,
+            # as the reference's scan does
+            run.round(merge_bwd=1 <= rnd < bwd_limit,
+                      rotate=form == "dma" or rnd < rounds - 1)
+    return run.gathered(dev, queries.shape[0])

@@ -5,6 +5,8 @@
         --device cpu --report r.json
     python -m mpi_knn_tpu_torch --data synthetic:512x32c4 --k 5 --loo \\
         --device cpu --devices 4 --backend ring-overlap --ring-fusion fused
+    python -m mpi_knn_tpu_torch --data mnist --k 10 --loo --devices 4 \\
+        --backend ring-overlap --ring-fusion fused --checkpoint-dir ckpt
 
 Only the flags below exist; the JAX CLI's other flags are not ported.
 """
@@ -13,9 +15,11 @@ from __future__ import annotations
 
 import argparse
 import json
+import logging
 import re
 import sys
 
+import numpy as np
 import torch
 
 from mpi_knn_tpu_torch.config import (
@@ -23,6 +27,7 @@ from mpi_knn_tpu_torch.config import (
     METRICS,
     PALLAS_VARIANTS,
     PRECISION_POLICIES,
+    RING_FUSED_ROTATIONS,
     RING_FUSIONS,
     RING_SCHEDULES,
     RING_TRANSFER_DTYPES,
@@ -59,6 +64,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--ring-fusion", choices=RING_FUSIONS, default="xla",
                    help="per-round merge: xla (the serial tile loop) or "
                    "fused (the block-merge kernels; needs ring-overlap)")
+    p.add_argument("--ring-fused-rotation",
+                   choices=list(RING_FUSED_ROTATIONS), default="round",
+                   help="fused-form launch granularity on cards: round (one "
+                   "K4 launch per card per ring round, the block copied to "
+                   "the next rank inside it) or grid (the whole rotation as "
+                   "one K5 launch per card; uni/exact, float wires)")
     p.add_argument("--ring-transfer-dtype",
                    choices=[d for d in RING_TRANSFER_DTYPES if d],
                    default=None,
@@ -73,6 +84,16 @@ def build_parser() -> argparse.ArgumentParser:
                    help="torch device (default cuda; 'cpu' runs the plain "
                    "versions of the kernels)")
     p.add_argument("--report", default=None, help="write a JSON report here")
+    p.add_argument("-v", "--verbose", action="store_true",
+                   help="log INFO events (checkpoint resumes) to stderr")
+    p.add_argument("--checkpoint-dir", default=None,
+                   help="round-granular checkpoint/resume state directory; "
+                   "ring backends checkpoint the carry per ring round, the "
+                   "others per corpus-tile round (serial math)")
+    p.add_argument("--save-every", type=int, default=None,
+                   help="checkpoint cadence: corpus tiles for the serial "
+                   "path (default 8), ring rounds for ring backends "
+                   "(default 1 — a ring has only as many rounds as ranks)")
     return p
 
 
@@ -93,17 +114,9 @@ def load_corpus(spec: str):
     raise SystemExit(f"error: --data {spec!r}: expected mnist or synthetic:MxDcC")
 
 
-def main(argv=None) -> int:
-    args = build_parser().parse_args(argv)
-    from mpi_knn_tpu_torch.api import all_knn, knn_classify, resolve_backend
-    from mpi_knn_tpu_torch.device import resolve_device
-    from mpi_knn_tpu_torch.utils.timing import PhaseTimer
-
-    device = resolve_device(args.device)
-    timer = PhaseTimer()
-    with timer.phase("load"):
-        X, labels, source = load_corpus(args.data)
-    cfg = KNNConfig(
+def config_from_args(args) -> KNNConfig:
+    """The run's KNNConfig from the parsed flags."""
+    return KNNConfig(
         k=args.k,
         metric=args.metric,
         backend=args.backend,
@@ -115,10 +128,29 @@ def main(argv=None) -> int:
         precision_policy=args.precision_policy,
         ring_schedule=args.ring_schedule,
         ring_fusion=args.ring_fusion,
+        ring_fused_rotation=args.ring_fused_rotation,
         ring_transfer_dtype=args.ring_transfer_dtype,
     )
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    from mpi_knn_tpu_torch.api import all_knn, knn_classify, resolve_backend
+    from mpi_knn_tpu_torch.device import resolve_device
+    from mpi_knn_tpu_torch.utils.timing import PhaseTimer
+
+    if args.verbose:
+        logging.basicConfig(level=logging.INFO, format="%(name)s: %(message)s")
+    device = resolve_device(args.device)
+    timer = PhaseTimer()
+    with timer.phase("load"):
+        X, labels, source = load_corpus(args.data)
+    cfg = config_from_args(args)
     with timer.phase("knn"):
-        result = all_knn(X, config=cfg, device=device)
+        if args.checkpoint_dir:
+            result = _resumable_knn(X, cfg, args, device)
+        else:
+            result = all_knn(X, config=cfg, device=device)
         timer.block_on(result.dists)
     with timer.phase("vote"):
         cls = knn_classify(result, labels, num_classes=cfg.num_classes,
@@ -133,6 +165,8 @@ def main(argv=None) -> int:
         "num_devices": cfg.num_devices,
         "ring_schedule": cfg.ring_schedule,
         "ring_fusion": cfg.ring_fusion,
+        "ring_fused_rotation": cfg.ring_fused_rotation,
+        "checkpoint_dir": args.checkpoint_dir,
         "ring_transfer_dtype": cfg.ring_transfer_dtype,
         "device": str(device),
         "device_name": (torch.cuda.get_device_name(device)
@@ -153,6 +187,34 @@ def main(argv=None) -> int:
         with open(args.report, "w") as f:
             json.dump(report, f, indent=2)
     return 0
+
+
+def _resumable_knn(X, cfg, args, device):
+    """The --checkpoint-dir run: ring backends checkpoint per ring round,
+    the others per corpus-tile round, as the JAX CLI routes them."""
+    from mpi_knn_tpu_torch.api import resolve_backend
+    from mpi_knn_tpu_torch.types import KNNResult
+
+    ids = np.arange(len(X), dtype=np.int32)
+    backend = resolve_backend(cfg, device=device)
+    if backend in ("ring", "ring-overlap"):
+        from mpi_knn_tpu_torch.backends.ring_resumable import (
+            all_knn_ring_resumable,
+        )
+
+        d, i = all_knn_ring_resumable(
+            X, X, ids, cfg, overlap=backend == "ring-overlap",
+            checkpoint_dir=args.checkpoint_dir,
+            save_every=1 if args.save_every is None else args.save_every,
+            device=device)
+    else:
+        from mpi_knn_tpu_torch.backends.resumable import all_knn_resumable
+
+        d, i = all_knn_resumable(
+            X, X, ids, cfg, checkpoint_dir=args.checkpoint_dir,
+            save_every=8 if args.save_every is None else args.save_every,
+            device=device)
+    return KNNResult(dists=d, ids=i)
 
 
 if __name__ == "__main__":

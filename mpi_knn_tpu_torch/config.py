@@ -49,7 +49,7 @@ class KNNConfig:
     exclude_self, exclude_zero, zero_eps, topk_method in {exact, block},
     topk_block, merge_schedule, tie_break, num_classes, mesh_axis,
     num_devices, ring_transfer_dtype, ring_schedule, ring_fusion,
-    ring_fused_rotation="round", pallas_variant, max_tile_elems.
+    ring_fused_rotation, pallas_variant, max_tile_elems.
     """
 
     k: int = 30
@@ -151,6 +151,28 @@ class KNNConfig:
                     "in-kernel carry merge is exact (got "
                     f"{self.topk_method!r})"
                 )
+            if (self.ring_fused_rotation == "grid"
+                    and self.ring_transfer_dtype == "int8"):
+                raise ValueError(
+                    "ring_fused_rotation='grid' supports float wire "
+                    "formats only (float32/bfloat16): the grid kernel "
+                    "DMAs raw slot bytes between its HBM double-buffer "
+                    "slots and casts them straight into the distance dot "
+                    "— int8 codes would be cast without dequantization "
+                    "(the scale plumbing belongs to the round form)"
+                )
+            if self.ring_fused_rotation == "grid" and (
+                    self.ring_schedule != "uni"
+                    or self.precision_policy != "exact"):
+                raise ValueError(
+                    "ring_fused_rotation='grid' (whole-rotation single "
+                    "launch) supports ring_schedule='uni' with "
+                    "precision_policy='exact' only: bidir needs two "
+                    "opposed DMA streams per round and mixed needs the "
+                    "XLA rerank between rounds — got schedule="
+                    f"{self.ring_schedule!r}, policy="
+                    f"{self.precision_policy!r}"
+                )
         if self.precision_policy == "mixed":
             if self.dtype not in ("float32", "int8", "int4"):
                 raise ValueError(
@@ -170,8 +192,6 @@ class KNNConfig:
             refused.append(f"topk_method={self.topk_method!r}")
         if self.matmul_precision not in PORTED_MATMUL_PRECISIONS:
             refused.append(f"matmul_precision={self.matmul_precision!r}")
-        if self.ring_fused_rotation != "round":
-            refused.append(f"ring_fused_rotation={self.ring_fused_rotation!r}")
         if self.partitions is not None:
             refused.append(f"partitions={self.partitions!r}")
         if refused:

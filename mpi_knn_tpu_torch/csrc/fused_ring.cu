@@ -12,12 +12,10 @@
 //       by compressed key; the gather, exact rerank and carry merge run
 //       outside the kernel, as in the reference.
 //
-// Both read the block at its wire type through a template: f32 as is, bf16
-// widened, int8 as code * scale (one f32 multiply, the reference's
-// dequantize_rows), and take candidate ids as an operand: a ring block's
-// ids are arbitrary after rotation and -1 marks padding. Masks: padding by
-// id, self by id equality (when exclude_self), and in the exact body the
-// zero rule d <= zero_eps (if > 0) else d <= 1e-6 (q^2 + c^2).
+// Both read the block at its wire type (ring_merge.cuh's RingCols) and take
+// candidate ids as an operand: a ring block's ids are arbitrary after
+// rotation and -1 marks padding. The exact body is ring_merge.cuh's
+// exact_merge_group, which K4 and K5 (fused_ring_dma.cu) run too.
 //
 // Order. The exact body ranks candidates by (distance, arrival): the carry's
 // slots first in their order, then the block's columns in order. That is
@@ -38,13 +36,11 @@
 // cores (989 TFLOP/s: ~5.7 ms) would be its bound. Both share the simple
 // register-tiled routine of knn_tile.cuh; wgmma forms are later work.
 
-#include "knn_tile.cuh"
+#include "ring_merge.cuh"
 
 namespace {
 
 using namespace knn;
-
-enum Wire { WIRE_F32 = 0, WIRE_BF16 = 1, WIRE_INT8 = 2 };
 
 struct Params {
   const float* q;        // (Q, D) queries
@@ -61,93 +57,16 @@ struct Params {
   float zero_eps;
 };
 
-template <int WIRE, bool COMPRESS>
-struct RingCols {
-  const void* blk;
-  const float* scale;
-  const int* bids;
-  const int* qids;
-  int D;
-  int key0;  // column col has key col - key0
-  bool self, zero;
-  float zero_eps;
-  static constexpr bool compress = COMPRESS;
-  static constexpr bool clamp = !COMPRESS;
-  static constexpr bool nan_as_inf = COMPRESS;
-  __device__ float load(int col, int dim) const {
-    size_t e = (size_t)col * D + dim;
-    if (WIRE == WIRE_F32) return static_cast<const float*>(blk)[e];
-    if (WIRE == WIRE_BF16)
-      return __uint_as_float((unsigned)static_cast<const uint16_t*>(blk)[e] << 16);
-    return __fmul_rn((float)static_cast<const int8_t*>(blk)[e], scale[col]);
-  }
-  __device__ bool masked(int row, int col, float d, float qs, float cs) const {
-    int id = bids[col];
-    if (id < 0) return true;
-    if (zero) {
-      float th = zero_eps > 0.f ? zero_eps : __fmul_rn(1e-6f, __fadd_rn(qs, cs));
-      if (d <= th) return true;
-    }
-    return self && id == qids[row];
-  }
-  __device__ int key(int col) const { return col - key0; }
-};
-
-template <int WIRE, bool COMPRESS>
-__device__ RingCols<WIRE, COMPRESS> ring_cols(const Params& p, int key0) {
-  return RingCols<WIRE, COMPRESS>{p.blk, p.scale, p.bids, p.qids, p.D, key0,
-                                  p.exclude_self != 0,
-                                  !COMPRESS && p.exclude_zero != 0, p.zero_eps};
-}
-
 template <int WIRE>
 __global__ void __launch_bounds__(THREADS)
 block_merge_exact_kernel(Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int q0 = blockIdx.x * QB;
-  const int k = p.k;
-  Lists L{carve(smem, k), p.out_d, p.out_i, (size_t)q0, k};
-  init_lists(L, q0, p.Q, -1);
-
-  // the carry arrives first: slot j has arrival j
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  for (int r = warp; r < QB; r += THREADS / 32) {
-    if (q0 + r >= p.Q) continue;
-    const float* cd = p.carry_d + (size_t)(q0 + r) * k;
-    bool any_nan = false;
-    for (int j0 = 0; j0 < k; j0 += 32) {
-      int j = j0 + lane;
-      float d = j < k ? cd[j] : 0.f;
-      any_nan |= warp_offer(L.d(r), L.i(r), k, d, j, j < k, lane);
-    }
-    if (any_nan && lane == 0) L.sm.nanf[r] = 1;
-    __syncwarp();
-  }
-  __syncthreads();
-
-  // then the block's columns: column col has arrival k + col
-  sweep(ring_cols<WIRE, false>(p, -k), p.q, p.Q, p.D, q0, 0, p.B, L);
-
-  // emit: arrivals become ids; non-finite slots get -1; NaN rows (NaN, -1)
-  for (int r = warp; r < QB; r += THREADS / 32) {
-    int row = q0 + r;
-    if (row >= p.Q) continue;
-    float* Ld = L.d(r);
-    int* Li = L.i(r);
-    float* od = p.out_d + (size_t)row * k;
-    int* oi = p.out_i + (size_t)row * k;
-    bool poisoned = L.sm.nanf[r] != 0;
-    for (int j = lane; j < k; j += 32) {
-      float d = Ld[j];
-      int a = Li[j];
-      int id = -1;
-      if (poisoned) d = nan_f();
-      else if (isfinite(d))
-        id = a < k ? p.carry_i[(size_t)row * k + a] : p.bids[a - k];
-      od[j] = d;
-      oi[j] = id;
-    }
-  }
+  exact_merge_group<WIRE, false>(
+      MergeArgs{p.q, p.qids, p.blk, p.scale, p.bids, p.carry_d, p.carry_i,
+                p.out_d, p.out_i},
+      MergeShape{p.Q, p.B, p.D, p.k, p.exclude_self, p.exclude_zero,
+                 p.zero_eps},
+      blockIdx.x * QB, smem);
 }
 
 template <int WIRE>
@@ -162,8 +81,9 @@ block_merge_compress_kernel(Params p) {
   // ov > KMAX_SMEM, to the distance scratch of the same shape
   Lists L{carve(smem, ov), p.out_d, p.out_i, (size_t)t * p.Q + q0, ov};
   init_lists(L, q0, p.Q, 0x7fffffff);
-  sweep(ring_cols<WIRE, true>(p, c_begin), p.q, p.Q, p.D, q0, c_begin,
-        c_begin + p.c_tile, L);
+  RingCols<WIRE, true> cols{p.blk, p.scale, p.bids, p.qids, p.D, c_begin,
+                            p.exclude_self != 0, false, 0.f};
+  sweep(cols, p.q, p.Q, p.D, q0, c_begin, c_begin + p.c_tile, L);
 
   if (ov > KMAX_SMEM) return;  // the positions are already in place
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;

@@ -1,0 +1,501 @@
+// The ring's in-kernel transport for Hopper (sm_90a): the exact block merge
+// of a ring round with the block's move to the ring successor inside the
+// same launch.
+//
+// Replaces two kernels of mpi_knn_tpu/ops/pallas_ring.py:
+//   round_dma_kernel      <- fused_round_dma (_dma_round_kernel, K4). One
+//       launch per card per round, covering every ring rank that card
+//       holds. CTA 0 runs the neighbour barrier; COPY_CTAS CTAs per rank
+//       stream the resident block, its ids and (int8 wire) its scales into
+//       the successor's landing buffers; the rest are K3a's merge CTAs, one
+//       per 64 query rows, which never wait on anything.
+//   rotation_grid_kernel  <- fused_rotation_grid (_grid_rotation_kernel,
+//       K5). The whole P-round uni rotation in one cooperative launch per
+//       card: persistent CTAs loop over (local rank, 64-row query group)
+//       merges and block-copy chunks each round, with a grid sync between
+//       rounds. Two slots per rank: round r reads slot r % 2 (round 0 the
+//       caller's block) and streams into the successor's slot (r + 1) % 2.
+//       The carry lives in a (2, Q, k) ping-pong buffer between rounds.
+//
+// The merge is ring_merge.cuh's exact_merge_group, K3a's body: the same
+// (distance, arrival) order, NaN rows and zero rule, so a K4 ring equals the
+// driver-transport K3a ring bit for bit, and a K5 ring equals the K4 ring.
+//
+// Transport. One process drives every rank (single controller). Ranks that
+// share a card are ordered by that card's stream and need no barrier: their
+// "remote" copy is an in-kernel copy between buffers of one card. Between
+// cards (peer access enabled by parallel/mesh.py), a kernel stores into the
+// successor's buffers through its peer pointer with 16-byte vector stores,
+// then __threadfence_system() and a system-scope release-add on one of the
+// successor's int32 flag words; waiters spin with system-scope acquire loads.
+// The flag words live on each card, one row of NWORDS per rank, allocated
+// once per mesh, and only ever count up: a round (K4) or a call (K5) waits
+// for the count its epoch implies, so they need no reset between calls.
+//
+//   K4 barrier: each rank adds one to its predecessor's FROM_SUCC and its
+//   successor's FROM_PRED word, then waits for its own two words to reach
+//   the epoch. The successor's landing slot for round r is the slot it read
+//   as resident in round r - 1; its entering round r proves that launch
+//   finished on its stream (the CUDA reading of pallas_ring.py:489-491).
+//   The copy CTAs start only after CTA 0 has passed the barrier. Before the
+//   kernel ends CTA 0 waits for its own ranks' copy-out (SENT) and, from a
+//   remote predecessor, the arrival (LANDED), as the last grid cell of
+//   _dma_round_kernel does; the next round's launch then reads the landing
+//   slot in stream order.
+//
+//   K5 handshake (the reference's, :685-695, :736-749): one barrier per
+//   call; before every stream after the first the sender consumes one
+//   slot-free release of its successor, and after the grid sync that retires
+//   round r's reads (its own copy-out included) a rank releases its slot to
+//   its predecessor, except in the last two rounds. Before round r >= 1 a
+//   rank waits for the predecessor's round r - 1 stream to have landed.
+//   Slots are read with L1-bypassing loads (__ldcg): a slot is re-read in
+//   the same launch two rounds after an earlier read, rewritten meanwhile by
+//   a peer card or another SM, and neither an acquire by one thread nor a
+//   grid sync drops other SMs' L1 lines.
+//
+// No hang. Every spin is bounded by %globaltimer (timeout_ns, ~10 s from the
+// wrapper). On timeout a CTA writes an error code into the card's error word
+// and leaves; the wrapper reads the word once the launch's stream has
+// synchronized and raises.
+//
+// What bounds it. The merge's 2 Q B D FLOP on FFMA in full f32, as K3a
+// (at the P=4 shard, 15360 x 16384 x 784: 3.95e11 FLOP, 5.89 ms at the
+// 67 TFLOP/s FP32 peak). The block move is ~51 MB per hop in f32: ~0.03 ms of
+// HBM time on one card, ~0.12 ms at NVLink rates, hidden under the merge.
+
+#include <cooperative_groups.h>
+
+#include "ring_merge.cuh"
+
+namespace cg = cooperative_groups;
+
+namespace {
+
+using namespace knn;
+
+constexpr int MAX_LOCAL = 16;  // ring ranks one card may hold in one launch
+constexpr int COPY_CTAS = 8;   // CTAs (K4) or work items (K5) per block copy
+
+// flag words of one rank; the card's error word is its first rank's W_ERR
+enum Word {
+  W_FROM_PRED = 0, W_FROM_SUCC = 1, W_LANDED = 2, W_SENT = 3, W_GO = 4,
+  W_ERR = 5, G_FROM_PRED = 6, G_FROM_SUCC = 7, G_LANDED = 8, G_FREE = 9,
+  NWORDS = 16
+};
+enum Err {
+  ERR_BARRIER = 1, ERR_LANDED = 2, ERR_SENT = 3, ERR_GO = 4, ERR_FREE = 5
+};
+
+// One ring rank's operands in a launch; ops/fused_rotation.py's _Rank
+// mirrors this layout.
+struct Rank {
+  const float* q;        // (Q, D) queries
+  const int* qids;       // (Q,)
+  const void* blk;       // (B, D) resident block (K5: the round-0 block)
+  const float* scale;    // (B,) int8 wire only
+  const int* bids;       // (B,)
+  const float* carry_d;  // (Q, k) carry in
+  const int* carry_i;
+  float* out_d;          // (Q, k) carry out
+  int* out_i;
+  void* dst_blk;         // K4: successor's landing block; K5: its (2, B, D) slots
+  float* dst_scale;      // K4, int8 wire: successor's landing scales
+  int* dst_bids;         // K4: successor's landing ids; K5: its (2, B) slots
+  int* flags;            // this rank's NWORDS words, on its card
+  int* succ_flags;       // the successor's words
+  int* pred_flags;       // the predecessor's words
+  void* slot_blk;        // K5: own (2, B, D) slots
+  int* slot_bids;        // K5: own (2, B) slots
+  float* cbuf_d;         // K5: own (2, Q, k) carry ping-pong
+  int* cbuf_i;
+  int succ_remote;       // successor on another card
+  int pred_remote;       // predecessor on another card
+};
+
+struct Launch {
+  Rank r[MAX_LOCAL];
+  int n_local, Q, B, D, k, ring_size;
+  int exclude_self, exclude_zero;
+  float zero_eps;
+  int epoch;             // K4: round count of the mesh; K5: call count
+  long long timeout_ns;
+  int* err;              // the card's error word
+};
+
+__device__ __forceinline__ unsigned long long now_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+__device__ __forceinline__ int load_acquire_sys(const int* p) {
+  int v;
+  asm volatile("ld.acquire.sys.global.s32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void add_release_sys(int* p, int v) {
+  asm volatile("red.release.sys.global.add.s32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
+}
+
+__device__ __forceinline__ void store_release_sys(int* p, int v) {
+  asm volatile("st.release.sys.global.s32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
+}
+
+// Spin until *p >= target; false after timeout_ns.
+__device__ bool wait_at_least(const int* p, int target, long long timeout_ns) {
+  const unsigned long long t0 = now_ns();
+  while (load_acquire_sys(p) < target) {
+    if ((long long)(now_ns() - t0) > timeout_ns) return false;
+    __nanosleep(256);
+  }
+  return true;
+}
+
+__device__ void set_err(int* err, int code) { atomicCAS(err, 0, code); }
+
+// This part's share of an n-byte copy: 16-byte vectors when both ends are
+// 16-byte aligned, single bytes for the tail (or for all of it otherwise).
+template <bool CG>
+__device__ void copy_part(void* dst, const void* src, size_t n, int part,
+                          int parts) {
+  const bool aligned =
+      ((reinterpret_cast<uintptr_t>(dst) | reinterpret_cast<uintptr_t>(src)) & 15) == 0;
+  const size_t units = aligned ? n / 16 : 0;
+  const int4* s4 = static_cast<const int4*>(src);
+  int4* d4 = static_cast<int4*>(dst);
+  for (size_t u = units * part / parts + threadIdx.x;
+       u < units * (part + 1) / parts; u += blockDim.x)
+    d4[u] = ld<CG>(s4 + u);
+  const size_t b0 = units * 16, rest = n - b0;
+  const unsigned char* sb = static_cast<const unsigned char*>(src);
+  unsigned char* db = static_cast<unsigned char*>(dst);
+  for (size_t b = b0 + rest * part / parts + threadIdx.x;
+       b < b0 + rest * (part + 1) / parts; b += blockDim.x)
+    db[b] = ld<CG>(sb + b);
+}
+
+template <int WIRE>
+__host__ __device__ constexpr size_t wire_bytes() {
+  return WIRE == WIRE_F32 ? 4 : WIRE == WIRE_BF16 ? 2 : 1;
+}
+
+__device__ MergeShape shape_of(const Launch& p) {
+  return MergeShape{p.Q, p.B, p.D, p.k, p.exclude_self, p.exclude_zero,
+                    p.zero_eps};
+}
+
+// Both barrier signals of every local rank with a remote neighbour, then
+// the waits for the neighbours' signals of this epoch.
+__device__ bool neighbour_barrier(const Launch& p, int w_pred, int w_succ) {
+  for (int i = 0; i < p.n_local; ++i) {
+    const Rank& R = p.r[i];
+    if (R.pred_remote) add_release_sys(R.pred_flags + w_succ, 1);
+    if (R.succ_remote) add_release_sys(R.succ_flags + w_pred, 1);
+  }
+  for (int i = 0; i < p.n_local; ++i) {
+    const Rank& R = p.r[i];
+    if (R.succ_remote && !wait_at_least(R.flags + w_succ, p.epoch, p.timeout_ns))
+      return false;
+    if (R.pred_remote && !wait_at_least(R.flags + w_pred, p.epoch, p.timeout_ns))
+      return false;
+  }
+  return true;
+}
+
+// ---------------------------------------------------------------- K4
+
+template <int WIRE>
+__global__ void __launch_bounds__(THREADS) round_dma_kernel(Launch p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int go_ok;
+  const int n_copy = p.n_local * COPY_CTAS;
+  int b = blockIdx.x;
+  int* go = p.r[0].flags + W_GO;
+
+  if (b == 0) {  // the barrier CTA: dispatched first
+    if (threadIdx.x != 0) return;
+    const bool ok = neighbour_barrier(p, W_FROM_PRED, W_FROM_SUCC);
+    store_release_sys(go, ok ? p.epoch : -p.epoch);
+    if (!ok) {
+      set_err(p.err, ERR_BARRIER);
+      return;
+    }
+    for (int i = 0; i < p.n_local; ++i) {
+      const Rank& R = p.r[i];
+      if (!wait_at_least(R.flags + W_SENT, p.epoch * COPY_CTAS, p.timeout_ns)) {
+        set_err(p.err, ERR_SENT);
+        return;
+      }
+      if (R.pred_remote &&
+          !wait_at_least(R.flags + W_LANDED, p.epoch * COPY_CTAS, p.timeout_ns)) {
+        set_err(p.err, ERR_LANDED);
+        return;
+      }
+    }
+    return;
+  }
+  b -= 1;
+
+  if (b < n_copy) {  // copy CTAs: the resident block to the successor
+    const Rank& R = p.r[b / COPY_CTAS];
+    const int part = b % COPY_CTAS;
+    if (R.succ_remote) {  // its landing slot is free once it entered the round
+      if (threadIdx.x == 0) {
+        const unsigned long long t0 = now_ns();
+        int v;
+        while ((v = load_acquire_sys(go)) != p.epoch && v != -p.epoch) {
+          if ((long long)(now_ns() - t0) > 2 * p.timeout_ns) {
+            set_err(p.err, ERR_GO);
+            v = -p.epoch;
+            break;
+          }
+          __nanosleep(256);
+        }
+        go_ok = v == p.epoch;
+      }
+      __syncthreads();
+      if (!go_ok) return;
+    }
+    copy_part<false>(R.dst_blk, R.blk, (size_t)p.B * p.D * wire_bytes<WIRE>(),
+                     part, COPY_CTAS);
+    copy_part<false>(R.dst_bids, R.bids, (size_t)p.B * sizeof(int), part,
+                     COPY_CTAS);
+    if (WIRE == WIRE_INT8)
+      copy_part<false>(R.dst_scale, R.scale, (size_t)p.B * sizeof(float), part,
+                       COPY_CTAS);
+    __threadfence_system();
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      if (R.succ_remote) add_release_sys(R.succ_flags + W_LANDED, 1);
+      add_release_sys(R.flags + W_SENT, 1);
+    }
+    return;
+  }
+  b -= n_copy;
+
+  const int groups = (p.Q + QB - 1) / QB;
+  const Rank& R = p.r[b / groups];
+  exact_merge_group<WIRE, false>(
+      MergeArgs{R.q, R.qids, R.blk, R.scale, R.bids, R.carry_d, R.carry_i,
+                R.out_d, R.out_i},
+      shape_of(p), (b % groups) * QB, smem);
+}
+
+// ---------------------------------------------------------------- K5
+
+template <int WIRE>
+__global__ void __launch_bounds__(THREADS) rotation_grid_kernel(Launch p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int stop;
+  cg::grid_group grid = cg::this_grid();
+  const int P = p.ring_size, G = p.epoch;
+  const int groups = (p.Q + QB - 1) / QB;
+  const int n_merge = p.n_local * groups;
+  const size_t blk_bytes = (size_t)p.B * p.D * wire_bytes<WIRE>();
+  const size_t carry_elems = (size_t)p.Q * p.k;
+  const int frees = P > 2 ? P - 2 : 0;  // releases per call
+
+  for (int r = 0; r < P; ++r) {
+    if (blockIdx.x == 0 && threadIdx.x == 0) {
+      int err = 0;
+      if (r == 0 && !neighbour_barrier(p, G_FROM_PRED, G_FROM_SUCC))
+        err = ERR_BARRIER;
+      for (int i = 0; i < p.n_local && !err; ++i) {
+        const Rank& R = p.r[i];
+        // the successor's slot (r+1)%2 is free: consume its r-th release
+        if (r >= 1 && r <= P - 2 && R.succ_remote &&
+            !wait_at_least(R.flags + G_FREE, (G - 1) * frees + r, p.timeout_ns))
+          err = ERR_FREE;
+        // the predecessor's round r-1 stream has landed in slot r%2
+        else if (r >= 1 && R.pred_remote &&
+                 !wait_at_least(R.flags + G_LANDED,
+                                ((G - 1) * (P - 1) + r) * COPY_CTAS, p.timeout_ns))
+          err = ERR_LANDED;
+      }
+      if (err) set_err(p.err, err);
+    }
+    grid.sync();
+    if (threadIdx.x == 0) stop = load_acquire_sys(p.err) != 0;
+    __syncthreads();
+    if (stop) return;  // every CTA leaves at the same round
+
+    const bool stream = r < P - 1;
+    const int n_items = n_merge + (stream ? p.n_local * COPY_CTAS : 0);
+    for (int it = blockIdx.x; it < n_items; it += gridDim.x) {
+      if (it < n_merge) {
+        const Rank& R = p.r[it / groups];
+        const size_t cin = (size_t)((r + 1) % 2) * carry_elems;
+        const size_t cout = (size_t)(r % 2) * carry_elems;
+        MergeArgs m{
+            R.q, R.qids,
+            r == 0 ? R.blk
+                   : static_cast<const unsigned char*>(R.slot_blk) + (r % 2) * blk_bytes,
+            nullptr,
+            r == 0 ? R.bids : R.slot_bids + (size_t)(r % 2) * p.B,
+            r == 0 ? R.carry_d : R.cbuf_d + cin,
+            r == 0 ? R.carry_i : R.cbuf_i + cin,
+            r == P - 1 ? R.out_d : R.cbuf_d + cout,
+            r == P - 1 ? R.out_i : R.cbuf_i + cout};
+        exact_merge_group<WIRE, true>(m, shape_of(p), (it % groups) * QB, smem);
+      } else {
+        const int c = it - n_merge;
+        const Rank& R = p.r[c / COPY_CTAS];
+        const int part = c % COPY_CTAS;
+        const void* src =
+            r == 0 ? R.blk
+                   : static_cast<const unsigned char*>(R.slot_blk) + (r % 2) * blk_bytes;
+        const int* sid = r == 0 ? R.bids : R.slot_bids + (size_t)(r % 2) * p.B;
+        const int nxt = (r + 1) % 2;
+        copy_part<true>(static_cast<unsigned char*>(R.dst_blk) + nxt * blk_bytes,
+                        src, blk_bytes, part, COPY_CTAS);
+        copy_part<true>(R.dst_bids + (size_t)nxt * p.B, sid,
+                        (size_t)p.B * sizeof(int), part, COPY_CTAS);
+        __threadfence_system();
+        __syncthreads();
+        if (threadIdx.x == 0 && R.succ_remote)
+          add_release_sys(R.succ_flags + G_LANDED, 1);
+      }
+    }
+    grid.sync();  // round r's reads of slot r%2 and its stream are retired
+    if (blockIdx.x == 0 && threadIdx.x == 0 && r < P - 2)
+      for (int i = 0; i < p.n_local; ++i)
+        if (p.r[i].pred_remote) add_release_sys(p.r[i].pred_flags + G_FREE, 1);
+  }
+}
+
+bool bad_launch(const Launch& p) {
+  if (p.n_local < 1 || p.n_local > MAX_LOCAL || p.Q <= 0 || p.B <= 0 ||
+      p.D <= 0 || p.k <= 0 || p.ring_size < 1 || p.epoch < 1 ||
+      p.err == nullptr)
+    return true;
+  for (int i = 0; i < p.n_local; ++i) {
+    const Rank& R = p.r[i];
+    if (!R.q || !R.qids || !R.blk || !R.bids || !R.carry_d || !R.carry_i ||
+        !R.out_d || !R.out_i || !R.dst_blk || !R.dst_bids || !R.flags ||
+        ((R.succ_remote || R.pred_remote) && (!R.succ_flags || !R.pred_flags)))
+      return true;
+  }
+  return false;
+}
+
+Launch make_launch(const void* ranks_v, int n_local, int Q, int B, int D, int k,
+                   int ring_size, int exclude_self, int exclude_zero,
+                   float zero_eps, int epoch, long long timeout_ns, int* err) {
+  const Rank* ranks = static_cast<const Rank*>(ranks_v);
+  Launch p{};
+  for (int i = 0; i < n_local && i < MAX_LOCAL; ++i) p.r[i] = ranks[i];
+  p.n_local = n_local;
+  p.Q = Q; p.B = B; p.D = D; p.k = k;
+  p.ring_size = ring_size;
+  p.exclude_self = exclude_self;
+  p.exclude_zero = exclude_zero;
+  p.zero_eps = zero_eps;
+  p.epoch = epoch;
+  p.timeout_ns = timeout_ns;
+  p.err = err;
+  return p;
+}
+
+template <int WIRE>
+cudaError_t launch_round(const Launch& p, cudaStream_t stream) {
+  auto kernel = round_dma_kernel<WIRE>;
+  cudaError_t e = set_smem((const void*)kernel, p.k);
+  if (e != cudaSuccess) return e;
+  const int groups = (p.Q + QB - 1) / QB;
+  dim3 grid(1 + p.n_local * (COPY_CTAS + groups));
+  kernel<<<grid, THREADS, smem_bytes(p.k), stream>>>(p);
+  return cudaGetLastError();
+}
+
+template <int WIRE>
+cudaError_t launch_grid(Launch p, cudaStream_t stream) {
+  auto kernel = rotation_grid_kernel<WIRE>;
+  cudaError_t e = set_smem((const void*)kernel, p.k);
+  if (e != cudaSuccess) return e;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
+  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) !=
+      cudaSuccess)
+    return e;
+  if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, kernel, THREADS, smem_bytes(p.k))) != cudaSuccess)
+    return e;
+  if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
+  const int groups = (p.Q + QB - 1) / QB;
+  int items = p.n_local * (groups + COPY_CTAS);
+  int blocks = per_sm * sms < items ? per_sm * sms : items;
+  void* args[] = {&p};
+  e = cudaLaunchCooperativeKernel((const void*)kernel, dim3(blocks),
+                                  dim3(THREADS), args, smem_bytes(p.k), stream);
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+int ring_max_local() { return MAX_LOCAL; }
+int ring_words() { return NWORDS; }
+int ring_rank_bytes() { return (int)sizeof(Rank); }
+
+// Peer access from card `dev` to card `peer`; "already enabled" counts as
+// success. The calling thread's current card is left as it was.
+int ring_enable_peer_access(int dev, int peer) {
+  int prev = 0;
+  cudaError_t e = cudaGetDevice(&prev);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaSetDevice(dev);
+  if (e == cudaSuccess) {
+    e = cudaDeviceEnablePeerAccess(peer, 0);
+    if (e == cudaErrorPeerAccessAlreadyEnabled) {
+      cudaGetLastError();
+      e = cudaSuccess;
+    }
+  }
+  cudaSetDevice(prev);
+  return (int)e;
+}
+
+// K4: one round for the card's local ranks (`ranks`: n_local Rank structs).
+// wire: 0 f32, 1 bf16, 2 int8 codes with (B,) f32 scales.
+int round_dma_launch(const void* ranks, int n_local, int Q, int B, int D,
+                     int k, int wire, int ring_size, int exclude_self,
+                     int exclude_zero, float zero_eps, int epoch,
+                     long long timeout_ns, int* err, cudaStream_t stream) {
+  Launch p = make_launch(ranks, n_local, Q, B, D, k, ring_size, exclude_self,
+                         exclude_zero, zero_eps, epoch, timeout_ns, err);
+  if (bad_launch(p)) return (int)cudaErrorInvalidValue;
+  for (int i = 0; i < n_local; ++i)
+    if (wire == WIRE_INT8 && (!p.r[i].scale || !p.r[i].dst_scale))
+      return (int)cudaErrorInvalidValue;
+  switch (wire) {
+    case WIRE_F32: return (int)launch_round<WIRE_F32>(p, stream);
+    case WIRE_BF16: return (int)launch_round<WIRE_BF16>(p, stream);
+    case WIRE_INT8: return (int)launch_round<WIRE_INT8>(p, stream);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// K5: the whole rotation for the card's local ranks; float wires only.
+int rotation_grid_launch(const void* ranks, int n_local, int Q, int B, int D,
+                         int k, int wire, int ring_size, int exclude_self,
+                         int exclude_zero, float zero_eps, int epoch,
+                         long long timeout_ns, int* err, cudaStream_t stream) {
+  Launch p = make_launch(ranks, n_local, Q, B, D, k, ring_size, exclude_self,
+                         exclude_zero, zero_eps, epoch, timeout_ns, err);
+  if (bad_launch(p)) return (int)cudaErrorInvalidValue;
+  for (int i = 0; i < n_local; ++i)
+    if (!p.r[i].slot_blk || !p.r[i].slot_bids || !p.r[i].cbuf_d ||
+        !p.r[i].cbuf_i)
+      return (int)cudaErrorInvalidValue;
+  switch (wire) {
+    case WIRE_F32: return (int)launch_grid<WIRE_F32>(p, stream);
+    case WIRE_BF16: return (int)launch_grid<WIRE_BF16>(p, stream);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // extern "C"

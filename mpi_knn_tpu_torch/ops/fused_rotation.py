@@ -1,0 +1,385 @@
+"""The ring's in-kernel transport: the wrappers of the two Hopper kernels in
+``csrc/fused_ring_dma.cu``, their plain PyTorch versions, and the per-mesh
+barrier state they share.
+
+- ``fused_round_dma`` replaces ``mpi_knn_tpu/ops/pallas_ring.py::
+  fused_round_dma`` (K4): one ring round for every rank of a mesh. Each
+  rank merges its resident block into its carry exactly (K3a's merge), and
+  the same launch copies the block, its ids and (int8 wire) its scales into
+  the landing buffers of the rank's ring successor.
+- ``fused_rotation_grid`` replaces ``fused_rotation_grid`` (K5): the whole
+  P-round uni rotation in one launch per card, over two slots per rank;
+  float wires only.
+
+One process drives every rank. A launch covers every rank its card holds,
+so a round of K4 is one launch per distinct card (``launches = rounds ×
+cards``) and K5 is one launch per card. The flag words the kernels signal
+each other through live on each card and are made once per mesh
+(``ring_transport``); they only count up, so nothing is reset between calls.
+A timed-out wait inside a kernel raises ``RuntimeError`` here once the
+card's stream has synchronized, and the mesh's words are made anew.
+
+A wrapper takes its plain version only because the tensors it was given lie
+on the CPU; for CUDA tensors it launches the kernel or raises. Each launch
+adds one to ``LAUNCHES[name]``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from mpi_knn_tpu_torch.ops import _build
+from mpi_knn_tpu_torch.ops.fused_ring import (
+    _WIRE,
+    _check,
+    block_merge_exact_reference,
+)
+
+LAUNCHES = {"fused_round_dma": 0, "fused_rotation_grid": 0}
+
+TIMEOUT_S = 10.0  # bound of every spin-wait inside the kernels
+
+# flag words of one rank (csrc/fused_ring_dma.cu, enum Word)
+_W_ERR = 5
+_ERRORS = {1: "the neighbour barrier", 2: "the predecessor's block to land",
+           3: "its own copy-out", 4: "the barrier CTA", 5: "a slot release"}
+
+
+def reset_launch_counts():
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+class _Rank(ctypes.Structure):
+    """csrc/fused_ring_dma.cu's ``struct Rank``."""
+    _fields_ = [(name, ctypes.c_void_p) for name in (
+        "q", "qids", "blk", "scale", "bids", "carry_d", "carry_i", "out_d",
+        "out_i", "dst_blk", "dst_scale", "dst_bids", "flags", "succ_flags",
+        "pred_flags", "slot_blk", "slot_bids", "cbuf_d", "cbuf_i")] + [
+        ("succ_remote", ctypes.c_int), ("pred_remote", ctypes.c_int)]
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    """The kernel library, with its C signatures set once at first load."""
+    lib = _build.load("fused_ring_dma")
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    for name in ("round_dma_launch", "rotation_grid_launch"):
+        fn = getattr(lib, name)
+        fn.argtypes = ([ptr] + [i32] * 9 + [ctypes.c_float, i32,
+                                            ctypes.c_longlong, ptr, ptr])
+        fn.restype = i32
+    lib.ring_enable_peer_access.argtypes = [i32, i32]
+    for name in ("ring_enable_peer_access", "ring_max_local", "ring_words",
+                 "ring_rank_bytes"):
+        getattr(lib, name).restype = i32
+    if lib.ring_rank_bytes() != ctypes.sizeof(_Rank):
+        raise RuntimeError("csrc/fused_ring_dma.cu's Rank and _Rank differ")
+    return lib
+
+
+def _card(d: torch.device) -> torch.device:
+    if d.type == "cuda" and d.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return d
+
+
+class RingTransport:
+    """The barrier state of one ring mesh: which ranks each card holds,
+    which ring links cross cards, and the flag words on each card.
+
+    ``cross_card[r]`` says whether rank r reaches its successor through the
+    cross-card protocol (barrier, system-scope flags). By default a link
+    crosses where the two ranks' cards differ; naming it for ranks on one
+    card runs the same protocol within the card.
+    """
+
+    def __init__(self, devices, cross_card=None):
+        self.devices = [_card(torch.device(d)) for d in devices]
+        P = len(self.devices)
+        if cross_card is None:
+            cross_card = [self.devices[r] != self.devices[(r + 1) % P]
+                          for r in range(P)]
+        self.succ_remote = [bool(c) for c in cross_card]
+        self.pred_remote = [self.succ_remote[(r - 1) % P] for r in range(P)]
+        self.cards = list(dict.fromkeys(self.devices))
+        self.local = {c: [r for r in range(P) if self.devices[r] == c]
+                      for c in self.cards}
+        self.flags = None
+        self.epoch = 0   # K4 rounds run on this mesh
+        self.calls = 0   # K5 launches per card run on this mesh
+
+    def _ensure_flags(self):
+        if self.flags is not None:
+            return
+        from mpi_knn_tpu_torch.parallel.mesh import enable_peer_access
+
+        lib = _lib()
+        for card in self.cards:
+            if len(self.local[card]) > lib.ring_max_local():
+                raise ValueError(
+                    f"{card} holds {len(self.local[card])} ring ranks; one "
+                    f"launch takes at most {lib.ring_max_local()}")
+        enable_peer_access(self.devices)
+        words = lib.ring_words()
+        self.flags = {c: torch.zeros((len(self.local[c]), words),
+                                     dtype=torch.int32, device=c)
+                      for c in self.cards}
+        self.epoch = self.calls = 0
+
+    def words(self, r: int) -> int:
+        """Address of rank r's flag words."""
+        card = self.devices[r]
+        row = self.local[card].index(r)
+        t = self.flags[card]
+        return t.data_ptr() + row * t.shape[1] * t.element_size()
+
+    def raise_on_error(self, name: str):
+        """Read each card's error word (this waits for its stream); on an
+        error drop the flag words, so the next call starts from zero."""
+        for card in self.cards:
+            code = int(self.flags[card][0, _W_ERR].item())
+            if code:
+                self.flags = None
+                raise RuntimeError(
+                    f"{name}: neighbour barrier timed out on {card} "
+                    f"(waiting for {_ERRORS.get(code, code)}); the ring's "
+                    "flag words were reset")
+
+
+_TRANSPORTS: dict = {}
+
+
+def ring_transport(devices) -> RingTransport:
+    """The mesh's transport state, made once per mesh."""
+    key = tuple(_card(torch.device(d)) for d in devices)
+    if key not in _TRANSPORTS:
+        _TRANSPORTS[key] = RingTransport(key)
+    return _TRANSPORTS[key]
+
+
+def landing_slots(block, ids, scale):
+    """Two landing slots in the layout of one rank's traveler: ((2, b, d)
+    block, (2, b) ids, (2, b) scales or None), on its device."""
+    return (block.new_empty((2,) + tuple(block.shape)),
+            ids.new_empty((2,) + tuple(ids.shape)),
+            None if scale is None else scale.new_empty((2,) + tuple(scale.shape)))
+
+
+def slot(slots, i: int):
+    """Slot i of ``landing_slots``: (block, ids, scale or None)."""
+    blk, ids, scl = slots
+    return blk[i], ids[i], None if scl is None else scl[i]
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _check_ring(queries, query_ids, blocks, carries):
+    P = len(queries)
+    if not (len(query_ids) == len(blocks) == len(carries) == P >= 1):
+        raise ValueError("one query shard, block and carry per rank")
+    on_cpu = [q.device.type == "cpu" for q in queries]
+    if any(on_cpu) and not all(on_cpu):
+        raise ValueError("a ring's ranks lie all on the CPU or all on cards")
+    for r in range(P):
+        blk, ids, scl = blocks[r]
+        _check(queries[r], query_ids[r], blk, ids, scl)
+        cd, ci = carries[r]
+        if (cd.dtype != torch.float32 or ci.dtype != torch.int32
+                or cd.shape != ci.shape or cd.shape[0] != queries[r].shape[0]
+                or cd.device != queries[r].device):
+            raise TypeError("each carry must be (q_local, k) float32 and int32 "
+                            "on its rank's device")
+    shapes = {(q.shape, b[0].shape, b[0].dtype, c[0].shape)
+              for q, b, c in zip(queries, blocks, carries)}
+    if len(shapes) != 1:
+        raise ValueError("every rank's shard, block and carry must match")
+    return all(on_cpu)
+
+
+def _check_landing(blocks, landing):
+    P = len(blocks)
+    for r in range(P):
+        want = blocks[(r - 1) % P]
+        got = landing[r]
+        for w, g in zip(want, got):
+            if (w is None) != (g is None) or (w is not None and (
+                    g.shape != w.shape or g.dtype != w.dtype
+                    or not g.is_contiguous())):
+                raise ValueError(
+                    "landing buffers must match the predecessor's traveler")
+
+
+# ---------------------------------------------------------------- K4
+
+def fused_round_dma(ring: RingTransport, queries, query_ids, blocks, carries,
+                    landing, *, c_tile: int, exclude_self: bool = True,
+                    exclude_zero: bool = True, zero_eps: float = 0.0,
+                    timeout_s: float = TIMEOUT_S):
+    """One ring round of every rank: rank r's resident ``blocks[r]`` =
+    (block, ids, scale or None) merged exactly into ``carries[r]`` = (d, i),
+    and copied into ``landing[(r + 1) % P]``. Returns the merged carries;
+    the landing buffers then hold each rank's next resident block."""
+    cpu = _check_ring(queries, query_ids, blocks, carries)
+    _check_landing(blocks, landing)
+    if blocks[0][0].shape[0] % c_tile:
+        raise ValueError("caller must pad the block to a c_tile multiple")
+    kw = dict(c_tile=c_tile, exclude_self=exclude_self,
+              exclude_zero=exclude_zero, zero_eps=zero_eps)
+    if cpu:
+        return fused_round_dma_reference(queries, query_ids, blocks, carries,
+                                         landing, **kw)
+    P = len(queries)
+    ring._ensure_flags()
+    ring.epoch += 1
+    carries = [(cd.contiguous(), ci.contiguous()) for cd, ci in carries]
+    outs = [(torch.empty_like(cd), torch.empty_like(ci)) for cd, ci in carries]
+    land_of = [landing[(r + 1) % P] for r in range(P)]  # the successor's
+    ranks = _ranks(ring, queries, query_ids, blocks, carries, outs,
+                   dst_blk=[t[0] for t in land_of], dst_bids=[t[1] for t in land_of],
+                   dst_scale=[t[2] for t in land_of])
+    _launch_per_card(ring, "round_dma_launch", "fused_round_dma", ranks,
+                     queries, blocks, carries, kw, ring.epoch, timeout_s)
+    return outs
+
+
+def fused_round_dma_reference(queries, query_ids, blocks, carries, landing,
+                              *, c_tile, exclude_self=True, exclude_zero=True,
+                              zero_eps=0.0):
+    """Plain PyTorch version of ``fused_round_dma`` (any device): K3a's
+    plain merge for every rank, then each rank's traveler copied into its
+    successor's landing buffers."""
+    out = [block_merge_exact_reference(
+        queries[r], query_ids[r], blk, ids, scl, *carries[r], c_tile=c_tile,
+        exclude_self=exclude_self, exclude_zero=exclude_zero,
+        zero_eps=zero_eps) for r, (blk, ids, scl) in enumerate(blocks)]
+    P = len(blocks)
+    for r in range(P):
+        for dst, src in zip(landing[(r + 1) % P], blocks[r]):
+            if src is not None:
+                dst.copy_(src)
+    return out
+
+
+def _ranks(ring, queries, query_ids, blocks, carries, outs, **per_rank):
+    """One ``_Rank`` per ring rank: the operands and flag words every
+    launch takes, plus the tensors of ``per_rank`` (field -> one per
+    rank)."""
+    P = len(queries)
+    return [_Rank(
+        q=_ptr(queries[r]), qids=_ptr(query_ids[r]), blk=_ptr(blocks[r][0]),
+        bids=_ptr(blocks[r][1]), scale=_ptr(blocks[r][2]),
+        carry_d=_ptr(carries[r][0]), carry_i=_ptr(carries[r][1]),
+        out_d=_ptr(outs[r][0]), out_i=_ptr(outs[r][1]),
+        flags=ring.words(r), succ_flags=ring.words((r + 1) % P),
+        pred_flags=ring.words((r - 1) % P),
+        succ_remote=int(ring.succ_remote[r]),
+        pred_remote=int(ring.pred_remote[r]),
+        **{name: _ptr(ts[r]) for name, ts in per_rank.items()})
+        for r in range(P)]
+
+
+def _launch_per_card(ring, fn_name, name, ranks, queries, blocks, carries, kw,
+                     epoch, timeout_s):
+    """One launch per card over the ranks it holds, then the error check."""
+    lib = _lib()
+    fn = getattr(lib, fn_name)
+    q0, (blk0, _, _), (cd0, _) = queries[0], blocks[0], carries[0]
+    for card in ring.cards:
+        local = ring.local[card]
+        arr = (_Rank * len(local))(*(ranks[r] for r in local))
+        err = ring.flags[card][0, _W_ERR]
+        with torch.cuda.device(card):
+            stream = torch.cuda.current_stream().cuda_stream
+            rc = fn(ctypes.cast(arr, ctypes.c_void_p), len(local),
+                    q0.shape[0], blk0.shape[0], q0.shape[1], cd0.shape[1],
+                    _WIRE[blk0.dtype], len(queries), int(kw["exclude_self"]),
+                    int(kw["exclude_zero"]), float(kw["zero_eps"]), epoch,
+                    int(timeout_s * 1e9), err.data_ptr(), stream)
+        if rc != 0:
+            ring.flags = None
+            raise RuntimeError(f"{name} launch failed on {card}: cudaError {rc}")
+        LAUNCHES[name] += 1
+    ring.raise_on_error(name)
+
+
+# ---------------------------------------------------------------- K5
+
+def float_wire_only_error(dtype) -> ValueError:
+    """The refusal of a non-float block at K5's boundary, in the JAX
+    package's words."""
+    return ValueError(
+        "ring_fused_rotation='grid' supports float wire formats only "
+        "(f32/bf16): the grid kernel casts slot bytes straight into "
+        f"the distance dot, got block dtype {dtype}"
+    )
+
+
+def fused_rotation_grid(ring: RingTransport, queries, query_ids, blocks,
+                        carries, slots, *, c_tile: int,
+                        exclude_self: bool = True, exclude_zero: bool = True,
+                        zero_eps: float = 0.0, timeout_s: float = TIMEOUT_S):
+    """The whole uni rotation: P rounds in which every rank merges its
+    resident block, round 0 its own ``blocks[r]`` = (block, ids, None) and
+    round j the block in its slot j % 2 of ``slots[r]`` (``landing_slots``),
+    while the resident block streams into the successor's slot (j + 1) % 2.
+    Returns the final carries."""
+    for blk, _, scl in blocks:
+        if not blk.dtype.is_floating_point or scl is not None:
+            raise float_wire_only_error(blk.dtype)
+    cpu = _check_ring(queries, query_ids, blocks, carries)
+    for b, s in zip(blocks, slots):
+        if s[2] is not None or any(
+                t.shape[1:] != x.shape or t.shape[0] != 2 or t.dtype != x.dtype
+                or not t.is_contiguous() for t, x in ((s[0], b[0]), (s[1], b[1]))):
+            raise ValueError("slots must be landing_slots of the rank's block")
+    if blocks[0][0].shape[0] % c_tile:
+        raise ValueError("caller must pad the block to a c_tile multiple")
+    kw = dict(c_tile=c_tile, exclude_self=exclude_self,
+              exclude_zero=exclude_zero, zero_eps=zero_eps)
+    if cpu:
+        return fused_rotation_grid_reference(queries, query_ids, blocks,
+                                             carries, slots, **kw)
+    P = len(queries)
+    ring._ensure_flags()
+    ring.calls += 1
+    carries = [(cd.contiguous(), ci.contiguous()) for cd, ci in carries]
+    outs = [(torch.empty_like(cd), torch.empty_like(ci)) for cd, ci in carries]
+    cbufs = [(cd.new_empty((2,) + tuple(cd.shape)),
+              ci.new_empty((2,) + tuple(ci.shape))) for cd, ci in carries]
+    ranks = _ranks(ring, queries, query_ids, blocks, carries, outs,
+                   dst_blk=[slots[(r + 1) % P][0] for r in range(P)],
+                   dst_bids=[slots[(r + 1) % P][1] for r in range(P)],
+                   slot_blk=[s[0] for s in slots], slot_bids=[s[1] for s in slots],
+                   cbuf_d=[c[0] for c in cbufs], cbuf_i=[c[1] for c in cbufs])
+    _launch_per_card(ring, "rotation_grid_launch", "fused_rotation_grid",
+                     ranks, queries, blocks, carries, kw, ring.calls, timeout_s)
+    return outs
+
+
+def fused_rotation_grid_reference(queries, query_ids, blocks, carries, slots,
+                                  *, c_tile, exclude_self=True,
+                                  exclude_zero=True, zero_eps=0.0):
+    """Plain PyTorch version of ``fused_rotation_grid`` (any device): the P
+    rounds of ``fused_round_dma_reference``, rank by rank, with no stream
+    in the last round."""
+    P = len(blocks)
+    kw = dict(c_tile=c_tile, exclude_self=exclude_self,
+              exclude_zero=exclude_zero, zero_eps=zero_eps)
+    held = list(blocks)
+    for r in range(P):
+        if r < P - 1:
+            land = [slot(s, (r + 1) % 2) for s in slots]
+            carries = fused_round_dma_reference(queries, query_ids, held,
+                                                carries, land, **kw)
+            held = land
+        else:
+            carries = [block_merge_exact_reference(
+                queries[i], query_ids[i], blk, ids, scl, *carries[i], **kw)
+                for i, (blk, ids, scl) in enumerate(held)]
+    return carries

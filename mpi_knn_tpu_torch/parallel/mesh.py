@@ -8,6 +8,11 @@ raises. On the CPU ``num_devices=P`` gives P logical ranks on the one CPU
 device, the counterpart of the JAX tests' virtual host mesh. A mesh may
 name one card several times; its ranks then share the card and no bytes
 move between them.
+
+The in-kernel ring transport (``ring_fusion="fused"`` on cards: K4, K5)
+stores straight into the next card's memory, so it needs peer access
+between every pair of ring neighbours on distinct cards:
+``enable_peer_access`` turns it on, and raises for a pair without it.
 """
 
 from __future__ import annotations
@@ -50,3 +55,32 @@ def make_ring_mesh(num_devices: Optional[int] = None, axis_name: str = "ring",
             )
         devices = devices[:num_devices]
     return RingMesh(devices, axis_name)
+
+
+def enable_peer_access(devices: Sequence) -> None:
+    """Enable peer access both ways between every pair of ring neighbours
+    that lie on distinct cards. A pair the hardware cannot join raises
+    ``ValueError`` naming both cards: there is no quiet switch to another
+    transport. Ranks that share a card need nothing."""
+    cards = [torch.device(d) for d in devices]
+    pairs = set()
+    for r, a in enumerate(cards):
+        b = cards[(r + 1) % len(cards)]
+        if a.type == b.type == "cuda" and a != b:
+            pairs |= {(a.index, b.index), (b.index, a.index)}
+    if not pairs:
+        return
+    from mpi_knn_tpu_torch.ops.fused_rotation import _lib
+
+    lib = _lib()
+    for a, b in sorted(pairs):
+        if not torch.cuda.can_device_access_peer(a, b):
+            raise ValueError(
+                f"cuda:{a} and cuda:{b} are ring neighbours without peer "
+                "access: the in-kernel ring transport stores into the next "
+                "card's memory and needs it")
+        rc = lib.ring_enable_peer_access(a, b)
+        if rc != 0:
+            raise RuntimeError(
+                f"enabling peer access from cuda:{a} to cuda:{b} failed: "
+                f"cudaError {rc}")

@@ -134,7 +134,7 @@ def test_lifted_settings_run_and_match_jax(setting):
     [dict(topk_method="approx"), dict(topk_method="approx-rerank"),
      dict(topk_method="bf16"), dict(matmul_precision="default"),
      dict(matmul_precision="high"), dict(partitions=16),
-     dict(ring_fused_rotation="grid")],
+     dict(partitions=64)],
 )
 def test_refused_settings_name_themselves(setting):
     (name, value), = setting.items()
@@ -151,7 +151,8 @@ def test_refused_settings_name_themselves(setting):
      dict(backend="ring-overlap"), dict(ring_schedule="bidir"),
      dict(ring_transfer_dtype="bfloat16"), dict(ring_transfer_dtype="float32"),
      dict(ring_transfer_dtype="int8", precision_policy="mixed"),
-     dict(ring_fusion="fused"), dict(num_devices=4, mesh_axis="r")],
+     dict(ring_fusion="fused"), dict(num_devices=4, mesh_axis="r"),
+     dict(ring_fusion="fused", ring_fused_rotation="grid")],
 )
 def test_ported_reference_configs_convert(setting):
     d = dataclasses.asdict(jax_pkg.KNNConfig(**setting))

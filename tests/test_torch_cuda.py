@@ -13,7 +13,7 @@ import numpy as np
 import pytest
 import torch
 
-from mpi_knn_tpu_torch.ops import fused_knn, fused_ring
+from mpi_knn_tpu_torch.ops import fused_knn, fused_ring, fused_rotation
 from mpi_knn_tpu_torch.ops.quant import quantize_rows
 
 
@@ -156,3 +156,134 @@ def test_block_merge_compress_equals_plain(cuda_device, wire, ov):
                                                      scale, ov=ov, c_tile=256)
     assert fused_ring.LAUNCHES["fused_block_merge[compress]"] == before + 1
     assert got.shape == (2, 96, ov) and torch.equal(got, want)
+
+
+def _ring_of(device, P, wire, q_local=96, b=256, dim=24, k=10):
+    """P ranks' operands on one card: queries, ids, a traveler each and a
+    carry that ties block entries."""
+    queries, qids, blocks, carries = [], [], [], []
+    for r in range(P):
+        q, qi, blk, bids, scale = _ring_operands(device, wire, q_local, b, dim,
+                                                 seed=10 + r)
+        rows = blk.float() if scale is None else blk.float() * scale[:, None]
+        queries.append(q)
+        qids.append(qi)
+        blocks.append((blk, bids, scale))
+        carries.append(_carry(q, rows, bids, k))
+    return queries, qids, blocks, carries
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wire", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("P", [1, 4])
+@pytest.mark.parametrize("cross", [False, True])
+def test_round_dma_equals_plain(cuda_device, wire, P, cross):
+    """K4 on one card named P times (P=1: the block copied to itself);
+    ``cross`` runs the cross-card barrier and flags within the card."""
+    queries, qids, blocks, carries = _ring_of(cuda_device, P, wire)
+    queries[0][9] = float("nan")
+    ring = fused_rotation.RingTransport([cuda_device] * P,
+                                        cross_card=[cross] * P)
+    land = [fused_rotation.slot(fused_rotation.landing_slots(*b), 0)
+            for b in blocks]
+    want_land = [fused_rotation.slot(fused_rotation.landing_slots(*b), 0)
+                 for b in blocks]
+    before = fused_rotation.LAUNCHES["fused_round_dma"]
+    for _ in range(2):  # the flag words count on across rounds
+        got = fused_rotation.fused_round_dma(ring, queries, qids, blocks,
+                                             carries, land, c_tile=64)
+    torch.cuda.synchronize()
+    want = fused_rotation.fused_round_dma_reference(
+        queries, qids, blocks, carries, want_land, c_tile=64)
+    assert fused_rotation.LAUNCHES["fused_round_dma"] == before + 2
+    for r in range(P):
+        assert torch.equal(got[r][1], want[r][1])
+        _same(got[r][0], want[r][0])
+        for have, sent in zip(land[(r + 1) % P], blocks[r]):
+            assert (have is None) == (sent is None)
+            if sent is not None:
+                assert torch.equal(have, sent)
+    assert bool((got[0][1][9] == -1).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wire", ["float32", "bfloat16"])
+@pytest.mark.parametrize("P", [1, 2, 4])
+@pytest.mark.parametrize("cross", [False, True])
+def test_rotation_grid_equals_plain(cuda_device, wire, P, cross):
+    queries, qids, blocks, carries = _ring_of(cuda_device, P, wire)
+    ring = fused_rotation.RingTransport([cuda_device] * P,
+                                        cross_card=[cross] * P)
+    slots = [fused_rotation.landing_slots(*b) for b in blocks]
+    before = fused_rotation.LAUNCHES["fused_rotation_grid"]
+    for _ in range(2):
+        got = fused_rotation.fused_rotation_grid(ring, queries, qids, blocks,
+                                                 carries, slots, c_tile=64)
+    torch.cuda.synchronize()
+    want = fused_rotation.fused_rotation_grid_reference(
+        queries, qids, blocks, carries,
+        [fused_rotation.landing_slots(*b) for b in blocks], c_tile=64)
+    assert fused_rotation.LAUNCHES["fused_rotation_grid"] == before + 2
+    for r in range(P):
+        assert torch.equal(got[r][1], want[r][1])
+        _same(got[r][0], want[r][0])
+
+
+@pytest.mark.cuda
+def test_unset_barrier_flag_raises_within_seconds(cuda_device):
+    """A barrier whose peer never signals this epoch: the kernel gives up
+    after the timeout and the wrapper raises; the ring then works again."""
+    import time
+
+    queries, qids, blocks, carries = _ring_of(cuda_device, 2, "float32")
+    ring = fused_rotation.RingTransport([cuda_device] * 2,
+                                        cross_card=[True, True])
+    land = [fused_rotation.slot(fused_rotation.landing_slots(*b), 0)
+            for b in blocks]
+    kw = dict(c_tile=64, timeout_s=1.0)
+    fused_rotation.fused_round_dma(ring, queries, qids, blocks, carries, land,
+                                   **kw)
+    ring.epoch += 1  # the next round waits for a signal no peer will send
+    t0 = time.perf_counter()
+    with pytest.raises(RuntimeError, match="fused_round_dma: neighbour "
+                       "barrier timed out"):
+        fused_rotation.fused_round_dma(ring, queries, qids, blocks, carries,
+                                       land, **kw)
+    assert time.perf_counter() - t0 < 10.0
+    got = fused_rotation.fused_round_dma(ring, queries, qids, blocks, carries,
+                                         land, **kw)
+    want = fused_rotation.fused_round_dma_reference(
+        queries, qids, blocks, carries,
+        [fused_rotation.slot(fused_rotation.landing_slots(*b), 0)
+         for b in blocks], c_tile=64)
+    assert torch.equal(got[1][1], want[1][1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rotation,wire", [
+    ("round", None), ("round", "bfloat16"), ("grid", None), ("grid", "bfloat16")])
+def test_transport_rings_across_cards_equal_one_card(cuda_device, rotation,
+                                                     wire):
+    """The dma (K4) and grid (K5) rings across every visible card: the
+    cross-card barrier and peer stores. They must equal the same ring on
+    one card named once per rank, and the driver-transport K3a ring."""
+    from mpi_knn_tpu_torch import KNNConfig, all_knn
+    from mpi_knn_tpu_torch.backends.ring import all_knn_ring
+    from mpi_knn_tpu_torch.parallel.mesh import make_ring_mesh
+
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        pytest.skip("needs at least two cards")
+    rng = np.random.default_rng(2)
+    X = (rng.standard_normal((3000, 64)) * 3.0).astype(np.float32)
+    cfg = KNNConfig(k=10, backend="ring-overlap", ring_fusion="fused",
+                    ring_fused_rotation=rotation, ring_transfer_dtype=wire,
+                    query_tile=128, corpus_tile=256, center=False)
+    spread = all_knn(X, config=cfg, mesh=make_ring_mesh(cards))
+    shared_mesh = make_ring_mesh(devices=[cuda_device] * cards)
+    shared = all_knn(X, config=cfg, mesh=shared_mesh)
+    driver = all_knn_ring(X, X, np.arange(3000, dtype=np.int32), cfg,
+                          mesh=shared_mesh, form="driver")
+    for dists, ids in ((shared.dists, shared.ids), driver):
+        assert torch.equal(spread.ids, ids)
+        assert torch.equal(spread.dists, dists)

@@ -34,8 +34,10 @@ def test_importing_the_port_loads_no_jax():
         text=True, timeout=120, check=True,
     )
     loaded = json.loads(out.stdout.strip().splitlines()[-1])
-    for mod in ("ops.fused_knn", "ops.fused_ring", "ops.rerank", "ops.quant",
-                "backends.ring", "parallel.mesh"):
+    for mod in ("ops.fused_knn", "ops.fused_ring", "ops.fused_rotation",
+                "ops.rerank", "ops.quant", "backends.ring",
+                "backends.ring_resumable", "backends.resumable",
+                "utils.checkpoint", "parallel.mesh"):
         assert f"mpi_knn_tpu_torch.{mod}" in loaded
     assert "chip_smoke" in loaded
     bad = [m for m in loaded

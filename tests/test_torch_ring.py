@@ -141,3 +141,35 @@ def test_auto_resolves_to_the_ring_on_several_ranks():
     clf = KNNClassifier(k=3, num_devices=2, device="cpu")
     assert resolve_backend(clf.config, device="cpu") == "ring-overlap"
     assert resolve_backend(KNNConfig(), device="cpu") == "serial"
+
+
+@pytest.mark.parametrize("wire", [None, "int8"])
+@pytest.mark.parametrize("P", [1, 3, 4])
+def test_nan_query_row_in_the_mixed_fused_ring_matches_jax(wire, P):
+    """A NaN query row through the mixed fused ring (K3b, then the exact
+    finish): its row and its neighbours' rows equal the JAX ring's, in
+    query mode and in all-pairs mode (where the NaN row is also a corpus
+    row every other query must pass over)."""
+    X = _corpus()
+    rows = np.arange(0, 96, 4)
+    Q = X[rows].copy()
+    Q[3] = np.nan
+    kw = dict(k=3, num_devices=P, query_tile=8, corpus_tile=16, center=False,
+              precision_policy="mixed", ring_transfer_dtype=wire,
+              backend="ring-overlap")
+    want = jax_pkg.all_knn(X, queries=Q, query_ids=rows, ring_fusion="xla",
+                           **kw)
+    got = all_knn(X, queries=Q, query_ids=rows, ring_fusion="fused",
+                  device="cpu", **kw)
+    for r in (2, 3, 4):
+        np.testing.assert_array_equal(got.ids[r].numpy(),
+                                      np.asarray(want.ids)[r])
+        np.testing.assert_array_equal(got.dists[r].numpy(),
+                                      np.asarray(want.dists)[r])
+    assert (got.ids[3].numpy() == -1).all()
+    Xn = X.copy()
+    Xn[10] = np.nan
+    want = jax_pkg.all_knn(Xn, ring_fusion="xla", **kw)
+    got = all_knn(Xn, ring_fusion="fused", device="cpu", **kw)
+    np.testing.assert_array_equal(got.ids.numpy(), np.asarray(want.ids))
+    np.testing.assert_array_equal(got.dists.numpy(), np.asarray(want.dists))
