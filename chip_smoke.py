@@ -64,13 +64,27 @@ is not 0:
    The exact ring's ids must agree with the exact fused path's (tie-aware,
    by f64 distance, >= 0.999);
 5. kernels: one line with every kernel mode's launches, error, times and
-   bound.
+   bound, the compress kernels' staging prologues (`stage_bf16`,
+   `stage_bf16[wire]`) among them.
+
+The compress kernels (K1[c], K2[c], K3b) run on the bf16 tensor cores,
+after a staging prologue that writes bf16 copies and f32 norms. Their
+`ms` is the kernel alone on staged operands, `call_ms` the wrapper with
+its prologue launches. Beside them the script prints, per compress
+kernel, registers and spilled bytes a thread and CTAs per SM
+(`kernel_resources`, from cudaFuncGetAttributes and the occupancy API)
+and the count of HMMA instructions in its SASS (`cuobjdump -sass` of the
+built library; it must be > 0), and the "product alone": torch.matmul on
+the same staged bf16 copies in query chunks, which says whether the
+product or the selection sets the compress kernels' pace.
 
 The last line is {"ok": true, "device": {...}}. Without a card, or without
 the package beside it, the script exits non-zero and prints no result.
 """
 
 import json
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -94,11 +108,28 @@ SAMPLE_ROWS = 4096  # rows whose ids are judged in f64 at the largest shapes
 
 def source_of(kernel: str) -> str:
     """The CUDA source of a kernel mode, under mpi_knn_tpu_torch/csrc/."""
-    if kernel.startswith("fused_knn"):
+    if kernel.startswith("fused_knn") or kernel == "stage_bf16":
         return "fused_knn.cu"
-    if kernel.startswith("fused_block_merge"):
+    if kernel.startswith("fused_block_merge") or kernel == "stage_bf16[wire]":
         return "fused_ring.cu"
     return "fused_ring_dma.cu"
+
+
+def sass_hmma_counts(lib_path) -> dict:
+    """{kernel function (mangled): HMMA instructions in its SASS}, from
+    ``cuobjdump -sass`` of a built kernel library."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    out = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
+                         text=True, timeout=300, check=True).stdout
+    counts, cur = {}, None
+    for line in out.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = m.group(1)
+            counts[cur] = 0
+        elif cur is not None and "HMMA" in line:
+            counts[cur] += 1
+    return counts
 
 
 def emit(obj):
@@ -486,6 +517,24 @@ def main() -> int:
         emit({"phase": "build", "source": f"csrc/{name}.cu",
               "seconds": entry["seconds"], "cached": entry["log"] == "cached"})
 
+    # ---- the compress kernels: tensor-core instructions and resources ----
+    hmma = {}
+    for src in ("fused_knn", "fused_ring"):
+        hmma.update(sass_hmma_counts(_build._lib_path(src)))
+    emit({"phase": "sass", "hmma_by_function": hmma})
+    compress_fns = {"fused_knn_tiles[compress]": "fused_knn_tiles_compress_kernel",
+                    "fused_knn_sweep[compress]": "fused_knn_sweep_compress_kernel",
+                    "fused_block_merge[compress]": "block_merge_compress_kernel"}
+    for name, fn in compress_fns.items():
+        n = sum(v for f, v in hmma.items() if fn in f)
+        info = (fused_knn.compress_kernel_info(name.split("[")[0], OV)
+                if name.startswith("fused_knn") else
+                fused_ring.compress_kernel_info(OV))
+        emit({"phase": "kernel_resources", "kernel": name, "function": fn,
+              "k": OV, "hmma_in_sass": n, **info})
+        if n <= 0:
+            raise AssertionError(f"{name}: no HMMA instruction in its SASS")
+
     # ---- the fused kNN kernels against their plain versions -------------
     knn_modes = {  # mode name -> (wrapper, plain version, compress)
         f"{base}{suffix}": (getattr(fused_knn, base),
@@ -535,12 +584,18 @@ def main() -> int:
 
     timing = {}
     self_all = torch.arange(Q, device=device)
+    staged = (fused_knn.stage_bf16_rows(qp), fused_knn.stage_bf16_rows(cp))
     for name, (kern, plain, compress) in knn_modes.items():
         kk = OV if compress else K
         args = (qp, cp, M_FULL, kk, Q_TILE, C_TILE)
         kw = dict(compress=compress)
         got, want = kern(*args, **kw), plain(*args, **kw)  # also the warm-ups
-        ms = cuda_ms(lambda: kern(*args, **kw), reps=3)
+        call_ms = cuda_ms(lambda: kern(*args, **kw), reps=3)
+        ms = call_ms
+        if compress:  # the kernel alone, on operands staged beforehand
+            base = name.split("[")[0]
+            ms = cuda_ms(lambda: fused_knn.launch_compress(
+                base, *staged, M_FULL, kk, C_TILE), reps=3)
         plain_ms = cuda_ms(lambda: plain(*args, **kw), reps=3)
         # the exact lists are judged on every row; compress lists are 4x as
         # long, so a sample of rows
@@ -550,14 +605,59 @@ def main() -> int:
         max_err[name] = max(max_err[name], err)
         out_slots = (n_c if name.startswith("fused_knn_tiles") else 1) * M_FULL * kk
         nbytes = 4.0 * (2 * M_FULL * D) + 8.0 * out_slots
-        timing[name] = {"ms": ms, "plain_ms": plain_ms,
+        timing[name] = {"ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
                         **bound(needed_ops, nbytes,
                                 PEAK_BF16_FLOPS if compress else PEAK_FP32_FLOPS)}
         timing[name]["tflops"] = needed_ops / (ms * 1e-3) / 1e12
         emit({"phase": "kernel_time", "kernel": name, "Q": Q, "C": C, "D": D,
               "k": kk, **timing[name]})
         del got, want
-    del qp, cp
+
+    # the product alone: torch.matmul on the same staged bf16 copies, in
+    # query chunks; timed here only, never called by the port
+    (qb, _), (cb, _) = staged
+    chunk = 8192
+
+    def product():
+        for r0 in range(0, Q, chunk):
+            torch.matmul(qb[r0:r0 + chunk], cb.T)
+
+    product()
+    product_ms = cuda_ms(product, reps=3)
+    emit({"phase": "product_alone", "call": "torch.matmul(bf16, bf16.T)",
+          "Q": Q, "C": C, "Dp": qb.shape[1], "query_chunk": chunk,
+          "ms": product_ms,
+          "tflops_needed": needed_ops / (product_ms * 1e-3) / 1e12})
+
+    # the staging prologue alone, against its plain version (the copy bit
+    # for bit, the norms within rtol 1e-5: the sum orders differ)
+    def check_stage(label, got, want):
+        (gc, gn), (wc, wn) = got, want
+        if not torch.equal(gc.view(torch.int16), wc.view(torch.int16)):
+            raise AssertionError(f"{label}: bf16 copy differs from the plain version")
+        err = (gn.double() - wn.double()).abs()
+        if not bool((err <= 1e-5 * wn.double().abs() + 1e-30).all()):
+            raise AssertionError(f"{label}: norms outside rtol 1e-5")
+        emit({"phase": "kernel_vs_plain", "case": label, "exact": False,
+              "max_abs_err": float(err.max()), "ok": True})
+        return float(err.max())
+
+    def stage_bound(n, d, width, in_bytes_per_elem, extra_in=0.0):
+        nbytes = in_bytes_per_elem * n * d + extra_in + 2.0 * n * width + 4.0 * n
+        return bound(2.0 * n * d, nbytes, PEAK_FP32_FLOPS)
+
+    width = fused_knn.staged_width(D)
+    max_err["stage_bf16"] = check_stage(
+        "stage_bf16/mnist60k_corpus", fused_knn.stage_bf16_rows(cp),
+        fused_knn.stage_bf16_rows_reference(cp, width))
+    timing["stage_bf16"] = {
+        "ms": cuda_ms(lambda: fused_knn.stage_bf16_rows(cp), reps=3),
+        "plain_ms": cuda_ms(lambda: fused_knn.stage_bf16_rows_reference(cp, width),
+                            reps=3),
+        **stage_bound(C, D, width, 4.0)}
+    emit({"phase": "kernel_time", "kernel": "stage_bf16", "rows": C, "D": D,
+          "width": width, **timing["stage_bf16"]})
+    del qp, cp, staged, qb, cb
 
     # ---- the ring block merge against its plain versions -----------------
     merge_modes = {
@@ -619,15 +719,37 @@ def main() -> int:
         sub = sample[sample < ql] if ql < M_FULL else sample
         real_q = int((qids >= 0).sum())
         real_b = int((bids >= 0).sum())
+        # K3b's staging prologue on this wire against its plain version
+        width = fused_knn.staged_width(D)
+        label = f"stage_bf16[wire]/{shape}"
+        err = check_stage(label, fused_ring.stage_wire_rows(blk, scale),
+                          fused_knn.stage_bf16_rows_reference(rows_f32, width))
+        max_err["stage_bf16[wire]"] = max(max_err.get("stage_bf16[wire]", 0.0), err)
+        staged_q = fused_ring.stage_wire_rows(qs, None)
+        staged_b = fused_ring.stage_wire_rows(blk, scale)
+        if shape == "p1_mnist60k":
+            timing["stage_bf16[wire]"] = {
+                "ms": cuda_ms(lambda: fused_ring.stage_wire_rows(blk, scale), reps=3),
+                "plain_ms": cuda_ms(lambda: fused_knn.stage_bf16_rows_reference(
+                    fused_ring._wire_rows(blk, scale), width), reps=3),
+                **stage_bound(b, D, width, blk.element_size(),
+                              0.0 if scale is None else 4.0 * b)}
+            emit({"phase": "kernel_time", "kernel": "stage_bf16[wire]",
+                  "shape": shape, "rows": b, "D": D, "width": width,
+                  "wire": wire or "float32", **timing["stage_bf16[wire]"]})
         for name, (kern, plain) in merge_modes.items():
             if name.endswith("[exact]"):
                 call = lambda: kern(*ops, *carry, c_tile=c_tile)  # noqa: E731
                 pcall = lambda: plain(*ops, *carry, c_tile=c_tile)  # noqa: E731
+                alone = call
             else:
                 call = lambda: kern(*ops, ov=OV, c_tile=c_tile)  # noqa: E731
                 pcall = lambda: plain(*ops, ov=OV, c_tile=c_tile)  # noqa: E731
+                alone = lambda: fused_ring.block_merge_compress_staged(  # noqa: E731
+                    staged_q, qids, staged_b, bids, ov=OV, c_tile=c_tile)
             got, want = call(), pcall()
-            ms = cuda_ms(call, reps=3)
+            ms = cuda_ms(alone, reps=3)
+            call_ms = cuda_ms(call, reps=3)
             plain_ms = cuda_ms(pcall, reps=3)
             if name.endswith("[exact]"):
                 err = compare(f"{name}/{shape}", got, want, qs, c_true, M_FULL,
@@ -642,7 +764,7 @@ def main() -> int:
             max_err[name] = max(max_err[name], err)
             in_bytes = 4.0 * real_q * D + blk.element_size() * real_b * D
             ops_needed = 2.0 * real_q * real_b * D
-            entry = {"ms": ms, "plain_ms": plain_ms,
+            entry = {"ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
                      **bound(ops_needed, in_bytes + out_bytes,
                              PEAK_FP32_FLOPS if name.endswith("[exact]")
                              else PEAK_BF16_FLOPS)}
@@ -651,6 +773,7 @@ def main() -> int:
                   "q_local": ql, "b": b, "D": D, "k": K, "ov": OV,
                   "wire": wire or "float32", **entry})
             del got, want
+        del staged_q, staged_b
 
     # ---- the ring transport (K4, K5) against its plain versions ----------
     mesh = make_ring_mesh(4) if count >= 4 else make_ring_mesh(devices=[device] * 4)
@@ -979,10 +1102,14 @@ def main() -> int:
                            ("sweep", "fused_knn_sweep")):
         for policy, suffix in (("exact", ""), ("mixed", "[compress]")):
             label = f"pallas/{variant}/{policy}"
+            # the compress kernels stage queries and corpus: 2 prologues
+            expect = {kname + suffix: 1, **({"stage_bf16": 2} if suffix else {})}
             line, ids_of[label] = drive_clf(
-                label, {kname + suffix: 1}, backend="pallas",
-                pallas_variant=variant, precision_policy=policy)
+                label, expect, backend="pallas", pallas_variant=variant,
+                precision_policy=policy)
             launches[kname + suffix] = line["launches"][kname + suffix]
+            if label == "pallas/tiles/mixed":
+                launches["stage_bf16"] = line["launches"]["stage_bf16"]
     drive_clf("serial/exact", {}, backend="serial")
 
     # the exact fused ring on cards moves its blocks with K4 (one launch per
@@ -993,11 +1120,14 @@ def main() -> int:
                ("mixed", "int8", "fused_block_merge[compress]")]
     for policy, wire, kname in ring_p1:
         label = f"ring-overlap/fused/P1/{policy}/{wire or 'float32'}"
+        # K3b stages the queries and the block: 2 prologues
+        expect = {kname: 1, **({"stage_bf16[wire]": 2} if policy == "mixed" else {})}
         line, ids_of[label] = drive_clf(
-            label, {kname: 1}, backend="ring-overlap", ring_fusion="fused",
+            label, expect, backend="ring-overlap", ring_fusion="fused",
             num_devices=1, precision_policy=policy, ring_transfer_dtype=wire)
         if (policy, wire) == ("mixed", None):
             launches[kname] = line["launches"][kname]
+            launches["stage_bf16[wire]"] = line["launches"]["stage_bf16[wire]"]
 
     def drive_mesh(label, cfg, expect):
         def run():
@@ -1102,6 +1232,10 @@ def main() -> int:
         "fused_block_merge[compress]": "mpi_knn_tpu/ops/pallas_ring.py:363",
         "fused_round_dma": "mpi_knn_tpu/ops/pallas_ring.py:553",
         "fused_rotation_grid": "mpi_knn_tpu/ops/pallas_ring.py:806",
+        # the staging prologues: the bf16 casts and norms of the compress
+        # tiles, hoisted out of the tile
+        "stage_bf16": "mpi_knn_tpu/ops/pallas_knn.py:249",
+        "stage_bf16[wire]": "mpi_knn_tpu/ops/pallas_ring.py:363",
     }
     library_of = {
         "fused_knn_tiles": library[("serial", "exact")],
@@ -1114,6 +1248,8 @@ def main() -> int:
             transport_timing[("fused_round_dma", "p4_round")]["library_ms"],
         "fused_rotation_grid":
             transport_timing[("fused_rotation_grid", "p4_rotation")]["library_ms"],
+        "stage_bf16": None,  # no one PyTorch call writes the copy and the norms
+        "stage_bf16[wire]": None,
     }
     times = {**timing, **{name: ring_timing[(name, "p1_mnist60k")]
                           for name in merge_modes},

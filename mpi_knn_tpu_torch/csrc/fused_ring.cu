@@ -7,15 +7,19 @@
 //       query rows sweeps the whole block (the TPU swept the block tiles on
 //       a sequential grid axis with the carry in VMEM scratch) and writes
 //       the merged (q_local, k) carry once.
-//   block_merge_compress_kernel  <- _compress_body (K3b). One CTA per (64
+//   block_merge_compress_kernel  <- _compress_body (K3b). One CTA per (128
 //       query rows, block tile) writes that tile's top-ov column positions
 //       by compressed key; the gather, exact rerank and carry merge run
 //       outside the kernel, as in the reference.
 //
-// Both read the block at its wire type (ring_merge.cuh's RingCols) and take
-// candidate ids as an operand: a ring block's ids are arbitrary after
-// rotation and -1 marks padding. The exact body is ring_merge.cuh's
-// exact_merge_group, which K4 and K5 (fused_ring_dma.cu) run too.
+// Both take candidate ids as an operand: a ring block's ids are arbitrary
+// after rotation and -1 marks padding. The exact body reads the block at
+// its wire type (ring_merge.cuh's RingCols); it is ring_merge.cuh's
+// exact_merge_group, which K4 and K5 (fused_ring_dma.cu) run too. The
+// compress body reads bf16 copies that the staging prologue
+// (stage_bf16_wire_launch) made once: the queries' per call, the block's
+// per merge, the int8 wire dequantized (code * scale) before the rounding,
+// so the scale reaches the prologue and never the tile.
 //
 // Order. The exact body ranks candidates by (distance, arrival): the carry's
 // slots first in their order, then the block's columns in order. That is
@@ -31,10 +35,11 @@
 // What bounds it. A merge of a (q_local x b) block does 2 q_local b D FLOP
 // (at the P=1 MNIST shape, 60000 x 60000 x 784: 5.64e12) and reads the
 // queries, block and carry once (~0.4 GB): operations bound it. The exact
-// body runs them on FFMA in full f32 (67 TFLOP/s FP32 peak: ~84 ms); the
-// compress body also runs FFMA over bf16-rounded values, though bf16 tensor
-// cores (989 TFLOP/s: ~5.7 ms) would be its bound. Both share the simple
-// register-tiled routine of knn_tile.cuh; wgmma forms are later work.
+// body runs them on FFMA in full f32 (67 TFLOP/s FP32 peak: ~84 ms) with
+// knn_tile.cuh's `sweep`; the compress body on the bf16 tensor cores
+// (mma.sync, 989 TFLOP/s: ~5.7 ms) with `sweep_bf16`, where the per-tile
+// selection of ov = 40 of every 2048 columns weighs as much as the
+// product. wgmma forms are later work.
 
 #include "ring_merge.cuh"
 
@@ -48,13 +53,27 @@ struct Params {
   const void* blk;       // (B, D) at the wire type
   const float* scale;    // (B,) int8 wire only
   const int* bids;       // (B,) candidate ids, -1 = padding
-  const float* carry_d;  // (Q, k) exact body only
+  const float* carry_d;  // (Q, k)
   const int* carry_i;
-  float* out_d;          // exact: (Q, k); compress: (n_c, Q, ov) list scratch
-  int* out_i;            // exact: (Q, k) ids; compress: (n_c, Q, ov) positions
+  float* out_d;          // (Q, k)
+  int* out_i;
   int Q, B, D, k, c_tile;
   int exclude_self, exclude_zero;
   float zero_eps;
+};
+
+// K3b's operands: the prologue's bf16 copies (Q, Dp) / (B, Dp), its norms.
+struct CParams {
+  const bf16* qb;
+  const float* qn;
+  const int* qids;    // (Q,)
+  const bf16* bb;
+  const float* bn;
+  const int* bids;    // (B,) candidate ids, -1 = padding
+  float* scratch_d;   // (n_c, Q, ov) list scratch, ov > KMAX_SMEM only
+  int* out_pos;       // (n_c, Q, ov) positions
+  int Q, B, Dp, ov, c_tile;
+  int exclude_self;
 };
 
 template <int WIRE>
@@ -69,27 +88,30 @@ block_merge_exact_kernel(Params p) {
       blockIdx.x * QB, smem);
 }
 
-template <int WIRE>
-__global__ void __launch_bounds__(THREADS)
-block_merge_compress_kernel(Params p) {
+// Capped at 128 registers a thread: two CTAs of 256 threads per SM.
+__global__ void __launch_bounds__(THREADS, 2)
+block_merge_compress_kernel(CParams p) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int q0 = blockIdx.x * QB;
-  const int ov = p.k;
+  const int q0 = blockIdx.x * MQB;
+  const int ov = p.ov;
   const int t = blockIdx.y;
   const int c_begin = t * p.c_tile;
   // lists go straight to the (n_c, Q, ov) output (positions) and, for
   // ov > KMAX_SMEM, to the distance scratch of the same shape
-  Lists L{carve(smem, ov), p.out_d, p.out_i, (size_t)t * p.Q + q0, ov};
-  init_lists(L, q0, p.Q, 0x7fffffff);
-  RingCols<WIRE, true> cols{p.blk, p.scale, p.bids, p.qids, p.D, c_begin,
-                            p.exclude_self != 0, false, 0.f};
-  sweep(cols, p.q, p.Q, p.D, q0, c_begin, c_begin + p.c_tile, L);
+  MmaLists L{carve_mma(smem, ov), p.scratch_d, p.out_pos,
+             (size_t)t * p.Q + q0, ov};
+  init_lists<MQB>(L, q0, p.Q, 0x7fffffff);
+  // the masks and keys only: the values come from the staged copies
+  RingCols<WIRE_F32, true> cols{nullptr, nullptr, p.bids, p.qids, p.Dp,
+                                c_begin, p.exclude_self != 0, false, 0.f};
+  sweep_bf16(cols, p.qb, p.qn, p.Q, p.bb, p.bn, p.Dp, q0, c_begin,
+             c_begin + p.c_tile, L);
 
   if (ov > KMAX_SMEM) return;  // the positions are already in place
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  for (int r = warp; r < QB; r += THREADS / 32) {
+  for (int r = warp; r < MQB; r += THREADS / 32) {
     if (q0 + r >= p.Q) continue;
-    int* oi = p.out_i + (L.row0 + r) * (size_t)ov;
+    int* oi = p.out_pos + (L.row0 + r) * (size_t)ov;
     for (int j = lane; j < ov; j += 32) oi[j] = L.i(r)[j];
   }
 }
@@ -136,29 +158,52 @@ int block_merge_exact_launch(const float* q, const int* qids, const void* blk,
   return (int)cudaErrorInvalidValue;
 }
 
-// The compress preselect: out_pos (B / c_tile, Q, ov) tile-local column
-// positions; scratch_d of the same shape is needed only for ov > 128.
-int block_merge_compress_launch(const float* q, const int* qids,
-                                const void* blk, const float* scale,
-                                const int* bids, float* scratch_d,
-                                int* out_pos, int Q, int B, int D, int ov,
-                                int c_tile, int wire, int exclude_self,
+// The compress preselect on the prologue's copies: out_pos (B / c_tile, Q,
+// ov) tile-local column positions; scratch_d of the same shape is needed
+// only for ov > 128. Dp is a multiple of 32.
+int block_merge_compress_launch(const bf16* qb, const float* qn,
+                                const int* qids, const bf16* bb,
+                                const float* bn, const int* bids,
+                                float* scratch_d, int* out_pos, int Q, int B,
+                                int Dp, int ov, int c_tile, int exclude_self,
                                 cudaStream_t stream) {
-  Params p{q, qids, blk, scale, bids, nullptr, nullptr, scratch_d, out_pos,
-           Q, B, D, ov, c_tile, exclude_self, 0, 0.f};
-  if (bad_shape(p) || ov > c_tile || (wire == WIRE_INT8 && scale == nullptr) ||
-      (ov > KMAX_SMEM && scratch_d == nullptr))
+  CParams p{qb, qn, qids, bb, bn, bids, scratch_d, out_pos, Q, B, Dp, ov,
+            c_tile, exclude_self};
+  if (Q <= 0 || B <= 0 || Dp <= 0 || Dp % MKD || ov <= 0 || c_tile <= 0 ||
+      B % c_tile || ov > c_tile || (ov > KMAX_SMEM && scratch_d == nullptr))
     return (int)cudaErrorInvalidValue;
-  dim3 grid((Q + QB - 1) / QB, B / c_tile);
+  cudaError_t err = set_mma_smem((const void*)block_merge_compress_kernel, ov);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((Q + MQB - 1) / MQB, B / c_tile);
+  block_merge_compress_kernel<<<grid, THREADS, mma_smem_bytes(ov), stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+// The staging prologue on a wire: x (N, D) at the wire type (scale (N,) on
+// the int8 wire) -> out (N, Dp) bf16 of the decoded rows, norms (N,) f32.
+int stage_bf16_wire_launch(const void* x, const float* scale, int wire,
+                           bf16* out, float* norms, int N, int D, int Dp,
+                           cudaStream_t stream) {
   switch (wire) {
     case WIRE_F32:
-      return (int)launch(block_merge_compress_kernel<WIRE_F32>, p, grid, stream);
+      return (int)stage_bf16(RingCols<WIRE_F32, true>{x, nullptr, nullptr, nullptr, D},
+                             N, D, Dp, out, norms, stream);
     case WIRE_BF16:
-      return (int)launch(block_merge_compress_kernel<WIRE_BF16>, p, grid, stream);
+      return (int)stage_bf16(RingCols<WIRE_BF16, true>{x, nullptr, nullptr, nullptr, D},
+                             N, D, Dp, out, norms, stream);
     case WIRE_INT8:
-      return (int)launch(block_merge_compress_kernel<WIRE_INT8>, p, grid, stream);
+      if (scale == nullptr) return (int)cudaErrorInvalidValue;
+      return (int)stage_bf16(RingCols<WIRE_INT8, true>{x, scale, nullptr, nullptr, D},
+                             N, D, Dp, out, norms, stream);
   }
   return (int)cudaErrorInvalidValue;
+}
+
+// Registers, local (spilled) bytes a thread and CTAs per SM of K3b at list
+// width ov.
+int compress_kernel_info(int ov, int* regs, int* local_bytes, int* ctas_per_sm) {
+  return (int)mma_kernel_info((const void*)block_merge_compress_kernel, ov, regs,
+                              local_bytes, ctas_per_sm);
 }
 
 }  // extern "C"

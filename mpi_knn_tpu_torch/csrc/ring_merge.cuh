@@ -36,7 +36,6 @@ struct RingCols {
   int key0;  // column col has key col - key0
   bool self, zero;
   float zero_eps;
-  static constexpr bool compress = COMPRESS;
   static constexpr bool clamp = !COMPRESS;
   static constexpr bool nan_as_inf = COMPRESS;
   __device__ float load(int col, int dim) const {

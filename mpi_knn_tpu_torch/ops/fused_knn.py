@@ -16,12 +16,16 @@ distance comes out as (NaN, −1) throughout.
 ``compress=True`` is the mixed policy's pass 1, as in the JAX kernels: the
 dot runs on bf16-rounded operands with f32 sums, the norms come from the
 unrounded rows, the zero mask is off (padding and self stay), and the
-caller asks for the overfetch width as k.
+caller asks for the overfetch width as k. On the card it is two steps: the
+staging prologue (``stage_bf16_rows``: a bf16 copy rounded to nearest even
+and zero-padded to a multiple of ``STAGE_K``, plus the f32 squared norms
+of the unrounded rows), once for the queries and once for the corpus, then
+the bf16 tensor-core kernel on the copies (``launch_compress``).
 
 A wrapper takes its plain version only because the tensors it was given lie
 on the CPU. For CUDA tensors it launches the kernel or raises. Each launch
-adds one to ``LAUNCHES[name]``, the name carrying ``[compress]`` in that
-mode.
+adds one to ``LAUNCHES[name]``: the kernels' names carry ``[compress]`` in
+that mode, the prologue's is ``stage_bf16``.
 """
 
 from __future__ import annotations
@@ -33,13 +37,14 @@ import torch
 
 from mpi_knn_tpu_torch.ops import _build
 from mpi_knn_tpu_torch.ops.distance import _mm_t, sq_norms
-from mpi_knn_tpu_torch.ops.rerank import bf16_round
 from mpi_knn_tpu_torch.types import INVALID_ID
 
 _ZERO_RTOL = 1e-6  # the f32 zero-exclusion rtol (ops/topk.py)
+STAGE_K = 32  # the compress tile's slice depth: staged widths are its multiples
 
 LAUNCHES = {"fused_knn_tiles": 0, "fused_knn_sweep": 0,
-            "fused_knn_tiles[compress]": 0, "fused_knn_sweep[compress]": 0}
+            "fused_knn_tiles[compress]": 0, "fused_knn_sweep[compress]": 0,
+            "stage_bf16": 0}
 
 
 def reset_launch_counts():
@@ -53,11 +58,19 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("fused_knn")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     common = [ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32]
-    flags = [i32, i32, i32, i32, ctypes.c_float, ptr]
+    flags = [i32, i32, i32, ctypes.c_float, ptr]
     lib.fused_knn_tiles_launch.argtypes = common + [i32] + flags
     lib.fused_knn_sweep_launch.argtypes = common + flags
-    lib.fused_knn_tiles_launch.restype = i32
-    lib.fused_knn_sweep_launch.restype = i32
+    staged = [ptr] * 6 + [i32] * 5
+    lib.fused_knn_tiles_compress_launch.argtypes = staged + [i32] * 3 + [ptr]
+    lib.fused_knn_sweep_compress_launch.argtypes = staged + [i32] * 2 + [ptr]
+    lib.stage_bf16_f32_launch.argtypes = [ptr] * 3 + [i32] * 3 + [ptr]
+    lib.compress_kernel_info.argtypes = [i32, i32] + [ctypes.POINTER(i32)] * 3
+    for fn in (lib.fused_knn_tiles_launch, lib.fused_knn_sweep_launch,
+               lib.fused_knn_tiles_compress_launch,
+               lib.fused_knn_sweep_compress_launch, lib.stage_bf16_f32_launch,
+               lib.compress_kernel_info):
+        fn.restype = i32
     return lib
 
 
@@ -82,24 +95,89 @@ def _check(queries, corpus, k, q_tile, c_tile):
         raise ValueError(f"unsupported device {queries.device}")
 
 
-def _launch(fn, name, queries, corpus, out_shape, *args):
-    out_d = torch.empty(out_shape, dtype=torch.float32, device=queries.device)
-    out_i = torch.empty(out_shape, dtype=torch.int32, device=queries.device)
-    with torch.cuda.device(queries.device):
+def _call(fn, name, device, tensors, out_shape, *args):
+    """Launch ``fn(*tensors' pointers, out_d, out_i, *args, stream)`` into
+    fresh (dists, ids) of ``out_shape``."""
+    out_d = torch.empty(out_shape, dtype=torch.float32, device=device)
+    out_i = torch.empty(out_shape, dtype=torch.int32, device=device)
+    with torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(
-            queries.data_ptr(), corpus.data_ptr(), out_d.data_ptr(),
-            out_i.data_ptr(), queries.shape[0], corpus.shape[0],
-            queries.shape[1], *args, stream,
-        )
+        rc = fn(*(t.data_ptr() for t in tensors), out_d.data_ptr(),
+                out_i.data_ptr(), *args, stream)
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {rc}")
     LAUNCHES[name] += 1
     return out_d, out_i
 
 
-def _name(base: str, compress: bool) -> str:
-    return base + "[compress]" if compress else base
+def staged_width(d: int) -> int:
+    """The width of a staged bf16 copy: d rounded up to ``STAGE_K``."""
+    return -(-d // STAGE_K) * STAGE_K
+
+
+def stage_bf16_rows(rows):
+    """The compress kernels' staging prologue on an f32 (n, d) row set ->
+    ((n, staged_width(d)) bf16 copy rounded to nearest even, zero-padded;
+    (n,) f32 squared norms of the unrounded rows)."""
+    if rows.dtype != torch.float32 or rows.ndim != 2 or not rows.is_contiguous():
+        raise TypeError("rows must be a contiguous 2-D float32 tensor")
+    n, d = rows.shape
+    width = staged_width(d)
+    if rows.device.type == "cpu":
+        return stage_bf16_rows_reference(rows, width)
+    out = torch.empty((n, width), dtype=torch.bfloat16, device=rows.device)
+    norms = torch.empty(n, dtype=torch.float32, device=rows.device)
+    with torch.cuda.device(rows.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = _lib().stage_bf16_f32_launch(rows.data_ptr(), out.data_ptr(),
+                                          norms.data_ptr(), n, d, width, stream)
+    if rc != 0:
+        raise RuntimeError(f"stage_bf16 launch failed: cudaError {rc}")
+    LAUNCHES["stage_bf16"] += 1
+    return out, norms
+
+
+def stage_bf16_rows_reference(rows, width=None):
+    """Plain version of the staging prologue (any device): ``rows`` are the
+    decoded f32 rows; the copy is zero-padded to ``width`` (default: d)."""
+    n, d = rows.shape
+    width = d if width is None else width
+    copy = torch.zeros((n, width), dtype=torch.bfloat16, device=rows.device)
+    copy[:, :d] = rows.to(torch.bfloat16)
+    return copy, sq_norms(rows)
+
+
+def launch_compress(base: str, staged_q, staged_c, m_corpus: int, k: int,
+                    c_tile: int, exclude_self: bool = True,
+                    all_pairs: bool = True):
+    """The compress kernel ``base`` ("fused_knn_tiles" or
+    "fused_knn_sweep") on the prologue's ((Q, w) bf16, (Q,)) queries and
+    ((C, w) bf16, (C,)) corpus, on the card: (n_c, Q, k) or (Q, k) raw
+    dists and ids."""
+    (qb, qn), (cb, cn) = staged_q, staged_c
+    Q, C = qb.shape[0], cb.shape[0]
+    name = base + "[compress]"
+    tensors = (qb, qn, cb, cn)
+    shape_args = (Q, C, qb.shape[1], m_corpus, k)
+    if base == "fused_knn_tiles":
+        return _call(_lib().fused_knn_tiles_compress_launch, name, qb.device,
+                     tensors, (C // c_tile, Q, k), *shape_args, c_tile,
+                     int(exclude_self), int(all_pairs))
+    return _call(_lib().fused_knn_sweep_compress_launch, name, qb.device,
+                 tensors, (Q, k), *shape_args, int(exclude_self),
+                 int(all_pairs))
+
+
+def compress_kernel_info(base: str, k: int) -> dict:
+    """Registers and spilled (local) bytes a thread, and CTAs per SM, of the
+    compress kernel ``base`` at list width k (needs the card)."""
+    vals = [ctypes.c_int() for _ in range(3)]
+    rc = _lib().compress_kernel_info(0 if base == "fused_knn_tiles" else 1, k,
+                                     *(ctypes.byref(v) for v in vals))
+    if rc != 0:
+        raise RuntimeError(f"compress_kernel_info failed: cudaError {rc}")
+    return dict(zip(("registers", "spilled_bytes", "ctas_per_sm"),
+                    (v.value for v in vals)))
 
 
 def fused_knn_tiles(queries, corpus, m_corpus: int, k: int, q_tile: int,
@@ -114,12 +192,17 @@ def fused_knn_tiles(queries, corpus, m_corpus: int, k: int, q_tile: int,
         outd, outi = _tiles_plain(queries, corpus, m_corpus, k, c_tile,
                                   exclude_self, exclude_zero, all_pairs,
                                   zero_eps, compress)
+    elif compress:
+        outd, outi = launch_compress(
+            "fused_knn_tiles", stage_bf16_rows(queries),
+            stage_bf16_rows(corpus), m_corpus, k, c_tile, exclude_self,
+            all_pairs)
     else:
-        outd, outi = _launch(
-            _lib().fused_knn_tiles_launch, _name("fused_knn_tiles", compress),
-            queries, corpus, (n_c, Q, k), m_corpus, k, c_tile,
-            int(exclude_self), int(exclude_zero), int(all_pairs),
-            int(compress), float(zero_eps),
+        outd, outi = _call(
+            _lib().fused_knn_tiles_launch, "fused_knn_tiles", queries.device,
+            (queries, corpus), (n_c, Q, k), Q, C, queries.shape[1], m_corpus,
+            k, c_tile, int(exclude_self), int(exclude_zero), int(all_pairs),
+            float(zero_eps),
         )
     return _candidate_lists(outd, outi)
 
@@ -136,11 +219,16 @@ def fused_knn_sweep(queries, corpus, m_corpus: int, k: int, q_tile: int,
             queries, corpus, m_corpus, k, q_tile, c_tile, exclude_self,
             exclude_zero, all_pairs, zero_eps, compress,
         )
-    return _launch(
-        _lib().fused_knn_sweep_launch, _name("fused_knn_sweep", compress),
-        queries, corpus, (queries.shape[0], k), m_corpus, k,
-        int(exclude_self), int(exclude_zero), int(all_pairs), int(compress),
-        float(zero_eps),
+    if compress:
+        return launch_compress(
+            "fused_knn_sweep", stage_bf16_rows(queries),
+            stage_bf16_rows(corpus), m_corpus, k, c_tile, exclude_self,
+            all_pairs)
+    Q, C = queries.shape[0], corpus.shape[0]
+    return _call(
+        _lib().fused_knn_sweep_launch, "fused_knn_sweep", queries.device,
+        (queries, corpus), (Q, k), Q, C, queries.shape[1], m_corpus, k,
+        int(exclude_self), int(exclude_zero), int(all_pairs), float(zero_eps),
     )
 
 
@@ -157,10 +245,15 @@ def _candidate_lists(outd, outi):
 
 def _masked_tile(queries, q_sq, tile, col0, m_corpus, exclude_self,
                  exclude_zero, all_pairs, zero_eps, compress=False):
-    """(Q, c) masked squared-L2 distances of one corpus tile + its ids."""
-    c_sq = sq_norms(tile)
-    xy = (_mm_t(bf16_round(queries), bf16_round(tile)) if compress
-          else _mm_t(queries, tile))
+    """(Q, c) masked squared-L2 distances of one corpus tile + its ids;
+    in compress mode ``queries`` is the staged bf16 copy and the product
+    is taken with the tile's."""
+    if compress:
+        tile_b, c_sq = stage_bf16_rows_reference(tile)
+        xy = _mm_t(queries, tile_b)
+    else:
+        c_sq = sq_norms(tile)
+        xy = _mm_t(queries, tile)
     d = torch.clamp_min(q_sq[:, None] - 2.0 * xy + c_sq[None, :], 0.0)
     col = col0 + torch.arange(tile.shape[0], device=tile.device,
                               dtype=torch.int32)
@@ -190,7 +283,10 @@ def _select(d, ids, k):
 
 def _tile_topks(queries, corpus, m_corpus, k, c_tile, exclude_self,
                 exclude_zero, all_pairs, zero_eps, compress):
-    q_sq = sq_norms(queries)
+    if compress:
+        queries, q_sq = stage_bf16_rows_reference(queries)
+    else:
+        q_sq = sq_norms(queries)
     for col0 in range(0, corpus.shape[0], c_tile):
         d, ids = _masked_tile(queries, q_sq, corpus[col0:col0 + c_tile],
                               col0, m_corpus, exclude_self, exclude_zero,

@@ -15,13 +15,18 @@ or int8 codes with per-row scales) merged into the (q_local, k) carry.
 - mixed policy: ``block_merge_compress`` (K3b) returns each block tile's
   top-ov column positions by unclamped compressed key (untaken columns in
   index order once the finite keys run out; a NaN key counts as +inf).
+  On the card it is the staging prologue (``stage_wire_rows``: bf16 copies
+  of the queries and of the block decoded from its wire, and their f32
+  norms) and then the bf16 tensor-core kernel on the copies
+  (``block_merge_compress_staged``).
   The survivors' gather, the exact rerank and the carry merge then run in
   torch, tile after tile, one chunk of query rows at a time, so no
   (q_local, ov, d) gather is ever made whole.
 
 A kernel wrapper takes its plain version only because the tensors it was
 given lie on the CPU; for CUDA tensors it launches the kernel or raises.
-Each launch adds one to ``LAUNCHES[name]``.
+Each launch adds one to ``LAUNCHES[name]``; the prologue's name is
+``stage_bf16[wire]``.
 """
 
 from __future__ import annotations
@@ -33,17 +38,22 @@ import torch
 
 from mpi_knn_tpu_torch.ops import _build
 from mpi_knn_tpu_torch.ops.distance import _mm_t, sq_norms
-from mpi_knn_tpu_torch.ops.fused_knn import _ZERO_RTOL, _select
+from mpi_knn_tpu_torch.ops.fused_knn import (
+    _ZERO_RTOL,
+    _select,
+    stage_bf16_rows_reference,
+    staged_width,
+)
 from mpi_knn_tpu_torch.ops.quant import dequantize_rows
 from mpi_knn_tpu_torch.ops.rerank import (
-    compress_tile,
     mixed_applies,
     overfetch_width,
     rerank_exact_topk,
 )
 from mpi_knn_tpu_torch.ops.topk import preselect_smallest, smallest_k
 
-LAUNCHES = {"fused_block_merge[exact]": 0, "fused_block_merge[compress]": 0}
+LAUNCHES = {"fused_block_merge[exact]": 0, "fused_block_merge[compress]": 0,
+            "stage_bf16[wire]": 0}
 
 _WIRE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 # query rows per step of the plain versions and of the mixed finish, sized
@@ -64,9 +74,12 @@ def _lib() -> ctypes.CDLL:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.block_merge_exact_launch.argtypes = (
         [ptr] * 9 + [i32] * 8 + [ctypes.c_float, ptr])
-    lib.block_merge_compress_launch.argtypes = [ptr] * 7 + [i32] * 7 + [ptr]
-    lib.block_merge_exact_launch.restype = i32
-    lib.block_merge_compress_launch.restype = i32
+    lib.block_merge_compress_launch.argtypes = [ptr] * 8 + [i32] * 6 + [ptr]
+    lib.stage_bf16_wire_launch.argtypes = [ptr, ptr, i32, ptr, ptr] + [i32] * 3 + [ptr]
+    lib.compress_kernel_info.argtypes = [i32] + [ctypes.POINTER(i32)] * 3
+    for fn in (lib.block_merge_exact_launch, lib.block_merge_compress_launch,
+               lib.stage_bf16_wire_launch, lib.compress_kernel_info):
+        fn.restype = i32
     return lib
 
 
@@ -196,38 +209,84 @@ def block_merge_compress(queries, query_ids, block, block_ids, block_scale,
         return block_merge_compress_reference(
             queries, query_ids, block, block_ids, block_scale, ov=ov,
             c_tile=c_tile, exclude_self=exclude_self)
-    Q = queries.shape[0]
+    return block_merge_compress_staged(
+        stage_wire_rows(queries, None), query_ids,
+        stage_wire_rows(block, block_scale), block_ids, ov=ov, c_tile=c_tile,
+        exclude_self=exclude_self)
+
+
+def stage_wire_rows(rows, scale):
+    """K3b's staging prologue on a row set at its wire type (f32, bf16, or
+    int8 codes with their (n,) scales) -> ((n, staged_width(d)) bf16 copy
+    of the decoded rows, rounded to nearest even and zero-padded; (n,) f32
+    squared norms of the decoded rows)."""
+    n, d = rows.shape
+    width = staged_width(d)
+    if rows.device.type == "cpu":
+        return stage_bf16_rows_reference(_wire_rows(rows, scale), width)
+    out = torch.empty((n, width), dtype=torch.bfloat16, device=rows.device)
+    norms = torch.empty(n, dtype=torch.float32, device=rows.device)
+    with torch.cuda.device(rows.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = _lib().stage_bf16_wire_launch(
+            rows.data_ptr(), scale.data_ptr() if scale is not None else None,
+            _WIRE[rows.dtype], out.data_ptr(), norms.data_ptr(), n, d, width,
+            stream)
+    _rc(rc, "stage_bf16[wire]")
+    return out, norms
+
+
+def block_merge_compress_staged(staged_q, query_ids, staged_b, block_ids, *,
+                                ov: int, c_tile: int,
+                                exclude_self: bool = True):
+    """K3b on the card, on the prologue's ((Q, w) bf16, (Q,)) queries and
+    ((b, w) bf16, (b,)) block -> (b // c_tile, Q, ov) int32 positions."""
+    (qb, qn), (bb, bn) = staged_q, staged_b
+    Q, b = qb.shape[0], bb.shape[0]
     shape = (b // c_tile, Q, ov)
-    pos = torch.empty(shape, dtype=torch.int32, device=queries.device)
+    pos = torch.empty(shape, dtype=torch.int32, device=qb.device)
     # lists longer than the kernel keeps in shared memory need a scratch
-    scratch = (torch.empty(shape, dtype=torch.float32, device=queries.device)
+    scratch = (torch.empty(shape, dtype=torch.float32, device=qb.device)
                if ov > 128 else None)
-    with torch.cuda.device(queries.device):
+    with torch.cuda.device(qb.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = _lib().block_merge_compress_launch(
-            queries.data_ptr(), query_ids.data_ptr(), block.data_ptr(),
-            block_scale.data_ptr() if block_scale is not None else None,
-            block_ids.data_ptr(),
+            qb.data_ptr(), qn.data_ptr(), query_ids.data_ptr(), bb.data_ptr(),
+            bn.data_ptr(), block_ids.data_ptr(),
             scratch.data_ptr() if scratch is not None else None,
-            pos.data_ptr(), Q, b, queries.shape[1], ov, c_tile,
-            _WIRE[block.dtype], int(exclude_self), stream)
+            pos.data_ptr(), Q, b, qb.shape[1], ov, c_tile, int(exclude_self),
+            stream)
     _rc(rc, "fused_block_merge[compress]")
     return pos
+
+
+def compress_kernel_info(ov: int) -> dict:
+    """Registers and spilled (local) bytes a thread, and CTAs per SM, of K3b
+    at list width ov (needs the card)."""
+    vals = [ctypes.c_int() for _ in range(3)]
+    rc = _lib().compress_kernel_info(ov, *(ctypes.byref(v) for v in vals))
+    if rc != 0:
+        raise RuntimeError(f"compress_kernel_info failed: cudaError {rc}")
+    return dict(zip(("registers", "spilled_bytes", "ctas_per_sm"),
+                    (v.value for v in vals)))
 
 
 def block_merge_compress_reference(queries, query_ids, block, block_ids,
                                    block_scale, *, ov, c_tile,
                                    exclude_self=True):
-    """Plain PyTorch version of ``block_merge_compress`` (any device)."""
-    blk = _wire_rows(block, block_scale)
+    """Plain PyTorch version of ``block_merge_compress`` (any device): the
+    product of the staged bf16 copies, with their norms."""
+    blk, b_sq = stage_bf16_rows_reference(_wire_rows(block, block_scale))
+    qb, q_sq = stage_bf16_rows_reference(queries)
     tiles = []
     for t0 in range(0, blk.shape[0], c_tile):
         tile, tid = blk[t0:t0 + c_tile], block_ids[t0:t0 + c_tile]
-        c_sq = sq_norms(tile)
+        c_sq = b_sq[t0:t0 + c_tile]
         parts = []
         for r0 in range(0, queries.shape[0], _PLAIN_ROWS):
-            q = queries[r0:r0 + _PLAIN_ROWS]
-            keys = compress_tile(q, tile, sq_norms(q), c_sq)
+            qs = q_sq[r0:r0 + _PLAIN_ROWS]
+            keys = (qs[:, None] - 2.0 * _mm_t(qb[r0:r0 + _PLAIN_ROWS], tile)
+                    + c_sq[None, :])
             invalid = (tid < 0)[None, :] | torch.isnan(keys)
             if exclude_self:
                 invalid = invalid | (

@@ -55,6 +55,61 @@ def test_kernel_equals_plain_on_small_integers(cuda_device, name, all_pairs,
     _same(gd, wd)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["fused_knn_tiles", "fused_knn_sweep"])
+@pytest.mark.parametrize("all_pairs", [True, False])
+@pytest.mark.parametrize("dim", [24, 33, 100])
+@pytest.mark.parametrize("ov", [10, 40, 150])  # 150: lists kept in the output
+def test_compress_kernels_equal_plain_on_ragged_shapes(cuda_device, name,
+                                                       all_pairs, dim, ov):
+    """The bf16 tensor-core tile at shapes off its 128 x 128 CTA tile and
+    its 32-deep slices: 450 corpus rows (10 of them padding), 450 or 200
+    query rows, widths padded to 32, 64 and 128; in query mode a NaN query
+    row, which the kernel must poison as the plain version does."""
+    rng = np.random.default_rng(3)
+    X = np.zeros((450, dim), np.float32)
+    X[:440] = rng.integers(0, 8, (440, dim)) * 0.25
+    X[5] = X[60]
+    Q = X if all_pairs else X[:200] + 0.25
+    if not all_pairs:
+        Q[9] = np.nan
+    Q = torch.from_numpy(np.ascontiguousarray(Q)).to(cuda_device)
+    X = torch.from_numpy(X).to(cuda_device)
+    args = (Q, X, 440, ov, 9 if all_pairs else 8, 150)
+    gd, gi = getattr(fused_knn, name)(*args, all_pairs=all_pairs, compress=True)
+    torch.cuda.synchronize()
+    wd, wi = getattr(fused_knn, name + "_reference")(*args, all_pairs=all_pairs,
+                                                   compress=True)
+    assert torch.equal(gi, wi)
+    _same(gd, wd)
+    if not all_pairs:
+        assert bool(torch.isnan(gd[9]).all()) and bool((gi[9] == -1).all())
+        assert bool(torch.isfinite(gd[10, :ov]).all())
+
+
+@pytest.mark.cuda
+def test_compress_wrappers_count_stage_launches(cuda_device):
+    """Each compress call stages its two row sets once (two prologue
+    launches) and launches its kernel once."""
+    fused_knn.reset_launch_counts()
+    fused_ring.reset_launch_counts()
+    X = torch.from_numpy((np.random.default_rng(4).integers(0, 8, (256, 40))
+                          * 0.25).astype(np.float32)).to(cuda_device)
+    fused_knn.fused_knn_tiles(X, X, 256, 8, 128, 128, compress=True)
+    fused_knn.fused_knn_sweep(X, X, 256, 8, 128, 128, compress=True)
+    q, qids, blk, bids, scale = _ring_operands(cuda_device, "int8")
+    fused_ring.block_merge_compress(q, qids, blk, bids, scale, ov=12,
+                                    c_tile=128)
+    torch.cuda.synchronize()
+    assert fused_knn.LAUNCHES == {
+        "fused_knn_tiles": 0, "fused_knn_sweep": 0,
+        "fused_knn_tiles[compress]": 1, "fused_knn_sweep[compress]": 1,
+        "stage_bf16": 4}
+    assert fused_ring.LAUNCHES == {"fused_block_merge[exact]": 0,
+                                   "fused_block_merge[compress]": 1,
+                                   "stage_bf16[wire]": 2}
+
+
 def _ring_operands(device, wire, q_local=96, b=256, dim=24, seed=0):
     """Queries, ids, a wire block with permuted ids and -1 padding, a
     duplicate of a query, a query whose id is in the block, and a carry
@@ -145,17 +200,26 @@ def test_ring_across_cards_equals_one_shared_card(cuda_device, backend, fusion,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("wire", ["float32", "bfloat16", "int8"])
-@pytest.mark.parametrize("ov", [12, 200])  # 200: lists in a global scratch
-def test_block_merge_compress_equals_plain(cuda_device, wire, ov):
-    q, qids, blk, bids, scale = _ring_operands(cuda_device, wire, b=512)
+@pytest.mark.parametrize("ov", [10, 40, 150, 200])  # > 128: a global scratch
+@pytest.mark.parametrize("dim", [24, 33, 100])
+def test_block_merge_compress_equals_plain(cuda_device, wire, ov, dim):
+    """K3b on the bf16 tensor-core tile: 200 query rows and 450-row blocks
+    (off its 128 x 128 CTA tile), widths padded to 32, 64 and 128, every
+    wire, and a NaN query row, whose keys count as +inf: its positions are
+    each tile's first ov columns in order, as in the plain version."""
+    q, qids, blk, bids, scale = _ring_operands(cuda_device, wire, q_local=200,
+                                               b=450, dim=dim)
+    q[9] = float("nan")
     before = fused_ring.LAUNCHES["fused_block_merge[compress]"]
     got = fused_ring.block_merge_compress(q, qids, blk, bids, scale, ov=ov,
-                                          c_tile=256)
+                                          c_tile=225)
     torch.cuda.synchronize()
     want = fused_ring.block_merge_compress_reference(q, qids, blk, bids,
-                                                     scale, ov=ov, c_tile=256)
+                                                     scale, ov=ov, c_tile=225)
     assert fused_ring.LAUNCHES["fused_block_merge[compress]"] == before + 1
-    assert got.shape == (2, 96, ov) and torch.equal(got, want)
+    assert got.shape == (2, 200, ov) and torch.equal(got, want)
+    first = torch.arange(ov, dtype=torch.int32, device=cuda_device)
+    assert torch.equal(got[:, 9], first.expand(2, ov))
 
 
 def _ring_of(device, P, wire, q_local=96, b=256, dim=24, k=10):

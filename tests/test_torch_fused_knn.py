@@ -153,4 +153,5 @@ def test_launch_counts_untouched_by_plain_versions():
     fused_knn.fused_knn_sweep(x, x, 64, 4, 32, 64, compress=True)
     assert fused_knn.LAUNCHES == {
         "fused_knn_tiles": 0, "fused_knn_sweep": 0,
-        "fused_knn_tiles[compress]": 0, "fused_knn_sweep[compress]": 0}
+        "fused_knn_tiles[compress]": 0, "fused_knn_sweep[compress]": 0,
+        "stage_bf16": 0}

@@ -159,4 +159,5 @@ def test_launch_counts_untouched_by_plain_versions():
             torch.from_numpy(ci), cfg=KNNConfig(k=k, precision_policy=policy),
             q_tile=Q_TILE, c_tile=C_TILE)
     assert fused_ring.LAUNCHES == {"fused_block_merge[exact]": 0,
-                                   "fused_block_merge[compress]": 0}
+                                   "fused_block_merge[compress]": 0,
+                                   "stage_bf16[wire]": 0}
