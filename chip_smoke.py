@@ -38,10 +38,12 @@ is not 0:
    beside one yardstick each on the same card inputs: the serial backend,
    the ring's xla-form round, for K4 K3a plus the block's Tensor.copy_ on
    the launch's ranks, for K5 the driver-transport rotation with K3a.
-   Then planted
-   duplicates (an exact pair, a near-twin at d^2 = 64) go through every
-   mixed path on the card: the rerank must drop the pair and keep the
-   twin first at 64;
+   Then
+   planted duplicates (an exact pair, a near-twin at d^2 = 64) go through
+   every mixed path on the card (the rerank must drop the pair and keep
+   the twin first at 64) and every exact path (pallas tiles and sweep,
+   ring P=1, P=4 bidir, fused-dma, fused-grid, resume: the tile itself
+   must drop the pair);
 4. main paths, at full width (60000x784, k=10), each driven with the
    launch counts set to 0 just before it and read just after, then the
    median of 3 synchronised all-kNN reps (host input, then device input;
@@ -64,19 +66,30 @@ is not 0:
    The exact ring's ids must agree with the exact fused path's (tie-aware,
    by f64 distance, >= 0.999);
 5. kernels: one line with every kernel mode's launches, error, times and
-   bound, the compress kernels' staging prologues (`stage_bf16`,
+   bound, the prologues (`stage_tf32`, `stage_tf32[wire]`, `stage_bf16`,
    `stage_bf16[wire]`) among them.
 
-The compress kernels (K1[c], K2[c], K3b) run on the bf16 tensor cores,
-after a staging prologue that writes bf16 copies and f32 norms. Their
-`ms` is the kernel alone on staged operands, `call_ms` the wrapper with
-its prologue launches. Beside them the script prints, per compress
+Every kernel runs on the tensor cores: the exact ones (K1, K2, K3a, K4,
+K5) as three TF32 passes of split f32 operands after a prologue that
+writes the norms (`stage_tf32`, `stage_tf32[wire]`), the compress ones
+(K1[c], K2[c], K3b) as one bf16 pass on copies that their prologue writes
+with f32 norms. A kernel's `ms` is the kernel alone on staged operands,
+`call_ms` the wrapper with its prologue launches; the exact rows' bound is
+three times the needed FLOP at the dense TF32 peak (`bound_ffma_ms` keeps
+the FP32 bound of one FFMA product). Beside them the script prints, per
 kernel, registers and spilled bytes a thread and CTAs per SM
-(`kernel_resources`, from cudaFuncGetAttributes and the occupancy API)
-and the count of HMMA instructions in its SASS (`cuobjdump -sass` of the
-built library; it must be > 0), and the "product alone": torch.matmul on
-the same staged bf16 copies in query chunks, which says whether the
-product or the selection sets the compress kernels' pace.
+(`kernel_resources`, from cudaFuncGetAttributes and the occupancy API;
+for K3a, K4 and K5 the launch plan at each shape: rows per CTA, CTAs,
+grid, items per round), the count of HMMA instructions in its SASS
+(`cuobjdump -sass` of the built libraries; it must be > 0), the "product
+alone" of each policy (torch.matmul on the same operands in query chunks:
+bf16 copies, and f32 with TF32 off, cuBLAS's SGEMM), and the
+`exact_error` phase: on every slot of K1's, K2's and K3a's main-shape
+outputs, max and 99.99th percentile of |d - d_f64| / (q^2 + c^2), the
+plain version's beside it; the gate is max <= max(5e-7, 2x the plain's).
+The `mma_ceiling` phase measures the card's mma.sync rate (a probe kernel
+of independent products, tf32 m16n8k8 and bf16 m16n8k16) and the floor it
+sets at the main shape: three tf32 passes, or one bf16 pass.
 
 The last line is {"ok": true, "device": {...}}. Without a card, or without
 the package beside it, the script exits non-zero and prints no result.
@@ -93,9 +106,12 @@ import time
 
 import numpy as np
 
-# H100 SXM data sheet: FP32 (non-tensor) and dense bf16 tensor peaks, HBM3
+# H100 SXM data sheet: FP32 (non-tensor), dense TF32 and bf16 tensor peaks,
+# HBM3
 PEAK_FP32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 494.7e12
 PEAK_BF16_FLOPS = 989e12
+ERROR_GATE = 5e-7  # |d - d_f64| / (q^2 + c^2) floor of the exact_error gate
 PEAK_BYTES_PER_S = 3.35e12
 RECALL_GATE = 0.999
 AGREEMENT_GATE = 0.999
@@ -108,9 +124,9 @@ SAMPLE_ROWS = 4096  # rows whose ids are judged in f64 at the largest shapes
 
 def source_of(kernel: str) -> str:
     """The CUDA source of a kernel mode, under mpi_knn_tpu_torch/csrc/."""
-    if kernel.startswith("fused_knn") or kernel == "stage_bf16":
+    if kernel.startswith("fused_knn") or kernel in ("stage_tf32", "stage_bf16"):
         return "fused_knn.cu"
-    if kernel.startswith("fused_block_merge") or kernel == "stage_bf16[wire]":
+    if kernel.startswith(("fused_block_merge", "stage")):
         return "fused_ring.cu"
     return "fused_ring_dma.cu"
 
@@ -406,6 +422,46 @@ def compare_positions(name, got, want, q, rows, bids, qids, c_tile,
     return max_err
 
 
+def rel_errors(q, c, ids, d):
+    """|d - d_f64| / (q^2 + c^2) of every finite slot (row r, id ids[r, j])
+    of (d, ids), the f64 distance and norms from the inputs q, c; in row
+    chunks of ~2^26 values."""
+    import torch
+
+    out = []
+    rows = max(1, (1 << 26) // (ids.shape[1] * q.shape[1]))
+    for r0 in range(0, ids.shape[0], rows):
+        idc, dc = ids[r0:r0 + rows], d[r0:r0 + rows]
+        qr = q[r0:r0 + rows, None, :].double()
+        cr = c[idc.clamp_min(0).long()].double()
+        d64 = ((qr - cr) ** 2).sum(-1)
+        scale = (qr ** 2).sum(-1) + (cr ** 2).sum(-1)
+        fin = torch.isfinite(dc) & (idc >= 0)
+        out.append(((dc.double() - d64).abs() / scale)[fin])
+    return torch.cat(out)
+
+
+def exact_error(name, q, c, got, want) -> dict:
+    """The exact_error line of a kernel's (dists, ids) and its plain
+    version's on the same inputs; fails past the gate."""
+    import torch
+
+    def stats(e):
+        return {"max": float(e.max()), "p99_99": float(torch.quantile(e, 0.9999)),
+                "pairs": int(e.numel())}
+
+    line = {"phase": "exact_error", "kernel": name,
+            "kernel_err": stats(rel_errors(q, c, got[1], got[0])),
+            "plain_err": stats(rel_errors(q, c, want[1], want[0]))}
+    line["gate"] = max(ERROR_GATE, 2.0 * line["plain_err"]["max"])
+    line["ok"] = line["kernel_err"]["max"] <= line["gate"]
+    emit(line)
+    if not line["ok"]:
+        raise AssertionError(f"{name}: exact error {line['kernel_err']['max']} "
+                             f"over the gate {line['gate']}")
+    return line
+
+
 def kernel_cases(device):
     """(name, queries, corpus, m_corpus, all_pairs, exact, k, q_tile,
     c_tile) on the card."""
@@ -502,6 +558,7 @@ def main() -> int:
 
     device = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     count = torch.cuda.device_count()
     smi = nvidia_smi_line()
     print(smi, flush=True)
@@ -517,23 +574,50 @@ def main() -> int:
         emit({"phase": "build", "source": f"csrc/{name}.cu",
               "seconds": entry["seconds"], "cached": entry["log"] == "cached"})
 
-    # ---- the compress kernels: tensor-core instructions and resources ----
+    # ---- every kernel: tensor-core instructions and resources -------------
     hmma = {}
-    for src in ("fused_knn", "fused_ring"):
+    for src in _build.SOURCES:
         hmma.update(sass_hmma_counts(_build._lib_path(src)))
     emit({"phase": "sass", "hmma_by_function": hmma})
-    compress_fns = {"fused_knn_tiles[compress]": "fused_knn_tiles_compress_kernel",
-                    "fused_knn_sweep[compress]": "fused_knn_sweep_compress_kernel",
-                    "fused_block_merge[compress]": "block_merge_compress_kernel"}
-    for name, fn in compress_fns.items():
+    kernel_fns = {"fused_knn_tiles": "fused_knn_tiles_kernel",
+                  "fused_knn_sweep": "fused_knn_sweep_kernel",
+                  "fused_knn_tiles[compress]": "fused_knn_tiles_compress_kernel",
+                  "fused_knn_sweep[compress]": "fused_knn_sweep_compress_kernel",
+                  "fused_block_merge[exact]": "block_merge_exact_kernel",
+                  "fused_block_merge[compress]": "block_merge_compress_kernel",
+                  "fused_round_dma": "round_dma_kernel",
+                  "fused_rotation_grid": "rotation_grid_kernel"}
+    for name, fn in kernel_fns.items():
         n = sum(v for f, v in hmma.items() if fn in f)
-        info = (fused_knn.compress_kernel_info(name.split("[")[0], OV)
-                if name.startswith("fused_knn") else
-                fused_ring.compress_kernel_info(OV))
+        kk = OV if "[compress]" in name else K
+        if name.startswith("fused_knn"):
+            info = fused_knn.kernel_info(name, kk)
+        elif name == "fused_block_merge[compress]":
+            info = fused_ring.compress_kernel_info(OV)
+        elif name == "fused_block_merge[exact]":  # at the P=1 and shard shapes
+            info = {f"q_local_{ql}": fused_ring.exact_plan(torch.float32, ql, K)
+                    for ql in (60416, 15360)}
+        else:  # one card holding 4 ranks, and one rank per card (4 cards)
+            which = "round" if name == "fused_round_dma" else "grid"
+            info = {f"{n_local}_ranks_per_card": fused_rotation.ring_kernel_plan(
+                which, torch.float32, n_local, 15360, K) for n_local in (4, 1)}
+            if which == "grid":
+                for plan in info.values():
+                    plan["waves_per_round"] = plan["items_per_round"] / plan["grid"]
+                    last = plan["items_per_round"] % plan["grid"] or plan["grid"]
+                    plan["last_wave_fill"] = last / plan["grid"]
         emit({"phase": "kernel_resources", "kernel": name, "function": fn,
-              "k": OV, "hmma_in_sass": n, **info})
+              "k": kk, "hmma_in_sass": n, **info})
         if n <= 0:
             raise AssertionError(f"{name}: no HMMA instruction in its SASS")
+
+    # ---- the ceiling of the tiles' products: the card's mma.sync rate -----
+    needed = 2.0 * M_FULL * M_FULL * 784  # the main shape's products, D = 784
+    rates = {"tf32_m16n8k8": fused_knn.mma_rate(device, True),
+             "bf16_m16n8k16": fused_knn.mma_rate(device, False)}
+    emit({"phase": "mma_ceiling", "tflops": rates,
+          "tf32x3_floor_ms_main_shape": 3 * needed / (rates["tf32_m16n8k8"] * 1e12) * 1e3,
+          "bf16x1_floor_ms_main_shape": needed / (rates["bf16_m16n8k16"] * 1e12) * 1e3})
 
     # ---- the fused kNN kernels against their plain versions -------------
     knn_modes = {  # mode name -> (wrapper, plain version, compress)
@@ -582,20 +666,29 @@ def main() -> int:
         return {"bound_ms": 1e3 * max(t_ops, t_bytes),
                 "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
+    def exact_bound(ops, nbytes):
+        """The exact tile's bound: three TF32 products of the needed FLOP;
+        the FP32 (FFMA) bound of one product beside it."""
+        return {**bound(3.0 * ops, nbytes, PEAK_TF32_FLOPS),
+                "bound_ffma_ms": bound(ops, nbytes, PEAK_FP32_FLOPS)["bound_ms"]}
+
     timing = {}
     self_all = torch.arange(Q, device=device)
     staged = (fused_knn.stage_bf16_rows(qp), fused_knn.stage_bf16_rows(cp))
+    norms = (fused_knn.stage_tf32_rows(qp), fused_knn.stage_tf32_rows(cp))
     for name, (kern, plain, compress) in knn_modes.items():
         kk = OV if compress else K
         args = (qp, cp, M_FULL, kk, Q_TILE, C_TILE)
         kw = dict(compress=compress)
         got, want = kern(*args, **kw), plain(*args, **kw)  # also the warm-ups
         call_ms = cuda_ms(lambda: kern(*args, **kw), reps=3)
-        ms = call_ms
+        base = name.split("[")[0]
         if compress:  # the kernel alone, on operands staged beforehand
-            base = name.split("[")[0]
             ms = cuda_ms(lambda: fused_knn.launch_compress(
                 base, *staged, M_FULL, kk, C_TILE), reps=3)
+        else:
+            ms = cuda_ms(lambda: fused_knn.launch_exact(
+                base, qp, norms[0], cp, norms[1], M_FULL, kk, C_TILE), reps=3)
         plain_ms = cuda_ms(lambda: plain(*args, **kw), reps=3)
         # the exact lists are judged on every row; compress lists are 4x as
         # long, so a sample of rows
@@ -603,15 +696,49 @@ def main() -> int:
                       self_all, False, kk, span_of(name, C_TILE, C),
                       compress=compress, sample=sample if compress else None)
         max_err[name] = max(max_err[name], err)
+        if not compress:  # each row's final k: K1's lists merged as K1's path does
+            final = [(fused_knn._select(*t, K) if base == "fused_knn_tiles" else t)
+                     for t in (got, want)]
+            exact_error(
+                name, qp[:M_FULL], cp, *((d[:M_FULL], i[:M_FULL]) for d, i in final))
         out_slots = (n_c if name.startswith("fused_knn_tiles") else 1) * M_FULL * kk
         nbytes = 4.0 * (2 * M_FULL * D) + 8.0 * out_slots
         timing[name] = {"ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
-                        **bound(needed_ops, nbytes,
-                                PEAK_BF16_FLOPS if compress else PEAK_FP32_FLOPS)}
+                        **(bound(needed_ops, nbytes, PEAK_BF16_FLOPS) if compress
+                           else exact_bound(needed_ops, nbytes))}
         timing[name]["tflops"] = needed_ops / (ms * 1e-3) / 1e12
         emit({"phase": "kernel_time", "kernel": name, "Q": Q, "C": C, "D": D,
               "k": kk, **timing[name]})
         del got, want
+
+    # the exact tile without promotion (a -DKNN_TF32_PROMOTE=0 build of the
+    # kernel and its prologue), on the same inputs: error and time of K2
+    variant = fused_knn.configure(_build.load("fused_knn", ("KNN_TF32_PROMOTE=0",)))
+    stream = torch.cuda.current_stream().cuda_stream
+    var_norms = [torch.empty(x.shape[0], dtype=torch.float32, device=device)
+                 for x in (qp, cp)]
+    for x, n in zip((qp, cp), var_norms):
+        if variant.stage_tf32_f32_launch(x.data_ptr(), n.data_ptr(), x.shape[0],
+                                         D, stream):
+            raise AssertionError("unpromoted stage_tf32 launch failed")
+    var_d = torch.empty((Q, K), dtype=torch.float32, device=device)
+    var_i = torch.empty((Q, K), dtype=torch.int32, device=device)
+
+    def unpromoted_k2():
+        if variant.fused_knn_sweep_launch(
+                qp.data_ptr(), var_norms[0].data_ptr(), cp.data_ptr(),
+                var_norms[1].data_ptr(), var_d.data_ptr(), var_i.data_ptr(), Q, C,
+                D, M_FULL, K, 1, 1, 1, 0.0, stream):
+            raise AssertionError("unpromoted K2 launch failed")
+
+    unpromoted_k2()
+    e = rel_errors(qp[:M_FULL], cp, var_i[:M_FULL], var_d[:M_FULL])
+    emit({"phase": "exact_error_unpromoted", "kernel": "fused_knn_sweep",
+          "build": "-DKNN_TF32_PROMOTE=0", "ms": cuda_ms(unpromoted_k2, reps=3),
+          "kernel_err": {"max": float(e.max()),
+                         "p99_99": float(torch.quantile(e, 0.9999)),
+                         "pairs": int(e.numel())}})
+    del variant, var_norms, var_d, var_i
 
     # the product alone: torch.matmul on the same staged bf16 copies, in
     # query chunks; timed here only, never called by the port
@@ -622,12 +749,17 @@ def main() -> int:
         for r0 in range(0, Q, chunk):
             torch.matmul(qb[r0:r0 + chunk], cb.T)
 
-    product()
-    product_ms = cuda_ms(product, reps=3)
-    emit({"phase": "product_alone", "call": "torch.matmul(bf16, bf16.T)",
-          "Q": Q, "C": C, "Dp": qb.shape[1], "query_chunk": chunk,
-          "ms": product_ms,
-          "tflops_needed": needed_ops / (product_ms * 1e-3) / 1e12})
+    def product_f32():  # the exact operands, f32 with TF32 off: cuBLAS SGEMM
+        for r0 in range(0, Q, chunk):
+            torch.matmul(qp[r0:r0 + chunk], cp.T)
+
+    for call, fn, width in (("torch.matmul(bf16, bf16.T)", product, qb.shape[1]),
+                            ("torch.matmul(f32, f32.T), TF32 off", product_f32, D)):
+        fn()
+        product_ms = cuda_ms(fn, reps=3)
+        emit({"phase": "product_alone", "call": call, "Q": Q, "C": C,
+              "width": width, "query_chunk": chunk, "ms": product_ms,
+              "tflops_needed": needed_ops / (product_ms * 1e-3) / 1e12})
 
     # the staging prologue alone, against its plain version (the copy bit
     # for bit, the norms within rtol 1e-5: the sum orders differ)
@@ -646,6 +778,38 @@ def main() -> int:
         nbytes = in_bytes_per_elem * n * d + extra_in + 2.0 * n * width + 4.0 * n
         return bound(2.0 * n * d, nbytes, PEAK_FP32_FLOPS)
 
+    def check_norms(label, got, want):
+        """The exact prologue's norms against the plain f32 norms (rtol
+        1e-5: the sum orders differ)."""
+        err = (got.double() - want.double()).abs()
+        if not bool((err <= 1e-5 * want.double().abs() + 1e-30).all()):
+            raise AssertionError(f"{label}: norms outside rtol 1e-5")
+        emit({"phase": "kernel_vs_plain", "case": label, "exact": False,
+              "max_abs_err": float(err.max()), "ok": True})
+        return float(err.max())
+
+    def norms_bound(n, d, in_bytes_per_elem, extra_in=0.0):
+        return exact_bound(2.0 * n * d, in_bytes_per_elem * n * d + extra_in + 4.0 * n)
+
+    max_err["stage_tf32"] = check_norms(
+        "stage_tf32/mnist60k_corpus", norms[1],
+        fused_knn.stage_tf32_rows_reference(cp))
+    # the norms are the exact tile's own diagonal, bit for bit
+    head = cp[:4096]
+    if not torch.equal(torch.diagonal(fused_knn.exact_tile_dots(head, head)),
+                       norms[1][:4096]):
+        raise AssertionError("stage_tf32: norms differ from the tile's diagonal")
+    emit({"phase": "kernel_vs_plain", "case": "stage_tf32/tile_diagonal",
+          "rows": 4096, "bitwise_equal": True, "ok": True})
+    timing["stage_tf32"] = {
+        "ms": cuda_ms(lambda: fused_knn.stage_tf32_rows(cp), reps=3),
+        "plain_ms": cuda_ms(lambda: fused_knn.stage_tf32_rows_reference(cp), reps=3),
+        # one PyTorch call for the same squared norms
+        "library_ms": cuda_ms(lambda: torch.einsum("ij,ij->i", cp, cp), reps=3),
+        **norms_bound(C, D, 4.0)}
+    emit({"phase": "kernel_time", "kernel": "stage_tf32", "rows": C, "D": D,
+          **timing["stage_tf32"]})
+
     width = fused_knn.staged_width(D)
     max_err["stage_bf16"] = check_stage(
         "stage_bf16/mnist60k_corpus", fused_knn.stage_bf16_rows(cp),
@@ -657,7 +821,7 @@ def main() -> int:
         **stage_bound(C, D, width, 4.0)}
     emit({"phase": "kernel_time", "kernel": "stage_bf16", "rows": C, "D": D,
           "width": width, **timing["stage_bf16"]})
-    del qp, cp, staged, qb, cb
+    del qp, cp, staged, qb, cb, norms
 
     # ---- the ring block merge against its plain versions -----------------
     merge_modes = {
@@ -727,6 +891,24 @@ def main() -> int:
         max_err["stage_bf16[wire]"] = max(max_err.get("stage_bf16[wire]", 0.0), err)
         staged_q = fused_ring.stage_wire_rows(qs, None)
         staged_b = fused_ring.stage_wire_rows(blk, scale)
+        # K3a's exact prologue on this wire against its plain version
+        q_norms = fused_ring.stage_wire_norms(qs, None)
+        b_norms = fused_ring.stage_wire_norms(blk, scale)
+        err = check_norms(f"stage_tf32[wire]/{shape}", b_norms,
+                          fused_ring.stage_wire_norms_reference(blk, scale))
+        max_err["stage_tf32[wire]"] = max(max_err.get("stage_tf32[wire]", 0.0), err)
+        if shape == "p1_mnist60k":
+            timing["stage_tf32[wire]"] = {
+                "ms": cuda_ms(lambda: fused_ring.stage_wire_norms(blk, scale), reps=3),
+                "plain_ms": cuda_ms(lambda: fused_ring.stage_wire_norms_reference(
+                    blk, scale), reps=3),
+                "library_ms": cuda_ms(lambda: torch.einsum("ij,ij->i", blk, blk),
+                                      reps=3),
+                **norms_bound(b, D, blk.element_size(),
+                              0.0 if scale is None else 4.0 * b)}
+            emit({"phase": "kernel_time", "kernel": "stage_tf32[wire]",
+                  "shape": shape, "rows": b, "D": D, "wire": wire or "float32",
+                  **timing["stage_tf32[wire]"]})
         if shape == "p1_mnist60k":
             timing["stage_bf16[wire]"] = {
                 "ms": cuda_ms(lambda: fused_ring.stage_wire_rows(blk, scale), reps=3),
@@ -741,7 +923,8 @@ def main() -> int:
             if name.endswith("[exact]"):
                 call = lambda: kern(*ops, *carry, c_tile=c_tile)  # noqa: E731
                 pcall = lambda: plain(*ops, *carry, c_tile=c_tile)  # noqa: E731
-                alone = call
+                alone = lambda: kern(*ops, *carry, c_tile=c_tile,  # noqa: E731
+                                     query_norms=q_norms, block_norms=b_norms)
             else:
                 call = lambda: kern(*ops, ov=OV, c_tile=c_tile)  # noqa: E731
                 pcall = lambda: plain(*ops, ov=OV, c_tile=c_tile)  # noqa: E731
@@ -756,6 +939,14 @@ def main() -> int:
                               qids, False, K, None,
                               sample=sub if ql >= SAMPLE_ROWS else None)
                 out_bytes = 8.0 * ql * K + 8.0 * ql * K  # carry in and out
+                plan = fused_ring.exact_plan(blk.dtype, ql, K)
+                plan["waves"] = plan["ctas"] / (plan["ctas_per_sm"] * sms)
+                emit({"phase": "launch_plan", "kernel": name, "shape": shape,
+                      "sms": sms, **plan})
+                if shape == "p1_mnist60k":
+                    real = qids >= 0
+                    exact_error(name, qs[real], c_true,
+                                *((d[real], i[real]) for d, i in (got, want)))
             else:
                 err = compare_positions(f"{name}/{shape}", got, want, qs,
                                         rows_f32, bids, qids, c_tile, False,
@@ -765,15 +956,15 @@ def main() -> int:
             in_bytes = 4.0 * real_q * D + blk.element_size() * real_b * D
             ops_needed = 2.0 * real_q * real_b * D
             entry = {"ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
-                     **bound(ops_needed, in_bytes + out_bytes,
-                             PEAK_FP32_FLOPS if name.endswith("[exact]")
-                             else PEAK_BF16_FLOPS)}
+                     **(exact_bound(ops_needed, in_bytes + out_bytes)
+                        if name.endswith("[exact]") else
+                        bound(ops_needed, in_bytes + out_bytes, PEAK_BF16_FLOPS))}
             ring_timing[(name, shape)] = entry
             emit({"phase": "kernel_time", "kernel": name, "shape": shape,
                   "q_local": ql, "b": b, "D": D, "k": K, "ov": OV,
                   "wire": wire or "float32", **entry})
             del got, want
-        del staged_q, staged_b
+        del staged_q, staged_b, q_norms, b_norms
 
     # ---- the ring transport (K4, K5) against its plain versions ----------
     mesh = make_ring_mesh(4) if count >= 4 else make_ring_mesh(devices=[device] * 4)
@@ -849,7 +1040,7 @@ def main() -> int:
             ql = q_sh[r].shape[0]
             nbytes += 4.0 * real_q * D + 16.0 * ql * K
             for j in range(rounds):
-                blk, bids, scl = blocks[(r - j) % len(blocks)]
+                blk, bids, scl, _ = blocks[(r - j) % len(blocks)]
                 real_b = int((bids >= 0).sum())
                 ops += 2.0 * real_q * real_b * D
                 nbytes += (blk.element_size() * real_b * D + 4.0 * bids.numel()
@@ -860,7 +1051,10 @@ def main() -> int:
         P = len(devs)
         q_tile, c_tile, q_sh, qid_sh, travelers = ring.ring_shards(
             cfg_fused, Xc, Xc, row_ids, devs)
-        blocks0 = travelers[0]
+        # the travelers with their norms, staged once as the ring driver does
+        blocks0 = [(b, i, s, fused_ring.stage_wire_norms(b, s))
+                   for b, i, s in travelers[0]]
+        q_norms = [fused_ring.stage_wire_norms(q, None) for q in q_sh]
         init = [init_topk(q.shape[0], K, device=q.device) for q in q_sh]
         blocks, carries = blocks0, init
         tr = fused_rotation.ring_transport(devs)
@@ -872,7 +1066,8 @@ def main() -> int:
 
         def k4():
             return fused_rotation.fused_round_dma(tr, q_sh, qid_sh, blocks,
-                                                  carries, land, c_tile=c_tile)
+                                                  carries, land, c_tile=c_tile,
+                                                  query_norms=q_norms)
 
         def k4_plain():
             return fused_rotation.fused_round_dma_reference(
@@ -880,10 +1075,11 @@ def main() -> int:
 
         one_card = tr.local[tr.cards[0]]  # the ranks of one launch
 
-        def k3a_and_copy():  # per K4 launch: K3a and the block's copy_
+        def k3a_and_copy():  # per K4 launch: K3a and the traveler's copy_
             for r in one_card:
-                fused_ring.block_merge_exact(q_sh[r], qid_sh[r], *blocks[r],
-                                             *carries[r], c_tile=c_tile)
+                fused_ring.block_merge_exact(
+                    q_sh[r], qid_sh[r], *blocks[r][:3], *carries[r], c_tile=c_tile,
+                    query_norms=q_norms[r], block_norms=blocks[r][3])
                 for dst, src in zip(land[(r + 1) % P], blocks[r]):
                     if src is not None:
                         dst.copy_(src)
@@ -906,7 +1102,7 @@ def main() -> int:
             nbytes += sum(t.numel() * t.element_size()
                           for t in blocks[r] if t is not None)
         entry = {"ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
-                 "library_ms": lib_ms, **bound(ops, nbytes, PEAK_FP32_FLOPS)}
+                 "library_ms": lib_ms, **exact_bound(ops, nbytes)}
         transport_timing[("fused_round_dma", shape)] = entry
         emit({"phase": "kernel_time", "kernel": "fused_round_dma",
               "shape": shape, "ranks": P, "ranks_per_launch": len(one_card),
@@ -922,7 +1118,8 @@ def main() -> int:
 
         def k5():
             return fused_rotation.fused_rotation_grid(
-                tr, q_sh, qid_sh, blocks0, init, slots, c_tile=c_tile)
+                tr, q_sh, qid_sh, blocks0, init, slots, c_tile=c_tile,
+                query_norms=q_norms)
 
         def k5_plain():
             return fused_rotation.fused_rotation_grid_reference(
@@ -930,7 +1127,8 @@ def main() -> int:
 
         def driver_rotation():  # the same rotation: Tensor.to and K3a
             run = ring.RingRun(cfg_fused, devs, True, "driver", q_sh, qid_sh,
-                               [list(blocks0)], list(init), q_tile, c_tile)
+                               [[b[:3] for b in blocks0]], list(init), q_tile,
+                               c_tile)
             for rnd in range(P):
                 run.round(merge_bwd=False, rotate=rnd < P - 1)
             return run.carries
@@ -948,7 +1146,9 @@ def main() -> int:
         max_err["fused_rotation_grid"] = max(max_err["fused_rotation_grid"], err)
         ops, nbytes = real_ops_bytes(q_sh, qid_sh, blocks0, one_card, P)
         entry = {"ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
-                 "library_ms": lib_ms, **bound(ops, nbytes, PEAK_FP32_FLOPS)}
+                 "library_ms": lib_ms, **exact_bound(ops, nbytes),
+                 "plan": fused_rotation.ring_kernel_plan(
+                     "grid", blocks0[0][0].dtype, len(one_card), q_sh[0].shape[0], K)}
         transport_timing[("fused_rotation_grid", "p4_rotation")] = entry
         emit({"phase": "kernel_time", "kernel": "fused_rotation_grid",
               "shape": "p4_rotation", "ranks": P,
@@ -956,32 +1156,72 @@ def main() -> int:
               "b": blocks0[0][0].shape[0], "D": D, "k": K,
               "library": "the driver-transport rotation with K3a", **entry})
         del got, want, slots, want_slots
-    del q_sh, qid_sh, travelers, blocks0, blocks, carries, init
+    del q_sh, qid_sh, travelers, blocks0, blocks, carries, init, q_norms
 
-    # ---- planted duplicates through the mixed paths' rerank on the card ---
-    # An exact duplicate pair and a near-twin one pixel off by 8: the
-    # compress keys of the two collapse; only the exact rerank drops the
-    # duplicate by the zero rule and keeps the twin first at d^2 = 64.
+    # ---- planted duplicates through the mixed and exact paths on the card --
+    # An exact duplicate pair and a near-twin one pixel off by 8. On the
+    # mixed paths the compress keys of the two collapse and only the exact
+    # rerank drops the duplicate by the zero rule; on the exact paths the
+    # TF32x3 tile must give the pair exactly 0 (norms from the same product
+    # sequence) and keep the twin first at d^2 = 64.
     Xdup, _ = make_mnist_like(8192, seed=3)
     Xdup[7] = Xdup[3]
     Xdup[42] = Xdup[11]
     Xdup[42, 0] += 8.0
-    for label, kw in (
+    dup_row_ids = np.arange(8192, dtype=np.int32)
+    # the exact paths' f32 keys of the twin may differ from 64 by their
+    # product error, up to 2x the gate floor of the pair's q^2 + c^2 (the
+    # mixed paths rerank in f64: within 0.01)
+    dup_c = Xdup - Xdup.astype(np.float64).mean(0)
+    twin_tol = {"mixed": 0.01,
+                "exact": 2 * ERROR_GATE * float((dup_c[[11, 42]] ** 2).sum())}
+
+    def dup_ok(ids, dists, policy):
+        return (7 not in ids[3] and 3 not in ids[7] and ids[11][0] == 42
+                and ids[42][0] == 11
+                and abs(float(dists[11][0]) - 64.0) <= twin_tol[policy])
+
+    def resumed_dup():
+        cfg = KNNConfig(k=K, backend="ring-overlap", ring_fusion="fused")
+        with tempfile.TemporaryDirectory() as ckpt:
+            all_knn_ring_resumable(Xdup, Xdup, dup_row_ids, cfg, mesh=mesh4,
+                                   device=device, checkpoint_dir=ckpt,
+                                   stop_after_rounds=2)
+            return all_knn_ring_resumable(Xdup, Xdup, dup_row_ids, cfg, mesh=mesh4,
+                                          device=device, checkpoint_dir=ckpt)
+
+    mesh4 = [device] * 4
+    for policy in ("mixed", "exact"):
+        paths = [
             ("pallas/tiles", dict(backend="pallas", pallas_variant="tiles")),
             ("pallas/sweep", dict(backend="pallas", pallas_variant="sweep")),
             ("ring/P1", dict(backend="ring-overlap", ring_fusion="fused",
                              num_devices=1)),
             ("ring/P4/bidir", dict(backend="ring-overlap", ring_fusion="fused",
-                                   mesh=[device] * 4, ring_schedule="bidir")),
-            ("serial", dict(backend="serial"))):
-        res = all_knn(Xdup, k=K, precision_policy="mixed", device=device, **kw)
-        ids, dists = res.ids.cpu().numpy(), res.dists.cpu().numpy()
-        ok = (7 not in ids[3] and 3 not in ids[7] and ids[11][0] == 42
-              and ids[42][0] == 11 and abs(float(dists[11][0]) - 64.0) < 0.01)
-        emit({"phase": "mixed_duplicates", "path": label,
-              "twin_d2": float(dists[11][0]), "ok": ok})
-        if not ok:
-            raise AssertionError(f"{label}: planted duplicates not handled")
+                                   mesh=mesh4, ring_schedule="bidir"))]
+        if policy == "mixed":
+            paths.append(("serial", dict(backend="serial")))
+        else:
+            paths += [("ring/P4/fused-dma", dict(backend="ring-overlap",
+                                                 ring_fusion="fused", mesh=mesh4)),
+                      ("ring/P4/fused-grid", dict(backend="ring-overlap",
+                                                  ring_fusion="fused", mesh=mesh4,
+                                                  ring_fused_rotation="grid")),
+                      ("ring/P4/resume", None)]
+        for label, kw in paths:
+            if kw is None:
+                d, i = resumed_dup()
+            else:
+                res = all_knn(Xdup, k=K, precision_policy=policy, device=device,
+                              **kw)
+                d, i = res.dists, res.ids
+            ids, dists = i.cpu().numpy(), d.cpu().numpy()
+            ok = dup_ok(ids, dists, policy)
+            emit({"phase": f"{policy}_duplicates", "path": label,
+                  "twin_d2": float(dists[11][0]), "twin_tol": twin_tol[policy],
+                  "ok": ok})
+            if not ok:
+                raise AssertionError(f"{policy} {label}: planted duplicates not handled")
 
     # ---- the PyTorch yardsticks (library_ms), on the same card inputs -----
     library = {}
@@ -1102,14 +1342,15 @@ def main() -> int:
                            ("sweep", "fused_knn_sweep")):
         for policy, suffix in (("exact", ""), ("mixed", "[compress]")):
             label = f"pallas/{variant}/{policy}"
-            # the compress kernels stage queries and corpus: 2 prologues
-            expect = {kname + suffix: 1, **({"stage_bf16": 2} if suffix else {})}
+            # each kernel stages queries and corpus: 2 prologue launches
+            stage = "stage_bf16" if suffix else "stage_tf32"
+            expect = {kname + suffix: 1, stage: 2}
             line, ids_of[label] = drive_clf(
                 label, expect, backend="pallas", pallas_variant=variant,
                 precision_policy=policy)
             launches[kname + suffix] = line["launches"][kname + suffix]
-            if label == "pallas/tiles/mixed":
-                launches["stage_bf16"] = line["launches"]["stage_bf16"]
+            if variant == "tiles":
+                launches[stage] = line["launches"][stage]
     drive_clf("serial/exact", {}, backend="serial")
 
     # the exact fused ring on cards moves its blocks with K4 (one launch per
@@ -1120,14 +1361,16 @@ def main() -> int:
                ("mixed", "int8", "fused_block_merge[compress]")]
     for policy, wire, kname in ring_p1:
         label = f"ring-overlap/fused/P1/{policy}/{wire or 'float32'}"
-        # K3b stages the queries and the block: 2 prologues
-        expect = {kname: 1, **({"stage_bf16[wire]": 2} if policy == "mixed" else {})}
+        # the queries and the block are staged once: 2 prologue launches
+        stage = "stage_bf16[wire]" if policy == "mixed" else "stage_tf32[wire]"
+        expect = {kname: 1, stage: 2}
         line, ids_of[label] = drive_clf(
             label, expect, backend="ring-overlap", ring_fusion="fused",
             num_devices=1, precision_policy=policy, ring_transfer_dtype=wire)
-        if (policy, wire) == ("mixed", None):
-            launches[kname] = line["launches"][kname]
-            launches["stage_bf16[wire]"] = line["launches"]["stage_bf16[wire]"]
+        if wire is None:
+            launches[stage] = line["launches"][stage]
+            if policy == "mixed":
+                launches[kname] = line["launches"][kname]
 
     def drive_mesh(label, cfg, expect):
         def run():
@@ -1138,9 +1381,12 @@ def main() -> int:
             label, run, lambda: all_knn(X, config=cfg, mesh=mesh, device=device),
             lambda: all_knn(Xd, config=cfg, mesh=mesh, device=device), expect)
 
+    # the exact fused rings stage each rank's queries and block once: 8
+    # prologue launches
+    norms8 = {"stage_tf32[wire]": 8}
     for schedule, fusion, expect in (
-            ("uni", "fused", {"fused_round_dma": 4 * cards}),
-            ("bidir", "fused", {"fused_block_merge[exact]": 16}),
+            ("uni", "fused", {"fused_round_dma": 4 * cards, **norms8}),
+            ("bidir", "fused", {"fused_block_merge[exact]": 16, **norms8}),
             ("uni", "xla", {})):
         cfg = KNNConfig(k=K, backend="ring-overlap", ring_schedule=schedule,
                         ring_fusion=fusion)
@@ -1156,8 +1402,9 @@ def main() -> int:
         k=K, backend="ring-overlap", ring_fusion="fused"), mesh=mesh,
         device=device, form="driver")
     for rotation, kname, expect in (
-            ("round", "fused_round_dma", {"fused_round_dma": 4 * cards}),
-            ("grid", "fused_rotation_grid", {"fused_rotation_grid": cards})):
+            ("round", "fused_round_dma", {"fused_round_dma": 4 * cards, **norms8}),
+            ("grid", "fused_rotation_grid", {"fused_rotation_grid": cards,
+                                             **norms8})):
         cfg = KNNConfig(k=K, backend="ring-overlap", ring_fusion="fused",
                         ring_fused_rotation=rotation)
         label = ("ring-overlap/fused-"
@@ -1192,8 +1439,9 @@ def main() -> int:
         second = {k: v for k, v in read_counts().items() if v}
     same = (torch.equal(i, results[dma_label].ids)
             and torch.equal(d, results[dma_label].dists))
-    expect_first = {"fused_round_dma": 2 * cards}
-    expect_second = {"fused_round_dma": cards, "fused_block_merge[exact]": 4}
+    expect_first = {"fused_round_dma": 2 * cards, **norms8}
+    expect_second = {"fused_round_dma": cards, "fused_block_merge[exact]": 4,
+                     **norms8}
     emit({"phase": "resume", "path": "all_knn_ring_resumable/P4/exact/uni",
           "stopped_after_rounds": 2, "launches_first": first,
           "launches_resumed": second, "resumed_s": resume_s,
@@ -1232,8 +1480,10 @@ def main() -> int:
         "fused_block_merge[compress]": "mpi_knn_tpu/ops/pallas_ring.py:363",
         "fused_round_dma": "mpi_knn_tpu/ops/pallas_ring.py:553",
         "fused_rotation_grid": "mpi_knn_tpu/ops/pallas_ring.py:806",
-        # the staging prologues: the bf16 casts and norms of the compress
-        # tiles, hoisted out of the tile
+        # the prologues: the norms of the exact tiles, and the bf16 casts
+        # and norms of the compress tiles, hoisted out of the tile
+        "stage_tf32": "mpi_knn_tpu/ops/pallas_knn.py:249",
+        "stage_tf32[wire]": "mpi_knn_tpu/ops/pallas_ring.py:337",
         "stage_bf16": "mpi_knn_tpu/ops/pallas_knn.py:249",
         "stage_bf16[wire]": "mpi_knn_tpu/ops/pallas_ring.py:363",
     }
@@ -1248,6 +1498,8 @@ def main() -> int:
             transport_timing[("fused_round_dma", "p4_round")]["library_ms"],
         "fused_rotation_grid":
             transport_timing[("fused_rotation_grid", "p4_rotation")]["library_ms"],
+        "stage_tf32": timing["stage_tf32"]["library_ms"],  # torch.einsum
+        "stage_tf32[wire]": timing["stage_tf32[wire]"]["library_ms"],
         "stage_bf16": None,  # no one PyTorch call writes the copy and the norms
         "stage_bf16[wire]": None,
     }

@@ -30,8 +30,11 @@ JAX package chooses between its ppermutes and the kernel's own copies:
 The per-round merge of the driver form is the serial backend's tile loop
 (``ring_fusion="xla"``, through ``knn_chunk_update``) or the fused block
 merge of ``ops/fused_ring.py`` (``"fused"``: K3a, K3b), on an f32, bf16 or
-int8 wire. Padding and tiling come from ``ring_tiles``, so the layouts are
-the JAX package's. ``RingRun`` holds one call's ranks and runs its rounds;
+int8 wire. Where the merge is K3a's exact tile (K3a, K4, K5), ``RingRun``
+stages the squared norms of each rank's queries and block once per call
+(``fused_ring.stage_wire_norms``), and each block's norms travel with it
+as a fourth part of its traveler. Padding and tiling come from
+``ring_tiles``, so the layouts are the JAX package's. ``RingRun`` holds one call's ranks and runs its rounds;
 the resumable ring (``backends/ring_resumable.py``) drives the same rounds
 one at a time. A dp×ring mesh and a multi-process ``torch.distributed``
 form are not ported yet.
@@ -49,13 +52,18 @@ from mpi_knn_tpu_torch.backends.serial import (
 )
 from mpi_knn_tpu_torch.config import KNNConfig
 from mpi_knn_tpu_torch.device import DEFAULT_DEVICE
-from mpi_knn_tpu_torch.ops.fused_ring import fused_block_merge
+from mpi_knn_tpu_torch.ops.fused_ring import (
+    fused_block_merge,
+    merges_exactly,
+    stage_wire_norms,
+)
 from mpi_knn_tpu_torch.ops.fused_rotation import (
     fused_rotation_grid,
     fused_round_dma,
     landing_slots,
     ring_transport,
     slot,
+    traveler,
 )
 from mpi_knn_tpu_torch.ops.quant import (
     dequantize_rows,
@@ -183,12 +191,14 @@ class _Transport:
         self.landed = []
 
 
-def _merge(queries, qids, traveler, carry, cfg: KNNConfig, q_tile, c_tile):
-    """One rank's merge of one resident block into its carry."""
-    blk, blk_ids, scl = traveler
+def _merge(queries, qids, held, carry, cfg: KNNConfig, q_tile, c_tile,
+           q_norms=None):
+    """One rank's merge of one resident block (a traveler) into its carry."""
+    blk, blk_ids, scl, b_norms = traveler(held)
     if cfg.ring_fusion == "fused":
         return fused_block_merge(queries, qids, blk, blk_ids, scl, *carry,
-                                 cfg=cfg, q_tile=q_tile, c_tile=c_tile)
+                                 cfg=cfg, q_tile=q_tile, c_tile=c_tile,
+                                 query_norms=q_norms, block_norms=b_norms)
     if scl is not None:
         blk = dequantize_rows(blk, scl)
     blk = blk.to(queries.dtype)
@@ -245,34 +255,49 @@ def ring_form(cfg: KNNConfig, devices) -> str:
 class RingRun:
     """One call's ring: each rank's query shard, carry and traveler(s),
     and the transport of ``form``. ``round`` runs one round of the
-    schedule; ``rotation_grid`` the whole uni rotation (the grid form)."""
+    schedule; ``rotation_grid`` the whole uni rotation (the grid form).
+    Travelers are (block, ids, scale, norms): the norms are staged here,
+    once per call, where the merge runs the exact tile, else None."""
 
     def __init__(self, cfg: KNNConfig, devices, overlap: bool, form: str,
                  q_sh, qid_sh, travelers, carries, q_tile: int, c_tile: int):
         self.cfg, self.devices, self.overlap, self.form = (
             cfg, devices, overlap, form)
         self.q_sh, self.qid_sh = q_sh, qid_sh
-        self.travelers = travelers  # per direction: per rank (blk, ids, scale)
         self.carries = carries
         self.q_tile, self.c_tile = q_tile, c_tile
         self.shifts = (1, -1) if len(travelers) == 2 else (1,)
+        exact = cfg.ring_fusion == "fused" and merges_exactly(cfg, c_tile)
+        self.q_norms = ([stage_wire_norms(q, None) for q in q_sh] if exact
+                        else [None] * len(q_sh))
+
+        def with_norms(ts):
+            return [(b, i, s, stage_wire_norms(b, s) if exact else None)
+                    for b, i, s in ts]
+
+        # per direction: per rank (blk, ids, scale, norms); a backward
+        # traveler that starts as the forward one shares its norms
+        self.travelers = [with_norms(travelers[0])]
+        if len(travelers) == 2:
+            self.travelers.append(self.travelers[0] if travelers[1] is travelers[0]
+                                  else with_norms(travelers[1]))
         if form == "driver":
             self.transport = _Transport(devices, overlap)
         else:
             self.transport = ring_transport(devices)
-            self.slots = [landing_slots(*t) for t in travelers[0]]
+            self.slots = [landing_slots(*t) for t in self.travelers[0]]
             self.parity = 0
 
     def _merge_all(self, held):
         for r in range(len(self.devices)):
             self.carries[r] = _merge(self.q_sh[r], self.qid_sh[r], held[r],
                                      self.carries[r], self.cfg, self.q_tile,
-                                     self.c_tile)
+                                     self.c_tile, self.q_norms[r])
 
     def _kernel_kw(self):
         return dict(c_tile=self.c_tile, exclude_self=self.cfg.exclude_self,
                     exclude_zero=self.cfg.exclude_zero,
-                    zero_eps=self.cfg.zero_eps)
+                    zero_eps=self.cfg.zero_eps, query_norms=self.q_norms)
 
     def round(self, merge_bwd: bool, rotate: bool):
         """Merge the resident block(s), and move them on when ``rotate``."""

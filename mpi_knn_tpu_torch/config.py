@@ -45,7 +45,8 @@ class KNNConfig:
 
     Ported: k, metric, backend (all five), query_tile, corpus_tile, dtype
     in {float32, float64, bfloat16}, matmul_precision in {None, "highest"}
-    (both mean full f32, never TF32), precision_policy, center,
+    (both mean f32-accurate products: torch.matmul in full f32, and on the
+    card the kernels' three-pass TF32 tile), precision_policy, center,
     exclude_self, exclude_zero, zero_eps, topk_method in {exact, block},
     topk_block, merge_schedule, tie_break, num_classes, mesh_axis,
     num_devices, ring_transfer_dtype, ring_schedule, ring_fusion,

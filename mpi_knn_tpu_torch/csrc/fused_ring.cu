@@ -3,23 +3,26 @@
 //
 // Replaces the two bodies of mpi_knn_tpu/ops/pallas_ring.py::
 // fused_block_merge:
-//   block_merge_exact_kernel     <- _exact_merge_body (K3a). One CTA per 64
-//       query rows sweeps the whole block (the TPU swept the block tiles on
-//       a sequential grid axis with the carry in VMEM scratch) and writes
-//       the merged (q_local, k) carry once.
+//   block_merge_exact_kernel     <- _exact_merge_body (K3a). One CTA per
+//       128 (or 64) query rows sweeps the whole block (the TPU swept the
+//       block tiles on a sequential grid axis with the carry in VMEM
+//       scratch) and writes the merged (q_local, k) carry once.
 //   block_merge_compress_kernel  <- _compress_body (K3b). One CTA per (128
 //       query rows, block tile) writes that tile's top-ov column positions
 //       by compressed key; the gather, exact rerank and carry merge run
 //       outside the kernel, as in the reference.
 //
 // Both take candidate ids as an operand: a ring block's ids are arbitrary
-// after rotation and -1 marks padding. The exact body reads the block at
-// its wire type (ring_merge.cuh's RingCols); it is ring_merge.cuh's
-// exact_merge_group, which K4 and K5 (fused_ring_dma.cu) run too. The
-// compress body reads bf16 copies that the staging prologue
-// (stage_bf16_wire_launch) made once: the queries' per call, the block's
-// per merge, the int8 wire dequantized (code * scale) before the rounding,
-// so the scale reaches the prologue and never the tile.
+// after rotation and -1 marks padding. The exact body is ring_merge.cuh's
+// exact_merge_group, which K4 and K5 (fused_ring_dma.cu) run too: knn_tile.
+// cuh's Tf32x3 tile on the f32 queries and the block at its wire type (the
+// f32 wire by cp.async, bf16 and int8 decoded in registers), with the norms
+// the prologue (stage_tf32_wire_launch) wrote once per call: the queries'
+// and, on the decoded rows, the block's, which travel with it. The compress
+// body reads bf16 copies that its own prologue (stage_bf16_wire_launch)
+// made once: the queries' per call, the block's per merge, the int8 wire
+// dequantized (code * scale) before the rounding, so the scale reaches the
+// prologue and never the tile.
 //
 // Order. The exact body ranks candidates by (distance, arrival): the carry's
 // slots first in their order, then the block's columns in order. That is
@@ -35,11 +38,12 @@
 // What bounds it. A merge of a (q_local x b) block does 2 q_local b D FLOP
 // (at the P=1 MNIST shape, 60000 x 60000 x 784: 5.64e12) and reads the
 // queries, block and carry once (~0.4 GB): operations bound it. The exact
-// body runs them on FFMA in full f32 (67 TFLOP/s FP32 peak: ~84 ms) with
-// knn_tile.cuh's `sweep`; the compress body on the bf16 tensor cores
-// (mma.sync, 989 TFLOP/s: ~5.7 ms) with `sweep_bf16`, where the per-tile
-// selection of ov = 40 of every 2048 columns weighs as much as the
-// product. wgmma forms are later work.
+// body runs them three times on the TF32 tensor cores (494.7 TFLOP/s:
+// ~34 ms); the compress body once on the bf16 tensor cores (989 TFLOP/s:
+// ~5.7 ms), where the per-tile selection of ov = 40 of every 2048 columns
+// weighs as much as the product. At a ring shard (15360 queries) 128-row
+// groups would fill under half of the card's resident CTA slots, so the
+// exact launch takes 64-row groups there (knn_tile.cuh's pick_rows).
 
 #include "ring_merge.cuh"
 
@@ -49,9 +53,11 @@ using namespace knn;
 
 struct Params {
   const float* q;        // (Q, D) queries
+  const float* qn;       // (Q,) their norms
   const int* qids;       // (Q,)
   const void* blk;       // (B, D) at the wire type
   const float* scale;    // (B,) int8 wire only
+  const float* bn;       // (B,) the decoded block's norms
   const int* bids;       // (B,) candidate ids, -1 = padding
   const float* carry_d;  // (Q, k)
   const int* carry_i;
@@ -76,16 +82,16 @@ struct CParams {
   int exclude_self;
 };
 
-template <int WIRE>
-__global__ void __launch_bounds__(THREADS)
+template <int WIRE, int ROWS>
+__global__ void __launch_bounds__(THREADS, 2)
 block_merge_exact_kernel(Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
-  exact_merge_group<WIRE, false>(
-      MergeArgs{p.q, p.qids, p.blk, p.scale, p.bids, p.carry_d, p.carry_i,
-                p.out_d, p.out_i},
+  exact_merge_group<WIRE, false, ROWS>(
+      MergeArgs{p.q, p.qn, p.qids, p.blk, p.scale, p.bn, p.bids, p.carry_d,
+                p.carry_i, p.out_d, p.out_i},
       MergeShape{p.Q, p.B, p.D, p.k, p.exclude_self, p.exclude_zero,
                  p.zero_eps},
-      blockIdx.x * QB, smem);
+      blockIdx.x * ROWS, smem);
 }
 
 // Capped at 128 registers a thread: two CTAs of 256 threads per SM.
@@ -98,14 +104,15 @@ block_merge_compress_kernel(CParams p) {
   const int c_begin = t * p.c_tile;
   // lists go straight to the (n_c, Q, ov) output (positions) and, for
   // ov > KMAX_SMEM, to the distance scratch of the same shape
-  MmaLists L{carve_mma(smem, ov), p.scratch_d, p.out_pos,
-             (size_t)t * p.Q + q0, ov};
+  MmaLists<> L{carve_mma(smem, ov), p.scratch_d, p.out_pos,
+               (size_t)t * p.Q + q0, ov};
   init_lists<MQB>(L, q0, p.Q, 0x7fffffff);
-  // the masks and keys only: the values come from the staged copies
+  // the norms, masks and keys only: the values come from the staged copies
   RingCols<WIRE_F32, true> cols{nullptr, nullptr, p.bids, p.qids, p.Dp,
-                                c_begin, p.exclude_self != 0, false, 0.f};
-  sweep_bf16(cols, p.qb, p.qn, p.Q, p.bb, p.bn, p.Dp, q0, c_begin,
-             c_begin + p.c_tile, L);
+                                c_begin, p.exclude_self != 0, false, 0.f, p.bn};
+  sweep_mma<Bf16x1, MQB>(cols, Bf16Operand{p.qb, p.Dp}, p.qn, p.Q,
+                         Bf16Operand{p.bb, p.Dp}, p.Dp / MKD, q0, c_begin,
+                         c_begin + p.c_tile, L);
 
   if (ov > KMAX_SMEM) return;  // the positions are already in place
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
@@ -116,12 +123,24 @@ block_merge_compress_kernel(CParams p) {
   }
 }
 
-template <class K>
-cudaError_t launch(K kernel, const Params& p, dim3 grid, cudaStream_t stream) {
-  cudaError_t err = set_smem((const void*)kernel, p.k);
-  if (err != cudaSuccess) return err;
-  kernel<<<grid, THREADS, smem_bytes(p.k), stream>>>(p);
-  return cudaGetLastError();
+template <int WIRE>
+const void* exact_kernel(int rows) {
+  return rows == MQB ? (const void*)block_merge_exact_kernel<WIRE, MQB>
+                     : (const void*)block_merge_exact_kernel<WIRE, NQB>;
+}
+
+const void* exact_kernel_of(int wire, int rows) {
+  switch (wire) {
+    case WIRE_F32: return exact_kernel<WIRE_F32>(rows);
+    case WIRE_BF16: return exact_kernel<WIRE_BF16>(rows);
+    case WIRE_INT8: return exact_kernel<WIRE_INT8>(rows);
+  }
+  return nullptr;
+}
+
+// The query rows per CTA of K3a at this shape (knn_tile.cuh's pick_rows).
+cudaError_t exact_rows(int wire, int Q, int k, int* rows) {
+  return pick_rows(exact_kernel_of(wire, MQB), k, (Q + MQB - 1) / MQB, rows);
 }
 
 bool bad_shape(const Params& p) {
@@ -133,29 +152,49 @@ bool bad_shape(const Params& p) {
 
 extern "C" {
 
-// The exact merge: carry (Q, k) in, merged carry (Q, k) out. wire: 0 f32,
-// 1 bf16 (uint16 bits), 2 int8 codes with a (B,) f32 scale.
-int block_merge_exact_launch(const float* q, const int* qids, const void* blk,
-                             const float* scale, const int* bids,
+// The exact merge: carry (Q, k) in, merged carry (Q, k) out; qn (Q,) and
+// bn (B,) are the prologue's norms of the queries and the decoded block.
+// wire: 0 f32, 1 bf16 (uint16 bits), 2 int8 codes with a (B,) f32 scale.
+int block_merge_exact_launch(const float* q, const float* qn, const int* qids,
+                             const void* blk, const float* scale,
+                             const float* bn, const int* bids,
                              const float* carry_d, const int* carry_i,
                              float* out_d, int* out_i, int Q, int B, int D,
                              int k, int c_tile, int wire, int exclude_self,
                              int exclude_zero, float zero_eps,
                              cudaStream_t stream) {
-  Params p{q, qids, blk, scale, bids, carry_d, carry_i, out_d, out_i,
+  Params p{q, qn, qids, blk, scale, bn, bids, carry_d, carry_i, out_d, out_i,
            Q, B, D, k, c_tile, exclude_self, exclude_zero, zero_eps};
-  if (bad_shape(p) || (wire == WIRE_INT8 && scale == nullptr))
+  if (bad_shape(p) || !qn || !bn || exact_kernel_of(wire, MQB) == nullptr ||
+      (wire == WIRE_INT8 && scale == nullptr))
     return (int)cudaErrorInvalidValue;
-  dim3 grid((Q + QB - 1) / QB);
-  switch (wire) {
-    case WIRE_F32:
-      return (int)launch(block_merge_exact_kernel<WIRE_F32>, p, grid, stream);
-    case WIRE_BF16:
-      return (int)launch(block_merge_exact_kernel<WIRE_BF16>, p, grid, stream);
-    case WIRE_INT8:
-      return (int)launch(block_merge_exact_kernel<WIRE_INT8>, p, grid, stream);
-  }
-  return (int)cudaErrorInvalidValue;
+  int rows = MQB;
+  cudaError_t err = exact_rows(wire, Q, k, &rows);
+  const void* kernel = exact_kernel_of(wire, rows);
+  if (err == cudaSuccess)
+    err = rows == MQB ? set_mma_smem<MQB>(kernel, k) : set_mma_smem<NQB>(kernel, k);
+  if (err != cudaSuccess) return (int)err;
+  const size_t smem = rows == MQB ? mma_smem_bytes<MQB>(k) : mma_smem_bytes<NQB>(k);
+  void* args[] = {&p};
+  err = cudaLaunchKernel(kernel, dim3((Q + rows - 1) / rows), dim3(THREADS), args,
+                         smem, stream);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// K3a's plan at this shape: query rows per CTA, CTAs, and the chosen
+// kernel's registers, spilled bytes a thread and CTAs per SM.
+int block_merge_exact_plan(int wire, int Q, int k, int* rows, int* ctas,
+                           int* regs, int* local_bytes, int* ctas_per_sm) {
+  if (exact_kernel_of(wire, MQB) == nullptr || Q <= 0 || k <= 0)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = exact_rows(wire, Q, k, rows);
+  if (err != cudaSuccess) return (int)err;
+  *ctas = (Q + *rows - 1) / *rows;
+  const void* kernel = exact_kernel_of(wire, *rows);
+  return (int)(*rows == MQB
+                   ? mma_kernel_info<MQB>(kernel, k, regs, local_bytes, ctas_per_sm)
+                   : mma_kernel_info<NQB>(kernel, k, regs, local_bytes, ctas_per_sm));
 }
 
 // The compress preselect on the prologue's copies: out_pos (B / c_tile, Q,
@@ -179,8 +218,8 @@ int block_merge_compress_launch(const bf16* qb, const float* qn,
   return (int)cudaGetLastError();
 }
 
-// The staging prologue on a wire: x (N, D) at the wire type (scale (N,) on
-// the int8 wire) -> out (N, Dp) bf16 of the decoded rows, norms (N,) f32.
+// The compress prologue on a wire: x (N, D) at the wire type (scale (N,)
+// on the int8 wire) -> out (N, Dp) bf16 of the decoded rows, norms (N,) f32.
 int stage_bf16_wire_launch(const void* x, const float* scale, int wire,
                            bf16* out, float* norms, int N, int D, int Dp,
                            cudaStream_t stream) {
@@ -195,6 +234,25 @@ int stage_bf16_wire_launch(const void* x, const float* scale, int wire,
       if (scale == nullptr) return (int)cudaErrorInvalidValue;
       return (int)stage_bf16(RingCols<WIRE_INT8, true>{x, scale, nullptr, nullptr, D},
                              N, D, Dp, out, norms, stream);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// The exact prologue on a wire: x (N, D) at the wire type -> norms (N,) f32
+// of the decoded rows, by the exact tile's product.
+int stage_tf32_wire_launch(const void* x, const float* scale, int wire,
+                           float* norms, int N, int D, cudaStream_t stream) {
+  switch (wire) {
+    case WIRE_F32:
+      return (int)stage_tf32(RingCols<WIRE_F32, false>{x, nullptr, nullptr, nullptr, D},
+                             N, D, norms, stream);
+    case WIRE_BF16:
+      return (int)stage_tf32(RingCols<WIRE_BF16, false>{x, nullptr, nullptr, nullptr, D},
+                             N, D, norms, stream);
+    case WIRE_INT8:
+      if (scale == nullptr) return (int)cudaErrorInvalidValue;
+      return (int)stage_tf32(RingCols<WIRE_INT8, false>{x, scale, nullptr, nullptr, D},
+                             N, D, norms, stream);
   }
   return (int)cudaErrorInvalidValue;
 }

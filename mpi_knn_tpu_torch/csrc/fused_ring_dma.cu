@@ -8,18 +8,21 @@
 //       holds. CTA 0 runs the neighbour barrier; COPY_CTAS CTAs per rank
 //       stream the resident block, its ids and (int8 wire) its scales into
 //       the successor's landing buffers; the rest are K3a's merge CTAs, one
-//       per 64 query rows, which never wait on anything.
+//       per group of 128 (or 64) query rows, which never wait on anything.
 //   rotation_grid_kernel  <- fused_rotation_grid (_grid_rotation_kernel,
 //       K5). The whole P-round uni rotation in one cooperative launch per
-//       card: persistent CTAs loop over (local rank, 64-row query group)
-//       merges and block-copy chunks each round, with a grid sync between
+//       card: persistent CTAs loop over (local rank, query group) merges
+//       and block-copy chunks each round, with a grid sync between
 //       rounds. Two slots per rank: round r reads slot r % 2 (round 0 the
 //       caller's block) and streams into the successor's slot (r + 1) % 2.
 //       The carry lives in a (2, Q, k) ping-pong buffer between rounds.
 //
-// The merge is ring_merge.cuh's exact_merge_group, K3a's body: the same
-// (distance, arrival) order, NaN rows and zero rule, so a K4 ring equals the
-// driver-transport K3a ring bit for bit, and a K5 ring equals the K4 ring.
+// The merge is ring_merge.cuh's exact_merge_group, K3a's body on knn_tile.
+// cuh's Tf32x3 tile: the same (distance, arrival) order, NaN rows and zero
+// rule, so a K4 ring equals the driver-transport K3a ring bit for bit, and a
+// K5 ring equals the K4 ring. A block's norms (written once per call by the
+// prologue) travel with it as its ids do: the copy CTAs and work items move
+// them too, so no round launches anything beside its kernel.
 //
 // Transport. One process drives every rank (single controller). Ranks that
 // share a card are ordered by that card's stream and need no barrier: their
@@ -59,10 +62,14 @@
 // and leaves; the wrapper reads the word once the launch's stream has
 // synchronized and raises.
 //
-// What bounds it. The merge's 2 Q B D FLOP on FFMA in full f32, as K3a
-// (at the P=4 shard, 15360 x 16384 x 784: 3.95e11 FLOP, 5.89 ms at the
-// 67 TFLOP/s FP32 peak). The block move is ~51 MB per hop in f32: ~0.03 ms of
-// HBM time on one card, ~0.12 ms at NVLink rates, hidden under the merge.
+// What bounds it. The merge's 2 Q B D FLOP, three times on the TF32 tensor
+// cores, as K3a (at the P=4 shard, 15360 x 16384 x 784: 3 x 3.95e11 FLOP,
+// 2.39 ms at the 494.7 TFLOP/s dense TF32 peak). The block move is ~51 MB
+// per hop in f32: ~0.03 ms of HBM time on one card, ~0.12 ms at NVLink
+// rates, hidden under the merge. K4's merge groups are 128 query rows, or
+// 64 where 128-row groups would leave the card's resident CTA slots empty
+// (a shard per card); K5's are 64 rows, and its grid holds 2 CTAs per SM
+// (launch bounds cap the registers at 128).
 
 #include <cooperative_groups.h>
 
@@ -109,6 +116,11 @@ struct Rank {
   int* slot_bids;        // K5: own (2, B) slots
   float* cbuf_d;         // K5: own (2, Q, k) carry ping-pong
   int* cbuf_i;
+  const float* qn;       // (Q,) the queries' norms
+  const float* bn;       // (B,) the resident block's norms (K5: round 0's)
+  float* dst_bn;         // K4: successor's landing norms (or null: not
+                         // moved); K5: its (2, B) slots
+  float* slot_bn;        // K5: own (2, B) slots
   int succ_remote;       // successor on another card
   int pred_remote;       // predecessor on another card
 };
@@ -206,8 +218,8 @@ __device__ bool neighbour_barrier(const Launch& p, int w_pred, int w_succ) {
 
 // ---------------------------------------------------------------- K4
 
-template <int WIRE>
-__global__ void __launch_bounds__(THREADS) round_dma_kernel(Launch p) {
+template <int WIRE, int ROWS>
+__global__ void __launch_bounds__(THREADS, 2) round_dma_kernel(Launch p) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int go_ok;
   const int n_copy = p.n_local * COPY_CTAS;
@@ -265,6 +277,9 @@ __global__ void __launch_bounds__(THREADS) round_dma_kernel(Launch p) {
     if (WIRE == WIRE_INT8)
       copy_part<false>(R.dst_scale, R.scale, (size_t)p.B * sizeof(float), part,
                        COPY_CTAS);
+    if (R.dst_bn != nullptr)
+      copy_part<false>(R.dst_bn, R.bn, (size_t)p.B * sizeof(float), part,
+                       COPY_CTAS);
     __threadfence_system();
     __syncthreads();
     if (threadIdx.x == 0) {
@@ -275,23 +290,23 @@ __global__ void __launch_bounds__(THREADS) round_dma_kernel(Launch p) {
   }
   b -= n_copy;
 
-  const int groups = (p.Q + QB - 1) / QB;
+  const int groups = (p.Q + ROWS - 1) / ROWS;
   const Rank& R = p.r[b / groups];
-  exact_merge_group<WIRE, false>(
-      MergeArgs{R.q, R.qids, R.blk, R.scale, R.bids, R.carry_d, R.carry_i,
-                R.out_d, R.out_i},
-      shape_of(p), (b % groups) * QB, smem);
+  exact_merge_group<WIRE, false, ROWS>(
+      MergeArgs{R.q, R.qn, R.qids, R.blk, R.scale, R.bn, R.bids, R.carry_d,
+                R.carry_i, R.out_d, R.out_i},
+      shape_of(p), (b % groups) * ROWS, smem);
 }
 
 // ---------------------------------------------------------------- K5
 
-template <int WIRE>
-__global__ void __launch_bounds__(THREADS) rotation_grid_kernel(Launch p) {
+template <int WIRE, int ROWS>
+__global__ void __launch_bounds__(THREADS, 2) rotation_grid_kernel(Launch p) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int stop;
   cg::grid_group grid = cg::this_grid();
   const int P = p.ring_size, G = p.epoch;
-  const int groups = (p.Q + QB - 1) / QB;
+  const int groups = (p.Q + ROWS - 1) / ROWS;
   const int n_merge = p.n_local * groups;
   const size_t blk_bytes = (size_t)p.B * p.D * wire_bytes<WIRE>();
   const size_t carry_elems = (size_t)p.Q * p.k;
@@ -329,16 +344,17 @@ __global__ void __launch_bounds__(THREADS) rotation_grid_kernel(Launch p) {
         const size_t cin = (size_t)((r + 1) % 2) * carry_elems;
         const size_t cout = (size_t)(r % 2) * carry_elems;
         MergeArgs m{
-            R.q, R.qids,
+            R.q, R.qn, R.qids,
             r == 0 ? R.blk
                    : static_cast<const unsigned char*>(R.slot_blk) + (r % 2) * blk_bytes,
             nullptr,
+            r == 0 ? R.bn : R.slot_bn + (size_t)(r % 2) * p.B,
             r == 0 ? R.bids : R.slot_bids + (size_t)(r % 2) * p.B,
             r == 0 ? R.carry_d : R.cbuf_d + cin,
             r == 0 ? R.carry_i : R.cbuf_i + cin,
             r == P - 1 ? R.out_d : R.cbuf_d + cout,
             r == P - 1 ? R.out_i : R.cbuf_i + cout};
-        exact_merge_group<WIRE, true>(m, shape_of(p), (it % groups) * QB, smem);
+        exact_merge_group<WIRE, true, ROWS>(m, shape_of(p), (it % groups) * ROWS, smem);
       } else {
         const int c = it - n_merge;
         const Rank& R = p.r[c / COPY_CTAS];
@@ -347,11 +363,14 @@ __global__ void __launch_bounds__(THREADS) rotation_grid_kernel(Launch p) {
             r == 0 ? R.blk
                    : static_cast<const unsigned char*>(R.slot_blk) + (r % 2) * blk_bytes;
         const int* sid = r == 0 ? R.bids : R.slot_bids + (size_t)(r % 2) * p.B;
+        const float* sbn = r == 0 ? R.bn : R.slot_bn + (size_t)(r % 2) * p.B;
         const int nxt = (r + 1) % 2;
         copy_part<true>(static_cast<unsigned char*>(R.dst_blk) + nxt * blk_bytes,
                         src, blk_bytes, part, COPY_CTAS);
         copy_part<true>(R.dst_bids + (size_t)nxt * p.B, sid,
                         (size_t)p.B * sizeof(int), part, COPY_CTAS);
+        copy_part<true>(R.dst_bn + (size_t)nxt * p.B, sbn,
+                        (size_t)p.B * sizeof(float), part, COPY_CTAS);
         __threadfence_system();
         __syncthreads();
         if (threadIdx.x == 0 && R.succ_remote)
@@ -372,8 +391,8 @@ bool bad_launch(const Launch& p) {
     return true;
   for (int i = 0; i < p.n_local; ++i) {
     const Rank& R = p.r[i];
-    if (!R.q || !R.qids || !R.blk || !R.bids || !R.carry_d || !R.carry_i ||
-        !R.out_d || !R.out_i || !R.dst_blk || !R.dst_bids || !R.flags ||
+    if (!R.q || !R.qn || !R.qids || !R.blk || !R.bn || !R.bids || !R.carry_d ||
+        !R.carry_i || !R.out_d || !R.out_i || !R.dst_blk || !R.dst_bids || !R.flags ||
         ((R.succ_remote || R.pred_remote) && (!R.succ_flags || !R.pred_flags)))
       return true;
   }
@@ -399,36 +418,89 @@ Launch make_launch(const void* ranks_v, int n_local, int Q, int B, int D, int k,
 }
 
 template <int WIRE>
-cudaError_t launch_round(const Launch& p, cudaStream_t stream) {
-  auto kernel = round_dma_kernel<WIRE>;
-  cudaError_t e = set_smem((const void*)kernel, p.k);
-  if (e != cudaSuccess) return e;
-  const int groups = (p.Q + QB - 1) / QB;
-  dim3 grid(1 + p.n_local * (COPY_CTAS + groups));
-  kernel<<<grid, THREADS, smem_bytes(p.k), stream>>>(p);
-  return cudaGetLastError();
+const void* round_kernel(int rows) {
+  return rows == MQB ? (const void*)round_dma_kernel<WIRE, MQB>
+                     : (const void*)round_dma_kernel<WIRE, NQB>;
 }
 
+// K5's merge items are 64-row groups: on top of the 128-row tile, the
+// cooperative kernel's own state spills 424 bytes a thread (88 at 64 rows)
 template <int WIRE>
-cudaError_t launch_grid(Launch p, cudaStream_t stream) {
-  auto kernel = rotation_grid_kernel<WIRE>;
-  cudaError_t e = set_smem((const void*)kernel, p.k);
+const void* grid_kernel() {
+  return (const void*)rotation_grid_kernel<WIRE, NQB>;
+}
+
+// which: 0 K4, 1 K5 (float wires only)
+const void* kernel_of(int which, int wire, int rows) {
+  if (which == 0) {
+    switch (wire) {
+      case WIRE_F32: return round_kernel<WIRE_F32>(rows);
+      case WIRE_BF16: return round_kernel<WIRE_BF16>(rows);
+      case WIRE_INT8: return round_kernel<WIRE_INT8>(rows);
+    }
+  } else if (which == 1) {
+    switch (wire) {
+      case WIRE_F32: return grid_kernel<WIRE_F32>();
+      case WIRE_BF16: return grid_kernel<WIRE_BF16>();
+    }
+  }
+  return nullptr;
+}
+
+// A launch's plan on the current card: query rows per merge group (K4:
+// 128, or 64 where the card's resident slots would go half empty; K5: 64),
+// the grid
+// (K4: barrier + copy + merge CTAs; K5: persistent CTAs), merge and copy
+// items per round, and the kernel's registers, spilled bytes and CTAs per
+// SM.
+struct Plan {
+  int rows, grid, items, regs, local_bytes, ctas_per_sm;
+  const void* kernel;
+  size_t smem;
+};
+
+cudaError_t plan_of(int which, int wire, int n_local, int Q, int k, Plan* pl) {
+  const void* k128 = kernel_of(which, wire, MQB);
+  if (k128 == nullptr || n_local < 1 || Q <= 0 || k <= 0) return cudaErrorInvalidValue;
+  cudaError_t e = cudaSuccess;
+  if (which == 1)
+    pl->rows = NQB;  // see grid_kernel
+  else
+    e = pick_rows(k128, k, (long long)n_local * ((Q + MQB - 1) / MQB), &pl->rows);
   if (e != cudaSuccess) return e;
-  int dev = 0, sms = 0, per_sm = 0;
+  pl->kernel = kernel_of(which, wire, pl->rows);
+  e = pl->rows == MQB
+          ? mma_kernel_info<MQB>(pl->kernel, k, &pl->regs, &pl->local_bytes,
+                                 &pl->ctas_per_sm)
+          : mma_kernel_info<NQB>(pl->kernel, k, &pl->regs, &pl->local_bytes,
+                                 &pl->ctas_per_sm);
+  if (e != cudaSuccess) return e;
+  pl->smem = pl->rows == MQB ? mma_smem_bytes<MQB>(k) : mma_smem_bytes<NQB>(k);
+  const int groups = (Q + pl->rows - 1) / pl->rows;
+  pl->items = n_local * (groups + COPY_CTAS);
+  if (which == 0) {
+    pl->grid = 1 + pl->items;
+    return cudaSuccess;
+  }
+  int dev = 0, sms = 0;
   if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
   if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) !=
       cudaSuccess)
     return e;
-  if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, kernel, THREADS, smem_bytes(p.k))) != cudaSuccess)
-    return e;
-  if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
-  const int groups = (p.Q + QB - 1) / QB;
-  int items = p.n_local * (groups + COPY_CTAS);
-  int blocks = per_sm * sms < items ? per_sm * sms : items;
+  if (pl->ctas_per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
+  pl->grid = pl->ctas_per_sm * sms < pl->items ? pl->ctas_per_sm * sms : pl->items;
+  return cudaSuccess;
+}
+
+cudaError_t launch(int which, int wire, Launch p, cudaStream_t stream) {
+  Plan pl;
+  cudaError_t e = plan_of(which, wire, p.n_local, p.Q, p.k, &pl);
+  if (e != cudaSuccess) return e;
   void* args[] = {&p};
-  e = cudaLaunchCooperativeKernel((const void*)kernel, dim3(blocks),
-                                  dim3(THREADS), args, smem_bytes(p.k), stream);
+  e = which == 0 ? cudaLaunchKernel(pl.kernel, dim3(pl.grid), dim3(THREADS), args,
+                                    pl.smem, stream)
+                 : cudaLaunchCooperativeKernel(pl.kernel, dim3(pl.grid), dim3(THREADS),
+                                               args, pl.smem, stream);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
@@ -471,12 +543,7 @@ int round_dma_launch(const void* ranks, int n_local, int Q, int B, int D,
   for (int i = 0; i < n_local; ++i)
     if (wire == WIRE_INT8 && (!p.r[i].scale || !p.r[i].dst_scale))
       return (int)cudaErrorInvalidValue;
-  switch (wire) {
-    case WIRE_F32: return (int)launch_round<WIRE_F32>(p, stream);
-    case WIRE_BF16: return (int)launch_round<WIRE_BF16>(p, stream);
-    case WIRE_INT8: return (int)launch_round<WIRE_INT8>(p, stream);
-  }
-  return (int)cudaErrorInvalidValue;
+  return (int)launch(0, wire, p, stream);
 }
 
 // K5: the whole rotation for the card's local ranks; float wires only.
@@ -488,14 +555,23 @@ int rotation_grid_launch(const void* ranks, int n_local, int Q, int B, int D,
                          exclude_zero, zero_eps, epoch, timeout_ns, err);
   if (bad_launch(p)) return (int)cudaErrorInvalidValue;
   for (int i = 0; i < n_local; ++i)
-    if (!p.r[i].slot_blk || !p.r[i].slot_bids || !p.r[i].cbuf_d ||
-        !p.r[i].cbuf_i)
+    if (!p.r[i].slot_blk || !p.r[i].slot_bids || !p.r[i].slot_bn ||
+        !p.r[i].dst_bn || !p.r[i].cbuf_d || !p.r[i].cbuf_i)
       return (int)cudaErrorInvalidValue;
-  switch (wire) {
-    case WIRE_F32: return (int)launch_grid<WIRE_F32>(p, stream);
-    case WIRE_BF16: return (int)launch_grid<WIRE_BF16>(p, stream);
-  }
-  return (int)cudaErrorInvalidValue;
+  return (int)launch(1, wire, p, stream);
+}
+
+// The plan of a K4 (which 0) or K5 (which 1) launch of n_local ranks on the
+// current card: out[0..6) = query rows per merge group, grid, merge and copy
+// items per round, registers, spilled bytes a thread, CTAs per SM.
+int ring_kernel_plan(int which, int wire, int n_local, int Q, int k, int* out) {
+  Plan pl;
+  cudaError_t e = plan_of(which, wire, n_local, Q, k, &pl);
+  if (e != cudaSuccess) return (int)e;
+  const int vals[6] = {pl.rows, pl.grid, pl.items, pl.regs, pl.local_bytes,
+                       pl.ctas_per_sm};
+  for (int i = 0; i < 6; ++i) out[i] = vals[i];
+  return 0;
 }
 
 }  // extern "C"

@@ -1,16 +1,19 @@
 // What the ring kernels share (fused_ring.cu: K3a/K3b; fused_ring_dma.cu:
-// K4/K5): the wire decode and mask policy of a ring block's columns
+// K4/K5): the wire decode, norms and mask policy of a ring block's columns
 // (RingCols), and K3a's exact merge of one block into the carry of one
-// group of QB query rows.
+// group of query rows, on knn_tile.cuh's Tf32x3 tile.
 //
 // Wires: f32 as is, bf16 widened, int8 as code * scale (one f32 multiply,
 // the reference's dequantize_rows). Masks: padding by id (-1), self by id
 // equality (when exclude_self), and in exact mode the zero rule
-// d <= zero_eps (if > 0) else d <= 1e-6 (q^2 + c^2).
+// d <= zero_eps (if > 0) else d <= 1e-6 (q^2 + c^2). A block's norms are
+// those of its decoded rows, written once per call by the prologue
+// (stage_tf32_wire_launch) and carried with the block as its ids are.
 //
-// Loads. With CG the block, its ids and the carry are read with ld.global.cg
-// (__ldcg), which bypasses L1: K5 re-reads within one launch slots that a
-// peer card or another SM rewrote since, and L1 is not coherent across SMs.
+// Loads. With CG the block, its ids, its norms and the carry are read with
+// ld.global.cg (__ldcg, or cp.async.cg for f32 rows), which bypasses L1:
+// K5 re-reads within one launch slots that a peer card or another SM
+// rewrote since, and L1 is not coherent across SMs.
 
 #pragma once
 
@@ -36,6 +39,7 @@ struct RingCols {
   int key0;  // column col has key col - key0
   bool self, zero;
   float zero_eps;
+  const float* norms;  // (B,) the decoded rows' squared norms
   static constexpr bool clamp = !COMPRESS;
   static constexpr bool nan_as_inf = COMPRESS;
   __device__ float load(int col, int dim) const {
@@ -47,6 +51,7 @@ struct RingCols {
     return __fmul_rn((float)ld<CG>(static_cast<const signed char*>(blk) + e),
                      ld<CG>(scale + col));
   }
+  __device__ float norm(int col) const { return ld<CG>(norms + col); }
   __device__ bool masked(int row, int col, float d, float qs, float cs) const {
     int id = ld<CG>(bids + col);
     if (id < 0) return true;
@@ -64,9 +69,11 @@ struct RingCols {
 // on the int8 wire, else null.
 struct MergeArgs {
   const float* q;        // (Q, D) queries
+  const float* qn;       // (Q,) their norms
   const int* qids;       // (Q,)
   const void* blk;       // (B, D) at the wire type
   const float* scale;    // (B,) int8 wire only
+  const float* bn;       // (B,) the block's norms
   const int* bids;       // (B,) candidate ids, -1 = padding
   const float* carry_d;  // (Q, k)
   const int* carry_i;
@@ -80,22 +87,22 @@ struct MergeShape {
   float zero_eps;
 };
 
-// K3a's body for query rows [q0, q0 + QB): ranks candidates by (distance,
-// arrival), the carry's slots first in their order, then the block's
-// columns in order (the reference's concat(carry | block tile) with ties to
-// the leftmost column). Any NaN among a row's candidates makes the row
-// (NaN, -1). The whole CTA calls it; it ends on a barrier, so a CTA may
+// K3a's body for query rows [q0, q0 + ROWS): ranks candidates by
+// (distance, arrival), the carry's slots first in their order, then the
+// block's columns in order (the reference's concat(carry | block tile) with
+// ties to the leftmost column). Any NaN among a row's candidates makes the
+// row (NaN, -1). The whole CTA calls it; it ends on a barrier, so a CTA may
 // call it again for another group with the same shared memory.
-template <int WIRE, bool CG>
+template <int WIRE, bool CG, int ROWS>
 __device__ void exact_merge_group(const MergeArgs& m, const MergeShape& s,
                                   int q0, unsigned char* smem) {
   const int k = s.k;
-  Lists L{carve(smem, k), m.out_d, m.out_i, (size_t)q0, k};
-  init_lists(L, q0, s.Q, -1);
+  MmaLists<ROWS> L{carve_mma<ROWS>(smem, k), m.out_d, m.out_i, (size_t)q0, k};
+  init_lists<ROWS>(L, q0, s.Q, -1);
 
   // the carry arrives first: slot j has arrival j
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  for (int r = warp; r < QB; r += THREADS / 32) {
+  for (int r = warp; r < ROWS; r += THREADS / 32) {
     if (q0 + r >= s.Q) continue;
     const float* cd = m.carry_d + (size_t)(q0 + r) * k;
     bool any_nan = false;
@@ -112,11 +119,15 @@ __device__ void exact_merge_group(const MergeArgs& m, const MergeShape& s,
   // then the block's columns: column col has arrival k + col
   RingCols<WIRE, false, CG> cols{m.blk, m.scale, m.bids, m.qids, s.D, -k,
                                  s.exclude_self != 0, s.exclude_zero != 0,
-                                 s.zero_eps};
-  sweep(cols, m.q, s.Q, s.D, q0, 0, s.B, L);
+                                 s.zero_eps, m.bn};
+  const float* blk_rows = WIRE == WIRE_F32 ? async_rows(m.blk, s.D) : nullptr;
+  sweep_mma<Tf32x3, ROWS>(
+      cols, F32Operand<F32Rows>{F32Rows{m.q, s.D}, async_rows(m.q, s.D), s.D}, m.qn,
+      s.Q, F32Operand<RingCols<WIRE, false, CG>>{cols, blk_rows, s.D},
+      (s.D + TKD - 1) / TKD, q0, 0, s.B, L);
 
   // emit: arrivals become ids; non-finite slots get -1; NaN rows (NaN, -1)
-  for (int r = warp; r < QB; r += THREADS / 32) {
+  for (int r = warp; r < ROWS; r += THREADS / 32) {
     int row = q0 + r;
     if (row >= s.Q) continue;
     float* Ld = L.d(r);

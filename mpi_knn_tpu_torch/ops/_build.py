@@ -41,28 +41,33 @@ def _nvcc() -> str:
     )
 
 
-def _lib_path(name: str) -> Path:
+def _flags(defines=()) -> list:
+    return [*NVCC_FLAGS, *(f"-D{d}" for d in defines)]
+
+
+def _lib_path(name: str, defines=()) -> Path:
     h = hashlib.sha256()
     for path in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
         h.update(path.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(_flags(defines)).encode())
     return BUILD_ROOT / h.hexdigest()[:16] / f"lib{name}.so"
 
 
-def _start(name: str):
-    """Start nvcc for ``csrc/<name>.cu`` unless already built: returns
-    (process, temporary output) or None."""
-    out = _lib_path(name)
+def _start(name: str, defines=()):
+    """Start nvcc for ``csrc/<name>.cu`` (with the preprocessor
+    ``defines``) unless already built: returns (process, temporary output)
+    or None."""
+    out = _lib_path(name, defines)
     if out.exists():
         return None
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [_nvcc(), *_flags(defines), "-o", str(tmp), str(CSRC / f"{name}.cu")]
     return subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True), tmp
 
 
-def _finish(name: str, started) -> str:
+def _finish(name: str, started, defines=()) -> str:
     """Wait for a build that ``_start`` began; returns nvcc's output, or
     "cached" when nothing was built."""
     if started is None:
@@ -71,13 +76,13 @@ def _finish(name: str, started) -> str:
     log, _ = proc.communicate()
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
-    os.replace(tmp, _lib_path(name))  # atomic: a loader sees all or nothing
+    os.replace(tmp, _lib_path(name, defines))  # atomic: a loader sees all or nothing
     return log
 
 
-def build(name: str) -> str:
+def build(name: str, defines=()) -> str:
     """Compile ``csrc/<name>.cu`` unless already built."""
-    return _finish(name, _start(name))
+    return _finish(name, _start(name, defines), defines)
 
 
 def build_all() -> dict:
@@ -94,7 +99,8 @@ def build_all() -> dict:
 
 
 @functools.cache
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, built if needed."""
-    build(name)
-    return ctypes.CDLL(str(_lib_path(name)))
+def load(name: str, defines: tuple = ()) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, built if needed; a
+    measurement may ask for a build with preprocessor ``defines``."""
+    build(name, defines)
+    return ctypes.CDLL(str(_lib_path(name, defines)))

@@ -1,8 +1,8 @@
 """Pairwise distances in matmul form, ``‖x − y‖² = ‖x‖² + ‖y‖² − 2·x·yᵀ``,
 compared in squared space (sqrt is monotone).
 
-The product is ``torch.matmul`` at full f32 (or f64): the exact policy
-never runs on TF32. bf16 inputs are widened to f32 before the product,
+The product is ``torch.matmul`` at full f32 (or f64), never single-pass
+TF32. bf16 inputs are widened to f32 before the product,
 which equals the JAX package's bf16 dot with f32 accumulation (bf16 values
 are exact in f32).
 """

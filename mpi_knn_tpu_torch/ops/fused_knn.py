@@ -13,6 +13,14 @@ distance (``d <= zero_eps`` if > 0, else ``d <= 1e-6·(q²+c²)``) and, in
 all-pairs mode, self. Non-finite slots carry id −1; a row with a NaN
 distance comes out as (NaN, −1) throughout.
 
+The exact mode is full f32 (the plain versions' ``torch.matmul``, TF32
+off). On the card it is two steps: the prologue ``stage_tf32_rows`` writes
+the squared norms of the queries and of the corpus, once each, and the
+kernel (``launch_exact``) multiplies the f32 rows on the tensor cores as
+three TF32 products of split operands (``tf32_split``: x = hi + lo), whose
+sums are f32-accurate; the prologue takes its norms by the same product
+sequence, so an exact duplicate pair keeps a distance of exactly 0.
+
 ``compress=True`` is the mixed policy's pass 1, as in the JAX kernels: the
 dot runs on bf16-rounded operands with f32 sums, the norms come from the
 unrounded rows, the zero mask is off (padding and self stay), and the
@@ -25,7 +33,7 @@ the bf16 tensor-core kernel on the copies (``launch_compress``).
 A wrapper takes its plain version only because the tensors it was given lie
 on the CPU. For CUDA tensors it launches the kernel or raises. Each launch
 adds one to ``LAUNCHES[name]``: the kernels' names carry ``[compress]`` in
-that mode, the prologue's is ``stage_bf16``.
+that mode, the prologues' are ``stage_tf32`` and ``stage_bf16``.
 """
 
 from __future__ import annotations
@@ -44,7 +52,10 @@ STAGE_K = 32  # the compress tile's slice depth: staged widths are its multiples
 
 LAUNCHES = {"fused_knn_tiles": 0, "fused_knn_sweep": 0,
             "fused_knn_tiles[compress]": 0, "fused_knn_sweep[compress]": 0,
-            "stage_bf16": 0}
+            "stage_tf32": 0, "stage_bf16": 0}
+# the kernels of csrc/fused_knn.cu's kernel_info, by launch-count name
+_KERNELS = ("fused_knn_tiles", "fused_knn_sweep", "fused_knn_tiles[compress]",
+            "fused_knn_sweep[compress]")
 
 
 def reset_launch_counts():
@@ -55,21 +66,29 @@ def reset_launch_counts():
 @functools.cache
 def _lib() -> ctypes.CDLL:
     """The kernel library, with its C signatures set once at first load."""
-    lib = _build.load("fused_knn")
+    return configure(_build.load("fused_knn"))
+
+
+def configure(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the C signatures of a build of csrc/fused_knn.cu."""
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    common = [ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32]
+    common = [ptr] * 6 + [i32] * 5
     flags = [i32, i32, i32, ctypes.c_float, ptr]
     lib.fused_knn_tiles_launch.argtypes = common + [i32] + flags
     lib.fused_knn_sweep_launch.argtypes = common + flags
-    staged = [ptr] * 6 + [i32] * 5
-    lib.fused_knn_tiles_compress_launch.argtypes = staged + [i32] * 3 + [ptr]
-    lib.fused_knn_sweep_compress_launch.argtypes = staged + [i32] * 2 + [ptr]
+    lib.fused_knn_tiles_compress_launch.argtypes = common + [i32] * 3 + [ptr]
+    lib.fused_knn_sweep_compress_launch.argtypes = common + [i32] * 2 + [ptr]
     lib.stage_bf16_f32_launch.argtypes = [ptr] * 3 + [i32] * 3 + [ptr]
-    lib.compress_kernel_info.argtypes = [i32, i32] + [ctypes.POINTER(i32)] * 3
+    lib.stage_tf32_f32_launch.argtypes = [ptr, ptr, i32, i32, ptr]
+    lib.exact_tile_dots_launch.argtypes = [ptr] * 3 + [i32] * 3 + [ptr]
+    lib.kernel_info.argtypes = [i32, i32] + [ctypes.POINTER(i32)] * 3
+    lib.mma_rate_launch.argtypes = [i32, i32, ptr, ptr]
+    lib.mma_rate_launch.restype = ctypes.c_double
     for fn in (lib.fused_knn_tiles_launch, lib.fused_knn_sweep_launch,
                lib.fused_knn_tiles_compress_launch,
                lib.fused_knn_sweep_compress_launch, lib.stage_bf16_f32_launch,
-               lib.compress_kernel_info):
+               lib.stage_tf32_f32_launch, lib.exact_tile_dots_launch,
+               lib.kernel_info):
         fn.restype = i32
     return lib
 
@@ -110,6 +129,69 @@ def _call(fn, name, device, tensors, out_shape, *args):
     return out_d, out_i
 
 
+def _rows_f32(rows):
+    if rows.dtype != torch.float32 or rows.ndim != 2 or not rows.is_contiguous():
+        raise TypeError("rows must be a contiguous 2-D float32 tensor")
+
+
+def stage_tf32_rows(rows):
+    """The exact kernels' prologue on an f32 (n, d) row set -> (n,) f32
+    squared norms, on the card by the exact tile's product sequence (the
+    diagonal of each 16-row group's product with itself)."""
+    _rows_f32(rows)
+    n, d = rows.shape
+    if rows.device.type == "cpu":
+        return stage_tf32_rows_reference(rows)
+    norms = torch.empty(n, dtype=torch.float32, device=rows.device)
+    with torch.cuda.device(rows.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = _lib().stage_tf32_f32_launch(rows.data_ptr(), norms.data_ptr(), n, d,
+                                          stream)
+    if rc != 0:
+        raise RuntimeError(f"stage_tf32 launch failed: cudaError {rc}")
+    LAUNCHES["stage_tf32"] += 1
+    return norms
+
+
+def stage_tf32_rows_reference(rows):
+    """Plain version of the exact prologue (any device): the rows' f32
+    squared norms."""
+    return sq_norms(rows)
+
+
+def tf32_split(x):
+    """Plain model of the exact tile's operand split: x = hi + lo with
+    hi = tf32_rna(x) and lo = tf32_rna(x - hi) (round to nearest, ties away
+    from zero, to 10 stored mantissa bits), on f32 tensors. A value with at
+    most 11 significant bits has lo = 0; hi + lo is x within 2^-22 |x|."""
+
+    def rna(v):
+        bits = v.contiguous().view(torch.int32)
+        r = ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+        return torch.where(torch.isfinite(v), r, v)
+
+    hi = rna(x)
+    return hi, rna(x - hi)
+
+
+def exact_tile_dots(queries, corpus):
+    """The exact tile's raw products queries · corpusᵀ ((Q, C) f32): a test
+    hook for the card (the prologue's norms are this product's diagonal);
+    on the CPU, ``torch.matmul``. Not counted in ``LAUNCHES``."""
+    _check(queries, corpus, 1, 1, 1)
+    if queries.device.type == "cpu":
+        return _mm_t(queries, corpus)
+    (Q, D), C = queries.shape, corpus.shape[0]
+    out = torch.empty((Q, C), dtype=torch.float32, device=queries.device)
+    with torch.cuda.device(queries.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = _lib().exact_tile_dots_launch(queries.data_ptr(), corpus.data_ptr(),
+                                           out.data_ptr(), Q, C, D, stream)
+    if rc != 0:
+        raise RuntimeError(f"exact_tile_dots launch failed: cudaError {rc}")
+    return out
+
+
 def staged_width(d: int) -> int:
     """The width of a staged bf16 copy: d rounded up to ``STAGE_K``."""
     return -(-d // STAGE_K) * STAGE_K
@@ -119,8 +201,7 @@ def stage_bf16_rows(rows):
     """The compress kernels' staging prologue on an f32 (n, d) row set ->
     ((n, staged_width(d)) bf16 copy rounded to nearest even, zero-padded;
     (n,) f32 squared norms of the unrounded rows)."""
-    if rows.dtype != torch.float32 or rows.ndim != 2 or not rows.is_contiguous():
-        raise TypeError("rows must be a contiguous 2-D float32 tensor")
+    _rows_f32(rows)
     n, d = rows.shape
     width = staged_width(d)
     if rows.device.type == "cpu":
@@ -168,14 +249,53 @@ def launch_compress(base: str, staged_q, staged_c, m_corpus: int, k: int,
                  int(all_pairs))
 
 
-def compress_kernel_info(base: str, k: int) -> dict:
+def launch_exact(base: str, queries, q_norms, corpus, c_norms, m_corpus: int,
+                 k: int, c_tile: int, exclude_self: bool = True,
+                 exclude_zero: bool = True, all_pairs: bool = True,
+                 zero_eps: float = 0.0):
+    """The exact kernel ``base`` ("fused_knn_tiles" or "fused_knn_sweep")
+    on f32 queries and corpus with the prologue's norms, on the card:
+    (n_c, Q, k) or (Q, k) dists and ids."""
+    Q, C = queries.shape[0], corpus.shape[0]
+    tensors = (queries, q_norms, corpus, c_norms)
+    shape_args = (Q, C, queries.shape[1], m_corpus, k)
+    flags = (int(exclude_self), int(exclude_zero), int(all_pairs), float(zero_eps))
+    if base == "fused_knn_tiles":
+        return _call(_lib().fused_knn_tiles_launch, base, queries.device,
+                     tensors, (C // c_tile, Q, k), *shape_args, c_tile, *flags)
+    return _call(_lib().fused_knn_sweep_launch, base, queries.device, tensors,
+                 (Q, k), *shape_args, *flags)
+
+
+def mma_rate(device, tf32: bool, iters: int = 4096) -> float:
+    """The card's mma.sync rate in TFLOP/s (m16n8k8 tf32, or m16n8k16 bf16
+    when ``tf32`` is False): a probe run twice, the second timed by CUDA
+    events. The ceiling of the tiles' products; on no kernel's path."""
+    out = torch.empty(2 * torch.cuda.get_device_properties(device).multi_processor_count
+                      * 256, dtype=torch.float32, device=device)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        for _ in range(2):  # the first launch is the warm-up
+            start.record()
+            flop = _lib().mma_rate_launch(int(tf32), iters, out.data_ptr(), stream)
+            end.record()
+            if flop < 0:
+                raise RuntimeError(f"mma_rate launch failed: cudaError {int(-flop)}")
+        end.synchronize()
+    return flop / (start.elapsed_time(end) * 1e-3) / 1e12
+
+
+def kernel_info(name: str, k: int) -> dict:
     """Registers and spilled (local) bytes a thread, and CTAs per SM, of the
-    compress kernel ``base`` at list width k (needs the card)."""
+    kernel ``name`` (a ``LAUNCHES`` kernel name) at list width k (needs the
+    card)."""
     vals = [ctypes.c_int() for _ in range(3)]
-    rc = _lib().compress_kernel_info(0 if base == "fused_knn_tiles" else 1, k,
-                                     *(ctypes.byref(v) for v in vals))
+    rc = _lib().kernel_info(_KERNELS.index(name), k,
+                            *(ctypes.byref(v) for v in vals))
     if rc != 0:
-        raise RuntimeError(f"compress_kernel_info failed: cudaError {rc}")
+        raise RuntimeError(f"kernel_info failed: cudaError {rc}")
     return dict(zip(("registers", "spilled_bytes", "ctas_per_sm"),
                     (v.value for v in vals)))
 
@@ -186,8 +306,6 @@ def fused_knn_tiles(queries, corpus, m_corpus: int, k: int, q_tile: int,
                     zero_eps: float = 0.0, compress: bool = False):
     """Per-(query, corpus-tile) local top-k -> (Q, n_c·k) dists and ids."""
     _check(queries, corpus, k, q_tile, c_tile)
-    Q, C = queries.shape[0], corpus.shape[0]
-    n_c = C // c_tile
     if queries.device.type == "cpu":
         outd, outi = _tiles_plain(queries, corpus, m_corpus, k, c_tile,
                                   exclude_self, exclude_zero, all_pairs,
@@ -198,12 +316,10 @@ def fused_knn_tiles(queries, corpus, m_corpus: int, k: int, q_tile: int,
             stage_bf16_rows(corpus), m_corpus, k, c_tile, exclude_self,
             all_pairs)
     else:
-        outd, outi = _call(
-            _lib().fused_knn_tiles_launch, "fused_knn_tiles", queries.device,
-            (queries, corpus), (n_c, Q, k), Q, C, queries.shape[1], m_corpus,
-            k, c_tile, int(exclude_self), int(exclude_zero), int(all_pairs),
-            float(zero_eps),
-        )
+        outd, outi = launch_exact(
+            "fused_knn_tiles", queries, stage_tf32_rows(queries), corpus,
+            stage_tf32_rows(corpus), m_corpus, k, c_tile, exclude_self,
+            exclude_zero, all_pairs, zero_eps)
     return _candidate_lists(outd, outi)
 
 
@@ -224,12 +340,10 @@ def fused_knn_sweep(queries, corpus, m_corpus: int, k: int, q_tile: int,
             "fused_knn_sweep", stage_bf16_rows(queries),
             stage_bf16_rows(corpus), m_corpus, k, c_tile, exclude_self,
             all_pairs)
-    Q, C = queries.shape[0], corpus.shape[0]
-    return _call(
-        _lib().fused_knn_sweep_launch, "fused_knn_sweep", queries.device,
-        (queries, corpus), (Q, k), Q, C, queries.shape[1], m_corpus, k,
-        int(exclude_self), int(exclude_zero), int(all_pairs), float(zero_eps),
-    )
+    return launch_exact(
+        "fused_knn_sweep", queries, stage_tf32_rows(queries), corpus,
+        stage_tf32_rows(corpus), m_corpus, k, c_tile, exclude_self,
+        exclude_zero, all_pairs, zero_eps)
 
 
 # ---------------------------------------------------------------- plain

@@ -11,7 +11,11 @@ or int8 codes with per-row scales) merged into the (q_local, k) carry.
   (distance, arrival): the carry's slots first, then the block's columns
   in order, which is the reference's concat(carry ‖ block tile) with ties
   to the leftmost column. Any NaN among a row's candidates makes the row
-  (NaN, −1).
+  (NaN, −1). On the card the kernel takes the squared norms of the queries
+  and of the decoded block from the exact prologue (``stage_wire_norms``:
+  once per call for the queries, once per block, which then carries them
+  as it travels); the products run as three TF32 passes of split operands
+  on the tensor cores.
 - mixed policy: ``block_merge_compress`` (K3b) returns each block tile's
   top-ov column positions by unclamped compressed key (untaken columns in
   index order once the finite keys run out; a NaN key counts as +inf).
@@ -25,8 +29,8 @@ or int8 codes with per-row scales) merged into the (q_local, k) carry.
 
 A kernel wrapper takes its plain version only because the tensors it was
 given lie on the CPU; for CUDA tensors it launches the kernel or raises.
-Each launch adds one to ``LAUNCHES[name]``; the prologue's name is
-``stage_bf16[wire]``.
+Each launch adds one to ``LAUNCHES[name]``; the prologues' names are
+``stage_tf32[wire]`` and ``stage_bf16[wire]``.
 """
 
 from __future__ import annotations
@@ -53,7 +57,7 @@ from mpi_knn_tpu_torch.ops.rerank import (
 from mpi_knn_tpu_torch.ops.topk import preselect_smallest, smallest_k
 
 LAUNCHES = {"fused_block_merge[exact]": 0, "fused_block_merge[compress]": 0,
-            "stage_bf16[wire]": 0}
+            "stage_tf32[wire]": 0, "stage_bf16[wire]": 0}
 
 _WIRE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 # query rows per step of the plain versions and of the mixed finish, sized
@@ -72,13 +76,17 @@ def _lib() -> ctypes.CDLL:
     """The kernel library, with its C signatures set once at first load."""
     lib = _build.load("fused_ring")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    out = ctypes.POINTER(i32)
     lib.block_merge_exact_launch.argtypes = (
-        [ptr] * 9 + [i32] * 8 + [ctypes.c_float, ptr])
+        [ptr] * 11 + [i32] * 8 + [ctypes.c_float, ptr])
+    lib.block_merge_exact_plan.argtypes = [i32] * 3 + [out] * 5
     lib.block_merge_compress_launch.argtypes = [ptr] * 8 + [i32] * 6 + [ptr]
     lib.stage_bf16_wire_launch.argtypes = [ptr, ptr, i32, ptr, ptr] + [i32] * 3 + [ptr]
-    lib.compress_kernel_info.argtypes = [i32] + [ctypes.POINTER(i32)] * 3
-    for fn in (lib.block_merge_exact_launch, lib.block_merge_compress_launch,
-               lib.stage_bf16_wire_launch, lib.compress_kernel_info):
+    lib.stage_tf32_wire_launch.argtypes = [ptr, ptr, i32, ptr, i32, i32, ptr]
+    lib.compress_kernel_info.argtypes = [i32] + [out] * 3
+    for fn in (lib.block_merge_exact_launch, lib.block_merge_exact_plan,
+               lib.block_merge_compress_launch, lib.stage_bf16_wire_launch,
+               lib.stage_tf32_wire_launch, lib.compress_kernel_info):
         fn.restype = i32
     return lib
 
@@ -126,11 +134,51 @@ def _wire_rows(block, block_scale):
 
 # ---------------------------------------------------------------- K3a
 
+def merges_exactly(cfg, c_tile: int) -> bool:
+    """Whether ``fused_block_merge`` runs K3a (the exact policy, or the
+    mixed policy's degenerate tile), which takes the exact prologue's
+    norms."""
+    return not (cfg.precision_policy == "mixed" and mixed_applies(cfg.k, c_tile))
+
+
+def stage_wire_norms(rows, scale):
+    """The exact prologue on a row set at its wire type (f32, bf16, or int8
+    codes with their (n,) scales) -> (n,) f32 squared norms of the decoded
+    rows, on the card by the exact tile's product sequence."""
+    n, d = rows.shape
+    if rows.device.type == "cpu":
+        return stage_wire_norms_reference(rows, scale)
+    norms = torch.empty(n, dtype=torch.float32, device=rows.device)
+    with torch.cuda.device(rows.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = _lib().stage_tf32_wire_launch(
+            rows.data_ptr(), scale.data_ptr() if scale is not None else None,
+            _WIRE[rows.dtype], norms.data_ptr(), n, d, stream)
+    _rc(rc, "stage_tf32[wire]")
+    return norms
+
+
+def stage_wire_norms_reference(rows, scale):
+    """Plain version of the exact prologue on a wire (any device)."""
+    return sq_norms(_wire_rows(rows, scale))
+
+
+def _norms(t, want):
+    if t.dtype != torch.float32 or t.shape != (want.shape[0],) or \
+            t.device != want.device or not t.is_contiguous():
+        raise TypeError(f"norms must be contiguous float32 ({want.shape[0]},) "
+                        f"on {want.device}")
+    return t
+
+
 def block_merge_exact(queries, query_ids, block, block_ids, block_scale,
                       carry_d, carry_i, *, c_tile: int,
                       exclude_self: bool = True, exclude_zero: bool = True,
-                      zero_eps: float = 0.0):
-    """The exact merge of one block into the carry -> (q_local, k)."""
+                      zero_eps: float = 0.0, query_norms=None,
+                      block_norms=None):
+    """The exact merge of one block into the carry -> (q_local, k). On the
+    card ``query_norms`` / ``block_norms`` are the exact prologue's
+    (``stage_wire_norms``); each that is None is staged here."""
     _check(queries, query_ids, block, block_ids, block_scale)
     Q, k = carry_d.shape
     if carry_d.dtype != torch.float32 or carry_i.dtype != torch.int32 or \
@@ -145,20 +193,38 @@ def block_merge_exact(queries, query_ids, block, block_ids, block_scale,
             queries, query_ids, block, block_ids, block_scale, carry_d,
             carry_i, c_tile=c_tile, exclude_self=exclude_self,
             exclude_zero=exclude_zero, zero_eps=zero_eps)
+    qn = (stage_wire_norms(queries, None) if query_norms is None
+          else _norms(query_norms, queries))
+    bn = (stage_wire_norms(block, block_scale) if block_norms is None
+          else _norms(block_norms, block))
     carry_d, carry_i = carry_d.contiguous(), carry_i.contiguous()
     out_d = torch.empty_like(carry_d)
     out_i = torch.empty_like(carry_i)
     with torch.cuda.device(queries.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = _lib().block_merge_exact_launch(
-            queries.data_ptr(), query_ids.data_ptr(), block.data_ptr(),
+            queries.data_ptr(), qn.data_ptr(), query_ids.data_ptr(),
+            block.data_ptr(),
             block_scale.data_ptr() if block_scale is not None else None,
-            block_ids.data_ptr(), carry_d.data_ptr(), carry_i.data_ptr(),
-            out_d.data_ptr(), out_i.data_ptr(), Q, block.shape[0],
-            queries.shape[1], k, c_tile, _WIRE[block.dtype],
+            bn.data_ptr(), block_ids.data_ptr(), carry_d.data_ptr(),
+            carry_i.data_ptr(), out_d.data_ptr(), out_i.data_ptr(), Q,
+            block.shape[0], queries.shape[1], k, c_tile, _WIRE[block.dtype],
             int(exclude_self), int(exclude_zero), float(zero_eps), stream)
     _rc(rc, "fused_block_merge[exact]")
     return out_d, out_i
+
+
+def exact_plan(wire_dtype, q_local: int, k: int) -> dict:
+    """K3a's launch plan on the current card: query rows per CTA (128, or
+    64 where 128-row groups would not fill the card's resident slots),
+    CTAs, and the kernel's registers, spilled bytes and CTAs per SM."""
+    vals = [ctypes.c_int() for _ in range(5)]
+    rc = _lib().block_merge_exact_plan(_WIRE[wire_dtype], q_local, k,
+                                       *(ctypes.byref(v) for v in vals))
+    if rc != 0:
+        raise RuntimeError(f"block_merge_exact_plan failed: cudaError {rc}")
+    return dict(zip(("rows_per_cta", "ctas", "registers", "spilled_bytes",
+                     "ctas_per_sm"), (v.value for v in vals)))
 
 
 def block_merge_exact_reference(queries, query_ids, block, block_ids,
@@ -325,10 +391,11 @@ def _mixed_finish(queries, query_ids, block, block_ids, block_scale, pos,
 
 
 def fused_block_merge(queries, query_ids, block, block_ids, block_scale,
-                      carry_d, carry_i, *, cfg, q_tile: int, c_tile: int):
+                      carry_d, carry_i, *, cfg, q_tile: int, c_tile: int,
+                      query_norms=None, block_norms=None):
     """Merge one resident ring block into the carry: the per-round compute
     of ``ring_fusion="fused"``. Returns the merged ((q_local, k) dists,
-    ids)."""
+    ids). The norms are K3a's (``block_merge_exact``), where it runs."""
     q_local, b = queries.shape[0], block.shape[0]
     if q_local % q_tile or b % c_tile:
         raise ValueError("caller must pad to tile multiples")
@@ -337,12 +404,13 @@ def fused_block_merge(queries, query_ids, block, block_ids, block_scale,
             "ring_transfer_dtype='int8' circulates int8 codes with their "
             f"scales; got a {block.dtype} block")
     carry_d = carry_d.to(torch.float32)
-    if not (cfg.precision_policy == "mixed" and mixed_applies(cfg.k, c_tile)):
+    if merges_exactly(cfg, c_tile):
         # the exact policy, and the mixed policy's degenerate tile
         return block_merge_exact(
             queries, query_ids, block, block_ids, block_scale, carry_d,
             carry_i, c_tile=c_tile, exclude_self=cfg.exclude_self,
-            exclude_zero=cfg.exclude_zero, zero_eps=cfg.zero_eps)
+            exclude_zero=cfg.exclude_zero, zero_eps=cfg.zero_eps,
+            query_norms=query_norms, block_norms=block_norms)
     pos = block_merge_compress(
         queries, query_ids, block, block_ids, block_scale,
         ov=overfetch_width(cfg.k, c_tile), c_tile=c_tile,

@@ -11,6 +11,14 @@ barrier state they share.
   P-round uni rotation in one launch per card, over two slots per rank;
   float wires only.
 
+A rank's traveler is (block, ids, scale or None, norms or None): the norms
+are the exact prologue's squared norms of the decoded block
+(``fused_ring.stage_wire_norms``), made once per call and moved with the
+block by the kernels themselves, as its ids are; a traveler without them
+is staged by the wrapper (one prologue launch), and the query norms
+likewise (``query_norms``). The plain versions compute their own norms in
+f32 and copy whatever the traveler holds.
+
 One process drives every rank. A launch covers every rank its card holds,
 so a round of K4 is one launch per distinct card (``launches = rounds ×
 cards``) and K5 is one launch per card. The flag words the kernels signal
@@ -36,6 +44,7 @@ from mpi_knn_tpu_torch.ops.fused_ring import (
     _WIRE,
     _check,
     block_merge_exact_reference,
+    stage_wire_norms,
 )
 
 LAUNCHES = {"fused_round_dma": 0, "fused_rotation_grid": 0}
@@ -58,7 +67,8 @@ class _Rank(ctypes.Structure):
     _fields_ = [(name, ctypes.c_void_p) for name in (
         "q", "qids", "blk", "scale", "bids", "carry_d", "carry_i", "out_d",
         "out_i", "dst_blk", "dst_scale", "dst_bids", "flags", "succ_flags",
-        "pred_flags", "slot_blk", "slot_bids", "cbuf_d", "cbuf_i")] + [
+        "pred_flags", "slot_blk", "slot_bids", "cbuf_d", "cbuf_i", "qn", "bn",
+        "dst_bn", "slot_bn")] + [
         ("succ_remote", ctypes.c_int), ("pred_remote", ctypes.c_int)]
 
 
@@ -73,8 +83,9 @@ def _lib() -> ctypes.CDLL:
                                             ctypes.c_longlong, ptr, ptr])
         fn.restype = i32
     lib.ring_enable_peer_access.argtypes = [i32, i32]
+    lib.ring_kernel_plan.argtypes = [i32] * 5 + [ctypes.POINTER(i32)]
     for name in ("ring_enable_peer_access", "ring_max_local", "ring_words",
-                 "ring_rank_bytes"):
+                 "ring_rank_bytes", "ring_kernel_plan"):
         getattr(lib, name).restype = i32
     if lib.ring_rank_bytes() != ctypes.sizeof(_Rank):
         raise RuntimeError("csrc/fused_ring_dma.cu's Rank and _Rank differ")
@@ -161,18 +172,42 @@ def ring_transport(devices) -> RingTransport:
     return _TRANSPORTS[key]
 
 
-def landing_slots(block, ids, scale):
+def traveler(t):
+    """A traveler as (block, ids, scale or None, norms or None)."""
+    t = tuple(t)
+    return t + (None,) * (4 - len(t))
+
+
+def landing_slots(block, ids, scale, norms=None):
     """Two landing slots in the layout of one rank's traveler: ((2, b, d)
-    block, (2, b) ids, (2, b) scales or None), on its device."""
-    return (block.new_empty((2,) + tuple(block.shape)),
-            ids.new_empty((2,) + tuple(ids.shape)),
-            None if scale is None else scale.new_empty((2,) + tuple(scale.shape)))
+    block, (2, b) ids, (2, b) scales or None, (2, b) norms or None), on its
+    device."""
+    def two(t):
+        return None if t is None else t.new_empty((2,) + tuple(t.shape))
+
+    return two(block), two(ids), two(scale), two(norms)
 
 
 def slot(slots, i: int):
-    """Slot i of ``landing_slots``: (block, ids, scale or None)."""
-    blk, ids, scl = slots
-    return blk[i], ids[i], None if scl is None else scl[i]
+    """Slot i of ``landing_slots``: (block, ids, scale, norms), each None
+    where the traveler has none."""
+    return tuple(None if t is None else t[i] for t in traveler(slots))
+
+
+def ring_kernel_plan(which: str, wire_dtype, n_local: int, q_local: int,
+                     k: int) -> dict:
+    """The launch plan of K4 (``which="round"``) or K5 (``"grid"``) over
+    n_local ranks on the current card: query rows per merge group (K4:
+    128, or 64 where 128-row groups would not fill the card's resident
+    slots; K5: 64), the grid, the merge and copy items per round, and the kernel's registers,
+    spilled bytes a thread and CTAs per SM."""
+    out = (ctypes.c_int * 6)()
+    rc = _lib().ring_kernel_plan(0 if which == "round" else 1, _WIRE[wire_dtype],
+                                 n_local, q_local, k, out)
+    if rc != 0:
+        raise RuntimeError(f"ring_kernel_plan failed: cudaError {rc}")
+    return dict(zip(("rows_per_group", "grid", "items_per_round", "registers",
+                     "spilled_bytes", "ctas_per_sm"), out))
 
 
 def _ptr(t):
@@ -180,6 +215,8 @@ def _ptr(t):
 
 
 def _check_ring(queries, query_ids, blocks, carries):
+    """Validates one call's operands (travelers as ``traveler`` makes
+    them); returns whether they lie on the CPU."""
     P = len(queries)
     if not (len(query_ids) == len(blocks) == len(carries) == P >= 1):
         raise ValueError("one query shard, block and carry per rank")
@@ -187,7 +224,7 @@ def _check_ring(queries, query_ids, blocks, carries):
     if any(on_cpu) and not all(on_cpu):
         raise ValueError("a ring's ranks lie all on the CPU or all on cards")
     for r in range(P):
-        blk, ids, scl = blocks[r]
+        blk, ids, scl, _ = blocks[r]
         _check(queries[r], query_ids[r], blk, ids, scl)
         cd, ci = carries[r]
         if (cd.dtype != torch.float32 or ci.dtype != torch.int32
@@ -203,11 +240,15 @@ def _check_ring(queries, query_ids, blocks, carries):
 
 
 def _check_landing(blocks, landing):
+    """The landing buffers match the predecessor's traveler (block, ids,
+    scale); a norms buffer, where there is one, matches its norms."""
     P = len(blocks)
     for r in range(P):
         want = blocks[(r - 1) % P]
         got = landing[r]
-        for w, g in zip(want, got):
+        for j, (w, g) in enumerate(zip(want, got)):
+            if j == 3 and (w is None or g is None):
+                continue
             if (w is None) != (g is None) or (w is not None and (
                     g.shape != w.shape or g.dtype != w.dtype
                     or not g.is_contiguous())):
@@ -215,16 +256,29 @@ def _check_landing(blocks, landing):
                     "landing buffers must match the predecessor's traveler")
 
 
+def _card_norms(queries, blocks, query_norms):
+    """On cards: the query norms and every traveler's block norms, staged
+    where the caller has none."""
+    qn = (list(query_norms) if query_norms is not None
+          else [stage_wire_norms(q, None) for q in queries])
+    blocks = [b if b[3] is not None else b[:3] + (stage_wire_norms(b[0], b[2]),)
+              for b in blocks]
+    return qn, blocks
+
+
 # ---------------------------------------------------------------- K4
 
 def fused_round_dma(ring: RingTransport, queries, query_ids, blocks, carries,
                     landing, *, c_tile: int, exclude_self: bool = True,
                     exclude_zero: bool = True, zero_eps: float = 0.0,
-                    timeout_s: float = TIMEOUT_S):
+                    timeout_s: float = TIMEOUT_S, query_norms=None):
     """One ring round of every rank: rank r's resident ``blocks[r]`` =
-    (block, ids, scale or None) merged exactly into ``carries[r]`` = (d, i),
-    and copied into ``landing[(r + 1) % P]``. Returns the merged carries;
-    the landing buffers then hold each rank's next resident block."""
+    (block, ids, scale or None[, norms]) merged exactly into ``carries[r]``
+    = (d, i), and copied (its norms too, where the landing has a buffer for
+    them) into ``landing[(r + 1) % P]``. Returns the merged carries; the
+    landing buffers then hold each rank's next resident block."""
+    blocks = [traveler(b) for b in blocks]
+    landing = [traveler(t) for t in landing]
     cpu = _check_ring(queries, query_ids, blocks, carries)
     _check_landing(blocks, landing)
     if blocks[0][0].shape[0] % c_tile:
@@ -235,14 +289,15 @@ def fused_round_dma(ring: RingTransport, queries, query_ids, blocks, carries,
         return fused_round_dma_reference(queries, query_ids, blocks, carries,
                                          landing, **kw)
     P = len(queries)
+    qn, blocks = _card_norms(queries, blocks, query_norms)
     ring._ensure_flags()
     ring.epoch += 1
     carries = [(cd.contiguous(), ci.contiguous()) for cd, ci in carries]
     outs = [(torch.empty_like(cd), torch.empty_like(ci)) for cd, ci in carries]
     land_of = [landing[(r + 1) % P] for r in range(P)]  # the successor's
-    ranks = _ranks(ring, queries, query_ids, blocks, carries, outs,
+    ranks = _ranks(ring, queries, query_ids, blocks, carries, outs, qn,
                    dst_blk=[t[0] for t in land_of], dst_bids=[t[1] for t in land_of],
-                   dst_scale=[t[2] for t in land_of])
+                   dst_scale=[t[2] for t in land_of], dst_bn=[t[3] for t in land_of])
     _launch_per_card(ring, "round_dma_launch", "fused_round_dma", ranks,
                      queries, blocks, carries, kw, ring.epoch, timeout_s)
     return outs
@@ -254,26 +309,28 @@ def fused_round_dma_reference(queries, query_ids, blocks, carries, landing,
     """Plain PyTorch version of ``fused_round_dma`` (any device): K3a's
     plain merge for every rank, then each rank's traveler copied into its
     successor's landing buffers."""
+    blocks = [traveler(b) for b in blocks]
     out = [block_merge_exact_reference(
         queries[r], query_ids[r], blk, ids, scl, *carries[r], c_tile=c_tile,
         exclude_self=exclude_self, exclude_zero=exclude_zero,
-        zero_eps=zero_eps) for r, (blk, ids, scl) in enumerate(blocks)]
+        zero_eps=zero_eps) for r, (blk, ids, scl, _) in enumerate(blocks)]
     P = len(blocks)
     for r in range(P):
-        for dst, src in zip(landing[(r + 1) % P], blocks[r]):
-            if src is not None:
+        for dst, src in zip(traveler(landing[(r + 1) % P]), blocks[r]):
+            if src is not None and dst is not None:
                 dst.copy_(src)
     return out
 
 
-def _ranks(ring, queries, query_ids, blocks, carries, outs, **per_rank):
+def _ranks(ring, queries, query_ids, blocks, carries, outs, qn, **per_rank):
     """One ``_Rank`` per ring rank: the operands and flag words every
     launch takes, plus the tensors of ``per_rank`` (field -> one per
     rank)."""
     P = len(queries)
     return [_Rank(
-        q=_ptr(queries[r]), qids=_ptr(query_ids[r]), blk=_ptr(blocks[r][0]),
-        bids=_ptr(blocks[r][1]), scale=_ptr(blocks[r][2]),
+        q=_ptr(queries[r]), qn=_ptr(qn[r]), qids=_ptr(query_ids[r]),
+        blk=_ptr(blocks[r][0]), bids=_ptr(blocks[r][1]),
+        scale=_ptr(blocks[r][2]), bn=_ptr(blocks[r][3]),
         carry_d=_ptr(carries[r][0]), carry_i=_ptr(carries[r][1]),
         out_d=_ptr(outs[r][0]), out_i=_ptr(outs[r][1]),
         flags=ring.words(r), succ_flags=ring.words((r + 1) % P),
@@ -289,7 +346,7 @@ def _launch_per_card(ring, fn_name, name, ranks, queries, blocks, carries, kw,
     """One launch per card over the ranks it holds, then the error check."""
     lib = _lib()
     fn = getattr(lib, fn_name)
-    q0, (blk0, _, _), (cd0, _) = queries[0], blocks[0], carries[0]
+    q0, blk0, (cd0, _) = queries[0], blocks[0][0], carries[0]
     for card in ring.cards:
         local = ring.local[card]
         arr = (_Rank * len(local))(*(ranks[r] for r in local))
@@ -323,13 +380,16 @@ def float_wire_only_error(dtype) -> ValueError:
 def fused_rotation_grid(ring: RingTransport, queries, query_ids, blocks,
                         carries, slots, *, c_tile: int,
                         exclude_self: bool = True, exclude_zero: bool = True,
-                        zero_eps: float = 0.0, timeout_s: float = TIMEOUT_S):
+                        zero_eps: float = 0.0, timeout_s: float = TIMEOUT_S,
+                        query_norms=None):
     """The whole uni rotation: P rounds in which every rank merges its
-    resident block, round 0 its own ``blocks[r]`` = (block, ids, None) and
-    round j the block in its slot j % 2 of ``slots[r]`` (``landing_slots``),
-    while the resident block streams into the successor's slot (j + 1) % 2.
-    Returns the final carries."""
-    for blk, _, scl in blocks:
+    resident block, round 0 its own ``blocks[r]`` = (block, ids, None[,
+    norms]) and round j the block in its slot j % 2 of ``slots[r]``
+    (``landing_slots``), while the resident block streams (with its norms)
+    into the successor's slot (j + 1) % 2. Returns the final carries."""
+    blocks = [traveler(b) for b in blocks]
+    slots = [traveler(s) for s in slots]
+    for blk, _, scl, _ in blocks:
         if not blk.dtype.is_floating_point or scl is not None:
             raise float_wire_only_error(blk.dtype)
     cpu = _check_ring(queries, query_ids, blocks, carries)
@@ -346,16 +406,21 @@ def fused_rotation_grid(ring: RingTransport, queries, query_ids, blocks,
         return fused_rotation_grid_reference(queries, query_ids, blocks,
                                              carries, slots, **kw)
     P = len(queries)
+    qn, blocks = _card_norms(queries, blocks, query_norms)
+    slots = [s if s[3] is not None else s[:3] + (b[3].new_empty((2,) + tuple(b[3].shape)),)
+             for s, b in zip(slots, blocks)]
     ring._ensure_flags()
     ring.calls += 1
     carries = [(cd.contiguous(), ci.contiguous()) for cd, ci in carries]
     outs = [(torch.empty_like(cd), torch.empty_like(ci)) for cd, ci in carries]
     cbufs = [(cd.new_empty((2,) + tuple(cd.shape)),
               ci.new_empty((2,) + tuple(ci.shape))) for cd, ci in carries]
-    ranks = _ranks(ring, queries, query_ids, blocks, carries, outs,
+    ranks = _ranks(ring, queries, query_ids, blocks, carries, outs, qn,
                    dst_blk=[slots[(r + 1) % P][0] for r in range(P)],
                    dst_bids=[slots[(r + 1) % P][1] for r in range(P)],
+                   dst_bn=[slots[(r + 1) % P][3] for r in range(P)],
                    slot_blk=[s[0] for s in slots], slot_bids=[s[1] for s in slots],
+                   slot_bn=[s[3] for s in slots],
                    cbuf_d=[c[0] for c in cbufs], cbuf_i=[c[1] for c in cbufs])
     _launch_per_card(ring, "rotation_grid_launch", "fused_rotation_grid",
                      ranks, queries, blocks, carries, kw, ring.calls, timeout_s)
@@ -371,7 +436,7 @@ def fused_rotation_grid_reference(queries, query_ids, blocks, carries, slots,
     P = len(blocks)
     kw = dict(c_tile=c_tile, exclude_self=exclude_self,
               exclude_zero=exclude_zero, zero_eps=zero_eps)
-    held = list(blocks)
+    held = [traveler(b) for b in blocks]
     for r in range(P):
         if r < P - 1:
             land = [slot(s, (r + 1) % 2) for s in slots]
@@ -381,5 +446,5 @@ def fused_rotation_grid_reference(queries, query_ids, blocks, carries, slots,
         else:
             carries = [block_merge_exact_reference(
                 queries[i], query_ids[i], blk, ids, scl, *carries[i], **kw)
-                for i, (blk, ids, scl) in enumerate(held)]
+                for i, (blk, ids, scl, _) in enumerate(held)]
     return carries

@@ -4,9 +4,12 @@ CUDA device and nvcc; they skip elsewhere. On the card:
     python -m pytest --noconftest tests/test_torch_cuda.py -m cuda -q
 
 The data are multiples of 1/16 or 1/4 small enough that every product and
-sum is exact in f32 and every value is exact in bf16, and rows whose
-largest magnitude is 127/16 quantize to int8 without loss: kernel and plain
-version must then agree bit for bit, ids, positions and distances.
+sum is exact in f32 and every value is exact in bf16 (and in TF32, so the
+exact tile splits them with lo = 0), and rows whose largest magnitude is
+127/16 quantize to int8 without loss: kernel and plain version must then
+agree bit for bit, ids, positions and distances. On centered MNIST-like
+rows the exact kernels' keys must stay within the error gate of f64, and
+the exact prologue's norms must equal the exact tile's own diagonal.
 """
 
 import numpy as np
@@ -104,10 +107,70 @@ def test_compress_wrappers_count_stage_launches(cuda_device):
     assert fused_knn.LAUNCHES == {
         "fused_knn_tiles": 0, "fused_knn_sweep": 0,
         "fused_knn_tiles[compress]": 1, "fused_knn_sweep[compress]": 1,
-        "stage_bf16": 4}
+        "stage_tf32": 0, "stage_bf16": 4}
     assert fused_ring.LAUNCHES == {"fused_block_merge[exact]": 0,
                                    "fused_block_merge[compress]": 1,
+                                   "stage_tf32[wire]": 0,
                                    "stage_bf16[wire]": 2}
+
+
+@pytest.mark.cuda
+def test_exact_wrappers_count_stage_launches(cuda_device):
+    """Each exact call stages the norms of its two row sets once (two
+    prologue launches) and launches its kernel once; norms handed in are
+    not staged again."""
+    fused_knn.reset_launch_counts()
+    fused_ring.reset_launch_counts()
+    X = torch.from_numpy((np.random.default_rng(4).integers(0, 8, (256, 40))
+                          * 0.25).astype(np.float32)).to(cuda_device)
+    fused_knn.fused_knn_tiles(X, X, 256, 8, 128, 128)
+    fused_knn.fused_knn_sweep(X, X, 256, 8, 128, 128)
+    q, qids, blk, bids, scale = _ring_operands(cuda_device, "int8")
+    cd, ci = _carry(q, blk.float() * scale[:, None], bids, 10)
+    fused_ring.block_merge_exact(q, qids, blk, bids, scale, cd, ci, c_tile=128)
+    fused_ring.block_merge_exact(
+        q, qids, blk, bids, scale, cd, ci, c_tile=128,
+        query_norms=fused_ring.stage_wire_norms(q, None),
+        block_norms=fused_ring.stage_wire_norms(blk, scale))
+    torch.cuda.synchronize()
+    assert fused_knn.LAUNCHES == {
+        "fused_knn_tiles": 1, "fused_knn_sweep": 1,
+        "fused_knn_tiles[compress]": 0, "fused_knn_sweep[compress]": 0,
+        "stage_tf32": 4, "stage_bf16": 0}
+    assert fused_ring.LAUNCHES == {"fused_block_merge[exact]": 2,
+                                   "fused_block_merge[compress]": 0,
+                                   "stage_tf32[wire]": 4,
+                                   "stage_bf16[wire]": 0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["fused_knn_tiles", "fused_knn_sweep"])
+@pytest.mark.parametrize("all_pairs", [True, False])
+@pytest.mark.parametrize("dim", [24, 33, 100, 784])
+@pytest.mark.parametrize("k", [1, 10, 64, 65, 150])
+def test_exact_kernels_equal_plain_on_ragged_shapes(cuda_device, name,
+                                                    all_pairs, dim, k):
+    """The TF32x3 tile at shapes off its 128 x 128 CTA tile and its 16-deep
+    slices (33: rows not 16-byte aligned, staged through registers), list
+    widths on both sides of the register lists (64) and of the shared
+    lists (128), and in query mode a NaN query row."""
+    rng = np.random.default_rng(5)
+    X = np.zeros((450, dim), np.float32)
+    X[:440] = rng.integers(0, 8, (440, dim)) * 0.25
+    X[5] = X[60]
+    Q = X if all_pairs else X[:200] + 0.25
+    if not all_pairs:
+        Q[9] = np.nan
+    Q = torch.from_numpy(np.ascontiguousarray(Q)).to(cuda_device)
+    X = torch.from_numpy(X).to(cuda_device)
+    args = (Q, X, 440, k, 9 if all_pairs else 8, 150)
+    gd, gi = getattr(fused_knn, name)(*args, all_pairs=all_pairs)
+    torch.cuda.synchronize()
+    wd, wi = getattr(fused_knn, name + "_reference")(*args, all_pairs=all_pairs)
+    assert torch.equal(gi, wi)
+    _same(gd, wd)
+    if not all_pairs:
+        assert bool(torch.isnan(gd[9]).all()) and bool((gi[9] == -1).all())
 
 
 def _ring_operands(device, wire, q_local=96, b=256, dim=24, seed=0):
@@ -150,9 +213,13 @@ def _carry(q, blk, bids, k):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("wire", ["float32", "bfloat16", "int8"])
-@pytest.mark.parametrize("k", [10, 150])
-def test_block_merge_exact_equals_plain(cuda_device, wire, k):
-    q, qids, blk, bids, scale = _ring_operands(cuda_device, wire)
+@pytest.mark.parametrize("k", [1, 10, 65, 150])
+@pytest.mark.parametrize("dim", [24, 33, 100, 784])
+def test_block_merge_exact_equals_plain(cuda_device, wire, k, dim):
+    """K3a on the TF32x3 tile: 96 query rows and a 256-row block, widths
+    off the 16-deep slice, every wire (bf16 and int8 decoded in registers),
+    a NaN query row that poisons its row."""
+    q, qids, blk, bids, scale = _ring_operands(cuda_device, wire, dim=dim)
     q[9] = float("nan")
     rows = blk.float() if scale is None else blk.float() * scale[:, None]
     cd, ci = _carry(q, rows, bids, k)
@@ -166,6 +233,117 @@ def test_block_merge_exact_equals_plain(cuda_device, wire, k):
     assert torch.equal(got[1], want[1])
     _same(got[0], want[0])
     assert bool(torch.isnan(got[0][9]).all()) and bool((got[1][9] == -1).all())
+
+
+@pytest.mark.cuda
+def test_block_merge_exact_wide_groups_equal_plain(cuda_device):
+    """A shard large enough for K3a's 128-row groups (the narrow 64-row
+    groups serve shapes that would leave the card's slots empty)."""
+    q, qids, blk, bids, scale = _ring_operands(cuda_device, "float32",
+                                               q_local=40000, b=384, dim=40)
+    plan = fused_ring.exact_plan(torch.float32, 40000, 10)
+    assert plan["rows_per_cta"] == 128 and plan["ctas"] == 313
+    small = fused_ring.exact_plan(torch.float32, 96, 10)
+    assert small["rows_per_cta"] == 64 and small["ctas"] == 2
+    cd, ci = _carry(q[:4096], blk.float(), bids, 10)
+    cd = torch.cat([cd, cd.new_full((40000 - 4096, 10), float("inf"))])
+    ci = torch.cat([ci, ci.new_full((40000 - 4096, 10), -1)])
+    got = fused_ring.block_merge_exact(q, qids, blk, bids, scale, cd, ci,
+                                       c_tile=128)
+    torch.cuda.synchronize()
+    want = fused_ring.block_merge_exact_reference(q, qids, blk, bids, scale,
+                                                  cd, ci, c_tile=128)
+    assert torch.equal(got[1], want[1])
+    _same(got[0], want[0])
+
+
+def _centered_mnist(device, m=2048, seed=0):
+    from mpi_knn_tpu_torch.data.synthetic import make_mnist_like
+
+    X, _ = make_mnist_like(m, seed=seed)
+    Xc = (X - X.astype(np.float64).mean(0)).astype(np.float32)
+    return torch.from_numpy(Xc).to(device)
+
+
+def _rel_err(X, rows, ids, d):
+    """|d - d_f64| / (q^2 + c^2) over the finite slots of (rows, ids, d)."""
+    fin = torch.isfinite(d) & (ids >= 0)
+    q, c = X[rows].double(), X[ids.clamp_min(0).long()].double()
+    d64 = ((q - c) ** 2).sum(-1)
+    scale = (q ** 2).sum(-1) + (c ** 2).sum(-1)
+    return torch.where(fin, (d.double() - d64).abs() / scale,
+                       torch.zeros_like(d64)).max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [0, 1])
+def test_exact_keys_within_the_error_gate(cuda_device, seed):
+    """Centered MNIST-like rows (not integers, so lo != 0): every key the
+    exact sweep and K3a report is within max(5e-7, 2x the plain
+    version's) of its f64 distance, relative to q^2 + c^2."""
+    X = _centered_mnist(cuda_device, seed=seed)
+    n = X.shape[0]
+    rows = torch.arange(n, device=cuda_device)[:, None].expand(n, 10)
+    gd, gi = fused_knn.fused_knn_sweep(X, X, n, 10, 128, 256)
+    wd, wi = fused_knn.fused_knn_sweep_reference(X, X, n, 10, 128, 256)
+    torch.cuda.synchronize()
+    gate = max(5e-7, 2 * _rel_err(X, rows, wi, wd))
+    assert _rel_err(X, rows, gi, gd) <= gate
+    ids = torch.arange(n, dtype=torch.int32, device=cuda_device)
+    carry = (torch.full((n, 10), float("inf"), device=cuda_device),
+             torch.full((n, 10), -1, dtype=torch.int32, device=cuda_device))
+    kd, ki = fused_ring.block_merge_exact(X, ids, X, ids, None, *carry, c_tile=256)
+    pd, pi = fused_ring.block_merge_exact_reference(X, ids, X, ids, None, *carry,
+                                                    c_tile=256)
+    gate = max(5e-7, 2 * _rel_err(X, rows, pi, pd))
+    assert _rel_err(X, rows, ki, kd) <= gate
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dim", [777, 784])  # rows staged in registers / by cp.async
+def test_prologue_norms_equal_the_tiles_diagonal(cuda_device, dim):
+    """The exact prologue's norms (both entries) equal, bit for bit, the
+    exact tile's own products of each row with itself, wherever the row
+    sits in the tile's fragments (rows permuted against the columns)."""
+    X = _centered_mnist(cuda_device, m=1000)[:, :dim].contiguous()
+    perm = torch.randperm(1000, generator=torch.Generator().manual_seed(0))
+    perm = perm.to(cuda_device)
+    norms = fused_knn.stage_tf32_rows(X)
+    assert torch.equal(norms, fused_ring.stage_wire_norms(X, None))
+    dots = fused_knn.exact_tile_dots(X, X[perm])
+    torch.cuda.synchronize()
+    inv = torch.empty_like(perm)
+    inv[perm] = torch.arange(1000, device=cuda_device)
+    assert torch.equal(dots[torch.arange(1000, device=cuda_device), inv], norms)
+    assert torch.equal(torch.diagonal(fused_knn.exact_tile_dots(X, X)), norms)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["fused_knn_tiles", "fused_knn_sweep"])
+def test_exact_duplicates_are_excluded_at_any_fragment_position(cuda_device,
+                                                                name):
+    """Duplicate pairs planted at rows of every residue mod 16 (the A
+    fragment's rows) against columns of every residue mod 8 (the B
+    fragment's), on non-integer rows: with the zero rule on, each is
+    excluded; with it off, the pair's distance is exactly 0."""
+    X = _centered_mnist(cuda_device, m=1024, seed=2)
+    pairs = [(16 * i + i, 512 + 8 * (3 * i) + i % 8) for i in range(16)]
+    for a, b in pairs:
+        X[b] = X[a]
+    n = X.shape[0]
+    kern = getattr(fused_knn, name)
+    d, i = kern(X, X, n, 10, 128, 256)
+    torch.cuda.synchronize()
+    if name == "fused_knn_tiles":
+        d, i = fused_knn._select(d, i, 10)
+    for a, b in pairs:
+        assert b not in i[a].tolist() and a not in i[b].tolist()
+    d, i = kern(X, X, n, 3, 128, 256, exclude_zero=False)
+    if name == "fused_knn_tiles":
+        d, i = fused_knn._select(d, i, 3)
+    for a, b in pairs:
+        row = dict(zip(i[a].tolist(), d[a].tolist()))
+        assert row.get(b) == 0.0
 
 
 @pytest.mark.cuda
@@ -241,10 +419,11 @@ def _ring_of(device, P, wire, q_local=96, b=256, dim=24, k=10):
 @pytest.mark.parametrize("wire", ["float32", "bfloat16", "int8"])
 @pytest.mark.parametrize("P", [1, 4])
 @pytest.mark.parametrize("cross", [False, True])
-def test_round_dma_equals_plain(cuda_device, wire, P, cross):
+@pytest.mark.parametrize("dim", [24, 100])
+def test_round_dma_equals_plain(cuda_device, wire, P, cross, dim):
     """K4 on one card named P times (P=1: the block copied to itself);
     ``cross`` runs the cross-card barrier and flags within the card."""
-    queries, qids, blocks, carries = _ring_of(cuda_device, P, wire)
+    queries, qids, blocks, carries = _ring_of(cuda_device, P, wire, dim=dim)
     queries[0][9] = float("nan")
     ring = fused_rotation.RingTransport([cuda_device] * P,
                                         cross_card=[cross] * P)
@@ -274,8 +453,9 @@ def test_round_dma_equals_plain(cuda_device, wire, P, cross):
 @pytest.mark.parametrize("wire", ["float32", "bfloat16"])
 @pytest.mark.parametrize("P", [1, 2, 4])
 @pytest.mark.parametrize("cross", [False, True])
-def test_rotation_grid_equals_plain(cuda_device, wire, P, cross):
-    queries, qids, blocks, carries = _ring_of(cuda_device, P, wire)
+@pytest.mark.parametrize("dim", [24, 100])
+def test_rotation_grid_equals_plain(cuda_device, wire, P, cross, dim):
+    queries, qids, blocks, carries = _ring_of(cuda_device, P, wire, dim=dim)
     ring = fused_rotation.RingTransport([cuda_device] * P,
                                         cross_card=[cross] * P)
     slots = [fused_rotation.landing_slots(*b) for b in blocks]

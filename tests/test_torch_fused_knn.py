@@ -154,4 +154,4 @@ def test_launch_counts_untouched_by_plain_versions():
     assert fused_knn.LAUNCHES == {
         "fused_knn_tiles": 0, "fused_knn_sweep": 0,
         "fused_knn_tiles[compress]": 0, "fused_knn_sweep[compress]": 0,
-        "stage_bf16": 0}
+        "stage_tf32": 0, "stage_bf16": 0}

@@ -160,4 +160,5 @@ def test_launch_counts_untouched_by_plain_versions():
             q_tile=Q_TILE, c_tile=C_TILE)
     assert fused_ring.LAUNCHES == {"fused_block_merge[exact]": 0,
                                    "fused_block_merge[compress]": 0,
+                                   "stage_tf32[wire]": 0,
                                    "stage_bf16[wire]": 0}
