@@ -66,30 +66,37 @@ is not 0:
    The exact ring's ids must agree with the exact fused path's (tie-aware,
    by f64 distance, >= 0.999);
 5. kernels: one line with every kernel mode's launches, error, times and
-   bound, the prologues (`stage_tf32`, `stage_tf32[wire]`, `stage_bf16`,
-   `stage_bf16[wire]`) among them.
+   bound, the prologues (`stage_tf32_split`, `stage_tf32[wire]`,
+   `stage_bf16`, `stage_bf16[wire]`) among them.
 
-Every kernel runs on the tensor cores: the exact ones (K1, K2, K3a, K4,
-K5) as three TF32 passes of split f32 operands after a prologue that
-writes the norms (`stage_tf32`, `stage_tf32[wire]`), the compress ones
-(K1[c], K2[c], K3b) as one bf16 pass on copies that their prologue writes
-with f32 norms. A kernel's `ms` is the kernel alone on staged operands,
-`call_ms` the wrapper with its prologue launches; the exact rows' bound is
-three times the needed FLOP at the dense TF32 peak (`bound_ffma_ms` keeps
-the FP32 bound of one FFMA product). Beside them the script prints, per
-kernel, registers and spilled bytes a thread and CTAs per SM
-(`kernel_resources`, from cudaFuncGetAttributes and the occupancy API;
-for K3a, K4 and K5 the launch plan at each shape: rows per CTA, CTAs,
-grid, items per round), the count of HMMA instructions in its SASS
+Every kernel runs on the tensor cores. The exact K1 and K2 run wgmma: three
+TF32 passes of hi/lo planes that their prologue `stage_tf32_split` writes
+once with the norms, loaded by TMA; the exact ring kernels (K3a, K4, K5)
+run mma.sync on split f32 operands after the norm prologue
+`stage_tf32[wire]`; the compress ones (K1[c], K2[c], K3b) one bf16 mma.sync
+pass on copies that their prologue writes with f32 norms. A kernel's `ms`
+is the kernel alone on staged operands, `call_ms` the wrapper with its
+prologue launches; the exact rows' bound is three times the needed FLOP at
+the dense TF32 peak (`bound_ffma_ms` keeps the FP32 bound of one FFMA
+product). Beside them the script prints, per kernel, registers and spilled
+bytes a thread and CTAs per SM (`kernel_resources`, from
+cudaFuncGetAttributes and the occupancy API; the launch plans: for K1/K2
+the persistent grid and its items, for K3a, K4 and K5 rows per CTA, CTAs,
+grid, items per round at each shape), the count of HGMMA (wgmma: K1, K2,
+their prologue) or HMMA (mma.sync: the rest) instructions in its SASS
 (`cuobjdump -sass` of the built libraries; it must be > 0), the "product
 alone" of each policy (torch.matmul on the same operands in query chunks:
 bf16 copies, and f32 with TF32 off, cuBLAS's SGEMM), and the
 `exact_error` phase: on every slot of K1's, K2's and K3a's main-shape
 outputs, max and 99.99th percentile of |d - d_f64| / (q^2 + c^2), the
-plain version's beside it; the gate is max <= max(5e-7, 2x the plain's).
-The `mma_ceiling` phase measures the card's mma.sync rate (a probe kernel
-of independent products, tf32 m16n8k8 and bf16 m16n8k16) and the floor it
-sets at the main shape: three tf32 passes, or one bf16 pass.
+plain version's beside it; the gate is max <= min(1e-6, the plain's) for
+K1 and K2 and max <= max(5e-7, 2x the plain's) for K3a. The
+`exact_error_interval` phase measures K2 built with the other promotion
+intervals of the wgmma tile (8 and 32 deep, and none). The `mma_ceiling`
+phase measures the card's tensor-core rates (probe kernels of wgmma
+m64n128k8 tf32, and of independent mma.sync tf32 m16n8k8 and bf16
+m16n8k16 products) and the floors they set at the main shape: three tf32
+passes, or one bf16 pass.
 
 The last line is {"ok": true, "device": {...}}. Without a card, or without
 the package beside it, the script exits non-zero and prints no result.
@@ -112,6 +119,7 @@ PEAK_FP32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 494.7e12
 PEAK_BF16_FLOPS = 989e12
 ERROR_GATE = 5e-7  # |d - d_f64| / (q^2 + c^2) floor of the exact_error gate
+ZERO_RULE = 1e-6  # the zero-distance rule's rtol: K1/K2's error ceiling
 PEAK_BYTES_PER_S = 3.35e12
 RECALL_GATE = 0.999
 AGREEMENT_GATE = 0.999
@@ -124,16 +132,17 @@ SAMPLE_ROWS = 4096  # rows whose ids are judged in f64 at the largest shapes
 
 def source_of(kernel: str) -> str:
     """The CUDA source of a kernel mode, under mpi_knn_tpu_torch/csrc/."""
-    if kernel.startswith("fused_knn") or kernel in ("stage_tf32", "stage_bf16"):
+    if kernel.startswith("fused_knn") or kernel in ("stage_tf32_split", "stage_bf16"):
         return "fused_knn.cu"
     if kernel.startswith(("fused_block_merge", "stage")):
         return "fused_ring.cu"
     return "fused_ring_dma.cu"
 
 
-def sass_hmma_counts(lib_path) -> dict:
-    """{kernel function (mangled): HMMA instructions in its SASS}, from
-    ``cuobjdump -sass`` of a built kernel library."""
+def sass_mma_counts(lib_path) -> dict:
+    """{kernel function (mangled): {"HMMA": n, "HGMMA": n}}, the mma.sync
+    and wgmma instructions in its SASS, from ``cuobjdump -sass`` of a built
+    kernel library."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     out = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
                          text=True, timeout=300, check=True).stdout
@@ -142,9 +151,11 @@ def sass_hmma_counts(lib_path) -> dict:
         m = re.search(r"Function : (\S+)", line)
         if m:
             cur = m.group(1)
-            counts[cur] = 0
-        elif cur is not None and "HMMA" in line:
-            counts[cur] += 1
+            counts[cur] = {"HMMA": 0, "HGMMA": 0}
+        elif cur is not None:
+            for op in ("HGMMA", "HMMA"):
+                if re.search(rf"\b{op}\b", line):
+                    counts[cur][op] += 1
     return counts
 
 
@@ -441,9 +452,11 @@ def rel_errors(q, c, ids, d):
     return torch.cat(out)
 
 
-def exact_error(name, q, c, got, want) -> dict:
+def exact_error(name, q, c, got, want, strict=False) -> dict:
     """The exact_error line of a kernel's (dists, ids) and its plain
-    version's on the same inputs; fails past the gate."""
+    version's on the same inputs; fails past the gate: max(5e-7, 2x the
+    plain version's), or with ``strict`` (the wgmma tile of K1/K2) the zero
+    rule's 1e-6 and no more than the plain version's."""
     import torch
 
     def stats(e):
@@ -453,7 +466,9 @@ def exact_error(name, q, c, got, want) -> dict:
     line = {"phase": "exact_error", "kernel": name,
             "kernel_err": stats(rel_errors(q, c, got[1], got[0])),
             "plain_err": stats(rel_errors(q, c, want[1], want[0]))}
-    line["gate"] = max(ERROR_GATE, 2.0 * line["plain_err"]["max"])
+    plain_max = line["plain_err"]["max"]
+    line["gate"] = (min(ZERO_RULE, plain_max) if strict
+                    else max(ERROR_GATE, 2.0 * plain_max))
     line["ok"] = line["kernel_err"]["max"] <= line["gate"]
     emit(line)
     if not line["ok"]:
@@ -568,19 +583,26 @@ def main() -> int:
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "allow_tf32": torch.backends.cuda.matmul.allow_tf32})
 
-    info = _build.build_all()
-    for name, entry in info.items():
+    # the exact wgmma tile at the other promotion intervals (k-steps of 8;
+    # 0: none), built beside the sources for the exact_error_interval phase
+    intervals = {f"KNN_WGMMA_PROMOTE={n}": 8 * n for n in (0, 1, 4)}
+    info = _build.build_all(variants=[("fused_knn", (d,)) for d in intervals])
+    for label, entry in info.items():
         print(entry["log"], file=sys.stderr)
-        emit({"phase": "build", "source": f"csrc/{name}.cu",
+        name, *defines = label.split(" ")
+        emit({"phase": "build", "source": f"csrc/{name}.cu", "defines": defines,
               "seconds": entry["seconds"], "cached": entry["log"] == "cached"})
 
     # ---- every kernel: tensor-core instructions and resources -------------
-    hmma = {}
+    mma = {}
     for src in _build.SOURCES:
-        hmma.update(sass_hmma_counts(_build._lib_path(src)))
-    emit({"phase": "sass", "hmma_by_function": hmma})
+        mma.update(sass_mma_counts(_build._lib_path(src)))
+    emit({"phase": "sass", "mma_by_function": mma})
+    # the exact K1/K2 and their prologue run wgmma (HGMMA), the rest mma.sync
+    wgmma_kernels = ("fused_knn_tiles", "fused_knn_sweep", "stage_tf32_split")
     kernel_fns = {"fused_knn_tiles": "fused_knn_tiles_kernel",
                   "fused_knn_sweep": "fused_knn_sweep_kernel",
+                  "stage_tf32_split": "stage_split_kernel",
                   "fused_knn_tiles[compress]": "fused_knn_tiles_compress_kernel",
                   "fused_knn_sweep[compress]": "fused_knn_sweep_compress_kernel",
                   "fused_block_merge[exact]": "block_merge_exact_kernel",
@@ -588,10 +610,16 @@ def main() -> int:
                   "fused_round_dma": "round_dma_kernel",
                   "fused_rotation_grid": "rotation_grid_kernel"}
     for name, fn in kernel_fns.items():
-        n = sum(v for f, v in hmma.items() if fn in f)
+        op = "HGMMA" if name in wgmma_kernels else "HMMA"
+        n = sum(v[op] for f, v in mma.items() if fn in f)
         kk = OV if "[compress]" in name else K
-        if name.startswith("fused_knn"):
+        if name == "stage_tf32_split":
+            info = {}
+        elif name.startswith("fused_knn"):
             info = fused_knn.kernel_info(name, kk)
+            if "[compress]" not in name:  # the persistent grid at the main shape
+                info["plan"] = fused_knn.exact_plan(name, 60416, 61440, C_TILE, K)
+                info["plan"]["sms"] = sms
         elif name == "fused_block_merge[compress]":
             info = fused_ring.compress_kernel_info(OV)
         elif name == "fused_block_merge[exact]":  # at the P=1 and shard shapes
@@ -607,15 +635,18 @@ def main() -> int:
                     last = plan["items_per_round"] % plan["grid"] or plan["grid"]
                     plan["last_wave_fill"] = last / plan["grid"]
         emit({"phase": "kernel_resources", "kernel": name, "function": fn,
-              "k": kk, "hmma_in_sass": n, **info})
+              "k": kk, f"{op.lower()}_in_sass": n, **info})
         if n <= 0:
-            raise AssertionError(f"{name}: no HMMA instruction in its SASS")
+            raise AssertionError(f"{name}: no {op} instruction in its SASS")
 
-    # ---- the ceiling of the tiles' products: the card's mma.sync rate -----
+    # ---- the ceiling of the tiles' products: the card's tensor-core rates --
     needed = 2.0 * M_FULL * M_FULL * 784  # the main shape's products, D = 784
-    rates = {"tf32_m16n8k8": fused_knn.mma_rate(device, True),
+    rates = {"tf32_wgmma_m64n128k8": fused_knn.wgmma_rate(device),
+             "tf32_m16n8k8": fused_knn.mma_rate(device, True),
              "bf16_m16n8k16": fused_knn.mma_rate(device, False)}
     emit({"phase": "mma_ceiling", "tflops": rates,
+          "tf32x3_wgmma_floor_ms_main_shape":
+              3 * needed / (rates["tf32_wgmma_m64n128k8"] * 1e12) * 1e3,
           "tf32x3_floor_ms_main_shape": 3 * needed / (rates["tf32_m16n8k8"] * 1e12) * 1e3,
           "bf16x1_floor_ms_main_shape": needed / (rates["bf16_m16n8k16"] * 1e12) * 1e3})
 
@@ -649,10 +680,10 @@ def main() -> int:
     X, y = make_mnist_like(M_FULL)
     Xc = centered(X)
     Xcd = torch.from_numpy(Xc).to(device)
-    qp = pad_rows_any(Xc, pad_to_multiple(M_FULL, Q_TILE), dtype=torch.float32,
-                      device=device)
+    # the queries are the padded corpus' first rows, as on the main path
     cp = pad_rows_any(Xc, pad_to_multiple(M_FULL, C_TILE), dtype=torch.float32,
                       device=device)
+    qp = cp[:pad_to_multiple(M_FULL, Q_TILE)]
     Q, D = qp.shape
     C = cp.shape[0]
     n_c = C // C_TILE
@@ -675,7 +706,7 @@ def main() -> int:
     timing = {}
     self_all = torch.arange(Q, device=device)
     staged = (fused_knn.stage_bf16_rows(qp), fused_knn.stage_bf16_rows(cp))
-    norms = (fused_knn.stage_tf32_rows(qp), fused_knn.stage_tf32_rows(cp))
+    split = fused_knn._stage_exact(qp, cp)  # qp is cp's first rows: staged once
     for name, (kern, plain, compress) in knn_modes.items():
         kk = OV if compress else K
         args = (qp, cp, M_FULL, kk, Q_TILE, C_TILE)
@@ -688,7 +719,7 @@ def main() -> int:
                 base, *staged, M_FULL, kk, C_TILE), reps=3)
         else:
             ms = cuda_ms(lambda: fused_knn.launch_exact(
-                base, qp, norms[0], cp, norms[1], M_FULL, kk, C_TILE), reps=3)
+                base, *split, M_FULL, kk, C_TILE), reps=3)
         plain_ms = cuda_ms(lambda: plain(*args, **kw), reps=3)
         # the exact lists are judged on every row; compress lists are 4x as
         # long, so a sample of rows
@@ -700,7 +731,8 @@ def main() -> int:
             final = [(fused_knn._select(*t, K) if base == "fused_knn_tiles" else t)
                      for t in (got, want)]
             exact_error(
-                name, qp[:M_FULL], cp, *((d[:M_FULL], i[:M_FULL]) for d, i in final))
+                name, qp[:M_FULL], cp, *((d[:M_FULL], i[:M_FULL]) for d, i in final),
+                strict=True)
         out_slots = (n_c if name.startswith("fused_knn_tiles") else 1) * M_FULL * kk
         nbytes = 4.0 * (2 * M_FULL * D) + 8.0 * out_slots
         timing[name] = {"ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
@@ -711,34 +743,37 @@ def main() -> int:
               "k": kk, **timing[name]})
         del got, want
 
-    # the exact tile without promotion (a -DKNN_TF32_PROMOTE=0 build of the
-    # kernel and its prologue), on the same inputs: error and time of K2
-    variant = fused_knn.configure(_build.load("fused_knn", ("KNN_TF32_PROMOTE=0",)))
+    # the exact wgmma tile at the other promotion intervals (measurement
+    # builds of K2 and its prologue), on the same inputs: error and time
     stream = torch.cuda.current_stream().cuda_stream
-    var_norms = [torch.empty(x.shape[0], dtype=torch.float32, device=device)
-                 for x in (qp, cp)]
-    for x, n in zip((qp, cp), var_norms):
-        if variant.stage_tf32_f32_launch(x.data_ptr(), n.data_ptr(), x.shape[0],
-                                         D, stream):
-            raise AssertionError("unpromoted stage_tf32 launch failed")
-    var_d = torch.empty((Q, K), dtype=torch.float32, device=device)
-    var_i = torch.empty((Q, K), dtype=torch.int32, device=device)
+    for define, depth in intervals.items():
+        variant = fused_knn.configure(_build.load("fused_knn", (define,)))
+        planes = [torch.empty((C, D), dtype=torch.float32, device=device)
+                  for _ in range(2)]
+        var_norms = torch.empty(C, dtype=torch.float32, device=device)
+        if variant.stage_tf32_split_launch(cp.data_ptr(), planes[0].data_ptr(),
+                                           planes[1].data_ptr(), var_norms.data_ptr(),
+                                           C, D, D, stream):
+            raise AssertionError(f"{define}: stage_tf32_split launch failed")
+        var_ptrs = [t.data_ptr() for t in (*planes, var_norms)] * 2
+        var_d = torch.empty((Q, K), dtype=torch.float32, device=device)
+        var_i = torch.empty((Q, K), dtype=torch.int32, device=device)
 
-    def unpromoted_k2():
-        if variant.fused_knn_sweep_launch(
-                qp.data_ptr(), var_norms[0].data_ptr(), cp.data_ptr(),
-                var_norms[1].data_ptr(), var_d.data_ptr(), var_i.data_ptr(), Q, C,
-                D, M_FULL, K, 1, 1, 1, 0.0, stream):
-            raise AssertionError("unpromoted K2 launch failed")
+        def variant_k2():
+            if variant.fused_knn_sweep_launch(
+                    *var_ptrs, var_d.data_ptr(), var_i.data_ptr(), Q, C, D, M_FULL, K,
+                    1, 1, 1, 0.0, stream):
+                raise AssertionError(f"{define}: K2 launch failed")
 
-    unpromoted_k2()
-    e = rel_errors(qp[:M_FULL], cp, var_i[:M_FULL], var_d[:M_FULL])
-    emit({"phase": "exact_error_unpromoted", "kernel": "fused_knn_sweep",
-          "build": "-DKNN_TF32_PROMOTE=0", "ms": cuda_ms(unpromoted_k2, reps=3),
-          "kernel_err": {"max": float(e.max()),
-                         "p99_99": float(torch.quantile(e, 0.9999)),
-                         "pairs": int(e.numel())}})
-    del variant, var_norms, var_d, var_i
+        variant_k2()
+        e = rel_errors(qp[:M_FULL], cp, var_i[:M_FULL], var_d[:M_FULL])
+        emit({"phase": "exact_error_interval", "kernel": "fused_knn_sweep",
+              "build": f"-D{define}", "interval_depth": depth or "none",
+              "ms": cuda_ms(variant_k2, reps=3),
+              "kernel_err": {"max": float(e.max()),
+                             "p99_99": float(torch.quantile(e, 0.9999)),
+                             "pairs": int(e.numel())}})
+        del variant, planes, var_norms, var_d, var_i
 
     # the product alone: torch.matmul on the same staged bf16 copies, in
     # query chunks; timed here only, never called by the port
@@ -760,6 +795,20 @@ def main() -> int:
         emit({"phase": "product_alone", "call": call, "Q": Q, "C": C,
               "width": width, "query_chunk": chunk, "ms": product_ms,
               "tflops_needed": needed_ops / (product_ms * 1e-3) / 1e12})
+
+    # the exact wgmma tile's product alone (split_tile_dots: the same
+    # pipeline with the raw products written out, no keys, no selection):
+    # the main path's queries against one 8192-column block, and a block
+    # small enough to stay in L2; the bytes its ring takes in per second
+    for rows, cols, reps in ((Q, 8192, 3), (2048, 4096, 50)):
+        sq, sc = (tuple(t[:n] for t in split[1]) for n in (rows, cols))  # cp's planes
+        fused_knn.split_tile_dots(sq, sc)
+        product_ms = cuda_ms(lambda: fused_knn.split_tile_dots(sq, sc), reps=reps)
+        boxes = -(-rows // 128) * -(-cols // 128) * (D // 16)  # 32 KB stages
+        emit({"phase": "product_alone", "call": "fused_knn.split_tile_dots",
+              "Q": rows, "C": cols, "width": D, "ms": product_ms,
+              "tflops_three_passes": 6.0 * rows * cols * D / (product_ms * 1e-3) / 1e12,
+              "ring_bytes_per_s": boxes * 32768 / (product_ms * 1e-3)})
 
     # the staging prologue alone, against its plain version (the copy bit
     # for bit, the norms within rtol 1e-5: the sum orders differ)
@@ -791,24 +840,35 @@ def main() -> int:
     def norms_bound(n, d, in_bytes_per_elem, extra_in=0.0):
         return exact_bound(2.0 * n * d, in_bytes_per_elem * n * d + extra_in + 4.0 * n)
 
-    max_err["stage_tf32"] = check_norms(
-        "stage_tf32/mnist60k_corpus", norms[1],
-        fused_knn.stage_tf32_rows_reference(cp))
-    # the norms are the exact tile's own diagonal, bit for bit
-    head = cp[:4096]
-    if not torch.equal(torch.diagonal(fused_knn.exact_tile_dots(head, head)),
-                       norms[1][:4096]):
-        raise AssertionError("stage_tf32: norms differ from the tile's diagonal")
-    emit({"phase": "kernel_vs_plain", "case": "stage_tf32/tile_diagonal",
-          "rows": 4096, "bitwise_equal": True, "ok": True})
-    timing["stage_tf32"] = {
-        "ms": cuda_ms(lambda: fused_knn.stage_tf32_rows(cp), reps=3),
-        "plain_ms": cuda_ms(lambda: fused_knn.stage_tf32_rows_reference(cp), reps=3),
-        # one PyTorch call for the same squared norms
-        "library_ms": cuda_ms(lambda: torch.einsum("ij,ij->i", cp, cp), reps=3),
-        **norms_bound(C, D, 4.0)}
-    emit({"phase": "kernel_time", "kernel": "stage_tf32", "rows": C, "D": D,
-          **timing["stage_tf32"]})
+    # K1/K2's prologue: the planes bit for bit against the plain split, the
+    # norms within rtol 1e-5 of the plain f32 norms, and the norms equal to
+    # the wgmma tile's own diagonal at every row position, bit for bit
+    got_split = fused_knn.stage_tf32_split(cp)
+    want_split = fused_knn.stage_tf32_split_reference(cp, fused_knn.split_width(D))
+    for part, g, w in zip(("hi", "lo"), got_split, want_split):
+        if not torch.equal(g, w):
+            raise AssertionError(f"stage_tf32_split: the {part} plane differs")
+    max_err["stage_tf32_split"] = check_norms(
+        "stage_tf32_split/mnist60k_corpus", got_split[2], want_split[2])
+    head = tuple(t[:4096] for t in got_split)
+    shifted = tuple(torch.roll(t, 37, 0) for t in head)
+    dots = fused_knn.split_tile_dots(head, shifted)
+    rows = torch.arange(4096, device=device)
+    if not torch.equal(dots[rows, (rows + 37) % 4096], head[2]):
+        raise AssertionError("stage_tf32_split: norms differ from the tile's diagonal")
+    emit({"phase": "kernel_vs_plain", "case": "stage_tf32_split/tile_diagonal",
+          "rows": 4096, "column_shift": 37, "bitwise_equal": True, "ok": True})
+    del got_split, want_split, head, shifted, dots
+    width = fused_knn.split_width(D)
+    timing["stage_tf32_split"] = {
+        "ms": cuda_ms(lambda: fused_knn.stage_tf32_split(cp), reps=3),
+        "plain_ms": cuda_ms(lambda: fused_knn.stage_tf32_split_reference(cp, width),
+                            reps=3),
+        # the rows read once, two planes and the norms written once; the
+        # norms' products three times at the TF32 peak
+        **exact_bound(2.0 * C * D, 4.0 * C * D + 8.0 * C * width + 4.0 * C)}
+    emit({"phase": "kernel_time", "kernel": "stage_tf32_split", "rows": C, "D": D,
+          "width": width, **timing["stage_tf32_split"]})
 
     width = fused_knn.staged_width(D)
     max_err["stage_bf16"] = check_stage(
@@ -821,7 +881,7 @@ def main() -> int:
         **stage_bound(C, D, width, 4.0)}
     emit({"phase": "kernel_time", "kernel": "stage_bf16", "rows": C, "D": D,
           "width": width, **timing["stage_bf16"]})
-    del qp, cp, staged, qb, cb, norms
+    del qp, cp, staged, qb, cb, split
 
     # ---- the ring block merge against its plain versions -----------------
     merge_modes = {
@@ -1342,9 +1402,11 @@ def main() -> int:
                            ("sweep", "fused_knn_sweep")):
         for policy, suffix in (("exact", ""), ("mixed", "[compress]")):
             label = f"pallas/{variant}/{policy}"
-            # each kernel stages queries and corpus: 2 prologue launches
-            stage = "stage_bf16" if suffix else "stage_tf32"
-            expect = {kname + suffix: 1, stage: 2}
+            # the compress kernels stage queries and corpus (2 prologue
+            # launches); the exact ones the corpus once, whose first rows
+            # are the queries (1)
+            stage = "stage_bf16" if suffix else "stage_tf32_split"
+            expect = {kname + suffix: 1, stage: 1 if stage == "stage_tf32_split" else 2}
             line, ids_of[label] = drive_clf(
                 label, expect, backend="pallas", pallas_variant=variant,
                 precision_policy=policy)
@@ -1482,7 +1544,7 @@ def main() -> int:
         "fused_rotation_grid": "mpi_knn_tpu/ops/pallas_ring.py:806",
         # the prologues: the norms of the exact tiles, and the bf16 casts
         # and norms of the compress tiles, hoisted out of the tile
-        "stage_tf32": "mpi_knn_tpu/ops/pallas_knn.py:249",
+        "stage_tf32_split": "mpi_knn_tpu/ops/pallas_knn.py:249",
         "stage_tf32[wire]": "mpi_knn_tpu/ops/pallas_ring.py:337",
         "stage_bf16": "mpi_knn_tpu/ops/pallas_knn.py:249",
         "stage_bf16[wire]": "mpi_knn_tpu/ops/pallas_ring.py:363",
@@ -1498,7 +1560,7 @@ def main() -> int:
             transport_timing[("fused_round_dma", "p4_round")]["library_ms"],
         "fused_rotation_grid":
             transport_timing[("fused_rotation_grid", "p4_rotation")]["library_ms"],
-        "stage_tf32": timing["stage_tf32"]["library_ms"],  # torch.einsum
+        "stage_tf32_split": None,  # no one PyTorch call writes the planes and norms
         "stage_tf32[wire]": timing["stage_tf32[wire]"]["library_ms"],
         "stage_bf16": None,  # no one PyTorch call writes the copy and the norms
         "stage_bf16[wire]": None,

@@ -67,8 +67,14 @@ def all_knn(corpus, queries=None, config: Optional[KNNConfig] = None,
         q_arr = corpus
         q_ids = np.arange(m, dtype=np.int32)
     else:
-        q_arr = (queries.to(dev) if isinstance(queries, torch.Tensor)
-                 else np.asarray(queries))
+        if isinstance(queries, torch.Tensor):
+            q_arr = queries.to(dev)
+        elif isinstance(corpus, torch.Tensor):
+            # host queries beside a tensor corpus go where the corpus is,
+            # so centering subtracts one tensor mean from both
+            q_arr = torch.as_tensor(np.asarray(queries), device=dev)
+        else:
+            q_arr = np.asarray(queries)
         if query_ids is not None:
             q_ids = np.asarray(query_ids, dtype=np.int32)
             if q_ids.shape != (q_arr.shape[0],):

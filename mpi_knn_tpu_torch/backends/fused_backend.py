@@ -139,8 +139,14 @@ def all_knn_pallas(corpus, queries, query_ids, cfg: KNNConfig, device):
                  pad_to_multiple(m, 128))
     corpus_p = pad_rows_any(corpus, pad_to_multiple(m, c_tile),
                             dtype=torch.float32, device=device)
-    queries_p = pad_rows_any(queries, pad_to_multiple(nq, q_tile),
-                             dtype=torch.float32, device=device)
+    q_pad = pad_to_multiple(nq, q_tile)
+    if queries is corpus and q_pad <= corpus_p.shape[0]:
+        # all pairs: the queries are the padded corpus' first rows, so the
+        # exact prologue stages them once with the corpus
+        queries_p = corpus_p[:q_pad]
+    else:
+        queries_p = pad_rows_any(queries, q_pad, dtype=torch.float32,
+                                 device=device)
 
     # k > c_tile: route to tiles, whose cross-tile merge tops up
     variant = cfg.pallas_variant

@@ -124,6 +124,7 @@ class KNNConfig:
                 "compression; the dense backends have no dequantization path"
             )
         self._check_cross_fields()
+        self._check_index_fields()
         self._refuse_unported()
 
     def _check_cross_fields(self):
@@ -186,6 +187,63 @@ class KNNConfig:
                     "matmul_precision must be None, got "
                     f"{self.matmul_precision!r}"
                 )
+
+    def _check_index_fields(self):
+        """The JAX package's rules for the serving and clustered-index
+        fields (``mpi_knn_tpu/config.py:457-522``): inert here, but a
+        setting the reference refuses is refused here too."""
+        if self.partitions is not None and self.partitions < 1:
+            raise ValueError(f"partitions must be >= 1, got {self.partitions}")
+        if self.nprobe is not None:
+            if self.partitions is None:
+                raise ValueError(
+                    "nprobe without partitions is meaningless: nprobe "
+                    "selects how many of the clustered index's partitions "
+                    "to scan — set partitions too"
+                )
+            if not 1 <= self.nprobe <= self.partitions:
+                raise ValueError(
+                    f"nprobe must be in [1, partitions={self.partitions}], "
+                    f"got {self.nprobe}"
+                )
+        if self.partitions is not None and self.metric != "l2":
+            raise ValueError(
+                "a clustered (IVF) index supports metric='l2' only (got "
+                f"metric={self.metric!r})"
+            )
+        if self.ivf_shards is not None:
+            if self.partitions is None:
+                raise ValueError(
+                    "ivf_shards without partitions is meaningless: sharding "
+                    "distributes a clustered index's partition buckets — "
+                    "set partitions too"
+                )
+            if self.ivf_shards < 1:
+                raise ValueError(f"ivf_shards must be >= 1, got {self.ivf_shards}")
+        if self.ivf_route_cap is not None:
+            if self.ivf_shards is None:
+                raise ValueError(
+                    "ivf_route_cap without ivf_shards is meaningless: the "
+                    "route cap bounds the sharded candidate exchange"
+                )
+            if self.ivf_route_cap < 1:
+                raise ValueError(
+                    f"ivf_route_cap must be >= 1, got {self.ivf_route_cap}"
+                )
+        if not self.bucket_headroom >= 0.0:
+            raise ValueError(
+                f"bucket_headroom must be >= 0, got {self.bucket_headroom}"
+            )
+        if not 0.0 < self.compact_fill_threshold <= 1.0:
+            raise ValueError(
+                "compact_fill_threshold must be in (0, 1], got "
+                f"{self.compact_fill_threshold}"
+            )
+        if not self.compact_tombstone_fraction > 0.0:
+            raise ValueError(
+                "compact_tombstone_fraction must be > 0, got "
+                f"{self.compact_tombstone_fraction}"
+            )
 
     def _refuse_unported(self):
         refused = []

@@ -12,24 +12,27 @@
 // Each kernel differs from the other only in the corpus column range a CTA
 // owns and where its output lands.
 //
-// Modes (the `compress` flag of the TPU kernels), both on knn_tile.cuh's
-// tensor-core tile `sweep_mma`, 128 x 128 per CTA:
-//   exact     (fused_knn_{tiles,sweep}_kernel, the Tf32x3 policy) the f32
-//             rows split into tf32 hi + lo and multiplied in three passes
-//             (lo.hi, hi.lo, hi.hi) with f32 sums, after the prologue
-//             (stage_tf32_f32_launch) wrote the queries' and the corpus'
-//             norms by the same product sequence, once per call. The
-//             products are f32-accurate, as the zero-distance exclusion
-//             threshold rtol 1e-6 * (q^2 + c^2) needs. Masks: padding
-//             columns (>= m_corpus), zero distance (d <= zero_eps if > 0,
-//             else d <= 1e-6 (q^2 + c^2)), and self in all-pairs mode.
-//   compress  (fused_knn_{tiles,sweep}_compress_kernel, the Bf16x1 policy)
-//             the mixed policy's pass 1, as the TPU kernel's bf16 MXU dot:
-//             the staging prologue (stage_bf16_f32_launch) writes bf16
-//             copies of the queries and the corpus and their f32 norms once
-//             per call; the tile multiplies the copies on the bf16 tensor
-//             cores with f32 sums. Keys clamped at 0, the zero mask off
-//             (padding and self stay), k is the overfetch width 4k.
+// Modes (the `compress` flag of the TPU kernels):
+//   exact     (fused_knn_{tiles,sweep}_kernel) on knn_wgmma.cuh's tile: the
+//             prologue (stage_tf32_split_launch) splits the queries and the
+//             corpus once each into TF32 hi and lo planes with their norms;
+//             the tile loads the planes by TMA and multiplies them in three
+//             wgmma passes (lo.hi, hi.lo, hi.hi) with f32 sums promoted
+//             interval by interval. The products are f32-accurate, as the
+//             zero-distance exclusion threshold rtol 1e-6 * (q^2 + c^2)
+//             needs. One persistent CTA per SM walks the items: query
+//             groups of 128 rows (sweep), or (query group, corpus tile)
+//             pairs in bands of 8 groups (tiles). Masks: padding columns
+//             (>= m_corpus), zero distance (d <= zero_eps if > 0, else
+//             d <= 1e-6 (q^2 + c^2)), and self in all-pairs mode.
+//   compress  (fused_knn_{tiles,sweep}_compress_kernel) on knn_tile.cuh's
+//             mma.sync tile `sweep_mma<Bf16x1>`, 128 x 128 per CTA: the
+//             mixed policy's pass 1, as the TPU kernel's bf16 MXU dot: the
+//             staging prologue (stage_bf16_f32_launch) writes bf16 copies
+//             of the queries and the corpus and their f32 norms once per
+//             call; the tile multiplies the copies on the bf16 tensor cores
+//             with f32 sums. Keys clamped at 0, the zero mask off (padding
+//             and self stay), k is the overfetch width 4k.
 //
 // What bounds it on this card. The main path (60000 queries x 60000 corpus
 // rows x 784, k = 10) needs 2*60000*60000*784 ~ 5.64e12 FLOP. Exact mode
@@ -49,39 +52,35 @@
 // turns the whole row's output into (NaN, -1), which is what the TPU's
 // k-pass min extraction emits for such a row.
 
-#include "knn_tile.cuh"
+#include "knn_wgmma.cuh"
 
 namespace {
 
 using namespace knn;
 
 struct Params {
-  const void* q;      // (Q, D) f32 queries (exact) or (Q, Dp) bf16 copies
-  const float* qn;    // (Q,) their norms, from the mode's prologue
-  const void* c;      // (C, D) f32 corpus (exact) or (C, Dp) bf16 copies
+  const void* q;      // (Q, Dp) bf16 copies
+  const float* qn;    // (Q,) their norms, from the prologue
+  const void* c;      // (C, Dp) bf16 copies
   const float* cn;    // (C,)
   float* out_d;       // (n_c, Q, k)
   int* out_i;         // (n_c, Q, k)
-  int Q, C, D;        // D: the width (exact) or the staged width (compress)
+  int Q, C, D;        // D: the staged width
   int m_corpus;       // columns >= m_corpus are padding
   int k;
   int c_span;         // columns per CTA along y (C for the sweep)
-  int exclude_self, exclude_zero, all_pairs;
-  float zero_eps;     // > 0: absolute threshold; 0: rtol * (q^2 + c^2)
+  int exclude_self, all_pairs;
 };
 
-// Columns of a dense f32 corpus whose ids are the column numbers.
+// Columns of a dense corpus whose ids are the column numbers: their norms
+// and masks (padding is cut off by the caller's column range). Zero
+// distance: d <= zero_eps if > 0, else d <= 1e-6 (q^2 + c^2).
 struct AffineCols {
-  const float* c;
-  int D;
   bool self, zero;
   float zero_eps;
   const float* cn;  // the columns' norms
   static constexpr bool clamp = true;
   static constexpr bool nan_as_inf = false;
-  __device__ float load(int col, int dim) const {
-    return c[(size_t)col * D + dim];
-  }
   __device__ float norm(int col) const { return cn[col]; }
   __device__ bool masked(int row, int col, float d, float qs, float cs) const {
     if (zero) {
@@ -93,18 +92,20 @@ struct AffineCols {
   __device__ int key(int col) const { return col; }
 };
 
-// emit: non-finite slots get id -1; a row that saw NaN is all (NaN, -1)
+// emit: non-finite slots get id -1; a row that saw NaN is all (NaN, -1).
+// Warp `warp` of `nwarps` writes rows warp, warp + nwarps, ...
 template <int ROWS, class LT>
-__device__ void emit(const Params& p, const LT& L, int q0, size_t out_row0) {
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  for (int r = warp; r < ROWS; r += THREADS / 32) {
-    if (q0 + r >= p.Q) continue;
+__device__ void emit(const LT& L, const int* nanf, float* out_d, int* out_i, int Q,
+                     int k, int q0, size_t out_row0, int warp, int nwarps) {
+  const int lane = threadIdx.x % 32;
+  for (int r = warp; r < ROWS; r += nwarps) {
+    if (q0 + r >= Q) continue;
     float* Ld = L.d(r);
     int* Li = L.i(r);
-    float* od = p.out_d + (out_row0 + r) * (size_t)p.k;
-    int* oi = p.out_i + (out_row0 + r) * (size_t)p.k;
-    bool poisoned = L.sm.nanf[r] != 0;
-    for (int j = lane; j < p.k; j += 32) {
+    float* od = out_d + (out_row0 + r) * (size_t)k;
+    int* oi = out_i + (out_row0 + r) * (size_t)k;
+    bool poisoned = nanf[r] != 0;
+    for (int j = lane; j < k; j += 32) {
       float d = Ld[j];
       int id = Li[j];
       if (poisoned) { d = nan_f(); id = -1; }
@@ -115,72 +116,168 @@ __device__ void emit(const Params& p, const LT& L, int q0, size_t out_row0) {
   }
 }
 
-// One CTA: query rows [q0, q0+MQB) against corpus columns [c_begin,
-// c_end). Padding columns (>= m_corpus) are never computed: a CTA whose
-// range is all padding writes only (INF, -1).
-template <bool COMPRESS>
+// One compress CTA: query rows [q0, q0+MQB) against corpus columns
+// [c_begin, c_end). Padding columns (>= m_corpus) are never computed: a CTA
+// whose range is all padding writes only (INF, -1).
 __device__ void knn_rows(const Params& p, int q0, int c_begin, int c_end,
                          size_t out_row0, unsigned char* smem) {
   c_end = min(c_end, p.m_corpus);
-  const float* c = static_cast<const float*>(p.c);
-  AffineCols src{c, p.D, p.exclude_self && p.all_pairs,
-                 !COMPRESS && p.exclude_zero, p.zero_eps, p.cn};
+  AffineCols src{p.exclude_self && p.all_pairs, false, 0.f, p.cn};
   MmaLists<> L{carve_mma(smem, p.k), p.out_d, p.out_i, out_row0, p.k};
   init_lists<MQB>(L, q0, p.Q, -1);
-  if constexpr (COMPRESS) {
-    const bf16* qb = static_cast<const bf16*>(p.q);
-    const bf16* cb = static_cast<const bf16*>(p.c);
-    sweep_mma<Bf16x1, MQB>(src, Bf16Operand{qb, p.D}, p.qn, p.Q, Bf16Operand{cb, p.D},
-                           p.D / MKD, q0, c_begin, c_end, L);
-  } else {
-    const float* q = static_cast<const float*>(p.q);
-    sweep_mma<Tf32x3, MQB>(src, F32Operand<F32Rows>{F32Rows{q, p.D}, async_rows(q, p.D), p.D},
-                           p.qn, p.Q, F32Operand<AffineCols>{src, async_rows(c, p.D), p.D},
-                           (p.D + TKD - 1) / TKD, q0, c_begin, c_end, L);
-  }
-  emit<MQB>(p, L, q0, out_row0);
+  const bf16* qb = static_cast<const bf16*>(p.q);
+  const bf16* cb = static_cast<const bf16*>(p.c);
+  sweep_mma<Bf16x1, MQB>(src, Bf16Operand{qb, p.D}, p.qn, p.Q, Bf16Operand{cb, p.D},
+                         p.D / MKD, q0, c_begin, c_end, L);
+  emit<MQB>(L, L.sm.nanf, p.out_d, p.out_i, p.Q, p.k, q0, out_row0, threadIdx.x / 32,
+            THREADS / 32);
 }
 
-template <bool COMPRESS>
-__device__ void tiles_body(const Params& p, unsigned char* smem) {
-  int q0 = blockIdx.x * MQB;
-  int c_begin = blockIdx.y * p.c_span;
-  int c_end = min(c_begin + p.c_span, p.C);
-  knn_rows<COMPRESS>(p, q0, c_begin, c_end, (size_t)blockIdx.y * p.Q + q0,
-                     smem);
-}
-
-template <bool COMPRESS>
-__device__ void sweep_body(const Params& p, unsigned char* smem) {
-  int q0 = blockIdx.x * MQB;
-  knn_rows<COMPRESS>(p, q0, 0, p.C, (size_t)q0, smem);
-}
-
-// Every kernel is capped at 128 registers a thread, so two CTAs of 256
-// threads fit on an SM (their shared memory allows two for k <= 40).
-__global__ void __launch_bounds__(THREADS, 2) fused_knn_tiles_kernel(Params p) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  tiles_body<false>(p, smem);
-}
-
-__global__ void __launch_bounds__(THREADS, 2) fused_knn_sweep_kernel(Params p) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  sweep_body<false>(p, smem);
-}
-
+// Every compress kernel is capped at 128 registers a thread, so two CTAs of
+// 256 threads fit on an SM (their shared memory allows two for k <= 40).
 __global__ void __launch_bounds__(THREADS, 2)
 fused_knn_tiles_compress_kernel(Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
-  tiles_body<true>(p, smem);
+  int q0 = blockIdx.x * MQB;
+  int c_begin = blockIdx.y * p.c_span;
+  int c_end = min(c_begin + p.c_span, p.C);
+  knn_rows(p, q0, c_begin, c_end, (size_t)blockIdx.y * p.Q + q0, smem);
 }
 
 __global__ void __launch_bounds__(THREADS, 2)
 fused_knn_sweep_compress_kernel(Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
-  sweep_body<true>(p, smem);
+  int q0 = blockIdx.x * MQB;
+  knn_rows(p, q0, 0, p.C, (size_t)q0, smem);
 }
 
-// The exact tile's raw products q . c (a test hook, see tile_dots).
+// The exact form's consumer hooks over knn_wgmma.cuh's tile: the masked
+// keys of each chunk into the key tile, the selection, and at the end of an
+// item its lists to the output rows. Each consumer warpgroup keys, selects
+// and emits its own 64 rows (warp w of the group owns rows w, w + 4, ...),
+// so it syncs only with itself and one group's selection overlaps the
+// other's products.
+template <class Items>
+struct ExactEpi {
+  Items walk;
+  AffineCols src;
+  const float* qn;   // (Q,) the prologue's query norms
+  float* out_d;      // (n_c, Q, k) or (Q, k)
+  int* out_i;
+  int Q, k, nkb;
+  __device__ int items() const { return walk.items(); }
+  __device__ wg::Item item(int n) const { return walk.item(n); }
+  // the lists of warpgroup g's rows, numbered from its first row
+  __device__ wg::WgLists lists(const wg::Item& t, const wg::Ctx& c) const {
+    const int r0 = 64 * c.g;
+    return wg::WgLists{c.Lsd + r0 * k, c.Lsi + r0 * k, out_d, out_i, t.out_row0 + r0, k};
+  }
+  __device__ void begin(const wg::Item& t, const wg::Ctx& c) const {
+    init_rows<64>(lists(t, c), c.nanf + 64 * c.g, t.q0 + 64 * c.g, Q, -1, c.cwarp % 4, 4);
+    __syncwarp();
+  }
+  __device__ void chunk(const float (&acc)[64], const wg::Item& t, int col0,
+                        const wg::Ctx& c) const {
+    wg::group_sync(c.g);  // the group's warps have read its previous keys
+    const int w = c.cwarp % 4, r0 = 64 * c.g + 16 * w + c.lane / 4;
+    const float qs2[2] = {t.q0 + r0 < Q ? qn[t.q0 + r0] : 0.f,
+                          t.q0 + r0 + 8 < Q ? qn[t.q0 + r0 + 8] : 0.f};
+    float* Ds = c.Ds + 64 * c.g * MDS;
+#pragma unroll
+    for (int i = 0; i < 64; ++i) {
+      const int r = wg::acc_row(w, c.lane, i), cc = wg::acc_col(c.lane, i);
+      const int row = t.q0 + 64 * c.g + r, col = col0 + cc;
+      const float qs = qs2[(i % 4) / 2];
+      const float cs = col < t.c_end ? src.norm(col) : 0.f;
+      float d = __fadd_rn(__fsub_rn(qs, __fmul_rn(2.f, acc[i])), cs);
+      d = d < 0.f ? 0.f : d;  // max(d, 0) that keeps NaN
+      const bool invalid = col >= t.c_end || row >= Q || src.masked(row, col, d, qs, cs);
+      Ds[r * MDS + cc] = invalid ? inf_f() : d;
+    }
+    wg::group_sync(c.g);
+    select_chunk<64>(src, Ds, c.nanf + 64 * c.g, lists(t, c), t.q0 + 64 * c.g, Q, col0,
+                     t.c_end, w, 4);
+  }
+  __device__ void end(const wg::Item& t, const wg::Ctx& c) const {
+    emit<64>(lists(t, c), c.nanf + 64 * c.g, out_d, out_i, Q, k, t.q0 + 64 * c.g,
+             t.out_row0 + 64 * c.g, c.cwarp % 4, 4);
+  }
+};
+
+// The tile's raw products (a test hook): every (query group, column chunk)
+// item writes its accumulators to out (Q, C).
+struct DotsEpi {
+  float* out;
+  int Q, C, nkb, k;
+  __device__ int groups() const { return (Q + wg::ROWS - 1) / wg::ROWS; }
+  __device__ int items() const { return groups() * ((C + wg::COLS - 1) / wg::COLS); }
+  __device__ wg::Item item(int n) const {
+    const int qg = n % groups(), c0 = n / groups() * wg::COLS;
+    return wg::Item{qg * wg::ROWS, c0, min(c0 + wg::COLS, C), 0};
+  }
+  __device__ void begin(const wg::Item&, const wg::Ctx&) const {}
+  __device__ void end(const wg::Item&, const wg::Ctx&) const {}
+  __device__ void chunk(const float (&acc)[64], const wg::Item& t, int col0,
+                        const wg::Ctx& c) const {
+#pragma unroll
+    for (int i = 0; i < 64; ++i) {
+      const int row = t.q0 + 64 * c.g + wg::acc_row(c.cwarp % 4, c.lane, i);
+      const int col = col0 + wg::acc_col(c.lane, i);
+      if (row < Q && col < t.c_end) out[(size_t)row * C + col] = acc[i];
+    }
+  }
+};
+
+#define WG_KERNEL(name, Epi)                                                          \
+  __global__ void __launch_bounds__(wg::THREADS, 1)                                   \
+      name(const __grid_constant__ CUtensorMap qh, const __grid_constant__ CUtensorMap ql, \
+           const __grid_constant__ CUtensorMap ch, const __grid_constant__ CUtensorMap cl, \
+           const Epi epi) {                                                           \
+    extern __shared__ __align__(1024) unsigned char smem[];                          \
+    wg::run_tile(&qh, &ql, &ch, &cl, epi, smem);                                      \
+  }
+
+WG_KERNEL(fused_knn_tiles_kernel, ExactEpi<wg::TileItems>)
+WG_KERNEL(fused_knn_sweep_kernel, ExactEpi<wg::SweepItems>)
+WG_KERNEL(split_tile_dots_kernel, DotsEpi)
+
+// The four planes' tensor maps: queries (Q, Dp), columns (C, Dp).
+struct Maps {
+  CUtensorMap qh, ql, ch, cl;
+};
+
+cudaError_t make_maps(Maps* m, const float* qh, const float* ql, const float* ch,
+                      const float* cl, int Q, int C, int Dp) {
+  cudaError_t e = wg::plane_map(&m->qh, qh, Q, Dp);
+  if (e == cudaSuccess) e = wg::plane_map(&m->ql, ql, Q, Dp);
+  if (e == cudaSuccess) e = wg::plane_map(&m->ch, ch, C, Dp);
+  if (e == cudaSuccess) e = wg::plane_map(&m->cl, cl, C, Dp);
+  return e;
+}
+
+// Launch a tile kernel on the planes' maps: a persistent grid of
+// min(items, SMs) CTAs.
+#define LAUNCH_WG(kernel, maps, epi, items, k, stream)                                \
+  do {                                                                                \
+    int grid_ = 0, per_sm_ = 0;                                                       \
+    cudaError_t e_ = wg::tile_grid((const void*)kernel, k, items, &grid_, &per_sm_);  \
+    if (e_ != cudaSuccess) return (int)e_;                                            \
+    kernel<<<grid_, wg::THREADS, wg::smem_bytes(k), stream>>>(maps.qh, maps.ql, maps.ch, \
+                                                              maps.cl, epi);          \
+    return (int)cudaGetLastError();                                                   \
+  } while (0)
+
+// The exact kernels' epilogue for the prologue's planes and norms.
+template <class Items>
+ExactEpi<Items> exact_epi(Items walk, const float* qn, const float* cn, float* out_d,
+                          int* out_i, int Q, int Dp, int k, int exclude_self,
+                          int exclude_zero, int all_pairs, float zero_eps) {
+  AffineCols src{exclude_self && all_pairs, exclude_zero != 0, zero_eps, cn};
+  return ExactEpi<Items>{walk, src, qn, out_d, out_i, Q, k, Dp / wg::KB};
+}
+
+// The mma.sync exact tile's (K3a's, K4's, K5's) raw products q . c (a test
+// hook, see tile_dots).
 __global__ void __launch_bounds__(THREADS, 2)
 exact_tile_dots_kernel(const float* q, const float* c, float* out, int Q, int C, int D) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -190,7 +287,7 @@ exact_tile_dots_kernel(const float* q, const float* c, float* out, int Q, int C,
                  out);
 }
 
-// The card's mma.sync rate, the ceiling of both tiles' products: every warp
+// The card's mma.sync rate, the ceiling of knn_tile.cuh's products: every warp
 // runs `iters` rounds of 16 independent products (m16n8k8 tf32 or
 // m16n8k16 bf16) on register operands; the launch fills each SM with two
 // CTAs of 8 warps, as the tiles do. A measurement probe, not on any path.
@@ -212,11 +309,9 @@ __global__ void __launch_bounds__(THREADS, 2) mma_rate_kernel(float* out, int it
   out[blockIdx.x * blockDim.x + threadIdx.x] = s;
 }
 
-template <bool COMPRESS>
-cudaError_t launch(void (*kernel)(Params), const Params& p, int grid_y,
-                   cudaStream_t stream) {
-  if (p.Q <= 0 || p.C <= 0 || p.D <= 0 || p.k <= 0) return cudaErrorInvalidValue;
-  if (COMPRESS && p.D % MKD) return cudaErrorInvalidValue;
+cudaError_t launch_compress(void (*kernel)(Params), const Params& p, int grid_y,
+                            cudaStream_t stream) {
+  if (p.Q <= 0 || p.C <= 0 || p.D <= 0 || p.k <= 0 || p.D % MKD) return cudaErrorInvalidValue;
   cudaError_t err = set_mma_smem((const void*)kernel, p.k);
   if (err != cudaSuccess) return err;
   dim3 grid((p.Q + MQB - 1) / MQB, grid_y);
@@ -224,32 +319,75 @@ cudaError_t launch(void (*kernel)(Params), const Params& p, int grid_y,
   return cudaGetLastError();
 }
 
+// The card's wgmma rate, the ceiling of the exact tile's products: two
+// warpgroups per CTA, one CTA per SM (the tile's shape), each issuing
+// `iters` rounds of 16 m64n128k8 TF32 products on a zeroed shared box. A
+// measurement probe, not on any path.
+__global__ void __launch_bounds__(wg::STAGE_THREADS, 1) wgmma_rate_kernel(float* out, int iters) {
+  __shared__ __align__(1024) unsigned char box[wg::TILE_BYTES];
+  for (int i = threadIdx.x; i < wg::TILE_BYTES / 4; i += blockDim.x)
+    reinterpret_cast<float*>(box)[i] = 0.f;
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  __syncthreads();
+  const int g = threadIdx.x / 128;
+  const uint32_t a = smem_addr(box);
+  float d[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) d[i] = 0.f;
+  for (int it = 0; it < iters; ++it) {
+    wg::wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+      wg::wgmma_tf32(d, wg::desc_k64(a + g * 4096 + (j & 1) * 32),
+                     wg::desc_k64(a + (j & 1) * 32), 1);
+    wg::wgmma_commit();
+    wg::wgmma_wait<1>();
+  }
+  wg::wgmma_wait<0>();
+  wg::reg_fence(d);
+  float s = 0.f;
+#pragma unroll
+  for (int i = 0; i < 64; ++i) s += d[i];
+  out[blockIdx.x * blockDim.x + threadIdx.x] = s;
+}
+
 }  // namespace
 
 extern "C" {
 
-// The exact forms, on f32 rows and the prologue's norms qn (Q,), cn (C,).
-// out_d / out_i: (C / c_tile, Q, k); C must be a multiple of c_tile.
-int fused_knn_tiles_launch(const float* q, const float* qn, const float* c,
-                           const float* cn, float* out_d, int* out_i, int Q,
-                           int C, int D, int m_corpus, int k, int c_tile,
-                           int exclude_self, int exclude_zero, int all_pairs,
-                           float zero_eps, cudaStream_t stream) {
-  if (c_tile <= 0 || C % c_tile) return (int)cudaErrorInvalidValue;
-  Params p{q, qn, c, cn, out_d, out_i, Q, C, D, m_corpus, k, c_tile,
-           exclude_self, exclude_zero, all_pairs, zero_eps};
-  return (int)launch<false>(fused_knn_tiles_kernel, p, C / c_tile, stream);
-}
-
-// out_d / out_i: (Q, k)
-int fused_knn_sweep_launch(const float* q, const float* qn, const float* c,
-                           const float* cn, float* out_d, int* out_i, int Q,
-                           int C, int D, int m_corpus, int k, int exclude_self,
+// The exact forms, on the prologue's planes qh/ql (Q, Dp), ch/cl (C, Dp)
+// and norms qn (Q,), cn (C,). out_d / out_i: (C / c_tile, Q, k), C a
+// multiple of c_tile (tiles), or (Q, k) (sweep).
+int fused_knn_tiles_launch(const float* qh, const float* ql, const float* qn,
+                           const float* ch, const float* cl, const float* cn,
+                           float* out_d, int* out_i, int Q, int C, int Dp,
+                           int m_corpus, int k, int c_tile, int exclude_self,
                            int exclude_zero, int all_pairs, float zero_eps,
                            cudaStream_t stream) {
-  Params p{q, qn, c, cn, out_d, out_i, Q, C, D, m_corpus, k, C, exclude_self,
-           exclude_zero, all_pairs, zero_eps};
-  return (int)launch<false>(fused_knn_sweep_kernel, p, 1, stream);
+  if (Q <= 0 || C <= 0 || k <= 0 || c_tile <= 0 || C % c_tile) return (int)cudaErrorInvalidValue;
+  Maps m;
+  cudaError_t e = make_maps(&m, qh, ql, ch, cl, Q, C, Dp);
+  if (e != cudaSuccess) return (int)e;
+  const wg::TileItems walk{Q, C, c_tile, C < m_corpus ? C : m_corpus};
+  const auto epi = exact_epi(walk, qn, cn, out_d, out_i, Q, Dp, k, exclude_self,
+                             exclude_zero, all_pairs, zero_eps);
+  const long long items = (long long)((Q + wg::ROWS - 1) / wg::ROWS) * (C / c_tile);
+  LAUNCH_WG(fused_knn_tiles_kernel, m, epi, items, k, stream);
+}
+
+int fused_knn_sweep_launch(const float* qh, const float* ql, const float* qn,
+                           const float* ch, const float* cl, const float* cn,
+                           float* out_d, int* out_i, int Q, int C, int Dp,
+                           int m_corpus, int k, int exclude_self, int exclude_zero,
+                           int all_pairs, float zero_eps, cudaStream_t stream) {
+  if (Q <= 0 || C <= 0 || k <= 0) return (int)cudaErrorInvalidValue;
+  Maps m;
+  cudaError_t e = make_maps(&m, qh, ql, ch, cl, Q, C, Dp);
+  if (e != cudaSuccess) return (int)e;
+  const wg::SweepItems walk{Q, C < m_corpus ? C : m_corpus};
+  const auto epi = exact_epi(walk, qn, cn, out_d, out_i, Q, Dp, k, exclude_self,
+                             exclude_zero, all_pairs, zero_eps);
+  LAUNCH_WG(fused_knn_sweep_kernel, m, epi, (Q + wg::ROWS - 1) / wg::ROWS, k, stream);
 }
 
 // The compress forms, on the prologue's copies: qb (Q, Dp), cb (C, Dp) bf16
@@ -262,8 +400,8 @@ int fused_knn_tiles_compress_launch(const bf16* qb, const float* qn,
                                     cudaStream_t stream) {
   if (c_tile <= 0 || C % c_tile) return (int)cudaErrorInvalidValue;
   Params p{qb, qn, cb, cn, out_d, out_i, Q, C, Dp, m_corpus, k, c_tile,
-           exclude_self, 0, all_pairs, 0.f};
-  return (int)launch<true>(fused_knn_tiles_compress_kernel, p, C / c_tile, stream);
+           exclude_self, all_pairs};
+  return (int)launch_compress(fused_knn_tiles_compress_kernel, p, C / c_tile, stream);
 }
 
 int fused_knn_sweep_compress_launch(const bf16* qb, const float* qn,
@@ -273,8 +411,8 @@ int fused_knn_sweep_compress_launch(const bf16* qb, const float* qn,
                                     int exclude_self, int all_pairs,
                                     cudaStream_t stream) {
   Params p{qb, qn, cb, cn, out_d, out_i, Q, C, Dp, m_corpus, k, C,
-           exclude_self, 0, all_pairs, 0.f};
-  return (int)launch<true>(fused_knn_sweep_compress_kernel, p, 1, stream);
+           exclude_self, all_pairs};
+  return (int)launch_compress(fused_knn_sweep_compress_kernel, p, 1, stream);
 }
 
 // The compress prologue: x (N, D) f32 -> out (N, Dp) bf16, norms (N,) f32.
@@ -283,13 +421,30 @@ int stage_bf16_f32_launch(const float* x, bf16* out, float* norms, int N,
   return (int)stage_bf16(F32Rows{x, D}, N, D, Dp, out, norms, stream);
 }
 
-// The exact prologue: x (N, D) f32 -> norms (N,) f32 by the tile's product.
-int stage_tf32_f32_launch(const float* x, float* norms, int N, int D,
-                          cudaStream_t stream) {
-  return (int)stage_tf32(F32Rows{x, D}, N, D, norms, stream);
+// The exact prologue: x (N, D) f32 -> the planes hi, lo (N, Dp) f32 and
+// norms (N,) f32 by the wgmma tile's product; Dp = D rounded up to 16.
+int stage_tf32_split_launch(const float* x, float* hi, float* lo, float* norms, int N,
+                            int D, int Dp, cudaStream_t stream) {
+  return (int)wg::stage_split(F32Rows{x, D}, N, D, Dp, hi, lo, norms, stream);
 }
 
-// The exact tile's raw products: out (Q, C) = q . c^T (a test hook).
+// The wgmma tile's raw products of the planes: out (Q, C) = q . c^T (a
+// test hook: the prologue's norms are its diagonal).
+int split_tile_dots_launch(const float* qh, const float* ql, const float* ch,
+                           const float* cl, float* out, int Q, int C, int Dp,
+                           cudaStream_t stream) {
+  if (Q <= 0 || C <= 0) return (int)cudaErrorInvalidValue;
+  Maps m;
+  cudaError_t e = make_maps(&m, qh, ql, ch, cl, Q, C, Dp);
+  if (e != cudaSuccess) return (int)e;
+  const DotsEpi epi{out, Q, C, Dp / wg::KB, 0};
+  const long long items =
+      (long long)((Q + wg::ROWS - 1) / wg::ROWS) * ((C + wg::COLS - 1) / wg::COLS);
+  LAUNCH_WG(split_tile_dots_kernel, m, epi, items, 0, stream);
+}
+
+// The mma.sync tile's (K3a's, K4's, K5's) raw products: out (Q, C) = q . c^T
+// (a test hook: the ring prologue's norms are its diagonal).
 int exact_tile_dots_launch(const float* q, const float* c, float* out, int Q,
                            int C, int D, cudaStream_t stream) {
   if (Q <= 0 || C <= 0 || D <= 0) return (int)cudaErrorInvalidValue;
@@ -314,15 +469,49 @@ double mma_rate_launch(int tf32, int iters, float* out, cudaStream_t stream) {
   return 2.0 * 2 * sms * (THREADS / 32) * (double)iters * 16 * 16 * 8 * (tf32 ? 8 : 16);
 }
 
+// The wgmma rate probe: out holds SMs * 256 floats; returns the FLOP it
+// does (or a negative cudaError).
+double wgmma_rate_launch(int iters, float* out, cudaStream_t stream) {
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess || iters <= 0) return -(double)(e ? e : cudaErrorInvalidValue);
+  wgmma_rate_kernel<<<sms, wg::STAGE_THREADS, 0, stream>>>(out, iters);
+  if ((e = cudaGetLastError()) != cudaSuccess) return -(double)e;
+  // per warpgroup and round: 16 products of 64 x 128 x 8 multiply-adds
+  return 2.0 * sms * 2 * (double)iters * 16 * 64 * 128 * 8;
+}
+
 // Registers, local (spilled) bytes a thread and CTAs per SM of kernel
-// `which` (0 tiles, 1 sweep; + 2 for the compress forms) at list width k.
+// `which` (0 tiles, 1 sweep: the exact wgmma kernels; 2, 3 their compress
+// forms) at list width k.
 int kernel_info(int which, int k, int* regs, int* local_bytes, int* ctas_per_sm) {
   const void* kernels[] = {(const void*)fused_knn_tiles_kernel,
                            (const void*)fused_knn_sweep_kernel,
                            (const void*)fused_knn_tiles_compress_kernel,
                            (const void*)fused_knn_sweep_compress_kernel};
   if (which < 0 || which > 3) return (int)cudaErrorInvalidValue;
-  return (int)mma_kernel_info(kernels[which], k, regs, local_bytes, ctas_per_sm);
+  if (which >= 2) return (int)mma_kernel_info(kernels[which], k, regs, local_bytes, ctas_per_sm);
+  int grid = 0;
+  cudaFuncAttributes attr;
+  cudaError_t e = wg::tile_grid(kernels[which], k, 1, &grid, ctas_per_sm);
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, kernels[which]);
+  if (e != cudaSuccess) return (int)e;
+  *regs = attr.numRegs;
+  *local_bytes = (int)attr.localSizeBytes;
+  return 0;
+}
+
+// The exact kernels' launch plan at (Q, C, c_tile, k): items (query groups,
+// or query groups x corpus tiles), the persistent grid and CTAs per SM.
+int exact_plan(int which, int Q, int C, int c_tile, int k, long long* items, int* grid,
+               int* ctas_per_sm) {
+  if (which < 0 || which > 1 || Q <= 0 || C <= 0 || c_tile <= 0) return (int)cudaErrorInvalidValue;
+  const long long groups = (Q + wg::ROWS - 1) / wg::ROWS;
+  *items = which == 0 ? groups * (C / c_tile) : groups;
+  const void* kernel = which == 0 ? (const void*)fused_knn_tiles_kernel
+                                  : (const void*)fused_knn_sweep_kernel;
+  return (int)wg::tile_grid(kernel, k, *items, grid, ctas_per_sm);
 }
 
 }  // extern "C"

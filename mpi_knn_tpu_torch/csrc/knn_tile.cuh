@@ -1,7 +1,8 @@
-// The tile shared by the fused kNN kernels (fused_knn.cu), the ring
-// block-merge kernels (fused_ring.cu) and the ring transport kernels
-// (fused_ring_dma.cu), for Hopper (sm_90a): one tensor-core tile,
-// `sweep_mma`, parametrised by its operand policy.
+// The mma.sync tile of the compress kernels (fused_knn.cu, fused_ring.cu),
+// of the ring's exact block merge (fused_ring.cu) and of the ring transport
+// kernels (fused_ring_dma.cu), for Hopper (sm_90a): one tensor-core tile,
+// `sweep_mma`, parametrised by its operand policy. Its selection
+// (`select_chunk`) also serves knn_wgmma.cuh, the exact tile of K1 and K2.
 //
 // One CTA owns ROWS query rows (MQB = 128, or NQB = 64 where 128-row groups
 // would leave the card's resident slots empty) and sweeps a range of columns
@@ -27,9 +28,9 @@
 //   lo = tf32_rna(x - hi), and each 8-deep k-step runs three m16n8k8 TF32
 //   products in a fixed order, lo.hi, hi.lo, hi.hi, into the f32 sums:
 //   x.y = hi.hi + hi.lo + lo.hi up to the dropped lo.lo (~2^-22 relative).
-//   With TF32_PROMOTE each k-step's three products go into a zeroed partial
-//   that is added to the sum with one FADD (round to nearest), as FP8 GEMMs
-//   promote their partials. Values that fit in 11 significant bits (small
+//   Each k-step's three products go into a zeroed partial that is added to
+//   the sum with one FADD (round to nearest), as FP8 GEMMs promote their
+//   partials. Values that fit in 11 significant bits (small
 //   integers) split with lo = 0, and then the sums are exact. The norms
 //   come from the prologue `stage_tf32_kernel`, once per row set: the
 //   diagonal of each 16-row group's product with itself, by the same
@@ -74,12 +75,6 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-// 0 builds the exact tile and its prologue without promotion (chip_smoke.py
-// measures that form's error beside the default's)
-#ifndef KNN_TF32_PROMOTE
-#define KNN_TF32_PROMOTE 1
-#endif
-
 namespace knn {
 
 constexpr int THREADS = 256;       // 8 warps: 2 x 4 warp tiles
@@ -96,7 +91,6 @@ constexpr int PITCH = 80;          // smem row pitch in bytes: ldmatrix conflict
 constexpr int MSTAGES = 3;         // staging ring
 constexpr int MDS = MCB + 1;       // key tile row pitch (floats)
 constexpr int STAGE_ROWS = 32;     // rows per CTA of the bf16 prologue
-constexpr bool TF32_PROMOTE = KNN_TF32_PROMOTE != 0;
 static_assert(MKD * 2 == SLICE_BYTES && TKD * 4 == SLICE_BYTES, "one slice geometry");
 
 typedef __nv_bfloat16 bf16;
@@ -320,20 +314,28 @@ struct MmaLists {
   }
 };
 
-// Every list of the CTA filled with (+inf, sentinel) and the NaN flags
-// cleared. A sentinel of -1 keeps +inf candidates out of the lists; a
-// sentinel of INT_MAX lets them in, in key order. ROWS is the CTA's query
-// rows.
+// The lists of rows warp, warp + nwarps, ... of [q0, q0+ROWS) filled with
+// (+inf, sentinel) and their NaN flags cleared. A sentinel of -1 keeps
+// +inf candidates out of the lists; a sentinel of INT_MAX lets them in, in
+// key order.
 template <int ROWS, class LT>
-__device__ inline void init_lists(const LT& L, int q0, int Q, int sentinel) {
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  for (int r = warp; r < ROWS; r += THREADS / 32) {
+__device__ inline void init_rows(const LT& L, int* nanf, int q0, int Q, int sentinel,
+                                 int warp, int nwarps) {
+  const int lane = threadIdx.x % 32;
+  for (int r = warp; r < ROWS; r += nwarps) {
     if (q0 + r >= Q) continue;
     float* Ld = L.d(r);
     int* Li = L.i(r);
     for (int j = lane; j < L.k; j += 32) { Ld[j] = inf_f(); Li[j] = sentinel; }
-    if (lane == 0) L.sm.nanf[r] = 0;
+    if (lane == 0) nanf[r] = 0;
   }
+}
+
+// Every list of the CTA initialised (init_rows); ROWS is the CTA's query
+// rows.
+template <int ROWS, class LT>
+__device__ inline void init_lists(const LT& L, int q0, int Q, int sentinel) {
+  init_rows<ROWS>(L, L.sm.nanf, q0, Q, sentinel, threadIdx.x / 32, THREADS / 32);
   __syncthreads();
 }
 
@@ -432,7 +434,7 @@ struct Bf16x1 {
 // The exact tile: f32 split into tf32 hi + lo, three passes per 8-deep
 // k-step in the order lo.hi, hi.lo, hi.hi.
 struct Tf32x3 {
-  static constexpr bool promote = TF32_PROMOTE;
+  static constexpr bool promote = true;
   struct AFrag { unsigned hi[4], lo[4]; };
   struct BFrag { unsigned hi[2], lo[2]; };
   __device__ static AFrag a_frag(const unsigned (&x)[4]) {
@@ -518,6 +520,80 @@ struct F32Rows {
 };
 
 // ------------------------------------------------------------ the tile
+
+// The selection of one key chunk: the keys of query rows [q0, q0+ROWS)
+// and columns [col0, col0+MCB) lie in Ds (pitch MDS, +inf where masked),
+// and warp `warp` of `nwarps` offers rows warp, warp + nwarps, ... to their
+// lists. For k <= 64 a row whose keys all lose to its list's worst entry
+// costs one compare per key; otherwise its list is taken into registers and
+// the winners inserted there (RegList), then written back; k > 64 inserts
+// in place with warp_offer. A row that meets a NaN key sets nanf[r]. The
+// caller synchronises around it (Ds written before, read before reuse). LT
+// is a list set with d(r), i(r) and k; both tiles call this.
+template <int ROWS, class Src, class LT>
+__device__ void select_chunk(const Src& src, const float* Ds, int* nanf, const LT& L,
+                             int q0, int Q, int col0, int c_end, int warp,
+                             int nwarps) {
+  const int lane = threadIdx.x % 32;
+  const int k = L.k;
+  constexpr int H = MCB / 32;
+  for (int r = warp; r < ROWS; r += nwarps) {
+    if (q0 + r >= Q) continue;
+    float* Ld = L.d(r);
+    int* Li = L.i(r);
+    float cd[H];
+    int ck[H];
+    bool act[H];
+    bool nan_here = false;
+#pragma unroll
+    for (int h = 0; h < H; ++h) {
+      int cc = lane + 32 * h;
+      int col = col0 + cc;
+      float d = Ds[r * MDS + cc];
+      if (src.nan_as_inf && d != d) d = inf_f();
+      cd[h] = d;
+      ck[h] = src.key(col);
+      act[h] = col < c_end;
+      nan_here |= act[h] && d != d;
+    }
+    if (__any_sync(FULL, nan_here) && lane == 0) nanf[r] = 1;
+    if (k <= 64) {
+      float wd = Ld[k - 1];
+      int wi = Li[k - 1];
+      bool any = false;
+#pragma unroll
+      for (int h = 0; h < H; ++h) {
+        act[h] = act[h] && lex_less(cd[h], ck[h], wd, wi);
+        any |= act[h];
+      }
+      if (!__any_sync(FULL, any)) continue;
+      RegList<2> R;
+      R.load(Ld, Li, k, lane);
+#pragma unroll
+      for (int h = 0; h < H; ++h) {
+        bool pass = act[h] && lex_less(cd[h], ck[h], wd, wi);
+        unsigned m = __ballot_sync(FULL, pass);
+        while (m) {
+          int from = __ffs(m) - 1;
+          R.insert(k, __shfl_sync(FULL, cd[h], from), __shfl_sync(FULL, ck[h], from),
+                   lane);
+          if (lane == from) pass = false;
+          R.worst(k, wd, wi);
+          pass = pass && lex_less(cd[h], ck[h], wd, wi);
+          m = __ballot_sync(FULL, pass);
+        }
+      }
+      __syncwarp();  // every lane has read the list before it changes
+      R.store(Ld, Li, k, lane);
+      __syncwarp();
+    } else {
+#pragma unroll
+      for (int h = 0; h < H; ++h) warp_offer(Ld, Li, k, cd[h], ck[h], act[h], lane);
+      __syncwarp();
+    }
+  }
+}
+
 
 // The products of query rows [q0, q0+ROWS) and columns [col0, col0+MCB)
 // into each warp's accumulators, over nk slices, through the staging
@@ -612,7 +688,6 @@ __device__ void sweep_mma(const Src& src, const QOp& qa, const float* __restrict
   const MmaSmem<ROWS>& sm = L.sm;
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int wm = warp / 4, wn = warp % 4;
-  const int k = L.k;
   for (int r = tid; r < ROWS; r += THREADS) sm.qn[r] = q0 + r < Q ? qn[q0 + r] : 0.f;
 
   for (int col0 = c_begin; col0 < c_end; col0 += MCB) {
@@ -641,66 +716,8 @@ __device__ void sweep_mma(const Src& src, const QOp& qa, const float* __restrict
         }
     __syncthreads();
 
-    // selection: warp w owns rows w, w+8, ...; each lane four columns. For
-    // k <= 64 a row whose keys all lose to its list's worst entry costs one
-    // compare per key; otherwise its list is taken into registers and the
-    // winners inserted there (RegList), then written back.
-    constexpr int H = MCB / 32;
-    for (int r = warp; r < ROWS; r += THREADS / 32) {
-      if (q0 + r >= Q) continue;
-      float* Ld = L.d(r);
-      int* Li = L.i(r);
-      float cd[H];
-      int ck[H];
-      bool act[H];
-      bool nan_here = false;
-#pragma unroll
-      for (int h = 0; h < H; ++h) {
-        int cc = lane + 32 * h;
-        int col = col0 + cc;
-        float d = sm.Ds[r * MDS + cc];
-        if (src.nan_as_inf && d != d) d = inf_f();
-        cd[h] = d;
-        ck[h] = src.key(col);
-        act[h] = col < c_end;
-        nan_here |= act[h] && d != d;
-      }
-      if (__any_sync(FULL, nan_here) && lane == 0) sm.nanf[r] = 1;
-      if (k <= 64) {
-        float wd = Ld[k - 1];
-        int wi = Li[k - 1];
-        bool any = false;
-#pragma unroll
-        for (int h = 0; h < H; ++h) {
-          act[h] = act[h] && lex_less(cd[h], ck[h], wd, wi);
-          any |= act[h];
-        }
-        if (!__any_sync(FULL, any)) continue;
-        RegList<2> R;
-        R.load(Ld, Li, k, lane);
-#pragma unroll
-        for (int h = 0; h < H; ++h) {
-          bool pass = act[h] && lex_less(cd[h], ck[h], wd, wi);
-          unsigned m = __ballot_sync(FULL, pass);
-          while (m) {
-            int from = __ffs(m) - 1;
-            R.insert(k, __shfl_sync(FULL, cd[h], from),
-                     __shfl_sync(FULL, ck[h], from), lane);
-            if (lane == from) pass = false;
-            R.worst(k, wd, wi);
-            pass = pass && lex_less(cd[h], ck[h], wd, wi);
-            m = __ballot_sync(FULL, pass);
-          }
-        }
-        __syncwarp();  // every lane has read the list before it changes
-        R.store(Ld, Li, k, lane);
-        __syncwarp();
-      } else {
-#pragma unroll
-        for (int h = 0; h < H; ++h) warp_offer(Ld, Li, k, cd[h], ck[h], act[h], lane);
-        __syncwarp();
-      }
-    }
+    select_chunk<ROWS>(src, sm.Ds, sm.nanf, L, q0, Q, col0, c_end, warp,
+                       THREADS / 32);
     __syncthreads();  // Ds is read before the next chunk's ring overwrites it
   }
   __syncthreads();

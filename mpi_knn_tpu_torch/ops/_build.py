@@ -85,16 +85,19 @@ def build(name: str, defines=()) -> str:
     return _finish(name, _start(name, defines), defines)
 
 
-def build_all() -> dict:
-    """Build every kernel source, one nvcc process each, all started
-    together. Returns {name: {"seconds": s, "log": nvcc output or
-    "cached"}}, seconds counted from the common start."""
+def build_all(variants=()) -> dict:
+    """Build every kernel source, and each (name, defines) measurement
+    build of ``variants``, one nvcc process each, all started together.
+    Returns {label: {"seconds": s, "log": nvcc output or "cached"}}, seconds
+    counted from the common start; a variant's label carries its defines."""
     t0 = time.perf_counter()
-    started = {name: _start(name) for name in SOURCES}
+    jobs = [(name, ()) for name in SOURCES] + [(n, tuple(d)) for n, d in variants]
+    started = [_start(name, defines) for name, defines in jobs]
     info = {}
-    for name in SOURCES:
-        log = _finish(name, started[name])
-        info[name] = {"seconds": time.perf_counter() - t0, "log": log}
+    for (name, defines), proc in zip(jobs, started):
+        log = _finish(name, proc, defines)
+        label = name + "".join(f" -D{d}" for d in defines)
+        info[label] = {"seconds": time.perf_counter() - t0, "log": log}
     return info
 
 

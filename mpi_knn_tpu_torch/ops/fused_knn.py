@@ -14,12 +14,14 @@ all-pairs mode, self. Non-finite slots carry id −1; a row with a NaN
 distance comes out as (NaN, −1) throughout.
 
 The exact mode is full f32 (the plain versions' ``torch.matmul``, TF32
-off). On the card it is two steps: the prologue ``stage_tf32_rows`` writes
-the squared norms of the queries and of the corpus, once each, and the
-kernel (``launch_exact``) multiplies the f32 rows on the tensor cores as
-three TF32 products of split operands (``tf32_split``: x = hi + lo), whose
-sums are f32-accurate; the prologue takes its norms by the same product
-sequence, so an exact duplicate pair keeps a distance of exactly 0.
+off). On the card it is two steps: the prologue ``stage_tf32_split`` splits
+the queries and the corpus once each (once in all, when the queries are the
+first rows of the corpus) into TF32 hi and lo planes (``tf32_split``:
+x = hi + lo), zero-padded to ``split_width(d)``, with their squared norms;
+the kernel (``launch_exact``) loads the planes by TMA and multiplies them
+in three ``wgmma`` passes whose sums are f32-accurate. The prologue takes
+its norms by the same product sequence, so an exact duplicate pair keeps a
+distance of exactly 0.
 
 ``compress=True`` is the mixed policy's pass 1, as in the JAX kernels: the
 dot runs on bf16-rounded operands with f32 sums, the norms come from the
@@ -33,7 +35,7 @@ the bf16 tensor-core kernel on the copies (``launch_compress``).
 A wrapper takes its plain version only because the tensors it was given lie
 on the CPU. For CUDA tensors it launches the kernel or raises. Each launch
 adds one to ``LAUNCHES[name]``: the kernels' names carry ``[compress]`` in
-that mode, the prologues' are ``stage_tf32`` and ``stage_bf16``.
+that mode, the prologues' are ``stage_tf32_split`` and ``stage_bf16``.
 """
 
 from __future__ import annotations
@@ -49,10 +51,11 @@ from mpi_knn_tpu_torch.types import INVALID_ID
 
 _ZERO_RTOL = 1e-6  # the f32 zero-exclusion rtol (ops/topk.py)
 STAGE_K = 32  # the compress tile's slice depth: staged widths are its multiples
+SPLIT_K = 16  # the exact tile's k-block: the planes' pitch is its multiple
 
 LAUNCHES = {"fused_knn_tiles": 0, "fused_knn_sweep": 0,
             "fused_knn_tiles[compress]": 0, "fused_knn_sweep[compress]": 0,
-            "stage_tf32": 0, "stage_bf16": 0}
+            "stage_tf32_split": 0, "stage_bf16": 0}
 # the kernels of csrc/fused_knn.cu's kernel_info, by launch-count name
 _KERNELS = ("fused_knn_tiles", "fused_knn_sweep", "fused_knn_tiles[compress]",
             "fused_knn_sweep[compress]")
@@ -72,23 +75,29 @@ def _lib() -> ctypes.CDLL:
 def configure(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Set the C signatures of a build of csrc/fused_knn.cu."""
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    exact = [ptr] * 8 + [i32] * 5
     common = [ptr] * 6 + [i32] * 5
     flags = [i32, i32, i32, ctypes.c_float, ptr]
-    lib.fused_knn_tiles_launch.argtypes = common + [i32] + flags
-    lib.fused_knn_sweep_launch.argtypes = common + flags
+    lib.fused_knn_tiles_launch.argtypes = exact + [i32] + flags
+    lib.fused_knn_sweep_launch.argtypes = exact + flags
     lib.fused_knn_tiles_compress_launch.argtypes = common + [i32] * 3 + [ptr]
     lib.fused_knn_sweep_compress_launch.argtypes = common + [i32] * 2 + [ptr]
     lib.stage_bf16_f32_launch.argtypes = [ptr] * 3 + [i32] * 3 + [ptr]
-    lib.stage_tf32_f32_launch.argtypes = [ptr, ptr, i32, i32, ptr]
+    lib.stage_tf32_split_launch.argtypes = [ptr] * 4 + [i32] * 3 + [ptr]
+    lib.split_tile_dots_launch.argtypes = [ptr] * 5 + [i32] * 3 + [ptr]
     lib.exact_tile_dots_launch.argtypes = [ptr] * 3 + [i32] * 3 + [ptr]
     lib.kernel_info.argtypes = [i32, i32] + [ctypes.POINTER(i32)] * 3
+    lib.exact_plan.argtypes = [i32] * 5 + [ctypes.POINTER(ctypes.c_longlong),
+                                           ctypes.POINTER(i32), ctypes.POINTER(i32)]
     lib.mma_rate_launch.argtypes = [i32, i32, ptr, ptr]
     lib.mma_rate_launch.restype = ctypes.c_double
+    lib.wgmma_rate_launch.argtypes = [i32, ptr, ptr]
+    lib.wgmma_rate_launch.restype = ctypes.c_double
     for fn in (lib.fused_knn_tiles_launch, lib.fused_knn_sweep_launch,
                lib.fused_knn_tiles_compress_launch,
                lib.fused_knn_sweep_compress_launch, lib.stage_bf16_f32_launch,
-               lib.stage_tf32_f32_launch, lib.exact_tile_dots_launch,
-               lib.kernel_info):
+               lib.stage_tf32_split_launch, lib.split_tile_dots_launch,
+               lib.exact_tile_dots_launch, lib.kernel_info, lib.exact_plan):
         fn.restype = i32
     return lib
 
@@ -134,29 +143,59 @@ def _rows_f32(rows):
         raise TypeError("rows must be a contiguous 2-D float32 tensor")
 
 
-def stage_tf32_rows(rows):
-    """The exact kernels' prologue on an f32 (n, d) row set -> (n,) f32
-    squared norms, on the card by the exact tile's product sequence (the
-    diagonal of each 16-row group's product with itself)."""
+def split_width(d: int) -> int:
+    """The pitch of the exact prologue's planes: d rounded up to ``SPLIT_K``."""
+    return -(-d // SPLIT_K) * SPLIT_K
+
+
+def stage_tf32_split(rows):
+    """The exact kernels' prologue on an f32 (n, d) row set -> (hi, lo,
+    norms): the TF32 planes ((n, split_width(d)) f32, x = hi + lo, zero
+    past d) and the (n,) f32 squared norms, on the card by the exact tile's
+    wgmma product sequence (the diagonal of each 128-row group's product
+    with itself)."""
     _rows_f32(rows)
     n, d = rows.shape
+    width = split_width(d)
     if rows.device.type == "cpu":
-        return stage_tf32_rows_reference(rows)
+        return stage_tf32_split_reference(rows, width)
+    hi, lo = (torch.empty((n, width), dtype=torch.float32, device=rows.device)
+              for _ in range(2))
     norms = torch.empty(n, dtype=torch.float32, device=rows.device)
     with torch.cuda.device(rows.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = _lib().stage_tf32_f32_launch(rows.data_ptr(), norms.data_ptr(), n, d,
-                                          stream)
+        rc = _lib().stage_tf32_split_launch(rows.data_ptr(), hi.data_ptr(),
+                                            lo.data_ptr(), norms.data_ptr(), n, d,
+                                            width, stream)
     if rc != 0:
-        raise RuntimeError(f"stage_tf32 launch failed: cudaError {rc}")
-    LAUNCHES["stage_tf32"] += 1
-    return norms
+        raise RuntimeError(f"stage_tf32_split launch failed: cudaError {rc}")
+    LAUNCHES["stage_tf32_split"] += 1
+    return hi, lo, norms
 
 
-def stage_tf32_rows_reference(rows):
-    """Plain version of the exact prologue (any device): the rows' f32
+def stage_tf32_split_reference(rows, width=None):
+    """Plain version of the exact prologue (any device): the planes of
+    ``tf32_split`` zero-padded to ``width`` (default: d), and the rows' f32
     squared norms."""
-    return sq_norms(rows)
+    n, d = rows.shape
+    width = d if width is None else width
+    planes = []
+    for part in tf32_split(rows):
+        plane = torch.zeros((n, width), dtype=torch.float32, device=rows.device)
+        plane[:, :d] = part
+        planes.append(plane)
+    return planes[0], planes[1], sq_norms(rows)
+
+
+def _stage_exact(queries, corpus):
+    """The prologue for an exact call: (staged queries, staged corpus). When
+    the queries are the corpus' first rows (all-pairs mode), the corpus is
+    staged once and the queries take its first rows."""
+    if (queries.data_ptr() == corpus.data_ptr()
+            and queries.shape[0] <= corpus.shape[0]):
+        staged_c = stage_tf32_split(corpus)
+        return tuple(t[:queries.shape[0]] for t in staged_c), staged_c
+    return stage_tf32_split(queries), stage_tf32_split(corpus)
 
 
 def tf32_split(x):
@@ -175,9 +214,10 @@ def tf32_split(x):
 
 
 def exact_tile_dots(queries, corpus):
-    """The exact tile's raw products queries · corpusᵀ ((Q, C) f32): a test
-    hook for the card (the prologue's norms are this product's diagonal);
-    on the CPU, ``torch.matmul``. Not counted in ``LAUNCHES``."""
+    """The mma.sync exact tile's raw products queries · corpusᵀ ((Q, C)
+    f32), the tile of K3a, K4 and K5: a test hook for the card (the ring
+    prologue's norms are this product's diagonal); on the CPU,
+    ``torch.matmul``. Not counted in ``LAUNCHES``."""
     _check(queries, corpus, 1, 1, 1)
     if queries.device.type == "cpu":
         return _mm_t(queries, corpus)
@@ -189,6 +229,26 @@ def exact_tile_dots(queries, corpus):
                                            out.data_ptr(), Q, C, D, stream)
     if rc != 0:
         raise RuntimeError(f"exact_tile_dots launch failed: cudaError {rc}")
+    return out
+
+
+def split_tile_dots(staged_q, staged_c):
+    """The wgmma exact tile's raw products of two staged row sets ((hi, lo,
+    norms) each, from ``stage_tf32_split``) -> (Q, C) f32: a test hook for
+    the card (the prologue's norms are this product's diagonal); on the CPU,
+    ``torch.matmul`` of hi + lo. Not counted in ``LAUNCHES``."""
+    (qh, ql, _), (ch, cl, _) = staged_q, staged_c
+    if qh.device.type == "cpu":
+        return _mm_t(qh + ql, ch + cl)
+    Q, C = qh.shape[0], ch.shape[0]
+    out = torch.empty((Q, C), dtype=torch.float32, device=qh.device)
+    with torch.cuda.device(qh.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = _lib().split_tile_dots_launch(qh.data_ptr(), ql.data_ptr(), ch.data_ptr(),
+                                           cl.data_ptr(), out.data_ptr(), Q, C,
+                                           qh.shape[1], stream)
+    if rc != 0:
+        raise RuntimeError(f"split_tile_dots launch failed: cudaError {rc}")
     return out
 
 
@@ -249,22 +309,57 @@ def launch_compress(base: str, staged_q, staged_c, m_corpus: int, k: int,
                  int(all_pairs))
 
 
-def launch_exact(base: str, queries, q_norms, corpus, c_norms, m_corpus: int,
-                 k: int, c_tile: int, exclude_self: bool = True,
+def launch_exact(base: str, staged_q, staged_c, m_corpus: int, k: int,
+                 c_tile: int, exclude_self: bool = True,
                  exclude_zero: bool = True, all_pairs: bool = True,
                  zero_eps: float = 0.0):
     """The exact kernel ``base`` ("fused_knn_tiles" or "fused_knn_sweep")
-    on f32 queries and corpus with the prologue's norms, on the card:
-    (n_c, Q, k) or (Q, k) dists and ids."""
-    Q, C = queries.shape[0], corpus.shape[0]
-    tensors = (queries, q_norms, corpus, c_norms)
-    shape_args = (Q, C, queries.shape[1], m_corpus, k)
+    on the prologue's (hi, lo, norms) of the queries and of the corpus, on
+    the card: (n_c, Q, k) or (Q, k) dists and ids."""
+    (qh, ql, qn), (ch, cl, cn) = staged_q, staged_c
+    Q, C = qh.shape[0], ch.shape[0]
+    tensors = (qh, ql, qn, ch, cl, cn)
+    shape_args = (Q, C, qh.shape[1], m_corpus, k)
     flags = (int(exclude_self), int(exclude_zero), int(all_pairs), float(zero_eps))
     if base == "fused_knn_tiles":
-        return _call(_lib().fused_knn_tiles_launch, base, queries.device,
+        return _call(_lib().fused_knn_tiles_launch, base, qh.device,
                      tensors, (C // c_tile, Q, k), *shape_args, c_tile, *flags)
-    return _call(_lib().fused_knn_sweep_launch, base, queries.device, tensors,
+    return _call(_lib().fused_knn_sweep_launch, base, qh.device, tensors,
                  (Q, k), *shape_args, *flags)
+
+
+def wgmma_rate(device, iters: int = 4096) -> float:
+    """The card's wgmma rate in TFLOP/s (m64n128k8 tf32, two warpgroups per
+    SM as the exact tile runs them): a probe run twice, the second timed
+    by CUDA events. The ceiling of the exact tile's products; on no
+    kernel's path."""
+    out = torch.empty(torch.cuda.get_device_properties(device).multi_processor_count
+                      * 256, dtype=torch.float32, device=device)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        for _ in range(2):  # the first launch is the warm-up
+            start.record()
+            flop = _lib().wgmma_rate_launch(iters, out.data_ptr(), stream)
+            end.record()
+            if flop < 0:
+                raise RuntimeError(f"wgmma_rate launch failed: cudaError {int(-flop)}")
+        end.synchronize()
+    return flop / (start.elapsed_time(end) * 1e-3) / 1e12
+
+
+def exact_plan(base: str, Q: int, C: int, c_tile: int, k: int) -> dict:
+    """The exact kernel's persistent launch plan (needs the card): items
+    (query groups of 128 rows, times corpus tiles for the tiles form), the
+    grid of CTAs and CTAs per SM."""
+    items, grid, per_sm = ctypes.c_longlong(), ctypes.c_int(), ctypes.c_int()
+    rc = _lib().exact_plan(_KERNELS.index(base), Q, C, c_tile, k, ctypes.byref(items),
+                           ctypes.byref(grid), ctypes.byref(per_sm))
+    if rc != 0:
+        raise RuntimeError(f"exact_plan failed: cudaError {rc}")
+    return {"rows_per_cta": 128, "items": items.value, "grid": grid.value,
+            "ctas_per_sm": per_sm.value, "waves": items.value / grid.value}
 
 
 def mma_rate(device, tf32: bool, iters: int = 4096) -> float:
@@ -317,9 +412,8 @@ def fused_knn_tiles(queries, corpus, m_corpus: int, k: int, q_tile: int,
             all_pairs)
     else:
         outd, outi = launch_exact(
-            "fused_knn_tiles", queries, stage_tf32_rows(queries), corpus,
-            stage_tf32_rows(corpus), m_corpus, k, c_tile, exclude_self,
-            exclude_zero, all_pairs, zero_eps)
+            "fused_knn_tiles", *_stage_exact(queries, corpus), m_corpus, k,
+            c_tile, exclude_self, exclude_zero, all_pairs, zero_eps)
     return _candidate_lists(outd, outi)
 
 
@@ -341,9 +435,8 @@ def fused_knn_sweep(queries, corpus, m_corpus: int, k: int, q_tile: int,
             stage_bf16_rows(corpus), m_corpus, k, c_tile, exclude_self,
             all_pairs)
     return launch_exact(
-        "fused_knn_sweep", queries, stage_tf32_rows(queries), corpus,
-        stage_tf32_rows(corpus), m_corpus, k, c_tile, exclude_self,
-        exclude_zero, all_pairs, zero_eps)
+        "fused_knn_sweep", *_stage_exact(queries, corpus), m_corpus, k, c_tile,
+        exclude_self, exclude_zero, all_pairs, zero_eps)
 
 
 # ---------------------------------------------------------------- plain

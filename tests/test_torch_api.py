@@ -196,3 +196,27 @@ def test_tensor_input_centers_in_place_of_the_host():
     kw = dict(k=4, backend="pallas", **TILES)
     port = all_knn(torch.from_numpy(X), device="cpu", **kw)
     _assert_same_knn(port, jax_pkg.all_knn(X, **kw), 4)
+
+
+@pytest.mark.parametrize("corpus_tensor", [False, True])
+@pytest.mark.parametrize("queries_tensor", [False, True])
+@pytest.mark.parametrize("center", [True, False])
+def test_every_residency_pair_finds_the_host_pairs_ids(corpus_tensor,
+                                                       queries_tensor, center):
+    """A corpus and explicit queries, each a numpy array or a tensor: every
+    pair runs and returns the ids of the numpy/numpy call, judged tie-aware
+    by f64 distance against the oracle."""
+    from tests.oracle import oracle_all_knn
+
+    X, _ = _data(9, m=200, offset=20.0)
+    Q = X[::3] + 0.5
+    kw = dict(k=6, backend="pallas", center=center, **TILES)
+    corpus = torch.from_numpy(X) if corpus_tensor else X
+    queries = torch.from_numpy(Q) if queries_tensor else Q
+    got = all_knn(corpus, queries=queries, device="cpu", **kw)
+    host = all_knn(X, queries=Q, device="cpu", **kw)
+    wd, wi = oracle_all_knn(X, 6, queries=Q)
+    for res in (got, host):
+        assert recall_against_oracle(res.ids.numpy(), wd, wi, 6) == 1.0
+    np.testing.assert_allclose(got.dists.numpy(), host.dists.numpy(),
+                               rtol=1e-5, atol=1e-3)

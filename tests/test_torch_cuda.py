@@ -9,7 +9,9 @@ exact tile splits them with lo = 0), and rows whose largest magnitude is
 127/16 quantize to int8 without loss: kernel and plain version must then
 agree bit for bit, ids, positions and distances. On centered MNIST-like
 rows the exact kernels' keys must stay within the error gate of f64, and
-the exact prologue's norms must equal the exact tile's own diagonal.
+each exact prologue's norms must equal its tile's own diagonal: K1/K2's
+(``stage_tf32_split``) the wgmma tile's, the ring's (``stage_wire_norms``)
+the mma.sync tile's.
 """
 
 import numpy as np
@@ -107,7 +109,7 @@ def test_compress_wrappers_count_stage_launches(cuda_device):
     assert fused_knn.LAUNCHES == {
         "fused_knn_tiles": 0, "fused_knn_sweep": 0,
         "fused_knn_tiles[compress]": 1, "fused_knn_sweep[compress]": 1,
-        "stage_tf32": 0, "stage_bf16": 4}
+        "stage_tf32_split": 0, "stage_bf16": 4}
     assert fused_ring.LAUNCHES == {"fused_block_merge[exact]": 0,
                                    "fused_block_merge[compress]": 1,
                                    "stage_tf32[wire]": 0,
@@ -123,8 +125,8 @@ def test_exact_wrappers_count_stage_launches(cuda_device):
     fused_ring.reset_launch_counts()
     X = torch.from_numpy((np.random.default_rng(4).integers(0, 8, (256, 40))
                           * 0.25).astype(np.float32)).to(cuda_device)
-    fused_knn.fused_knn_tiles(X, X, 256, 8, 128, 128)
-    fused_knn.fused_knn_sweep(X, X, 256, 8, 128, 128)
+    fused_knn.fused_knn_tiles(X, X, 256, 8, 128, 128)  # all pairs: staged once
+    fused_knn.fused_knn_sweep(X[:128] + 0.25, X, 256, 8, 128, 128)
     q, qids, blk, bids, scale = _ring_operands(cuda_device, "int8")
     cd, ci = _carry(q, blk.float() * scale[:, None], bids, 10)
     fused_ring.block_merge_exact(q, qids, blk, bids, scale, cd, ci, c_tile=128)
@@ -136,7 +138,7 @@ def test_exact_wrappers_count_stage_launches(cuda_device):
     assert fused_knn.LAUNCHES == {
         "fused_knn_tiles": 1, "fused_knn_sweep": 1,
         "fused_knn_tiles[compress]": 0, "fused_knn_sweep[compress]": 0,
-        "stage_tf32": 4, "stage_bf16": 0}
+        "stage_tf32_split": 3, "stage_bf16": 0}
     assert fused_ring.LAUNCHES == {"fused_block_merge[exact]": 2,
                                    "fused_block_merge[compress]": 0,
                                    "stage_tf32[wire]": 4,
@@ -146,14 +148,15 @@ def test_exact_wrappers_count_stage_launches(cuda_device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["fused_knn_tiles", "fused_knn_sweep"])
 @pytest.mark.parametrize("all_pairs", [True, False])
-@pytest.mark.parametrize("dim", [24, 33, 100, 784])
-@pytest.mark.parametrize("k", [1, 10, 64, 65, 150])
+@pytest.mark.parametrize("dim", [8, 24, 33, 97, 100, 784])
+@pytest.mark.parametrize("k", [1, 10, 64, 65, 150, 200])
 def test_exact_kernels_equal_plain_on_ragged_shapes(cuda_device, name,
                                                     all_pairs, dim, k):
-    """The TF32x3 tile at shapes off its 128 x 128 CTA tile and its 16-deep
-    slices (33: rows not 16-byte aligned, staged through registers), list
-    widths on both sides of the register lists (64) and of the shared
-    lists (128), and in query mode a NaN query row."""
+    """The wgmma TF32x3 tile at shapes off its 128 x 128 CTA tile and its
+    16-float k-block (8, 33, 97: planes padded to 16, 48, 112), list widths
+    on both sides of the shared lists (32), the register lists (64) and the
+    old shared limit (128), ragged corpus tiles (225 of 450 rows, 10 of
+    them padding), and in query mode a NaN query row."""
     rng = np.random.default_rng(5)
     X = np.zeros((450, dim), np.float32)
     X[:440] = rng.integers(0, 8, (440, dim)) * 0.25
@@ -163,7 +166,7 @@ def test_exact_kernels_equal_plain_on_ragged_shapes(cuda_device, name,
         Q[9] = np.nan
     Q = torch.from_numpy(np.ascontiguousarray(Q)).to(cuda_device)
     X = torch.from_numpy(X).to(cuda_device)
-    args = (Q, X, 440, k, 9 if all_pairs else 8, 150)
+    args = (Q, X, 440, k, 9 if all_pairs else 8, 225)
     gd, gi = getattr(fused_knn, name)(*args, all_pairs=all_pairs)
     torch.cuda.synchronize()
     wd, wi = getattr(fused_knn, name + "_reference")(*args, all_pairs=all_pairs)
@@ -302,14 +305,13 @@ def test_exact_keys_within_the_error_gate(cuda_device, seed):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dim", [777, 784])  # rows staged in registers / by cp.async
 def test_prologue_norms_equal_the_tiles_diagonal(cuda_device, dim):
-    """The exact prologue's norms (both entries) equal, bit for bit, the
-    exact tile's own products of each row with itself, wherever the row
-    sits in the tile's fragments (rows permuted against the columns)."""
+    """The ring prologue's norms equal, bit for bit, the mma.sync tile's
+    (K3a's, K4's, K5's) own products of each row with itself, wherever the
+    row sits in the tile's fragments (rows permuted against the columns)."""
     X = _centered_mnist(cuda_device, m=1000)[:, :dim].contiguous()
     perm = torch.randperm(1000, generator=torch.Generator().manual_seed(0))
     perm = perm.to(cuda_device)
-    norms = fused_knn.stage_tf32_rows(X)
-    assert torch.equal(norms, fused_ring.stage_wire_norms(X, None))
+    norms = fused_ring.stage_wire_norms(X, None)
     dots = fused_knn.exact_tile_dots(X, X[perm])
     torch.cuda.synchronize()
     inv = torch.empty_like(perm)
@@ -319,15 +321,60 @@ def test_prologue_norms_equal_the_tiles_diagonal(cuda_device, dim):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dim", [8, 97, 784])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_split_norms_equal_the_wgmma_diagonal(cuda_device, dim, seed):
+    """K1/K2's prologue norms equal, bit for bit, the wgmma tile's products
+    of each row with itself at every row position of a 64-row warpgroup
+    and every column of a 128-column chunk: the columns are the rows
+    shifted by each of 0..127 positions, and a random permutation."""
+    n = 384
+    X = _centered_mnist(cuda_device, m=n, seed=seed)[:, :dim].contiguous()
+    staged = fused_knn.stage_tf32_split(X)
+    rows = torch.arange(n, device=cuda_device)
+    perms = [torch.roll(rows, s) for s in range(0, 128, 7)]
+    perms.append(torch.randperm(n, generator=torch.Generator().manual_seed(seed))
+                 .to(cuda_device))
+    for perm in perms:
+        cols = tuple(t[perm].contiguous() for t in staged)
+        dots = fused_knn.split_tile_dots(staged, cols)
+        inv = torch.empty_like(perm)
+        inv[perm] = rows
+        assert torch.equal(dots[rows, inv], staged[2])
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dim", [8, 97, 784])
+def test_split_planes_equal_plain(cuda_device, dim):
+    """The prologue's planes equal the plain version's bit for bit (NaN
+    where it has NaN), zero past d; its norms are within rtol 1e-5 of the
+    plain f32 norms, NaN for a NaN row."""
+    X = _centered_mnist(cuda_device, m=300)[:, :dim].contiguous()
+    X[7] = float("nan")
+    X[9, dim // 2] = float("inf")
+    hi, lo, norms = fused_knn.stage_tf32_split(X)
+    torch.cuda.synchronize()
+    wh, wl, wn = fused_knn.stage_tf32_split_reference(X, fused_knn.split_width(dim))
+    for got, want in ((hi, wh), (lo, wl)):
+        assert torch.equal(torch.isnan(got), torch.isnan(want))
+        assert torch.equal(torch.nan_to_num(got), torch.nan_to_num(want))
+    fin = torch.isfinite(wn)
+    assert bool(((norms - wn).abs()[fin] <= 1e-5 * wn[fin]).all())
+    assert bool(torch.isnan(norms[7])) and not bool(torch.isfinite(norms[9]))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("name", ["fused_knn_tiles", "fused_knn_sweep"])
 def test_exact_duplicates_are_excluded_at_any_fragment_position(cuda_device,
                                                                 name):
-    """Duplicate pairs planted at rows of every residue mod 16 (the A
-    fragment's rows) against columns of every residue mod 8 (the B
-    fragment's), on non-integer rows: with the zero rule on, each is
+    """Duplicate pairs planted at rows of many residues mod 64 (a
+    warpgroup's rows) against columns of many residues mod 128 (a chunk's
+    columns), on non-integer rows: with the zero rule on, each is
     excluded; with it off, the pair's distance is exactly 0."""
     X = _centered_mnist(cuda_device, m=1024, seed=2)
     pairs = [(16 * i + i, 512 + 8 * (3 * i) + i % 8) for i in range(16)]
+    pairs += [(300 + 13 * i, 700 + 19 * i) for i in range(12)]
     for a, b in pairs:
         X[b] = X[a]
     n = X.shape[0]

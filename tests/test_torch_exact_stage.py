@@ -1,10 +1,13 @@
 """The exact tile's prologue and operand split, on the CPU.
 
-- The plain form of the exact prologue (``fused_knn.stage_tf32_rows`` and
-  ``fused_ring.stage_wire_norms`` on CPU tensors) decodes each wire as the
-  JAX package's ``_load_wire_tile`` (``dequantize_rows`` on the int8
-  wire) does and returns its squared norms ``jnp.sum(x * x, -1)`` within
-  rtol 1e-6 (the sum orders differ).
+- The plain form of the exact prologues (``fused_knn.stage_tf32_split``,
+  K1/K2's, and ``fused_ring.stage_wire_norms``, the ring's, on CPU
+  tensors) decodes each wire as the JAX package's ``_load_wire_tile``
+  (``dequantize_rows`` on the int8 wire) does and returns its squared
+  norms ``jnp.sum(x * x, -1)`` within rtol 1e-6 (the sum orders differ).
+- ``stage_tf32_split``'s planes: hi + lo = x within 2^-22 |x|, lo = 0 for
+  small integers, NaN stays NaN, zeros past d, a pitch of d rounded up to
+  the tile's 16-float k-block.
 - ``fused_knn.tf32_split``, the plain model of the tile's operand split
   x = hi + lo: hi and lo are TF32 values, hi + lo is x within 2^-22 |x|,
   and a value with at most 11 significant bits splits with lo = 0 (so the
@@ -60,23 +63,23 @@ def test_wire_norms_equal_jax(wire, seed):
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-6)
     assert got[5] == 0.0
     if wire is None:
-        np.testing.assert_allclose(fused_knn.stage_tf32_rows(blk).numpy(), want,
-                                   rtol=1e-6)
+        np.testing.assert_allclose(fused_knn.stage_tf32_split(blk)[2].numpy(),
+                                   want, rtol=1e-6)
 
 
 def test_plain_prologue_counts_no_launch():
     fused_knn.reset_launch_counts()
     fused_ring.reset_launch_counts()
     x = torch.from_numpy(_rows(3))
-    fused_knn.stage_tf32_rows(x)
+    fused_knn.stage_tf32_split(x)
     fused_ring.stage_wire_norms(x, None)
-    assert fused_knn.LAUNCHES["stage_tf32"] == 0
+    assert fused_knn.LAUNCHES["stage_tf32_split"] == 0
     assert fused_ring.LAUNCHES["stage_tf32[wire]"] == 0
 
 
 def test_prologue_refuses_non_f32_rows():
     with pytest.raises(TypeError, match="float32"):
-        fused_knn.stage_tf32_rows(torch.zeros(4, 8, dtype=torch.float64))
+        fused_knn.stage_tf32_split(torch.zeros(4, 8, dtype=torch.float64))
 
 
 @pytest.mark.parametrize("scale", [1e-3, 1.0, 255.0, 3e5])
@@ -109,6 +112,61 @@ def test_non_finite_values_poison_their_products():
     hi, lo = fused_knn.tf32_split(x)
     assert bool(torch.isnan(hi[0])) and torch.equal(hi[1:], x[1:])
     assert bool(torch.isnan(lo).all())
+
+
+@pytest.mark.parametrize("d,pitch", [(8, 16), (16, 16), (97, 112), (784, 784),
+                                     (785, 800)])
+def test_split_planes_pitch_and_zero_padding(d, pitch):
+    x = torch.from_numpy(_rows(8, n=20)[:, :1].repeat(d, 1) * 0.37)
+    hi, lo, norms = fused_knn.stage_tf32_split(x)
+    assert fused_knn.split_width(d) == pitch
+    assert hi.shape == lo.shape == (20, pitch) and norms.shape == (20,)
+    assert hi.dtype == lo.dtype == torch.float32
+    assert not bool(hi[:, d:].any()) and not bool(lo[:, d:].any())
+    assert pitch % 16 == 0 and (pitch * 4) % 16 == 0
+
+
+@pytest.mark.parametrize("scale", [1e-3, 1.0, 3e5])
+def test_split_planes_rebuild_the_rows(scale):
+    rng = np.random.default_rng(11)
+    x = torch.from_numpy((rng.standard_normal((50, 97)) * scale).astype(np.float32))
+    hi, lo, norms = fused_knn.stage_tf32_split(x)
+    hi, lo = hi[:, :97], lo[:, :97]
+    for t in (hi, lo):
+        assert not bool((t.view(torch.int32) & 0x1FFF).any())
+    err = (hi.double() + lo.double() - x.double()).abs()
+    assert bool((err <= 2.0 ** -22 * x.double().abs()).all())
+    np.testing.assert_allclose(norms.numpy(), (x.double() ** 2).sum(1).numpy(),
+                               rtol=1e-6)
+
+
+def test_split_planes_of_small_integers_have_zero_lo():
+    x = torch.from_numpy(_rows(9)).round().clamp(-2047, 2047)
+    hi, lo, _ = fused_knn.stage_tf32_split(x)
+    assert torch.equal(hi[:, :DIM], x)
+    assert not bool(lo.any())
+
+
+def test_split_planes_keep_nan_rows_nan():
+    x = torch.from_numpy(_rows(10))
+    x[2, 7] = float("nan")
+    x[4] = float("nan")
+    hi, lo, norms = fused_knn.stage_tf32_split(x)
+    assert bool(torch.isnan(hi[2, 7])) and bool(torch.isnan(lo[2, 7]))
+    assert bool(torch.isnan(hi[4, :DIM]).all()) and bool(torch.isnan(norms[[2, 4]]).all())
+    assert bool(torch.isfinite(norms[[0, 1, 3]]).all())
+
+
+def test_all_pairs_stages_the_corpus_once():
+    """Queries that are the corpus' first rows take the corpus' staged
+    planes and norms (one prologue); other queries are staged apart."""
+    x = torch.from_numpy(_rows(12, n=64))
+    (qh, ql, qn), (ch, cl, cn) = fused_knn._stage_exact(x[:40], x)
+    assert qh.data_ptr() == ch.data_ptr() and torch.equal(qn, cn[:40])
+    other = torch.from_numpy(_rows(13, n=40))
+    (qh, _, qn), (ch, _, _) = fused_knn._stage_exact(other, x)
+    assert qh.data_ptr() != ch.data_ptr()
+    assert torch.equal(qn, fused_knn.stage_tf32_split(other)[2])
 
 
 def _split64(x):

@@ -67,6 +67,9 @@ def _exact_cases():
          dict(exclude_self=False, exclude_zero=False)),
         ("k_equals_c_tile", X[:96], None, 32, 32, 32, {}),
         ("nan_query_row", X, nanq, 4, 16, 128, dict(all_pairs=False)),
+        # widths off the exact tile's 16-float k-block (planes padded to 16, 112)
+        ("width_8", _small_int(2, 150, 8), None, 7, 32, 64, {}),
+        ("width_97", _small_int(3, 150, 97), None, 10, 32, 64, {}),
     ]
 
 
@@ -154,4 +157,4 @@ def test_launch_counts_untouched_by_plain_versions():
     assert fused_knn.LAUNCHES == {
         "fused_knn_tiles": 0, "fused_knn_sweep": 0,
         "fused_knn_tiles[compress]": 0, "fused_knn_sweep[compress]": 0,
-        "stage_tf32": 0, "stage_bf16": 0}
+        "stage_tf32_split": 0, "stage_bf16": 0}
