@@ -67,14 +67,20 @@ is not 0:
    by f64 distance, >= 0.999);
 5. kernels: one line with every kernel mode's launches, error, times and
    bound, the prologues (`stage_tf32_split`, `stage_tf32[wire]`,
-   `stage_bf16`, `stage_bf16[wire]`) among them.
+   `stage_tf32_split[ring]`, `stage_bf16`, `stage_bf16[wire]`) among them.
 
 Every kernel runs on the tensor cores. The exact K1 and K2 run wgmma: three
 TF32 passes of hi/lo planes that their prologue `stage_tf32_split` writes
-once with the norms, loaded by TMA; the exact ring kernels (K3a, K4, K5)
-run mma.sync on split f32 operands after the norm prologue
-`stage_tf32[wire]`; the compress ones (K1[c], K2[c], K3b) one bf16 mma.sync
-pass on copies that their prologue writes with f32 norms. A kernel's `ms`
+once with the norms, loaded by TMA; K4 on the f32 wire runs the same wgmma
+tile promoted every 8 deep, on planes its own prologue
+(`stage_tf32_split[ring]`) writes once per call and that travel with the
+block; K3a, K5 and K4's bf16 and int8 wires run mma.sync on split f32
+operands after the norm prologue `stage_tf32[wire]`; the compress ones
+(K1[c], K2[c], K3b) one bf16 mma.sync pass on copies that their prologue
+writes with f32 norms. The `wgmma_8deep_vs_mma_sync` phase holds K2 built
+at 8-deep promotion against K3a from an all-+inf carry at the main shape,
+and the two prologues' norms, bit for bit: what lets K4 run the wgmma tile
+while the rings' bitwise checks against the K3a ring stand. A kernel's `ms`
 is the kernel alone on staged operands, `call_ms` the wrapper with its
 prologue launches; the exact rows' bound is three times the needed FLOP at
 the dense TF32 peak (`bound_ffma_ms` keeps the FP32 bound of one FFMA
@@ -82,15 +88,18 @@ product). Beside them the script prints, per kernel, registers and spilled
 bytes a thread and CTAs per SM (`kernel_resources`, from
 cudaFuncGetAttributes and the occupancy API; the launch plans: for K1/K2
 the persistent grid and its items, for K3a, K4 and K5 rows per CTA, CTAs,
-grid, items per round at each shape), the count of HGMMA (wgmma: K1, K2,
-their prologue) or HMMA (mma.sync: the rest) instructions in its SASS
+grid, items per round at each shape, and waves of the persistent grids;
+the wgmma K4's setmaxnreg registers per warpgroup role from its SASS), the
+count of HGMMA (wgmma: K1, K2, K4's f32 form, their prologues) or HMMA
+(mma.sync: the rest, K4's other wires among them) instructions in its SASS
 (`cuobjdump -sass` of the built libraries; it must be > 0), the "product
 alone" of each policy (torch.matmul on the same operands in query chunks:
 bf16 copies, and f32 with TF32 off, cuBLAS's SGEMM), and the
-`exact_error` phase: on every slot of K1's, K2's and K3a's main-shape
-outputs, max and 99.99th percentile of |d - d_f64| / (q^2 + c^2), the
-plain version's beside it; the gate is max <= min(1e-6, the plain's) for
-K1 and K2 and max <= max(5e-7, 2x the plain's) for K3a. The
+`exact_error` phase: on every slot of K1's, K2's, K3a's and K4's
+main-shape outputs (K3a and K4 at P=1), max and 99.99th percentile of
+|d - d_f64| / (q^2 + c^2), the plain version's beside it; the gate is max
+<= min(1e-6, the plain's) for K1 and K2 and max <= max(5e-7, 2x the
+plain's) for K3a and K4. The
 `exact_error_interval` phase measures K2 built with the other promotion
 intervals of the wgmma tile (8 and 32 deep, and none). The `mma_ceiling`
 phase measures the card's tensor-core rates (probe kernels of wgmma
@@ -134,15 +143,16 @@ def source_of(kernel: str) -> str:
     """The CUDA source of a kernel mode, under mpi_knn_tpu_torch/csrc/."""
     if kernel.startswith("fused_knn") or kernel in ("stage_tf32_split", "stage_bf16"):
         return "fused_knn.cu"
-    if kernel.startswith(("fused_block_merge", "stage")):
+    if kernel.startswith(("fused_block_merge", "stage")) and not kernel.endswith("[ring]"):
         return "fused_ring.cu"
     return "fused_ring_dma.cu"
 
 
 def sass_mma_counts(lib_path) -> dict:
-    """{kernel function (mangled): {"HMMA": n, "HGMMA": n}}, the mma.sync
-    and wgmma instructions in its SASS, from ``cuobjdump -sass`` of a built
-    kernel library."""
+    """{kernel function (mangled): {"HMMA": n, "HGMMA": n, "SETMAXREG":
+    [...]}}, the mma.sync and wgmma instructions in its SASS and its
+    register reallocations (the instructions' text), from ``cuobjdump
+    -sass`` of a built kernel library."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     out = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
                          text=True, timeout=300, check=True).stdout
@@ -151,11 +161,14 @@ def sass_mma_counts(lib_path) -> dict:
         m = re.search(r"Function : (\S+)", line)
         if m:
             cur = m.group(1)
-            counts[cur] = {"HMMA": 0, "HGMMA": 0}
+            counts[cur] = {"HMMA": 0, "HGMMA": 0, "SETMAXREG": []}
         elif cur is not None:
             for op in ("HGMMA", "HMMA"):
                 if re.search(rf"\b{op}\b", line):
                     counts[cur][op] += 1
+            m = re.search(r"(\w*SETMAXREG[^;]*)", line)
+            if m:
+                counts[cur]["SETMAXREG"].append(" ".join(m.group(1).split()))
     return counts
 
 
@@ -594,26 +607,28 @@ def main() -> int:
               "seconds": entry["seconds"], "cached": entry["log"] == "cached"})
 
     # ---- every kernel: tensor-core instructions and resources -------------
-    mma = {}
-    for src in _build.SOURCES:
-        mma.update(sass_mma_counts(_build._lib_path(src)))
+    mma = {src: sass_mma_counts(_build._lib_path(src)) for src in _build.SOURCES}
     emit({"phase": "sass", "mma_by_function": mma})
-    # the exact K1/K2 and their prologue run wgmma (HGMMA), the rest mma.sync
-    wgmma_kernels = ("fused_knn_tiles", "fused_knn_sweep", "stage_tf32_split")
-    kernel_fns = {"fused_knn_tiles": "fused_knn_tiles_kernel",
-                  "fused_knn_sweep": "fused_knn_sweep_kernel",
-                  "stage_tf32_split": "stage_split_kernel",
-                  "fused_knn_tiles[compress]": "fused_knn_tiles_compress_kernel",
-                  "fused_knn_sweep[compress]": "fused_knn_sweep_compress_kernel",
-                  "fused_block_merge[exact]": "block_merge_exact_kernel",
-                  "fused_block_merge[compress]": "block_merge_compress_kernel",
-                  "fused_round_dma": "round_dma_kernel",
-                  "fused_rotation_grid": "rotation_grid_kernel"}
-    for name, fn in kernel_fns.items():
-        op = "HGMMA" if name in wgmma_kernels else "HMMA"
-        n = sum(v[op] for f, v in mma.items() if fn in f)
+    # kernel mode -> the functions of its library whose SASS must hold the
+    # instruction: wgmma (HGMMA) for the exact K1/K2, K4's f32 form and
+    # their prologues, mma.sync (HMMA) for the rest
+    kernel_fns = {"fused_knn_tiles": [("fused_knn_tiles_kernel", "HGMMA")],
+                  "fused_knn_sweep": [("fused_knn_sweep_kernel", "HGMMA")],
+                  "stage_tf32_split": [("stage_split_kernel", "HGMMA")],
+                  "fused_knn_tiles[compress]": [("fused_knn_tiles_compress_kernel", "HMMA")],
+                  "fused_knn_sweep[compress]": [("fused_knn_sweep_compress_kernel", "HMMA")],
+                  "fused_block_merge[exact]": [("block_merge_exact_kernel", "HMMA")],
+                  "fused_block_merge[compress]": [("block_merge_compress_kernel", "HMMA")],
+                  "fused_round_dma": [("round_dma_kernel_wgmma", "HGMMA"),
+                                      ("round_dma_kernelIL", "HMMA")],
+                  "stage_tf32_split[ring]": [("stage_split_kernel", "HGMMA")],
+                  "fused_rotation_grid": [("rotation_grid_kernel", "HMMA")]}
+    for name, checks in kernel_fns.items():
+        lib = mma[source_of(name).removesuffix(".cu")]
+        found = {f"{op.lower()}_in_sass[{fn}]": sum(v[op] for f, v in lib.items() if fn in f)
+                 for fn, op in checks}
         kk = OV if "[compress]" in name else K
-        if name == "stage_tf32_split":
+        if name.startswith("stage_tf32_split"):
             info = {}
         elif name.startswith("fused_knn"):
             info = fused_knn.kernel_info(name, kk)
@@ -629,15 +644,24 @@ def main() -> int:
             which = "round" if name == "fused_round_dma" else "grid"
             info = {f"{n_local}_ranks_per_card": fused_rotation.ring_kernel_plan(
                 which, torch.float32, n_local, 15360, K) for n_local in (4, 1)}
-            if which == "grid":
-                for plan in info.values():
+            if which == "round":  # P=1: one rank of 60416 queries
+                info["1_rank_p1"] = fused_rotation.ring_kernel_plan(
+                    which, torch.float32, 1, 60416, K)
+                info["bf16_wire_4_ranks_per_card"] = fused_rotation.ring_kernel_plan(
+                    which, torch.bfloat16, 4, 15360, K)
+                # the wgmma form's registers per warpgroup role (setmaxnreg)
+                info["setmaxnreg"] = sorted({x for f, v in lib.items()
+                                             if "round_dma_kernel_wgmma" in f
+                                             for x in v["SETMAXREG"]})
+            for plan in info.values():
+                if isinstance(plan, dict) and (which == "grid" or plan["wgmma_tile"]):
                     plan["waves_per_round"] = plan["items_per_round"] / plan["grid"]
                     last = plan["items_per_round"] % plan["grid"] or plan["grid"]
                     plan["last_wave_fill"] = last / plan["grid"]
-        emit({"phase": "kernel_resources", "kernel": name, "function": fn,
-              "k": kk, f"{op.lower()}_in_sass": n, **info})
-        if n <= 0:
-            raise AssertionError(f"{name}: no {op} instruction in its SASS")
+        emit({"phase": "kernel_resources", "kernel": name, "k": kk, **found, **info})
+        for key, n in found.items():
+            if n <= 0:
+                raise AssertionError(f"{name}: {key} is 0")
 
     # ---- the ceiling of the tiles' products: the card's tensor-core rates --
     needed = 2.0 * M_FULL * M_FULL * 784  # the main shape's products, D = 784
@@ -773,6 +797,27 @@ def main() -> int:
               "kernel_err": {"max": float(e.max()),
                              "p99_99": float(torch.quantile(e, 0.9999)),
                              "pairs": int(e.numel())}})
+        if depth == 8:
+            # the wgmma tile at 8 deep (K4's interval) against the mma.sync
+            # Tf32x3 tile (K3a: the same all-pairs sweep from an all-+inf
+            # carry) and their prologues' norms: bit for bit
+            def ring_ids(n):
+                i = torch.arange(n, dtype=torch.int32, device=device)
+                return torch.where(i < M_FULL, i, -1)
+
+            md, mi = fused_ring.block_merge_exact(
+                qp, ring_ids(Q), cp, ring_ids(C), None,
+                torch.full((Q, K), float("inf"), device=device),
+                torch.full((Q, K), -1, dtype=torch.int32, device=device), c_tile=C_TILE)
+            m_norms = fused_ring.stage_wire_norms(cp, None)
+            torch.cuda.synchronize()
+            diff = {"norms": int((var_norms != m_norms).sum()),
+                    "ids": int((var_i != mi).sum()), "dists": int((var_d != md).sum())}
+            emit({"phase": "wgmma_8deep_vs_mma_sync", "Q": Q, "C": C, "D": D, "k": K,
+                  "differing": diff, "bitwise_equal": not any(diff.values())})
+            if any(diff.values()):
+                raise AssertionError(f"wgmma at 8 deep differs from mma.sync: {diff}")
+            del md, mi, m_norms
         del variant, planes, var_norms, var_d, var_i
 
     # the product alone: torch.matmul on the same staged bf16 copies, in
@@ -1100,7 +1145,7 @@ def main() -> int:
             ql = q_sh[r].shape[0]
             nbytes += 4.0 * real_q * D + 16.0 * ql * K
             for j in range(rounds):
-                blk, bids, scl, _ = blocks[(r - j) % len(blocks)]
+                blk, bids, scl = blocks[(r - j) % len(blocks)][:3]
                 real_b = int((bids >= 0).sum())
                 ops += 2.0 * real_q * real_b * D
                 nbytes += (blk.element_size() * real_b * D + 4.0 * bids.numel()
@@ -1111,23 +1156,55 @@ def main() -> int:
         P = len(devs)
         q_tile, c_tile, q_sh, qid_sh, travelers = ring.ring_shards(
             cfg_fused, Xc, Xc, row_ids, devs)
-        # the travelers with their norms, staged once as the ring driver does
+        # the travelers with their norms, staged once as the ring driver
+        # does: for K5 (mma.sync) by stage_tf32[wire]; for K4 (wgmma, the
+        # f32 wire) by its own prologue, with the planes its tile reads
         blocks0 = [(b, i, s, fused_ring.stage_wire_norms(b, s))
                    for b, i, s in travelers[0]]
         q_norms = [fused_ring.stage_wire_norms(q, None) for q in q_sh]
+        staged_q = [fused_rotation.stage_round_planes(q) for q in q_sh]
+        blocks4 = [(b, i, s, n, hi, lo) for (b, i, s), (hi, lo, n) in zip(
+            travelers[0], (fused_rotation.stage_round_planes(b) for b, _, _ in travelers[0]))]
+        if shape == "p1_mnist60k":  # K4's prologue against its plain version
+            blk = blocks4[0][0]
+            want_split = fused_knn.stage_tf32_split_reference(blk, fused_knn.split_width(D))
+            for part, g, w in zip(("hi", "lo"), blocks4[0][4:], want_split):
+                if not torch.equal(g, w):
+                    raise AssertionError(f"stage_tf32_split[ring]: the {part} plane differs")
+            max_err["stage_tf32_split[ring]"] = check_norms(
+                "stage_tf32_split[ring]/p1_mnist60k", blocks4[0][3], want_split[2])
+            # at 8 deep the wgmma diagonal is the mma.sync one: K3a may take
+            # K4's norms (the resumable ring's last round)
+            if not torch.equal(blocks4[0][3], blocks0[0][3]):
+                raise AssertionError("stage_tf32_split[ring] norms differ from stage_tf32[wire]")
+            emit({"phase": "kernel_vs_plain", "case": "stage_tf32_split[ring]/equals_wire_norms",
+                  "rows": blk.shape[0], "bitwise_equal": True, "ok": True})
+            width = fused_knn.split_width(D)
+            timing["stage_tf32_split[ring]"] = {
+                "ms": cuda_ms(lambda: fused_rotation.stage_round_planes(blk), reps=3),
+                "plain_ms": cuda_ms(lambda: fused_knn.stage_tf32_split_reference(
+                    blk, width), reps=3),
+                **exact_bound(2.0 * blk.shape[0] * D,
+                              4.0 * blk.shape[0] * D + 8.0 * blk.shape[0] * width
+                              + 4.0 * blk.shape[0])}
+            emit({"phase": "kernel_time", "kernel": "stage_tf32_split[ring]",
+                  "rows": blk.shape[0], "D": D, "width": width,
+                  **timing["stage_tf32_split[ring]"]})
+            del want_split
         init = [init_topk(q.shape[0], K, device=q.device) for q in q_sh]
-        blocks, carries = blocks0, init
+        blocks, carries = blocks4, init
         tr = fused_rotation.ring_transport(devs)
         if P > 1:  # round 1: own blocks merged, the blocks one rank on
-            blocks = lands(blocks0, 1)
+            blocks = lands(blocks4, 1)
             carries = fused_rotation.fused_round_dma_reference(
-                q_sh, qid_sh, blocks0, init, blocks, c_tile=c_tile)
+                q_sh, qid_sh, blocks4, init, blocks, c_tile=c_tile)
         land, want_land = lands(blocks, 0), lands(blocks, 0)
 
         def k4():
-            return fused_rotation.fused_round_dma(tr, q_sh, qid_sh, blocks,
-                                                  carries, land, c_tile=c_tile,
-                                                  query_norms=q_norms)
+            return fused_rotation.fused_round_dma(
+                tr, q_sh, qid_sh, blocks, carries, land, c_tile=c_tile,
+                query_norms=[t[2] for t in staged_q],
+                query_planes=[t[:2] for t in staged_q])
 
         def k4_plain():
             return fused_rotation.fused_round_dma_reference(
@@ -1139,7 +1216,7 @@ def main() -> int:
             for r in one_card:
                 fused_ring.block_merge_exact(
                     q_sh[r], qid_sh[r], *blocks[r][:3], *carries[r], c_tile=c_tile,
-                    query_norms=q_norms[r], block_norms=blocks[r][3])
+                    query_norms=staged_q[r][2], block_norms=blocks[r][3])
                 for dst, src in zip(land[(r + 1) % P], blocks[r]):
                     if src is not None:
                         dst.copy_(src)
@@ -1157,8 +1234,20 @@ def main() -> int:
         err = compare(f"fused_round_dma/{shape}", cat(got), cat(want), q_all,
                       Xcd, M_FULL, qid_all, False, K, None, sample=sample)
         max_err["fused_round_dma"] = max(max_err["fused_round_dma"], err)
+        if shape == "p1_mnist60k":  # K3a's gate
+            real = qid_all >= 0
+            exact_error("fused_round_dma", q_all[real], Xcd,
+                        *((d[real], i[real]) for d, i in (cat(got), cat(want))))
+        plan = fused_rotation.ring_kernel_plan("round", torch.float32, len(one_card),
+                                               q_sh[0].shape[0], K)
+        plan["waves"] = plan["items_per_round"] / plan["grid"]
+        emit({"phase": "launch_plan", "kernel": "fused_round_dma", "shape": shape,
+              "sms": sms, **plan})
         ops, nbytes = real_ops_bytes(q_sh, qid_sh, blocks, one_card, 1)
-        for r in one_card:  # the landed block and ids, written once
+        for r in one_card:  # the query planes, the block's norms and planes
+            nbytes += sum(t.numel() * t.element_size()
+                          for t in (*staged_q[r][:2], *blocks[r][3:]))
+        for r in one_card:  # the landed traveler, written once
             nbytes += sum(t.numel() * t.element_size()
                           for t in blocks[r] if t is not None)
         entry = {"ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
@@ -1216,7 +1305,7 @@ def main() -> int:
               "b": blocks0[0][0].shape[0], "D": D, "k": K,
               "library": "the driver-transport rotation with K3a", **entry})
         del got, want, slots, want_slots
-    del q_sh, qid_sh, travelers, blocks0, blocks, carries, init, q_norms
+    del q_sh, qid_sh, travelers, blocks0, blocks4, blocks, carries, init, q_norms, staged_q
 
     # ---- planted duplicates through the mixed and exact paths on the card --
     # An exact duplicate pair and a near-twin one pixel off by 8. On the
@@ -1423,16 +1512,16 @@ def main() -> int:
                ("mixed", "int8", "fused_block_merge[compress]")]
     for policy, wire, kname in ring_p1:
         label = f"ring-overlap/fused/P1/{policy}/{wire or 'float32'}"
-        # the queries and the block are staged once: 2 prologue launches
-        stage = "stage_bf16[wire]" if policy == "mixed" else "stage_tf32[wire]"
+        # the queries and the block are staged once: 2 prologue launches (K4
+        # on the f32 wire: its own prologue, planes and norms)
+        stage = "stage_bf16[wire]" if policy == "mixed" else "stage_tf32_split[ring]"
         expect = {kname: 1, stage: 2}
         line, ids_of[label] = drive_clf(
             label, expect, backend="ring-overlap", ring_fusion="fused",
             num_devices=1, precision_policy=policy, ring_transfer_dtype=wire)
-        if wire is None:
+        if wire is None and policy == "mixed":
             launches[stage] = line["launches"][stage]
-            if policy == "mixed":
-                launches[kname] = line["launches"][kname]
+            launches[kname] = line["launches"][kname]
 
     def drive_mesh(label, cfg, expect):
         def run():
@@ -1444,10 +1533,11 @@ def main() -> int:
             lambda: all_knn(Xd, config=cfg, mesh=mesh, device=device), expect)
 
     # the exact fused rings stage each rank's queries and block once: 8
-    # prologue launches
+    # prologue launches (K4's own on the dma form, stage_tf32[wire] else)
     norms8 = {"stage_tf32[wire]": 8}
+    planes8 = {"stage_tf32_split[ring]": 8}
     for schedule, fusion, expect in (
-            ("uni", "fused", {"fused_round_dma": 4 * cards, **norms8}),
+            ("uni", "fused", {"fused_round_dma": 4 * cards, **planes8}),
             ("bidir", "fused", {"fused_block_merge[exact]": 16, **norms8}),
             ("uni", "xla", {})):
         cfg = KNNConfig(k=K, backend="ring-overlap", ring_schedule=schedule,
@@ -1455,8 +1545,10 @@ def main() -> int:
         label = f"ring-overlap/{fusion}/P4/exact/{schedule}"
         line, ids_of[label] = drive_mesh(label, cfg, expect)
         if schedule == "bidir":
-            launches["fused_block_merge[exact]"] = \
-                line["launches"]["fused_block_merge[exact]"]
+            for name in ("fused_block_merge[exact]", "stage_tf32[wire]"):
+                launches[name] = line["launches"][name]
+        elif fusion == "fused":
+            launches["stage_tf32_split[ring]"] = line["launches"]["stage_tf32_split[ring]"]
 
     # the ring's in-kernel transport: K4 each round, K5 the whole rotation;
     # each must equal the driver-transport K3a ring on the same inputs
@@ -1464,7 +1556,7 @@ def main() -> int:
         k=K, backend="ring-overlap", ring_fusion="fused"), mesh=mesh,
         device=device, form="driver")
     for rotation, kname, expect in (
-            ("round", "fused_round_dma", {"fused_round_dma": 4 * cards, **norms8}),
+            ("round", "fused_round_dma", {"fused_round_dma": 4 * cards, **planes8}),
             ("grid", "fused_rotation_grid", {"fused_rotation_grid": cards,
                                              **norms8})):
         cfg = KNNConfig(k=K, backend="ring-overlap", ring_fusion="fused",
@@ -1501,9 +1593,9 @@ def main() -> int:
         second = {k: v for k, v in read_counts().items() if v}
     same = (torch.equal(i, results[dma_label].ids)
             and torch.equal(d, results[dma_label].dists))
-    expect_first = {"fused_round_dma": 2 * cards, **norms8}
+    expect_first = {"fused_round_dma": 2 * cards, **planes8}
     expect_second = {"fused_round_dma": cards, "fused_block_merge[exact]": 4,
-                     **norms8}
+                     **planes8}
     emit({"phase": "resume", "path": "all_knn_ring_resumable/P4/exact/uni",
           "stopped_after_rounds": 2, "launches_first": first,
           "launches_resumed": second, "resumed_s": resume_s,
@@ -1546,6 +1638,7 @@ def main() -> int:
         # and norms of the compress tiles, hoisted out of the tile
         "stage_tf32_split": "mpi_knn_tpu/ops/pallas_knn.py:249",
         "stage_tf32[wire]": "mpi_knn_tpu/ops/pallas_ring.py:337",
+        "stage_tf32_split[ring]": "mpi_knn_tpu/ops/pallas_ring.py:553",
         "stage_bf16": "mpi_knn_tpu/ops/pallas_knn.py:249",
         "stage_bf16[wire]": "mpi_knn_tpu/ops/pallas_ring.py:363",
     }
@@ -1562,6 +1655,7 @@ def main() -> int:
             transport_timing[("fused_rotation_grid", "p4_rotation")]["library_ms"],
         "stage_tf32_split": None,  # no one PyTorch call writes the planes and norms
         "stage_tf32[wire]": timing["stage_tf32[wire]"]["library_ms"],
+        "stage_tf32_split[ring]": None,  # no one PyTorch call writes the planes and norms
         "stage_bf16": None,  # no one PyTorch call writes the copy and the norms
         "stage_bf16[wire]": None,
     }

@@ -17,7 +17,8 @@ JAX package chooses between its ppermutes and the kernel's own copies:
   on a card): each round is one launch of K4 (``ops/fused_rotation.
   fused_round_dma``) per card, which merges and copies the resident block
   into the successor's landing slot; two slots per rank, swapped each
-  round.
+  round. On the f32 wire K4 runs the wgmma tile, on the bf16 and int8
+  wires the mma.sync one.
 - ``"grid"`` (fused, ``ring_fused_rotation="grid"``, on cards): the whole
   rotation is one launch of K5 per card.
 - ``"driver"``, otherwise: the blocks move with ``Tensor.to(mesh[r + 1])``.
@@ -30,14 +31,20 @@ JAX package chooses between its ppermutes and the kernel's own copies:
 The per-round merge of the driver form is the serial backend's tile loop
 (``ring_fusion="xla"``, through ``knn_chunk_update``) or the fused block
 merge of ``ops/fused_ring.py`` (``"fused"``: K3a, K3b), on an f32, bf16 or
-int8 wire. Where the merge is K3a's exact tile (K3a, K4, K5), ``RingRun``
-stages the squared norms of each rank's queries and block once per call
-(``fused_ring.stage_wire_norms``), and each block's norms travel with it
-as a fourth part of its traveler. Padding and tiling come from
-``ring_tiles``, so the layouts are the JAX package's. ``RingRun`` holds one call's ranks and runs its rounds;
-the resumable ring (``backends/ring_resumable.py``) drives the same rounds
-one at a time. A dp×ring mesh and a multi-process ``torch.distributed``
-form are not ported yet.
+int8 wire. Where the merge is exact (K3a, K4, K5), ``RingRun`` stages the
+squared norms of each rank's queries and block once per call, and each
+block's norms travel with it as a fourth part of its traveler: for the
+mma.sync tile by ``fused_ring.stage_wire_norms``; for the dma form on the
+f32 wire by K4's prologue ``fused_rotation.stage_round_planes``, which
+also writes the TF32 hi/lo planes its wgmma tile reads, and those travel
+as the fifth and sixth parts. The two prologues' norms are equal bit for
+bit (K4's tile is promoted every 8 deep, as the mma.sync one), so the
+resumable ring's last round (K3a) may take K4's. Padding and tiling come
+from ``ring_tiles``, so the layouts are the JAX package's. ``RingRun``
+holds one call's ranks and runs its rounds; the resumable ring
+(``backends/ring_resumable.py``) drives the same rounds one at a time. A
+dp×ring mesh and a multi-process ``torch.distributed`` form are not ported
+yet.
 """
 
 from __future__ import annotations
@@ -63,6 +70,7 @@ from mpi_knn_tpu_torch.ops.fused_rotation import (
     landing_slots,
     ring_transport,
     slot,
+    stage_round_planes,
     traveler,
 )
 from mpi_knn_tpu_torch.ops.quant import (
@@ -194,7 +202,7 @@ class _Transport:
 def _merge(queries, qids, held, carry, cfg: KNNConfig, q_tile, c_tile,
            q_norms=None):
     """One rank's merge of one resident block (a traveler) into its carry."""
-    blk, blk_ids, scl, b_norms = traveler(held)
+    blk, blk_ids, scl, b_norms = traveler(held)[:4]
     if cfg.ring_fusion == "fused":
         return fused_block_merge(queries, qids, blk, blk_ids, scl, *carry,
                                  cfg=cfg, q_tile=q_tile, c_tile=c_tile,
@@ -256,8 +264,9 @@ class RingRun:
     """One call's ring: each rank's query shard, carry and traveler(s),
     and the transport of ``form``. ``round`` runs one round of the
     schedule; ``rotation_grid`` the whole uni rotation (the grid form).
-    Travelers are (block, ids, scale, norms): the norms are staged here,
-    once per call, where the merge runs the exact tile, else None."""
+    Travelers are (block, ids, scale, norms, hi, lo): the norms are staged
+    here, once per call, where the merge is exact, else None; the planes
+    for the dma form on the f32 wire (K4's wgmma tile), else None."""
 
     def __init__(self, cfg: KNNConfig, devices, overlap: bool, form: str,
                  q_sh, qid_sh, travelers, carries, q_tile: int, c_tile: int):
@@ -268,11 +277,23 @@ class RingRun:
         self.q_tile, self.c_tile = q_tile, c_tile
         self.shifts = (1, -1) if len(travelers) == 2 else (1,)
         exact = cfg.ring_fusion == "fused" and merges_exactly(cfg, c_tile)
-        self.q_norms = ([stage_wire_norms(q, None) for q in q_sh] if exact
-                        else [None] * len(q_sh))
+        planes = (exact and form == "dma"
+                  and travelers[0][0][0].dtype == torch.float32)
+        self.q_planes = None
+        if planes:
+            staged = [stage_round_planes(q) for q in q_sh]
+            self.q_norms = [n for _, _, n in staged]
+            self.q_planes = [(hi, lo) for hi, lo, _ in staged]
+        else:
+            self.q_norms = ([stage_wire_norms(q, None) for q in q_sh] if exact
+                            else [None] * len(q_sh))
 
         def with_norms(ts):
-            return [(b, i, s, stage_wire_norms(b, s) if exact else None)
+            if planes:
+                return [(b, i, s, n, hi, lo)
+                        for (b, i, s), (hi, lo, n) in zip(
+                            ts, (stage_round_planes(b) for b, _, _ in ts))]
+            return [(b, i, s, stage_wire_norms(b, s) if exact else None, None, None)
                     for b, i, s in ts]
 
         # per direction: per rank (blk, ids, scale, norms); a backward
@@ -305,7 +326,8 @@ class RingRun:
             land = [slot(s, self.parity) for s in self.slots]
             self.carries = fused_round_dma(
                 self.transport, self.q_sh, self.qid_sh, self.travelers[0],
-                self.carries, land, **self._kernel_kw())
+                self.carries, land, query_planes=self.q_planes,
+                **self._kernel_kw())
             self.travelers[0] = land
             self.parity ^= 1
             return

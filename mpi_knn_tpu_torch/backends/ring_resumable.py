@@ -5,7 +5,9 @@ host, with the top-k carry checkpointed between rounds (the JAX package's
 Each round is a round of ``backends/ring.RingRun``, in the transport form
 ``ring_form`` picks: on cards an exact uni fused round is one K4 launch per
 card, which moves the block as it merges. The last round moves nothing, as
-in the reference, so it merges through the driver form's kernel (K3a).
+in the reference, so it merges through the driver form's kernel (K3a); on
+the f32 wire it takes the norms K4's prologue staged, which equal K3a's
+own prologue's bit for bit.
 A checkpoint is (carry, rounds_done, fingerprint): the rotating block needs
 no saving, because after r rounds rank i holds corpus block (i − r) mod P,
 rebuilt on resume by rolling the padded corpus r blocks forward before

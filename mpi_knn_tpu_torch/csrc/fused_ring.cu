@@ -14,7 +14,9 @@
 //
 // Both take candidate ids as an operand: a ring block's ids are arbitrary
 // after rotation and -1 marks padding. The exact body is ring_merge.cuh's
-// exact_merge_group, which K4 and K5 (fused_ring_dma.cu) run too: knn_tile.
+// exact_merge_group, which K5 and K4's bf16 and int8 wires (fused_ring_dma.
+// cu) run too (K4's f32 wire runs the same merge on knn_wgmma.cuh's tile,
+// equal to this one bit for bit): knn_tile.
 // cuh's Tf32x3 tile on the f32 queries and the block at its wire type (the
 // f32 wire by cp.async, bf16 and int8 decoded in registers), with the norms
 // the prologue (stage_tf32_wire_launch) wrote once per call: the queries'

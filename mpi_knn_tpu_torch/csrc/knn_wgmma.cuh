@@ -1,10 +1,11 @@
-// The exact tile of the fused kNN kernels K1 and K2 for Hopper (sm_90a):
-// `wgmma` TF32 x3 on TMA-staged hi/lo planes, warp-specialised.
+// The exact tile of the fused kNN kernels K1 and K2, and of the ring round
+// K4 on the f32 wire, for Hopper (sm_90a): `wgmma` TF32 x3 on TMA-staged
+// hi/lo planes, warp-specialised.
 //
-// Replaces, for K1/K2's exact form, knn_tile.cuh's `sweep_mma<Tf32x3>`,
-// whose k-loop split every f32 operand in registers after each fragment
-// load and promoted each k-step's partial with FADDs on the same issue
-// slots as its synchronous mma.sync. Here:
+// Replaces, for K1/K2's exact form and K4's f32 form, knn_tile.cuh's
+// `sweep_mma<Tf32x3>`, whose k-loop split every f32 operand in registers
+// after each fragment load and promoted each k-step's partial with FADDs
+// on the same issue slots as its synchronous mma.sync. Here:
 //
 //   Split once. The prologue `stage_split_kernel` writes each row set once
 //   as two planes, hi = tf32_rna(x) and lo = tf32_rna(x - hi) (hi by cvt,
@@ -33,7 +34,10 @@
 //   on an H100: max |d - d_f64| / (q^2 + c^2) 5.3e-7 at 16, 7.7e-7 at 8,
 //   4.3e-7 at 32 (which holds two of the four stages per partial and
 //   starves the ring: ~20 % slower), 2.7e-6 without promotion, against the
-//   zero rule's 1e-6.
+//   zero rule's 1e-6. K4 (fused_ring_dma.cu, its own build) takes 8 deep:
+//   there the products and the prologue's norms equal the mma.sync Tf32x3
+//   tile's bit for bit (chip_smoke.py's wgmma_8deep_vs_mma_sync), so its
+//   ring equals the K3a and K5 rings bit for bit.
 //
 //   Exact duplicates at exactly 0. The prologue takes each row's norm as
 //   the diagonal of its 128-row group's product with itself, by the same
@@ -51,7 +55,10 @@
 //
 //   Filling the card. One CTA per SM (the ring and key tile take ~198 KB)
 //   walks the caller's items (`Epi::items`, `Epi::item`) in a persistent
-//   grid of min(items, SMs) CTAs.
+//   grid of min(items, SMs) CTAs; an item names the tensor maps it reads
+//   (run_tile_of's maps_of: K4's items span several ranks' planes), and
+//   the producer warpgroup's three warps that issue no TMA run the caller's
+//   side work (K4's transport).
 //
 // What bounds it: 3 x 2 Q C D FLOP at the dense TF32 peak. Every 128 x 128
 // chunk reads 2 KB of hi + lo per k-column from L2 for 98304 FLOP (48
@@ -108,6 +115,12 @@ inline size_t smem_bytes(int k) {
 struct Item {
   int q0, c_begin, c_end;
   size_t out_row0;
+  int part = 0;  // which of the caller's operand sets (a ring rank)
+};
+
+// The four planes' tensor maps an item reads: queries hi, lo, columns hi, lo.
+struct TileMaps {
+  const CUtensorMap *qh, *ql, *ch, *cl;
 };
 
 // What the consumers hold for an item's epilogue.
@@ -335,12 +348,15 @@ __device__ __forceinline__ void group_sync(int g) {
 }
 
 // The tile's body: the persistent walk of epi's items by one CTA of
-// THREADS threads over the four planes' tensor maps (boxes of KB x ROWS).
-// Epi provides nkb (k-blocks), items(), item(i), and the consumers' hooks
-// begin(item, ctx), chunk(acc, item, col0, ctx) and end(item, ctx).
-template <class Epi>
-__device__ void run_tile(const CUtensorMap* qh, const CUtensorMap* ql, const CUtensorMap* ch,
-                         const CUtensorMap* cl, const Epi& epi, unsigned char* smem_raw) {
+// THREADS threads, each item over the tensor maps maps_of(item) (boxes of
+// KB x ROWS). Epi provides nkb (k-blocks), items(), item(i), and the
+// consumers' hooks begin(item, ctx), chunk(acc, item, col0, ctx) and
+// end(item, ctx). side(w) runs on warps w = 1..3 of the producer
+// warpgroup, which issue no TMA: 40 registers a thread, and no barrier
+// the other warpgroups take part in.
+template <class MapsOf, class Side, class Epi>
+__device__ void run_tile_of(const MapsOf& maps_of, const Side& side, const Epi& epi,
+                            unsigned char* smem_raw) {
   const uint32_t raw = smem_addr(smem_raw);
   const uint32_t ring = (raw + (uint32_t)Layout::align - 1) & ~((uint32_t)Layout::align - 1);
   unsigned char* base = smem_raw + (ring - raw);
@@ -360,18 +376,21 @@ __device__ void run_tile(const CUtensorMap* qh, const CUtensorMap* ql, const CUt
       uint32_t it = 0;
       for (int n = blockIdx.x; n < items; n += gridDim.x) {
         const Item t = epi.item(n);
+        const TileMaps m = maps_of(t);
         for (int col0 = t.c_begin; col0 < t.c_end; col0 += COLS)
           for (int kb = 0; kb < epi.nkb; ++kb, ++it) {
             const uint32_t st = it % STAGES;
             mbar_wait(empty + 8 * st, ((it / STAGES) & 1) ^ 1);
             const uint32_t bar = full + 8 * st, dst = ring + st * STAGE_BYTES;
             mbar_expect_tx(bar, STAGE_BYTES);
-            tma_load(dst, qh, bar, kb * KB, t.q0);
-            tma_load(dst + TILE_BYTES, ql, bar, kb * KB, t.q0);
-            tma_load(dst + 2 * TILE_BYTES, ch, bar, kb * KB, col0);
-            tma_load(dst + 3 * TILE_BYTES, cl, bar, kb * KB, col0);
+            tma_load(dst, m.qh, bar, kb * KB, t.q0);
+            tma_load(dst + TILE_BYTES, m.ql, bar, kb * KB, t.q0);
+            tma_load(dst + 2 * TILE_BYTES, m.ch, bar, kb * KB, col0);
+            tma_load(dst + 3 * TILE_BYTES, m.cl, bar, kb * KB, col0);
           }
       }
+    } else if (threadIdx.x >= 32) {
+      side(threadIdx.x / 32);
     }
   } else {  // two consumer warpgroups
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(CONSUMER_REGS));
@@ -397,6 +416,15 @@ __device__ void run_tile(const CUtensorMap* qh, const CUtensorMap* ql, const CUt
       epi.end(t, ctx);
     }
   }
+}
+
+// run_tile_of with one set of tensor maps for every item and nothing on the
+// producer's spare warps.
+template <class Epi>
+__device__ void run_tile(const CUtensorMap* qh, const CUtensorMap* ql, const CUtensorMap* ch,
+                         const CUtensorMap* cl, const Epi& epi, unsigned char* smem_raw) {
+  run_tile_of([=](const Item&) { return TileMaps{qh, ql, ch, cl}; }, [](int) {}, epi,
+              smem_raw);
 }
 
 // The items of a sweep over query groups: group n's rows against columns
@@ -503,7 +531,7 @@ stage_split_kernel(Src src, int N, int D, int Dp, float* __restrict__ hi,
 }
 
 // The planes' pitch: D rounded up to the k-block.
-inline int split_width(int D) { return (D + KB - 1) / KB * KB; }
+__host__ __device__ inline int split_width(int D) { return (D + KB - 1) / KB * KB; }
 
 template <class Src>
 cudaError_t stage_split(const Src& src, int N, int D, int Dp, float* hi, float* lo,

@@ -11,13 +11,18 @@ barrier state they share.
   P-round uni rotation in one launch per card, over two slots per rank;
   float wires only.
 
-A rank's traveler is (block, ids, scale or None, norms or None): the norms
-are the exact prologue's squared norms of the decoded block
-(``fused_ring.stage_wire_norms``), made once per call and moved with the
-block by the kernels themselves, as its ids are; a traveler without them
-is staged by the wrapper (one prologue launch), and the query norms
-likewise (``query_norms``). The plain versions compute their own norms in
-f32 and copy whatever the traveler holds.
+A rank's traveler is (block, ids, scale or None, norms or None, hi or
+None, lo or None): the norms are the exact prologue's squared norms of the
+decoded block, made once per call and moved with the block by the kernels
+themselves, as its ids are. On the f32 wire K4 runs the wgmma tile of
+``csrc/knn_wgmma.cuh``, which reads TF32 hi/lo planes of the queries and
+of the block by TMA: its prologue ``stage_round_planes`` writes them with
+the norms, and the planes travel too. On the other wires, and in K5, the
+norms come from ``fused_ring.stage_wire_norms`` and the planes are None.
+A traveler without what its kernel reads is staged by the wrapper (one
+prologue launch), and the queries likewise (``query_norms``,
+``query_planes``). The plain versions compute their own norms in f32 and
+copy whatever the traveler holds.
 
 One process drives every rank. A launch covers every rank its card holds,
 so a round of K4 is one launch per distinct card (``launches = rounds ×
@@ -40,6 +45,7 @@ import functools
 import torch
 
 from mpi_knn_tpu_torch.ops import _build
+from mpi_knn_tpu_torch.ops.fused_knn import split_width, stage_tf32_split_reference
 from mpi_knn_tpu_torch.ops.fused_ring import (
     _WIRE,
     _check,
@@ -47,7 +53,8 @@ from mpi_knn_tpu_torch.ops.fused_ring import (
     stage_wire_norms,
 )
 
-LAUNCHES = {"fused_round_dma": 0, "fused_rotation_grid": 0}
+LAUNCHES = {"fused_round_dma": 0, "fused_rotation_grid": 0,
+            "stage_tf32_split[ring]": 0}
 
 TIMEOUT_S = 10.0  # bound of every spin-wait inside the kernels
 
@@ -68,7 +75,7 @@ class _Rank(ctypes.Structure):
         "q", "qids", "blk", "scale", "bids", "carry_d", "carry_i", "out_d",
         "out_i", "dst_blk", "dst_scale", "dst_bids", "flags", "succ_flags",
         "pred_flags", "slot_blk", "slot_bids", "cbuf_d", "cbuf_i", "qn", "bn",
-        "dst_bn", "slot_bn")] + [
+        "dst_bn", "slot_bn", "qh", "ql", "bh", "bl", "dst_bh", "dst_bl")] + [
         ("succ_remote", ctypes.c_int), ("pred_remote", ctypes.c_int)]
 
 
@@ -82,10 +89,11 @@ def _lib() -> ctypes.CDLL:
         fn.argtypes = ([ptr] + [i32] * 9 + [ctypes.c_float, i32,
                                             ctypes.c_longlong, ptr, ptr])
         fn.restype = i32
+    lib.round_stage_split_launch.argtypes = [ptr] * 4 + [i32] * 3 + [ptr]
     lib.ring_enable_peer_access.argtypes = [i32, i32]
     lib.ring_kernel_plan.argtypes = [i32] * 5 + [ctypes.POINTER(i32)]
     for name in ("ring_enable_peer_access", "ring_max_local", "ring_words",
-                 "ring_rank_bytes", "ring_kernel_plan"):
+                 "ring_rank_bytes", "ring_kernel_plan", "round_stage_split_launch"):
         getattr(lib, name).restype = i32
     if lib.ring_rank_bytes() != ctypes.sizeof(_Rank):
         raise RuntimeError("csrc/fused_ring_dma.cu's Rank and _Rank differ")
@@ -173,41 +181,71 @@ def ring_transport(devices) -> RingTransport:
 
 
 def traveler(t):
-    """A traveler as (block, ids, scale or None, norms or None)."""
+    """A traveler as (block, ids, scale, norms, hi, lo), each of the last
+    four None where it has none."""
     t = tuple(t)
-    return t + (None,) * (4 - len(t))
+    return t + (None,) * (6 - len(t))
 
 
-def landing_slots(block, ids, scale, norms=None):
+def landing_slots(block, ids, scale, norms=None, hi=None, lo=None):
     """Two landing slots in the layout of one rank's traveler: ((2, b, d)
-    block, (2, b) ids, (2, b) scales or None, (2, b) norms or None), on its
-    device."""
+    block, (2, b) ids, (2, b) scales, (2, b) norms, (2, b, dp) planes hi
+    and lo, each None where the traveler has none), on its device."""
     def two(t):
         return None if t is None else t.new_empty((2,) + tuple(t.shape))
 
-    return two(block), two(ids), two(scale), two(norms)
+    return tuple(two(t) for t in (block, ids, scale, norms, hi, lo))
 
 
 def slot(slots, i: int):
-    """Slot i of ``landing_slots``: (block, ids, scale, norms), each None
-    where the traveler has none."""
+    """Slot i of ``landing_slots``: a traveler, each part None where the
+    slots have none."""
     return tuple(None if t is None else t[i] for t in traveler(slots))
+
+
+def stage_round_planes(rows):
+    """K4's prologue on an f32 (n, d) row set -> (hi, lo, norms): the TF32
+    planes ((n, split_width(d)) f32, x = hi + lo, zero past d) and the (n,)
+    f32 squared norms, on the card the diagonal of K4's own wgmma tile
+    (8-deep promotion, built in ``csrc/fused_ring_dma.cu``)."""
+    if rows.dtype != torch.float32 or rows.ndim != 2 or not rows.is_contiguous():
+        raise TypeError("rows must be a contiguous 2-D float32 tensor")
+    n, d = rows.shape
+    width = split_width(d)
+    if rows.device.type == "cpu":
+        return stage_tf32_split_reference(rows, width)
+    hi, lo = (torch.empty((n, width), dtype=torch.float32, device=rows.device)
+              for _ in range(2))
+    norms = torch.empty(n, dtype=torch.float32, device=rows.device)
+    with torch.cuda.device(rows.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = _lib().round_stage_split_launch(rows.data_ptr(), hi.data_ptr(),
+                                             lo.data_ptr(), norms.data_ptr(), n,
+                                             d, width, stream)
+    if rc != 0:
+        raise RuntimeError(f"stage_tf32_split[ring] launch failed: cudaError {rc}")
+    LAUNCHES["stage_tf32_split[ring]"] += 1
+    return hi, lo, norms
 
 
 def ring_kernel_plan(which: str, wire_dtype, n_local: int, q_local: int,
                      k: int) -> dict:
     """The launch plan of K4 (``which="round"``) or K5 (``"grid"``) over
-    n_local ranks on the current card: query rows per merge group (K4:
-    128, or 64 where 128-row groups would not fill the card's resident
-    slots; K5: 64), the grid, the merge and copy items per round, and the kernel's registers,
-    spilled bytes a thread and CTAs per SM."""
-    out = (ctypes.c_int * 6)()
+    n_local ranks on the current card: query rows per merge group (K4's f32
+    form: 128; its other forms 128, or 64 where 128-row groups would not
+    fill the card's resident slots; K5: 64), the grid (persistent for K4's
+    f32 form and K5), the items per round (merge items, plus copy items
+    where CTAs or work items take them), the kernel's registers, spilled
+    bytes a thread and CTAs per SM, the copy units per round and whether
+    the tile is the wgmma one."""
+    out = (ctypes.c_int * 8)()
     rc = _lib().ring_kernel_plan(0 if which == "round" else 1, _WIRE[wire_dtype],
                                  n_local, q_local, k, out)
     if rc != 0:
         raise RuntimeError(f"ring_kernel_plan failed: cudaError {rc}")
     return dict(zip(("rows_per_group", "grid", "items_per_round", "registers",
-                     "spilled_bytes", "ctas_per_sm"), out))
+                     "spilled_bytes", "ctas_per_sm", "copy_units", "wgmma_tile"),
+                    out))
 
 
 def _ptr(t):
@@ -224,7 +262,7 @@ def _check_ring(queries, query_ids, blocks, carries):
     if any(on_cpu) and not all(on_cpu):
         raise ValueError("a ring's ranks lie all on the CPU or all on cards")
     for r in range(P):
-        blk, ids, scl, _ = blocks[r]
+        blk, ids, scl = blocks[r][:3]
         _check(queries[r], query_ids[r], blk, ids, scl)
         cd, ci = carries[r]
         if (cd.dtype != torch.float32 or ci.dtype != torch.int32
@@ -241,13 +279,14 @@ def _check_ring(queries, query_ids, blocks, carries):
 
 def _check_landing(blocks, landing):
     """The landing buffers match the predecessor's traveler (block, ids,
-    scale); a norms buffer, where there is one, matches its norms."""
+    scale); a norms or plane buffer, where there is one, matches its
+    counterpart."""
     P = len(blocks)
     for r in range(P):
         want = blocks[(r - 1) % P]
         got = landing[r]
         for j, (w, g) in enumerate(zip(want, got)):
-            if j == 3 and (w is None or g is None):
+            if j >= 3 and (w is None or g is None):
                 continue
             if (w is None) != (g is None) or (w is not None and (
                     g.shape != w.shape or g.dtype != w.dtype
@@ -257,13 +296,47 @@ def _check_landing(blocks, landing):
 
 
 def _card_norms(queries, blocks, query_norms):
-    """On cards: the query norms and every traveler's block norms, staged
-    where the caller has none."""
+    """On cards, for the mma.sync tile: the query norms and every
+    traveler's block norms, staged where the caller has none."""
     qn = (list(query_norms) if query_norms is not None
           else [stage_wire_norms(q, None) for q in queries])
-    blocks = [b if b[3] is not None else b[:3] + (stage_wire_norms(b[0], b[2]),)
+    blocks = [b if b[3] is not None
+              else b[:3] + (stage_wire_norms(b[0], b[2]),) + b[4:]
               for b in blocks]
     return qn, blocks
+
+
+def _check_staged(rows, norms, hi, lo):
+    """K4's prologue outputs for ``rows``: (n,) norms and (n, split_width(d))
+    planes, contiguous float32 on the rows' device."""
+    n, d = rows.shape
+    for t, shape in ((norms, (n,)), (hi, (n, split_width(d))), (lo, (n, split_width(d)))):
+        if (t is None or t.dtype != torch.float32 or tuple(t.shape) != shape
+                or t.device != rows.device or not t.is_contiguous()):
+            raise TypeError(f"K4's staged norms and planes must be contiguous float32 "
+                            f"(n,) and (n, {split_width(d)}) on {rows.device}")
+
+
+def _card_planes(queries, blocks, query_norms, query_planes):
+    """On cards, for K4's wgmma tile: the query planes and norms and every
+    traveler's planes and norms, staged by its prologue where the caller
+    has none (norms and planes then come from one launch)."""
+    if query_planes is None:
+        staged = [stage_round_planes(q) for q in queries]
+        query_planes = [s[:2] for s in staged]
+        query_norms = [s[2] for s in staged]
+    if query_norms is None:
+        raise TypeError("query_planes need the query_norms of the same prologue")
+    for q, n, (hi, lo) in zip(queries, query_norms, query_planes):
+        _check_staged(q, n, hi, lo)
+    out = []
+    for b in blocks:
+        if b[4] is None or b[5] is None or b[3] is None:
+            hi, lo, norms = stage_round_planes(b[0])
+            b = b[:3] + (norms, hi, lo)
+        _check_staged(b[0], *b[3:])
+        out.append(b)
+    return list(query_norms), list(query_planes), out
 
 
 # ---------------------------------------------------------------- K4
@@ -271,12 +344,16 @@ def _card_norms(queries, blocks, query_norms):
 def fused_round_dma(ring: RingTransport, queries, query_ids, blocks, carries,
                     landing, *, c_tile: int, exclude_self: bool = True,
                     exclude_zero: bool = True, zero_eps: float = 0.0,
-                    timeout_s: float = TIMEOUT_S, query_norms=None):
-    """One ring round of every rank: rank r's resident ``blocks[r]`` =
-    (block, ids, scale or None[, norms]) merged exactly into ``carries[r]``
-    = (d, i), and copied (its norms too, where the landing has a buffer for
-    them) into ``landing[(r + 1) % P]``. Returns the merged carries; the
-    landing buffers then hold each rank's next resident block."""
+                    timeout_s: float = TIMEOUT_S, query_norms=None,
+                    query_planes=None):
+    """One ring round of every rank: rank r's resident ``blocks[r]`` (a
+    traveler) merged exactly into ``carries[r]`` = (d, i), and copied (its
+    norms and planes too, where the landing has buffers for them) into
+    ``landing[(r + 1) % P]``. Returns the merged carries; the landing
+    buffers then hold each rank's next resident block. On the f32 wire the
+    card's merge reads the planes of the queries (``query_planes``, one (hi,
+    lo) per rank, with ``query_norms`` from the same prologue) and of the
+    block (``stage_round_planes``)."""
     blocks = [traveler(b) for b in blocks]
     landing = [traveler(t) for t in landing]
     cpu = _check_ring(queries, query_ids, blocks, carries)
@@ -289,7 +366,10 @@ def fused_round_dma(ring: RingTransport, queries, query_ids, blocks, carries,
         return fused_round_dma_reference(queries, query_ids, blocks, carries,
                                          landing, **kw)
     P = len(queries)
-    qn, blocks = _card_norms(queries, blocks, query_norms)
+    if blocks[0][0].dtype == torch.float32:
+        qn, qp, blocks = _card_planes(queries, blocks, query_norms, query_planes)
+    else:
+        (qn, blocks), qp = _card_norms(queries, blocks, query_norms), [(None, None)] * P
     ring._ensure_flags()
     ring.epoch += 1
     carries = [(cd.contiguous(), ci.contiguous()) for cd, ci in carries]
@@ -297,7 +377,9 @@ def fused_round_dma(ring: RingTransport, queries, query_ids, blocks, carries,
     land_of = [landing[(r + 1) % P] for r in range(P)]  # the successor's
     ranks = _ranks(ring, queries, query_ids, blocks, carries, outs, qn,
                    dst_blk=[t[0] for t in land_of], dst_bids=[t[1] for t in land_of],
-                   dst_scale=[t[2] for t in land_of], dst_bn=[t[3] for t in land_of])
+                   dst_scale=[t[2] for t in land_of], dst_bn=[t[3] for t in land_of],
+                   dst_bh=[t[4] for t in land_of], dst_bl=[t[5] for t in land_of],
+                   qh=[t[0] for t in qp], ql=[t[1] for t in qp])
     _launch_per_card(ring, "round_dma_launch", "fused_round_dma", ranks,
                      queries, blocks, carries, kw, ring.epoch, timeout_s)
     return outs
@@ -307,13 +389,13 @@ def fused_round_dma_reference(queries, query_ids, blocks, carries, landing,
                               *, c_tile, exclude_self=True, exclude_zero=True,
                               zero_eps=0.0):
     """Plain PyTorch version of ``fused_round_dma`` (any device): K3a's
-    plain merge for every rank, then each rank's traveler copied into its
-    successor's landing buffers."""
+    plain merge for every rank (which reads neither norms nor planes), then
+    each rank's traveler copied into its successor's landing buffers."""
     blocks = [traveler(b) for b in blocks]
     out = [block_merge_exact_reference(
-        queries[r], query_ids[r], blk, ids, scl, *carries[r], c_tile=c_tile,
+        queries[r], query_ids[r], *b[:3], *carries[r], c_tile=c_tile,
         exclude_self=exclude_self, exclude_zero=exclude_zero,
-        zero_eps=zero_eps) for r, (blk, ids, scl, _) in enumerate(blocks)]
+        zero_eps=zero_eps) for r, b in enumerate(blocks)]
     P = len(blocks)
     for r in range(P):
         for dst, src in zip(traveler(landing[(r + 1) % P]), blocks[r]):
@@ -331,6 +413,7 @@ def _ranks(ring, queries, query_ids, blocks, carries, outs, qn, **per_rank):
         q=_ptr(queries[r]), qn=_ptr(qn[r]), qids=_ptr(query_ids[r]),
         blk=_ptr(blocks[r][0]), bids=_ptr(blocks[r][1]),
         scale=_ptr(blocks[r][2]), bn=_ptr(blocks[r][3]),
+        bh=_ptr(blocks[r][4]), bl=_ptr(blocks[r][5]),
         carry_d=_ptr(carries[r][0]), carry_i=_ptr(carries[r][1]),
         out_d=_ptr(outs[r][0]), out_i=_ptr(outs[r][1]),
         flags=ring.words(r), succ_flags=ring.words((r + 1) % P),
@@ -389,7 +472,7 @@ def fused_rotation_grid(ring: RingTransport, queries, query_ids, blocks,
     into the successor's slot (j + 1) % 2. Returns the final carries."""
     blocks = [traveler(b) for b in blocks]
     slots = [traveler(s) for s in slots]
-    for blk, _, scl, _ in blocks:
+    for blk, _, scl, *_ in blocks:
         if not blk.dtype.is_floating_point or scl is not None:
             raise float_wire_only_error(blk.dtype)
     cpu = _check_ring(queries, query_ids, blocks, carries)
@@ -445,6 +528,6 @@ def fused_rotation_grid_reference(queries, query_ids, blocks, carries, slots,
             held = land
         else:
             carries = [block_merge_exact_reference(
-                queries[i], query_ids[i], blk, ids, scl, *carries[i], **kw)
-                for i, (blk, ids, scl, _) in enumerate(held)]
+                queries[i], query_ids[i], *b[:3], *carries[i], **kw)
+                for i, b in enumerate(held)]
     return carries

@@ -578,3 +578,202 @@ def test_transport_rings_across_cards_equal_one_card(cuda_device, rotation,
     for dists, ids in ((shared.dists, shared.ids), driver):
         assert torch.equal(spread.ids, ids)
         assert torch.equal(spread.dists, dists)
+
+
+def _k2_at_interval(X, define, k=10):
+    """K2 exact and its prologue's norms from a build of csrc/fused_knn.cu
+    with the preprocessor ``define`` (a promotion interval of the wgmma
+    tile), all pairs of X."""
+    from mpi_knn_tpu_torch.ops import _build
+
+    lib = fused_knn.configure(_build.load("fused_knn", (define,)))
+    n, d = X.shape
+    width = fused_knn.split_width(d)
+    hi, lo = (torch.empty((n, width), device=X.device) for _ in range(2))
+    norms = torch.empty(n, device=X.device)
+    out_d = torch.empty((n, k), device=X.device)
+    out_i = torch.empty((n, k), dtype=torch.int32, device=X.device)
+    stream = torch.cuda.current_stream().cuda_stream
+    assert lib.stage_tf32_split_launch(X.data_ptr(), hi.data_ptr(), lo.data_ptr(),
+                                       norms.data_ptr(), n, d, width, stream) == 0
+    planes = [t.data_ptr() for t in (hi, lo, norms)] * 2
+    assert lib.fused_knn_sweep_launch(*planes, out_d.data_ptr(), out_i.data_ptr(),
+                                      n, n, width, n, k, 1, 1, 1, 0.0, stream) == 0
+    return (out_d, out_i), norms
+
+
+@pytest.mark.cuda
+def test_wgmma_8deep_equals_mma_sync_merge(cuda_device):
+    """The wgmma tile promoted every 8-deep k-step (K2 built with
+    KNN_WGMMA_PROMOTE=1) and the mma.sync Tf32x3 tile (K3a at P=1, an
+    all-+inf carry: the same all-pairs sweep) give the same distances and
+    ids bit for bit on centered MNIST-like rows at the main shape, and the
+    two prologues (stage_tf32_split at that interval, stage_tf32[wire])
+    the same norms: K4 may run the wgmma tile while the ring's bitwise
+    checks against K3a and K5 stand."""
+    X = _centered_mnist(cuda_device, m=60000)
+    n, k = X.shape[0], 10
+    (wd, wi), w_norms = _k2_at_interval(X, "KNN_WGMMA_PROMOTE=1", k)
+    ids = torch.arange(n, dtype=torch.int32, device=cuda_device)
+    carry = (torch.full((n, k), float("inf"), device=cuda_device),
+             torch.full((n, k), -1, dtype=torch.int32, device=cuda_device))
+    md, mi = fused_ring.block_merge_exact(X, ids, X, ids, None, *carry, c_tile=n)
+    m_norms = fused_ring.stage_wire_norms(X, None)
+    torch.cuda.synchronize()
+    diff = {"norms": int((w_norms != m_norms).sum()),
+            "ids": int((wi != mi).sum()), "dists": int((wd != md).sum())}
+    print("wgmma 8-deep vs mma.sync, differing elements:", diff)
+    assert diff == {"norms": 0, "ids": 0, "dists": 0}
+
+
+def _mnist_ring(device, P, dim, q_local=300, b=512, k=10, seed=5):
+    """P ranks of centered MNIST-like rows (not integers, so the planes' lo
+    parts are not 0) cut to ``dim`` columns: queries, ids, an f32 traveler
+    staged as the ring driver stages it for K4 (norms and planes), and a
+    carry of real distances under ids of rows outside the block."""
+    X = _centered_mnist(device, m=P * (q_local + b) + 64, seed=seed)[:, :dim]
+    queries, qids, blocks, carries, q_staged = [], [], [], [], []
+    for r in range(P):
+        q0 = r * (q_local + b)
+        q = X[q0:q0 + q_local].contiguous()
+        blk = X[q0 + q_local:q0 + q_local + b].contiguous()
+        ids = torch.arange(q0, q0 + q_local, dtype=torch.int32, device=device)
+        bids = torch.arange(q0 + q_local, q0 + q_local + b, dtype=torch.int32,
+                            device=device)
+        bids[-5:] = -1
+        hi, lo, norms = fused_rotation.stage_round_planes(blk)
+        extra = X[-64:]
+        cd = ((q.double()[:, None] - extra.double()[None]) ** 2).sum(-1)
+        cd, pos = torch.sort(cd.float(), dim=1, stable=True)
+        carries.append((cd[:, 2:2 + k].contiguous(),
+                        (pos[:, 2:2 + k] + 900000).to(torch.int32).contiguous()))
+        queries.append(q)
+        qids.append(ids)
+        blocks.append((blk, bids, None, norms, hi, lo))
+        q_staged.append(fused_rotation.stage_round_planes(q))
+    return queries, qids, blocks, carries, q_staged
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P", [1, 4])
+@pytest.mark.parametrize("dim", [96, 784])
+def test_round_dma_wgmma_equals_plain_tie_aware(cuda_device, P, dim):
+    """K4's f32 form (the wgmma tile) against its plain version on
+    non-integer rows: each id judged by its own f64 distance (in the plain
+    version's list, or tied with its k-th), each distance within the exact
+    error gate of that f64 distance, relative to q^2 + c^2."""
+    queries, qids, blocks, carries, q_staged = _mnist_ring(cuda_device, P, dim)
+    ring = fused_rotation.RingTransport([cuda_device] * P)
+    land = [fused_rotation.slot(fused_rotation.landing_slots(*b), 0) for b in blocks]
+    got = fused_rotation.fused_round_dma(
+        ring, queries, qids, blocks, carries, land, c_tile=64,
+        query_norms=[s[2] for s in q_staged], query_planes=[s[:2] for s in q_staged])
+    torch.cuda.synchronize()
+    want = fused_rotation.fused_round_dma_reference(
+        queries, qids, blocks, carries,
+        [fused_rotation.slot(fused_rotation.landing_slots(*b), 0) for b in blocks],
+        c_tile=64)
+    for r in range(P):
+        (gd, gi), (wd, wi) = got[r], want[r]
+        q, (blk, bids) = queries[r].double(), blocks[r][:2]
+        from_block = torch.isin(gi, bids[bids >= 0])
+        # the block's ids are consecutive: id - bids[0] is the row
+        rows = blk[(gi - bids[0]).clamp(0, blk.shape[0] - 1).long()].double()
+        exact = ((q[:, None] - rows) ** 2).sum(-1)
+        scale = (q ** 2).sum(1, keepdim=True) + (rows ** 2).sum(-1)
+        tol = 2 * 5e-7 * scale
+        assert torch.equal(gi >= 0, wi >= 0)
+        assert bool(((gd.double() - exact).abs() <= tol)[from_block].all())
+        own = torch.where(from_block, exact, gd.double())  # carry slots: as carried
+        in_set = (gi[:, :, None] == wi[:, None, :]).any(-1)
+        tie = own <= wd[:, -1:].double() + tol
+        assert bool((in_set | tie)[gi >= 0].all())
+
+
+def _dup_corpus(m=4096, dim=784, seed=4):
+    from mpi_knn_tpu_torch.data.synthetic import make_mnist_like
+
+    X, _ = make_mnist_like(m, seed=seed)
+    X = X[:, :dim].copy()
+    # exact duplicates at many residues of a 64-row warpgroup and a
+    # 128-column chunk; a near-twin of row 11 one pixel off by 8
+    pairs = [(16 * i + i, 2048 + 8 * (3 * i) + i % 8) for i in range(16)]
+    for a, b in pairs:
+        X[b] = X[a]
+    X[3001] = X[11]
+    X[3001, 0] += 8.0
+    return (X - X.astype(np.float64).mean(0)).astype(np.float32), pairs
+
+
+@pytest.mark.cuda
+def test_round_dma_ring_equals_k3a_ring_and_resume(cuda_device, tmp_path):
+    """On a 4-rank mesh of one card, on MNIST-like rows: the dma ring (K4,
+    the wgmma tile) equals the driver-transport K3a ring (the mma.sync tile)
+    bit for bit, and a resumed ring (K4 rounds, then K3a's last) equals the
+    one-shot dma ring bit for bit."""
+    from mpi_knn_tpu_torch import KNNConfig
+    from mpi_knn_tpu_torch.backends.ring import all_knn_ring
+    from mpi_knn_tpu_torch.backends.ring_resumable import all_knn_ring_resumable
+
+    X, _ = _dup_corpus()
+    ids = np.arange(X.shape[0], dtype=np.int32)
+    mesh = [cuda_device] * 4
+    cfg = KNNConfig(k=10, backend="ring-overlap", ring_fusion="fused",
+                    query_tile=128, corpus_tile=256)
+    before = fused_rotation.LAUNCHES["fused_round_dma"]
+    dma = all_knn_ring(X, X, ids, cfg, mesh=mesh, form="dma")
+    assert fused_rotation.LAUNCHES["fused_round_dma"] == before + 4
+    driver = all_knn_ring(X, X, ids, cfg, mesh=mesh, form="driver")
+    assert torch.equal(dma[1], driver[1]) and torch.equal(dma[0], driver[0])
+    all_knn_ring_resumable(X, X, ids, cfg, mesh=mesh, checkpoint_dir=tmp_path,
+                           stop_after_rounds=2)
+    d, i = all_knn_ring_resumable(X, X, ids, cfg, mesh=mesh, checkpoint_dir=tmp_path)
+    assert torch.equal(i, dma[1]) and torch.equal(d, dma[0])
+
+
+@pytest.mark.cuda
+def test_round_dma_drops_planted_duplicates(cuda_device):
+    """The dma ring drops every planted exact duplicate (its distance is 0
+    bit for bit: K4's prologue norms are its tile's own diagonal) and keeps
+    the near-twin first at d^2 = 64; with the zero rule off, each pair's
+    distance is exactly 0."""
+    from mpi_knn_tpu_torch import KNNConfig
+    from mpi_knn_tpu_torch.backends.ring import all_knn_ring
+
+    X, pairs = _dup_corpus()
+    ids = np.arange(X.shape[0], dtype=np.int32)
+    kw = dict(k=10, backend="ring-overlap", ring_fusion="fused", query_tile=128,
+              corpus_tile=256)
+    d, i = all_knn_ring(X, X, ids, KNNConfig(**kw), mesh=[cuda_device] * 4, form="dma")
+    i, d = i.cpu().numpy(), d.cpu().numpy()
+    for a, b in pairs:
+        assert b not in i[a] and a not in i[b]
+    assert i[11][0] == 3001 and i[3001][0] == 11
+    twin_tol = 2 * 5e-7 * float((X[[11, 3001]].astype(np.float64) ** 2).sum())
+    assert abs(float(d[11][0]) - 64.0) <= twin_tol
+    d, i = all_knn_ring(X, X, ids, KNNConfig(exclude_zero=False, **kw),
+                        mesh=[cuda_device] * 4, form="dma")
+    i, d = i.cpu().numpy(), d.cpu().numpy()
+    for a, b in pairs:
+        assert dict(zip(i[a].tolist(), d[a].tolist())).get(b) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P", [1, 4])
+def test_round_dma_lands_planes_norms_and_ids(cuda_device, P):
+    """Each rank's landing slot holds its predecessor's block, ids, norms
+    and planes byte for byte after a K4 round on the f32 wire."""
+    queries, qids, blocks, carries, q_staged = _mnist_ring(cuda_device, P, 784)
+    ring = fused_rotation.RingTransport([cuda_device] * P)
+    land = [fused_rotation.slot(fused_rotation.landing_slots(*b), 1) for b in blocks]
+    before = fused_rotation.LAUNCHES["stage_tf32_split[ring]"]
+    fused_rotation.fused_round_dma(
+        ring, queries, qids, blocks, carries, land, c_tile=64,
+        query_norms=[s[2] for s in q_staged], query_planes=[s[:2] for s in q_staged])
+    torch.cuda.synchronize()
+    assert fused_rotation.LAUNCHES["stage_tf32_split[ring]"] == before
+    for r in range(P):
+        have, sent = land[(r + 1) % P], blocks[r]
+        for part in (0, 1, 3, 4, 5):
+            assert torch.equal(have[part].view(torch.int32), sent[part].view(torch.int32))
+        assert have[2] is None

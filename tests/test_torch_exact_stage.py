@@ -225,9 +225,9 @@ def test_ring_stages_norms_once_where_the_merge_is_exact(cfg_kw, wire, exact):
     decoded block (and the queries theirs) only where the merge runs K3a's
     exact tile; elsewhere the fourth part is None."""
     run = _ring_run(cfg_kw, wire=wire)
-    for (blk, ids, scl, norms), q, qn in zip(run.travelers[0], run.q_sh,
-                                             run.q_norms):
-        assert len(run.travelers[0][0]) == 4
+    for (blk, ids, scl, norms, *_), q, qn in zip(run.travelers[0], run.q_sh,
+                                                 run.q_norms):
+        assert len(run.travelers[0][0]) == 6
         if not exact:
             assert norms is None and qn is None
             continue
@@ -263,5 +263,5 @@ def test_traveler_pads_to_four_parts(parts):
 
     t = tuple(torch.zeros(2) for _ in range(parts))
     got = fused_rotation.traveler(t)
-    assert len(got) == 4 and got[:parts] == t
+    assert len(got) == 6 and got[:parts] == t
     assert all(x is None for x in got[parts:])

@@ -173,3 +173,61 @@ def test_nan_query_row_in_the_mixed_fused_ring_matches_jax(wire, P):
     got = all_knn(Xn, ring_fusion="fused", device="cpu", **kw)
     np.testing.assert_array_equal(got.ids.numpy(), np.asarray(want.ids))
     np.testing.assert_array_equal(got.dists.numpy(), np.asarray(want.dists))
+
+
+def _run(form, P=3, k=3, **cfg_kw):
+    """A RingRun of ``form`` over P logical CPU ranks of ``_corpus``."""
+    from mpi_knn_tpu_torch.ops.topk import init_topk
+
+    X = _corpus()
+    cfg = KNNConfig(k=k, backend="ring-overlap", query_tile=8, corpus_tile=16,
+                    center=False, **cfg_kw)
+    devices = [torch.device("cpu")] * P
+    q_tile, c_tile, q_sh, qid_sh, travelers = ring.ring_shards(
+        cfg, X, X, np.arange(96, dtype=np.int32), devices)
+    carries = [init_topk(q.shape[0], k) for q in q_sh]
+    return ring.RingRun(cfg, devices, True, form, q_sh, qid_sh, travelers,
+                        carries, q_tile, c_tile)
+
+
+def test_round_form_stages_the_plain_split_of_each_block():
+    """The dma form on the f32 wire stages each rank's block and queries
+    through K4's prologue: on the CPU the plain split
+    (stage_tf32_split_reference), planes and norms, once per call."""
+    from mpi_knn_tpu_torch.ops.fused_knn import split_width, stage_tf32_split_reference
+
+    run = _run("dma", ring_fusion="fused")
+    for t, q, qn, (qh, ql) in zip(run.travelers[0], run.q_sh, run.q_norms,
+                                  run.q_planes):
+        blk, _, scl, norms, hi, lo = t
+        assert scl is None
+        want = stage_tf32_split_reference(blk, split_width(blk.shape[1]))
+        for g, w in zip((hi, lo, norms), want):
+            assert torch.equal(g, w)
+        want_q = stage_tf32_split_reference(q, split_width(q.shape[1]))
+        for g, w in zip((qh, ql, qn), want_q):
+            assert torch.equal(g, w)
+    # the landing slots have room for the planes
+    assert all(s[4] is not None and s[5] is not None for s in run.slots)
+
+
+@pytest.mark.parametrize("form,cfg_kw,planes", [
+    ("dma", dict(ring_fusion="fused"), True),
+    ("dma", dict(ring_fusion="fused", ring_transfer_dtype="bfloat16"), False),
+    ("dma", dict(ring_fusion="fused", ring_transfer_dtype="int8",
+                 precision_policy="mixed", k=5), False),
+    ("driver", dict(ring_fusion="fused"), False),
+    ("grid", dict(ring_fusion="fused"), False),
+    ("driver", dict(ring_fusion="fused", precision_policy="mixed"), False),
+    ("driver", dict(ring_fusion="xla"), False),
+])
+def test_round_form_stages_planes_only_for_exact_f32(form, cfg_kw, planes):
+    """Planes (the traveler's fifth and sixth parts, and the queries') are
+    staged for K4's wgmma tile only: the dma form, the exact merge, the
+    f32 wire; everywhere else they are None."""
+    run = _run(form, **cfg_kw)
+    for t in run.travelers[0]:
+        assert len(t) == 6
+        assert (t[4] is not None) == planes and (t[5] is not None) == planes
+    assert (run.q_planes is not None) == planes
+

@@ -119,7 +119,8 @@ def test_dma_form_ring_equals_jax(P, wire):
     np.testing.assert_array_equal(i.numpy(), np.asarray(want.ids))
     np.testing.assert_array_equal(d.numpy(), np.asarray(want.dists))
     assert fused_rotation.LAUNCHES == {"fused_round_dma": 0,
-                                       "fused_rotation_grid": 0}
+                                       "fused_rotation_grid": 0,
+                                       "stage_tf32_split[ring]": 0}
 
 
 CARD = torch.device("cuda", 0)
@@ -165,3 +166,56 @@ def test_round_refuses_bad_landing_buffers():
         fused_rotation.fused_round_dma(
             fused_rotation.ring_transport(["cpu"]), [t(q)], [t(qids)], [block],
             [(t(cd), t(ci))], [bad], c_tile=C_TILE)
+
+
+@pytest.mark.parametrize("P", [1, 3])
+def test_round_reference_ignores_the_planes_and_lands_them(P):
+    """A traveler carrying K4's prologue planes and norms (f32 wire) goes
+    through the plain round, which reads neither: the merged carry is the
+    JAX package's Pallas merge, and the landing slots hold the block, ids,
+    norms and planes of the predecessor."""
+    k = 5
+    rng = np.random.default_rng(10 + P)
+    jcfg = jax_pkg.KNNConfig(k=k)
+    t = torch.from_numpy
+    ranks, want = [], []
+    for r in range(P):
+        q, qids, blk, bids, cd, ci = _rank(rng, k, r)
+        want.append(jax_merge(q, qids, blk, bids, None, cd, ci, cfg=jcfg,
+                              q_tile=Q_TILE, c_tile=C_TILE))
+        hi, lo, norms = fused_rotation.stage_round_planes(t(blk))
+        ranks.append((t(q), t(qids), (t(blk), t(bids), None, norms, hi, lo),
+                      (t(cd), t(ci))))
+    blocks = [rk[2] for rk in ranks]
+    landing = [fused_rotation.slot(fused_rotation.landing_slots(*b), 0)
+               for b in blocks]
+    got = fused_rotation.fused_round_dma(
+        fused_rotation.ring_transport(["cpu"] * P), [rk[0] for rk in ranks],
+        [rk[1] for rk in ranks], blocks, [rk[3] for rk in ranks], landing,
+        c_tile=C_TILE)
+    for r in range(P):
+        np.testing.assert_array_equal(got[r][1].numpy(), np.asarray(want[r][1]))
+        np.testing.assert_array_equal(got[r][0].numpy(), np.asarray(want[r][0]))
+        have, sent = landing[(r + 1) % P], blocks[r]
+        assert have[2] is None
+        for part in (0, 1, 3, 4, 5):
+            assert torch.equal(have[part], sent[part])
+
+
+def test_round_planes_are_the_plain_split():
+    """K4's prologue on the CPU is the plain split: planes at pitch
+    split_width(d), zero past d, hi + lo = x up to the dropped bits of lo
+    (2^-21 of x), and the f32 norms."""
+    from mpi_knn_tpu_torch.ops import fused_knn
+
+    rng = np.random.default_rng(2)
+    x = torch.from_numpy(rng.standard_normal((40, 20)).astype(np.float32))
+    hi, lo, norms = fused_rotation.stage_round_planes(x)
+    want = fused_knn.stage_tf32_split_reference(x, fused_knn.split_width(20))
+    assert hi.shape == lo.shape == (40, 32)
+    for g, w in zip((hi, lo, norms), want):
+        assert torch.equal(g, w)
+    assert bool(((hi[:, :20] + lo[:, :20] - x).abs() <= 2.0 ** -21 * x.abs()).all())
+    assert not hi[:, 20:].any() and not lo[:, 20:].any()
+    with pytest.raises(TypeError):
+        fused_rotation.stage_round_planes(x.to(torch.bfloat16))
