@@ -65,7 +65,28 @@ is not 0:
      that moves the block and K3a in the last.
    The exact ring's ids must agree with the exact fused path's (tie-aware,
    by f64 distance, >= 0.999);
-5. kernels: one line with every kernel mode's launches, error, times and
+5. serve (``serve_phase``): query serving at full width. A pallas index
+   over the 60000x784 corpus (k=10, bucket base 1024, depth 2) and 10000
+   make_mnist_like queries (seed 1, one equal to a corpus row) streamed
+   through ServeSession in batches of 256 and in ragged batches of 1..2048
+   rows (buckets 1024 and 2048), for tiles exact, sweep exact and tiles
+   mixed. At each bucket the kernel's wrapper, reading the index's staged
+   corpus, is held against its plain version on the same card tensors
+   (``compare``), and the kernel alone is timed beside its launch plan
+   (items, waves) and bound, and the batch's device work alone (the
+   host->device copy, the query prologue, the kernel, the merge, the
+   device->host copy) back to back by CUDA events. Then one checked pass
+   of each stream, with its gates: the corpus prologue once at build and
+   never after, one query prologue and one kernel launch a batch, 0 bucket
+   misses after warm, every batch equal bit for bit to all_knn on the
+   card, recall@10 >= 0.999 against an f64 host oracle on 256 sampled
+   queries, the duplicate query never returning its twin. Then
+   SERVE_RUNS timed windows of each stream, each of at least
+   SERVE_MIN_BATCHES batches (the stream repeated): q/s, latency p50/p99,
+   the host's ms a batch split into centering and padding and the rest
+   (launches), the event span a batch, and the card's busy share (the
+   device work alone of each batch's bucket over the wall);
+6. kernels: one line with every kernel mode's launches, error, times and
    bound, the prologues (`stage_tf32_split`, `stage_tf32[wire]`,
    `stage_tf32_split[ring]`, `stage_bf16`, `stage_bf16[wire]`) among them.
 
@@ -561,6 +582,254 @@ def ring_small_cases(device, seed=1, id_base=0):
         elif wire == "bfloat16":
             b = b.to(torch.bfloat16)
         yield wire, (t(q), t(qids), b, t(bids), scale), (t(cd), t(ci))
+
+
+SERVE_QUERIES = 10000  # make_mnist_like(10000, seed=1): the serve phase's stream
+SERVE_BUCKET = 1024
+SERVE_VARIANTS = (("tiles", "exact"), ("sweep", "exact"), ("tiles", "mixed"))
+DUP_QUERY, DUP_ROW = 4321, 777  # the serve stream's query equal to a corpus row
+SERVE_RUNS = 3  # timed windows of each stream: the spread across runs
+SERVE_MIN_BATCHES = 120  # batches in one timed window, so p99 has >= 100
+
+
+def serve_streams(rng_seed: int = 3):
+    """The serve phase's two batch-size streams over SERVE_QUERIES rows:
+    (a) batches of 256, the CLI's default; (b) ragged sizes from a seed in
+    1..2048, so buckets 1024 and 2048 both appear."""
+    sizes_b, left = [], SERVE_QUERIES
+    rng = np.random.default_rng(rng_seed)
+    while left:
+        sizes_b.append(min(left, int(rng.integers(1, 2049))))
+        left -= sizes_b[-1]
+    if not any(n > SERVE_BUCKET for n in sizes_b):
+        raise AssertionError("stream (b) never reaches bucket 2048")
+    sizes_a = [256] * (SERVE_QUERIES // 256) + (
+        [SERVE_QUERIES % 256] if SERVE_QUERIES % 256 else [])
+    return {"a_256": sizes_a, "b_ragged": sizes_b}
+
+
+def serve_phase(device, X) -> dict:
+    """Query serving at full width: a pallas index over the 60000x784
+    corpus X (k=10, bucket base 1024, depth 2), and SERVE_QUERIES
+    make_mnist_like queries (seed 1, one of them a corpus row) streamed
+    through ServeSession as serve_streams() cuts them, for tiles exact,
+    sweep exact and tiles mixed. Gates, per variant: at each bucket the
+    kernel's wrapper on the staged corpus against its plain version; the
+    corpus prologue launched once at build and never after; per batch one
+    query prologue and one kernel launch; 0 bucket misses after warm, in
+    the checked pass and in every timed window; every batch equal bit for
+    bit to all_knn on the card on the same rows; recall@10 >= 0.999 against
+    an f64 host oracle on 256 sampled queries; the duplicate query never
+    returns its twin. Returns {kernel: largest |d - plain d|}."""
+    import torch
+
+    from mpi_knn_tpu_torch import KNNConfig, ServeSession, all_knn, build_index
+    from mpi_knn_tpu_torch.data.synthetic import make_mnist_like
+    from mpi_knn_tpu_torch.ops import fused_knn
+    from mpi_knn_tpu_torch.ops.distance import center_for_l2
+    from mpi_knn_tpu_torch.serve import engine
+    from mpi_knn_tpu_torch.utils.report import recall_at_k
+
+    t_phase = time.perf_counter()
+    Qs, _ = make_mnist_like(SERVE_QUERIES, seed=1)
+    Qs[DUP_QUERY] = X[DUP_ROW]
+    streams = serve_streams()
+    # all_knn's own host centering (f64 mean and subtraction), once: the
+    # reference calls get the same f32 rows with center=False
+    Xc64, Qc64 = center_for_l2(X, Qs, all_pairs=False)
+    Xc_dev = torch.from_numpy(Xc64).to(torch.float32).to(device)
+    Qc_dev = torch.from_numpy(Qc64).to(torch.float32).to(device)
+    # the f64 oracle of 256 sampled queries (the duplicate among them):
+    # the zero rule d <= 1e-6 (q^2 + c^2) on the centered rows, ties to the
+    # lower id
+    picks = np.unique(np.r_[np.linspace(0, SERVE_QUERIES - 1, 255).astype(int),
+                            DUP_QUERY])
+    q, c = Qc64[picks], Xc64
+    q_sq, c_sq = (q ** 2).sum(1)[:, None], (c ** 2).sum(1)[None, :]
+    d = q_sq + c_sq - 2.0 * (q @ c.T)
+    d[d <= 1e-6 * (q_sq + c_sq)] = np.inf
+    want_ids = np.argsort(d, axis=1, kind="stable")[:, :K]
+    del d
+    max_err = {}
+    for variant, policy in SERVE_VARIANTS:
+        label = f"pallas/{variant}/{policy}"
+        kw = dict(k=K, backend="pallas", pallas_variant=variant,
+                  precision_policy=policy, query_bucket=SERVE_BUCKET,
+                  dispatch_depth=2)
+        compress = policy == "mixed"
+        kernel = f"fused_knn_{variant}" + ("[compress]" if compress else "")
+        q_stage = "stage_bf16" if compress else "stage_tf32_split"
+        sync_all()
+        mem0 = torch.cuda.memory_allocated(device)
+        reset_counts()
+        t0 = time.perf_counter()
+        index = build_index(X, KNNConfig(**kw), device=device)
+        sync_all()
+        build_ms = 1e3 * (time.perf_counter() - t0)
+        resident = torch.cuda.memory_allocated(device) - mem0
+        build_counts = {k: v for k, v in read_counts().items() if v}
+        session = ServeSession(index, device=device)
+        cfg = session.cfg
+        all_sizes = [n for sizes in streams.values() for n in sizes]
+        warm = session.warm(all_sizes)
+        buckets = sorted({engine.bucket_rows(n, SERVE_BUCKET) for n in all_sizes})
+        for n in buckets:
+            list(session.stream([Qs[:n]]))  # the warm-up batch of each bucket
+        emit({"phase": "serve_build", "path": label, "m": M_FULL, "d": X.shape[1],
+              "k": K, "index_build_ms": build_ms, "resident_bytes": resident,
+              "nbytes_resident": index.nbytes_resident,
+              "launches_at_build": build_counts, "warm": warm})
+        if build_counts != {q_stage: 1}:
+            raise AssertionError(f"serve {label}: build launches {build_counts}, "
+                                 f"expected {{{q_stage!r}: 1}}")
+        # at each bucket: the wrapper on the staged corpus against its plain
+        # version on the same card tensors; the kernel alone beside its
+        # launch plan and bound; the batch's device work alone, back to back
+        card_ms = {}
+        cp = index.corpus_padded
+        wrapper = getattr(fused_knn, f"fused_knn_{variant}")
+        plain = getattr(fused_knn, f"fused_knn_{variant}_reference")
+        for bucket in buckets:
+            exec_ = engine.get_executable(index, cfg, bucket)
+            qb = Qc_dev[:bucket].contiguous()
+            kk = 4 * K if compress else (
+                K if variant == "sweep" else min(K, index.c_tile))
+            args = (qb, cp, M_FULL, kk, exec_.q_tile, index.c_tile)
+            opts = dict(all_pairs=False, compress=compress)
+            got = wrapper(*args, staged_corpus=index.staged, **opts)
+            torch.cuda.synchronize()
+            want = plain(*args, **opts)
+            err = compare(f"{kernel}/serve_bucket{bucket}", got, want, qb, cp,
+                          M_FULL, None, False, kk,
+                          index.c_tile if variant == "tiles" else cp.shape[0],
+                          compress=compress)
+            max_err[kernel] = max(max_err.get(kernel, 0.0), err)
+            plain_ms = cuda_ms(lambda: plain(*args, **opts), reps=2)  # noqa: B023
+            if compress:
+                sq = fused_knn.stage_bf16_rows(qb)
+                run = lambda: fused_knn.launch_compress(  # noqa: E731
+                    f"fused_knn_{variant}", sq, index.staged.compress, M_FULL,
+                    kk, index.c_tile, all_pairs=False)
+                plan = None
+            else:
+                sq = fused_knn.stage_tf32_split(qb)
+                run = lambda: fused_knn.launch_exact(  # noqa: E731
+                    f"fused_knn_{variant}", sq, index.staged.exact, M_FULL, kk,
+                    index.c_tile, all_pairs=False)
+                plan = fused_knn.exact_plan(f"fused_knn_{variant}", bucket,
+                                            cp.shape[0], index.c_tile, kk)
+            run()
+            ms = cuda_ms(run, reps=5)
+            slot = exec_.acquire()
+            slot.host_in.copy_(qb.cpu())
+
+            def device_part():  # what one batch's dispatch puts on the card
+                d, i = engine._run(index, cfg, exec_,  # noqa: B023
+                                   slot.host_in.to(device, non_blocking=True))  # noqa: B023
+                slot.out_d.copy_(d, non_blocking=True)  # noqa: B023
+                slot.out_i.copy_(i, non_blocking=True)  # noqa: B023
+
+            device_part()
+            card_ms[bucket] = cuda_ms(device_part, reps=10)
+            exec_.release(slot)
+            ops = 2.0 * bucket * M_FULL * X.shape[1] * (1 if compress else 3)
+            peak = PEAK_BF16_FLOPS if compress else PEAK_TF32_FLOPS
+            emit({"phase": "serve_kernel", "path": label, "kernel": kernel,
+                  "bucket": bucket, "max_abs_err": err, "ms": ms,
+                  "plain_ms": plain_ms, "bound_ms": 1e3 * ops / peak,
+                  "bound_by": "operations", "plan": plan,
+                  "batch_device_ms": card_ms[bucket]})
+        for name, sizes in streams.items():
+            batches, r0 = [], 0
+            for n in sizes:
+                batches.append(Qs[r0:r0 + n])
+                r0 += n
+            nb = len(batches)
+            # the checked pass: the stream once, its launches counted
+            session.reset_stats()
+            engine.reset_misses()
+            reset_counts()
+            sync_all()
+            results = list(session.stream(batches))
+            counts = {k: v for k, v in read_counts().items() if v}
+            misses = engine.MISSES
+            # every batch against all_knn on the same f32 rows; the first
+            # batch also against all_knn's own host centering of X
+            equal, r0 = 0, 0
+            for i, res in enumerate(results):
+                n = res.rows
+                want = all_knn(Xc_dev, queries=Qc_dev[r0:r0 + n], center=False,
+                               device=device, **kw)
+                same = (np.array_equal(res.ids, want.ids.cpu().numpy())
+                        and np.array_equal(res.dists, want.dists.cpu().numpy()))
+                if i == 0:
+                    raw = all_knn(X, queries=batches[0], device=device, **kw)
+                    same = same and torch.equal(raw.ids, want.ids) and torch.equal(
+                        raw.dists, want.dists)
+                equal += same
+                r0 += n
+            ids = np.concatenate([r.ids for r in results])
+            rec = recall_at_k(ids[picks], want_ids)
+            dup_ok = DUP_ROW not in ids[DUP_QUERY].tolist()
+            emit({"phase": "serve_check", "path": label, "stream": name,
+                  "batches": nb, "queries": int(sum(sizes)),
+                  "buckets": sorted({r.bucket for r in results}),
+                  "bucket_misses_after_warm": misses, "launches": counts,
+                  "launches_per_batch": {k: v / nb for k, v in counts.items()},
+                  "batches_equal_to_all_knn": equal, "recall_at_10": rec,
+                  "duplicate_dropped": dup_ok})
+            expect = {kernel: nb, q_stage: nb}
+            if counts != expect:
+                raise AssertionError(f"serve {label}/{name}: launches {counts}, "
+                                     f"expected {expect}")
+            if misses:
+                raise AssertionError(f"serve {label}/{name}: {misses} bucket misses")
+            if equal != nb:
+                raise AssertionError(f"serve {label}/{name}: {nb - equal} of {nb} "
+                                     "batches differ from all_knn")
+            if rec < RECALL_GATE:
+                raise AssertionError(f"serve {label}/{name}: recall@10 {rec}")
+            if not dup_ok:
+                raise AssertionError(f"serve {label}/{name}: the duplicate query "
+                                     "returned its twin")
+            # the timed windows: the stream repeated to SERVE_MIN_BATCHES
+            window = batches * -(-SERVE_MIN_BATCHES // nb)
+            runs = []
+            for _ in range(SERVE_RUNS):
+                session.reset_stats()
+                engine.reset_misses()
+                sync_all()
+                t0 = time.perf_counter()
+                results = list(session.stream(window))
+                wall = time.perf_counter() - t0
+                if engine.MISSES:
+                    raise AssertionError(f"serve {label}/{name}: "
+                                         f"{engine.MISSES} bucket misses")
+                lats = np.asarray(session.latencies) * 1e3
+                host = [r.host_ms for r in results]
+                prep = [r.prep_ms for r in results]
+                busy = sum(card_ms[r.bucket] for r in results)
+                runs.append({
+                    "wall_s": wall, "qps": session.queries_served / wall,
+                    "latency_p50_ms": float(np.percentile(lats, 50)),
+                    "latency_p99_ms": float(np.percentile(lats, 99)),
+                    "host_ms_median": statistics.median(host),
+                    "host_prep_ms_median": statistics.median(prep),
+                    "host_launch_ms_median": statistics.median(
+                        [h - p for h, p in zip(host, prep)]),
+                    "span_ms_median": statistics.median(
+                        [r.device_ms for r in results]),
+                    "card_busy_share": busy / (1e3 * wall)})
+            qps = [r["qps"] for r in runs]
+            emit({"phase": "serve", "path": label, "stream": name,
+                  "batches_per_run": len(window),
+                  "queries_per_run": len(window) // nb * int(sum(sizes)),
+                  "qps_min": min(qps), "qps_median": statistics.median(qps),
+                  "qps_max": max(qps), "runs": runs,
+                  "peak_hbm_bytes": torch.cuda.max_memory_allocated(device)})
+        del session, index
+    emit({"phase": "serve_done", "seconds": time.perf_counter() - t_phase})
+    return max_err
 
 
 def main() -> int:
@@ -1624,6 +1893,10 @@ def main() -> int:
               "id_agreement": agree})
         if agree < AGREEMENT_GATE:
             raise AssertionError(f"{label}: agreement with the fused path {agree}")
+
+    # ---- query serving: the resident index, the engine, three variants ---
+    for name, err in serve_phase(device, X).items():
+        max_err[name] = max(max_err[name], err)
 
     replaces = {
         "fused_knn_tiles": "mpi_knn_tpu/ops/pallas_knn.py:249",

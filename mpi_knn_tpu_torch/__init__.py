@@ -5,9 +5,16 @@ hand-written CUDA for sm_90a (csrc/), built at first use. Entry points run
 on "cuda" unless the caller passes device="cpu".
 """
 
-from mpi_knn_tpu_torch.api import all_knn, knn_classify, resolve_backend
+from mpi_knn_tpu_torch.api import (
+    all_knn,
+    build_index,
+    knn_classify,
+    query_knn,
+    resolve_backend,
+)
 from mpi_knn_tpu_torch.config import KNNConfig
 from mpi_knn_tpu_torch.models.classifier import KNNClassifier, LooReport
+from mpi_knn_tpu_torch.serve import ServeSession
 from mpi_knn_tpu_torch.types import INVALID_ID, ClassifyResult, KNNResult
 
 __all__ = [
@@ -17,7 +24,10 @@ __all__ = [
     "KNNConfig",
     "KNNResult",
     "LooReport",
+    "ServeSession",
     "all_knn",
+    "build_index",
     "knn_classify",
+    "query_knn",
     "resolve_backend",
 ]

@@ -1,4 +1,5 @@
-"""Public functional API of the port: ``all_knn`` and ``knn_classify``.
+"""Public functional API of the port: ``all_knn``, ``knn_classify``, and
+the serving entry points ``build_index`` / ``query_knn``.
 
 Every entry point takes ``device=`` and runs on ``"cuda"`` unless the caller
 passes ``"cpu"``; without a card the default raises (device.py).
@@ -106,6 +107,29 @@ def all_knn(corpus, queries=None, config: Optional[KNNConfig] = None,
     else:
         raise ValueError(f"unknown backend {backend!r}")
     return KNNResult(dists=d, ids=i)
+
+
+def build_index(corpus, config: Optional[KNNConfig] = None,
+                device=DEFAULT_DEVICE, **overrides):
+    """Build a resident corpus index for query serving: every corpus-side
+    step (centering mean, padding, the copy to the device, tiles, ids and
+    norms, or the kernels' staged planes) done once and reused by every
+    :func:`query_knn` batch. See ``mpi_knn_tpu_torch.serve``."""
+    from mpi_knn_tpu_torch.serve import build_index as _build
+
+    return _build(corpus, config=config, device=device, **overrides)
+
+
+def query_knn(queries, index, config: Optional[KNNConfig] = None,
+              device=DEFAULT_DEVICE, **overrides) -> KNNResult:
+    """Queries against a :func:`build_index` handle: the serving
+    counterpart of ``all_knn(corpus, queries=...)``, equal to it bit for
+    bit. Batches pad to power-of-two row buckets whose state is built once;
+    results come back on the host with the padding stripped
+    (``ServeSession`` streams batches with dispatch-ahead)."""
+    from mpi_knn_tpu_torch.serve import query_knn as _query
+
+    return _query(queries, index, config=config, device=device, **overrides)
 
 
 def knn_classify(result: KNNResult, labels, num_classes: int = 10,

@@ -59,14 +59,35 @@ def _mixed_exact_finish(queries, corpus, cand_i, cfg, q_tile, all_pairs):
     return torch.cat(out_d), torch.cat(out_i)
 
 
+def fused_query_tile(cfg: KNNConfig, nq: int) -> int:
+    """The fused backend's query tile for ``nq`` query rows."""
+    return min(max(8, pad_to_multiple(cfg.query_tile, 8)), 512,
+               pad_to_multiple(nq, 8))
+
+
+def fused_corpus_tile(cfg: KNNConfig, m: int) -> int:
+    """The fused backend's corpus tile for an ``m``-row corpus."""
+    return min(max(128, pad_to_multiple(cfg.corpus_tile, 128)), 2048,
+               pad_to_multiple(m, 128))
+
+
+def resolve_variant(cfg: KNNConfig, c_tile: int) -> str:
+    """``cfg.pallas_variant``, but k > c_tile routes to tiles, whose
+    cross-tile merge tops up."""
+    if cfg.pallas_variant == "sweep" and cfg.k > c_tile:
+        return "tiles"
+    return cfg.pallas_variant
+
+
 def _fused_all_knn(queries, corpus, cfg, q_tile, c_tile, m_corpus,
-                   all_pairs, variant):
+                   all_pairs, variant, staged_corpus=None):
     if cfg.precision_policy == "mixed" and mixed_applies(cfg.k, c_tile):
         ov = overfetch_width(cfg.k, c_tile)
         common = dict(m_corpus=m_corpus, k=ov, q_tile=q_tile, c_tile=c_tile,
                       exclude_self=cfg.exclude_self,
                       exclude_zero=cfg.exclude_zero, all_pairs=all_pairs,
-                      zero_eps=cfg.zero_eps, compress=True)
+                      zero_eps=cfg.zero_eps, compress=True,
+                      staged_corpus=staged_corpus)
         if variant == "sweep":
             _, cand_i = fused_knn_sweep(queries, corpus, **common)
         else:
@@ -84,6 +105,7 @@ def _fused_all_knn(queries, corpus, cfg, q_tile, c_tile, m_corpus,
         exclude_zero=cfg.exclude_zero,
         all_pairs=all_pairs,
         zero_eps=cfg.zero_eps,
+        staged_corpus=staged_corpus,
     )
     if variant == "sweep":
         # the in-kernel merge is exact; topk_method does not apply
@@ -133,10 +155,8 @@ def all_knn_pallas(corpus, queries, query_ids, cfg: KNNConfig, device):
                                    np.arange(m, dtype=np.int32))
     )
 
-    q_tile = min(max(8, pad_to_multiple(cfg.query_tile, 8)), 512,
-                 pad_to_multiple(nq, 8))
-    c_tile = min(max(128, pad_to_multiple(cfg.corpus_tile, 128)), 2048,
-                 pad_to_multiple(m, 128))
+    q_tile = fused_query_tile(cfg, nq)
+    c_tile = fused_corpus_tile(cfg, m)
     corpus_p = pad_rows_any(corpus, pad_to_multiple(m, c_tile),
                             dtype=torch.float32, device=device)
     q_pad = pad_to_multiple(nq, q_tile)
@@ -148,13 +168,19 @@ def all_knn_pallas(corpus, queries, query_ids, cfg: KNNConfig, device):
         queries_p = pad_rows_any(queries, q_pad, dtype=torch.float32,
                                  device=device)
 
-    # k > c_tile: route to tiles, whose cross-tile merge tops up
-    variant = cfg.pallas_variant
-    if variant == "sweep" and cfg.k > c_tile:
-        variant = "tiles"
-
     best_d, best_i = _fused_all_knn(queries_p, corpus_p, cfg, q_tile, c_tile,
-                                    m, all_pairs, variant)
+                                    m, all_pairs, resolve_variant(cfg, c_tile))
     if cosine:
         best_d = best_d * 0.5
     return best_d[:nq], best_i[:nq]
+
+
+def serve_batch_pallas(queries_p, corpus_p, staged_corpus, cfg: KNNConfig,
+                       q_tile: int, c_tile: int, m_corpus: int):
+    """One padded query batch against a resident padded corpus (the JAX
+    package's ``serve/engine.py::_pallas_serve_fn``): ``all_knn``'s routing
+    in query mode (mixed, the tiles merge, k > c_tile), with the corpus's
+    prologue outputs ``staged_corpus`` staged once, so on the card only the
+    queries are staged. Returns (q_pad, k) dists and ids."""
+    return _fused_all_knn(queries_p, corpus_p, cfg, q_tile, c_tile, m_corpus,
+                          False, resolve_variant(cfg, c_tile), staged_corpus)

@@ -115,20 +115,33 @@ def merge_tiles_into_carry(q_x, q_ids, q_sq, tiles, tile_ids, tile_sqs,
     return carry_d, carry_i
 
 
+def tile_sq_norms(tiles, metric: str):
+    """(T, c_tile) squared norms of a tile stack (zeros for cosine, whose
+    metric normalizes inside), tile by tile."""
+    if metric == "l2":
+        return torch.stack([sq_norms(t) for t in tiles])
+    acc = torch.float64 if tiles.dtype == torch.float64 else torch.float32
+    return torch.zeros(tiles.shape[:2], dtype=acc, device=tiles.device)
+
+
 def knn_chunk_update(q_tiles, qid_tiles, chunk_tiles, chunk_ids, carry_d,
                      carry_i, cfg: KNNConfig):
     """Merge a chunk of corpus tiles into every query tile's carry."""
-    acc = torch.float64 if q_tiles.dtype == torch.float64 else torch.float32
-    if cfg.metric == "l2":
-        chunk_sq = torch.stack([sq_norms(t) for t in chunk_tiles])
-    else:
-        chunk_sq = torch.zeros(chunk_tiles.shape[:2], dtype=acc,
-                               device=chunk_tiles.device)
+    return serve_chunk(q_tiles, qid_tiles, carry_d, carry_i, chunk_tiles,
+                       chunk_ids, tile_sq_norms(chunk_tiles, cfg.metric), cfg)
+
+
+def serve_chunk(q_tiles, qid_tiles, carry_d, carry_i, tiles, tile_ids,
+                tile_sqs, cfg: KNNConfig):
+    """One query batch ((QT, q_tile, d) tiles) against a resident tile
+    stack whose ids and norms were computed once (a serving index):
+    ``knn_chunk_update`` with the corpus-side work hoisted out, so the two
+    cannot drift."""
     out_d, out_i = [], []
     for q_x, q_ids, cd, ci in zip(q_tiles, qid_tiles, carry_d, carry_i):
         q_sq = sq_norms(q_x) if cfg.metric == "l2" else None
-        d, i = merge_tiles_into_carry(q_x, q_ids, q_sq, chunk_tiles,
-                                      chunk_ids, chunk_sq, cd, ci, cfg)
+        d, i = merge_tiles_into_carry(q_x, q_ids, q_sq, tiles, tile_ids,
+                                      tile_sqs, cd, ci, cfg)
         out_d.append(d)
         out_i.append(i)
     return torch.stack(out_d), torch.stack(out_i)

@@ -7,6 +7,8 @@
         --device cpu --devices 4 --backend ring-overlap --ring-fusion fused
     python -m mpi_knn_tpu_torch --data mnist --k 10 --loo --devices 4 \\
         --backend ring-overlap --ring-fusion fused --checkpoint-dir ckpt
+    python -m mpi_knn_tpu_torch query --data synthetic:512x32c4 \\
+        --synthetic 100 --backend pallas --device cpu     # serve/cli.py
 
 Only the flags below exist; the JAX CLI's other flags are not ported.
 """
@@ -15,7 +17,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import logging
 import re
 import sys
 
@@ -134,13 +135,21 @@ def config_from_args(args) -> KNNConfig:
 
 
 def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    if argv and argv[0] == "query":
+        # the serving subcommand (serve/cli.py), routed before the run
+        # parser so the two flag sets stay apart
+        from mpi_knn_tpu_torch.serve.cli import main as query_main
+
+        return query_main(argv[1:])
     args = build_parser().parse_args(argv)
     from mpi_knn_tpu_torch.api import all_knn, knn_classify, resolve_backend
     from mpi_knn_tpu_torch.device import resolve_device
+    from mpi_knn_tpu_torch.utils.logs import setup_logging
+    from mpi_knn_tpu_torch.utils.report import RunReport
     from mpi_knn_tpu_torch.utils.timing import PhaseTimer
 
-    if args.verbose:
-        logging.basicConfig(level=logging.INFO, format="%(name)s: %(message)s")
+    setup_logging(int(args.verbose))
     device = resolve_device(args.device)
     timer = PhaseTimer()
     with timer.phase("load"):
@@ -156,13 +165,18 @@ def main(argv=None) -> int:
         cls = knn_classify(result, labels, num_classes=cfg.num_classes,
                            tie_break=cfg.tie_break)
         matches = int(cls.matches(labels))
-    report = {
-        "data_source": source,
-        "shape": list(X.shape),
-        "backend": resolve_backend(cfg, device=device),
+    report = RunReport(
+        config=vars(args), data_source=source, shape=tuple(X.shape),
+        phase_seconds=dict(timer.seconds), matches=matches,
+        total=int(len(labels)), accuracy=matches / len(labels),
+        backend=resolve_backend(cfg, device=device),
+        num_devices=cfg.num_devices or 1,
+    )
+    # the run's own keys beside the JAX package's report fields
+    doc = {
+        **report.finalize(),
         "pallas_variant": cfg.pallas_variant,
         "precision_policy": cfg.precision_policy,
-        "num_devices": cfg.num_devices,
         "ring_schedule": cfg.ring_schedule,
         "ring_fusion": cfg.ring_fusion,
         "ring_fused_rotation": cfg.ring_fused_rotation,
@@ -173,19 +187,15 @@ def main(argv=None) -> int:
                         if device.type == "cuda" else "cpu"),
         "k": cfg.k,
         "metric": cfg.metric,
-        "matches": matches,
-        "total": int(len(labels)),
-        "accuracy": matches / len(labels),
-        "phase_seconds": dict(timer.seconds),
     }
     print(f"Clock time = {timer.seconds['knn']:.6f}")
     print(f"Matches: {matches}")
-    print(f"[mpi_knn_tpu_torch] backend={report['backend']} "
+    print(f"[mpi_knn_tpu_torch] backend={report.backend} "
           f"device={device} shape={tuple(X.shape)} k={cfg.k} "
-          f"accuracy={report['accuracy']:.4f} knn={timer.seconds['knn']:.3f}s")
+          f"accuracy={report.accuracy:.4f} knn={timer.seconds['knn']:.3f}s")
     if args.report:
         with open(args.report, "w") as f:
-            json.dump(report, f, indent=2)
+            json.dump(doc, f, indent=2, default=str)
     return 0
 
 

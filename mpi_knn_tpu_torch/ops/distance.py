@@ -30,13 +30,27 @@ def center_for_l2(corpus, queries, all_pairs: bool):
     casts them, so they are bitwise the JAX package's centered inputs.
     Tensor inputs are centered where they lie, in f32 (f64 for f64).
     """
-    if isinstance(corpus, torch.Tensor):
-        mu = corpus.mean(dim=0, dtype=_acc_dtype(corpus))
-    else:
-        mu = np.asarray(corpus, dtype=np.float64).mean(axis=0)
+    mu = l2_mean(corpus)
     corpus = corpus - mu
-    queries = corpus if all_pairs else queries - mu
+    queries = corpus if all_pairs else center_rows(queries, mu)
     return corpus, queries
+
+
+def l2_mean(corpus):
+    """The centering mean of ``center_for_l2``: the f64 mean of a host
+    corpus, or a tensor's mean in its accumulation dtype where it lies."""
+    if isinstance(corpus, torch.Tensor):
+        return corpus.mean(dim=0, dtype=_acc_dtype(corpus))
+    return np.asarray(corpus, dtype=np.float64).mean(axis=0)
+
+
+def center_rows(x, mu):
+    """``x − mu`` with a mean from ``center_for_l2``. A tensor minus a host
+    (f64 numpy) mean subtracts it as an f64 tensor on the tensor's device,
+    the values a CPU tensor minus the array gives."""
+    if isinstance(x, torch.Tensor) and not isinstance(mu, torch.Tensor):
+        mu = torch.as_tensor(mu, device=x.device)
+    return x - mu
 
 
 def _check_full_precision(x: torch.Tensor):

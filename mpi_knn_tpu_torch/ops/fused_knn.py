@@ -32,6 +32,10 @@ and zero-padded to a multiple of ``STAGE_K``, plus the f32 squared norms
 of the unrounded rows), once for the queries and once for the corpus, then
 the bf16 tensor-core kernel on the copies (``launch_compress``).
 
+A serving index stages its corpus once (``stage_corpus`` -> ``StagedCorpus``)
+and hands it to every call as ``staged_corpus``: a call then launches the
+prologue on its queries alone, and the kernel reads the resident planes.
+
 A wrapper takes its plain version only because the tensors it was given lie
 on the CPU. For CUDA tensors it launches the kernel or raises. Each launch
 adds one to ``LAUNCHES[name]``: the kernels' names carry ``[compress]`` in
@@ -41,6 +45,7 @@ that mode, the prologues' are ``stage_tf32_split`` and ``stage_bf16``.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 
 import torch
@@ -196,6 +201,54 @@ def _stage_exact(queries, corpus):
         staged_c = stage_tf32_split(corpus)
         return tuple(t[:queries.shape[0]] for t in staged_c), staged_c
     return stage_tf32_split(queries), stage_tf32_split(corpus)
+
+
+@dataclasses.dataclass
+class StagedCorpus:
+    """A corpus's prologue outputs, written once and read by every later
+    call on that corpus (a serving index's resident planes): ``exact`` the
+    (hi, lo, norms) of ``stage_tf32_split``, ``compress`` the (bf16 copy,
+    norms) of ``stage_bf16_rows``, None where not staged. The tensors stay
+    at one address for the object's life, so the kernels' TMA maps, encoded
+    per launch from the pointers, always find them."""
+
+    exact: tuple | None = None
+    compress: tuple | None = None
+
+    @property
+    def nbytes(self) -> int:
+        return sum(t.numel() * t.element_size()
+                   for part in (self.exact, self.compress) if part is not None
+                   for t in part)
+
+
+def stage_corpus(corpus, compress: bool = False) -> StagedCorpus:
+    """Run one prologue once on a padded f32 corpus on the card: the exact
+    planes, or with ``compress`` the compress copy."""
+    if compress:
+        return StagedCorpus(compress=stage_bf16_rows(corpus))
+    return StagedCorpus(exact=stage_tf32_split(corpus))
+
+
+def _stage_call(queries, corpus, staged_corpus, compress: bool):
+    """(staged queries, staged corpus) of one card call: the corpus's from
+    ``staged_corpus`` when given (one prologue launch, on the queries),
+    else both staged here."""
+    if staged_corpus is None:
+        if compress:
+            return stage_bf16_rows(queries), stage_bf16_rows(corpus)
+        return _stage_exact(queries, corpus)
+    part = staged_corpus.compress if compress else staged_corpus.exact
+    if part is None:
+        raise ValueError(
+            f"staged_corpus holds no {'compress' if compress else 'exact'} "
+            "prologue output"
+        )
+    if part[0].shape[0] != corpus.shape[0] or part[0].device != corpus.device:
+        raise ValueError("staged_corpus was not staged from this corpus")
+    if compress:
+        return stage_bf16_rows(queries), part
+    return stage_tf32_split(queries), part
 
 
 def tf32_split(x):
@@ -398,8 +451,11 @@ def kernel_info(name: str, k: int) -> dict:
 def fused_knn_tiles(queries, corpus, m_corpus: int, k: int, q_tile: int,
                     c_tile: int, exclude_self: bool = True,
                     exclude_zero: bool = True, all_pairs: bool = True,
-                    zero_eps: float = 0.0, compress: bool = False):
-    """Per-(query, corpus-tile) local top-k -> (Q, n_c·k) dists and ids."""
+                    zero_eps: float = 0.0, compress: bool = False,
+                    staged_corpus: StagedCorpus | None = None):
+    """Per-(query, corpus-tile) local top-k -> (Q, n_c·k) dists and ids.
+    ``staged_corpus``: the corpus's prologue outputs, staged once (read on
+    the card only; the plain version reads ``corpus``)."""
     _check(queries, corpus, k, q_tile, c_tile)
     if queries.device.type == "cpu":
         outd, outi = _tiles_plain(queries, corpus, m_corpus, k, c_tile,
@@ -407,12 +463,13 @@ def fused_knn_tiles(queries, corpus, m_corpus: int, k: int, q_tile: int,
                                   zero_eps, compress)
     elif compress:
         outd, outi = launch_compress(
-            "fused_knn_tiles", stage_bf16_rows(queries),
-            stage_bf16_rows(corpus), m_corpus, k, c_tile, exclude_self,
-            all_pairs)
+            "fused_knn_tiles",
+            *_stage_call(queries, corpus, staged_corpus, True), m_corpus, k,
+            c_tile, exclude_self, all_pairs)
     else:
         outd, outi = launch_exact(
-            "fused_knn_tiles", *_stage_exact(queries, corpus), m_corpus, k,
+            "fused_knn_tiles",
+            *_stage_call(queries, corpus, staged_corpus, False), m_corpus, k,
             c_tile, exclude_self, exclude_zero, all_pairs, zero_eps)
     return _candidate_lists(outd, outi)
 
@@ -420,9 +477,11 @@ def fused_knn_tiles(queries, corpus, m_corpus: int, k: int, q_tile: int,
 def fused_knn_sweep(queries, corpus, m_corpus: int, k: int, q_tile: int,
                     c_tile: int, exclude_self: bool = True,
                     exclude_zero: bool = True, all_pairs: bool = True,
-                    zero_eps: float = 0.0, compress: bool = False):
+                    zero_eps: float = 0.0, compress: bool = False,
+                    staged_corpus: StagedCorpus | None = None):
     """Full fused all-kNN: the final (Q, k) dists and ids. The kernel
-    picks its own query sub-tile; the result does not depend on tiling."""
+    picks its own query sub-tile; the result does not depend on tiling.
+    ``staged_corpus`` as for ``fused_knn_tiles``."""
     _check(queries, corpus, k, q_tile, c_tile)
     if queries.device.type == "cpu":
         return fused_knn_sweep_reference(
@@ -431,12 +490,12 @@ def fused_knn_sweep(queries, corpus, m_corpus: int, k: int, q_tile: int,
         )
     if compress:
         return launch_compress(
-            "fused_knn_sweep", stage_bf16_rows(queries),
-            stage_bf16_rows(corpus), m_corpus, k, c_tile, exclude_self,
-            all_pairs)
+            "fused_knn_sweep",
+            *_stage_call(queries, corpus, staged_corpus, True), m_corpus, k,
+            c_tile, exclude_self, all_pairs)
     return launch_exact(
-        "fused_knn_sweep", *_stage_exact(queries, corpus), m_corpus, k, c_tile,
-        exclude_self, exclude_zero, all_pairs, zero_eps)
+        "fused_knn_sweep", *_stage_call(queries, corpus, staged_corpus, False),
+        m_corpus, k, c_tile, exclude_self, exclude_zero, all_pairs, zero_eps)
 
 
 # ---------------------------------------------------------------- plain

@@ -777,3 +777,69 @@ def test_round_dma_lands_planes_norms_and_ids(cuda_device, P):
         for part in (0, 1, 3, 4, 5):
             assert torch.equal(have[part].view(torch.int32), sent[part].view(torch.int32))
         assert have[2] is None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["tiles", "sweep"])
+@pytest.mark.parametrize("policy", ["exact", "mixed"])
+def test_serve_resident_planes_equal_all_knn(cuda_device, variant, policy):
+    """query_knn over a pallas index reads the corpus's planes (or, mixed,
+    its bf16 copy, and only that) staged once at build: every batch, ragged
+    and across buckets, equals all_knn bit for bit, with one query prologue
+    and one kernel launch, and the corpus is never staged again."""
+    from mpi_knn_tpu_torch import all_knn, build_index, query_knn
+
+    rng = np.random.default_rng(8)
+    X = (rng.standard_normal((3000, 100)) * 3.0).astype(np.float32)
+    Q = (rng.standard_normal((300, 100)) * 3.0).astype(np.float32)
+    Q[7] = X[42]  # a duplicate: the zero rule drops it
+    kw = dict(k=10, backend="pallas", pallas_variant=variant,
+              precision_policy=policy, corpus_tile=512, query_bucket=128)
+    compress = policy == "mixed"
+    stage = "stage_bf16" if compress else "stage_tf32_split"
+    kernel = f"fused_knn_{variant}" + ("[compress]" if compress else "")
+    fused_knn.reset_launch_counts()
+    index = build_index(X, device=cuda_device, **kw)
+    torch.cuda.synchronize()
+    built = {k: v for k, v in fused_knn.LAUNCHES.items() if v}
+    assert built == {stage: 1}
+    assert (index.staged.exact is None) == compress
+    assert (index.staged.compress is None) != compress
+    for n in (1, 100, 128, 129, 300):
+        fused_knn.reset_launch_counts()
+        got = query_knn(Q[:n], index, device=cuda_device)
+        assert {k: v for k, v in fused_knn.LAUNCHES.items() if v} == {
+            stage: 1, kernel: 1}
+        want = all_knn(X, queries=Q[:n], device=cuda_device, **kw)
+        assert torch.equal(got.ids, want.ids.cpu())
+        assert torch.equal(got.dists, want.dists.cpu())
+    assert 42 not in got.ids[7].tolist()
+
+
+@pytest.mark.cuda
+def test_serve_refuses_a_policy_whose_part_is_not_staged(cuda_device):
+    """An index stages the one corpus part its build config reads; a
+    per-call config that reads the other part is refused, and one that
+    reads the staged part serves, with no prologue launched on the corpus."""
+    from mpi_knn_tpu_torch import ServeSession, all_knn, build_index, query_knn
+
+    rng = np.random.default_rng(9)
+    X = rng.standard_normal((2000, 64)).astype(np.float32)
+    Q = rng.standard_normal((50, 64)).astype(np.float32)
+    kw = dict(k=10, backend="pallas", corpus_tile=512, query_bucket=64)
+    exact = build_index(X, device=cuda_device, **kw)
+    mixed = build_index(X, device=cuda_device, precision_policy="mixed", **kw)
+    for index, override in ((exact, dict(precision_policy="mixed")),
+                            (mixed, dict(precision_policy="exact")),
+                            (mixed, dict(k=200))):  # mixed past its reach
+        with pytest.raises(ValueError, match="did not stage at build"):
+            query_knn(Q, index, device=cuda_device, **override)
+        with pytest.raises(ValueError, match="did not stage at build"):
+            ServeSession(index, device=cuda_device, **override)
+    fused_knn.reset_launch_counts()
+    got = query_knn(Q, exact, device=cuda_device, k=5)
+    assert {k: v for k, v in fused_knn.LAUNCHES.items() if v} == {
+        "stage_tf32_split": 1, "fused_knn_tiles": 1}
+    want = all_knn(X, queries=Q, device=cuda_device, **{**kw, "k": 5})
+    assert torch.equal(got.ids, want.ids.cpu())
+    assert torch.equal(got.dists, want.dists.cpu())

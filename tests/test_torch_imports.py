@@ -37,7 +37,8 @@ def test_importing_the_port_loads_no_jax():
     for mod in ("ops.fused_knn", "ops.fused_ring", "ops.fused_rotation",
                 "ops.rerank", "ops.quant", "backends.ring",
                 "backends.ring_resumable", "backends.resumable",
-                "utils.checkpoint", "parallel.mesh"):
+                "utils.checkpoint", "parallel.mesh", "serve.index",
+                "serve.engine", "serve.cli", "utils.report", "utils.logs"):
         assert f"mpi_knn_tpu_torch.{mod}" in loaded
     assert "chip_smoke" in loaded
     bad = [m for m in loaded
@@ -62,19 +63,34 @@ def test_no_file_of_the_port_imports_jax(path):
 
 
 def _entry_points():
-    from mpi_knn_tpu_torch import KNNClassifier, all_knn
+    from mpi_knn_tpu_torch import (
+        KNNClassifier,
+        ServeSession,
+        all_knn,
+        build_index,
+        query_knn,
+    )
     from mpi_knn_tpu_torch.cli import main
 
     X = np.zeros((16, 4), np.float32)
+    index = build_index(X, k=2, device="cpu")  # built before the card vanishes
     return {
         "all_knn": lambda: all_knn(X, k=2),
         "KNNClassifier": lambda: KNNClassifier(k=2),
         "cli": lambda: main(["--data", "synthetic:64x4c2", "--k", "2"]),
+        "build_index": lambda: build_index(X, k=2),
+        "query_knn": lambda: query_knn(X, index),
+        "ServeSession": lambda: ServeSession(index),
+        "query_cli": lambda: main(["query", "--data", "synthetic:64x4c2",
+                                   "--synthetic", "8", "--k", "2"]),
     }
 
 
-@pytest.mark.parametrize("entry", ["all_knn", "KNNClassifier", "cli"])
+@pytest.mark.parametrize("entry", ["all_knn", "KNNClassifier", "cli",
+                                   "build_index", "query_knn", "ServeSession",
+                                   "query_cli"])
 def test_default_device_without_a_card_raises(entry, monkeypatch):
+    entries = _entry_points()
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="cuda"):
-        _entry_points()[entry]()
+        entries[entry]()
