@@ -70,7 +70,8 @@ is not 0:
    make_mnist_like queries (seed 1, one equal to a corpus row) streamed
    through ServeSession in batches of 256 and in ragged batches of 1..2048
    rows (buckets 1024 and 2048), for tiles exact, sweep exact and tiles
-   mixed. At each bucket the kernel's wrapper, reading the index's staged
+   mixed; sweep mixed (K2[c]) at its buckets only. At each bucket the
+   kernel's wrapper, reading the index's staged
    corpus, is held against its plain version on the same card tensors
    (``compare``), and the kernel alone is timed beside its launch plan
    (items, waves) and bound, and the batch's device work alone (the
@@ -97,8 +98,18 @@ tile promoted every 8 deep, on planes its own prologue
 (`stage_tf32_split[ring]`) writes once per call and that travel with the
 block; K3a, K5 and K4's bf16 and int8 wires run mma.sync on split f32
 operands after the norm prologue `stage_tf32[wire]`; the compress ones
-(K1[c], K2[c], K3b) one bf16 mma.sync pass on copies that their prologue
-writes with f32 norms. The `wgmma_8deep_vs_mma_sync` phase holds K2 built
+one bf16 pass on copies that their prologue writes with f32 norms: K1[c]
+and K3b on mma.sync, K2[c] on its own wgmma tile
+(`csrc/knn_wgmma_bf16.cuh`: m64n256k16 bf16 by TMA, the survivors
+filtered in registers, the corpus cut into the slices that
+`fused_knn.compress_sweep_plan` picks). K2[c]'s `launch_plan` lines give
+its plan (slices, items, waves, grid, shared bytes) at the main shape and
+at serving buckets 1024 and 2048, `product_alone` its tile's product
+alone (`fused_knn.bf16_tile_dots`), and
+`s_invariance` its output at forced splits against the plan's, bit for
+bit, at the main shape and at bucket 1024; the serve phase holds and
+times it at buckets 1024 and 2048 (`serve_kernel`, sweep mixed). The
+`wgmma_8deep_vs_mma_sync` phase holds K2 built
 at 8-deep promotion against K3a from an all-+inf carry at the main shape,
 and the two prologues' norms, bit for bit: what lets K4 run the wgmma tile
 while the rings' bitwise checks against the K3a ring stand. A kernel's `ms`
@@ -111,9 +122,10 @@ cudaFuncGetAttributes and the occupancy API; the launch plans: for K1/K2
 the persistent grid and its items, for K3a, K4 and K5 rows per CTA, CTAs,
 grid, items per round at each shape, and waves of the persistent grids;
 the wgmma K4's setmaxnreg registers per warpgroup role from its SASS), the
-count of HGMMA (wgmma: K1, K2, K4's f32 form, their prologues) or HMMA
-(mma.sync: the rest, K4's other wires among them) instructions in its SASS
-(`cuobjdump -sass` of the built libraries; it must be > 0), the "product
+count of HGMMA (wgmma: K1, K2, K2[c], K4's f32 form, their prologues) or
+HMMA (mma.sync: the rest, K4's other wires among them) instructions in
+its SASS (`cuobjdump -sass` of the built libraries; it must be > 0, and
+K2[c] must hold no HMMA), the "product
 alone" of each policy (torch.matmul on the same operands in query chunks:
 bf16 copies, and f32 with TF32 off, cuBLAS's SGEMM), and the
 `exact_error` phase: on every slot of K1's, K2's, K3a's and K4's
@@ -587,6 +599,8 @@ def ring_small_cases(device, seed=1, id_base=0):
 SERVE_QUERIES = 10000  # make_mnist_like(10000, seed=1): the serve phase's stream
 SERVE_BUCKET = 1024
 SERVE_VARIANTS = (("tiles", "exact"), ("sweep", "exact"), ("tiles", "mixed"))
+# variants held and timed at their buckets only (no streams): K2[c]
+SERVE_KERNEL_ONLY = (("sweep", "mixed"),)
 DUP_QUERY, DUP_ROW = 4321, 777  # the serve stream's query equal to a corpus row
 SERVE_RUNS = 3  # timed windows of each stream: the spread across runs
 SERVE_MIN_BATCHES = 120  # batches in one timed window, so p99 has >= 100
@@ -651,8 +665,10 @@ def serve_phase(device, X) -> dict:
     want_ids = np.argsort(d, axis=1, kind="stable")[:, :K]
     del d
     max_err = {}
-    for variant, policy in SERVE_VARIANTS:
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    for variant, policy in SERVE_VARIANTS + SERVE_KERNEL_ONLY:
         label = f"pallas/{variant}/{policy}"
+        kernel_only = (variant, policy) in SERVE_KERNEL_ONLY
         kw = dict(k=K, backend="pallas", pallas_variant=variant,
                   precision_policy=policy, query_bucket=SERVE_BUCKET,
                   dispatch_depth=2)
@@ -671,7 +687,7 @@ def serve_phase(device, X) -> dict:
         session = ServeSession(index, device=device)
         cfg = session.cfg
         all_sizes = [n for sizes in streams.values() for n in sizes]
-        warm = session.warm(all_sizes)
+        warm = None if kernel_only else session.warm(all_sizes)
         buckets = sorted({engine.bucket_rows(n, SERVE_BUCKET) for n in all_sizes})
         for n in buckets:
             list(session.stream([Qs[:n]]))  # the warm-up batch of each bucket
@@ -711,6 +727,10 @@ def serve_phase(device, X) -> dict:
                     f"fused_knn_{variant}", sq, index.staged.compress, M_FULL,
                     kk, index.c_tile, all_pairs=False)
                 plan = None
+                if variant == "sweep":  # K2[c]'s corpus split at this bucket
+                    plan = fused_knn.compress_sweep_launch_plan(
+                        bucket, cp.shape[0], M_FULL, kk,
+                        fused_knn.compress_sweep_plan(bucket, M_FULL, sms)["slices"])
             else:
                 sq = fused_knn.stage_tf32_split(qb)
                 run = lambda: fused_knn.launch_exact(  # noqa: E731
@@ -739,6 +759,9 @@ def serve_phase(device, X) -> dict:
                   "plain_ms": plain_ms, "bound_ms": 1e3 * ops / peak,
                   "bound_by": "operations", "plan": plan,
                   "batch_device_ms": card_ms[bucket]})
+        if kernel_only:
+            del session, index
+            continue
         for name, sizes in streams.items():
             batches, r0 = [], 0
             for n in sizes:
@@ -885,7 +908,7 @@ def main() -> int:
                   "fused_knn_sweep": [("fused_knn_sweep_kernel", "HGMMA")],
                   "stage_tf32_split": [("stage_split_kernel", "HGMMA")],
                   "fused_knn_tiles[compress]": [("fused_knn_tiles_compress_kernel", "HMMA")],
-                  "fused_knn_sweep[compress]": [("fused_knn_sweep_compress_kernel", "HMMA")],
+                  "fused_knn_sweep[compress]": [("fused_knn_sweep_compress_kernel", "HGMMA")],
                   "fused_block_merge[exact]": [("block_merge_exact_kernel", "HMMA")],
                   "fused_block_merge[compress]": [("block_merge_compress_kernel", "HMMA")],
                   "fused_round_dma": [("round_dma_kernel_wgmma", "HGMMA"),
@@ -904,6 +927,18 @@ def main() -> int:
             if "[compress]" not in name:  # the persistent grid at the main shape
                 info["plan"] = fused_knn.exact_plan(name, 60416, 61440, C_TILE, K)
                 info["plan"]["sms"] = sms
+            elif name == "fused_knn_sweep[compress]":  # its plan, and no mma.sync
+                info["hmma_in_sass[fused_knn_sweep_compress_kernel]"] = sum(
+                    v["HMMA"] for f, v in lib.items() if "fused_knn_sweep_compress_kernel" in f)
+                if info["hmma_in_sass[fused_knn_sweep_compress_kernel]"]:
+                    raise AssertionError("K2[c] still holds mma.sync (HMMA) instructions")
+                for label, rows in (("main_shape", 60416), ("bucket_1024", 1024),
+                                    ("bucket_2048", 2048)):
+                    plan = fused_knn.compress_sweep_launch_plan(
+                        rows, 61440, M_FULL, kk,
+                        fused_knn.compress_sweep_plan(rows, M_FULL, sms)["slices"])
+                    emit({"phase": "launch_plan", "kernel": name, "shape": label,
+                          "Q": rows, "sms": sms, **plan})
         elif name == "fused_block_merge[compress]":
             info = fused_ring.compress_kernel_info(OV)
         elif name == "fused_block_merge[exact]":  # at the P=1 and shard shapes
@@ -1109,6 +1144,45 @@ def main() -> int:
         emit({"phase": "product_alone", "call": call, "Q": Q, "C": C,
               "width": width, "query_chunk": chunk, "ms": product_ms,
               "tflops_needed": needed_ops / (product_ms * 1e-3) / 1e12})
+
+    # K2[c]'s bf16 wgmma tile's product alone (bf16_tile_dots with nothing
+    # written: the same TMA ring and wgmma pipeline, no keys, no
+    # selection), over the main shape's columns as K2[c]'s plan walks them
+    main_plan = fused_knn.compress_sweep_plan(Q, M_FULL, sms)
+    fused_knn.bf16_tile_dots(*staged, slices=main_plan["slices"], sink=True)
+    product_ms = cuda_ms(lambda: fused_knn.bf16_tile_dots(
+        *staged, slices=main_plan["slices"], sink=True), reps=3)
+    emit({"phase": "product_alone", "call": "fused_knn.bf16_tile_dots",
+          "cols_per_chunk": fused_knn.SWEEP_COLS, "Q": Q, "C": C,
+          "width": qb.shape[1], "slices": main_plan["slices"], "ms": product_ms,
+          "tflops_padded": 2.0 * Q * C * qb.shape[1] / (product_ms * 1e-3) / 1e12,
+          "tflops_needed": needed_ops / (product_ms * 1e-3) / 1e12})
+
+    # K2[c]'s output does not depend on its corpus split: forced splits
+    # against the plan's, bit for bit, at the main shape and at bucket 1024
+    def same(a, b):
+        return torch.equal(a[1], b[1]) and torch.equal(
+            torch.nan_to_num(a[0], posinf=-1.0), torch.nan_to_num(b[0], posinf=-1.0))
+
+    bucket_q = fused_knn.stage_bf16_rows(qp[M_FULL - 1024:M_FULL].contiguous())
+    for label, sq_, forced, all_pairs in (
+            ("main_shape", staged[0], (2, 3, 7), True),
+            ("bucket_1024", bucket_q, (1, 4, 33), False)):
+        rows = sq_[0].shape[0]
+        plan = fused_knn.compress_sweep_plan(rows, M_FULL, sms)
+        want = fused_knn.launch_compress("fused_knn_sweep", sq_, staged[1], M_FULL, OV,
+                                         C_TILE, all_pairs=all_pairs)
+        ok = {S: same(fused_knn.launch_compress("fused_knn_sweep", sq_, staged[1], M_FULL,
+                                                OV, C_TILE, all_pairs=all_pairs,
+                                                slices=S), want)
+              for S in forced}
+        emit({"phase": "s_invariance", "kernel": "fused_knn_sweep[compress]",
+              "shape": label, "Q": rows, "plan_slices": plan["slices"],
+              "bitwise_equal_at_slices": ok})
+        if not all(ok.values()):
+            raise AssertionError(f"K2[c] at {label}: the output depends on the split {ok}")
+        del want
+    del bucket_q
 
     # the exact wgmma tile's product alone (split_tile_dots: the same
     # pipeline with the raw products written out, no keys, no selection):

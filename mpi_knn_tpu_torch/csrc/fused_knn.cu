@@ -25,23 +25,27 @@
 //             pairs in bands of 8 groups (tiles). Masks: padding columns
 //             (>= m_corpus), zero distance (d <= zero_eps if > 0, else
 //             d <= 1e-6 (q^2 + c^2)), and self in all-pairs mode.
-//   compress  (fused_knn_{tiles,sweep}_compress_kernel) on knn_tile.cuh's
-//             mma.sync tile `sweep_mma<Bf16x1>`, 128 x 128 per CTA: the
-//             mixed policy's pass 1, as the TPU kernel's bf16 MXU dot: the
-//             staging prologue (stage_bf16_f32_launch) writes bf16 copies
-//             of the queries and the corpus and their f32 norms once per
-//             call; the tile multiplies the copies on the bf16 tensor cores
-//             with f32 sums. Keys clamped at 0, the zero mask off (padding
-//             and self stay), k is the overfetch width 4k.
+//   compress  the mixed policy's pass 1, as the TPU kernel's bf16 MXU dot:
+//             the staging prologue (stage_bf16_f32_launch) writes bf16
+//             copies of the queries and the corpus and their f32 norms once
+//             per call; the tiles multiply the copies on the bf16 tensor
+//             cores with f32 sums. Keys clamped at 0, the zero mask off
+//             (padding and self stay), k is the overfetch width 4k.
+//             fused_knn_tiles_compress_kernel runs knn_tile.cuh's mma.sync
+//             tile `sweep_mma<Bf16x1>`, 128 x 128 per CTA;
+//             fused_knn_sweep_compress_kernel (K2[c]) runs knn_wgmma_bf16.cuh's
+//             tile: TMA, one wgmma bf16 pass, the survivors filtered in
+//             registers, and (query group x corpus slice) items whose
+//             slice lists the last CTA of a group merges.
 //
 // What bounds it on this card. The main path (60000 queries x 60000 corpus
 // rows x 784, k = 10) needs 2*60000*60000*784 ~ 5.64e12 FLOP. Exact mode
 // runs them three times on the TF32 tensor cores (494.7 TFLOP/s dense on
 // the H100 SXM: ~34 ms; FFMA at the 67 TFLOP/s FP32 peak would need ~84
-// ms). Compress mode runs them once on mma.sync bf16 (989 TFLOP/s dense:
-// ~5.7 ms); at that rate the per-key selection (an insert per survivor,
-// lists of 40 restarting every 2048 columns in the tiles form) is as large
-// as the product. The only bytes that must cross device memory are the
+// ms). Compress mode runs them once on bf16 (989 TFLOP/s dense: ~5.7
+// ms); at that rate the per-key selection (an insert per survivor, lists
+// of 40 restarting every 2048 columns in the tiles form) is as large as
+// the product unless the losing keys are dropped in registers. The only bytes that must cross device memory are the
 // corpus and queries (~0.4 GB, ~0.1 ms at 3.35 TB/s) and the survivors, so
 // both modes are bound by operations.
 //
@@ -52,7 +56,7 @@
 // turns the whole row's output into (NaN, -1), which is what the TPU's
 // k-pass min extraction emits for such a row.
 
-#include "knn_wgmma.cuh"
+#include "knn_wgmma_bf16.cuh"
 
 namespace {
 
@@ -68,7 +72,7 @@ struct Params {
   int Q, C, D;        // D: the staged width
   int m_corpus;       // columns >= m_corpus are padding
   int k;
-  int c_span;         // columns per CTA along y (C for the sweep)
+  int c_span;         // columns per CTA along y
   int exclude_self, all_pairs;
 };
 
@@ -133,8 +137,8 @@ __device__ void knn_rows(const Params& p, int q0, int c_begin, int c_end,
             THREADS / 32);
 }
 
-// Every compress kernel is capped at 128 registers a thread, so two CTAs of
-// 256 threads fit on an SM (their shared memory allows two for k <= 40).
+// K1[c] is capped at 128 registers a thread, so two CTAs of 256 threads
+// fit on an SM (their shared memory allows two for k <= 40).
 __global__ void __launch_bounds__(THREADS, 2)
 fused_knn_tiles_compress_kernel(Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -144,12 +148,6 @@ fused_knn_tiles_compress_kernel(Params p) {
   knn_rows(p, q0, c_begin, c_end, (size_t)blockIdx.y * p.Q + q0, smem);
 }
 
-__global__ void __launch_bounds__(THREADS, 2)
-fused_knn_sweep_compress_kernel(Params p) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  int q0 = blockIdx.x * MQB;
-  knn_rows(p, q0, 0, p.C, (size_t)q0, smem);
-}
 
 // The exact form's consumer hooks over knn_wgmma.cuh's tile: the masked
 // keys of each chunk into the key tile, the selection, and at the end of an
@@ -236,6 +234,169 @@ struct DotsEpi {
     extern __shared__ __align__(1024) unsigned char smem[];                          \
     wg::run_tile(&qh, &ql, &ch, &cl, epi, smem);                                      \
   }
+
+// K2[c]'s consumer hooks over knn_wgmma_bf16.cuh's tile: the keys of each
+// chunk filtered in registers into the warp's lists, and at the end of an
+// item its lists to the output rows (S = 1) or to the item's slice of the
+// scratch; the last CTA of a query group merges the group's S slices.
+// Each consumer warp inits, selects, emits and merges its own 16 rows.
+struct CompressSweepEpi {
+  wgb::SweepWalk walk;
+  const float* qn;   // (Q,) the prologue's query norms
+  const float* cn;   // (C,) its corpus norms
+  float* out_d;      // (Q, k)
+  int* out_i;
+  float* part_d;     // (S, Q, k) when S > 1
+  int* part_i;
+  int* counters;     // (groups,): zero on entry, left at zero
+  int Q, k, nkb;
+  bool self;         // mask the column equal to the row (all pairs)
+  static constexpr bool has_norms = true;
+  __device__ int items() const { return walk.items(); }
+  __device__ wgb::Item item(int n) const { return walk.item(n); }
+  // the item's lists: shared memory, or the rows of its output block
+  __device__ wgb::Lists lists(const wgb::Item& t, const wgb::Ctx& c) const {
+    const bool split = walk.slices > 1;
+    return wgb::Lists{c.Lsd, c.Lsi, split ? part_d : out_d, split ? part_i : out_i,
+                      (split ? (size_t)t.slice * Q : 0) + t.q0, k};
+  }
+  __device__ void begin(const wgb::Item& t, const wgb::Ctx& c) const {
+    const wgb::Lists L = lists(t, c);
+    for (int r = 16 * c.cwarp; r < 16 * c.cwarp + 16; ++r) {
+      if (c.lane == 0) c.nanf[r] = c.bufn[r] = 0;
+      if (t.q0 + r >= Q) continue;
+      for (int j = c.lane; j < k; j += 32) { L.d(r)[j] = inf_f(); L.i(r)[j] = -1; }
+    }
+    __syncwarp();
+  }
+  __device__ __forceinline__ void chunk(float (&acc)[wgb::ACC], const wgb::Item& t,
+                                        int col0, const float* norms, uint32_t release,
+                                        const wgb::Ctx& c) const {
+    const int wrow0 = 16 * c.cwarp, r0 = t.q0 + wrow0 + c.lane / 4;
+    const int row[2] = {r0, r0 + 8};
+    const bool live[2] = {row[0] < Q, row[1] < Q};
+    const float qs[2] = {live[0] ? qn[row[0]] : 0.f, live[1] ? qn[row[1]] : 0.f};
+    wgb::select_regs(acc, col0, t.c_end, row, live, qs, self, norms, release, lists(t, c),
+                     wrow0, c.nanf, c.bufn, c.cd, c.ci, c.lane);
+  }
+  __device__ void end(const wgb::Item& t, const wgb::Ctx& c) const {
+    const wgb::Lists L = lists(t, c);
+    const int wrow0 = 16 * c.cwarp;
+    // the winners still buffered into their lists
+    const unsigned rows = __ballot_sync(
+        FULL, c.lane < 16 && t.q0 + wrow0 + c.lane < Q && c.bufn[wrow0 + (c.lane & 15)] > 0);
+    wgb::flush_rows(rows, L, wrow0, c.bufn, c.cd, c.ci, c.lane);
+    for (int r = wrow0; r < wrow0 + 16; ++r) {  // emit: the lists to their rows
+      if (t.q0 + r >= Q) continue;
+      const bool poisoned = c.nanf[r] != 0;
+      float* od = L.gd + (L.row0 + r) * (size_t)k;
+      int* oi = L.gi + (L.row0 + r) * (size_t)k;
+      for (int j = c.lane; j < k; j += 32) {
+        float d = L.d(r)[j];
+        int id = L.i(r)[j];
+        if (poisoned) { d = nan_f(); id = -1; }
+        else if (!isfinite(d)) id = -1;
+        od[j] = d;
+        oi[j] = id;
+      }
+    }
+    if (walk.slices == 1) return;
+    // the group's last slice to finish merges them all: each thread's
+    // scratch writes are released before the count, acquired after it
+    __threadfence();
+    wgb::consumer_sync();
+    if (c.ctid == 0) {
+      const int last = atomicAdd(counters + t.group, 1) == walk.slices - 1;
+      if (last) {
+        counters[t.group] = 0;
+        __threadfence();
+      }
+      *c.flag = last;
+    }
+    wgb::consumer_sync();
+    if (*c.flag) merge_slices(t, c);
+  }
+  // the S slice lists of the warp's rows merged by (distance, column) into
+  // the output rows; a row poisoned in any slice comes out all (NaN, -1)
+  __device__ void merge_slices(const wgb::Item& t, const wgb::Ctx& c) const {
+    const int S = walk.slices, lane = c.lane;
+    const size_t pitch = (size_t)Q * k;
+    for (int r = 16 * c.cwarp; r < 16 * c.cwarp + 16; ++r) {
+      const int q = t.q0 + r;
+      if (q >= Q) continue;
+      const float* pd = part_d + (size_t)q * k;
+      const int* pi = part_i + (size_t)q * k;
+      float* od = out_d + (size_t)q * k;
+      int* oi = out_i + (size_t)q * k;
+      bool nan = false;
+      for (int s = lane; s < S; s += 32) nan |= isnan(__ldcg(pd + s * pitch));
+      if (__any_sync(FULL, nan)) {
+        for (int j = lane; j < k; j += 32) { od[j] = nan_f(); oi[j] = -1; }
+        continue;
+      }
+      // slice 0's list into the output row, then each other slice's merged in
+      for (int j = lane; j < k; j += 32) { od[j] = __ldcg(pd + j); oi[j] = __ldcg(pi + j); }
+      __syncwarp();
+      for (int s = 1; s < S; ++s)
+        for (int j0 = 0; j0 < k; j0 += 32)
+          wgb::merge_cands<true>(od, oi, k, pd + s * pitch + j0, pi + s * pitch + j0,
+                                 min(32, k - j0), lane);
+      __syncwarp();
+    }
+  }
+};
+
+// The bf16 tile's raw products (a test hook and the product-alone probe):
+// every item of the walk writes its accumulators to out (Q, C), or with
+// `sink` only folds them into a value that is stored when it equals an
+// unlikely constant, so the products are computed and nothing is written.
+struct Bf16DotsEpi {
+  wgb::SweepWalk walk;
+  float* out;
+  int Q, C, nkb, k, sink;
+  static constexpr bool has_norms = false;
+  __device__ int items() const { return walk.items(); }
+  __device__ wgb::Item item(int n) const { return walk.item(n); }
+  __device__ void begin(const wgb::Item&, const wgb::Ctx&) const {}
+  __device__ void end(const wgb::Item&, const wgb::Ctx&) const {}
+  __device__ void chunk(const float (&acc)[wgb::ACC], const wgb::Item& t, int col0,
+                        const float*, uint32_t release, const wgb::Ctx& c) const {
+    __syncwarp();
+    if (c.lane == 0) wg::mbar_arrive(release);  // no norms to read
+    if (sink) {
+      float s = 0.f;
+#pragma unroll
+      for (int i = 0; i < wgb::ACC; ++i) s += acc[i];
+      if (s == -1.2345e-30f) out[0] = s;
+      return;
+    }
+#pragma unroll
+    for (int i = 0; i < wgb::ACC; ++i) {
+      const int row = t.q0 + 16 * c.cwarp + c.lane / 4 + 8 * ((i % 4) / 2);
+      const int col = col0 + 8 * (i / 4) + 2 * (c.lane % 4) + i % 2;
+      if (row < Q && col < t.c_end) out[(size_t)row * C + col] = acc[i];
+    }
+  }
+};
+
+#define WGB_KERNEL(name, Epi)                                                         \
+  __global__ void __launch_bounds__(wgb::THREADS, 1)                                  \
+      name(const __grid_constant__ CUtensorMap qm, const __grid_constant__ CUtensorMap cm, \
+           const __grid_constant__ CUtensorMap nm, const Epi epi) {                   \
+    extern __shared__ __align__(1024) unsigned char smem[];                          \
+    wgb::run_tile(&qm, &cm, Epi::has_norms ? &nm : nullptr, epi, smem);               \
+  }
+
+WGB_KERNEL(fused_knn_sweep_compress_kernel, CompressSweepEpi)
+WGB_KERNEL(bf16_tile_dots_kernel, Bf16DotsEpi)
+
+// The bf16 tile's maps of the query copy (Q, Dp) and the corpus copy (C, Dp).
+cudaError_t bf16_maps(CUtensorMap* qm, CUtensorMap* cm, const bf16* qb, const bf16* cb, int Q,
+                      int C, int Dp) {
+  cudaError_t e = wgb::bf16_map(qm, qb, Q, Dp, wgb::ROWS);
+  if (e == cudaSuccess) e = wgb::bf16_map(cm, cb, C, Dp, wgb::COLS);
+  return e;
+}
 
 WG_KERNEL(fused_knn_tiles_kernel, ExactEpi<wg::TileItems>)
 WG_KERNEL(fused_knn_sweep_kernel, ExactEpi<wg::SweepItems>)
@@ -404,15 +565,65 @@ int fused_knn_tiles_compress_launch(const bf16* qb, const float* qn,
   return (int)launch_compress(fused_knn_tiles_compress_kernel, p, C / c_tile, stream);
 }
 
-int fused_knn_sweep_compress_launch(const bf16* qb, const float* qn,
-                                    const bf16* cb, const float* cn,
-                                    float* out_d, int* out_i, int Q, int C,
-                                    int Dp, int m_corpus, int k,
-                                    int exclude_self, int all_pairs,
-                                    cudaStream_t stream) {
-  Params p{qb, qn, cb, cn, out_d, out_i, Q, C, Dp, m_corpus, k, C,
-           exclude_self, all_pairs};
-  return (int)launch_compress(fused_knn_sweep_compress_kernel, p, 1, stream);
+// K2[c] on the prologue's copies qb (Q, Dp), cb (C, Dp) and norms: the
+// final (Q, k) over columns [0, min(C, m_corpus)) in `slices` corpus
+// slices. With slices > 1, part_d / part_i are (slices, Q, k) scratch and
+// counters (ceil(Q / 128),) int32 zeros (left at zero).
+int fused_knn_sweep_compress_launch(const bf16* qb, const float* qn, const bf16* cb,
+                                    const float* cn, float* out_d, int* out_i, float* part_d,
+                                    int* part_i, int* counters, int Q, int C, int Dp,
+                                    int m_corpus, int k, int exclude_self, int all_pairs,
+                                    int slices, cudaStream_t stream) {
+  if (Q <= 0 || C <= 0 || k <= 0 || slices <= 0 || Dp % wgb::KB ||
+      (slices > 1 && (part_d == nullptr || part_i == nullptr || counters == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap qm, cm, nm;
+  cudaError_t e = bf16_maps(&qm, &cm, qb, cb, Q, C, Dp);
+  if (e == cudaSuccess) e = wgb::norms_map(&nm, cn, C);
+  if (e != cudaSuccess) return (int)e;
+  const wgb::SweepWalk walk = wgb::sweep_walk(Q, C < m_corpus ? C : m_corpus, slices);
+  const CompressSweepEpi epi{walk, qn, cn, out_d, out_i, part_d, part_i, counters,
+                             Q, k, Dp / wgb::KB, exclude_self && all_pairs};
+  int grid = 0, per_sm = 0;
+  e = wgb::tile_grid((const void*)fused_knn_sweep_compress_kernel, k, walk.items(), &grid,
+                     &per_sm);
+  if (e != cudaSuccess) return (int)e;
+  fused_knn_sweep_compress_kernel<<<grid, wgb::THREADS, wgb::smem_bytes(k), stream>>>(qm, cm,
+                                                                                     nm, epi);
+  return (int)cudaGetLastError();
+}
+
+// K2[c]'s launch plan at (Q, C, m_corpus, k, slices): its items, the
+// persistent grid, CTAs per SM, the columns a slice spans, the columns a
+// chunk takes and the dynamic shared bytes.
+int compress_sweep_plan(int Q, int C, int m_corpus, int k, int slices, long long* items,
+                        int* grid, int* ctas_per_sm, int* span, int* cols, int* smem) {
+  if (Q <= 0 || C <= 0 || k <= 0 || slices <= 0) return (int)cudaErrorInvalidValue;
+  const wgb::SweepWalk walk = wgb::sweep_walk(Q, C < m_corpus ? C : m_corpus, slices);
+  *items = walk.items();
+  *span = walk.span;
+  *cols = wgb::COLS;
+  *smem = (int)wgb::smem_bytes(k);
+  return (int)wgb::tile_grid((const void*)fused_knn_sweep_compress_kernel, k, *items, grid,
+                             ctas_per_sm);
+}
+
+// The bf16 tile's raw products of the copies qb (Q, Dp), cb (C, Dp) over
+// `slices` slices of the columns: out (Q, C) = qb . cb^T, or with `sink`
+// the products alone (out holds one float, written only by chance).
+int bf16_tile_dots_launch(const bf16* qb, const bf16* cb, float* out, int Q, int C, int Dp,
+                          int slices, int sink, cudaStream_t stream) {
+  if (Q <= 0 || C <= 0 || slices <= 0 || Dp % wgb::KB) return (int)cudaErrorInvalidValue;
+  CUtensorMap qm, cm;
+  cudaError_t e = bf16_maps(&qm, &cm, qb, cb, Q, C, Dp);
+  if (e != cudaSuccess) return (int)e;
+  const wgb::SweepWalk walk = wgb::sweep_walk(Q, C, slices);
+  const Bf16DotsEpi epi{walk, out, Q, C, Dp / wgb::KB, 0, sink};
+  int grid = 0, per_sm = 0;
+  e = wgb::tile_grid((const void*)bf16_tile_dots_kernel, 0, walk.items(), &grid, &per_sm);
+  if (e != cudaSuccess) return (int)e;
+  bf16_tile_dots_kernel<<<grid, wgb::THREADS, wgb::smem_bytes(0), stream>>>(qm, cm, cm, epi);
+  return (int)cudaGetLastError();
 }
 
 // The compress prologue: x (N, D) f32 -> out (N, Dp) bf16, norms (N,) f32.
@@ -482,23 +693,29 @@ double wgmma_rate_launch(int iters, float* out, cudaStream_t stream) {
   return 2.0 * sms * 2 * (double)iters * 16 * 64 * 128 * 8;
 }
 
-// Registers, local (spilled) bytes a thread and CTAs per SM of kernel
-// `which` (0 tiles, 1 sweep: the exact wgmma kernels; 2, 3 their compress
-// forms) at list width k.
-int kernel_info(int which, int k, int* regs, int* local_bytes, int* ctas_per_sm) {
+// Registers, local (spilled) bytes a thread, CTAs per SM and dynamic shared
+// bytes of kernel `which` (0 tiles, 1 sweep: the exact wgmma kernels; 2,
+// 3 their compress forms: mma.sync K1[c], the bf16 wgmma K2[c]) at list
+// width k.
+int kernel_info(int which, int k, int* regs, int* local_bytes, int* ctas_per_sm, int* smem) {
   const void* kernels[] = {(const void*)fused_knn_tiles_kernel,
                            (const void*)fused_knn_sweep_kernel,
                            (const void*)fused_knn_tiles_compress_kernel,
                            (const void*)fused_knn_sweep_compress_kernel};
   if (which < 0 || which > 3) return (int)cudaErrorInvalidValue;
-  if (which >= 2) return (int)mma_kernel_info(kernels[which], k, regs, local_bytes, ctas_per_sm);
+  if (which == 2) {
+    *smem = (int)mma_smem_bytes(k);
+    return (int)mma_kernel_info(kernels[which], k, regs, local_bytes, ctas_per_sm);
+  }
   int grid = 0;
   cudaFuncAttributes attr;
-  cudaError_t e = wg::tile_grid(kernels[which], k, 1, &grid, ctas_per_sm);
+  cudaError_t e = which == 3 ? wgb::tile_grid(kernels[which], k, 1, &grid, ctas_per_sm)
+                             : wg::tile_grid(kernels[which], k, 1, &grid, ctas_per_sm);
   if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, kernels[which]);
   if (e != cudaSuccess) return (int)e;
   *regs = attr.numRegs;
   *local_bytes = (int)attr.localSizeBytes;
+  *smem = (int)(which == 3 ? wgb::smem_bytes(k) : wg::smem_bytes(k));
   return 0;
 }
 

@@ -1,9 +1,9 @@
-// The mma.sync tile of the compress kernels (fused_knn.cu, fused_ring.cu),
-// of the ring's exact block merge (fused_ring.cu) and of the ring transport
-// kernels (fused_ring_dma.cu: K5, and K4's bf16 and int8 wires), for Hopper
-// (sm_90a): one tensor-core tile, `sweep_mma`, parametrised by its operand
-// policy. Its selection (`select_chunk`) also serves knn_wgmma.cuh, the
-// exact tile of K1, K2 and K4's f32 wire.
+// The mma.sync tile of the compress kernels K1[c] (fused_knn.cu) and K3b
+// (fused_ring.cu), of the ring's exact block merge (fused_ring.cu) and of
+// the ring transport kernels (fused_ring_dma.cu: K5, and K4's bf16 and
+// int8 wires), for Hopper (sm_90a): one tensor-core tile, `sweep_mma`,
+// parametrised by its operand policy. Its selection (`select_chunk`) also
+// serves knn_wgmma.cuh, the exact tile of K1, K2 and K4's f32 wire.
 //
 // One CTA owns ROWS query rows (MQB = 128, or NQB = 64 where 128-row groups
 // would leave the card's resident slots empty) and sweeps a range of columns

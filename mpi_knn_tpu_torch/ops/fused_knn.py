@@ -30,7 +30,11 @@ caller asks for the overfetch width as k. On the card it is two steps: the
 staging prologue (``stage_bf16_rows``: a bf16 copy rounded to nearest even
 and zero-padded to a multiple of ``STAGE_K``, plus the f32 squared norms
 of the unrounded rows), once for the queries and once for the corpus, then
-the bf16 tensor-core kernel on the copies (``launch_compress``).
+the bf16 tensor-core kernel on the copies (``launch_compress``). The sweep
+form (K2[c]) runs one ``wgmma`` pass, filters the keys in registers, and
+splits the corpus into the slices ``compress_sweep_plan`` picks, so that
+a serving bucket's few query groups still fill the card; its output does
+not depend on the split.
 
 A serving index stages its corpus once (``stage_corpus`` -> ``StagedCorpus``)
 and hands it to every call as ``staged_corpus``: a call then launches the
@@ -56,6 +60,14 @@ from mpi_knn_tpu_torch.types import INVALID_ID
 
 _ZERO_RTOL = 1e-6  # the f32 zero-exclusion rtol (ops/topk.py)
 STAGE_K = 32  # the compress tile's slice depth: staged widths are its multiples
+SWEEP_ROWS = 128  # K2[c]'s query rows per item (csrc/knn_wgmma_bf16.cuh ROWS)
+SWEEP_COLS = 256  # its columns per chunk (knn_wgmma_bf16.cuh COLS)
+# the plan's cost of an item beyond its chunks, in chunks: list set-up, the
+# first chunks' winners (every key beats an empty list), the emit and the
+# slices' merge; fitted to K2[c]'s times at S = 1, 2, 3, 5 on the main
+# shape (60416 x 61440 x 784, ov 40) on an H100 80GB HBM3 at 700 W
+ITEM_OVERHEAD_CHUNKS = 30
+MAX_SLICES = 64
 SPLIT_K = 16  # the exact tile's k-block: the planes' pitch is its multiple
 
 LAUNCHES = {"fused_knn_tiles": 0, "fused_knn_sweep": 0,
@@ -86,12 +98,16 @@ def configure(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.fused_knn_tiles_launch.argtypes = exact + [i32] + flags
     lib.fused_knn_sweep_launch.argtypes = exact + flags
     lib.fused_knn_tiles_compress_launch.argtypes = common + [i32] * 3 + [ptr]
-    lib.fused_knn_sweep_compress_launch.argtypes = common + [i32] * 2 + [ptr]
+    lib.fused_knn_sweep_compress_launch.argtypes = (
+        [ptr] * 9 + [i32] * 5 + [i32] * 3 + [ptr])
+    lib.compress_sweep_plan.argtypes = [i32] * 5 + [
+        ctypes.POINTER(ctypes.c_longlong)] + [ctypes.POINTER(i32)] * 5
+    lib.bf16_tile_dots_launch.argtypes = [ptr] * 3 + [i32] * 5 + [ptr]
     lib.stage_bf16_f32_launch.argtypes = [ptr] * 3 + [i32] * 3 + [ptr]
     lib.stage_tf32_split_launch.argtypes = [ptr] * 4 + [i32] * 3 + [ptr]
     lib.split_tile_dots_launch.argtypes = [ptr] * 5 + [i32] * 3 + [ptr]
     lib.exact_tile_dots_launch.argtypes = [ptr] * 3 + [i32] * 3 + [ptr]
-    lib.kernel_info.argtypes = [i32, i32] + [ctypes.POINTER(i32)] * 3
+    lib.kernel_info.argtypes = [i32, i32] + [ctypes.POINTER(i32)] * 4
     lib.exact_plan.argtypes = [i32] * 5 + [ctypes.POINTER(ctypes.c_longlong),
                                            ctypes.POINTER(i32), ctypes.POINTER(i32)]
     lib.mma_rate_launch.argtypes = [i32, i32, ptr, ptr]
@@ -102,7 +118,8 @@ def configure(lib: ctypes.CDLL) -> ctypes.CDLL:
                lib.fused_knn_tiles_compress_launch,
                lib.fused_knn_sweep_compress_launch, lib.stage_bf16_f32_launch,
                lib.stage_tf32_split_launch, lib.split_tile_dots_launch,
-               lib.exact_tile_dots_launch, lib.kernel_info, lib.exact_plan):
+               lib.exact_tile_dots_launch, lib.kernel_info, lib.exact_plan,
+               lib.compress_sweep_plan, lib.bf16_tile_dots_launch):
         fn.restype = i32
     return lib
 
@@ -343,23 +360,141 @@ def stage_bf16_rows_reference(rows, width=None):
 
 def launch_compress(base: str, staged_q, staged_c, m_corpus: int, k: int,
                     c_tile: int, exclude_self: bool = True,
-                    all_pairs: bool = True):
+                    all_pairs: bool = True, slices: int | None = None):
     """The compress kernel ``base`` ("fused_knn_tiles" or
     "fused_knn_sweep") on the prologue's ((Q, w) bf16, (Q,)) queries and
     ((C, w) bf16, (C,)) corpus, on the card: (n_c, Q, k) or (Q, k) raw
-    dists and ids."""
+    dists and ids. ``slices`` forces the sweep's corpus split (default:
+    ``compress_sweep_plan``'s); the output is the same for every split."""
     (qb, qn), (cb, cn) = staged_q, staged_c
     Q, C = qb.shape[0], cb.shape[0]
     name = base + "[compress]"
-    tensors = (qb, qn, cb, cn)
-    shape_args = (Q, C, qb.shape[1], m_corpus, k)
     if base == "fused_knn_tiles":
         return _call(_lib().fused_knn_tiles_compress_launch, name, qb.device,
-                     tensors, (C // c_tile, Q, k), *shape_args, c_tile,
-                     int(exclude_self), int(all_pairs))
-    return _call(_lib().fused_knn_sweep_compress_launch, name, qb.device,
-                 tensors, (Q, k), *shape_args, int(exclude_self),
-                 int(all_pairs))
+                     (qb, qn, cb, cn), (C // c_tile, Q, k), Q, C, qb.shape[1],
+                     m_corpus, k, c_tile, int(exclude_self), int(all_pairs))
+    plan = compress_sweep_plan(Q, min(C, m_corpus), _sm_count(qb.device), slices)
+    S = plan["slices"]
+    dev = qb.device
+    out_d = torch.empty((Q, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((Q, k), dtype=torch.int32, device=dev)
+    part_d = part_i = counters = None
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        if S > 1:
+            part_d = torch.empty((S, Q, k), dtype=torch.float32, device=dev)
+            part_i = torch.empty((S, Q, k), dtype=torch.int32, device=dev)
+            counters = _group_counters(dev, stream, plan["groups"])
+        ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+        rc = _lib().fused_knn_sweep_compress_launch(
+            qb.data_ptr(), qn.data_ptr(), cb.data_ptr(), cn.data_ptr(),
+            out_d.data_ptr(), out_i.data_ptr(), ptr(part_d), ptr(part_i),
+            ptr(counters), Q, C, qb.shape[1], m_corpus, k, int(exclude_self),
+            int(all_pairs), S, stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {rc}")
+    LAUNCHES[name] += 1
+    return out_d, out_i
+
+
+_COUNTERS: dict = {}
+
+
+def _group_counters(device, stream: int, groups: int) -> torch.Tensor:
+    """K2[c]'s per-group counters on ``device`` for launches on ``stream``:
+    zeroed once, and left at zero by every launch, so a call adds no fill
+    (a buffer per stream: launches on two streams may overlap)."""
+    key = (torch.device(device).index or 0, stream)
+    buf = _COUNTERS.get(key)
+    if buf is None or buf.numel() < groups:
+        buf = _COUNTERS[key] = torch.zeros(groups, dtype=torch.int32, device=device)
+    return buf
+
+
+@functools.cache
+def _sm_count_of(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _sm_count(device) -> int:
+    return _sm_count_of(torch.device(device).index or 0)
+
+
+def compress_sweep_plan(Q: int, c_end: int, sms: int, slices: int | None = None,
+                        cols: int = SWEEP_COLS) -> dict:
+    """K2[c]'s work split: Q query rows in groups of ``SWEEP_ROWS`` against
+    columns [0, c_end) in chunks of ``cols``, cut into ``slices`` corpus
+    slices of ``span`` columns; an item is (query group, slice), walked
+    slice-major by a persistent grid of min(items, sms) CTAs. Unless forced,
+    S is the one (the smallest on ties) that minimises waves x (chunks per
+    slice + ``ITEM_OVERHEAD_CHUNKS``): a few query groups are spread over
+    the card, and a last wave's waste is weighed against each slice's
+    set-up and merge. The kernel (csrc/knn_wgmma_bf16.cuh ``sweep_walk``)
+    cuts the same spans."""
+    groups = -(-Q // SWEEP_ROWS)
+    chunks = max(1, -(-c_end // cols))
+
+    def cost(s):
+        return -(-groups * s // sms) * (-(-chunks // s) + ITEM_OVERHEAD_CHUNKS)
+
+    if slices is None:
+        slices = min(range(1, min(chunks, MAX_SLICES) + 1), key=cost)
+        slices = -(-chunks // -(-chunks // slices))  # no empty slice
+    if slices < 1:
+        raise ValueError(f"slices={slices} must be >= 1")
+    per = -(-chunks // slices)
+    items = groups * slices
+    grid = min(items, sms)
+    return {"rows_per_cta": SWEEP_ROWS, "cols": cols, "groups": groups,
+            "chunks": chunks, "slices": slices, "span": per * cols,
+            "items": items, "grid": grid, "waves": items / grid}
+
+
+def compress_sweep_items(plan: dict, c_end: int):
+    """The (query group, first column, end column) of each item of a plan,
+    in the kernel's slice-major order."""
+    return [(n % plan["groups"], s * plan["span"],
+             min((s + 1) * plan["span"], c_end))
+            for n in range(plan["items"]) for s in [n // plan["groups"]]]
+
+
+def compress_sweep_launch_plan(Q: int, C: int, m_corpus: int, k: int,
+                               slices: int) -> dict:
+    """K2[c]'s launch plan as the built kernel sees it (needs the card):
+    items, the persistent grid, CTAs per SM, the span of a slice, the
+    columns of a chunk and the dynamic shared bytes."""
+    items = ctypes.c_longlong()
+    vals = [ctypes.c_int() for _ in range(5)]
+    rc = _lib().compress_sweep_plan(Q, C, m_corpus, k, slices, ctypes.byref(items),
+                                    *(ctypes.byref(v) for v in vals))
+    if rc != 0:
+        raise RuntimeError(f"compress_sweep_plan failed: cudaError {rc}")
+    plan = dict(zip(("grid", "ctas_per_sm", "span", "cols", "smem_bytes"),
+                    (v.value for v in vals)))
+    return {"slices": slices, "items": items.value, **plan,
+            "waves": items.value / plan["grid"], "cluster": 1}
+
+
+def bf16_tile_dots(staged_q, staged_c, slices: int = 1, sink: bool = False):
+    """K2[c]'s bf16 tile's raw products of two staged row sets ((copy,
+    norms) each, from ``stage_bf16_rows``) -> (Q, C) f32: a test hook and,
+    with ``sink`` (the products computed, nothing written; returns None),
+    the tile's product alone. On the CPU, ``torch.matmul`` of the copies.
+    Not counted in ``LAUNCHES``."""
+    (qb, _), (cb, _) = staged_q, staged_c
+    if qb.device.type == "cpu":
+        return None if sink else _mm_t(qb, cb)
+    Q, C = qb.shape[0], cb.shape[0]
+    out = torch.empty((1, 1) if sink else (Q, C), dtype=torch.float32,
+                      device=qb.device)
+    with torch.cuda.device(qb.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = _lib().bf16_tile_dots_launch(
+            qb.data_ptr(), cb.data_ptr(), out.data_ptr(), Q, C, qb.shape[1],
+            slices, int(sink), stream)
+    if rc != 0:
+        raise RuntimeError(f"bf16_tile_dots launch failed: cudaError {rc}")
+    return None if sink else out
 
 
 def launch_exact(base: str, staged_q, staged_c, m_corpus: int, k: int,
@@ -436,15 +571,15 @@ def mma_rate(device, tf32: bool, iters: int = 4096) -> float:
 
 
 def kernel_info(name: str, k: int) -> dict:
-    """Registers and spilled (local) bytes a thread, and CTAs per SM, of the
-    kernel ``name`` (a ``LAUNCHES`` kernel name) at list width k (needs the
-    card)."""
-    vals = [ctypes.c_int() for _ in range(3)]
+    """Registers and spilled (local) bytes a thread, CTAs per SM and dynamic
+    shared bytes of the kernel ``name`` (a ``LAUNCHES`` kernel name) at
+    list width k (needs the card)."""
+    vals = [ctypes.c_int() for _ in range(4)]
     rc = _lib().kernel_info(_KERNELS.index(name), k,
                             *(ctypes.byref(v) for v in vals))
     if rc != 0:
         raise RuntimeError(f"kernel_info failed: cudaError {rc}")
-    return dict(zip(("registers", "spilled_bytes", "ctas_per_sm"),
+    return dict(zip(("registers", "spilled_bytes", "ctas_per_sm", "smem_bytes"),
                     (v.value for v in vals)))
 
 
@@ -596,3 +731,32 @@ def fused_knn_sweep_reference(queries, corpus, m_corpus, k, q_tile, c_tile,
             carry = _select(torch.cat([carry[0], new_d], dim=1),
                             torch.cat([carry[1], new_i], dim=1), k)
     return carry
+
+
+def fused_knn_sweep_split_reference(queries, corpus, m_corpus, k, q_tile,
+                                    c_tile, exclude_self=True, all_pairs=True,
+                                    slices=1, cols=SWEEP_COLS):
+    """Plain model of K2[c]'s corpus split (tests only): the compress sweep
+    over each of ``slices`` slices of the columns [0, min(C, m_corpus)),
+    cut as ``compress_sweep_plan`` cuts them, then the slices' lists merged
+    by (distance, column) as the group's last CTA merges them. Equal bit
+    for bit to ``fused_knn_sweep_reference(..., compress=True)`` for every
+    S."""
+    _check(queries, corpus, k, q_tile, c_tile)
+    qb, q_sq = stage_bf16_rows_reference(queries)
+    c_end = min(corpus.shape[0], m_corpus)
+    plan = compress_sweep_plan(queries.shape[0], c_end, 1, slices, cols)
+    Q, dev = queries.shape[0], queries.device
+    lists_d, lists_i = [], []
+    for s in range(plan["slices"]):
+        c0, c1 = s * plan["span"], min((s + 1) * plan["span"], c_end)
+        d = torch.full((Q, k), float("inf"), device=dev)
+        ids = torch.full((Q, k), INVALID_ID, dtype=torch.int32, device=dev)
+        if c1 > c0:
+            sd, si = _select(*_masked_tile(qb, q_sq, corpus[c0:c1], c0, m_corpus,
+                                           exclude_self, False, all_pairs, 0.0,
+                                           compress=True), k)
+            d[:, :sd.shape[1]], ids[:, :si.shape[1]] = sd, si
+        lists_d.append(d)
+        lists_i.append(ids)
+    return _select(torch.cat(lists_d, dim=1), torch.cat(lists_i, dim=1), k)

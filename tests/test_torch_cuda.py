@@ -92,6 +92,120 @@ def test_compress_kernels_equal_plain_on_ragged_shapes(cuda_device, name,
         assert bool(torch.isfinite(gd[10, :ov]).all())
 
 
+def _compress_sweep_operands(device, all_pairs, rows=1000, dim=64):
+    """Small-integer rows (an exact duplicate pair) padded to 1024, and
+    queries: the rows themselves, or 200 others with a NaN row."""
+    rng = np.random.default_rng(5)
+    X = np.zeros((1024, dim), np.float32)
+    X[:rows] = rng.integers(0, 8, (rows, dim)) * 0.25
+    X[5] = X[60]
+    if all_pairs:
+        Q = X
+    else:
+        Q = np.zeros((256, dim), np.float32)
+        Q[:200] = rng.integers(0, 8, (200, dim)) * 0.25
+        Q[3] = np.nan
+    return (torch.from_numpy(Q).to(device), torch.from_numpy(X).to(device), rows)
+
+
+def _sweep_compress(Q, X, m, k, slices, all_pairs=True):
+    """K2[c] through the wrapper (slices None: the plan's split), or at a
+    forced split on the operands the wrapper would stage."""
+    if slices is None:
+        return fused_knn.fused_knn_sweep(Q, X, m, k, 128, 1024, all_pairs=all_pairs,
+                                         compress=True)
+    return fused_knn.launch_compress(
+        "fused_knn_sweep", fused_knn.stage_bf16_rows(Q), fused_knn.stage_bf16_rows(X),
+        m, k, 1024, all_pairs=all_pairs, slices=slices)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("slices", [None, 1, 3, 7])
+@pytest.mark.parametrize("all_pairs", [True, False])
+def test_compress_sweep_equals_plain_at_every_split(cuda_device, all_pairs, slices):
+    """K2[c] (the bf16 wgmma tile) on small integers, bit for bit, at the
+    plan's corpus split and at forced ones; one launch a call."""
+    Q, X, m = _compress_sweep_operands(cuda_device, all_pairs)
+    before = fused_knn.LAUNCHES["fused_knn_sweep[compress]"]
+    gd, gi = _sweep_compress(Q, X, m, 40, slices, all_pairs)
+    torch.cuda.synchronize()
+    wd, wi = fused_knn.fused_knn_sweep_reference(Q, X, m, 40, 128, 1024,
+                                                 all_pairs=all_pairs, compress=True)
+    assert fused_knn.LAUNCHES["fused_knn_sweep[compress]"] == before + 1
+    assert torch.equal(gi, wi)
+    _same(gd, wd)
+    if not all_pairs:
+        assert bool(torch.isnan(gd[3]).all()) and bool((gi[3] == -1).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("slices", [1, 3])
+def test_compress_sweep_ov600_equals_plain(cuda_device, slices):
+    """ov = 600: the lists live in the output (and scratch) rows."""
+    Q, X, m = _compress_sweep_operands(cuda_device, True)
+    gd, gi = _sweep_compress(Q, X, m, 600, slices)
+    torch.cuda.synchronize()
+    wd, wi = fused_knn.fused_knn_sweep_reference(Q, X, m, 600, 128, 1024, compress=True)
+    assert torch.equal(gi, wi)
+    _same(gd, wd)
+
+
+@pytest.mark.cuda
+def test_compress_sweep_is_split_invariant_on_mnist_shape(cuda_device):
+    """MNIST-shaped 8192 x 784, centered: the output at every split equals
+    the plan's bit for bit (a key's bits do not depend on its slice)."""
+    from mpi_knn_tpu_torch.data.synthetic import make_mnist_like
+
+    X, _ = make_mnist_like(8192)
+    X = torch.from_numpy(X - X.astype(np.float64).mean(0)).float().to(cuda_device)
+    want = _sweep_compress(X, X, 8192, 40, None)
+    for slices in (1, 2, 5, 16, 32):
+        got = _sweep_compress(X, X, 8192, 40, slices)
+        torch.cuda.synchronize()
+        assert torch.equal(got[1], want[1]), slices
+        _same(got[0], want[0])
+
+
+@pytest.mark.cuda
+def test_compress_sweep_serving_batch_on_a_staged_corpus(cuda_device):
+    """A 1024-row query batch against a corpus staged once (the serving
+    call): the plan splits the corpus, one query prologue and one kernel
+    launch, bit for bit the plain version's."""
+    rng = np.random.default_rng(6)
+    C = torch.from_numpy((rng.integers(0, 8, (12288, 64)) * 0.25).astype(np.float32))
+    C[12000:] = 0.0
+    Q = torch.from_numpy((rng.integers(0, 8, (1024, 64)) * 0.25).astype(np.float32))
+    C, Q = C.to(cuda_device), Q.to(cuda_device)
+    staged = fused_knn.stage_corpus(C, compress=True)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    assert fused_knn.compress_sweep_plan(1024, 12000, sms)["slices"] > 1
+    fused_knn.reset_launch_counts()
+    gd, gi = fused_knn.fused_knn_sweep(Q, C, 12000, 40, 1024, 2048, all_pairs=False,
+                                       compress=True, staged_corpus=staged)
+    torch.cuda.synchronize()
+    assert fused_knn.LAUNCHES["fused_knn_sweep[compress]"] == 1
+    assert fused_knn.LAUNCHES["stage_bf16"] == 1
+    wd, wi = fused_knn.fused_knn_sweep_reference(Q, C, 12000, 40, 1024, 2048,
+                                                 all_pairs=False, compress=True)
+    assert torch.equal(gi, wi)
+    _same(gd, wd)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("slices", [1, 3])
+def test_compress_sweep_tile_products_equal_the_product(cuda_device, slices):
+    """K2[c]'s bf16 wgmma tile's raw products of the staged copies: exact on
+    small integers, so equal to the f32 product of the copies."""
+    rng = np.random.default_rng(8)
+    q = torch.from_numpy((rng.integers(0, 8, (300, 70)) * 0.25).astype(np.float32))
+    c = torch.from_numpy((rng.integers(0, 8, (700, 70)) * 0.25).astype(np.float32))
+    sq = fused_knn.stage_bf16_rows(q.to(cuda_device))
+    sc = fused_knn.stage_bf16_rows(c.to(cuda_device))
+    got = fused_knn.bf16_tile_dots(sq, sc, slices=slices)
+    torch.cuda.synchronize()
+    assert torch.equal(got, sq[0].float() @ sc[0].float().T)
+
+
 @pytest.mark.cuda
 def test_compress_wrappers_count_stage_launches(cuda_device):
     """Each compress call stages its two row sets once (two prologue
