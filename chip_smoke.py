@@ -87,9 +87,29 @@ is not 0:
    the host's ms a batch split into centering and padding and the rest
    (launches), the event span a batch, and the card's busy share (the
    device work alone of each batch's bucket over the wall);
-6. kernels: one line with every kernel mode's launches, error, times and
+6. approx_kernel (run right after the build): the bin-minimum kernel that
+   replaces the TPU's ``lax.approx_min_k`` against its plain version, bit
+   for bit in values and positions, at the main path's shapes (the serial
+   1024x2048 tile with k 10 and 4k = 40 raw, the stream step's 1024x2176,
+   the pallas tiles' 60416x384 merge), k = 1, planted ties and +inf
+   padding; each timed beside its plain version, torch.topk and its bound;
+7. run_cli (``run_cli_phase``): the C reference's own run through
+   ``cli.main``: the 60000x784 corpus as an uncompressed .mat (and a small
+   compressed one), loaded equal to what was written (the reader that ran
+   printed); pallas exact (ids bitwise those of all_knn on the array,
+   matches equal); --svd 64 (top 64 eigenvalues within 1e-4 relative of an
+   f64 eigh, recall >= 0.999 against serial); exact serial twolevel, then
+   approx, approx-rerank and bf16 on serial twolevel, serial stream and
+   pallas tiles with --recall-vs-serial (approx >= its recall_target 0.95,
+   approx-rerank >= 0.999 but on the stream schedule, over every row,
+   >= STREAM_RERANK_GATE, bf16 >= 0.999; the approx kernel launched once
+   per tile on serial, once on pallas tiles); query mode at SIFT1M's shape
+   (1000000x128 corpus, 10000 queries, both .fvecs) through pallas tiles,
+   its saved ids equal to all_knn's;
+8. kernels: one line with every kernel mode's launches, error, times and
    bound, the prologues (`stage_tf32_split`, `stage_tf32[wire]`,
-   `stage_tf32_split[ring]`, `stage_bf16`, `stage_bf16[wire]`) among them.
+   `stage_tf32_split[ring]`, `stage_bf16`, `stage_bf16[wire]`) and the
+   approx kernel among them.
 
 Every kernel runs on the tensor cores. The exact K1 and K2 run wgmma: three
 TF32 passes of hi/lo planes that their prologue `stage_tf32_split` writes
@@ -145,6 +165,7 @@ the package beside it, the script exits non-zero and prints no result.
 """
 
 import json
+import os
 import re
 import shutil
 import statistics
@@ -174,6 +195,8 @@ SAMPLE_ROWS = 4096  # rows whose ids are judged in f64 at the largest shapes
 
 def source_of(kernel: str) -> str:
     """The CUDA source of a kernel mode, under mpi_knn_tpu_torch/csrc/."""
+    if kernel == "approx_min_k":
+        return "approx_topk.cu"
     if kernel.startswith("fused_knn") or kernel in ("stage_tf32_split", "stage_bf16"):
         return "fused_knn.cu"
     if kernel.startswith(("fused_block_merge", "stage")) and not kernel.endswith("[ring]"):
@@ -245,9 +268,49 @@ def launch_device_ms(fn, reps: int, kernel: str) -> float:
     evs = [ev for ev in prof.key_averages() if kernel in ev.key]
     total = sum(getattr(ev, "device_time_total", 0) for ev in evs)
     count = sum(ev.count for ev in evs)
-    if total <= 0 or count == 0:
-        raise AssertionError(f"the profiler saw no device time for {kernel}")
-    return total / 1e3 / count
+    if total > 0 and count > 0:
+        return total / 1e3 / count
+    # the profiler can miss a session's kernels: then the host clock between
+    # synchronizations of every card, which the wrapper's own synchronization
+    # keeps close to the launch
+    sync_all()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    sync_all()
+    ms = 1e3 * (time.perf_counter() - t0) / reps
+    emit({"phase": "profiler_missed", "kernel": kernel, "host_clock_ms": ms})
+    return ms
+
+
+SPIN_CYCLES = 100_000_000  # ~50 ms of the card's clock at 1.98 GHz
+
+
+def queued_ms(fn, reps: int) -> float:
+    """Mean device milliseconds of ``fn()`` over ``reps`` calls, by CUDA
+    events, the calls queued behind a spin kernel so that the host's time
+    to issue them stays out: for calls that do not synchronize and take
+    longer on the host than on the card. Raises if the host took longer to
+    issue them than the spin lasted."""
+    import torch
+
+    spun = torch.cuda.Event(enable_timing=True)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    spun.record()
+    torch.cuda._sleep(SPIN_CYCLES)
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    end.record()
+    issue_ms = 1e3 * (time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    if issue_ms >= spun.elapsed_time(start):
+        raise AssertionError(f"issuing {reps} calls took {issue_ms:.3f} ms, "
+                             "longer than the spin ahead of them")
+    return start.elapsed_time(end) / reps
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -276,18 +339,29 @@ def centered(corpus: np.ndarray, queries=None):
 
 
 def reset_counts():
-    from mpi_knn_tpu_torch.ops import fused_knn, fused_ring, fused_rotation
+    from mpi_knn_tpu_torch.ops import (
+        approx_topk,
+        fused_knn,
+        fused_ring,
+        fused_rotation,
+    )
 
     fused_knn.reset_launch_counts()
     fused_ring.reset_launch_counts()
     fused_rotation.reset_launch_counts()
+    approx_topk.reset_launch_counts()
 
 
 def read_counts() -> dict:
-    from mpi_knn_tpu_torch.ops import fused_knn, fused_ring, fused_rotation
+    from mpi_knn_tpu_torch.ops import (
+        approx_topk,
+        fused_knn,
+        fused_ring,
+        fused_rotation,
+    )
 
     return {**fused_knn.LAUNCHES, **fused_ring.LAUNCHES,
-            **fused_rotation.LAUNCHES}
+            **fused_rotation.LAUNCHES, **approx_topk.LAUNCHES}
 
 
 def sync_all():
@@ -855,6 +929,227 @@ def serve_phase(device, X) -> dict:
     return max_err
 
 
+# the approximate top-k kernel's shapes: (case, rows, columns, k, aggregate);
+# the serial twolevel tile (approx: k, approx-rerank: 4k raw), the stream
+# step's carry + tile padded to 2176, the pallas tiles' cross-tile merge of
+# 30 x 10 survivors padded to 384, and the edge rows
+APPROX_CASES = (("tile_k10", 1024, 2048, K, True),
+                ("tile_rerank", 1024, 2048, OV, False),
+                ("stream_k10", 1024, 2176, K, True),
+                ("stream_rerank", 1024, 2176, OV, False),
+                ("merge_k10", 60416, 384, K, True),
+                ("k1", 1024, 2048, 1, True),
+                ("planted_ties", 1024, 2048, K, True),
+                ("inf_padding", 1024, 2176, K, True))
+RECALL_TARGET = 0.95  # the config's default, which the run_cli phase uses
+# serial stream approx-rerank, recall over all 60000 rows: the card read
+# 0.99816-0.99842 on seeds 0-4 of make_mnist_like (0.99840 on seed 0, the
+# smoke's; tools/approx_recall.py), its recall_target is 0.95; a path that
+# lost twice the neighbours would read about 0.9968
+STREAM_RERANK_GATE = 0.997
+
+
+def approx_kernel_phase(device) -> dict:
+    """The bin-minimum kernel against its plain version on the card, bit
+    for bit (values and positions) at every case of APPROX_CASES; each timed
+    (device times of the kernel, of the plain version and of torch.topk on
+    the same rows, the exact function the method approximates, means of 20
+    calls queued behind a spin; the wrapper's call by CUDA events alone,
+    mean of 3) beside its bound
+    (the rows read once and the (value, position) pairs written once at
+    the HBM rate; one compare a column at the FP32 rate). Returns
+    {case: entry}."""
+    import torch
+
+    from mpi_knn_tpu_torch.ops import approx_topk
+
+    rng = np.random.default_rng(21)
+    out = {}
+    for case, rows, n, k, aggregate in APPROX_CASES:
+        if case == "planted_ties":  # a few values, each column tied many times
+            x = rng.integers(0, 6, (rows, n)).astype(np.float32)
+        else:  # squared distances
+            x = rng.standard_normal((rows, n)).astype(np.float32) ** 2
+        if case == "inf_padding":  # the stream step's lane padding
+            x[:, 2058:] = np.inf
+            x[7] = np.inf
+        d = torch.from_numpy(x).to(device)
+        L = approx_topk.reduction_width(n, k, RECALL_TARGET)
+        width = k if aggregate else L
+        call = lambda: approx_topk.approx_min_k(d, k, RECALL_TARGET, aggregate)  # noqa: E731
+        plain = lambda: approx_topk.approx_min_k_reference(  # noqa: E731
+            d, k, RECALL_TARGET, aggregate)
+        (gv, gp), (wv, wp) = call(), plain()
+        torch.cuda.synchronize()
+        same = torch.equal(gp, wp) and torch.equal(gv.view(torch.int32),
+                                                   wv.view(torch.int32))
+        topk = lambda: torch.topk(d, k, dim=-1, largest=False)  # noqa: E731
+        topk()
+        t_bytes = (4.0 * rows * n + 12.0 * rows * width) / PEAK_BYTES_PER_S
+        t_ops = float(rows * n) / PEAK_FP32_FLOPS
+        entry = {"rows": rows, "n": n, "k": k, "aggregate_to_topk": aggregate,
+                 "L": L, "out": width, "bitwise_equal": same,
+                 "max_abs_err": float((gv - wv).abs().nan_to_num(0.0).max()),
+                 "ms": queued_ms(call, 20), "call_ms": cuda_ms(call, reps=3),
+                 "plain_ms": queued_ms(plain, 20), "topk_ms": queued_ms(topk, 20),
+                 "bound_ms": 1e3 * max(t_bytes, t_ops),
+                 "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+        emit({"phase": "approx_kernel", "case": case, **entry})
+        if not same:
+            raise AssertionError(f"approx_min_k/{case}: differs from its plain version")
+        out[case] = entry
+        del d, gv, gp, wv, wp
+    return out
+
+
+def run_cli_phase(device, X, y) -> dict:
+    """The C reference's own run through ``cli.main`` in process: the
+    60000x784 corpus written as an uncompressed MAT v5 file (train_X
+    float64, train_labels 1-based; a small compressed one covers the zlib
+    path), then the exact pallas run (its ids bitwise those of all_knn on
+    the array in memory, its matches equal), --svd 64 (eigenvalues against
+    an f64 numpy eigh of the f64 Gram; recall against serial), the exact
+    serial twolevel run, the three approximate methods on serial twolevel,
+    serial stream and pallas tiles
+    with --recall-vs-serial (the bin-minimum kernel's launches equal to the
+    tiles its path reduces), and query mode at SIFT1M's shape from .fvecs
+    files (its saved ids equal all_knn's). Each run with the launch counts
+    set to 0 just before it and read just after. Returns the approximate
+    kernel's launches on its main path (serial twolevel approx)."""
+    import torch
+
+    from mpi_knn_tpu_torch import all_knn, cli, knn_classify
+    from mpi_knn_tpu_torch.data import matfile, vecs
+    from mpi_knn_tpu_torch.data.svd import gram_eigh
+    from mpi_knn_tpu_torch.data.synthetic import make_sift_like
+
+    tmp = tempfile.mkdtemp(prefix="run_cli_")
+    try:
+        mat, small = f"{tmp}/mnist_train.mat", f"{tmp}/small.mat"
+        t0 = time.perf_counter()
+        matfile.write_mat(mat, {"train_X": X.astype(np.float64),
+                                "train_labels": (y + 1).astype(np.float64)},
+                          compress=False)
+        write_s = time.perf_counter() - t0
+        matfile.write_mat(small, {"train_X": X[:2000].astype(np.float64),
+                                  "train_labels": (y[:2000] + 1).astype(np.float64)})
+        t0 = time.perf_counter()
+        Xl, yl = matfile.load_corpus_mat(mat)
+        load_s = time.perf_counter() - t0
+        Xs, ys = matfile.load_corpus_mat(small)
+        same = (np.array_equal(Xl, X) and np.array_equal(yl, y)
+                and np.array_equal(Xs, X[:2000]) and np.array_equal(ys, y[:2000]))
+        reader = matfile.reader_name()
+        emit({"phase": "run_cli", "step": "load", "file_bytes": os.path.getsize(mat),
+              "write_s": write_s, "load_s": load_s, "mat_reader": reader,
+              "loaded_equals_written": same})
+        if not same:
+            raise AssertionError("the loaded .mat differs from the written arrays")
+        del Xl, yl, Xs, ys
+
+        def run(label, argv):
+            report, nn = f"{tmp}/{len(os.listdir(tmp))}.json", f"{tmp}/nn.npz"
+            reset_counts()
+            t0 = time.perf_counter()
+            rc = cli.main([*argv, "--k", str(K), "-q", "--report", report,
+                           "--save-neighbors", nn])
+            sync_all()
+            wall = time.perf_counter() - t0
+            counts = {k: v for k, v in read_counts().items() if v}
+            if rc != 0:
+                raise AssertionError(f"run_cli/{label}: exit {rc}")
+            with open(report) as f:
+                doc = json.load(f)
+            saved = dict(np.load(nn))
+            emit({"phase": "run_cli", "step": label, "argv": argv, "wall_s": wall,
+                  "phase_seconds": doc["phase_seconds"], "shape": doc["shape"],
+                  "matches": doc["matches"], "recall_vs_serial": doc["recall_vs_baseline"],
+                  "recall_sample": doc["notes"].get("recall_sample"),
+                  "mat_reader": doc["notes"].get("mat_reader"), "launches": counts,
+                  "approx_min_k_launches": counts.get("approx_min_k", 0)})
+            return doc, saved, counts
+
+        doc, saved, _ = run("mat/pallas/exact", ["--data", mat, "--loo", "--backend", "pallas"])
+        want = all_knn(X, k=K, backend="pallas", device=device)
+        want_matches = int(knn_classify(want, y).matches(y))
+        same = np.array_equal(saved["ids"], want.ids.cpu().numpy())
+        emit({"phase": "run_cli", "step": "mat_vs_all_knn", "ids_bitwise_equal": same,
+              "matches": doc["matches"], "all_knn_matches": want_matches})
+        if not same or doc["matches"] != want_matches:
+            raise AssertionError("the .mat run differs from all_knn on the array in memory")
+        del want
+
+        doc, _, _ = run("mat/svd64/pallas/exact", ["--data", mat, "--loo", "--svd", "64",
+                                                   "--backend", "pallas", "--recall-vs-serial"])
+        vals, _, _ = gram_eigh(torch.from_numpy(X).to(device))
+        Xc = X.astype(np.float64) - X.astype(np.float64).mean(0)
+        want_vals = np.linalg.eigvalsh(Xc.T @ Xc)[::-1][:64]
+        rel = float(np.max(np.abs(vals[:64].cpu().numpy() - want_vals) / want_vals))
+        emit({"phase": "run_cli", "step": "svd_eigenvalues", "top": 64,
+              "max_rel_err_vs_f64": rel, "largest": float(want_vals[0]),
+              "smallest_kept": float(want_vals[-1])})
+        if rel > 1e-4 or doc["recall_vs_baseline"] < RECALL_GATE:
+            raise AssertionError(f"svd: eigenvalue error {rel}, recall {doc['recall_vs_baseline']}")
+        del Xc, vals
+
+        # the approximate kernel launches once per (query tile, corpus tile)
+        # on serial (59 x 30 at 1024 x 2048 tiles), and on pallas tiles once
+        # per call (the cross-tile merge of 30 x k survivors), where the
+        # method reduces: over k columns (approx), over 4k (approx-rerank);
+        # bf16 never
+        tiles = -(-M_FULL // 1024) * -(-M_FULL // 2048)
+        merged = -(-M_FULL // C_TILE) * K
+        # recall gates: "approx" at its recall_target; "approx-rerank" at
+        # 0.999 where the reduction runs once over a tile's columns, and at
+        # STREAM_RERANK_GATE over every row on the stream schedule, which
+        # reduces carry || tile at each of its 30 steps, so a kept
+        # neighbour meets a bin-mate from each new tile; "bf16" at 0.999
+        gates = {"approx": RECALL_TARGET, "approx-rerank": RECALL_GATE, "bf16": RECALL_GATE}
+        # the exact serial run beside them, for the knn phase's seconds
+        run("serial/twolevel/exact", ["--data", mat, "--loo", "--backend", "serial"])
+        launches = None
+        for method, method_gate in gates.items():
+            asked = 4 * K if method == "approx-rerank" else K
+            for path, flags, expect in (
+                    ("serial/twolevel", ["--backend", "serial"], tiles),
+                    ("serial/stream", ["--backend", "serial", "--merge-schedule", "stream"], tiles),
+                    ("pallas/tiles", ["--backend", "pallas"], int(merged > asked))):
+                stream_rerank = (path, method) == ("serial/stream", "approx-rerank")
+                sample = ["--recall-sample", "0"] if stream_rerank else []
+                doc, _, counts = run(f"{path}/{method}", ["--data", mat, "--loo", *flags,
+                                                          "--topk-method", method,
+                                                          "--recall-vs-serial", *sample])
+                got = counts.get("approx_min_k", 0)
+                want_n = 0 if method == "bf16" else expect
+                gate = STREAM_RERANK_GATE if stream_rerank else method_gate
+                if doc["recall_vs_baseline"] < gate or got != want_n:
+                    raise AssertionError(
+                        f"{path}/{method}: recall {doc['recall_vs_baseline']} (gate {gate}), "
+                        f"approx_min_k launches {got} (expected {want_n})")
+                if (path, method) == ("serial/twolevel", "approx"):
+                    launches = got
+
+        base, qf = f"{tmp}/sift_base.fvecs", f"{tmp}/sift_query.fvecs"
+        t0 = time.perf_counter()
+        B, Q = make_sift_like(1_000_000, seed=0), make_sift_like(10_000, seed=1)
+        vecs.write_vecs(base, B)
+        vecs.write_vecs(qf, Q)
+        emit({"phase": "run_cli", "step": "sift_files", "base_bytes": os.path.getsize(base),
+              "make_and_write_s": time.perf_counter() - t0})
+        doc, saved, _ = run("sift1m/query/pallas", ["--data", base, "--queries", qf,
+                                                    "--backend", "pallas"])
+        want = all_knn(B, queries=Q, k=K, backend="pallas", device=device)
+        same = np.array_equal(saved["ids"], want.ids.cpu().numpy())
+        emit({"phase": "run_cli", "step": "sift_vs_all_knn", "queries": len(Q),
+              "corpus": list(B.shape), "ids_bitwise_equal": same,
+              "vote": "predictions" in saved})
+        if not same or doc["shape"] != [1_000_000, 128] or "predictions" in saved:
+            raise AssertionError("the SIFT query run differs from all_knn")
+        return launches
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     import torch
 
@@ -977,6 +1272,9 @@ def main() -> int:
               3 * needed / (rates["tf32_wgmma_m64n128k8"] * 1e12) * 1e3,
           "tf32x3_floor_ms_main_shape": 3 * needed / (rates["tf32_m16n8k8"] * 1e12) * 1e3,
           "bf16x1_floor_ms_main_shape": needed / (rates["bf16_m16n8k16"] * 1e12) * 1e3})
+
+    # ---- the partial top-k reduction (lax.approx_min_k) against its plain
+    approx = approx_kernel_phase(device)
 
     # ---- the fused kNN kernels against their plain versions -------------
     knn_modes = {  # mode name -> (wrapper, plain version, compress)
@@ -1972,6 +2270,10 @@ def main() -> int:
     for name, err in serve_phase(device, X).items():
         max_err[name] = max(max_err[name], err)
 
+    # ---- the reference's own data path and run CLI, at full width ---------
+    launches["approx_min_k"] = run_cli_phase(device, X, y)
+    max_err["approx_min_k"] = max(e["max_abs_err"] for e in approx.values())
+
     replaces = {
         "fused_knn_tiles": "mpi_knn_tpu/ops/pallas_knn.py:249",
         "fused_knn_sweep": "mpi_knn_tpu/ops/pallas_knn.py:330",
@@ -1988,6 +2290,8 @@ def main() -> int:
         "stage_tf32_split[ring]": "mpi_knn_tpu/ops/pallas_ring.py:553",
         "stage_bf16": "mpi_knn_tpu/ops/pallas_knn.py:249",
         "stage_bf16[wire]": "mpi_knn_tpu/ops/pallas_ring.py:363",
+        # not a Pallas site: the TPU partial reduction XLA lowers
+        "approx_min_k": "mpi_knn_tpu/ops/topk.py:156,176 (lax.approx_min_k)",
     }
     library_of = {
         "fused_knn_tiles": library[("serial", "exact")],
@@ -2005,12 +2309,16 @@ def main() -> int:
         "stage_tf32_split[ring]": None,  # no one PyTorch call writes the planes and norms
         "stage_bf16": None,  # no one PyTorch call writes the copy and the norms
         "stage_bf16[wire]": None,
+        # torch.topk computes the exact function the method approximates
+        "approx_min_k": approx["tile_k10"]["topk_ms"],
     }
     times = {**timing, **{name: ring_timing[(name, "p1_mnist60k")]
                           for name in merge_modes},
              "fused_round_dma": transport_timing[("fused_round_dma", "p4_round")],
              "fused_rotation_grid":
-                 transport_timing[("fused_rotation_grid", "p4_rotation")]}
+                 transport_timing[("fused_rotation_grid", "p4_rotation")],
+             # the serial twolevel tile, where the approx main path launches it
+             "approx_min_k": approx["tile_k10"]}
     emit({"kernels": [
         {"name": name, "route": "cuda",
          "source": "mpi_knn_tpu_torch/csrc/" + source_of(name),

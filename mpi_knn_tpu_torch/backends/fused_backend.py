@@ -114,7 +114,7 @@ def _fused_all_knn(queries, corpus, cfg, q_tile, c_tile, m_corpus,
                                  **common)
     # cross-tile merge: k survivors per corpus tile -> final k
     return smallest_k(outd, outi, cfg.k, method=cfg.topk_method,
-                      block=cfg.topk_block)
+                      recall_target=cfg.recall_target, block=cfg.topk_block)
 
 
 def all_knn_pallas(corpus, queries, query_ids, cfg: KNNConfig, device):

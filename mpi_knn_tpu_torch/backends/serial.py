@@ -71,7 +71,8 @@ def local_tile_topk(q_x, q_ids, q_sq, blk, blk_ids, blk_sq, cfg, out_dtype):
         return ld.to(out_dtype), li
     d = masked_dist_tile(q_x, q_ids, q_sq, blk, blk_ids, blk_sq, cfg)
     return smallest_k(d.to(out_dtype), blk_ids, cfg.k,
-                      method=cfg.topk_method, block=cfg.topk_block)
+                      method=cfg.topk_method,
+                      recall_target=cfg.recall_target, block=cfg.topk_block)
 
 
 def knn_tile_step(q_x, q_ids, q_sq, blk, blk_ids, blk_sq, carry_d, carry_i,
@@ -88,7 +89,15 @@ def knn_tile_step(q_x, q_ids, q_sq, blk, blk_ids, blk_sq, carry_d, carry_i,
         all_d = torch.cat([carry_d, d.to(carry_d.dtype)], dim=-1)
         all_i = torch.cat([carry_i, blk_ids[None, :].expand(d.shape)], dim=-1)
     return smallest_k(all_d, all_i, cfg.k, method=cfg.topk_method,
-                      block=cfg.topk_block)
+                      recall_target=cfg.recall_target, block=cfg.topk_block)
+
+
+def cascade_method(method: str) -> str:
+    """The twolevel cascade's method: survivors of survivors merge exactly
+    ("block" is exact) or recall decays multiplicatively, so "approx",
+    "approx-rerank" and "bf16" run it as "exact", as the JAX package
+    does."""
+    return method if method in ("exact", "block") else "exact"
 
 
 def merge_tiles_into_carry(q_x, q_ids, q_sq, tiles, tile_ids, tile_sqs,
@@ -105,7 +114,7 @@ def merge_tiles_into_carry(q_x, q_ids, q_sq, tiles, tile_ids, tile_sqs,
             torch.cat([carry_d] + [p[0] for p in parts], dim=-1),
             torch.cat([carry_i] + [p[1] for p in parts], dim=-1),
             cfg.k,
-            method=cfg.topk_method,
+            method=cascade_method(cfg.topk_method),
             block=cfg.topk_block,
         )
     for blk, ids, sq in zip(tiles, tile_ids, tile_sqs):

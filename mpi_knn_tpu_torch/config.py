@@ -34,8 +34,9 @@ KMEANS_INITS = ("kmeans++", "random")
 DTYPES = ("float32", "float64", "bfloat16", "int8", "int4")
 
 # what the port runs today; anything else in the domains above is refused
-PORTED_TOPK_METHODS = ("exact", "block")
 PORTED_MATMUL_PRECISIONS = (None, "highest")
+# the partial reduction (ops/approx_topk.py) takes float32 distances
+APPROX_METHODS = ("approx", "approx-rerank")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,10 +48,11 @@ class KNNConfig:
     in {float32, float64, bfloat16}, matmul_precision in {None, "highest"}
     (both mean f32-accurate products: torch.matmul in full f32, and on the
     card the kernels' three-pass TF32 tile), precision_policy, center,
-    exclude_self, exclude_zero, zero_eps, topk_method in {exact, block},
-    topk_block, merge_schedule, tie_break, num_classes, mesh_axis,
-    num_devices, ring_transfer_dtype, ring_schedule, ring_fusion,
-    ring_fused_rotation, pallas_variant, max_tile_elems.
+    exclude_self, exclude_zero, zero_eps, topk_method (all five; the
+    approximate ones on float32 distances), recall_target, topk_block,
+    merge_schedule, tie_break, num_classes, mesh_axis, num_devices,
+    ring_transfer_dtype, ring_schedule, ring_fusion, ring_fused_rotation,
+    pallas_variant, max_tile_elems.
     """
 
     k: int = 30
@@ -247,8 +249,9 @@ class KNNConfig:
 
     def _refuse_unported(self):
         refused = []
-        if self.topk_method not in PORTED_TOPK_METHODS:
-            refused.append(f"topk_method={self.topk_method!r}")
+        if self.topk_method in APPROX_METHODS and self.dtype == "float64":
+            refused.append(f"topk_method={self.topk_method!r} with "
+                           f"dtype={self.dtype!r}")
         if self.matmul_precision not in PORTED_MATMUL_PRECISIONS:
             refused.append(f"matmul_precision={self.matmul_precision!r}")
         if self.partitions is not None:

@@ -1,7 +1,7 @@
-"""MNIST corpus loading: raw IDX files, else the deterministic synthetic
-surrogate. The reference's ``.mat`` layout needs the MAT reader, which is
-not ported yet: a ``.mat`` path is refused rather than skipped. Labels are
-returned 0-based.
+"""MNIST corpus loading: the C reference's ``mnist_train.mat`` layout
+(``train_X``, 1-based ``train_labels``) through ``data/matfile.py``, raw
+IDX files, else the deterministic synthetic surrogate. Labels are returned
+0-based.
 """
 
 from __future__ import annotations
@@ -14,6 +14,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 
+from mpi_knn_tpu_torch.data.matfile import load_corpus_mat
 from mpi_knn_tpu_torch.data.synthetic import make_mnist_like
 
 _SEARCH_PATHS = [
@@ -53,23 +54,25 @@ def _first(directory: Path, names) -> Optional[Path]:
 def load_mnist(path: Optional[str] = None, synthetic_ok: bool = True,
                m: int = 60000) -> Tuple[np.ndarray, np.ndarray, str]:
     """Returns (X (m, 784) float32, labels (m,) int32 0-based, source),
-    source in {"idx", "synthetic"}. ``path`` (or ``$TKNN_MNIST``) names a
-    directory holding the IDX files."""
+    source in {"mat", "idx", "synthetic"}. ``path`` (or ``$TKNN_MNIST``)
+    names a ``.mat`` file or a directory holding the IDX files; ``m`` cuts
+    the rows."""
     candidates = [path, os.environ.get("TKNN_MNIST"), *_SEARCH_PATHS]
     for cand in filter(None, candidates):
         p = Path(cand)
         if p.suffix == ".mat" and p.exists():
-            raise ValueError(
-                f"{p}: reading the .mat layout is not yet ported to "
-                "mpi_knn_tpu_torch (use the IDX files or the synthetic corpus)"
-            )
+            X, labels = load_corpus_mat(p, limit=m)
+            if labels is None:
+                raise ValueError(f"{p}: expected a train_labels variable")
+            return X, labels, "mat"
         if p.is_dir():
             img, lab = _first(p, _IMAGES), _first(p, _LABELS)
             if img and lab:
                 return _load_idx_images(img)[:m], _load_idx_labels(lab)[:m], "idx"
     if not synthetic_ok:
         raise FileNotFoundError(
-            "MNIST IDX files not found; pass path= or set $TKNN_MNIST"
+            "MNIST not found (no .mat file or IDX directory); pass path= "
+            "or set $TKNN_MNIST"
         )
     X, y = make_mnist_like(m=m)
     return X, y, "synthetic"

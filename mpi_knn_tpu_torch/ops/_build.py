@@ -25,7 +25,7 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
-SOURCES = ("fused_knn", "fused_ring", "fused_ring_dma")
+SOURCES = ("fused_knn", "fused_ring", "fused_ring_dma", "approx_topk")
 
 
 def _nvcc() -> str:

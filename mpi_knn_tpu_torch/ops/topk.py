@@ -6,15 +6,21 @@ in the JAX package (``torch.topk`` makes no promise about ties). Every
 result is ordered by (distance, column), and +inf slots carry
 ``INVALID_ID``.
 
-Methods: "exact" (one sort) and "block" (exact two-level reduction through
-per-block sorts). The JAX package's "approx", "approx-rerank" and "bf16"
-methods are refused by ``config.KNNConfig`` (not yet ported).
+Methods, as in the JAX package: "exact" (one sort); "block" (exact
+two-level reduction through per-block sorts); "bf16" (4k preselected by a
+stable sort of bf16-rounded keys, then an exact f32 finish: near-exact,
+and equal bit for bit to the JAX package's); "approx" (the TPU's partial
+reduction ``lax.approx_min_k`` asked for k directly) and "approx-rerank"
+(the same reduction preselecting 4k winners for an exact finish), both
+through ``ops/approx_topk.py``, whose Hopper kernel is the bin minimum.
 """
 
 from __future__ import annotations
 
 import torch
 
+from mpi_knn_tpu_torch.config import TOPK_METHODS
+from mpi_knn_tpu_torch.ops.approx_topk import approx_min_k
 from mpi_knn_tpu_torch.types import INVALID_ID
 
 _INF = float("inf")
@@ -67,22 +73,37 @@ def _fold_topk(dists, ids, k: int, width: int):
     return vals.reshape(q, nch * k), out_ids.reshape(q, nch * k)
 
 
-def preselect_smallest(dists, n: int):
+def _pad_lanes(dists, ids, multiple: int = 128):
+    """Pad the columns to a multiple of 128 with (+inf, INVALID_ID) before
+    every approximate reduction, as the JAX package does (its TPU op wedged
+    on other widths); the sentinels never enter a k-smallest result. The
+    reduction width ``approx_min_k`` picks depends on the padded width."""
+    return _pad_cols(dists, ids, -(-dists.shape[-1] // multiple) * multiple)
+
+
+def preselect_smallest(dists, n: int, half_width: bool = False):
     """Column positions of each row's ``n`` smallest entries: the positions
     ``lax.top_k(-dists, n)`` gives in the JAX package — ascending, ties to
     the leftmost column, and once the finite entries run out the +inf
-    columns in index order (a stable sort hands them out that way)."""
+    columns in index order (a stable sort hands them out that way). With
+    ``half_width`` the f32 keys are rounded to bf16 first (monotone in the
+    values they round from); the positions index the original columns."""
+    if half_width and dists.dtype == torch.float32:
+        dists = dists.to(torch.bfloat16)
     return torch.sort(dists, dim=-1, stable=True).indices[..., :n]
 
 
-def smallest_k(dists, ids, k: int, method: str = "exact", block: int = 128):
-    """Per-row k smallest entries of a (q, c) tile.
+def smallest_k(dists, ids, k: int, method: str = "exact",
+               recall_target: float = 0.95, block: int = 128):
+    """Per-row k smallest entries of a (q, c) tile, by ``method`` (see the
+    module's docstring; ``recall_target`` sizes the approximate methods'
+    reduction).
 
     ids: (c,) or (q, c) int32 global candidate ids. If k > c the result is
     padded with (+inf, -1). Returns (q, k) dists ascending, (q, k) ids.
     """
-    if method not in ("exact", "block"):
-        raise ValueError(f"topk_method={method!r}: not yet ported")
+    if method not in TOPK_METHODS:
+        raise ValueError(f"topk method must be one of {TOPK_METHODS}, got {method!r}")
     q, c = dists.shape
     if ids.ndim == 1:
         ids = ids[None, :].expand(q, c)
@@ -91,14 +112,34 @@ def smallest_k(dists, ids, k: int, method: str = "exact", block: int = 128):
         c = k
     if method == "block" and k <= block and c > block:
         dists, ids = _fold_topk(dists, ids, k, block)
-    vals, out_ids = _sorted_k(dists, ids, k)
+        c = dists.shape[-1]
+    if method == "approx-rerank" and c > 4 * k:
+        # the raw bin winners (aggregate off) go straight to the exact
+        # finish below: 4k asked, L returned
+        dists, ids = _pad_lanes(dists, ids)
+        dists, pos = approx_min_k(dists.contiguous(), 4 * k, recall_target,
+                                  aggregate_to_topk=False)
+        ids = torch.gather(ids, -1, pos)
+        c = dists.shape[-1]
+    if method == "bf16" and c > 4 * k and dists.dtype == torch.float32:
+        pos = preselect_smallest(dists, 4 * k, half_width=True)
+        dists = torch.gather(dists, -1, pos)
+        ids = torch.gather(ids, -1, pos)
+        c = 4 * k
+    if method == "approx" and c > k:
+        dists, ids = _pad_lanes(dists, ids)
+        vals, pos = approx_min_k(dists.contiguous(), k, recall_target)
+        out_ids = torch.gather(ids, -1, pos)
+    else:
+        vals, out_ids = _sorted_k(dists, ids, k)
     # slots that hold +inf are by definition invalid
     out_ids = torch.where(torch.isinf(vals), INVALID_ID, out_ids)
     return vals, out_ids
 
 
 def cascade_smallest_k(dists, ids, k: int, method: str = "exact",
-                       block: int = 128, max_width: int = 8192):
+                       recall_target: float = 0.95, block: int = 128,
+                       max_width: int = 8192):
     """``smallest_k`` for arbitrarily wide rows: fold by per-chunk top-k
     while wider than ``max_width``, then one narrow ``smallest_k``."""
     q, c = dists.shape
@@ -107,16 +148,18 @@ def cascade_smallest_k(dists, ids, k: int, method: str = "exact",
     fold_w = max(max_width, 2 * k)
     while dists.shape[-1] > fold_w:
         dists, ids = _fold_topk(dists, ids, k, fold_w)
-    return smallest_k(dists, ids, k, method=method, block=block)
+    return smallest_k(dists, ids, k, method=method,
+                      recall_target=recall_target, block=block)
 
 
 def merge_topk(carry_d, carry_i, new_d, new_i, method: str = "exact",
-               block: int = 128):
+               recall_target: float = 0.95, block: int = 128):
     """Merge two per-query top-k lists: top-k over the concatenation."""
     k = carry_d.shape[-1]
     d = torch.cat([carry_d, new_d], dim=-1)
     i = torch.cat([carry_i, new_i], dim=-1)
-    return smallest_k(d, i, k, method=method, block=block)
+    return smallest_k(d, i, k, method=method, recall_target=recall_target,
+                      block=block)
 
 
 def mask_tile(dists, cand_ids, query_ids=None, exclude_self: bool = True,

@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 import time
 
@@ -33,8 +34,8 @@ import numpy as np
 from mpi_knn_tpu_torch.config import (
     BACKENDS,
     METRICS,
-    PORTED_TOPK_METHODS,
     PRECISION_POLICIES,
+    TOPK_METHODS,
     KNNConfig,
 )
 from mpi_knn_tpu_torch.device import DEFAULT_DEVICE
@@ -60,14 +61,15 @@ def build_parser() -> argparse.ArgumentParser:
     )
     d = p.add_argument_group("data")
     d.add_argument("--data", default="mnist",
-                   help="corpus spec: 'mnist' (IDX files if found, else "
-                   "synthetic) or 'synthetic:MxDcC'")
+                   help="corpus spec, as the run command's --data: 'mnist', "
+                   "'digits', 'synthetic:MxDcC', 'sift:M', a .fvecs/.bvecs "
+                   "file or a .mat file")
     d.add_argument("--limit", type=int, default=None,
                    help="use the first N corpus rows only")
     q = p.add_mutually_exclusive_group()
     q.add_argument("--queries", default=None,
-                   help=".npy file of query points, streamed in --batch-row "
-                   "chunks")
+                   help=".npy/.mat/.fvecs/.bvecs file of query points, "
+                   "streamed in --batch-row chunks")
     q.add_argument("--synthetic", type=int, default=None, metavar="N",
                    help="serve N synthetic query rows (uniform over the "
                    "corpus's value range, corpus dim) instead of a file")
@@ -89,7 +91,7 @@ def build_parser() -> argparse.ArgumentParser:
     k.add_argument("--corpus-tile", type=int, default=2048)
     k.add_argument("--precision-policy", choices=list(PRECISION_POLICIES),
                    default="exact")
-    k.add_argument("--topk-method", choices=list(PORTED_TOPK_METHODS),
+    k.add_argument("--topk-method", choices=list(TOPK_METHODS),
                    default="exact")
     k.add_argument("--bucket", type=int, default=1024,
                    help="base row bucket: batches pad to bucket*2^j rows and "
@@ -130,7 +132,9 @@ def _load_query_stream(args, X):
             n = min(args.batch, args.synthetic - s)
             yield rng.uniform(lo, hi, size=(n, X.shape[1])).astype(np.float32)
         return
-    Q = np.load(args.queries)
+    from mpi_knn_tpu_torch.cli import load_queries
+
+    Q = load_queries(args.queries)
     if Q.ndim != 2 or Q.shape[1] != X.shape[1]:
         raise SystemExit(
             f"error: queries shape {Q.shape} does not match corpus dim "
@@ -151,10 +155,9 @@ def main(argv=None) -> int:
         print("error: provide a query stream (--queries FILE or "
               "--synthetic N)", file=sys.stderr)
         return 2
-    if args.queries is not None and not args.queries.endswith(".npy"):
-        print("error: --queries reads .npy files; the .mat and .fvecs "
-              "readers are not yet ported to mpi_knn_tpu_torch (see "
-              "ROADMAP.md)", file=sys.stderr)
+    if args.queries is not None and not os.path.isfile(args.queries):
+        print(f"error: --queries {args.queries!r}: no such file",
+              file=sys.stderr)
         return 2
     if args.batch < 1:
         print("error: --batch must be >= 1", file=sys.stderr)
@@ -177,7 +180,7 @@ def main(argv=None) -> int:
 
     setup_logging(quiet=args.quiet)
     device = resolve_device(args.device)
-    X, _, source = load_corpus(args.data)
+    X, _, source = load_corpus(args.data, limit=args.limit)
     if args.limit is not None:
         X = X[:args.limit]
     try:

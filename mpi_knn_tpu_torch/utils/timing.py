@@ -1,4 +1,5 @@
-"""Named wall-clock phases that wait for the card.
+"""Named wall-clock phases that wait for the card, and the ``--profile``
+trace.
 
 CUDA work is asynchronous: the host returns before the device finishes, so
 a phase that launched device work calls ``block_on`` before it ends, which
@@ -8,8 +9,9 @@ synchronises the device of every CUDA tensor it is given.
 from __future__ import annotations
 
 import contextlib
+import os
 import time
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -42,3 +44,22 @@ class PhaseTimer:
         """Wait for the device work producing ``tensors``."""
         for dev in {t.device for t in tensors if t.is_cuda}:
             torch.cuda.synchronize(dev)
+
+
+@contextlib.contextmanager
+def profile_trace(trace_dir: Optional[str], device=None):
+    """A torch.profiler trace of the block, written as a Chrome trace
+    (``trace.json``) into ``trace_dir`` when one is given; the card's
+    kernels are traced when ``device`` is a CUDA device."""
+    if not trace_dir:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if device is not None and torch.device(device).type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(trace_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield
+    prof.export_chrome_trace(os.path.join(trace_dir, "trace.json"))

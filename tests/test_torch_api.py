@@ -131,13 +131,14 @@ def test_lifted_settings_run_and_match_jax(setting):
 
 @pytest.mark.parametrize(
     "setting",
-    [dict(topk_method="approx"), dict(topk_method="approx-rerank"),
-     dict(topk_method="bf16"), dict(matmul_precision="default"),
+    [dict(topk_method="approx", dtype="float64"),
+     dict(topk_method="approx-rerank", dtype="float64"),
+     dict(partitions=4), dict(matmul_precision="default"),
      dict(matmul_precision="high"), dict(partitions=16),
      dict(partitions=64)],
 )
 def test_refused_settings_name_themselves(setting):
-    (name, value), = setting.items()
+    name = next(iter(setting))
     with pytest.raises(ValueError, match=f"{name}.*not yet ported"):
         KNNConfig(**setting)
     d = dataclasses.asdict(jax_pkg.KNNConfig(**setting))

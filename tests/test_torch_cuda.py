@@ -957,3 +957,86 @@ def test_serve_refuses_a_policy_whose_part_is_not_staged(cuda_device):
     want = all_knn(X, queries=Q, device=cuda_device, **{**kw, "k": 5})
     assert torch.equal(got.ids, want.ids.cpu())
     assert torch.equal(got.dists, want.dists.cpu())
+
+
+def _approx_case(name, device):
+    """(tensor, k, aggregate) of the approx kernel's shapes on the main
+    path, and its edge rows."""
+    from mpi_knn_tpu_torch.ops.approx_topk import approx_min_k  # noqa: F401
+
+    rng = np.random.default_rng(11)
+    shapes = {"tile_k10": (1024, 2048, 10, True),
+              "tile_rerank": (1024, 2048, 40, False),
+              "stream_k10": (1024, 2176, 10, True),
+              "stream_rerank": (1024, 2176, 40, False),
+              "merge_k10": (60416, 384, 10, True),
+              "k1": (512, 2048, 1, True)}
+    if name in shapes:
+        R, n, k, agg = shapes[name]
+        x = rng.standard_normal((R, n)).astype(np.float32)
+        return torch.from_numpy(x).to(device), k, agg
+    x = rng.integers(0, 4, (64, 2048)).astype(np.float32)  # planted ties
+    if name == "inf_padding":
+        x[:, 1500:] = np.inf
+        x[3] = np.inf
+    elif name == "zeros_nan":
+        x[1, ::3] = -0.0
+        x[2] = 0.0
+        x[4, ::5] = np.nan
+    return torch.from_numpy(x).to(device), 10, name != "ties_raw"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["tile_k10", "tile_rerank", "stream_k10",
+                                  "stream_rerank", "merge_k10", "k1", "ties",
+                                  "ties_raw", "inf_padding", "zeros_nan"])
+def test_approx_kernel_equals_plain(cuda_device, name):
+    from mpi_knn_tpu_torch.ops import approx_topk
+
+    x, k, agg = _approx_case(name, cuda_device)
+    before = approx_topk.LAUNCHES["approx_min_k"]
+    gv, gp = approx_topk.approx_min_k(x, k, 0.95, agg)
+    torch.cuda.synchronize()
+    wv, wp = approx_topk.approx_min_k_reference(x, k, 0.95, agg)
+    assert approx_topk.LAUNCHES["approx_min_k"] == before + 1
+    assert torch.equal(gp, wp)
+    assert torch.equal(gv.view(torch.int32), wv.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_approx_kernel_refuses_a_width_past_its_bound(cuda_device):
+    from mpi_knn_tpu_torch.ops import approx_topk
+
+    x = torch.zeros((2, 20480), device=cuda_device)
+    L = approx_topk.reduction_width(20480, 120, 0.99)
+    before = approx_topk.LAUNCHES["approx_min_k"]
+    with pytest.raises(ValueError, match=f"L={L} exceeds"):
+        approx_topk.approx_min_k(x, 120, 0.99)
+    assert approx_topk.LAUNCHES["approx_min_k"] == before
+
+
+@pytest.mark.cuda
+def test_cli_runs_a_mat_file_on_the_card(cuda_device, tmp_path):
+    """The reference's file layout through the run CLI on the card: the
+    saved ids are those of all_knn on the same array, and the approximate
+    method launches the bin-minimum kernel once per corpus tile."""
+    from mpi_knn_tpu_torch import all_knn
+    from mpi_knn_tpu_torch.cli import main
+    from mpi_knn_tpu_torch.data.matfile import write_mat
+    from mpi_knn_tpu_torch.ops import approx_topk
+
+    rng = np.random.default_rng(12)
+    X = rng.integers(0, 255, (3000, 64)).astype(np.float64)
+    y = rng.integers(1, 11, 3000).astype(np.float64)
+    write_mat(tmp_path / "X.mat", {"train_X": X, "train_labels": y})
+    nn = tmp_path / "nn.npz"
+    assert main(["--data", str(tmp_path / "X.mat"), "--k", "10", "--loo",
+                 "--backend", "pallas", "-q", "--save-neighbors", str(nn)]) == 0
+    want = all_knn(X.astype(np.float32), k=10, backend="pallas",
+                   device=cuda_device)
+    assert np.array_equal(np.load(nn)["ids"], want.ids.cpu().numpy())
+    approx_topk.reset_launch_counts()
+    assert main(["--data", str(tmp_path / "X.mat"), "--k", "10", "--loo",
+                 "--backend", "serial", "--corpus-tile", "1024",
+                 "--query-tile", "1024", "--topk-method", "approx", "-q"]) == 0
+    assert approx_topk.LAUNCHES["approx_min_k"] == 3 * 3

@@ -38,7 +38,10 @@ def test_importing_the_port_loads_no_jax():
                 "ops.rerank", "ops.quant", "backends.ring",
                 "backends.ring_resumable", "backends.resumable",
                 "utils.checkpoint", "parallel.mesh", "serve.index",
-                "serve.engine", "serve.cli", "utils.report", "utils.logs"):
+                "serve.engine", "serve.cli", "utils.report", "utils.logs",
+                "utils.timing", "ops.approx_topk", "data._native",
+                "data.matfile", "data.vecs", "data.svd", "data.digits",
+                "data.mnist", "data.synthetic"):
         assert f"mpi_knn_tpu_torch.{mod}" in loaded
     assert "chip_smoke" in loaded
     bad = [m for m in loaded
@@ -71,6 +74,7 @@ def _entry_points():
         query_knn,
     )
     from mpi_knn_tpu_torch.cli import main
+    from mpi_knn_tpu_torch.data import svd_reduce
 
     X = np.zeros((16, 4), np.float32)
     index = build_index(X, k=2, device="cpu")  # built before the card vanishes
@@ -83,12 +87,13 @@ def _entry_points():
         "ServeSession": lambda: ServeSession(index),
         "query_cli": lambda: main(["query", "--data", "synthetic:64x4c2",
                                    "--synthetic", "8", "--k", "2"]),
+        "svd_reduce": lambda: svd_reduce(X, 2),
     }
 
 
 @pytest.mark.parametrize("entry", ["all_knn", "KNNClassifier", "cli",
                                    "build_index", "query_knn", "ServeSession",
-                                   "query_cli"])
+                                   "query_cli", "svd_reduce"])
 def test_default_device_without_a_card_raises(entry, monkeypatch):
     entries = _entry_points()
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -408,7 +408,7 @@ def test_config_serve_knob_validation():
     ["--data", "synthetic:64x8c2", "--synthetic", "0"],
     ["--data", "synthetic:64x8c2", "--synthetic", "8", "--batch", "0"],
     ["--data", "synthetic:64x8c2", "--synthetic", "8", "--tenant", 'a"b'],
-    ["--data", "synthetic:64x8c2", "--queries", "q.mat"],
+    ["--data", "synthetic:64x8c2", "--queries", "q.mat"],  # no such file
 ])
 def test_query_cli_refusals_exit_2(argv):
     assert serve_cli.main([*argv, "--device", CPU]) == 2
