@@ -91,8 +91,18 @@ is not 0:
    replaces the TPU's ``lax.approx_min_k`` against its plain version, bit
    for bit in values and positions, at the main path's shapes (the serial
    1024x2048 tile with k 10 and 4k = 40 raw, the stream step's 1024x2176,
-   the pallas tiles' 60416x384 merge), k = 1, planted ties and +inf
-   padding; each timed beside its plain version, torch.topk and its bound;
+   the pallas tiles' 60416x384 merge), k = 1, planted ties, +inf padding,
+   -0.0 and NaN rows, and widths past shared memory (L = n = 20480 and
+   60000, L = 50048 of 100000), both modes; then the fused form that
+   ``smallest_k``'s approximate branches launch (``approx_smallest_k``:
+   lane padding, bin minimum, id gather and mask in one launch) at the
+   five path shapes (serial tile approx and approx-rerank, stream step
+   approx and approx-rerank, pallas merge) and on planted ties, +inf
+   entries in the stream step's 2058 real columns of 2176, -0.0 and NaN
+   rows, values and ids bit for bit against its plain version (the chain
+   the branches ran before). Each case prints its launch plan and is timed
+   beside its plain version, torch.topk and its bound; the host's
+   microseconds a call, by part, close the phase (``approx_host``);
 7. run_cli (``run_cli_phase``): the C reference's own run through
    ``cli.main``: the 60000x784 corpus as an uncompressed .mat (and a small
    compressed one), loaded equal to what was written (the reader that ran
@@ -929,19 +939,45 @@ def serve_phase(device, X) -> dict:
     return max_err
 
 
-# the approximate top-k kernel's shapes: (case, rows, columns, k, aggregate);
-# the serial twolevel tile (approx: k, approx-rerank: 4k raw), the stream
-# step's carry + tile padded to 2176, the pallas tiles' cross-tile merge of
-# 30 x 10 survivors padded to 384, and the edge rows
-APPROX_CASES = (("tile_k10", 1024, 2048, K, True),
-                ("tile_rerank", 1024, 2048, OV, False),
-                ("stream_k10", 1024, 2176, K, True),
-                ("stream_rerank", 1024, 2176, OV, False),
-                ("merge_k10", 60416, 384, K, True),
-                ("k1", 1024, 2048, 1, True),
-                ("planted_ties", 1024, 2048, K, True),
-                ("inf_padding", 1024, 2176, K, True))
+# the approximate top-k kernel's shapes: (case, rows, columns, k, aggregate,
+# recall_target); the serial twolevel tile (approx: k, approx-rerank: 4k
+# raw), the stream step's carry + tile padded to 2176, the pallas tiles'
+# cross-tile merge of 30 x 10 survivors padded to 384, the edge rows, and
+# widths past a CTA's shared memory (L = n, and L = 50048 < n), and L = n
+# not a multiple of 4 in each plan (warp, cta, two passes)
+APPROX_CASES = (("tile_k10", 1024, 2048, K, True, 0.95),
+                ("tile_rerank", 1024, 2048, OV, False, 0.95),
+                ("stream_k10", 1024, 2176, K, True, 0.95),
+                ("stream_rerank", 1024, 2176, OV, False, 0.95),
+                ("merge_k10", 60416, 384, K, True, 0.95),
+                ("k1", 1024, 2048, 1, True, 0.95),
+                ("planted_ties", 1024, 2048, K, True, 0.95),
+                ("inf_padding", 1024, 2176, K, True, 0.95),
+                ("zeros_nan", 1024, 2048, K, True, 0.95),
+                ("wide_k120", 64, 20480, 120, True, 0.99),
+                ("wide_raw", 64, 20480, 120, False, 0.99),
+                ("full_k128", 16, 60000, 128, True, 0.999),
+                ("full_raw", 16, 60000, 128, False, 0.999),
+                ("reduced_k256", 8, 100000, 256, True, 0.99),
+                ("reduced_raw", 8, 100000, 256, False, 0.99),
+                ("odd_warp", 1024, 301, K, True, 0.95),
+                ("odd_warp_raw", 1024, 301, K, False, 0.95),
+                ("odd_cta", 256, 1155, OV, True, 0.95),
+                ("odd_cta_raw", 256, 1155, OV, False, 0.95),
+                ("odd_two_pass", 64, 20481, 120, True, 0.99),
+                ("odd_two_pass_raw", 64, 20481, 120, False, 0.99))
+# the fused form (smallest_k's approximate branches): (case, rows, real
+# columns, (c,) ids, method); k = K
+FUSED_CASES = (("tile_k10", 1024, 2048, True, "approx"),
+               ("tile_rerank", 1024, 2048, True, "approx-rerank"),
+               ("stream_k10", 1024, 2058, False, "approx"),
+               ("stream_rerank", 1024, 2058, False, "approx-rerank"),
+               ("merge_k10", 60416, 300, False, "approx"),
+               ("planted_ties", 1024, 2058, False, "approx-rerank"),
+               ("inf_entries", 1024, 2058, False, "approx"),
+               ("zeros_nan", 1024, 2058, False, "approx-rerank"))
 RECALL_TARGET = 0.95  # the config's default, which the run_cli phase uses
+HOST_CALLS = 1000  # calls a host part is timed over (none synchronizes)
 # serial stream approx-rerank, recall over all 60000 rows: the card read
 # 0.99816-0.99842 on seeds 0-4 of make_mnist_like (0.99840 on seed 0, the
 # smoke's; tools/approx_recall.py), its recall_target is 0.95; a path that
@@ -949,57 +985,199 @@ RECALL_TARGET = 0.95  # the config's default, which the run_cli phase uses
 STREAM_RERANK_GATE = 0.997
 
 
+def approx_rows(rng, case, rows, n):
+    """A case's rows: planted ties (a few values, each column tied many
+    times), squared normals otherwise; +inf, -0.0 and NaN planted by name."""
+    if case == "planted_ties":
+        x = rng.integers(0, 6, (rows, n)).astype(np.float32)
+    else:  # squared distances
+        x = rng.standard_normal((rows, n)).astype(np.float32) ** 2
+    if case == "inf_padding":  # the stream step's lane padding
+        x[:, 2058:] = np.inf
+        x[7] = np.inf
+    elif case == "inf_entries":
+        x[:, ::3] = np.inf
+        x[7] = np.inf
+    elif case == "zeros_nan":
+        x[1, ::3] = -0.0
+        x[2] = 0.0
+        x[4, ::5] = np.nan
+        x[5] = np.nan
+    return x
+
+
+def approx_entry(call, plain, topk, same, got_v, want_v, plan, t_bytes, t_ops):
+    """Times and bound of one approx case (device times queued behind a
+    spin, means of 20; the call alone by CUDA events, mean of 3)."""
+    return {"plan": plan, "bitwise_equal": same,
+            "max_abs_err": float((got_v - want_v).abs().nan_to_num(0.0).max()),
+            "ms": queued_ms(call, 20), "call_ms": cuda_ms(call, reps=3),
+            "plain_ms": queued_ms(plain, 20), "topk_ms": queued_ms(topk, 20),
+            "bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
 def approx_kernel_phase(device) -> dict:
     """The bin-minimum kernel against its plain version on the card, bit
-    for bit (values and positions) at every case of APPROX_CASES; each timed
-    (device times of the kernel, of the plain version and of torch.topk on
-    the same rows, the exact function the method approximates, means of 20
-    calls queued behind a spin; the wrapper's call by CUDA events alone,
-    mean of 3) beside its bound
-    (the rows read once and the (value, position) pairs written once at
-    the HBM rate; one compare a column at the FP32 rate). Returns
-    {case: entry}."""
+    for bit (values and positions) at every case of APPROX_CASES, then its
+    fused form (``approx_smallest_k``, as ``smallest_k`` calls it) against
+    the plain chain (values and ids) at every case of FUSED_CASES; each
+    with its launch plan, timed (device times of the kernel, of the plain
+    version and of torch.topk on the same rows, the exact function the
+    method approximates) beside its bound (the rows read once, the
+    gathered ids and the outputs written once, at the HBM rate; one
+    compare a column at the FP32 rate). Each call must launch once. Then
+    the host's microseconds a call by part (``approx_host``). Returns
+    {case: entry} (fused cases under "fused/<case>")."""
     import torch
 
     from mpi_knn_tpu_torch.ops import approx_topk
+    from mpi_knn_tpu_torch.ops.topk import smallest_k
 
     rng = np.random.default_rng(21)
     out = {}
-    for case, rows, n, k, aggregate in APPROX_CASES:
-        if case == "planted_ties":  # a few values, each column tied many times
-            x = rng.integers(0, 6, (rows, n)).astype(np.float32)
-        else:  # squared distances
-            x = rng.standard_normal((rows, n)).astype(np.float32) ** 2
-        if case == "inf_padding":  # the stream step's lane padding
-            x[:, 2058:] = np.inf
-            x[7] = np.inf
-        d = torch.from_numpy(x).to(device)
-        L = approx_topk.reduction_width(n, k, RECALL_TARGET)
-        width = k if aggregate else L
-        call = lambda: approx_topk.approx_min_k(d, k, RECALL_TARGET, aggregate)  # noqa: E731
-        plain = lambda: approx_topk.approx_min_k_reference(  # noqa: E731
-            d, k, RECALL_TARGET, aggregate)
-        (gv, gp), (wv, wp) = call(), plain()
+
+    def launched_once(name, fn):
+        before = approx_topk.LAUNCHES["approx_min_k"]
+        got = fn()
         torch.cuda.synchronize()
+        if approx_topk.LAUNCHES["approx_min_k"] != before + 1:
+            raise AssertionError(f"{name}: not one launch of the kernel")
+        return got
+
+    for case, rows, n, k, aggregate, rt in APPROX_CASES:
+        d = torch.from_numpy(approx_rows(rng, case, rows, n)).to(device)
+        L = approx_topk.reduction_width(n, k, rt)
+        width = k if aggregate else L
+        call = lambda: approx_topk.approx_min_k(d, k, rt, aggregate)  # noqa: E731
+        plain = lambda: approx_topk.approx_min_k_reference(d, k, rt, aggregate)  # noqa: E731
+        topk = lambda: torch.topk(d, k, dim=-1, largest=False)  # noqa: E731
+        (gv, gp), (wv, wp) = launched_once(f"approx_min_k/{case}", call), plain()
         same = torch.equal(gp, wp) and torch.equal(gv.view(torch.int32),
                                                    wv.view(torch.int32))
-        topk = lambda: torch.topk(d, k, dim=-1, largest=False)  # noqa: E731
         topk()
         t_bytes = (4.0 * rows * n + 12.0 * rows * width) / PEAK_BYTES_PER_S
         t_ops = float(rows * n) / PEAK_FP32_FLOPS
         entry = {"rows": rows, "n": n, "k": k, "aggregate_to_topk": aggregate,
-                 "L": L, "out": width, "bitwise_equal": same,
-                 "max_abs_err": float((gv - wv).abs().nan_to_num(0.0).max()),
-                 "ms": queued_ms(call, 20), "call_ms": cuda_ms(call, reps=3),
-                 "plain_ms": queued_ms(plain, 20), "topk_ms": queued_ms(topk, 20),
-                 "bound_ms": 1e3 * max(t_bytes, t_ops),
-                 "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+                 "recall_target": rt, "L": L, "out": width,
+                 **approx_entry(call, plain, topk, same, gv, wv,
+                                approx_topk.launch_plan(rows, n, L, width),
+                                t_bytes, t_ops)}
         emit({"phase": "approx_kernel", "case": case, **entry})
         if not same:
             raise AssertionError(f"approx_min_k/{case}: differs from its plain version")
         out[case] = entry
         del d, gv, gp, wv, wp
+
+    for case, rows, c, flat, method in FUSED_CASES:
+        d = torch.from_numpy(approx_rows(rng, case, rows, c)).to(device)
+        ids = torch.from_numpy(rng.permutation(c).astype(np.int32)).to(device)
+        if not flat:  # the (q, c) ids of a carry || tile or of the survivors
+            ids = ids[None].repeat(rows, 1) + torch.arange(
+                rows, dtype=torch.int32, device=device)[:, None] * c
+        n_pad = -(-c // approx_topk.LANES) * approx_topk.LANES
+        asked = 4 * K if method == "approx-rerank" else K
+        L = approx_topk.reduction_width(n_pad, asked, RECALL_TARGET)
+        call = lambda: smallest_k(d, ids, K, method=method)  # noqa: E731
+        plain = lambda: approx_topk.approx_smallest_k_reference(  # noqa: E731
+            d, ids, K, method, RECALL_TARGET)
+        topk = lambda: torch.topk(d, K, dim=-1, largest=False)  # noqa: E731
+        (gv, gi), (wv, wi) = launched_once(f"approx_smallest_k/{case}", call), plain()
+        same = torch.equal(gi, wi) and torch.equal(gv.view(torch.int32),
+                                                   wv.view(torch.int32))
+        topk()
+        # the rows once, the K ids a row gathers, the (value, id) outputs
+        t_bytes = (4.0 * rows * c + 4.0 * rows * K + 8.0 * rows * K) / PEAK_BYTES_PER_S
+        t_ops = float(rows * c) / PEAK_FP32_FLOPS
+        entry = {"rows": rows, "c": c, "n_pad": n_pad, "ids": "(c,)" if flat else "(q, c)",
+                 "method": method, "k": K, "L": L, "out": min(K, L),
+                 **approx_entry(call, plain, topk, same, gv, wv,
+                                approx_topk.launch_plan(rows, n_pad, L, min(K, L)),
+                                t_bytes, t_ops)}
+        emit({"phase": "approx_kernel", "case": f"fused/{case}", **entry})
+        if not same:
+            raise AssertionError(f"approx_smallest_k/{case}: differs from the plain chain")
+        out[f"fused/{case}"] = entry
+        del d, ids, gv, gi, wv, wi
+    emit({"phase": "approx_host", **approx_host_parts(device)})
     return out
+
+
+def approx_host_parts(device) -> dict:
+    """Host microseconds a call (time.perf_counter_ns over HOST_CALLS calls
+    that do not synchronize) at the serial tile (1024 x 2048, (c,) ids,
+    approx, k 10): the whole smallest_k call, the fused wrapper, and its
+    parts (the device context the wrapper now skips on the current card,
+    current_stream(), the raw stream handle, the two output allocations,
+    the cached plan, the ctypes call alone with its arguments ready, the
+    data_ptr reads); and the chain smallest_k ran before the fused form,
+    re-enacted around today's kernel: the lane padding (two torch.cat of
+    new_full), .contiguous(), the device context, the wrapper of the
+    unfused kernel (its two allocations, stream, ctypes call), the id
+    gather, isinf and where."""
+    import torch
+
+    from mpi_knn_tpu_torch.ops import approx_topk
+    from mpi_knn_tpu_torch.ops.topk import smallest_k
+    from mpi_knn_tpu_torch.types import INVALID_ID
+
+    rng = np.random.default_rng(5)
+    q, c = 1024, 2048
+    d = torch.from_numpy(rng.standard_normal((q, c)).astype(np.float32) ** 2).to(device)
+    ids = torch.arange(c, dtype=torch.int32, device=device)
+    idx = d.device.index
+    L = approx_topk.reduction_width(c, K, RECALL_TARGET)
+    plan = approx_topk.launch_plan(q, c, L, K)
+    vals = torch.empty((q, K), dtype=torch.float32, device=device)
+    out_ids = torch.empty((q, K), dtype=torch.int32, device=device)
+    lib = approx_topk._lib()
+    stream = torch.cuda.current_stream(idx).cuda_stream
+    args = (d.data_ptr(), c, q, c, c, L, K, approx_topk.REGIMES.index(plan["regime"]),
+            plan["G"], plan["chunk"], plan["chunks"], plan["shared_bytes"], None, 0,
+            vals.data_ptr(), None, ids.data_ptr(), 0, out_ids.data_ptr(), stream)
+
+    def context():
+        with torch.cuda.device(d.device):
+            pass
+
+    def old_chain():
+        dd, ii = d, ids[None, :].expand(q, c)
+        pad = -c % approx_topk.LANES
+        if pad:
+            dd = torch.cat([dd, dd.new_full((q, pad), float("inf"))], -1)
+            ii = torch.cat([ii, ii.new_full((q, pad), INVALID_ID)], -1)
+        with torch.cuda.device(d.device):
+            v, p = approx_topk.approx_min_k(dd.contiguous(), K, RECALL_TARGET)
+        got = torch.gather(ii, -1, p)
+        return v, torch.where(torch.isinf(v), INVALID_ID, got)
+
+    parts = {
+        "smallest_k": lambda: smallest_k(d, ids, K, method="approx"),
+        "approx_smallest_k": lambda: approx_topk.approx_smallest_k(d, ids, K, "approx"),
+        "old_chain_reenacted": old_chain,
+        "device_context": context,
+        "current_stream": lambda: torch.cuda.current_stream(idx).cuda_stream,
+        "raw_stream": lambda: torch._C._cuda_getCurrentRawStream(idx),
+        "current_device": torch.cuda.current_device,
+        "two_allocations": lambda: (
+            torch.empty((q, K), dtype=torch.float32, device=device),
+            torch.empty((q, K), dtype=torch.int32, device=device)),
+        "launch_plan_cached": lambda: approx_topk.launch_plan(q, c, L, K),
+        "ctypes_call": lambda: lib.approx_min_k_launch(*args),
+        "four_data_ptr": lambda: (d.data_ptr(), ids.data_ptr(), vals.data_ptr(),
+                                  out_ids.data_ptr()),
+    }
+    us = {}
+    for name, fn in parts.items():
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter_ns()
+        for _ in range(HOST_CALLS):
+            fn()
+        us[name] = (time.perf_counter_ns() - t0) / 1e3 / HOST_CALLS
+        torch.cuda.synchronize()
+    return {"rows": q, "c": c, "method": "approx", "k": K, "calls": HOST_CALLS,
+            "us_per_call": us}
 
 
 def run_cli_phase(device, X, y) -> dict:
@@ -2310,15 +2488,16 @@ def main() -> int:
         "stage_bf16": None,  # no one PyTorch call writes the copy and the norms
         "stage_bf16[wire]": None,
         # torch.topk computes the exact function the method approximates
-        "approx_min_k": approx["tile_k10"]["topk_ms"],
+        "approx_min_k": approx["fused/tile_k10"]["topk_ms"],
     }
     times = {**timing, **{name: ring_timing[(name, "p1_mnist60k")]
                           for name in merge_modes},
              "fused_round_dma": transport_timing[("fused_round_dma", "p4_round")],
              "fused_rotation_grid":
                  transport_timing[("fused_rotation_grid", "p4_rotation")],
-             # the serial twolevel tile, where the approx main path launches it
-             "approx_min_k": approx["tile_k10"]}
+             # the serial twolevel tile, where the approx main path launches
+             # it (the fused form, as smallest_k calls it)
+             "approx_min_k": approx["fused/tile_k10"]}
     emit({"kernels": [
         {"name": name, "route": "cuda",
          "source": "mpi_knn_tpu_torch/csrc/" + source_of(name),

@@ -20,6 +20,7 @@ from mpi_knn_tpu_torch.data.synthetic import make_mnist_like
 _SEARCH_PATHS = [
     "mnist_train.mat",
     "data/mnist_train.mat",
+    "/root/data/mnist_train.mat",
 ]
 _IMAGES = ("train-images-idx3-ubyte", "train-images-idx3-ubyte.gz")
 _LABELS = ("train-labels-idx1-ubyte", "train-labels-idx1-ubyte.gz")

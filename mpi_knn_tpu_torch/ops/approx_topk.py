@@ -1,6 +1,7 @@
 """``lax.approx_min_k`` for the port: the TPU's partial top-k reduction as
 a bin minimum, the wrapper of its Hopper kernel (``csrc/approx_topk.cu``)
-and the kernel's plain PyTorch version.
+and the kernel's plain PyTorch version; and ``approx_smallest_k``, the
+approximate branches of ``ops/topk.smallest_k`` fused into one launch.
 
 The JAX package reaches the op from ``mpi_knn_tpu/ops/topk.py`` (the
 "approx" and "approx-rerank" methods, after ``_pad_lanes``). XLA gives
@@ -19,9 +20,12 @@ instead, so on the CPU the two packages agree only where the reduction is
 exact (and, on ties, only in values: its CPU order of tied columns is its
 own).
 
-The wrapper takes its plain version only because the tensor it was given
-lies on the CPU; on a CUDA tensor it launches the kernel or raises. Each
-launch adds one to ``LAUNCHES["approx_min_k"]``.
+The kernel takes any L up to n, by the plan ``launch_plan`` picks: a warp
+a row (L <= 1024), a CTA a row (L <= 8192), or two passes over a global
+scratch (wider). The wrappers take their plain versions only because the
+tensor they were given lies on the CPU; on a CUDA tensor they launch the
+kernel or raise. Each call that launches adds one to
+``LAUNCHES["approx_min_k"]``, whatever its passes.
 """
 
 from __future__ import annotations
@@ -33,19 +37,29 @@ import math
 import torch
 
 from mpi_knn_tpu_torch.ops import _build
+from mpi_knn_tpu_torch.types import INVALID_ID
 
 LAUNCHES = {"approx_min_k": 0}
-# the kernel sorts the L winners in shared memory as 64-bit keys, padded
-# to a power of two: 16384 keys are 128 KB of a CTA's 227 KB
-MAX_KERNEL_WIDTH = 16384
 
 _NAN_ORDER = (1 << 31) - 1
+_INF = float("inf")
+LANES = 128  # the lane multiple the approximate methods pad their rows to
+# the plans of csrc/approx_topk.cu (their constants are the kernel's)
+REGIMES = ("warp", "cta", "two_pass")
+_WARP_MAX_BINS = 1024    # a warp a row up to 8 groups of 128 bins
+_CTA_BINS = 512          # bins a warp in the cta plan (G = 4)
+_CTA_MAX_WARPS = 16      # so a CTA a row up to 8192 bins
+_TWO_PASS_BINS = 1024    # bins a warp in the two-pass plan (G = 8)
+_WARP_ROWS = 4           # warps (rows) a CTA in the warp plan and pass 1
+_ROUNDS_MAX = 32         # up to 32 keys by warp-minimum rounds, else a sort
+_KEY_BYTES = 8
 
 
 def reset_launch_counts():
     LAUNCHES["approx_min_k"] = 0
 
 
+@functools.lru_cache(maxsize=4096)
 def reduction_width(n: int, k: int, recall_target: float = 0.95) -> int:
     """L, the output width of ``lax.approx_min_k(…, aggregate_to_topk=
     False)`` over n columns: XLA's reduction-size rule."""
@@ -62,6 +76,59 @@ def reduction_width(n: int, k: int, recall_target: float = 0.95) -> int:
         return n
     r = min(r, math.ceil(math.log2(n / 128)))
     return math.ceil(math.ceil(n / 128) / 2 ** r) * 128
+
+
+def _pow2_at_least(x: int) -> int:
+    return 1 << max(0, (x - 1).bit_length())
+
+
+@functools.lru_cache(maxsize=4096)
+def launch_plan(rows: int, n: int, L: int, out: int) -> dict:
+    """How the kernel reduces ``rows`` rows of n columns to L bins and
+    returns each row's ``out`` smallest winners: the regime ("warp": a warp
+    a row, "cta": a CTA a row, "two_pass": chunks into a global scratch,
+    then merges), G (a lane holds 4 G bins), the chunk of bins a warp
+    reduces and the chunks a row, the selection ("rounds" of warp minima
+    up to 32 keys, else a bitonic "sort" in shared memory), rows a CTA,
+    threads, grid and dynamic shared bytes of the first kernel, the passes
+    and the int64 keys of the scratch. The wrapper hands it to the launch,
+    which refuses a plan that does not fit the shape."""
+    if not 1 <= out <= L <= n:
+        raise ValueError(f"launch_plan: need 1 <= out={out} <= L={L} <= n={n}")
+    select = "rounds" if out <= _ROUNDS_MAX else "sort"
+    if L <= _WARP_MAX_BINS:
+        G = _pow2_at_least(-(-L // 128))
+        chunks, chunk = 1, L
+        shared = _WARP_ROWS * 128 * G * _KEY_BYTES  # a warp's keys, either way
+        return dict(regime="warp", G=G, chunk=chunk, chunks=chunks,
+                    select=select, rows_per_cta=_WARP_ROWS,
+                    threads=32 * _WARP_ROWS, grid=-(-rows // _WARP_ROWS),
+                    shared_bytes=shared, passes=1, scratch_keys=0)
+    if L <= _CTA_BINS * _CTA_MAX_WARPS:
+        chunks = -(-L // _CTA_BINS)
+        chunk = -(-(-(-L // chunks)) // 4) * 4
+        if select == "sort":
+            shared = _pow2_at_least(chunks * _CTA_BINS) * _KEY_BYTES
+        else:  # each warp's keys, then its out smallest for the merge
+            shared = chunks * (_CTA_BINS + 32) * _KEY_BYTES
+        return dict(regime="cta", G=_CTA_BINS // 128, chunk=chunk,
+                    chunks=chunks, select=select, rows_per_cta=1,
+                    threads=32 * chunks, grid=rows, shared_bytes=shared,
+                    passes=1, scratch_keys=0)
+    chunks = -(-L // _TWO_PASS_BINS)
+    chunk = -(-(-(-L // chunks)) // 4) * 4
+    length = min(out, chunk)
+    scratch, nl, ln, passes = rows * chunks * length, chunks, length, 2
+    while nl > 32:  # merges of 32 lists each until one group is left
+        nl, ln = -(-nl // 32), min(out, 32 * ln)
+        scratch += rows * nl * ln
+        passes += 1
+    shared = _WARP_ROWS * _TWO_PASS_BINS * _KEY_BYTES
+    return dict(regime="two_pass", G=_TWO_PASS_BINS // 128, chunk=chunk,
+                chunks=chunks, select="rounds" if length <= _ROUNDS_MAX else "sort",
+                rows_per_cta=_WARP_ROWS, threads=32 * _WARP_ROWS,
+                grid=-(-rows * chunks // _WARP_ROWS), shared_bytes=shared,
+                passes=passes, scratch_keys=scratch)
 
 
 def _out_width(n, k, recall_target, aggregate_to_topk):
@@ -122,31 +189,138 @@ def approx_min_k(dists: torch.Tensor, k: int, recall_target: float = 0.95,
                                       aggregate_to_topk)
     n = dists.shape[-1]
     L, out = _out_width(n, k, recall_target, aggregate_to_topk)
-    check_kernel_width(L)
     if not dists.is_contiguous():
         raise ValueError("approx_min_k: the kernel takes a contiguous tensor")
     lead = dists.shape[:-1]
     rows = dists.numel() // n
     vals = torch.empty((*lead, out), dtype=torch.float32, device=dists.device)
     pos = torch.empty((*lead, out), dtype=torch.int64, device=dists.device)
-    with torch.cuda.device(dists.device):
-        err = _lib().approx_min_k_launch(
-            dists.data_ptr(), vals.data_ptr(), pos.data_ptr(), rows, n, L,
-            out, torch.cuda.current_stream().cuda_stream)
-    if err:
-        raise RuntimeError(f"approx_min_k launch failed (CUDA error {err})")
-    LAUNCHES["approx_min_k"] += 1
+    _launch(dists, n, rows, n, n, L, out, vals, pos=pos)
     return vals, pos
 
 
-def check_kernel_width(L: int):
-    """The kernel sorts at most ``MAX_KERNEL_WIDTH`` winners a row."""
-    if L > MAX_KERNEL_WIDTH:
-        raise ValueError(
-            f"approx_min_k kernel: reduction width L={L} exceeds "
-            f"{MAX_KERNEL_WIDTH} (the winners a CTA sorts in shared memory); "
-            "use a lower recall_target or topk_method='exact'"
-        )
+def _pad_lanes(dists, ids):
+    """Pad the columns to a multiple of ``LANES`` with (+inf, INVALID_ID),
+    as the JAX package does before every approximate reduction (its TPU
+    op wedged on other widths); the sentinels never enter a k-smallest
+    result."""
+    q, c = dists.shape
+    pad = -c % LANES
+    if pad:
+        dists = torch.cat([dists, dists.new_full((q, pad), _INF)], dim=-1)
+        ids = torch.cat([ids, ids.new_full((q, pad), INVALID_ID)], dim=-1)
+    return dists, ids
+
+
+def _fused_width(c, k, method, recall_target):
+    """(n_pad, L, out) of ``approx_smallest_k`` over c real columns."""
+    if method not in ("approx", "approx-rerank"):
+        raise ValueError(f"approx_smallest_k: method {method!r} is not approximate")
+    n_pad = -(-c // LANES) * LANES
+    if method == "approx":
+        return (n_pad, *_out_width(n_pad, k, recall_target, True))
+    L = reduction_width(n_pad, 4 * k, recall_target)
+    return n_pad, L, min(k, L)
+
+
+def approx_smallest_k_reference(dists, ids, k: int, method: str,
+                                recall_target: float = 0.95):
+    """The plain version of ``approx_smallest_k``: the chain the approximate
+    branches of ``smallest_k`` ran before the fused form. Pad the lanes,
+    reduce (``approx``: the k smallest bin winners; ``approx-rerank``: all
+    L = L(4k) winners, then an exact stable sort keeping k), gather the
+    ids, and set the +-inf slots' ids to INVALID_ID."""
+    _fused_width(dists.shape[-1], k, method, recall_target)
+    q, c = dists.shape
+    if ids.ndim == 1:
+        ids = ids[None, :].expand(q, c)
+    dists, ids = _pad_lanes(dists, ids)
+    if method == "approx-rerank":
+        dists, pos = approx_min_k_reference(dists.contiguous(), 4 * k,
+                                            recall_target,
+                                            aggregate_to_topk=False)
+        ids = torch.gather(ids, -1, pos)
+        vals, order = torch.sort(dists, dim=-1, stable=True)
+        vals, out_ids = vals[..., :k], torch.gather(ids, -1, order[..., :k])
+    else:
+        vals, pos = approx_min_k_reference(dists.contiguous(), k,
+                                           recall_target)
+        out_ids = torch.gather(ids, -1, pos)
+    return vals, torch.where(torch.isinf(vals), INVALID_ID, out_ids)
+
+
+def approx_smallest_k(dists, ids, k: int, method: str,
+                      recall_target: float = 0.95):
+    """``smallest_k(dists, ids, k, method)`` for the approximate methods in
+    one launch: the (q, c) f32 tile is read where it lies (row stride
+    kept; columns c up to the next multiple of 128 count as (+inf,
+    INVALID_ID)), ids (c,) or (q, c) int32 are gathered in the epilogue.
+    ``approx``: the k smallest of L = ``reduction_width(padded c, k)`` bin
+    winners; ``approx-rerank``: the k smallest of L(4k) winners, which is
+    what the exact finish over all L winners returns (they come sorted by
+    (value, column), and a stable sort by value keeps that order). Returns
+    (q, out) values ascending and (q, out) int32 ids, INVALID_ID where the
+    value is +-inf; out = k (``approx-rerank``: min(k, L))."""
+    _check(dists)
+    if dists.device.type == "cpu":
+        return approx_smallest_k_reference(dists, ids, k, method,
+                                           recall_target)
+    q, c = dists.shape
+    n_pad, L, out = _fused_width(c, k, method, recall_target)
+    if ids.dtype != torch.int32 or ids.device != dists.device:
+        raise TypeError("approx_smallest_k: the kernel takes int32 ids on "
+                        "the tile's device")
+    if ids.shape not in ((c,), (q, c)):
+        raise ValueError(f"approx_smallest_k: ids {tuple(ids.shape)} for a "
+                         f"({q}, {c}) tile")
+    if dists.stride(-1) != 1:
+        dists = dists.contiguous()
+    if ids.stride(-1) != 1:
+        ids = ids.contiguous()
+    ids_ld = ids.stride(0) if ids.ndim == 2 else 0
+    vals = torch.empty((q, out), dtype=torch.float32, device=dists.device)
+    out_ids = torch.empty((q, out), dtype=torch.int32, device=dists.device)
+    _launch(dists, dists.stride(0), q, c, n_pad, L, out, vals, ids=ids,
+            ids_ld=ids_ld, out_ids=out_ids)
+    return vals, out_ids
+
+
+def _launch(d, ld, rows, c, n_pad, L, out, vals, pos=None, ids=None,
+            ids_ld=0, out_ids=None):
+    """One call of the kernel on d's card and current stream, by the plan
+    of ``launch_plan``, writing vals and pos, or vals and out_ids (ids
+    gathered); raises on a CUDA error."""
+    if rows == 0:
+        return
+    plan = launch_plan(rows, n_pad, L, out)
+    scratch = (torch.empty(plan["scratch_keys"], dtype=torch.int64,
+                           device=d.device) if plan["scratch_keys"] else None)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    args = (d.data_ptr(), ld, rows, c, n_pad, L, out,
+            REGIMES.index(plan["regime"]), plan["G"], plan["chunk"],
+            plan["chunks"], plan["shared_bytes"], ptr(scratch),
+            plan["scratch_keys"], vals.data_ptr(), ptr(pos), ptr(ids), ids_ld,
+            ptr(out_ids))
+    index = d.device.index
+    if index == torch.cuda.current_device():
+        err = _lib().approx_min_k_launch(*args, _stream(index))
+    else:
+        with torch.cuda.device(index):
+            err = _lib().approx_min_k_launch(*args, _stream(index))
+    if err:
+        raise RuntimeError(f"approx_min_k launch failed (CUDA error {err}; "
+                           f"plan {plan})")
+    LAUNCHES["approx_min_k"] += 1
+
+
+def _stream(index: int) -> int:
+    """The raw handle of PyTorch's current stream on card ``index``, without
+    the Stream object ``torch.cuda.current_stream`` builds (2.5 µs a call
+    against 0.1 on an H100's host; chip_smoke.py's ``approx_host``)."""
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
 def _check(dists):
@@ -160,12 +334,17 @@ def _check(dists):
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
-    lib = _build.load("approx_topk")
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.approx_min_k_launch.argtypes = [ptr, ptr, ptr, ctypes.c_int64, i32,
-                                        i32, i32, ptr]
+    return bind(_build.load("approx_topk"))
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the argument types of a build of ``csrc/approx_topk.cu``."""
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    lib.approx_min_k_launch.argtypes = [
+        ptr, i64, i64, i32, i32, i32, i32,  # d, ld, rows, c, n_pad, L, out
+        i32, i32, i32, i32, i32,            # regime, G, chunk, chunks, shared
+        ptr, i64,                           # scratch, its keys
+        ptr, ptr, ptr, i64, ptr,            # vals, pos, ids, ids_ld, out_ids
+        ptr]                                # stream
     lib.approx_min_k_launch.restype = i32
-    lib.approx_min_k_max_width.restype = i32
-    if lib.approx_min_k_max_width() != MAX_KERNEL_WIDTH:
-        raise RuntimeError("csrc/approx_topk.cu and MAX_KERNEL_WIDTH disagree")
     return lib

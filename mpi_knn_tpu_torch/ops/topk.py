@@ -12,7 +12,8 @@ stable sort of bf16-rounded keys, then an exact f32 finish: near-exact,
 and equal bit for bit to the JAX package's); "approx" (the TPU's partial
 reduction ``lax.approx_min_k`` asked for k directly) and "approx-rerank"
 (the same reduction preselecting 4k winners for an exact finish), both
-through ``ops/approx_topk.py``, whose Hopper kernel is the bin minimum.
+one call of ``ops/approx_topk.approx_smallest_k``, whose Hopper kernel is
+the bin minimum with the id gather and mask in its epilogue.
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ from __future__ import annotations
 import torch
 
 from mpi_knn_tpu_torch.config import TOPK_METHODS
-from mpi_knn_tpu_torch.ops.approx_topk import approx_min_k
+from mpi_knn_tpu_torch.ops.approx_topk import approx_smallest_k
 from mpi_knn_tpu_torch.types import INVALID_ID
 
 _INF = float("inf")
@@ -73,14 +74,6 @@ def _fold_topk(dists, ids, k: int, width: int):
     return vals.reshape(q, nch * k), out_ids.reshape(q, nch * k)
 
 
-def _pad_lanes(dists, ids, multiple: int = 128):
-    """Pad the columns to a multiple of 128 with (+inf, INVALID_ID) before
-    every approximate reduction, as the JAX package does (its TPU op wedged
-    on other widths); the sentinels never enter a k-smallest result. The
-    reduction width ``approx_min_k`` picks depends on the padded width."""
-    return _pad_cols(dists, ids, -(-dists.shape[-1] // multiple) * multiple)
-
-
 def preselect_smallest(dists, n: int, half_width: bool = False):
     """Column positions of each row's ``n`` smallest entries: the positions
     ``lax.top_k(-dists, n)`` gives in the JAX package — ascending, ties to
@@ -105,6 +98,10 @@ def smallest_k(dists, ids, k: int, method: str = "exact",
     if method not in TOPK_METHODS:
         raise ValueError(f"topk method must be one of {TOPK_METHODS}, got {method!r}")
     q, c = dists.shape
+    if (method == "approx" and c > k) or (method == "approx-rerank" and c > 4 * k):
+        # the lane padding, the bin minimum (for approx-rerank the L(4k)
+        # winners' exact finish), the id gather and the mask: one launch
+        return approx_smallest_k(dists, ids, k, method, recall_target)
     if ids.ndim == 1:
         ids = ids[None, :].expand(q, c)
     if k > c:
@@ -113,25 +110,12 @@ def smallest_k(dists, ids, k: int, method: str = "exact",
     if method == "block" and k <= block and c > block:
         dists, ids = _fold_topk(dists, ids, k, block)
         c = dists.shape[-1]
-    if method == "approx-rerank" and c > 4 * k:
-        # the raw bin winners (aggregate off) go straight to the exact
-        # finish below: 4k asked, L returned
-        dists, ids = _pad_lanes(dists, ids)
-        dists, pos = approx_min_k(dists.contiguous(), 4 * k, recall_target,
-                                  aggregate_to_topk=False)
-        ids = torch.gather(ids, -1, pos)
-        c = dists.shape[-1]
     if method == "bf16" and c > 4 * k and dists.dtype == torch.float32:
         pos = preselect_smallest(dists, 4 * k, half_width=True)
         dists = torch.gather(dists, -1, pos)
         ids = torch.gather(ids, -1, pos)
         c = 4 * k
-    if method == "approx" and c > k:
-        dists, ids = _pad_lanes(dists, ids)
-        vals, pos = approx_min_k(dists.contiguous(), k, recall_target)
-        out_ids = torch.gather(ids, -1, pos)
-    else:
-        vals, out_ids = _sorted_k(dists, ids, k)
+    vals, out_ids = _sorted_k(dists, ids, k)
     # slots that hold +inf are by definition invalid
     out_ids = torch.where(torch.isinf(vals), INVALID_ID, out_ids)
     return vals, out_ids

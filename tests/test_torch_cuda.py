@@ -960,21 +960,35 @@ def test_serve_refuses_a_policy_whose_part_is_not_staged(cuda_device):
 
 
 def _approx_case(name, device):
-    """(tensor, k, aggregate) of the approx kernel's shapes on the main
-    path, and its edge rows."""
-    from mpi_knn_tpu_torch.ops.approx_topk import approx_min_k  # noqa: F401
-
+    """(tensor, k, recall_target, aggregate) of the approx kernel's shapes
+    on the main path, its edge rows, widths past shared memory (L = n
+    at 20480 and 60000, L = 50048 < n at 100000: two passes), and L = n
+    not a multiple of 4 in each plan (the last bins' groups short)."""
     rng = np.random.default_rng(11)
-    shapes = {"tile_k10": (1024, 2048, 10, True),
-              "tile_rerank": (1024, 2048, 40, False),
-              "stream_k10": (1024, 2176, 10, True),
-              "stream_rerank": (1024, 2176, 40, False),
-              "merge_k10": (60416, 384, 10, True),
-              "k1": (512, 2048, 1, True)}
+    shapes = {"tile_k10": (1024, 2048, 10, 0.95, True),
+              "tile_rerank": (1024, 2048, 40, 0.95, False),
+              "stream_k10": (1024, 2176, 10, 0.95, True),
+              "stream_rerank": (1024, 2176, 40, 0.95, False),
+              "merge_k10": (60416, 384, 10, 0.95, True),
+              "k1": (512, 2048, 1, 0.95, True),
+              "wide_k120": (64, 20480, 120, 0.99, True),
+              "wide_raw": (64, 20480, 120, 0.99, False),
+              "full_k128": (16, 60000, 128, 0.999, True),
+              "full_raw": (16, 60000, 128, 0.999, False),
+              "reduced_k256": (8, 100000, 256, 0.99, True),
+              "reduced_raw": (8, 100000, 256, 0.99, False),
+              "cta_k40": (64, 8192, 40, 0.99, True),
+              "cta_raw": (64, 8192, 40, 0.99, False),
+              "odd_warp": (256, 301, 10, 0.95, True),
+              "odd_warp_raw": (256, 301, 10, 0.95, False),
+              "odd_cta": (64, 1155, 40, 0.95, True),
+              "odd_cta_raw": (64, 1155, 40, 0.95, False),
+              "odd_two_pass": (16, 20481, 120, 0.99, True),
+              "odd_two_pass_raw": (16, 20481, 120, 0.99, False)}
     if name in shapes:
-        R, n, k, agg = shapes[name]
+        R, n, k, rt, agg = shapes[name]
         x = rng.standard_normal((R, n)).astype(np.float32)
-        return torch.from_numpy(x).to(device), k, agg
+        return torch.from_numpy(x).to(device), k, rt, agg
     x = rng.integers(0, 4, (64, 2048)).astype(np.float32)  # planted ties
     if name == "inf_padding":
         x[:, 1500:] = np.inf
@@ -983,36 +997,101 @@ def _approx_case(name, device):
         x[1, ::3] = -0.0
         x[2] = 0.0
         x[4, ::5] = np.nan
-    return torch.from_numpy(x).to(device), 10, name != "ties_raw"
+    return torch.from_numpy(x).to(device), 10, 0.95, name != "ties_raw"
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["tile_k10", "tile_rerank", "stream_k10",
                                   "stream_rerank", "merge_k10", "k1", "ties",
-                                  "ties_raw", "inf_padding", "zeros_nan"])
+                                  "ties_raw", "inf_padding", "zeros_nan",
+                                  "wide_k120", "wide_raw", "full_k128",
+                                  "full_raw", "reduced_k256", "reduced_raw",
+                                  "cta_k40", "cta_raw", "odd_warp",
+                                  "odd_warp_raw", "odd_cta", "odd_cta_raw",
+                                  "odd_two_pass", "odd_two_pass_raw"])
 def test_approx_kernel_equals_plain(cuda_device, name):
     from mpi_knn_tpu_torch.ops import approx_topk
 
-    x, k, agg = _approx_case(name, cuda_device)
+    x, k, rt, agg = _approx_case(name, cuda_device)
     before = approx_topk.LAUNCHES["approx_min_k"]
-    gv, gp = approx_topk.approx_min_k(x, k, 0.95, agg)
+    gv, gp = approx_topk.approx_min_k(x, k, rt, agg)
     torch.cuda.synchronize()
-    wv, wp = approx_topk.approx_min_k_reference(x, k, 0.95, agg)
+    wv, wp = approx_topk.approx_min_k_reference(x, k, rt, agg)
     assert approx_topk.LAUNCHES["approx_min_k"] == before + 1
     assert torch.equal(gp, wp)
     assert torch.equal(gv.view(torch.int32), wv.view(torch.int32))
 
 
+def _fused_case(name, device):
+    """(dists, ids, k, method) of the fused form at the main path's five
+    shapes (the serial tile with its (c,) ids, the stream step's carry ||
+    tile with (q, c) ids, the pallas merge of 30 x 10 survivors) and its
+    edge rows, on a view with a row stride wider than its columns."""
+    rng = np.random.default_rng(13)
+    shapes = {"tile_k10": (1024, 2048, True, "approx"),
+              "tile_rerank": (1024, 2048, True, "approx-rerank"),
+              "stream_k10": (1024, 2058, False, "approx"),
+              "stream_rerank": (1024, 2058, False, "approx-rerank"),
+              "merge_k10": (60416, 300, False, "approx")}
+    q, c, flat, method = shapes.get(name, (256, 2058, False, "approx-rerank"))
+    x = (rng.standard_normal((q, c + 6)) ** 2).astype(np.float32)
+    if name == "ties":
+        x = rng.integers(0, 4, x.shape).astype(np.float32)
+    elif name == "inf":
+        x[:, ::3] = np.inf
+        x[5] = np.inf
+        x[6, :100] = -np.inf
+    elif name == "zeros_nan":
+        x[1, ::3] = -0.0
+        x[2] = 0.0
+        x[4, ::5] = np.nan
+        x[7] = np.nan
+    ids = rng.permutation(c).astype(np.int32)
+    if not flat:
+        ids = np.stack([rng.permutation(c).astype(np.int32) for _ in range(4)])
+        ids = ids[np.arange(q) % 4]
+    d = torch.from_numpy(x).to(device)[:, 3:3 + c]
+    return d, torch.from_numpy(ids).to(device), 10, method
+
+
 @pytest.mark.cuda
-def test_approx_kernel_refuses_a_width_past_its_bound(cuda_device):
+@pytest.mark.parametrize("name", ["tile_k10", "tile_rerank", "stream_k10",
+                                  "stream_rerank", "merge_k10", "ties", "inf",
+                                  "zeros_nan"])
+def test_fused_approx_kernel_equals_the_chain(cuda_device, name):
+    """``smallest_k``'s approximate branches on the card: one launch of the
+    fused form, values and ids bit for bit the plain chain's."""
+    from mpi_knn_tpu_torch.ops import approx_topk
+    from mpi_knn_tpu_torch.ops.topk import smallest_k
+
+    d, ids, k, method = _fused_case(name, cuda_device)
+    before = approx_topk.LAUNCHES["approx_min_k"]
+    gv, gi = smallest_k(d, ids, k, method=method)
+    torch.cuda.synchronize()
+    assert approx_topk.LAUNCHES["approx_min_k"] == before + 1
+    wv, wi = approx_topk.approx_smallest_k_reference(d, ids, k, method)
+    assert torch.equal(gi, wi)
+    assert torch.equal(gv.view(torch.int32), wv.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_approx_kernel_runs_a_width_past_shared_memory(cuda_device):
+    """(2, 20480) at k 120, 0.99: L = n = 20480, past the 16384 keys a CTA
+    sorts in shared memory; one launch (two passes), the plain version's
+    winners."""
     from mpi_knn_tpu_torch.ops import approx_topk
 
-    x = torch.zeros((2, 20480), device=cuda_device)
-    L = approx_topk.reduction_width(20480, 120, 0.99)
+    rng = np.random.default_rng(14)
+    x = torch.from_numpy(rng.standard_normal((2, 20480)).astype(np.float32))
+    x = x.to(cuda_device)
+    assert approx_topk.reduction_width(20480, 120, 0.99) == 20480
     before = approx_topk.LAUNCHES["approx_min_k"]
-    with pytest.raises(ValueError, match=f"L={L} exceeds"):
-        approx_topk.approx_min_k(x, 120, 0.99)
-    assert approx_topk.LAUNCHES["approx_min_k"] == before
+    gv, gp = approx_topk.approx_min_k(x, 120, 0.99)
+    torch.cuda.synchronize()
+    assert approx_topk.LAUNCHES["approx_min_k"] == before + 1
+    wv, wp = approx_topk.approx_min_k_reference(x, 120, 0.99)
+    assert torch.equal(gp, wp)
+    assert torch.equal(gv.view(torch.int32), wv.view(torch.int32))
 
 
 @pytest.mark.cuda

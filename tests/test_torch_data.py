@@ -215,3 +215,7 @@ def test_load_mnist_mat_needs_labels(tmp_path):
     matfile.write_mat(path, {"train_X": _array(np.float32)})
     with pytest.raises(ValueError, match="train_labels"):
         mnist.load_mnist(str(path))
+
+
+def test_mnist_search_paths_are_the_reference_paths():
+    assert mnist._SEARCH_PATHS == ref_mnist._SEARCH_PATHS

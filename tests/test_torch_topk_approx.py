@@ -22,10 +22,9 @@ from mpi_knn_tpu_torch import KNNConfig, all_knn
 from mpi_knn_tpu_torch.backends import serial
 from mpi_knn_tpu_torch.ops import topk
 from mpi_knn_tpu_torch.ops.approx_topk import (
-    MAX_KERNEL_WIDTH,
     approx_min_k,
     approx_min_k_reference,
-    check_kernel_width,
+    launch_plan,
     reduction_width,
 )
 from tests.oracle import recall_against_oracle
@@ -130,15 +129,28 @@ def test_plain_handles_zeros_nan_and_batches():
     assert torch.equal(bv.reshape(12, 5), fv) and torch.equal(bp.reshape(12, 5), fp)
 
 
-def test_the_kernel_width_bound_is_named():
-    check_kernel_width(MAX_KERNEL_WIDTH)
-    L = reduction_width(20480, 120, 0.99)
-    assert L > MAX_KERNEL_WIDTH
-    with pytest.raises(ValueError, match=f"L={L} exceeds {MAX_KERNEL_WIDTH}"):
-        check_kernel_width(L)
-    # the plain version has no such bound
-    v, _ = approx_min_k(torch.from_numpy(_distinct(1, 20480)), 120, 0.99)
-    assert v.shape == (1, 120)
+@pytest.mark.parametrize("n,k,rt,aggregate", [
+    (20480, 120, 0.99, True), (20480, 120, 0.99, False),
+    (100000, 256, 0.99, True), (100000, 256, 0.99, False),
+])
+def test_any_width_runs_past_shared_memory(n, k, rt, aggregate):
+    """Widths past the 16384 keys a CTA's shared memory holds: the plain
+    version returns the bin minima, and the kernel's plan takes them in
+    two passes over a global scratch (L = n at 20480, L < n at 100000)."""
+    L = reduction_width(n, k, rt)
+    assert L > 16384 and (L == n) == (n == 20480)
+    x = _distinct(2, n, seed=6)
+    gv, gp = approx_min_k(torch.from_numpy(x), k, rt, aggregate)
+    out = k if aggregate else L
+    assert gv.shape == gp.shape == (2, out)
+    for r in range(2):
+        want = _bin_minima(x[r], L)[:out] if L < n else sorted(
+            (float(v), c) for c, v in enumerate(x[r]))[:out]
+        assert [(float(v), int(p)) for v, p in zip(gv[r], gp[r])] == want
+    plan = launch_plan(2, n, L, out)
+    assert plan["regime"] == "two_pass" and plan["passes"] >= 2
+    assert plan["chunks"] * plan["chunk"] >= L > (plan["chunks"] - 1) * plan["chunk"]
+    assert plan["scratch_keys"] >= 2 * plan["chunks"] * min(out, plan["chunk"])
 
 
 def test_approx_min_k_refuses_other_dtypes():
@@ -269,13 +281,13 @@ def test_recall_target_reaches_the_reduction(rt, monkeypatch):
     from mpi_knn_tpu_torch.ops import topk as port_topk
 
     seen = []
-    real = port_topk.approx_min_k
+    real = port_topk.approx_smallest_k
 
-    def spy(d, k, recall_target, aggregate_to_topk=True):
+    def spy(d, ids, k, method, recall_target):
         seen.append(recall_target)
-        return real(d, k, recall_target, aggregate_to_topk)
+        return real(d, ids, k, method, recall_target)
 
-    monkeypatch.setattr(port_topk, "approx_min_k", spy)
+    monkeypatch.setattr(port_topk, "approx_smallest_k", spy)
     X = _blobs(600)
     for path in PATHS[:3]:
         all_knn(X, k=5, topk_method="approx", recall_target=rt,
