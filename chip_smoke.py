@@ -87,7 +87,8 @@ is not 0:
    the host's ms a batch split into centering and padding and the rest
    (launches), the event span a batch, and the card's busy share (the
    device work alone of each batch's bucket over the wall);
-6. approx_kernel (run right after the build): the bin-minimum kernel that
+6. approx_kernel (run right after the build; f64 cases under "f64/",
+   counted as ``approx_min_k[f64]``): the bin-minimum kernel that
    replaces the TPU's ``lax.approx_min_k`` against its plain version, bit
    for bit in values and positions, at the main path's shapes (the serial
    1024x2048 tile with k 10 and 4k = 40 raw, the stream step's 1024x2176,
@@ -116,10 +117,32 @@ is not 0:
    per tile on serial, once on pallas tiles); query mode at SIFT1M's shape
    (1000000x128 corpus, 10000 queries, both .fvecs) through pallas tiles,
    its saved ids equal to all_knn's;
-8. kernels: one line with every kernel mode's launches, error, times and
+8. precision (in the kernel and main-path sections): K1, K2 (after their
+   norms prologue ``stage_norms``), K3a (the P=1 shape), K4 (one P=4
+   round) and K5 (the P=4 rotation) at matmul_precision "default" and
+   "high" against their plain versions, ids judged by their rounded-operand
+   keys; ``precision_error`` holds every final slot against f64 and against
+   the oracle of rounded operands (gate: the kernel within max(1e-6, 2x the
+   plain's) of that oracle); the high products alone (three bf16 matmuls);
+   main paths at each precision (pallas tiles and sweep, the 4-rank
+   fused-dma, bidir and grid rings) with recall@10 >= 0.999 against the
+   oracle of the operands the precision multiplies (the input data's
+   recall beside it); the
+   planted duplicate's rank and d^2 under each precision
+   (``precision_duplicates``); the serial twolevel approx path at float64
+   (the f64 bin minimum, one launch a tile);
+9. serve_ring (``serve_ring_phase``): the 60000x784 corpus as a ring index
+   on the one card, for each cell of SERVE_RING (4 ranks: fused-dma K4,
+   bidir K3a, grid K5, fused-dma at "default"; 1 rank: mixed K3b, and the
+   int8 wire): the serve phase's two streams through ServeSession, every
+   batch bit for bit all_knn's on the same rows and mesh, recall@10, 0
+   misses after warm, the launches a batch, the shards unchanged; q/s,
+   p50/p99, host ms a batch, build ms and resident bytes;
+10. kernels: one line with every kernel mode's launches, error, times and
    bound, the prologues (`stage_tf32_split`, `stage_tf32[wire]`,
-   `stage_tf32_split[ring]`, `stage_bf16`, `stage_bf16[wire]`) and the
-   approx kernel among them.
+   `stage_tf32_split[ring]`, `stage_bf16`, `stage_bf16[wire]`,
+   `stage_norms`), the "default" / "high" forms and the approx kernel (f32
+   and f64) among them.
 
 Every kernel runs on the tensor cores. The exact K1 and K2 run wgmma: three
 TF32 passes of hi/lo planes that their prologue `stage_tf32_split` writes
@@ -191,6 +214,7 @@ import numpy as np
 PEAK_FP32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 494.7e12
 PEAK_BF16_FLOPS = 989e12
+PRECISIONS = ("default", "high")
 ERROR_GATE = 5e-7  # |d - d_f64| / (q^2 + c^2) floor of the exact_error gate
 ZERO_RULE = 1e-6  # the zero-distance rule's rtol: K1/K2's error ceiling
 PEAK_BYTES_PER_S = 3.35e12
@@ -205,9 +229,10 @@ SAMPLE_ROWS = 4096  # rows whose ids are judged in f64 at the largest shapes
 
 def source_of(kernel: str) -> str:
     """The CUDA source of a kernel mode, under mpi_knn_tpu_torch/csrc/."""
-    if kernel == "approx_min_k":
+    if kernel.startswith("approx_min_k"):
         return "approx_topk.cu"
-    if kernel.startswith("fused_knn") or kernel in ("stage_tf32_split", "stage_bf16"):
+    if kernel.startswith("fused_knn") or kernel in ("stage_tf32_split", "stage_bf16",
+                                                    "stage_norms"):
         return "fused_knn.cu"
     if kernel.startswith(("fused_block_merge", "stage")) and not kernel.endswith("[ring]"):
         return "fused_ring.cu"
@@ -296,12 +321,14 @@ def launch_device_ms(fn, reps: int, kernel: str) -> float:
 SPIN_CYCLES = 100_000_000  # ~50 ms of the card's clock at 1.98 GHz
 
 
-def queued_ms(fn, reps: int) -> float:
+def queued_ms(fn, reps: int, spin: int = SPIN_CYCLES) -> float:
     """Mean device milliseconds of ``fn()`` over ``reps`` calls, by CUDA
     events, the calls queued behind a spin kernel so that the host's time
     to issue them stays out: for calls that do not synchronize and take
-    longer on the host than on the card. Raises if the host took longer to
-    issue them than the spin lasted."""
+    longer on the host than on the card. If the host took longer to issue
+    them than the spin lasted (the host's speed varies from machine to
+    machine), measures once more behind a spin four times as long, then
+    raises."""
     import torch
 
     spun = torch.cuda.Event(enable_timing=True)
@@ -309,7 +336,7 @@ def queued_ms(fn, reps: int) -> float:
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
     spun.record()
-    torch.cuda._sleep(SPIN_CYCLES)
+    torch.cuda._sleep(spin)
     start.record()
     t0 = time.perf_counter()
     for _ in range(reps):
@@ -318,6 +345,8 @@ def queued_ms(fn, reps: int) -> float:
     issue_ms = 1e3 * (time.perf_counter() - t0)
     torch.cuda.synchronize()
     if issue_ms >= spun.elapsed_time(start):
+        if spin == SPIN_CYCLES:
+            return queued_ms(fn, reps, 4 * spin)
         raise AssertionError(f"issuing {reps} calls took {issue_ms:.3f} ms, "
                              "longer than the spin ahead of them")
     return start.elapsed_time(end) / reps
@@ -381,11 +410,27 @@ def sync_all():
         torch.cuda.synchronize(i)
 
 
-def true_keys(q, c, ids, compress=False, clamp=True, mask=None):
+def rounded_dot(qr, cr, precision):
+    """f64 q . c of the operands a precision multiplies: bf16-rounded
+    ("default", and the compress mode), or bf16 hi + lo with lo.lo dropped
+    ("high"), broadcast over the leading dimensions."""
+    import torch
+
+    b = torch.bfloat16
+    if precision == "high":
+        qh, ch = qr.to(b).float(), cr.to(b).float()
+        ql, cl = (qr - qh).to(b).double(), (cr - ch).to(b).double()
+        qh, ch = qh.double(), ch.double()
+        return (ql * ch + qh * cl + qh * ch).sum(-1)
+    return (qr.to(b).double() * cr.to(b).double()).sum(-1)
+
+
+def true_keys(q, c, ids, compress=False, clamp=True, mask=None, precision=None):
     """f64 key of every (row r, id) of ``ids`` (R, L) from the inputs alone:
-    ||q_r - c_id||^2, or in compress mode q^2 - 2 bf16(q).bf16(c) + c^2
-    (max 0 when ``clamp``). inf where id < 0 or ``mask(rows, ids)``. In row
-    chunks of ~2^26 values."""
+    ||q_r - c_id||^2, or in compress mode (or at ``precision`` "default" /
+    "high") q^2 - 2 q.c + c^2 on the operands the product takes
+    (``rounded_dot``; max 0 when ``clamp``). inf where id < 0 or
+    ``mask(rows, ids)``. In row chunks of ~2^26 values."""
     import torch
 
     out = torch.full(ids.shape, float("inf"), dtype=torch.float64,
@@ -394,9 +439,8 @@ def true_keys(q, c, ids, compress=False, clamp=True, mask=None):
     for r0 in range(0, ids.shape[0], rows):
         idc = ids[r0:r0 + rows]
         qr, cr = q[r0:r0 + rows, None, :], c[idc.clamp_min(0).long()]
-        if compress:
-            b = torch.bfloat16
-            dot = (qr.to(b).double() * cr.to(b).double()).sum(-1)
+        if compress or precision in ("default", "high"):
+            dot = rounded_dot(qr, cr, "default" if compress else precision)
             d = ((qr.double() ** 2).sum(-1) - 2.0 * dot
                  + (cr.double() ** 2).sum(-1))
             if clamp:
@@ -436,12 +480,13 @@ def check_ids(name, gd, gi, m, self_ids, k, span):
 
 
 def compare(name, got, want, q, c, m, self_ids, exact: bool, k: int,
-            span, compress=False, sample=None) -> float:
+            span, compress=False, sample=None, precision=None) -> float:
     """Hold a kernel's (dists, ids) against its plain version's; returns the
     largest absolute distance difference over finite slots. Each sorted
     list of k is compared on its own (a tiles kernel emits one per query
     and corpus tile of ``span`` columns). The f64 checks run on the rows
-    of ``sample`` when given, else on every row."""
+    of ``sample`` when given, else on every row; at ``precision``
+    "default" / "high" each id's key is that of the rounded operands."""
     import torch
 
     (gd, gi), (wd, wi) = got, want
@@ -468,7 +513,7 @@ def compare(name, got, want, q, c, m, self_ids, exact: bool, k: int,
     # distance the kernel reported beside it
     q_sq = (q.double() ** 2).sum(1)
     c_sq = (c.double() ** 2).sum(1)
-    true_g = true_keys(q, c, gi, compress=compress)
+    true_g = true_keys(q, c, gi, compress=compress, precision=precision)
     lists = gd.shape[1] // k
     shape = (-1, k)
     gd, gi, wd, wi, true_g = (t.reshape(shape) for t in (gd, gi, wd, wi, true_g))
@@ -580,6 +625,57 @@ def rel_errors(q, c, ids, d):
         fin = torch.isfinite(dc) & (idc >= 0)
         out.append(((dc.double() - d64).abs() / scale)[fin])
     return torch.cat(out)
+
+
+def rounded_errors(q, c, ids, d, precision):
+    """|d - key| / (q^2 + c^2) of every finite slot against the f64 key of
+    the operands ``precision`` multiplies (``rounded_dot``, clamped at 0),
+    and the same key's own distance from the f64 distance; row chunks."""
+    import torch
+
+    to_key, key_to_f64 = [], []
+    rows = max(1, (1 << 26) // (ids.shape[1] * q.shape[1]))
+    for r0 in range(0, ids.shape[0], rows):
+        idc, dc = ids[r0:r0 + rows], d[r0:r0 + rows]
+        qr = q[r0:r0 + rows, None, :]
+        cr = c[idc.clamp_min(0).long()]
+        qs, cs = (qr.double() ** 2).sum(-1), (cr.double() ** 2).sum(-1)
+        key = (qs + cs - 2.0 * rounded_dot(qr, cr, precision)).clamp_min(0.0)
+        d64 = ((qr.double() - cr.double()) ** 2).sum(-1)
+        fin = torch.isfinite(dc) & (idc >= 0)
+        to_key.append(((dc.double() - key).abs() / (qs + cs))[fin])
+        key_to_f64.append(((key - d64).abs() / (qs + cs))[fin])
+    return torch.cat(to_key), torch.cat(key_to_f64)
+
+
+def precision_error(name, precision, q, c, got, want) -> dict:
+    """The precision_error line: max |d - d_f64| / (q^2 + c^2) of the
+    kernel and of its plain version, beside the oracle of rounded operands
+    (its own distance from f64, and each one's distance from it). Fails
+    when the kernel strays from the rounded oracle past max(1e-6, 2x the
+    plain version's): the zero rule's rtol, the accuracy the masks need of
+    the product the precision asks for."""
+    import torch
+
+    def stats(e):
+        return {"max": float(e.max()), "p99_99": float(torch.quantile(e, 0.9999)),
+                "pairs": int(e.numel())}
+
+    k_key, oracle = rounded_errors(q, c, got[1], got[0], precision)
+    p_key, _ = rounded_errors(q, c, want[1], want[0], precision)
+    line = {"phase": "precision_error", "kernel": name, "precision": precision,
+            "kernel_err": stats(rel_errors(q, c, got[1], got[0])),
+            "plain_err": stats(rel_errors(q, c, want[1], want[0])),
+            "rounded_oracle_err": stats(oracle),
+            "kernel_vs_rounded_oracle": stats(k_key),
+            "plain_vs_rounded_oracle": stats(p_key)}
+    line["gate"] = max(ZERO_RULE, 2.0 * line["plain_vs_rounded_oracle"]["max"])
+    line["ok"] = line["kernel_vs_rounded_oracle"]["max"] <= line["gate"]
+    emit(line)
+    if not line["ok"]:
+        raise AssertionError(f"{name}: strays from the rounded oracle by "
+                             f"{line['kernel_vs_rounded_oracle']['max']}")
+    return line
 
 
 def exact_error(name, q, c, got, want, strict=False) -> dict:
@@ -706,7 +802,64 @@ def serve_streams(rng_seed: int = 3):
     return {"a_256": sizes_a, "b_ragged": sizes_b}
 
 
-def serve_phase(device, X) -> dict:
+def serve_inputs(device, X) -> dict:
+    """The serving phases' inputs: SERVE_QUERIES make_mnist_like queries
+    (seed 1, DUP_QUERY equal to corpus row DUP_ROW), the streams, all_knn's
+    own host centering of both (f64) and its f32 rows on the card, and the
+    f64 oracle of 256 sampled queries (the duplicate among them): the zero
+    rule d <= 1e-6 (q^2 + c^2) on the centered rows, ties to the lower
+    id."""
+    import torch
+
+    from mpi_knn_tpu_torch.data.synthetic import make_mnist_like
+    from mpi_knn_tpu_torch.ops.distance import center_for_l2
+
+    Qs, _ = make_mnist_like(SERVE_QUERIES, seed=1)
+    Qs[DUP_QUERY] = X[DUP_ROW]
+    Xc64, Qc64 = center_for_l2(X, Qs, all_pairs=False)
+    picks = np.unique(np.r_[np.linspace(0, SERVE_QUERIES - 1, 255).astype(int),
+                            DUP_QUERY])
+    return {"Qs": Qs, "streams": serve_streams(), "Xc64": Xc64, "Qc64": Qc64,
+            "Xc_dev": torch.from_numpy(Xc64).to(torch.float32).to(device),
+            "Qc_dev": torch.from_numpy(Qc64).to(torch.float32).to(device),
+            "picks": picks, "want_ids": serve_oracle(Qc64[picks], Xc64)}
+
+
+def host_dot(q, c, precision=None):
+    """f64 q . c^T on the host of the operands a precision multiplies: the
+    rows themselves, or (``rounded_dot``) their f32 values rounded to bf16
+    ("default") or split into bf16 hi + lo ("high")."""
+    import torch
+
+    if precision is None:
+        return q @ c.T
+    b = torch.bfloat16
+
+    def parts(x):
+        x = torch.from_numpy(np.asarray(x, np.float32))
+        hi = x.to(b).float()
+        return hi.double().numpy(), (x - hi).to(b).double().numpy()
+
+    (qh, ql), (ch, cl) = parts(q), parts(c)
+    if precision == "default":
+        return qh @ ch.T
+    return ql @ ch.T + qh @ cl.T + qh @ ch.T
+
+
+def serve_oracle(q, c, rtol=1e-6, precision=None, self_rows=None):
+    """f64 ids of each query's K nearest rows of c: the zero rule
+    d <= rtol (q^2 + c^2), ties to the lower id; at ``precision`` the
+    product of the rounded operands (``host_dot``); ``self_rows`` (one per
+    query) excluded."""
+    q_sq, c_sq = (q ** 2).sum(1)[:, None], (c ** 2).sum(1)[None, :]
+    d = np.maximum(q_sq + c_sq - 2.0 * host_dot(q, c, precision), 0.0)
+    d[d <= rtol * (q_sq + c_sq)] = np.inf
+    if self_rows is not None:
+        d[np.arange(len(self_rows)), self_rows] = np.inf
+    return np.argsort(d, axis=1, kind="stable")[:, :K]
+
+
+def serve_phase(device, X, inputs) -> dict:
     """Query serving at full width: a pallas index over the 60000x784
     corpus X (k=10, bucket base 1024, depth 2), and SERVE_QUERIES
     make_mnist_like queries (seed 1, one of them a corpus row) streamed
@@ -722,32 +875,16 @@ def serve_phase(device, X) -> dict:
     import torch
 
     from mpi_knn_tpu_torch import KNNConfig, ServeSession, all_knn, build_index
-    from mpi_knn_tpu_torch.data.synthetic import make_mnist_like
     from mpi_knn_tpu_torch.ops import fused_knn
-    from mpi_knn_tpu_torch.ops.distance import center_for_l2
     from mpi_knn_tpu_torch.serve import engine
     from mpi_knn_tpu_torch.utils.report import recall_at_k
 
     t_phase = time.perf_counter()
-    Qs, _ = make_mnist_like(SERVE_QUERIES, seed=1)
-    Qs[DUP_QUERY] = X[DUP_ROW]
-    streams = serve_streams()
     # all_knn's own host centering (f64 mean and subtraction), once: the
     # reference calls get the same f32 rows with center=False
-    Xc64, Qc64 = center_for_l2(X, Qs, all_pairs=False)
-    Xc_dev = torch.from_numpy(Xc64).to(torch.float32).to(device)
-    Qc_dev = torch.from_numpy(Qc64).to(torch.float32).to(device)
-    # the f64 oracle of 256 sampled queries (the duplicate among them):
-    # the zero rule d <= 1e-6 (q^2 + c^2) on the centered rows, ties to the
-    # lower id
-    picks = np.unique(np.r_[np.linspace(0, SERVE_QUERIES - 1, 255).astype(int),
-                            DUP_QUERY])
-    q, c = Qc64[picks], Xc64
-    q_sq, c_sq = (q ** 2).sum(1)[:, None], (c ** 2).sum(1)[None, :]
-    d = q_sq + c_sq - 2.0 * (q @ c.T)
-    d[d <= 1e-6 * (q_sq + c_sq)] = np.inf
-    want_ids = np.argsort(d, axis=1, kind="stable")[:, :K]
-    del d
+    Qs, streams, Xc_dev, Qc_dev = (inputs[k] for k in ("Qs", "streams", "Xc_dev",
+                                                         "Qc_dev"))
+    picks, want_ids = inputs["picks"], inputs["want_ids"]
     max_err = {}
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     for variant, policy in SERVE_VARIANTS + SERVE_KERNEL_ONLY:
@@ -939,6 +1076,177 @@ def serve_phase(device, X) -> dict:
     return max_err
 
 
+SERVE_RING_BUCKET = 256
+# the ring serving cells, every rank on the one card: (label, ranks, config,
+# the launches a batch makes: its kernel(s) and the query-side prologue)
+SERVE_RING = (
+    ("P4/fused-dma/exact", 4, dict(ring_fusion="fused"),
+     {"fused_round_dma": 4, "stage_tf32_split[ring]": 4}),
+    ("P4/fused/bidir/exact", 4, dict(ring_fusion="fused", ring_schedule="bidir"),
+     {"fused_block_merge[exact]": 16, "stage_tf32[wire]": 4}),
+    ("P4/fused-grid/exact", 4, dict(ring_fusion="fused", ring_fused_rotation="grid"),
+     {"fused_rotation_grid": 1, "stage_tf32[wire]": 4}),
+    ("P4/fused-dma/default", 4, dict(ring_fusion="fused", matmul_precision="default"),
+     {"fused_round_dma[default]": 4, "stage_tf32[wire]": 4}),
+    ("P1/fused/mixed", 1, dict(ring_fusion="fused", precision_policy="mixed"),
+     {"fused_block_merge[compress]": 1, "stage_bf16[wire]": 2}),
+    ("P1/fused/mixed/int8", 1, dict(ring_fusion="fused", precision_policy="mixed",
+                                    ring_transfer_dtype="int8"),
+     {"fused_block_merge[compress]": 1, "stage_bf16[wire]": 2}),
+)
+
+
+def serve_ring_phase(device, X, inputs):
+    """Ring serving at full width: the 60000x784 corpus X as a ring-overlap
+    index of P ranks on the one card (bucket base SERVE_RING_BUCKET, depth
+    2), and the serve phase's queries in the 256-row and the ragged stream,
+    for each cell of SERVE_RING. Gates: at build the corpus-side prologue
+    once per rank (what the build config's form reads: K4's planes, the
+    norms, or nothing for K3b); 0 bucket misses after warm; per batch the
+    cell's launches (K4: one per round, K3a: one per merge, K5: one, K3b:
+    one, each with its query prologue); every batch equal bit for bit to
+    all_knn on the card on the same rows and mesh; recall@10 against the
+    f64 oracle of 256 sampled queries (the int8 wire's against its
+    dequantized rows', ROADMAP C.4; "default" against the oracle of its
+    rounded operands) at the exact gate, the input data's recall printed
+    beside; the duplicate query dropped on the exact and mixed f32
+    cells; the resident shards unchanged by the stream (only read). Then
+    one timed window of each stream: q/s, p50/p99, host ms a batch."""
+    import torch
+
+    from mpi_knn_tpu_torch import KNNConfig, ServeSession, all_knn, build_index
+    from mpi_knn_tpu_torch.ops.quant import dequantize_rows, quantize_rows
+    from mpi_knn_tpu_torch.serve import engine
+    from mpi_knn_tpu_torch.utils.report import recall_at_k
+
+    t_phase = time.perf_counter()
+    Qs, streams, Xc_dev, Qc_dev = (inputs[k] for k in ("Qs", "streams", "Xc_dev",
+                                                         "Qc_dev"))
+    picks = inputs["picks"]
+    wire_rows = dequantize_rows(*quantize_rows(Xc_dev)).double().cpu().numpy()
+    want_wire = serve_oracle(inputs["Qc64"][picks], wire_rows)
+    del wire_rows
+    q32 = inputs["Qc64"][picks].astype(np.float32).astype(np.float64)
+    x32 = inputs["Xc64"].astype(np.float32).astype(np.float64)
+    want_rounded = {p: serve_oracle(q32, x32, precision=p) for p in PRECISIONS}
+    del q32, x32
+    all_sizes = [n for sizes in streams.values() for n in sizes]
+    buckets = sorted({engine.bucket_rows(n, SERVE_RING_BUCKET) for n in all_sizes})
+    for label, P, extra, per_batch in SERVE_RING:
+        t_cell = time.perf_counter()
+        mesh = [device] * P
+        kw = dict(k=K, backend="ring-overlap", query_bucket=SERVE_RING_BUCKET,
+                  dispatch_depth=2, **extra)
+        precision = extra.get("matmul_precision")
+        int8 = extra.get("ring_transfer_dtype") == "int8"
+        oracle = (want_wire if int8 else want_rounded[precision] if precision
+                  else inputs["want_ids"])
+        form_stage = next(iter(k for k in per_batch if k.startswith("stage")))
+        expect_build = {} if "compress" in next(iter(per_batch)) else {form_stage: P}
+        sync_all()
+        mem0 = torch.cuda.memory_allocated(device)
+        reset_counts()
+        t0 = time.perf_counter()
+        index = build_index(X, KNNConfig(**kw), device=device, mesh=mesh)
+        sync_all()
+        build_ms = 1e3 * (time.perf_counter() - t0)
+        resident = torch.cuda.memory_allocated(device) - mem0
+        build_counts = {k: v for k, v in read_counts().items() if v}
+        before = [tuple(None if t is None else t.clone() for t in sh) for sh in index.shards]
+        session = ServeSession(index, device=device)
+        warm = session.warm(all_sizes)
+        for n in buckets:
+            list(session.stream([Qs[:n]]))  # the warm-up batch of each bucket
+        emit({"phase": "serve_build", "path": f"ring/{label}", "m": M_FULL,
+              "d": X.shape[1], "k": K, "ranks": P, "c_tile": index.c_tile,
+              "index_build_ms": build_ms, "resident_bytes": resident,
+              "nbytes_resident": index.nbytes_resident, "staged_parts": index.ring_parts,
+              "launches_at_build": build_counts, "warm": warm})
+        if build_counts != expect_build:
+            raise AssertionError(f"serve ring/{label}: build launches {build_counts}, "
+                                 f"expected {expect_build}")
+        for name, sizes in streams.items():
+            batches, r0 = [], 0
+            for n in sizes:
+                batches.append(Qs[r0:r0 + n])
+                r0 += n
+            nb = len(batches)
+            session.reset_stats()
+            engine.reset_misses()
+            reset_counts()
+            sync_all()
+            results = list(session.stream(batches))
+            counts = {k: v for k, v in read_counts().items() if v}
+            misses = engine.MISSES
+            # the int8 wire quantizes the corpus where it lies, so its all_knn
+            # takes the host rows, as the index was built from them
+            ref_corpus = inputs["Xc64"].astype(np.float32) if int8 else Xc_dev
+            equal, r0 = 0, 0
+            for res in results:
+                want = all_knn(ref_corpus, queries=Qc_dev[r0:r0 + res.rows],
+                               center=False, mesh=mesh, device=device, **kw)
+                equal += (np.array_equal(res.ids, want.ids.cpu().numpy())
+                          and np.array_equal(res.dists, want.dists.cpu().numpy()))
+                r0 += res.rows
+            ids = np.concatenate([r.ids for r in results])
+            rec = recall_at_k(ids[picks], oracle)
+            rec_input = recall_at_k(ids[picks], inputs["want_ids"])
+            dup_dropped = DUP_ROW not in ids[DUP_QUERY].tolist()
+            expect = {k: v * nb for k, v in per_batch.items()}
+            emit({"phase": "serve_check", "path": f"ring/{label}", "stream": name,
+                  "batches": nb, "queries": int(sum(sizes)),
+                  "buckets": sorted({r.bucket for r in results}),
+                  "bucket_misses_after_warm": misses, "launches": counts,
+                  "launches_per_batch": {k: v / nb for k, v in counts.items()},
+                  "batches_equal_to_all_knn": equal, "recall_at_10": rec,
+                  "recall_oracle": ("dequantized rows" if int8 else
+                                    f"rounded operands ({precision})" if precision
+                                    else "input data"),
+                  "recall_at_10_input_data": rec_input,
+                  "duplicate_dropped": dup_dropped})
+            if counts != expect:
+                raise AssertionError(f"serve ring/{label}/{name}: launches {counts}, "
+                                     f"expected {expect}")
+            if misses:
+                raise AssertionError(f"serve ring/{label}/{name}: {misses} misses")
+            if equal != nb:
+                raise AssertionError(f"serve ring/{label}/{name}: {nb - equal} of {nb} "
+                                     "batches differ from all_knn")
+            if rec < RECALL_GATE:
+                raise AssertionError(f"serve ring/{label}/{name}: recall@10 {rec}")
+            if not dup_dropped and precision is None and not int8:
+                raise AssertionError(f"serve ring/{label}/{name}: the duplicate query "
+                                     "returned its twin")
+            session.reset_stats()
+            engine.reset_misses()
+            sync_all()
+            t0 = time.perf_counter()
+            results = list(session.stream(batches))
+            wall = time.perf_counter() - t0
+            if engine.MISSES:
+                raise AssertionError(f"serve ring/{label}/{name}: misses in the window")
+            lats = np.asarray(session.latencies) * 1e3
+            host = [r.host_ms for r in results]
+            emit({"phase": "serve", "path": f"ring/{label}", "stream": name,
+                  "batches": nb, "wall_s": wall, "qps": session.queries_served / wall,
+                  "latency_p50_ms": float(np.percentile(lats, 50)),
+                  "latency_p99_ms": float(np.percentile(lats, 99)),
+                  "host_ms_median": statistics.median(host),
+                  "host_prep_ms_median": statistics.median([r.prep_ms for r in results]),
+                  "span_ms_median": statistics.median([r.device_ms for r in results]),
+                  "peak_hbm_bytes": torch.cuda.max_memory_allocated(device)})
+        sync_all()
+        unchanged = all(
+            (a is None) == (b is None) and (a is None or torch.equal(a, b))
+            for sh0, sh in zip(before, index.shards) for a, b in zip(sh0, sh))
+        emit({"phase": "serve_ring_shards", "path": f"ring/{label}",
+              "shards_unchanged": unchanged, "seconds": time.perf_counter() - t_cell})
+        if not unchanged:
+            raise AssertionError(f"serve ring/{label}: a resident shard was written")
+        del session, index, before
+    emit({"phase": "serve_ring_done", "seconds": time.perf_counter() - t_phase})
+
+
 # the approximate top-k kernel's shapes: (case, rows, columns, k, aggregate,
 # recall_target); the serial twolevel tile (approx: k, approx-rerank: 4k
 # raw), the stream step's carry + tile padded to 2176, the pallas tiles'
@@ -976,6 +1284,11 @@ FUSED_CASES = (("tile_k10", 1024, 2048, True, "approx"),
                ("planted_ties", 1024, 2058, False, "approx-rerank"),
                ("inf_entries", 1024, 2058, False, "approx"),
                ("zeros_nan", 1024, 2058, False, "approx-rerank"))
+# f64 rows (the reference's f64 mode): 16-byte keys in every plan, the
+# main path's shapes and the edge rows, and the fused form at the serial tile
+APPROX_F64_CASES = ("tile_k10", "tile_rerank", "stream_rerank", "planted_ties",
+                    "zeros_nan", "wide_raw", "odd_cta_raw", "odd_two_pass")
+FUSED_F64_CASES = ("tile_k10", "tile_rerank", "stream_k10", "zeros_nan")
 RECALL_TARGET = 0.95  # the config's default, which the run_cli phase uses
 HOST_CALLS = 1000  # calls a host part is timed over (none synchronizes)
 # serial stream approx-rerank, recall over all 60000 rows: the card read
@@ -985,13 +1298,13 @@ HOST_CALLS = 1000  # calls a host part is timed over (none synchronizes)
 STREAM_RERANK_GATE = 0.997
 
 
-def approx_rows(rng, case, rows, n):
+def approx_rows(rng, case, rows, n, dtype=np.float32):
     """A case's rows: planted ties (a few values, each column tied many
     times), squared normals otherwise; +inf, -0.0 and NaN planted by name."""
     if case == "planted_ties":
-        x = rng.integers(0, 6, (rows, n)).astype(np.float32)
+        x = rng.integers(0, 6, (rows, n)).astype(dtype)
     else:  # squared distances
-        x = rng.standard_normal((rows, n)).astype(np.float32) ** 2
+        x = rng.standard_normal((rows, n)).astype(dtype) ** 2
     if case == "inf_padding":  # the stream step's lane padding
         x[:, 2058:] = np.inf
         x[7] = np.inf
@@ -1006,13 +1319,14 @@ def approx_rows(rng, case, rows, n):
     return x
 
 
-def approx_entry(call, plain, topk, same, got_v, want_v, plan, t_bytes, t_ops):
+def approx_entry(call, plain, topk, same, got_v, want_v, plan, t_bytes, t_ops,
+                 reps=20):
     """Times and bound of one approx case (device times queued behind a
-    spin, means of 20; the call alone by CUDA events, mean of 3)."""
+    spin, means of ``reps``; the call alone by CUDA events, mean of 3)."""
     return {"plan": plan, "bitwise_equal": same,
             "max_abs_err": float((got_v - want_v).abs().nan_to_num(0.0).max()),
-            "ms": queued_ms(call, 20), "call_ms": cuda_ms(call, reps=3),
-            "plain_ms": queued_ms(plain, 20), "topk_ms": queued_ms(topk, 20),
+            "ms": queued_ms(call, reps), "call_ms": cuda_ms(call, reps=3),
+            "plain_ms": queued_ms(plain, reps), "topk_ms": queued_ms(topk, reps),
             "bound_ms": 1e3 * max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
@@ -1037,40 +1351,49 @@ def approx_kernel_phase(device) -> dict:
     rng = np.random.default_rng(21)
     out = {}
 
-    def launched_once(name, fn):
-        before = approx_topk.LAUNCHES["approx_min_k"]
+    def launched_once(name, fn, counter="approx_min_k"):
+        before = approx_topk.LAUNCHES[counter]
         got = fn()
         torch.cuda.synchronize()
-        if approx_topk.LAUNCHES["approx_min_k"] != before + 1:
+        if approx_topk.LAUNCHES[counter] != before + 1:
             raise AssertionError(f"{name}: not one launch of the kernel")
         return got
 
-    for case, rows, n, k, aggregate, rt in APPROX_CASES:
-        d = torch.from_numpy(approx_rows(rng, case, rows, n)).to(device)
+    f64 = [(f"f64/{c[0]}", *c[1:]) for c in APPROX_CASES if c[0] in APPROX_F64_CASES]
+    for case, rows, n, k, aggregate, rt in APPROX_CASES + tuple(f64):
+        dt = np.float64 if case.startswith("f64/") else np.float32
+        size = 8 if dt == np.float64 else 4
+        d = torch.from_numpy(approx_rows(rng, case.removeprefix("f64/"), rows, n,
+                                         dt)).to(device)
         L = approx_topk.reduction_width(n, k, rt)
         width = k if aggregate else L
         call = lambda: approx_topk.approx_min_k(d, k, rt, aggregate)  # noqa: E731
         plain = lambda: approx_topk.approx_min_k_reference(d, k, rt, aggregate)  # noqa: E731
         topk = lambda: torch.topk(d, k, dim=-1, largest=False)  # noqa: E731
-        (gv, gp), (wv, wp) = launched_once(f"approx_min_k/{case}", call), plain()
-        same = torch.equal(gp, wp) and torch.equal(gv.view(torch.int32),
-                                                   wv.view(torch.int32))
+        counter = "approx_min_k[f64]" if size == 8 else "approx_min_k"
+        (gv, gp), (wv, wp) = launched_once(f"approx_min_k/{case}", call, counter), plain()
+        bits = torch.int64 if size == 8 else torch.int32
+        same = torch.equal(gp, wp) and torch.equal(gv.view(bits), wv.view(bits))
         topk()
-        t_bytes = (4.0 * rows * n + 12.0 * rows * width) / PEAK_BYTES_PER_S
+        t_bytes = (size * rows * n + (size + 8.0) * rows * width) / PEAK_BYTES_PER_S
         t_ops = float(rows * n) / PEAK_FP32_FLOPS
         entry = {"rows": rows, "n": n, "k": k, "aggregate_to_topk": aggregate,
-                 "recall_target": rt, "L": L, "out": width,
+                 "recall_target": rt, "L": L, "out": width, "dtype": str(d.dtype),
                  **approx_entry(call, plain, topk, same, gv, wv,
-                                approx_topk.launch_plan(rows, n, L, width),
-                                t_bytes, t_ops)}
+                                approx_topk.launch_plan(rows, n, L, width, d.dtype),
+                                t_bytes, t_ops, reps=5 if size == 8 else 20)}
         emit({"phase": "approx_kernel", "case": case, **entry})
         if not same:
             raise AssertionError(f"approx_min_k/{case}: differs from its plain version")
         out[case] = entry
         del d, gv, gp, wv, wp
 
-    for case, rows, c, flat, method in FUSED_CASES:
-        d = torch.from_numpy(approx_rows(rng, case, rows, c)).to(device)
+    f64 = [(f"f64/{c[0]}", *c[1:]) for c in FUSED_CASES if c[0] in FUSED_F64_CASES]
+    for case, rows, c, flat, method in FUSED_CASES + tuple(f64):
+        dt = np.float64 if case.startswith("f64/") else np.float32
+        size = 8 if dt == np.float64 else 4
+        d = torch.from_numpy(approx_rows(rng, case.removeprefix("f64/"), rows, c,
+                                         dt)).to(device)
         ids = torch.from_numpy(rng.permutation(c).astype(np.int32)).to(device)
         if not flat:  # the (q, c) ids of a carry || tile or of the survivors
             ids = ids[None].repeat(rows, 1) + torch.arange(
@@ -1082,18 +1405,22 @@ def approx_kernel_phase(device) -> dict:
         plain = lambda: approx_topk.approx_smallest_k_reference(  # noqa: E731
             d, ids, K, method, RECALL_TARGET)
         topk = lambda: torch.topk(d, K, dim=-1, largest=False)  # noqa: E731
-        (gv, gi), (wv, wi) = launched_once(f"approx_smallest_k/{case}", call), plain()
-        same = torch.equal(gi, wi) and torch.equal(gv.view(torch.int32),
-                                                   wv.view(torch.int32))
+        counter = "approx_min_k[f64]" if size == 8 else "approx_min_k"
+        (gv, gi), (wv, wi) = (launched_once(f"approx_smallest_k/{case}", call, counter),
+                              plain())
+        bits = torch.int64 if size == 8 else torch.int32
+        same = torch.equal(gi, wi) and torch.equal(gv.view(bits), wv.view(bits))
         topk()
         # the rows once, the K ids a row gathers, the (value, id) outputs
-        t_bytes = (4.0 * rows * c + 4.0 * rows * K + 8.0 * rows * K) / PEAK_BYTES_PER_S
+        t_bytes = (size * rows * c + 4.0 * rows * K + (size + 4.0) * rows * K) \
+            / PEAK_BYTES_PER_S
         t_ops = float(rows * c) / PEAK_FP32_FLOPS
         entry = {"rows": rows, "c": c, "n_pad": n_pad, "ids": "(c,)" if flat else "(q, c)",
-                 "method": method, "k": K, "L": L, "out": min(K, L),
+                 "method": method, "k": K, "L": L, "out": min(K, L), "dtype": str(d.dtype),
                  **approx_entry(call, plain, topk, same, gv, wv,
-                                approx_topk.launch_plan(rows, n_pad, L, min(K, L)),
-                                t_bytes, t_ops)}
+                                approx_topk.launch_plan(rows, n_pad, L, min(K, L),
+                                                        d.dtype),
+                                t_bytes, t_ops, reps=5 if size == 8 else 20)}
         emit({"phase": "approx_kernel", "case": f"fused/{case}", **entry})
         if not same:
             raise AssertionError(f"approx_smallest_k/{case}: differs from the plain chain")
@@ -1350,6 +1677,14 @@ def main() -> int:
     )
 
     device = torch.device("cuda", 0)
+    marks = [("start", time.perf_counter())]
+
+    def mark(name):
+        """One line of the seconds since the previous mark."""
+        marks.append((name, time.perf_counter()))
+        emit({"phase": "phase_seconds", "name": name,
+              "seconds": marks[-1][1] - marks[-2][1]})
+
     kind = torch.cuda.get_device_name(0)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     count = torch.cuda.device_count()
@@ -1371,6 +1706,7 @@ def main() -> int:
         emit({"phase": "build", "source": f"csrc/{name}.cu", "defines": defines,
               "seconds": entry["seconds"], "cached": entry["log"] == "cached"})
 
+    mark("build")
     # ---- every kernel: tensor-core instructions and resources -------------
     mma = {src: sass_mma_counts(_build._lib_path(src)) for src in _build.SOURCES}
     emit({"phase": "sass", "mma_by_function": mma})
@@ -1388,8 +1724,42 @@ def main() -> int:
                                       ("round_dma_kernelIL", "HMMA")],
                   "stage_tf32_split[ring]": [("stage_split_kernel", "HGMMA")],
                   "fused_rotation_grid": [("rotation_grid_kernel", "HMMA")]}
+    # the "default" / "high" forms: the mma.sync tile on Bf16x1F32 / Bf16x3
+    policy = {"default": "Bf16x1F32", "high": "Bf16x3"}
+    for p in PRECISIONS:
+        for base, fn in (("fused_knn_tiles", "fused_knn_mma_kernel"),
+                         ("fused_knn_sweep", "fused_knn_mma_kernel"),
+                         ("fused_block_merge", "block_merge_exact_kernel"),
+                         ("fused_round_dma", "round_dma_kernelIL"),
+                         ("fused_rotation_grid", "rotation_grid_kernel")):
+            kernel_fns[f"{base}[{p}]"] = [(fn, "HMMA", policy[p])]
+    kernel_fns["stage_norms"] = [("stage_tf32_kernel", "HMMA", None)]
     for name, checks in kernel_fns.items():
         lib = mma[source_of(name).removesuffix(".cu")]
+        checks = [c if len(c) == 3 else (*c, None) for c in checks]
+        if "[default]" in name or "[high]" in name or name == "stage_norms":
+            found = {f"{op.lower()}_in_sass[{fn}]": sum(
+                v[op] for f, v in lib.items() if fn in f and (pol is None or pol in f))
+                for fn, op, pol in checks}
+            p = name[name.index("[") + 1:-1] if "[" in name else None
+            base = name.split("[")[0]
+            if name == "stage_norms":
+                info = {}
+            elif base.startswith("fused_knn"):
+                info = fused_knn.mma_plan(base, 60416, 61440, C_TILE, K, p)
+            elif base == "fused_block_merge":
+                info = {f"q_local_{ql}": fused_ring.exact_plan(torch.float32, ql, K, p)
+                        for ql in (60416, 15360)}
+            else:
+                which = "round" if base == "fused_round_dma" else "grid"
+                info = {f"{n}_ranks_per_card": fused_rotation.ring_kernel_plan(
+                    which, torch.float32, n, 15360, K, p) for n in (4, 1)}
+            emit({"phase": "kernel_resources", "kernel": name, "k": K, **found, **info})
+            for key, n in found.items():
+                if n <= 0:
+                    raise AssertionError(f"{name}: {key} is 0")
+            continue
+        checks = [c[:2] for c in checks]
         found = {f"{op.lower()}_in_sass[{fn}]": sum(v[op] for f, v in lib.items() if fn in f)
                  for fn, op in checks}
         kk = OV if "[compress]" in name else K
@@ -1454,6 +1824,7 @@ def main() -> int:
     # ---- the partial top-k reduction (lax.approx_min_k) against its plain
     approx = approx_kernel_phase(device)
 
+    mark("sass_rates_approx")
     # ---- the fused kNN kernels against their plain versions -------------
     knn_modes = {  # mode name -> (wrapper, plain version, compress)
         f"{base}{suffix}": (getattr(fused_knn, base),
@@ -1745,8 +2116,80 @@ def main() -> int:
         **stage_bound(C, D, width, 4.0)}
     emit({"phase": "kernel_time", "kernel": "stage_bf16", "rows": C, "D": D,
           "width": width, **timing["stage_bf16"]})
+
+    # ---- matmul_precision "default" / "high": K1 and K2 at the main shape:
+    # the f32 mma.sync tile with each operand rounded to bf16 (one pass) or
+    # split into bf16 hi + lo (three passes) in registers, after the norms
+    # prologue stage_norms (once: the queries are the corpus's first rows).
+    # Each against its plain version (ids judged by their rounded-operand
+    # keys on SAMPLE_ROWS rows), every final slot against f64 and against
+    # the oracle of rounded operands (precision_error)
+    t_prec = time.perf_counter()
+    norms = fused_knn.stage_f32_norms(cp)
+    max_err["stage_norms"] = check_norms("stage_norms/mnist60k_corpus", norms,
+                                         fused_knn.sq_norms(cp))
+    timing["stage_norms"] = {
+        "ms": cuda_ms(lambda: fused_knn.stage_f32_norms(cp), reps=3),
+        "plain_ms": cuda_ms(lambda: fused_knn.sq_norms(cp), reps=3),
+        "library_ms": cuda_ms(lambda: torch.einsum("ij,ij->i", cp, cp), reps=3),
+        **norms_bound(C, D, 4.0)}
+    emit({"phase": "kernel_time", "kernel": "stage_norms", "rows": C, "D": D,
+          **timing["stage_norms"]})
+    staged_n = ((norms[:Q],), (norms,))
+    for precision in PRECISIONS:
+        passes = 1 if precision == "default" else 3
+        for base in ("fused_knn_tiles", "fused_knn_sweep"):
+            name = f"{base}[{precision}]"
+            kern = getattr(fused_knn, base)
+            plain = getattr(fused_knn, base + "_reference")
+            args = (qp, cp, M_FULL, K, Q_TILE, C_TILE)
+            kw = dict(precision=precision)
+            got, want = kern(*args, **kw), plain(*args, **kw)  # also the warm-ups
+            call_ms = cuda_ms(lambda: kern(*args, **kw), reps=1)  # noqa: B023
+            ms = cuda_ms(lambda: fused_knn.launch_mma(  # noqa: B023
+                base, qp, cp, *staged_n, M_FULL, K, C_TILE, precision), reps=2)  # noqa: B023
+            plain_ms = cuda_ms(lambda: plain(*args, **kw), reps=1)  # noqa: B023
+            max_err[name] = compare(f"{name}/mnist60k_main_shape", got, want, qp, cp,
+                                    M_FULL, self_all, False, K,
+                                    span_of(name, C_TILE, C), sample=sample,
+                                    precision=precision)
+            final = [(fused_knn._select(*t, K) if base == "fused_knn_tiles" else t)
+                     for t in (got, want)]
+            precision_error(name, precision, qp[:M_FULL], cp,
+                            *((d[:M_FULL], i[:M_FULL]) for d, i in final))
+            out_slots = (n_c if base == "fused_knn_tiles" else 1) * M_FULL * K
+            nbytes = 4.0 * (2 * M_FULL * D) + 8.0 * out_slots
+            timing[name] = {"ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
+                            **bound(passes * needed_ops, nbytes, PEAK_BF16_FLOPS),
+                            "passes": passes,
+                            "tflops": needed_ops / (ms * 1e-3) / 1e12}
+            plan = fused_knn.mma_plan(base, Q, C, C_TILE, K, precision)
+            plan["waves"] = plan["ctas"] / (plan["ctas_per_sm"] * sms)
+            emit({"phase": "launch_plan", "kernel": name, "shape": "main_shape",
+                  "sms": sms, **plan})
+            emit({"phase": "kernel_time", "kernel": name, "Q": Q, "C": C, "D": D,
+                  "k": K, **timing[name]})
+            del got, want, final
+    # the products alone at "high": three bf16 matmuls of the hi / lo copies
+    qh, ch = qp.to(torch.bfloat16), cp.to(torch.bfloat16)
+    ql, cl = (qp - qh.float()).to(torch.bfloat16), (cp - ch.float()).to(torch.bfloat16)
+
+    def product_high():
+        for r0 in range(0, Q, chunk):
+            torch.matmul(ql[r0:r0 + chunk], ch.T)
+            torch.matmul(qh[r0:r0 + chunk], cl.T)
+            torch.matmul(qh[r0:r0 + chunk], ch.T)
+
+    product_high()
+    product_ms = cuda_ms(product_high, reps=1)
+    emit({"phase": "product_alone", "call": "3 x torch.matmul(bf16, bf16.T) (high)",
+          "Q": Q, "C": C, "width": D, "query_chunk": chunk, "ms": product_ms,
+          "tflops_needed": 3 * needed_ops / (product_ms * 1e-3) / 1e12})
+    del qh, ch, ql, cl, norms, staged_n
+    emit({"phase": "precision_kernels_done", "seconds": time.perf_counter() - t_prec})
     del qp, cp, staged, qb, cb, split
 
+    mark("fused_knn_kernels_and_precision")
     # ---- the ring block merge against its plain versions -----------------
     merge_modes = {
         "fused_block_merge[exact]": (fused_ring.block_merge_exact,
@@ -1890,6 +2333,47 @@ def main() -> int:
             del got, want
         del staged_q, staged_b, q_norms, b_norms
 
+    # K3a at "default" / "high" at the ring's P=1 MNIST shape, from an empty
+    # carry: the mma.sync tile on Bf16x1F32 / Bf16x3 with the f32 norms of
+    # stage_tf32[wire]
+    ops, q_tile, c_tile = ring_operands(1, 0, 0)
+    qs, qids = ops[0], ops[1]
+    q_norms = fused_ring.stage_wire_norms(qs, None)
+    b_norms = fused_ring.stage_wire_norms(ops[2], None)
+    carry = init_topk(qs.shape[0], K, device=device)
+    real = qids >= 0
+    real_q, real_b = int(real.sum()), int((ops[3] >= 0).sum())
+    for precision in PRECISIONS:
+        name = f"fused_block_merge[{precision}]"
+        call = lambda: fused_ring.block_merge_exact(  # noqa: E731
+            *ops, *carry, c_tile=c_tile, precision=precision)  # noqa: B023
+        alone = lambda: fused_ring.block_merge_exact(  # noqa: E731
+            *ops, *carry, c_tile=c_tile, query_norms=q_norms, block_norms=b_norms,
+            precision=precision)  # noqa: B023
+        pcall = lambda: fused_ring.block_merge_exact_reference(  # noqa: E731
+            *ops, *carry, c_tile=c_tile, precision=precision)  # noqa: B023
+        got, want = call(), pcall()
+        ms, call_ms, plain_ms = (cuda_ms(f, reps=1) for f in (alone, call, pcall))
+        max_err[name] = compare(f"{name}/p1_mnist60k", got, want, qs, Xcd, M_FULL, qids,
+                                False, K, None, sample=sample, precision=precision)
+        precision_error(name, precision, qs[real], Xcd,
+                        *((d[real], i[real]) for d, i in (got, want)))
+        plan = fused_ring.exact_plan(torch.float32, qs.shape[0], K, precision)
+        plan["waves"] = plan["ctas"] / (plan["ctas_per_sm"] * sms)
+        emit({"phase": "launch_plan", "kernel": name, "shape": "p1_mnist60k",
+              "sms": sms, **plan})
+        ops_needed = 2.0 * real_q * real_b * D
+        nbytes = 4.0 * real_q * D + 4.0 * real_b * D + 16.0 * qs.shape[0] * K
+        entry = {"ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
+                 **bound((1 if precision == "default" else 3) * ops_needed, nbytes,
+                         PEAK_BF16_FLOPS)}
+        ring_timing[(name, "p1_mnist60k")] = entry
+        emit({"phase": "kernel_time", "kernel": name, "shape": "p1_mnist60k",
+              "q_local": qs.shape[0], "b": ops[2].shape[0], "D": D, "k": K, **entry})
+        del got, want
+    del ops, qs, qids, q_norms, b_norms, carry, real
+
+    mark("ring_merges")
     # ---- the ring transport (K4, K5) against its plain versions ----------
     mesh = make_ring_mesh(4) if count >= 4 else make_ring_mesh(devices=[device] * 4)
     devices4 = list(mesh)
@@ -2126,6 +2610,81 @@ def main() -> int:
         del got, want, slots, want_slots
     del q_sh, qid_sh, travelers, blocks0, blocks4, blocks, carries, init, q_norms, staged_q
 
+    # K4 (one P=4 round: round 1) and K5 (the P=4 rotation) at "default" /
+    # "high": the mma.sync round kernel on the f32 wire (no planes) and the
+    # grid kernel, their travelers carrying the norms of stage_tf32[wire]
+    q_tile, c_tile, q_sh, qid_sh, travelers = ring.ring_shards(
+        cfg_fused, Xc, Xc, row_ids, devices4)
+    blocks0 = [(b, i, s, fused_ring.stage_wire_norms(b, s)) for b, i, s in travelers[0]]
+    q_norms = [fused_ring.stage_wire_norms(q, None) for q in q_sh]
+    init = [init_topk(q.shape[0], K, device=q.device) for q in q_sh]
+    tr = fused_rotation.ring_transport(devices4)
+    one_card = tr.local[tr.cards[0]]
+    q_all = torch.cat([q.to(device) for q in q_sh])
+    qid_all = torch.cat([t.to(device) for t in qid_sh])
+    for precision in PRECISIONS:
+        passes = 1 if precision == "default" else 3
+        blocks = lands(blocks0, 1)
+        carries = fused_rotation.fused_round_dma_reference(
+            q_sh, qid_sh, blocks0, init, blocks, c_tile=c_tile, precision=precision)
+        land, want_land = lands(blocks, 0), lands(blocks, 0)
+        k4 = lambda: fused_rotation.fused_round_dma(  # noqa: E731
+            tr, q_sh, qid_sh, blocks, carries, land, c_tile=c_tile,  # noqa: B023
+            query_norms=q_norms, precision=precision)  # noqa: B023
+        k4_plain = lambda: fused_rotation.fused_round_dma_reference(  # noqa: E731
+            q_sh, qid_sh, blocks, carries, want_land, c_tile=c_tile,  # noqa: B023
+            precision=precision)  # noqa: B023
+        name = f"fused_round_dma[{precision}]"
+        got, want = k4(), k4_plain()
+        sync_all()
+        same_landing(f"{name}/p4_round", land, blocks)
+        ms = launch_device_ms(k4, 2, "round_dma_kernel")
+        call_ms, plain_ms = mesh_ms(k4, 1, devices4), mesh_ms(k4_plain, 1, devices4)
+        max_err[name] = compare(f"{name}/p4_round", cat(got), cat(want), q_all, Xcd,
+                                M_FULL, qid_all, False, K, None, sample=sample,
+                                precision=precision)
+        plan = fused_rotation.ring_kernel_plan("round", torch.float32, len(one_card),
+                                               q_sh[0].shape[0], K, precision)
+        emit({"phase": "launch_plan", "kernel": name, "shape": "p4_round",
+              "sms": sms, **plan})
+        ops, nbytes = real_ops_bytes(q_sh, qid_sh, blocks, one_card, 1)
+        transport_timing[(name, "p4_round")] = {
+            "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
+            **bound(passes * ops, nbytes, PEAK_BF16_FLOPS)}
+        emit({"phase": "kernel_time", "kernel": name, "shape": "p4_round", "ranks": 4,
+              **transport_timing[(name, "p4_round")]})
+        del got, want, land, want_land, blocks, carries
+        name = f"fused_rotation_grid[{precision}]"
+        slots, want_slots = ([landing_slots(*b) for b in blocks0] for _ in range(2))
+        k5 = lambda: fused_rotation.fused_rotation_grid(  # noqa: E731
+            tr, q_sh, qid_sh, blocks0, init, slots, c_tile=c_tile,  # noqa: B023
+            query_norms=q_norms, precision=precision)  # noqa: B023
+        k5_plain = lambda: fused_rotation.fused_rotation_grid_reference(  # noqa: E731
+            q_sh, qid_sh, blocks0, init, want_slots, c_tile=c_tile,  # noqa: B023
+            precision=precision)  # noqa: B023
+        got, want = k5(), k5_plain()
+        sync_all()
+        ms = launch_device_ms(k5, 2, "rotation_grid_kernel")
+        call_ms, plain_ms = mesh_ms(k5, 1, devices4), mesh_ms(k5_plain, 1, devices4)
+        max_err[name] = compare(f"{name}/p4_rotation", cat(got), cat(want), q_all, Xcd,
+                                M_FULL, qid_all, False, K, None, sample=sample,
+                                precision=precision)
+        real = qid_all >= 0
+        precision_error(name, precision, q_all[real], Xcd,
+                        *((d[real], i[real]) for d, i in (cat(got), cat(want))))
+        ops, nbytes = real_ops_bytes(q_sh, qid_sh, blocks0, one_card, 4)
+        transport_timing[(name, "p4_rotation")] = {
+            "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
+            **bound(passes * ops, nbytes, PEAK_BF16_FLOPS),
+            "plan": fused_rotation.ring_kernel_plan("grid", torch.float32,
+                                                    len(one_card), q_sh[0].shape[0],
+                                                    K, precision)}
+        emit({"phase": "kernel_time", "kernel": name, "shape": "p4_rotation",
+              "ranks": 4, **transport_timing[(name, "p4_rotation")]})
+        del got, want, slots, want_slots
+    del q_sh, qid_sh, travelers, blocks0, q_norms, init, q_all, qid_all
+
+    mark("ring_transport")
     # ---- planted duplicates through the mixed and exact paths on the card --
     # An exact duplicate pair and a near-twin one pixel off by 8. On the
     # mixed paths the compress keys of the two collapse and only the exact
@@ -2219,6 +2778,7 @@ def main() -> int:
               "ms": library[("xla_round", policy)]})
     del ops
 
+    mark("duplicates_and_yardsticks")
     # ---- the main paths ---------------------------------------------------
     sample256 = np.linspace(0, M_FULL - 1, num=256, dtype=np.int64)
 
@@ -2244,9 +2804,9 @@ def main() -> int:
 
     Xd = torch.from_numpy(X).to(device)
 
-    def median_ms(fn):
+    def median_ms(fn, reps=3):
         times = []
-        for _ in range(3):
+        for _ in range(reps):
             sync_all()
             t0 = time.perf_counter()
             out = fn()
@@ -2254,7 +2814,8 @@ def main() -> int:
             times.append(time.perf_counter() - t0)
         return out, 1e3 * statistics.median(times), times
 
-    def drive(label, run, host, dev_input, expect, wire_oracle=False):
+    def drive(label, run, host, dev_input, expect, wire_oracle=False, reps=3,
+              oracle=None):
         """One main-path run (``run`` returns (KNNResult, matches)) with the
         launch counts set to 0 just before it and read just after, then the
         timing reps (warm-up excluded): the host-input form (numpy corpus,
@@ -2270,8 +2831,8 @@ def main() -> int:
         result, matches = run()
         sync_all()
         counts = {k: v for k, v in read_counts().items() if v}
-        res, host_ms, host_s = median_ms(host)
-        _, dev_ms, dev_s = median_ms(dev_input)
+        res, host_ms, host_s = median_ms(host, reps)
+        _, dev_ms, dev_s = median_ms(dev_input, reps)
         ids = result.ids
         if ids.shape != (M_FULL, K) or not bool(torch.isfinite(result.dists).all()):
             raise AssertionError(f"{label}: bad result shape or values")
@@ -2283,9 +2844,10 @@ def main() -> int:
                 "device_input_ms_median": dev_ms, "device_input_s_reps": dev_s,
                 "matches": matches, "total": M_FULL, "recall_at_10": rec,
                 "launches": counts}
-        if wire_oracle:
+        if wire_oracle or oracle is not None:
             line["recall_at_10_input_data"] = rec
-            line["recall_at_10"] = rec = recall(ids, want_wire)
+            line["recall_at_10"] = rec = recall(
+                ids, want_wire if oracle is None else oracle)
         emit(line)
         results[label] = result
         if rec < RECALL_GATE:
@@ -2294,7 +2856,7 @@ def main() -> int:
             raise AssertionError(f"{label}: launches {counts}, expected {expect}")
         return line, ids
 
-    def drive_clf(label, expect, **kw):
+    def drive_clf(label, expect, reps=3, oracle=None, **kw):
         clf = KNNClassifier(k=K, device="cuda", **kw).fit(X, y)
 
         def run():
@@ -2303,7 +2865,8 @@ def main() -> int:
 
         return drive(label, run, lambda: clf.kneighbors(None),
                      lambda: all_knn(Xd, config=clf.config, device=device),
-                     expect, wire_oracle=clf.config.ring_transfer_dtype == "int8")
+                     expect, wire_oracle=clf.config.ring_transfer_dtype == "int8",
+                     reps=reps, oracle=oracle)
 
     launches, ids_of, results = {}, {}, {}
     for variant, kname in (("tiles", "fused_knn_tiles"),
@@ -2342,14 +2905,15 @@ def main() -> int:
             launches[stage] = line["launches"][stage]
             launches[kname] = line["launches"][kname]
 
-    def drive_mesh(label, cfg, expect):
+    def drive_mesh(label, cfg, expect, reps=3, oracle=None):
         def run():
             res = all_knn(X, config=cfg, mesh=mesh, device=device)
             return res, int(knn_classify(res, y).matches(y))
 
         return drive(
             label, run, lambda: all_knn(X, config=cfg, mesh=mesh, device=device),
-            lambda: all_knn(Xd, config=cfg, mesh=mesh, device=device), expect)
+            lambda: all_knn(Xd, config=cfg, mesh=mesh, device=device), expect,
+            reps=reps, oracle=oracle)
 
     # the exact fused rings stage each rank's queries and block once: 8
     # prologue launches (K4's own on the dma form, stage_tf32[wire] else)
@@ -2444,13 +3008,106 @@ def main() -> int:
         if agree < AGREEMENT_GATE:
             raise AssertionError(f"{label}: agreement with the fused path {agree}")
 
-    # ---- query serving: the resident index, the engine, three variants ---
-    for name, err in serve_phase(device, X).items():
-        max_err[name] = max(max_err[name], err)
+    mark("main_paths")
+    # ---- matmul_precision "default" / "high" on the main paths: the pallas
+    # kernels (one norms prologue, one kernel) and the 4-rank fused rings
+    # (K4 each round, K3a bidir, K5), one timed rep each; recall@10 >=
+    # RECALL_GATE against the oracle of the operands the precision
+    # multiplies (the precision's own loss is not the kernels': the input
+    # data's recall is printed beside, as for the int8 wire)
+    c32 = Xc.astype(np.float64)
+    for precision in PRECISIONS:
+        rounded = serve_oracle(c32[sample256], c32, precision=precision,
+                               self_rows=sample256)
+        for variant, kname in (("tiles", "fused_knn_tiles"),
+                               ("sweep", "fused_knn_sweep")):
+            name = f"{kname}[{precision}]"
+            line, _ = drive_clf(f"pallas/{variant}/exact/{precision}",
+                                {name: 1, "stage_norms": 1}, reps=1, oracle=rounded,
+                                backend="pallas", pallas_variant=variant,
+                                matmul_precision=precision)
+            launches[name] = line["launches"][name]
+            launches["stage_norms"] = line["launches"]["stage_norms"]
+        for form, kw, name, count in (
+                ("fused-dma", {}, f"fused_round_dma[{precision}]", 4 * cards),
+                ("fused/bidir", {"ring_schedule": "bidir"},
+                 f"fused_block_merge[{precision}]", 16),
+                ("fused-grid", {"ring_fused_rotation": "grid"},
+                 f"fused_rotation_grid[{precision}]", cards)):
+            cfg = KNNConfig(k=K, backend="ring-overlap", ring_fusion="fused",
+                            matmul_precision=precision, **kw)
+            line, _ = drive_mesh(f"ring-overlap/{form}/P4/exact/{precision}", cfg,
+                                 {name: count, **norms8}, reps=1, oracle=rounded)
+            launches[name] = line["launches"][name]
 
+    # an exact duplicate pair (3, 7) and a near-twin (11, 42) at d^2 = 64
+    # under each precision: the pair's rank and d^2 in row 3 (-1: dropped by
+    # the zero rule, which is calibrated for "highest"); the twin must stay
+    # first
+    for precision in PRECISIONS:
+        for label, kw in (("pallas/tiles", dict(backend="pallas")),
+                          ("ring/P4/fused-dma", dict(backend="ring-overlap",
+                                                     ring_fusion="fused", mesh=mesh4))):
+            res = all_knn(Xdup, k=K, matmul_precision=precision, device=device, **kw)
+            ids, dists = res.ids.cpu().numpy(), res.dists.cpu().numpy()
+            rank = ids[3].tolist().index(7) if 7 in ids[3] else -1
+            ok = ids[11][0] == 42 and ids[42][0] == 11
+            emit({"phase": "precision_duplicates", "path": label,
+                  "precision": precision, "pair_rank": rank,
+                  "pair_d2": float(dists[3][rank]) if rank >= 0 else None,
+                  "pair_q2_plus_c2": float(2 * (dup_c[3] ** 2).sum()),
+                  "twin_d2": float(dists[11][0]), "twin_first": bool(ok)})
+            if not ok:
+                raise AssertionError(f"{precision} {label}: the near-twin is not first")
+
+    # the f64 bin minimum on a main path: serial twolevel at dtype float64,
+    # approx (one launch per tile), recall@10 against the f64 oracle
+    cfg64 = KNNConfig(k=K, backend="serial", dtype="float64", topk_method="approx")
+    reset_counts()
+    res64 = all_knn(Xd, config=cfg64, device=device)
+    sync_all()
+    counts = {k: v for k, v in read_counts().items() if v}
+    _, ms64, s64 = median_ms(lambda: all_knn(Xd, config=cfg64, device=device), 1)
+    tiles64 = -(-M_FULL // 1024) * -(-M_FULL // 2048)
+    rec64 = recall(res64.ids)
+    emit({"phase": "main_path", "path": "serial/twolevel/approx/float64", "m": M_FULL,
+          "d": D, "k": K, "device_input_ms_median": ms64, "device_input_s_reps": s64,
+          "recall_at_10": rec64, "recall_gate": RECALL_TARGET, "launches": counts,
+          "dists_dtype": str(res64.dists.dtype)})
+    if counts != {"approx_min_k[f64]": tiles64}:
+        raise AssertionError(f"f64 approx: launches {counts}, expected {tiles64}")
+    if rec64 < RECALL_TARGET or res64.dists.dtype != torch.float64:
+        raise AssertionError(f"f64 approx: recall@10 {rec64} or dtype {res64.dists.dtype}")
+    launches["approx_min_k[f64]"] = counts["approx_min_k[f64]"]
+    del res64
+
+    mark("precision_main_paths_and_f64")
+    # ---- query serving: the resident index, the engine, three variants ---
+    inputs = serve_inputs(device, X)
+    for name, err in serve_phase(device, X, inputs).items():
+        max_err[name] = max(max_err[name], err)
+    serve_ring_phase(device, X, inputs)
+
+    mark("serve_and_serve_ring")
     # ---- the reference's own data path and run CLI, at full width ---------
     launches["approx_min_k"] = run_cli_phase(device, X, y)
-    max_err["approx_min_k"] = max(e["max_abs_err"] for e in approx.values())
+    max_err["approx_min_k"] = max(e["max_abs_err"] for c, e in approx.items()
+                                  if "f64/" not in c)
+    max_err["approx_min_k[f64]"] = max(e["max_abs_err"] for c, e in approx.items()
+                                       if "f64/" in c)
+    # the yardstick of the "default" / "high" forms: the serial backend at
+    # that precision on the same card inputs
+    for precision in PRECISIONS:
+        cfg = KNNConfig(k=K, backend="serial", matmul_precision=precision)
+
+        def serial_p():
+            return all_knn_serial(Xcd, Xcd, row_ids, cfg, device)  # noqa: B023
+
+        serial_p()  # warm-up
+        library[("serial", precision)] = cuda_ms(serial_p, reps=1)
+        emit({"phase": "library_time", "call": "backends.serial.all_knn_serial",
+              "matmul_precision": precision, "m": M_FULL, "d": D, "k": K,
+              "ms": library[("serial", precision)]})
 
     replaces = {
         "fused_knn_tiles": "mpi_knn_tpu/ops/pallas_knn.py:249",
@@ -2470,6 +3127,16 @@ def main() -> int:
         "stage_bf16[wire]": "mpi_knn_tpu/ops/pallas_ring.py:363",
         # not a Pallas site: the TPU partial reduction XLA lowers
         "approx_min_k": "mpi_knn_tpu/ops/topk.py:156,176 (lax.approx_min_k)",
+        # matmul_precision "default" / "high" (the reference's precision
+        # argument of the same Pallas sites), and their norms prologue
+        **{f"{base}[{p}]": site for p in PRECISIONS for base, site in (
+            ("fused_knn_tiles", "mpi_knn_tpu/ops/pallas_knn.py:249"),
+            ("fused_knn_sweep", "mpi_knn_tpu/ops/pallas_knn.py:330"),
+            ("fused_block_merge", "mpi_knn_tpu/ops/pallas_ring.py:337"),
+            ("fused_round_dma", "mpi_knn_tpu/ops/pallas_ring.py:553"),
+            ("fused_rotation_grid", "mpi_knn_tpu/ops/pallas_ring.py:806"))},
+        "stage_norms": "mpi_knn_tpu/ops/pallas_knn.py:249",
+        "approx_min_k[f64]": "mpi_knn_tpu/ops/topk.py:156,176 (lax.approx_min_k, f64)",
     }
     library_of = {
         "fused_knn_tiles": library[("serial", "exact")],
@@ -2489,6 +3156,11 @@ def main() -> int:
         "stage_bf16[wire]": None,
         # torch.topk computes the exact function the method approximates
         "approx_min_k": approx["fused/tile_k10"]["topk_ms"],
+        **{f"{base}[{p}]": library[("serial", p)] for p in PRECISIONS
+           for base in ("fused_knn_tiles", "fused_knn_sweep", "fused_block_merge",
+                        "fused_round_dma", "fused_rotation_grid")},
+        "stage_norms": timing["stage_norms"]["library_ms"],
+        "approx_min_k[f64]": approx["fused/f64/tile_k10"]["topk_ms"],
     }
     times = {**timing, **{name: ring_timing[(name, "p1_mnist60k")]
                           for name in merge_modes},
@@ -2497,7 +3169,16 @@ def main() -> int:
                  transport_timing[("fused_rotation_grid", "p4_rotation")],
              # the serial twolevel tile, where the approx main path launches
              # it (the fused form, as smallest_k calls it)
-             "approx_min_k": approx["fused/tile_k10"]}
+             "approx_min_k": approx["fused/tile_k10"],
+             **{f"fused_block_merge[{p}]": ring_timing[(f"fused_block_merge[{p}]",
+                                                        "p1_mnist60k")]
+                for p in PRECISIONS},
+             **{f"fused_round_dma[{p}]": transport_timing[(f"fused_round_dma[{p}]",
+                                                           "p4_round")]
+                for p in PRECISIONS},
+             **{f"fused_rotation_grid[{p}]": transport_timing[
+                 (f"fused_rotation_grid[{p}]", "p4_rotation")] for p in PRECISIONS},
+             "approx_min_k[f64]": approx["fused/f64/tile_k10"]}
     emit({"kernels": [
         {"name": name, "route": "cuda",
          "source": "mpi_knn_tpu_torch/csrc/" + source_of(name),
@@ -2508,6 +3189,8 @@ def main() -> int:
          "bound_by": times[name]["bound_by"], "library_ms": library_of[name]}
         for name in replaces
     ]})
+    mark("run_cli_and_kernels_line")
+    emit({"phase": "total_seconds", "seconds": marks[-1][1] - marks[0][1]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": count}})

@@ -110,14 +110,15 @@ def all_knn(corpus, queries=None, config: Optional[KNNConfig] = None,
 
 
 def build_index(corpus, config: Optional[KNNConfig] = None,
-                device=DEFAULT_DEVICE, **overrides):
+                device=DEFAULT_DEVICE, mesh=None, **overrides):
     """Build a resident corpus index for query serving: every corpus-side
     step (centering mean, padding, the copy to the device, tiles, ids and
-    norms, or the kernels' staged planes) done once and reused by every
-    :func:`query_knn` batch. See ``mpi_knn_tpu_torch.serve``."""
+    norms, the kernels' staged planes, or the ring's shards) done once and
+    reused by every :func:`query_knn` batch. See
+    ``mpi_knn_tpu_torch.serve``."""
     from mpi_knn_tpu_torch.serve import build_index as _build
 
-    return _build(corpus, config=config, device=device, **overrides)
+    return _build(corpus, config=config, device=device, mesh=mesh, **overrides)
 
 
 def query_knn(queries, index, config: Optional[KNNConfig] = None,

@@ -13,6 +13,9 @@ per list; the tiles variant first preselects the global ov of its n_c·ov
 survivors by compressed key, then ``_mixed_exact_finish`` reranks the
 survivors exactly, one query tile at a time.
 
+Under the exact policy the kernels take ``cfg.matmul_precision`` (the
+JAX package's ``backends/pallas_backend.py:154,167``).
+
 Same observable semantics as the serial backend. Only float32 runs here.
 """
 
@@ -106,6 +109,7 @@ def _fused_all_knn(queries, corpus, cfg, q_tile, c_tile, m_corpus,
         all_pairs=all_pairs,
         zero_eps=cfg.zero_eps,
         staged_corpus=staged_corpus,
+        precision=cfg.matmul_precision,
     )
     if variant == "sweep":
         # the in-kernel merge is exact; topk_method does not apply

@@ -39,12 +39,17 @@ f32 wire by K4's prologue ``fused_rotation.stage_round_planes``, which
 also writes the TF32 hi/lo planes its wgmma tile reads, and those travel
 as the fifth and sixth parts. The two prologues' norms are equal bit for
 bit (K4's tile is promoted every 8 deep, as the mma.sync one), so the
-resumable ring's last round (K3a) may take K4's. Padding and tiling come
-from ``ring_tiles``, so the layouts are the JAX package's. ``RingRun``
-holds one call's ranks and runs its rounds; the resumable ring
-(``backends/ring_resumable.py``) drives the same rounds one at a time. A
-dp×ring mesh and a multi-process ``torch.distributed`` form are not ported
-yet.
+resumable ring's last round (K3a) may take K4's. At ``matmul_precision``
+"default" / "high" every merge (K3a, K4, K5 and the xla form's product)
+takes that precision; K4 then runs the mma.sync tile on every wire and
+its travelers carry norms alone. Padding and tiling come from
+``ring_tiles``, so the layouts are the JAX package's. ``RingRun`` holds
+one call's ranks and runs its rounds; the resumable ring
+(``backends/ring_resumable.py``) drives the same rounds one at a time, and
+``ring_serve`` runs one serving batch's rotation against travelers staged
+once by a resident index (``serve/index.py``), with the landing slots the
+engine keeps per bucket. A dp×ring mesh and a multi-process
+``torch.distributed`` form are not ported yet.
 """
 
 from __future__ import annotations
@@ -72,6 +77,7 @@ from mpi_knn_tpu_torch.ops.fused_rotation import (
     slot,
     stage_round_planes,
     traveler,
+    uses_planes,
 )
 from mpi_knn_tpu_torch.ops.quant import (
     dequantize_rows,
@@ -260,41 +266,63 @@ def ring_form(cfg: KNNConfig, devices) -> str:
     return "driver"
 
 
+def staged_parts(cfg: KNNConfig, form: str, c_tile: int, wire_dtype) -> tuple:
+    """What a ring of ``form`` reads beside each traveler's block: ("norms",)
+    where the merge is exact (K3a, K4, K5), ("norms", "planes") for K4's
+    wgmma tile (the dma form on the f32 wire at "highest"), else ()."""
+    if not (cfg.ring_fusion == "fused" and merges_exactly(cfg, c_tile)):
+        return ()
+    if form == "dma" and uses_planes(wire_dtype, cfg.matmul_precision):
+        return ("norms", "planes")
+    return ("norms",)
+
+
+def stage_travelers(parts: tuple, ts):
+    """Per rank (block, ids, scale) -> the traveler (block, ids, scale,
+    norms, hi, lo) with the prologue outputs ``parts`` asks for, each once:
+    K4's own prologue for planes (its norms with them), else the exact
+    prologue's norms."""
+    if "planes" in parts:
+        return [(b, i, s, n, hi, lo)
+                for (b, i, s), (hi, lo, n) in zip(
+                    ts, (stage_round_planes(b) for b, _, _ in ts))]
+    return [(b, i, s, stage_wire_norms(b, s) if parts else None, None, None)
+            for b, i, s in ts]
+
+
 class RingRun:
     """One call's ring: each rank's query shard, carry and traveler(s),
     and the transport of ``form``. ``round`` runs one round of the
-    schedule; ``rotation_grid`` the whole uni rotation (the grid form).
-    Travelers are (block, ids, scale, norms, hi, lo): the norms are staged
-    here, once per call, where the merge is exact, else None; the planes
-    for the dma form on the f32 wire (K4's wgmma tile), else None."""
+    schedule; ``rotation_grid`` the whole uni rotation (the grid form);
+    ``rotate`` the whole schedule. Travelers are (block, ids, scale, norms,
+    hi, lo): the norms are staged here, once per call, where the merge is
+    exact, else None; the planes for K4's wgmma tile, else None.
+    ``staged`` travelers (full 6-tuples, as ``stage_travelers`` makes them
+    once for a resident index) are taken as they are, and are only ever
+    read: the rounds after the first read the landing ``slots`` (per rank
+    ``landing_slots`` of its traveler), made here when not given."""
 
     def __init__(self, cfg: KNNConfig, devices, overlap: bool, form: str,
-                 q_sh, qid_sh, travelers, carries, q_tile: int, c_tile: int):
+                 q_sh, qid_sh, travelers, carries, q_tile: int, c_tile: int,
+                 staged: bool = False, slots=None):
         self.cfg, self.devices, self.overlap, self.form = (
             cfg, devices, overlap, form)
         self.q_sh, self.qid_sh = q_sh, qid_sh
         self.carries = carries
         self.q_tile, self.c_tile = q_tile, c_tile
         self.shifts = (1, -1) if len(travelers) == 2 else (1,)
-        exact = cfg.ring_fusion == "fused" and merges_exactly(cfg, c_tile)
-        planes = (exact and form == "dma"
-                  and travelers[0][0][0].dtype == torch.float32)
+        parts = staged_parts(cfg, form, c_tile, travelers[0][0][0].dtype)
         self.q_planes = None
-        if planes:
-            staged = [stage_round_planes(q) for q in q_sh]
-            self.q_norms = [n for _, _, n in staged]
-            self.q_planes = [(hi, lo) for hi, lo, _ in staged]
+        if "planes" in parts:
+            q_staged = [stage_round_planes(q) for q in q_sh]
+            self.q_norms = [n for _, _, n in q_staged]
+            self.q_planes = [(hi, lo) for hi, lo, _ in q_staged]
         else:
-            self.q_norms = ([stage_wire_norms(q, None) for q in q_sh] if exact
+            self.q_norms = ([stage_wire_norms(q, None) for q in q_sh] if parts
                             else [None] * len(q_sh))
 
         def with_norms(ts):
-            if planes:
-                return [(b, i, s, n, hi, lo)
-                        for (b, i, s), (hi, lo, n) in zip(
-                            ts, (stage_round_planes(b) for b, _, _ in ts))]
-            return [(b, i, s, stage_wire_norms(b, s) if exact else None, None, None)
-                    for b, i, s in ts]
+            return list(ts) if staged else stage_travelers(parts, ts)
 
         # per direction: per rank (blk, ids, scale, norms); a backward
         # traveler that starts as the forward one shares its norms
@@ -306,7 +334,8 @@ class RingRun:
             self.transport = _Transport(devices, overlap)
         else:
             self.transport = ring_transport(devices)
-            self.slots = [landing_slots(*t) for t in self.travelers[0]]
+            self.slots = (slots if slots is not None
+                          else [landing_slots(*t) for t in self.travelers[0]])
             self.parity = 0
 
     def _merge_all(self, held):
@@ -318,7 +347,8 @@ class RingRun:
     def _kernel_kw(self):
         return dict(c_tile=self.c_tile, exclude_self=self.cfg.exclude_self,
                     exclude_zero=self.cfg.exclude_zero,
-                    zero_eps=self.cfg.zero_eps, query_norms=self.q_norms)
+                    zero_eps=self.cfg.zero_eps, query_norms=self.q_norms,
+                    precision=self.cfg.matmul_precision)
 
     def round(self, merge_bwd: bool, rotate: bool):
         """Merge the resident block(s), and move them on when ``rotate``."""
@@ -352,6 +382,20 @@ class RingRun:
         self.carries = fused_rotation_grid(
             self.transport, self.q_sh, self.qid_sh, self.travelers[0],
             self.carries, self.slots, **self._kernel_kw())
+
+    def rotate(self):
+        """The whole schedule: one K5 launch per card (grid), or its rounds
+        (the dma form moves the block every round, the last included, as
+        the reference's scan does)."""
+        if self.form == "grid":
+            self.rotation_grid()
+            return
+        P = len(self.devices)
+        rounds, bwd_limit = (bidir_rounds(P) if self.cfg.ring_schedule == "bidir"
+                             else (P, 0))
+        for rnd in range(rounds):
+            self.round(merge_bwd=1 <= rnd < bwd_limit,
+                       rotate=self.form == "dma" or rnd < rounds - 1)
 
     def gathered(self, dev, nq: int):
         """The carries of every rank, in rank order, cut to ``nq`` rows."""
@@ -425,15 +469,27 @@ def all_knn_ring(corpus, queries, query_ids, cfg: KNNConfig, mesh=None,
                for q, d in zip(q_sh, devices)]
     run = RingRun(cfg, devices, overlap, form, q_sh, qid_sh, travelers,
                   carries, q_tile, c_tile)
-    if form == "grid":
-        run.rotation_grid()
-    else:
-        P = len(devices)
-        rounds, bwd_limit = (bidir_rounds(P) if cfg.ring_schedule == "bidir"
-                             else (P, 0))
-        for rnd in range(rounds):
-            # the dma form moves the block every round, the last included,
-            # as the reference's scan does
-            run.round(merge_bwd=1 <= rnd < bwd_limit,
-                      rotate=form == "dma" or rnd < rounds - 1)
+    run.rotate()
     return run.gathered(dev, queries.shape[0])
+
+
+def ring_serve(q_sh, qid_sh, carries, shards, cfg: KNNConfig, devices,
+               overlap: bool, q_tile: int, c_tile: int, slots=None):
+    """One serving batch's full rotation against a corpus that stays
+    sharded across batches (the JAX package's ``ring_serve_sharded``):
+    batch-owned shards and carries first, the resident index after.
+    ``shards`` are per rank the travelers ``stage_travelers`` staged once
+    at build; they are only read (the dma and grid forms copy them into
+    ``slots``, per rank ``landing_slots`` of its traveler, which the
+    engine keeps per bucket). ``carries`` are read, never written. Returns
+    the per-rank final carries."""
+    if cfg.ring_fusion == "fused" and not overlap:
+        raise fused_blocking_undefined_error()
+    form = ring_form(cfg, devices)
+    travelers = [shards]
+    if cfg.ring_schedule == "bidir":
+        travelers.append(shards)
+    run = RingRun(cfg, devices, overlap, form, q_sh, qid_sh, travelers,
+                  list(carries), q_tile, c_tile, staged=True, slots=slots)
+    run.rotate()
+    return run.carries

@@ -6,8 +6,10 @@ either reduced to k survivors each and merged once ("twolevel") or merged
 into the carry tile by tile ("stream"). Under the exact policy the product
 is ``torch.matmul`` at full precision (ops/distance.py), as the JAX package
 leaves it to XLA; under the mixed policy each tile's reduction is the
-compress-and-rerank pipeline of ops/rerank.py. The ring backends merge
-their blocks through the same functions.
+compress-and-rerank pipeline of ops/rerank.py. The product takes
+``cfg.matmul_precision`` (ops/distance.py), as the JAX package's
+``masked_dist_tile`` does. The ring backends merge their blocks through the
+same functions.
 """
 
 from __future__ import annotations
@@ -46,7 +48,8 @@ def torch_dtype(name: str) -> torch.dtype:
 def masked_dist_tile(q_x, q_ids, q_sq, blk, blk_ids, blk_sq, cfg: KNNConfig):
     """(q_tile × c_tile) masked distances: metric, then padding/self/zero
     exclusion masks."""
-    d = pairwise_dist(q_x, blk, metric=cfg.metric, x_sq=q_sq, y_sq=blk_sq)
+    d = pairwise_dist(q_x, blk, metric=cfg.metric, x_sq=q_sq, y_sq=blk_sq,
+                      precision=cfg.matmul_precision)
     if cfg.metric == "l2" and q_sq is not None and blk_sq is not None:
         pair_scale = q_sq[:, None] + blk_sq[None, :]
     else:

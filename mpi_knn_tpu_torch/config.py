@@ -33,10 +33,7 @@ PALLAS_VARIANTS = ("tiles", "sweep")
 KMEANS_INITS = ("kmeans++", "random")
 DTYPES = ("float32", "float64", "bfloat16", "int8", "int4")
 
-# what the port runs today; anything else in the domains above is refused
-PORTED_MATMUL_PRECISIONS = (None, "highest")
-# the partial reduction (ops/approx_topk.py) takes float32 distances
-APPROX_METHODS = ("approx", "approx-rerank")
+MATMUL_PRECISIONS = (None, "default", "high", "highest")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,14 +42,17 @@ class KNNConfig:
     ``mpi_knn_tpu/config.py``; semantics are identical where ported).
 
     Ported: k, metric, backend (all five), query_tile, corpus_tile, dtype
-    in {float32, float64, bfloat16}, matmul_precision in {None, "highest"}
-    (both mean f32-accurate products: torch.matmul in full f32, and on the
-    card the kernels' three-pass TF32 tile), precision_policy, center,
-    exclude_self, exclude_zero, zero_eps, topk_method (all five; the
-    approximate ones on float32 distances), recall_target, topk_block,
-    merge_schedule, tie_break, num_classes, mesh_axis, num_devices,
-    ring_transfer_dtype, ring_schedule, ring_fusion, ring_fused_rotation,
-    pallas_variant, max_tile_elems.
+    in {float32, float64, bfloat16}, matmul_precision (None and "highest":
+    f32-accurate products, torch.matmul in full f32 and on the card the
+    kernels' three-pass TF32 tile; "default": f32 operands rounded to bf16,
+    one pass; "high": bf16 hi + lo, three passes; f64 and bf16 operands
+    keep their products), precision_policy, center, exclude_self,
+    exclude_zero, zero_eps, topk_method (all five, the approximate ones on
+    f32 and f64 distances), recall_target, topk_block, merge_schedule,
+    tie_break, num_classes, mesh_axis, num_devices, ring_transfer_dtype,
+    ring_schedule, ring_fusion, ring_fused_rotation, pallas_variant,
+    max_tile_elems, and the serving fields. ``partitions`` (the clustered
+    index) is refused.
     """
 
     k: int = 30
@@ -112,6 +112,7 @@ class KNNConfig:
             ("precision_policy", PRECISION_POLICIES),
             ("kmeans_init", KMEANS_INITS),
             ("dtype", DTYPES),
+            ("matmul_precision", MATMUL_PRECISIONS),
         ):
             value = getattr(self, name)
             if value not in allowed:
@@ -248,18 +249,10 @@ class KNNConfig:
             )
 
     def _refuse_unported(self):
-        refused = []
-        if self.topk_method in APPROX_METHODS and self.dtype == "float64":
-            refused.append(f"topk_method={self.topk_method!r} with "
-                           f"dtype={self.dtype!r}")
-        if self.matmul_precision not in PORTED_MATMUL_PRECISIONS:
-            refused.append(f"matmul_precision={self.matmul_precision!r}")
         if self.partitions is not None:
-            refused.append(f"partitions={self.partitions!r}")
-        if refused:
             raise ValueError(
-                f"{', '.join(refused)}: not yet ported to mpi_knn_tpu_torch "
-                "(see ROADMAP.md)"
+                f"partitions={self.partitions!r}: not yet ported to "
+                "mpi_knn_tpu_torch (see ROADMAP.md)"
             )
 
     def replace(self, **kw) -> KNNConfig:

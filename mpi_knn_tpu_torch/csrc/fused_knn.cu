@@ -37,6 +37,19 @@
 //             tile: TMA, one wgmma bf16 pass, the survivors filtered in
 //             registers, and (query group x corpus slice) items whose
 //             slice lists the last CTA of a group merges.
+//   default,  matmul_precision "default" / "high" (the TPU's DEFAULT: f32
+//   high      operands rounded to bf16, one pass; HIGH: bf16 hi + lo, three
+//             passes): fused_knn_mma_kernel runs knn_tile.cuh's mma.sync
+//             tile `sweep_mma<Bf16x1F32>` / `<Bf16x3>` on the f32 rows
+//             (cp.async), the operands rounded or split in registers, with
+//             the exact form's epilogue (k survivors, the zero rule, self,
+//             padding by the column range) and the f32 norms of the
+//             prologue stage_norms_launch (the Tf32x3 tile's diagonal).
+//             One CTA per (128 or 64 query rows, corpus tile): the tiles
+//             form's n_c corpus tiles, or the whole corpus for the sweep.
+//             The wgmma tile hosts neither: its operands are staged planes
+//             by TMA, and a bf16 plane set per precision would double the
+//             prologue's bytes for a first, simple form.
 //
 // What bounds it on this card. The main path (60000 queries x 60000 corpus
 // rows x 784, k = 10) needs 2*60000*60000*784 ~ 5.64e12 FLOP. Exact mode
@@ -437,15 +450,79 @@ ExactEpi<Items> exact_epi(Items walk, const float* qn, const float* cn, float* o
   return ExactEpi<Items>{walk, src, qn, out_d, out_i, Q, k, Dp / wg::KB};
 }
 
-// The mma.sync exact tile's (K3a's, K4's, K5's) raw products q . c (a test
-// hook, see tile_dots).
+// The mma.sync f32 tile's (K3a's, K4's, K5's; at "default" / "high" also
+// K1's and K2's) raw products q . c under policy Op (a test hook, see
+// tile_dots).
+template <class Op>
 __global__ void __launch_bounds__(THREADS, 2)
 exact_tile_dots_kernel(const float* q, const float* c, float* out, int Q, int C, int D) {
   extern __shared__ __align__(16) unsigned char smem[];
-  tile_dots<MQB>(F32Operand<F32Rows>{F32Rows{q, D}, async_rows(q, D), D},
-                 F32Operand<F32Rows>{F32Rows{c, D}, async_rows(c, D), D},
-                 (D + TKD - 1) / TKD, Q, C, blockIdx.x * MQB, blockIdx.y * MCB, smem,
-                 out);
+  tile_dots<Op, MQB>(F32Operand<F32Rows>{F32Rows{q, D}, async_rows(q, D), D},
+                     F32Operand<F32Rows>{F32Rows{c, D}, async_rows(c, D), D},
+                     (D + TKD - 1) / TKD, Q, C, blockIdx.x * MQB, blockIdx.y * MCB, smem,
+                     out);
+}
+
+// K1 and K2 at "default" / "high": the f32 rows q (Q, D) and c (C, D), the
+// prologue's norms, outputs (C / c_span, Q, k) (tiles) or (Q, k) (sweep:
+// c_span >= C).
+struct MmaParams {
+  const float* q;
+  const float* qn;
+  const float* c;
+  const float* cn;
+  float* out_d;
+  int* out_i;
+  int Q, C, D, m_corpus, k, c_span;
+  int exclude_self, exclude_zero, all_pairs;
+  float zero_eps;
+};
+
+// One CTA: query rows [q0, q0+ROWS) against the columns of its corpus tile
+// below m_corpus (padding is never computed), as the exact form masks
+// them. Capped at 128 registers a thread: two CTAs of 256 threads per SM.
+template <class Op, int ROWS>
+__global__ void __launch_bounds__(THREADS, 2) fused_knn_mma_kernel(MmaParams p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int q0 = blockIdx.x * ROWS;
+  const int c_begin = blockIdx.y * p.c_span;
+  const int c_end = min(min(c_begin + p.c_span, p.C), p.m_corpus);
+  const size_t out_row0 = (size_t)blockIdx.y * p.Q + q0;
+  const AffineCols src{p.exclude_self && p.all_pairs, p.exclude_zero != 0, p.zero_eps, p.cn};
+  MmaLists<ROWS> L{carve_mma<ROWS>(smem, p.k), p.out_d, p.out_i, out_row0, p.k};
+  init_lists<ROWS>(L, q0, p.Q, -1);
+  sweep_mma<Op, ROWS>(src, F32Operand<F32Rows>{F32Rows{p.q, p.D}, async_rows(p.q, p.D), p.D},
+                      p.qn, p.Q,
+                      F32Operand<F32Rows>{F32Rows{p.c, p.D}, async_rows(p.c, p.D), p.D},
+                      (p.D + TKD - 1) / TKD, q0, c_begin, c_end, L);
+  emit<ROWS>(L, L.sm.nanf, p.out_d, p.out_i, p.Q, p.k, q0, out_row0, threadIdx.x / 32,
+             THREADS / 32);
+}
+
+// The CTA rows of a K1/K2 "default" / "high" launch (pick_rows: 64 where
+// 128-row CTAs would leave the card's resident slots empty), its kernel
+// and dynamic shared bytes.
+template <class Op>
+cudaError_t mma_plan(const MmaParams& p, int grid_y, int* rows, const void** kernel,
+                     size_t* smem) {
+  cudaError_t e = pick_rows((const void*)fused_knn_mma_kernel<Op, MQB>, p.k,
+                            (long long)((p.Q + MQB - 1) / MQB) * grid_y, rows);
+  if (e != cudaSuccess) return e;
+  if (*rows == MQB) {
+    *kernel = (const void*)fused_knn_mma_kernel<Op, MQB>;
+    *smem = mma_smem_bytes<MQB>(p.k);
+    return set_mma_smem<MQB>(*kernel, p.k);
+  }
+  *kernel = (const void*)fused_knn_mma_kernel<Op, NQB>;
+  *smem = mma_smem_bytes<NQB>(p.k);
+  return set_mma_smem<NQB>(*kernel, p.k);
+}
+
+cudaError_t mma_plan_of(int precision, const MmaParams& p, int grid_y, int* rows,
+                        const void** kernel, size_t* smem) {
+  if (precision == 1) return mma_plan<Bf16x1F32>(p, grid_y, rows, kernel, smem);
+  if (precision == 2) return mma_plan<Bf16x3>(p, grid_y, rows, kernel, smem);
+  return cudaErrorInvalidValue;
 }
 
 // The card's mma.sync rate, the ceiling of knn_tile.cuh's products: every warp
@@ -551,6 +628,55 @@ int fused_knn_sweep_launch(const float* qh, const float* ql, const float* qn,
   LAUNCH_WG(fused_knn_sweep_kernel, m, epi, (Q + wg::ROWS - 1) / wg::ROWS, k, stream);
 }
 
+// K1 (sweep 0) and K2 (sweep 1) at precision 1 ("default") or 2 ("high"),
+// on the f32 rows q (Q, D), c (C, D) and the norms of stage_norms_launch.
+// out_d / out_i: (C / c_tile, Q, k), C a multiple of c_tile (tiles), or
+// (Q, k) (sweep).
+int fused_knn_mma_launch(const float* q, const float* qn, const float* c, const float* cn,
+                         float* out_d, int* out_i, int Q, int C, int D, int m_corpus, int k,
+                         int c_tile, int exclude_self, int exclude_zero, int all_pairs,
+                         float zero_eps, int precision, int sweep, cudaStream_t stream) {
+  if (Q <= 0 || C <= 0 || D <= 0 || k <= 0 || (!sweep && (c_tile <= 0 || C % c_tile)))
+    return (int)cudaErrorInvalidValue;
+  const MmaParams p{q, qn, c, cn, out_d, out_i, Q, C, D, m_corpus, k, sweep ? C : c_tile,
+                    exclude_self, exclude_zero, all_pairs, zero_eps};
+  const int grid_y = sweep ? 1 : C / c_tile;
+  int rows = MQB;
+  const void* kernel = nullptr;
+  size_t smem = 0;
+  cudaError_t e = mma_plan_of(precision, p, grid_y, &rows, &kernel, &smem);
+  if (e != cudaSuccess) return (int)e;
+  void* args[] = {const_cast<MmaParams*>(&p)};
+  e = cudaLaunchKernel(kernel, dim3((Q + rows - 1) / rows, grid_y), dim3(THREADS), args, smem,
+                       stream);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+// The plan of that launch: query rows per CTA, CTAs, and the kernel's
+// registers, spilled bytes a thread and CTAs per SM.
+int fused_knn_mma_plan(int Q, int C, int k, int c_tile, int precision, int sweep,
+                       int* rows, int* ctas, int* regs, int* local_bytes, int* ctas_per_sm) {
+  if (Q <= 0 || C <= 0 || k <= 0 || (!sweep && (c_tile <= 0 || C % c_tile)))
+    return (int)cudaErrorInvalidValue;
+  const MmaParams p{nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, Q, C, 1, C, k,
+                    sweep ? C : c_tile, 0, 0, 0, 0.f};
+  const int grid_y = sweep ? 1 : C / c_tile;
+  const void* kernel = nullptr;
+  size_t smem = 0;
+  cudaError_t e = mma_plan_of(precision, p, grid_y, rows, &kernel, &smem);
+  if (e != cudaSuccess) return (int)e;
+  *ctas = (Q + *rows - 1) / *rows * grid_y;
+  return (int)(*rows == MQB ? mma_kernel_info<MQB>(kernel, k, regs, local_bytes, ctas_per_sm)
+                            : mma_kernel_info<NQB>(kernel, k, regs, local_bytes, ctas_per_sm));
+}
+
+// The "default" / "high" prologue: x (N, D) f32 -> norms (N,) f32, the
+// diagonal of the Tf32x3 tile (f32-accurate, as the reference's norms).
+int stage_norms_launch(const float* x, float* norms, int N, int D, cudaStream_t stream) {
+  return (int)stage_tf32(F32Rows{x, D}, N, D, norms, stream);
+}
+
 // The compress forms, on the prologue's copies: qb (Q, Dp), cb (C, Dp) bf16
 // and their norms qn (Q,), cn (C,); Dp a multiple of 32.
 int fused_knn_tiles_compress_launch(const bf16* qb, const float* qn,
@@ -654,16 +780,22 @@ int split_tile_dots_launch(const float* qh, const float* ql, const float* ch,
   LAUNCH_WG(split_tile_dots_kernel, m, epi, items, 0, stream);
 }
 
-// The mma.sync tile's (K3a's, K4's, K5's) raw products: out (Q, C) = q . c^T
-// (a test hook: the ring prologue's norms are its diagonal).
+// The mma.sync f32 tile's raw products at `precision` (0 Tf32x3, 1
+// Bf16x1F32, 2 Bf16x3): out (Q, C) = q . c^T (a test hook: the ring
+// prologue's norms are the Tf32x3 diagonal).
 int exact_tile_dots_launch(const float* q, const float* c, float* out, int Q,
-                           int C, int D, cudaStream_t stream) {
-  if (Q <= 0 || C <= 0 || D <= 0) return (int)cudaErrorInvalidValue;
-  cudaError_t err = set_mma_smem((const void*)exact_tile_dots_kernel, 0);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((Q + MQB - 1) / MQB, (C + MCB - 1) / MCB);
-  exact_tile_dots_kernel<<<grid, THREADS, mma_smem_bytes(0), stream>>>(q, c, out, Q, C, D);
-  return (int)cudaGetLastError();
+                           int C, int D, int precision, cudaStream_t stream) {
+  if (Q <= 0 || C <= 0 || D <= 0 || precision < 0 || precision > 2)
+    return (int)cudaErrorInvalidValue;
+  return (int)with_precision(precision, [&](auto op) {
+    const void* kernel = (const void*)exact_tile_dots_kernel<decltype(op)>;
+    cudaError_t err = set_mma_smem(kernel, 0);
+    if (err != cudaSuccess) return err;
+    dim3 grid((Q + MQB - 1) / MQB, (C + MCB - 1) / MCB);
+    exact_tile_dots_kernel<decltype(op)><<<grid, THREADS, mma_smem_bytes(0), stream>>>(
+        q, c, out, Q, C, D);
+    return cudaGetLastError();
+  });
 }
 
 // The mma.sync rate probe: out holds 2 * SMs * THREADS floats; returns the

@@ -37,6 +37,12 @@
 // fewer than ov finite keys remain, the untaken columns in index order
 // (the reference's taken-mask order); a NaN key counts as +inf.
 //
+// Precision. K3a's tile takes the operand policy of the config's
+// matmul_precision (knn_tile.cuh): Tf32x3 ("highest", the default),
+// Bf16x1F32 ("default") or Bf16x3 ("high"), on every wire (int8: the codes
+// times the scale decoded in registers before the rounding or split); the
+// norms stay the exact prologue's f32 ones.
+//
 // What bounds it. A merge of a (q_local x b) block does 2 q_local b D FLOP
 // (at the P=1 MNIST shape, 60000 x 60000 x 784: 5.64e12) and reads the
 // queries, block and carry once (~0.4 GB): operations bound it. The exact
@@ -84,11 +90,11 @@ struct CParams {
   int exclude_self;
 };
 
-template <int WIRE, int ROWS>
+template <int WIRE, int ROWS, class Op>
 __global__ void __launch_bounds__(THREADS, 2)
 block_merge_exact_kernel(Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
-  exact_merge_group<WIRE, false, ROWS>(
+  exact_merge_group<WIRE, false, ROWS, Op>(
       MergeArgs{p.q, p.qn, p.qids, p.blk, p.scale, p.bn, p.bids, p.carry_d,
                 p.carry_i, p.out_d, p.out_i},
       MergeShape{p.Q, p.B, p.D, p.k, p.exclude_self, p.exclude_zero,
@@ -126,23 +132,29 @@ block_merge_compress_kernel(CParams p) {
 }
 
 template <int WIRE>
-const void* exact_kernel(int rows) {
-  return rows == MQB ? (const void*)block_merge_exact_kernel<WIRE, MQB>
-                     : (const void*)block_merge_exact_kernel<WIRE, NQB>;
+const void* exact_kernel(int rows, int precision) {
+  if (precision < 0 || precision > 2) return nullptr;
+  return with_precision(precision, [&](auto op) {
+    using Op = decltype(op);
+    return rows == MQB ? (const void*)block_merge_exact_kernel<WIRE, MQB, Op>
+                       : (const void*)block_merge_exact_kernel<WIRE, NQB, Op>;
+  });
 }
 
-const void* exact_kernel_of(int wire, int rows) {
+// K3a's kernel for a wire, CTA rows and precision code (0 "highest", 1
+// "default", 2 "high").
+const void* exact_kernel_of(int wire, int rows, int precision) {
   switch (wire) {
-    case WIRE_F32: return exact_kernel<WIRE_F32>(rows);
-    case WIRE_BF16: return exact_kernel<WIRE_BF16>(rows);
-    case WIRE_INT8: return exact_kernel<WIRE_INT8>(rows);
+    case WIRE_F32: return exact_kernel<WIRE_F32>(rows, precision);
+    case WIRE_BF16: return exact_kernel<WIRE_BF16>(rows, precision);
+    case WIRE_INT8: return exact_kernel<WIRE_INT8>(rows, precision);
   }
   return nullptr;
 }
 
 // The query rows per CTA of K3a at this shape (knn_tile.cuh's pick_rows).
-cudaError_t exact_rows(int wire, int Q, int k, int* rows) {
-  return pick_rows(exact_kernel_of(wire, MQB), k, (Q + MQB - 1) / MQB, rows);
+cudaError_t exact_rows(int wire, int precision, int Q, int k, int* rows) {
+  return pick_rows(exact_kernel_of(wire, MQB, precision), k, (Q + MQB - 1) / MQB, rows);
 }
 
 bool bad_shape(const Params& p) {
@@ -156,23 +168,24 @@ extern "C" {
 
 // The exact merge: carry (Q, k) in, merged carry (Q, k) out; qn (Q,) and
 // bn (B,) are the prologue's norms of the queries and the decoded block.
-// wire: 0 f32, 1 bf16 (uint16 bits), 2 int8 codes with a (B,) f32 scale.
+// wire: 0 f32, 1 bf16 (uint16 bits), 2 int8 codes with a (B,) f32 scale;
+// precision: 0 "highest", 1 "default", 2 "high".
 int block_merge_exact_launch(const float* q, const float* qn, const int* qids,
                              const void* blk, const float* scale,
                              const float* bn, const int* bids,
                              const float* carry_d, const int* carry_i,
                              float* out_d, int* out_i, int Q, int B, int D,
                              int k, int c_tile, int wire, int exclude_self,
-                             int exclude_zero, float zero_eps,
+                             int exclude_zero, float zero_eps, int precision,
                              cudaStream_t stream) {
   Params p{q, qn, qids, blk, scale, bn, bids, carry_d, carry_i, out_d, out_i,
            Q, B, D, k, c_tile, exclude_self, exclude_zero, zero_eps};
-  if (bad_shape(p) || !qn || !bn || exact_kernel_of(wire, MQB) == nullptr ||
+  if (bad_shape(p) || !qn || !bn || exact_kernel_of(wire, MQB, precision) == nullptr ||
       (wire == WIRE_INT8 && scale == nullptr))
     return (int)cudaErrorInvalidValue;
   int rows = MQB;
-  cudaError_t err = exact_rows(wire, Q, k, &rows);
-  const void* kernel = exact_kernel_of(wire, rows);
+  cudaError_t err = exact_rows(wire, precision, Q, k, &rows);
+  const void* kernel = exact_kernel_of(wire, rows, precision);
   if (err == cudaSuccess)
     err = rows == MQB ? set_mma_smem<MQB>(kernel, k) : set_mma_smem<NQB>(kernel, k);
   if (err != cudaSuccess) return (int)err;
@@ -186,14 +199,14 @@ int block_merge_exact_launch(const float* q, const float* qn, const int* qids,
 
 // K3a's plan at this shape: query rows per CTA, CTAs, and the chosen
 // kernel's registers, spilled bytes a thread and CTAs per SM.
-int block_merge_exact_plan(int wire, int Q, int k, int* rows, int* ctas,
+int block_merge_exact_plan(int wire, int precision, int Q, int k, int* rows, int* ctas,
                            int* regs, int* local_bytes, int* ctas_per_sm) {
-  if (exact_kernel_of(wire, MQB) == nullptr || Q <= 0 || k <= 0)
+  if (exact_kernel_of(wire, MQB, precision) == nullptr || Q <= 0 || k <= 0)
     return (int)cudaErrorInvalidValue;
-  cudaError_t err = exact_rows(wire, Q, k, rows);
+  cudaError_t err = exact_rows(wire, precision, Q, k, rows);
   if (err != cudaSuccess) return (int)err;
   *ctas = (Q + *rows - 1) / *rows;
-  const void* kernel = exact_kernel_of(wire, *rows);
+  const void* kernel = exact_kernel_of(wire, *rows, precision);
   return (int)(*rows == MQB
                    ? mma_kernel_info<MQB>(kernel, k, regs, local_bytes, ctas_per_sm)
                    : mma_kernel_info<NQB>(kernel, k, regs, local_bytes, ctas_per_sm));

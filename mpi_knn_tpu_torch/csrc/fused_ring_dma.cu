@@ -26,7 +26,10 @@
 //       The carry lives in a (2, Q, k) ping-pong buffer between rounds.
 //
 // The merge is K3a's: the same (distance, arrival) order, NaN rows and zero
-// rule. K5 and K4's bf16 and int8 wires run ring_merge.cuh's
+// rule, and its operand policy by matmul_precision (knn_tile.cuh): at
+// "default" and "high" K4 on every wire, the f32 one included, and K5 run
+// the mma.sync tile with Bf16x1F32 / Bf16x3 (round_dma_kernel,
+// rotation_grid_kernel); the wgmma form is "highest" alone. K5 and K4's bf16 and int8 wires run ring_merge.cuh's
 // exact_merge_group on knn_tile.cuh's Tf32x3 tile, as K3a does; K4's f32
 // wire runs the same merge (RoundEpi) on knn_wgmma.cuh's tile, built here
 // with promotion every 8-deep k-step (KNN_WGMMA_PROMOTE 1), where its
@@ -96,6 +99,7 @@
 // at 128).
 
 #include <cooperative_groups.h>
+#include <type_traits>
 
 // K4's f32 form runs knn_wgmma.cuh's tile with every 8-deep k-step's three
 // passes promoted on their own: the interval at which its products equal
@@ -170,6 +174,7 @@ struct Launch {
   int epoch;             // K4: round count of the mesh; K5: call count
   long long timeout_ns;
   int* err;              // the card's error word
+  int precision;         // 0 "highest", 1 "default", 2 "high"
 };
 
 __device__ __forceinline__ unsigned long long now_ns() {
@@ -312,7 +317,7 @@ __device__ bool wait_go(const Launch& p) {
 
 // The bf16 and int8 wires: CTA 0 the barrier, COPY_CTAS copy CTAs per rank,
 // then K3a's merge CTAs on the mma.sync tile.
-template <int WIRE, int ROWS>
+template <int WIRE, int ROWS, class Op>
 __global__ void __launch_bounds__(THREADS, 2) round_dma_kernel(Launch p) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int go_ok;
@@ -355,7 +360,7 @@ __global__ void __launch_bounds__(THREADS, 2) round_dma_kernel(Launch p) {
 
   const int groups = (p.Q + ROWS - 1) / ROWS;
   const Rank& R = p.r[b / groups];
-  exact_merge_group<WIRE, false, ROWS>(
+  exact_merge_group<WIRE, false, ROWS, Op>(
       MergeArgs{R.q, R.qn, R.qids, R.blk, R.scale, R.bn, R.bids, R.carry_d,
                 R.carry_i, R.out_d, R.out_i},
       shape_of(p), (b % groups) * ROWS, smem);
@@ -563,7 +568,7 @@ __global__ void __launch_bounds__(wg::THREADS, 1)
 
 // ---------------------------------------------------------------- K5
 
-template <int WIRE, int ROWS>
+template <int WIRE, int ROWS, class Op>
 __global__ void __launch_bounds__(THREADS, 2) rotation_grid_kernel(Launch p) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int stop;
@@ -617,7 +622,7 @@ __global__ void __launch_bounds__(THREADS, 2) rotation_grid_kernel(Launch p) {
             r == 0 ? R.carry_i : R.cbuf_i + cin,
             r == P - 1 ? R.out_d : R.cbuf_d + cout,
             r == P - 1 ? R.out_i : R.cbuf_i + cout};
-        exact_merge_group<WIRE, true, ROWS>(m, shape_of(p), (it % groups) * ROWS, smem);
+        exact_merge_group<WIRE, true, ROWS, Op>(m, shape_of(p), (it % groups) * ROWS, smem);
       } else {
         const int c = it - n_merge;
         const Rank& R = p.r[c / COPY_CTAS];
@@ -665,7 +670,8 @@ bool bad_launch(const Launch& p) {
 
 Launch make_launch(const void* ranks_v, int n_local, int Q, int B, int D, int k,
                    int ring_size, int exclude_self, int exclude_zero,
-                   float zero_eps, int epoch, long long timeout_ns, int* err) {
+                   float zero_eps, int epoch, long long timeout_ns, int* err,
+                   int precision) {
   const Rank* ranks = static_cast<const Rank*>(ranks_v);
   Launch p{};
   for (int i = 0; i < n_local && i < MAX_LOCAL; ++i) p.r[i] = ranks[i];
@@ -678,38 +684,47 @@ Launch make_launch(const void* ranks_v, int n_local, int Q, int B, int D, int k,
   p.epoch = epoch;
   p.timeout_ns = timeout_ns;
   p.err = err;
+  p.precision = precision;
   return p;
 }
 
-template <int WIRE>
+template <int WIRE, class Op>
 const void* round_kernel(int rows) {
-  return rows == MQB ? (const void*)round_dma_kernel<WIRE, MQB>
-                     : (const void*)round_dma_kernel<WIRE, NQB>;
+  return rows == MQB ? (const void*)round_dma_kernel<WIRE, MQB, Op>
+                     : (const void*)round_dma_kernel<WIRE, NQB, Op>;
 }
 
 // K5's merge items are 64-row groups: on top of the 128-row tile, the
 // cooperative kernel's own state spills 424 bytes a thread (88 at 64 rows)
-template <int WIRE>
+template <int WIRE, class Op>
 const void* grid_kernel() {
-  return (const void*)rotation_grid_kernel<WIRE, NQB>;
+  return (const void*)rotation_grid_kernel<WIRE, NQB, Op>;
 }
 
-// which: 0 K4 (its f32 form is round_dma_kernel_wgmma), 1 K5 (float wires
-// only)
-const void* kernel_of(int which, int wire, int rows) {
-  if (which == 0) {
-    switch (wire) {
-      case WIRE_F32: return (const void*)round_dma_kernel_wgmma;
-      case WIRE_BF16: return round_kernel<WIRE_BF16>(rows);
-      case WIRE_INT8: return round_kernel<WIRE_INT8>(rows);
+// which: 0 K4 (its f32 form at "highest" is round_dma_kernel_wgmma), 1 K5
+// (float wires only); precision 0 "highest", 1 "default", 2 "high"
+const void* kernel_of(int which, int wire, int rows, int precision) {
+  if (precision < 0 || precision > 2) return nullptr;
+  if (which == 0 && wire == WIRE_F32 && precision == 0)
+    return (const void*)round_dma_kernel_wgmma;
+  return with_precision(precision, [&](auto op) -> const void* {
+    using Op = decltype(op);
+    if (which == 0) {
+      switch (wire) {
+        case WIRE_F32:
+          if constexpr (!std::is_same_v<Op, Tf32x3>) return round_kernel<WIRE_F32, Op>(rows);
+          return nullptr;
+        case WIRE_BF16: return round_kernel<WIRE_BF16, Op>(rows);
+        case WIRE_INT8: return round_kernel<WIRE_INT8, Op>(rows);
+      }
+    } else if (which == 1) {
+      switch (wire) {
+        case WIRE_F32: return grid_kernel<WIRE_F32, Op>();
+        case WIRE_BF16: return grid_kernel<WIRE_BF16, Op>();
+      }
     }
-  } else if (which == 1) {
-    switch (wire) {
-      case WIRE_F32: return grid_kernel<WIRE_F32>();
-      case WIRE_BF16: return grid_kernel<WIRE_BF16>();
-    }
-  }
-  return nullptr;
+    return nullptr;
+  });
 }
 
 // A launch's plan on the current card: query rows per merge group (K4's
@@ -741,17 +756,18 @@ cudaError_t wgmma_plan(int n_local, int Q, int k, Plan* pl) {
   return cudaSuccess;
 }
 
-cudaError_t plan_of(int which, int wire, int n_local, int Q, int k, Plan* pl) {
-  const void* k128 = kernel_of(which, wire, MQB);
+cudaError_t plan_of(int which, int wire, int precision, int n_local, int Q, int k,
+                    Plan* pl) {
+  const void* k128 = kernel_of(which, wire, MQB, precision);
   if (k128 == nullptr || n_local < 1 || Q <= 0 || k <= 0) return cudaErrorInvalidValue;
-  if (which == 0 && wire == WIRE_F32) return wgmma_plan(n_local, Q, k, pl);
+  if (k128 == (const void*)round_dma_kernel_wgmma) return wgmma_plan(n_local, Q, k, pl);
   cudaError_t e = cudaSuccess;
   if (which == 1)
     pl->rows = NQB;  // see grid_kernel
   else
     e = pick_rows(k128, k, (long long)n_local * ((Q + MQB - 1) / MQB), &pl->rows);
   if (e != cudaSuccess) return e;
-  pl->kernel = kernel_of(which, wire, pl->rows);
+  pl->kernel = kernel_of(which, wire, pl->rows, precision);
   e = pl->rows == MQB
           ? mma_kernel_info<MQB>(pl->kernel, k, &pl->regs, &pl->local_bytes,
                                  &pl->ctas_per_sm)
@@ -800,7 +816,7 @@ cudaError_t launch_wgmma(const Launch& p, const Plan& pl, cudaStream_t stream) {
 
 cudaError_t launch(int which, int wire, Launch p, cudaStream_t stream) {
   Plan pl;
-  cudaError_t e = plan_of(which, wire, p.n_local, p.Q, p.k, &pl);
+  cudaError_t e = plan_of(which, wire, p.precision, p.n_local, p.Q, p.k, &pl);
   if (e != cudaSuccess) return e;
   void* args[] = {&p};
   e = pl.wgmma ? launch_wgmma(p, pl, stream)
@@ -839,13 +855,15 @@ int ring_enable_peer_access(int dev, int peer) {
 }
 
 // K4: one round for the card's local ranks (`ranks`: n_local Rank structs).
-// wire: 0 f32, 1 bf16, 2 int8 codes with (B,) f32 scales.
+// wire: 0 f32, 1 bf16, 2 int8 codes with (B,) f32 scales; precision: 0
+// "highest", 1 "default", 2 "high".
 int round_dma_launch(const void* ranks, int n_local, int Q, int B, int D,
                      int k, int wire, int ring_size, int exclude_self,
                      int exclude_zero, float zero_eps, int epoch,
-                     long long timeout_ns, int* err, cudaStream_t stream) {
+                     long long timeout_ns, int* err, int precision,
+                     cudaStream_t stream) {
   Launch p = make_launch(ranks, n_local, Q, B, D, k, ring_size, exclude_self,
-                         exclude_zero, zero_eps, epoch, timeout_ns, err);
+                         exclude_zero, zero_eps, epoch, timeout_ns, err, precision);
   if (bad_launch(p)) return (int)cudaErrorInvalidValue;
   for (int i = 0; i < n_local; ++i)
     if (wire == WIRE_INT8 && (!p.r[i].scale || !p.r[i].dst_scale))
@@ -857,9 +875,10 @@ int round_dma_launch(const void* ranks, int n_local, int Q, int B, int D,
 int rotation_grid_launch(const void* ranks, int n_local, int Q, int B, int D,
                          int k, int wire, int ring_size, int exclude_self,
                          int exclude_zero, float zero_eps, int epoch,
-                         long long timeout_ns, int* err, cudaStream_t stream) {
+                         long long timeout_ns, int* err, int precision,
+                         cudaStream_t stream) {
   Launch p = make_launch(ranks, n_local, Q, B, D, k, ring_size, exclude_self,
-                         exclude_zero, zero_eps, epoch, timeout_ns, err);
+                         exclude_zero, zero_eps, epoch, timeout_ns, err, precision);
   if (bad_launch(p)) return (int)cudaErrorInvalidValue;
   for (int i = 0; i < n_local; ++i)
     if (!p.r[i].slot_blk || !p.r[i].slot_bids || !p.r[i].slot_bn ||
@@ -873,9 +892,10 @@ int rotation_grid_launch(const void* ranks, int n_local, int Q, int B, int D,
 // round (merge items, plus copy items where CTAs or work items take them),
 // registers, spilled bytes a thread, CTAs per SM, copy units per round,
 // and 1 where the tile is the wgmma one (K4's f32 form).
-int ring_kernel_plan(int which, int wire, int n_local, int Q, int k, int* out) {
+int ring_kernel_plan(int which, int wire, int precision, int n_local, int Q, int k,
+                     int* out) {
   Plan pl;
-  cudaError_t e = plan_of(which, wire, n_local, Q, k, &pl);
+  cudaError_t e = plan_of(which, wire, precision, n_local, Q, k, &pl);
   if (e != cudaSuccess) return (int)e;
   const int vals[8] = {pl.rows, pl.grid, pl.items, pl.regs, pl.local_bytes,
                        pl.ctas_per_sm, pl.copy_units, pl.wgmma};

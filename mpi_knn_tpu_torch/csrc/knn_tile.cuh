@@ -23,6 +23,13 @@
 //   16-deep k-step; a bf16 x bf16 product is exact in f32, so the keys are
 //   the bf16 dot with the tensor cores' own f32 sums.
 //
+//   Bf16x1F32 and Bf16x3, the f32 tile at matmul_precision "default" and
+//   "high" (K1, K2, K3a, K4, K5). Their operands are the exact tile's f32
+//   slices; after the fragment load each value is rounded to bf16 (nearest
+//   even: one pass) or split into bf16 hi + lo (three passes, lo.hi,
+//   hi.lo, hi.hi), one 16-deep m16n8k16 k-step per slice, promoted as
+//   Tf32x3's. The norms stay the f32 ones of the exact prologue.
+//
 //   Tf32x3, the exact tile. Its operands are the f32 rows themselves, 16
 //   floats per slice (the same 64 bytes as a bf16 slice of 32). After the
 //   fragment load each value x is split in registers, hi = tf32_rna(x),
@@ -421,6 +428,7 @@ __device__ __forceinline__ void split_tf32_norm(unsigned x, unsigned& hi,
 // The compress tile: one bf16 pass per 16-deep k-step.
 struct Bf16x1 {
   static constexpr bool promote = false;
+  static constexpr bool k16 = false;
   struct AFrag { unsigned r[4]; };
   struct BFrag { unsigned r[2]; };
   __device__ static AFrag a_frag(const unsigned (&x)[4]) {
@@ -436,6 +444,7 @@ struct Bf16x1 {
 // k-step in the order lo.hi, hi.lo, hi.hi.
 struct Tf32x3 {
   static constexpr bool promote = true;
+  static constexpr bool k16 = false;
   struct AFrag { unsigned hi[4], lo[4]; };
   struct BFrag { unsigned hi[2], lo[2]; };
   __device__ static AFrag a_frag(const unsigned (&x)[4]) {
@@ -456,6 +465,94 @@ struct Tf32x3 {
     mma_tf32(c, a.hi, b.hi);
   }
 };
+
+// Two f32 values as a bf16 pair, each rounded to nearest even (a in the
+// low half: the lower k of the pair).
+__device__ __forceinline__ unsigned pack_bf16(float a, float b) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<unsigned*>(&v);
+}
+
+// x = hi + lo with hi = bf16_rn(x) and lo = bf16_rn(x - hi) (x - hi is
+// exact in f32), as bf16 pairs of the f32 values a and b.
+__device__ __forceinline__ void split_bf16(unsigned a, unsigned b, unsigned& hi,
+                                           unsigned& lo) {
+  const float fa = __uint_as_float(a), fb = __uint_as_float(b);
+  const float ha = __bfloat162float(__float2bfloat16_rn(fa));
+  const float hb = __bfloat162float(__float2bfloat16_rn(fb));
+  hi = pack_bf16(ha, hb);
+  lo = pack_bf16(__fsub_rn(fa, ha), __fsub_rn(fb, hb));
+}
+
+// The f32-operand bf16 policies (matmul_precision "default" and "high")
+// read the exact tile's f32 slices and run one 16-deep bf16 k-step per
+// slice. The ldmatrix fragments of the slice's two 8-deep halves (x, y)
+// give lane (g, t) the values at k = t, t + 4 (x) and t + 8, t + 12 (y) of
+// its rows g, g + 8 (A) and of its column g (B); the bf16 fragment holds
+// k = 2t, 2t + 1, 2t + 8, 2t + 9. A dot product does not depend on the
+// order of its terms, so A and B both put k = t, t + 4, t + 8, t + 12 in
+// the bf16 slots 2t, 2t + 1, 2t + 8, 2t + 9.
+
+// "default": each f32 operand rounded to bf16 (nearest even), one pass:
+// the TPU's DEFAULT on f32 operands. Each 16-deep k-step's product goes
+// into a zeroed partial added to the sum with one FADD, as Tf32x3's.
+struct Bf16x1F32 {
+  static constexpr bool promote = true;
+  static constexpr bool k16 = true;
+  struct AFrag { unsigned r[4]; };
+  struct BFrag { unsigned r[2]; };
+  __device__ static unsigned pack(unsigned a, unsigned b) {
+    return pack_bf16(__uint_as_float(a), __uint_as_float(b));
+  }
+  __device__ static AFrag a_frag(const unsigned (&x)[4], const unsigned (&y)[4]) {
+    return AFrag{{pack(x[0], x[2]), pack(x[1], x[3]), pack(y[0], y[2]), pack(y[1], y[3])}};
+  }
+  __device__ static BFrag b_frag(unsigned x0, unsigned x1, unsigned y0, unsigned y1) {
+    return BFrag{{pack(x0, x1), pack(y0, y1)}};
+  }
+  __device__ static void mma(float (&c)[4], const AFrag& a, const BFrag& b) {
+    mma_bf16(c, a.r, b.r[0], b.r[1]);
+  }
+};
+
+// "high": each f32 operand split into bf16 hi + lo, three passes per
+// 16-deep k-step in Tf32x3's order, lo.hi, hi.lo, hi.hi, promoted as it
+// is: x.y = hi.hi + hi.lo + lo.hi up to the dropped lo.lo and lo's
+// rounding (~2^-16 relative).
+struct Bf16x3 {
+  static constexpr bool promote = true;
+  static constexpr bool k16 = true;
+  struct AFrag { unsigned hi[4], lo[4]; };
+  struct BFrag { unsigned hi[2], lo[2]; };
+  __device__ static AFrag a_frag(const unsigned (&x)[4], const unsigned (&y)[4]) {
+    AFrag f;
+    split_bf16(x[0], x[2], f.hi[0], f.lo[0]);
+    split_bf16(x[1], x[3], f.hi[1], f.lo[1]);
+    split_bf16(y[0], y[2], f.hi[2], f.lo[2]);
+    split_bf16(y[1], y[3], f.hi[3], f.lo[3]);
+    return f;
+  }
+  __device__ static BFrag b_frag(unsigned x0, unsigned x1, unsigned y0, unsigned y1) {
+    BFrag f;
+    split_bf16(x0, x1, f.hi[0], f.lo[0]);
+    split_bf16(y0, y1, f.hi[1], f.lo[1]);
+    return f;
+  }
+  __device__ static void mma(float (&c)[4], const AFrag& a, const BFrag& b) {
+    mma_bf16(c, a.lo, b.hi[0], b.hi[1]);
+    mma_bf16(c, a.hi, b.lo[0], b.lo[1]);
+    mma_bf16(c, a.hi, b.hi[0], b.hi[1]);
+  }
+};
+
+// The operand policy of an f32 tile by its matmul precision code (0
+// "highest", 1 "default", 2 "high"): f(Op{}) for that policy.
+template <class F>
+auto with_precision(int precision, F f) {
+  if (precision == 1) return f(Bf16x1F32{});
+  if (precision == 2) return f(Bf16x3{});
+  return f(Tf32x3{});
+}
 
 // One output block's k-step: acc (+)= a . b, or with promotion
 // acc = acc + (0 + a . b) with one FADD per output.
@@ -654,6 +751,26 @@ __device__ void tile_product(const QOp& qa, const COp& ca, int nk, int Q, int q0
     cp_async_commit();
     const unsigned slot = kt % MSTAGES;
     const unsigned as = a_lane + slot * A_STAGE, bs = b_lane + slot * B_STAGE;
+    if constexpr (Op::k16) {  // f32 slices, one 16-deep bf16 k-step each
+      typename Op::BFrag b[4];
+#pragma unroll
+      for (int nj = 0; nj < 2; ++nj) {
+        unsigned x[4], y[4];
+        ldmatrix_x4(x, bs + nj * 16 * PITCH);
+        ldmatrix_x4(y, bs + nj * 16 * PITCH + 32);
+        b[2 * nj] = Op::b_frag(x[0], x[1], y[0], y[1]);
+        b[2 * nj + 1] = Op::b_frag(x[2], x[3], y[2], y[3]);
+      }
+#pragma unroll
+      for (int mi = 0; mi < MI; ++mi) {
+        unsigned x[4], y[4];
+        ldmatrix_x4(x, as + mi * 16 * PITCH);
+        ldmatrix_x4(y, as + mi * 16 * PITCH + 32);
+        const typename Op::AFrag a = Op::a_frag(x, y);
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni) mma_step<Op>(acc[mi][ni], a, b[ni]);
+      }
+    } else {
 #pragma unroll
     for (int kb = 0; kb < SLICE_BYTES; kb += 32) {  // two k-steps per slice
       typename Op::BFrag b[4];
@@ -672,6 +789,7 @@ __device__ void tile_product(const QOp& qa, const COp& ca, int nk, int Q, int q0
 #pragma unroll
         for (int ni = 0; ni < 4; ++ni) mma_step<Op>(acc[mi][ni], a, b[ni]);
       }
+    }
     }
   }
   cp_async_wait<0>();
@@ -724,10 +842,10 @@ __device__ void sweep_mma(const Src& src, const QOp& qa, const float* __restrict
   __syncthreads();
 }
 
-// The exact tile's raw products of query rows [q0, q0+ROWS) and columns
-// [col0, col0+MCB): out (Q, C) f32. A test hook: the card tests hold the
-// prologue's norms against this diagonal.
-template <int ROWS, class QOp, class COp>
+// The f32 tile's raw products (policy Op) of query rows [q0, q0+ROWS) and
+// columns [col0, col0+MCB): out (Q, C) f32. A test hook: the card tests
+// hold the prologue's norms against the Tf32x3 diagonal.
+template <class Op, int ROWS, class QOp, class COp>
 __device__ void tile_dots(const QOp& qa, const COp& ca, int nk, int Q, int C, int q0,
                           int col0, unsigned char* smem, float* __restrict__ out) {
   constexpr int MI = ROWS / 32;
@@ -735,7 +853,7 @@ __device__ void tile_dots(const QOp& qa, const COp& ca, int nk, int Q, int C, in
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   const int wm = warp / 4, wn = warp % 4;
   float acc[MI][4][4];
-  tile_product<Tf32x3, ROWS>(qa, ca, nk, Q, q0, C, col0, sm, acc);
+  tile_product<Op, ROWS>(qa, ca, nk, Q, q0, C, col0, sm, acc);
 #pragma unroll
   for (int mi = 0; mi < MI; ++mi)
 #pragma unroll

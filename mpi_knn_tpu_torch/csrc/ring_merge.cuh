@@ -1,7 +1,9 @@
 // What the ring kernels share (fused_ring.cu: K3a/K3b; fused_ring_dma.cu:
 // K4/K5): the wire decode, norms and mask policy of a ring block's columns
 // (RingCols), and K3a's exact merge of one block into the carry of one
-// group of query rows, on knn_tile.cuh's Tf32x3 tile.
+// group of query rows, on knn_tile.cuh's f32 tile under an operand policy
+// (Tf32x3 at matmul_precision "highest", Bf16x1F32 at "default", Bf16x3 at
+// "high").
 //
 // Wires: f32 as is, bf16 widened, int8 as code * scale (one f32 multiply,
 // the reference's dequantize_rows). Masks: padding by id (-1), self by id
@@ -93,7 +95,7 @@ struct MergeShape {
 // ties to the leftmost column). Any NaN among a row's candidates makes the
 // row (NaN, -1). The whole CTA calls it; it ends on a barrier, so a CTA may
 // call it again for another group with the same shared memory.
-template <int WIRE, bool CG, int ROWS>
+template <int WIRE, bool CG, int ROWS, class Op = Tf32x3>
 __device__ void exact_merge_group(const MergeArgs& m, const MergeShape& s,
                                   int q0, unsigned char* smem) {
   const int k = s.k;
@@ -121,7 +123,7 @@ __device__ void exact_merge_group(const MergeArgs& m, const MergeShape& s,
                                  s.exclude_self != 0, s.exclude_zero != 0,
                                  s.zero_eps, m.bn};
   const float* blk_rows = WIRE == WIRE_F32 ? async_rows(m.blk, s.D) : nullptr;
-  sweep_mma<Tf32x3, ROWS>(
+  sweep_mma<Op, ROWS>(
       cols, F32Operand<F32Rows>{F32Rows{m.q, s.D}, async_rows(m.q, s.D), s.D}, m.qn,
       s.Q, F32Operand<RingCols<WIRE, false, CG>>{cols, blk_rows, s.D},
       (s.D + TKD - 1) / TKD, q0, 0, s.B, L);

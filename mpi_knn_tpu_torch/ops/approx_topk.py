@@ -20,12 +20,18 @@ instead, so on the CPU the two packages agree only where the reduction is
 exact (and, on ties, only in values: its CPU order of tied columns is its
 own).
 
+float64 rows (the f64 debugging mode) take the same plans: each key is
+the value's 64 bits in the same signed order with the column beside it
+(16 bytes of shared memory or scratch a key: ``launch_plan``'s
+``key_bytes``); the plain version compares (value key, column) pairs.
+
 The kernel takes any L up to n, by the plan ``launch_plan`` picks: a warp
 a row (L <= 1024), a CTA a row (L <= 8192), or two passes over a global
 scratch (wider). The wrappers take their plain versions only because the
 tensor they were given lies on the CPU; on a CUDA tensor they launch the
 kernel or raise. Each call that launches adds one to
-``LAUNCHES["approx_min_k"]``, whatever its passes.
+``LAUNCHES["approx_min_k"]`` (on f64 rows ``"approx_min_k[f64]"``),
+whatever its passes.
 """
 
 from __future__ import annotations
@@ -39,9 +45,10 @@ import torch
 from mpi_knn_tpu_torch.ops import _build
 from mpi_knn_tpu_torch.types import INVALID_ID
 
-LAUNCHES = {"approx_min_k": 0}
+LAUNCHES = {"approx_min_k": 0, "approx_min_k[f64]": 0}
 
 _NAN_ORDER = (1 << 31) - 1
+_NAN_ORDER64 = (1 << 63) - 1
 _INF = float("inf")
 LANES = 128  # the lane multiple the approximate methods pad their rows to
 # the plans of csrc/approx_topk.cu (their constants are the kernel's)
@@ -52,11 +59,12 @@ _CTA_MAX_WARPS = 16      # so a CTA a row up to 8192 bins
 _TWO_PASS_BINS = 1024    # bins a warp in the two-pass plan (G = 8)
 _WARP_ROWS = 4           # warps (rows) a CTA in the warp plan and pass 1
 _ROUNDS_MAX = 32         # up to 32 keys by warp-minimum rounds, else a sort
-_KEY_BYTES = 8
+_KEY_BYTES = {torch.float32: 8, torch.float64: 16}
 
 
 def reset_launch_counts():
-    LAUNCHES["approx_min_k"] = 0
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
 
 
 @functools.lru_cache(maxsize=4096)
@@ -83,7 +91,8 @@ def _pow2_at_least(x: int) -> int:
 
 
 @functools.lru_cache(maxsize=4096)
-def launch_plan(rows: int, n: int, L: int, out: int) -> dict:
+def launch_plan(rows: int, n: int, L: int, out: int,
+                dtype: torch.dtype = torch.float32) -> dict:
     """How the kernel reduces ``rows`` rows of n columns to L bins and
     returns each row's ``out`` smallest winners: the regime ("warp": a warp
     a row, "cta": a CTA a row, "two_pass": chunks into a global scratch,
@@ -91,15 +100,22 @@ def launch_plan(rows: int, n: int, L: int, out: int) -> dict:
     reduces and the chunks a row, the selection ("rounds" of warp minima
     up to 32 keys, else a bitonic "sort" in shared memory), rows a CTA,
     threads, grid and dynamic shared bytes of the first kernel, the passes
-    and the int64 keys of the scratch. The wrapper hands it to the launch,
-    which refuses a plan that does not fit the shape."""
+    and the keys of the scratch, and the bytes of a key (8 for float32
+    rows, 16 for float64). The wrapper hands it to the launch, which
+    refuses a plan that does not fit the shape."""
     if not 1 <= out <= L <= n:
         raise ValueError(f"launch_plan: need 1 <= out={out} <= L={L} <= n={n}")
+    plan = _plan(rows, n, L, out, _KEY_BYTES[dtype])
+    plan["key_bytes"] = _KEY_BYTES[dtype]
+    return plan
+
+
+def _plan(rows, n, L, out, key_bytes):
     select = "rounds" if out <= _ROUNDS_MAX else "sort"
     if L <= _WARP_MAX_BINS:
         G = _pow2_at_least(-(-L // 128))
         chunks, chunk = 1, L
-        shared = _WARP_ROWS * 128 * G * _KEY_BYTES  # a warp's keys, either way
+        shared = _WARP_ROWS * 128 * G * key_bytes  # a warp's keys, either way
         return dict(regime="warp", G=G, chunk=chunk, chunks=chunks,
                     select=select, rows_per_cta=_WARP_ROWS,
                     threads=32 * _WARP_ROWS, grid=-(-rows // _WARP_ROWS),
@@ -108,9 +124,9 @@ def launch_plan(rows: int, n: int, L: int, out: int) -> dict:
         chunks = -(-L // _CTA_BINS)
         chunk = -(-(-(-L // chunks)) // 4) * 4
         if select == "sort":
-            shared = _pow2_at_least(chunks * _CTA_BINS) * _KEY_BYTES
+            shared = _pow2_at_least(chunks * _CTA_BINS) * key_bytes
         else:  # each warp's keys, then its out smallest for the merge
-            shared = chunks * (_CTA_BINS + 32) * _KEY_BYTES
+            shared = chunks * (_CTA_BINS + 32) * key_bytes
         return dict(regime="cta", G=_CTA_BINS // 128, chunk=chunk,
                     chunks=chunks, select=select, rows_per_cta=1,
                     threads=32 * chunks, grid=rows, shared_bytes=shared,
@@ -123,7 +139,7 @@ def launch_plan(rows: int, n: int, L: int, out: int) -> dict:
         nl, ln = -(-nl // 32), min(out, 32 * ln)
         scratch += rows * nl * ln
         passes += 1
-    shared = _WARP_ROWS * _TWO_PASS_BINS * _KEY_BYTES
+    shared = _WARP_ROWS * _TWO_PASS_BINS * key_bytes
     return dict(regime="two_pass", G=_TWO_PASS_BINS // 128, chunk=chunk,
                 chunks=chunks, select="rounds" if length <= _ROUNDS_MAX else "sort",
                 rows_per_cta=_WARP_ROWS, threads=32 * _WARP_ROWS,
@@ -155,6 +171,33 @@ def _order_keys(d: torch.Tensor) -> torch.Tensor:
     return o * (1 << 32) + cols
 
 
+def _order_keys64(d: torch.Tensor) -> torch.Tensor:
+    """(…, n) f64 → (…, n) int64 value keys in the same signed order (-0.0
+    as +0.0, NaN above +inf); the column is the second word of the pair."""
+    v = torch.where(d == 0, torch.zeros_like(d), d)
+    s = v.view(torch.int64)
+    o = torch.where(s >= 0, s, -(s & 0x7FFFFFFFFFFFFFFF) - 1)
+    return torch.where(torch.isnan(d), _NAN_ORDER64, o)
+
+
+def _bin_winners64(d: torch.Tensor, L: int, out: int) -> torch.Tensor:
+    """The f64 bin minimum by (value key, column) pairs: each bin's
+    smallest key with ties to its lowest column (the first segment), NaN
+    padding past n, then the winners sorted by (key, column), ``out``
+    kept: (rows, out) int64 positions."""
+    rows, n = d.shape
+    keys = _order_keys64(d)
+    pad = -n % L
+    if pad:  # NaN padding loses to every real column, a real NaN included
+        keys = torch.cat([keys, keys.new_full((rows, pad), _NAN_ORDER64)], -1)
+    wk, seg = keys.view(rows, (n + pad) // L, L).min(dim=1)  # first on ties
+    cols = seg * L + torch.arange(L, device=d.device)
+    by_col = torch.argsort(cols, dim=-1)
+    order = torch.gather(by_col, 1, torch.sort(torch.gather(wk, 1, by_col), dim=-1,
+                                               stable=True).indices)
+    return torch.gather(cols, 1, order[:, :out])
+
+
 def approx_min_k_reference(dists: torch.Tensor, k: int,
                            recall_target: float = 0.95,
                            aggregate_to_topk: bool = True):
@@ -166,23 +209,26 @@ def approx_min_k_reference(dists: torch.Tensor, k: int,
     L, out = _out_width(n, k, recall_target, aggregate_to_topk)
     lead = dists.shape[:-1]
     d = dists.reshape(-1, n)
-    keys = _order_keys(d)
-    pad = -n % L
-    if pad:  # NaN padding loses to every real column, a real NaN included
-        cols = torch.arange(n, n + pad, dtype=torch.int64, device=d.device)
-        keys = torch.cat(
-            [keys, (_NAN_ORDER * (1 << 32) + cols).expand(d.shape[0], pad)], -1)
-    win = keys.view(d.shape[0], (n + pad) // L, L).amin(dim=1)
-    pos = torch.sort(win, dim=-1).values[:, :out] & 0xFFFFFFFF
+    if d.dtype == torch.float64:
+        pos = _bin_winners64(d, L, out)
+    else:
+        keys = _order_keys(d)
+        pad = -n % L
+        if pad:  # NaN padding loses to every real column, a real NaN included
+            cols = torch.arange(n, n + pad, dtype=torch.int64, device=d.device)
+            keys = torch.cat(
+                [keys, (_NAN_ORDER * (1 << 32) + cols).expand(d.shape[0], pad)], -1)
+        win = keys.view(d.shape[0], (n + pad) // L, L).amin(dim=1)
+        pos = torch.sort(win, dim=-1).values[:, :out] & 0xFFFFFFFF
     vals = torch.gather(d, 1, pos)
     return vals.reshape(*lead, out), pos.reshape(*lead, out)
 
 
 def approx_min_k(dists: torch.Tensor, k: int, recall_target: float = 0.95,
                  aggregate_to_topk: bool = True):
-    """(…, n) float32 → ((…, out) values, (…, out) int64 column positions),
-    out = k with ``aggregate_to_topk``, else ``reduction_width(n, k,
-    recall_target)``; sorted by (value, column)."""
+    """(…, n) float32 or float64 → ((…, out) values, (…, out) int64 column
+    positions), out = k with ``aggregate_to_topk``, else
+    ``reduction_width(n, k, recall_target)``; sorted by (value, column)."""
     _check(dists)
     if dists.device.type == "cpu":
         return approx_min_k_reference(dists, k, recall_target,
@@ -193,7 +239,7 @@ def approx_min_k(dists: torch.Tensor, k: int, recall_target: float = 0.95,
         raise ValueError("approx_min_k: the kernel takes a contiguous tensor")
     lead = dists.shape[:-1]
     rows = dists.numel() // n
-    vals = torch.empty((*lead, out), dtype=torch.float32, device=dists.device)
+    vals = torch.empty((*lead, out), dtype=dists.dtype, device=dists.device)
     pos = torch.empty((*lead, out), dtype=torch.int64, device=dists.device)
     _launch(dists, n, rows, n, n, L, out, vals, pos=pos)
     return vals, pos
@@ -252,7 +298,7 @@ def approx_smallest_k_reference(dists, ids, k: int, method: str,
 def approx_smallest_k(dists, ids, k: int, method: str,
                       recall_target: float = 0.95):
     """``smallest_k(dists, ids, k, method)`` for the approximate methods in
-    one launch: the (q, c) f32 tile is read where it lies (row stride
+    one launch: the (q, c) f32 or f64 tile is read where it lies (row stride
     kept; columns c up to the next multiple of 128 count as (+inf,
     INVALID_ID)), ids (c,) or (q, c) int32 are gathered in the epilogue.
     ``approx``: the k smallest of L = ``reduction_width(padded c, k)`` bin
@@ -278,7 +324,7 @@ def approx_smallest_k(dists, ids, k: int, method: str,
     if ids.stride(-1) != 1:
         ids = ids.contiguous()
     ids_ld = ids.stride(0) if ids.ndim == 2 else 0
-    vals = torch.empty((q, out), dtype=torch.float32, device=dists.device)
+    vals = torch.empty((q, out), dtype=dists.dtype, device=dists.device)
     out_ids = torch.empty((q, out), dtype=torch.int32, device=dists.device)
     _launch(dists, dists.stride(0), q, c, n_pad, L, out, vals, ids=ids,
             ids_ld=ids_ld, out_ids=out_ids)
@@ -292,9 +338,11 @@ def _launch(d, ld, rows, c, n_pad, L, out, vals, pos=None, ids=None,
     gathered); raises on a CUDA error."""
     if rows == 0:
         return
-    plan = launch_plan(rows, n_pad, L, out)
-    scratch = (torch.empty(plan["scratch_keys"], dtype=torch.int64,
-                           device=d.device) if plan["scratch_keys"] else None)
+    plan = launch_plan(rows, n_pad, L, out, d.dtype)
+    # the keys of the two-pass scratch, as int64 words (two a key for f64)
+    scratch = (torch.empty(plan["scratch_keys"] * plan["key_bytes"] // 8,
+                           dtype=torch.int64, device=d.device)
+               if plan["scratch_keys"] else None)
 
     def ptr(t):
         return None if t is None else t.data_ptr()
@@ -304,16 +352,18 @@ def _launch(d, ld, rows, c, n_pad, L, out, vals, pos=None, ids=None,
             plan["chunks"], plan["shared_bytes"], ptr(scratch),
             plan["scratch_keys"], vals.data_ptr(), ptr(pos), ptr(ids), ids_ld,
             ptr(out_ids))
+    fn = (_lib().approx_min_k_f64_launch if d.dtype == torch.float64
+          else _lib().approx_min_k_launch)
     index = d.device.index
     if index == torch.cuda.current_device():
-        err = _lib().approx_min_k_launch(*args, _stream(index))
+        err = fn(*args, _stream(index))
     else:
         with torch.cuda.device(index):
-            err = _lib().approx_min_k_launch(*args, _stream(index))
+            err = fn(*args, _stream(index))
     if err:
         raise RuntimeError(f"approx_min_k launch failed (CUDA error {err}; "
                            f"plan {plan})")
-    LAUNCHES["approx_min_k"] += 1
+    LAUNCHES["approx_min_k[f64]" if d.dtype == torch.float64 else "approx_min_k"] += 1
 
 
 def _stream(index: int) -> int:
@@ -324,8 +374,8 @@ def _stream(index: int) -> int:
 
 
 def _check(dists):
-    if dists.dtype != torch.float32:
-        raise TypeError(f"approx_min_k takes float32, got {dists.dtype}")
+    if dists.dtype not in _KEY_BYTES:
+        raise TypeError(f"approx_min_k takes float32 or float64, got {dists.dtype}")
     if dists.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {dists.device}")
     if dists.ndim < 1 or dists.shape[-1] < 1:
@@ -347,4 +397,6 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         ptr, ptr, ptr, i64, ptr,            # vals, pos, ids, ids_ld, out_ids
         ptr]                                # stream
     lib.approx_min_k_launch.restype = i32
+    lib.approx_min_k_f64_launch.argtypes = lib.approx_min_k_launch.argtypes
+    lib.approx_min_k_f64_launch.restype = i32
     return lib

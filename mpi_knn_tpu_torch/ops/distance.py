@@ -5,6 +5,14 @@ The product is ``torch.matmul`` at full f32 (or f64), never single-pass
 TF32. bf16 inputs are widened to f32 before the product,
 which equals the JAX package's bf16 dot with f32 accumulation (bf16 values
 are exact in f32).
+
+``matmul_precision`` takes the JAX package's values (``_dot_precision``):
+None is "highest" for f32 and f64 operands and "default" for bf16 ones.
+On f32 operands "default" rounds each to bf16 (nearest even, as
+``astype(bfloat16)``) and multiplies once with f32 sums, the TPU's DEFAULT;
+"high" splits each into bf16 hi + lo (lo = bf16(x − hi)) and sums
+lo·hi + hi·lo + hi·hi in f32, the TPU's HIGH. f64 and bf16 operands keep
+their products whatever the precision. Norms are always full precision.
 """
 
 from __future__ import annotations
@@ -61,10 +69,49 @@ def _check_full_precision(x: torch.Tensor):
         )
 
 
-def _mm_t(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """x · yᵀ in the accumulation dtype."""
+PRECISION_CODES = {"highest": 0, "default": 1, "high": 2}
+
+
+def resolve_precision(precision, dtype=torch.float32) -> str:
+    """The JAX package's ``_dot_precision``: an explicit precision as
+    given, else "default" for bf16 operands and "highest" otherwise."""
+    if precision is not None:
+        if precision not in PRECISION_CODES:
+            raise ValueError(f"matmul_precision must be one of "
+                             f"{tuple(PRECISION_CODES)}, got {precision!r}")
+        return precision
+    return "default" if dtype == torch.bfloat16 else "highest"
+
+
+def precision_code(precision) -> int:
+    """The kernels' code of an f32 operand policy: 0 "highest" (Tf32x3),
+    1 "default" (Bf16x1F32), 2 "high" (Bf16x3)."""
+    return PRECISION_CODES[resolve_precision(precision)]
+
+
+def bf16_round(x: torch.Tensor) -> torch.Tensor:
+    """f32 values rounded to bf16 (nearest even), as f32."""
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
+def bf16_split(x: torch.Tensor):
+    """x = hi + lo + (rounding): hi = bf16(x), lo = bf16(x − hi), as f32."""
+    hi = bf16_round(x)
+    return hi, bf16_round(x - hi)
+
+
+def _mm_t(x: torch.Tensor, y: torch.Tensor, precision=None) -> torch.Tensor:
+    """x · yᵀ in the accumulation dtype, at ``precision`` on f32 operands."""
     _check_full_precision(x)
     acc = _acc_dtype(x)
+    if x.dtype == torch.float32 and y.dtype == torch.float32:
+        p = resolve_precision(precision)
+        if p == "default":
+            return torch.matmul(bf16_round(x), bf16_round(y).T)
+        if p == "high":
+            (xh, xl), (yh, yl) = bf16_split(x), bf16_split(y)
+            return (torch.matmul(xl, yh.T) + torch.matmul(xh, yl.T)
+                    + torch.matmul(xh, yh.T))
     return torch.matmul(x.to(acc), y.to(acc).T)
 
 
@@ -74,13 +121,13 @@ def sq_norms(x: torch.Tensor) -> torch.Tensor:
     return torch.sum(xa * xa, dim=-1)
 
 
-def pairwise_sq_l2(x, y, x_sq=None, y_sq=None) -> torch.Tensor:
+def pairwise_sq_l2(x, y, x_sq=None, y_sq=None, precision=None) -> torch.Tensor:
     """Squared L2 distances between rows of x (q, d) and y (c, d) -> (q, c)."""
     if x_sq is None:
         x_sq = sq_norms(x)
     if y_sq is None:
         y_sq = sq_norms(y)
-    d = x_sq[:, None] - 2.0 * _mm_t(x, y) + y_sq[None, :]
+    d = x_sq[:, None] - 2.0 * _mm_t(x, y, precision) + y_sq[None, :]
     # cancellation can leave tiny negatives; clamp keeps NaN as NaN
     return torch.clamp_min(d, 0.0)
 
@@ -91,16 +138,17 @@ def _l2_normalize(x: torch.Tensor, eps: float = _NORM_EPS) -> torch.Tensor:
     return x.to(acc) / n[:, None]
 
 
-def pairwise_cosine(x, y) -> torch.Tensor:
+def pairwise_cosine(x, y, precision=None) -> torch.Tensor:
     """Cosine distance (1 − cosine similarity), range [0, 2]."""
-    sim = _mm_t(_l2_normalize(x), _l2_normalize(y))
+    sim = _mm_t(_l2_normalize(x), _l2_normalize(y), precision)
     return torch.clamp_min(1.0 - sim, 0.0)
 
 
-def pairwise_dist(x, y, metric: str = "l2", x_sq=None, y_sq=None):
+def pairwise_dist(x, y, metric: str = "l2", x_sq=None, y_sq=None,
+                  precision=None):
     """Dispatch on metric; returns distances in sortable space."""
     if metric == "l2":
-        return pairwise_sq_l2(x, y, x_sq=x_sq, y_sq=y_sq)
+        return pairwise_sq_l2(x, y, x_sq=x_sq, y_sq=y_sq, precision=precision)
     if metric == "cosine":
-        return pairwise_cosine(x, y)
+        return pairwise_cosine(x, y, precision)
     raise ValueError(f"unknown metric {metric!r}")

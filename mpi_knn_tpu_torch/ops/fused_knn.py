@@ -36,6 +36,15 @@ splits the corpus into the slices ``compress_sweep_plan`` picks, so that
 a serving bucket's few query groups still fill the card; its output does
 not depend on the split.
 
+``precision`` (the config's ``matmul_precision``) picks the exact mode's
+product: None and "highest" are the above; "default" and "high" are the
+JAX kernels' DEFAULT and HIGH dots, on the card knn_tile.cuh's mma.sync
+tile on the f32 rows with each operand rounded to bf16 (one pass) or split
+into bf16 hi + lo (three passes) in registers, after the prologue
+``stage_f32_norms`` (the f32 norms, once per row set), with the exact
+epilogue; their plain versions take ``ops/distance._mm_t`` at that
+precision. Launches count as ``fused_knn_tiles[default]`` and so on.
+
 A serving index stages its corpus once (``stage_corpus`` -> ``StagedCorpus``)
 and hands it to every call as ``staged_corpus``: a call then launches the
 prologue on its queries alone, and the kernel reads the resident planes.
@@ -55,7 +64,12 @@ import functools
 import torch
 
 from mpi_knn_tpu_torch.ops import _build
-from mpi_knn_tpu_torch.ops.distance import _mm_t, sq_norms
+from mpi_knn_tpu_torch.ops.distance import (
+    _mm_t,
+    precision_code,
+    resolve_precision,
+    sq_norms,
+)
 from mpi_knn_tpu_torch.types import INVALID_ID
 
 _ZERO_RTOL = 1e-6  # the f32 zero-exclusion rtol (ops/topk.py)
@@ -72,7 +86,9 @@ SPLIT_K = 16  # the exact tile's k-block: the planes' pitch is its multiple
 
 LAUNCHES = {"fused_knn_tiles": 0, "fused_knn_sweep": 0,
             "fused_knn_tiles[compress]": 0, "fused_knn_sweep[compress]": 0,
-            "stage_tf32_split": 0, "stage_bf16": 0}
+            "fused_knn_tiles[default]": 0, "fused_knn_sweep[default]": 0,
+            "fused_knn_tiles[high]": 0, "fused_knn_sweep[high]": 0,
+            "stage_tf32_split": 0, "stage_bf16": 0, "stage_norms": 0}
 # the kernels of csrc/fused_knn.cu's kernel_info, by launch-count name
 _KERNELS = ("fused_knn_tiles", "fused_knn_sweep", "fused_knn_tiles[compress]",
             "fused_knn_sweep[compress]")
@@ -106,7 +122,11 @@ def configure(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.stage_bf16_f32_launch.argtypes = [ptr] * 3 + [i32] * 3 + [ptr]
     lib.stage_tf32_split_launch.argtypes = [ptr] * 4 + [i32] * 3 + [ptr]
     lib.split_tile_dots_launch.argtypes = [ptr] * 5 + [i32] * 3 + [ptr]
-    lib.exact_tile_dots_launch.argtypes = [ptr] * 3 + [i32] * 3 + [ptr]
+    lib.exact_tile_dots_launch.argtypes = [ptr] * 3 + [i32] * 4 + [ptr]
+    lib.fused_knn_mma_launch.argtypes = ([ptr] * 6 + [i32] * 9 + [ctypes.c_float]
+                                         + [i32] * 2 + [ptr])
+    lib.fused_knn_mma_plan.argtypes = [i32] * 6 + [ctypes.POINTER(i32)] * 5
+    lib.stage_norms_launch.argtypes = [ptr, ptr, i32, i32, ptr]
     lib.kernel_info.argtypes = [i32, i32] + [ctypes.POINTER(i32)] * 4
     lib.exact_plan.argtypes = [i32] * 5 + [ctypes.POINTER(ctypes.c_longlong),
                                            ctypes.POINTER(i32), ctypes.POINTER(i32)]
@@ -119,7 +139,9 @@ def configure(lib: ctypes.CDLL) -> ctypes.CDLL:
                lib.fused_knn_sweep_compress_launch, lib.stage_bf16_f32_launch,
                lib.stage_tf32_split_launch, lib.split_tile_dots_launch,
                lib.exact_tile_dots_launch, lib.kernel_info, lib.exact_plan,
-               lib.compress_sweep_plan, lib.bf16_tile_dots_launch):
+               lib.compress_sweep_plan, lib.bf16_tile_dots_launch,
+               lib.fused_knn_mma_launch, lib.fused_knn_mma_plan,
+               lib.stage_norms_launch):
         fn.restype = i32
     return lib
 
@@ -209,6 +231,24 @@ def stage_tf32_split_reference(rows, width=None):
     return planes[0], planes[1], sq_norms(rows)
 
 
+def stage_f32_norms(rows):
+    """The "default" / "high" prologue on an f32 (n, d) row set -> (n,) f32
+    squared norms, on the card the diagonal of the Tf32x3 tile's product
+    (f32-accurate, as the reference takes its norms)."""
+    _rows_f32(rows)
+    n, d = rows.shape
+    if rows.device.type == "cpu":
+        return sq_norms(rows)
+    norms = torch.empty(n, dtype=torch.float32, device=rows.device)
+    with torch.cuda.device(rows.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = _lib().stage_norms_launch(rows.data_ptr(), norms.data_ptr(), n, d, stream)
+    if rc != 0:
+        raise RuntimeError(f"stage_norms launch failed: cudaError {rc}")
+    LAUNCHES["stage_norms"] += 1
+    return norms
+
+
 def _stage_exact(queries, corpus):
     """The prologue for an exact call: (staged queries, staged corpus). When
     the queries are the corpus' first rows (all-pairs mode), the corpus is
@@ -225,46 +265,66 @@ class StagedCorpus:
     """A corpus's prologue outputs, written once and read by every later
     call on that corpus (a serving index's resident planes): ``exact`` the
     (hi, lo, norms) of ``stage_tf32_split``, ``compress`` the (bf16 copy,
-    norms) of ``stage_bf16_rows``, None where not staged. The tensors stay
-    at one address for the object's life, so the kernels' TMA maps, encoded
-    per launch from the pointers, always find them."""
+    norms) of ``stage_bf16_rows``, ``norms`` the (norms,) of
+    ``stage_f32_norms`` ("default" / "high"), None where not staged. The
+    tensors stay at one address for the object's life, so the kernels' TMA
+    maps, encoded per launch from the pointers, always find them."""
 
     exact: tuple | None = None
     compress: tuple | None = None
+    norms: tuple | None = None
 
     @property
     def nbytes(self) -> int:
         return sum(t.numel() * t.element_size()
-                   for part in (self.exact, self.compress) if part is not None
-                   for t in part)
+                   for part in (self.exact, self.compress, self.norms)
+                   if part is not None for t in part)
 
 
-def stage_corpus(corpus, compress: bool = False) -> StagedCorpus:
+def stage_corpus(corpus, compress: bool = False,
+                 precision=None) -> StagedCorpus:
     """Run one prologue once on a padded f32 corpus on the card: the exact
-    planes, or with ``compress`` the compress copy."""
+    planes, with ``compress`` the compress copy, or at ``precision``
+    "default" / "high" the norms."""
     if compress:
         return StagedCorpus(compress=stage_bf16_rows(corpus))
+    if resolve_precision(precision) != "highest":
+        return StagedCorpus(norms=(stage_f32_norms(corpus),))
     return StagedCorpus(exact=stage_tf32_split(corpus))
 
 
-def _stage_call(queries, corpus, staged_corpus, compress: bool):
+def staged_part(compress: bool, precision=None) -> str:
+    """The ``StagedCorpus`` field a call reads."""
+    if compress:
+        return "compress"
+    return "exact" if resolve_precision(precision) == "highest" else "norms"
+
+
+def _stage_call(queries, corpus, staged_corpus, compress: bool, precision=None):
     """(staged queries, staged corpus) of one card call: the corpus's from
     ``staged_corpus`` when given (one prologue launch, on the queries),
-    else both staged here."""
+    else both staged here. At "default" / "high" each is a 1-tuple of
+    norms (once in all when the queries are the corpus's first rows)."""
+    which = staged_part(compress, precision)
     if staged_corpus is None:
         if compress:
             return stage_bf16_rows(queries), stage_bf16_rows(corpus)
+        if which == "norms":
+            if (queries.data_ptr() == corpus.data_ptr()
+                    and queries.shape[0] <= corpus.shape[0]):
+                cn = stage_f32_norms(corpus)
+                return (cn[:queries.shape[0]],), (cn,)
+            return (stage_f32_norms(queries),), (stage_f32_norms(corpus),)
         return _stage_exact(queries, corpus)
-    part = staged_corpus.compress if compress else staged_corpus.exact
+    part = getattr(staged_corpus, which)
     if part is None:
-        raise ValueError(
-            f"staged_corpus holds no {'compress' if compress else 'exact'} "
-            "prologue output"
-        )
+        raise ValueError(f"staged_corpus holds no {which} prologue output")
     if part[0].shape[0] != corpus.shape[0] or part[0].device != corpus.device:
         raise ValueError("staged_corpus was not staged from this corpus")
     if compress:
         return stage_bf16_rows(queries), part
+    if which == "norms":
+        return (stage_f32_norms(queries),), part
     return stage_tf32_split(queries), part
 
 
@@ -283,20 +343,22 @@ def tf32_split(x):
     return hi, rna(x - hi)
 
 
-def exact_tile_dots(queries, corpus):
-    """The mma.sync exact tile's raw products queries · corpusᵀ ((Q, C)
-    f32), the tile of K3a, K4 and K5: a test hook for the card (the ring
-    prologue's norms are this product's diagonal); on the CPU,
-    ``torch.matmul``. Not counted in ``LAUNCHES``."""
+def exact_tile_dots(queries, corpus, precision=None):
+    """The mma.sync f32 tile's raw products queries · corpusᵀ ((Q, C) f32)
+    at ``precision``, the tile of K3a, K4 and K5 (and at "default" /
+    "high" of K1 and K2): a test hook for the card (the ring prologue's
+    norms are the "highest" product's diagonal); on the CPU, ``_mm_t`` at
+    that precision. Not counted in ``LAUNCHES``."""
     _check(queries, corpus, 1, 1, 1)
     if queries.device.type == "cpu":
-        return _mm_t(queries, corpus)
+        return _mm_t(queries, corpus, precision)
     (Q, D), C = queries.shape, corpus.shape[0]
     out = torch.empty((Q, C), dtype=torch.float32, device=queries.device)
     with torch.cuda.device(queries.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = _lib().exact_tile_dots_launch(queries.data_ptr(), corpus.data_ptr(),
-                                           out.data_ptr(), Q, C, D, stream)
+                                           out.data_ptr(), Q, C, D,
+                                           precision_code(precision), stream)
     if rc != 0:
         raise RuntimeError(f"exact_tile_dots launch failed: cudaError {rc}")
     return out
@@ -516,6 +578,38 @@ def launch_exact(base: str, staged_q, staged_c, m_corpus: int, k: int,
                  (Q, k), *shape_args, *flags)
 
 
+def launch_mma(base: str, queries, corpus, staged_q, staged_c, m_corpus: int,
+               k: int, c_tile: int, precision, exclude_self: bool = True,
+               exclude_zero: bool = True, all_pairs: bool = True,
+               zero_eps: float = 0.0):
+    """The "default" / "high" kernel ``base`` ("fused_knn_tiles" or
+    "fused_knn_sweep") on the f32 rows and the prologue's norms ((qn,),
+    (cn,)), on the card: (n_c, Q, k) or (Q, k) dists and ids."""
+    p = resolve_precision(precision)
+    (qn,), (cn,) = staged_q, staged_c
+    (Q, D), C = queries.shape, corpus.shape[0]
+    sweep = base == "fused_knn_sweep"
+    shape = (Q, k) if sweep else (C // c_tile, Q, k)
+    return _call(_lib().fused_knn_mma_launch, f"{base}[{p}]", queries.device,
+                 (queries, qn, corpus, cn), shape, Q, C, D, m_corpus, k, c_tile,
+                 int(exclude_self), int(exclude_zero), int(all_pairs),
+                 float(zero_eps), precision_code(p), int(sweep))
+
+
+def mma_plan(base: str, Q: int, C: int, c_tile: int, k: int, precision) -> dict:
+    """The "default" / "high" kernel's launch plan (needs the card): query
+    rows per CTA (128, or 64 where 128-row CTAs would not fill the card),
+    CTAs, the kernel's registers, spilled bytes a thread and CTAs per SM."""
+    vals = [ctypes.c_int() for _ in range(5)]
+    rc = _lib().fused_knn_mma_plan(Q, C, k, c_tile, precision_code(precision),
+                                   int(base == "fused_knn_sweep"),
+                                   *(ctypes.byref(v) for v in vals))
+    if rc != 0:
+        raise RuntimeError(f"fused_knn_mma_plan failed: cudaError {rc}")
+    return dict(zip(("rows_per_cta", "ctas", "registers", "spilled_bytes",
+                     "ctas_per_sm"), (v.value for v in vals)))
+
+
 def wgmma_rate(device, iters: int = 4096) -> float:
     """The card's wgmma rate in TFLOP/s (m64n128k8 tf32, two warpgroups per
     SM as the exact tile runs them): a probe run twice, the second timed
@@ -583,29 +677,51 @@ def kernel_info(name: str, k: int) -> dict:
                     (v.value for v in vals)))
 
 
+def _launch_card(base, queries, corpus, m_corpus, k, c_tile, exclude_self,
+                 exclude_zero, all_pairs, zero_eps, compress, staged_corpus,
+                 precision):
+    """One card call of kernel ``base``: the prologue(s), then the kernel of
+    the mode and precision."""
+    staged = _stage_call(queries, corpus, staged_corpus, compress, precision)
+    if compress:
+        return launch_compress(base, *staged, m_corpus, k, c_tile, exclude_self,
+                               all_pairs)
+    if resolve_precision(precision) != "highest":
+        return launch_mma(base, queries, corpus, *staged, m_corpus, k, c_tile,
+                          precision, exclude_self, exclude_zero, all_pairs,
+                          zero_eps)
+    return launch_exact(base, *staged, m_corpus, k, c_tile, exclude_self,
+                        exclude_zero, all_pairs, zero_eps)
+
+
+def _check_precision(compress, precision):
+    if compress and precision is not None:
+        raise ValueError("compress mode owns its product (one bf16 pass); "
+                         f"precision must be None, got {precision!r}")
+    resolve_precision(precision)
+
+
 def fused_knn_tiles(queries, corpus, m_corpus: int, k: int, q_tile: int,
                     c_tile: int, exclude_self: bool = True,
                     exclude_zero: bool = True, all_pairs: bool = True,
                     zero_eps: float = 0.0, compress: bool = False,
-                    staged_corpus: StagedCorpus | None = None):
+                    staged_corpus: StagedCorpus | None = None,
+                    precision=None):
     """Per-(query, corpus-tile) local top-k -> (Q, n_c·k) dists and ids.
     ``staged_corpus``: the corpus's prologue outputs, staged once (read on
-    the card only; the plain version reads ``corpus``)."""
+    the card only; the plain version reads ``corpus``). ``precision``: the
+    exact mode's product (None, "highest", "default", "high")."""
     _check(queries, corpus, k, q_tile, c_tile)
+    _check_precision(compress, precision)
     if queries.device.type == "cpu":
         outd, outi = _tiles_plain(queries, corpus, m_corpus, k, c_tile,
                                   exclude_self, exclude_zero, all_pairs,
-                                  zero_eps, compress)
-    elif compress:
-        outd, outi = launch_compress(
-            "fused_knn_tiles",
-            *_stage_call(queries, corpus, staged_corpus, True), m_corpus, k,
-            c_tile, exclude_self, all_pairs)
+                                  zero_eps, compress, precision)
     else:
-        outd, outi = launch_exact(
-            "fused_knn_tiles",
-            *_stage_call(queries, corpus, staged_corpus, False), m_corpus, k,
-            c_tile, exclude_self, exclude_zero, all_pairs, zero_eps)
+        outd, outi = _launch_card(
+            "fused_knn_tiles", queries, corpus, m_corpus, k, c_tile,
+            exclude_self, exclude_zero, all_pairs, zero_eps, compress,
+            staged_corpus, precision)
     return _candidate_lists(outd, outi)
 
 
@@ -613,24 +729,21 @@ def fused_knn_sweep(queries, corpus, m_corpus: int, k: int, q_tile: int,
                     c_tile: int, exclude_self: bool = True,
                     exclude_zero: bool = True, all_pairs: bool = True,
                     zero_eps: float = 0.0, compress: bool = False,
-                    staged_corpus: StagedCorpus | None = None):
+                    staged_corpus: StagedCorpus | None = None,
+                    precision=None):
     """Full fused all-kNN: the final (Q, k) dists and ids. The kernel
     picks its own query sub-tile; the result does not depend on tiling.
-    ``staged_corpus`` as for ``fused_knn_tiles``."""
+    ``staged_corpus`` and ``precision`` as for ``fused_knn_tiles``."""
     _check(queries, corpus, k, q_tile, c_tile)
+    _check_precision(compress, precision)
     if queries.device.type == "cpu":
         return fused_knn_sweep_reference(
             queries, corpus, m_corpus, k, q_tile, c_tile, exclude_self,
-            exclude_zero, all_pairs, zero_eps, compress,
+            exclude_zero, all_pairs, zero_eps, compress, precision,
         )
-    if compress:
-        return launch_compress(
-            "fused_knn_sweep",
-            *_stage_call(queries, corpus, staged_corpus, True), m_corpus, k,
-            c_tile, exclude_self, all_pairs)
-    return launch_exact(
-        "fused_knn_sweep", *_stage_call(queries, corpus, staged_corpus, False),
-        m_corpus, k, c_tile, exclude_self, exclude_zero, all_pairs, zero_eps)
+    return _launch_card("fused_knn_sweep", queries, corpus, m_corpus, k, c_tile,
+                        exclude_self, exclude_zero, all_pairs, zero_eps,
+                        compress, staged_corpus, precision)
 
 
 # ---------------------------------------------------------------- plain
@@ -645,16 +758,17 @@ def _candidate_lists(outd, outi):
 
 
 def _masked_tile(queries, q_sq, tile, col0, m_corpus, exclude_self,
-                 exclude_zero, all_pairs, zero_eps, compress=False):
+                 exclude_zero, all_pairs, zero_eps, compress=False,
+                 precision=None):
     """(Q, c) masked squared-L2 distances of one corpus tile + its ids;
     in compress mode ``queries`` is the staged bf16 copy and the product
-    is taken with the tile's."""
+    is taken with the tile's; else at ``precision``."""
     if compress:
         tile_b, c_sq = stage_bf16_rows_reference(tile)
         xy = _mm_t(queries, tile_b)
     else:
         c_sq = sq_norms(tile)
-        xy = _mm_t(queries, tile)
+        xy = _mm_t(queries, tile, precision)
     d = torch.clamp_min(q_sq[:, None] - 2.0 * xy + c_sq[None, :], 0.0)
     col = col0 + torch.arange(tile.shape[0], device=tile.device,
                               dtype=torch.int32)
@@ -683,7 +797,7 @@ def _select(d, ids, k):
 
 
 def _tile_topks(queries, corpus, m_corpus, k, c_tile, exclude_self,
-                exclude_zero, all_pairs, zero_eps, compress):
+                exclude_zero, all_pairs, zero_eps, compress, precision=None):
     if compress:
         queries, q_sq = stage_bf16_rows_reference(queries)
     else:
@@ -691,40 +805,44 @@ def _tile_topks(queries, corpus, m_corpus, k, c_tile, exclude_self,
     for col0 in range(0, corpus.shape[0], c_tile):
         d, ids = _masked_tile(queries, q_sq, corpus[col0:col0 + c_tile],
                               col0, m_corpus, exclude_self, exclude_zero,
-                              all_pairs, zero_eps, compress)
+                              all_pairs, zero_eps, compress, precision)
         yield _select(d, ids, k)
 
 
 def _tiles_plain(queries, corpus, m_corpus, k, c_tile, exclude_self,
-                 exclude_zero, all_pairs, zero_eps, compress):
+                 exclude_zero, all_pairs, zero_eps, compress, precision=None):
     parts = list(_tile_topks(queries, corpus, m_corpus, k, c_tile,
                              exclude_self, exclude_zero, all_pairs, zero_eps,
-                             compress))
+                             compress, precision))
     return (torch.stack([p[0] for p in parts]),
             torch.stack([p[1] for p in parts]))
 
 
 def fused_knn_tiles_reference(queries, corpus, m_corpus, k, q_tile, c_tile,
                               exclude_self=True, exclude_zero=True,
-                              all_pairs=True, zero_eps=0.0, compress=False):
+                              all_pairs=True, zero_eps=0.0, compress=False,
+                              precision=None):
     """Plain PyTorch version of ``fused_knn_tiles`` (any device)."""
     _check(queries, corpus, k, q_tile, c_tile)
+    _check_precision(compress, precision)
     return _candidate_lists(*_tiles_plain(
         queries, corpus, m_corpus, k, c_tile, exclude_self, exclude_zero,
-        all_pairs, zero_eps, compress,
+        all_pairs, zero_eps, compress, precision,
     ))
 
 
 def fused_knn_sweep_reference(queries, corpus, m_corpus, k, q_tile, c_tile,
                               exclude_self=True, exclude_zero=True,
-                              all_pairs=True, zero_eps=0.0, compress=False):
+                              all_pairs=True, zero_eps=0.0, compress=False,
+                              precision=None):
     """Plain PyTorch version of ``fused_knn_sweep`` (any device): the carry
     is merged carry-first with each tile's survivors."""
     _check(queries, corpus, k, q_tile, c_tile)
+    _check_precision(compress, precision)
     carry = None
     for new_d, new_i in _tile_topks(queries, corpus, m_corpus, k, c_tile,
                                     exclude_self, exclude_zero, all_pairs,
-                                    zero_eps, compress):
+                                    zero_eps, compress, precision):
         if carry is None:
             carry = (new_d, new_i)
         else:

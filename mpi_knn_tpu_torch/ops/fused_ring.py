@@ -15,7 +15,10 @@ or int8 codes with per-row scales) merged into the (q_local, k) carry.
   and of the decoded block from the exact prologue (``stage_wire_norms``:
   once per call for the queries, once per block, which then carries them
   as it travels); the products run as three TF32 passes of split operands
-  on the tensor cores.
+  on the tensor cores, or, at ``cfg.matmul_precision`` "default" / "high"
+  (the reference's ``_exact_precision``), as one bf16 pass of rounded
+  operands / three of bf16 hi + lo, counted as
+  ``fused_block_merge[default]`` / ``[high]``.
 - mixed policy: ``block_merge_compress`` (K3b) returns each block tile's
   top-ov column positions by unclamped compressed key (untaken columns in
   index order once the finite keys run out; a NaN key counts as +inf).
@@ -41,7 +44,12 @@ import functools
 import torch
 
 from mpi_knn_tpu_torch.ops import _build
-from mpi_knn_tpu_torch.ops.distance import _mm_t, sq_norms
+from mpi_knn_tpu_torch.ops.distance import (
+    _mm_t,
+    precision_code,
+    resolve_precision,
+    sq_norms,
+)
 from mpi_knn_tpu_torch.ops.fused_knn import (
     _ZERO_RTOL,
     _select,
@@ -57,6 +65,7 @@ from mpi_knn_tpu_torch.ops.rerank import (
 from mpi_knn_tpu_torch.ops.topk import preselect_smallest, smallest_k
 
 LAUNCHES = {"fused_block_merge[exact]": 0, "fused_block_merge[compress]": 0,
+            "fused_block_merge[default]": 0, "fused_block_merge[high]": 0,
             "stage_tf32[wire]": 0, "stage_bf16[wire]": 0}
 
 _WIRE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
@@ -78,8 +87,8 @@ def _lib() -> ctypes.CDLL:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     out = ctypes.POINTER(i32)
     lib.block_merge_exact_launch.argtypes = (
-        [ptr] * 11 + [i32] * 8 + [ctypes.c_float, ptr])
-    lib.block_merge_exact_plan.argtypes = [i32] * 3 + [out] * 5
+        [ptr] * 11 + [i32] * 8 + [ctypes.c_float, i32, ptr])
+    lib.block_merge_exact_plan.argtypes = [i32] * 4 + [out] * 5
     lib.block_merge_compress_launch.argtypes = [ptr] * 8 + [i32] * 6 + [ptr]
     lib.stage_bf16_wire_launch.argtypes = [ptr, ptr, i32, ptr, ptr] + [i32] * 3 + [ptr]
     lib.stage_tf32_wire_launch.argtypes = [ptr, ptr, i32, ptr, i32, i32, ptr]
@@ -171,14 +180,21 @@ def _norms(t, want):
     return t
 
 
+def exact_merge_name(precision=None) -> str:
+    """K3a's launch-count name at a matmul precision."""
+    p = resolve_precision(precision)
+    return "fused_block_merge[exact]" if p == "highest" else f"fused_block_merge[{p}]"
+
+
 def block_merge_exact(queries, query_ids, block, block_ids, block_scale,
                       carry_d, carry_i, *, c_tile: int,
                       exclude_self: bool = True, exclude_zero: bool = True,
                       zero_eps: float = 0.0, query_norms=None,
-                      block_norms=None):
-    """The exact merge of one block into the carry -> (q_local, k). On the
-    card ``query_norms`` / ``block_norms`` are the exact prologue's
-    (``stage_wire_norms``); each that is None is staged here."""
+                      block_norms=None, precision=None):
+    """The exact merge of one block into the carry -> (q_local, k), its
+    product at ``precision``. On the card ``query_norms`` /
+    ``block_norms`` are the exact prologue's (``stage_wire_norms``); each
+    that is None is staged here."""
     _check(queries, query_ids, block, block_ids, block_scale)
     Q, k = carry_d.shape
     if carry_d.dtype != torch.float32 or carry_i.dtype != torch.int32 or \
@@ -192,7 +208,7 @@ def block_merge_exact(queries, query_ids, block, block_ids, block_scale,
         return block_merge_exact_reference(
             queries, query_ids, block, block_ids, block_scale, carry_d,
             carry_i, c_tile=c_tile, exclude_self=exclude_self,
-            exclude_zero=exclude_zero, zero_eps=zero_eps)
+            exclude_zero=exclude_zero, zero_eps=zero_eps, precision=precision)
     qn = (stage_wire_norms(queries, None) if query_norms is None
           else _norms(query_norms, queries))
     bn = (stage_wire_norms(block, block_scale) if block_norms is None
@@ -209,17 +225,19 @@ def block_merge_exact(queries, query_ids, block, block_ids, block_scale,
             bn.data_ptr(), block_ids.data_ptr(), carry_d.data_ptr(),
             carry_i.data_ptr(), out_d.data_ptr(), out_i.data_ptr(), Q,
             block.shape[0], queries.shape[1], k, c_tile, _WIRE[block.dtype],
-            int(exclude_self), int(exclude_zero), float(zero_eps), stream)
-    _rc(rc, "fused_block_merge[exact]")
+            int(exclude_self), int(exclude_zero), float(zero_eps),
+            precision_code(precision), stream)
+    _rc(rc, exact_merge_name(precision))
     return out_d, out_i
 
 
-def exact_plan(wire_dtype, q_local: int, k: int) -> dict:
+def exact_plan(wire_dtype, q_local: int, k: int, precision=None) -> dict:
     """K3a's launch plan on the current card: query rows per CTA (128, or
     64 where 128-row groups would not fill the card's resident slots),
     CTAs, and the kernel's registers, spilled bytes and CTAs per SM."""
     vals = [ctypes.c_int() for _ in range(5)]
-    rc = _lib().block_merge_exact_plan(_WIRE[wire_dtype], q_local, k,
+    rc = _lib().block_merge_exact_plan(_WIRE[wire_dtype], precision_code(precision),
+                                       q_local, k,
                                        *(ctypes.byref(v) for v in vals))
     if rc != 0:
         raise RuntimeError(f"block_merge_exact_plan failed: cudaError {rc}")
@@ -230,9 +248,10 @@ def exact_plan(wire_dtype, q_local: int, k: int) -> dict:
 def block_merge_exact_reference(queries, query_ids, block, block_ids,
                                 block_scale, carry_d, carry_i, *, c_tile,
                                 exclude_self=True, exclude_zero=True,
-                                zero_eps=0.0):
+                                zero_eps=0.0, precision=None):
     """Plain PyTorch version of ``block_merge_exact`` (any device): the
     reference's tile-by-tile merge, carry first."""
+    resolve_precision(precision)
     blk = _wire_rows(block, block_scale)
     k = carry_d.shape[1]
     out_d, out_i = [], []
@@ -245,7 +264,8 @@ def block_merge_exact_reference(queries, query_ids, block, block_ids,
             tile, tid = blk[t0:t0 + c_tile], block_ids[t0:t0 + c_tile]
             c_sq = sq_norms(tile)
             d = torch.clamp_min(
-                q_sq[:, None] - 2.0 * _mm_t(q, tile) + c_sq[None, :], 0.0)
+                q_sq[:, None] - 2.0 * _mm_t(q, tile, precision) + c_sq[None, :],
+                0.0)
             invalid = (tid < 0)[None, :].expand_as(d)
             if exclude_zero:
                 thresh = (zero_eps if zero_eps > 0.0
@@ -410,7 +430,8 @@ def fused_block_merge(queries, query_ids, block, block_ids, block_scale,
             queries, query_ids, block, block_ids, block_scale, carry_d,
             carry_i, c_tile=c_tile, exclude_self=cfg.exclude_self,
             exclude_zero=cfg.exclude_zero, zero_eps=cfg.zero_eps,
-            query_norms=query_norms, block_norms=block_norms)
+            query_norms=query_norms, block_norms=block_norms,
+            precision=cfg.matmul_precision)
     pos = block_merge_compress(
         queries, query_ids, block, block_ids, block_scale,
         ov=overfetch_width(cfg.k, c_tile), c_tile=c_tile,

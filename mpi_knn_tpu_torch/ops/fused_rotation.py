@@ -11,6 +11,12 @@ barrier state they share.
   P-round uni rotation in one launch per card, over two slots per rank;
   float wires only.
 
+Both take ``precision`` (the config's ``matmul_precision``): at "default"
+and "high" the merge's product is K3a's at that precision (the mma.sync
+tile with Bf16x1F32 / Bf16x3, on every wire, the f32 one included), counted
+as ``fused_round_dma[default]`` and so on; the wgmma tile and its planes
+serve "highest" alone.
+
 A rank's traveler is (block, ids, scale or None, norms or None, hi or
 None, lo or None): the norms are the exact prologue's squared norms of the
 decoded block, made once per call and moved with the block by the kernels
@@ -45,6 +51,7 @@ import functools
 import torch
 
 from mpi_knn_tpu_torch.ops import _build
+from mpi_knn_tpu_torch.ops.distance import precision_code, resolve_precision
 from mpi_knn_tpu_torch.ops.fused_knn import split_width, stage_tf32_split_reference
 from mpi_knn_tpu_torch.ops.fused_ring import (
     _WIRE,
@@ -54,6 +61,8 @@ from mpi_knn_tpu_torch.ops.fused_ring import (
 )
 
 LAUNCHES = {"fused_round_dma": 0, "fused_rotation_grid": 0,
+            "fused_round_dma[default]": 0, "fused_rotation_grid[default]": 0,
+            "fused_round_dma[high]": 0, "fused_rotation_grid[high]": 0,
             "stage_tf32_split[ring]": 0}
 
 TIMEOUT_S = 10.0  # bound of every spin-wait inside the kernels
@@ -87,11 +96,11 @@ def _lib() -> ctypes.CDLL:
     for name in ("round_dma_launch", "rotation_grid_launch"):
         fn = getattr(lib, name)
         fn.argtypes = ([ptr] + [i32] * 9 + [ctypes.c_float, i32,
-                                            ctypes.c_longlong, ptr, ptr])
+                                            ctypes.c_longlong, ptr, i32, ptr])
         fn.restype = i32
     lib.round_stage_split_launch.argtypes = [ptr] * 4 + [i32] * 3 + [ptr]
     lib.ring_enable_peer_access.argtypes = [i32, i32]
-    lib.ring_kernel_plan.argtypes = [i32] * 5 + [ctypes.POINTER(i32)]
+    lib.ring_kernel_plan.argtypes = [i32] * 6 + [ctypes.POINTER(i32)]
     for name in ("ring_enable_peer_access", "ring_max_local", "ring_words",
                  "ring_rank_bytes", "ring_kernel_plan", "round_stage_split_launch"):
         getattr(lib, name).restype = i32
@@ -228,8 +237,20 @@ def stage_round_planes(rows):
     return hi, lo, norms
 
 
+def kernel_name(base: str, precision=None) -> str:
+    """The launch-count name of K4 or K5 (``base``) at a matmul precision."""
+    p = resolve_precision(precision)
+    return base if p == "highest" else f"{base}[{p}]"
+
+
+def uses_planes(wire_dtype, precision=None) -> bool:
+    """Whether K4 runs the wgmma tile on hi/lo planes: the f32 wire at
+    "highest"."""
+    return wire_dtype == torch.float32 and resolve_precision(precision) == "highest"
+
+
 def ring_kernel_plan(which: str, wire_dtype, n_local: int, q_local: int,
-                     k: int) -> dict:
+                     k: int, precision=None) -> dict:
     """The launch plan of K4 (``which="round"``) or K5 (``"grid"``) over
     n_local ranks on the current card: query rows per merge group (K4's f32
     form: 128; its other forms 128, or 64 where 128-row groups would not
@@ -240,7 +261,7 @@ def ring_kernel_plan(which: str, wire_dtype, n_local: int, q_local: int,
     the tile is the wgmma one."""
     out = (ctypes.c_int * 8)()
     rc = _lib().ring_kernel_plan(0 if which == "round" else 1, _WIRE[wire_dtype],
-                                 n_local, q_local, k, out)
+                                 precision_code(precision), n_local, q_local, k, out)
     if rc != 0:
         raise RuntimeError(f"ring_kernel_plan failed: cudaError {rc}")
     return dict(zip(("rows_per_group", "grid", "items_per_round", "registers",
@@ -345,7 +366,7 @@ def fused_round_dma(ring: RingTransport, queries, query_ids, blocks, carries,
                     landing, *, c_tile: int, exclude_self: bool = True,
                     exclude_zero: bool = True, zero_eps: float = 0.0,
                     timeout_s: float = TIMEOUT_S, query_norms=None,
-                    query_planes=None):
+                    query_planes=None, precision=None):
     """One ring round of every rank: rank r's resident ``blocks[r]`` (a
     traveler) merged exactly into ``carries[r]`` = (d, i), and copied (its
     norms and planes too, where the landing has buffers for them) into
@@ -353,7 +374,8 @@ def fused_round_dma(ring: RingTransport, queries, query_ids, blocks, carries,
     buffers then hold each rank's next resident block. On the f32 wire the
     card's merge reads the planes of the queries (``query_planes``, one (hi,
     lo) per rank, with ``query_norms`` from the same prologue) and of the
-    block (``stage_round_planes``)."""
+    block (``stage_round_planes``) at "highest"; at "default" / "high" only
+    the norms."""
     blocks = [traveler(b) for b in blocks]
     landing = [traveler(t) for t in landing]
     cpu = _check_ring(queries, query_ids, blocks, carries)
@@ -361,12 +383,12 @@ def fused_round_dma(ring: RingTransport, queries, query_ids, blocks, carries,
     if blocks[0][0].shape[0] % c_tile:
         raise ValueError("caller must pad the block to a c_tile multiple")
     kw = dict(c_tile=c_tile, exclude_self=exclude_self,
-              exclude_zero=exclude_zero, zero_eps=zero_eps)
+              exclude_zero=exclude_zero, zero_eps=zero_eps, precision=precision)
     if cpu:
         return fused_round_dma_reference(queries, query_ids, blocks, carries,
                                          landing, **kw)
     P = len(queries)
-    if blocks[0][0].dtype == torch.float32:
+    if uses_planes(blocks[0][0].dtype, precision):
         qn, qp, blocks = _card_planes(queries, blocks, query_norms, query_planes)
     else:
         (qn, blocks), qp = _card_norms(queries, blocks, query_norms), [(None, None)] * P
@@ -380,14 +402,14 @@ def fused_round_dma(ring: RingTransport, queries, query_ids, blocks, carries,
                    dst_scale=[t[2] for t in land_of], dst_bn=[t[3] for t in land_of],
                    dst_bh=[t[4] for t in land_of], dst_bl=[t[5] for t in land_of],
                    qh=[t[0] for t in qp], ql=[t[1] for t in qp])
-    _launch_per_card(ring, "round_dma_launch", "fused_round_dma", ranks,
-                     queries, blocks, carries, kw, ring.epoch, timeout_s)
+    _launch_per_card(ring, "round_dma_launch", kernel_name("fused_round_dma", precision),
+                     ranks, queries, blocks, carries, kw, ring.epoch, timeout_s)
     return outs
 
 
 def fused_round_dma_reference(queries, query_ids, blocks, carries, landing,
                               *, c_tile, exclude_self=True, exclude_zero=True,
-                              zero_eps=0.0):
+                              zero_eps=0.0, precision=None):
     """Plain PyTorch version of ``fused_round_dma`` (any device): K3a's
     plain merge for every rank (which reads neither norms nor planes), then
     each rank's traveler copied into its successor's landing buffers."""
@@ -395,7 +417,7 @@ def fused_round_dma_reference(queries, query_ids, blocks, carries, landing,
     out = [block_merge_exact_reference(
         queries[r], query_ids[r], *b[:3], *carries[r], c_tile=c_tile,
         exclude_self=exclude_self, exclude_zero=exclude_zero,
-        zero_eps=zero_eps) for r, b in enumerate(blocks)]
+        zero_eps=zero_eps, precision=precision) for r, b in enumerate(blocks)]
     P = len(blocks)
     for r in range(P):
         for dst, src in zip(traveler(landing[(r + 1) % P]), blocks[r]):
@@ -440,7 +462,8 @@ def _launch_per_card(ring, fn_name, name, ranks, queries, blocks, carries, kw,
                     q0.shape[0], blk0.shape[0], q0.shape[1], cd0.shape[1],
                     _WIRE[blk0.dtype], len(queries), int(kw["exclude_self"]),
                     int(kw["exclude_zero"]), float(kw["zero_eps"]), epoch,
-                    int(timeout_s * 1e9), err.data_ptr(), stream)
+                    int(timeout_s * 1e9), err.data_ptr(),
+                    precision_code(kw["precision"]), stream)
         if rc != 0:
             ring.flags = None
             raise RuntimeError(f"{name} launch failed on {card}: cudaError {rc}")
@@ -464,7 +487,7 @@ def fused_rotation_grid(ring: RingTransport, queries, query_ids, blocks,
                         carries, slots, *, c_tile: int,
                         exclude_self: bool = True, exclude_zero: bool = True,
                         zero_eps: float = 0.0, timeout_s: float = TIMEOUT_S,
-                        query_norms=None):
+                        query_norms=None, precision=None):
     """The whole uni rotation: P rounds in which every rank merges its
     resident block, round 0 its own ``blocks[r]`` = (block, ids, None[,
     norms]) and round j the block in its slot j % 2 of ``slots[r]``
@@ -484,7 +507,7 @@ def fused_rotation_grid(ring: RingTransport, queries, query_ids, blocks,
     if blocks[0][0].shape[0] % c_tile:
         raise ValueError("caller must pad the block to a c_tile multiple")
     kw = dict(c_tile=c_tile, exclude_self=exclude_self,
-              exclude_zero=exclude_zero, zero_eps=zero_eps)
+              exclude_zero=exclude_zero, zero_eps=zero_eps, precision=precision)
     if cpu:
         return fused_rotation_grid_reference(queries, query_ids, blocks,
                                              carries, slots, **kw)
@@ -505,20 +528,22 @@ def fused_rotation_grid(ring: RingTransport, queries, query_ids, blocks,
                    slot_blk=[s[0] for s in slots], slot_bids=[s[1] for s in slots],
                    slot_bn=[s[3] for s in slots],
                    cbuf_d=[c[0] for c in cbufs], cbuf_i=[c[1] for c in cbufs])
-    _launch_per_card(ring, "rotation_grid_launch", "fused_rotation_grid",
+    _launch_per_card(ring, "rotation_grid_launch",
+                     kernel_name("fused_rotation_grid", precision),
                      ranks, queries, blocks, carries, kw, ring.calls, timeout_s)
     return outs
 
 
 def fused_rotation_grid_reference(queries, query_ids, blocks, carries, slots,
                                   *, c_tile, exclude_self=True,
-                                  exclude_zero=True, zero_eps=0.0):
+                                  exclude_zero=True, zero_eps=0.0,
+                                  precision=None):
     """Plain PyTorch version of ``fused_rotation_grid`` (any device): the P
     rounds of ``fused_round_dma_reference``, rank by rank, with no stream
     in the last round."""
     P = len(blocks)
     kw = dict(c_tile=c_tile, exclude_self=exclude_self,
-              exclude_zero=exclude_zero, zero_eps=zero_eps)
+              exclude_zero=exclude_zero, zero_eps=zero_eps, precision=precision)
     held = [traveler(b) for b in blocks]
     for r in range(P):
         if r < P - 1:

@@ -19,6 +19,7 @@ from mpi_knn_tpu_torch.serve.engine import (
     bucket_rows,
     get_executable,
     query_knn,
+    ring_query_shapes,
 )
 from mpi_knn_tpu_torch.serve.index import CorpusIndex, build_index
 
@@ -30,4 +31,5 @@ __all__ = [
     "build_index",
     "get_executable",
     "query_knn",
+    "ring_query_shapes",
 ]

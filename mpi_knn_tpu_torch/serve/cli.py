@@ -9,14 +9,21 @@ built in steady state" is visible per invocation.
 
 Combinations the engine cannot honor exit 2 with the reason (a pallas
 index with a cosine metric or a non-float32 dtype, mixed precision over a
-bf16 index, a ring backend), and so do the JAX CLI's flags whose layers
-are not ported yet (IVF, the ring, resilience, flight record, metrics,
-profiling, the AOT cache).
+bf16 index, the int8 wire without the mixed policy), and so do the JAX
+CLI's flags whose layers are not ported yet (IVF, resilience, flight
+record, metrics, profiling, the AOT cache). The ring backends serve over
+``--devices`` ranks of the one device (``--ring-schedule``,
+``--ring-transfer-dtype``), and the report carries the rotation's static
+wire bytes (``ring_transfer``).
 
 Examples::
 
     python -m mpi_knn_tpu_torch query --data synthetic:512x32c4 \\
         --synthetic 100 --backend pallas --device cpu
+    python -m mpi_knn_tpu_torch query --data synthetic:512x32c4 \\
+        --synthetic 100 --backend ring-overlap --devices 4 \\
+        --ring-schedule bidir --ring-transfer-dtype int8 \\
+        --precision-policy mixed --device cpu
     python -m mpi_knn_tpu_torch query --data mnist --synthetic 10000 \\
         --k 10 --backend pallas --batch 256 --report serve.json
 """
@@ -35,6 +42,7 @@ from mpi_knn_tpu_torch.config import (
     BACKENDS,
     METRICS,
     PRECISION_POLICIES,
+    RING_SCHEDULES,
     TOPK_METHODS,
     KNNConfig,
 )
@@ -44,8 +52,7 @@ from mpi_knn_tpu_torch.device import DEFAULT_DEVICE
 # a value), each refused with exit 2
 UNPORTED_FLAGS = (
     ("--index-load", True), ("--nprobe", True), ("--route-cap", True),
-    ("--devices", True), ("--ring-schedule", True),
-    ("--ring-transfer-dtype", True), ("--batch-deadline-ms", True),
+    ("--batch-deadline-ms", True),
     ("--retries", True), ("--degrade-after", True),
     ("--no-nan-sentinel", False), ("--flight-record", True),
     ("--metrics-out", True), ("--profile-batches", True),
@@ -81,8 +88,11 @@ def build_parser() -> argparse.ArgumentParser:
     k.add_argument("--k", type=int, default=30)
     k.add_argument("--metric", choices=METRICS, default="l2")
     k.add_argument("--backend", choices=BACKENDS, default="auto",
-                   help="serial or pallas (auto resolves to serial on one "
-                   "device); the ring backends are not served yet")
+                   help="serial, pallas, ring or ring-overlap (auto: "
+                   "ring-overlap over --devices > 1 ranks, else serial)")
+    k.add_argument("--devices", type=int, default=None,
+                   help="ring size for the ring backends: ranks on the one "
+                   "device")
     k.add_argument("--dtype", default="float32",
                    choices=["float32", "bfloat16", "float64"],
                    help="resident/compute dtype; bfloat16 stores the index "
@@ -93,6 +103,14 @@ def build_parser() -> argparse.ArgumentParser:
                    default="exact")
     k.add_argument("--topk-method", choices=list(TOPK_METHODS),
                    default="exact")
+    k.add_argument("--ring-schedule", choices=list(RING_SCHEDULES),
+                   default=None, help="ring rotation schedule (default uni)")
+    k.add_argument("--ring-transfer-dtype",
+                   choices=["bfloat16", "float32", "int8"], default=None,
+                   help="dtype of the corpus block on the rotation wire "
+                   "(ring backends): int8 codes and scales (quantized once "
+                   "at build, the resident shards hold them; requires "
+                   "--precision-policy mixed)")
     k.add_argument("--bucket", type=int, default=1024,
                    help="base row bucket: batches pad to bucket*2^j rows and "
                    "each (bucket, config) entry is built once")
@@ -193,6 +211,9 @@ def main(argv=None) -> int:
             corpus_tile=args.corpus_tile,
             precision_policy=args.precision_policy,
             topk_method=args.topk_method,
+            ring_schedule=args.ring_schedule or "uni",
+            ring_transfer_dtype=args.ring_transfer_dtype,
+            num_devices=args.devices,
             query_bucket=args.bucket,
             dispatch_depth=args.dispatch_depth,
         )
@@ -208,7 +229,7 @@ def main(argv=None) -> int:
         session = ServeSession(index, device=device)
     except ValueError as e:
         # the engine cannot honor this combination (pallas + cosine, a
-        # compressed index + mixed, a ring backend)
+        # compressed index + mixed, more ring ranks than devices allow)
         print(f"error: {e}", file=sys.stderr)
         return 2
     if device.type == "cuda":
@@ -257,6 +278,18 @@ def _stream_and_report(args, session, index, X, source, build_s) -> int:
         # the JAX CLI's shipped roofline profile: none for this card yet
         "device_profile": None,
     }
+    if index.shards is not None:
+        from mpi_knn_tpu_torch.backends.ring import ring_wire_bytes_per_batch
+
+        # the transfer level and the static per-batch rotation bytes at
+        # the wire dtype
+        summary["ring_transfer"] = {
+            "dtype": cfg.ring_transfer_dtype or cfg.dtype,
+            "wire_bytes_per_batch": ring_wire_bytes_per_batch(
+                cfg, sum(t[0].shape[0] for t in index.shards), index.dim,
+                index.ring_meta[3]),
+        }
+        summary["resident_bytes"] = index.nbytes_resident
     if session.tenant_stats:
         summary["tenants"] = {
             t: {

@@ -23,6 +23,19 @@ the host is. At
 ``dispatch_depth`` ≥ 2 the host work of batch t+1 runs while the card
 works on batch t. A slot, inputs and outputs, is reused only after its
 batch retires.
+
+Over a ring index a batch is padded to the bucket's ``ring_query_shapes``
+and cut into one query shard per rank; ``backends/ring.ring_serve`` runs
+its full rotation against the index's resident shards. Each real row is
+placed on the rank ``all_knn`` gives it for a batch of that many rows
+(``ring_layout``): a rank merges the blocks in its own order, which breaks
+exact distance ties, so a row's result then does not depend on its
+bucket. The entry holds,
+built once, each rank's query ids and initial carry (read, never written)
+and, for the dma and grid forms, the landing slots the rounds after the
+first write into: the index's shards are only ever read. The dma and grid
+forms read the card's error word after each launch, which waits for the
+launch: their batches do not overlap the next one's host work.
 """
 
 from __future__ import annotations
@@ -97,6 +110,13 @@ class _BucketExec:
     qids: torch.Tensor | None  # serial: (q_pad,) all −1 on the device
     free: list = dataclasses.field(default_factory=list)  # idle slots
     slots: int = 0  # slots made
+    # ring: per rank its query ids (all −1) and initial carry, and the
+    # transport's landing slots (dma and grid forms), built once; the row
+    # layout of each batch size met
+    ring_qids: list | None = None
+    ring_carries: list | None = None
+    ring_slots: list | None = None
+    ring_perms: dict = dataclasses.field(default_factory=dict)  # rows -> layout
 
     def _new_slot(self) -> _Slot:
         card = self.device.type == "cuda"
@@ -125,8 +145,48 @@ class _BucketExec:
         self.free.append(slot)
 
 
+def ring_query_shapes(index: CorpusIndex, cfg: KNNConfig, bucket: int):
+    """Per-bucket query tiling against the index's fixed corpus layout (the
+    JAX package's): ``ring_tiles`` would derive c_tile again from the
+    bucket's q_tile, but the resident corpus was padded once at build, so
+    only the query side moves, and the tile cap is kept by halving q_tile
+    against the frozen c_tile. Returns (q_tile, q_pad)."""
+    _, _, dp, ring_n = index.ring_meta
+    num_dev = dp * ring_n
+    q_tile = min(cfg.query_tile, -(-bucket // num_dev))
+    while q_tile > 1 and q_tile * index.c_tile > cfg.max_tile_elems:
+        q_tile = max(1, q_tile // 2)
+    return q_tile, pad_to_multiple(bucket, num_dev * q_tile)
+
+
+def ring_layout(index: CorpusIndex, cfg: KNNConfig, rows: int, q_pad: int,
+                device) -> torch.Tensor:
+    """Where each of a batch's ``rows`` real rows lies in the bucket's
+    (q_pad,) ring layout, then the free places: the permutation ``perm`` with
+    layout[perm[i]] = batch row i. Row i sits on the rank ``all_knn`` gives
+    it for ``rows`` queries (``backends/ring.ring_tiles``' query shards),
+    at the same offset in the rank's shard."""
+    from mpi_knn_tpu_torch.backends.ring import ring_tiles
+
+    P = index.ring_meta[3]
+    _, _, q_pad_rows, _ = ring_tiles(cfg, index.m, rows, 1, P)
+    per_batch, per_bucket = q_pad_rows // P, q_pad // P
+    if per_batch > per_bucket:  # a bucket's tile cap cut its shards finer
+        perm = np.arange(q_pad)
+    else:  # on the host: a device-side nonzero would wait for the card
+        i = np.arange(rows)
+        pos = (i // per_batch) * per_bucket + i % per_batch
+        free = np.ones(q_pad, dtype=bool)
+        free[pos] = False
+        perm = np.concatenate([pos, np.flatnonzero(free)])
+    return torch.from_numpy(perm).to(device, non_blocking=True)
+
+
 def bucket_shapes(index: CorpusIndex, cfg: KNNConfig, bucket: int):
     """``(q_pad, q_tile)`` of one (bucket, config) entry."""
+    if index.shards is not None:
+        q_tile, q_pad = ring_query_shapes(index, cfg, bucket)
+        return q_pad, q_tile
     if index.backend == "serial":
         q_tile = min(cfg.query_tile, pad_to_multiple(bucket, 8))
     else:
@@ -168,8 +228,21 @@ def _build_entry(index: CorpusIndex, cfg: KNNConfig,
     qids = None
     if index.backend == "serial":
         qids = torch.full((q_pad,), -1, dtype=torch.int32, device=index.device)
-    return _BucketExec(bucket, q_pad, q_tile, cfg, index.backend,
-                       index.device, index.dim, qids)
+    exec_ = _BucketExec(bucket, q_pad, q_tile, cfg, index.backend,
+                        index.device, index.dim, qids)
+    if index.shards is not None:
+        from mpi_knn_tpu_torch.backends.ring import ring_form
+        from mpi_knn_tpu_torch.ops.fused_rotation import landing_slots
+        from mpi_knn_tpu_torch.ops.topk import init_topk
+
+        ql = q_pad // len(index.mesh)
+        exec_.ring_qids = [torch.full((ql,), -1, dtype=torch.int32, device=d)
+                           for d in index.mesh]
+        exec_.ring_carries = [init_topk(ql, cfg.k, dtype=_acc_dtype(cfg), device=d)
+                              for d in index.mesh]
+        if ring_form(cfg, index.mesh) != "driver":
+            exec_.ring_slots = [landing_slots(*t) for t in index.shards]
+    return exec_
 
 
 def index_peak_hbm_bytes(index: CorpusIndex) -> int | None:
@@ -218,9 +291,11 @@ def _prep_queries(index: CorpusIndex, cfg: KNNConfig, exec_: _BucketExec,
     return slot.host_in
 
 
-def _run(index: CorpusIndex, cfg: KNNConfig, exec_: _BucketExec, q2d):
-    """One padded batch through the backend: padded (q_pad, k) results on
-    the index's device."""
+def _run(index: CorpusIndex, cfg: KNNConfig, exec_: _BucketExec, q2d,
+         rows: int | None = None):
+    """One padded batch (``rows`` real rows first; default all) through the
+    backend: padded (q_pad, k) results on the index's device, the real
+    rows' first."""
     if index.backend == "serial":
         from mpi_knn_tpu_torch.backends.serial import serve_chunk
         from mpi_knn_tpu_torch.ops.topk import init_topk_tiles
@@ -234,6 +309,24 @@ def _run(index: CorpusIndex, cfg: KNNConfig, exec_: _BucketExec, q2d):
                            carry_i, index.tiles, index.tile_ids,
                            index.tile_sqs, cfg)
         return d.reshape(exec_.q_pad, cfg.k), i.reshape(exec_.q_pad, cfg.k)
+    if index.shards is not None:
+        from mpi_knn_tpu_torch.backends.ring import ring_serve
+
+        rows = exec_.q_pad if rows is None else rows
+        perm = exec_.ring_perms.get(rows)
+        if perm is None:
+            perm = exec_.ring_perms[rows] = ring_layout(index, cfg, rows, exec_.q_pad,
+                                                        q2d.device)
+        layout = torch.empty_like(q2d)
+        layout[perm] = q2d
+        ql = exec_.q_pad // len(index.mesh)
+        q_sh = [layout[r * ql:(r + 1) * ql] for r in range(len(index.mesh))]
+        carries = ring_serve(q_sh, exec_.ring_qids, exec_.ring_carries,
+                             index.shards, cfg, index.mesh,
+                             index.backend == "ring-overlap", exec_.q_tile,
+                             index.c_tile, slots=exec_.ring_slots)
+        return (torch.cat([c[0] for c in carries])[perm],
+                torch.cat([c[1] for c in carries])[perm])
     from mpi_knn_tpu_torch.backends.fused_backend import serve_batch_pallas
 
     return serve_batch_pallas(q2d, index.corpus_padded, index.staged, cfg,
@@ -250,7 +343,8 @@ def _dispatch(index: CorpusIndex, cfg: KNNConfig, exec_: _BucketExec,
     prep_ms = 1e3 * (time.perf_counter() - t0)
     if slot.start is not None:
         slot.start.record()
-    d, i = _run(index, cfg, exec_, q2d.to(index.device, non_blocking=True))
+    d, i = _run(index, cfg, exec_, q2d.to(index.device, non_blocking=True),
+                q.shape[0])
     slot.out_d.copy_(d, non_blocking=True)
     slot.out_i.copy_(i, non_blocking=True)
     if slot.done is not None:

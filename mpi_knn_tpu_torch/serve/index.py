@@ -11,9 +11,19 @@ exact prologue over the whole corpus. ``CorpusIndex`` does them once:
 - pallas layout: the padded f32 corpus and, on a card, the prologue output
   its kernels read (``fused_knn.StagedCorpus``), staged at build for the
   build config: the TF32 hi/lo planes with their norms, or, where the
-  config compresses (mixed), the bf16 copy with its norms. Each batch then
+  config compresses (mixed), the bf16 copy with its norms (at
+  ``matmul_precision`` "default" / "high": the norms alone). Each batch then
   stages its queries alone. A per-call config that needs the part not
   staged is refused;
+- ring layout (``ring``, ``ring-overlap``; the JAX package's
+  ``serve/index.py:186-224``): the corpus padded by ``ring_tiles`` at the
+  bucket base and sharded once over the P ranks of the mesh: per rank its
+  block (int8 codes and scales when ``ring_transfer_dtype="int8"``,
+  quantized once; bf16 rows on the bf16 wire), its ids, and, on the card,
+  what the build config's ring form reads beside them (the norms for an
+  exact fused merge, K4's planes with them on the dma form at "highest"),
+  staged once. Batches rotate against these shards, which are only ever
+  read;
 - the centering mean, taken once as ``center_for_l2`` takes it (f64 on the
   host for a numpy corpus, the accumulation dtype for a tensor); batches
   are centered with it, so results equal a fresh ``all_knn`` bit for bit.
@@ -41,7 +51,7 @@ from mpi_knn_tpu_torch.parallel.partition import (
     pad_to_multiple,
 )
 
-SERVED_BACKENDS = ("serial", "pallas")
+SERVED_BACKENDS = ("serial", "pallas", "ring", "ring-overlap")
 
 
 def canonical_device(device) -> torch.device:
@@ -51,14 +61,6 @@ def canonical_device(device) -> torch.device:
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     return dev
-
-
-def unported_backend_error(backend: str) -> ValueError:
-    return ValueError(
-        f"backend={backend!r}: serving over it is not yet ported to "
-        "mpi_knn_tpu_torch (see ROADMAP.md); build the index with "
-        "backend='serial' or 'pallas'"
-    )
 
 
 @dataclasses.dataclass
@@ -80,6 +82,13 @@ class CorpusIndex:
     # pallas layout
     corpus_padded: torch.Tensor | None = None  # (c_pad, d) f32
     staged: fused_knn.StagedCorpus | None = None  # on a card only
+    # ring layout: the mesh, (q_axis, axis, dp, ring_n) as the JAX
+    # package's, and per rank its traveler (block, ids, scale, norms, hi,
+    # lo), staged once; ``ring_parts`` names the prologue outputs it holds
+    mesh: list | None = None
+    ring_meta: tuple | None = None
+    shards: list | None = None
+    ring_parts: tuple = ()
     # the engine's per-(bucket, config) entries: {(bucket, cfg) -> _BucketExec}
     _cache: dict = dataclasses.field(default_factory=dict)
 
@@ -87,7 +96,9 @@ class CorpusIndex:
     def nbytes_resident(self) -> int:
         """Bytes of the resident corpus state (tiles, ids and norms, or the
         padded corpus and its staged prologue outputs)."""
-        parts = (self.tiles, self.tile_ids, self.tile_sqs, self.corpus_padded)
+        parts = [self.tiles, self.tile_ids, self.tile_sqs, self.corpus_padded]
+        for shard in self.shards or ():
+            parts += shard
         return (sum(t.numel() * t.element_size() for t in parts
                     if t is not None)
                 + (self.staged.nbytes if self.staged is not None else 0))
@@ -124,15 +135,26 @@ class CorpusIndex:
                 "void on a corpus compressed at rest"
             )
         if self.staged is not None:
-            compress = _compresses(want, self.c_tile)
-            if (self.staged.compress if compress else self.staged.exact) is None:
+            which = fused_knn.staged_part(_compresses(want, self.c_tile),
+                                          want.matmul_precision)
+            if getattr(self.staged, which) is None:
                 raise ValueError(
                     f"precision_policy={want.precision_policy!r} with "
-                    f"k={want.k} reads the corpus's "
-                    f"{'compress copy' if compress else 'exact planes'}, "
-                    "which this index did not stage at build (built with "
+                    f"k={want.k}, matmul_precision={want.matmul_precision!r} "
+                    f"reads the corpus's {which} prologue output, which this "
+                    "index did not stage at build (built with "
                     f"precision_policy={self.cfg.precision_policy!r}, "
-                    f"k={self.cfg.k}); build an index with that config"
+                    f"k={self.cfg.k}, matmul_precision="
+                    f"{self.cfg.matmul_precision!r}); build an index with "
+                    "that config"
+                )
+        if self.shards is not None and self.device.type == "cuda":
+            need = _ring_parts(want, self.mesh, self.c_tile, self.shards)
+            if not set(need) <= set(self.ring_parts):
+                raise ValueError(
+                    f"this config's ring form reads the shards' {need}, but "
+                    f"the index staged {self.ring_parts} at build; build an "
+                    "index with that config"
                 )
         return want
 
@@ -141,8 +163,58 @@ def _compresses(cfg: KNNConfig, c_tile: int) -> bool:
     return cfg.precision_policy == "mixed" and mixed_applies(cfg.k, c_tile)
 
 
+def _ring_parts(cfg: KNNConfig, mesh, c_tile: int, shards) -> tuple:
+    """The prologue outputs a ring of ``cfg`` reads beside each shard."""
+    from mpi_knn_tpu_torch.backends.ring import ring_form, staged_parts
+
+    return staged_parts(cfg, ring_form(cfg, mesh), c_tile, shards[0][0].dtype)
+
+
+def _build_ring(corpus, cfg: KNNConfig, mesh, dev, backend, m, dim, mu):
+    """The ring layout: the padded corpus sharded once over the mesh."""
+    from mpi_knn_tpu_torch.backends.ring import (
+        quantize_ring_block,
+        ring_devices,
+        ring_tiles,
+        stage_travelers,
+    )
+    from mpi_knn_tpu_torch.backends.serial import torch_dtype
+
+    devices = ring_devices(cfg, mesh, dev)
+    if any(canonical_device(d) != dev for d in devices):
+        raise ValueError(
+            f"a ring index on {dev} runs its ranks there: the mesh "
+            f"{[str(d) for d in devices]} names another device (one card "
+            "may hold every rank)")
+    P = len(devices)
+    # corpus-side padding only: the query side is the bucket's
+    # (engine.ring_query_shapes); c_tile and c_pad as ring_tiles gives them
+    _, c_tile, _, c_pad = ring_tiles(cfg, m, cfg.query_bucket, 1, P)
+    corpus_p = pad_rows_any(corpus, c_pad, dtype=torch_dtype(cfg.dtype))
+    ids = torch.from_numpy(make_global_ids(m, c_pad))
+    scale = None
+    if cfg.ring_transfer_dtype == "int8":
+        # quantized once: the shards hold the wire's codes and scales
+        corpus_p, scale = quantize_ring_block(corpus_p)
+    elif cfg.ring_transfer_dtype is not None:
+        corpus_p = corpus_p.to(torch_dtype(cfg.ring_transfer_dtype))
+    b = c_pad // P
+    raw = [(corpus_p[r * b:(r + 1) * b].to(d).contiguous(),
+            ids[r * b:(r + 1) * b].to(d),
+            None if scale is None else scale[r * b:(r + 1) * b].to(d).contiguous())
+           for r, d in enumerate(devices)]
+    parts = ()
+    if dev.type == "cuda":  # the prologue outputs the build config's form reads
+        parts = _ring_parts(cfg, devices, c_tile, raw)
+    shards = stage_travelers(parts, raw)
+    return CorpusIndex(cfg=cfg, backend=backend, m=m, dim=dim, c_tile=c_tile,
+                       mu=mu, device=dev, mesh=devices,
+                       ring_meta=(None, cfg.mesh_axis, 1, P), shards=shards,
+                       ring_parts=parts)
+
+
 def build_index(corpus, config: Optional[KNNConfig] = None,
-                device=DEFAULT_DEVICE, **overrides) -> CorpusIndex:
+                device=DEFAULT_DEVICE, mesh=None, **overrides) -> CorpusIndex:
     """Build a resident :class:`CorpusIndex` for query serving.
 
     Args:
@@ -151,14 +223,20 @@ def build_index(corpus, config: Optional[KNNConfig] = None,
       config: build-time :class:`KNNConfig`; kwargs override fields.
       device: where the index lives and its batches run ("cuda" unless
         told otherwise).
+      mesh: the ring backends' ranks (``parallel/mesh.py``), all on
+        ``device``; default ``num_devices`` ranks there.
     """
     from mpi_knn_tpu_torch.api import resolve_backend
 
     cfg = (config or KNNConfig()).replace(**overrides)
     dev = canonical_device(device)
-    backend = resolve_backend(cfg, device=dev)
+    backend = resolve_backend(cfg, mesh, device=dev)
     if backend not in SERVED_BACKENDS:
-        raise unported_backend_error(backend)
+        raise ValueError(f"unknown backend {backend!r}")
+    if backend == "ring" and cfg.ring_fusion == "fused":
+        from mpi_knn_tpu_torch.backends.ring import fused_blocking_undefined_error
+
+        raise fused_blocking_undefined_error()
     if isinstance(corpus, torch.Tensor):
         corpus = corpus.to(dev)
     else:
@@ -171,6 +249,13 @@ def build_index(corpus, config: Optional[KNNConfig] = None,
         mu = l2_mean(corpus)
         corpus = corpus - mu
     cfg = cfg.replace(backend=backend)
+
+    if backend in ("ring", "ring-overlap"):
+        if mesh is None and cfg.num_devices is None and dev.type == "cuda":
+            mesh = [dev]  # one card: one rank unless the config names more
+        elif mesh is None and dev.type == "cuda":
+            mesh = [dev] * cfg.num_devices
+        return _build_ring(corpus, cfg, mesh, dev, backend, m, dim, mu)
 
     if backend == "pallas":
         from mpi_knn_tpu_torch.backends.fused_backend import fused_corpus_tile
@@ -194,7 +279,8 @@ def build_index(corpus, config: Optional[KNNConfig] = None,
         if dev.type == "cuda":
             # the one part the build config's kernels read, staged once
             staged = fused_knn.stage_corpus(
-                corpus_p, compress=_compresses(cfg, c_tile))
+                corpus_p, compress=_compresses(cfg, c_tile),
+                precision=cfg.matmul_precision)
         return CorpusIndex(cfg=cfg, backend=backend, m=m, dim=dim,
                            c_tile=c_tile, mu=mu, device=dev,
                            corpus_padded=corpus_p, staged=staged)

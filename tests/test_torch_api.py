@@ -131,11 +131,7 @@ def test_lifted_settings_run_and_match_jax(setting):
 
 @pytest.mark.parametrize(
     "setting",
-    [dict(topk_method="approx", dtype="float64"),
-     dict(topk_method="approx-rerank", dtype="float64"),
-     dict(partitions=4), dict(matmul_precision="default"),
-     dict(matmul_precision="high"), dict(partitions=16),
-     dict(partitions=64)],
+    [dict(partitions=4), dict(partitions=16), dict(partitions=64)],
 )
 def test_refused_settings_name_themselves(setting):
     name = next(iter(setting))

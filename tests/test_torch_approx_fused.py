@@ -153,7 +153,7 @@ def test_fused_equals_jax_where_the_reduction_is_exact(method, c, k):
 def test_fused_refuses_what_the_chain_refuses():
     d, ids = _tile("tile", "distinct")
     with pytest.raises(TypeError, match="float32"):
-        approx_smallest_k(d.double(), ids, 10, "approx")
+        approx_smallest_k(d.half(), ids, 10, "approx")
     with pytest.raises(ValueError, match="not approximate"):
         approx_smallest_k(d, ids, 10, "exact")
     with pytest.raises(ValueError, match="outside"):

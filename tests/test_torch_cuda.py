@@ -223,9 +223,13 @@ def test_compress_wrappers_count_stage_launches(cuda_device):
     assert fused_knn.LAUNCHES == {
         "fused_knn_tiles": 0, "fused_knn_sweep": 0,
         "fused_knn_tiles[compress]": 1, "fused_knn_sweep[compress]": 1,
-        "stage_tf32_split": 0, "stage_bf16": 4}
+        "fused_knn_tiles[default]": 0, "fused_knn_sweep[default]": 0,
+        "fused_knn_tiles[high]": 0, "fused_knn_sweep[high]": 0,
+        "stage_tf32_split": 0, "stage_bf16": 4, "stage_norms": 0}
     assert fused_ring.LAUNCHES == {"fused_block_merge[exact]": 0,
                                    "fused_block_merge[compress]": 1,
+                                   "fused_block_merge[default]": 0,
+                                   "fused_block_merge[high]": 0,
                                    "stage_tf32[wire]": 0,
                                    "stage_bf16[wire]": 2}
 
@@ -252,9 +256,13 @@ def test_exact_wrappers_count_stage_launches(cuda_device):
     assert fused_knn.LAUNCHES == {
         "fused_knn_tiles": 1, "fused_knn_sweep": 1,
         "fused_knn_tiles[compress]": 0, "fused_knn_sweep[compress]": 0,
-        "stage_tf32_split": 3, "stage_bf16": 0}
+        "fused_knn_tiles[default]": 0, "fused_knn_sweep[default]": 0,
+        "fused_knn_tiles[high]": 0, "fused_knn_sweep[high]": 0,
+        "stage_tf32_split": 3, "stage_bf16": 0, "stage_norms": 0}
     assert fused_ring.LAUNCHES == {"fused_block_merge[exact]": 2,
                                    "fused_block_merge[compress]": 0,
+                                   "fused_block_merge[default]": 0,
+                                   "fused_block_merge[high]": 0,
                                    "stage_tf32[wire]": 4,
                                    "stage_bf16[wire]": 0}
 
@@ -1119,3 +1127,236 @@ def test_cli_runs_a_mat_file_on_the_card(cuda_device, tmp_path):
                  "--backend", "serial", "--corpus-tile", "1024",
                  "--query-tile", "1024", "--topk-method", "approx", "-q"]) == 0
     assert approx_topk.LAUNCHES["approx_min_k"] == 3 * 3
+
+
+# ---------------------------------------------------------------------------
+# matmul_precision "default" / "high": the f32 tile with bf16 operands
+# rounded (one pass) or split into hi + lo (three passes). On the small
+# multiples of 1/4 or 1/16 above every value is exact in bf16 (lo = 0) and
+# every product and sum exact in f32, so kernel and plain version agree bit
+# for bit; on random rows the products hold to the plain version's within
+# the sum order's rounding.
+
+PRECISIONS = ["default", "high"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["fused_knn_tiles", "fused_knn_sweep"])
+@pytest.mark.parametrize("precision", PRECISIONS)
+@pytest.mark.parametrize("all_pairs", [True, False])
+@pytest.mark.parametrize("k", [10, 150])  # 150: lists kept in the output
+def test_precision_knn_kernels_equal_plain_on_small_integers(cuda_device, name,
+                                                             precision, all_pairs, k):
+    rng = np.random.default_rng(20)
+    X = torch.from_numpy((rng.integers(0, 8, (512, 36)) * 0.25).astype(np.float32))
+    X[5] = X[60]
+    X = X.to(cuda_device)
+    Q = X if all_pairs else X[:200] + 0.25  # all pairs: one row set, staged once
+    if not all_pairs:
+        Q[3] = float("nan")
+    key = f"{name}[{precision}]"
+    before = (fused_knn.LAUNCHES[key], fused_knn.LAUNCHES["stage_norms"])
+    args = (Q, X, 500, k, 8, 256)
+    got = getattr(fused_knn, name)(*args, all_pairs=all_pairs, precision=precision)
+    torch.cuda.synchronize()
+    want = getattr(fused_knn, name + "_reference")(*args, all_pairs=all_pairs,
+                                                   precision=precision)
+    assert fused_knn.LAUNCHES[key] == before[0] + 1
+    assert fused_knn.LAUNCHES["stage_norms"] == before[1] + (1 if all_pairs else 2)
+    assert torch.equal(got[1], want[1])
+    _same(got[0], want[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["highest", "default", "high"])
+@pytest.mark.parametrize("dim", [24, 33, 784])
+def test_precision_tile_products_match_plain(cuda_device, precision, dim):
+    """The tile's raw products at each policy against ``_mm_t`` at that
+    precision on random rows: within 1e-5 of |q| |c| (the sum orders
+    differ); "default" and "high" are nearer their rounded-operand oracle
+    than to the f64 product's error of another policy."""
+    from mpi_knn_tpu_torch.ops.distance import _mm_t
+
+    rng = np.random.default_rng(21)
+    q = torch.from_numpy(rng.standard_normal((300, dim)).astype(np.float32)).to(cuda_device)
+    c = torch.from_numpy(rng.standard_normal((400, dim)).astype(np.float32)).to(cuda_device)
+    got = fused_knn.exact_tile_dots(q, c, precision)
+    torch.cuda.synchronize()
+    want = _mm_t(q, c, precision)
+    scale = q.norm(dim=1)[:, None] * c.norm(dim=1)[None, :]
+    assert bool(((got - want).abs() <= 1e-5 * scale).all())
+    exact = q.double() @ c.double().T
+    err = ((got.double() - exact).abs() / scale.double()).max().item()
+    assert err <= {"highest": 1e-6, "high": 1e-4, "default": 2e-2}[precision]
+    if precision == "default":
+        assert err > 1e-4  # the operands really were rounded
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wire", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("precision", PRECISIONS)
+@pytest.mark.parametrize("dim", [24, 100])
+def test_precision_block_merge_equals_plain(cuda_device, wire, precision, dim):
+    q, qids, blk, bids, scale = _ring_operands(cuda_device, wire, dim=dim)
+    q[9] = float("nan")
+    rows = blk.float() if scale is None else blk.float() * scale[:, None]
+    cd, ci = _carry(q, rows, bids, 10)
+    key = f"fused_block_merge[{precision}]"
+    before = fused_ring.LAUNCHES[key]
+    got = fused_ring.block_merge_exact(q, qids, blk, bids, scale, cd, ci, c_tile=64,
+                                       precision=precision)
+    torch.cuda.synchronize()
+    want = fused_ring.block_merge_exact_reference(q, qids, blk, bids, scale, cd, ci,
+                                                  c_tile=64, precision=precision)
+    assert fused_ring.LAUNCHES[key] == before + 1
+    assert torch.equal(got[1], want[1])
+    _same(got[0], want[0])
+    assert bool(torch.isnan(got[0][9]).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wire", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("precision", PRECISIONS)
+@pytest.mark.parametrize("P", [1, 4])
+def test_precision_round_dma_equals_plain(cuda_device, wire, precision, P):
+    """K4 at "default" / "high": the mma.sync round kernel on every wire,
+    the f32 one included (no planes)."""
+    queries, qids, blocks, carries = _ring_of(cuda_device, P, wire)
+    ring = fused_rotation.RingTransport([cuda_device] * P)
+    land = [fused_rotation.slot(fused_rotation.landing_slots(*b), 0) for b in blocks]
+    want_land = [fused_rotation.slot(fused_rotation.landing_slots(*b), 0)
+                 for b in blocks]
+    key = f"fused_round_dma[{precision}]"
+    before = fused_rotation.LAUNCHES[key]
+    got = fused_rotation.fused_round_dma(ring, queries, qids, blocks, carries, land,
+                                         c_tile=64, precision=precision)
+    torch.cuda.synchronize()
+    want = fused_rotation.fused_round_dma_reference(queries, qids, blocks, carries,
+                                                    want_land, c_tile=64,
+                                                    precision=precision)
+    assert fused_rotation.LAUNCHES[key] == before + 1
+    assert fused_rotation.ring_kernel_plan("round", blocks[0][0].dtype, P, 96, 10,
+                                           precision)["wgmma_tile"] == 0
+    for r in range(P):
+        assert torch.equal(got[r][1], want[r][1])
+        _same(got[r][0], want[r][0])
+        assert torch.equal(land[(r + 1) % P][0], blocks[r][0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wire", ["float32", "bfloat16"])
+@pytest.mark.parametrize("precision", PRECISIONS)
+def test_precision_rotation_grid_equals_plain(cuda_device, wire, precision):
+    queries, qids, blocks, carries = _ring_of(cuda_device, 4, wire)
+    ring = fused_rotation.RingTransport([cuda_device] * 4)
+    key = f"fused_rotation_grid[{precision}]"
+    before = fused_rotation.LAUNCHES[key]
+    got = fused_rotation.fused_rotation_grid(
+        ring, queries, qids, blocks, carries,
+        [fused_rotation.landing_slots(*b) for b in blocks], c_tile=64,
+        precision=precision)
+    torch.cuda.synchronize()
+    want = fused_rotation.fused_rotation_grid_reference(
+        queries, qids, blocks, carries,
+        [fused_rotation.landing_slots(*b) for b in blocks], c_tile=64,
+        precision=precision)
+    assert fused_rotation.LAUNCHES[key] == before + 1
+    for r in range(4):
+        assert torch.equal(got[r][1], want[r][1])
+        _same(got[r][0], want[r][0])
+
+
+# ---------------------------------------------------------------------------
+# the f64 bin minimum: the same plans on double rows, 16-byte keys
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["tile_k10", "tile_rerank", "stream_rerank", "k1",
+                                  "ties", "ties_raw", "inf_padding", "zeros_nan",
+                                  "wide_raw", "cta_k40", "cta_raw", "odd_warp",
+                                  "odd_cta_raw", "odd_two_pass"])
+def test_approx_kernel_f64_equals_plain(cuda_device, name):
+    from mpi_knn_tpu_torch.ops import approx_topk
+
+    x, k, rt, agg = _approx_case(name, cuda_device)
+    x = x.double()
+    if name in ("tile_k10", "wide_raw"):  # values no f32 holds
+        x = x + 1e-12 * torch.arange(x.shape[1], device=x.device, dtype=x.dtype)
+    before = approx_topk.LAUNCHES["approx_min_k[f64]"]
+    gv, gp = approx_topk.approx_min_k(x, k, rt, agg)
+    torch.cuda.synchronize()
+    wv, wp = approx_topk.approx_min_k_reference(x, k, rt, agg)
+    assert approx_topk.LAUNCHES["approx_min_k[f64]"] == before + 1
+    assert gv.dtype == torch.float64
+    assert torch.equal(gp, wp)
+    assert torch.equal(gv.view(torch.int64), wv.view(torch.int64))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["tile_k10", "tile_rerank", "stream_rerank",
+                                  "merge_k10", "ties", "inf", "zeros_nan"])
+def test_fused_approx_f64_equals_the_chain(cuda_device, name):
+    from mpi_knn_tpu_torch.ops import approx_topk
+    from mpi_knn_tpu_torch.ops.topk import smallest_k
+
+    d, ids, k, method = _fused_case(name, cuda_device)
+    d = d.double()
+    before = approx_topk.LAUNCHES["approx_min_k[f64]"]
+    gv, gi = smallest_k(d, ids, k, method=method)
+    torch.cuda.synchronize()
+    assert approx_topk.LAUNCHES["approx_min_k[f64]"] == before + 1
+    wv, wi = approx_topk.approx_smallest_k_reference(d, ids, k, method)
+    assert torch.equal(gi, wi)
+    assert torch.equal(gv.view(torch.int64), wv.view(torch.int64))
+
+
+# ---------------------------------------------------------------------------
+# ring serving: a resident ring index on one card (P ranks), every batch
+# bit for bit all_knn's, the shards never written
+
+
+RING_SERVE_CASES = {
+    "dma": dict(ring_fusion="fused"),
+    "bidir": dict(ring_fusion="fused", ring_schedule="bidir"),
+    "grid": dict(ring_fusion="fused", ring_fused_rotation="grid"),
+    "dma_default": dict(ring_fusion="fused", matmul_precision="default"),
+    "bidir_high": dict(ring_fusion="fused", ring_schedule="bidir",
+                       matmul_precision="high"),
+    "mixed_int8": dict(ring_fusion="fused", precision_policy="mixed",
+                       ring_transfer_dtype="int8"),
+    "bf16_wire": dict(ring_fusion="fused", ring_transfer_dtype="bfloat16"),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(RING_SERVE_CASES))
+@pytest.mark.parametrize("P", [1, 4])
+def test_ring_serve_equals_all_knn(cuda_device, case, P):
+    from mpi_knn_tpu_torch import all_knn
+    from mpi_knn_tpu_torch.serve import ServeSession, build_index, engine, query_knn
+
+    rng = np.random.default_rng(22)
+    X = rng.standard_normal((1500, 64)).astype(np.float32)
+    kw = dict(k=10, backend="ring-overlap", query_bucket=64, corpus_tile=256,
+              query_tile=64, **RING_SERVE_CASES[case])
+    mesh = [cuda_device] * P
+    index = build_index(X, device=cuda_device, mesh=mesh, **kw)
+    before = [tuple(None if t is None else t.clone() for t in s) for s in index.shards]
+    engine.reset_misses()
+    for rows in (64, 17, 130, 1):  # the kernels' rows do not depend on the batch
+        Q = rng.standard_normal((rows, 64)).astype(np.float32)
+        got = query_knn(Q, index, device=cuda_device)
+        want = all_knn(X, queries=Q, device=cuda_device, mesh=mesh, **kw)
+        assert torch.equal(got.ids, want.ids.cpu())
+        assert torch.equal(got.dists, want.dists.cpu())
+    session = ServeSession(index, device=cuda_device)
+    session.warm([5, 64, 100])
+    misses = engine.MISSES
+    list(session.stream([rng.standard_normal((n, 64)).astype(np.float32)
+                         for n in (5, 64, 100)]))
+    assert engine.MISSES == misses
+    for b, a in zip(before, index.shards):
+        for x, y in zip(b, a):
+            assert (x is None) == (y is None)
+            if x is not None:
+                assert torch.equal(x, y)

@@ -154,7 +154,12 @@ def test_launch_counts_untouched_by_plain_versions():
     fused_knn.fused_knn_sweep(x, x, 64, 4, 32, 64)
     fused_knn.fused_knn_tiles(x, x, 64, 4, 32, 64, compress=True)
     fused_knn.fused_knn_sweep(x, x, 64, 4, 32, 64, compress=True)
+    for precision in ("default", "high"):
+        fused_knn.fused_knn_tiles(x, x, 64, 4, 32, 64, precision=precision)
+        fused_knn.fused_knn_sweep(x, x, 64, 4, 32, 64, precision=precision)
     assert fused_knn.LAUNCHES == {
         "fused_knn_tiles": 0, "fused_knn_sweep": 0,
         "fused_knn_tiles[compress]": 0, "fused_knn_sweep[compress]": 0,
-        "stage_tf32_split": 0, "stage_bf16": 0}
+        "fused_knn_tiles[default]": 0, "fused_knn_sweep[default]": 0,
+        "fused_knn_tiles[high]": 0, "fused_knn_sweep[high]": 0,
+        "stage_tf32_split": 0, "stage_bf16": 0, "stage_norms": 0}

@@ -120,6 +120,10 @@ def test_dma_form_ring_equals_jax(P, wire):
     np.testing.assert_array_equal(d.numpy(), np.asarray(want.dists))
     assert fused_rotation.LAUNCHES == {"fused_round_dma": 0,
                                        "fused_rotation_grid": 0,
+                                       "fused_round_dma[default]": 0,
+                                       "fused_rotation_grid[default]": 0,
+                                       "fused_round_dma[high]": 0,
+                                       "fused_rotation_grid[high]": 0,
                                        "stage_tf32_split[ring]": 0}
 
 

@@ -366,12 +366,6 @@ def test_refuses_mixed_over_compressed_index():
         query_knn(_data(46, m=8), idx, device=CPU, precision_policy="mixed")
 
 
-@pytest.mark.parametrize("backend", ["ring", "ring-overlap"])
-def test_refuses_unported_ring_serving_by_name(backend):
-    with pytest.raises(ValueError, match="not yet ported.*ROADMAP"):
-        _index(_data(47), backend, num_devices=2)
-
-
 def test_refuses_live_mutation_by_name():
     session = ServeSession(_index(_data(48)), device=CPU)
     with pytest.raises(ValueError, match="mutation.*not yet ported"):
@@ -403,8 +397,6 @@ def test_config_serve_knob_validation():
      "--metric", "cosine"],  # engine refusal
     ["--data", "synthetic:64x8c2", "--synthetic", "8", "--dtype", "bfloat16",
      "--precision-policy", "mixed"],  # config refusal
-    ["--data", "synthetic:64x8c2", "--synthetic", "8", "--backend",
-     "ring-overlap"],  # ring serving not ported
     ["--data", "synthetic:64x8c2", "--synthetic", "0"],
     ["--data", "synthetic:64x8c2", "--synthetic", "8", "--batch", "0"],
     ["--data", "synthetic:64x8c2", "--synthetic", "8", "--tenant", 'a"b'],
@@ -416,8 +408,7 @@ def test_query_cli_refusals_exit_2(argv):
 
 @pytest.mark.parametrize("flag,value", [
     ("--index-load", "i.npz"), ("--nprobe", "4"), ("--route-cap", "8"),
-    ("--devices", "4"), ("--ring-schedule", "bidir"),
-    ("--ring-transfer-dtype", "int8"), ("--batch-deadline-ms", "5"),
+    ("--batch-deadline-ms", "5"),
     ("--retries", "2"), ("--degrade-after", "2"), ("--no-nan-sentinel", None),
     ("--flight-record", "f.jsonl"), ("--metrics-out", "m.json"),
     ("--profile-batches", "4"), ("--profile-dir", "p"), ("--cache-dir", "c"),

@@ -155,7 +155,7 @@ def test_any_width_runs_past_shared_memory(n, k, rt, aggregate):
 
 def test_approx_min_k_refuses_other_dtypes():
     with pytest.raises(TypeError, match="float32"):
-        approx_min_k(torch.zeros(2, 256, dtype=torch.float64), 5)
+        approx_min_k(torch.zeros(2, 256, dtype=torch.float16), 5)
     with pytest.raises(ValueError, match="k=300 outside"):
         approx_min_k(torch.zeros(2, 256), 300)
 
