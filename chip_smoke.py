@@ -138,7 +138,21 @@ is not 0:
    batch bit for bit all_knn's on the same rows and mesh, recall@10, 0
    misses after warm, the launches a batch, the shards unchanged; q/s,
    p50/p99, host ms a batch, build ms and resident bytes;
-10. kernels: one line with every kernel mode's launches, error, times and
+10. ivf (``ivf_phase``): the clustered index at the README's deployment
+   (``build-index --data sift:100000 --partitions 256``, then ``query
+   --index-load ... --batch 512``; k = 10, nprobe tuned to recall 0.95)
+   for the float32, int4 and int8 stores: build seconds by stage, nprobe,
+   bucket_cap, resident and probe bytes, every resident tensor on the
+   card; the one-shot search of 10000 held-out rows of the corpus's
+   distribution (ms, and its stages by CUDA events beside their byte
+   bounds); recall@10 against an f64 oracle on 256 of them at the JAX
+   package's bar for the store (0.95, 0.80, 0.95); serving in 512-row
+   batches (q/s, p50, p99), every batch bit for bit the one-shot search;
+   k-means run twice, the same bits; save, load by mmap, the same
+   results; the query CLI's ``--index-load`` run; nprobe = partitions
+   against the serial backend. No kernel of the port runs on this path
+   (its launch counts stay 0): no Pallas site lies on the JAX package's;
+11. kernels: one line with every kernel mode's launches, error, times and
    bound, the prologues (`stage_tf32_split`, `stage_tf32[wire]`,
    `stage_tf32_split[ring]`, `stage_bf16`, `stage_bf16[wire]`,
    `stage_norms`), the "default" / "high" forms and the approx kernel (f32
@@ -1655,6 +1669,343 @@ def run_cli_phase(device, X, y) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ---- the clustered (IVF) index at the README's deployment -----------------
+# build-index --data sift:100000 --partitions 256; query --index-load
+# --synthetic 10000 --batch 512 (README.md:517-520): k = 10, recall_target
+# 0.95, 25 Lloyd rounds from kmeans++
+IVF_M = 100000
+IVF_P = 256
+IVF_QUERIES = 10000
+IVF_BATCH = 512
+IVF_ORACLE_ROWS = 256
+IVF_SUBSET = 16384  # rows of the nprobe = partitions check against serial
+# (store, recall@10 bar of the JAX package's own test, queries its pass
+# searches): tests/test_ivf.py:451-486, tests/test_quant.py:428-468 and
+# :326-342
+IVF_STORES = (("float32", 0.95, IVF_QUERIES), ("int4", 0.80, IVF_QUERIES),
+              ("int8", 0.95, IVF_QUERIES))
+IVF_STAGES = ("score", "gather", "dequantize", "products", "selection")
+
+
+def ivf_data():
+    """The deployment's corpus (``sift:100000``) and 10000 held-out rows of
+    its own distribution: the rows ``make_sift_like`` draws past the corpus
+    (its first chunk is the corpus, bit for bit). The CLI's ``--synthetic``
+    stream is uniform over the value range, far from every cluster, which
+    no clustered index serves at its tuned recall; it is timed through the
+    CLI and not gated."""
+    from mpi_knn_tpu_torch.data.synthetic import make_sift_like
+
+    A = make_sift_like(IVF_M + IVF_QUERIES, seed=0, chunk=IVF_M)
+    X, Q = A[:IVF_M], A[IVF_M:]
+    if not np.array_equal(X, make_sift_like(IVF_M, seed=0)):
+        raise AssertionError("ivf: the corpus is not sift:100000")
+    return X, Q
+
+
+def tie_recall(got, od, oi, k: int = K) -> float:
+    """Tie-aware recall@k (``tests/oracle.py::recall_against_oracle``): a
+    returned id is a hit when its oracle distance is within the oracle's
+    k-th."""
+    total, rows = 0.0, 0
+    for r in range(got.shape[0]):
+        valid = oi[r] >= 0
+        n_valid = min(k, int(valid.sum()))
+        if n_valid == 0:
+            continue
+        want = set(oi[r][valid & (od[r] <= od[r, n_valid - 1])].tolist())
+        total += len(set(got[r, :k].tolist()) & want) / n_valid
+        rows += 1
+    return total / max(rows, 1)
+
+
+def ivf_oracle(X, Q, device, self_rows=None):
+    """f64 on the card: each query's K + 5 nearest corpus rows, zero
+    distances excluded and, for corpus rows, the row itself (the JAX
+    package's gate). Host (dists, ids)."""
+    import torch
+
+    X64 = torch.from_numpy(X).to(device, torch.float64)
+    q64 = torch.from_numpy(Q).to(device, torch.float64)
+    d = (q64 * q64).sum(1)[:, None] + (X64 * X64).sum(1)[None] - 2.0 * q64 @ X64.T
+    d[d <= 1e-9] = float("inf")
+    if self_rows is not None:
+        d[torch.arange(len(self_rows)), torch.from_numpy(self_rows)] = float("inf")
+    vals, ids = torch.sort(d, dim=1, stable=True)
+    return vals[:, :K + 5].cpu().numpy(), ids[:, :K + 5].cpu().numpy()
+
+
+def ivf_split(index, q_tiles, qid_tiles, cfg):
+    """The one-shot search's stages tile by tile, each between CUDA events
+    (the exact finish's row chunks as ``finish_candidates`` cuts them):
+    ms a stage summed over the tiles, each beside its byte bound at
+    PEAK_BYTES_PER_S (every input read once, every output written once),
+    and the (q_pad, k) results."""
+    import torch
+
+    from mpi_knn_tpu_torch.ivf.search import finish_rows, gather_probes, score_centroids
+    from mpi_knn_tpu_torch.ops.quant import dequantize_rows
+    from mpi_knn_tpu_torch.ops.rerank import exact_candidate_dists
+    from mpi_knn_tpu_torch.ops.topk import smallest_k
+
+    def ev():
+        return torch.cuda.Event(enable_timing=True)
+
+    spans = {s: [] for s in IVF_STAGES}
+    nbytes = dict.fromkeys(IVF_STAGES, 0)
+    out_d, out_i = [], []
+    d, k = index.dim, cfg.k
+    at_rest = index.buckets.shape[-1] * index.buckets.element_size()
+    for q_x, q_ids in zip(q_tiles, qid_tiles):
+        e = [ev() for _ in range(4)]
+        e[0].record()
+        q_sq, probe = score_centroids(q_x, index.centroids, index.centroid_sqs,
+                                      cfg.nprobe)
+        e[1].record()
+        rows, ids, sqs, scl = gather_probes(probe, index.buckets, index.bucket_ids,
+                                            index.bucket_sqs, index.bucket_scales)
+        e[2].record()
+        if scl is not None:
+            rows = dequantize_rows(rows, scl, cfg.dtype, d)
+        rows = rows.to(torch.float32)
+        e[3].record()
+        spans["score"].append((e[0], e[1]))
+        spans["gather"].append((e[1], e[2]))
+        spans["dequantize"].append((e[2], e[3]))
+        q, v = ids.shape
+        nbytes["score"] += q * d * 4 + index.centroids.numel() * 4 + q * cfg.nprobe * 8
+        side = 4 * (2 + (scl is not None))  # ids, norms (and scales) a slot
+        nbytes["gather"] += 2 * q * v * (at_rest + side)
+        if scl is not None:
+            nbytes["dequantize"] += q * v * (at_rest + 4 + 4 * d)
+        nbytes["products"] += q * v * (4 * d + 4 + 4) + q * d * 4
+        nbytes["selection"] += q * v * 8 + q * k * 8
+        step = finish_rows(v, d)
+        parts = []
+        for s in range(0, q, step):
+            a, b, c = ev(), ev(), ev()
+            a.record()
+            dist = exact_candidate_dists(q_x[s:s + step], q_ids[s:s + step],
+                                         rows[s:s + step], ids[s:s + step],
+                                         exclude_self=cfg.exclude_self,
+                                         exclude_zero=cfg.exclude_zero,
+                                         zero_eps=cfg.zero_eps)
+            b.record()
+            parts.append(smallest_k(dist, ids[s:s + step], k, method="exact"))
+            c.record()
+            spans["products"].append((a, b))
+            spans["selection"].append((b, c))
+        out_d.append(torch.cat([p[0] for p in parts]))
+        out_i.append(torch.cat([p[1] for p in parts]))
+    torch.cuda.synchronize()
+    split = {s: {"ms": sum(a.elapsed_time(b) for a, b in spans[s]),
+                 "bound_ms": 1e3 * nbytes[s] / PEAK_BYTES_PER_S, "bytes": nbytes[s]}
+             for s in IVF_STAGES}
+    return split, torch.cat(out_d), torch.cat(out_i)
+
+
+def ivf_serve(index, Q, device) -> dict:
+    """Q in IVF_BATCH-row batches through ServeSession (the index's config:
+    bucket base 1024, depth 2): one checked pass (returned), then one timed
+    window."""
+    from mpi_knn_tpu_torch.serve import ServeSession
+
+    batches = [Q[s:s + IVF_BATCH] for s in range(0, len(Q), IVF_BATCH)]
+    sess = ServeSession(index, device=device)
+    warm = sess.warm(sorted({len(b) for b in batches}))
+    checked = list(sess.stream(batches))
+    sess.reset_stats()
+    t0 = time.perf_counter()
+    list(sess.stream(batches))
+    wall = time.perf_counter() - t0
+    lat = 1e3 * np.asarray(sess.latencies)
+    return {"checked": checked, "qps": len(Q) / wall, "wall_s": wall,
+            "p50_ms": float(np.percentile(lat, 50)),
+            "p99_ms": float(np.percentile(lat, 99)),
+            "batches": len(batches), "entries_built": warm["built"]}
+
+
+def ivf_phase(device) -> dict:
+    """The clustered index at the README's deployment (``IVF_*``): per store
+    (float32, int4, int8) the build (seconds by stage; nprobe tuned to
+    recall 0.95 against the full scan; bucket_cap, resident bytes, probe
+    bytes a row; every resident tensor on the card), the one-shot search
+    of the held-out queries (ms, host and device input, median of 3 after
+    a warm-up) with its stages by CUDA events beside their byte bounds,
+    recall@10 against an f64 oracle on IVF_ORACLE_ROWS sampled queries at
+    the JAX package's bar for the store, and serving in IVF_BATCH-row
+    batches (q/s, p50, p99; every batch bit for bit the one-shot search's
+    rows). On the float32 store also: k-means run again gives the index's
+    centroids bit for bit; saved, loaded with mmap and searched again, the
+    same ids and distances; the query CLI's ``--index-load`` run at the
+    deployment's flags (its ``--synthetic`` stream). Then nprobe =
+    partitions on an IVF_SUBSET-row index against the serial ``all_knn``:
+    ids tie-aware >= 0.999, distances within 1e-5. The launch counts are
+    set to 0 before and read after: no kernel of the port runs on this
+    path (no Pallas site lies on the JAX package's)."""
+    import torch
+
+    from mpi_knn_tpu_torch import KNNConfig, all_knn, cli
+    from mpi_knn_tpu_torch.ivf import (
+        build_ivf_index,
+        kmeans,
+        load_ivf_index,
+        save_ivf_index,
+        search_ivf,
+    )
+    from mpi_knn_tpu_torch.ivf.search import prepare_query_tiles
+
+    t_phase = time.perf_counter()
+    X, Q = ivf_data()
+    sample = np.linspace(0, IVF_QUERIES - 1, IVF_ORACLE_ROWS).astype(np.int64)
+    od, oi = ivf_oracle(X, Q[sample], device)
+    # the JAX package's gate form beside it: corpus rows with their ids
+    # (seeded, apart from the tuner's linspace sample)
+    own = np.sort(np.random.default_rng(7).choice(IVF_M, IVF_ORACLE_ROWS,
+                                                  replace=False))
+    cd, ci = ivf_oracle(X, X[own], device, self_rows=own)
+    reset_counts()
+    results = {}
+    for dtype, bar, nq in IVF_STORES:
+        if nq < IVF_QUERIES:
+            emit({"phase": "ivf_cut", "store": dtype, "queries": nq,
+                  "of": IVF_QUERIES})
+        Qn = Q[:nq]
+        t0 = time.perf_counter()
+        index = build_ivf_index(X, KNNConfig(k=K, partitions=IVF_P, dtype=dtype),
+                                device=device)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        resident = {name: str(t.device) for name, t in (
+            ("centroids", index.centroids), ("centroid_sqs", index.centroid_sqs),
+            ("buckets", index.buckets), ("bucket_ids", index.bucket_ids),
+            ("bucket_sqs", index.bucket_sqs), ("bucket_scales", index.bucket_scales))
+            if t is not None}
+        if any(not d.startswith("cuda") for d in resident.values()):
+            raise AssertionError(f"ivf {dtype}: resident tensors off the card: {resident}")
+        emit({"phase": "ivf_build", "store": dtype, "m": IVF_M, "d": X.shape[1],
+              "partitions": IVF_P, "seconds": build_s,
+              "seconds_by_stage": index.build_seconds, "nprobe": index.nprobe,
+              "tuned_recall": index.tuned_recall, "bucket_cap": index.bucket_cap,
+              "resident_bytes": index.nbytes_resident,
+              "probe_bytes_per_row": index.probe_bytes,
+              "probe_fraction": index.nprobe / IVF_P, "resident_on": resident})
+
+        # one shot: host input (centering, padding, copy) and device input
+        Qd = torch.from_numpy(Qn).to(device)
+        d0, i0 = search_ivf(index, Qn, device=device)  # warm-up, the reference
+        times = {"host": [], "device": []}
+        for _ in range(3):
+            for form, q in (("host", Qn), ("device", Qd)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                d1, i1 = search_ivf(index, q, device=device)
+                torch.cuda.synchronize()
+                times[form].append(1e3 * (time.perf_counter() - t0))
+                if not (torch.equal(d1, d0) and torch.equal(i1, i0)):
+                    raise AssertionError(f"ivf {dtype}: a {form}-input search differs")
+        cfg = index.compatible_cfg(index.cfg)
+        q_tiles, qid_tiles, q_pad, q_tile = prepare_query_tiles(index, Qn, None, cfg)
+        split, sd, si = ivf_split(index, q_tiles, qid_tiles, cfg)
+        if not (torch.equal(sd[:nq], d0) and torch.equal(si[:nq], i0)):
+            raise AssertionError(f"ivf {dtype}: the staged run differs from the search")
+        got = i0.cpu().numpy()
+        rec = tie_recall(got[sample[sample < nq]], od[sample < nq], oi[sample < nq])
+        _, own_i = search_ivf(index, X[own], query_ids=own, device=device)
+        rec_rows = tie_recall(own_i.cpu().numpy(), cd, ci)
+        emit({"phase": "ivf_search", "store": dtype, "queries": nq, "k": K,
+              "nprobe": cfg.nprobe, "q_tile": q_tile, "q_pad": q_pad,
+              "ms_host_input": statistics.median(times["host"]),
+              "ms_device_input": statistics.median(times["device"]),
+              "ms_runs": times, "stages": split,
+              "stages_ms_sum": sum(s["ms"] for s in split.values()),
+              "stages_bound_ms_sum": sum(s["bound_ms"] for s in split.values()),
+              "recall_at_10": rec, "recall_bar": bar,
+              "recall_at_10_corpus_rows": rec_rows,
+              "finite": bool(torch.isfinite(d0).all())})
+        if rec < bar or not torch.isfinite(d0).all() or (i0 < 0).any():
+            raise AssertionError(f"ivf {dtype}: recall@10 {rec} < {bar}, or "
+                                 "non-finite results")
+
+        served = ivf_serve(index, Qn, device)
+        got_d = np.concatenate([b.dists for b in served["checked"]])
+        got_i = np.concatenate([b.ids for b in served["checked"]])
+        equal = (np.array_equal(got_d, d0.cpu().numpy())
+                 and np.array_equal(got_i, i0.cpu().numpy()))
+        emit({"phase": "ivf_serve", "store": dtype, "batch": IVF_BATCH,
+              "bucket": cfg.query_bucket, "depth": cfg.dispatch_depth,
+              **{k_: v for k_, v in served.items() if k_ != "checked"},
+              "batches_equal_one_shot": equal,
+              "peak_hbm_bytes": torch.cuda.max_memory_allocated(device)})
+        if not equal:
+            raise AssertionError(f"ivf {dtype}: a served batch differs from "
+                                 "the one-shot search")
+        results[dtype] = {"build_s": build_s, "nprobe": index.nprobe,
+                          "recall": rec, "qps": served["qps"]}
+
+        if dtype == "float32":
+            again = kmeans(torch.from_numpy(X - index.mu).to(device, torch.float32), IVF_P,
+                           iters=index.cfg.kmeans_iters, seed=index.cfg.ivf_seed,
+                           device=device)
+            if not torch.equal(again.centroids, index.centroids):
+                raise AssertionError("ivf: k-means run twice gives other bits")
+            with tempfile.TemporaryDirectory() as tmp:
+                path = save_ivf_index(index, os.path.join(tmp, "sift.ivf.npz"))
+                size = os.path.getsize(path)
+                t0 = time.perf_counter()
+                loaded = load_ivf_index(path, mmap=True, device=device)
+                torch.cuda.synchronize()
+                load_s = time.perf_counter() - t0
+                d2, i2 = search_ivf(loaded, Qn, device=device)
+                same = torch.equal(d2, d0) and torch.equal(i2, i0)
+                report = os.path.join(tmp, "query.json")
+                rc = cli.main(["query", "--data", f"sift:{IVF_M}", "--index-load",
+                               path, "--synthetic", str(IVF_QUERIES), "--batch",
+                               str(IVF_BATCH), "--k", str(K), "-q",
+                               "--report", report])
+                with open(report) as f:
+                    summary = json.load(f)
+            emit({"phase": "ivf_save_load", "npz_bytes": size, "load_s": load_s,
+                  "search_equal": same, "kmeans_twice_equal": True})
+            emit({"phase": "ivf_query_cli", "rc": rc, "argv": (
+                f"query --data sift:{IVF_M} --index-load sift.ivf.npz "
+                f"--synthetic {IVF_QUERIES} --batch {IVF_BATCH} --k {K}"),
+                **{k_: summary.get(k_) for k_ in (
+                    "queries", "batches", "throughput_qps", "latency_p50_ms",
+                    "latency_p99_ms", "index_build_s", "nprobe", "at_rest",
+                    "executables_compiled")}})
+            if not same or rc != 0 or summary.get("queries") != IVF_QUERIES:
+                raise AssertionError("ivf: the saved index searched other ids, "
+                                     "or the query CLI failed")
+        del index
+        torch.cuda.empty_cache()
+
+    # nprobe = partitions: the full scan against the serial backend
+    Xs = X[:IVF_SUBSET]
+    rows = np.linspace(0, IVF_SUBSET - 1, IVF_ORACLE_ROWS).astype(np.int64)
+    full = build_ivf_index(Xs, KNNConfig(k=K, partitions=IVF_P, nprobe=IVF_P),
+                           device=device)
+    gd, gi = search_ivf(full, Xs[rows], query_ids=rows, device=device)
+    want = all_knn(Xs, queries=Xs[rows], query_ids=rows,
+                   config=KNNConfig(k=K, backend="serial"), device=device)
+    wd, wi = want.dists.cpu().numpy(), want.ids.cpu().numpy()
+    agree = tie_recall(gi.cpu().numpy(), wd, wi)
+    err = float(np.max(np.abs(gd.cpu().numpy() - wd)
+                       / np.maximum(1.0, np.abs(wd))))
+    close = bool(np.allclose(gd.cpu().numpy(), wd, rtol=1e-5, atol=1e-5))
+    emit({"phase": "ivf_full_scan", "m": IVF_SUBSET, "partitions": IVF_P,
+          "ids_agree": agree, "max_rel_dist_diff": err, "within_1e-5": close})
+    if agree < 0.999 or not close:
+        raise AssertionError(f"ivf: nprobe = partitions disagrees with serial "
+                             f"(ids {agree}, distances within 1e-5: {close})")
+    counts = {name: n for name, n in read_counts().items() if n}
+    emit({"phase": "ivf_launches", "launches": counts,
+          "seconds": time.perf_counter() - t_phase, "stores": results})
+    if counts:
+        raise AssertionError(f"ivf: kernels launched on the IVF path: {counts}")
+    return results
+
+
 def main() -> int:
     import torch
 
@@ -3091,6 +3442,10 @@ def main() -> int:
     mark("serve_and_serve_ring")
     # ---- the reference's own data path and run CLI, at full width ---------
     launches["approx_min_k"] = run_cli_phase(device, X, y)
+    mark("run_cli")
+    # ---- the clustered (IVF) index at the README's deployment -------------
+    ivf_phase(device)
+    mark("ivf")
     max_err["approx_min_k"] = max(e["max_abs_err"] for c, e in approx.items()
                                   if "f64/" not in c)
     max_err["approx_min_k[f64]"] = max(e["max_abs_err"] for c, e in approx.items()
@@ -3189,7 +3544,7 @@ def main() -> int:
          "bound_by": times[name]["bound_by"], "library_ms": library_of[name]}
         for name in replaces
     ]})
-    mark("run_cli_and_kernels_line")
+    mark("kernels_line")
     emit({"phase": "total_seconds", "seconds": marks[-1][1] - marks[0][1]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -127,7 +127,9 @@ def query_knn(queries, index, config: Optional[KNNConfig] = None,
     counterpart of ``all_knn(corpus, queries=...)``, equal to it bit for
     bit. Batches pad to power-of-two row buckets whose state is built once;
     results come back on the host with the padding stripped
-    (``ServeSession`` streams batches with dispatch-ahead)."""
+    (``ServeSession`` streams batches with dispatch-ahead). A clustered
+    index (``ivf.build_ivf_index`` / ``load_ivf_index``) serves through the
+    same engine, equal bit for bit to its ``search_ivf``."""
     from mpi_knn_tpu_torch.serve import query_knn as _query
 
     return _query(queries, index, config=config, device=device, **overrides)

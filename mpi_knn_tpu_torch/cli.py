@@ -12,6 +12,10 @@
         --backend ring-overlap --ring-fusion fused --checkpoint-dir ckpt
     python -m mpi_knn_tpu_torch query --data synthetic:512x32c4 \\
         --synthetic 100 --backend pallas --device cpu     # serve/cli.py
+    python -m mpi_knn_tpu_torch build-index --data sift:100000 \\
+        --partitions 256 --out sift.ivf.npz               # ivf/cli.py
+    python -m mpi_knn_tpu_torch query --data sift:100000 \\
+        --index-load sift.ivf.npz --synthetic 10000 --batch 512
 
 Flags. Data: ``--data`` (``mnist``, ``digits``, ``synthetic:MxDcC``,
 ``sift:M``, a ``.fvecs`` / ``.bvecs`` file, or a ``.mat`` file in the C
@@ -29,8 +33,8 @@ kNN: ``--k``, ``--metric``, ``--backend``, ``--num-classes``,
 
 Not yet ported (exit 2, naming what was asked): the multi-process flags
 ``--dp``, ``--coordinator``, ``--num-processes``, ``--process-id``, and the
-subcommands ``lint``, ``build-index``, ``metrics``, ``serve``, ``loadgen``,
-``router``, ``mutate``, ``plan`` and ``doctor``.
+subcommands ``lint``, ``metrics``, ``serve``, ``loadgen``, ``router``,
+``mutate``, ``plan`` and ``doctor``.
 """
 
 from __future__ import annotations
@@ -59,8 +63,8 @@ from mpi_knn_tpu_torch.config import (
 )
 from mpi_knn_tpu_torch.device import DEFAULT_DEVICE
 
-UNPORTED_SUBCOMMANDS = ("lint", "build-index", "metrics", "serve", "loadgen",
-                        "router", "mutate", "plan", "doctor")
+UNPORTED_SUBCOMMANDS = ("lint", "metrics", "serve", "loadgen", "router",
+                        "mutate", "plan", "doctor")
 UNPORTED_FLAGS = ("--dp", "--coordinator", "--num-processes", "--process-id")
 
 
@@ -308,6 +312,11 @@ def main(argv=None) -> int:
         from mpi_knn_tpu_torch.serve.cli import main as query_main
 
         return query_main(argv[1:])
+    if argv and argv[0] == "build-index":
+        # the clustered index's offline build (ivf/cli.py)
+        from mpi_knn_tpu_torch.ivf.cli import main as build_index_main
+
+        return build_index_main(argv[1:])
     parser = build_parser()
     args = None if argv and argv[0] in UNPORTED_SUBCOMMANDS else parser.parse_args(argv)
     refused = _refused(argv, args)

@@ -7,9 +7,9 @@ the same way. On top of that, settings whose machinery is not ported yet
 are refused here with a ``ValueError`` that names the setting and says "not
 yet ported" — a refused setting never silently runs as something else.
 
-Fields that only the serving or clustered-index layers read are kept so a
-config dict round-trips, and are inert in this package until those layers
-are ported.
+Fields that only the live-mutation or sharded clustered-index layers read
+are kept so a config dict round-trips, and are inert in this package until
+those layers are ported.
 """
 
 from __future__ import annotations
@@ -51,8 +51,10 @@ class KNNConfig:
     f32 and f64 distances), recall_target, topk_block, merge_schedule,
     tie_break, num_classes, mesh_axis, num_devices, ring_transfer_dtype,
     ring_schedule, ring_fusion, ring_fused_rotation, pallas_variant,
-    max_tile_elems, and the serving fields. ``partitions`` (the clustered
-    index) is refused.
+    max_tile_elems, the serving fields, and the clustered index's
+    (``ivf/``): partitions, nprobe, kmeans_iters, kmeans_init, ivf_seed,
+    bucket_headroom and dtype int8 / int4 at rest. ``ivf_shards`` (the
+    sharded clustered index) is refused.
     """
 
     k: int = 30
@@ -81,7 +83,8 @@ class KNNConfig:
     ring_fused_rotation: str = "round"
     pallas_variant: str = "tiles"
     max_tile_elems: int = 1 << 28
-    # --- inert until the serving / clustered-index layers are ported ---
+    # --- serving and the clustered index (mutation and the sharded index:
+    # inert until ported) ---
     query_bucket: int = 1024
     dispatch_depth: int = 2
     partitions: Optional[int] = None
@@ -193,8 +196,8 @@ class KNNConfig:
 
     def _check_index_fields(self):
         """The JAX package's rules for the serving and clustered-index
-        fields (``mpi_knn_tpu/config.py:457-522``): inert here, but a
-        setting the reference refuses is refused here too."""
+        fields (``mpi_knn_tpu/config.py:457-522``): a setting the reference
+        refuses is refused here too."""
         if self.partitions is not None and self.partitions < 1:
             raise ValueError(f"partitions must be >= 1, got {self.partitions}")
         if self.nprobe is not None:
@@ -249,9 +252,9 @@ class KNNConfig:
             )
 
     def _refuse_unported(self):
-        if self.partitions is not None:
+        if self.ivf_shards is not None:
             raise ValueError(
-                f"partitions={self.partitions!r}: not yet ported to "
+                f"ivf_shards={self.ivf_shards!r}: not yet ported to "
                 "mpi_knn_tpu_torch (see ROADMAP.md)"
             )
 

@@ -69,15 +69,14 @@ def compress_tile(q_x, blk, q_sq=None, blk_sq=None, metric: str = "l2"):
     return 1.0 - sim
 
 
-def rerank_exact_topk(q_x, q_ids, cand_rows, cand_ids, k: int,
-                      metric: str = "l2", exclude_self: bool = True,
-                      exclude_zero: bool = True, zero_eps: float = 0.0):
-    """Pass-2 exact finish over gathered survivors.
+def exact_candidate_dists(q_x, q_ids, cand_rows, cand_ids,
+                          metric: str = "l2", exclude_self: bool = True,
+                          exclude_zero: bool = True, zero_eps: float = 0.0):
+    """The rerank's products: (q, v) exact distances of gathered candidates
+    with the full mask semantics applied (masked slots +inf).
 
     q_x (q, d) queries, q_ids (q,) or None, cand_rows (q, v, d) f32,
-    cand_ids (q, v) (< 0 = invalid slot). Returns ((q, k) dists ascending,
-    (q, k) ids), the contract of ``smallest_k`` over an exact masked tile.
-    """
+    cand_ids (q, v) (< 0 = invalid slot)."""
     if metric == "l2":
         q64 = q_x.to(torch.float64)
         c64 = cand_rows.to(torch.float64)
@@ -95,9 +94,22 @@ def rerank_exact_topk(q_x, q_ids, cand_rows, cand_ids, k: int,
         pair_scale = torch.tensor(2.0, dtype=d.dtype, device=d.device)
     else:
         raise ValueError(f"unknown metric {metric!r}")
-    d = mask_tile(d, cand_ids, query_ids=q_ids if exclude_self else None,
-                  exclude_self=exclude_self, exclude_zero=exclude_zero,
-                  zero_eps=zero_eps, scale=pair_scale)
+    return mask_tile(d, cand_ids, query_ids=q_ids if exclude_self else None,
+                     exclude_self=exclude_self, exclude_zero=exclude_zero,
+                     zero_eps=zero_eps, scale=pair_scale)
+
+
+def rerank_exact_topk(q_x, q_ids, cand_rows, cand_ids, k: int,
+                      metric: str = "l2", exclude_self: bool = True,
+                      exclude_zero: bool = True, zero_eps: float = 0.0):
+    """Pass-2 exact finish over gathered survivors: their exact masked
+    distances (:func:`exact_candidate_dists`), then the exact top-k.
+    Returns ((q, k) dists ascending, (q, k) ids), the contract of
+    ``smallest_k`` over an exact masked tile.
+    """
+    d = exact_candidate_dists(q_x, q_ids, cand_rows, cand_ids, metric=metric,
+                              exclude_self=exclude_self,
+                              exclude_zero=exclude_zero, zero_eps=zero_eps)
     return smallest_k(d, cand_ids, k, method="exact")
 
 

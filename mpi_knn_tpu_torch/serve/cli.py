@@ -10,8 +10,13 @@ built in steady state" is visible per invocation.
 Combinations the engine cannot honor exit 2 with the reason (a pallas
 index with a cosine metric or a non-float32 dtype, mixed precision over a
 bf16 index, the int8 wire without the mixed policy), and so do the JAX
-CLI's flags whose layers are not ported yet (IVF, resilience, flight
-record, metrics, profiling, the AOT cache). The ring backends serve over
+CLI's flags whose layers are not ported yet (the sharded index's route
+cap, resilience, flight record, metrics, profiling, the AOT cache).
+``--index-load`` serves a saved clustered index (``build-index``, either
+package's ``.npz``) at ``--nprobe`` (default: the index's tuned one); the
+corpus-side flags baked into it (``--corpus-tile``, ``--dtype`` other than
+the store's, the ring's flags) are refused beside it, and the report adds
+its partitions, nprobe and at-rest bytes. The ring backends serve over
 ``--devices`` ranks of the one device (``--ring-schedule``,
 ``--ring-transfer-dtype``), and the report carries the rotation's static
 wire bytes (``ring_transfer``).
@@ -26,6 +31,8 @@ Examples::
         --precision-policy mixed --device cpu
     python -m mpi_knn_tpu_torch query --data mnist --synthetic 10000 \\
         --k 10 --backend pallas --batch 256 --report serve.json
+    python -m mpi_knn_tpu_torch query --data sift:100000 \\
+        --index-load sift.ivf.npz --synthetic 10000 --batch 512 --k 10
 """
 
 from __future__ import annotations
@@ -51,7 +58,7 @@ from mpi_knn_tpu_torch.device import DEFAULT_DEVICE
 # the JAX CLI's flags whose layers the port does not have yet: (flag, takes
 # a value), each refused with exit 2
 UNPORTED_FLAGS = (
-    ("--index-load", True), ("--nprobe", True), ("--route-cap", True),
+    ("--route-cap", True),
     ("--batch-deadline-ms", True),
     ("--retries", True), ("--degrade-after", True),
     ("--no-nan-sentinel", False), ("--flight-record", True),
@@ -83,6 +90,14 @@ def build_parser() -> argparse.ArgumentParser:
     d.add_argument("--batch", type=int, default=256,
                    help="rows per streamed batch (the final batch may be "
                    "ragged; it pads to its bucket)")
+    d.add_argument("--index-load", default=None, metavar="PATH.npz",
+                   help="serve a saved clustered (IVF) index (from "
+                   "`build-index`, either package's) instead of building a "
+                   "dense one; --data still gives the query stream's "
+                   "dimension and value range")
+    d.add_argument("--nprobe", type=int, default=None,
+                   help="partitions probed per query with --index-load "
+                   "(default: the index's tuned nprobe)")
 
     k = p.add_argument_group("kNN / serving")
     k.add_argument("--k", type=int, default=30)
@@ -93,12 +108,15 @@ def build_parser() -> argparse.ArgumentParser:
     k.add_argument("--devices", type=int, default=None,
                    help="ring size for the ring backends: ranks on the one "
                    "device")
-    k.add_argument("--dtype", default="float32",
+    k.add_argument("--dtype", default=None,
                    choices=["float32", "bfloat16", "float64"],
-                   help="resident/compute dtype; bfloat16 stores the index "
-                   "at half width (serial)")
+                   help="resident/compute dtype (default float32); bfloat16 "
+                   "stores the index at half width (serial); with "
+                   "--index-load it must name the saved store's")
     k.add_argument("--query-tile", type=int, default=1024)
-    k.add_argument("--corpus-tile", type=int, default=2048)
+    k.add_argument("--corpus-tile", type=int, default=None,
+                   help="corpus tile (default 2048; baked into a saved "
+                   "clustered index)")
     k.add_argument("--precision-policy", choices=list(PRECISION_POLICIES),
                    default="exact")
     k.add_argument("--topk-method", choices=list(TOPK_METHODS),
@@ -201,14 +219,21 @@ def main(argv=None) -> int:
     X, _, source = load_corpus(args.data, limit=args.limit)
     if args.limit is not None:
         X = X[:args.limit]
+    if args.index_load:
+        return _serve_loaded_index(args, X, source, device)
+    if args.nprobe is not None:
+        # a probe count without a clustered index would be ignored
+        print("error: --nprobe requires --index-load (probing is a "
+              "clustered-index knob)", file=sys.stderr)
+        return 2
     try:
         cfg = KNNConfig(
             k=args.k,
             metric=args.metric,
             backend=args.backend,
-            dtype=args.dtype,
+            dtype=args.dtype or "float32",
             query_tile=args.query_tile,
-            corpus_tile=args.corpus_tile,
+            corpus_tile=args.corpus_tile or 2048,
             precision_policy=args.precision_policy,
             topk_method=args.topk_method,
             ring_schedule=args.ring_schedule or "uni",
@@ -238,6 +263,84 @@ def main(argv=None) -> int:
         torch.cuda.synchronize(device)
     build_s = time.perf_counter() - t_build0
     return _stream_and_report(args, session, index, X, source, build_s)
+
+
+def _serve_loaded_index(args, X, source, device) -> int:
+    """``--index-load``: serve a saved clustered index through the same
+    session. Corpus-side knobs come from the saved index; flags that
+    conflict with it are refused, never dropped."""
+    from mpi_knn_tpu_torch.ivf import load_ivf_index
+    from mpi_knn_tpu_torch.serve import ServeSession
+
+    if args.backend in ("ring", "ring-overlap"):
+        print(f"error: --index-load × --backend {args.backend}: the sharded "
+              "clustered index is not yet ported to mpi_knn_tpu_torch (see "
+              "ROADMAP.md)", file=sys.stderr)
+        return 2
+    refusals = (
+        (args.backend not in ("auto", "serial"),
+         f"--index-load × --backend {args.backend} is not supported: a "
+         "clustered index serves single-device (serial/auto); the "
+         "pallas kernels scan the full corpus by construction"),
+        (args.metric != "l2",
+         f"--index-load × --metric {args.metric} is not supported: the "
+         "clustered index's k-means partitions and centroid score are "
+         "L2 geometry"),
+        (args.devices is not None,
+         "--devices with --index-load: the single-device clustered "
+         "search cannot honor it"),
+        (args.corpus_tile is not None,
+         "--corpus-tile has no meaning with --index-load (the bucket "
+         "layout was baked in at build time)"),
+        (args.ring_transfer_dtype is not None,
+         "--ring-transfer-dtype has no meaning with --index-load: the "
+         "clustered search never rotates a ring, and the store's "
+         "at-rest dtype was baked in at build time"),
+        (args.ring_schedule is not None,
+         "--ring-schedule has no meaning with --index-load (the "
+         "clustered search never rotates a ring)"),
+    )
+    refusal = next((msg for cond, msg in refusals if cond), None)
+    if refusal is not None:
+        print(f"error: {refusal}", file=sys.stderr)
+        return 2
+    t0 = time.perf_counter()
+    try:
+        index = load_ivf_index(args.index_load, device=device)
+    except (OSError, KeyError, ValueError) as e:
+        print(f"error: cannot load index {args.index_load!r}: {e}",
+              file=sys.stderr)
+        return 2
+    if args.dtype is not None and args.dtype != index.cfg.dtype:
+        print(f"error: --dtype {args.dtype} conflicts with the loaded "
+              f"index's at-rest dtype ({index.cfg.dtype}); the dtype is "
+              "baked in at build time", file=sys.stderr)
+        return 2
+    if X.shape[1] != index.dim:
+        print(f"error: --data {args.data!r} has dim {X.shape[1]} but the "
+              f"loaded index was built at dim {index.dim}", file=sys.stderr)
+        return 2
+    try:
+        cfg = index.compatible_cfg(index.cfg.replace(
+            k=args.k,
+            query_tile=args.query_tile,
+            precision_policy=args.precision_policy,
+            topk_method=args.topk_method,
+            nprobe=args.nprobe,  # None: the index's tuned default
+            query_bucket=args.bucket,
+            dispatch_depth=args.dispatch_depth,
+        ))
+        session = ServeSession(index, cfg, device=device)
+    except ValueError as e:
+        # nprobe > partitions, mixed over a bf16 store, ...
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    if device.type == "cuda":
+        import torch
+
+        torch.cuda.synchronize(device)
+    return _stream_and_report(args, session, index, X, source,
+                              time.perf_counter() - t0)
 
 
 def _stream_and_report(args, session, index, X, source, build_s) -> int:
@@ -278,7 +381,17 @@ def _stream_and_report(args, session, index, X, source, build_s) -> int:
         # the JAX CLI's shipped roofline profile: none for this card yet
         "device_profile": None,
     }
-    if index.shards is not None:
+    if index.backend == "ivf":
+        summary["partitions"] = index.partitions
+        summary["nprobe"] = cfg.nprobe
+        summary["probe_fraction"] = round(cfg.nprobe / index.partitions, 4)
+        # the at-rest level and the bytes it keeps resident and probes
+        summary["at_rest"] = {
+            "dtype": cfg.dtype,
+            "resident_bytes": index.nbytes_resident,
+            "probe_bytes_per_query": index.probe_bytes,
+        }
+    elif index.shards is not None:
         from mpi_knn_tpu_torch.backends.ring import ring_wire_bytes_per_batch
 
         # the transfer level and the static per-batch rotation bytes at

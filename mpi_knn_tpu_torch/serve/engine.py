@@ -36,6 +36,11 @@ and, for the dma and grid forms, the landing slots the rounds after the
 first write into: the index's shards are only ever read. The dma and grid
 forms read the card's error word after each launch, which waits for the
 launch: their batches do not overlap the next one's host work.
+
+Over a clustered index (``ivf.IVFIndex``, route ``"ivf"``) a batch is
+padded to the bucket's ``ivf_query_shapes`` and run by
+``ivf.search.ivf_serve_chunk``, the one-shot ``search_ivf``'s own tile
+loop; queries stay f32 whatever the store's dtype.
 """
 
 from __future__ import annotations
@@ -78,10 +83,10 @@ def _acc_dtype(cfg: KNNConfig) -> torch.dtype:
     return torch.float64 if cfg.dtype == "float64" else torch.float32
 
 
-def _query_dtype(cfg: KNNConfig) -> torch.dtype:
+def _query_dtype(cfg: KNNConfig, backend: str) -> torch.dtype:
     from mpi_knn_tpu_torch.backends.serial import torch_dtype
 
-    return torch_dtype(cfg.dtype)
+    return torch.float32 if backend == "ivf" else torch_dtype(cfg.dtype)
 
 
 @dataclasses.dataclass
@@ -107,7 +112,7 @@ class _BucketExec:
     backend: str
     device: torch.device
     dim: int
-    qids: torch.Tensor | None  # serial: (q_pad,) all −1 on the device
+    qids: torch.Tensor | None  # serial, ivf: (q_pad,) all −1 on the device
     free: list = dataclasses.field(default_factory=list)  # idle slots
     slots: int = 0  # slots made
     # ring: per rank its query ids (all −1) and initial carry, and the
@@ -126,7 +131,8 @@ class _BucketExec:
                   else (None, None))
         self.slots += 1
         return _Slot(
-            torch.empty((self.q_pad, self.dim), dtype=_query_dtype(self.cfg),
+            torch.empty((self.q_pad, self.dim),
+                        dtype=_query_dtype(self.cfg, self.backend),
                         pin_memory=card),
             torch.empty(shape, dtype=_acc_dtype(self.cfg), pin_memory=card),
             torch.empty(shape, dtype=torch.int32, pin_memory=card),
@@ -184,6 +190,12 @@ def ring_layout(index: CorpusIndex, cfg: KNNConfig, rows: int, q_pad: int,
 
 def bucket_shapes(index: CorpusIndex, cfg: KNNConfig, bucket: int):
     """``(q_pad, q_tile)`` of one (bucket, config) entry."""
+    if index.backend == "ivf":
+        from mpi_knn_tpu_torch.ivf.search import ivf_query_shapes
+
+        q_tile, q_pad = ivf_query_shapes(cfg, cfg.nprobe, index.bucket_cap,
+                                         index.dim, bucket)
+        return q_pad, q_tile
     if index.shards is not None:
         q_tile, q_pad = ring_query_shapes(index, cfg, bucket)
         return q_pad, q_tile
@@ -226,11 +238,11 @@ def _build_entry(index: CorpusIndex, cfg: KNNConfig,
     MISSES += 1
     q_pad, q_tile = bucket_shapes(index, cfg, bucket)
     qids = None
-    if index.backend == "serial":
+    if index.backend in ("serial", "ivf"):
         qids = torch.full((q_pad,), -1, dtype=torch.int32, device=index.device)
     exec_ = _BucketExec(bucket, q_pad, q_tile, cfg, index.backend,
                         index.device, index.dim, qids)
-    if index.shards is not None:
+    if index.backend != "ivf" and index.shards is not None:
         from mpi_knn_tpu_torch.backends.ring import ring_form
         from mpi_knn_tpu_torch.ops.fused_rotation import landing_slots
         from mpi_knn_tpu_torch.ops.topk import init_topk
@@ -279,7 +291,8 @@ def _prep_queries(index: CorpusIndex, cfg: KNNConfig, exec_: _BucketExec,
              else torch.as_tensor(np.asarray(q), device=dev))
         if mu is not None:
             q = center_rows(q, mu)
-        return pad_rows_any(q, exec_.q_pad, dtype=_query_dtype(cfg),
+        return pad_rows_any(q, exec_.q_pad,
+                            dtype=_query_dtype(cfg, index.backend),
                             device=dev)
     # a host batch over a host-built index: f64 centering on the host, then
     # the cast and padding in the slot's (pinned) buffer, one copy over
@@ -308,6 +321,14 @@ def _run(index: CorpusIndex, cfg: KNNConfig, exec_: _BucketExec, q2d,
                            exec_.qids.reshape(qt, exec_.q_tile), carry_d,
                            carry_i, index.tiles, index.tile_ids,
                            index.tile_sqs, cfg)
+        return d.reshape(exec_.q_pad, cfg.k), i.reshape(exec_.q_pad, cfg.k)
+    if index.backend == "ivf":
+        from mpi_knn_tpu_torch.ivf.search import ivf_serve_chunk, resident
+
+        qt = exec_.q_pad // exec_.q_tile
+        d, i = ivf_serve_chunk(q2d.reshape(qt, exec_.q_tile, index.dim),
+                               exec_.qids.reshape(qt, exec_.q_tile),
+                               *resident(index), cfg, cfg.nprobe)
         return d.reshape(exec_.q_pad, cfg.k), i.reshape(exec_.q_pad, cfg.k)
     if index.shards is not None:
         from mpi_knn_tpu_torch.backends.ring import ring_serve
@@ -545,6 +566,9 @@ class ServeSession:
         raise _mutation_error()
 
     def delete(self, ids, tenant: str | None = None):
+        raise _mutation_error()
+
+    def compact(self, *args, **kwargs):
         raise _mutation_error()
 
 

@@ -131,10 +131,11 @@ def test_lifted_settings_run_and_match_jax(setting):
 
 @pytest.mark.parametrize(
     "setting",
-    [dict(partitions=4), dict(partitions=16), dict(partitions=64)],
+    [dict(partitions=4, ivf_shards=2), dict(partitions=16, ivf_shards=4),
+     dict(partitions=64, ivf_shards=2, ivf_route_cap=3)],
 )
 def test_refused_settings_name_themselves(setting):
-    name = next(iter(setting))
+    name = "ivf_shards"  # the sharded clustered index
     with pytest.raises(ValueError, match=f"{name}.*not yet ported"):
         KNNConfig(**setting)
     d = dataclasses.asdict(jax_pkg.KNNConfig(**setting))

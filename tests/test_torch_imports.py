@@ -41,7 +41,9 @@ def test_importing_the_port_loads_no_jax():
                 "serve.engine", "serve.cli", "utils.report", "utils.logs",
                 "utils.timing", "ops.approx_topk", "data._native",
                 "data.matfile", "data.vecs", "data.svd", "data.digits",
-                "data.mnist", "data.synthetic"):
+                "data.mnist", "data.synthetic", "ivf.kmeans", "ivf.search",
+                "ivf.index", "ivf.cli", "utils.atomicio", "utils.npz_mmap",
+                "convert"):
         assert f"mpi_knn_tpu_torch.{mod}" in loaded
     assert "chip_smoke" in loaded
     bad = [m for m in loaded
@@ -75,10 +77,25 @@ def _entry_points():
     )
     from mpi_knn_tpu_torch.cli import main
     from mpi_knn_tpu_torch.data import svd_reduce
+    from mpi_knn_tpu_torch.ivf import (
+        build_ivf_index,
+        kmeans,
+        load_ivf_index,
+        search_ivf,
+    )
 
-    X = np.zeros((16, 4), np.float32)
+    X = np.arange(64, dtype=np.float32).reshape(16, 4)
     index = build_index(X, k=2, device="cpu")  # built before the card vanishes
+    ivf = build_ivf_index(X, k=2, partitions=2, nprobe=1, device="cpu")
     return {
+        "build_ivf_index": lambda: build_ivf_index(X, k=2, partitions=2),
+        "search_ivf": lambda: search_ivf(ivf, X),
+        "ivf_query_knn": lambda: query_knn(X, ivf),
+        "kmeans": lambda: kmeans(X, 2),
+        "load_ivf_index": lambda: load_ivf_index("absent.npz"),
+        "build_index_cli": lambda: main(["build-index", "--data",
+                                         "synthetic:64x4c2", "--partitions",
+                                         "2", "--out", "absent.npz"]),
         "all_knn": lambda: all_knn(X, k=2),
         "KNNClassifier": lambda: KNNClassifier(k=2),
         "cli": lambda: main(["--data", "synthetic:64x4c2", "--k", "2"]),
@@ -93,7 +110,10 @@ def _entry_points():
 
 @pytest.mark.parametrize("entry", ["all_knn", "KNNClassifier", "cli",
                                    "build_index", "query_knn", "ServeSession",
-                                   "query_cli", "svd_reduce"])
+                                   "query_cli", "svd_reduce",
+                                   "build_ivf_index", "search_ivf",
+                                   "ivf_query_knn", "kmeans",
+                                   "load_ivf_index", "build_index_cli"])
 def test_default_device_without_a_card_raises(entry, monkeypatch):
     entries = _entry_points()
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

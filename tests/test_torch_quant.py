@@ -1,7 +1,8 @@
-"""The port's int8 row quantization (``ops/quant.py``) against the JAX
+"""The port's row quantization (``ops/quant.py``) against the JAX
 package's, bit for bit: the same f32 division, multiply and half-to-even
 rounding on both sides give the same codes and scales, and the dequantized
-rows are one multiply each."""
+rows are one multiply each. int4 (the clustered index's store) packs two
+codes a lane, low nibble first, with a zero nibble for odd widths."""
 
 import numpy as np
 import pytest
@@ -55,8 +56,47 @@ def test_dequantize_rows_bitwise_equal_to_jax():
 
 def test_quant_helpers_match_jax():
     assert pq.quant_max("int8") == jq.quant_max("int8")
-    for dtype, itemsize in ((None, 4), (None, 2), ("int8", 4)):
-        assert (pq.row_wire_bytes(784, dtype, itemsize)
-                == jq.row_wire_bytes(784, dtype, itemsize))
+    assert pq.quant_max("int4") == jq.quant_max("int4")
+    for dtype, itemsize in ((None, 4), (None, 2), ("int8", 4), ("int4", 4)):
+        for dim in (784, 128, 33):
+            assert (pq.row_wire_bytes(dim, dtype, itemsize)
+                    == jq.row_wire_bytes(dim, dtype, itemsize))
+    for dim in (1, 32, 33):
+        for dtype in pq.QUANT_DTYPES:
+            assert pq.packed_dim(dim, dtype) == jq.packed_dim(dim, dtype)
+    assert pq.row_wire_bytes(128, "int4") == 68
     with pytest.raises(ValueError, match="int8"):
-        pq.quant_max("int4")
+        pq.quant_max("int2")
+
+
+@pytest.mark.parametrize("dim", [1, 31, 32, 48])
+def test_int4_pack_and_unpack_bitwise_equal_to_jax(dim):
+    rng = np.random.default_rng(dim)
+    codes = rng.integers(-7, 8, (64, dim)).astype(np.int8)
+    codes[0] = -7
+    codes[1] = 7
+    want = np.asarray(jq.pack_int4(codes))
+    got = pq.pack_int4(torch.from_numpy(codes))
+    assert got.dtype == torch.int8 and got.shape == (64, -(-dim // 2))
+    np.testing.assert_array_equal(got.numpy(), want)
+    back = pq.unpack_int4(got, dim)
+    np.testing.assert_array_equal(back.numpy(), codes)
+    np.testing.assert_array_equal(back.numpy(),
+                                  np.asarray(jq.unpack_int4(want, dim)))
+
+
+@pytest.mark.parametrize("dim", [31, 48])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_int4_quantize_and_dequantize_bitwise_equal_to_jax(seed, dim):
+    x = _rows(seed)[:, :dim]
+    jc, js = jq.quantize_rows(x, "int4")
+    pc, ps = pq.quantize_rows(torch.from_numpy(x), "int4")
+    np.testing.assert_array_equal(pc.numpy(), np.asarray(jc))
+    np.testing.assert_array_equal(ps.numpy(), np.asarray(js))
+    want = np.asarray(jq.dequantize_rows(jc, js, "int4", dim))
+    got = pq.dequantize_rows(pc, ps, "int4", dim)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert (got[3] == 0).all()
+    # every element within half a step (scale = max|row| / 7)
+    scale = np.asarray(js)[:, None]
+    assert (np.abs(got.numpy() - x) <= scale / 2 + 1e-6 * scale).all()
