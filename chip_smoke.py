@@ -152,7 +152,23 @@ is not 0:
    results; the query CLI's ``--index-load`` run; nprobe = partitions
    against the serial backend. No kernel of the port runs on this path
    (its launch counts stay 0): no Pallas site lies on the JAX package's;
-11. kernels: one line with every kernel mode's launches, error, times and
+11. mutate (``mutate_phase``): live mutation at the README's mutable
+   deployment (that corpus with ``bucket_headroom=0.5``,
+   ``mutation_bucket=128``; float32 and int8 stores; 128-row chunks under
+   new ids from 1000000; 512-row batches of the held-out queries): every
+   live row upserted again under its own id keeps the store bit for bit;
+   the store tensors keep their storage and an upsert + delete's peak
+   allocation grows by at most 8 chunk sizes; upsert and delete rows/s
+   (median of 16 cycles); serving p50 / p99 quiesced and beside a churning
+   thread (every batch finite, none returning an id deleted before its
+   submission); after churn of 10 % new rows and 10 % deletes, each
+   upserted row its own first neighbour, no deleted id returned, recall@10
+   against f64 over the live rows at least a fresh build's minus 0.02, a
+   rebuild per batch at least 10x an upsert chunk; compaction retrained
+   twice from one state gives the same bits, its seconds with and without
+   retraining, and (float32) nprobe = partitions equals serial over the
+   live rows. No kernel runs on this path (its launch counts stay 0);
+12. kernels: one line with every kernel mode's launches, error, times and
    bound, the prologues (`stage_tf32_split`, `stage_tf32[wire]`,
    `stage_tf32_split[ring]`, `stage_bf16`, `stage_bf16[wire]`,
    `stage_norms`), the "default" / "high" forms and the approx kernel (f32
@@ -2006,6 +2022,303 @@ def ivf_phase(device) -> dict:
     return results
 
 
+# ---- live mutation: the README's mutable deployment (README.md:649-667) ----
+MUT_STORES = ("float32", "int8")
+MUT_BUCKET = 128  # mutation_bucket, and the upsert / delete chunk
+MUT_ID_BASE = 1_000_000  # new ids, as the README's --ids 1000000:1000128
+MUT_CYCLES = 16  # timed upsert + delete cycles (median)
+MUT_CHURN = IVF_M // 10  # rows upserted as new ids, and rows deleted
+MUT_WINDOWS = 3  # passes of the held-out queries a serving window takes
+MUT_SELF_ROWS = 512  # upserted rows queried for themselves
+MUT_OFFSET = 0.5  # the self query's offset a coordinate: d^2 = 32, past the zero rule
+
+
+def mutation_pool():
+    """Rows of the corpus's distribution that are neither corpus rows nor the
+    ``ivf`` phase's held-out queries: the tail of a longer second chunk of
+    ``make_sift_like`` (the same 256 centers, other draws)."""
+    from mpi_knn_tpu_torch.data.synthetic import make_sift_like
+
+    return make_sift_like(IVF_M + 4 * MUT_CHURN, seed=0, chunk=IVF_M)[IVF_M + 2 * MUT_CHURN:]
+
+
+def mut_store(index):
+    from mpi_knn_tpu_torch.serve import mutate as sm
+
+    return [t for t in sm._store(index) if t is not None]
+
+
+def mut_clone(index):
+    """A copy of a clustered index on its device: the same bits, no shared
+    storage, its freelist derived anew."""
+    import dataclasses
+
+    return dataclasses.replace(
+        index, centroids=index.centroids.clone(), centroid_sqs=index.centroid_sqs.clone(),
+        buckets=index.buckets.clone(), bucket_ids=index.bucket_ids.clone(),
+        bucket_sqs=index.bucket_sqs.clone(),
+        bucket_scales=None if index.bucket_scales is None else index.bucket_scales.clone(),
+        _cache={})
+
+
+def mut_serve(sess, batches, churn=None) -> dict:
+    """One window of ``batches`` through the session, optionally beside a
+    churning thread (``churn(stop, note)``, which calls ``note(ids)`` after
+    each delete returns). Every batch must be finite and return no id deleted
+    before it was submitted. Returns p50 / p99 ms and q/s."""
+    import threading
+
+    deleted, lock, stop = set(), threading.Lock(), threading.Event()
+
+    def note(ids):
+        with lock:
+            deleted.update(int(i) for i in ids)
+
+    worker = None
+    if churn is not None:
+        worker = threading.Thread(target=churn, args=(stop, note))
+        worker.start()
+    sess.reset_stats()
+    gone_at, done = [], []
+    t0 = time.perf_counter()
+    try:
+        for b in batches:
+            with lock:
+                gone_at.append(frozenset(deleted))
+            done += sess.submit(b)
+        done += sess.drain()
+    finally:
+        stop.set()
+        if worker is not None:
+            worker.join(timeout=120)
+    wall = time.perf_counter() - t0
+    if worker is not None and worker.is_alive():
+        raise AssertionError("mutate: the churning thread did not stop")
+    base = done[0].seq
+    bad = [r.seq for r in done
+           if not np.isfinite(r.dists).all()
+           or gone_at[r.seq - base] & set(r.ids.ravel().tolist())]
+    if bad:
+        raise AssertionError(f"mutate: batches {bad[:5]} non-finite or returned "
+                             "a deleted id")
+    lat = 1e3 * np.asarray(sess.latencies)
+    return {"batches": len(done), "p50_ms": float(np.percentile(lat, 50)),
+            "p99_ms": float(np.percentile(lat, 99)),
+            "qps": sum(r.rows for r in done) / wall, "deleted_during": len(deleted)}
+
+
+def mutate_phase(device) -> dict:
+    """Live mutation at the README's mutable deployment: the ``ivf`` phase's
+    corpus (``sift:100000``, 256 partitions) built with ``bucket_headroom=
+    0.5`` and ``mutation_bucket=128``, float32 and int8 stores, 128-row
+    chunks under new ids from 1000000, 512-row query batches (bucket base
+    1024, depth 2) of the ``ivf`` phase's held-out queries. Gates: every
+    live row upserted again under its own id keeps the store bit for bit;
+    every store tensor keeps its storage and an upsert + delete's peak
+    allocation grows by a few chunk sizes only; rows/s of upserts and
+    deletes (median of MUT_CYCLES cycles); serving quiesced and beside a
+    churning thread (p50 / p99, every batch finite, no id deleted before
+    its submission returned); after churn of 10 % new rows and 10 %
+    deletes, each upserted row its own first neighbour, no deleted id
+    returned, recall@10 against an f64 oracle over the live rows at least
+    a fresh build's on the same rows minus 0.02; compaction with retraining
+    twice from one state gives the same bits; after compaction nprobe =
+    partitions equals serial over the live rows (float32); the rebuild per
+    batch beside an upsert (the reference's bar: >= 10x); every kernel
+    launch count stays 0 (no kernel lies on this path)."""
+    import threading
+
+    import torch
+
+    from mpi_knn_tpu_torch import KNNConfig, all_knn
+    from mpi_knn_tpu_torch.ivf import build_ivf_index, search_ivf
+    from mpi_knn_tpu_torch.serve import ServeSession
+    from mpi_knn_tpu_torch.serve import mutate as sm
+
+    t_phase = time.perf_counter()
+    X, Q = ivf_data()
+    pool = mutation_pool()
+    sample = np.linspace(0, IVF_QUERIES - 1, IVF_ORACLE_ROWS).astype(np.int64)
+    batches = [Q[s:s + IVF_BATCH] for s in range(0, IVF_QUERIES, IVF_BATCH)]
+    rng = np.random.default_rng(14)
+    gone = np.sort(rng.choice(IVF_M, MUT_CHURN, replace=False))
+    reset_counts()
+    results = {}
+    for dtype in MUT_STORES:
+        cfg = KNNConfig(k=K, partitions=IVF_P, dtype=dtype, bucket_headroom=0.5,
+                        mutation_bucket=MUT_BUCKET)
+        t0 = time.perf_counter()
+        index = build_ivf_index(X, cfg, device=device)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        store_bytes = sum(t.numel() * t.element_size() for t in mut_store(index))
+
+        # every live row again, its own id and raw values, 128 rows a chunk
+        before = [t.clone() for t in mut_store(index)]
+        ptrs = [t.data_ptr() for t in mut_store(index)]
+        t0 = time.perf_counter()
+        for s in range(0, IVF_M, MUT_BUCKET):
+            sm.upsert_rows(index, np.arange(s, min(s + MUT_BUCKET, IVF_M)),
+                           X[s:s + MUT_BUCKET])
+        torch.cuda.synchronize()
+        reupsert_s = time.perf_counter() - t0
+        same = all(torch.equal(a, b) for a, b in zip(mut_store(index), before))
+        del before
+
+        # rows/s, and the peak allocation of one upsert + delete cycle
+        next_id = [MUT_ID_BASE]
+
+        def cycle():
+            ids = np.arange(next_id[0], next_id[0] + MUT_BUCKET)
+            rows = pool[(next_id[0] - MUT_ID_BASE) % (len(pool) - MUT_BUCKET):][:MUT_BUCKET]
+            next_id[0] += MUT_BUCKET
+            t0 = time.perf_counter()
+            sm.upsert_rows(index, ids, rows)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            sm.delete_rows(index, ids)
+            torch.cuda.synchronize()
+            return t1 - t0, time.perf_counter() - t1
+
+        cycle()  # warm-up
+        torch.cuda.reset_peak_memory_stats(device)
+        base = torch.cuda.memory_allocated(device)
+        cycle()
+        grew = torch.cuda.max_memory_allocated(device) - base
+        chunk_bytes = MUT_BUCKET * (X.shape[1] + IVF_P) * 4
+        times = [cycle() for _ in range(MUT_CYCLES)]
+        up_s = statistics.median(t[0] for t in times)
+        del_s = statistics.median(t[1] for t in times)
+        in_place = [t.data_ptr() for t in mut_store(index)] == ptrs
+        emit({"phase": "mutate_in_place", "store": dtype, "m": IVF_M,
+              "partitions": IVF_P, "bucket_cap": index.bucket_cap,
+              "build_s": build_s, "store_bytes": store_bytes,
+              "reupsert_rows": IVF_M, "reupsert_s": reupsert_s,
+              "reupsert_bit_for_bit": same, "data_ptr_unchanged": in_place,
+              "peak_growth_bytes": grew, "chunk_bytes": chunk_bytes,
+              "peak_bound_bytes": 8 * chunk_bytes,
+              "upsert_ms_median": 1e3 * up_s, "delete_ms_median": 1e3 * del_s,
+              "upsert_rows_per_s": MUT_BUCKET / up_s,
+              "delete_rows_per_s": MUT_BUCKET / del_s,
+              "cycles": MUT_CYCLES, "chunk_rows": MUT_BUCKET,
+              "upsert_ms_runs": [1e3 * t[0] for t in times],
+              "delete_ms_runs": [1e3 * t[1] for t in times]})
+        if not (same and in_place and grew <= 8 * chunk_bytes):
+            raise AssertionError(f"mutate {dtype}: the re-upsert changed the store "
+                                 f"({same}), a tensor moved ({in_place}), or the "
+                                 f"peak grew {grew} > 8 x {chunk_bytes} bytes")
+
+        # serving, quiesced and beside a churning thread
+        sess = ServeSession(index, device=device)
+        sess.warm([IVF_BATCH])
+        window = batches * MUT_WINDOWS
+        quiet = mut_serve(sess, window)
+
+        def churn(stop, note):
+            while not stop.is_set():
+                ids = np.arange(next_id[0], next_id[0] + MUT_BUCKET)
+                rows = pool[(next_id[0] - MUT_ID_BASE) % (len(pool) - MUT_BUCKET):][:MUT_BUCKET]
+                next_id[0] += MUT_BUCKET
+                sess.upsert(ids, rows)
+                sess.delete(ids)
+                note(ids)
+
+        busy = mut_serve(sess, window, churn)
+        emit({"phase": "mutate_serve", "store": dtype, "batch": IVF_BATCH,
+              "bucket": sess.cfg.query_bucket, "depth": sess.cfg.dispatch_depth,
+              "quiesced": quiet, "under_churn": busy,
+              "p99_ratio": busy["p99_ms"] / quiet["p99_ms"],
+              "p50_ratio": busy["p50_ms"] / quiet["p50_ms"],
+              "mutation": sess.stats_snapshot()["mutation"]})
+
+        # churn: 10 % new rows under new ids, 10 % of the corpus deleted
+        new_rows = pool[:MUT_CHURN]
+        new_ids = np.arange(2 * MUT_ID_BASE, 2 * MUT_ID_BASE + MUT_CHURN)
+        for s in range(0, MUT_CHURN, MUT_BUCKET):
+            sess.upsert(new_ids[s:s + MUT_BUCKET], new_rows[s:s + MUT_BUCKET])
+            sess.delete(gone[s:s + MUT_BUCKET])
+        churned = sm.mutation_stats(index)
+        own = np.linspace(0, MUT_CHURN - 1, MUT_SELF_ROWS).astype(np.int64)
+        _, si = search_ivf(index, new_rows[own] + MUT_OFFSET, device=device)
+        self_first = float((si[:, 0].cpu().numpy() == new_ids[own]).mean())
+        _, gi = search_ivf(index, np.concatenate([Q, X[gone[:MUT_SELF_ROWS]] + MUT_OFFSET]),
+                           device=device)
+        returned_deleted = int(np.isin(gi.cpu().numpy(), gone).sum())
+        live_ids = np.concatenate([np.setdiff1d(np.arange(IVF_M), gone), new_ids])
+        live_rows = np.concatenate([X[np.setdiff1d(np.arange(IVF_M), gone)], new_rows])
+        od, oi = ivf_oracle(live_rows, Q[sample], device)
+        oi = live_ids[oi]
+        t0 = time.perf_counter()
+        fresh = build_ivf_index(live_rows, cfg, device=device)
+        torch.cuda.synchronize()
+        rebuild_s = time.perf_counter() - t0
+        _, mi = search_ivf(index, Q[sample], device=device)
+        _, fi = search_ivf(fresh, Q[sample], device=device, nprobe=index.nprobe)
+        rec_mut = tie_recall(mi.cpu().numpy(), od, oi)
+        rec_fresh = tie_recall(live_ids[fi.cpu().numpy()], od, oi)
+        del fresh
+        emit({"phase": "mutate_churn", "store": dtype, "upserted": MUT_CHURN,
+              "deleted": MUT_CHURN, "freelist": churned, "nprobe": index.nprobe,
+              "self_first_neighbour": self_first, "deleted_returned": returned_deleted,
+              "recall_at_10": rec_mut, "recall_fresh_build": rec_fresh,
+              "rebuild_s": rebuild_s, "rebuild_rows": len(live_rows),
+              "upsert_s_per_chunk": up_s, "rebuild_per_batch_ratio": rebuild_s / up_s})
+        if self_first < 1.0 or returned_deleted or rec_mut < rec_fresh - 0.02:
+            raise AssertionError(f"mutate {dtype}: self first {self_first}, deleted "
+                                 f"returned {returned_deleted}, recall {rec_mut} "
+                                 f"against a fresh build's {rec_fresh}")
+        if rebuild_s < 10 * up_s:
+            raise AssertionError(f"mutate {dtype}: a rebuild ({rebuild_s} s) is not "
+                                 f"10x an upsert chunk ({up_s} s)")
+
+        # compaction: retrained twice from one state, the same bits; then
+        # without retraining
+        twin = mut_clone(index)
+        t0 = time.perf_counter()
+        st = sm.compact_index(index, retrain=True, reason="smoke")
+        torch.cuda.synchronize()
+        compact_s = time.perf_counter() - t0
+        sm.compact_index(twin, retrain=True, reason="smoke")
+        twice = all(torch.equal(a, b) for a, b in zip(mut_store(index) + [index.centroids],
+                                                       mut_store(twin) + [twin.centroids]))
+        del twin
+        t0 = time.perf_counter()
+        st2 = sm.compact_index(index, retrain=False, reason="smoke")
+        torch.cuda.synchronize()
+        compact_plain_s = time.perf_counter() - t0
+        _, ci = search_ivf(index, Q[sample], device=device)
+        rec_compacted = tie_recall(ci.cpu().numpy(), od, oi)
+        full = {}
+        if dtype == "float32":
+            # nprobe = partitions is a full scan: serial over the live rows
+            gd, gi = search_ivf(index, Q[sample], device=device, nprobe=IVF_P)
+            want = all_knn(live_rows, queries=Q[sample],
+                           config=KNNConfig(k=K, backend="serial"), device=device)
+            wd, wi = want.dists.cpu().numpy(), live_ids[want.ids.cpu().numpy()]
+            full = {"ids_agree": tie_recall(gi.cpu().numpy(), wd, wi),
+                    "within_1e-5": bool(np.allclose(gd.cpu().numpy(), wd,
+                                                    rtol=1e-5, atol=1e-5))}
+        emit({"phase": "mutate_compact", "store": dtype, "retrained": st,
+              "plain": st2, "compact_s": compact_s, "compact_no_retrain_s": compact_plain_s,
+              "retrain_twice_equal": twice, "recall_at_10": rec_compacted,
+              "freelist": sm.mutation_stats(index), "full_scan": full})
+        if not twice or (full and (full["ids_agree"] < 0.999 or not full["within_1e-5"])):
+            raise AssertionError(f"mutate {dtype}: compaction twice differs ({twice}) "
+                                 f"or the full scan disagrees with serial ({full})")
+        results[dtype] = {"upsert_rows_per_s": MUT_BUCKET / up_s,
+                          "delete_rows_per_s": MUT_BUCKET / del_s,
+                          "p99_ratio": busy["p99_ms"] / quiet["p99_ms"],
+                          "compact_s": compact_s, "rebuild_ratio": rebuild_s / up_s}
+        del index, sess
+        torch.cuda.empty_cache()
+    counts = {name: n for name, n in read_counts().items() if n}
+    emit({"phase": "mutate_launches", "launches": counts,
+          "seconds": time.perf_counter() - t_phase, "stores": results})
+    if counts:
+        raise AssertionError(f"mutate: kernels launched on the mutation path: {counts}")
+    return results
+
+
 def main() -> int:
     import torch
 
@@ -3446,6 +3759,9 @@ def main() -> int:
     # ---- the clustered (IVF) index at the README's deployment -------------
     ivf_phase(device)
     mark("ivf")
+    # ---- live mutation at the README's mutable deployment -----------------
+    mutate_phase(device)
+    mark("mutate")
     max_err["approx_min_k"] = max(e["max_abs_err"] for c, e in approx.items()
                                   if "f64/" not in c)
     max_err["approx_min_k[f64]"] = max(e["max_abs_err"] for c, e in approx.items()

@@ -16,6 +16,8 @@
         --partitions 256 --out sift.ivf.npz               # ivf/cli.py
     python -m mpi_knn_tpu_torch query --data sift:100000 \\
         --index-load sift.ivf.npz --synthetic 10000 --batch 512
+    python -m mpi_knn_tpu_torch mutate --index sift.ivf.npz \\
+        --delete 17,42 --compact                          # serve/mutate_cli.py
 
 Flags. Data: ``--data`` (``mnist``, ``digits``, ``synthetic:MxDcC``,
 ``sift:M``, a ``.fvecs`` / ``.bvecs`` file, or a ``.mat`` file in the C
@@ -34,7 +36,7 @@ kNN: ``--k``, ``--metric``, ``--backend``, ``--num-classes``,
 Not yet ported (exit 2, naming what was asked): the multi-process flags
 ``--dp``, ``--coordinator``, ``--num-processes``, ``--process-id``, and the
 subcommands ``lint``, ``metrics``, ``serve``, ``loadgen``, ``router``,
-``mutate``, ``plan`` and ``doctor``.
+``plan`` and ``doctor``.
 """
 
 from __future__ import annotations
@@ -64,7 +66,7 @@ from mpi_knn_tpu_torch.config import (
 from mpi_knn_tpu_torch.device import DEFAULT_DEVICE
 
 UNPORTED_SUBCOMMANDS = ("lint", "metrics", "serve", "loadgen", "router",
-                        "mutate", "plan", "doctor")
+                        "plan", "doctor")
 UNPORTED_FLAGS = ("--dp", "--coordinator", "--num-processes", "--process-id")
 
 
@@ -317,6 +319,11 @@ def main(argv=None) -> int:
         from mpi_knn_tpu_torch.ivf.cli import main as build_index_main
 
         return build_index_main(argv[1:])
+    if argv and argv[0] == "mutate":
+        # live mutation of a saved index (serve/mutate_cli.py)
+        from mpi_knn_tpu_torch.serve.mutate_cli import main as mutate_main
+
+        return mutate_main(argv[1:])
     parser = build_parser()
     args = None if argv and argv[0] in UNPORTED_SUBCOMMANDS else parser.parse_args(argv)
     refused = _refused(argv, args)

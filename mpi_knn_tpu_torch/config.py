@@ -7,9 +7,12 @@ the same way. On top of that, settings whose machinery is not ported yet
 are refused here with a ``ValueError`` that names the setting and says "not
 yet ported" — a refused setting never silently runs as something else.
 
-Fields that only the live-mutation or sharded clustered-index layers read
-are kept so a config dict round-trips, and are inert in this package until
-those layers are ported.
+Fields that only the sharded clustered index reads (``ivf_shards``,
+``ivf_route_cap``) are kept so a config dict round-trips; ``ivf_shards``
+is refused until that layer is ported. The live-mutation fields
+(``bucket_headroom``, ``mutation_bucket``, ``compact_fill_threshold``,
+``compact_tombstone_fraction``) are read by ``serve/mutate.py`` and
+``ivf/mutate.py``.
 """
 
 from __future__ import annotations
@@ -53,8 +56,10 @@ class KNNConfig:
     ring_schedule, ring_fusion, ring_fused_rotation, pallas_variant,
     max_tile_elems, the serving fields, and the clustered index's
     (``ivf/``): partitions, nprobe, kmeans_iters, kmeans_init, ivf_seed,
-    bucket_headroom and dtype int8 / int4 at rest. ``ivf_shards`` (the
-    sharded clustered index) is refused.
+    bucket_headroom and dtype int8 / int4 at rest, and live mutation's
+    (``serve/mutate.py``): mutation_bucket, compact_fill_threshold,
+    compact_tombstone_fraction. ``ivf_shards`` (the sharded clustered
+    index) is refused.
     """
 
     k: int = 30
@@ -83,8 +88,8 @@ class KNNConfig:
     ring_fused_rotation: str = "round"
     pallas_variant: str = "tiles"
     max_tile_elems: int = 1 << 28
-    # --- serving and the clustered index (mutation and the sharded index:
-    # inert until ported) ---
+    # --- serving, the clustered index and live mutation (the sharded
+    # index's fields: refused or unread until ported) ---
     query_bucket: int = 1024
     dispatch_depth: int = 2
     partitions: Optional[int] = None

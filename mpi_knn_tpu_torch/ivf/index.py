@@ -95,9 +95,11 @@ class IVFIndex:
 
     @property
     def live_rows(self) -> int:
-        """Rows holding a corpus point (id ≥ 0); until live mutation is
-        ported, every built row."""
-        return int((self.bucket_ids >= 0).sum())
+        """Rows live now (not tombstoned), from the mutation freelist;
+        ``m`` stays the build-time row count."""
+        from mpi_knn_tpu_torch.ivf.mutate import freelist_of
+
+        return freelist_of(self).live
 
     @property
     def nbytes_resident(self) -> int:

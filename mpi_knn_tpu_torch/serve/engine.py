@@ -41,6 +41,13 @@ Over a clustered index (``ivf.IVFIndex``, route ``"ivf"``) a batch is
 padded to the bucket's ``ivf_query_shapes`` and run by
 ``ivf.search.ivf_serve_chunk``, the one-shot ``search_ivf``'s own tile
 loop; queries stay f32 whatever the store's dtype.
+
+The serial and clustered layouts take live mutation between batches
+(``ServeSession.upsert`` / ``delete`` / ``compact`` / ``start_compactor``,
+``serve/mutate.py``). A batch reads the resident tensors and is enqueued
+under the index's ``mutation_lock``, as every mutation is, and
+``order_stream`` chains the streams that take the lock, so a batch in
+flight reads the store it was dispatched on.
 """
 
 from __future__ import annotations
@@ -212,12 +219,48 @@ def _fingerprint_cfg(cfg: KNNConfig) -> KNNConfig:
     """The entry key's config: the full config minus the host-only knobs
     that never reach a batch's computation (dispatch_depth paces the
     session; query_bucket only picks the bucket, a key of its own; the
-    mutation and compaction knobs pace layers not served here)."""
+    mutation and compaction knobs pace the write path)."""
     return cfg.replace(
         dispatch_depth=1, query_bucket=1, mutation_bucket=1,
         bucket_headroom=0.0, compact_fill_threshold=1.0,
         compact_tombstone_fraction=1.0,
     )
+
+
+_LOCK_MUTEX = threading.Lock()
+
+
+def mutation_lock(index) -> threading.RLock:
+    """The per-index mutation lock: every live mutation (the upsert and
+    delete scatters, the compaction's swap, ``serve/mutate.py``), every
+    derivation of the freelist and every batch dispatch (``_run``)
+    serialize on it, so a batch runs against a consistent store, wholly
+    before or wholly after a mutation. Held while the work is enqueued, not
+    while the card runs it; re-entrant, so a mutation may derive the
+    freelist under it. The lookup takes no lock once the lock exists; the
+    mutex only guards its creation."""
+    lk = index.__dict__.get("_mutation_lock")
+    if lk is None:
+        with _LOCK_MUTEX:
+            lk = index.__dict__.setdefault("_mutation_lock", threading.RLock())
+    return lk
+
+
+def order_stream(index):
+    """Under the mutation lock: make this thread's current stream wait for
+    the last stream that enqueued work on the index's resident tensors,
+    and record it as that stream. A card keeps a current stream per
+    thread; with this, a batch dispatched on one stream and a mutation (or
+    a ``Compactor`` thread) on another still run in the order they took
+    the lock. Returns the stream (None off the card)."""
+    if index.device.type != "cuda":
+        return None
+    stream = torch.cuda.current_stream(index.device)
+    last = index.__dict__.get("_stream")
+    if last is not None and last != stream:
+        stream.wait_stream(last)
+    index.__dict__["_stream"] = stream
+    return stream
 
 
 def get_executable(index: CorpusIndex, cfg: KNNConfig,
@@ -308,7 +351,14 @@ def _run(index: CorpusIndex, cfg: KNNConfig, exec_: _BucketExec, q2d,
          rows: int | None = None):
     """One padded batch (``rows`` real rows first; default all) through the
     backend: padded (q_pad, k) results on the index's device, the real
-    rows' first."""
+    rows' first. Reading the resident tensors and enqueuing the batch is
+    one step under the index's mutation lock."""
+    with mutation_lock(index):
+        order_stream(index)
+        return _run_locked(index, cfg, exec_, q2d, rows)
+
+
+def _run_locked(index, cfg: KNNConfig, exec_: _BucketExec, q2d, rows):
     if index.backend == "serial":
         from mpi_knn_tpu_torch.backends.serial import serve_chunk
         from mpi_knn_tpu_torch.ops.topk import init_topk_tiles
@@ -447,9 +497,10 @@ class ServeSession:
 
     Sessions are reusable across streams: the index's entries stay built,
     and ``seq`` keeps counting. The window accumulators (``latencies``,
-    ``queries_served``, ``tenant_stats``) grow until ``reset_stats``; a
-    batch in flight across a reset lands in the new window. One caller
-    dispatches; ``stats_snapshot`` may be read from other threads.
+    ``queries_served``, ``tenant_stats``, ``mutation_stats``) grow until
+    ``reset_stats``; a batch in flight across a reset lands in the new
+    window. One caller dispatches; ``stats_snapshot`` may be read, and
+    ``upsert`` / ``delete`` / ``compact`` called, from other threads.
     """
 
     def __init__(self, index: CorpusIndex, config: KNNConfig | None = None,
@@ -464,6 +515,9 @@ class ServeSession:
         self.latencies: list[float] = []
         self.queries_served = 0
         self.tenant_stats: dict[str, dict] = {}
+        # rows upserted / tombstoned through this session and compaction
+        # passes; the index's occupancy lives on its freelist
+        self.mutation_stats: dict[str, int] = _zero_mutation_stats()
 
     def warm(self, sizes) -> dict:
         """Build the entries of the given batch sizes' buckets, each with
@@ -490,17 +544,20 @@ class ServeSession:
                 "batches_retired": len(self.latencies),
                 "queries_served": self.queries_served,
                 "tenants": sorted(self.tenant_stats),
+                "mutation": dict(self.mutation_stats),
                 "bucket_entries": len(self.index._cache),
                 "peak_hbm_bytes": index_peak_hbm_bytes(self.index),
             }
 
     def reset_stats(self):
-        """Start a fresh window: resets ``latencies``, ``queries_served``
-        and ``tenant_stats``; ``seq`` and the built entries stay."""
+        """Start a fresh window: resets ``latencies``, ``queries_served``,
+        ``tenant_stats`` and ``mutation_stats``; ``seq``, the built entries
+        and the index's occupancy (its freelist) stay."""
         with self._stats_lock:
             self.latencies = []
             self.queries_served = 0
             self.tenant_stats = {}
+            self.mutation_stats = _zero_mutation_stats()
 
     def submit(self, queries, tenant: str | None = None) -> list[BatchResult]:
         """Dispatch one batch (of one ``tenant``, if given)."""
@@ -562,18 +619,74 @@ class ServeSession:
                 st["latency_max_s"] = max(st["latency_max_s"], res.latency_s)
         return res
 
-    def upsert(self, ids, rows, tenant: str | None = None):
-        raise _mutation_error()
+    # -- live mutation: thin wrappers over serve/mutate.py. The index
+    # mutates under its mutation lock (serialized with dispatch); the
+    # session's window takes the counts under _stats_lock.
 
-    def delete(self, ids, tenant: str | None = None):
-        raise _mutation_error()
+    def upsert(self, ids, rows, tenant: str | None = None) -> dict:
+        """Upsert rows into the live index, in place. Returns the mutation
+        stats. A clustered index whose headroom overflows compacts once and
+        retries, then grows its cap by the chunk (the background compactor
+        normally fires on the fill threshold first); the serial layout has
+        no re-cluster pass, so its overflow propagates."""
+        from mpi_knn_tpu_torch.ivf.mutate import BucketOverflowError
+        from mpi_knn_tpu_torch.serve import mutate as serve_mutate
 
-    def compact(self, *args, **kwargs):
-        raise _mutation_error()
+        try:
+            stats = serve_mutate.upsert_rows(self.index, ids, rows, self.cfg)
+        except BucketOverflowError:
+            if self.index.backend == "serial":
+                raise
+            self.compact(reason="overflow")
+            try:
+                stats = serve_mutate.upsert_rows(self.index, ids, rows, self.cfg)
+            except BucketOverflowError:
+                # a burst aimed at one cluster can outsize any balanced
+                # cap: grow it so the chunk fits
+                serve_mutate.compact_index(
+                    self.index, self.cfg, reason="overflow-grow",
+                    min_cap=self.index.bucket_cap + int(np.shape(rows)[0]))
+                stats = serve_mutate.upsert_rows(self.index, ids, rows, self.cfg)
+        self._note_mutation("upserts", stats.get("upserted", 0), tenant)
+        return stats
+
+    def delete(self, ids, tenant: str | None = None) -> dict:
+        """Tombstone ids in the live index (never returned again; their
+        slots go back to the freelist). Unknown ids are counted, not an
+        error. Returns the mutation stats."""
+        from mpi_knn_tpu_torch.serve import mutate as serve_mutate
+
+        stats = serve_mutate.delete_rows(self.index, ids, self.cfg)
+        self._note_mutation("deletes", stats.get("deleted", 0), tenant)
+        return stats
+
+    def compact(self, reason: str = "manual", retrain: bool = True) -> dict:
+        """Re-cluster and compact the live index now (the ``Compactor``
+        calls this on a trigger): the store rebuilt by one scatter into a
+        fresh one and swapped between batches under the mutation lock."""
+        from mpi_knn_tpu_torch.serve import mutate as serve_mutate
+
+        stats = serve_mutate.compact_index(self.index, self.cfg,
+                                           retrain=retrain, reason=reason)
+        with self._stats_lock:
+            self.mutation_stats["compactions"] += 1
+        return stats
+
+    def start_compactor(self, interval_s: float = 0.25, retrain: bool = True):
+        """Start (and return) the background compaction worker of this
+        session, driven by the freelist's triggers."""
+        from mpi_knn_tpu_torch.serve.mutate import Compactor
+
+        return Compactor(self, interval_s=interval_s, retrain=retrain).start()
+
+    def _note_mutation(self, kind: str, n: int, tenant: str | None) -> None:
+        """Count a mutation in the window. The reference also counts it per
+        ``tenant`` in its metrics registry, which belongs to ``obs/``: a
+        no-op here until that is ported."""
+        with self._stats_lock:
+            self.mutation_stats[kind] += n
+            self.mutation_stats["calls"] += 1
 
 
-def _mutation_error() -> ValueError:
-    return ValueError(
-        "live mutation (upsert/delete/compact): not yet ported to "
-        "mpi_knn_tpu_torch (see ROADMAP.md)"
-    )
+def _zero_mutation_stats() -> dict:
+    return {"upserts": 0, "deletes": 0, "calls": 0, "compactions": 0}

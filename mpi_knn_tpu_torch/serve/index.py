@@ -103,6 +103,19 @@ class CorpusIndex:
                     if t is not None)
                 + (self.staged.nbytes if self.staged is not None else 0))
 
+    @property
+    def live_rows(self) -> int:
+        """Rows live now (not tombstoned) in the mutable serial layout, from
+        the mutation freelist; ``m`` stays the build-time count."""
+        from mpi_knn_tpu_torch.ivf.mutate import freelist_of
+
+        if self.tiles is None:
+            raise ValueError(
+                f"the {self.backend!r} layout does not track liveness "
+                "(only the serial tile stack is mutable)"
+            )
+        return freelist_of(self).live
+
     def compatible_cfg(self, cfg: KNNConfig) -> KNNConfig:
         """Validate a per-query config against the build-time layout.
 

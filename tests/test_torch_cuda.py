@@ -1455,3 +1455,235 @@ def test_ivf_serving_equals_the_one_shot_search(cuda_device, dtype, policy):
     agree = (i_all.cpu() == wi).float().mean().item()
     assert agree >= 0.999, agree
     assert torch.allclose(d_all.cpu(), wd, rtol=1e-5, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# Live mutation on the card (serve/mutate.py, ivf/mutate.py): no kernel,
+# but in-place scatters, reductions whose order may follow a tensor's shape,
+# and streams that threads do not share
+
+
+def _moved(idx, device):
+    """A copy of an IVF index on ``device`` (the freelist derived anew)."""
+    from mpi_knn_tpu_torch.ivf.index import IVFIndex
+
+    fields = ("cfg", "m", "dim", "partitions", "bucket_cap", "nprobe", "mu",
+              "centroids", "centroid_sqs", "buckets", "bucket_ids",
+              "bucket_sqs", "bucket_scales")
+    return IVFIndex(**{f: (getattr(idx, f).to(device, copy=True)
+                           if isinstance(getattr(idx, f), torch.Tensor)
+                           else getattr(idx, f)) for f in fields},
+                    device=torch.device(device))
+
+
+def _store_of(idx):
+    from mpi_knn_tpu_torch.serve import mutate as sm
+
+    return [t for t in sm._store(idx) if t is not None]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "int8", "int4"])
+@pytest.mark.parametrize("chunk", [1, 128, 8192])
+def test_mutation_reupsert_keeps_the_store_bit_for_bit(cuda_device, dtype, chunk):
+    """Every live row upserted again under its own id with its own raw
+    values, in chunks of 1 (a chunk padded to the bucket), 128 and all rows:
+    every store tensor keeps its storage and its bits (the assignment, the
+    quantizer and the norms of a chunk equal the build's)."""
+    from mpi_knn_tpu_torch.ivf import build_ivf_index
+    from mpi_knn_tpu_torch.serve import mutate as sm
+
+    X, _ = _ivf_corpus()
+    idx = build_ivf_index(X, k=10, partitions=32, nprobe=6, kmeans_iters=5,
+                          dtype=dtype, bucket_headroom=0.5, mutation_bucket=128,
+                          device=cuda_device)
+    before = [t.clone() for t in _store_of(idx)]
+    ptrs = [t.data_ptr() for t in _store_of(idx)]
+    for s in range(0, len(X), chunk):
+        sm.upsert_rows(idx, np.arange(s, min(s + chunk, len(X))), X[s:s + chunk])
+    torch.cuda.synchronize()
+    assert [t.data_ptr() for t in _store_of(idx)] == ptrs
+    for a, b in zip(_store_of(idx), before):
+        assert torch.equal(a, b)
+    assert sm.mutation_stats(idx)["tombstones"] == 0
+
+
+@pytest.mark.cuda
+def test_serial_reupsert_keeps_the_tile_stack_bit_for_bit(cuda_device):
+    from mpi_knn_tpu_torch.serve import build_index
+    from mpi_knn_tpu_torch.serve import mutate as sm
+
+    X, _ = _ivf_corpus(m=3000)
+    idx = build_index(X, k=10, backend="serial", bucket_headroom=0.5,
+                      mutation_bucket=128, device=cuda_device)
+    before = [t.clone() for t in _store_of(idx)]
+    for s in range(0, len(X), 128):
+        sm.upsert_rows(idx, np.arange(s, min(s + 128, len(X))), X[s:s + 128])
+    for a, b in zip(_store_of(idx), before):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "int8"])
+def test_mutation_peak_memory_grows_by_chunks_only(cuda_device, dtype):
+    """An upsert and a delete of 128 rows on a store of tens of MB: the same
+    storage, and the peak allocation grows by a few chunk sizes (the chunk's
+    rows and its (rows, partitions) centroid score), never by the store's."""
+    from mpi_knn_tpu_torch.ivf import build_ivf_index
+    from mpi_knn_tpu_torch.serve import mutate as sm
+
+    rng = np.random.default_rng(1)
+    X = (rng.standard_normal((60000, 128)) * 4).astype(np.float32)
+    idx = build_ivf_index(X, k=10, partitions=64, nprobe=4, kmeans_iters=3,
+                          dtype=dtype, bucket_headroom=0.5, mutation_bucket=128,
+                          device=cuda_device)
+    new = (rng.standard_normal((256, 128)) * 4).astype(np.float32)
+    sm.upsert_rows(idx, np.arange(10**6, 10**6 + 128), new[:128])  # warm-up
+    sm.delete_rows(idx, np.arange(10**6, 10**6 + 128))
+    ptrs = [t.data_ptr() for t in _store_of(idx)]
+    store = sum(t.numel() * t.element_size() for t in _store_of(idx))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(cuda_device)
+    base = torch.cuda.memory_allocated(cuda_device)
+    sm.upsert_rows(idx, np.arange(2 * 10**6, 2 * 10**6 + 128), new[128:])
+    sm.delete_rows(idx, np.arange(2 * 10**6, 2 * 10**6 + 128))
+    torch.cuda.synchronize()
+    grew = torch.cuda.max_memory_allocated(cuda_device) - base
+    chunk = 128 * (128 + idx.partitions) * 4
+    assert [t.data_ptr() for t in _store_of(idx)] == ptrs
+    assert grew <= 8 * chunk < store // 16, (grew, chunk, store)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["int8", "int4"])
+def test_quantized_slots_written_on_the_card_equal_the_cpu(cuda_device, dtype):
+    from mpi_knn_tpu_torch.ivf import build_ivf_index
+    from mpi_knn_tpu_torch.serve import mutate as sm
+
+    X, _ = _ivf_corpus()
+    cpu = build_ivf_index(X, k=10, partitions=32, nprobe=6, kmeans_iters=5,
+                          dtype=dtype, bucket_headroom=0.5, device="cpu")
+    card = _moved(cpu, cuda_device)
+    rng = np.random.default_rng(2)
+    new = (X[rng.integers(0, len(X), 300)]
+           + rng.standard_normal((300, X.shape[1])).astype(np.float32))
+    ids = np.arange(50000, 50300)
+    for idx in (cpu, card):
+        sm.upsert_rows(idx, ids, new)
+        sm.delete_rows(idx, ids[:50])
+        sm.upsert_rows(idx, ids[100:140], new[:40])  # updates, some moving
+    assert torch.equal(card.bucket_ids.cpu(), cpu.bucket_ids)
+    assert torch.equal(card.buckets.cpu(), cpu.buckets)
+    assert torch.equal(card.bucket_scales.cpu(), cpu.bucket_scales)
+    assert torch.allclose(card.bucket_sqs.cpu(), cpu.bucket_sqs, rtol=1e-6, atol=0)
+
+
+@pytest.mark.cuda
+def test_no_scatter_sees_a_sentinel_on_the_card(cuda_device, monkeypatch):
+    """Every index tensor that reaches a scatter lies inside the store (a
+    sentinel would be a device-side assert); a chunk of unknown ids
+    launches no scatter."""
+    from mpi_knn_tpu_torch.ivf import build_ivf_index
+    from mpi_knn_tpu_torch.ivf import mutate as pim
+    from mpi_knn_tpu_torch.serve import mutate as sm
+
+    X, _ = _ivf_corpus()
+    idx = build_ivf_index(X, k=10, partitions=32, nprobe=6, kmeans_iters=5,
+                          bucket_headroom=0.5, device=cuda_device)
+    seen = []
+    real = pim._kept
+
+    def spy(part, slot, total):
+        out = real(part, slot, total)
+        seen.append(None if out is None else
+                    (int(out[0].min()), int(out[0].max()), int(out[1].max()), total))
+        return out
+
+    monkeypatch.setattr(sm, "_kept", spy)
+    sm.upsert_rows(idx, np.arange(9000, 9100), X[:100] + 0.5)
+    sm.upsert_rows(idx, np.arange(9000, 9010), X[500:510])  # moves: clears
+    sm.delete_rows(idx, [10**7, 10**7 + 1])  # unknown: nothing launched
+    sm.delete_rows(idx, np.arange(9000, 9050))
+    torch.cuda.synchronize()
+    assert seen[-2] is None
+    for entry in seen:
+        if entry is not None:
+            lo, hi, slot_hi, total = entry
+            assert 0 <= lo and hi < total and slot_hi < idx.bucket_cap
+
+
+@pytest.mark.cuda
+def test_compaction_with_retrain_gives_the_same_bits_twice(cuda_device):
+    from mpi_knn_tpu_torch.ivf import build_ivf_index
+    from mpi_knn_tpu_torch.serve import mutate as sm
+
+    X, _ = _ivf_corpus()
+    a = build_ivf_index(X, k=10, partitions=32, nprobe=6, kmeans_iters=5,
+                        dtype="int8", bucket_headroom=0.5, device=cuda_device)
+    sm.delete_rows(a, np.arange(0, len(X), 3))
+    b = _moved(a, cuda_device)
+    for idx in (a, b):
+        st = sm.compact_index(idx, retrain=True)
+        assert st["live"] == len(X) - len(range(0, len(X), 3))
+    for x, y in zip(_store_of(a) + [a.centroids], _store_of(b) + [b.centroids]):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("side_stream", [False, True])
+def test_compactor_and_a_depth_2_session_share_the_store_safely(cuda_device,
+                                                                side_stream):
+    """A thread churns (upserts, deletes) beside a depth-2 session while a
+    Compactor thread compacts on the tombstone trigger; with
+    ``side_stream`` the churning thread enqueues on a stream of its own.
+    Every batch is finite and returns no id deleted before it was
+    submitted; once quiet, a served batch equals the one-shot search."""
+    import threading
+
+    from mpi_knn_tpu_torch.ivf import build_ivf_index, search_ivf
+    from mpi_knn_tpu_torch.serve import ServeSession
+
+    X, Q = _ivf_corpus()
+    idx = build_ivf_index(X, k=10, partitions=32, nprobe=6, kmeans_iters=5,
+                          bucket_headroom=0.5, dispatch_depth=2, query_bucket=128,
+                          compact_tombstone_fraction=0.02, device=cuda_device)
+    ses = ServeSession(idx, device=cuda_device)
+    deleted, lock, stop = [], threading.Lock(), threading.Event()
+
+    def churn():
+        stream = torch.cuda.Stream() if side_stream else torch.cuda.current_stream()
+        rng = np.random.default_rng(4)
+        nid = 10**6
+        with torch.cuda.stream(stream):
+            while not stop.is_set():
+                ses.upsert(np.arange(nid, nid + 128),
+                           X[rng.integers(0, len(X), 128)] + 0.5)
+                gone = rng.choice(len(X), 64, replace=False)
+                ses.delete(np.concatenate([np.arange(nid, nid + 64), gone]))
+                with lock:
+                    deleted.extend(range(nid, nid + 64))
+                    deleted.extend(gone.tolist())
+                nid += 128
+
+    worker = threading.Thread(target=churn)
+    comp = ses.start_compactor(interval_s=0.005)
+    gone_at, done = [], []
+    try:
+        worker.start()
+        for s in range(60):
+            with lock:
+                gone_at.append(set(deleted))
+            done += ses.submit(Q[(s % 8) * 100:(s % 8) * 100 + 100])
+        done += ses.drain()
+    finally:
+        stop.set()
+        worker.join(timeout=120)
+        comp.stop(timeout=120)
+    assert not worker.is_alive() and not comp._thread.is_alive()
+    assert comp.snapshot()["compactions"] >= 1 and len(done) == 60
+    for res in done:
+        assert np.isfinite(res.dists).all()
+        assert not gone_at[res.seq] & set(res.ids.ravel().tolist())
+    got = list(ses.stream([Q[:100]]))[0]
+    _, want = search_ivf(idx, Q[:100], device=cuda_device)
+    assert np.array_equal(got.ids, want.cpu().numpy())

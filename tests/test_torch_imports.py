@@ -43,7 +43,7 @@ def test_importing_the_port_loads_no_jax():
                 "data.matfile", "data.vecs", "data.svd", "data.digits",
                 "data.mnist", "data.synthetic", "ivf.kmeans", "ivf.search",
                 "ivf.index", "ivf.cli", "utils.atomicio", "utils.npz_mmap",
-                "convert"):
+                "convert", "ivf.mutate", "serve.mutate", "serve.mutate_cli"):
         assert f"mpi_knn_tpu_torch.{mod}" in loaded
     assert "chip_smoke" in loaded
     bad = [m for m in loaded
@@ -105,6 +105,8 @@ def _entry_points():
         "query_cli": lambda: main(["query", "--data", "synthetic:64x4c2",
                                    "--synthetic", "8", "--k", "2"]),
         "svd_reduce": lambda: svd_reduce(X, 2),
+        "load_ivf_index_mutate": lambda: main(["mutate", "--index",
+                                               "absent.npz", "--stats"]),
     }
 
 
@@ -113,7 +115,8 @@ def _entry_points():
                                    "query_cli", "svd_reduce",
                                    "build_ivf_index", "search_ivf",
                                    "ivf_query_knn", "kmeans",
-                                   "load_ivf_index", "build_index_cli"])
+                                   "load_ivf_index", "build_index_cli",
+                                   "load_ivf_index_mutate"])
 def test_default_device_without_a_card_raises(entry, monkeypatch):
     entries = _entry_points()
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -362,10 +362,14 @@ def test_serving_equals_the_one_shot_search_bit_for_bit(dtype):
     # tensor queries go the same way
     res_t = query_knn(torch.from_numpy(Q), idx, device=CPU)
     assert torch.equal(res_t.ids, i1)
-    with pytest.raises(ValueError, match="mutation.*not yet ported"):
-        sess.upsert([0], Q[:1])
-    with pytest.raises(ValueError, match="mutation.*not yet ported"):
-        sess.compact()
+    # live mutation through the session (serve/mutate.py): row 0 upserted
+    # again with its own values changes no answer, and a compaction keeps
+    # the cap and every live row
+    assert sess.upsert([0], X[:1])["live"] == 768
+    d2, i2 = search_ivf(idx, Q, device=CPU)
+    assert torch.equal(i2, i1) and torch.equal(d2, d1)
+    st = sess.compact(retrain=False)
+    assert st["cap_after"] == idx.bucket_cap and st["live"] == 768
 
 
 @pytest.mark.parametrize("nq,nprobe,cap,dim,tile,cap_elems", [

@@ -367,10 +367,12 @@ def test_refuses_mixed_over_compressed_index():
 
 
 def test_refuses_live_mutation_by_name():
-    session = ServeSession(_index(_data(48)), device=CPU)
-    with pytest.raises(ValueError, match="mutation.*not yet ported"):
+    """The pallas layout refuses live mutation with the reference's reason
+    (the serial and clustered layouts take it: test_torch_mutate.py)."""
+    session = ServeSession(_index(_data(48), backend="pallas"), device=CPU)
+    with pytest.raises(ValueError, match="pallas.*cannot honor live mutation"):
         session.upsert([0], _data(49, m=1))
-    with pytest.raises(ValueError, match="mutation.*not yet ported"):
+    with pytest.raises(ValueError, match="pallas.*cannot honor live mutation"):
         session.delete([0])
 
 
