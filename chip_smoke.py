@@ -168,7 +168,23 @@ is not 0:
    twice from one state gives the same bits, its seconds with and without
    retraining, and (float32) nprobe = partitions equals serial over the
    live rows. No kernel runs on this path (its launch counts stay 0);
-12. kernels: one line with every kernel mode's launches, error, times and
+12. ops (``ops_phase``): the serving session's operations layer at the
+   serve phase's deployment (its pallas tiles exact index, 256-row
+   batches) and the ``ivf`` phase's: transient faults retried with the
+   fixed backoff, bit for bit; retries exhausted; the NaN sentinel with the
+   batch's provenance; the degradation ladder walked under injected slow
+   batches (pallas full -> mixed -> bucket/512, IVF full -> nprobe/1 ->
+   mixed -> bucket/512), every walked batch bit for bit a session at its
+   rung, nothing built after warm, K1 and K1[c] launched; the registry's
+   counters equal to the session's own and its Prometheus text re-parsed;
+   the flight records valid; three restarted children on one persistent
+   kernel cache (cold: every library built by nvcc and stored; warm: none
+   built; a truncated entry: rebuilt loudly), their results bit for bit
+   and their seconds to the first answer; the doctor on the card and
+   with an injected hang (its supervisor never initializes CUDA); then
+   timed windows with and without a policy and a flight record, and each
+   rung's q/s, p99 and recall@10;
+13. kernels: one line with every kernel mode's launches, error, times and
    bound, the prologues (`stage_tf32_split`, `stage_tf32[wire]`,
    `stage_tf32_split[ring]`, `stage_bf16`, `stage_bf16[wire]`,
    `stage_norms`), the "default" / "high" forms and the approx kernel (f32
@@ -2319,6 +2335,505 @@ def mutate_phase(device) -> dict:
     return results
 
 
+OPS_BATCH = 256  # the serve phase's stream (a): 256-row batches, bucket base 1024
+OPS_WINDOWS = 3  # alternated timed windows of each overhead config
+OPS_DEADLINE_S = 0.1  # the ladder walks' per-batch deadline
+OPS_SLOW_S = 0.15  # an injected slow dispatch: 0.15 s > the deadline
+OPS_WALK = 8  # slow batches of the pallas walk (the IVF walk takes 2 more)
+OPS_RESTART_BATCHES = 4  # batches a restarted child serves
+OPS_TRUNCATED = "approx_topk"  # the library whose entry the third child finds cut
+
+# A restarted process: the cache at argv[1], the corpus and queries saved
+# at argv[2]; loads every kernel library (through the cache), builds the
+# pallas index, serves the first batches, prints one JSON line.
+OPS_CHILD = r"""
+import time
+t_start = time.perf_counter()
+import hashlib, json, sys
+import numpy as np
+import torch
+from mpi_knn_tpu_torch import KNNConfig
+from mpi_knn_tpu_torch.obs.metrics import get_registry
+from mpi_knn_tpu_torch.ops import _build
+from mpi_knn_tpu_torch.serve import ServeSession, aotcache, build_index
+
+cache_dir, data_dir, device, k, bucket, batch, nb = sys.argv[1:8]
+aotcache.set_cache_dir(cache_dir)
+dev = torch.device(device)
+torch.zeros(1, device=dev)
+t_device = time.perf_counter()
+if dev.type == "cuda":
+    _build.load_all([(name, ()) for name in _build.SOURCES])
+t_libs = time.perf_counter()
+X = np.load(data_dir + "/X.npy")
+Q = np.load(data_dir + "/Q.npy")
+index = build_index(X, KNNConfig(k=int(k), backend="pallas",
+                                 query_bucket=int(bucket), dispatch_depth=2),
+                    device=dev)
+ses = ServeSession(index, device=dev)
+b = int(batch)
+first, digest = None, hashlib.sha256()
+for res in ses.stream([Q[i * b:(i + 1) * b] for i in range(int(nb))]):
+    first = first or time.perf_counter()
+    digest.update(res.ids.tobytes())
+    digest.update(res.dists.tobytes())
+reg = get_registry()
+print(json.dumps({
+    **{n: reg.counter(n).value for n in (
+        "nvcc_builds_total", "aot_cache_hits_total", "aot_cache_misses_total",
+        "aot_cache_errors_total", "aot_cache_stores_total")},
+    "seconds_to_device": t_device - t_start,
+    "seconds_to_libraries": t_libs - t_start,
+    "seconds_to_first_answer": first - t_start,
+    "digest": digest.hexdigest()}))
+"""
+
+# The doctor's supervisor in a process of its own: its verdict line, then
+# whether that process ever loaded torch or initialized CUDA.
+OPS_DOCTOR = r"""
+import json, sys
+from mpi_knn_tpu_torch.resilience.doctor import main
+rc = main(sys.argv[1:])
+loaded = "torch" in sys.modules
+import torch
+print(json.dumps({"rc": rc, "torch_loaded": loaded,
+                  "cuda_initialized": torch.cuda.is_initialized()}))
+"""
+
+
+def ops_start(script, *args, env=None):
+    """Start a child of this checkout (its package importable from here)."""
+    return subprocess.Popen([sys.executable, "-c", script, *map(str, args)],
+                            cwd=os.path.dirname(os.path.abspath(__file__)),
+                            env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+
+
+def ops_wait(proc, name, timeout=600) -> list:
+    """The child's JSON stdout lines, after it exits 0 (else raises, with
+    the tail of its stderr)."""
+    out, err = proc.communicate(timeout=timeout)
+    if proc.returncode != 0:
+        raise AssertionError(f"ops {name}: exit {proc.returncode}:\n{err[-3000:]}")
+    return [json.loads(line) for line in out.splitlines() if line.startswith("{")]
+
+
+def ops_digest(results) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for r in results:
+        h.update(r.ids.tobytes())
+        h.update(r.dists.tobytes())
+    return h.hexdigest()
+
+
+def ops_window(session, batches) -> dict:
+    """One timed window of ``batches`` through ``session``: its results,
+    q/s, p50 / p99 and the median host ms of ``submit``."""
+    session.reset_stats()
+    t0 = time.perf_counter()
+    results = list(session.stream(batches))
+    wall = time.perf_counter() - t0
+    lats = 1e3 * np.asarray(session.latencies)
+    return {"results": results, "qps": session.queries_served / wall,
+            "p50_ms": float(np.percentile(lats, 50)),
+            "p99_ms": float(np.percentile(lats, 99)),
+            "host_ms": statistics.median(r.host_ms for r in results)}
+
+
+def ops_walk(session, batch, n):
+    """``n`` batches under an injected slow dispatch, drained: each batch's
+    (seq, rung it was dispatched under, breached), and the results."""
+    from mpi_knn_tpu_torch.resilience import install_faults
+    from mpi_knn_tpu_torch.resilience.ladder import FULL_RUNG
+
+    results = []
+    with install_faults({"serve-batch": ("slow", OPS_SLOW_S)}):
+        for _ in range(n):
+            results += session.submit(batch)
+        results += session.drain()
+    return [(r.seq, r.degraded or FULL_RUNG, r.deadline_breached)
+            for r in results], results
+
+
+def ops_oracle(c, q, device):
+    """f64 on the card: each of q's K + 5 nearest rows of c, the zero rule
+    d <= 1e-6 (q^2 + c^2) as the kernels apply it, ties to the lower id.
+    Host (dists, ids)."""
+    import torch
+
+    c64 = torch.from_numpy(c).to(device, torch.float64)
+    q64 = torch.from_numpy(q).to(device, torch.float64)
+    q_sq, c_sq = (q64 * q64).sum(1)[:, None], (c64 * c64).sum(1)[None]
+    d = (q_sq + c_sq - 2.0 * q64 @ c64.T).clamp_min(0.0)
+    d[d <= 1e-6 * (q_sq + c_sq)] = float("inf")
+    vals, ids = torch.sort(d, dim=1, stable=True)
+    return vals[:, :K + 5].cpu().numpy(), ids[:, :K + 5].cpu().numpy()
+
+
+def ops_same(results, want) -> bool:
+    return all(np.array_equal(r.ids, w.ids) and np.array_equal(r.dists, w.dists)
+               for r, w in zip(results, want)) and len(results) == len(want)
+
+
+def ops_phase(device, X, inputs) -> None:
+    """The serving session's operations layer at the serve phase's
+    deployment (the 60000x784 pallas tiles exact index, 256-row batches of
+    its 10000 queries, bucket base 1024, depth 2) and the ``ivf`` phase's
+    (``sift:100000``, 256 partitions, nprobe 2):
+
+    - faults, on one session under a policy (deadline OPS_DEADLINE_S,
+      retries 2, degrade after 2): ``serve-batch=transient:2`` serves in 3
+      attempts with backoffs (0.05, 0.1), bit for bit; ``transient:3``
+      raises RetryExhausted; ``serve-nan=nan`` trips the sentinel with the
+      batch's seq, bucket and rung;
+    - the ladder walks under ``serve-batch=slow:OPS_SLOW_S``: pallas full
+      -> mixed -> bucket/512 (the mixed rung's bf16 copy staged when the
+      session is made, its bytes printed), IVF full -> nprobe/1 -> mixed
+      -> bucket/512; every walked batch bit for bit a session built at its
+      rung; nothing built after warm; K1 and K1[c] launched on the walk
+      (the counts set to 0 just before); how many batches pass between the
+      first slow batch and the first one at the shed rung;
+    - the registry's counters equal that session's own (batches, queries,
+      retries, breaches, degradations, poisoned), and its snapshot
+      round-trips the Prometheus text;
+    - the cache: three children with one cache directory, cold (every
+      library built by nvcc and stored), warm (no build, one hit a
+      library) and, on a copy, with the OPS_TRUNCATED entry cut in half
+      (one error, that library rebuilt); their results bit for bit; the
+      seconds to the first answer;
+    - the doctor on the card, while the cold child builds (ok, K1's launch
+      counted, a round trip through a cache of its own, a mutation probe
+      whose second pass builds nothing; its supervisor never loads torch
+      nor initializes CUDA), and with ``doctor-probe=hang``, ``--timeout
+      5`` (exit 1, ``timeout``, within the timeout and the kill's grace);
+    - timed windows, alternated: the stream with and without a policy
+      (deadline 1 s, retries 2, sentinel on) and with a flight record,
+      every batch bit for bit the session without a policy; each rung's
+      q/s, p99 and tie-aware recall@10 against an f64 oracle with the
+      kernels' zero rule (pallas: full 1.0, mixed >= RECALL_GATE,
+      bucket/512 bit for bit mixed; IVF: full >= 0.95, nprobe/1 beside its
+      recall_target);
+    - the flight records pass validate_flight, the exhausted and poisoned
+      batches' spans closed with their errors."""
+    import shutil
+
+    from mpi_knn_tpu_torch import KNNConfig, ServeSession, build_index
+    from mpi_knn_tpu_torch.ivf import build_ivf_index
+    from mpi_knn_tpu_torch.obs import metrics as obs_metrics
+    from mpi_knn_tpu_torch.obs import spans as obs_spans
+    from mpi_knn_tpu_torch.ops import _build
+    from mpi_knn_tpu_torch.resilience import (
+        PoisonedResultError,
+        ResiliencePolicy,
+        RetryExhausted,
+        install_faults,
+    )
+    from mpi_knn_tpu_torch.resilience.ladder import FULL_RUNG
+    from mpi_knn_tpu_torch.serve import aotcache
+
+    t_phase = time.perf_counter()
+    card = device.type == "cuda"
+    platform = "cuda" if card else "cpu"
+    reg = obs_metrics.get_registry()
+    tmp = tempfile.mkdtemp(prefix="tknn-ops-")
+    children = []
+    try:
+        # ---- a cold child first: its nvcc builds overlap what follows ----
+        Qs = inputs["Qs"]
+        np.save(os.path.join(tmp, "X.npy"), X)
+        np.save(os.path.join(tmp, "Q.npy"), Qs[:OPS_RESTART_BATCHES * OPS_BATCH])
+        cache_a, cache_b = os.path.join(tmp, "cache_a"), os.path.join(tmp, "cache_b")
+        child_args = (tmp, platform, K, SERVE_BUCKET, OPS_BATCH, OPS_RESTART_BATCHES)
+        t_cold = time.perf_counter()
+        cold = ops_start(OPS_CHILD, cache_a, *child_args)
+        children.append(cold)
+
+        # ---- faults, on one session under a policy -------------------------
+        flight = os.path.join(tmp, "flight.jsonl")
+        obs_spans.set_recorder(obs_spans.FlightRecorder(flight, fresh=True))
+        index = build_index(X, KNNConfig(k=K, backend="pallas",
+                                         query_bucket=SERVE_BUCKET,
+                                         dispatch_depth=2), device=device)
+        plain = ServeSession(index, device=device)
+        fault = ServeSession(index, resilience=ResiliencePolicy(
+            batch_deadline_s=OPS_DEADLINE_S, max_retries=2, degrade_after=2),
+            device=device)
+        labels = [lb for lb, _ in fault.ladder]
+        emit({"phase": "ops_ladder", "index": "pallas/tiles/exact", "ladder": labels,
+              "staged_bytes": fault.staged_bytes,
+              "nbytes_resident": index.nbytes_resident})
+        floor = f"bucket/{SERVE_BUCKET // 2}"
+        if labels != [FULL_RUNG, "mixed", floor]:
+            raise AssertionError(f"ops: the pallas ladder is {labels}")
+        if card and not fault.staged_bytes:
+            raise AssertionError("ops: the mixed rung's corpus part was not staged")
+        batch = Qs[:OPS_BATCH]
+        plain.warm([OPS_BATCH])
+        fault.warm([OPS_BATCH])
+        want0 = list(plain.stream([batch]))
+        rungs = {lb: ServeSession(index, cfg, device=device) for lb, cfg in fault.ladder}
+        for s in rungs.values():
+            s.warm([OPS_BATCH])
+        rung_want = {lb: list(s.stream([batch])) for lb, s in rungs.items()}
+        # from here to ops_metrics only the fault session serves
+        before = {n: reg.counter(n).value for n in (
+            "serve_batches_total", "serve_queries_total", "serve_retries_total",
+            "serve_deadline_breaches_total", "serve_degradations_total",
+            "serve_poisoned_results_total")}
+        with install_faults({"serve-batch": ("transient", 2)}):
+            got = fault.submit(batch) + fault.drain()
+        same = ops_same(got, want0)
+        emit({"phase": "ops_transient", "attempts": got[0].attempts,
+              "backoffs": list(got[0].backoffs), "bit_for_bit": same})
+        if (got[0].attempts, got[0].backoffs, same) != (3, (0.05, 0.1), True):
+            raise AssertionError(f"ops: transient:2 gave {got[0].attempts} attempts,"
+                                 f" backoffs {got[0].backoffs}, bit for bit {same}")
+        exhausted = None
+        with install_faults({"serve-batch": ("transient", 3)}):
+            try:
+                fault.submit(batch)
+            except RetryExhausted as e:
+                exhausted = e.attempts
+        nan_seq, poisoned = fault._seq, None
+        with install_faults({"serve-nan": "nan"}):
+            fault.submit(batch)
+        try:
+            fault.drain()
+        except PoisonedResultError as e:
+            poisoned = [e.batch_seq, e.bucket, e.rung]
+        emit({"phase": "ops_faults", "exhausted_attempts": exhausted,
+              "poisoned": poisoned})
+        if exhausted != 3 or poisoned != [nan_seq, SERVE_BUCKET, FULL_RUNG]:
+            raise AssertionError(f"ops: exhausted after {exhausted} attempts, "
+                                 f"poisoned {poisoned} (seq {nan_seq})")
+
+        # ---- the ladder walks -----------------------------------------------
+        reset_counts()
+        with obs_metrics.watch_compiles() as builds:
+            walk, walked = ops_walk(fault, batch, OPS_WALK)
+        counts = {k: v for k, v in read_counts().items() if v}
+        same = all(ops_same([r], rung_want[lb]) for (_, lb, _), r in zip(walk, walked))
+        first_shed = next(i for i, (_, lb, _) in enumerate(walk) if lb != FULL_RUNG)
+        emit({"phase": "ops_walk", "index": "pallas/tiles/exact",
+              "deadline_s": OPS_DEADLINE_S, "slow_s": OPS_SLOW_S, "degrade_after": 2,
+              "walk": walk, "degradations": fault.degradations,
+              "batches_before_the_first_at_a_shed_rung": first_shed,
+              "builds_after_warm": builds, "launches": counts,
+              "bit_for_bit_rung_sessions": same})
+        if walk[-1][1] != floor or builds or not same:
+            raise AssertionError(f"ops: pallas walk {walk}, builds {builds}, "
+                                 f"bit for bit {same}")
+        if card and not (counts.get("fused_knn_tiles")
+                         and counts.get("fused_knn_tiles[compress]")):
+            raise AssertionError(f"ops: the walk launched {counts}")
+        deltas = {n: reg.counter(n).value - v for n, v in before.items()}
+        own = {"serve_batches_total": len(fault.latencies) - 1,  # not the poisoned
+               "serve_queries_total": fault.queries_served - OPS_BATCH,
+               "serve_retries_total": fault.retries_total,
+               "serve_deadline_breaches_total": fault.deadline_breaches,
+               "serve_degradations_total": len(fault.degradations),
+               "serve_poisoned_results_total": 1}
+        snap = reg.snapshot()
+        samples = obs_metrics.parse_prometheus(obs_metrics.to_prometheus(snap))
+        emit({"phase": "ops_metrics", "registry_deltas": deltas, "session": own,
+              "metrics": len(snap["metrics"]), "prometheus_samples": len(samples)})
+        if deltas != own:
+            raise AssertionError(f"ops: registry {deltas} != session {own}")
+
+        Xs, Qv = ivf_data()
+        ivf = build_ivf_index(Xs, KNNConfig(k=K, partitions=IVF_P), device=device)
+        ivf_batch = Qv[:IVF_BATCH]
+        ifault = ServeSession(ivf, resilience=ResiliencePolicy(
+            batch_deadline_s=OPS_DEADLINE_S, max_retries=0, degrade_after=2),
+            device=device)
+        ilabels = [lb for lb, _ in ifault.ladder]
+        irungs = {lb: ServeSession(ivf, cfg, device=device) for lb, cfg in ifault.ladder}
+        for s in (ifault, *irungs.values()):
+            s.warm([IVF_BATCH])
+        iwant = {lb: list(s.stream([ivf_batch])) for lb, s in irungs.items()}
+        with obs_metrics.watch_compiles() as ibuilds:
+            iwalk, iwalked = ops_walk(ifault, ivf_batch, OPS_WALK + 2)
+        isame = all(ops_same([r], iwant[lb]) for (_, lb, _), r in zip(iwalk, iwalked))
+        emit({"phase": "ops_walk", "index": "ivf/sift:100000/p256",
+              "nprobe": ivf.cfg.nprobe, "ladder": ilabels, "walk": iwalk,
+              "degradations": ifault.degradations, "builds_after_warm": ibuilds,
+              "bit_for_bit_rung_sessions": isame})
+        # the reference's rule: nprobe halved, then mixed, then the bucket
+        ifloor = f"bucket/{ivf.cfg.query_bucket // 2}"
+        iwant_labels = [FULL_RUNG, *([f"nprobe/{ivf.cfg.nprobe // 2}"]
+                                     if ivf.cfg.nprobe > 1 else []), "mixed", ifloor]
+        if ilabels != iwant_labels or ibuilds or not isame or iwalk[-1][1] != ifloor:
+            raise AssertionError(f"ops: ivf walk {iwalk} of {ilabels}, builds "
+                                 f"{ibuilds}, bit for bit {isame}")
+        obs_spans.set_recorder(None)
+        records = obs_spans.read_flight(flight)
+        problems = obs_spans.validate_flight(records)
+        spans, _ = obs_spans.reconstruct_spans(records)
+        errors = sorted(str(s["end_attrs"].get("error")) for s in spans
+                        if s["name"] == "batch" and s["end_attrs"]
+                        and s["end_attrs"].get("error"))
+        open_spans = [s["name"] for s in spans if s["dur_s"] is None]
+        emit({"phase": "ops_flight", "records": len(records), "spans": len(spans),
+              "problems": problems, "batch_errors": errors, "open": open_spans})
+        if problems or open_spans or errors != ["RetryExhausted", "poisoned-result"]:
+            raise AssertionError(f"ops: flight {problems}, open {open_spans}, "
+                                 f"errors {errors}")
+
+        # ---- the doctor (a cache of its own) while the cold child builds ------
+        env = {k: v for k, v in os.environ.items() if k != "TKNN_FAULTS"}
+        doctor = ops_start(OPS_DOCTOR, "--platform", platform, "--cache-dir",
+                           os.path.join(tmp, "cache_c"), env=env)
+        t_hang = time.perf_counter()
+        hang = ops_start(OPS_DOCTOR, "--platform", platform, "--timeout", "5",
+                         env={**env, "TKNN_FAULTS": "doctor-probe=hang"})
+        children += [doctor, hang]
+        hang_verdict, hang_proc = ops_wait(hang, "doctor (hang)")
+        hang_s = time.perf_counter() - t_hang
+        verdict, doctor_proc = ops_wait(doctor, "doctor")
+
+        # ---- the restarted children -------------------------------------------
+        (cold_doc,) = ops_wait(cold, "cold child")
+        cold_s = time.perf_counter() - t_cold
+        shutil.copytree(cache_a, cache_b)
+        cut = os.path.join(cache_b, aotcache.fingerprint(
+            OPS_TRUNCATED, (), aotcache.platform_facts()) + aotcache.ENTRY_SUFFIX)
+        if card:  # off the card no library was built
+            with open(cut, "r+b") as f:
+                f.truncate(os.path.getsize(cut) // 2)
+        warm = ops_start(OPS_CHILD, cache_a, *child_args)
+        t_damaged = time.perf_counter()
+        damaged = ops_start(OPS_CHILD, cache_b, *child_args)
+        children += [warm, damaged]
+        (warm_doc,) = ops_wait(warm, "warm child")
+        here = ops_digest(list(plain.stream(
+            [Qs[i * OPS_BATCH:(i + 1) * OPS_BATCH] for i in range(OPS_RESTART_BATCHES)])))
+        n_libs = len(_build.SOURCES)
+        emit({"phase": "ops_cache", "cold": cold_doc, "warm": warm_doc,
+              "cold_child_wall_s": cold_s, "libraries": n_libs,
+              "equals_this_process": cold_doc["digest"] == here})
+        if card and (cold_doc["nvcc_builds_total"], cold_doc["aot_cache_misses_total"],
+                     cold_doc["aot_cache_stores_total"]) != (n_libs,) * 3:
+            raise AssertionError(f"ops: the cold child {cold_doc}")
+        if card and (warm_doc["nvcc_builds_total"], warm_doc["aot_cache_hits_total"],
+                     warm_doc["aot_cache_misses_total"]) != (0, n_libs, 0):
+            raise AssertionError(f"ops: the warm child {warm_doc}")
+        if not warm_doc["digest"] == cold_doc["digest"] == here:
+            raise AssertionError("ops: the children's results differ from each "
+                                 "other or from this process's")
+        probe = verdict.get("probe") or {}
+        emit({"phase": "ops_doctor", "ok": verdict["ok"], "status": verdict["status"],
+              "probe": probe, "aot_cache": verdict["aot_cache"],
+              "mutation": verdict["mutation"], "elapsed_s": verdict["elapsed_s"],
+              "supervisor": doctor_proc,
+              "hang": {"status": hang_verdict["status"], "reason": hang_verdict["reason"],
+                       "elapsed_s": hang_verdict["elapsed_s"], "wall_s": hang_s,
+                       "supervisor": hang_proc}})
+        rt = verdict["aot_cache"] or {}
+        if not (verdict["ok"] and doctor_proc == {"rc": 0, "torch_loaded": False,
+                                                  "cuda_initialized": False}
+                and (probe.get("launches") == 1 or not card)
+                and rt.get("bit_identical") and rt.get("dlopen_ok", not card)
+                and verdict["mutation"]["second_pass_builds"] == 0):
+            raise AssertionError(f"ops: doctor {verdict}, supervisor {doctor_proc}")
+        if (hang_proc["rc"], hang_verdict["status"]) != (1, "timeout") \
+                or hang_proc["cuda_initialized"] or hang_verdict["elapsed_s"] > 5 + 2 + 1:
+            raise AssertionError(f"ops: doctor hang {hang_verdict}, {hang_proc}, "
+                                 f"{hang_s:.1f} s")
+
+        (damaged_doc,) = ops_wait(damaged, "damaged child")
+        damaged_s = time.perf_counter() - t_damaged
+
+        # ---- timed windows, no child running ---------------------------------
+        pol = ServeSession(index, resilience=ResiliencePolicy(batch_deadline_s=1.0,
+                                                              max_retries=2),
+                           device=device)
+        sizes = inputs["streams"]["a_256"]
+        stream, r0 = [], 0
+        for n in sizes:
+            stream.append(Qs[r0:r0 + n])
+            r0 += n
+        window = stream * -(-SERVE_MIN_BATCHES // len(stream))
+        pol.warm(sorted(set(sizes)))
+        plain.warm(sorted(set(sizes)))
+        recorder = obs_spans.FlightRecorder(os.path.join(tmp, "windows.jsonl"),
+                                            fresh=True)
+        configs = (("plain", plain, None), ("policy", pol, None),
+                   ("policy+flight", pol, recorder))
+        runs = {name: [] for name, _, _ in configs}
+        ref = None
+        for _ in range(OPS_WINDOWS):
+            for name, ses, rec in configs:
+                obs_spans.set_recorder(rec)
+                w = ops_window(ses, window)
+                obs_spans.set_recorder(None)
+                ref = ref or w["results"]
+                w["bit_for_bit"] = ops_same(w.pop("results"), ref)
+                runs[name].append(w)
+
+        for name, ws in runs.items():
+            emit({"phase": "ops_overhead", "config": name, "batches": len(window),
+                  "qps": [w["qps"] for w in ws], "p50_ms": [w["p50_ms"] for w in ws],
+                  "p99_ms": [w["p99_ms"] for w in ws],
+                  "host_ms_median": [w["host_ms"] for w in ws]})
+            if not all(w["bit_for_bit"] for w in ws):
+                raise AssertionError(f"ops: {name} windows differ from the plain "
+                                     "session")
+        wrec = obs_spans.read_flight(os.path.join(tmp, "windows.jsonl"))
+        if obs_spans.validate_flight(wrec):
+            raise AssertionError("ops: the windows' flight record does not validate")
+        # each rung: q/s, p99, recall@10 (tie-aware, against the f64 keys of
+        # the centered rows with the kernels' own zero rule)
+        picks = inputs["picks"]
+        od, oi = ops_oracle(inputs["Xc64"], inputs["Qc64"][picks], device)
+        rung_ids = {}
+        for lb, ses in rungs.items():
+            ses.warm(sorted(set(sizes)))
+            w = ops_window(ses, stream)
+            ids = np.concatenate([r.ids for r in w.pop("results")])
+            rung_ids[lb] = ids
+            rec = tie_recall(ids[picks], od, oi)
+            emit({"phase": "ops_rung", "index": "pallas/tiles/exact", "rung": lb,
+                  "qps": w["qps"], "p50_ms": w["p50_ms"], "p99_ms": w["p99_ms"],
+                  "recall_at_10": rec})
+            if rec < (1.0 if lb == FULL_RUNG else RECALL_GATE):
+                raise AssertionError(f"ops: rung {lb} recall@10 {rec}")
+        if not np.array_equal(rung_ids[floor], rung_ids["mixed"]):
+            raise AssertionError(f"ops: {floor} differs from the mixed rung")
+        sample = np.linspace(0, IVF_QUERIES - 1, IVF_ORACLE_ROWS).astype(np.int64)
+        iod, ioi = ivf_oracle(Xs, Qv[sample], device)
+        ibatches = [Qv[s:s + IVF_BATCH] for s in range(0, len(Qv), IVF_BATCH)]
+        for lb, ses in irungs.items():
+            ses.warm(sorted({len(b) for b in ibatches}))
+            w = ops_window(ses, ibatches)
+            ids = np.concatenate([r.ids for r in w.pop("results")])
+            rec = tie_recall(ids[sample], iod, ioi)
+            emit({"phase": "ops_rung", "index": "ivf/sift:100000/p256", "rung": lb,
+                  "nprobe": ses.cfg.nprobe, "qps": w["qps"], "p50_ms": w["p50_ms"],
+                  "p99_ms": w["p99_ms"], "recall_at_10": rec,
+                  "recall_target": ivf.cfg.recall_target})
+            if lb == FULL_RUNG and rec < 0.95:
+                raise AssertionError(f"ops: ivf full rung recall@10 {rec}")
+
+        emit({"phase": "ops_cache_damaged", "child": damaged_doc,
+              "wall_s": damaged_s, "truncated": OPS_TRUNCATED})
+        if card and (damaged_doc["aot_cache_errors_total"],
+                     damaged_doc["nvcc_builds_total"],
+                     damaged_doc["aot_cache_hits_total"]) != (1, 1, n_libs - 1):
+            raise AssertionError(f"ops: the damaged child {damaged_doc}")
+        if damaged_doc["digest"] != cold_doc["digest"]:
+            raise AssertionError("ops: the damaged child's results differ")
+        emit({"phase": "ops_done", "seconds": time.perf_counter() - t_phase})
+    finally:
+        obs_spans.set_recorder(None)
+        for proc in children:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     import torch
 
@@ -3762,6 +4277,9 @@ def main() -> int:
     # ---- live mutation at the README's mutable deployment -----------------
     mutate_phase(device)
     mark("mutate")
+    # ---- the serving session's operations layer --------------------------
+    ops_phase(device, X, inputs)
+    mark("ops")
     max_err["approx_min_k"] = max(e["max_abs_err"] for c, e in approx.items()
                                   if "f64/" not in c)
     max_err["approx_min_k[f64]"] = max(e["max_abs_err"] for c, e in approx.items()

@@ -3,31 +3,38 @@
 Plain tensor code is PyTorch; the fused distance + top-k kernels are
 hand-written CUDA for sm_90a (csrc/), built at first use. Entry points run
 on "cuda" unless the caller passes device="cpu".
+
+The names below load on first use: importing a torch-free part of the
+package (``obs``, ``resilience``, the doctor's supervisor) imports no
+torch.
 """
 
-from mpi_knn_tpu_torch.api import (
-    all_knn,
-    build_index,
-    knn_classify,
-    query_knn,
-    resolve_backend,
-)
-from mpi_knn_tpu_torch.config import KNNConfig
-from mpi_knn_tpu_torch.models.classifier import KNNClassifier, LooReport
-from mpi_knn_tpu_torch.serve import ServeSession
-from mpi_knn_tpu_torch.types import INVALID_ID, ClassifyResult, KNNResult
+_EXPORTS = {
+    "all_knn": "mpi_knn_tpu_torch.api",
+    "build_index": "mpi_knn_tpu_torch.api",
+    "knn_classify": "mpi_knn_tpu_torch.api",
+    "query_knn": "mpi_knn_tpu_torch.api",
+    "resolve_backend": "mpi_knn_tpu_torch.api",
+    "KNNConfig": "mpi_knn_tpu_torch.config",
+    "KNNClassifier": "mpi_knn_tpu_torch.models.classifier",
+    "LooReport": "mpi_knn_tpu_torch.models.classifier",
+    "ServeSession": "mpi_knn_tpu_torch.serve",
+    "INVALID_ID": "mpi_knn_tpu_torch.types",
+    "ClassifyResult": "mpi_knn_tpu_torch.types",
+    "KNNResult": "mpi_knn_tpu_torch.types",
+}
 
-__all__ = [
-    "INVALID_ID",
-    "ClassifyResult",
-    "KNNClassifier",
-    "KNNConfig",
-    "KNNResult",
-    "LooReport",
-    "ServeSession",
-    "all_knn",
-    "build_index",
-    "knn_classify",
-    "query_knn",
-    "resolve_backend",
-]
+__all__ = sorted(_EXPORTS)
+
+
+def __getattr__(name: str):
+    mod = _EXPORTS.get(name)
+    if mod is None:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    import importlib
+
+    return getattr(importlib.import_module(mod), name)
+
+
+def __dir__():
+    return sorted(set(globals()) | set(_EXPORTS))

@@ -18,6 +18,8 @@
         --index-load sift.ivf.npz --synthetic 10000 --batch 512
     python -m mpi_knn_tpu_torch mutate --index sift.ivf.npz \\
         --delete 17,42 --compact                          # serve/mutate_cli.py
+    python -m mpi_knn_tpu_torch metrics m.json --check    # obs/cli.py
+    python -m mpi_knn_tpu_torch doctor                    # resilience/doctor.py
 
 Flags. Data: ``--data`` (``mnist``, ``digits``, ``synthetic:MxDcC``,
 ``sift:M``, a ``.fvecs`` / ``.bvecs`` file, or a ``.mat`` file in the C
@@ -35,8 +37,7 @@ kNN: ``--k``, ``--metric``, ``--backend``, ``--num-classes``,
 
 Not yet ported (exit 2, naming what was asked): the multi-process flags
 ``--dp``, ``--coordinator``, ``--num-processes``, ``--process-id``, and the
-subcommands ``lint``, ``metrics``, ``serve``, ``loadgen``, ``router``,
-``plan`` and ``doctor``.
+subcommands ``lint``, ``serve``, ``loadgen``, ``router`` and ``plan``.
 """
 
 from __future__ import annotations
@@ -65,8 +66,7 @@ from mpi_knn_tpu_torch.config import (
 )
 from mpi_knn_tpu_torch.device import DEFAULT_DEVICE
 
-UNPORTED_SUBCOMMANDS = ("lint", "metrics", "serve", "loadgen", "router",
-                        "plan", "doctor")
+UNPORTED_SUBCOMMANDS = ("lint", "serve", "loadgen", "router", "plan")
 UNPORTED_FLAGS = ("--dp", "--coordinator", "--num-processes", "--process-id")
 
 
@@ -324,6 +324,16 @@ def main(argv=None) -> int:
         from mpi_knn_tpu_torch.serve.mutate_cli import main as mutate_main
 
         return mutate_main(argv[1:])
+    if argv and argv[0] == "metrics":
+        # metrics snapshots and flight records (obs/cli.py)
+        from mpi_knn_tpu_torch.obs.cli import main as metrics_main
+
+        return metrics_main(argv[1:])
+    if argv and argv[0] == "doctor":
+        # the supervised preflight probe (resilience/doctor.py)
+        from mpi_knn_tpu_torch.resilience.doctor import main as doctor_main
+
+        return doctor_main(argv[1:])
     parser = build_parser()
     args = None if argv and argv[0] in UNPORTED_SUBCOMMANDS else parser.parse_args(argv)
     refused = _refused(argv, args)

@@ -11,7 +11,16 @@ Combinations the engine cannot honor exit 2 with the reason (a pallas
 index with a cosine metric or a non-float32 dtype, mixed precision over a
 bf16 index, the int8 wire without the mixed policy), and so do the JAX
 CLI's flags whose layers are not ported yet (the sharded index's route
-cap, resilience, flight record, metrics, profiling, the AOT cache).
+cap, the device-time profile).
+
+Resilience (``resilience/``): ``--batch-deadline-ms`` and ``--retries``
+put the session under a policy (a per-batch deadline, retries of
+transient faults, the NaN / all-inf sentinel, the degradation ladder);
+``--degrade-after`` and ``--no-nan-sentinel`` shape it, and are refused
+where they would do nothing. Observability (``obs/``): ``--flight-record``
+writes the span flight record, ``--metrics-out`` the registry snapshot at
+exit. ``--cache-dir`` keeps the kernel libraries nvcc builds in a
+persistent cache (``serve/aotcache.py``; also ``TKNN_AOT_CACHE``).
 ``--index-load`` serves a saved clustered index (``build-index``, either
 package's ``.npz``) at ``--nprobe`` (default: the index's tuned one); the
 corpus-side flags baked into it (``--corpus-tile``, ``--dtype`` other than
@@ -33,6 +42,10 @@ Examples::
         --k 10 --backend pallas --batch 256 --report serve.json
     python -m mpi_knn_tpu_torch query --data sift:100000 \\
         --index-load sift.ivf.npz --synthetic 10000 --batch 512 --k 10
+    python -m mpi_knn_tpu_torch query --data synthetic:512x32c4 \\
+        --synthetic 100 --backend pallas --device cpu \\
+        --batch-deadline-ms 50 --retries 2 --flight-record f.jsonl \\
+        --metrics-out m.json
 """
 
 from __future__ import annotations
@@ -58,12 +71,8 @@ from mpi_knn_tpu_torch.device import DEFAULT_DEVICE
 # the JAX CLI's flags whose layers the port does not have yet: (flag, takes
 # a value), each refused with exit 2
 UNPORTED_FLAGS = (
-    ("--route-cap", True),
-    ("--batch-deadline-ms", True),
-    ("--retries", True), ("--degrade-after", True),
-    ("--no-nan-sentinel", False), ("--flight-record", True),
-    ("--metrics-out", True), ("--profile-batches", True),
-    ("--profile-dir", True), ("--cache-dir", True),
+    ("--route-cap", True), ("--profile-batches", True),
+    ("--profile-dir", True),
 )
 
 
@@ -134,11 +143,43 @@ def build_parser() -> argparse.ArgumentParser:
                    "each (bucket, config) entry is built once")
     k.add_argument("--dispatch-depth", type=int, default=2,
                    help="max batches in flight (2 = double buffering)")
-    o = p.add_argument_group("output")
+    k.add_argument("--cache-dir", default=None, metavar="DIR",
+                   help="persistent cache of the kernel libraries "
+                   "(serve/aotcache.py; also TKNN_AOT_CACHE): a library "
+                   "nvcc builds is stored here and loaded by the next run "
+                   "without a build; a damaged entry is rebuilt loudly")
+    r = p.add_argument_group(
+        "resilience (deadline, retry, sentinel, degradation ladder)")
+    r.add_argument("--batch-deadline-ms", type=float, default=None,
+                   metavar="MS",
+                   help="per-batch latency deadline (dispatch -> retire); "
+                   "on --degrade-after consecutive breaches the session "
+                   "sheds one rung of the degradation ladder (smaller "
+                   "nprobe -> mixed precision -> smaller bucket)")
+    r.add_argument("--retries", type=int, default=None, metavar="N",
+                   help="bounded exponential-backoff retries of a batch "
+                   "dispatch on transient faults (default 2 when a "
+                   "resilience policy is active)")
+    r.add_argument("--degrade-after", type=int, default=None, metavar="N",
+                   help="consecutive deadline breaches before shedding one "
+                   "ladder rung (default 2)")
+    r.add_argument("--no-nan-sentinel", action="store_true",
+                   help="disable the NaN/all-inf sentinel on returned top-k "
+                   "(on by default under a resilience policy)")
+    o = p.add_argument_group("output / observability")
     o.add_argument("--tenant", default=None, metavar="NAME",
                    help="attribute this stream to a tenant id: a per-tenant "
                    "block in the summary and --report")
     o.add_argument("--report", default=None, help="write JSON report here")
+    o.add_argument("--flight-record", default=None, metavar="JSONL",
+                   help="record trace spans (index build, entry builds, each "
+                   "batch's dispatch -> retire, retry and ladder events) to "
+                   "this append-only JSONL ring file, written as they happen "
+                   "so it survives a killed process; inspect with the "
+                   "metrics subcommand's --flight")
+    o.add_argument("--metrics-out", default=None, metavar="JSON",
+                   help="write the metrics registry's snapshot at exit; "
+                   "render it with the metrics subcommand")
     o.add_argument("--device", default=DEFAULT_DEVICE,
                    help="torch device (default cuda; 'cpu' runs the plain "
                    "versions of the kernels)")
@@ -157,6 +198,34 @@ def _refused_flag(args) -> str | None:
         if value not in (None, False):
             return flag
     return None
+
+
+def _resilience_policy(args):
+    """A ResiliencePolicy when a policy flag was given, else None. A knob
+    that shapes a policy without one that activates it is refused (it
+    would do nothing)."""
+    if args.degrade_after is not None and args.batch_deadline_ms is None:
+        # degradation is driven by deadline breaches
+        raise ValueError(
+            "--degrade-after without --batch-deadline-ms: degradation is "
+            "triggered by deadline breaches, so the knob would be silently "
+            "inert")
+    if args.batch_deadline_ms is None and args.retries is None:
+        if args.no_nan_sentinel:
+            raise ValueError(
+                "--no-nan-sentinel without --batch-deadline-ms or --retries: "
+                "no resilience policy is active, so the knob would be "
+                "silently inert")
+        return None
+    from mpi_knn_tpu_torch.resilience import ResiliencePolicy
+
+    return ResiliencePolicy(
+        batch_deadline_s=(args.batch_deadline_ms / 1e3
+                          if args.batch_deadline_ms is not None else None),
+        max_retries=args.retries if args.retries is not None else 2,
+        degrade_after=args.degrade_after if args.degrade_after is not None else 2,
+        nan_sentinel=not args.no_nan_sentinel,
+    )
 
 
 def _load_query_stream(args, X):
@@ -208,6 +277,23 @@ def main(argv=None) -> int:
     except ValueError as e:
         print(f"error: --tenant: {e}", file=sys.stderr)
         return 2
+    try:
+        policy = _resilience_policy(args)
+    except ValueError as e:
+        # inert or invalid resilience knobs (a negative deadline, ...)
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    if args.flight_record:
+        # before any index work, so the index build and the entry builds
+        # land in the record; fresh: a new run does not append to an old one
+        from mpi_knn_tpu_torch.obs.spans import FlightRecorder, set_recorder
+
+        set_recorder(FlightRecorder(args.flight_record, fresh=True))
+    if args.cache_dir:
+        # before any kernel library loads
+        from mpi_knn_tpu_torch.serve import aotcache
+
+        aotcache.set_cache_dir(args.cache_dir)
 
     from mpi_knn_tpu_torch.cli import load_corpus
     from mpi_knn_tpu_torch.device import resolve_device
@@ -220,7 +306,7 @@ def main(argv=None) -> int:
     if args.limit is not None:
         X = X[:args.limit]
     if args.index_load:
-        return _serve_loaded_index(args, X, source, device)
+        return _serve_loaded_index(args, X, source, device, policy)
     if args.nprobe is not None:
         # a probe count without a clustered index would be ignored
         print("error: --nprobe requires --index-load (probing is a "
@@ -251,7 +337,7 @@ def main(argv=None) -> int:
     t_build0 = time.perf_counter()
     try:
         index = build_index(X, cfg, device=device)
-        session = ServeSession(index, device=device)
+        session = ServeSession(index, resilience=policy, device=device)
     except ValueError as e:
         # the engine cannot honor this combination (pallas + cosine, a
         # compressed index + mixed, more ring ranks than devices allow)
@@ -265,7 +351,7 @@ def main(argv=None) -> int:
     return _stream_and_report(args, session, index, X, source, build_s)
 
 
-def _serve_loaded_index(args, X, source, device) -> int:
+def _serve_loaded_index(args, X, source, device, policy) -> int:
     """``--index-load``: serve a saved clustered index through the same
     session. Corpus-side knobs come from the saved index; flags that
     conflict with it are refused, never dropped."""
@@ -330,7 +416,7 @@ def _serve_loaded_index(args, X, source, device) -> int:
             query_bucket=args.bucket,
             dispatch_depth=args.dispatch_depth,
         ))
-        session = ServeSession(index, cfg, device=device)
+        session = ServeSession(index, cfg, resilience=policy, device=device)
     except ValueError as e:
         # nprobe > partitions, mixed over a bf16 store, ...
         print(f"error: {e}", file=sys.stderr)
@@ -352,11 +438,22 @@ def _stream_and_report(args, session, index, X, source, build_s) -> int:
     stream = _load_query_stream(args, X)
     t0 = time.perf_counter()
     n_batches = 0
+    degraded_batches = 0
     for res in session.stream(stream, tenant=args.tenant):
         n_batches += 1
+        degraded_batches += res.degraded is not None
         if not args.quiet:
+            # the resilience stamps ride the batch's line, whose number is
+            # the seq a sentinel trip or a degradation names
+            extra = ""
+            if res.degraded is not None:
+                extra += f" degraded={res.degraded}"
+            if res.retries:
+                extra += f" retries={res.retries}"
+            if res.deadline_breached:
+                extra += " DEADLINE-BREACH"
             print(f"batch {res.seq}: rows={res.rows} bucket={res.bucket} "
-                  f"latency={res.latency_s * 1e3:.2f}ms")
+                  f"latency={res.latency_s * 1e3:.2f}ms{extra}")
     wall = time.perf_counter() - t0
 
     lats = np.asarray(session.latencies)
@@ -403,6 +500,33 @@ def _stream_and_report(args, session, index, X, source, build_s) -> int:
                 index.ring_meta[3]),
         }
         summary["resident_bytes"] = index.nbytes_resident
+    from mpi_knn_tpu_torch.serve import aotcache
+
+    disk = aotcache.active_cache()
+    if disk is not None:
+        # the cache's size and this process's hits, misses and errors
+        from mpi_knn_tpu_torch.obs.metrics import get_registry
+
+        reg = get_registry()
+        summary["aot_cache"] = {
+            **disk.stats(),
+            **{kind: int(reg.counter(f"aot_cache_{kind}_total").value)
+               for kind in ("hits", "misses", "errors")},
+        }
+    if session.policy is not None:
+        # the degradation story beside the per-batch stamps
+        summary["resilience"] = {
+            "batch_deadline_ms": (session.policy.batch_deadline_s * 1e3
+                                  if session.policy.batch_deadline_s is not None
+                                  else None),
+            "ladder": [label for label, _ in session.ladder],
+            "staged_bytes": session.staged_bytes,
+            "final_rung": session.rung,
+            "degraded_batches": degraded_batches,
+            "deadline_breaches": session.deadline_breaches,
+            "retries_total": session.retries_total,
+            "degradations": session.degradations,
+        }
     if session.tenant_stats:
         summary["tenants"] = {
             t: {
@@ -423,6 +547,20 @@ def _stream_and_report(args, session, index, X, source, build_s) -> int:
             f"{'y' if summary['executables_compiled'] == 1 else 'ies'} "
             f"built, index build {summary['index_build_s']}s)"
         )
+    if args.metrics_out:
+        from mpi_knn_tpu_torch.obs.metrics import get_registry
+
+        with open(args.metrics_out, "w") as f:
+            json.dump(get_registry().snapshot(), f, indent=1)
+            f.write("\n")
+        if not args.quiet:
+            print(f"metrics snapshot written to {args.metrics_out}")
+    if args.flight_record:
+        from mpi_knn_tpu_torch.obs.spans import set_recorder
+
+        set_recorder(None)  # close and flush
+        if not args.quiet:
+            print(f"flight record written to {args.flight_record}")
     if args.report:
         with open(args.report, "w") as f:
             json.dump(summary, f, indent=1)

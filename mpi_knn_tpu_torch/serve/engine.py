@@ -48,12 +48,23 @@ The serial and clustered layouts take live mutation between batches
 under the index's ``mutation_lock``, as every mutation is, and
 ``order_stream`` chains the streams that take the lock, so a batch in
 flight reads the store it was dispatched on.
+
+Operations (the JAX package's ``serve/engine.py:1050-1855``): a session
+under a ``resilience.ResiliencePolicy`` walks the degradation ladder, retries
+transient faults and trips the NaN sentinel (``ServeSession``); every entry
+build is a ``compile`` span and an "entry" compile in the metrics registry
+(``obs/metrics.record_compile``), every batch a ``batch`` span; ``warm``
+builds every rung's entries, on a thread pool, each entry once under a lock
+of its own, and a card entry records an event every dispatch's stream
+waits for.
 """
 
 from __future__ import annotations
 
 import collections
+import concurrent.futures
 import dataclasses
+import os
 import threading
 import time
 
@@ -62,8 +73,19 @@ import torch
 
 from mpi_knn_tpu_torch.config import KNNConfig
 from mpi_knn_tpu_torch.device import DEFAULT_DEVICE
+from mpi_knn_tpu_torch.obs import metrics as obs_metrics
+from mpi_knn_tpu_torch.obs import spans as obs_spans
 from mpi_knn_tpu_torch.ops.distance import center_rows
 from mpi_knn_tpu_torch.parallel.partition import pad_rows_any, pad_to_multiple
+from mpi_knn_tpu_torch.resilience.faults import fault_point, poison_topk
+from mpi_knn_tpu_torch.resilience.heartbeat import maybe_beat
+from mpi_knn_tpu_torch.resilience.ladder import (
+    FULL_RUNG,
+    PoisonedResultError,
+    ResiliencePolicy,
+    build_ladder,
+)
+from mpi_knn_tpu_torch.resilience.retry import retry_with_backoff
 from mpi_knn_tpu_torch.serve.index import CorpusIndex, canonical_device
 from mpi_knn_tpu_torch.types import KNNResult
 
@@ -129,6 +151,10 @@ class _BucketExec:
     ring_carries: list | None = None
     ring_slots: list | None = None
     ring_perms: dict = dataclasses.field(default_factory=dict)  # rows -> layout
+    # on a card: recorded on the building thread's stream after the entry's
+    # device tensors are written; a dispatch's stream waits for it (an
+    # entry warmed on a pool thread is read from the dispatching one)
+    ready: torch.cuda.Event | None = None
 
     def _new_slot(self) -> _Slot:
         card = self.device.type == "cuda"
@@ -263,22 +289,74 @@ def order_stream(index):
     return stream
 
 
+def _key_lock(index, key) -> threading.Lock:
+    """The lock of one (bucket, config) entry of ``index``: a parallel warm
+    and a dispatch racing it build each entry once."""
+    with _LOCK_MUTEX:
+        locks = index.__dict__.setdefault("_cache_key_locks", {})
+        return locks.setdefault(key, threading.Lock())
+
+
 def get_executable(index: CorpusIndex, cfg: KNNConfig,
                    bucket: int) -> _BucketExec:
     """The (bucket, config) entry, built at most once per index. Configs
     that differ in any field that reaches the computation occupy distinct
-    entries."""
+    entries. Thread-safe per entry: callers of one entry wait for one
+    build, distinct entries build in parallel."""
     key = (bucket, _fingerprint_cfg(cfg))
     exec_ = index._cache.get(key)
-    if exec_ is None:
-        exec_ = index._cache[key] = _build_entry(index, cfg, bucket)
+    if exec_ is not None:
+        return exec_
+    with _key_lock(index, key):
+        exec_ = index._cache.get(key)
+        if exec_ is None:
+            exec_ = index._cache[key] = _build_entry(index, cfg, bucket)
     return exec_
 
 
 def _build_entry(index: CorpusIndex, cfg: KNNConfig,
                  bucket: int) -> _BucketExec:
+    """Build one entry inside a ``compile`` span (closed with the error if
+    the build raises), and count it as the port's "entry" compile."""
     global MISSES
-    MISSES += 1
+    t0 = time.perf_counter()
+    sid = obs_spans.begin_span("compile", cat="compile", bucket=bucket,
+                               backend=index.backend,
+                               policy=cfg.precision_policy)
+    try:
+        exec_ = _new_entry(index, cfg, bucket)
+    except Exception as e:
+        obs_spans.end_span(sid, error=type(e).__name__)
+        raise
+    obs_spans.end_span(sid)
+    with _LOCK_MUTEX:
+        MISSES += 1
+    obs_metrics.record_compile("entry", time.perf_counter() - t0)
+    reg = obs_metrics.get_registry()
+    reg.counter("serve_executables_compiled_total",
+                help="(bucket, config) entries built by the serving engine").inc()
+    if index.backend == "ivf":
+        reg.gauge("ivf_at_rest_bytes",
+                  help="resident bytes of the clustered bucket store "
+                  "(codes + scales for quantized stores)").set(index.nbytes_resident)
+    elif index.shards is not None:
+        from mpi_knn_tpu_torch.backends.ring import ring_wire_bytes_per_batch
+
+        reg.gauge("ring_transfer_wire_bytes",
+                  help="bytes one batch's full corpus rotation moves, at the "
+                  "wire dtype").set(ring_wire_bytes_per_batch(
+                      cfg, sum(t[0].shape[0] for t in index.shards), index.dim,
+                      index.ring_meta[3]))
+    peak = index_peak_hbm_bytes(index)
+    if peak is not None:
+        reg.gauge("serve_peak_hbm_bytes",
+                  help="peak device bytes allocated on the index's card so "
+                  "far (torch.cuda.max_memory_allocated)").set(peak)
+    return exec_
+
+
+def _new_entry(index: CorpusIndex, cfg: KNNConfig,
+               bucket: int) -> _BucketExec:
     q_pad, q_tile = bucket_shapes(index, cfg, bucket)
     qids = None
     if index.backend in ("serial", "ivf"):
@@ -297,6 +375,9 @@ def _build_entry(index: CorpusIndex, cfg: KNNConfig,
                               for d in index.mesh]
         if ring_form(cfg, index.mesh) != "driver":
             exec_.ring_slots = [landing_slots(*t) for t in index.shards]
+    if index.device.type == "cuda":
+        exec_.ready = torch.cuda.Event()
+        exec_.ready.record(torch.cuda.current_stream(index.device))
     return exec_
 
 
@@ -405,17 +486,23 @@ def _run_locked(index, cfg: KNNConfig, exec_: _BucketExec, q2d, rows):
 
 
 def _dispatch(index: CorpusIndex, cfg: KNNConfig, exec_: _BucketExec,
-              slot: _Slot, q):
+              slot: _Slot, q, poison: bool = False):
     """Enqueue one batch, its results copied into the slot's outputs and
-    its end event recorded. Returns the padded device results and the
-    host's milliseconds centering and padding it."""
+    its end event recorded. With ``poison``, an armed ``serve-nan`` fault
+    writes NaN into the device result before its copy to the host
+    (``resilience/faults.poison_topk``). Returns the padded device results
+    and the host's milliseconds centering and padding it."""
     t0 = time.perf_counter()
     q2d = _prep_queries(index, cfg, exec_, slot, q)
     prep_ms = 1e3 * (time.perf_counter() - t0)
+    if exec_.ready is not None:
+        torch.cuda.current_stream(index.device).wait_event(exec_.ready)
     if slot.start is not None:
         slot.start.record()
     d, i = _run(index, cfg, exec_, q2d.to(index.device, non_blocking=True),
                 q.shape[0])
+    if poison:
+        d = poison_topk(d)
     slot.out_d.copy_(d, non_blocking=True)
     slot.out_i.copy_(i, non_blocking=True)
     if slot.done is not None:
@@ -449,6 +536,18 @@ class BatchResult:
     device_ms: float | None = None
     dists: np.ndarray | None = None  # (rows, k), set at retire
     ids: np.ndarray | None = None
+    # the resilience record (a session without a policy leaves the
+    # defaults): the ladder rung the batch was dispatched under (None: the
+    # full rung), the dispatch attempts and the backoffs slept between
+    # them, and whether its latency, backoffs excluded, broke the deadline
+    degraded: str | None = None
+    attempts: int = 1
+    backoffs: tuple = ()
+    deadline_breached: bool = False
+
+    @property
+    def retries(self) -> int:
+        return self.attempts - 1
 
 
 def _check_device(index: CorpusIndex, device):
@@ -497,52 +596,246 @@ class ServeSession:
 
     Sessions are reusable across streams: the index's entries stay built,
     and ``seq`` keeps counting. The window accumulators (``latencies``,
-    ``queries_served``, ``tenant_stats``, ``mutation_stats``) grow until
-    ``reset_stats``; a batch in flight across a reset lands in the new
-    window. One caller dispatches; ``stats_snapshot`` may be read, and
-    ``upsert`` / ``delete`` / ``compact`` called, from other threads.
+    ``queries_served``, ``retries_total``, ``deadline_breaches``,
+    ``tenant_stats``, ``mutation_stats``) grow until ``reset_stats``; a
+    batch in flight across a reset lands in the new window. One caller
+    dispatches; ``stats_snapshot``, ``rung``, ``shed_rung`` /
+    ``restore_rung``, ``bucket_ready`` and ``warm_snapshot`` may be read
+    or called, and ``upsert`` / ``delete`` / ``compact`` called, from
+    other threads.
+
+    Every batch is a ``batch`` span in the flight record (``obs/spans.py``,
+    with its ``seq`` and ``rung``), opened at dispatch and closed at retire
+    with its latency, or with the error where it raised (a poisoned or
+    exhausted batch included): only a killed process leaves it open. Every
+    retire feeds the metrics registry (``serve_batches_total``,
+    ``serve_queries_total``, ``serve_batch_latency_seconds``) and beats the
+    heartbeat.
+
+    With a :class:`~mpi_knn_tpu_torch.resilience.ladder.ResiliencePolicy`
+    the session also enforces a per-batch deadline (measured at retire:
+    the dispatch → retire latency, backoffs excluded), retries dispatches
+    that fail with a transient fault with a fixed exponential backoff
+    (a CUDA error is not retried: it propagates at once), trips a NaN /
+    all-inf sentinel on every retired batch's host rows
+    (:class:`PoisonedResultError` with the batch's seq, bucket and rung),
+    and on ``degrade_after`` consecutive breaches sheds one rung down the
+    degradation ladder (smaller ``nprobe`` → ``mixed`` → smaller bucket,
+    ``resilience/ladder.py``). A pallas index on a card stages what each
+    rung reads at construction (``staged_bytes``: the resident bytes that
+    added). ``resilience=None`` (the default) keeps one rung and no
+    deadline, retry or sentinel.
     """
 
     def __init__(self, index: CorpusIndex, config: KNNConfig | None = None,
+                 resilience: ResiliencePolicy | None = None,
                  device=DEFAULT_DEVICE, **overrides):
         _check_device(index, device)
         self.index = index
         self.cfg = index.compatible_cfg(
             (config or index.cfg).replace(**overrides))
+        self._metrics = obs_metrics.get_registry()
+        self.policy = resilience
+        if resilience is not None:
+            self.ladder = build_ladder(index, self.cfg, resilience)
+        else:
+            self.ladder = [(FULL_RUNG, self.cfg)]
+        # what the ladder's rungs read, staged before traffic (never at
+        # shed time, which lands at the moment of overload)
+        stage = getattr(index, "stage_for", None)
+        self.staged_bytes = sum(stage(c) for _, c in self.ladder) if stage else 0
+        self._rung = 0
+        self._consecutive_breaches = 0
         self._seq = 0
         self._inflight: collections.deque = collections.deque()
+        # warm progress, read from other threads
+        self._warm_lock = threading.Lock()
+        self.warm_state: dict = {"total": 0, "ready": 0, "done": True}
+        self.warm_report: dict | None = None
+        # the window accumulators and the rung, read from other threads
         self._stats_lock = threading.Lock()
         self.latencies: list[float] = []
         self.queries_served = 0
+        self.retries_total = 0
+        self.deadline_breaches = 0
+        self.degradations: list[dict] = []  # rung-shed events, in order
+        self.restorations: list[dict] = []  # rung-restore events, in order
         self.tenant_stats: dict[str, dict] = {}
         # rows upserted / tombstoned through this session and compaction
         # passes; the index's occupancy lives on its freelist
         self.mutation_stats: dict[str, int] = _zero_mutation_stats()
 
-    def warm(self, sizes) -> dict:
-        """Build the entries of the given batch sizes' buckets, each with
-        ``dispatch_depth`` slots, before traffic. Returns ``{cells,
-        raw_cells, deduped, built, reused, wall_s}``."""
+    # -- the ladder --------------------------------------------------------
+
+    @property
+    def rung(self) -> str:
+        """The ladder rung new submissions dispatch under."""
+        return self._current_rung()[0]
+
+    def _current_rung(self) -> tuple:
+        with self._stats_lock:
+            return self.ladder[self._rung]
+
+    def shed_rung(self, *, reason: str = "deadline-breach",
+                  after_batch: int | None = None) -> str | None:
+        """Walk one rung down the ladder: recorded in ``degradations``, a
+        ``degrade`` flight event, ``serve_degradations_total`` and the
+        ``serve_ladder_rung`` gauge. Returns the new rung's label, or None
+        at the ladder's floor."""
+        with self._stats_lock:
+            if self._rung >= len(self.ladder) - 1:
+                return None
+            self._rung += 1
+            self._consecutive_breaches = 0
+            label = self.ladder[self._rung][0]
+            rung_idx = self._rung
+            ev = {
+                "after_batch": (after_batch if after_batch is not None
+                                else max(0, self._seq - 1)),
+                "rung": label,
+                "breaches": self.deadline_breaches,
+                "reason": reason,
+            }
+            self.degradations.append(ev)
+        obs_spans.event("degrade", cat="serve", **ev)
+        self._metrics.counter(
+            "serve_degradations_total",
+            help="ladder rungs shed (deadline breach or queue overload)",
+        ).inc()
+        self._set_rung_gauge(rung_idx)
+        return label
+
+    def restore_rung(self, *, reason: str = "recovered") -> str | None:
+        """Walk one rung back up (the deadline machinery never does: a
+        breach streak has no symmetric all-clear). Every rung was built by
+        ``warm``, so a restore builds nothing. Returns the restored rung's
+        label, or None at the full rung."""
+        with self._stats_lock:
+            if self._rung == 0:
+                return None
+            self._rung -= 1
+            self._consecutive_breaches = 0
+            label = self.ladder[self._rung][0]
+            rung_idx = self._rung
+            self.restorations.append({"rung": label, "reason": reason})
+        obs_spans.event("restore", cat="serve", rung=label, reason=reason)
+        self._metrics.counter(
+            "serve_restorations_total",
+            help="ladder rungs restored after overload recovery",
+        ).inc()
+        self._set_rung_gauge(rung_idx)
+        return label
+
+    def _set_rung_gauge(self, rung_idx: int) -> None:
+        self._metrics.gauge(
+            "serve_ladder_rung",
+            help="current degradation-ladder rung index (0 = full)",
+        ).set(rung_idx)
+
+    # -- warm ----------------------------------------------------------------
+
+    def warm(self, sizes, parallel: int | None = None, progress=None) -> dict:
+        """Build, before traffic, the entries of the given batch sizes'
+        buckets at every ladder rung, each with ``dispatch_depth`` slots
+        (the first batch after a shed lands at the moment of overload, and
+        must build nothing). Cells that resolve to one entry (a
+        ``bucket/2`` rung whose size pads to its parent's bucket) are
+        built once; distinct cells build on a pool of ``parallel`` threads
+        (default min(cells, CPUs); 1 builds in turn). Per-cell progress
+        feeds ``warm_state`` and ``progress(ready, total, bucket)``.
+        Returns ``{cells, raw_cells, deduped, built, reused, wall_s}``."""
         t0 = time.perf_counter()
-        cfg = self.cfg
-        raw = [bucket_rows(n, cfg.query_bucket) for n in sizes]
-        cells = sorted(set(raw))
-        fp = _fingerprint_cfg(cfg)
-        reused = sum((b, fp) in self.index._cache for b in cells)
-        for b in cells:
-            get_executable(self.index, cfg, b).reserve(cfg.dispatch_depth)
-        return {
-            "cells": len(cells), "raw_cells": len(raw),
-            "deduped": len(raw) - len(cells), "built": len(cells) - reused,
-            "reused": reused, "wall_s": round(time.perf_counter() - t0, 4),
+        raw = [(bucket_rows(n, cfg.query_bucket), cfg)
+               for n in sizes for _, cfg in self.ladder]
+        distinct: dict = {}
+        for bucket, cfg in raw:
+            distinct.setdefault((bucket, _fingerprint_cfg(cfg)), (bucket, cfg))
+        cells = list(distinct.values())
+        total = len(cells)
+        with self._warm_lock:
+            self.warm_state = {"total": total, "ready": 0, "done": False}
+        workers = (max(1, min(total, os.cpu_count() or 1)) if parallel is None
+                   else max(1, parallel))
+
+        def one(cell):
+            bucket, cfg = cell
+            existed = (bucket, _fingerprint_cfg(cfg)) in self.index._cache
+            get_executable(self.index, cfg, bucket).reserve(cfg.dispatch_depth)
+            with self._warm_lock:
+                self.warm_state["ready"] += 1
+                ready = self.warm_state["ready"]
+            if progress is not None:
+                progress(ready, total, bucket)
+            return existed
+
+        with obs_spans.span("warm", cat="serve", sizes=list(sizes),
+                            rungs=len(self.ladder), cells=total,
+                            deduped=len(raw) - total, workers=workers):
+            if workers <= 1 or total <= 1:
+                existed = [one(c) for c in cells]
+            else:
+                with concurrent.futures.ThreadPoolExecutor(
+                        max_workers=workers,
+                        thread_name_prefix="tknn-warm") as pool:
+                    existed = list(pool.map(one, cells))
+        with self._warm_lock:
+            self.warm_state["done"] = True
+        reused = sum(existed)
+        report = {
+            "cells": total, "raw_cells": len(raw), "deduped": len(raw) - total,
+            "built": total - reused, "reused": reused,
+            "wall_s": round(time.perf_counter() - t0, 4),
         }
+        self.warm_report = report
+        return report
+
+    def warm_async(self, sizes, parallel: int | None = None,
+                   progress=None) -> threading.Thread:
+        """Run :meth:`warm` on a started daemon thread and return it;
+        ``warm_snapshot`` and ``bucket_ready`` show its progress."""
+        t = threading.Thread(target=self.warm, args=(sizes, parallel, progress),
+                             name="tknn-warm-async", daemon=True)
+        t.start()
+        return t
+
+    def warm_snapshot(self) -> dict:
+        """A consistent copy of ``warm_state`` for other threads."""
+        with self._warm_lock:
+            return dict(self.warm_state)
+
+    def bucket_ready(self, rows: int) -> bool:
+        """Whether a batch of ``rows`` rows would dispatch on an entry
+        already built, at the current rung."""
+        _, cfg = self._current_rung()
+        key = (bucket_rows(max(1, rows), cfg.query_bucket), _fingerprint_cfg(cfg))
+        return key in self.index._cache
+
+    def coalesced_ready(self, rows: int, max_rows: int) -> bool:
+        """Whether every bucket a request of ``rows`` rows may land in,
+        coalesced with others up to ``max_rows``, is built at the current
+        rung (a serving front end's admission while warming)."""
+        _, cfg = self._current_rung()
+        fp = _fingerprint_cfg(cfg)
+        b = bucket_rows(max(1, rows), cfg.query_bucket)
+        top = bucket_rows(max(1, max(rows, max_rows)), cfg.query_bucket)
+        while True:
+            if (b, fp) not in self.index._cache:
+                return False
+            if b >= top:
+                return True
+            b *= 2
+
+    # -- the window ----------------------------------------------------------
 
     def stats_snapshot(self) -> dict:
-        """The window's counters in one critical section."""
+        """The window's counters and the rung, in one critical section."""
         with self._stats_lock:
             return {
                 "batches_retired": len(self.latencies),
                 "queries_served": self.queries_served,
+                "retries_total": self.retries_total,
+                "deadline_breaches": self.deadline_breaches,
+                "rung": self.ladder[self._rung][0],
                 "tenants": sorted(self.tenant_stats),
                 "mutation": dict(self.mutation_stats),
                 "bucket_entries": len(self.index._cache),
@@ -551,35 +844,82 @@ class ServeSession:
 
     def reset_stats(self):
         """Start a fresh window: resets ``latencies``, ``queries_served``,
-        ``tenant_stats`` and ``mutation_stats``; ``seq``, the built entries
-        and the index's occupancy (its freelist) stay."""
+        ``retries_total``, ``deadline_breaches``, ``tenant_stats`` and
+        ``mutation_stats``; ``seq``, the built entries, the rung with its
+        ``degradations`` / ``restorations`` and the index's occupancy (its
+        freelist) stay."""
         with self._stats_lock:
             self.latencies = []
             self.queries_served = 0
+            self.retries_total = 0
+            self.deadline_breaches = 0
             self.tenant_stats = {}
             self.mutation_stats = _zero_mutation_stats()
+
+    # -- serving -------------------------------------------------------------
+
+    def _attempt(self, queries, cfg: KNNConfig):
+        """One dispatch attempt under ``cfg`` (a rung's config); the fault
+        site stands for a transient transport failure. A raised attempt
+        gives its slot back, so a retry reuses it."""
+        fault_point("serve-batch")
+        exec_ = get_executable(self.index, cfg,
+                               bucket_rows(int(queries.shape[0]), cfg.query_bucket))
+        slot = exec_.acquire()
+        try:
+            d, i, prep_ms = _dispatch(self.index, cfg, exec_, slot, queries,
+                                      poison=True)
+        except BaseException:
+            exec_.release(slot)
+            raise
+        return exec_, slot, d, i, prep_ms
 
     def submit(self, queries, tenant: str | None = None) -> list[BatchResult]:
         """Dispatch one batch (of one ``tenant``, if given)."""
         t0 = time.perf_counter()
         _check_tenant(tenant)
-        cfg = self.cfg
         rows = int(queries.shape[0])
-        bucket = bucket_rows(rows, cfg.query_bucket)
-        exec_ = get_executable(self.index, cfg, bucket)
-        slot = exec_.acquire()
+        label, cfg = self._current_rung()
+        # the span opens before the attempt: a hang inside it leaves an
+        # open batch span in the flight record, the kill's diagnosis
+        sid = obs_spans.begin_span(
+            "batch", cat="serve", seq=self._seq, rows=rows, rung=label,
+            **({"tenants": {tenant: rows}} if tenant is not None else {}))
+        pol = self.policy
         try:
-            d, i, prep_ms = _dispatch(self.index, cfg, exec_, slot, queries)
-        except Exception:
-            exec_.release(slot)
+            if pol is not None and pol.max_retries > 0:
+                out = retry_with_backoff(
+                    lambda: self._attempt(queries, cfg),
+                    retries=pol.max_retries, base_s=pol.backoff_base_s,
+                    max_s=pol.backoff_max_s, retryable=pol.retryable)
+                (exec_, slot, d, i, prep_ms), attempts, backoffs = (
+                    out.value, out.attempts, out.backoffs)
+                if attempts > 1:
+                    with self._stats_lock:
+                        self.retries_total += attempts - 1
+                    obs_spans.event("retry", cat="retry", seq=self._seq,
+                                    retries=attempts - 1, backoffs=list(backoffs))
+                    self._metrics.counter(
+                        "serve_retries_total",
+                        help="transient dispatch failures retried",
+                    ).inc(attempts - 1)
+            else:
+                exec_, slot, d, i, prep_ms = self._attempt(queries, cfg)
+                attempts, backoffs = 1, ()
+        except Exception as e:
+            # retries exhausted, a CUDA error, a refusal: the caller survives
+            # it, so the span closes with the error
+            obs_spans.end_span(sid, error=type(e).__name__)
             raise
-        res = BatchResult(d, i, rows, bucket, seq=self._seq, tenant=tenant,
+        res = BatchResult(d, i, rows, exec_.bucket, seq=self._seq, tenant=tenant,
                           host_ms=1e3 * (time.perf_counter() - t0),
-                          prep_ms=prep_ms)
+                          prep_ms=prep_ms,
+                          degraded=None if label == FULL_RUNG else label,
+                          attempts=attempts, backoffs=backoffs)
         self._seq += 1
-        self._inflight.append((res, t0, exec_, slot))
+        self._inflight.append((res, t0, exec_, slot, sid))
         done = []
-        while len(self._inflight) >= max(1, cfg.dispatch_depth):
+        while len(self._inflight) >= max(1, self.cfg.dispatch_depth):
             done.append(self._retire())
         return done
 
@@ -597,18 +937,30 @@ class ServeSession:
         yield from self.drain()
 
     def _retire(self) -> BatchResult:
-        res, t0, exec_, slot = self._inflight.popleft()
+        res, t0, exec_, slot, sid = self._inflight.popleft()
         try:
             res.dists, res.ids = _fetch(slot, res.rows)
             res.latency_s = time.perf_counter() - t0
             if slot.start is not None:
                 res.device_ms = slot.start.elapsed_time(slot.done)
+        except Exception as e:
+            obs_spans.end_span(sid, error=type(e).__name__)
+            raise
         finally:
             exec_.release(slot)
         with self._stats_lock:
             self.latencies.append(res.latency_s)
             self.queries_served += res.rows
-            if res.tenant is not None:
+        self._note_latency(res)
+        if self.policy is not None and self.policy.nan_sentinel:
+            try:
+                self._check_sentinel(res)
+            except PoisonedResultError:
+                obs_spans.end_span(sid, latency_s=res.latency_s,
+                                   retries=res.retries, error="poisoned-result")
+                raise
+        if res.tenant is not None:
+            with self._stats_lock:
                 st = self.tenant_stats.setdefault(res.tenant, {
                     "queries": 0, "batches": 0,
                     "latency_sum_s": 0.0, "latency_max_s": 0.0,
@@ -617,7 +969,75 @@ class ServeSession:
                 st["batches"] += 1
                 st["latency_sum_s"] += res.latency_s
                 st["latency_max_s"] = max(st["latency_max_s"], res.latency_s)
+            self._metrics.counter(
+                "serve_tenant_queries_total",
+                help="query rows served per tenant (padding excluded)",
+                labels={"tenant": res.tenant},
+            ).inc(res.rows)
+            self._metrics.counter(
+                "serve_tenant_batches_total",
+                help="batches carrying at least one row of this tenant",
+                labels={"tenant": res.tenant},
+            ).inc()
+        obs_spans.end_span(sid, latency_s=res.latency_s, retries=res.retries,
+                           deadline_breached=res.deadline_breached)
+        maybe_beat(f"serve-batch-{res.seq}")
+        self._metrics.counter("serve_batches_total", help="batches retired").inc()
+        self._metrics.counter(
+            "serve_queries_total", help="query rows served (padding excluded)",
+        ).inc(res.rows)
+        self._metrics.histogram(
+            "serve_batch_latency_seconds",
+            help="per-batch dispatch -> retire latency",
+        ).observe(res.latency_s)
         return res
+
+    def _check_sentinel(self, res: BatchResult) -> None:
+        """NaN / all-inf sentinel on a retired batch's real rows, read from
+        the host copy ``_fetch`` already made (no extra synchronization).
+        A NaN distance has one source, a poisoned tile; an all-inf row
+        means every candidate was masked away. Neither is returned as an
+        answer: the trip is loud, with the batch's provenance."""
+        d = res.dists
+        bad_nan = bool(np.isnan(d).any())
+        bad_inf = bool(d.size) and bool(np.isinf(d).all(axis=1).any())
+        if not (bad_nan or bad_inf):
+            return
+        kind = "NaN" if bad_nan else "all-inf row"
+        rung = res.degraded or FULL_RUNG
+        obs_spans.event("poisoned-result", cat="serve", seq=res.seq,
+                        kind=kind, bucket=res.bucket)
+        self._metrics.counter(
+            "serve_poisoned_results_total",
+            help="batches whose top-k tripped the NaN/all-inf sentinel",
+        ).inc()
+        raise PoisonedResultError(
+            f"poisoned top-k ({kind}) in served batch seq={res.seq} "
+            f"bucket={res.bucket} rows={res.rows} rung={rung}",
+            batch_seq=res.seq, bucket=res.bucket, rung=rung, rows=res.rows)
+
+    def _note_latency(self, res: BatchResult) -> None:
+        """Deadline accounting at retire: count consecutive breaches and
+        shed one rung when the policy's patience runs out. Backoff sleeps
+        are excluded from the comparison (``latency_s`` stays the whole
+        dispatch → retire time): waiting on a transient fault is not load,
+        and the ladder's smaller programs cannot fix it."""
+        pol = self.policy
+        if pol is None or pol.batch_deadline_s is None:
+            return
+        if res.latency_s - sum(res.backoffs) <= pol.batch_deadline_s:
+            self._consecutive_breaches = 0
+            return
+        res.deadline_breached = True
+        with self._stats_lock:
+            self.deadline_breaches += 1
+        self._consecutive_breaches += 1
+        self._metrics.counter(
+            "serve_deadline_breaches_total",
+            help="batches whose dispatch -> retire latency overran the deadline",
+        ).inc()
+        if self._consecutive_breaches >= pol.degrade_after:
+            self.shed_rung(reason="deadline-breach", after_batch=res.seq)
 
     # -- live mutation: thin wrappers over serve/mutate.py. The index
     # mutates under its mutation lock (serialized with dispatch); the
@@ -674,18 +1094,25 @@ class ServeSession:
 
     def start_compactor(self, interval_s: float = 0.25, retrain: bool = True):
         """Start (and return) the background compaction worker of this
-        session, driven by the freelist's triggers."""
+        session, driven by the freelist's triggers and deferred while the
+        session is off its full rung."""
         from mpi_knn_tpu_torch.serve.mutate import Compactor
 
         return Compactor(self, interval_s=interval_s, retrain=retrain).start()
 
     def _note_mutation(self, kind: str, n: int, tenant: str | None) -> None:
-        """Count a mutation in the window. The reference also counts it per
-        ``tenant`` in its metrics registry, which belongs to ``obs/``: a
-        no-op here until that is ported."""
+        """Count a mutation in the window, and per ``tenant`` in the
+        registry (``serve_tenant_upserts_total`` /
+        ``serve_tenant_deletes_total``)."""
         with self._stats_lock:
             self.mutation_stats[kind] += n
             self.mutation_stats["calls"] += 1
+        if tenant is not None:
+            self._metrics.counter(
+                f"serve_tenant_{kind}_total",
+                help=f"rows {kind[:-1]}ed per tenant",
+                labels={"tenant": str(tenant)},
+            ).inc(n)
 
 
 def _zero_mutation_stats() -> dict:

@@ -42,6 +42,7 @@ import torch
 
 from mpi_knn_tpu_torch.config import KNNConfig
 from mpi_knn_tpu_torch.device import DEFAULT_DEVICE, resolve_device
+from mpi_knn_tpu_torch.obs import spans as obs_spans
 from mpi_knn_tpu_torch.ops import fused_knn
 from mpi_knn_tpu_torch.ops.distance import l2_mean
 from mpi_knn_tpu_torch.ops.rerank import mixed_applies
@@ -123,6 +124,38 @@ class CorpusIndex:
         policy, bucket/depth, tie break) may vary per call: the engine keys
         its entries on the full config. Corpus-side knobs are baked into
         the resident layout and may not vary."""
+        return self._check_cfg(cfg, staged=True)
+
+    def stageable_cfg(self, cfg: KNNConfig) -> KNNConfig:
+        """``compatible_cfg``, but a pallas config whose corpus prologue
+        output the index has not staged yet passes: :meth:`stage_for`
+        stages it (the degradation ladder's validation)."""
+        return self._check_cfg(cfg, staged=False)
+
+    def stage_for(self, cfg: KNNConfig) -> int:
+        """Stage, once, the corpus prologue output the kernels of ``cfg``
+        read, if this index has not (on a card, the pallas layout: the bf16
+        copy a ``mixed`` rung reads beside an exact index's planes).
+        Returns the resident bytes it added (0 off the card, or when
+        already staged). It runs under the mutation lock and its stream
+        joins the index's chain (``engine.order_stream``), so a later
+        batch on any stream reads the part after it is written."""
+        from mpi_knn_tpu_torch.serve.engine import mutation_lock, order_stream
+
+        if self.staged is None:
+            return 0
+        compress = _compresses(cfg, self.c_tile)
+        which = fused_knn.staged_part(compress, cfg.matmul_precision)
+        if getattr(self.staged, which) is not None:
+            return 0
+        with mutation_lock(self):
+            order_stream(self)
+            part = fused_knn.stage_corpus(self.corpus_padded, compress=compress,
+                                          precision=cfg.matmul_precision)
+            setattr(self.staged, which, getattr(part, which))
+        return part.nbytes
+
+    def _check_cfg(self, cfg: KNNConfig, staged: bool) -> KNNConfig:
         frozen = (
             "backend", "metric", "dtype", "corpus_tile", "query_tile",
             "center", "mesh_axis", "num_devices", "ring_transfer_dtype",
@@ -147,7 +180,7 @@ class CorpusIndex:
                 f"{self.cfg.dtype} index: the exact rerank contract is "
                 "void on a corpus compressed at rest"
             )
-        if self.staged is not None:
+        if staged and self.staged is not None:
             which = fused_knn.staged_part(_compresses(want, self.c_tile),
                                           want.matmul_precision)
             if getattr(self.staged, which) is None:
@@ -246,6 +279,15 @@ def build_index(corpus, config: Optional[KNNConfig] = None,
     backend = resolve_backend(cfg, mesh, device=dev)
     if backend not in SERVED_BACKENDS:
         raise ValueError(f"unknown backend {backend!r}")
+    if not isinstance(corpus, torch.Tensor):
+        corpus = np.asarray(corpus)
+    with obs_spans.span("index-build", cat="index", backend=backend,
+                        m=int(corpus.shape[0]), dim=int(corpus.shape[1])):
+        return _build_index_resident(corpus, cfg, mesh, dev, backend)
+
+
+def _build_index_resident(corpus, cfg: KNNConfig, mesh, dev,
+                          backend: str) -> CorpusIndex:
     if backend == "ring" and cfg.ring_fusion == "fused":
         from mpi_knn_tpu_torch.backends.ring import fused_blocking_undefined_error
 

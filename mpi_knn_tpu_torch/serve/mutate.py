@@ -35,7 +35,7 @@ Layouts: the serial ``CorpusIndex`` tile stack (headroom rows, a flat
 freelist) and the clustered ``IVFIndex`` (per-bucket freelists,
 centroid-scored placement). The ring and pallas layouts refuse. The
 reference's mutable ``ivf-sharded`` store is not yet ported (ROADMAP A
-item 3).
+item 4).
 
 The reference's XLA half has no counterpart in eager PyTorch and is left
 out: ``lower_mutation``, ``get_mutation_executable``,
@@ -43,9 +43,14 @@ out: ``lower_mutation``, ``get_mutation_executable``,
 ``_chunk_sds``, ``_replicated``, ``_put_chunk``, ``_bucket_sharding``,
 ``_compact_dst_shapes``, ``_normalize_store_out``, the module-level jits
 and ``warm_mutation`` (it compiles the cells ahead of traffic; nothing
-compiles here). The reference's heartbeats, spans, metrics and load
-shedding (``resilience/``, ``obs/``) stand where it has them as the
-no-ops below, until those layers are ported (ROADMAP A item 4).
+compiles here).
+
+Observability and load shedding stand where the reference has them: each
+upsert, delete and compaction is a ``mutate`` span of the flight record;
+the ``mutation_*``, ``compact*`` and ``index_*`` metrics feed the
+registry; the compactor beats the heartbeat at each phase and defers
+(``compact_deferred_total``, a ``compact-deferred`` event) while its
+session is off the full ladder rung.
 """
 
 from __future__ import annotations
@@ -59,6 +64,8 @@ import numpy as np
 import torch
 
 from mpi_knn_tpu_torch.config import KNNConfig
+from mpi_knn_tpu_torch.obs import metrics as obs_metrics
+from mpi_knn_tpu_torch.obs import spans as obs_spans
 from mpi_knn_tpu_torch.ivf.mutate import (
     BucketOverflowError,
     _kept,
@@ -77,6 +84,7 @@ from mpi_knn_tpu_torch.ivf.mutate import (
     store_rows_and_sqs,
 )
 from mpi_knn_tpu_torch.ops.distance import center_rows
+from mpi_knn_tpu_torch.resilience.heartbeat import maybe_beat
 
 __all__ = [
     "BucketOverflowError",
@@ -94,37 +102,72 @@ log = logging.getLogger(__name__)
 
 
 # ---------------------------------------------------------------------------
-# Hooks of layers not yet ported: each stands where the reference has it
+# Heartbeats, spans, metrics and load shedding (resilience/, obs/)
 
+CHUNK_ROW_BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1024, 2048,
+                     4096)
 
-def maybe_beat(phase: str) -> None:
-    """A heartbeat of the supervised compactor (reference
-    ``resilience/heartbeat.py``): a no-op until ``resilience/`` is ported."""
+# the reference's mutation metrics: name -> (kind, help, histogram buckets)
+_METRICS = {
+    "mutation_upserts_total": ("counter", "rows upserted into live indices", None),
+    "mutation_deletes_total": ("counter", "rows tombstoned in live indices", None),
+    "mutation_chunk_rows": ("histogram", "rows per mutation chunk (upsert+delete)",
+                            CHUNK_ROW_BUCKETS),
+    "mutation_latency_seconds": (
+        "histogram", "wall time of one mutation call (plan + in-place "
+        "scatter + commit)", obs_metrics.DEFAULT_LATENCY_BUCKETS_S),
+    "compactions_total": ("counter", "background/manual compaction passes run",
+                          None),
+    "compact_wall_seconds": ("histogram", "wall time of one compaction pass",
+                             obs_metrics.DEFAULT_LATENCY_BUCKETS_S),
+    "compact_deferred_total": (
+        "counter", "compaction ticks deferred because the session was "
+        "shedding load (compaction is shed first)", None),
+    "compact_errors_total": (
+        "counter", "compaction passes that raised (the compactor keeps "
+        "running; the store is untouched on failure)", None),
+}
 
 
 def _span(name: str, **attrs):
-    """A flight-recorded span (reference ``obs/spans.py``): a no-op context
-    until ``obs/`` is ported."""
-    return contextlib.nullcontext()
+    """The ``upsert`` / ``delete`` / ``compact`` span of the flight
+    record."""
+    return obs_spans.span(name, cat="mutate", **attrs)
 
 
 def _observe(metric: str, value: float = 1.0) -> None:
-    """A sample of one of the reference's ``mutation_*``, ``compact*`` and
-    ``index_*`` counters, gauges and histograms (``obs/metrics.py``): a
-    no-op until ``obs/`` is ported."""
+    """Count (a counter) or observe (a histogram) one of the reference's
+    mutation metrics in the registry."""
+    kind, help_, buckets = _METRICS[metric]
+    reg = obs_metrics.get_registry()
+    if kind == "counter":
+        reg.counter(metric, help=help_).inc(value)
+    else:
+        reg.histogram(metric, help=help_, buckets=buckets).observe(value)
 
 
 def _shedding(session) -> bool:
-    """Whether the session is off its full ladder rung, where the reference
-    defers compaction first (``resilience/ladder.py``). The port's session
-    has no ladder until ``resilience/`` is ported: never."""
-    return False
+    """Whether the session is off its full ladder rung, where compaction
+    is deferred first: a degraded session is already fighting for the
+    device, and deferring costs headroom, not correctness."""
+    from mpi_knn_tpu_torch.resilience.ladder import FULL_RUNG
+
+    return session.rung != FULL_RUNG
 
 
 def _stamp_gauges(index) -> None:
-    """The reference's ``index_live_rows``, ``index_tombstone_fraction`` and
-    ``index_max_bucket_fill`` gauges (``obs/metrics.py``): a no-op until
-    ``obs/`` is ported."""
+    """The freelist's ``index_live_rows``, ``index_tombstone_fraction`` and
+    ``index_max_bucket_fill`` gauges."""
+    fl = freelist_of(index)
+    reg = obs_metrics.get_registry()
+    reg.gauge("index_live_rows",
+              help="live (non-tombstoned) rows in the index").set(fl.live)
+    reg.gauge("index_tombstone_fraction",
+              help="tombstoned slots as a fraction of live rows (a "
+              "compaction trigger)").set(fl.tombstone_fraction)
+    reg.gauge("index_max_bucket_fill",
+              help="largest bucket fill fraction (headroom exhaustion: a "
+              "compaction trigger)").set(fl.max_fill)
 
 
 # ---------------------------------------------------------------------------
@@ -483,6 +526,7 @@ def compact_index(index, config: KNNConfig | None = None, retrain: bool = True,
             index.bucket_cap = new_cap
             if cap_changed:
                 index._cache.clear()
+                index.__dict__.pop("_cache_key_locks", None)
             index.__dict__.pop("_freelist", None)  # derived again from the store
             maybe_beat("compact-swap")
         _stamp_gauges(index)
@@ -495,10 +539,9 @@ def compact_index(index, config: KNNConfig | None = None, retrain: bool = True,
 class Compactor:
     """The background re-cluster/compact worker: a daemon thread polling
     the freelist's triggers every ``interval_s`` and compacting the
-    session's index when one fires. ``stop()`` joins the thread. The
-    reference also sheds compaction first under overload and heartbeats
-    and flight-records each phase; those hooks are no-ops here until
-    ``resilience/`` and ``obs/`` are ported."""
+    session's index when one fires, heartbeat- and flight-recorded, and
+    shed first under overload (a session off its full rung defers it).
+    ``stop()`` joins the thread."""
 
     def __init__(self, session, interval_s: float = 0.25, retrain: bool = True):
         _require_mutable(session.index)
@@ -547,6 +590,8 @@ class Compactor:
             with self._lock:
                 self._deferred += 1
             _observe("compact_deferred_total")
+            obs_spans.event("compact-deferred", cat="mutate", reason=reason,
+                            rung=ses.rung)
             return None
         stats = compact_index(ses.index, ses.cfg, retrain=self.retrain,
                               reason=reason)
@@ -560,7 +605,9 @@ class Compactor:
             maybe_beat("compactor-tick")
             try:
                 self.tick()
-            except Exception:  # noqa: BLE001 — log, keep supervising
+            except Exception as e:  # noqa: BLE001 — log, keep supervising
                 # a failed pass leaves the store untouched
                 log.exception("compaction failed")
+                obs_spans.event("compact-error", cat="mutate",
+                                error=f"{type(e).__name__}: {e}")
                 _observe("compact_errors_total")

@@ -18,8 +18,11 @@ rows come from a ``.npy`` file (``--upsert-rows``) or ``--synthetic N``
 and a last line with the saved path and the freelist's stats; exit 0 on
 success, 2 on usage errors, 1 when the headroom is exhausted.
 
+``--cache-dir`` (or ``TKNN_AOT_CACHE``) points the process at the
+persistent cache of kernel libraries (``serve/aotcache.py``).
+
 Not yet ported (exit 2): the online mode (``--url``, ``--tenant``: it
-needs the serving front end) and ``--cache-dir`` (the AOT cache).
+needs the serving front end).
 """
 
 from __future__ import annotations
@@ -68,7 +71,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="write the mutated index here (default: overwrite "
                    "--index atomically)")
     p.add_argument("--cache-dir", default=None, metavar="DIR",
-                   help="persistent executable cache: not yet ported")
+                   help="persistent cache of the kernel libraries "
+                   "(serve/aotcache.py; also TKNN_AOT_CACHE)")
     p.add_argument("--device", default=DEFAULT_DEVICE,
                    help="torch device (default cuda; 'cpu' mutates on the "
                    "CPU)")
@@ -93,8 +97,7 @@ def _usage(msg: str) -> int:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    for flag, value in (("--url", args.url), ("--tenant", args.tenant),
-                        ("--cache-dir", args.cache_dir)):
+    for flag, value in (("--url", args.url), ("--tenant", args.tenant)):
         if value is not None:
             return _usage(f"{flag}: not yet ported to mpi_knn_tpu_torch (see "
                           "ROADMAP.md)")
@@ -118,6 +121,10 @@ def main(argv=None) -> int:
         return _usage("nothing to do: give --upsert-rows/--synthetic, "
                       "--delete, --compact, or --stats")
 
+    if args.cache_dir:
+        from mpi_knn_tpu_torch.serve import aotcache
+
+        aotcache.set_cache_dir(args.cache_dir)
     from mpi_knn_tpu_torch.device import resolve_device
     from mpi_knn_tpu_torch.ivf import load_ivf_index, save_ivf_index
     from mpi_knn_tpu_torch.serve import mutate as serve_mutate

@@ -1687,3 +1687,171 @@ def test_compactor_and_a_depth_2_session_share_the_store_safely(cuda_device,
     got = list(ses.stream([Q[:100]]))[0]
     _, want = search_ivf(idx, Q[:100], device=cuda_device)
     assert np.array_equal(got.ids, want.cpu().numpy())
+
+
+# ---------------------------------------------------------------------------
+# the operations layer on the card: the kernel cache across restarts, the
+# sentinel, the ladder's rungs, the parallel warm, the doctor
+
+_RESTART_CHILD = """
+import json, sys
+import numpy as np
+import torch
+from mpi_knn_tpu_torch.obs.metrics import get_registry
+from mpi_knn_tpu_torch.serve import ServeSession, aotcache, build_index
+
+aotcache.set_cache_dir(sys.argv[1])
+rng = np.random.default_rng(12)
+X = rng.standard_normal((4000, 96)).astype(np.float32)
+Q = rng.standard_normal((300, 96)).astype(np.float32)
+index = build_index(X, device="cuda", k=10, backend="pallas", query_bucket=128)
+ses = ServeSession(index, device="cuda")
+out = list(ses.stream([Q[:100], Q[100:300]]))
+reg = get_registry()
+print(json.dumps({k: reg.counter(k).value for k in (
+    "nvcc_builds_total", "aot_cache_hits_total", "aot_cache_misses_total",
+    "aot_cache_errors_total", "aot_cache_stores_total")} | {
+    "ids": np.concatenate([r.ids for r in out]).tolist(),
+    "dists": np.concatenate([r.dists for r in out]).view(np.int32).tolist()}))
+"""
+
+
+@pytest.mark.cuda
+def test_a_warm_restart_builds_nothing_and_serves_the_same_bits(cuda_device,
+                                                               tmp_path):
+    """A cold process builds fused_knn with nvcc and stores it; a restarted
+    one loads it from the cache (zero nvcc builds, one hit) and serves the
+    same bits; a truncated entry is rebuilt loudly, the same bits again."""
+    import json
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    repo = Path(__file__).resolve().parent.parent
+    cache = tmp_path / "cache"
+
+    def child():
+        r = subprocess.run([sys.executable, "-c", _RESTART_CHILD, str(cache)],
+                           cwd=repo, capture_output=True, text=True, timeout=600)
+        assert r.returncode == 0, r.stderr[-3000:]
+        return json.loads(r.stdout.strip().splitlines()[-1])
+
+    cold = child()
+    n = cold["nvcc_builds_total"]
+    assert n >= 1 and (cold["aot_cache_misses_total"], cold["aot_cache_stores_total"],
+                       cold["aot_cache_hits_total"]) == (n, n, 0)
+    warm = child()
+    assert (warm["nvcc_builds_total"], warm["aot_cache_hits_total"],
+            warm["aot_cache_misses_total"]) == (0, n, 0)
+    assert (warm["ids"], warm["dists"]) == (cold["ids"], cold["dists"])
+    entry = sorted(cache.glob("*.tknnlib"))[0]
+    entry.write_bytes(entry.read_bytes()[: entry.stat().st_size // 2])
+    damaged = child()
+    assert (damaged["aot_cache_errors_total"], damaged["nvcc_builds_total"]) == (1, 1)
+    assert (damaged["ids"], damaged["dists"]) == (cold["ids"], cold["dists"])
+
+
+@pytest.mark.cuda
+def test_the_sentinel_trips_on_a_poisoned_card_result(cuda_device):
+    from mpi_knn_tpu_torch import ServeSession, build_index
+    from mpi_knn_tpu_torch.resilience import (
+        PoisonedResultError,
+        ResiliencePolicy,
+        install_faults,
+    )
+
+    rng = np.random.default_rng(13)
+    X = rng.standard_normal((2000, 64)).astype(np.float32)
+    index = build_index(X, device=cuda_device, k=10, backend="pallas",
+                        query_bucket=64)
+    ses = ServeSession(index, resilience=ResiliencePolicy(max_retries=0),
+                       device=cuda_device, dispatch_depth=2)
+    Q = rng.standard_normal((50, 64)).astype(np.float32)
+    ses.submit(Q)
+    with install_faults({"serve-nan": "nan"}):
+        ses.submit(Q)  # poisoned on the card, retired by the next submit
+    with pytest.raises(PoisonedResultError) as e:
+        ses.submit(Q)
+    assert (e.value.batch_seq, e.value.bucket, e.value.rows) == (1, 64, 50)
+    rest = ses.drain()
+    assert len(rest) == 1 and np.isfinite(rest[0].dists).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["pallas", "serial"])
+def test_each_rung_on_the_card_serves_what_a_session_at_its_config_serves(
+        cuda_device, layout):
+    """An exact pallas index on the card stages the bf16 copy the mixed
+    rung reads at the session's construction; every rung's batches equal,
+    bit for bit, a session built at that rung's config, and walking the
+    whole ladder after warm builds nothing."""
+    from mpi_knn_tpu_torch import ServeSession, build_index
+    from mpi_knn_tpu_torch.obs.metrics import watch_compiles
+    from mpi_knn_tpu_torch.resilience import ResiliencePolicy
+
+    rng = np.random.default_rng(14)
+    X = rng.standard_normal((3000, 64)).astype(np.float32)
+    Q = rng.standard_normal((100, 64)).astype(np.float32)
+    index = build_index(X, device=cuda_device, k=10, backend=layout,
+                        query_bucket=128)
+    ses = ServeSession(index, resilience=ResiliencePolicy(min_bucket=16),
+                       device=cuda_device)
+    assert [lb for lb, _ in ses.ladder] == ["full", "mixed", "bucket/64"]
+    if layout == "pallas":
+        assert ses.staged_bytes == sum(t.numel() * t.element_size()
+                                       for t in index.staged.compress)
+    ses.warm([100])
+    for i, (label, cfg) in enumerate(ses.ladder):
+        if i:
+            ses.shed_rung(reason="test")
+        with watch_compiles() as builds:
+            (got,) = ses.submit(Q) + ses.drain()
+        assert builds == []
+        (want,) = ServeSession(index, cfg, device=cuda_device).stream([Q])
+        assert np.array_equal(got.ids, want.ids)
+        assert np.array_equal(got.dists, want.dists)
+
+
+@pytest.mark.cuda
+def test_a_parallel_warm_serves_the_bits_of_a_sequential_one(cuda_device):
+    from mpi_knn_tpu_torch import ServeSession, build_index
+
+    rng = np.random.default_rng(15)
+    X = rng.standard_normal((3000, 64)).astype(np.float32)
+    Q = rng.standard_normal((250, 64)).astype(np.float32)
+    kw = dict(k=10, backend="pallas", query_bucket=16)
+    outs = []
+    for parallel in (1, 4):
+        ses = ServeSession(build_index(X, device=cuda_device, **kw),
+                           device=cuda_device, dispatch_depth=2)
+        rep = ses.warm([16, 64, 128, 256], parallel=parallel)
+        assert rep["built"] == rep["cells"] == 4
+        outs.append(list(ses.stream([Q[:16], Q[:64], Q[:128], Q])))
+    for a, b in zip(*outs):
+        assert np.array_equal(a.ids, b.ids) and np.array_equal(a.dists, b.dists)
+
+
+@pytest.mark.cuda
+def test_the_doctor_on_the_card_and_a_supervisor_that_never_touches_it(
+        cuda_device, tmp_path):
+    import json
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    repo = Path(__file__).resolve().parent.parent
+    probe = ("import json, sys; from mpi_knn_tpu_torch.resilience.doctor import main; "
+             "rc = main(['--report', sys.argv[1], '--cache-dir', sys.argv[2]]); "
+             "torch_loaded = 'torch' in sys.modules; import torch; "
+             "print(json.dumps({'rc': rc, 'torch_loaded': torch_loaded, "
+             "'cuda_initialized': torch.cuda.is_initialized()}))")
+    r = subprocess.run([sys.executable, "-c", probe, str(tmp_path / "v.json"),
+                        str(tmp_path / "cache")], cwd=repo, capture_output=True,
+                       text=True, timeout=600)
+    out = json.loads(r.stdout.strip().splitlines()[-1])
+    v = json.loads((tmp_path / "v.json").read_text())
+    assert out == {"rc": 0, "torch_loaded": False, "cuda_initialized": False}, v
+    assert v["ok"] and v["probe"]["platform"] == "cuda"
+    assert v["probe"]["launches"] == 1 and v["probe"]["agrees_with_plain"]
+    assert v["aot_cache"]["dlopen_ok"] and v["aot_cache"]["bit_identical"]
+    assert v["mutation"]["ok"] and v["mutation"]["second_pass_builds"] == 0

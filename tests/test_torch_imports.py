@@ -43,13 +43,27 @@ def test_importing_the_port_loads_no_jax():
                 "data.matfile", "data.vecs", "data.svd", "data.digits",
                 "data.mnist", "data.synthetic", "ivf.kmeans", "ivf.search",
                 "ivf.index", "ivf.cli", "utils.atomicio", "utils.npz_mmap",
-                "convert", "ivf.mutate", "serve.mutate", "serve.mutate_cli"):
+                "convert", "ivf.mutate", "serve.mutate", "serve.mutate_cli",
+                "obs.metrics", "obs.spans", "obs.cli", "resilience.faults",
+                "resilience.heartbeat", "resilience.worker",
+                "resilience.retry", "resilience.ladder", "resilience.doctor",
+                "serve.aotcache"):
         assert f"mpi_knn_tpu_torch.{mod}" in loaded
     assert "chip_smoke" in loaded
     bad = [m for m in loaded
            if m == "jax" or m.startswith(("jax.", "jaxlib"))
            or m == "mpi_knn_tpu" or m.startswith("mpi_knn_tpu.")]
     assert bad == []
+
+
+def test_the_supervisors_layers_import_no_torch():
+    """``obs``, ``resilience`` and the doctor's supervisor run in processes
+    that must never touch the card: importing them loads no torch."""
+    probe = ("import sys, mpi_knn_tpu_torch.obs.cli, mpi_knn_tpu_torch.resilience, "
+             "mpi_knn_tpu_torch.resilience.doctor; print('torch' in sys.modules)")
+    out = subprocess.run([sys.executable, "-c", probe], cwd=REPO,
+                         capture_output=True, text=True, timeout=60, check=True)
+    assert out.stdout.strip() == "False"
 
 
 def _imported_roots(path: Path):

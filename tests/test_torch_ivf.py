@@ -497,7 +497,6 @@ def test_build_index_cli_refusals_exit_2(argv, tmp_path):
     (["--dtype", "bfloat16"], "--dtype bfloat16"),
     (["--devices", "2"], "--devices"),
     (["--route-cap", "8"], "not yet ported"),
-    (["--cache-dir", "c"], "not yet ported"),
 ])
 def test_query_cli_index_load_refusals_exit_2(saved_index, argv, words,
                                               capsys):

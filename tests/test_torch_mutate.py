@@ -22,18 +22,22 @@ small sizes.
   churning beside a depth-2 session, and the ``mutate`` CLI, whose lines
   equal the JAX CLI's on the same file and flags.
 
-Waiting for their slices (ROADMAP.md): the restart against a warm AOT cache
-(``test_zero_compiles_after_restart_with_warm_cache``; A item 1) and the
-compile counts (``test_zero_compiles_under_sustained_ragged_churn``; eager
-PyTorch compiles nothing), the sharded store
-(``test_s1_sharded_mutation_bit_identical``,
+The hooks of ``resilience/`` and ``obs/`` (``test_compactor_defers_under_shed``,
+``test_mutation_metrics_and_gauges``,
+``test_compactor_thread_runs_and_flight_records``) are ported with the
+JAX package beside them: the same mutations give the same counters and
+gauges in both registries, and the port's flight record passes both
+packages' validators.
+
+Waiting for their slices (ROADMAP.md): the restart against a warm cache
+(``test_zero_compiles_after_restart_with_warm_cache``: no kernel lies on
+the mutation path, so the port's cache of kernel libraries has nothing to
+restart there; ``tests/test_torch_aotcache.py`` holds the cache) and the
+compile counts (``test_zero_compiles_under_sustained_ragged_churn``; the
+doctor's mutation probe counts the builds of a second pass), the sharded
+store (``test_s1_sharded_mutation_bit_identical``,
 ``test_sharded_mutation_and_compact``,
-``test_4shard_build_with_tombstones_reloads_on_fewer_shards``; A item 3),
-the metrics and gauges (``test_mutation_metrics_and_gauges``; ``obs/``, A
-item 4), shedding (``test_compactor_defers_under_shed``; ``resilience/``, A
-item 4) and the flight record
-(``test_compactor_thread_runs_and_flight_records``, whose thread half is
-mirrored here; ``obs/``, A item 4).
+``test_4shard_build_with_tombstones_reloads_on_fewer_shards``; A item 4).
 """
 
 import dataclasses
@@ -967,8 +971,7 @@ def test_cli_overflow_exits_1(tmp_path, capsys):
 
 @pytest.mark.parametrize("flag,argv", [
     ("--url", ["--url", "http://127.0.0.1:1"]),
-    ("--tenant", ["--index", "x.npz", "--tenant", "alice", "--stats"]),
-    ("--cache-dir", ["--index", "x.npz", "--cache-dir", "c", "--stats"])])
+    ("--tenant", ["--index", "x.npz", "--tenant", "alice", "--stats"])])
 def test_cli_unported_flags_exit_2(flag, argv, capsys):
     assert port_cli.main(["mutate", *argv, "--device", "cpu"]) == 2
     err = capsys.readouterr().err
@@ -983,3 +986,116 @@ def test_cli_unported_flags_exit_2(flag, argv, capsys):
 def test_cli_usage_errors_exit_2(argv, words, capsys):
     assert port_cli.main(["mutate", *argv, "--device", "cpu"]) == 2
     assert words in capsys.readouterr().err
+
+
+# ---------------------------------------------------------------------------
+# the hooks of resilience/ and obs/ (tests/test_mutation.py's)
+
+
+def test_compactor_defers_under_shed(rng):
+    from mpi_knn_tpu_torch.obs.metrics import get_registry
+    from mpi_knn_tpu_torch.resilience import ResiliencePolicy
+
+    X, _ = _blobs(rng, m=512)
+    idx = _ivf(X, compact_tombstone_fraction=0.1)
+    ses = ServeSession(idx, resilience=ResiliencePolicy(), device=CPU)
+    comp = ses.start_compactor(interval_s=3600)  # tick by hand
+    deferred0 = get_registry().counter("compact_deferred_total").value
+    try:
+        sm.delete_rows(idx, np.arange(0, 200))
+        assert should_compact(idx, ses.cfg) == "tombstones"
+        assert ses.shed_rung(reason="test") is not None
+        assert comp.tick() is None  # compaction is shed first
+        snap = comp.snapshot()
+        assert snap["deferred"] == 1 and snap["compactions"] == 0
+        assert get_registry().counter("compact_deferred_total").value == deferred0 + 1
+        ses.restore_rung()
+        st = comp.tick()
+        assert st is not None and st["reason"] == "tombstones"
+        assert comp.snapshot()["compactions"] == 1
+    finally:
+        comp.stop()
+
+
+def test_mutation_metrics_and_gauges(rng):
+    """The same upserts and deletes on a JAX index and its carried copy
+    move both registries' mutation counters by the same amounts and stamp
+    the same gauges; the port's exposition parses in both packages."""
+    from mpi_knn_tpu.obs import metrics as jmetrics
+    from mpi_knn_tpu_torch.obs import metrics as pmetrics
+
+    X, _ = _blobs(rng)
+    j, p = _pair(X)
+    rows = rng.standard_normal((16, 16)).astype(np.float32)
+    regs = (jmetrics.get_registry(), pmetrics.get_registry())
+    names = ("mutation_upserts_total", "mutation_deletes_total")
+    before = [[r.counter(n).value for n in names] for r in regs]
+    jsm.upsert_rows(j, np.arange(8000, 8016), rows)
+    jsm.delete_rows(j, np.arange(8000, 8008))
+    sm.upsert_rows(p, np.arange(8000, 8016), rows)
+    sm.delete_rows(p, np.arange(8000, 8008))
+    deltas = [[r.counter(n).value - b for n, b in zip(names, bs)]
+              for r, bs in zip(regs, before)]
+    assert deltas[0] == deltas[1] == [16, 8]
+    text = regs[1].to_prometheus()
+    samples = pmetrics.parse_prometheus(text)
+    assert samples == jmetrics.parse_prometheus(text)
+    assert samples["index_live_rows"] == freelist_of(p).live
+    assert 0 < samples["index_max_bucket_fill"] <= 1.0
+    for gauge in ("index_live_rows", "index_tombstone_fraction",
+                  "index_max_bucket_fill"):
+        assert regs[1].gauge(gauge).value == regs[0].gauge(gauge).value, gauge
+
+
+def test_compactor_thread_runs_and_flight_records(rng, tmp_path):
+    from mpi_knn_tpu.obs.spans import validate_flight as jvalidate
+    from mpi_knn_tpu_torch.obs.spans import (
+        FlightRecorder,
+        read_flight,
+        set_recorder,
+        validate_flight,
+    )
+
+    flight = tmp_path / "flight.jsonl"
+    set_recorder(FlightRecorder(str(flight), fresh=True))
+    try:
+        X, _ = _blobs(rng, m=512)
+        idx = _ivf(X, compact_tombstone_fraction=0.1)
+        ses = ServeSession(idx, device=CPU)
+        comp = ses.start_compactor(interval_s=0.05)
+        try:
+            sm.delete_rows(idx, np.arange(0, 200))
+            deadline = time.time() + 30
+            while comp.snapshot()["compactions"] == 0 and time.time() < deadline:
+                time.sleep(0.05)
+            assert comp.snapshot()["compactions"] >= 1
+        finally:
+            comp.stop()
+    finally:
+        set_recorder(None)
+    records = read_flight(str(flight))
+    assert validate_flight(records) == [] and jvalidate(records) == []
+    assert any(r.get("name") == "compact" for r in records)
+    assert any(r.get("name") == "delete" and r.get("cat") == "mutate"
+               for r in records)
+
+
+def test_cli_cache_dir_mutates_with_the_cache_on(saved, capsys):
+    """``--cache-dir`` points the process at the kernel cache; the
+    mutation path launches no kernel, so its lines equal the JAX CLI's."""
+    from mpi_knn_tpu_torch.serve import aotcache
+
+    a, b, tmp = saved
+    try:
+        assert port_cli.main(["mutate", "--index", a, "--delete", "17,42",
+                              "--cache-dir", str(tmp / "cache"),
+                              "--device", "cpu"]) == 0
+        assert aotcache.active_cache().dir == tmp / "cache"
+    finally:
+        aotcache.reset_for_tests()
+    got = _lines(capsys)
+    assert jcli.main(["--index", b, "--delete", "17,42", "--platform", "cpu"]) == 0
+    want = _lines(capsys)
+    for g in got + want:
+        g.pop("path", None)
+    assert got == want

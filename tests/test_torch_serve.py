@@ -410,10 +410,7 @@ def test_query_cli_refusals_exit_2(argv):
 
 @pytest.mark.parametrize("flag,value", [
     ("--index-load", "i.npz"), ("--nprobe", "4"), ("--route-cap", "8"),
-    ("--batch-deadline-ms", "5"),
-    ("--retries", "2"), ("--degrade-after", "2"), ("--no-nan-sentinel", None),
-    ("--flight-record", "f.jsonl"), ("--metrics-out", "m.json"),
-    ("--profile-batches", "4"), ("--profile-dir", "p"), ("--cache-dir", "c"),
+    ("--profile-batches", "4"), ("--profile-dir", "p"),
 ])
 def test_query_cli_unported_flags_exit_2(flag, value, capsys):
     argv = ["--data", "synthetic:64x8c2", "--synthetic", "8", "--device",
