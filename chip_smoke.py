@@ -184,7 +184,21 @@ is not 0:
    with an injected hang (its supervisor never initializes CUDA); then
    timed windows with and without a policy and a flight record, and each
    rung's q/s, p99 and recall@10;
-13. kernels: one line with every kernel mode's launches, error, times and
+13. frontend (``frontend_phase``): the serving front end at the serve
+   phase's deployment under a policy: a Frontend and its HTTP server on
+   port 0, a checked pass of 16- and 256-row requests from 8 tenants at
+   once, bit for bit the session alone and recall@10 = 1.0, then
+   ``loadgen`` at three offered rates of each size (q/s, p50/p99 beside
+   the session alone) and the batch fill histogram, K1 and its prologue
+   launched; an overload burst under injected slow batches shed to the
+   mixed rung (K1[c] launched) and recovered, with the lags; online
+   mutation over HTTP and through ``mutate --url`` on a serial index (a
+   409 on a sequence gap); ``router --spawn 2`` as a process over the
+   warm kernel cache the ops phase left: its answers bit for bit the
+   front end's, ``loadgen`` through it and against one replica, a
+   replica SIGKILLed under load (no client error) rejoining with its
+   mutation sequence caught up by replay;
+14. kernels: one line with every kernel mode's launches, error, times and
    bound, the prologues (`stage_tf32_split`, `stage_tf32[wire]`,
    `stage_tf32_split[ring]`, `stage_bf16`, `stage_bf16[wire]`,
    `stage_norms`), the "default" / "high" forms and the approx kernel (f32
@@ -2477,7 +2491,7 @@ def ops_same(results, want) -> bool:
                for r, w in zip(results, want)) and len(results) == len(want)
 
 
-def ops_phase(device, X, inputs) -> None:
+def ops_phase(device, X, inputs, keep_cache=None) -> None:
     """The serving session's operations layer at the serve phase's
     deployment (the 60000x784 pallas tiles exact index, 256-row batches of
     its 10000 queries, bucket base 1024, depth 2) and the ``ivf`` phase's
@@ -2825,12 +2839,498 @@ def ops_phase(device, X, inputs) -> None:
         if damaged_doc["digest"] != cold_doc["digest"]:
             raise AssertionError("ops: the damaged child's results differ")
         emit({"phase": "ops_done", "seconds": time.perf_counter() - t_phase})
+        if keep_cache is not None:
+            # the warm cache the frontend phase's spawned replicas load from
+            shutil.copytree(cache_a, keep_cache)
     finally:
         obs_spans.set_recorder(None)
         for proc in children:
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+FE_TENANTS = 8  # tenant streams of the front end's load
+FE_ROWS = (16, 256)  # rows a request (raw f32)
+# per-tenant offered requests/s of each size, lowest first: 16-row
+# requests at 0.5k-33k rows/s in all, 256-row ones at 8k-131k
+FE_RATES = {16: (4.0, 32.0, 256.0), 256: (4.0, 16.0, 64.0)}
+FE_SECONDS = 1.5  # a rate's open-loop schedule (requests = rate x this, >= 8)
+FE_CHECK = 4  # requests a tenant in the checked pass (16 and 256 rows alternated)
+FE_SHED_ROWS = 4096  # the overload front end's shed threshold
+FE_SLOW_S = 0.06  # the injected slow dispatch of the overload burst
+FE_BURST_S = 0.5  # the burst's length
+FE_CHILD_BOOT_S = 300  # a spawned replica's limit to join the rotation
+
+
+def fe_post(url, path, body, headers, timeout=60):
+    """(status, JSON body) of one POST, HTTP errors included."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(url + path, data=body, headers=headers,
+                                 method="POST")
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def fe_get(url, path, timeout=10):
+    import urllib.request
+
+    with urllib.request.urlopen(url + path, timeout=timeout) as r:
+        return json.loads(r.read())
+
+
+def fe_query(url, tenant, q):
+    """One raw-f32 POST /query: (dists f32, ids), raising on any non-200."""
+    status, doc = fe_post(url, "/query", np.ascontiguousarray(q, "<f4").tobytes(),
+                          {"Content-Type": "application/octet-stream",
+                           "X-Tenant": tenant})
+    if status != 200 or doc["rows"] != q.shape[0]:
+        raise AssertionError(f"frontend: /query answered {status}: {doc}")
+    return np.asarray(doc["dists"], np.float32), np.asarray(doc["ids"], np.int32)
+
+
+def fe_checked_requests(Qs):
+    """The checked pass: FE_TENANTS tenants x FE_CHECK requests of
+    consecutive query rows, 16 and 256 rows alternated."""
+    reqs, at = [], 0
+    for t in range(FE_TENANTS):
+        for i in range(FE_CHECK):
+            rows = FE_ROWS[(t + i) % 2]
+            reqs.append((f"tenant-{t}", at, at + rows))
+            at += rows
+    return reqs
+
+
+def fe_concurrent(url, reqs, Qs):
+    """Every request of ``reqs`` posted at once (one thread each, so the
+    server coalesces them across tenants): their answers, in order."""
+    import threading
+
+    out = [None] * len(reqs)
+    errors = []
+
+    def one(i, tenant, lo, hi):
+        try:
+            out[i] = fe_query(url, tenant, Qs[lo:hi])
+        except Exception as e:  # noqa: BLE001 - re-raised below, named
+            errors.append(f"{tenant} rows {lo}:{hi}: {type(e).__name__}: {e}")
+
+    threads = [threading.Thread(target=one, args=(i, *r), daemon=True)
+               for i, r in enumerate(reqs)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(120)
+    if errors or any(th.is_alive() for th in threads):
+        raise AssertionError(f"frontend: checked pass failed: {errors[:3]}")
+    return out
+
+
+def fe_metrics(prefix) -> dict:
+    """The registry's metrics whose sample name starts with ``prefix``."""
+    from mpi_knn_tpu_torch.obs.metrics import get_registry
+
+    return {k: v for k, v in get_registry().snapshot()["metrics"].items()
+            if k.startswith(prefix)}
+
+
+def fe_alone_window(session, rows, Qs, n=40) -> dict:
+    """The session alone on ``rows``-row batches (no front end): q/s and
+    p50 / p99 of its dispatch -> retire latency."""
+    session.reset_stats()
+    batches = [Qs[(i * rows) % (len(Qs) - rows):][:rows] for i in range(n)]
+    t0 = time.perf_counter()
+    for _ in session.stream(batches):
+        pass
+    wall = time.perf_counter() - t0
+    lats = 1e3 * np.asarray(session.latencies)
+    return {"qps": session.queries_served / wall,
+            "p50_ms": float(np.percentile(lats, 50)),
+            "p99_ms": float(np.percentile(lats, 99))}
+
+
+def frontend_phase(device, X, inputs, cache_dir) -> dict:
+    """The serving front end at the serve phase's deployment (the 60000x784
+    pallas tiles exact index, k=10, bucket base 1024, depth 2) under a
+    ResiliencePolicy:
+
+    - (a) ``Frontend`` + ``FrontendHTTPServer`` on port 0, warmed over the
+      bucket ladder. A checked pass (FE_TENANTS tenants x FE_CHECK
+      requests of 16 and 256 rows, all posted at once) answers each
+      request bit for bit as the session alone answers its rows, at
+      recall@10 = 1.0 against an f64 oracle with the kernels' zero rule;
+      then ``loadgen.run_http`` (FE_TENANTS tenants, raw f32) at three
+      offered rates of each size, q/s and p50 / p99 beside the session
+      alone on batches of that size; the batch fill histogram. K1 and its
+      prologue ``stage_tf32_split`` launched (counts set to 0 before);
+    - (b) overload: in-process bursts past FE_SHED_ROWS under injected slow
+      dispatches shed to the mixed rung (K1[c] and ``stage_bf16``
+      launched), every admitted request served, and the ladder recovers
+      to full; the shed and recovery lags;
+    - (c) online mutation over HTTP on a serial index with headroom (the
+      pallas layout takes no live mutation): POST /upsert, a query near an
+      upserted row returns its new id; POST /delete, the id is gone; a
+      sequence gap is 409; ``mutate --url`` does the same as a process;
+    - (d) ``router --spawn 2`` as a process, its children ``serve`` on the
+      same data (``--data mnist --limit M_FULL``) with the warm kernel
+      cache ``cache_dir``: both join the rotation; the checked pass
+      through the router answers as (a)'s, bit for bit; ``loadgen``
+      through the router and against one replica (q/s; both replicas
+      share the card); one child SIGKILLed under load: no client error,
+      the child restarted, rejoined with its ``applied_seq`` caught up by
+      replay (a mutation the pallas layout refuses with 400 consumes its
+      seq as an apply would); the router stopped by SIGTERM, its children
+      gone.
+
+    Returns the launch counts of (a) and (b)."""
+    import signal
+    import threading
+
+    import torch
+
+    from mpi_knn_tpu_torch import KNNConfig, ServeSession, build_index
+    from mpi_knn_tpu_torch.data.synthetic import make_mnist_like
+    from mpi_knn_tpu_torch.frontend import (
+        Frontend,
+        FrontendHTTPServer,
+        Rejection,
+        SLOPolicy,
+        loadgen,
+    )
+    from mpi_knn_tpu_torch.resilience import ResiliencePolicy, install_faults
+
+    t_phase = time.perf_counter()
+    card = device.type == "cuda"
+    platform = "cuda" if card else "cpu"
+    Qs = inputs["Qs"]
+    here = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.mkdtemp(prefix="tknn-fe-")
+    servers, fronts, procs, child_pids = [], [], [], set()
+    try:
+        # ---- (a) the front end over HTTP --------------------------------
+        index = build_index(X, KNNConfig(k=K, backend="pallas",
+                                         query_bucket=SERVE_BUCKET,
+                                         dispatch_depth=2), device=device)
+        t0 = time.perf_counter()
+        fe = Frontend(ServeSession(index, resilience=ResiliencePolicy(),
+                                   device=device),
+                      SLOPolicy(max_batch_rows=SERVE_BUCKET, max_wait_s=0.002,
+                                max_queue_rows=65536)).start()
+        fronts.append(fe)
+        warm_s = time.perf_counter() - t0
+        srv = FrontendHTTPServer(fe, port=0).start()
+        servers.append(srv)
+        health = fe_get(srv.url, "/healthz")
+        emit({"phase": "frontend_warm", "seconds": warm_s,
+              "warm_report": fe.session.warm_report, "ladder": health["ladder"],
+              "peak_hbm_bytes": health["peak_hbm_bytes"],
+              "max_memory_allocated": (torch.cuda.max_memory_allocated(device)
+                                       if card else None)})
+        reqs = fe_checked_requests(Qs)
+        reset_counts()
+        answers = fe_concurrent(srv.url, reqs, Qs)
+        runs = {}
+        for rows in FE_ROWS:
+            for rate in FE_RATES[rows]:
+                runs[(rows, rate)] = loadgen.run_http(
+                    srv.url, tenants=FE_TENANTS, qps=rate,
+                    n_requests=max(8, int(rate * FE_SECONDS)), rows=rows,
+                    lo=0.0, hi=255.0, timeout_s=120)
+        sync_all()
+        counts_a = {k: v for k, v in read_counts().items() if v}
+        fill = {k: {f: v[f] for f in ("buckets", "counts", "count")}
+                for k, v in fe_metrics("frontend_batch_fill_rows").items()}
+        # the session alone: each checked request's rows as its own batch
+        alone = ServeSession(index, device=device)
+        want = []
+        for _, lo, hi in reqs:
+            want += alone.submit(Qs[lo:hi])
+        want += alone.drain()
+        same = all(np.array_equal(d, w.dists) and np.array_equal(i, w.ids)
+                   for (d, i), w in zip(answers, want))
+        rows_checked = reqs[-1][2]
+        picks = np.linspace(0, rows_checked - 1, 512).astype(np.int64)
+        od, oi = ops_oracle(inputs["Xc64"], inputs["Qc64"][picks], device)
+        ids_all = np.concatenate([i for _, i in answers])
+        rec = tie_recall(ids_all[picks], od, oi)
+        emit({"phase": "frontend_checked", "requests": len(reqs),
+              "rows": rows_checked, "bit_for_bit_session": same,
+              "recall_at_10": rec, "launches": counts_a})
+        if not same:
+            raise AssertionError("frontend: HTTP answers differ from the session's")
+        if rec < 1.0:
+            raise AssertionError(f"frontend: recall@10 {rec} < 1.0")
+        need = ("fused_knn_tiles", "stage_tf32_split")
+        if card and not all(counts_a.get(n, 0) > 0 for n in need):
+            raise AssertionError(f"frontend: launches {counts_a} lack {need}")
+        alone_w = {rows: fe_alone_window(alone, rows, Qs) for rows in FE_ROWS}
+        for (rows, rate), rep in runs.items():
+            emit({"phase": "frontend_http", "rows": rows, "tenants": FE_TENANTS,
+                  "offered_rps": rep["offered_qps_total"],
+                  "offered_rows_per_s": rep["offered_qps_total"] * rows,
+                  "achieved_rps": rep["achieved_rps"],
+                  "qps": rep["achieved_qps_rows"], "p50_ms": rep["p50_ms"],
+                  "p99_ms": rep["p99_ms"], "rejected": rep["rejected"],
+                  "errors": rep["errors"], "wall_s": rep["wall_s"],
+                  "session_alone": alone_w[rows]})
+            if rep["errors"] or rep["rejected"]:
+                raise AssertionError(f"frontend: load at {rows}x{rate}: {rep}")
+        emit({"phase": "frontend_fill", "histogram": fill,
+              "batches_by_reason": {k: v["value"] for k, v in
+                                    fe_metrics("frontend_batches_total").items()}})
+
+        # ---- (b) overload: shed to the mixed rung and recover ----------
+        ses_b = ServeSession(index, resilience=ResiliencePolicy(), device=device)
+        fe_b = Frontend(ses_b, SLOPolicy(
+            max_batch_rows=SERVE_BUCKET, max_wait_s=0.002, max_queue_rows=1 << 20,
+            shed_queue_rows=FE_SHED_ROWS, shed_hold_s=0.05,
+            recover_hold_s=0.25)).start()
+        fronts.append(fe_b)
+        batch = Qs[:OPS_BATCH]
+        reset_counts()
+        tickets = []
+        with install_faults({"serve-batch": ("slow", FE_SLOW_S)}):
+            t_start = time.monotonic()
+            while time.monotonic() - t_start < FE_BURST_S:
+                for t in range(FE_TENANTS):
+                    out = fe_b.submit(f"tenant-{t}", batch)
+                    if isinstance(out, Rejection):
+                        raise AssertionError(f"frontend: burst refused {out}")
+                    tickets.append(out)
+                time.sleep(0.02)
+            t_end = time.monotonic()
+            for tk in tickets:
+                d, _ = tk.result(timeout=120)
+                if not np.isfinite(d).all():
+                    raise AssertionError("frontend: a burst answer is not finite")
+            t_served = max(tk.done_s for tk in tickets)
+            deadline = t_end + 120
+            while time.monotonic() < deadline:
+                st = fe_b.stats()
+                if st["rung"] == "full" and st["queue_rows"] == 0 and st["recoveries"]:
+                    break
+                time.sleep(0.01)
+        sync_all()
+        counts_b = {k: v for k, v in read_counts().items() if v}
+        sheds, recs = fe_b.scheduler.sheds, fe_b.scheduler.recoveries
+        emit({"phase": "frontend_overload", "requests": len(tickets),
+              "rows": len(tickets) * OPS_BATCH, "burst_s": t_end - t_start,
+              "sheds": sheds, "recoveries": recs,
+              "shed_lag_s": sheds[0]["t_s"] - t_start if sheds else None,
+              "served_s": t_served - t_end,
+              "recovery_lag_s": recs[-1]["t_s"] - t_served if recs else None,
+              "final_rung": ses_b.rung, "launches": counts_b})
+        if not sheds or sheds[0]["rung"] != "mixed" or ses_b.rung != "full":
+            raise AssertionError(f"frontend: overload walk {sheds} / {recs}")
+        if card and not all(counts_b.get(n, 0) > 0 for n in (
+                "fused_knn_tiles[compress]", "stage_bf16")):
+            raise AssertionError(f"frontend: the shed rung launched {counts_b}")
+        fe_b.stop()
+
+        # ---- (c) online mutation over HTTP (serial layout) -------------
+        sidx = build_index(X, KNNConfig(k=K, backend="serial",
+                                        query_bucket=SERVE_BUCKET,
+                                        bucket_headroom=0.01,
+                                        mutation_bucket=MUT_BUCKET), device=device)
+        fe_c = Frontend(ServeSession(sidx, device=device), SLOPolicy(
+            max_batch_rows=SERVE_BUCKET, max_wait_s=0.002,
+            max_queue_rows=65536)).start()
+        fronts.append(fe_c)
+        srv_c = FrontendHTTPServer(fe_c, port=0).start()
+        servers.append(srv_c)
+        R, _ = make_mnist_like(MUT_BUCKET, seed=9)
+        new = MUT_ID_BASE + np.arange(MUT_BUCKET)
+        jhdr = {"Content-Type": "application/json", "X-Tenant": "writer"}
+        t0 = time.perf_counter()
+        s_up, up = fe_post(srv_c.url, "/upsert", json.dumps(
+            {"ids": new.tolist(), "rows": R.tolist()}).encode(),
+            {**jhdr, "X-Mutation-Seq": "1"})
+        upsert_ms = 1e3 * (time.perf_counter() - t0)
+        sel = np.array([0, 7, MUT_BUCKET - 1])
+        _, got = fe_query(srv_c.url, "reader", R[sel] + MUT_OFFSET)
+        s_del, dl = fe_post(srv_c.url, "/delete", json.dumps(
+            {"ids": [int(new[7])]}).encode(), {**jhdr, "X-Mutation-Seq": "2"})
+        _, after = fe_query(srv_c.url, "reader", R[7:8] + MUT_OFFSET)
+        s_gap, gap = fe_post(srv_c.url, "/upsert", json.dumps(
+            {"ids": [int(new[0])], "rows": R[:1].tolist()}).encode(),
+            {**jhdr, "X-Mutation-Seq": "5"})
+        applied = fe_get(srv_c.url, "/healthz")["applied_seq"]
+        R2, _ = make_mnist_like(64, seed=10)
+        np.save(os.path.join(tmp, "r2.npy"), R2)
+        base2 = MUT_ID_BASE + 1000
+        cli = [sys.executable, "-m", "mpi_knn_tpu_torch", "mutate", "--url",
+               srv_c.url, "--tenant", "cli"]
+        cli_up = subprocess.run(cli + ["--upsert-rows", os.path.join(tmp, "r2.npy"),
+                                       "--ids", f"{base2}:{base2 + 64}"],
+                                cwd=here, capture_output=True, text=True,
+                                timeout=300)
+        _, got2 = fe_query(srv_c.url, "reader", R2[3:4] + MUT_OFFSET)
+        cli_del = subprocess.run(cli + ["--delete", str(base2 + 3)], cwd=here,
+                                 capture_output=True, text=True, timeout=300)
+        _, after2 = fe_query(srv_c.url, "reader", R2[3:4] + MUT_OFFSET)
+        emit({"phase": "frontend_mutation", "upsert": {"status": s_up, **up},
+              "upsert_ms": upsert_ms, "first_ids": got[:, 0].tolist(),
+              "delete": {"status": s_del, **dl},
+              "after_delete_ids": after[0].tolist(),
+              "gap": {"status": s_gap, **gap}, "applied_seq": applied,
+              "cli_upsert_rc": cli_up.returncode, "cli_first_id": int(got2[0, 0]),
+              "cli_delete_rc": cli_del.returncode,
+              "cli_after_delete_ids": after2[0].tolist()})
+        checks = {
+            "upsert": s_up == 200 and up["upserted"] == MUT_BUCKET
+            and up["applied_seq"] == 1,
+            "new ids first": got[:, 0].tolist() == new[sel].tolist(),
+            "delete": s_del == 200 and dl["deleted"] == 1,
+            "deleted id gone": int(new[7]) not in after[0].tolist(),
+            "gap 409": s_gap == 409 and gap["error"] == "seq-gap" and applied == 2,
+            "cli upsert": cli_up.returncode == 0 and int(got2[0, 0]) == base2 + 3,
+            "cli delete": cli_del.returncode == 0
+            and base2 + 3 not in after2[0].tolist(),
+        }
+        bad = [k for k, ok in checks.items() if not ok]
+        if bad:
+            raise AssertionError(f"frontend: online mutation failed {bad}: "
+                                 f"{cli_up.stderr[-2000:]}{cli_del.stderr[-2000:]}")
+        srv_c.stop()
+        servers.remove(srv_c)
+        fe_c.stop()
+
+        # ---- (d) the router and its spawned replicas, as processes ----
+        ready = os.path.join(tmp, "router.url")
+        log = open(os.path.join(tmp, "router.log"), "w")
+        router = subprocess.Popen(
+            [sys.executable, "-m", "mpi_knn_tpu_torch", "router", "--spawn", "2",
+             "--cache-dir", cache_dir, "--workdir", os.path.join(tmp, "rt"),
+             "--port", "0", "--ready-file", ready, "--probe-interval-ms", "200",
+             "-q", "--", "--data", "mnist", "--limit", str(len(X)), "--k", str(K),
+             "--backend", "pallas", "--bucket", str(SERVE_BUCKET),
+             "--platform", platform],
+            cwd=here, stdout=log, stderr=subprocess.STDOUT,
+            start_new_session=True)
+        procs.append(router)
+        t0 = time.perf_counter()
+        while not os.path.exists(ready):
+            if router.poll() is not None or time.perf_counter() - t0 > 60:
+                raise AssertionError("frontend: the router did not start")
+            time.sleep(0.1)
+        rurl = open(ready).read().strip()
+        while len(fe_get(rurl, "/healthz")["rotation"]) < 2:
+            if time.perf_counter() - t0 > FE_CHILD_BOOT_S:
+                raise AssertionError(f"frontend: replicas not in rotation: "
+                                     f"{fe_get(rurl, '/healthz')}")
+            time.sleep(0.2)
+        join_s = time.perf_counter() - t0
+        via = fe_concurrent(rurl, reqs, Qs)
+        same_router = all(np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
+                          for a, b in zip(via, answers))
+        if not same_router:
+            raise AssertionError("frontend: the router's answers differ from (a)'s")
+        children = fe_get(rurl, "/healthz")["children"]
+        child_pids |= {c["pid"] for c in children.values() if c["pid"]}
+        one_url = children["r0"]["url"]
+        lg = {}
+        for rate in (16.0, 64.0):  # 32.8k and 131k rows/s offered
+            for name, url in (("router", rurl), ("one_replica", one_url)):
+                lg[f"{name}@{rate:g}"] = loadgen.run_http(
+                    url, tenants=FE_TENANTS, qps=rate,
+                    n_requests=max(8, int(rate * FE_SECONDS)), rows=256,
+                    lo=0.0, hi=255.0, timeout_s=120)
+        cli_lg = subprocess.run(
+            [sys.executable, "-m", "mpi_knn_tpu_torch", "loadgen", "--url", rurl,
+             "--tenants", str(FE_TENANTS), "--qps", "16", "--requests", "8",
+             "--rows", "16", "-q", "--report", os.path.join(tmp, "lg.json")],
+            cwd=here, capture_output=True, text=True, timeout=300)
+        if cli_lg.returncode != 0:
+            raise AssertionError(f"frontend: loadgen CLI: {cli_lg.stderr[-2000:]}")
+        cli_rep = json.load(open(os.path.join(tmp, "lg.json")))
+        # SIGKILL r0 under load; mutate while it is down
+        victim_pid = children["r0"]["pid"]
+        out = {}
+        load = threading.Thread(target=lambda: out.update(rep=loadgen.run_http(
+            rurl, tenants=FE_TENANTS, qps=16.0, n_requests=48, rows=16,
+            lo=0.0, hi=255.0, timeout_s=120)), daemon=True)
+        load.start()
+        time.sleep(0.5)
+        os.kill(victim_pid, signal.SIGKILL)
+        t_kill = time.perf_counter()
+        load.join(300)
+        while fe_get(rurl, "/healthz")["rotation"] != ["r1"]:
+            if time.perf_counter() - t_kill > 60:
+                raise AssertionError("frontend: the killed replica stayed in rotation")
+            time.sleep(0.05)
+        s_m, m_doc = fe_post(rurl, "/upsert", json.dumps(
+            {"ids": [1], "rows": [[0.0] * X.shape[1]]}).encode(), jhdr)
+        while True:
+            h = fe_get(rurl, "/healthz")
+            pid_now = h["children"]["r0"]["pid"]
+            child_pids |= {c["pid"] for c in h["children"].values() if c["pid"]}
+            if (len(h["rotation"]) == 2 and pid_now not in (None, victim_pid)
+                    and all(r["applied_seq"] == h["seq"] for r in h["replicas"].values())):
+                break
+            if time.perf_counter() - t_kill > FE_CHILD_BOOT_S:
+                raise AssertionError(f"frontend: r0 did not rejoin: {h}")
+            time.sleep(0.2)
+        rejoin_s = time.perf_counter() - t_kill
+        after_kill = fe_concurrent(rurl, reqs[:8], Qs)
+        same_after = all(np.array_equal(a[1], b[1]) for a, b in zip(after_kill, answers))
+        kill_rep = out.get("rep", {})
+        keep = ("offered_qps_total", "achieved_rps", "achieved_qps_rows",
+                "p50_ms", "p99_ms", "errors", "wall_s")
+        emit({"phase": "frontend_router", "join_s": join_s,
+              "bit_for_bit_a": same_router,
+              "loadgen": {n: {k: r[k] for k in keep} for n, r in lg.items()},
+              "loadgen_cli": {k: cli_rep["rows"][0][k] for k in keep},
+              "kill": {"errors": kill_rep.get("errors"),
+                       "by_status": kill_rep.get("by_status"),
+                       "served": sum(kill_rep.get("per_tenant", {}).values())},
+              "mutation_while_down": {"status": s_m, **m_doc},
+              "rejoin_s": rejoin_s, "seq": h["seq"],
+              "replicas": h["replicas"], "bit_for_bit_after_rejoin": same_after})
+        if kill_rep.get("errors") != 0 or kill_rep.get("rejected") != 0 or \
+                sum(kill_rep.get("per_tenant", {}).values()) != FE_TENANTS * 48:
+            raise AssertionError(f"frontend: load through the kill: {kill_rep}")
+        if s_m != 400 or h["seq"] != 1 or not same_after:
+            raise AssertionError(f"frontend: replay after rejoin {s_m} {h}")
+        if any(lg[n]["errors"] for n in lg):
+            raise AssertionError(f"frontend: router loadgen errors {lg}")
+        pids = [c["pid"] for c in h["children"].values()]
+        router.send_signal(signal.SIGTERM)
+        router.wait(timeout=60)
+        alive = []
+        for pid in pids:
+            try:
+                os.kill(pid, 0)
+                alive.append(pid)
+            except ProcessLookupError:
+                pass
+        if router.returncode != 0 or alive:
+            raise AssertionError(f"frontend: router exit {router.returncode}, "
+                                 f"children left {alive}")
+        emit({"phase": "frontend_done", "seconds": time.perf_counter() - t_phase})
+        return {"a": counts_a, "b": counts_b}
+    finally:
+        for s in servers:
+            s.stop()
+        for f in fronts:
+            f.stop()
+        for p in procs:
+            if p.poll() is None:
+                try:
+                    os.killpg(p.pid, signal.SIGKILL)
+                except ProcessLookupError:
+                    pass
+                p.wait()
+        for pid in child_pids:  # a replica runs in a session of its own
+            try:
+                os.killpg(pid, signal.SIGKILL)
+            except (ProcessLookupError, PermissionError):
+                pass
         shutil.rmtree(tmp, ignore_errors=True)
 
 
@@ -4278,8 +4778,19 @@ def main() -> int:
     mutate_phase(device)
     mark("mutate")
     # ---- the serving session's operations layer --------------------------
-    ops_phase(device, X, inputs)
-    mark("ops")
+    fe_tmp = tempfile.mkdtemp(prefix="tknn-fe-cache-")
+    try:
+        fe_cache = os.path.join(fe_tmp, "kc")
+        ops_phase(device, X, inputs, keep_cache=fe_cache)
+        mark("ops")
+        # ---- the serving front end, its load generator and router ----------
+        fe_counts = frontend_phase(device, X, inputs, fe_cache)
+    finally:
+        shutil.rmtree(fe_tmp, ignore_errors=True)
+    mark("frontend")
+    frontend_launches = {n: fe_counts["a"].get(n, 0) + fe_counts["b"].get(n, 0)
+                         for n in ("fused_knn_tiles", "stage_tf32_split",
+                                   "fused_knn_tiles[compress]", "stage_bf16")}
     max_err["approx_min_k"] = max(e["max_abs_err"] for c, e in approx.items()
                                   if "f64/" not in c)
     max_err["approx_min_k[f64]"] = max(e["max_abs_err"] for c, e in approx.items()
@@ -4375,7 +4886,10 @@ def main() -> int:
          "max_abs_err": max_err[name], "ms": times[name]["ms"],
          "plain_ms": times[name]["plain_ms"],
          "bound_ms": times[name]["bound_ms"],
-         "bound_by": times[name]["bound_by"], "library_ms": library_of[name]}
+         "bound_by": times[name]["bound_by"], "library_ms": library_of[name],
+         # the launches of the front end's phase (counts set to 0 before it)
+         **({"frontend_launches": frontend_launches[name]}
+            if name in frontend_launches else {})}
         for name in replaces
     ]})
     mark("kernels_line")

@@ -11,6 +11,15 @@ if _sub == ["metrics"]:
     from mpi_knn_tpu_torch.obs.cli import main as _metrics
 
     sys.exit(_metrics(sys.argv[2:]))
+# a load generator or a router never creates a CUDA context
+if _sub == ["loadgen"]:
+    from mpi_knn_tpu_torch.frontend.cli import loadgen_main
+
+    sys.exit(loadgen_main(sys.argv[2:]))
+if _sub == ["router"]:
+    from mpi_knn_tpu_torch.frontend.cli import router_main
+
+    sys.exit(router_main(sys.argv[2:]))
 
 from mpi_knn_tpu_torch.cli import main  # noqa: E402
 

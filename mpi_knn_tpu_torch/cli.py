@@ -19,6 +19,11 @@
     python -m mpi_knn_tpu_torch mutate --index sift.ivf.npz \\
         --delete 17,42 --compact                          # serve/mutate_cli.py
     python -m mpi_knn_tpu_torch metrics m.json --check    # obs/cli.py
+    python -m mpi_knn_tpu_torch serve --data mnist --k 10 --backend pallas \\
+        --port 0 --ready-file s.url                       # frontend/cli.py
+    python -m mpi_knn_tpu_torch loadgen --url "$(cat s.url)" --tenants 8
+    python -m mpi_knn_tpu_torch router --spawn 2 --cache-dir kc -- \\
+        --data mnist --k 10 --backend pallas
     python -m mpi_knn_tpu_torch doctor                    # resilience/doctor.py
 
 Flags. Data: ``--data`` (``mnist``, ``digits``, ``synthetic:MxDcC``,
@@ -37,7 +42,7 @@ kNN: ``--k``, ``--metric``, ``--backend``, ``--num-classes``,
 
 Not yet ported (exit 2, naming what was asked): the multi-process flags
 ``--dp``, ``--coordinator``, ``--num-processes``, ``--process-id``, and the
-subcommands ``lint``, ``serve``, ``loadgen``, ``router`` and ``plan``.
+subcommands ``lint`` and ``plan``.
 """
 
 from __future__ import annotations
@@ -66,7 +71,7 @@ from mpi_knn_tpu_torch.config import (
 )
 from mpi_knn_tpu_torch.device import DEFAULT_DEVICE
 
-UNPORTED_SUBCOMMANDS = ("lint", "serve", "loadgen", "router", "plan")
+UNPORTED_SUBCOMMANDS = ("lint", "plan")
 UNPORTED_FLAGS = ("--dp", "--coordinator", "--num-processes", "--process-id")
 
 
@@ -324,6 +329,12 @@ def main(argv=None) -> int:
         from mpi_knn_tpu_torch.serve.mutate_cli import main as mutate_main
 
         return mutate_main(argv[1:])
+    if argv and argv[0] in ("serve", "loadgen", "router"):
+        # the serving front end and its load generator and router
+        # (frontend/cli.py)
+        from mpi_knn_tpu_torch.frontend import cli as frontend_cli
+
+        return getattr(frontend_cli, f"{argv[0]}_main")(argv[1:])
     if argv and argv[0] == "metrics":
         # metrics snapshots and flight records (obs/cli.py)
         from mpi_knn_tpu_torch.obs.cli import main as metrics_main

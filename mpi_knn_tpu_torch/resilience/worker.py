@@ -112,6 +112,8 @@ def run_supervised(
     poll_s: float = 0.05,
     cwd: str | None = None,
     flight_path: str | None = None,
+    stop_event=None,
+    on_spawn=None,
 ) -> WorkerResult:
     """Run ``argv`` as a supervised worker subprocess.
 
@@ -123,6 +125,13 @@ def run_supervised(
     timeout yields ``status="timeout"`` with the reason recorded; a child
     that exits non-zero by itself is ``"crashed"``; rc 0 is ``"ok"``.
     ``None`` disables the corresponding bound.
+
+    ``stop_event`` (a ``threading.Event``) makes the supervision
+    cancellable: when set, the child's tree is killed and the result
+    comes back as ``status="timeout"`` with ``reason="stop requested"``
+    (a long-lived replica supervisor's clean shutdown). ``on_spawn`` is
+    called with the child's pid right after the spawn, before any
+    waiting: how a caller learns which process backs a supervised unit.
 
     The child also gets ``TKNN_FLIGHT_RECORD`` pointing at a span flight
     file, so anything it traces (serve batches, builds, beats)
@@ -170,12 +179,19 @@ def run_supervised(
                 cwd=cwd,
                 start_new_session=True,  # kill escalation reaches grandchildren
             )
+            if on_spawn is not None:
+                on_spawn(proc.pid)
             killed = False
             while True:
                 rc = proc.poll()
                 if rc is not None:
                     break
                 now = time.monotonic()
+                if stop_event is not None and stop_event.is_set():
+                    reason = "stop requested"
+                    _kill_tree(proc)
+                    killed = True
+                    break
                 beat = read_beat(beat_path)
                 if beat is not None and beat["seq"] > last_seq:
                     last_seq = beat["seq"]

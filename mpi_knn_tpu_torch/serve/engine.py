@@ -155,6 +155,7 @@ class _BucketExec:
     # device tensors are written; a dispatch's stream waits for it (an
     # entry warmed on a pool thread is read from the dispatching one)
     ready: torch.cuda.Event | None = None
+    device_bytes: int = 0  # its tensors and in-flight batches (peak figure)
 
     def _new_slot(self) -> _Slot:
         card = self.device.type == "cuda"
@@ -347,11 +348,12 @@ def _build_entry(index: CorpusIndex, cfg: KNNConfig,
                   "wire dtype").set(ring_wire_bytes_per_batch(
                       cfg, sum(t[0].shape[0] for t in index.shards), index.dim,
                       index.ring_meta[3]))
-    peak = index_peak_hbm_bytes(index)
-    if peak is not None:
-        reg.gauge("serve_peak_hbm_bytes",
-                  help="peak device bytes allocated on the index's card so "
-                  "far (torch.cuda.max_memory_allocated)").set(peak)
+    # the entry joins the index's cache after this returns: count it here
+    reg.gauge("serve_peak_hbm_bytes",
+              help="device bytes of the index and its largest built entry "
+              "(resident tensors, entry buffers, in-flight batches)",
+              ).set(max(index_peak_hbm_bytes(index),
+                        _resident_bytes(index) + exec_.device_bytes))
     return exec_
 
 
@@ -375,18 +377,49 @@ def _new_entry(index: CorpusIndex, cfg: KNNConfig,
                               for d in index.mesh]
         if ring_form(cfg, index.mesh) != "driver":
             exec_.ring_slots = [landing_slots(*t) for t in index.shards]
+    # the entry's device bytes: its own tensors, and the padded queries and
+    # results of the batches it may have in flight (summed once, here)
+    row_bytes = (index.dim * _query_dtype(cfg, index.backend).itemsize
+                 + cfg.k * (_acc_dtype(cfg).itemsize + 4))
+    exec_.device_bytes = _tensor_bytes(
+        qids, exec_.ring_qids, exec_.ring_carries, exec_.ring_slots,
+    ) + max(1, cfg.dispatch_depth) * q_pad * row_bytes
     if index.device.type == "cuda":
         exec_.ready = torch.cuda.Event()
         exec_.ready.record(torch.cuda.current_stream(index.device))
     return exec_
 
 
-def index_peak_hbm_bytes(index: CorpusIndex) -> int | None:
-    """Peak device bytes allocated on the index's card so far
-    (``torch.cuda.max_memory_allocated``); None off the card."""
-    if index.device.type != "cuda":
-        return None
-    return torch.cuda.max_memory_allocated(index.device)
+def _tensor_bytes(*parts) -> int:
+    """Bytes of the tensors in ``parts`` (lists and tuples are walked)."""
+    total = 0
+    for p in parts:
+        if isinstance(p, torch.Tensor):
+            total += p.numel() * p.element_size()
+        elif isinstance(p, (list, tuple)):
+            total += _tensor_bytes(*p)
+    return total
+
+
+def index_peak_hbm_bytes(index) -> int:
+    """The serving peak-memory figure of one index (the JAX package's
+    static peak over its executables): the bytes the index holds on its
+    device (the resident store, norms, staged prologue outputs and rung
+    copies) plus those of its largest built entry (the entry's tensors and
+    its in-flight batches' padded queries and results; a kernel's
+    transient workspace is not counted). 0 before the first entry. Sums
+    ``nbytes`` only: no allocator state is read."""
+    entries = list(index._cache.values())
+    if not entries:
+        return 0
+    return _resident_bytes(index) + max(e.device_bytes for e in entries)
+
+
+def _resident_bytes(index) -> int:
+    """Bytes of the index's own tensors and staged prologue outputs."""
+    staged = getattr(index, "staged", None)
+    return _tensor_bytes(*vars(index).values()) + (
+        staged.nbytes if staged is not None else 0)
 
 
 def _prep_queries(index: CorpusIndex, cfg: KNNConfig, exec_: _BucketExec,
@@ -527,7 +560,8 @@ class BatchResult:
     rows: int
     bucket: int
     seq: int = 0  # 0-indexed session-order batch number
-    tenant: str | None = None
+    # ((tenant, rows), ...) in row order: a coalesced multi-tenant batch
+    tenants: tuple | None = None
     host_ms: float | None = None  # the host's time in submit's dispatch
     prep_ms: float | None = None  # of which centering and padding
     latency_s: float | None = None  # dispatch -> retire
@@ -582,8 +616,24 @@ def _check_tenant(tenant):
             or any(c in tenant for c in ('"', "\\", "\n", "\r"))):
         raise ValueError(
             f"tenant id {tenant!r} must be a non-empty string with no "
-            "quotes, backslashes, or newlines"
+            "quotes, backslashes, or newlines (it becomes a metrics label)"
         )
+
+
+def _check_tenants(tenants, rows: int) -> tuple:
+    """A batch's ``((tenant, rows), ...)`` composition, normalized; its ids
+    must be usable as metrics labels and its rows must sum to the batch's,
+    or the per-tenant accounting would mis-attribute."""
+    tenants = tuple((str(t), int(n)) for t, n in tenants)
+    for t, _ in tenants:
+        _check_tenant(t)
+    total = sum(n for _, n in tenants)
+    if total != rows:
+        raise ValueError(
+            f"tenant composition sums to {total} rows but the batch has "
+            f"{rows}: refusing to mis-attribute per-tenant stats"
+        )
+    return tenants
 
 
 class ServeSession:
@@ -874,17 +924,26 @@ class ServeSession:
             raise
         return exec_, slot, d, i, prep_ms
 
-    def submit(self, queries, tenant: str | None = None) -> list[BatchResult]:
-        """Dispatch one batch (of one ``tenant``, if given)."""
+    def submit(self, queries, tenants=None) -> list[BatchResult]:
+        """Dispatch one batch; ``tenants`` is an optional ``((tenant,
+        rows), ...)`` composition in row order (a coalesced multi-tenant
+        batch from the serving front end). It must sum to the batch's rows
+        and its ids must be usable as metrics labels, or it raises
+        ``ValueError`` here, before any dispatch."""
         t0 = time.perf_counter()
-        _check_tenant(tenant)
         rows = int(queries.shape[0])
+        comp = {}
+        if tenants is not None:
+            tenants = _check_tenants(tenants, rows)
+            for t, n in tenants:
+                comp[t] = comp.get(t, 0) + n
         label, cfg = self._current_rung()
         # the span opens before the attempt: a hang inside it leaves an
-        # open batch span in the flight record, the kill's diagnosis
+        # open batch span in the flight record, the kill's diagnosis; it
+        # names whose rows were on board
         sid = obs_spans.begin_span(
             "batch", cat="serve", seq=self._seq, rows=rows, rung=label,
-            **({"tenants": {tenant: rows}} if tenant is not None else {}))
+            **({"tenants": comp} if tenants is not None else {}))
         pol = self.policy
         try:
             if pol is not None and pol.max_retries > 0:
@@ -911,7 +970,7 @@ class ServeSession:
             # it, so the span closes with the error
             obs_spans.end_span(sid, error=type(e).__name__)
             raise
-        res = BatchResult(d, i, rows, exec_.bucket, seq=self._seq, tenant=tenant,
+        res = BatchResult(d, i, rows, exec_.bucket, seq=self._seq, tenants=tenants,
                           host_ms=1e3 * (time.perf_counter() - t0),
                           prep_ms=prep_ms,
                           degraded=None if label == FULL_RUNG else label,
@@ -931,9 +990,11 @@ class ServeSession:
 
     def stream(self, batches, tenant: str | None = None):
         """Serve an iterable of batches (all of one ``tenant``, if given),
-        yielding results in order."""
+        yielding results in order; coalesced multi-tenant batches use
+        ``submit(..., tenants=...)``."""
         for q in batches:
-            yield from self.submit(q, tenant=tenant)
+            yield from self.submit(
+                q, tenants=None if tenant is None else ((tenant, int(q.shape[0])),))
         yield from self.drain()
 
     def _retire(self) -> BatchResult:
@@ -959,25 +1020,33 @@ class ServeSession:
                 obs_spans.end_span(sid, latency_s=res.latency_s,
                                    retries=res.retries, error="poisoned-result")
                 raise
-        if res.tenant is not None:
+        # the composition per tenant first: one tenant with several
+        # coalesced requests in this batch is still one batch (and one
+        # latency observation) for that tenant
+        tenant_rows: dict[str, int] = {}
+        for t, n in res.tenants or ():
+            tenant_rows[t] = tenant_rows.get(t, 0) + n
+        if tenant_rows:
             with self._stats_lock:
-                st = self.tenant_stats.setdefault(res.tenant, {
-                    "queries": 0, "batches": 0,
-                    "latency_sum_s": 0.0, "latency_max_s": 0.0,
-                })
-                st["queries"] += res.rows
-                st["batches"] += 1
-                st["latency_sum_s"] += res.latency_s
-                st["latency_max_s"] = max(st["latency_max_s"], res.latency_s)
+                for t, n in tenant_rows.items():
+                    st = self.tenant_stats.setdefault(t, {
+                        "queries": 0, "batches": 0,
+                        "latency_sum_s": 0.0, "latency_max_s": 0.0,
+                    })
+                    st["queries"] += n
+                    st["batches"] += 1
+                    st["latency_sum_s"] += res.latency_s
+                    st["latency_max_s"] = max(st["latency_max_s"], res.latency_s)
+        for t, n in tenant_rows.items():
             self._metrics.counter(
                 "serve_tenant_queries_total",
                 help="query rows served per tenant (padding excluded)",
-                labels={"tenant": res.tenant},
-            ).inc(res.rows)
+                labels={"tenant": t},
+            ).inc(n)
             self._metrics.counter(
                 "serve_tenant_batches_total",
                 help="batches carrying at least one row of this tenant",
-                labels={"tenant": res.tenant},
+                labels={"tenant": t},
             ).inc()
         obs_spans.end_span(sid, latency_s=res.latency_s, retries=res.retries,
                            deadline_breached=res.deadline_breached)

@@ -41,9 +41,11 @@ The reference's XLA half has no counterpart in eager PyTorch and is left
 out: ``lower_mutation``, ``get_mutation_executable``,
 ``expected_mutation_args``, ``_mutation_chunk_specs``, ``_store_sds``,
 ``_chunk_sds``, ``_replicated``, ``_put_chunk``, ``_bucket_sharding``,
-``_compact_dst_shapes``, ``_normalize_store_out``, the module-level jits
-and ``warm_mutation`` (it compiles the cells ahead of traffic; nothing
-compiles here).
+``_compact_dst_shapes``, ``_normalize_store_out`` and the module-level
+jits. ``warm_mutation`` keeps the reference's contract (the first live
+upsert pays nothing lazy) with what is lazy here: the freelist's
+derivation, the card's preparation stream, and each operation's first
+launch (a scratch pass through the same functions, on copies).
 
 Observability and load shedding stand where the reference has them: each
 upsert, delete and compaction is a ``mutate`` span of the flight record;
@@ -94,6 +96,7 @@ __all__ = [
     "mutation_stats",
     "supports_mutation",
     "upsert_rows",
+    "warm_mutation",
 ]
 
 MUTABLE_BACKENDS = ("serial", "ivf")
@@ -465,6 +468,64 @@ def delete_rows(index, ids, config: KNNConfig | None = None) -> dict:
     _observe("mutation_chunk_rows", n)
     _observe("mutation_latency_seconds", time.perf_counter() - t0)
     return {"deleted": deleted, "missing": missing, "bucket": bucket, **stats}
+
+
+def warm_mutation(index, cfg: KNNConfig | None = None, sizes=(None,)) -> dict:
+    """Do, before traffic, what the first live upsert, delete, assignment
+    and compaction would otherwise do lazily (the reference pre-builds its
+    mutation cells here), so none of it lands on a request holding the
+    mutation lock: derive the freelist, make the card's preparation
+    stream, and run each operation once at each chunk size (None = one
+    ``mutation_bucket``) on scratch copies of one tile or bucket, so the
+    store is never written. Returns ``{"cells": n, "built": b}``:
+    ``cells`` counts the (size, operation) passes as the reference counts
+    its cells; ``built`` the lazy state this call created (0 on a second
+    call)."""
+    from mpi_knn_tpu_torch.serve.engine import bucket_rows, mutation_lock, order_stream
+
+    _require_mutable(index)
+    cfg = cfg or index.cfg
+    clustered = index.backend != "serial"
+    built = int(index.__dict__.get("_freelist") is None)
+    built += int(index.device.type == "cuda"
+                 and index.__dict__.get("_prep_stream") is None)
+    freelist_of(index)
+    _prep_stream(index)
+    cells = 0
+    dev = index.device
+    with mutation_lock(index):
+        order_stream(index)
+        scratch = [None if t is None else t[:1].clone() for t in _store(index)]
+        for n in sizes:
+            bucket = bucket_rows(n if n is not None else cfg.mutation_bucket,
+                                 cfg.mutation_bucket)
+            rows_p = _pad_rows(_center_rows(
+                index, np.zeros((1, index.dim), np.float32)), bucket)
+            zero, one = _upload(dev, [0], [-1])
+            new_id = one.to(torch.int32)
+            if clustered:
+                ivf_assign_chunk(rows_p, index.centroids, index.centroid_sqs)
+                ivf_upsert_chunk(rows_p, new_id, zero, zero, zero, zero,
+                                 *scratch, index.cfg)
+                cells += 3
+            else:
+                serial_upsert_chunk(rows_p, new_id, zero, zero, zero, zero,
+                                    *scratch, index.cfg)
+                cells += 2
+            ivf_delete_chunk(zero, zero, scratch[1])
+        if clustered:
+            # the compaction's assignment pass and its scatter, one bucket
+            from mpi_knn_tpu_torch.ivf.mutate import ivf_compact_assign
+
+            ivf_compact_assign(scratch[0], scratch[3], index.centroids,
+                               index.centroid_sqs, index.cfg)
+            keep = np.zeros(1, np.int64)
+            ivf_compact_scatter(keep, keep, *scratch,
+                                *[None if t is None else t.clone() for t in scratch])
+            cells += 2
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    return {"cells": cells, "built": built}
 
 
 # ---------------------------------------------------------------------------

@@ -1,10 +1,11 @@
-"""``python -m mpi_knn_tpu_torch mutate``: live mutation of a saved
-clustered index (the JAX package's ``serve/mutate_cli.py``, offline mode,
-with ``--device`` in place of ``--platform``).
+"""``python -m mpi_knn_tpu_torch mutate``: live mutation (the JAX package's
+``serve/mutate_cli.py``, with ``--device`` in place of ``--platform``), in
+two modes:
 
-Load a saved ``.npz`` (either package's), apply upserts, deletes and a
-compaction, and save it again atomically (``utils/atomicio.py``), so a
-process loading the path never sees a torn file::
+- **offline** (``--index``): load a saved ``.npz`` (either package's),
+  apply upserts, deletes and a compaction, and save it again atomically
+  (``utils/atomicio.py``), so a process loading the path never sees a torn
+  file::
 
     python -m mpi_knn_tpu_torch mutate --index sift.ivf.npz --delete 17,42,99
     python -m mpi_knn_tpu_torch mutate --index sift.ivf.npz \\
@@ -12,17 +13,23 @@ process loading the path never sees a torn file::
     python -m mpi_knn_tpu_torch mutate --index sift.ivf.npz --compact
     python -m mpi_knn_tpu_torch mutate --index sift.ivf.npz --stats
 
+- **online** (``--url``): POST the same mutations to a running ``serve``
+  front end (tenant-attributed by ``--tenant``, 429-governed); the server
+  compacts itself, so ``--compact`` / ``--stats`` / ``--out`` are
+  offline-only, and ``--tenant`` online-only::
+
+    python -m mpi_knn_tpu_torch mutate --url http://127.0.0.1:8100 \\
+        --tenant alice --synthetic 16 --ids 1000000:1000016
+
 Ids: ``--ids`` takes ``START:STOP`` (half-open) or a comma list; upsert
 rows come from a ``.npy`` file (``--upsert-rows``) or ``--synthetic N``
 (seeded standard-normal rows). Every run prints one JSON line per action
-and a last line with the saved path and the freelist's stats; exit 0 on
-success, 2 on usage errors, 1 when the headroom is exhausted.
+(online: with the HTTP status) and, offline, a last line with the saved
+path and the freelist's stats; exit 0 on success, 2 on usage errors, 1
+when the headroom is exhausted (online: any answer but 200).
 
 ``--cache-dir`` (or ``TKNN_AOT_CACHE``) points the process at the
 persistent cache of kernel libraries (``serve/aotcache.py``).
-
-Not yet ported (exit 2): the online mode (``--url``, ``--tenant``: it
-needs the serving front end).
 """
 
 from __future__ import annotations
@@ -46,9 +53,11 @@ def build_parser() -> argparse.ArgumentParser:
     tgt.add_argument("--index", metavar="PATH.npz",
                      help="a save_ivf_index file to mutate and save again")
     tgt.add_argument("--url", metavar="URL",
-                     help="online mode (a running server): not yet ported")
+                     help="online mode: POST the mutations to a running "
+                     "serve front end (http://host:port)")
     p.add_argument("--tenant", default=None,
-                   help="tenant of online mutations: not yet ported")
+                   help="tenant attribution of online mutations (X-Tenant; "
+                   "default 'default')")
     p.add_argument("--ids", default=None, metavar="SPEC",
                    help="ids as START:STOP (half-open) or a comma list: the "
                    "upsert ids")
@@ -95,12 +104,57 @@ def _usage(msg: str) -> int:
     return 2
 
 
+def _post(url: str, path: str, doc: dict, tenant: str) -> tuple[int, dict]:
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(
+        url.rstrip("/") + path,
+        data=json.dumps(doc).encode(),
+        headers={"Content-Type": "application/json", "X-Tenant": tenant},
+        method="POST",
+    )
+    try:
+        with urllib.request.urlopen(req, timeout=60) as r:
+            return r.status, json.loads(r.read().decode())
+    except urllib.error.HTTPError as e:
+        try:
+            body = json.loads(e.read().decode())
+        except ValueError:  # a non-JSON error body
+            body = {"error": str(e)}
+        return e.code, body
+
+
+def _online(args, upsert_ids, rows, delete_ids) -> int:
+    """POST the mutations to ``--url``; synthetic rows take the server's
+    dimension from its /healthz."""
+    if rows is None and upsert_ids is not None:
+        import urllib.request
+
+        with urllib.request.urlopen(
+            args.url.rstrip("/") + "/healthz", timeout=30
+        ) as r:
+            dim = json.loads(r.read().decode())["dim"]
+        rng = np.random.default_rng(args.seed)
+        rows = rng.standard_normal((len(upsert_ids), dim)).astype(np.float32)
+    tenant = args.tenant or "default"
+    rc = 0
+    if upsert_ids is not None:
+        status, body = _post(
+            args.url, "/upsert",
+            {"ids": upsert_ids.tolist(), "rows": rows.tolist()}, tenant)
+        _emit({"action": "upsert", "status": status, **body})
+        rc = rc or (0 if status == 200 else 1)
+    if delete_ids is not None:
+        status, body = _post(args.url, "/delete",
+                             {"ids": delete_ids.tolist()}, tenant)
+        _emit({"action": "delete", "status": status, **body})
+        rc = rc or (0 if status == 200 else 1)
+    return rc
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    for flag, value in (("--url", args.url), ("--tenant", args.tenant)):
-        if value is not None:
-            return _usage(f"{flag}: not yet ported to mpi_knn_tpu_torch (see "
-                          "ROADMAP.md)")
 
     upsert_ids = rows = None
     if args.upsert_rows or args.synthetic:
@@ -120,6 +174,20 @@ def main(argv=None) -> int:
                 args.compact, args.stats)):
         return _usage("nothing to do: give --upsert-rows/--synthetic, "
                       "--delete, --compact, or --stats")
+
+    if args.url:
+        if args.compact or args.stats or args.out:
+            return _usage("--compact/--stats/--out are offline-mode "
+                          "(--index) actions, not --url ones; the server "
+                          "compacts itself "
+                          "(background Compactor) and /healthz carries "
+                          "the mutation posture")
+        return _online(args, upsert_ids, rows, delete_ids)
+    if args.tenant is not None:
+        # offline mutations are attributed to no tenant: the knob would
+        # be silently inert
+        return _usage("--tenant attributes online mutations (--url); an "
+                      "offline --index run has no tenant")
 
     if args.cache_dir:
         from mpi_knn_tpu_torch.serve import aotcache

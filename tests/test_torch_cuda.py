@@ -1855,3 +1855,167 @@ def test_the_doctor_on_the_card_and_a_supervisor_that_never_touches_it(
     assert v["probe"]["launches"] == 1 and v["probe"]["agrees_with_plain"]
     assert v["aot_cache"]["dlopen_ok"] and v["aot_cache"]["bit_identical"]
     assert v["mutation"]["ok"] and v["mutation"]["second_pass_builds"] == 0
+
+
+# ---------------------------------------------------------------------------
+# the serving front end on the card
+
+
+def _mnist_like(m, seed):
+    from mpi_knn_tpu_torch.data.synthetic import make_mnist_like
+
+    return make_mnist_like(m, seed=seed)[0]
+
+
+@pytest.mark.cuda
+def test_coalesced_answers_on_the_card_equal_the_session_alone_bit_for_bit(
+        cuda_device):
+    """Ragged requests of several tenants, coalesced by the front end into
+    shared batches (a row lands at another place of another bucket than
+    when served alone), answer bit for bit as the session alone answers
+    each request's rows: K1's per-row arithmetic does not depend on its
+    neighbours."""
+    from mpi_knn_tpu_torch import KNNConfig, ServeSession, build_index
+    from mpi_knn_tpu_torch.frontend import Frontend, Rejection, SLOPolicy
+    from mpi_knn_tpu_torch.resilience import ResiliencePolicy
+
+    X, Q = _mnist_like(8192, 0), _mnist_like(1024, 1)
+    index = build_index(X, KNNConfig(k=10, backend="pallas", query_bucket=128),
+                        device=cuda_device)
+    fe = Frontend(ServeSession(index, resilience=ResiliencePolicy(),
+                               device=cuda_device),
+                  SLOPolicy(max_batch_rows=512, max_wait_s=0.005,
+                            max_queue_rows=65536)).start()
+    sizes = [1, 5, 16, 33, 7, 16, 64, 2, 31, 16, 200, 128, 9, 3]
+    reqs, at = [], 0
+    for i, n in enumerate(sizes):
+        reqs.append((f"tenant-{i % 5}", Q[at:at + n]))
+        at += n
+    try:
+        tickets = [fe.submit(t, q) for t, q in reqs]
+        got = [t.result(timeout=120) for t in tickets]
+    finally:
+        fe.stop()
+    assert not any(isinstance(t, Rejection) for t in tickets)
+    alone = ServeSession(index, device=cuda_device)
+    for (_, q), (d, i) in zip(reqs, got):
+        (res,) = alone.submit(q) + alone.drain()
+        assert np.array_equal(i, res.ids) and np.array_equal(d, res.dists)
+
+
+@pytest.mark.cuda
+def test_an_acknowledged_upsert_is_seen_by_the_next_pumped_batch(cuda_device):
+    """A handler thread's upsert (its own thread, its own current stream)
+    answered, the next batch the pump dispatches returns the new ids, and
+    after an acknowledged delete never returns the deleted one: the
+    mutation lock and ``order_stream`` order them across threads."""
+    import threading
+
+    from mpi_knn_tpu_torch import KNNConfig, ServeSession, build_index
+    from mpi_knn_tpu_torch.frontend import Frontend, SLOPolicy
+
+    X = _mnist_like(8192, 0)
+    index = build_index(X, KNNConfig(k=10, backend="serial", query_bucket=256,
+                                     bucket_headroom=0.1, mutation_bucket=64),
+                        device=cuda_device)
+    fe = Frontend(ServeSession(index, device=cuda_device),
+                  SLOPolicy(max_batch_rows=256, max_wait_s=0.001,
+                            max_queue_rows=65536)).start()
+    try:
+        for round_ in range(8):
+            rows = _mnist_like(64, 100 + round_)
+            ids = 1_000_000 + 64 * round_ + np.arange(64)
+            out = {}
+            th = threading.Thread(target=lambda: out.update(  # noqa: B023
+                up=fe.upsert("w", ids, rows)))  # noqa: B023
+            th.start()
+            th.join(60)
+            assert out["up"]["upserted"] == 64
+            _, got = fe.submit("r", rows + 0.5).result(timeout=60)
+            assert np.array_equal(got[:, 0], ids)
+            th = threading.Thread(target=lambda: out.update(  # noqa: B023
+                dl=fe.delete("w", ids[:32])))  # noqa: B023
+            th.start()
+            th.join(60)
+            assert out["dl"]["deleted"] == 32
+            _, got = fe.submit("r", rows + 0.5).result(timeout=60)
+            assert not np.isin(got, ids[:32]).any()
+            assert np.array_equal(got[32:, 0], ids[32:])
+    finally:
+        fe.stop()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["serial", "ivf"])
+def test_warm_mutation_makes_the_first_upsert_as_cheap_as_the_second(
+        cuda_device, layout):
+    """After ``warm_mutation`` the first 128-row upsert pays nothing lazy:
+    its time is within 2x (+ 1 ms) of the second's. The times of an index
+    not warmed are printed beside them."""
+    import time
+
+    from mpi_knn_tpu_torch import KNNConfig, build_index
+    from mpi_knn_tpu_torch.ivf import build_ivf_index
+    from mpi_knn_tpu_torch.serve.mutate import upsert_rows, warm_mutation
+
+    X = _mnist_like(16384, 0)
+    cfg = KNNConfig(k=10, backend="serial", bucket_headroom=0.25,
+                    mutation_bucket=128,
+                    **({"partitions": 16, "nprobe": 4} if layout == "ivf" else {}))
+
+    def fresh():
+        build = build_ivf_index if layout == "ivf" else build_index
+        return build(X, cfg, device=cuda_device)
+
+    def timed(index, seed):
+        rows = _mnist_like(128, seed)
+        ids = 2_000_000 + 128 * seed + np.arange(128)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        upsert_rows(index, ids, rows)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    cold = fresh()
+    cold_s = (timed(cold, 1), timed(cold, 2))
+    warm = fresh()
+    first_pass = warm_mutation(warm)
+    assert first_pass["built"] >= 1 and warm_mutation(warm)["built"] == 0
+    warm_s = (timed(warm, 1), timed(warm, 2))
+    print(f"{layout}: not warmed {cold_s}, warmed {warm_s}, {first_pass}")
+    assert warm_s[0] <= 2 * warm_s[1] + 1e-3
+
+
+@pytest.mark.cuda
+def test_run_supervised_stops_and_names_a_card_child(cuda_device):
+    """``on_spawn`` gets the pid of a child that holds a CUDA context; a set
+    ``stop_event`` kills it (status "timeout", reason "stop requested")."""
+    import os
+    import sys
+    import threading
+    import time
+
+    from mpi_knn_tpu_torch.resilience.worker import run_supervised
+
+    script = ("import time, torch; torch.zeros(1, device='cuda'); "
+              "open(__import__('sys').argv[1], 'w').close(); time.sleep(300)")
+    up = os.path.join(os.environ.get("TMPDIR", "/tmp"), f"tknn-up-{os.getpid()}")
+    pids, stop, out = [], threading.Event(), {}
+    th = threading.Thread(target=lambda: out.update(res=run_supervised(
+        [sys.executable, "-c", script, up], beat_timeout_s=None,
+        stop_event=stop, on_spawn=pids.append)), daemon=True)
+    th.start()
+    try:
+        deadline = time.time() + 120
+        while not os.path.exists(up) and time.time() < deadline:
+            time.sleep(0.1)
+        assert pids and os.path.exists(up)
+        os.kill(pids[0], 0)
+    finally:
+        stop.set()
+        th.join(60)
+    assert not th.is_alive()
+    assert out["res"].status == "timeout" and out["res"].reason == "stop requested"
+    with pytest.raises(ProcessLookupError):
+        os.kill(pids[0], 0)
+    os.unlink(up)

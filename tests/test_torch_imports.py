@@ -136,3 +136,42 @@ def test_default_device_without_a_card_raises(entry, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="cuda"):
         entries[entry]()
+
+
+_TORCH_FREE = ("frontend", "frontend.coalesce", "frontend.scheduler",
+               "frontend.loadgen", "frontend.modelreplica", "frontend.router",
+               "frontend.server", "frontend.cli")
+
+
+@pytest.mark.parametrize("mod", _TORCH_FREE)
+def test_the_front_ends_torch_free_layers_import_no_torch(mod):
+    """The coalescer, scheduler, load generator, model replica, router (and
+    the server shell and CLI module, which defer the session's imports) run
+    in processes that must never create a CUDA context."""
+    probe = (f"import sys, mpi_knn_tpu_torch.{mod}; "
+             "print('torch' in sys.modules)")
+    out = subprocess.run([sys.executable, "-c", probe], cwd=REPO,
+                         capture_output=True, text=True, timeout=60, check=True)
+    assert out.stdout.strip() == "False"
+
+
+@pytest.mark.parametrize("argv", [
+    ["loadgen", "--url", "http://127.0.0.1:9", "--timeout-s", "2"],
+    ["router", "--replicas", "http://127.0.0.1:9", "--evict-after", "0"],
+], ids=["loadgen", "router"])
+def test_a_router_or_load_generator_process_loads_no_torch(argv):
+    """``python -m mpi_knn_tpu_torch loadgen|router`` route before the run
+    CLI: the process gets past loading its layer (then refuses, exit 2)
+    without torch in sys.modules."""
+    probe = ("import runpy, sys\n"
+             f"sys.argv = ['mpi_knn_tpu_torch', *{argv!r}]\n"
+             "try:\n"
+             "    runpy.run_module('mpi_knn_tpu_torch', run_name='__main__')\n"
+             "except SystemExit as e:\n"
+             "    rc = e.code\n"
+             "mod = 'loadgen' if sys.argv[1] == 'loadgen' else 'router'\n"
+             "print(rc, 'torch' in sys.modules,\n"
+             "      f'mpi_knn_tpu_torch.frontend.{mod}' in sys.modules)\n")
+    out = subprocess.run([sys.executable, "-c", probe], cwd=REPO,
+                         capture_output=True, text=True, timeout=60, check=True)
+    assert out.stdout.strip().splitlines()[-1] == "2 False True"

@@ -302,7 +302,7 @@ def test_session_reusable_across_streams():
 def test_reset_mid_flight_lands_batch_in_new_window():
     idx = _index(_data(33), dispatch_depth=4)
     session = ServeSession(idx, device=CPU)
-    session.submit(_data(34, m=16), tenant="t")
+    session.submit(_data(34, m=16), tenants=(("t", 16),))
     assert session._inflight
     session.reset_stats()
     done = session.drain()
@@ -323,9 +323,10 @@ def test_tenant_stats_and_snapshot():
     assert st["a"]["latency_sum_s"] >= st["a"]["latency_max_s"] > 0
     snap = session.stats_snapshot()
     assert snap["batches_retired"] == 3 and snap["queries_served"] == 40
-    assert snap["tenants"] == ["a"] and snap["peak_hbm_bytes"] is None
+    assert snap["tenants"] == ["a"] and snap["peak_hbm_bytes"] == (
+        engine.index_peak_hbm_bytes(idx)) > 0
     with pytest.raises(ValueError, match="tenant"):
-        session.submit(_data(39, m=8), tenant='bad"id')
+        session.submit(_data(39, m=8), tenants=(('bad"id', 8),))
 
 
 def test_warm_reports_its_entries():
@@ -438,7 +439,8 @@ def test_query_cli_end_to_end(tmp_path, capsys):
     assert doc["backend"] == "pallas" and doc["executables_compiled"] == 1
     assert doc["throughput_qps"] > 0 and doc["latency_p50_ms"] is not None
     assert doc["tenants"]["t1"]["queries"] == 40
-    assert doc["peak_hbm_bytes"] is None and doc["device_profile"] is None
+    assert isinstance(doc["peak_hbm_bytes"], int) and doc["peak_hbm_bytes"] > 0
+    assert doc["device_profile"] is None
 
 
 def test_query_cli_reached_from_the_package_main(tmp_path):
