@@ -198,7 +198,27 @@ is not 0:
    front end's, ``loadgen`` through it and against one replica, a
    replica SIGKILLed under load (no client error) rejoining with its
    mutation sequence caught up by replay;
-14. kernels: one line with every kernel mode's launches, error, times and
+14. profile (``profile_phase``): ``ServeSession.profile`` over the serve
+   cell's pallas tiles exact index and its mixed rung (8 batches of 256
+   rows each), one P=4 fused-dma ring batch on the one card, and
+   ``attribute_trace`` over the run CLI's ``--profile`` trace of a serial
+   twolevel approx run at the main shape: in every window the trace's
+   hand-kernel launches equal the port's launch counters, the categories
+   sum to the busy total and nothing is built; each window's busy split,
+   top ops and busy total against its wall time (the idle share);
+15. ivf_sharded (``sharded_phase``): the README's sharded deployment
+   (sift:100000, 256 partitions, 4 shards on the one card, 10000 queries,
+   512-row batches) per store: S=1 and S=4 bit for bit the unsharded index
+   (S=4 at the same query tile, which the exchange buffer's bound picks),
+   recall@10 at the clustered cell's bars, a tight route cap's drops
+   counted, every served batch bit for bit the one-shot search; a sharded
+   upsert / delete chunk against the same writes unsharded; the CLI at the
+   visible card count; no kernel launched;
+16. mesh2d (``mesh2d_phase``): the main shape on a 2x2 mesh of the one
+   card, per transport (Tensor.to with the xla merge, bidir K3a, fused-dma
+   K4, grid K5): each dp group's rows bit for bit its 1-D P=2 ring,
+   recall@10 >= 0.999, launches the groups' 1-D runs' sum;
+17. kernels: one line with every kernel mode's launches, error, times and
    bound, the prologues (`stage_tf32_split`, `stage_tf32[wire]`,
    `stage_tf32_split[ring]`, `stage_bf16`, `stage_bf16[wire]`,
    `stage_norms`), the "default" / "high" forms and the approx kernel (f32
@@ -452,15 +472,9 @@ def reset_counts():
 
 
 def read_counts() -> dict:
-    from mpi_knn_tpu_torch.ops import (
-        approx_topk,
-        fused_knn,
-        fused_ring,
-        fused_rotation,
-    )
+    from mpi_knn_tpu_torch.ops import launch_counts
 
-    return {**fused_knn.LAUNCHES, **fused_ring.LAUNCHES,
-            **fused_rotation.LAUNCHES, **approx_topk.LAUNCHES}
+    return launch_counts()
 
 
 def sync_all():
@@ -1025,7 +1039,7 @@ def serve_phase(device, X, inputs) -> dict:
             slot.host_in.copy_(qb.cpu())
 
             def device_part():  # what one batch's dispatch puts on the card
-                d, i = engine._run(index, cfg, exec_,  # noqa: B023
+                d, i, _ = engine._run(index, cfg, exec_,  # noqa: B023
                                    slot.host_in.to(device, non_blocking=True))  # noqa: B023
                 slot.out_d.copy_(d, non_blocking=True)  # noqa: B023
                 slot.out_i.copy_(i, non_blocking=True)  # noqa: B023
@@ -3334,6 +3348,434 @@ def frontend_phase(device, X, inputs, cache_dir) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ---- the profile surface (PR 17): trace launches against the counters -----
+PROF_BATCHES = 8  # 256-row batches a profiled serving window takes
+PROF_BATCH = 256
+
+
+def stream_busy_ms(events, plane) -> tuple[float, float]:
+    """(the summed durations, the union of the intervals), in ms, of the
+    ``plane``'s events, stream by stream: a stream runs one operation at
+    a time, so the two differ only where an event was counted twice."""
+    lines = {}
+    for e in events:
+        if e["plane"] == plane and e["dur_ps"]:
+            lines.setdefault(e["line"], []).append(
+                (e["start_ps"], e["start_ps"] + e["dur_ps"]))
+    total = union = 0
+    for iv in lines.values():
+        iv.sort()
+        total += sum(b - a for a, b in iv)
+        end = None
+        for a, b in iv:
+            if end is None or a >= end:
+                union += b - a
+                end = b
+            elif b > end:
+                union += b - end
+                end = b
+    return total / 1e9, union / 1e9
+
+
+def profile_window(name, out) -> dict:
+    """Gate one profiled window's report (``ServeSession.profile``'s, or
+    ``attribute_trace`` beside the counters' increments): the trace's
+    kernel launches equal the launch counters', the categories sum to
+    ``busy_total_ms``, that total is the device plane's time counted once
+    per stream (no event on a stream overlaps another) and lies within the
+    window's wall time, nothing was built inside the window. Emits its
+    line and returns it."""
+    from mpi_knn_tpu_torch.obs.kineto import (
+        find_traces,
+        kernel_counts,
+        kernel_symbol,
+        launch_mismatches,
+        parse_trace,
+    )
+
+    events = [e for f in find_traces(out["trace_dir"]) for e in parse_trace(f)]
+    counted = out["kernel_launches"]
+    miss = launch_mismatches(events, counted)
+    hand = {s: n for s, n in kernel_counts(events).items()
+            if s.endswith("_kernel") or "kernel_" in s}
+    top = {}
+    for op, ms in out.get("top_ops_ms", {}).items():
+        top[kernel_symbol(op)] = top.get(kernel_symbol(op), 0.0) + ms
+    busy = out.get("busy_total_ms")
+    summed, union = stream_busy_ms(events, out.get("plane"))
+    line = {"phase": "profile", "window": name, "plane": out.get("plane"),
+            "busy_ms": out.get("busy_ms"), "busy_total_ms": busy,
+            "stream_union_ms": union, "wall_ms": out["wall_ms"],
+            "idle_share": (None if not busy else 1.0 - busy / out["wall_ms"]),
+            "top_ops_ms": top, "kernel_launches": counted,
+            "trace_kernel_launches": hand, "mismatches": miss,
+            "compiles_in_window": out["compiles_in_window"],
+            "dma_wait_ms": out.get("dma_wait_ms"),
+            "batches_profiled": out.get("batches_profiled")}
+    emit(line)
+    if "error" in out or not str(out.get("plane", "")).startswith("/device:GPU"):
+        raise AssertionError(f"profile {name}: no device plane: {out}")
+    if not counted or miss:
+        raise AssertionError(f"profile {name}: the trace's launches differ from "
+                             f"the counters': {miss or 'nothing counted'}")
+    if abs(sum(out["busy_ms"].values()) - busy) > 1e-6:
+        raise AssertionError(f"profile {name}: categories do not sum to the busy total")
+    # each category is rounded to 1 us: the total is within that of the
+    # events' own sum
+    rounding = 1e-3 * (len(out["busy_ms"]) + 1)
+    if summed - union > 1e-9 or abs(busy - union) > rounding:
+        raise AssertionError(
+            f"profile {name}: device time counted twice: busy_total_ms {busy}, "
+            f"events {summed} ms, their union per stream {union} ms")
+    if busy > out["wall_ms"]:
+        raise AssertionError(f"profile {name}: busy_total_ms {busy} exceeds the "
+                             f"window's wall {out['wall_ms']} ms")
+    if out["compiles_in_window"]:
+        raise AssertionError(f"profile {name}: built inside the window: "
+                             f"{out['compiles_in_window']}")
+    return line
+
+
+def profile_phase(device, X, inputs) -> dict:
+    """``ServeSession.profile`` over the serve cell's pallas tiles exact
+    index (60000x784, k=10, bucket base 1024) and its mixed rung, PROF_BATCHES
+    batches of PROF_BATCH rows each; ``attribute_trace`` over the run CLI's
+    ``--profile`` trace of a serial twolevel approx run at the main shape
+    (the bin minimum's 1770 launches); one P=4 fused-dma ring batch on the
+    one card (K4). Each window's gates are ``profile_window``'s. Returns
+    the launches each window's trace held, by counter."""
+    import torch
+
+    from mpi_knn_tpu_torch import KNNConfig, cli
+    from mpi_knn_tpu_torch.obs.attribution import attribute_trace
+    from mpi_knn_tpu_torch.obs.metrics import watch_compiles
+    from mpi_knn_tpu_torch.resilience import ResiliencePolicy
+    from mpi_knn_tpu_torch.serve import ServeSession, build_index
+    from mpi_knn_tpu_torch.ops import launch_counts
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="tknn-profile-")
+    Qs = inputs["Qs"]
+    batches = [Qs[i * PROF_BATCH:(i + 1) * PROF_BATCH] for i in range(PROF_BATCHES)]
+    launches = {}
+    try:
+        index = build_index(X, KNNConfig(k=K, backend="pallas",
+                                         query_bucket=SERVE_BUCKET), device=device)
+        sess = ServeSession(index, resilience=ResiliencePolicy(), device=device)
+        for rung in ("full", "mixed"):
+            if rung == "mixed" and sess.shed_rung(reason="profile") != "mixed":
+                raise AssertionError(f"profile: the ladder has no mixed rung: {sess.ladder}")
+            out = sess.profile(batches, trace_dir=os.path.join(tmp, rung))
+            profile_window(f"pallas/tiles/{rung}", out)
+            launches[f"pallas/tiles/{rung}"] = out["kernel_launches"]
+        del sess, index
+        ring = build_index(X, KNNConfig(k=K, backend="ring-overlap",
+                                        ring_fusion="fused", num_devices=4,
+                                        query_bucket=SERVE_RING_BUCKET),
+                           device=device, mesh=[device] * 4)
+        sess = ServeSession(ring, device=device)
+        out = sess.profile(batches[:1], trace_dir=os.path.join(tmp, "ring"))
+        profile_window("ring/P4/fused-dma", out)
+        launches["ring/P4/fused-dma"] = out["kernel_launches"]
+        del sess, ring
+        # the run CLI's own --profile trace
+        tdir = os.path.join(tmp, "run_cli")
+        report = os.path.join(tmp, "run_cli.json")
+        before = launch_counts()
+        with watch_compiles() as built:
+            rc = cli.main(["--data", "mnist", "--k", str(K), "--loo",
+                           "--backend", "serial", "--topk-method", "approx",
+                           "--profile", tdir, "--report", report, "-q"])
+        after = launch_counts()
+        with open(report) as f:
+            phases = json.load(f)["phase_seconds"]
+        # the trace holds the knn and vote phases
+        wall = 1e3 * (phases["knn"] + phases.get("vote", 0.0))
+        out = {**attribute_trace(tdir), "trace_dir": tdir, "wall_ms": wall,
+               "kernel_launches": {n: after[n] - before[n] for n in after
+                                   if after[n] != before[n]},
+               "compiles_in_window": list(built)}
+        if rc != 0:
+            raise AssertionError(f"profile: the run CLI exited {rc}")
+        profile_window("run_cli/serial/twolevel/approx", out)
+        launches["run_cli/serial/twolevel/approx"] = out["kernel_launches"]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    emit({"phase": "profile_done", "seconds": time.perf_counter() - t_phase})
+    return launches
+
+
+# ---- the sharded clustered index (PR 17): README.md's sharded deployment ---
+SHARDS = 4  # the README's --devices 4: the one card named four times
+# (store, recall@10 bar): the clustered cell's (the ivf phase's) bars
+SHARDED_STORES = (("float32", 0.95), ("int8", 0.95), ("int4", 0.80))
+SHARDED_TIGHT_CAP = 32  # a --route-cap under the routing's skew: drops
+
+
+def sharded_phase(device) -> dict:
+    """The README's sharded deployment (``build-index --data sift:100000
+    --partitions 256 --backend ring``; ``query --index-load ... --backend
+    ring --devices 4 --synthetic 10000 --batch 512``) through the library
+    on a mesh naming the card SHARDS times, per store: S = 1 bit for bit
+    the unsharded index; S = 4 bit for bit the unsharded index at equal
+    nprobe and the same query tile, recall@10 at the store's bar against
+    f64; a tight route cap's drops counted and its answers consistent with
+    the safe cap's; every served IVF_BATCH-row batch bit for bit the
+    one-shot search. On float32 also a sharded upsert / delete chunk with
+    the mutate phase's checks, against the same writes into the unsharded
+    index. Then the CLI at the visible card count. No kernel runs on the
+    path (counts 0)."""
+    import torch
+
+    from mpi_knn_tpu_torch import KNNConfig, cli
+    from mpi_knn_tpu_torch.ivf import (
+        build_ivf_index,
+        search_ivf,
+        search_ivf_sharded,
+        shard_ivf_index,
+    )
+    from mpi_knn_tpu_torch.ivf.sharded import sharded_query_shapes
+    from mpi_knn_tpu_torch.serve import ServeSession
+
+    t_phase = time.perf_counter()
+    X, Q = ivf_data()
+    sample = np.linspace(0, IVF_QUERIES - 1, IVF_ORACLE_ROWS).astype(np.int64)
+    od, oi = ivf_oracle(X, Q[sample], device)
+    reset_counts()
+    results = {}
+    mesh = [device] * SHARDS
+    for dtype, bar in SHARDED_STORES:
+        t0 = time.perf_counter()
+        index = build_ivf_index(X, KNNConfig(k=K, partitions=IVF_P, dtype=dtype),
+                                device=device)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        cfg = index.compatible_cfg(index.cfg)
+        d_1, i_1 = search_ivf(index, Q, device=device)
+        s1 = shard_ivf_index(index, mesh=[device])
+        d1, i1, _ = search_ivf_sharded(s1, Q, device=device)
+        t0 = time.perf_counter()
+        sidx = shard_ivf_index(index, mesh=mesh)
+        torch.cuda.synchronize()
+        shard_s = time.perf_counter() - t0
+        q_tile, q_pad, route_cap = sharded_query_shapes(
+            cfg, cfg.nprobe, index.bucket_cap, index.dim, IVF_QUERIES, SHARDS)
+        d_u, i_u = search_ivf(index, Q, query_tile=q_tile, device=device)
+        d4, i4, stats = search_ivf_sharded(sidx, Q, device=device)  # warm-up
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            d4, i4, stats = search_ivf_sharded(sidx, Q, device=device)
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+        stats = stats.cpu().numpy()
+        rec = tie_recall(i4.cpu().numpy()[sample], od, oi)
+        s1_equal = torch.equal(d1, d_1) and torch.equal(i1, i_1)
+        s4_equal = torch.equal(d4, d_u) and torch.equal(i4, i_u)
+        # a tight cap: drops counted, the answers a subset of the safe ones'
+        tight = shard_ivf_index(index, mesh=mesh, route_cap=SHARDED_TIGHT_CAP)
+        dt, it, st = search_ivf_sharded(tight, Q, device=device)
+        st = st.cpu().numpy()
+        dt, it = dt.cpu().numpy(), it.cpu().numpy()
+        ds = d4.cpu().numpy()
+        told = int(st[:, 0].sum() + st[:, 1].sum()) == q_pad * cfg.nprobe
+        consistent = bool(np.isfinite(dt[it >= 0]).all()
+                          and (dt >= ds - 1e-6 * np.maximum(1.0, ds)).all()
+                          and ((it >= 0) == np.isfinite(dt)).all())
+        served = ivf_serve(sidx, Q, device)
+        got_d = np.concatenate([b.dists for b in served["checked"]])
+        got_i = np.concatenate([b.ids for b in served["checked"]])
+        serve_equal = (np.array_equal(got_d, ds)
+                       and np.array_equal(got_i, i4.cpu().numpy()))
+        xbytes = sum(b.exchange_bytes for b in served["checked"])
+        line = {"phase": "ivf_sharded", "store": dtype, "shards": SHARDS,
+                "partitions": IVF_P, "per_shard": sidx.per_shard,
+                "nprobe": cfg.nprobe, "bucket_cap": index.bucket_cap,
+                "build_s": build_s, "shard_s": shard_s,
+                "resident_bytes": sidx.nbytes_resident,
+                "resident_bytes_per_shard": sidx.shard_nbytes_resident,
+                "q_tile": q_tile, "q_pad": q_pad, "route_cap": route_cap,
+                "one_shot_ms": statistics.median(times), "one_shot_ms_runs": times,
+                "stats": stats.tolist(), "recall_at_10": rec, "recall_bar": bar,
+                "s1_bit_equal": s1_equal, "s4_bit_equal_unsharded": s4_equal,
+                "tight_cap": SHARDED_TIGHT_CAP, "tight_stats": st.tolist(),
+                "tight_dropped": int(st[:, 1].sum()), "tight_all_told": told,
+                "tight_consistent": consistent,
+                **{k_: v for k_, v in served.items() if k_ != "checked"},
+                "batches_equal_one_shot": serve_equal,
+                "exchange_bytes_served": xbytes,
+                "exchange_bytes_per_batch": xbytes / max(1, served["batches"])}
+        emit(line)
+        if not (s1_equal and s4_equal and serve_equal):
+            raise AssertionError(f"ivf_sharded {dtype}: S=1 {s1_equal}, S=4 "
+                                 f"{s4_equal}, served {serve_equal}")
+        if rec < bar or int(stats[:, 1].sum()) != 0:
+            raise AssertionError(f"ivf_sharded {dtype}: recall@10 {rec} < {bar} "
+                                 "or a drop at the safe cap")
+        if not (told and consistent and int(st[:, 1].sum()) > 0):
+            raise AssertionError(f"ivf_sharded {dtype}: the tight cap's drops "
+                                 f"were not counted or its answers are wrong")
+        results[dtype] = {"recall": rec, "one_shot_ms": line["one_shot_ms"],
+                          "qps": served["qps"]}
+        del index, s1, sidx, tight
+        torch.cuda.empty_cache()
+
+    # a sharded upsert / delete chunk, beside the same writes unsharded
+    mcfg = KNNConfig(k=K, partitions=IVF_P, bucket_headroom=0.5,
+                     mutation_bucket=MUT_BUCKET)
+    plain = build_ivf_index(X, mcfg, device=device)
+    sharded = shard_ivf_index(build_ivf_index(X, mcfg, device=device), mesh=mesh)
+    new = mutation_pool()[:MUT_BUCKET]
+    ids = np.arange(MUT_ID_BASE, MUT_ID_BASE + MUT_BUCKET)
+    gone = np.arange(0, 2 * MUT_BUCKET, 2)
+    live = np.arange(1, 2 * MUT_BUCKET, 2)
+    outs = []
+    for index in (plain, sharded):
+        sess = ServeSession(index, device=device)
+        before = [t.clone() for t in mut_store(index)]
+        sess.upsert(live, X[live])  # a re-upsert of live rows: no change
+        same = all(torch.equal(a, b) for a, b in zip(before, mut_store(index)))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        up = sess.upsert(ids, new)
+        de = sess.delete(gone)
+        torch.cuda.synchronize()
+        write_ms = 1e3 * (time.perf_counter() - t0)
+        own = list(sess.stream([new + MUT_OFFSET]))[0]
+        back = list(sess.stream([X[gone]]))[0]
+        outs.append({"reupsert_same": same, "write_ms": write_ms,
+                     "own_first": bool((own.ids[:, 0] == ids).all()),
+                     "deleted_absent": not np.isin(back.ids, gone).any(),
+                     "live": de["live"], "own": own, "back": back})
+    p, s = outs
+    equal = (np.array_equal(p["own"].ids, s["own"].ids)
+             and np.array_equal(p["own"].dists, s["own"].dists)
+             and np.array_equal(p["back"].ids, s["back"].ids))
+    emit({"phase": "ivf_sharded_mutate", "shards": SHARDS, "chunk": MUT_BUCKET,
+          **{f"{n}_{k_}": v for n, o in (("unsharded", p), ("sharded", s))
+             for k_, v in o.items() if k_ not in ("own", "back")},
+          "sharded_equals_unsharded": equal})
+    if not (equal and s["reupsert_same"] and s["own_first"] and s["deleted_absent"]
+            and s["live"] == p["live"]):
+        raise AssertionError("ivf_sharded: the sharded chunk failed the mutate checks")
+    del plain, sharded, outs
+    torch.cuda.empty_cache()
+
+    # the CLI at the visible card count
+    cards = torch.cuda.device_count()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "sift.ivf.npz")
+        report = os.path.join(tmp, "q.json")
+        rc_b = cli.main(["build-index", "--data", f"sift:{IVF_M}", "--partitions",
+                         str(IVF_P), "--k", str(K), "--backend", "ring",
+                         "--out", path, "-q"])
+        rc_q = cli.main(["query", "--data", f"sift:{IVF_M}", "--index-load", path,
+                         "--backend", "ring", "--devices", str(cards),
+                         "--synthetic", str(IVF_QUERIES), "--batch",
+                         str(IVF_BATCH), "--k", str(K), "-q", "--report", report])
+        with open(report) as f:
+            summary = json.load(f)
+    emit({"phase": "ivf_sharded_cli", "rc": [rc_b, rc_q], "argv": (
+        f"query --data sift:{IVF_M} --index-load sift.ivf.npz --backend ring "
+        f"--devices {cards} --synthetic {IVF_QUERIES} --batch {IVF_BATCH}"),
+        **{k_: summary.get(k_) for k_ in (
+            "backend", "queries", "throughput_qps", "latency_p50_ms",
+            "latency_p99_ms", "sharded", "peak_hbm_bytes")}})
+    if (rc_b, rc_q) != (0, 0) or summary.get("backend") != "ivf-sharded" \
+            or summary.get("queries") != IVF_QUERIES:
+        raise AssertionError("ivf_sharded: the CLI failed")
+    counts = {name: n for name, n in read_counts().items() if n}
+    emit({"phase": "ivf_sharded_launches", "launches": counts,
+          "seconds": time.perf_counter() - t_phase})
+    if counts:
+        raise AssertionError(f"ivf_sharded: kernels launched on the path: {counts}")
+    return results
+
+
+# ---- the 2-D dp x ring mesh (PR 17) on the one card -----------------------
+MESH2D = (2, 2)
+# (label, config overrides, launches a P=2 group's ring makes)
+MESH2D_CELLS = (
+    ("xla/Tensor.to", {}, {}),
+    ("fused/bidir/K3a", {"ring_fusion": "fused", "ring_schedule": "bidir"},
+     {"fused_block_merge[exact]": 4, "stage_tf32[wire]": 4}),
+    ("fused-dma/K4", {"ring_fusion": "fused"},
+     {"fused_round_dma": 2, "stage_tf32_split[ring]": 4}),
+    ("fused-grid/K5", {"ring_fusion": "fused", "ring_fused_rotation": "grid"},
+     {"fused_rotation_grid": 1, "stage_tf32[wire]": 4}),
+)
+
+
+def mesh2d_phase(device, X, recall) -> dict:
+    """The main shape (60000x784, k=10, all pairs) on a 2x2 mesh of the one
+    card, per transport: each dp group's rows bit for bit the 1-D P=2 ring
+    of the same transport over those rows, recall@10 >= RECALL_GATE (the
+    main paths' ``recall``), the launches of the 2-D run equal to the sum
+    of the two groups' 1-D runs and to each cell's count a group; the
+    device-input ms of the 2-D run and of one group's 1-D run. Returns the
+    launches by kernel."""
+    import torch
+
+    from mpi_knn_tpu_torch import KNNConfig, all_knn
+    from mpi_knn_tpu_torch.backends.ring import ring_tiles
+    from mpi_knn_tpu_torch.parallel.mesh import make_mesh2d
+
+    t_phase = time.perf_counter()
+    dp, ring = MESH2D
+    mesh = make_mesh2d(dp, ring, devices=[device] * (dp * ring))
+    Xd = torch.from_numpy(X).to(device)
+    totals = {}
+    for label, over, per_group in MESH2D_CELLS:
+        cfg = KNNConfig(k=K, backend="ring-overlap", **over)
+        # a group's rows: its ranks' query shards of the padded layout
+        rows = ring_tiles(cfg, M_FULL, M_FULL, dp, ring)[2] // dp
+        reset_counts()
+        got = all_knn(Xd, config=cfg, mesh=mesh, device=device)
+        sync_all()
+        counts = {n: c for n, c in read_counts().items() if c}
+        t0 = time.perf_counter()
+        all_knn(Xd, config=cfg, mesh=mesh, device=device)
+        sync_all()
+        ms = 1e3 * (time.perf_counter() - t0)
+        group_counts, equal, group_ms = {}, True, []
+        for g in range(dp):
+            ids = torch.arange(g * rows, min((g + 1) * rows, M_FULL),
+                               device=device)
+            reset_counts()
+            t0 = time.perf_counter()
+            one = all_knn(Xd, queries=Xd[ids], query_ids=ids.cpu().numpy(),
+                          config=cfg, mesh=[device] * ring, device=device)
+            sync_all()
+            group_ms.append(1e3 * (time.perf_counter() - t0))
+            for n, c in read_counts().items():
+                if c:
+                    group_counts[n] = group_counts.get(n, 0) + c
+            equal &= (torch.equal(got.ids[ids], one.ids)
+                      and torch.equal(got.dists[ids], one.dists))
+        rec = recall(got.ids)
+        want = {n: dp * c for n, c in per_group.items()}
+        emit({"phase": "mesh2d", "path": label, "dp": dp, "ring": ring,
+              "m": M_FULL, "k": K, "device_input_ms": ms,
+              "group_1d_device_input_ms": group_ms, "launches": counts,
+              "groups_1d_launches": group_counts, "groups_bit_equal_1d": equal,
+              "recall_at_10": rec, "finite": bool(torch.isfinite(got.dists).all())})
+        if not equal:
+            raise AssertionError(f"mesh2d {label}: a group's rows differ from its 1-D ring")
+        if rec < RECALL_GATE:
+            raise AssertionError(f"mesh2d {label}: recall@10 {rec} < {RECALL_GATE}")
+        if counts != group_counts or counts != want:
+            raise AssertionError(f"mesh2d {label}: launches {counts}, the groups' "
+                                 f"1-D runs {group_counts}, expected {want}")
+        for n, c in counts.items():
+            totals[n] = totals.get(n, 0) + c
+    del Xd
+    torch.cuda.empty_cache()
+    emit({"phase": "mesh2d_done", "seconds": time.perf_counter() - t_phase})
+    return totals
+
+
 def main() -> int:
     import torch
 
@@ -4788,6 +5230,18 @@ def main() -> int:
     finally:
         shutil.rmtree(fe_tmp, ignore_errors=True)
     mark("frontend")
+    # ---- the profile surface: every window's trace against the counters --
+    profile_launches = {}
+    for counts in profile_phase(device, X, inputs).values():
+        for n, c in counts.items():
+            profile_launches[n] = profile_launches.get(n, 0) + c
+    mark("profile")
+    # ---- the sharded clustered index at the README's deployment ----------
+    sharded_phase(device)
+    mark("ivf_sharded")
+    # ---- the 2-D dp x ring mesh on the one card ---------------------------
+    mesh2d_launches = mesh2d_phase(device, X, recall)
+    mark("mesh2d")
     frontend_launches = {n: fe_counts["a"].get(n, 0) + fe_counts["b"].get(n, 0)
                          for n in ("fused_knn_tiles", "stage_tf32_split",
                                    "fused_knn_tiles[compress]", "stage_bf16")}
@@ -4889,7 +5343,13 @@ def main() -> int:
          "bound_by": times[name]["bound_by"], "library_ms": library_of[name],
          # the launches of the front end's phase (counts set to 0 before it)
          **({"frontend_launches": frontend_launches[name]}
-            if name in frontend_launches else {})}
+            if name in frontend_launches else {}),
+         # the profiled windows' launches (each equal to its trace's) and
+         # the 2-D mesh phase's
+         **({"profile_launches": profile_launches[name]}
+            if name in profile_launches else {}),
+         **({"mesh2d_launches": mesh2d_launches[name]}
+            if name in mesh2d_launches else {})}
         for name in replaces
     ]})
     mark("kernels_line")

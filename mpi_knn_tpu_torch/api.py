@@ -27,7 +27,9 @@ def resolve_backend(cfg: KNNConfig, mesh=None, device=DEFAULT_DEVICE) -> str:
     if cfg.num_devices is not None:
         n = cfg.num_devices
     elif mesh is not None:
-        n = len(mesh)
+        from mpi_knn_tpu_torch.parallel.mesh import mesh_size
+
+        n = mesh_size(mesh)
     elif torch.device(device).type == "cuda":
         n = torch.cuda.device_count()
     else:
@@ -46,7 +48,8 @@ def all_knn(corpus, queries=None, config: Optional[KNNConfig] = None,
         (every corpus row queries the corpus with itself excluded).
       config: KNNConfig; fields may be overridden by kwargs.
       mesh: optional ring mesh for the ring backends: a list of devices,
-        one per rank (parallel/mesh.py); default ``num_devices`` ranks.
+        one per rank, or a (dp × ring) grid (``parallel/mesh.make_mesh2d``);
+        default ``num_devices`` ranks.
       query_ids: optional (q,) corpus identities of explicit ``queries``
         (keeps self-exclusion for sampled corpus rows; -1 = none).
       device: where the search runs ("cuda" unless told otherwise).

@@ -48,8 +48,16 @@ one call's ranks and runs its rounds; the resumable ring
 (``backends/ring_resumable.py``) drives the same rounds one at a time, and
 ``ring_serve`` runs one serving batch's rotation against travelers staged
 once by a resident index (``serve/index.py``), with the landing slots the
-engine keeps per bucket. A dp×ring mesh and a multi-process
-``torch.distributed`` form are not ported yet.
+engine keeps per bucket.
+
+On a 2-D (dp × ring) mesh (``parallel/mesh.make_mesh2d``) the queries
+shard over every device in (dp, ring) order, and each dp group runs its
+own ring, with its own transport and flag words, over its replica of the
+corpus blocks (the JAX package's ``P((dp, ring))`` queries against a
+corpus sharded over the ring axis only); the groups' rounds are issued in
+turn, round by round. The blocking schedule is undefined there, as in the
+JAX package. A multi-process ``torch.distributed`` form is not ported
+yet.
 """
 
 from __future__ import annotations
@@ -85,7 +93,7 @@ from mpi_knn_tpu_torch.ops.quant import (
     row_wire_bytes,
 )
 from mpi_knn_tpu_torch.ops.topk import init_topk
-from mpi_knn_tpu_torch.parallel.mesh import make_ring_mesh
+from mpi_knn_tpu_torch.parallel.mesh import as_mesh2d, is_mesh2d, make_ring_mesh
 from mpi_knn_tpu_torch.parallel.partition import (
     make_global_ids,
     pad_rows_any,
@@ -98,6 +106,19 @@ def bidir_rounds(num_dev: int) -> tuple[int, int]:
     ``rounds = ⌊P/2⌋ + 1``; the backward traveler merges on rounds
     ``1 <= r < bwd_limit = ⌈P/2⌉``, so every block merges exactly once."""
     return num_dev // 2 + 1, -(-num_dev // 2)
+
+
+def blocking_undefined_on_mesh_error(mesh_axes) -> ValueError:
+    """The refusal of the blocking schedule on a multi-axis mesh, dp = 1
+    included, in the JAX package's words."""
+    return ValueError(
+        "the blocking schedule (backend='ring' / overlap=False) is "
+        f"undefined on a multi-axis mesh (axes {tuple(mesh_axes)}): the "
+        "optimization barrier can pin only the rotating block there, so "
+        "the requested compute-then-send sequencing would silently run as "
+        "the overlap schedule. The 1-D ring is the only defined blocking "
+        "A/B object — use backend='ring-overlap' with --dp, or drop --dp."
+    )
 
 
 def fused_blocking_undefined_error() -> ValueError:
@@ -151,10 +172,10 @@ def quantize_ring_block(corpus_p: torch.Tensor):
 
 
 def _mesh_devices(mesh) -> list:
-    if any(isinstance(d, (list, tuple)) for d in mesh):
+    if is_mesh2d(mesh):
         raise ValueError(
-            "a 2-D dp×ring mesh: not yet ported to mpi_knn_tpu_torch "
-            "(see ROADMAP.md)")
+            "ring serving and the resident ring index take a 1-D ring mesh; "
+            "a 2-D dp×ring mesh runs through all_knn")
     return [torch.device(d) for d in mesh]
 
 
@@ -304,7 +325,7 @@ class RingRun:
 
     def __init__(self, cfg: KNNConfig, devices, overlap: bool, form: str,
                  q_sh, qid_sh, travelers, carries, q_tile: int, c_tile: int,
-                 staged: bool = False, slots=None):
+                 staged: bool = False, slots=None, group: int = 0):
         self.cfg, self.devices, self.overlap, self.form = (
             cfg, devices, overlap, form)
         self.q_sh, self.qid_sh = q_sh, qid_sh
@@ -333,7 +354,7 @@ class RingRun:
         if form == "driver":
             self.transport = _Transport(devices, overlap)
         else:
-            self.transport = ring_transport(devices)
+            self.transport = ring_transport(devices, group)
             self.slots = (slots if slots is not None
                           else [landing_slots(*t) for t in self.travelers[0]])
             self.parity = 0
@@ -387,15 +408,15 @@ class RingRun:
         """The whole schedule: one K5 launch per card (grid), or its rounds
         (the dma form moves the block every round, the last included, as
         the reference's scan does)."""
-        if self.form == "grid":
-            self.rotation_grid()
-            return
+        rotate_groups([self])
+
+    def schedule(self) -> list:
+        """The rounds of the whole schedule: (merge_bwd, rotate) each."""
         P = len(self.devices)
         rounds, bwd_limit = (bidir_rounds(P) if self.cfg.ring_schedule == "bidir"
                              else (P, 0))
-        for rnd in range(rounds):
-            self.round(merge_bwd=1 <= rnd < bwd_limit,
-                       rotate=self.form == "dma" or rnd < rounds - 1)
+        return [(1 <= rnd < bwd_limit, self.form == "dma" or rnd < rounds - 1)
+                for rnd in range(rounds)]
 
     def gathered(self, dev, nq: int):
         """The carries of every rank, in rank order, cut to ``nq`` rows."""
@@ -404,24 +425,49 @@ class RingRun:
         return best_d, best_i
 
 
+def rotate_groups(runs) -> None:
+    """The whole schedule of every dp group's ring: one K5 launch per card
+    and group (grid), or round by round, each round issued for every group
+    in turn (the dma form moves the block every round, the last included,
+    as the reference's scan does)."""
+    if runs[0].form == "grid":
+        for run in runs:
+            run.rotation_grid()
+        return
+    for merge_bwd, rotate in runs[0].schedule():
+        for run in runs:
+            run.round(merge_bwd=merge_bwd, rotate=rotate)
+
+
 def ring_shards(cfg: KNNConfig, corpus, queries, query_ids, devices,
                 start_round: int = 0):
-    """Pad and place one call's operands: returns (q_tile, c_tile, q_sh,
-    qid_sh, travelers), the travelers as they stand after ``start_round``
-    rounds (rank i holds block i − r, and under bidir also block i + r: the
-    padded corpus rolled r blocks each way)."""
-    P = len(devices)
+    """Pad and place one call's operands on a 1-D ring: returns (q_tile,
+    c_tile, q_sh, qid_sh, travelers), the travelers as they stand after
+    ``start_round`` rounds (rank i holds block i − r, and under bidir also
+    block i + r: the padded corpus rolled r blocks each way)."""
+    q_tile, c_tile, [(q_sh, qid_sh, travelers)] = ring_layout(
+        cfg, corpus, queries, query_ids, [devices], start_round)
+    return q_tile, c_tile, q_sh, qid_sh, travelers
+
+
+def ring_layout(cfg: KNNConfig, corpus, queries, query_ids, groups,
+                start_round: int = 0):
+    """:func:`ring_shards` over dp groups of P devices each: the queries
+    padded for dp·P shards in (group, rank) order, the corpus blocks
+    replicated to every group. Returns (q_tile, c_tile, per group (q_sh,
+    qid_sh, travelers))."""
+    dp, P = len(groups), len(groups[0])
     m, dim = corpus.shape
     nq = queries.shape[0]
-    q_tile, c_tile, q_pad, c_pad = ring_tiles(cfg, m, nq, 1, P)
+    q_tile, c_tile, q_pad, c_pad = ring_tiles(cfg, m, nq, dp, P)
     dtype = torch_dtype(cfg.dtype)
-    b, ql = c_pad // P, q_pad // P
+    b, ql = c_pad // P, q_pad // (dp * P)
     shift = start_round * b
 
     corpus_p = pad_rows_any(corpus, c_pad, dtype=dtype)
     ids = torch.from_numpy(make_global_ids(m, c_pad))
 
-    def traveler_blocks(s):
+    def wire_rows(s):
         rows = torch.roll(corpus_p, s, 0) if s else corpus_p
         rid = torch.roll(ids, s, 0) if s else ids
         scale = None
@@ -429,19 +475,32 @@ def ring_shards(cfg: KNNConfig, corpus, queries, query_ids, devices,
             rows, scale = quantize_ring_block(rows)
         elif cfg.ring_transfer_dtype is not None:
             rows = rows.to(torch_dtype(cfg.ring_transfer_dtype))
+        return rows, rid, scale
+
+    def traveler_blocks(wire, devices):
+        rows, rid, scale = wire
         return [(rows[r * b:(r + 1) * b].to(d), rid[r * b:(r + 1) * b].to(d),
                  None if scale is None else scale[r * b:(r + 1) * b].to(d))
                 for r, d in enumerate(devices)]
 
-    travelers = [traveler_blocks(shift)]
-    if cfg.ring_schedule == "bidir":
-        travelers.append(traveler_blocks(-shift) if shift else travelers[0])
+    fwd = wire_rows(shift)
+    bwd = wire_rows(-shift) if cfg.ring_schedule == "bidir" and shift else None
     queries_p = pad_rows_any(queries, q_pad, dtype=dtype)
     qids_p = pad_rows_any(np.asarray(query_ids, dtype=np.int32), q_pad,
                           fill=-1)
-    q_sh = [queries_p[r * ql:(r + 1) * ql].to(d) for r, d in enumerate(devices)]
-    qid_sh = [qids_p[r * ql:(r + 1) * ql].to(d) for r, d in enumerate(devices)]
-    return q_tile, c_tile, q_sh, qid_sh, travelers
+    out = []
+    for g, devices in enumerate(groups):
+        travelers = [traveler_blocks(fwd, devices)]
+        if cfg.ring_schedule == "bidir":
+            travelers.append(traveler_blocks(bwd, devices) if bwd is not None
+                             else travelers[0])
+        base = g * P
+        q_sh = [queries_p[(base + r) * ql:(base + r + 1) * ql].to(d)
+                for r, d in enumerate(devices)]
+        qid_sh = [qids_p[(base + r) * ql:(base + r + 1) * ql].to(d)
+                  for r, d in enumerate(devices)]
+        out.append((q_sh, qid_sh, travelers))
+    return q_tile, c_tile, out
 
 
 def ring_devices(cfg: KNNConfig, mesh, dev) -> list:
@@ -451,26 +510,46 @@ def ring_devices(cfg: KNNConfig, mesh, dev) -> list:
     return _mesh_devices(mesh)
 
 
+def ring_groups(cfg: KNNConfig, mesh, dev, overlap: bool) -> list:
+    """The dp groups of devices a ring call runs (one group on a 1-D
+    mesh). The blocking schedule on a 2-D mesh raises, dp = 1 included."""
+    if not is_mesh2d(mesh):
+        return [ring_devices(cfg, mesh, dev)]
+    mesh = as_mesh2d(mesh)
+    if not overlap:
+        raise blocking_undefined_on_mesh_error(mesh.axis_names)
+    return [[torch.device(d) for d in row] for row in mesh]
+
+
 def all_knn_ring(corpus, queries, query_ids, cfg: KNNConfig, mesh=None,
                  overlap: bool = True, device=DEFAULT_DEVICE, form=None):
-    """Pad and shard corpus and queries over the ring, rotate, gather the
-    carries. ``form`` overrides ``ring_form`` (the CPU tests run the dma
-    and grid forms over logical ranks on the kernels' plain versions).
-    Returns ((q, k) dists, (q, k) ids) on ``device``."""
+    """Pad and shard corpus and queries over the ring (each dp group's ring
+    on a 2-D mesh), rotate, gather the carries. ``form`` overrides
+    ``ring_form`` (the CPU tests run the dma and grid forms over logical
+    ranks on the kernels' plain versions). Returns ((q, k) dists, (q, k)
+    ids) on ``device``."""
+    dev = torch.device(device)
+    groups = ring_groups(cfg, mesh, dev, overlap)
     if cfg.ring_fusion == "fused" and not overlap:
         raise fused_blocking_undefined_error()
-    dev = torch.device(device)
-    devices = ring_devices(cfg, mesh, dev)
-    form = form or ring_form(cfg, devices)
-    q_tile, c_tile, q_sh, qid_sh, travelers = ring_shards(
-        cfg, corpus, queries, query_ids, devices)
+    form = form or ring_form(cfg, groups[0])
+    q_tile, c_tile, parts = ring_layout(cfg, corpus, queries, query_ids, groups)
     acc = torch.float64 if torch_dtype(cfg.dtype) == torch.float64 else torch.float32
-    carries = [init_topk(q.shape[0], cfg.k, dtype=acc, device=d)
-               for q, d in zip(q_sh, devices)]
-    run = RingRun(cfg, devices, overlap, form, q_sh, qid_sh, travelers,
-                  carries, q_tile, c_tile)
-    run.rotate()
-    return run.gathered(dev, queries.shape[0])
+    runs = []
+    for g, (devices, (q_sh, qid_sh, travelers)) in enumerate(zip(groups, parts)):
+        carries = [init_topk(q.shape[0], cfg.k, dtype=acc, device=d)
+                   for q, d in zip(q_sh, devices)]
+        runs.append(RingRun(cfg, devices, overlap, form, q_sh, qid_sh,
+                            travelers, carries, q_tile, c_tile, group=g))
+    rotate_groups(runs)
+    return gathered(runs, dev, queries.shape[0])
+
+
+def gathered(runs, dev, nq: int):
+    """Every group's carries in (group, rank) order, cut to ``nq`` rows."""
+    got = [run.gathered(dev, None) for run in runs]
+    return (torch.cat([d for d, _ in got])[:nq],
+            torch.cat([i for _, i in got])[:nq])
 
 
 def ring_serve(q_sh, qid_sh, carries, shards, cfg: KNNConfig, devices,

@@ -18,9 +18,12 @@ fingerprint so carries of different round algebras never cross-resume.
 
 ``stop_after_rounds`` is the fault-injection hook: tests stop the run at
 any round and check that the resumed result equals an uninterrupted one
-bit for bit. The grid form has no round boundary and is refused. The JAX
-package's multi-host broadcast of the checkpoint is not ported: the port
-runs single-controller.
+bit for bit. The grid form has no round boundary and is refused. On a 2-D
+(dp × ring) mesh every dp group's ring runs the same round at once, the
+checkpoint holds every group's carry in (group, rank) order, and the
+fingerprint names the grid (``ring{P}x{dp}``); the blocking schedule there
+raises, as in ``all_knn_ring``. The JAX package's multi-host broadcast of
+the checkpoint is not ported: the port runs single-controller.
 """
 
 from __future__ import annotations
@@ -32,10 +35,11 @@ from mpi_knn_tpu_torch.backends.ring import (
     RingRun,
     bidir_rounds,
     fused_blocking_undefined_error,
+    gathered,
     grid_resumable_error,
-    ring_devices,
     ring_form,
-    ring_shards,
+    ring_groups,
+    ring_layout,
 )
 from mpi_knn_tpu_torch.backends.serial import torch_dtype
 from mpi_knn_tpu_torch.config import KNNConfig
@@ -63,11 +67,11 @@ def all_knn_ring_resumable(corpus, queries, query_ids, cfg: KNNConfig,
     """
     if cfg.ring_fusion == "fused" and cfg.ring_fused_rotation == "grid":
         raise grid_resumable_error()
+    dev = resolve_device(device)
+    groups = ring_groups(cfg, mesh, dev, overlap)
     if cfg.ring_fusion == "fused" and not overlap:
         raise fused_blocking_undefined_error()
-    dev = resolve_device(device)
-    devices = ring_devices(cfg, mesh, dev)
-    P = len(devices)
+    dp, P = len(groups), len(groups[0])
     bidir = cfg.ring_schedule == "bidir"
     rounds_total, bwd_limit = bidir_rounds(P) if bidir else (P, 0)
 
@@ -80,7 +84,7 @@ def all_knn_ring_resumable(corpus, queries, query_ids, cfg: KNNConfig,
     # ride the suffix too, since the same rounds_done means another merged
     # prefix under another schedule
     fp = (fingerprint(corpus, queries, cfg)
-          + f":ring{P}x1:{int(overlap)}:{cfg.ring_schedule}"
+          + f":ring{P}x{dp}:{int(overlap)}:{cfg.ring_schedule}"
           + f":{cfg.ring_fusion}")
     if cfg.center and cfg.metric == "l2":
         # a tensor is centered in f32 where it lies, a host array in f64:
@@ -100,27 +104,32 @@ def all_knn_ring_resumable(corpus, queries, query_ids, cfg: KNNConfig,
             log.info("resuming ring at round %d/%d from %s", start_round,
                      rounds_total, checkpoint_dir)
 
-    q_tile, c_tile, q_sh, qid_sh, travelers = ring_shards(
-        cfg, corpus, queries, query_ids, devices, start_round)
-    ql = q_sh[0].shape[0]
-    if saved is None:
-        carries = [init_topk(ql, cfg.k, dtype=acc, device=d) for d in devices]
-    else:
-        cd = torch.as_tensor(saved.carry_d, dtype=acc)
-        ci = torch.as_tensor(saved.carry_i)
-        carries = [(cd[r * ql:(r + 1) * ql].to(d), ci[r * ql:(r + 1) * ql].to(d))
-                   for r, d in enumerate(devices)]
-    run = RingRun(cfg, devices, overlap, ring_form(cfg, devices), q_sh,
-                  qid_sh, travelers, carries, q_tile, c_tile)
+    q_tile, c_tile, parts = ring_layout(cfg, corpus, queries, query_ids,
+                                        groups, start_round)
+    ql = parts[0][0][0].shape[0]
+    form = ring_form(cfg, groups[0])
+    runs = []
+    for g, (devices, (q_sh, qid_sh, travelers)) in enumerate(zip(groups, parts)):
+        if saved is None:
+            carries = [init_topk(ql, cfg.k, dtype=acc, device=d) for d in devices]
+        else:
+            cd = torch.as_tensor(saved.carry_d, dtype=acc)
+            ci = torch.as_tensor(saved.carry_i)
+            rows = [((g * P + r) * ql, (g * P + r + 1) * ql) for r in range(P)]
+            carries = [(cd[a:b].to(d), ci[a:b].to(d))
+                       for (a, b), d in zip(rows, devices)]
+        runs.append(RingRun(cfg, devices, overlap, form, q_sh, qid_sh,
+                            travelers, carries, q_tile, c_tile, group=g))
 
     total = rounds_total if stop_after_rounds is None else min(
         rounds_total, start_round + stop_after_rounds)
     for r in range(start_round, total):
-        run.round(merge_bwd=1 <= r < bwd_limit, rotate=r + 1 < rounds_total)
+        for run in runs:
+            run.round(merge_bwd=1 <= r < bwd_limit, rotate=r + 1 < rounds_total)
         done = r + 1
         if checkpoint_dir is not None and (
                 done % save_every == 0 or done == rounds_total):
-            cd, ci = run.gathered("cpu", P * ql)
+            cd, ci = gathered(runs, "cpu", dp * P * ql)
             save_checkpoint(checkpoint_dir, KNNCheckpoint(
                 carry_d=cd.numpy(), carry_i=ci.numpy(), tiles_done=done,
                 fingerprint=fp))
@@ -128,4 +137,4 @@ def all_knn_ring_resumable(corpus, queries, query_ids, cfg: KNNConfig,
         if progress_cb is not None:
             progress_cb(done, rounds_total)
 
-    return run.gathered(dev, queries.shape[0])
+    return gathered(runs, dev, queries.shape[0])

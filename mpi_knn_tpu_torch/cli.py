@@ -40,9 +40,11 @@ kNN: ``--k``, ``--metric``, ``--backend``, ``--num-classes``,
 (a torch.profiler Chrome trace), ``--checkpoint-dir``, ``--save-every``,
 ``-q``, ``-v``, ``--recall-sample``, ``--recall-vs-serial``, ``--device``.
 
-Not yet ported (exit 2, naming what was asked): the multi-process flags
-``--dp``, ``--coordinator``, ``--num-processes``, ``--process-id``, and the
-subcommands ``lint`` and ``plan``.
+``--dp G`` runs the ring backends on a (G × devices/G) mesh: queries
+shard over every device, each of the G groups rings the corpus
+(``parallel/mesh.make_mesh2d``). Not yet ported (exit 2, naming what was
+asked): the multi-process flags ``--coordinator``, ``--num-processes``,
+``--process-id``, and the subcommands ``lint`` and ``plan``.
 """
 
 from __future__ import annotations
@@ -72,7 +74,7 @@ from mpi_knn_tpu_torch.config import (
 from mpi_knn_tpu_torch.device import DEFAULT_DEVICE
 
 UNPORTED_SUBCOMMANDS = ("lint", "plan")
-UNPORTED_FLAGS = ("--dp", "--coordinator", "--num-processes", "--process-id")
+UNPORTED_FLAGS = ("--coordinator", "--num-processes", "--process-id")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -103,6 +105,10 @@ def build_parser() -> argparse.ArgumentParser:
     k.add_argument("--devices", type=int, default=None,
                    help="ring size for the ring backends (default: the "
                    "visible cards; on the CPU, logical ranks)")
+    k.add_argument("--dp", type=int, default=1,
+                   help="2-D mesh: data-parallel groups; devices/dp form the "
+                   "corpus ring inside each group (queries shard over all "
+                   "devices, corpus memory scales with the ring size)")
     k.add_argument("--query-tile", type=int, default=1024)
     k.add_argument("--corpus-tile", type=int, default=2048)
     k.add_argument("--dtype", default="float32",
@@ -382,9 +388,12 @@ def main(argv=None) -> int:
                 queries = torch.matmul(q - mu, comps)
             timer.block_on(X)
 
+    mesh = None
+    if args.dp and args.dp > 1:
+        mesh = _mesh2d(args, device)
     report = RunReport(
         config=vars(args), data_source=source, shape=tuple(X.shape),
-        backend=resolve_backend(cfg, device=device),
+        backend=resolve_backend(cfg, mesh, device=device),
         num_devices=cfg.num_devices or 1,
     )
     if any(str(p).endswith(".mat") for p in (args.data, args.queries)):
@@ -395,9 +404,10 @@ def main(argv=None) -> int:
     with profile_trace(args.profile, device):
         with timer.phase("knn"):
             if args.checkpoint_dir:
-                result = _resumable_knn(X, queries, cfg, args, device)
+                result = _resumable_knn(X, queries, cfg, args, device, mesh)
             else:
-                result = all_knn(X, queries=queries, config=cfg, device=device)
+                result = all_knn(X, queries=queries, config=cfg, mesh=mesh,
+                                 device=device)
             timer.block_on(result.dists)
         cls = None
         if labels is not None and (args.loo or queries is None):
@@ -517,7 +527,36 @@ def _recall_vs_serial(args, cfg, report, result, X, queries, timer, device,
     report.notes["recall_sample"] = int(len(sample))
 
 
-def _resumable_knn(X, queries, cfg, args, device):
+def _mesh2d(args, device):
+    """The ``--dp`` mesh, with the JAX CLI's checks: a ring backend, not the
+    blocking one, and dp dividing the device count."""
+    from mpi_knn_tpu_torch.parallel.mesh import make_mesh2d
+
+    if args.backend not in ("ring", "ring-overlap", "auto"):
+        raise SystemExit(
+            f"error: --dp requires a ring backend (got --backend "
+            f"{args.backend}; serial/pallas ignore the mesh)")
+    if args.backend == "ring":
+        # the blocking barrier cannot be expressed on a dp×ring mesh: the
+        # run would silently use the overlap schedule
+        raise SystemExit(
+            "error: --dp with --backend ring (the blocking schedule) is "
+            "undefined: the compute-then-send barrier cannot be expressed "
+            "on a dp×ring mesh, so the run would silently use the overlap "
+            "schedule. The 1-D ring is the only defined blocking A/B "
+            "object — use --backend ring-overlap with --dp, or drop --dp.")
+    total = args.devices or (torch.cuda.device_count()
+                             if device.type == "cuda" else 1)
+    if total % args.dp:
+        raise SystemExit(
+            f"error: --dp {args.dp} must divide the device count {total}")
+    try:
+        return make_mesh2d(args.dp, total // args.dp, device=device)
+    except ValueError as e:
+        raise SystemExit(f"error: {e}")
+
+
+def _resumable_knn(X, queries, cfg, args, device, mesh=None):
     """The --checkpoint-dir run: ring backends checkpoint per ring round,
     the others per corpus-tile round, as the JAX CLI routes them."""
     from mpi_knn_tpu_torch.api import resolve_backend
@@ -529,14 +568,14 @@ def _resumable_knn(X, queries, cfg, args, device):
     else:
         q_arr = _host(queries)
         ids = np.full(len(q_arr), -1, dtype=np.int32)
-    backend = resolve_backend(cfg, device=device)
+    backend = resolve_backend(cfg, mesh, device=device)
     if backend in ("ring", "ring-overlap"):
         from mpi_knn_tpu_torch.backends.ring_resumable import (
             all_knn_ring_resumable,
         )
 
         d, i = all_knn_ring_resumable(
-            X, q_arr, ids, cfg, overlap=backend == "ring-overlap",
+            X, q_arr, ids, cfg, mesh=mesh, overlap=backend == "ring-overlap",
             checkpoint_dir=args.checkpoint_dir,
             save_every=1 if args.save_every is None else args.save_every,
             device=device)

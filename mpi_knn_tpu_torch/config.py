@@ -3,13 +3,10 @@
 ``KNNConfig`` carries the same field names and defaults as the JAX package's
 config, so ``dataclasses.asdict`` of one drives the other (see
 ``convert.py``). The value domains and the cross-field rules are validated
-the same way. On top of that, settings whose machinery is not ported yet
-are refused here with a ``ValueError`` that names the setting and says "not
-yet ported" — a refused setting never silently runs as something else.
+the same way: every setting the JAX package accepts is ported.
 
-Fields that only the sharded clustered index reads (``ivf_shards``,
-``ivf_route_cap``) are kept so a config dict round-trips; ``ivf_shards``
-is refused until that layer is ported. The live-mutation fields
+The sharded clustered index reads ``ivf_shards`` and ``ivf_route_cap``
+(``ivf/sharded.py``). The live-mutation fields
 (``bucket_headroom``, ``mutation_bucket``, ``compact_fill_threshold``,
 ``compact_tombstone_fraction``) are read by ``serve/mutate.py`` and
 ``ivf/mutate.py``.
@@ -58,8 +55,8 @@ class KNNConfig:
     (``ivf/``): partitions, nprobe, kmeans_iters, kmeans_init, ivf_seed,
     bucket_headroom and dtype int8 / int4 at rest, and live mutation's
     (``serve/mutate.py``): mutation_bucket, compact_fill_threshold,
-    compact_tombstone_fraction. ``ivf_shards`` (the sharded clustered
-    index) is refused.
+    compact_tombstone_fraction, and the sharded index's ivf_shards and
+    ivf_route_cap (``ivf/sharded.py``).
     """
 
     k: int = 30
@@ -88,8 +85,7 @@ class KNNConfig:
     ring_fused_rotation: str = "round"
     pallas_variant: str = "tiles"
     max_tile_elems: int = 1 << 28
-    # --- serving, the clustered index and live mutation (the sharded
-    # index's fields: refused or unread until ported) ---
+    # --- serving, the clustered index (sharded too) and live mutation ---
     query_bucket: int = 1024
     dispatch_depth: int = 2
     partitions: Optional[int] = None
@@ -136,7 +132,6 @@ class KNNConfig:
             )
         self._check_cross_fields()
         self._check_index_fields()
-        self._refuse_unported()
 
     def _check_cross_fields(self):
         """The JAX package's cross-field rules, with the same meaning."""
@@ -254,13 +249,6 @@ class KNNConfig:
             raise ValueError(
                 "compact_tombstone_fraction must be > 0, got "
                 f"{self.compact_tombstone_fraction}"
-            )
-
-    def _refuse_unported(self):
-        if self.ivf_shards is not None:
-            raise ValueError(
-                f"ivf_shards={self.ivf_shards!r}: not yet ported to "
-                "mpi_knn_tpu_torch (see ROADMAP.md)"
             )
 
     def replace(self, **kw) -> KNNConfig:

@@ -10,7 +10,9 @@ partitions. The ``.npz`` is the JAX package's format, so either package's
 Flag combinations the clustered path cannot honor exit 2 with the reason:
 a pallas backend (the fused kernels scan the full corpus), a non-L2 metric
 (k-means is L2 geometry), float64, nprobe > partitions. ``--backend ring``
-(the sharded deployment) exits 2 as not yet ported.
+names the sharded deployment: the training and the saved file are the
+same (the shard layout is derived when the file is served), so the build
+runs the unsharded path and says how to serve it sharded.
 
 Examples::
 
@@ -20,6 +22,11 @@ Examples::
         --partitions 8 --out i.npz --device cpu
     python -m mpi_knn_tpu_torch query --data sift:100000 \\
         --index-load sift.ivf.npz --synthetic 10000 --batch 512
+    python -m mpi_knn_tpu_torch build-index --data sift:100000 \\
+        --partitions 256 --backend ring --out sift.ivf.npz   # sharded
+    python -m mpi_knn_tpu_torch query --data sift:100000 \\
+        --index-load sift.ivf.npz --backend ring --devices 4 \\
+        --synthetic 10000 --batch 512
 """
 
 from __future__ import annotations
@@ -62,8 +69,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="l2 only; cosine is refused (k-means and the "
                    "centroid score are L2 geometry)")
     k.add_argument("--backend", default="auto",
-                   help="serial/auto; pallas is refused, ring (the sharded "
-                   "index) is not yet ported")
+                   help="serial/auto, or ring (the sharded deployment: "
+                   "the same file, served with query --backend ring); "
+                   "pallas is refused")
     k.add_argument("--dtype", default="float32",
                    choices=["float32", "bfloat16", "int8", "int4"],
                    help="bucket store at rest: bfloat16 halves it; int8 / "
@@ -88,11 +96,10 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.backend in ("ring", "ring-overlap"):
-        print(f"error: --backend {args.backend}: the sharded clustered index "
-              "is not yet ported to mpi_knn_tpu_torch (see ROADMAP.md)",
-              file=sys.stderr)
-        return 2
+    # --backend ring = the sharded deployment: the training and the saved
+    # file are the unsharded ones (the layout is derived at serve time)
+    sharded = args.backend in ("ring", "ring-overlap")
+    backend = "auto" if sharded else args.backend
 
     from mpi_knn_tpu_torch.cli import load_corpus
     from mpi_knn_tpu_torch.device import resolve_device
@@ -106,7 +113,7 @@ def main(argv=None) -> int:
         cfg = KNNConfig(
             k=args.k,
             metric=args.metric,
-            backend=args.backend,
+            backend=backend,
             dtype=args.dtype,
             recall_target=args.recall_target,
             partitions=args.partitions,
@@ -147,6 +154,11 @@ def main(argv=None) -> int:
             f"{tuned}; probes {100 * frac:.1f}% of corpus bytes/query; "
             f"build {build_s:.2f}s ({stages}); saved {path}"
         )
+        if sharded:
+            print("[mpi_knn_tpu_torch build-index] --backend ring: the shard "
+                  "layout is derived at serve time; serve this file with "
+                  "`query --index-load ... --backend ring --devices N` on "
+                  "any shard count")
     return 0
 
 

@@ -25,7 +25,9 @@ reaches ``cfg.recall_target`` becomes the index default.
 ``save_ivf_index`` / ``load_ivf_index`` use the JAX package's ``.npz``
 format, member for member (bf16 buckets as uint16 views, the config and
 sizes as a JSON ``meta``), so an index saved by either package loads in
-the other.
+the other. A sharded index (``ivf/sharded.py``) saves its unsharded view,
+so one file serves on any shard count (``shard_ivf_index`` after
+``load_ivf_index``).
 """
 
 from __future__ import annotations
@@ -210,6 +212,12 @@ def build_ivf_index(corpus, config: Optional[KNNConfig] = None,
             "building a clustered index requires partitions "
             "(KNNConfig.partitions / --partitions)"
         )
+    if cfg.ivf_shards is not None:
+        # trained here (the clustering does not depend on the layout),
+        # then distributed over the ring mesh (ivf/sharded.py)
+        from mpi_knn_tpu_torch.ivf.sharded import build_sharded_ivf_index
+
+        return build_sharded_ivf_index(corpus, cfg, device=device)
     if cfg.backend not in ("auto", "serial"):
         raise ValueError(
             f"the clustered index is a single-device serial-math path; "
@@ -359,8 +367,14 @@ def _host(t: torch.Tensor) -> np.ndarray:
 
 def save_ivf_index(index: IVFIndex, path: str) -> str:
     """Write the whole index to one ``.npz`` in the JAX package's format
-    (bf16 buckets as uint16 views), atomically. Returns the path."""
+    (bf16 buckets as uint16 views), atomically. Returns the path. A
+    sharded index saves its unsharded view: the file holds no layout."""
     from mpi_knn_tpu_torch.utils.atomicio import atomic_write_bytes
+
+    if getattr(index, "backend", None) == "ivf-sharded":
+        from mpi_knn_tpu_torch.ivf.sharded import unshard_ivf_index
+
+        index = unshard_ivf_index(index)
 
     if not path.endswith(".npz"):
         path += ".npz"

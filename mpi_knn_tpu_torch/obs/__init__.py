@@ -12,9 +12,12 @@ about the serving session reads its evidence from.
   Chrome trace-event exporter.
 
 ``python -m mpi_knn_tpu_torch metrics`` (:mod:`~mpi_knn_tpu_torch.obs.
-cli`) renders, validates and exports these artifacts. The reference's
-``xplane`` / ``attribution`` modules parse a TPU trace and have no
-counterpart here yet.
+cli`) renders, validates and exports these artifacts. A third pillar
+reads the card's own time: :mod:`~mpi_knn_tpu_torch.obs.kineto` parses a
+``torch.profiler`` trace (the reference's ``xplane``) and
+:mod:`~mpi_knn_tpu_torch.obs.attribution` reduces it to the per-category
+device-time split ``ServeSession.profile`` and ``query
+--profile-batches`` report.
 
 Nothing here imports torch: supervisors read flight records and metrics
 snapshots in processes that must never touch the card.
@@ -48,6 +51,15 @@ _EXPORTS = {
     "summarize_flight": "mpi_knn_tpu_torch.obs.spans",
     "validate_flight": "mpi_knn_tpu_torch.obs.spans",
     "to_chrome_trace": "mpi_knn_tpu_torch.obs.spans",
+    # kineto / attribution
+    "ParseError": "mpi_knn_tpu_torch.obs.kineto",
+    "parse_trace": "mpi_knn_tpu_torch.obs.kineto",
+    "parse_trace_bytes": "mpi_knn_tpu_torch.obs.kineto",
+    "find_traces": "mpi_knn_tpu_torch.obs.kineto",
+    "analyze": "mpi_knn_tpu_torch.obs.kineto",
+    "categorize": "mpi_knn_tpu_torch.obs.kineto",
+    "attribute_trace": "mpi_knn_tpu_torch.obs.attribution",
+    "pick_device_plane": "mpi_knn_tpu_torch.obs.attribution",
 }
 
 __all__ = sorted(_EXPORTS)

@@ -181,11 +181,14 @@ class RingTransport:
 _TRANSPORTS: dict = {}
 
 
-def ring_transport(devices) -> RingTransport:
-    """The mesh's transport state, made once per mesh."""
-    key = tuple(_card(torch.device(d)) for d in devices)
+def ring_transport(devices, group: int = 0) -> RingTransport:
+    """The ring's transport state, made once per ring: per mesh and, on a
+    2-D mesh, per dp group (each group's ring has flag words of its own,
+    even where two groups name the same cards)."""
+    cards = tuple(_card(torch.device(d)) for d in devices)
+    key = (group, cards)
     if key not in _TRANSPORTS:
-        _TRANSPORTS[key] = RingTransport(key)
+        _TRANSPORTS[key] = RingTransport(cards)
     return _TRANSPORTS[key]
 
 

@@ -1,5 +1,7 @@
 """The ring's device mesh: an ordered list of ``torch.device``s, one per
-ring rank (the JAX package's 1-D ``jax.sharding.Mesh``).
+ring rank (the JAX package's 1-D ``jax.sharding.Mesh``), and the 2-D
+(dp × ring) grid of them (``make_mesh2d``: queries shard over every
+device, each dp group runs its own ring over its replica of the corpus).
 
 The ring runs single-controller: one process holds every rank's
 shards and moves each block to the next rank's device. On CUDA the mesh
@@ -32,6 +34,42 @@ class RingMesh(list):
         if not self:
             raise ValueError("a ring mesh needs at least one device")
         self.axis_name = axis_name
+        self.axis_names = (axis_name,)
+
+
+class Mesh2D(list):
+    """A (dp × ring) grid of ``torch.device``s: one :class:`RingMesh` per dp
+    group, the ring on the minor axis. A grid may name one card several
+    times, as a ring mesh may."""
+
+    def __init__(self, grid, dp_axis: str = "dp", ring_axis: str = "ring"):
+        super().__init__(RingMesh(row, ring_axis) for row in grid)
+        if not self or len({len(r) for r in self}) != 1:
+            raise ValueError("a 2-D mesh needs dp >= 1 groups of one ring size")
+        self.axis_names = (dp_axis, ring_axis)
+
+    @property
+    def shape(self) -> tuple[int, int]:
+        return len(self), len(self[0])
+
+    def flat(self) -> list:
+        """Every device in (dp, ring) order: the order of the query shards."""
+        return [d for row in self for d in row]
+
+
+def is_mesh2d(mesh) -> bool:
+    """A 2-D mesh: a :class:`Mesh2D` or a list of device lists."""
+    return isinstance(mesh, Mesh2D) or (
+        mesh is not None and any(isinstance(d, (list, tuple)) for d in mesh))
+
+
+def as_mesh2d(mesh) -> Mesh2D:
+    return mesh if isinstance(mesh, Mesh2D) else Mesh2D(mesh)
+
+
+def mesh_size(mesh) -> int:
+    """Devices of a 1-D or 2-D mesh."""
+    return len(as_mesh2d(mesh).flat()) if is_mesh2d(mesh) else len(mesh)
 
 
 def make_ring_mesh(num_devices: Optional[int] = None, axis_name: str = "ring",
@@ -55,6 +93,32 @@ def make_ring_mesh(num_devices: Optional[int] = None, axis_name: str = "ring",
             )
         devices = devices[:num_devices]
     return RingMesh(devices, axis_name)
+
+
+def make_mesh2d(dp: int, ring: int, dp_axis: str = "dp",
+                ring_axis: str = "ring", devices: Optional[Sequence] = None,
+                device=DEFAULT_DEVICE) -> Mesh2D:
+    """A (dp × ring) grid over the first dp·ring of ``devices`` (default: the
+    visible cards when ``device`` is CUDA, logical ranks on the CPU): the
+    queries shard over every device, the corpus rings within each dp group,
+    so query throughput and corpus capacity scale apart. The ring is the
+    minor axis: a group's ranks are consecutive devices."""
+    if dp < 1 or ring < 1:
+        raise ValueError(f"a 2-D mesh needs dp, ring >= 1, got {dp}×{ring}")
+    need = dp * ring
+    kind = torch.device(device).type
+    if devices is None:
+        if kind == "cuda":
+            devices = [torch.device("cuda", i)
+                       for i in range(torch.cuda.device_count())]
+        else:
+            devices = [torch.device(kind)] * need
+    devices = list(devices)
+    if need > len(devices):
+        raise ValueError(
+            f"requested {dp}×{ring}={need} devices, only {len(devices)} visible")
+    return Mesh2D([devices[g * ring:(g + 1) * ring] for g in range(dp)],
+                  dp_axis, ring_axis)
 
 
 def enable_peer_access(devices: Sequence) -> None:

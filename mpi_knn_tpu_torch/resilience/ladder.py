@@ -128,8 +128,9 @@ def build_ladder(index, cfg, policy: ResiliencePolicy):
     rungs = [(FULL_RUNG, cfg)]
     cur = cfg
 
-    # rung: probe half as many partitions (clustered index only; the
-    # reference's sharded form shares it)
+    # rung: probe half as many partitions (the clustered index, sharded
+    # too: at the safe route cap halving nprobe also halves the exchange's
+    # buffers, so the rung sheds exchange bytes with the probed ones)
     if (
         getattr(index, "backend", None) in ("ivf", "ivf-sharded")
         and cur.nprobe is not None

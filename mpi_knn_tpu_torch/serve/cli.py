@@ -1,6 +1,6 @@
 """``python -m mpi_knn_tpu_torch query``: build a resident corpus index,
 stream query batches through it, report per-batch latency and end-to-end
-throughput (the JAX package's ``serve/cli.py``, single device).
+throughput (the JAX package's ``serve/cli.py``, one controlling process).
 
 The corpus is loaded and indexed once; query batches stream through the
 bucketed engine with bounded dispatch-ahead (``mpi_knn_tpu_torch.serve``).
@@ -10,8 +10,7 @@ built in steady state" is visible per invocation.
 Combinations the engine cannot honor exit 2 with the reason (a pallas
 index with a cosine metric or a non-float32 dtype, mixed precision over a
 bf16 index, the int8 wire without the mixed policy), and so do the JAX
-CLI's flags whose layers are not ported yet (the sharded index's route
-cap, the device-time profile).
+package's refusals of knobs that would do nothing.
 
 Resilience (``resilience/``): ``--batch-deadline-ms`` and ``--retries``
 put the session under a policy (a per-batch deadline, retries of
@@ -28,7 +27,12 @@ the store's, the ring's flags) are refused beside it, and the report adds
 its partitions, nprobe and at-rest bytes. The ring backends serve over
 ``--devices`` ranks of the one device (``--ring-schedule``,
 ``--ring-transfer-dtype``), and the report carries the rotation's static
-wire bytes (``ring_transfer``).
+wire bytes (``ring_transfer``). ``--index-load`` with ``--backend ring
+--devices S`` serves the saved index sharded over S ranks
+(``ivf/sharded.py``; ``--route-cap`` bounds its exchange), and the report
+adds the exchange's story (``sharded``). ``--profile-batches N`` profiles
+N more batches after the stream under ``torch.profiler`` and reports the
+device-time split (``device_time``; ``--profile-dir`` keeps the trace).
 
 Examples::
 
@@ -42,6 +46,9 @@ Examples::
         --k 10 --backend pallas --batch 256 --report serve.json
     python -m mpi_knn_tpu_torch query --data sift:100000 \\
         --index-load sift.ivf.npz --synthetic 10000 --batch 512 --k 10
+    python -m mpi_knn_tpu_torch query --data synthetic:2048x32c8 \\
+        --index-load i.npz --backend ring --devices 4 --route-cap 64 \\
+        --synthetic 512 --batch 128 --device cpu --profile-batches 2
     python -m mpi_knn_tpu_torch query --data synthetic:512x32c4 \\
         --synthetic 100 --backend pallas --device cpu \\
         --batch-deadline-ms 50 --retries 2 --flight-record f.jsonl \\
@@ -68,12 +75,6 @@ from mpi_knn_tpu_torch.config import (
 )
 from mpi_knn_tpu_torch.device import DEFAULT_DEVICE
 
-# the JAX CLI's flags whose layers the port does not have yet: (flag, takes
-# a value), each refused with exit 2
-UNPORTED_FLAGS = (
-    ("--route-cap", True), ("--profile-batches", True),
-    ("--profile-dir", True),
-)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -107,6 +108,14 @@ def build_parser() -> argparse.ArgumentParser:
     d.add_argument("--nprobe", type=int, default=None,
                    help="partitions probed per query with --index-load "
                    "(default: the index's tuned nprobe)")
+    d.add_argument("--route-cap", type=int, default=None,
+                   help="with --index-load --backend ring: the static "
+                   "per-(home, owner)-shard route capacity of the candidate "
+                   "exchange per query tile (default: the safe cap "
+                   "q_tile*nprobe, no probe drops); a smaller cap bounds "
+                   "the exchange's memory and drops the overflow probes, "
+                   "counted in the metrics and the report, never answered "
+                   "wrong")
 
     k = p.add_argument_group("kNN / serving")
     k.add_argument("--k", type=int, default=30)
@@ -180,24 +189,19 @@ def build_parser() -> argparse.ArgumentParser:
     o.add_argument("--metrics-out", default=None, metavar="JSON",
                    help="write the metrics registry's snapshot at exit; "
                    "render it with the metrics subcommand")
+    o.add_argument("--profile-batches", type=int, default=None, metavar="N",
+                   help="after the stream, profile N more steady-state "
+                   "batches under torch.profiler and put the per-category "
+                   "device-time split in the summary and --report "
+                   "(device_time)")
+    o.add_argument("--profile-dir", default=None, metavar="DIR",
+                   help="with --profile-batches: keep the trace here "
+                   "(default: a temporary directory)")
     o.add_argument("--device", default=DEFAULT_DEVICE,
                    help="torch device (default cuda; 'cpu' runs the plain "
                    "versions of the kernels)")
     o.add_argument("-q", "--quiet", action="store_true")
-    u = p.add_argument_group("not yet ported (exit 2; see ROADMAP.md)")
-    for flag, takes_value in UNPORTED_FLAGS:
-        u.add_argument(flag, default=None,
-                       **({"metavar": "X"} if takes_value
-                          else {"action": "store_true"}))
     return p
-
-
-def _refused_flag(args) -> str | None:
-    for flag, _ in UNPORTED_FLAGS:
-        value = getattr(args, flag.lstrip("-").replace("-", "_"))
-        if value not in (None, False):
-            return flag
-    return None
 
 
 def _resilience_policy(args):
@@ -251,11 +255,6 @@ def _load_query_stream(args, X):
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    refused = _refused_flag(args)
-    if refused is not None:
-        print(f"error: {refused}: not yet ported to mpi_knn_tpu_torch (see "
-              "ROADMAP.md)", file=sys.stderr)
-        return 2
     if args.queries is None and args.synthetic is None:
         print("error: provide a query stream (--queries FILE or "
               "--synthetic N)", file=sys.stderr)
@@ -282,6 +281,15 @@ def main(argv=None) -> int:
     except ValueError as e:
         # inert or invalid resilience knobs (a negative deadline, ...)
         print(f"error: {e}", file=sys.stderr)
+        return 2
+    if args.profile_dir is not None and args.profile_batches is None:
+        # a kept trace directory without a profiling pass records nothing
+        print("error: --profile-dir without --profile-batches: no "
+              "profiling pass runs, so the knob would be silently inert",
+              file=sys.stderr)
+        return 2
+    if args.profile_batches is not None and args.profile_batches < 1:
+        print("error: --profile-batches must be >= 1", file=sys.stderr)
         return 2
     if args.flight_record:
         # before any index work, so the index build and the entry builds
@@ -311,6 +319,11 @@ def main(argv=None) -> int:
         # a probe count without a clustered index would be ignored
         print("error: --nprobe requires --index-load (probing is a "
               "clustered-index knob)", file=sys.stderr)
+        return 2
+    if args.route_cap is not None:
+        print("error: --route-cap requires --index-load --backend ring "
+              "(the route cap bounds the sharded clustered candidate "
+              "exchange)", file=sys.stderr)
         return 2
     try:
         cfg = KNNConfig(
@@ -358,23 +371,27 @@ def _serve_loaded_index(args, X, source, device, policy) -> int:
     from mpi_knn_tpu_torch.ivf import load_ivf_index
     from mpi_knn_tpu_torch.serve import ServeSession
 
-    if args.backend in ("ring", "ring-overlap"):
-        print(f"error: --index-load × --backend {args.backend}: the sharded "
-              "clustered index is not yet ported to mpi_knn_tpu_torch (see "
-              "ROADMAP.md)", file=sys.stderr)
-        return 2
+    sharded = args.backend == "ring"
     refusals = (
-        (args.backend not in ("auto", "serial"),
+        (args.backend not in ("auto", "serial", "ring"),
          f"--index-load × --backend {args.backend} is not supported: a "
-         "clustered index serves single-device (serial/auto); the "
-         "pallas kernels scan the full corpus by construction"),
+         "clustered index serves on one device (serial/auto) or sharded "
+         "over the ring mesh (ring: the routed candidate exchange); the "
+         "pallas kernels scan the full corpus by construction, and the "
+         "exchange has no overlap schedule (use --backend ring, not "
+         "ring-overlap)"),
         (args.metric != "l2",
          f"--index-load × --metric {args.metric} is not supported: the "
          "clustered index's k-means partitions and centroid score are "
          "L2 geometry"),
-        (args.devices is not None,
-         "--devices with --index-load: the single-device clustered "
-         "search cannot honor it"),
+        (args.devices is not None and not sharded,
+         "--devices with --index-load requires --backend ring (the shard "
+         "count of the sharded clustered index); the single-device "
+         "clustered search cannot honor it"),
+        (args.route_cap is not None and not sharded,
+         "--route-cap with --index-load requires --backend ring: the route "
+         "cap bounds the sharded candidate exchange, and nothing is routed "
+         "on one device"),
         (args.corpus_tile is not None,
          "--corpus-tile has no meaning with --index-load (the bucket "
          "layout was baked in at build time)"),
@@ -407,6 +424,13 @@ def _serve_loaded_index(args, X, source, device, policy) -> int:
               f"loaded index was built at dim {index.dim}", file=sys.stderr)
         return 2
     try:
+        if sharded:
+            # the layout is derived here from --devices: the saved file
+            # holds none, so it serves on any shard count
+            from mpi_knn_tpu_torch.ivf import shard_ivf_index
+
+            index = shard_ivf_index(index, shards=args.devices,
+                                    route_cap=args.route_cap)
         cfg = index.compatible_cfg(index.cfg.replace(
             k=args.k,
             query_tile=args.query_tile,
@@ -418,7 +442,8 @@ def _serve_loaded_index(args, X, source, device, policy) -> int:
         ))
         session = ServeSession(index, cfg, resilience=policy, device=device)
     except ValueError as e:
-        # nprobe > partitions, mixed over a bf16 store, ...
+        # nprobe > partitions, mixed over a bf16 store, more shards than
+        # devices, ...
         print(f"error: {e}", file=sys.stderr)
         return 2
     if device.type == "cuda":
@@ -478,7 +503,7 @@ def _stream_and_report(args, session, index, X, source, build_s) -> int:
         # the JAX CLI's shipped roofline profile: none for this card yet
         "device_profile": None,
     }
-    if index.backend == "ivf":
+    if index.backend in ("ivf", "ivf-sharded"):
         summary["partitions"] = index.partitions
         summary["nprobe"] = cfg.nprobe
         summary["probe_fraction"] = round(cfg.nprobe / index.partitions, 4)
@@ -527,6 +552,18 @@ def _stream_and_report(args, session, index, X, source, build_s) -> int:
             "retries_total": session.retries_total,
             "degradations": session.degradations,
         }
+    if session.exchange is not None:
+        # the sharded candidate exchange: routed probes, the overflow drops
+        # a route cap costs (counted), the exchange's bytes and each
+        # shard's load as owner
+        summary["sharded"] = {
+            "shards": session.exchange["shards"],
+            "route_cap": cfg.ivf_route_cap,  # None: the safe cap
+            "routed_total": session.exchange["routed_total"],
+            "overflow_dropped_total": session.exchange["dropped_total"],
+            "exchange_bytes_total": session.exchange["exchange_bytes_total"],
+            "served_per_shard": session.exchange["served_per_shard"],
+        }
     if session.tenant_stats:
         summary["tenants"] = {
             t: {
@@ -537,6 +574,18 @@ def _stream_and_report(args, session, index, X, source, build_s) -> int:
             }
             for t, st in sorted(session.tenant_stats.items())
         }
+    if args.profile_batches:
+        # the stream's shape (--batch rows, uniform over the corpus's
+        # range); the session builds and warms their buckets before the
+        # trace opens, so the trace holds serving, not set-up
+        rng = np.random.default_rng(2)
+        lo, hi = float(np.min(X)), float(np.max(X))
+        prof_batches = [
+            rng.uniform(lo, hi, size=(args.batch, X.shape[1])).astype(np.float32)
+            for _ in range(args.profile_batches)
+        ]
+        summary["device_time"] = session.profile(prof_batches,
+                                                 trace_dir=args.profile_dir)
     if not args.quiet:
         print(
             f"[mpi_knn_tpu_torch query] {summary['queries']} queries in "

@@ -1,7 +1,7 @@
 """Streamed query serving over a :class:`~mpi_knn_tpu_torch.serve.index.
 CorpusIndex`: row buckets, per-(bucket, config) state built once, and
-bounded dispatch-ahead (the JAX package's ``serve/engine.py``, single
-device).
+bounded dispatch-ahead (the JAX package's ``serve/engine.py``, one
+controlling process).
 
 Buckets: every batch is padded up to the smallest ``query_bucket · 2^j``
 rows. PyTorch compiles nothing, so where the JAX engine compiles each
@@ -40,7 +40,16 @@ launch: their batches do not overlap the next one's host work.
 Over a clustered index (``ivf.IVFIndex``, route ``"ivf"``) a batch is
 padded to the bucket's ``ivf_query_shapes`` and run by
 ``ivf.search.ivf_serve_chunk``, the one-shot ``search_ivf``'s own tile
-loop; queries stay f32 whatever the store's dtype.
+loop; queries stay f32 whatever the store's dtype. Over a sharded one
+(``ivf.ShardedIVFIndex``, route ``"ivf-sharded"``) a batch is padded to
+``ivf.sharded.sharded_query_shapes`` and run by ``run_sharded_tiles``; the
+entry holds the resolved static route cap and the exchange's bytes, the
+slot a host copy of the batch's per-shard [routed, dropped, served], and
+the session counts them into the registry (``serve_exchange_*``), its
+``exchange`` totals and an ``exchange`` event per batch.
+
+``ServeSession.profile`` serves batches under ``torch.profiler`` and
+attributes the window's device time (``obs/attribution.py``).
 
 The serial and clustered layouts take live mutation between batches
 (``ServeSession.upsert`` / ``delete`` / ``compact`` / ``start_compactor``,
@@ -75,6 +84,7 @@ from mpi_knn_tpu_torch.config import KNNConfig
 from mpi_knn_tpu_torch.device import DEFAULT_DEVICE
 from mpi_knn_tpu_torch.obs import metrics as obs_metrics
 from mpi_knn_tpu_torch.obs import spans as obs_spans
+from mpi_knn_tpu_torch.ops import launch_counts
 from mpi_knn_tpu_torch.ops.distance import center_rows
 from mpi_knn_tpu_torch.parallel.partition import pad_rows_any, pad_to_multiple
 from mpi_knn_tpu_torch.resilience.faults import fault_point, poison_topk
@@ -115,7 +125,8 @@ def _acc_dtype(cfg: KNNConfig) -> torch.dtype:
 def _query_dtype(cfg: KNNConfig, backend: str) -> torch.dtype:
     from mpi_knn_tpu_torch.backends.serial import torch_dtype
 
-    return torch.float32 if backend == "ivf" else torch_dtype(cfg.dtype)
+    return (torch.float32 if backend in ("ivf", "ivf-sharded")
+            else torch_dtype(cfg.dtype))
 
 
 @dataclasses.dataclass
@@ -128,6 +139,7 @@ class _Slot:
     out_i: torch.Tensor
     start: torch.cuda.Event | None
     done: torch.cuda.Event | None
+    out_s: torch.Tensor | None = None  # ivf-sharded: (S, N_STATS) stats
 
 
 @dataclasses.dataclass
@@ -156,6 +168,11 @@ class _BucketExec:
     # entry warmed on a pool thread is read from the dispatching one)
     ready: torch.cuda.Event | None = None
     device_bytes: int = 0  # its tensors and in-flight batches (peak figure)
+    # ivf-sharded: the shard count, the resolved static route cap and the
+    # exchange's bytes a batch (shape arithmetic, no device read)
+    shards: int = 0
+    route_cap: int | None = None
+    exchange_bytes: int | None = None
 
     def _new_slot(self) -> _Slot:
         card = self.device.type == "cuda"
@@ -164,13 +181,15 @@ class _BucketExec:
                    torch.cuda.Event(enable_timing=True)) if card
                   else (None, None))
         self.slots += 1
+        stats = (torch.empty((self.shards, 3), dtype=torch.int64,
+                             pin_memory=card) if self.shards else None)
         return _Slot(
             torch.empty((self.q_pad, self.dim),
                         dtype=_query_dtype(self.cfg, self.backend),
                         pin_memory=card),
             torch.empty(shape, dtype=_acc_dtype(self.cfg), pin_memory=card),
             torch.empty(shape, dtype=torch.int32, pin_memory=card),
-            *events)
+            *events, stats)
 
     def reserve(self, n: int):
         """Make slots until ``n`` exist, so n batches of this entry can be
@@ -224,6 +243,12 @@ def ring_layout(index: CorpusIndex, cfg: KNNConfig, rows: int, q_pad: int,
 
 def bucket_shapes(index: CorpusIndex, cfg: KNNConfig, bucket: int):
     """``(q_pad, q_tile)`` of one (bucket, config) entry."""
+    if index.backend == "ivf-sharded":
+        from mpi_knn_tpu_torch.ivf.sharded import sharded_query_shapes
+
+        q_tile, q_pad, _ = sharded_query_shapes(
+            cfg, cfg.nprobe, index.bucket_cap, index.dim, bucket, index.shards)
+        return q_pad, q_tile
     if index.backend == "ivf":
         from mpi_knn_tpu_torch.ivf.search import ivf_query_shapes
 
@@ -336,7 +361,7 @@ def _build_entry(index: CorpusIndex, cfg: KNNConfig,
     reg = obs_metrics.get_registry()
     reg.counter("serve_executables_compiled_total",
                 help="(bucket, config) entries built by the serving engine").inc()
-    if index.backend == "ivf":
+    if index.backend in ("ivf", "ivf-sharded"):
         reg.gauge("ivf_at_rest_bytes",
                   help="resident bytes of the clustered bucket store "
                   "(codes + scales for quantized stores)").set(index.nbytes_resident)
@@ -361,11 +386,28 @@ def _new_entry(index: CorpusIndex, cfg: KNNConfig,
                bucket: int) -> _BucketExec:
     q_pad, q_tile = bucket_shapes(index, cfg, bucket)
     qids = None
-    if index.backend in ("serial", "ivf"):
+    if index.backend in ("serial", "ivf", "ivf-sharded"):
         qids = torch.full((q_pad,), -1, dtype=torch.int32, device=index.device)
     exec_ = _BucketExec(bucket, q_pad, q_tile, cfg, index.backend,
                         index.device, index.dim, qids)
-    if index.backend != "ivf" and index.shards is not None:
+    exchange = 0
+    if index.backend == "ivf-sharded":
+        from mpi_knn_tpu_torch.ivf.sharded import (
+            exchange_bytes_per_tile,
+            exchange_wire_args,
+            resolve_route_cap,
+        )
+
+        exec_.shards = index.shards
+        exec_.route_cap = resolve_route_cap(cfg, q_tile, cfg.nprobe)
+        per_tile = exchange_bytes_per_tile(
+            index.shards, exec_.route_cap, index.bucket_cap,
+            *exchange_wire_args(index))
+        exec_.exchange_bytes = (q_pad // q_tile) * per_tile
+        # one tile step's exchange buffers: every owner's gathered
+        # candidates and every home's received tile
+        exchange = 2 * index.shards * per_tile
+    elif index.backend != "ivf" and index.shards is not None:
         from mpi_knn_tpu_torch.backends.ring import ring_form
         from mpi_knn_tpu_torch.ops.fused_rotation import landing_slots
         from mpi_knn_tpu_torch.ops.topk import init_topk
@@ -383,7 +425,7 @@ def _new_entry(index: CorpusIndex, cfg: KNNConfig,
                  + cfg.k * (_acc_dtype(cfg).itemsize + 4))
     exec_.device_bytes = _tensor_bytes(
         qids, exec_.ring_qids, exec_.ring_carries, exec_.ring_slots,
-    ) + max(1, cfg.dispatch_depth) * q_pad * row_bytes
+    ) + max(1, cfg.dispatch_depth) * q_pad * row_bytes + exchange
     if index.device.type == "cuda":
         exec_.ready = torch.cuda.Event()
         exec_.ready.record(torch.cuda.current_stream(index.device))
@@ -391,13 +433,16 @@ def _new_entry(index: CorpusIndex, cfg: KNNConfig,
 
 
 def _tensor_bytes(*parts) -> int:
-    """Bytes of the tensors in ``parts`` (lists and tuples are walked)."""
+    """Bytes of the tensors in ``parts`` (lists, tuples and dicts' values
+    are walked)."""
     total = 0
     for p in parts:
         if isinstance(p, torch.Tensor):
             total += p.numel() * p.element_size()
         elif isinstance(p, (list, tuple)):
             total += _tensor_bytes(*p)
+        elif isinstance(p, dict):
+            total += _tensor_bytes(*p.values())
     return total
 
 
@@ -466,10 +511,21 @@ def _run(index: CorpusIndex, cfg: KNNConfig, exec_: _BucketExec, q2d,
     """One padded batch (``rows`` real rows first; default all) through the
     backend: padded (q_pad, k) results on the index's device, the real
     rows' first. Reading the resident tensors and enqueuing the batch is
-    one step under the index's mutation lock."""
+    one step under the index's mutation lock. Returns (d, i, the
+    (S, N_STATS) exchange stats of a sharded clustered batch, else
+    None)."""
     with mutation_lock(index):
         order_stream(index)
-        return _run_locked(index, cfg, exec_, q2d, rows)
+        if index.backend == "ivf-sharded":
+            from mpi_knn_tpu_torch.ivf.sharded import run_sharded_tiles
+
+            qt = exec_.q_pad // exec_.q_tile
+            d, i, stats = run_sharded_tiles(
+                index, q2d.reshape(qt, exec_.q_tile, index.dim),
+                exec_.qids.reshape(qt, exec_.q_tile), cfg, exec_.route_cap)
+            return (d.reshape(exec_.q_pad, cfg.k),
+                    i.reshape(exec_.q_pad, cfg.k), stats)
+        return (*_run_locked(index, cfg, exec_, q2d, rows), None)
 
 
 def _run_locked(index, cfg: KNNConfig, exec_: _BucketExec, q2d, rows):
@@ -532,12 +588,14 @@ def _dispatch(index: CorpusIndex, cfg: KNNConfig, exec_: _BucketExec,
         torch.cuda.current_stream(index.device).wait_event(exec_.ready)
     if slot.start is not None:
         slot.start.record()
-    d, i = _run(index, cfg, exec_, q2d.to(index.device, non_blocking=True),
-                q.shape[0])
+    d, i, stats = _run(index, cfg, exec_,
+                       q2d.to(index.device, non_blocking=True), q.shape[0])
     if poison:
         d = poison_topk(d)
     slot.out_d.copy_(d, non_blocking=True)
     slot.out_i.copy_(i, non_blocking=True)
+    if stats is not None:
+        slot.out_s.copy_(stats, non_blocking=True)
     if slot.done is not None:
         slot.done.record()
     return d, i, prep_ms
@@ -583,6 +641,12 @@ class BatchResult:
     def retries(self) -> int:
         return self.attempts - 1
 
+    # a sharded clustered batch: its (S, N_STATS) [routed, dropped, served]
+    # per shard over the padded batch (padding rows route as real ones),
+    # and the entry's static exchange bytes
+    exchange: np.ndarray | None = None
+    exchange_bytes: int | None = None
+
 
 def _check_device(index: CorpusIndex, device):
     if canonical_device(device) != index.device:
@@ -605,9 +669,36 @@ def query_knn(queries, index: CorpusIndex, config: KNNConfig | None = None,
     try:
         _dispatch(index, cfg, exec_, slot, queries)
         d, i = _fetch(slot, queries.shape[0])
+        if slot.out_s is not None:
+            count_exchange(slot.out_s.numpy(), exec_.exchange_bytes)
     finally:
         exec_.release(slot)
     return KNNResult(dists=torch.from_numpy(d), ids=torch.from_numpy(i))
+
+
+def count_exchange(per_shard: np.ndarray, exchange_bytes: int | None,
+                   registry=None) -> tuple[int, int]:
+    """Stamp one sharded batch's candidate exchange into the metrics
+    registry: routed probes (counter and histogram), the overflow drops of
+    the route cap (a nonzero count is recall spent on routing skew) and
+    the entry's static exchange bytes. Returns (routed, dropped)."""
+    reg = registry or obs_metrics.get_registry()
+    routed = int(per_shard[:, 0].sum())
+    dropped = int(per_shard[:, 1].sum())
+    reg.counter("serve_exchange_routed_total",
+                help="probe routes exchanged between shards (padded batches)",
+                ).inc(routed)
+    reg.histogram("serve_exchange_routed_per_batch",
+                  help="probe routes exchanged per sharded batch",
+                  ).observe(routed)
+    reg.counter("serve_exchange_overflow_dropped_total",
+                help="probes dropped at the static per-shard route cap "
+                "(counted recall loss, never wrong answers)").inc(dropped)
+    if exchange_bytes:
+        reg.counter("serve_exchange_bytes_total",
+                    help="bytes moved by the candidate exchange (static per "
+                    "entry)").inc(exchange_bytes)
+    return routed, dropped
 
 
 def _check_tenant(tenant):
@@ -714,6 +805,12 @@ class ServeSession:
         # rows upserted / tombstoned through this session and compaction
         # passes; the index's occupancy lives on its freelist
         self.mutation_stats: dict[str, int] = _zero_mutation_stats()
+        # a sharded clustered session's candidate exchange (routed and
+        # dropped probes, static bytes, each shard's load as owner), for
+        # the report; None elsewhere
+        self.exchange: dict | None = None
+        if getattr(index, "backend", None) == "ivf-sharded":
+            self.exchange = _zero_exchange(index.shards)
 
     # -- the ladder --------------------------------------------------------
 
@@ -905,6 +1002,8 @@ class ServeSession:
             self.deadline_breaches = 0
             self.tenant_stats = {}
             self.mutation_stats = _zero_mutation_stats()
+            if self.exchange is not None:
+                self.exchange = _zero_exchange(self.exchange["shards"])
 
     # -- serving -------------------------------------------------------------
 
@@ -941,8 +1040,12 @@ class ServeSession:
         # the span opens before the attempt: a hang inside it leaves an
         # open batch span in the flight record, the kill's diagnosis; it
         # names whose rows were on board
+        # a sharded session stamps the shard count: an open span beside
+        # the last retired batch's exchange event names the shards in a hang
         sid = obs_spans.begin_span(
             "batch", cat="serve", seq=self._seq, rows=rows, rung=label,
+            **({"shards": self.index.shards}
+               if self.exchange is not None else {}),
             **({"tenants": comp} if tenants is not None else {}))
         pol = self.policy
         try:
@@ -974,7 +1077,8 @@ class ServeSession:
                           host_ms=1e3 * (time.perf_counter() - t0),
                           prep_ms=prep_ms,
                           degraded=None if label == FULL_RUNG else label,
-                          attempts=attempts, backoffs=backoffs)
+                          attempts=attempts, backoffs=backoffs,
+                          exchange_bytes=exec_.exchange_bytes)
         self._seq += 1
         self._inflight.append((res, t0, exec_, slot, sid))
         done = []
@@ -997,10 +1101,72 @@ class ServeSession:
                 q, tenants=None if tenant is None else ((tenant, int(q.shape[0])),))
         yield from self.drain()
 
+    def profile(self, batches, trace_dir: str | None = None) -> dict:
+        """Serve ``batches`` under ``torch.profiler`` and return the
+        per-category device busy split of the window
+        (``obs.attribution.attribute_trace``) with ``batches_profiled`` and
+        ``trace_dir``.
+
+        Steady state is made here, before the profiler opens: every entry
+        the batches' buckets need is built and one batch of each size runs
+        through it (outside the session's stats), so no nvcc build, entry
+        build or first launch of a kernel lands in the trace. The window
+        then submits the batches, drains them and synchronizes the card.
+        The report adds what the window itself did: ``kernel_launches``
+        (the port's launch counters' increments), ``compiles_in_window``
+        (nvcc builds and entry builds: empty in steady state) and
+        ``wall_ms``, the host time from the first submit to the card's
+        last result (the profiler's own start and stop left out), against
+        which ``busy_total_ms`` gives the device's idle share."""
+        import tempfile
+
+        from mpi_knn_tpu_torch.obs.attribution import attribute_trace
+        from mpi_knn_tpu_torch.utils.timing import profile_trace
+
+        batches = list(batches)
+        _, cfg = self._current_rung()
+        firsts = {}
+        for q in batches:
+            firsts.setdefault(int(q.shape[0]), q)
+        for rows, q in sorted(firsts.items()):
+            exec_ = get_executable(self.index, cfg,
+                                   bucket_rows(rows, cfg.query_bucket))
+            exec_.reserve(cfg.dispatch_depth)
+            slot = exec_.acquire()
+            try:
+                _dispatch(self.index, cfg, exec_, slot, q)
+                _fetch(slot, rows)
+            finally:
+                exec_.release(slot)
+        tdir = trace_dir or tempfile.mkdtemp(prefix="tknn-profile-")
+        dev = self.index.device
+        before = launch_counts()
+        with obs_spans.span("profile", cat="profile", trace_dir=tdir), \
+                obs_metrics.watch_compiles() as built:
+            with profile_trace(tdir, dev):
+                t0 = time.perf_counter()
+                for q in batches:
+                    self.submit(q)
+                self.drain()
+                if dev.type == "cuda":
+                    torch.cuda.synchronize(dev)
+                wall_ms = 1e3 * (time.perf_counter() - t0)
+        after = launch_counts()
+        out = attribute_trace(tdir)
+        out["batches_profiled"] = len(batches)
+        out["trace_dir"] = tdir
+        out["kernel_launches"] = {n: after[n] - before.get(n, 0)
+                                  for n in after if after[n] != before.get(n, 0)}
+        out["compiles_in_window"] = list(built)
+        out["wall_ms"] = round(wall_ms, 3)
+        return out
+
     def _retire(self) -> BatchResult:
         res, t0, exec_, slot, sid = self._inflight.popleft()
         try:
             res.dists, res.ids = _fetch(slot, res.rows)
+            if slot.out_s is not None:
+                res.exchange = slot.out_s.numpy().copy()
             res.latency_s = time.perf_counter() - t0
             if slot.start is not None:
                 res.device_ms = slot.start.elapsed_time(slot.done)
@@ -1048,8 +1214,31 @@ class ServeSession:
                 help="batches carrying at least one row of this tenant",
                 labels={"tenant": t},
             ).inc()
+        extra = {}
+        if res.exchange is not None:
+            routed, dropped = count_exchange(res.exchange, res.exchange_bytes,
+                                             registry=self._metrics)
+            with self._stats_lock:
+                ex = self.exchange
+                ex["routed_total"] += routed
+                ex["dropped_total"] += dropped
+                ex["exchange_bytes_total"] += res.exchange_bytes or 0
+                for s_, n in enumerate(res.exchange[:, 2].tolist()):
+                    ex["served_per_shard"][s_] += int(n)
+                # routes are per query tile, and tiles mix tenants: a
+                # tenant's share of the routed volume is by its rows
+                for t, n in tenant_rows.items():
+                    self.tenant_stats[t]["routed"] = (
+                        self.tenant_stats[t].get("routed", 0.0)
+                        + routed * n / res.rows)
+            extra = {"routed": routed, "dropped": dropped}
+            # the per-shard load: the record a flight reader pairs with an
+            # open batch span to see which shard carried the requests
+            obs_spans.event("exchange", cat="serve", seq=res.seq,
+                            served_per_shard=res.exchange[:, 2].tolist(),
+                            routed=routed, dropped=dropped)
         obs_spans.end_span(sid, latency_s=res.latency_s, retries=res.retries,
-                           deadline_breached=res.deadline_breached)
+                           deadline_breached=res.deadline_breached, **extra)
         maybe_beat(f"serve-batch-{res.seq}")
         self._metrics.counter("serve_batches_total", help="batches retired").inc()
         self._metrics.counter(
@@ -1070,6 +1259,12 @@ class ServeSession:
         d = res.dists
         bad_nan = bool(np.isnan(d).any())
         bad_inf = bool(d.size) and bool(np.isinf(d).all(axis=1).any())
+        if bad_inf and not bad_nan and res.exchange is not None \
+                and res.exchange[:, 1].sum() > 0:
+            # a sharded batch under route-cap overflow: a query whose every
+            # probe was dropped retires all-inf, the counted loss the cap
+            # documents, not a poisoned tile; NaN still trips
+            bad_inf = False
         if not (bad_nan or bad_inf):
             return
         kind = "NaN" if bad_nan else "all-inf row"
@@ -1186,3 +1381,8 @@ class ServeSession:
 
 def _zero_mutation_stats() -> dict:
     return {"upserts": 0, "deletes": 0, "calls": 0, "compactions": 0}
+
+
+def _zero_exchange(shards: int) -> dict:
+    return {"shards": shards, "routed_total": 0, "dropped_total": 0,
+            "exchange_bytes_total": 0, "served_per_shard": [0] * shards}

@@ -225,7 +225,14 @@ def _build_ring(corpus, cfg: KNNConfig, mesh, dev, backend, m, dim, mu):
         stage_travelers,
     )
     from mpi_knn_tpu_torch.backends.serial import torch_dtype
+    from mpi_knn_tpu_torch.parallel.mesh import as_mesh2d, is_mesh2d
 
+    if is_mesh2d(mesh) and backend == "ring":
+        from mpi_knn_tpu_torch.backends.ring import (
+            blocking_undefined_on_mesh_error,
+        )
+
+        raise blocking_undefined_on_mesh_error(as_mesh2d(mesh).axis_names)
     devices = ring_devices(cfg, mesh, dev)
     if any(canonical_device(d) != dev for d in devices):
         raise ValueError(

@@ -32,10 +32,12 @@ writes; ``bucket`` in every stats dict); the padding rows are computed
 with the chunk and never written.
 
 Layouts: the serial ``CorpusIndex`` tile stack (headroom rows, a flat
-freelist) and the clustered ``IVFIndex`` (per-bucket freelists,
-centroid-scored placement). The ring and pallas layouts refuse. The
-reference's mutable ``ivf-sharded`` store is not yet ported (ROADMAP A
-item 4).
+freelist), the clustered ``IVFIndex`` (per-bucket freelists,
+centroid-scored placement) and the sharded ``ShardedIVFIndex`` whose
+shards share one device (the same scatters into the whole padded store,
+the freelist's sentinel one past its total bucket count, so S = 1 mutates
+bit for bit as the unsharded store). The ring and pallas layouts refuse,
+and so does a sharded store spread over distinct cards.
 
 The reference's XLA half has no counterpart in eager PyTorch and is left
 out: ``lower_mutation``, ``get_mutation_executable``,
@@ -99,7 +101,7 @@ __all__ = [
     "warm_mutation",
 ]
 
-MUTABLE_BACKENDS = ("serial", "ivf")
+MUTABLE_BACKENDS = ("serial", "ivf", "ivf-sharded")
 
 log = logging.getLogger(__name__)
 
@@ -187,8 +189,14 @@ def _require_mutable(index) -> None:
             "live mutation: the ring backends hold wire-representation "
             "corpus shards (a scatter would corrupt quantized blocks) and "
             "the pallas kernel masks by row count, not ids — serve "
-            "mutable corpora from the serial or ivf layouts"
+            "mutable corpora from the serial, ivf, or ivf-sharded layouts"
         )
+    if getattr(index, "shard_store", None) is not None:
+        raise ValueError(
+            "a sharded clustered store spread over distinct cards cannot "
+            "honor live mutation in this port (one controlling process "
+            "mutates a store that lies on one device); serve it from a "
+            "mesh that names one card, or unsharded")
 
 
 def serial_upsert_chunk(rows, new_ids, tpos, spos, clear_t, clear_s,

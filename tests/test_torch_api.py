@@ -130,17 +130,29 @@ def test_lifted_settings_run_and_match_jax(setting):
 
 
 @pytest.mark.parametrize(
+    "setting,name",
+    [(dict(partitions=4, ivf_shards=0), "ivf_shards"),
+     (dict(partitions=16, ivf_route_cap=4), "ivf_route_cap"),
+     (dict(partitions=64, ivf_shards=2, ivf_route_cap=0), "ivf_route_cap")],
+)
+def test_refused_settings_name_themselves(setting, name):
+    """Every setting the JAX package accepts is ported (the sharded
+    clustered index's included, ``test_sharded_settings_convert``); what
+    both packages refuse is refused naming the field."""
+    with pytest.raises(ValueError, match=name):
+        KNNConfig(**setting)
+    with pytest.raises(ValueError, match=name):
+        jax_pkg.KNNConfig(**setting)
+
+
+@pytest.mark.parametrize(
     "setting",
     [dict(partitions=4, ivf_shards=2), dict(partitions=16, ivf_shards=4),
      dict(partitions=64, ivf_shards=2, ivf_route_cap=3)],
 )
-def test_refused_settings_name_themselves(setting):
-    name = "ivf_shards"  # the sharded clustered index
-    with pytest.raises(ValueError, match=f"{name}.*not yet ported"):
-        KNNConfig(**setting)
+def test_sharded_settings_convert(setting):
     d = dataclasses.asdict(jax_pkg.KNNConfig(**setting))
-    with pytest.raises(ValueError, match="not yet ported"):
-        config_from_reference(d)
+    assert dataclasses.asdict(config_from_reference(d)) == d
 
 
 @pytest.mark.parametrize(

@@ -2,9 +2,9 @@
 package's, field by field, on a grid that covers each rule of the
 serving and clustered-index fields (``mpi_knn_tpu/config.py:457-522``).
 
-Settings whose machinery the port has not ported (``ivf_shards`` set, the
-sharded clustered index) are refused by the port with "not yet ported"
-where the reference accepts them; the grid says so case by case.
+Every setting of the grid is ported (the sharded clustered index's
+``ivf_shards`` / ``ivf_route_cap`` too), so the third column, a setting
+the port would refuse as "not yet ported", is False throughout.
 """
 
 import pytest
@@ -36,7 +36,7 @@ GRID = [
     (dict(compact_tombstone_fraction=0.01), True, False),
     (dict(nprobe=None, ivf_shards=None, ivf_route_cap=None), True, False),
     (dict(partitions=4, nprobe=4), True, False),
-    (dict(partitions=4, ivf_shards=2, ivf_route_cap=3), True, True),
+    (dict(partitions=4, ivf_shards=2, ivf_route_cap=3), True, False),
 ]
 
 

@@ -2019,3 +2019,206 @@ def test_run_supervised_stops_and_names_a_card_child(cuda_device):
     with pytest.raises(ProcessLookupError):
         os.kill(pids[0], 0)
     os.unlink(up)
+
+
+# ---------------------------------------------------------------------------
+# the profile surface, the sharded clustered index, the 2-D mesh
+
+
+@pytest.mark.cuda
+def test_profile_trace_counts_equal_the_counters(cuda_device, tmp_path):
+    """A torch.profiler trace sees every hand-kernel launch the port's
+    counters count: K1, K1[c] and their prologues (pallas tiles), K4 and
+    its prologue (a P = 4 fused ring on the one card), the bin minimum
+    (serial twolevel approx); and ServeSession.profile's window builds
+    nothing and reports the same launches the trace holds."""
+    from mpi_knn_tpu_torch import KNNConfig, all_knn
+    from mpi_knn_tpu_torch.obs.kineto import launch_mismatches, parse_trace
+    from mpi_knn_tpu_torch.serve import ServeSession, build_index
+    from mpi_knn_tpu_torch.ops import launch_counts
+    from mpi_knn_tpu_torch.utils.timing import profile_trace
+
+    rng = np.random.default_rng(0)
+    X = torch.from_numpy(rng.standard_normal((4096, 96)).astype(np.float32))
+    Xd = X.to(cuda_device)
+    windows = {
+        "k1": lambda: all_knn(Xd, k=10, backend="pallas", device=cuda_device),
+        "k1c": lambda: all_knn(Xd, k=10, backend="pallas",
+                               precision_policy="mixed", device=cuda_device),
+        "k4": lambda: all_knn(Xd, config=KNNConfig(
+            k=10, backend="ring-overlap", ring_fusion="fused"),
+            mesh=[cuda_device] * 4, device=cuda_device),
+        "approx": lambda: all_knn(Xd, k=10, backend="serial",
+                                  topk_method="approx", device=cuda_device),
+    }
+    for name, fn in windows.items():
+        fn()
+        torch.cuda.synchronize()
+        before = launch_counts()
+        with profile_trace(str(tmp_path / name), cuda_device):
+            fn()
+            torch.cuda.synchronize()
+        after = launch_counts()
+        counted = {n: after[n] - before[n] for n in after if after[n] != before[n]}
+        assert counted, name
+        events = parse_trace(str(tmp_path / name / "trace.json"))
+        assert launch_mismatches(events, counted) == [], name
+    idx = build_index(X, KNNConfig(k=10, backend="pallas", query_bucket=256),
+                      device=cuda_device)
+    sess = ServeSession(idx, device=cuda_device)
+    Q = rng.standard_normal((256, 96)).astype(np.float32)
+    out = sess.profile([Q] * 4, trace_dir=str(tmp_path / "serve"))
+    assert out["compiles_in_window"] == []
+    assert out["kernel_launches"] == {"fused_knn_tiles": 4, "stage_tf32_split": 4}
+    events = parse_trace(str(tmp_path / "serve" / "trace.json"))
+    assert launch_mismatches(events, out["kernel_launches"]) == []
+    assert out["plane"] == "/device:GPU:0" and out["busy_ms"]["matmul"] > 0
+    assert out["busy_total_ms"] == pytest.approx(sum(out["busy_ms"].values()),
+                                                 abs=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "int8"])
+def test_sharded_ivf_on_one_card_equals_unsharded(cuda_device, dtype):
+    """S = 4 ranks on the one card: the sharded search and its served
+    batches are bit for bit the unsharded index's; a tight route cap
+    drops, counted."""
+    from mpi_knn_tpu_torch import KNNConfig
+    from mpi_knn_tpu_torch.ivf import (
+        build_ivf_index,
+        search_ivf,
+        search_ivf_sharded,
+        shard_ivf_index,
+    )
+    from mpi_knn_tpu_torch.serve import ServeSession
+
+    rng = np.random.default_rng(1)
+    cents = rng.standard_normal((32, 64)).astype(np.float32) * 4
+    X = (cents[rng.integers(0, 32, 8192)]
+         + rng.standard_normal((8192, 64)).astype(np.float32)).astype(np.float32)
+    # query_tile 128: every search below cuts the same 128-row tiles, so
+    # the finish's f64 products see the same batches
+    idx = build_ivf_index(X, KNNConfig(k=10, partitions=32, nprobe=3,
+                                       dtype=dtype, query_bucket=256,
+                                       query_tile=128),
+                          device=cuda_device)
+    Q = X[:768] + 0.01
+    d0, i0 = search_ivf(idx, Q, device=cuda_device)
+    for S in (1, 4):
+        sidx = shard_ivf_index(idx, mesh=[cuda_device] * S)
+        d, i, stats = search_ivf_sharded(sidx, Q, device=cuda_device)
+        assert torch.equal(i, i0) and torch.equal(d, d0)
+        assert int(stats[:, 1].sum()) == 0 and int(stats[:, 0].sum()) > 0
+    sess = ServeSession(sidx, device=cuda_device)
+    for q in (Q[:256], Q[256:768]):
+        got = list(sess.stream([q]))[0]
+        want = search_ivf_sharded(sidx, q, device=cuda_device)
+        assert np.array_equal(got.ids, want[1].cpu().numpy())
+        assert np.array_equal(got.dists, want[0].cpu().numpy())
+    tight = shard_ivf_index(idx, mesh=[cuda_device] * 4, route_cap=4)
+    d, i, stats = search_ivf_sharded(tight, Q, device=cuda_device)
+    assert int(stats[:, 1].sum()) > 0
+    assert torch.isfinite(d[i >= 0]).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "int4"])
+def test_sharded_ivf_across_cards_equals_unsharded(cuda_device, dtype, tmp_path):
+    """Shards on distinct cards: each card holds its slice of the store and
+    a replica of the centroids, and tiles, requests and candidate tiles
+    move between cards. Over every visible card, and over two cards named
+    twice each, the search and its served batches are bit for bit the
+    unsharded index's on one card; a tight route cap drops, counted; the
+    query CLI's ``--backend ring --devices S`` serves the saved index over
+    the cards."""
+    import json
+
+    from mpi_knn_tpu_torch import KNNConfig
+    from mpi_knn_tpu_torch.ivf import (
+        build_ivf_index,
+        save_ivf_index,
+        search_ivf,
+        search_ivf_sharded,
+        shard_ivf_index,
+    )
+    from mpi_knn_tpu_torch.serve import ServeSession
+    from mpi_knn_tpu_torch.serve import cli as serve_cli
+
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        pytest.skip("needs at least two cards")
+    rng = np.random.default_rng(1)
+    cents = rng.standard_normal((30, 64)).astype(np.float32) * 4
+    X = (cents[rng.integers(0, 30, 8192)]
+         + rng.standard_normal((8192, 64)).astype(np.float32)).astype(np.float32)
+    # 30 partitions: a shard count that does not divide them pads the last
+    # card's slice with unreachable clusters
+    idx = build_ivf_index(X, KNNConfig(k=10, partitions=30, nprobe=3,
+                                       dtype=dtype, query_bucket=256,
+                                       query_tile=128),
+                          device=cuda_device)
+    Q = X[:768] + 0.01
+    d0, i0 = search_ivf(idx, Q, device=cuda_device)
+    spread = [torch.device("cuda", c) for c in range(cards)]
+    for mesh in (spread, [spread[0], spread[1]] * 2):
+        sidx = shard_ivf_index(idx, mesh=mesh)
+        assert sidx.shard_store is not None and sidx.buckets is None
+        for s, d in enumerate(mesh):
+            assert sidx.slices[s][0].device == d
+            assert sidx.centroid_replica(d)[0].device == d
+        d, i, stats = search_ivf_sharded(sidx, Q, device=cuda_device)
+        assert torch.equal(i, i0) and torch.equal(d, d0), mesh
+        assert int(stats[:, 1].sum()) == 0 and int(stats[:, 0].sum()) > 0
+        sess = ServeSession(sidx, device=cuda_device)
+        for q in (Q[:256], Q[256:768]):
+            got = list(sess.stream([q]))[0]
+            want = search_ivf_sharded(sidx, q, device=cuda_device)
+            assert np.array_equal(got.ids, want[1].cpu().numpy())
+            assert np.array_equal(got.dists, want[0].cpu().numpy())
+        del sess
+    tight = shard_ivf_index(idx, mesh=spread, route_cap=4)
+    d, i, stats = search_ivf_sharded(tight, Q, device=cuda_device)
+    assert int(stats[:, 1].sum()) > 0
+    assert torch.isfinite(d[i >= 0]).all()
+    path = save_ivf_index(idx, str(tmp_path / "i.npz"))
+    report = tmp_path / "r.json"
+    assert serve_cli.main(["--data", "synthetic:8192x64c30", "--index-load",
+                           path, "--backend", "ring", "--devices", str(cards),
+                           "--synthetic", "512", "--batch", "256",
+                           "--bucket", "256", "-q", "--report",
+                           str(report)]) == 0
+    sh = json.loads(report.read_text())["sharded"]
+    assert sh["shards"] == cards and len(sh["served_per_shard"]) == cards
+    assert sh["routed_total"] > 0 and sh["overflow_dropped_total"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("extra,form", [
+    ({}, "driver"), ({"ring_fusion": "fused", "ring_schedule": "bidir"}, "bidir"),
+    ({"ring_fusion": "fused"}, "dma"),
+    ({"ring_fusion": "fused", "ring_fused_rotation": "grid"}, "grid"),
+])
+def test_mesh2d_on_one_card_is_each_groups_1d_ring(cuda_device, extra, form):
+    """A 2×2 mesh naming the card four times: each dp group's rows are bit
+    for bit the 1-D P = 2 ring of the same transport over those rows, and
+    the ids are serial's."""
+    from mpi_knn_tpu_torch import KNNConfig, all_knn
+    from mpi_knn_tpu_torch.parallel.mesh import make_mesh2d
+
+    rng = np.random.default_rng(2)
+    X = torch.from_numpy(rng.standard_normal((2048, 64)).astype(np.float32))
+    Xd = X.to(cuda_device)
+    cfg = KNNConfig(k=10, backend="ring-overlap", **extra)
+    got = all_knn(Xd, config=cfg, device=cuda_device,
+                  mesh=make_mesh2d(2, 2, devices=[cuda_device] * 4))
+    half = 1024
+    for g in range(2):
+        rows = torch.arange(g * half, (g + 1) * half)
+        one = all_knn(Xd, queries=Xd[rows], query_ids=rows.numpy(), config=cfg,
+                      mesh=[cuda_device] * 2, device=cuda_device)
+        assert torch.equal(got.ids[rows.to(cuda_device)], one.ids), form
+        assert torch.equal(got.dists[rows.to(cuda_device)], one.dists), form
+    want = all_knn(Xd, config=cfg.replace(backend="serial", ring_fusion="xla",
+                                          ring_fused_rotation="round"),
+                   device=cuda_device)
+    assert (got.ids == want.ids).float().mean().item() >= 0.999

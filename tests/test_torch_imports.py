@@ -47,7 +47,8 @@ def test_importing_the_port_loads_no_jax():
                 "obs.metrics", "obs.spans", "obs.cli", "resilience.faults",
                 "resilience.heartbeat", "resilience.worker",
                 "resilience.retry", "resilience.ladder", "resilience.doctor",
-                "serve.aotcache"):
+                "serve.aotcache", "obs.kineto", "obs.attribution",
+                "ivf.sharded"):
         assert f"mpi_knn_tpu_torch.{mod}" in loaded
     assert "chip_smoke" in loaded
     bad = [m for m in loaded
@@ -57,10 +58,12 @@ def test_importing_the_port_loads_no_jax():
 
 
 def test_the_supervisors_layers_import_no_torch():
-    """``obs``, ``resilience`` and the doctor's supervisor run in processes
-    that must never touch the card: importing them loads no torch."""
+    """``obs`` (the trace attribution too), ``resilience`` and the doctor's
+    supervisor run in processes that must never touch the card: importing
+    them loads no torch."""
     probe = ("import sys, mpi_knn_tpu_torch.obs.cli, mpi_knn_tpu_torch.resilience, "
-             "mpi_knn_tpu_torch.resilience.doctor; print('torch' in sys.modules)")
+             "mpi_knn_tpu_torch.resilience.doctor, "
+             "mpi_knn_tpu_torch.obs.attribution; print('torch' in sys.modules)")
     out = subprocess.run([sys.executable, "-c", probe], cwd=REPO,
                          capture_output=True, text=True, timeout=60, check=True)
     assert out.stdout.strip() == "False"

@@ -450,8 +450,8 @@ def test_build_refusals():
     with pytest.raises(ValueError, match="exceeds"):
         build_ivf_index(np.zeros((4, 8), np.float32),
                         KNNConfig(k=3, partitions=8), device=CPU)
-    with pytest.raises(ValueError, match="ivf_shards.*not yet ported"):
-        KNNConfig(k=3, partitions=4, ivf_shards=2)
+    with pytest.raises(ValueError, match="ivf_shards must be >= 1"):
+        KNNConfig(k=3, partitions=4, ivf_shards=0)
 
 
 @pytest.fixture(scope="module")
@@ -475,7 +475,7 @@ def _rc(main, argv) -> int:
 
 @pytest.mark.parametrize("argv", [
     ["--metric", "cosine"], ["--backend", "pallas"], ["--nprobe", "9"],
-    ["--dtype", "float64"], ["--backend", "ring"],
+    ["--dtype", "float64"], ["--kmeans-iters", "0"],
 ])
 def test_build_index_cli_refusals_exit_2(argv, tmp_path):
     from mpi_knn_tpu_torch.ivf import cli as ivf_cli
@@ -488,7 +488,7 @@ def test_build_index_cli_refusals_exit_2(argv, tmp_path):
 
 @pytest.mark.parametrize("argv,words", [
     (["--backend", "pallas"], "--backend pallas"),
-    (["--backend", "ring"], "not yet ported"),
+    (["--backend", "ring-overlap"], "--backend ring-overlap"),
     (["--metric", "cosine"], "--metric cosine"),
     (["--nprobe", "99"], "nprobe"),
     (["--corpus-tile", "4096"], "--corpus-tile"),
@@ -496,7 +496,7 @@ def test_build_index_cli_refusals_exit_2(argv, tmp_path):
     (["--ring-transfer-dtype", "int8"], "--ring-transfer-dtype"),
     (["--dtype", "bfloat16"], "--dtype bfloat16"),
     (["--devices", "2"], "--devices"),
-    (["--route-cap", "8"], "not yet ported"),
+    (["--route-cap", "8"], "--route-cap with --index-load requires"),
 ])
 def test_query_cli_index_load_refusals_exit_2(saved_index, argv, words,
                                               capsys):

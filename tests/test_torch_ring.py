@@ -97,10 +97,15 @@ def test_fused_under_blocking_is_refused_in_the_reference_words():
 
 
 def test_dp_by_ring_mesh_is_refused():
+    """A dp×ring mesh runs under the overlap schedule (``tests/
+    test_torch_mesh2d.py``); under the blocking one it is refused in the
+    reference's words."""
     cpu = torch.device("cpu")
-    with pytest.raises(ValueError, match="dp.*not yet ported"):
-        all_knn(_corpus(), k=3, backend="ring-overlap",
+    with pytest.raises(ValueError) as err:
+        all_knn(_corpus(), k=3, backend="ring",
                 mesh=[[cpu, cpu], [cpu, cpu]], device="cpu")
+    assert str(err.value) == str(
+        jax_ring.blocking_undefined_on_mesh_error(("dp", "ring")))
 
 
 def test_ring_mesh():

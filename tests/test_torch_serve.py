@@ -411,17 +411,21 @@ def test_query_cli_refusals_exit_2(argv):
 
 @pytest.mark.parametrize("flag,value", [
     ("--index-load", "i.npz"), ("--nprobe", "4"), ("--route-cap", "8"),
-    ("--profile-batches", "4"), ("--profile-dir", "p"),
+    ("--profile-batches", "0"), ("--profile-dir", "p"),
 ])
 def test_query_cli_unported_flags_exit_2(flag, value, capsys):
     argv = ["--data", "synthetic:64x8c2", "--synthetic", "8", "--device",
             CPU, flag] + ([value] if value is not None else [])
     assert serve_cli.main(argv) == 2
-    # the clustered index's flags are ported (tests/test_torch_ivf.py):
-    # alone, an absent file and a probe count without an index are refused
+    # every flag of the JAX CLI is ported now; alone, each of these is
+    # refused as the reference refuses it (an absent file, a knob that
+    # would do nothing)
     words = {"--index-load": "cannot load index 'i.npz'",
-             "--nprobe": "--nprobe requires --index-load"}
-    assert words.get(flag, "not yet ported") in capsys.readouterr().err
+             "--nprobe": "--nprobe requires --index-load",
+             "--route-cap": "--route-cap requires --index-load --backend ring",
+             "--profile-batches": "--profile-batches must be >= 1",
+             "--profile-dir": "--profile-dir without --profile-batches"}
+    assert words[flag] in capsys.readouterr().err
 
 
 def test_query_cli_end_to_end(tmp_path, capsys):
