@@ -218,7 +218,23 @@ is not 0:
    card, per transport (Tensor.to with the xla merge, bidir K3a, fused-dma
    K4, grid K5): each dp group's rows bit for bit its 1-D P=2 ring,
    recall@10 >= 0.999, launches the groups' 1-D runs' sum;
-17. kernels: one line with every kernel mode's launches, error, times and
+17. multiproc (``multiproc_phase``): the main shape through two worker
+   processes on the one card (``python chip_smoke.py --multiproc-worker``,
+   a gloo process group on a free local port, one ring rank a process, the
+   boundary's blocks staged through host memory): fused-dma K4 (its
+   boundary copy into an outbox the process group moves), bidir K3a,
+   Tensor.to with the xla merge, and the resumable fused-dma ring stopped
+   after 1 round into per-process checkpoint directories and resumed.
+   Each form bit for bit the single-process P=2 ring on [cuda:0, cuda:0],
+   recall@10 >= 0.999, the resumed rounds [2] with only process 0's
+   directory holding a file, each process's launches (K4 a round, every
+   per-rank kernel half the single process's), the boundary moved once a
+   rotating round (each way under bidir; not after the dma form's last
+   K4); the device-input ms a process beside the single process's, the
+   boundary's bytes and ms an exchange (its D2H and H2D copies' shares),
+   the gather's ms and the process group's start-up seconds;
+   every worker must exit 0 within its timeout;
+18. kernels: one line with every kernel mode's launches, error, times and
    bound, the prologues (`stage_tf32_split`, `stage_tf32[wire]`,
    `stage_tf32_split[ring]`, `stage_bf16`, `stage_bf16[wire]`,
    `stage_norms`), the "default" / "high" forms and the approx kernel (f32
@@ -3776,6 +3792,282 @@ def mesh2d_phase(device, X, recall) -> dict:
     return totals
 
 
+MP_PROCESSES = 2  # worker processes on the one card (gloo, blocks via host)
+MP_TIMEOUT_S = 300  # a worker's limit: start-up, kernel loads, every form
+MP_FORMS = (
+    ("fused-dma/K4", {"ring_fusion": "fused"}),
+    ("fused/bidir/K3a", {"ring_fusion": "fused", "ring_schedule": "bidir"}),
+    ("ring-overlap/xla", {}),
+)
+MP_RESUMABLE = "resumable/fused-dma"
+# a process's boundary moves a rotation, one rank a process: every round
+# but the last, each way under bidir (the dma form's last outbox stays)
+MP_EXCHANGES = {"fused-dma/K4": MP_PROCESSES - 1,
+                "fused/bidir/K3a": 2 * (MP_PROCESSES // 2),
+                "ring-overlap/xla": MP_PROCESSES - 1}
+# kernels launched once a card (K4), the rest once a rank
+MP_PER_CARD = ("fused_round_dma",)
+
+
+def multiproc_worker() -> int:
+    """One process of the multiproc phase's pod (``python chip_smoke.py
+    --multiproc-worker``): joins the process group from the launch
+    environment (``JAX_COORDINATOR_ADDRESS``, ``JAX_NUM_PROCESSES``,
+    ``JAX_PROCESS_ID``), builds ``make_mnist_like(MP_M)`` on its card and
+    drives every form of MP_FORMS, then the resumable ring stopped after
+    ``MP_STOP`` rounds into its own checkpoint directory and resumed, over
+    the mesh of every process's card. With ``MP_IVF`` it also searches the
+    saved clustered index in ``MP_DIR`` sharded one shard a process.
+    Writes ``worker-<id>.json`` (launches, ms, the boundary's bytes and
+    seconds, rounds) and ``worker-<id>.npz`` (the results) into
+    ``MP_DIR``."""
+    import torch
+
+    from mpi_knn_tpu_torch import KNNConfig, all_knn
+    from mpi_knn_tpu_torch.backends.ring_resumable import all_knn_ring_resumable
+    from mpi_knn_tpu_torch.data.synthetic import make_mnist_like
+    from mpi_knn_tpu_torch.parallel import distributed
+    from mpi_knn_tpu_torch.parallel.mesh import make_ring_mesh
+
+    out_dir, m = os.environ["MP_DIR"], int(os.environ["MP_M"])
+    stop = int(os.environ.get("MP_STOP", "1"))
+    # "cpu" rehearses the pod on the kernels' plain versions
+    info = distributed.init_multihost(timeout_seconds=120,
+                                      device=os.environ.get("MP_DEVICE", "cuda"))
+    pid = info["process_id"]
+    dev = distributed.pod().card
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    res, arrays = {"info": info, "forms": {}}, {}
+    try:
+        X, _ = make_mnist_like(m)
+        Xd = torch.from_numpy(X).to(dev)
+        mesh = make_ring_mesh(device=dev)
+        for label, over in MP_FORMS:
+            cfg = KNNConfig(k=K, backend="ring-overlap", **over)
+            reset_counts()
+            got = all_knn(Xd, config=cfg, mesh=mesh, device=dev)
+            sync()
+            counts = {n: c for n, c in read_counts().items() if c}
+            distributed.reset_exchange_stats()
+            t0 = time.perf_counter()
+            all_knn(Xd, config=cfg, mesh=mesh, device=dev)
+            sync()
+            ms = 1e3 * (time.perf_counter() - t0)
+            res["forms"][label] = {
+                "launches": counts, "device_input_ms": ms,
+                "gather_ms": 1e3 * distributed.pod().gather_seconds,
+                "boundary": dict(distributed.EXCHANGES)}
+            arrays[f"{label}/ids"] = got.ids.cpu().numpy()
+            arrays[f"{label}/dists"] = got.dists.cpu().numpy()
+        cfg = KNNConfig(k=K, backend="ring-overlap", ring_fusion="fused")
+        qids = np.arange(m, dtype=np.int32)
+        ck = os.path.join(out_dir, f"ck-proc{pid}")  # per process: not shared
+        rounds, rounds2 = [], []
+        reset_counts()
+        all_knn_ring_resumable(Xd, Xd, qids, cfg, mesh=mesh, checkpoint_dir=ck,
+                               stop_after_rounds=stop, device=dev,
+                               progress_cb=lambda r, t: rounds.append(r))
+        sync()
+        first = {n: c for n, c in read_counts().items() if c}
+        wrote = os.path.exists(os.path.join(ck, "knn_state.npz"))
+        reset_counts()
+        d, i = all_knn_ring_resumable(Xd, Xd, qids, cfg, mesh=mesh,
+                                      checkpoint_dir=ck, device=dev,
+                                      progress_cb=lambda r, t: rounds2.append(r))
+        sync()
+        res["forms"][MP_RESUMABLE] = {
+            "launches_stopped": first, "rounds_stopped": rounds,
+            "launches": {n: c for n, c in read_counts().items() if c},
+            "rounds_resumed": rounds2, "wrote_checkpoint": wrote}
+        arrays[f"{MP_RESUMABLE}/ids"] = i.cpu().numpy()
+        arrays[f"{MP_RESUMABLE}/dists"] = d.cpu().numpy()
+        if os.environ.get("MP_IVF"):
+            from mpi_knn_tpu_torch.ivf import (
+                load_ivf_index,
+                search_ivf_sharded,
+                shard_ivf_index,
+            )
+
+            idx = load_ivf_index(os.path.join(out_dir, "index.npz"), device=dev)
+            Q = np.load(os.path.join(out_dir, "queries.npy"))
+            sidx = shard_ivf_index(idx, mesh=mesh)
+            sd, si, stats = search_ivf_sharded(sidx, Q, device=dev)
+            arrays["ivf/ids"], arrays["ivf/dists"] = si.cpu().numpy(), sd.cpu().numpy()
+            arrays["ivf/stats"] = stats.cpu().numpy()
+    finally:
+        distributed.shutdown()
+    with open(os.path.join(out_dir, f"worker-{pid}.json"), "w") as f:
+        json.dump(res, f)
+    np.savez(os.path.join(out_dir, f"worker-{pid}.npz"), **arrays)
+    print(f"multiproc worker {pid} done", flush=True)
+    return 0
+
+
+def multiproc_pod(out_dir: str, m: int, processes: int, env=None) -> list:
+    """Start ``processes`` workers of :func:`multiproc_worker` against a
+    coordinator on a free local port and wait for them all, each within
+    MP_TIMEOUT_S; a worker that fails or outlives it fails the pod (every
+    worker is killed, and their output is raised). Returns per process
+    (json dict, npz arrays, seconds to exit)."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    base = {k: v for k, v in os.environ.items() if not k.startswith("JAX_")}
+    base.update({"JAX_COORDINATOR_ADDRESS": f"127.0.0.1:{port}",
+                 "JAX_NUM_PROCESSES": str(processes), "MP_DIR": out_dir,
+                 "MP_M": str(m), **(env or {})})
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--multiproc-worker"],
+        cwd=here, env=dict(base, JAX_PROCESS_ID=str(p)),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for p in range(processes)]
+    outs, exits = [], []
+    try:
+        for p in procs:
+            left = max(1.0, MP_TIMEOUT_S - (time.perf_counter() - t0))
+            outs.append(p.communicate(timeout=left)[0])
+            exits.append(time.perf_counter() - t0)
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            p.kill()
+        partial = [p.communicate()[0] or "" for p in procs]
+        raise AssertionError("multiproc workers did not exit within "
+                             f"{MP_TIMEOUT_S} s:\n" + "\n".join(outs + partial))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for pid, (p, out) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise AssertionError(f"multiproc worker {pid} exited {p.returncode}:\n{out}")
+    got = []
+    for pid in range(processes):
+        with open(os.path.join(out_dir, f"worker-{pid}.json")) as f:
+            doc = json.load(f)
+        got.append((doc, dict(np.load(os.path.join(out_dir, f"worker-{pid}.npz"))),
+                    exits[pid]))
+    return got
+
+
+def multiproc_phase(device, X, recall) -> dict:
+    """The main shape through MP_PROCESSES processes on the one card: a
+    global ring of one rank a process (gloo, the boundary's blocks staged
+    through host memory), each form of MP_FORMS and the resumable
+    fused-dma ring stopped after 1 round into per-process checkpoint
+    directories and resumed. Gates: every process's ids and distances bit
+    for bit the single-process P = 2 ring on [device, device] (the
+    resumable run: the single-process fused-dma ring), recall@10 >=
+    RECALL_GATE, the resumed rounds [2] with only process 0's directory
+    holding a file, each process's launches: K4 the single process's
+    (one card either way), every per-rank kernel half of it, and each
+    form's boundary moves MP_EXCHANGES. Returns the launches of process 0
+    by kernel, summed over the forms."""
+    import torch
+
+    from mpi_knn_tpu_torch import KNNConfig, all_knn
+
+    t_phase = time.perf_counter()
+    m = X.shape[0]
+    Xd = torch.from_numpy(X).to(device)
+    mesh = [device] * MP_PROCESSES
+    single = {}
+    for label, over in MP_FORMS:
+        cfg = KNNConfig(k=K, backend="ring-overlap", **over)
+        reset_counts()
+        one = all_knn(Xd, config=cfg, mesh=mesh, device=device)
+        sync_all()
+        counts = {n: c for n, c in read_counts().items() if c}
+        t0 = time.perf_counter()
+        all_knn(Xd, config=cfg, mesh=mesh, device=device)
+        sync_all()
+        single[label] = (one.ids.cpu().numpy(), one.dists.cpu().numpy(), counts,
+                         1e3 * (time.perf_counter() - t0))
+    single[MP_RESUMABLE] = single["fused-dma/K4"]
+    del Xd
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="tknn-mp-")
+    try:
+        got = multiproc_pod(tmp, m, MP_PROCESSES)
+        dirs = [os.path.exists(os.path.join(tmp, f"ck-proc{p}", "knn_state.npz"))
+                for p in range(MP_PROCESSES)]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    infos = [doc["info"] for doc, _, _ in got]
+    emit({"phase": "multiproc_startup", "processes": MP_PROCESSES,
+          "backend": infos[0]["backend"], "cards": [i["card"] for i in infos],
+          "startup_seconds": [i["startup_seconds"] for i in infos],
+          "worker_exit_seconds": [e for _, _, e in got]})
+    if infos[0]["backend"] != "gloo":
+        raise AssertionError(f"processes sharing one card must take gloo: {infos[0]}")
+    totals = {}
+    for label in [f for f, _ in MP_FORMS] + [MP_RESUMABLE]:
+        wi, wd, wcounts, wms = single[label]
+        per = [doc["forms"][label] for doc, _, _ in got]
+        equal = all(np.array_equal(a[f"{label}/ids"], wi)
+                    and np.array_equal(a[f"{label}/dists"], wd) for _, a, _ in got)
+        rec = recall(torch.from_numpy(got[0][1][f"{label}/ids"]))
+        line = {"phase": "multiproc", "path": label, "m": m, "k": K,
+                "processes": MP_PROCESSES, "ring": MP_PROCESSES,
+                "bit_equal_single_process_p2": equal, "recall_at_10": rec,
+                "launches": [f["launches"] for f in per],
+                "single_process_p2_launches": wcounts,
+                "finite": bool(np.isfinite(got[0][1][f"{label}/dists"]).all())}
+        if label == MP_RESUMABLE:
+            want_counts = {"fused_round_dma": 1, "stage_tf32_split[ring]": 2}
+            line.update(rounds_stopped=[f["rounds_stopped"] for f in per],
+                        rounds_resumed=[f["rounds_resumed"] for f in per],
+                        launches_stopped=[f["launches_stopped"] for f in per],
+                        checkpoint_files=dirs)
+            schedule_ok = (all(f["rounds_resumed"] == [2] for f in per)
+                          and dirs == [True] + [False] * (MP_PROCESSES - 1)
+                          and all(f["launches_stopped"] == want_counts for f in per))
+            want = {"fused_block_merge[exact]": 1, "stage_tf32_split[ring]": 2}
+        else:
+            b = per[0]["boundary"]
+            rounds = max(1, b["exchanges"])
+            line.update(device_input_ms=[f["device_input_ms"] for f in per],
+                        single_process_p2_device_input_ms=wms,
+                        gather_ms=[f["gather_ms"] for f in per],
+                        boundary_exchanges=b["exchanges"],
+                        boundary_bytes_per_exchange=b["bytes_sent"] / rounds,
+                        boundary_ms_per_exchange=1e3 * b["seconds"] / rounds,
+                        boundary_d2h_ms_per_exchange=1e3 * b["d2h_seconds"] / rounds,
+                        boundary_h2d_ms_per_exchange=1e3 * b["h2d_seconds"] / rounds)
+            schedule_ok = all(f["boundary"]["exchanges"] == MP_EXCHANGES[label]
+                             for f in per)
+            want = {n: c if n in MP_PER_CARD else c // MP_PROCESSES
+                    for n, c in wcounts.items()}
+        emit(line)
+        if not equal:
+            raise AssertionError(f"multiproc {label}: a process's result differs "
+                                 "from the single-process P=2 ring")
+        if rec < RECALL_GATE or not line["finite"]:
+            raise AssertionError(f"multiproc {label}: recall@10 {rec} or non-finite")
+        if not schedule_ok:
+            raise AssertionError(f"multiproc {label}: the resume is not process 0's, "
+                                 f"or the boundary moved other than "
+                                 f"{MP_EXCHANGES.get(label)} times: {line}")
+        if any(f["launches"] != want for f in per):
+            raise AssertionError(f"multiproc {label}: launches {line['launches']}, "
+                                 f"expected {want} a process")
+        for n, c in per[0]["launches"].items():
+            totals[n] = totals.get(n, 0) + c
+        if label == MP_RESUMABLE:
+            for n, c in per[0]["launches_stopped"].items():
+                totals[n] = totals.get(n, 0) + c
+    emit({"phase": "multiproc_done", "seconds": time.perf_counter() - t_phase})
+    return totals
+
+
 def main() -> int:
     import torch
 
@@ -5242,6 +5534,9 @@ def main() -> int:
     # ---- the 2-D dp x ring mesh on the one card ---------------------------
     mesh2d_launches = mesh2d_phase(device, X, recall)
     mark("mesh2d")
+    # ---- more than one process: the ring through a pod on the one card ---
+    multiproc_launches = multiproc_phase(device, X, recall)
+    mark("multiproc")
     frontend_launches = {n: fe_counts["a"].get(n, 0) + fe_counts["b"].get(n, 0)
                          for n in ("fused_knn_tiles", "stage_tf32_split",
                                    "fused_knn_tiles[compress]", "stage_bf16")}
@@ -5349,7 +5644,10 @@ def main() -> int:
          **({"profile_launches": profile_launches[name]}
             if name in profile_launches else {}),
          **({"mesh2d_launches": mesh2d_launches[name]}
-            if name in mesh2d_launches else {})}
+            if name in mesh2d_launches else {}),
+         # the multiproc phase's process 0 (each process's equal)
+         **({"multiproc_launches": multiproc_launches[name]}
+            if name in multiproc_launches else {})}
         for name in replaces
     ]})
     mark("kernels_line")
@@ -5361,4 +5659,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:] == ["--multiproc-worker"]:
+        sys.exit(multiproc_worker())
     sys.exit(main())

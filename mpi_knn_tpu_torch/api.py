@@ -21,10 +21,15 @@ from mpi_knn_tpu_torch.types import ClassifyResult, KNNResult
 def resolve_backend(cfg: KNNConfig, mesh=None, device=DEFAULT_DEVICE) -> str:
     """``auto`` is ``ring-overlap`` when the ring has more than one rank
     (``num_devices``, else the mesh, else the visible cards; the CPU counts
-    one), else ``serial``, as in the JAX package."""
+    one; a pod of processes always has more), else ``serial``, as in the
+    JAX package."""
+    from mpi_knn_tpu_torch.parallel import distributed
+
     if cfg.backend != "auto":
         return cfg.backend
-    if cfg.num_devices is not None:
+    if distributed.process_count() > 1:
+        n = distributed.process_count()
+    elif cfg.num_devices is not None:
         n = cfg.num_devices
     elif mesh is not None:
         from mpi_knn_tpu_torch.parallel.mesh import mesh_size

@@ -56,11 +56,33 @@ own ring, with its own transport and flag words, over its replica of the
 corpus blocks (the JAX package's ``P((dp, ring))`` queries against a
 corpus sharded over the ring axis only); the groups' rounds are issued in
 turn, round by round. The blocking schedule is undefined there, as in the
-JAX package. A multi-process ``torch.distributed`` form is not ported
-yet.
+JAX package.
+
+Across processes (a mesh from ``parallel/mesh.make_ring_mesh`` after
+``parallel/distributed.init_multihost``: every process's ranks in process
+order), a process places and drives only its own ranks (``ProcessSpan``);
+every process reads the whole corpus. Links inside a process keep their
+transport. The one link whose successor lies in the next process moves
+its traveler through the process group (``distributed.exchange``: NCCL
+between processes on cards of their own, else gloo through host memory):
+forward only under uni, both ways under bidir, issued before the round's
+merge under overlap. In the dma form K4 still merges the resident block
+and copies it, but the boundary rank's copy goes into a local outbox with
+the landing slot's layout, which the process group then moves into the
+next process's landing slot before the next launch (stream order; the
+outbox is written again only after its send has completed). After the
+last round no launch reads a landing slot, so that round's outbox stays
+where it is: K4 still launches every round, and the boundary moves P − 1
+times. The call returns the whole result on every process, gathered
+after the rotation (``distributed.Pod.gather_seconds``). The grid form
+(K5) cannot hand a block to another process in the middle of its one
+launch, and a 2-D mesh across processes is not ported: both are refused
+by name.
 """
 
 from __future__ import annotations
+
+import time
 
 import numpy as np
 import torch
@@ -80,6 +102,7 @@ from mpi_knn_tpu_torch.ops.fused_ring import (
 from mpi_knn_tpu_torch.ops.fused_rotation import (
     fused_rotation_grid,
     fused_round_dma,
+    landing_buffers,
     landing_slots,
     ring_transport,
     slot,
@@ -93,6 +116,7 @@ from mpi_knn_tpu_torch.ops.quant import (
     row_wire_bytes,
 )
 from mpi_knn_tpu_torch.ops.topk import init_topk
+from mpi_knn_tpu_torch.parallel import distributed
 from mpi_knn_tpu_torch.parallel.mesh import as_mesh2d, is_mesh2d, make_ring_mesh
 from mpi_knn_tpu_torch.parallel.partition import (
     make_global_ids,
@@ -176,22 +200,62 @@ def _mesh_devices(mesh) -> list:
         raise ValueError(
             "ring serving and the resident ring index take a 1-D ring mesh; "
             "a 2-D dp×ring mesh runs through all_knn")
+    if getattr(mesh, "owners", None) is not None and mesh.spans_processes():
+        raise ValueError(
+            "ring serving and the resident ring index run in one process; "
+            "a ring mesh that spans processes runs through all_knn")
     return [torch.device(d) for d in mesh]
+
+
+class ProcessSpan:
+    """Where this process's ranks lie on a ring mesh that spans processes:
+    ``local`` (its consecutive ranks), the ring size ``P``, and the
+    processes that own the next rank past its last (``next``) and the rank
+    before its first (``prev``)."""
+
+    def __init__(self, mesh):
+        self.P = len(mesh)
+        self.local = mesh.local_ranks(distributed.process_index())
+        self.next = mesh.owners[self.local.stop % self.P]
+        self.prev = mesh.owners[(self.local.start - 1) % self.P]
+
+    def exchange(self, leaving, arriving, shift: int):
+        """Issue the boundary's move of one traveler: ``leaving`` to the
+        process ``shift`` steps on, ``arriving`` (buffers of its layout)
+        from the process ``shift`` steps back. Tags keep the two
+        directions apart."""
+        to, frm = (self.next, self.prev) if shift == 1 else (self.prev, self.next)
+        tag = 0 if shift == 1 else 8
+        return distributed.exchange(
+            [(t, to, tag + j) for j, t in enumerate(leaving) if t is not None],
+            [(t, frm, tag + j) for j, t in enumerate(arriving) if t is not None])
+
+
+def ring_span(mesh):
+    """The :class:`ProcessSpan` of a 1-D mesh that spans processes, else
+    None."""
+    if mesh is None or is_mesh2d(mesh) or getattr(mesh, "owners", None) is None:
+        return None
+    return ProcessSpan(mesh) if mesh.spans_processes() else None
 
 
 class _Transport:
     """Moves every rank's traveler to the rank ``shift`` steps on. Under
     overlap a copy between two cards runs on side streams, started before
     the round's compute; ``land`` makes the receivers' streams wait for it.
-    Under blocking the copies wait for every device's compute."""
+    Under blocking the copies wait for every device's compute. With a
+    ``span`` the traveler that leaves the process goes through the
+    process group, and ``land`` waits for what arrives."""
 
-    def __init__(self, devices, overlap: bool):
+    def __init__(self, devices, overlap: bool, span=None):
         self.devices = devices
         self.overlap = overlap
         cards = {d for d in devices if d.type == "cuda"}
         self.side = {d: torch.cuda.Stream(d) for d in cards} if overlap else {}
         self.cards = cards
         self.landed = []
+        self.span = span
+        self.pending = []
 
     def rotate(self, travelers, shift: int):
         P = len(self.devices)
@@ -200,9 +264,20 @@ class _Transport:
                 torch.cuda.synchronize(d)
         out = [None] * P
         for r in range(P):
-            dst = (r + shift) % P
+            dst = r + shift
+            if self.span is None:
+                dst %= P
+            elif not 0 <= dst < P:
+                continue  # leaves the process
             out[dst] = tuple(self._move(t, self.devices[r], self.devices[dst])
                              for t in travelers[r])
+        if self.span is not None:
+            src, dst = (P - 1, 0) if shift == 1 else (0, P - 1)
+            arriving = tuple(None if t is None else
+                             torch.empty_like(t, device=self.devices[dst])
+                             for t in travelers[src])
+            self.pending.append(self.span.exchange(travelers[src], arriving, shift))
+            out[dst] = arriving
         return out
 
     def _move(self, t, src, dst):
@@ -219,6 +294,9 @@ class _Transport:
         return moved
 
     def land(self):
+        for x in self.pending:
+            x.wait()
+        self.pending = []
         for d, s in self.side.items():
             torch.cuda.current_stream(d).wait_stream(s)
         for t, d in self.landed:
@@ -255,6 +333,25 @@ def grid_off_card_error() -> ValueError:
         "cannot be emulated on the CPU — use ring_fused_rotation="
         "'round' off a CUDA card"
     )
+
+
+def grid_across_processes_error() -> ValueError:
+    """The refusal of the grid form on a ring that spans processes, in the
+    words of :func:`grid_resumable_error`."""
+    return ValueError(
+        "ring_fused_rotation='grid' runs the whole rotation as ONE "
+        "kernel launch — there is no per-round boundary at which the "
+        "process group could hand a block to another process; use "
+        "ring_fused_rotation='round' on a ring that spans processes"
+    )
+
+
+def mesh2d_across_processes_error() -> ValueError:
+    """The refusal of a 2-D dp×ring mesh in a pod of processes."""
+    return ValueError(
+        "a 2-D dp×ring mesh (--dp) across processes is not ported: the "
+        "ring spans processes on a 1-D mesh only; drop --dp, or run the "
+        "2-D mesh in one process")
 
 
 def grid_resumable_error() -> ValueError:
@@ -325,9 +422,12 @@ class RingRun:
 
     def __init__(self, cfg: KNNConfig, devices, overlap: bool, form: str,
                  q_sh, qid_sh, travelers, carries, q_tile: int, c_tile: int,
-                 staged: bool = False, slots=None, group: int = 0):
+                 staged: bool = False, slots=None, group: int = 0, span=None):
+        if span is not None and form == "grid":
+            raise grid_across_processes_error()
         self.cfg, self.devices, self.overlap, self.form = (
             cfg, devices, overlap, form)
+        self.span = span
         self.q_sh, self.qid_sh = q_sh, qid_sh
         self.carries = carries
         self.q_tile, self.c_tile = q_tile, c_tile
@@ -352,12 +452,16 @@ class RingRun:
             self.travelers.append(self.travelers[0] if travelers[1] is travelers[0]
                                   else with_norms(travelers[1]))
         if form == "driver":
-            self.transport = _Transport(devices, overlap)
+            self.transport = _Transport(devices, overlap, span)
         else:
-            self.transport = ring_transport(devices, group)
+            self.transport = ring_transport(devices, group,
+                                            boundary=span is not None)
             self.slots = (slots if slots is not None
                           else [landing_slots(*t) for t in self.travelers[0]])
             self.parity = 0
+            # the boundary rank's copy-out, moved on by the process group
+            self.outbox = (landing_buffers(*self.travelers[0][-1])
+                           if span is not None else None)
 
     def _merge_all(self, held):
         for r in range(len(self.devices)):
@@ -371,14 +475,19 @@ class RingRun:
                     zero_eps=self.cfg.zero_eps, query_norms=self.q_norms,
                     precision=self.cfg.matmul_precision)
 
-    def round(self, merge_bwd: bool, rotate: bool):
-        """Merge the resident block(s), and move them on when ``rotate``."""
+    def round(self, merge_bwd: bool, rotate: bool, last: bool = False):
+        """Merge the resident block(s), and move them on when ``rotate``
+        (the dma form's ``last`` round leaves its outbox unsent)."""
         if self.form == "dma" and rotate:
             land = [slot(s, self.parity) for s in self.slots]
             self.carries = fused_round_dma(
                 self.transport, self.q_sh, self.qid_sh, self.travelers[0],
                 self.carries, land, query_planes=self.q_planes,
-                **self._kernel_kw())
+                outbox=self.outbox, **self._kernel_kw())
+            if self.span is not None and not last:
+                # the outbox into the next process's landing slot, before
+                # the next launch reads it or rewrites the outbox
+                self.span.exchange(self.outbox, land[0], 1).wait()
             self.travelers[0] = land
             self.parity ^= 1
             return
@@ -407,22 +516,29 @@ class RingRun:
     def rotate(self):
         """The whole schedule: one K5 launch per card (grid), or its rounds
         (the dma form moves the block every round, the last included, as
-        the reference's scan does)."""
+        the reference's scan does, but for the last round's boundary move
+        across processes, which nothing reads)."""
         rotate_groups([self])
 
     def schedule(self) -> list:
         """The rounds of the whole schedule: (merge_bwd, rotate) each."""
-        P = len(self.devices)
+        P = len(self.devices) if self.span is None else self.span.P
         rounds, bwd_limit = (bidir_rounds(P) if self.cfg.ring_schedule == "bidir"
                              else (P, 0))
         return [(1 <= rnd < bwd_limit, self.form == "dma" or rnd < rounds - 1)
                 for rnd in range(rounds)]
 
     def gathered(self, dev, nq: int):
-        """The carries of every rank, in rank order, cut to ``nq`` rows."""
-        best_d = torch.cat([c[0].to(dev) for c in self.carries])[:nq]
-        best_i = torch.cat([c[1].to(dev) for c in self.carries])[:nq]
-        return best_d, best_i
+        """The carries of every rank, in rank order, cut to ``nq`` rows;
+        across processes every process's ranks, gathered on each."""
+        best_d = torch.cat([c[0].to(dev) for c in self.carries])
+        best_i = torch.cat([c[1].to(dev) for c in self.carries])
+        if self.span is not None:
+            t0 = time.perf_counter()
+            best_d = distributed.all_gather_rows(best_d)
+            best_i = distributed.all_gather_rows(best_i)
+            distributed.pod().gather_seconds = time.perf_counter() - t0
+        return best_d[:nq], best_i[:nq]
 
 
 def rotate_groups(runs) -> None:
@@ -434,9 +550,11 @@ def rotate_groups(runs) -> None:
         for run in runs:
             run.rotation_grid()
         return
-    for merge_bwd, rotate in runs[0].schedule():
+    rounds = runs[0].schedule()
+    for rnd, (merge_bwd, rotate) in enumerate(rounds):
         for run in runs:
-            run.round(merge_bwd=merge_bwd, rotate=rotate)
+            run.round(merge_bwd=merge_bwd, rotate=rotate,
+                      last=rnd == len(rounds) - 1)
 
 
 def ring_shards(cfg: KNNConfig, corpus, queries, query_ids, devices,
@@ -451,11 +569,12 @@ def ring_shards(cfg: KNNConfig, corpus, queries, query_ids, devices,
 
 
 def ring_layout(cfg: KNNConfig, corpus, queries, query_ids, groups,
-                start_round: int = 0):
+                start_round: int = 0, local=None):
     """:func:`ring_shards` over dp groups of P devices each: the queries
     padded for dp·P shards in (group, rank) order, the corpus blocks
     replicated to every group. Returns (q_tile, c_tile, per group (q_sh,
-    qid_sh, travelers))."""
+    qid_sh, travelers)), each a list over the ranks ``local`` (default
+    every rank: across processes, the ranks this process owns)."""
     dp, P = len(groups), len(groups[0])
     m, dim = corpus.shape
     nq = queries.shape[0]
@@ -477,11 +596,14 @@ def ring_layout(cfg: KNNConfig, corpus, queries, query_ids, groups,
             rows = rows.to(torch_dtype(cfg.ring_transfer_dtype))
         return rows, rid, scale
 
+    ranks = range(P) if local is None else local
+
     def traveler_blocks(wire, devices):
         rows, rid, scale = wire
-        return [(rows[r * b:(r + 1) * b].to(d), rid[r * b:(r + 1) * b].to(d),
-                 None if scale is None else scale[r * b:(r + 1) * b].to(d))
-                for r, d in enumerate(devices)]
+        return [(rows[r * b:(r + 1) * b].to(devices[r]),
+                 rid[r * b:(r + 1) * b].to(devices[r]),
+                 None if scale is None else scale[r * b:(r + 1) * b].to(devices[r]))
+                for r in ranks]
 
     fwd = wire_rows(shift)
     bwd = wire_rows(-shift) if cfg.ring_schedule == "bidir" and shift else None
@@ -495,30 +617,45 @@ def ring_layout(cfg: KNNConfig, corpus, queries, query_ids, groups,
             travelers.append(traveler_blocks(bwd, devices) if bwd is not None
                              else travelers[0])
         base = g * P
-        q_sh = [queries_p[(base + r) * ql:(base + r + 1) * ql].to(d)
-                for r, d in enumerate(devices)]
-        qid_sh = [qids_p[(base + r) * ql:(base + r + 1) * ql].to(d)
-                  for r, d in enumerate(devices)]
+        q_sh = [queries_p[(base + r) * ql:(base + r + 1) * ql].to(devices[r])
+                for r in ranks]
+        qid_sh = [qids_p[(base + r) * ql:(base + r + 1) * ql].to(devices[r])
+                  for r in ranks]
         out.append((q_sh, qid_sh, travelers))
     return q_tile, c_tile, out
 
 
-def ring_devices(cfg: KNNConfig, mesh, dev) -> list:
+def ring_mesh(cfg: KNNConfig, mesh, dev):
+    """The call's mesh: ``mesh``, or ``num_devices`` ranks (every
+    process's, in a pod of processes)."""
     if mesh is None:
         mesh = make_ring_mesh(cfg.num_devices, axis_name=cfg.mesh_axis,
                               device=dev)
-    return _mesh_devices(mesh)
+    return mesh
+
+
+def ring_devices(cfg: KNNConfig, mesh, dev) -> list:
+    return _mesh_devices(ring_mesh(cfg, mesh, dev))
 
 
 def ring_groups(cfg: KNNConfig, mesh, dev, overlap: bool) -> list:
     """The dp groups of devices a ring call runs (one group on a 1-D
-    mesh). The blocking schedule on a 2-D mesh raises, dp = 1 included."""
+    mesh, every process's ranks on one that spans processes). The
+    blocking schedule on a 2-D mesh raises, dp = 1 included, and so does a
+    2-D mesh in a pod of processes."""
     if not is_mesh2d(mesh):
-        return [ring_devices(cfg, mesh, dev)]
+        return [[torch.device(d) for d in ring_mesh(cfg, mesh, dev)]]
+    if distributed.process_count() > 1:
+        raise mesh2d_across_processes_error()
     mesh = as_mesh2d(mesh)
     if not overlap:
         raise blocking_undefined_on_mesh_error(mesh.axis_names)
     return [[torch.device(d) for d in row] for row in mesh]
+
+
+def local_devices(groups, span) -> list:
+    """Per group, the devices of the ranks this process drives."""
+    return [g if span is None else [g[r] for r in span.local] for g in groups]
 
 
 def all_knn_ring(corpus, queries, query_ids, cfg: KNNConfig, mesh=None,
@@ -526,21 +663,30 @@ def all_knn_ring(corpus, queries, query_ids, cfg: KNNConfig, mesh=None,
     """Pad and shard corpus and queries over the ring (each dp group's ring
     on a 2-D mesh), rotate, gather the carries. ``form`` overrides
     ``ring_form`` (the CPU tests run the dma and grid forms over logical
-    ranks on the kernels' plain versions). Returns ((q, k) dists, (q, k)
-    ids) on ``device``."""
+    ranks on the kernels' plain versions). On a mesh that spans processes
+    each process drives its own ranks and every process returns the whole
+    result. Returns ((q, k) dists, (q, k) ids) on ``device``."""
     dev = torch.device(device)
+    if not is_mesh2d(mesh):
+        mesh = ring_mesh(cfg, mesh, dev)
     groups = ring_groups(cfg, mesh, dev, overlap)
+    span = ring_span(mesh)
     if cfg.ring_fusion == "fused" and not overlap:
         raise fused_blocking_undefined_error()
     form = form or ring_form(cfg, groups[0])
-    q_tile, c_tile, parts = ring_layout(cfg, corpus, queries, query_ids, groups)
+    if span is not None and form == "grid":
+        raise grid_across_processes_error()
+    q_tile, c_tile, parts = ring_layout(cfg, corpus, queries, query_ids, groups,
+                                        local=span and span.local)
     acc = torch.float64 if torch_dtype(cfg.dtype) == torch.float64 else torch.float32
     runs = []
-    for g, (devices, (q_sh, qid_sh, travelers)) in enumerate(zip(groups, parts)):
+    for g, (devices, (q_sh, qid_sh, travelers)) in enumerate(
+            zip(local_devices(groups, span), parts)):
         carries = [init_topk(q.shape[0], cfg.k, dtype=acc, device=d)
                    for q, d in zip(q_sh, devices)]
         runs.append(RingRun(cfg, devices, overlap, form, q_sh, qid_sh,
-                            travelers, carries, q_tile, c_tile, group=g))
+                            travelers, carries, q_tile, c_tile, group=g,
+                            span=span))
     rotate_groups(runs)
     return gathered(runs, dev, queries.shape[0])
 

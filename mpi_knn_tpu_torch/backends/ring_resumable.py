@@ -22,8 +22,16 @@ bit for bit. The grid form has no round boundary and is refused. On a 2-D
 (dp × ring) mesh every dp group's ring runs the same round at once, the
 checkpoint holds every group's carry in (group, rank) order, and the
 fingerprint names the grid (``ring{P}x{dp}``); the blocking schedule there
-raises, as in ``all_knn_ring``. The JAX package's multi-host broadcast of
-the checkpoint is not ported: the port runs single-controller.
+raises, as in ``all_knn_ring``.
+
+On a ring that spans processes (``backends/ring.ProcessSpan``) each
+process drives its own ranks, and only process 0's read of the
+checkpoint decides: its rounds_done and carry are broadcast to every
+process, so processes with empty (non-shared) checkpoint directories
+resume at the same round instead of meeting in mismatched exchanges. At
+each save the carry is gathered on every process and only process 0
+writes it. The fingerprint is the same on every process (the same data,
+config and global ring).
 """
 
 from __future__ import annotations
@@ -37,14 +45,20 @@ from mpi_knn_tpu_torch.backends.ring import (
     fused_blocking_undefined_error,
     gathered,
     grid_resumable_error,
+    local_devices,
     ring_form,
     ring_groups,
     ring_layout,
+    ring_mesh,
+    ring_span,
+    ring_tiles,
 )
 from mpi_knn_tpu_torch.backends.serial import torch_dtype
 from mpi_knn_tpu_torch.config import KNNConfig
 from mpi_knn_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from mpi_knn_tpu_torch.ops.topk import init_topk
+from mpi_knn_tpu_torch.parallel import distributed
+from mpi_knn_tpu_torch.parallel.mesh import is_mesh2d
 from mpi_knn_tpu_torch.utils.checkpoint import (
     KNNCheckpoint,
     fingerprint,
@@ -68,7 +82,10 @@ def all_knn_ring_resumable(corpus, queries, query_ids, cfg: KNNConfig,
     if cfg.ring_fusion == "fused" and cfg.ring_fused_rotation == "grid":
         raise grid_resumable_error()
     dev = resolve_device(device)
+    if not is_mesh2d(mesh):
+        mesh = ring_mesh(cfg, mesh, dev)
     groups = ring_groups(cfg, mesh, dev, overlap)
+    span = ring_span(mesh)
     if cfg.ring_fusion == "fused" and not overlap:
         raise fused_blocking_undefined_error()
     dp, P = len(groups), len(groups[0])
@@ -97,29 +114,35 @@ def all_knn_ring_resumable(corpus, queries, query_ids, cfg: KNNConfig,
 
     acc = torch.float64 if torch_dtype(cfg.dtype) == torch.float64 else torch.float32
     start_round, saved = 0, None
-    if checkpoint_dir is not None:
-        state = load_checkpoint(checkpoint_dir, fp)
-        if state is not None:
-            start_round, saved = state.tiles_done, state  # rounds done
-            log.info("resuming ring at round %d/%d from %s", start_round,
-                     rounds_total, checkpoint_dir)
+    if checkpoint_dir is not None and span is not None:
+        saved = _broadcast_checkpoint(checkpoint_dir, fp, cfg, acc, ring_tiles(
+            cfg, corpus.shape[0], queries.shape[0], dp, P)[2])
+    elif checkpoint_dir is not None:
+        saved = load_checkpoint(checkpoint_dir, fp)
+    if saved is not None:
+        start_round = saved.tiles_done  # rounds done
+        log.info("resuming ring at round %d/%d from %s", start_round,
+                 rounds_total, checkpoint_dir)
 
+    ranks = range(P) if span is None else span.local
     q_tile, c_tile, parts = ring_layout(cfg, corpus, queries, query_ids,
-                                        groups, start_round)
+                                        groups, start_round, local=ranks)
     ql = parts[0][0][0].shape[0]
     form = ring_form(cfg, groups[0])
     runs = []
-    for g, (devices, (q_sh, qid_sh, travelers)) in enumerate(zip(groups, parts)):
+    for g, (devices, (q_sh, qid_sh, travelers)) in enumerate(
+            zip(local_devices(groups, span), parts)):
         if saved is None:
             carries = [init_topk(ql, cfg.k, dtype=acc, device=d) for d in devices]
         else:
             cd = torch.as_tensor(saved.carry_d, dtype=acc)
             ci = torch.as_tensor(saved.carry_i)
-            rows = [((g * P + r) * ql, (g * P + r + 1) * ql) for r in range(P)]
+            rows = [((g * P + r) * ql, (g * P + r + 1) * ql) for r in ranks]
             carries = [(cd[a:b].to(d), ci[a:b].to(d))
                        for (a, b), d in zip(rows, devices)]
         runs.append(RingRun(cfg, devices, overlap, form, q_sh, qid_sh,
-                            travelers, carries, q_tile, c_tile, group=g))
+                            travelers, carries, q_tile, c_tile, group=g,
+                            span=span))
 
     total = rounds_total if stop_after_rounds is None else min(
         rounds_total, start_round + stop_after_rounds)
@@ -130,11 +153,33 @@ def all_knn_ring_resumable(corpus, queries, query_ids, cfg: KNNConfig,
         if checkpoint_dir is not None and (
                 done % save_every == 0 or done == rounds_total):
             cd, ci = gathered(runs, "cpu", dp * P * ql)
-            save_checkpoint(checkpoint_dir, KNNCheckpoint(
-                carry_d=cd.numpy(), carry_i=ci.numpy(), tiles_done=done,
-                fingerprint=fp))
+            if span is None or distributed.process_index() == 0:
+                save_checkpoint(checkpoint_dir, KNNCheckpoint(
+                    carry_d=cd.numpy(), carry_i=ci.numpy(), tiles_done=done,
+                    fingerprint=fp))
         log.debug("ring round %d/%d done", done, rounds_total)
         if progress_cb is not None:
             progress_cb(done, rounds_total)
 
     return gathered(runs, dev, queries.shape[0])
+
+
+def _broadcast_checkpoint(checkpoint_dir, fp: str, cfg: KNNConfig, acc,
+                          q_pad: int):
+    """Process 0's checkpoint, on every process: its read alone decides,
+    and its rounds_done and (q_pad, k) carry are broadcast. None when
+    process 0 found none of this run."""
+    state = (load_checkpoint(checkpoint_dir, fp)
+             if distributed.process_index() == 0 else None)
+    done = distributed.broadcast_object(0 if state is None else state.tiles_done)
+    if not done:
+        return None
+    np_acc = np.float64 if acc == torch.float64 else np.float32
+    shape = (q_pad, cfg.k)
+    cd = (np.asarray(state.carry_d, dtype=np_acc) if state is not None
+          else np.zeros(shape, np_acc))
+    ci = (np.asarray(state.carry_i, dtype=np.int32) if state is not None
+          else np.zeros(shape, np.int32))
+    return KNNCheckpoint(carry_d=distributed.broadcast_host(cd),
+                         carry_i=distributed.broadcast_host(ci),
+                         tiles_done=done, fingerprint=fp)

@@ -42,9 +42,23 @@ kNN: ``--k``, ``--metric``, ``--backend``, ``--num-classes``,
 
 ``--dp G`` runs the ring backends on a (G × devices/G) mesh: queries
 shard over every device, each of the G groups rings the corpus
-(``parallel/mesh.make_mesh2d``). Not yet ported (exit 2, naming what was
-asked): the multi-process flags ``--coordinator``, ``--num-processes``,
-``--process-id``, and the subcommands ``lint`` and ``plan``.
+(``parallel/mesh.make_mesh2d``).
+
+More than one process (``parallel/distributed.py``): every process runs
+the same command with ``--coordinator host:port --num-processes P
+--process-id i`` (or the ``JAX_COORDINATOR_ADDRESS`` / ``JAX_NUM_PROCESSES``
+/ ``JAX_PROCESS_ID`` variables), and joins the process group before the
+load phase. The ring then spans every process's ranks (``--devices``
+counts a process's ranks: logical ranks on the CPU; on CUDA a process
+drives one card, and more is refused); each process reads the whole
+corpus and gets the whole result, and, as in the reference, each prints
+it and writes ``--report`` and ``--save-neighbors`` where it is told. The
+report's ``notes["distributed"]`` holds the start-up info, and its phase
+``gather`` the seconds of the result's gather inside ``knn``. ``--dp``
+across processes is refused by name.
+
+Not yet ported (exit 2, naming what was asked): the subcommands ``lint``
+and ``plan``.
 """
 
 from __future__ import annotations
@@ -74,7 +88,6 @@ from mpi_knn_tpu_torch.config import (
 from mpi_knn_tpu_torch.device import DEFAULT_DEVICE
 
 UNPORTED_SUBCOMMANDS = ("lint", "plan")
-UNPORTED_FLAGS = ("--coordinator", "--num-processes", "--process-id")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -104,7 +117,9 @@ def build_parser() -> argparse.ArgumentParser:
     k.add_argument("--tie-break", choices=TIE_BREAKS, default="nearest")
     k.add_argument("--devices", type=int, default=None,
                    help="ring size for the ring backends (default: the "
-                   "visible cards; on the CPU, logical ranks)")
+                   "visible cards; on the CPU, logical ranks); with more "
+                   "than one process, each process's ranks (one card a "
+                   "process on CUDA)")
     k.add_argument("--dp", type=int, default=1,
                    help="2-D mesh: data-parallel groups; devices/dp form the "
                    "corpus ring inside each group (queries shard over all "
@@ -192,9 +207,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="torch device (default cuda; 'cpu' runs the plain "
                    "versions of the kernels)")
 
-    u = p.add_argument_group("not yet ported (exit 2; see ROADMAP.md)")
-    for flag in UNPORTED_FLAGS:
-        u.add_argument(flag, default=None, metavar="X")
+    m = p.add_argument_group("more than one process (torch.distributed)")
+    m.add_argument("--coordinator", default=None, metavar="HOST:PORT",
+                   help="process 0's address; every process meets there")
+    m.add_argument("--num-processes", type=int, default=None)
+    m.add_argument("--process-id", type=int, default=None)
     return p
 
 
@@ -298,7 +315,9 @@ def config_from_args(args) -> KNNConfig:
 
 
 def _host(t) -> np.ndarray:
-    return t.cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
+    from mpi_knn_tpu_torch.parallel.distributed import fetch_global
+
+    return fetch_global(t)
 
 
 def _rows(X, sample: np.ndarray):
@@ -308,13 +327,32 @@ def _rows(X, sample: np.ndarray):
     return np.asarray(X)[sample]
 
 
-def _refused(argv, args) -> str | None:
-    if argv and argv[0] in UNPORTED_SUBCOMMANDS:
-        return f"subcommand {argv[0]!r}"
-    for flag in UNPORTED_FLAGS:
-        if getattr(args, flag.lstrip("-").replace("-", "_")) is not None:
-            return flag
-    return None
+def _start_processes(args) -> dict | None:
+    """Join the process group when the flags or the launch environment ask
+    for more than one process (the JAX CLI's rule and its refusal of a
+    lone ``--process-id``); returns the start-up info, else None."""
+    import os
+
+    from mpi_knn_tpu_torch.parallel import distributed
+    from mpi_knn_tpu_torch.parallel.mesh import more_cards_a_process_error
+
+    if args.process_id is not None and not (
+        args.coordinator or args.num_processes
+        or os.environ.get(distributed.ENV_COORDINATOR)
+        or os.environ.get(distributed.ENV_NUM_PROCESSES)
+    ):
+        raise SystemExit(
+            "error: --process-id requires --coordinator/--num-processes "
+            "(or the JAX_COORDINATOR_ADDRESS/JAX_NUM_PROCESSES env vars); "
+            "refusing to silently run single-host"
+        )
+    if not distributed.wants_multihost(args.coordinator, args.num_processes):
+        return None
+    if torch.device(args.device).type == "cuda" and (args.devices or 1) > 1:
+        raise SystemExit(f"error: {more_cards_a_process_error(args.devices)}")
+    return distributed.init_multihost(
+        coordinator_address=args.coordinator, num_processes=args.num_processes,
+        process_id=args.process_id, device=args.device)
 
 
 def main(argv=None) -> int:
@@ -351,22 +389,33 @@ def main(argv=None) -> int:
         from mpi_knn_tpu_torch.resilience.doctor import main as doctor_main
 
         return doctor_main(argv[1:])
-    parser = build_parser()
-    args = None if argv and argv[0] in UNPORTED_SUBCOMMANDS else parser.parse_args(argv)
-    refused = _refused(argv, args)
-    if refused is not None:
-        print(f"error: {refused}: not yet ported to mpi_knn_tpu_torch (see "
-              "ROADMAP.md)", file=sys.stderr)
+    if argv and argv[0] in UNPORTED_SUBCOMMANDS:
+        print(f"error: subcommand {argv[0]!r}: not yet ported to "
+              "mpi_knn_tpu_torch (see ROADMAP.md)", file=sys.stderr)
         return 2
+    parser = build_parser()
+    args = parser.parse_args(argv)
     if args.save_every is not None and args.save_every <= 0:
         parser.error("--save-every must be a positive round count")
+    from mpi_knn_tpu_torch.parallel import distributed
+    from mpi_knn_tpu_torch.utils.logs import setup_logging
+
+    setup_logging(args.verbose, quiet=args.quiet)
+    dist_info = _start_processes(args)
+    try:
+        return _run(args, dist_info)
+    finally:
+        distributed.shutdown()
+
+
+def _run(args, dist_info) -> int:
     from mpi_knn_tpu_torch.api import all_knn, knn_classify, resolve_backend
     from mpi_knn_tpu_torch.device import resolve_device
-    from mpi_knn_tpu_torch.utils.logs import setup_logging
+    from mpi_knn_tpu_torch.parallel import distributed
+    from mpi_knn_tpu_torch.utils.atomicio import atomic_write_text
     from mpi_knn_tpu_torch.utils.report import RunReport, recall_at_k
     from mpi_knn_tpu_torch.utils.timing import PhaseTimer, profile_trace
 
-    setup_logging(args.verbose, quiet=args.quiet)
     device = resolve_device(args.device)
     timer = PhaseTimer()
     with timer.phase("load"):
@@ -390,12 +439,19 @@ def main(argv=None) -> int:
 
     mesh = None
     if args.dp and args.dp > 1:
+        if dist_info is not None:
+            raise SystemExit(
+                "error: --dp with more than one process is not ported: the "
+                "ring spans processes on a 1-D mesh only; drop --dp, or run "
+                "the 2-D mesh in one process")
         mesh = _mesh2d(args, device)
     report = RunReport(
         config=vars(args), data_source=source, shape=tuple(X.shape),
         backend=resolve_backend(cfg, mesh, device=device),
         num_devices=cfg.num_devices or 1,
     )
+    if dist_info is not None:
+        report.notes["distributed"] = dist_info
     if any(str(p).endswith(".mat") for p in (args.data, args.queries)):
         from mpi_knn_tpu_torch.data.matfile import reader_name
 
@@ -427,6 +483,9 @@ def main(argv=None) -> int:
                           device, all_knn, recall_at_k)
 
     report.phase_seconds = dict(timer.seconds)
+    if dist_info is not None and distributed.pod().gather_seconds:
+        # the result's gather across processes, inside the knn phase
+        report.phase_seconds["gather"] = distributed.pod().gather_seconds
     if not args.quiet:
         # the C reference's lines (knn-serial.c:98,130), then a summary
         print(f"Clock time = {timer.seconds['knn']:.6f}")
@@ -475,8 +534,8 @@ def main(argv=None) -> int:
             "k": cfg.k,
             "metric": cfg.metric,
         }
-        with open(args.report, "w") as f:
-            json.dump(doc, f, indent=2, default=str)
+        # whole: with more than one process each writes where it is told
+        atomic_write_text(args.report, json.dumps(doc, indent=2, default=str))
         if not args.quiet:
             print(f"report written to {args.report}")
     return 0

@@ -1,6 +1,7 @@
 """Sharded clustered (IVF) index: the bucket store distributed over the
 ring mesh with a routed candidate exchange (the JAX package's
-``ivf/sharded.py``), run by one controlling process.
+``ivf/sharded.py``), run by one controlling process or, one shard a
+process, by a pod of processes.
 
 Layout (derived, never stored: one saved index serves on any shard
 count):
@@ -46,6 +47,17 @@ Routed two-stage search, per tile step (every shard's j-th tile at once):
    bit for bit the unsharded index, and at equal nprobe every S returns
    the unsharded index's results.
 
+Across processes (a mesh from ``parallel/mesh.make_ring_mesh`` after
+``parallel/distributed.init_multihost``, one rank a process): each process
+holds its own shard's slice and a centroid replica, is the home of its
+run of tiles, and the request tables and candidate tiles move by
+``torch.distributed.all_to_all_single`` (the reference's
+``jax.lax.all_to_all``; ``distributed.all_to_all_rows``) at the same
+shapes, so S processes return the unsharded index's results bit for bit,
+as S ranks of one process do. Every process passes the whole batch and
+gets the whole result back. Mutation of a store that spans processes, and
+serving it through a session, are refused by name.
+
 Per-shard stats, summed over a batch's tiles: ``[routed, dropped,
 served]`` (routes this shard's queries issued and kept, routes dropped at
 the cap, real requests this shard answered as owner). A query whose every
@@ -65,6 +77,7 @@ from mpi_knn_tpu_torch.ivf.index import IVFIndex, _refuse_inert_knobs
 from mpi_knn_tpu_torch.ivf.search import finish_candidates, score_centroids
 from mpi_knn_tpu_torch.ops.distance import center_rows
 from mpi_knn_tpu_torch.ops.quant import QUANT_DTYPES, dequantize_rows, row_wire_bytes
+from mpi_knn_tpu_torch.parallel import distributed
 from mpi_knn_tpu_torch.parallel.mesh import RingMesh, make_ring_mesh
 from mpi_knn_tpu_torch.parallel.partition import pad_rows_any, pad_to_multiple
 
@@ -104,8 +117,8 @@ def exchange_wire_args(index) -> tuple[int, int, int]:
     """(lanes, itemsize, scale_bytes) of one candidate row on the exchange
     for ``index``'s store."""
     if getattr(index, "store_dtype", None) in QUANT_DTYPES:
-        return index.slices[0][0].shape[-1], 1, 4
-    return index.dim, index.slices[0][0].element_size(), 0
+        return index.held_slice[0].shape[-1], 1, 4
+    return index.dim, index.held_slice[0].element_size(), 0
 
 
 def sharded_query_shapes(cfg: KNNConfig, nprobe: int, bucket_cap: int,
@@ -157,6 +170,81 @@ def _routes(probe, per_shard: int, shards: int, route_cap: int):
     return dest_t, rank_t, dropped_t, req
 
 
+def _gather_slice(req_in, slice_, per_shard: int):
+    """An owner's answer to its (S, route_cap) requests: the requested
+    buckets gathered from its slice at rest (an empty slot gathers slot 0,
+    its ids forced to −1), and the count of real requests."""
+    buckets, bids, bsqs, bscl = slice_
+    take = req_in.clamp(0, per_shard - 1).long()
+    empty = (req_in < 0)[..., None]
+    return ((buckets[take], torch.where(empty, -1, bids[take]), bsqs[take],
+             None if bscl is None else bscl[take]),
+            (req_in >= 0).sum())
+
+
+def _finish_home(home, q_ids, tile, cfg: KNNConfig, nprobe: int,
+                 route_cap: int, cap: int):
+    """A home's finish: its candidates from ``tile(part)`` (the (S·
+    route_cap, cap, ·) rows, ids, norms or scales every owner returned to
+    it, in owner order) laid out in query-major probe order (the unsharded
+    gather's layout: f = q·nprobe + j is route t = j·q_tile + q),
+    dequantized there, finished. Returns ((q_tile, k) dists, ids) and the
+    [routed, dropped] counts."""
+    qx, q_sq, dest_t, rank_t, dropped_t = home
+    dev = qx.device
+    qt = qx.shape[0]
+    n = qt * nprobe
+    f = torch.arange(n, device=dev)
+    t_of = (f % nprobe) * qt + f // nprobe
+    dest, rank, dropped = dest_t[t_of], rank_t[t_of], dropped_t[t_of]
+    src = dest * route_cap + rank.clamp(max=route_cap - 1)
+    v = nprobe * cap
+    rows = tile(0)[src]
+    rows = rows.reshape(qt, v, rows.shape[-1])
+    ids = torch.where(dropped[:, None], -1, tile(1)[src]).reshape(qt, v)
+    sqs = tile(2)[src].reshape(qt, v)
+    scales = tile(3)
+    if scales is not None:
+        # dequantized at home, after the exchange moved the codes
+        rows = dequantize_rows(rows, scales[src].reshape(qt, v), cfg.dtype,
+                               qx.shape[1])
+    return (finish_candidates(qx, q_ids, q_sq, rows.to(torch.float32), ids,
+                              sqs, cfg),
+            ((~dropped).sum(), dropped.sum()))
+
+
+def _score_home(q_x, centroids, nprobe: int, per_shard: int, shards: int,
+                route_cap: int):
+    """A home tile's centroid score and routes: (home state, its (S,
+    route_cap) request table)."""
+    qx = q_x.to(torch.float32)
+    q_sq, probe = score_centroids(qx, *centroids, nprobe)
+    dest_t, rank_t, dropped_t, req = _routes(probe, per_shard, shards, route_cap)
+    return (qx, q_sq, dest_t, rank_t, dropped_t), req
+
+
+def routed_query_tile_across(q_x, q_ids, centroids, slice_, cfg: KNNConfig,
+                             nprobe: int, route_cap: int, shards: int):
+    """One tile step in one process of a pod (one shard a process): this
+    process's home tile ``q_x`` (its ``q_ids``), its centroid replica and
+    its own store slice. The request tables and the candidate tiles move
+    between processes by ``all_to_all_single``. Returns ((q_tile, k)
+    dists, ids) and this shard's (N_STATS,) int64 stats."""
+    per_shard, cap = slice_[0].shape[:2]
+    home, req = _score_home(q_x, centroids, nprobe, per_shard, shards, route_cap)
+    req_in = distributed.all_to_all_rows(req)  # row h: home h's requests
+    answer, served = _gather_slice(req_in, slice_, per_shard)
+    back = [None if t is None else distributed.all_to_all_rows(t) for t in answer]
+
+    def tile(part):
+        t = back[part]
+        return None if t is None else t.reshape((shards * route_cap,) + t.shape[2:])
+
+    res, (routed, dropped) = _finish_home(home, q_ids, tile, cfg, nprobe,
+                                          route_cap, cap)
+    return res, torch.stack([routed, dropped, served.to(routed.device)])
+
+
 def routed_query_tile(q_x, q_ids, centroids, slices, cfg: KNNConfig,
                       nprobe: int, route_cap: int, devices):
     """One tile step through the routed two-stage search: shard h's tile
@@ -169,58 +257,32 @@ def routed_query_tile(q_x, q_ids, centroids, slices, cfg: KNNConfig,
     per_shard, cap = slices[0][0].shape[:2]
     homes, req = [], []
     for h in range(shards):
-        qx = q_x[h].to(torch.float32)
-        q_sq, probe = score_centroids(qx, *centroids[h], nprobe)
-        dest_t, rank_t, dropped_t, r = _routes(probe, per_shard, shards,
-                                               route_cap)
-        homes.append((qx, q_sq, dest_t, rank_t, dropped_t))
+        home, r = _score_home(q_x[h], centroids[h], nprobe, per_shard, shards,
+                              route_cap)
+        homes.append(home)
         req.append(r)
 
     # owner side: the requests from every home, then the requested buckets
-    # gathered from the slice at rest (an empty slot gathers slot 0, its
-    # ids forced to −1)
     returned, served = [], []
     for o in range(shards):
-        dev = devices[o]
-        req_in = torch.stack([req[h][o].to(dev) for h in range(shards)])
-        buckets, bids, bsqs, bscl = slices[o]
-        take = req_in.clamp(0, per_shard - 1).long()
-        empty = (req_in < 0)[..., None]
-        returned.append((buckets[take],
-                         torch.where(empty, -1, bids[take]),
-                         bsqs[take],
-                         None if bscl is None else bscl[take]))
-        served.append((req_in >= 0).sum())
+        req_in = torch.stack([req[h][o].to(devices[o]) for h in range(shards)])
+        answer, n = _gather_slice(req_in, slices[o], per_shard)
+        returned.append(answer)
+        served.append(n)
 
     out, stats = [], []
     for h in range(shards):
-        qx, q_sq, dest_t, rank_t, dropped_t = homes[h]
         dev = devices[h]
-        qt = qx.shape[0]
-        n = qt * nprobe
-        # the home's candidates in query-major probe order (the unsharded
-        # gather's layout): f = q·nprobe + j is route t = j·q_tile + q
-        f = torch.arange(n, device=dev)
-        t_of = (f % nprobe) * qt + f // nprobe
-        dest, rank, dropped = dest_t[t_of], rank_t[t_of], dropped_t[t_of]
-        src = dest * route_cap + rank.clamp(max=route_cap - 1)
 
         def home_tile(part):
+            if returned[0][part] is None:
+                return None
             return torch.cat([returned[o][part][h].to(dev) for o in range(shards)])
 
-        v = nprobe * cap
-        rows = home_tile(0)[src]
-        rows = rows.reshape(qt, v, rows.shape[-1])
-        ids = torch.where(dropped[:, None], -1, home_tile(1)[src]).reshape(qt, v)
-        sqs = home_tile(2)[src].reshape(qt, v)
-        if returned[0][3] is not None:
-            # dequantized at home, after the exchange moved the codes
-            rows = dequantize_rows(rows, home_tile(3)[src].reshape(qt, v),
-                                   cfg.dtype, qx.shape[1])
-        out.append(finish_candidates(qx, q_ids[h], q_sq, rows.to(torch.float32),
-                                     ids, sqs, cfg))
-        stats.append(torch.stack([(~dropped).sum(), dropped.sum(),
-                                  served[h].to(dev)]).to(devices[0]))
+        res, (routed, dropped) = _finish_home(homes[h], q_ids[h], home_tile, cfg,
+                                              nprobe, route_cap, cap)
+        out.append(res)
+        stats.append(torch.stack([routed, dropped, served[h].to(dev)]).to(devices[0]))
     return out, torch.stack(stats)
 
 
@@ -230,6 +292,10 @@ def routed_query_tile(q_x, q_ids, centroids, slices, cfg: KNNConfig,
 
 def _one_device(mesh) -> bool:
     return len({str(d) for d in mesh}) == 1
+
+
+def _spans_processes(mesh) -> bool:
+    return getattr(mesh, "owners", None) is not None and mesh.spans_processes()
 
 
 @dataclasses.dataclass
@@ -243,7 +309,9 @@ class ShardedIVFIndex:
     On one device, ``buckets`` / ``bucket_ids`` / ``bucket_sqs`` /
     ``bucket_scales`` are the whole store ``(S·per_shard, cap, ·)`` and
     ``slices`` views of it; over distinct cards they are None and
-    ``slices`` holds each shard's tensors on its card."""
+    ``slices`` holds each shard's tensors on its card; across processes
+    (``spans_processes``) ``slices`` holds this process's shard alone, None
+    at the others, and ``device`` is this process's."""
 
     cfg: KNNConfig  # backend "serial", a concrete nprobe, ivf_shards set
     m: int
@@ -269,6 +337,7 @@ class ShardedIVFIndex:
     shard_store: list | None = None
     # per distinct device of the mesh but ``device``: (centroids, norms)
     replicas: dict = dataclasses.field(default_factory=dict)
+    spans_processes: bool = False
     _cache: dict = dataclasses.field(default_factory=dict)
 
     @property
@@ -288,6 +357,11 @@ class ShardedIVFIndex:
                                 self.bucket_sqs, self.bucket_scales))
                 for s in range(self.shards)]
 
+    @property
+    def held_slice(self) -> tuple:
+        """A shard's slice this process holds (its own across processes)."""
+        return next(s for s in self.slices if s is not None)
+
     def centroid_replica(self, device) -> tuple:
         """(centroids, norms) on ``device``."""
         dev = torch.device(device)
@@ -305,13 +379,13 @@ class ShardedIVFIndex:
     def nbytes_resident(self) -> int:
         """Bytes of the store over every shard (padding clusters and a
         quantized store's scales included)."""
-        return sum(t.numel() * t.element_size()
-                   for s in self.slices for t in (s[0], s[3]) if t is not None)
+        return self.shard_nbytes_resident * self.shards
 
     @property
     def shard_nbytes_resident(self) -> int:
         """Bytes of one shard's slice."""
-        return self.nbytes_resident // self.shards
+        return sum(t.numel() * t.element_size()
+                   for t in (self.held_slice[0], self.held_slice[3]) if t is not None)
 
     @property
     def probe_bytes(self) -> int:
@@ -319,7 +393,7 @@ class ShardedIVFIndex:
         store's width (the unsharded bound: the same buckets move)."""
         quant = self.store_dtype if self.store_dtype in QUANT_DTYPES else None
         return self.nprobe * self.bucket_cap * row_wire_bytes(
-            self.dim, quant, self.slices[0][0].element_size())
+            self.dim, quant, self.held_slice[0].element_size())
 
     def compatible_cfg(self, cfg: KNNConfig) -> KNNConfig:
         """The unsharded index's corpus-side freeze plus ``ivf_shards``
@@ -364,7 +438,12 @@ def _mesh_for(shards: int | None, mesh, cfg: KNNConfig, device):
         mesh = make_ring_mesh(shards, axis_name=cfg.mesh_axis, device=device)
     # "cuda" and "cuda:0" name one card: every rank by its index
     mesh = RingMesh([canonical_device(d) for d in mesh],
-                    getattr(mesh, "axis_name", cfg.mesh_axis))
+                    getattr(mesh, "axis_name", cfg.mesh_axis),
+                    owners=getattr(mesh, "owners", None))
+    if _spans_processes(mesh) and mesh.owners != list(range(len(mesh))):
+        raise ValueError(
+            f"a sharded clustered index across processes takes one shard a "
+            f"process; the mesh's ranks belong to processes {mesh.owners}")
     shards = len(mesh) if shards is None else shards
     if len(mesh) != shards:
         raise ValueError(
@@ -383,7 +462,9 @@ def shard_ivf_index(index: IVFIndex, shards: int | None = None, mesh=None,
     shards, mesh = _mesh_for(shards, mesh, index.cfg, index.device)
     per_shard = -(-index.partitions // shards)
     padc = per_shard * shards - index.partitions
-    dev = mesh[0]
+    across = _spans_processes(mesh)
+    me = distributed.process_index() if across else 0
+    dev = mesh[me]
 
     def padded(t, fill):
         if t is None:
@@ -400,7 +481,7 @@ def shard_ivf_index(index: IVFIndex, shards: int | None = None, mesh=None,
         ivf_route_cap=(route_cap if route_cap is not None
                        else index.cfg.ivf_route_cap))
     replicas = {}
-    for d in mesh:
+    for d in [] if across else mesh:
         d = torch.device(d)
         if d != dev and str(d) not in replicas:
             replicas[str(d)] = (index.centroids.to(d), index.centroid_sqs.to(d))
@@ -410,8 +491,8 @@ def shard_ivf_index(index: IVFIndex, shards: int | None = None, mesh=None,
         shards=shards, per_shard=per_shard, mesh=mesh, device=dev,
         centroids=index.centroids.to(dev), centroid_sqs=index.centroid_sqs.to(dev),
         tuned_recall=index.tuned_recall, build_seconds=dict(index.build_seconds),
-        replicas=replicas)
-    if _one_device(mesh):
+        replicas=replicas, spans_processes=across)
+    if _one_device(mesh) and not across:
         return ShardedIVFIndex(
             buckets=store[0].to(dev), bucket_ids=store[1].to(dev),
             bucket_sqs=store[2].to(dev),
@@ -419,7 +500,7 @@ def shard_ivf_index(index: IVFIndex, shards: int | None = None, mesh=None,
             **common)
     p = per_shard
     shard_store = [tuple(None if t is None else t[s * p:(s + 1) * p].to(d)
-                         for t in store)
+                         for t in store) if s == me or not across else None
                    for s, d in enumerate(mesh)]
     return ShardedIVFIndex(buckets=None, bucket_ids=None, bucket_sqs=None,
                            shard_store=shard_store, **common)
@@ -434,6 +515,10 @@ def unshard_ivf_index(index: ShardedIVFIndex, device=None) -> IVFIndex:
     Pn = index.partitions
 
     def whole(part):
+        if index.spans_processes:
+            t = index.held_slice[part]
+            return (None if t is None else
+                    distributed.all_gather_rows(t).to(dev)[:Pn])
         ts = [s[part] for s in index.slices]
         if ts[0] is None:
             return None
@@ -505,6 +590,8 @@ def run_sharded_tiles(index: ShardedIVFIndex, q_tiles, qid_tiles,
     together. Returns padded (QT, q_tile, k) dists and ids on the index's
     device and the (S, N_STATS) int64 stats summed over the steps (not
     synchronized)."""
+    if index.spans_processes:
+        return _run_tiles_across(index, q_tiles, qid_tiles, cfg, route_cap)
     S = index.shards
     devices = [torch.device(d) for d in index.mesh]
     per = q_tiles.shape[0] // S
@@ -528,6 +615,30 @@ def run_sharded_tiles(index: ShardedIVFIndex, q_tiles, qid_tiles,
     d = torch.stack([t.to(dev) for ts in d_out for t in ts])
     i = torch.stack([t.to(dev) for ts in i_out for t in ts])
     return d, i, stats
+
+
+def _run_tiles_across(index: ShardedIVFIndex, q_tiles, qid_tiles,
+                      cfg: KNNConfig, route_cap: int):
+    """:func:`run_sharded_tiles` in one process of a pod: this process is
+    the home of its run of tiles and the owner of its slice; the results
+    and stats of every process are gathered on each."""
+    S, me, dev = index.shards, distributed.process_index(), index.device
+    per = q_tiles.shape[0] // S
+    q_home = q_tiles[me * per:(me + 1) * per].to(dev)
+    id_home = qid_tiles[me * per:(me + 1) * per].to(dev)
+    cents = index.centroid_replica(dev)
+    own = index.slices[me]
+    d_out, i_out = [], []
+    stats = torch.zeros(N_STATS, dtype=torch.int64, device=dev)
+    for j in range(per):
+        (d, i), st = routed_query_tile_across(q_home[j], id_home[j], cents, own,
+                                              cfg, cfg.nprobe, route_cap, S)
+        stats += st
+        d_out.append(d)
+        i_out.append(i)
+    d = distributed.all_gather_rows(torch.stack(d_out))
+    i = distributed.all_gather_rows(torch.stack(i_out))
+    return d, i, distributed.all_gather_rows(stats[None])
 
 
 def search_ivf_sharded(index: ShardedIVFIndex, queries, query_ids=None,

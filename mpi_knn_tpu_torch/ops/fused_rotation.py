@@ -30,9 +30,15 @@ prologue launch), and the queries likewise (``query_norms``,
 ``query_planes``). The plain versions compute their own norms in f32 and
 copy whatever the traveler holds.
 
-One process drives every rank. A launch covers every rank its card holds,
+A process drives every rank of its ring, or, on a ring that spans
+processes, its own ranks. A launch covers every rank its card holds,
 so a round of K4 is one launch per distinct card (``launches = rounds ×
-cards``) and K5 is one launch per card. The flag words the kernels signal
+cards`` in each process) and K5 is one launch per card. Where the last
+rank's successor lies in another process (``RingTransport(boundary=
+True)``), K4 stores that rank's copy into a local ``outbox`` with the
+landing slot's layout (``landing_buffers``), in stream order on its card,
+and the caller's process group moves it on; the other links keep the
+in-kernel stores and flags. The flag words the kernels signal
 each other through live on each card and are made once per mesh
 (``ring_transport``); they only count up, so nothing is reset between calls.
 A timed-out wait inside a kernel raises ``RuntimeError`` here once the
@@ -122,15 +128,22 @@ class RingTransport:
     ``cross_card[r]`` says whether rank r reaches its successor through the
     cross-card protocol (barrier, system-scope flags). By default a link
     crosses where the two ranks' cards differ; naming it for ranks on one
-    card runs the same protocol within the card.
+    card runs the same protocol within the card. With ``boundary`` the
+    ranks are one process's part of a longer ring: the last rank's
+    successor and the first rank's predecessor lie in other processes, so
+    that link takes no flags (K4 writes an outbox on the last rank's card,
+    and the process group fills the first rank's landing slot).
     """
 
-    def __init__(self, devices, cross_card=None):
+    def __init__(self, devices, cross_card=None, boundary: bool = False):
         self.devices = [_card(torch.device(d)) for d in devices]
         P = len(self.devices)
         if cross_card is None:
             cross_card = [self.devices[r] != self.devices[(r + 1) % P]
                           for r in range(P)]
+        if boundary:
+            cross_card = list(cross_card[:P - 1]) + [False]
+        self.boundary = boundary
         self.succ_remote = [bool(c) for c in cross_card]
         self.pred_remote = [self.succ_remote[(r - 1) % P] for r in range(P)]
         self.cards = list(dict.fromkeys(self.devices))
@@ -181,14 +194,15 @@ class RingTransport:
 _TRANSPORTS: dict = {}
 
 
-def ring_transport(devices, group: int = 0) -> RingTransport:
+def ring_transport(devices, group: int = 0, boundary: bool = False) -> RingTransport:
     """The ring's transport state, made once per ring: per mesh and, on a
     2-D mesh, per dp group (each group's ring has flag words of its own,
-    even where two groups name the same cards)."""
+    even where two groups name the same cards); ``boundary`` for one
+    process's ranks of a ring that spans processes."""
     cards = tuple(_card(torch.device(d)) for d in devices)
-    key = (group, cards)
+    key = (group, cards, boundary)
     if key not in _TRANSPORTS:
-        _TRANSPORTS[key] = RingTransport(cards)
+        _TRANSPORTS[key] = RingTransport(cards, boundary=boundary)
     return _TRANSPORTS[key]
 
 
@@ -207,6 +221,14 @@ def landing_slots(block, ids, scale, norms=None, hi=None, lo=None):
         return None if t is None else t.new_empty((2,) + tuple(t.shape))
 
     return tuple(two(t) for t in (block, ids, scale, norms, hi, lo))
+
+
+def landing_buffers(block, ids, scale, norms=None, hi=None, lo=None):
+    """One landing slot's buffers in the layout of a traveler: a traveler
+    of empty tensors (None where it has none), on its device. K4's outbox
+    at a process boundary."""
+    return tuple(None if t is None else torch.empty_like(t)
+                 for t in (block, ids, scale, norms, hi, lo))
 
 
 def slot(slots, i: int):
@@ -369,27 +391,35 @@ def fused_round_dma(ring: RingTransport, queries, query_ids, blocks, carries,
                     landing, *, c_tile: int, exclude_self: bool = True,
                     exclude_zero: bool = True, zero_eps: float = 0.0,
                     timeout_s: float = TIMEOUT_S, query_norms=None,
-                    query_planes=None, precision=None):
+                    query_planes=None, precision=None, outbox=None):
     """One ring round of every rank: rank r's resident ``blocks[r]`` (a
     traveler) merged exactly into ``carries[r]`` = (d, i), and copied (its
     norms and planes too, where the landing has buffers for them) into
-    ``landing[(r + 1) % P]``. Returns the merged carries; the landing
-    buffers then hold each rank's next resident block. On the f32 wire the
-    card's merge reads the planes of the queries (``query_planes``, one (hi,
-    lo) per rank, with ``query_norms`` from the same prologue) and of the
-    block (``stage_round_planes``) at "highest"; at "default" / "high" only
-    the norms."""
+    ``landing[(r + 1) % P]``, the last rank's into ``outbox`` instead where
+    one is given (its successor lies in another process: ``ring`` must be
+    a boundary transport). Returns the merged carries; the landing buffers
+    then hold each rank's next resident block. On the f32 wire the card's
+    merge reads the planes of the queries (``query_planes``, one (hi, lo)
+    per rank, with ``query_norms`` from the same prologue) and of the block
+    (``stage_round_planes``) at "highest"; at "default" / "high" only the
+    norms."""
     blocks = [traveler(b) for b in blocks]
     landing = [traveler(t) for t in landing]
     cpu = _check_ring(queries, query_ids, blocks, carries)
     _check_landing(blocks, landing)
+    if (outbox is not None) != ring.boundary:
+        raise ValueError("an outbox goes with a boundary transport "
+                         "(ring_transport(..., boundary=True)), and only with it")
+    if outbox is not None:
+        outbox = traveler(outbox)
+        _check_landing([blocks[-1]], [outbox])
     if blocks[0][0].shape[0] % c_tile:
         raise ValueError("caller must pad the block to a c_tile multiple")
     kw = dict(c_tile=c_tile, exclude_self=exclude_self,
               exclude_zero=exclude_zero, zero_eps=zero_eps, precision=precision)
     if cpu:
         return fused_round_dma_reference(queries, query_ids, blocks, carries,
-                                         landing, **kw)
+                                         landing, outbox=outbox, **kw)
     P = len(queries)
     if uses_planes(blocks[0][0].dtype, precision):
         qn, qp, blocks = _card_planes(queries, blocks, query_norms, query_planes)
@@ -400,6 +430,8 @@ def fused_round_dma(ring: RingTransport, queries, query_ids, blocks, carries,
     carries = [(cd.contiguous(), ci.contiguous()) for cd, ci in carries]
     outs = [(torch.empty_like(cd), torch.empty_like(ci)) for cd, ci in carries]
     land_of = [landing[(r + 1) % P] for r in range(P)]  # the successor's
+    if outbox is not None:
+        land_of[-1] = outbox
     ranks = _ranks(ring, queries, query_ids, blocks, carries, outs, qn,
                    dst_blk=[t[0] for t in land_of], dst_bids=[t[1] for t in land_of],
                    dst_scale=[t[2] for t in land_of], dst_bn=[t[3] for t in land_of],
@@ -412,10 +444,11 @@ def fused_round_dma(ring: RingTransport, queries, query_ids, blocks, carries,
 
 def fused_round_dma_reference(queries, query_ids, blocks, carries, landing,
                               *, c_tile, exclude_self=True, exclude_zero=True,
-                              zero_eps=0.0, precision=None):
+                              zero_eps=0.0, precision=None, outbox=None):
     """Plain PyTorch version of ``fused_round_dma`` (any device): K3a's
     plain merge for every rank (which reads neither norms nor planes), then
-    each rank's traveler copied into its successor's landing buffers."""
+    each rank's traveler copied into its successor's landing buffers (the
+    last rank's into ``outbox`` where one is given)."""
     blocks = [traveler(b) for b in blocks]
     out = [block_merge_exact_reference(
         queries[r], query_ids[r], *b[:3], *carries[r], c_tile=c_tile,
@@ -423,7 +456,8 @@ def fused_round_dma_reference(queries, query_ids, blocks, carries, landing,
         zero_eps=zero_eps, precision=precision) for r, b in enumerate(blocks)]
     P = len(blocks)
     for r in range(P):
-        for dst, src in zip(traveler(landing[(r + 1) % P]), blocks[r]):
+        land = outbox if outbox is not None and r == P - 1 else landing[(r + 1) % P]
+        for dst, src in zip(traveler(land), blocks[r]):
             if src is not None and dst is not None:
                 dst.copy_(src)
     return out

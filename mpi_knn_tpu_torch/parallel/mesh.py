@@ -3,13 +3,21 @@ ring rank (the JAX package's 1-D ``jax.sharding.Mesh``), and the 2-D
 (dp × ring) grid of them (``make_mesh2d``: queries shard over every
 device, each dp group runs its own ring over its replica of the corpus).
 
-The ring runs single-controller: one process holds every rank's
-shards and moves each block to the next rank's device. On CUDA the mesh
-takes the visible cards in order, and asking for more than are visible
-raises. On the CPU ``num_devices=P`` gives P logical ranks on the one CPU
-device, the counterpart of the JAX tests' virtual host mesh. A mesh may
-name one card several times; its ranks then share the card and no bytes
-move between them.
+In one process the ring runs single-controller: the process holds every
+rank's shards and moves each block to the next rank's device. On CUDA the
+mesh takes the visible cards in order, and asking for more than are
+visible raises. On the CPU ``num_devices=P`` gives P logical ranks on the
+one CPU device, the counterpart of the JAX tests' virtual host mesh. A
+mesh may name one card several times; its ranks then share the card and
+no bytes move between them.
+
+After ``parallel/distributed.init_multihost`` the mesh spans every
+process's ranks in process order (the JAX package's mesh over
+``jax.devices()``): ``num_devices`` counts each process's ranks (logical
+ranks on the CPU; on CUDA one, the process's one card: more is refused),
+and ``RingMesh.owners`` records the process that owns each
+rank. A process holds and drives only its own ranks; the devices it
+records for another process's ranks are that process's names for them.
 
 The in-kernel ring transport (``ring_fusion="fused"`` on cards: K4, K5)
 stores straight into the next card's memory, so it needs peer access
@@ -27,14 +35,35 @@ from mpi_knn_tpu_torch.device import DEFAULT_DEVICE
 
 
 class RingMesh(list):
-    """An ordered list of ``torch.device``s with the ring axis's name."""
+    """An ordered list of ``torch.device``s with the ring axis's name and,
+    across processes, the process that owns each rank (``owners``; None
+    in one process). Owners run in process order, each process's ranks
+    consecutive."""
 
-    def __init__(self, devices, axis_name: str = "ring"):
+    def __init__(self, devices, axis_name: str = "ring", owners=None):
         super().__init__(torch.device(d) for d in devices)
         if not self:
             raise ValueError("a ring mesh needs at least one device")
         self.axis_name = axis_name
         self.axis_names = (axis_name,)
+        self.owners = None if owners is None else [int(o) for o in owners]
+        if self.owners is not None and (
+                len(self.owners) != len(self)
+                or any(b not in (a, a + 1) for a, b in zip(self.owners, self.owners[1:]))
+                or self.owners[0] != 0):
+            raise ValueError(
+                f"ring owners {self.owners} must name, rank by rank, processes "
+                "0, 1, ... in order, each process's ranks consecutive")
+
+    def spans_processes(self) -> bool:
+        return self.owners is not None and len(set(self.owners)) > 1
+
+    def local_ranks(self, process_id: int) -> range:
+        """The ranks ``process_id`` owns (every rank in one process)."""
+        if self.owners is None:
+            return range(len(self))
+        mine = [r for r, o in enumerate(self.owners) if o == process_id]
+        return range(mine[0], mine[-1] + 1) if mine else range(0)
 
 
 class Mesh2D(list):
@@ -77,8 +106,14 @@ def make_ring_mesh(num_devices: Optional[int] = None, axis_name: str = "ring",
                    device=DEFAULT_DEVICE) -> RingMesh:
     """A mesh over the first ``num_devices`` of ``devices`` (default: the
     visible cards when ``device`` is CUDA, one CPU rank per requested rank
-    when it is the CPU)."""
+    when it is the CPU). In a pod of processes, and with ``devices`` not
+    given, every process's ranks in process order (see the module's
+    docstring)."""
+    from mpi_knn_tpu_torch.parallel import distributed
+
     kind = torch.device(device).type
+    if devices is None and distributed.process_count() > 1:
+        return _pod_mesh(num_devices, axis_name, kind)
     if devices is None:
         if kind == "cuda":
             devices = [torch.device("cuda", i)
@@ -93,6 +128,34 @@ def make_ring_mesh(num_devices: Optional[int] = None, axis_name: str = "ring",
             )
         devices = devices[:num_devices]
     return RingMesh(devices, axis_name)
+
+
+def _pod_mesh(num_devices, axis_name: str, kind: str) -> RingMesh:
+    """Every process's ranks: ``num_devices`` logical CPU ranks each, or
+    each process's one card."""
+    import torch.distributed as dist
+
+    from mpi_knn_tpu_torch.parallel import distributed
+
+    if kind == "cuda":
+        if num_devices not in (None, 1):
+            raise more_cards_a_process_error(num_devices)
+        mine = [distributed.pod().card]
+    else:
+        mine = [torch.device(kind)] * (num_devices or 1)
+    every = [None] * distributed.process_count()
+    dist.all_gather_object(every, [str(d) for d in mine])
+    devices = [d for ds in every for d in ds]
+    owners = [p for p, ds in enumerate(every) for _ in ds]
+    return RingMesh(devices, axis_name, owners=owners)
+
+
+def more_cards_a_process_error(num_devices) -> ValueError:
+    """The refusal of more than one card a process in a pod."""
+    return ValueError(
+        f"{num_devices} ranks a process on CUDA across processes are not "
+        "ported: a process drives one card (card process_id % device_count); "
+        "drop --devices or pass 1, and start one process a card")
 
 
 def make_mesh2d(dp: int, ring: int, dp_axis: str = "dp",

@@ -772,6 +772,12 @@ class ServeSession:
                  resilience: ResiliencePolicy | None = None,
                  device=DEFAULT_DEVICE, **overrides):
         _check_device(index, device)
+        if getattr(index, "spans_processes", False):
+            raise ValueError(
+                "serving a sharded clustered index that spans processes is "
+                "not ported (a session's batches, warm-up and ladder run in "
+                "one process); search it with search_ivf_sharded on every "
+                "process, or serve it in one process")
         self.index = index
         self.cfg = index.compatible_cfg(
             (config or index.cfg).replace(**overrides))

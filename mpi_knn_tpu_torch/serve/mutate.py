@@ -191,6 +191,12 @@ def _require_mutable(index) -> None:
             "the pallas kernel masks by row count, not ids — serve "
             "mutable corpora from the serial, ivf, or ivf-sharded layouts"
         )
+    if getattr(index, "spans_processes", False):
+        raise ValueError(
+            "a sharded clustered store that spans processes cannot honor "
+            "live mutation in this port (each process holds one slice, and "
+            "a mutation would have to reach every process's freelist in "
+            "one order); mutate it unsharded, or in one process")
     if getattr(index, "shard_store", None) is not None:
         raise ValueError(
             "a sharded clustered store spread over distinct cards cannot "

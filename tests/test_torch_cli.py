@@ -8,6 +8,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 import mpi_knn_tpu as jax_pkg
 from mpi_knn_tpu.data.synthetic import make_blobs
@@ -322,12 +323,129 @@ def test_unported_subcommands_exit_2_by_name(sub, capsys):
     assert f"'{sub}'" in err and "not yet ported to mpi_knn_tpu_torch" in err
 
 
-@pytest.mark.parametrize("flag", port_cli.UNPORTED_FLAGS)
-def test_multi_process_flags_exit_2_by_name(flag, capsys):
-    assert port_cli.main(["--data", "synthetic:64x8c2", "--device", "cpu",
-                          flag, "1"]) == 2
-    err = capsys.readouterr().err
-    assert flag in err and "not yet ported to mpi_knn_tpu_torch" in err
+def test_process_id_alone_is_refused_in_the_reference_words(monkeypatch):
+    for name in ("JAX_COORDINATOR_ADDRESS", "JAX_NUM_PROCESSES"):
+        monkeypatch.delenv(name, raising=False)
+    argv = ["--data", "synthetic:64x8c2", "--device", "cpu", "--process-id", "1"]
+    with pytest.raises(SystemExit) as port:
+        port_cli.main(argv)
+    with pytest.raises(SystemExit) as ref:
+        jax_cli.main(argv[:2] + argv[4:])
+    assert str(port.value) == str(ref.value)
+    assert "refusing to silently run single-host" in str(port.value)
+
+
+def test_cuda_pod_with_several_cards_a_process_is_refused_by_name(monkeypatch):
+    """``--devices`` > 1 on CUDA in a pod exits before the process joins:
+    a process drives one card."""
+    for name in ("JAX_COORDINATOR_ADDRESS", "JAX_NUM_PROCESSES", "JAX_PROCESS_ID"):
+        monkeypatch.delenv(name, raising=False)
+    with pytest.raises(SystemExit) as e:
+        port_cli.main(["--data", "synthetic:64x8c2", "--devices", "2",
+                       "--coordinator", "127.0.0.1:1", "--num-processes", "2",
+                       "--process-id", "0"])
+    assert "a process drives one card" in str(e.value)
+    assert "2 ranks a process on CUDA across processes" in str(e.value)
+
+
+_RUN_ARGV = ["--data", "synthetic:256x16c4", "--k", "5", "--loo",
+             "--backend", "ring-overlap", "--corpus-tile", "32"]
+_POD_ARGV = [*_RUN_ARGV, "--device", "cpu", "--devices", "4"]
+
+
+def _cli_pod(tmp_path, extra, name):
+    """The run CLI in two processes against one local coordinator, "{pid}"
+    in ``extra`` naming the process; returns each process's (report, saved
+    neighbors, output)."""
+    import os
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        addr = f"127.0.0.1:{s.getsockname()[1]}"
+    env = {k: v for k, v in os.environ.items() if not k.startswith("JAX_")}
+    env["OMP_NUM_THREADS"] = "1"
+    procs = []
+    for pid in range(2):
+        argv = [*_POD_ARGV, *(a.format(pid=pid) for a in extra),
+                "--coordinator", addr, "--num-processes",
+                "2", "--process-id", str(pid), "--report",
+                str(tmp_path / f"{name}-{pid}.json"), "--save-neighbors",
+                str(tmp_path / f"{name}-{pid}.npz")]
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "mpi_knn_tpu_torch", *argv], cwd=REPO,
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    try:
+        outs = [p.communicate(timeout=120)[0] for p in procs]
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            p.kill()
+        pytest.fail("the CLI pod hung:\n" + "\n".join(p.communicate()[0] or ""
+                                                        for p in procs))
+    for p, out in zip(procs, outs):
+        assert p.returncode == 0, out
+    return [(json.loads((tmp_path / f"{name}-{pid}.json").read_text()),
+             np.load(tmp_path / f"{name}-{pid}.npz"), outs[pid])
+            for pid in range(2)]
+
+
+def test_two_process_run_gives_the_jax_cli_ids(tmp_path):
+    """Two processes of 4 logical ranks each (an 8-rank ring) with a
+    checkpoint directory each: every process's report carries the start-up
+    info and its saved ids are the JAX CLI's single-process run's; only
+    process 0 writes a checkpoint."""
+    got = _cli_pod(tmp_path, ["--checkpoint-dir", str(tmp_path / "ck{pid}"), "-q"],
+                   "a")
+    ref, one = tmp_path / "ref", tmp_path / "one"
+    assert jax_cli.main([*_RUN_ARGV, "--devices", "4", "--save-neighbors",
+                         str(ref)]) == 0
+    want = np.load(str(ref) + ".npz")
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)  # as the pod's processes run
+    try:
+        assert port_cli.main([*_RUN_ARGV, "--device", "cpu", "--devices", "8",
+                              "--save-neighbors", str(one)]) == 0
+    finally:
+        torch.set_num_threads(threads)
+    single = np.load(str(one) + ".npz")
+    for pid, (report, nn, _) in enumerate(got):
+        dist = report["notes"]["distributed"]
+        assert (dist["process_id"], dist["num_processes"]) == (pid, 2)
+        assert dist["backend"] == "gloo" and dist["devices"] == 2
+        assert report["backend"] == "ring-overlap"
+        assert report["config"]["num_processes"] == 2
+        assert "gather" in report["phase_seconds"]
+        assert np.array_equal(nn["ids"], want["ids"])
+        # bit for bit the port's single-process run over the same 8 ranks
+        assert np.array_equal(nn["ids"], single["ids"])
+        assert np.array_equal(nn["dists"], single["dists"])
+    assert (tmp_path / "ck0" / "knn_state.npz").exists()
+    assert not (tmp_path / "ck1" / "knn_state.npz").exists()
+
+
+def test_two_process_run_killed_and_resumed(tmp_path):
+    """The same pod stopped after 3 of 8 rounds into process 0's
+    checkpoint directory (process 1's stays empty), then run again by the
+    CLI: both processes resume at round 3 from process 0's broadcast and
+    save the uninterrupted run's ids."""
+    from mpi_knn_tpu_torch.backends.ring_resumable import all_knn_ring_resumable
+    from mpi_knn_tpu_torch.cli import build_parser, config_from_args, load_corpus
+    from mpi_knn_tpu_torch.parallel.mesh import make_ring_mesh
+
+    # the pod's config (4 ranks a process) over its 8-rank ring
+    cfg = config_from_args(build_parser().parse_args(_POD_ARGV))
+    X, _, _ = load_corpus("synthetic:256x16c4")
+    all_knn_ring_resumable(X, X, np.arange(256, dtype=np.int32), cfg,
+                           mesh=make_ring_mesh(8, device="cpu"),
+                           checkpoint_dir=tmp_path / "ck0",
+                           stop_after_rounds=3, device="cpu")
+    got = _cli_pod(tmp_path, ["--checkpoint-dir", str(tmp_path / "ck{pid}"), "-v"],
+                   "b")
+    whole = _cli_pod(tmp_path, ["-q"], "c")
+    for (report, nn, out), (_, w, _) in zip(got, whole):
+        assert "resuming ring at round 3/8" in out
+        assert np.array_equal(nn["ids"], w["ids"])
+        assert np.array_equal(nn["dists"], w["dists"])
 
 
 def test_missing_data_file_is_named():

@@ -14,6 +14,8 @@ each exact prologue's norms must equal its tile's own diagonal: K1/K2's
 the mma.sync tile's.
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -2222,3 +2224,93 @@ def test_mesh2d_on_one_card_is_each_groups_1d_ring(cuda_device, extra, form):
                                           ring_fused_rotation="round"),
                    device=cuda_device)
     assert (got.ids == want.ids).float().mean().item() >= 0.999
+
+
+def _mp_recall(X):
+    """recall@10 against the serial backend's ids on 256 rows, as the
+    smoke's ``recall`` reads it."""
+    from mpi_knn_tpu_torch import all_knn
+
+    want = all_knn(X, k=10, backend="serial", device="cpu").ids.numpy()
+    sample = np.linspace(0, len(X) - 1, 256, dtype=np.int64)
+
+    def recall(ids):
+        got = ids[torch.as_tensor(sample)].cpu().numpy()
+        return float((want[sample][:, :, None] == got[:, None, :]).any(-1).mean())
+
+    return recall
+
+
+@pytest.mark.cuda
+def test_multiproc_on_one_card_is_the_single_process_ring(cuda_device):
+    """The smoke's multiproc phase at a small size: two processes on the
+    one card (gloo, the boundary's blocks through host memory), each form
+    and the resumed ring bit for bit the single-process P = 2 ring, process
+    0's checkpoint deciding the resume, K4 once a round a process."""
+    import chip_smoke
+    from mpi_knn_tpu_torch.data.synthetic import make_mnist_like
+    from mpi_knn_tpu_torch.ops import _build
+
+    _build.build_all()  # the workers load what this process built
+    X, _ = make_mnist_like(4096)
+    launches = chip_smoke.multiproc_phase(torch.device("cuda", 0), X, _mp_recall(X))
+    assert launches["fused_round_dma"] == 2 + 1  # the one-shot, the stopped run
+    assert launches["fused_block_merge[exact]"] == 2 + 1  # bidir, the last round
+
+
+@pytest.mark.cuda
+def test_multiproc_across_cards_equals_the_single_process_ring(cuda_device, tmp_path):
+    """Four processes, one card each (NCCL moves the boundary's blocks): the
+    fused-dma, bidir and resumable rings bit for bit the single-process
+    4-card ring (K4's in-kernel peer stores), and the sharded clustered
+    index over four processes bit for bit the one-process distinct-card
+    layout. Skips below four cards."""
+    import chip_smoke
+    from mpi_knn_tpu_torch import KNNConfig, all_knn
+    from mpi_knn_tpu_torch.data.synthetic import make_mnist_like
+    from mpi_knn_tpu_torch.ivf import (
+        build_ivf_index,
+        save_ivf_index,
+        search_ivf_sharded,
+        shard_ivf_index,
+    )
+    from mpi_knn_tpu_torch.ops import _build
+
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four cards")
+    _build.build_all()
+    cards = [torch.device("cuda", c) for c in range(4)]
+    m = 8192
+    X, _ = make_mnist_like(m)
+    Xd = torch.from_numpy(X).to(cards[0])
+    single = {}
+    for label, over in chip_smoke.MP_FORMS:
+        one = all_knn(Xd, config=KNNConfig(k=10, backend="ring-overlap", **over),
+                      mesh=cards, device=cards[0])
+        single[label] = (one.ids.cpu().numpy(), one.dists.cpu().numpy())
+    single[chip_smoke.MP_RESUMABLE] = single["fused-dma/K4"]
+    idx = build_ivf_index(X, KNNConfig(k=10, partitions=30, nprobe=3,
+                                       query_tile=128), device=cards[0])
+    Q = X[:768] + np.float32(0.01)
+    save_ivf_index(idx, str(tmp_path / "index.npz"))
+    np.save(tmp_path / "queries.npy", Q)
+    wd, wi, wstats = search_ivf_sharded(shard_ivf_index(idx, mesh=cards), Q,
+                                        device=cards[0])
+    # one host: NCCL's bootstrap on the loopback interface
+    env = {"MP_STOP": "2", "MP_IVF": "1",
+           "NCCL_SOCKET_IFNAME": os.environ.get("NCCL_SOCKET_IFNAME", "lo")}
+    got = chip_smoke.multiproc_pod(str(tmp_path), m, 4, env=env)
+    for doc, arrays, _ in got:
+        assert doc["info"]["backend"] == "nccl+gloo", doc["info"]
+        for label, (ids, dists) in single.items():
+            assert np.array_equal(arrays[f"{label}/ids"], ids), label
+            assert np.array_equal(arrays[f"{label}/dists"], dists), label
+        res = doc["forms"][chip_smoke.MP_RESUMABLE]
+        assert res["rounds_resumed"] == [3, 4]
+        assert doc["forms"]["fused-dma/K4"]["launches"]["fused_round_dma"] == 4
+        assert np.array_equal(arrays["ivf/ids"], wi.cpu().numpy())
+        assert np.array_equal(arrays["ivf/dists"], wd.cpu().numpy())
+        assert np.array_equal(arrays["ivf/stats"], wstats.cpu().numpy())
+    assert (tmp_path / "ck-proc0" / "knn_state.npz").exists()
+    assert not any((tmp_path / f"ck-proc{p}" / "knn_state.npz").exists()
+                   for p in (1, 2, 3))
