@@ -2,6 +2,7 @@
 """On-card smoke test of the PyTorch/CUDA port (mpi_knn_tpu_torch).
 
     python3 chip_smoke.py        # needs one CUDA card; builds csrc/ with nvcc
+    python3 chip_smoke.py --multiproc-cards   # four cards: the 2 x 2 pod timed
 
 Phases, each printing one JSON line; any failure raises, so the exit code
 is not 0:
@@ -233,7 +234,20 @@ is not 0:
    K4); the device-input ms a process beside the single process's, the
    boundary's bytes and ms an exchange (its D2H and H2D copies' shares),
    the gather's ms and the process group's start-up seconds;
-   every worker must exit 0 within its timeout;
+   every worker must exit 0 within its timeout. The same pod's processes
+   also drive two ranks each (``multiproc_ranks_gates``: cuda:0 named
+   twice in each process, a P=4 ring): fused-dma K4 (in-kernel stores
+   between a process's own ranks, the outbox at the boundary), bidir K3a,
+   Tensor.to with the xla merge, the grid form K5 (one launch a process;
+   the boundary's block streamed into the next process's landing slot
+   over CUDA IPC, so the process group moves none), the resumable
+   fused-dma ring stopped after 1 round and resumed, and --dp 2 over the
+   same four ranks (fused-dma and grid, each group inside one process):
+   each bit for bit the single-process P=4 ring on [cuda:0]*4 (--dp: the
+   single-process 2x2 mesh), recall@10 >= 0.999, each process's launches
+   (K4 and K5 as the single process's, per-rank kernels and --dp half),
+   the boundary's moves, and K5's ms a process beside the single
+   process's, within a quarter of its waits' bound;
 18. kernels: one line with every kernel mode's launches, error, times and
    bound, the prologues (`stage_tf32_split`, `stage_tf32[wire]`,
    `stage_tf32_split[ring]`, `stage_bf16`, `stage_bf16[wire]`,
@@ -3393,6 +3407,24 @@ def stream_busy_ms(events, plane) -> tuple[float, float]:
     return total / 1e9, union / 1e9
 
 
+def stream_overlaps(events, plane, limit: int = 5) -> list:
+    """Up to ``limit`` pairs of the ``plane``'s events that overlap on one
+    stream: (stream, earlier name, its [start, end) ps, later name, its
+    [start, end) ps), what the double-count gate names when it fails."""
+    lines = {}
+    for e in events:
+        if e["plane"] == plane and e["dur_ps"]:
+            lines.setdefault(e["line"], []).append(
+                (e["start_ps"], e["start_ps"] + e["dur_ps"], e["name"]))
+    found = []
+    for line, iv in lines.items():
+        iv.sort()
+        for (a0, a1, an), (b0, b1, bn) in zip(iv, iv[1:]):
+            if b0 < a1 and len(found) < limit:
+                found.append((line, an, (a0, a1), bn, (b0, b1)))
+    return found
+
+
 def profile_window(name, out) -> dict:
     """Gate one profiled window's report (``ServeSession.profile``'s, or
     ``attribute_trace`` beside the counters' increments): the trace's
@@ -3442,7 +3474,8 @@ def profile_window(name, out) -> dict:
     if summed - union > 1e-9 or abs(busy - union) > rounding:
         raise AssertionError(
             f"profile {name}: device time counted twice: busy_total_ms {busy}, "
-            f"events {summed} ms, their union per stream {union} ms")
+            f"events {summed} ms, their union per stream {union} ms; overlapping "
+            f"on one stream: {stream_overlaps(events, out.get('plane'))}")
     if busy > out["wall_ms"]:
         raise AssertionError(f"profile {name}: busy_total_ms {busy} exceeds the "
                              f"window's wall {out['wall_ms']} ms")
@@ -3805,48 +3838,79 @@ MP_RESUMABLE = "resumable/fused-dma"
 MP_EXCHANGES = {"fused-dma/K4": MP_PROCESSES - 1,
                 "fused/bidir/K3a": 2 * (MP_PROCESSES // 2),
                 "ring-overlap/xla": MP_PROCESSES - 1}
-# kernels launched once a card (K4), the rest once a rank
-MP_PER_CARD = ("fused_round_dma",)
+# kernels launched once a card (K4 a round, K5 a rotation), the rest once
+# a rank
+MP_PER_CARD = ("fused_round_dma", "fused_rotation_grid")
+# the pod with several ranks a process: MP_RANKS ranks in each of the
+# MP_PROCESSES processes (on the one card: cuda:0 named MP_RANKS times in
+# each), the forms of MP_FORMS and the grid form (K5 across the processes
+# over CUDA IPC), the resumable ring, and --dp 2 over the same ranks
+MP_RANKS = 2
+MP_P = MP_PROCESSES * MP_RANKS
+MP_RANK_FORMS = MP_FORMS + (
+    ("fused-grid/K5", {"ring_fusion": "fused", "ring_fused_rotation": "grid"}),)
+MP_DP = 2
+MP_DP_FORMS = (
+    ("dp2/fused-dma/K4", {"ring_fusion": "fused"}),
+    ("dp2/fused-grid/K5", {"ring_fusion": "fused", "ring_fused_rotation": "grid"}),
+)
+# a process's boundary moves at P = MP_P: every round but the last (each
+# way under bidir); none for K5 (in-kernel, over IPC) and none where each
+# dp group lies inside one process
+MP_RANK_EXCHANGES = {"fused-dma/K4": MP_P - 1,
+                     "fused/bidir/K3a": 2 * (MP_P // 2),
+                     "ring-overlap/xla": MP_P - 1, "fused-grid/K5": 0,
+                     "dp2/fused-dma/K4": 0, "dp2/fused-grid/K5": 0}
+# the resumable ring at P = MP_P stopped after one round, then resumed:
+# rounds 2 .. P-1 one K4 launch each (one card), the last K3a once a rank
+MP_RANK_RESUMABLE = {
+    "stopped": {"fused_round_dma": 1, "stage_tf32_split[ring]": 2 * MP_RANKS},
+    "resumed": {"fused_round_dma": MP_P - 2, "fused_block_merge[exact]": MP_RANKS,
+                "stage_tf32_split[ring]": 2 * MP_RANKS}}
 
 
 def multiproc_worker() -> int:
     """One process of the multiproc phase's pod (``python chip_smoke.py
     --multiproc-worker``): joins the process group from the launch
     environment (``JAX_COORDINATOR_ADDRESS``, ``JAX_NUM_PROCESSES``,
-    ``JAX_PROCESS_ID``), builds ``make_mnist_like(MP_M)`` on its card and
-    drives every form of MP_FORMS, then the resumable ring stopped after
-    ``MP_STOP`` rounds into its own checkpoint directory and resumed, over
-    the mesh of every process's card. With ``MP_IVF`` it also searches the
-    saved clustered index in ``MP_DIR`` sharded one shard a process.
-    Writes ``worker-<id>.json`` (launches, ms, the boundary's bytes and
-    seconds, rounds) and ``worker-<id>.npz`` (the results) into
-    ``MP_DIR``."""
+    ``JAX_PROCESS_ID``) with ``MP_RANKS`` ranks (env, default 1), builds
+    ``make_mnist_like(MP_M)`` on its first card and drives every form of
+    MP_FORMS, then the resumable ring stopped after ``MP_STOP`` rounds
+    into its own checkpoint directory and resumed, over the mesh of one
+    rank a process. With more ranks a process it also drives MP_RANK_FORMS
+    and the resumable ring (stopped after 1 round) over the mesh of every
+    rank, and MP_DP_FORMS on the --dp 2 grid over the same ranks. With
+    ``MP_IVF`` it also searches the saved clustered index in ``MP_DIR``
+    sharded one shard a process. Writes ``worker-<id>.json`` (launches,
+    ms, the boundary's bytes and seconds, rounds) and ``worker-<id>.npz``
+    (the results) into ``MP_DIR``."""
     import torch
 
     from mpi_knn_tpu_torch import KNNConfig, all_knn
     from mpi_knn_tpu_torch.backends.ring_resumable import all_knn_ring_resumable
     from mpi_knn_tpu_torch.data.synthetic import make_mnist_like
     from mpi_knn_tpu_torch.parallel import distributed
-    from mpi_knn_tpu_torch.parallel.mesh import make_ring_mesh
+    from mpi_knn_tpu_torch.parallel.mesh import make_mesh2d, make_ring_mesh
 
     out_dir, m = os.environ["MP_DIR"], int(os.environ["MP_M"])
     stop = int(os.environ.get("MP_STOP", "1"))
+    ranks = int(os.environ.get("MP_RANKS", "1"))
     # "cpu" rehearses the pod on the kernels' plain versions
     info = distributed.init_multihost(timeout_seconds=120,
-                                      device=os.environ.get("MP_DEVICE", "cuda"))
+                                      device=os.environ.get("MP_DEVICE", "cuda"),
+                                      local_devices=ranks)
     pid = info["process_id"]
     dev = distributed.pod().card
 
     def sync():
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
+        for c in dict.fromkeys(distributed.pod().cards):
+            if c.type == "cuda":
+                torch.cuda.synchronize(c)
 
-    res, arrays = {"info": info, "forms": {}}, {}
-    try:
-        X, _ = make_mnist_like(m)
-        Xd = torch.from_numpy(X).to(dev)
-        mesh = make_ring_mesh(device=dev)
-        for label, over in MP_FORMS:
+    res, arrays = {"info": info, "forms": {}, "ranks": {}}, {}
+
+    def forms(Xd, mesh, table, into, prefix=""):
+        for label, over in table:
             cfg = KNNConfig(k=K, backend="ring-overlap", **over)
             reset_counts()
             got = all_knn(Xd, config=cfg, mesh=mesh, device=dev)
@@ -3857,15 +3921,18 @@ def multiproc_worker() -> int:
             all_knn(Xd, config=cfg, mesh=mesh, device=dev)
             sync()
             ms = 1e3 * (time.perf_counter() - t0)
-            res["forms"][label] = {
+            into[label] = {
                 "launches": counts, "device_input_ms": ms,
                 "gather_ms": 1e3 * distributed.pod().gather_seconds,
                 "boundary": dict(distributed.EXCHANGES)}
-            arrays[f"{label}/ids"] = got.ids.cpu().numpy()
-            arrays[f"{label}/dists"] = got.dists.cpu().numpy()
+            arrays[f"{prefix}{label}/ids"] = got.ids.cpu().numpy()
+            arrays[f"{prefix}{label}/dists"] = got.dists.cpu().numpy()
+
+    def resumable(Xd, mesh, stop, into, prefix=""):
         cfg = KNNConfig(k=K, backend="ring-overlap", ring_fusion="fused")
         qids = np.arange(m, dtype=np.int32)
-        ck = os.path.join(out_dir, f"ck-proc{pid}")  # per process: not shared
+        ck = os.path.join(out_dir, f"ck-{prefix.strip('/')}-proc{pid}" if prefix
+                          else f"ck-proc{pid}")
         rounds, rounds2 = [], []
         reset_counts()
         all_knn_ring_resumable(Xd, Xd, qids, cfg, mesh=mesh, checkpoint_dir=ck,
@@ -3879,12 +3946,26 @@ def multiproc_worker() -> int:
                                       checkpoint_dir=ck, device=dev,
                                       progress_cb=lambda r, t: rounds2.append(r))
         sync()
-        res["forms"][MP_RESUMABLE] = {
+        into[MP_RESUMABLE] = {
             "launches_stopped": first, "rounds_stopped": rounds,
             "launches": {n: c for n, c in read_counts().items() if c},
             "rounds_resumed": rounds2, "wrote_checkpoint": wrote}
-        arrays[f"{MP_RESUMABLE}/ids"] = i.cpu().numpy()
-        arrays[f"{MP_RESUMABLE}/dists"] = d.cpu().numpy()
+        arrays[f"{prefix}{MP_RESUMABLE}/ids"] = i.cpu().numpy()
+        arrays[f"{prefix}{MP_RESUMABLE}/dists"] = d.cpu().numpy()
+
+    try:
+        X, _ = make_mnist_like(m)
+        Xd = torch.from_numpy(X).to(dev)
+        mesh = make_ring_mesh(1, device=dev)
+        forms(Xd, mesh, MP_FORMS, res["forms"])
+        resumable(Xd, mesh, stop, res["forms"])
+        if ranks > 1:
+            mesh = make_ring_mesh(ranks, device=dev)
+            forms(Xd, mesh, MP_RANK_FORMS, res["ranks"], "ranks/")
+            resumable(Xd, mesh, 1, res["ranks"], "ranks/")
+            grid = make_mesh2d(MP_DP, ranks * info["num_processes"] // MP_DP,
+                               device=dev)
+            forms(Xd, grid, MP_DP_FORMS, res["ranks"], "ranks/")
         if os.environ.get("MP_IVF"):
             from mpi_knn_tpu_torch.ivf import (
                 load_ivf_index,
@@ -3894,7 +3975,7 @@ def multiproc_worker() -> int:
 
             idx = load_ivf_index(os.path.join(out_dir, "index.npz"), device=dev)
             Q = np.load(os.path.join(out_dir, "queries.npy"))
-            sidx = shard_ivf_index(idx, mesh=mesh)
+            sidx = shard_ivf_index(idx, mesh=make_ring_mesh(1, device=dev))
             sd, si, stats = search_ivf_sharded(sidx, Q, device=dev)
             arrays["ivf/ids"], arrays["ivf/dists"] = si.cpu().numpy(), sd.cpu().numpy()
             arrays["ivf/stats"] = stats.cpu().numpy()
@@ -3958,7 +4039,31 @@ def multiproc_pod(out_dir: str, m: int, processes: int, env=None) -> list:
     return got
 
 
-def multiproc_phase(device, X, recall) -> dict:
+def _single_forms(device, Xd, mesh, table) -> dict:
+    """Each form of ``table`` on ``mesh`` in this process: label -> (ids,
+    dists, launches, device-input ms of a second run)."""
+    import torch
+
+    from mpi_knn_tpu_torch import KNNConfig, all_knn
+
+    out = {}
+    for label, over in table:
+        cfg = KNNConfig(k=K, backend="ring-overlap", **over)
+        reset_counts()
+        one = all_knn(Xd, config=cfg, mesh=mesh, device=device)
+        sync_all()
+        counts = {n: c for n, c in read_counts().items() if c}
+        t0 = time.perf_counter()
+        all_knn(Xd, config=cfg, mesh=mesh, device=device)
+        sync_all()
+        out[label] = (one.ids.cpu().numpy(), one.dists.cpu().numpy(), counts,
+                      1e3 * (time.perf_counter() - t0))
+    del one
+    torch.cuda.empty_cache()
+    return out
+
+
+def multiproc_phase(device, X, recall, ranks: int = 1):
     """The main shape through MP_PROCESSES processes on the one card: a
     global ring of one rank a process (gloo, the boundary's blocks staged
     through host memory), each form of MP_FORMS and the resumable
@@ -3969,102 +4074,161 @@ def multiproc_phase(device, X, recall) -> dict:
     RECALL_GATE, the resumed rounds [2] with only process 0's directory
     holding a file, each process's launches: K4 the single process's
     (one card either way), every per-rank kernel half of it, and each
-    form's boundary moves MP_EXCHANGES. Returns the launches of process 0
-    by kernel, summed over the forms."""
+    form's boundary moves MP_EXCHANGES. With ``ranks`` > 1 the same pod
+    also drives ``ranks`` ranks a process (:func:`multiproc_ranks_gates`).
+    Returns the launches of process 0 by kernel, summed over the forms, of
+    the one-rank pod and of the pod of ``ranks`` ranks a process."""
     import torch
-
-    from mpi_knn_tpu_torch import KNNConfig, all_knn
 
     t_phase = time.perf_counter()
     m = X.shape[0]
     Xd = torch.from_numpy(X).to(device)
-    mesh = [device] * MP_PROCESSES
-    single = {}
-    for label, over in MP_FORMS:
-        cfg = KNNConfig(k=K, backend="ring-overlap", **over)
-        reset_counts()
-        one = all_knn(Xd, config=cfg, mesh=mesh, device=device)
-        sync_all()
-        counts = {n: c for n, c in read_counts().items() if c}
-        t0 = time.perf_counter()
-        all_knn(Xd, config=cfg, mesh=mesh, device=device)
-        sync_all()
-        single[label] = (one.ids.cpu().numpy(), one.dists.cpu().numpy(), counts,
-                         1e3 * (time.perf_counter() - t0))
+    single = _single_forms(device, Xd, [device] * MP_PROCESSES, MP_FORMS)
     single[MP_RESUMABLE] = single["fused-dma/K4"]
+    single_ranks = {}
+    if ranks > 1:
+        from mpi_knn_tpu_torch.parallel.mesh import make_mesh2d
+
+        P = MP_PROCESSES * ranks
+        single_ranks = _single_forms(device, Xd, [device] * P, MP_RANK_FORMS)
+        single_ranks[MP_RESUMABLE] = single_ranks["fused-dma/K4"]
+        single_ranks.update(_single_forms(
+            device, Xd, make_mesh2d(MP_DP, P // MP_DP, devices=[device] * P),
+            MP_DP_FORMS))
     del Xd
     torch.cuda.empty_cache()
     tmp = tempfile.mkdtemp(prefix="tknn-mp-")
+    t_pod = time.perf_counter()
     try:
-        got = multiproc_pod(tmp, m, MP_PROCESSES)
+        got = multiproc_pod(tmp, m, MP_PROCESSES, env={"MP_RANKS": str(ranks)})
         dirs = [os.path.exists(os.path.join(tmp, f"ck-proc{p}", "knn_state.npz"))
                 for p in range(MP_PROCESSES)]
+        rank_dirs = [os.path.exists(os.path.join(tmp, f"ck-ranks-proc{p}",
+                                                 "knn_state.npz"))
+                     for p in range(MP_PROCESSES)]
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    pod_seconds = time.perf_counter() - t_pod
     infos = [doc["info"] for doc, _, _ in got]
     emit({"phase": "multiproc_startup", "processes": MP_PROCESSES,
-          "backend": infos[0]["backend"], "cards": [i["card"] for i in infos],
+          "ranks_a_process": ranks, "backend": infos[0]["backend"],
+          "cards": [i["cards"] for i in infos],
           "startup_seconds": [i["startup_seconds"] for i in infos],
-          "worker_exit_seconds": [e for _, _, e in got]})
+          "worker_exit_seconds": [e for _, _, e in got], "pod_seconds": pod_seconds})
     if infos[0]["backend"] != "gloo":
         raise AssertionError(f"processes sharing one card must take gloo: {infos[0]}")
+    totals = _multiproc_gates(got, single, recall, "forms", "", MP_PROCESSES,
+                              MP_EXCHANGES, dirs)
+    rank_totals = {}
+    if ranks > 1:
+        rank_totals = multiproc_ranks_gates(got, single_ranks, recall, ranks,
+                                            rank_dirs)
+    emit({"phase": "multiproc_done", "seconds": time.perf_counter() - t_phase})
+    return totals, rank_totals
+
+
+def _multiproc_gates(got, single, recall, key, prefix, P, exchanges, dirs,
+                     resumable_counts=None, phase="multiproc", ranks=1) -> dict:
+    """The gates of one ring of the pod (``key`` in each worker's json,
+    ``prefix`` of its arrays) against the single-process runs ``single``
+    over the same P ranks; emits a line a form. Returns process 0's
+    launches by kernel, summed over the forms."""
+    import torch
+
+    m = len(got[0][1][f"{prefix}{MP_RESUMABLE}/ids"])
     totals = {}
-    for label in [f for f, _ in MP_FORMS] + [MP_RESUMABLE]:
+    for label in single:
         wi, wd, wcounts, wms = single[label]
-        per = [doc["forms"][label] for doc, _, _ in got]
-        equal = all(np.array_equal(a[f"{label}/ids"], wi)
-                    and np.array_equal(a[f"{label}/dists"], wd) for _, a, _ in got)
-        rec = recall(torch.from_numpy(got[0][1][f"{label}/ids"]))
-        line = {"phase": "multiproc", "path": label, "m": m, "k": K,
-                "processes": MP_PROCESSES, "ring": MP_PROCESSES,
-                "bit_equal_single_process_p2": equal, "recall_at_10": rec,
+        per = [doc[key][label] for doc, _, _ in got]
+        equal = all(np.array_equal(a[f"{prefix}{label}/ids"], wi)
+                    and np.array_equal(a[f"{prefix}{label}/dists"], wd)
+                    for _, a, _ in got)
+        rec = recall(torch.from_numpy(got[0][1][f"{prefix}{label}/ids"]))
+        line = {"phase": phase, "path": label, "m": m, "k": K,
+                "processes": MP_PROCESSES, "ranks_a_process": ranks, "ring": P,
+                f"bit_equal_single_process_p{P}": equal, "recall_at_10": rec,
                 "launches": [f["launches"] for f in per],
-                "single_process_p2_launches": wcounts,
-                "finite": bool(np.isfinite(got[0][1][f"{label}/dists"]).all())}
+                f"single_process_p{P}_launches": wcounts,
+                "finite": bool(np.isfinite(got[0][1][f"{prefix}{label}/dists"]).all())}
         if label == MP_RESUMABLE:
-            want_counts = {"fused_round_dma": 1, "stage_tf32_split[ring]": 2}
+            want_stop, want = resumable_counts or (
+                {"fused_round_dma": 1, "stage_tf32_split[ring]": 2},
+                {"fused_block_merge[exact]": 1, "stage_tf32_split[ring]": 2})
             line.update(rounds_stopped=[f["rounds_stopped"] for f in per],
                         rounds_resumed=[f["rounds_resumed"] for f in per],
                         launches_stopped=[f["launches_stopped"] for f in per],
                         checkpoint_files=dirs)
-            schedule_ok = (all(f["rounds_resumed"] == [2] for f in per)
-                          and dirs == [True] + [False] * (MP_PROCESSES - 1)
-                          and all(f["launches_stopped"] == want_counts for f in per))
-            want = {"fused_block_merge[exact]": 1, "stage_tf32_split[ring]": 2}
+            schedule_ok = (all(f["rounds_resumed"] == list(range(2, P + 1))
+                               for f in per)
+                           and dirs == [True] + [False] * (MP_PROCESSES - 1)
+                           and all(f["launches_stopped"] == want_stop for f in per))
         else:
             b = per[0]["boundary"]
             rounds = max(1, b["exchanges"])
             line.update(device_input_ms=[f["device_input_ms"] for f in per],
-                        single_process_p2_device_input_ms=wms,
+                        **{f"single_process_p{P}_device_input_ms": wms},
                         gather_ms=[f["gather_ms"] for f in per],
                         boundary_exchanges=b["exchanges"],
                         boundary_bytes_per_exchange=b["bytes_sent"] / rounds,
                         boundary_ms_per_exchange=1e3 * b["seconds"] / rounds,
                         boundary_d2h_ms_per_exchange=1e3 * b["d2h_seconds"] / rounds,
                         boundary_h2d_ms_per_exchange=1e3 * b["h2d_seconds"] / rounds)
-            schedule_ok = all(f["boundary"]["exchanges"] == MP_EXCHANGES[label]
-                             for f in per)
-            want = {n: c if n in MP_PER_CARD else c // MP_PROCESSES
+            schedule_ok = all(f["boundary"]["exchanges"] == exchanges[label]
+                              for f in per)
+            dp = label.startswith("dp")  # each process runs one dp group
+            want = {n: c if n in MP_PER_CARD and not dp else c // MP_PROCESSES
                     for n, c in wcounts.items()}
         emit(line)
         if not equal:
-            raise AssertionError(f"multiproc {label}: a process's result differs "
-                                 "from the single-process P=2 ring")
+            raise AssertionError(f"{phase} {label}: a process's result differs "
+                                 f"from the single-process P={P} run")
         if rec < RECALL_GATE or not line["finite"]:
-            raise AssertionError(f"multiproc {label}: recall@10 {rec} or non-finite")
+            raise AssertionError(f"{phase} {label}: recall@10 {rec} or non-finite")
         if not schedule_ok:
-            raise AssertionError(f"multiproc {label}: the resume is not process 0's, "
+            raise AssertionError(f"{phase} {label}: the resume is not process 0's, "
                                  f"or the boundary moved other than "
-                                 f"{MP_EXCHANGES.get(label)} times: {line}")
+                                 f"{exchanges.get(label)} times: {line}")
         if any(f["launches"] != want for f in per):
-            raise AssertionError(f"multiproc {label}: launches {line['launches']}, "
+            raise AssertionError(f"{phase} {label}: launches {line['launches']}, "
                                  f"expected {want} a process")
         for n, c in per[0]["launches"].items():
             totals[n] = totals.get(n, 0) + c
         if label == MP_RESUMABLE:
             for n, c in per[0]["launches_stopped"].items():
                 totals[n] = totals.get(n, 0) + c
-    emit({"phase": "multiproc_done", "seconds": time.perf_counter() - t_phase})
+    return totals
+
+
+def multiproc_ranks_gates(got, single, recall, ranks, dirs) -> dict:
+    """The pod of ``ranks`` ranks a process (2 × 2 on the one card: cuda:0
+    named twice in each process): fused-dma (K4's in-kernel stores between
+    a process's own ranks, the outbox at the boundary), bidir K3a,
+    Tensor.to with the xla merge, the grid form (K5, one launch a process,
+    the boundary over CUDA IPC: no block moved by the process group), the
+    resumable fused-dma ring stopped after 1 round and resumed from
+    process 0's checkpoint, and --dp 2 over the same ranks (each group
+    inside one process). Gates: every form bit for bit the single-process
+    P = processes × ranks ring on the one card (--dp: the single-process
+    2-D mesh), recall@10 >= RECALL_GATE, each process's launches (K4 and
+    K5 a card as the single process's, the per-rank kernels and every
+    --dp kernel half), the boundary moves MP_RANK_EXCHANGES; K5's waits
+    well inside their bound (its whole call a process under TIMEOUT_S / 4,
+    so no one wait comes near it).
+    Returns process 0's launches by kernel."""
+    from mpi_knn_tpu_torch.ops.fused_rotation import TIMEOUT_S
+
+    P = MP_PROCESSES * ranks
+    totals = _multiproc_gates(
+        got, single, recall, "ranks", "ranks/", P, MP_RANK_EXCHANGES, dirs,
+        resumable_counts=(MP_RANK_RESUMABLE["stopped"], MP_RANK_RESUMABLE["resumed"]),
+        phase="multiproc_ranks", ranks=ranks)
+    k5 = [doc["ranks"]["fused-grid/K5"]["device_input_ms"] for doc, _, _ in got]
+    emit({"phase": "multiproc_ranks_k5", "device_input_ms": k5,
+          "single_process_ms": single["fused-grid/K5"][3],
+          "wait_bound_s": TIMEOUT_S})
+    if max(k5) > 1e3 * TIMEOUT_S / 4:
+        raise AssertionError(f"K5 across processes took {k5} ms: its waits come "
+                             f"near their {TIMEOUT_S} s bound")
     return totals
 
 
@@ -5535,7 +5699,8 @@ def main() -> int:
     mesh2d_launches = mesh2d_phase(device, X, recall)
     mark("mesh2d")
     # ---- more than one process: the ring through a pod on the one card ---
-    multiproc_launches = multiproc_phase(device, X, recall)
+    multiproc_launches, multiproc_ranks_launches = multiproc_phase(
+        device, X, recall, ranks=MP_RANKS)
     mark("multiproc")
     frontend_launches = {n: fe_counts["a"].get(n, 0) + fe_counts["b"].get(n, 0)
                          for n in ("fused_knn_tiles", "stage_tf32_split",
@@ -5647,7 +5812,10 @@ def main() -> int:
             if name in mesh2d_launches else {}),
          # the multiproc phase's process 0 (each process's equal)
          **({"multiproc_launches": multiproc_launches[name]}
-            if name in multiproc_launches else {})}
+            if name in multiproc_launches else {}),
+         # the pod of MP_RANKS ranks a process (process 0's; each equal)
+         **({"multiproc_ranks_launches": multiproc_ranks_launches[name]}
+            if name in multiproc_ranks_launches else {})}
         for name in replaces
     ]})
     mark("kernels_line")
@@ -5658,7 +5826,77 @@ def main() -> int:
     return 0
 
 
+def multiproc_cards_main() -> int:
+    """``python3 chip_smoke.py --multiproc-cards``, on a host with four
+    cards: the main shape through the multiproc pod of two processes × two
+    cards (cards {0, 1} and {2, 3}: NCCL between the processes through each
+    one's first card, K4's peer stores inside each, K5 across the processes
+    over CUDA IPC between cards). Prints, per form, each process's
+    device-input ms beside the single-process run over the same cards
+    (P = 4 on cards 0-3, the 2×2 mesh for --dp 2, P = 2 on cards {0, 2}
+    for the one-rank ring) and the boundary's exchanges, bytes, ms and
+    bytes staged between a process's cards; fails unless every result is
+    bit for bit the single-process run's."""
+    import torch
+
+    from mpi_knn_tpu_torch.data.synthetic import make_mnist_like
+    from mpi_knn_tpu_torch.ops import _build
+    from mpi_knn_tpu_torch.parallel.mesh import make_mesh2d
+
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 4:
+        print("chip_smoke --multiproc-cards: needs four CUDA cards", file=sys.stderr)
+        return 2
+    print(nvidia_smi_line(), flush=True)
+    _build.build_all()
+    cards = [torch.device("cuda", c) for c in range(4)]
+    X, _ = make_mnist_like(M_FULL)
+    Xd = torch.from_numpy(X).to(cards[0])
+    single = {("forms", lab): v for lab, v in _single_forms(
+        cards[0], Xd, [cards[0], cards[2]], MP_FORMS).items()}
+    single.update({("ranks", lab): v for lab, v in _single_forms(
+        cards[0], Xd, cards, MP_RANK_FORMS).items()})
+    single.update({("ranks", lab): v for lab, v in _single_forms(
+        cards[0], Xd, make_mesh2d(MP_DP, 2, devices=cards), MP_DP_FORMS).items()})
+    del Xd
+    tmp = tempfile.mkdtemp(prefix="tknn-mpc-")
+    try:
+        got = multiproc_pod(tmp, M_FULL, MP_PROCESSES, env={
+            "MP_RANKS": "2",
+            "NCCL_SOCKET_IFNAME": os.environ.get("NCCL_SOCKET_IFNAME", "lo")})
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit({"phase": "multiproc_cards_startup", "infos": [doc["info"] for doc, _, _ in got]})
+    for (key, label), (wi, wd, wcounts, wms) in single.items():
+        prefix = "ranks/" if key == "ranks" else ""
+        per = [doc[key][label] for doc, _, _ in got]
+        equal = all(np.array_equal(a[f"{prefix}{label}/ids"], wi)
+                    and np.array_equal(a[f"{prefix}{label}/dists"], wd)
+                    for _, a, _ in got)
+        b = per[0]["boundary"]
+        n = max(1, b["exchanges"])
+        emit({"phase": "multiproc_cards", "ring": 2 if key == "forms" else 4,
+              "path": label, "bit_equal_single_process": equal,
+              "device_input_ms": [f["device_input_ms"] for f in per],
+              "single_process_device_input_ms": wms,
+              "gather_ms": [f["gather_ms"] for f in per],
+              "boundary_exchanges": b["exchanges"],
+              "boundary_bytes_per_exchange": b["bytes_sent"] / n,
+              "boundary_ms_per_exchange": 1e3 * b["seconds"] / n,
+              "boundary_hop_bytes": b["hop_bytes"],
+              "launches": [f["launches"] for f in per],
+              "single_process_launches": wcounts})
+        if not equal:
+            raise AssertionError(f"multiproc_cards {label}: a process's result "
+                                 "differs from the single-process run")
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
 if __name__ == "__main__":
     if sys.argv[1:] == ["--multiproc-worker"]:
         sys.exit(multiproc_worker())
+    if sys.argv[1:] == ["--multiproc-cards"]:
+        sys.exit(multiproc_cards_main())
     sys.exit(main())

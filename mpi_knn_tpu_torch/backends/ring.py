@@ -74,10 +74,23 @@ outbox is written again only after its send has completed). After the
 last round no launch reads a landing slot, so that round's outbox stays
 where it is: K4 still launches every round, and the boundary moves P − 1
 times. The call returns the whole result on every process, gathered
-after the rotation (``distributed.Pod.gather_seconds``). The grid form
-(K5) cannot hand a block to another process in the middle of its one
-launch, and a 2-D mesh across processes is not ported: both are refused
-by name.
+after the rotation (``distributed.Pod.gather_seconds``). A process may
+hold several ranks (cards, or one card named several times): between its
+own ranks K4 keeps its in-kernel stores (peer stores between cards, plain
+stores on one card), and only the boundary takes the outbox. The grid
+form (K5) keeps its one launch a card: across the processes of one host
+its last rank streams into the next process's first landing slot over
+CUDA IPC (``parallel/ipc.py``), so the process group moves no block; a
+ring whose neighbouring processes lie on different hosts refuses it by
+name (the rule reads the pod's hostnames once). On the CPU the grid
+form's plain version hands each round's block to the process group.
+
+A 2-D mesh across processes (``make_mesh2d`` in a pod) runs each dp group
+as above: a group inside one process is a single-process ring there
+(each group its own transport key), a group that spans processes has its
+own ``ProcessSpan``; a process runs only the groups it holds ranks of.
+The result is gathered across processes once, every process's ranks in
+(group, rank) order, which is process order.
 """
 
 from __future__ import annotations
@@ -117,7 +130,12 @@ from mpi_knn_tpu_torch.ops.quant import (
 )
 from mpi_knn_tpu_torch.ops.topk import init_topk
 from mpi_knn_tpu_torch.parallel import distributed
-from mpi_knn_tpu_torch.parallel.mesh import as_mesh2d, is_mesh2d, make_ring_mesh
+from mpi_knn_tpu_torch.parallel.mesh import (
+    RingMesh,
+    as_mesh2d,
+    is_mesh2d,
+    make_ring_mesh,
+)
 from mpi_knn_tpu_torch.parallel.partition import (
     make_global_ids,
     pad_rows_any,
@@ -219,6 +237,13 @@ class ProcessSpan:
         self.next = mesh.owners[self.local.stop % self.P]
         self.prev = mesh.owners[(self.local.start - 1) % self.P]
 
+    def one_host(self) -> bool:
+        """Whether both neighbouring processes run on this process's host
+        (the pod's hostnames, gathered at start-up)."""
+        hosts = distributed.pod().hosts
+        me = hosts[distributed.process_index()]
+        return hosts[self.next] == me == hosts[self.prev]
+
     def exchange(self, leaving, arriving, shift: int):
         """Issue the boundary's move of one traveler: ``leaving`` to the
         process ``shift`` steps on, ``arriving`` (buffers of its layout)
@@ -232,11 +257,18 @@ class ProcessSpan:
 
 
 def ring_span(mesh):
-    """The :class:`ProcessSpan` of a 1-D mesh that spans processes, else
-    None."""
+    """The :class:`ProcessSpan` of a ring (a 1-D mesh or one dp group)
+    that spans processes, else None."""
     if mesh is None or is_mesh2d(mesh) or getattr(mesh, "owners", None) is None:
         return None
     return ProcessSpan(mesh) if mesh.spans_processes() else None
+
+
+def across_processes(groups) -> bool:
+    """Whether a call's rings lie across the processes of a pod (its
+    result is then gathered from every process)."""
+    return any(getattr(g, "owners", None) is not None for g in groups) and (
+        distributed.process_count() > 1)
 
 
 class _Transport:
@@ -335,23 +367,16 @@ def grid_off_card_error() -> ValueError:
     )
 
 
-def grid_across_processes_error() -> ValueError:
-    """The refusal of the grid form on a ring that spans processes, in the
-    words of :func:`grid_resumable_error`."""
+def grid_across_hosts_error(hosts) -> ValueError:
+    """The refusal of the grid form on a ring whose neighbouring processes
+    lie on different hosts."""
     return ValueError(
-        "ring_fused_rotation='grid' runs the whole rotation as ONE "
-        "kernel launch — there is no per-round boundary at which the "
-        "process group could hand a block to another process; use "
-        "ring_fused_rotation='round' on a ring that spans processes"
+        "ring_fused_rotation='grid' across hosts is not ported: its one "
+        "launch streams each block into the next process's landing slot "
+        "over CUDA IPC, which reaches only the cards of one machine "
+        f"(the ring's processes run on {sorted(set(hosts))}); use "
+        "ring_fused_rotation='round' on a ring that spans hosts"
     )
-
-
-def mesh2d_across_processes_error() -> ValueError:
-    """The refusal of a 2-D dp×ring mesh in a pod of processes."""
-    return ValueError(
-        "a 2-D dp×ring mesh (--dp) across processes is not ported: the "
-        "ring spans processes on a 1-D mesh only; drop --dp, or run the "
-        "2-D mesh in one process")
 
 
 def grid_resumable_error() -> ValueError:
@@ -423,8 +448,8 @@ class RingRun:
     def __init__(self, cfg: KNNConfig, devices, overlap: bool, form: str,
                  q_sh, qid_sh, travelers, carries, q_tile: int, c_tile: int,
                  staged: bool = False, slots=None, group: int = 0, span=None):
-        if span is not None and form == "grid":
-            raise grid_across_processes_error()
+        if span is not None and form == "grid" and not span.one_host():
+            raise grid_across_hosts_error(distributed.pod().hosts)
         self.cfg, self.devices, self.overlap, self.form = (
             cfg, devices, overlap, form)
         self.span = span
@@ -454,14 +479,15 @@ class RingRun:
         if form == "driver":
             self.transport = _Transport(devices, overlap, span)
         else:
-            self.transport = ring_transport(devices, group,
-                                            boundary=span is not None)
+            self.transport = ring_transport(
+                devices, group, boundary=span is not None,
+                links=(span.next, span.prev) if span and form == "grid" else None)
             self.slots = (slots if slots is not None
                           else [landing_slots(*t) for t in self.travelers[0]])
             self.parity = 0
             # the boundary rank's copy-out, moved on by the process group
             self.outbox = (landing_buffers(*self.travelers[0][-1])
-                           if span is not None else None)
+                           if span is not None and form == "dma" else None)
 
     def _merge_all(self, held):
         for r in range(len(self.devices)):
@@ -509,9 +535,13 @@ class RingRun:
             self.transport.land()
 
     def rotation_grid(self):
+        span = self.span
         self.carries = fused_rotation_grid(
             self.transport, self.q_sh, self.qid_sh, self.travelers[0],
-            self.carries, self.slots, **self._kernel_kw())
+            self.carries, self.slots, **self._kernel_kw(),
+            ring_size=None if span is None else span.P,
+            hand_on=None if span is None else (
+                lambda out, land: span.exchange(out, land, 1).wait()))
 
     def rotate(self):
         """The whole schedule: one K5 launch per card (grid), or its rounds
@@ -528,17 +558,6 @@ class RingRun:
         return [(1 <= rnd < bwd_limit, self.form == "dma" or rnd < rounds - 1)
                 for rnd in range(rounds)]
 
-    def gathered(self, dev, nq: int):
-        """The carries of every rank, in rank order, cut to ``nq`` rows;
-        across processes every process's ranks, gathered on each."""
-        best_d = torch.cat([c[0].to(dev) for c in self.carries])
-        best_i = torch.cat([c[1].to(dev) for c in self.carries])
-        if self.span is not None:
-            t0 = time.perf_counter()
-            best_d = distributed.all_gather_rows(best_d)
-            best_i = distributed.all_gather_rows(best_i)
-            distributed.pod().gather_seconds = time.perf_counter() - t0
-        return best_d[:nq], best_i[:nq]
 
 
 def rotate_groups(runs) -> None:
@@ -573,8 +592,9 @@ def ring_layout(cfg: KNNConfig, corpus, queries, query_ids, groups,
     """:func:`ring_shards` over dp groups of P devices each: the queries
     padded for dp·P shards in (group, rank) order, the corpus blocks
     replicated to every group. Returns (q_tile, c_tile, per group (q_sh,
-    qid_sh, travelers)), each a list over the ranks ``local`` (default
-    every rank: across processes, the ranks this process owns)."""
+    qid_sh, travelers)), each a list over the group's ranks ``local[g]``
+    (default every rank: across processes, the ranks this process owns;
+    empty for a group it holds none of)."""
     dp, P = len(groups), len(groups[0])
     m, dim = corpus.shape
     nq = queries.shape[0]
@@ -596,9 +616,7 @@ def ring_layout(cfg: KNNConfig, corpus, queries, query_ids, groups,
             rows = rows.to(torch_dtype(cfg.ring_transfer_dtype))
         return rows, rid, scale
 
-    ranks = range(P) if local is None else local
-
-    def traveler_blocks(wire, devices):
+    def traveler_blocks(wire, devices, ranks):
         rows, rid, scale = wire
         return [(rows[r * b:(r + 1) * b].to(devices[r]),
                  rid[r * b:(r + 1) * b].to(devices[r]),
@@ -612,9 +630,10 @@ def ring_layout(cfg: KNNConfig, corpus, queries, query_ids, groups,
                           fill=-1)
     out = []
     for g, devices in enumerate(groups):
-        travelers = [traveler_blocks(fwd, devices)]
+        ranks = range(P) if local is None else local[g]
+        travelers = [traveler_blocks(fwd, devices, ranks)]
         if cfg.ring_schedule == "bidir":
-            travelers.append(traveler_blocks(bwd, devices) if bwd is not None
+            travelers.append(traveler_blocks(bwd, devices, ranks) if bwd is not None
                              else travelers[0])
         base = g * P
         q_sh = [queries_p[(base + r) * ql:(base + r + 1) * ql].to(devices[r])
@@ -631,7 +650,7 @@ def ring_mesh(cfg: KNNConfig, mesh, dev):
     if mesh is None:
         mesh = make_ring_mesh(cfg.num_devices, axis_name=cfg.mesh_axis,
                               device=dev)
-    return mesh
+    return mesh if isinstance(mesh, RingMesh) else RingMesh(mesh, cfg.mesh_axis)
 
 
 def ring_devices(cfg: KNNConfig, mesh, dev) -> list:
@@ -639,23 +658,29 @@ def ring_devices(cfg: KNNConfig, mesh, dev) -> list:
 
 
 def ring_groups(cfg: KNNConfig, mesh, dev, overlap: bool) -> list:
-    """The dp groups of devices a ring call runs (one group on a 1-D
-    mesh, every process's ranks on one that spans processes). The
-    blocking schedule on a 2-D mesh raises, dp = 1 included, and so does a
-    2-D mesh in a pod of processes."""
+    """The dp groups a ring call runs, each a :class:`RingMesh` (one group
+    on a 1-D mesh; across processes each with its owners). The blocking
+    schedule on a 2-D mesh raises, dp = 1 included."""
     if not is_mesh2d(mesh):
-        return [[torch.device(d) for d in ring_mesh(cfg, mesh, dev)]]
-    if distributed.process_count() > 1:
-        raise mesh2d_across_processes_error()
+        return [ring_mesh(cfg, mesh, dev)]
     mesh = as_mesh2d(mesh)
     if not overlap:
         raise blocking_undefined_on_mesh_error(mesh.axis_names)
-    return [[torch.device(d) for d in row] for row in mesh]
+    return list(mesh)
 
 
-def local_devices(groups, span) -> list:
-    """Per group, the devices of the ranks this process drives."""
-    return [g if span is None else [g[r] for r in span.local] for g in groups]
+def local_ranks(groups) -> list:
+    """Per group, the ranks this process drives (every rank in one
+    process; none of a group that lies in other processes)."""
+    return [g.local_ranks(distributed.process_index()) for g in groups]
+
+
+def group_runs(groups):
+    """(g, this process's devices, span) of every group this process holds
+    ranks of."""
+    for g, (mesh, ranks) in enumerate(zip(groups, local_ranks(groups))):
+        if len(ranks):
+            yield g, [torch.device(mesh[r]) for r in ranks], ring_span(mesh)
 
 
 def all_knn_ring(corpus, queries, query_ids, cfg: KNNConfig, mesh=None,
@@ -667,35 +692,37 @@ def all_knn_ring(corpus, queries, query_ids, cfg: KNNConfig, mesh=None,
     each process drives its own ranks and every process returns the whole
     result. Returns ((q, k) dists, (q, k) ids) on ``device``."""
     dev = torch.device(device)
-    if not is_mesh2d(mesh):
-        mesh = ring_mesh(cfg, mesh, dev)
     groups = ring_groups(cfg, mesh, dev, overlap)
-    span = ring_span(mesh)
     if cfg.ring_fusion == "fused" and not overlap:
         raise fused_blocking_undefined_error()
     form = form or ring_form(cfg, groups[0])
-    if span is not None and form == "grid":
-        raise grid_across_processes_error()
     q_tile, c_tile, parts = ring_layout(cfg, corpus, queries, query_ids, groups,
-                                        local=span and span.local)
+                                        local=local_ranks(groups))
     acc = torch.float64 if torch_dtype(cfg.dtype) == torch.float64 else torch.float32
     runs = []
-    for g, (devices, (q_sh, qid_sh, travelers)) in enumerate(
-            zip(local_devices(groups, span), parts)):
+    for g, devices, span in group_runs(groups):
+        q_sh, qid_sh, travelers = parts[g]
         carries = [init_topk(q.shape[0], cfg.k, dtype=acc, device=d)
                    for q, d in zip(q_sh, devices)]
         runs.append(RingRun(cfg, devices, overlap, form, q_sh, qid_sh,
                             travelers, carries, q_tile, c_tile, group=g,
                             span=span))
     rotate_groups(runs)
-    return gathered(runs, dev, queries.shape[0])
+    return gathered(runs, dev, queries.shape[0], across_processes(groups))
 
 
-def gathered(runs, dev, nq: int):
-    """Every group's carries in (group, rank) order, cut to ``nq`` rows."""
-    got = [run.gathered(dev, None) for run in runs]
-    return (torch.cat([d for d, _ in got])[:nq],
-            torch.cat([i for _, i in got])[:nq])
+def gathered(runs, dev, nq: int, across: bool = False):
+    """Every group's carries in (group, rank) order, cut to ``nq`` rows;
+    ``across`` processes, every process's, gathered on each (process
+    order is (group, rank) order: a process's ranks are consecutive)."""
+    best_d = torch.cat([c[0].to(dev) for run in runs for c in run.carries])
+    best_i = torch.cat([c[1].to(dev) for run in runs for c in run.carries])
+    if across:
+        t0 = time.perf_counter()
+        best_d = distributed.all_gather_rows(best_d)
+        best_i = distributed.all_gather_rows(best_i)
+        distributed.pod().gather_seconds = time.perf_counter() - t0
+    return best_d[:nq], best_i[:nq]
 
 
 def ring_serve(q_sh, qid_sh, carries, shards, cfg: KNNConfig, devices,

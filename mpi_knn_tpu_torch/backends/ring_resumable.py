@@ -24,8 +24,9 @@ checkpoint holds every group's carry in (group, rank) order, and the
 fingerprint names the grid (``ring{P}x{dp}``); the blocking schedule there
 raises, as in ``all_knn_ring``.
 
-On a ring that spans processes (``backends/ring.ProcessSpan``) each
-process drives its own ranks, and only process 0's read of the
+On a ring that spans processes (``backends/ring.ProcessSpan``), or a 2-D
+mesh over a pod, each process drives its own ranks (several a process
+where it holds several), and only process 0's read of the
 checkpoint decides: its rounds_done and carry are broadcast to every
 process, so processes with empty (non-shared) checkpoint directories
 resume at the same round instead of meeting in mismatched exchanges. At
@@ -43,14 +44,14 @@ from mpi_knn_tpu_torch.backends.ring import (
     RingRun,
     bidir_rounds,
     fused_blocking_undefined_error,
+    across_processes,
     gathered,
     grid_resumable_error,
-    local_devices,
+    group_runs,
+    local_ranks,
     ring_form,
     ring_groups,
     ring_layout,
-    ring_mesh,
-    ring_span,
     ring_tiles,
 )
 from mpi_knn_tpu_torch.backends.serial import torch_dtype
@@ -58,7 +59,6 @@ from mpi_knn_tpu_torch.config import KNNConfig
 from mpi_knn_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from mpi_knn_tpu_torch.ops.topk import init_topk
 from mpi_knn_tpu_torch.parallel import distributed
-from mpi_knn_tpu_torch.parallel.mesh import is_mesh2d
 from mpi_knn_tpu_torch.utils.checkpoint import (
     KNNCheckpoint,
     fingerprint,
@@ -82,10 +82,8 @@ def all_knn_ring_resumable(corpus, queries, query_ids, cfg: KNNConfig,
     if cfg.ring_fusion == "fused" and cfg.ring_fused_rotation == "grid":
         raise grid_resumable_error()
     dev = resolve_device(device)
-    if not is_mesh2d(mesh):
-        mesh = ring_mesh(cfg, mesh, dev)
     groups = ring_groups(cfg, mesh, dev, overlap)
-    span = ring_span(mesh)
+    across = across_processes(groups)
     if cfg.ring_fusion == "fused" and not overlap:
         raise fused_blocking_undefined_error()
     dp, P = len(groups), len(groups[0])
@@ -114,7 +112,7 @@ def all_knn_ring_resumable(corpus, queries, query_ids, cfg: KNNConfig,
 
     acc = torch.float64 if torch_dtype(cfg.dtype) == torch.float64 else torch.float32
     start_round, saved = 0, None
-    if checkpoint_dir is not None and span is not None:
+    if checkpoint_dir is not None and across:
         saved = _broadcast_checkpoint(checkpoint_dir, fp, cfg, acc, ring_tiles(
             cfg, corpus.shape[0], queries.shape[0], dp, P)[2])
     elif checkpoint_dir is not None:
@@ -124,20 +122,20 @@ def all_knn_ring_resumable(corpus, queries, query_ids, cfg: KNNConfig,
         log.info("resuming ring at round %d/%d from %s", start_round,
                  rounds_total, checkpoint_dir)
 
-    ranks = range(P) if span is None else span.local
+    local = local_ranks(groups)
     q_tile, c_tile, parts = ring_layout(cfg, corpus, queries, query_ids,
-                                        groups, start_round, local=ranks)
-    ql = parts[0][0][0].shape[0]
+                                        groups, start_round, local=local)
+    ql = ring_tiles(cfg, corpus.shape[0], queries.shape[0], dp, P)[2] // (dp * P)
     form = ring_form(cfg, groups[0])
     runs = []
-    for g, (devices, (q_sh, qid_sh, travelers)) in enumerate(
-            zip(local_devices(groups, span), parts)):
+    for g, devices, span in group_runs(groups):
+        q_sh, qid_sh, travelers = parts[g]
         if saved is None:
             carries = [init_topk(ql, cfg.k, dtype=acc, device=d) for d in devices]
         else:
             cd = torch.as_tensor(saved.carry_d, dtype=acc)
             ci = torch.as_tensor(saved.carry_i)
-            rows = [((g * P + r) * ql, (g * P + r + 1) * ql) for r in ranks]
+            rows = [((g * P + r) * ql, (g * P + r + 1) * ql) for r in local[g]]
             carries = [(cd[a:b].to(d), ci[a:b].to(d))
                        for (a, b), d in zip(rows, devices)]
         runs.append(RingRun(cfg, devices, overlap, form, q_sh, qid_sh,
@@ -152,8 +150,8 @@ def all_knn_ring_resumable(corpus, queries, query_ids, cfg: KNNConfig,
         done = r + 1
         if checkpoint_dir is not None and (
                 done % save_every == 0 or done == rounds_total):
-            cd, ci = gathered(runs, "cpu", dp * P * ql)
-            if span is None or distributed.process_index() == 0:
+            cd, ci = gathered(runs, "cpu", dp * P * ql, across)
+            if distributed.process_index() == 0:
                 save_checkpoint(checkpoint_dir, KNNCheckpoint(
                     carry_d=cd.numpy(), carry_i=ci.numpy(), tiles_done=done,
                     fingerprint=fp))
@@ -161,7 +159,7 @@ def all_knn_ring_resumable(corpus, queries, query_ids, cfg: KNNConfig,
         if progress_cb is not None:
             progress_cb(done, rounds_total)
 
-    return gathered(runs, dev, queries.shape[0])
+    return gathered(runs, dev, queries.shape[0], across)
 
 
 def _broadcast_checkpoint(checkpoint_dir, fp: str, cfg: KNNConfig, acc,

@@ -49,13 +49,15 @@ the same command with ``--coordinator host:port --num-processes P
 --process-id i`` (or the ``JAX_COORDINATOR_ADDRESS`` / ``JAX_NUM_PROCESSES``
 / ``JAX_PROCESS_ID`` variables), and joins the process group before the
 load phase. The ring then spans every process's ranks (``--devices``
-counts a process's ranks: logical ranks on the CPU; on CUDA a process
-drives one card, and more is refused); each process reads the whole
-corpus and gets the whole result, and, as in the reference, each prints
-it and writes ``--report`` and ``--save-neighbors`` where it is told. The
-report's ``notes["distributed"]`` holds the start-up info, and its phase
-``gather`` the seconds of the result's gather inside ``knn``. ``--dp``
-across processes is refused by name.
+counts a process's ranks: logical ranks on the CPU; on CUDA the cards of
+the pod's card rule, ``parallel/distributed.py``); each process reads the
+whole corpus and gets the whole result, and, as in the reference, each
+prints it and writes ``--report`` and ``--save-neighbors`` where it is
+told. ``--dp G`` there builds the grid over every process's ranks (G must
+divide processes × devices, the JAX CLI's check over the global device
+count). The report's ``notes["distributed"]`` holds the start-up info,
+and its phase ``gather`` the seconds of the result's gather inside
+``knn``.
 
 Not yet ported (exit 2, naming what was asked): the subcommands ``lint``
 and ``plan``.
@@ -118,8 +120,7 @@ def build_parser() -> argparse.ArgumentParser:
     k.add_argument("--devices", type=int, default=None,
                    help="ring size for the ring backends (default: the "
                    "visible cards; on the CPU, logical ranks); with more "
-                   "than one process, each process's ranks (one card a "
-                   "process on CUDA)")
+                   "than one process, each process's ranks")
     k.add_argument("--dp", type=int, default=1,
                    help="2-D mesh: data-parallel groups; devices/dp form the "
                    "corpus ring inside each group (queries shard over all "
@@ -334,7 +335,6 @@ def _start_processes(args) -> dict | None:
     import os
 
     from mpi_knn_tpu_torch.parallel import distributed
-    from mpi_knn_tpu_torch.parallel.mesh import more_cards_a_process_error
 
     if args.process_id is not None and not (
         args.coordinator or args.num_processes
@@ -348,11 +348,10 @@ def _start_processes(args) -> dict | None:
         )
     if not distributed.wants_multihost(args.coordinator, args.num_processes):
         return None
-    if torch.device(args.device).type == "cuda" and (args.devices or 1) > 1:
-        raise SystemExit(f"error: {more_cards_a_process_error(args.devices)}")
     return distributed.init_multihost(
         coordinator_address=args.coordinator, num_processes=args.num_processes,
-        process_id=args.process_id, device=args.device)
+        process_id=args.process_id, device=args.device,
+        local_devices=args.devices or 1)
 
 
 def main(argv=None) -> int:
@@ -439,12 +438,7 @@ def _run(args, dist_info) -> int:
 
     mesh = None
     if args.dp and args.dp > 1:
-        if dist_info is not None:
-            raise SystemExit(
-                "error: --dp with more than one process is not ported: the "
-                "ring spans processes on a 1-D mesh only; drop --dp, or run "
-                "the 2-D mesh in one process")
-        mesh = _mesh2d(args, device)
+        mesh = _mesh2d(args, device, dist_info)
     report = RunReport(
         config=vars(args), data_source=source, shape=tuple(X.shape),
         backend=resolve_backend(cfg, mesh, device=device),
@@ -586,9 +580,10 @@ def _recall_vs_serial(args, cfg, report, result, X, queries, timer, device,
     report.notes["recall_sample"] = int(len(sample))
 
 
-def _mesh2d(args, device):
+def _mesh2d(args, device, dist_info=None):
     """The ``--dp`` mesh, with the JAX CLI's checks: a ring backend, not the
-    blocking one, and dp dividing the device count."""
+    blocking one, and dp dividing the device count (in a pod, every
+    process's: processes × devices)."""
     from mpi_knn_tpu_torch.parallel.mesh import make_mesh2d
 
     if args.backend not in ("ring", "ring-overlap", "auto"):
@@ -604,8 +599,11 @@ def _mesh2d(args, device):
             "on a dp×ring mesh, so the run would silently use the overlap "
             "schedule. The 1-D ring is the only defined blocking A/B "
             "object — use --backend ring-overlap with --dp, or drop --dp.")
-    total = args.devices or (torch.cuda.device_count()
-                             if device.type == "cuda" else 1)
+    if dist_info is not None:
+        total = dist_info["devices"]
+    else:
+        total = args.devices or (torch.cuda.device_count()
+                                 if device.type == "cuda" else 1)
     if total % args.dp:
         raise SystemExit(
             f"error: --dp {args.dp} must divide the device count {total}")

@@ -43,11 +43,15 @@
 // stage_split_kernel at this file's interval, so its norms are the diagonal
 // of K4's own tile.
 //
-// Transport. One process drives every rank (single controller). Ranks that
-// share a card are ordered by that card's stream and need no barrier: their
-// "remote" copy is an in-kernel copy between buffers of one card. Between
-// cards (peer access enabled by parallel/mesh.py), a kernel stores into the
-// successor's buffers through its peer pointer with 16-byte vector stores,
+// Transport. One process drives every rank of its part of the ring (all of
+// it in one process). Ranks that share a card and a process are ordered by
+// that card's stream and need no barrier: their "remote" copy is an
+// in-kernel copy between buffers of one card. Between cards (peer access
+// enabled by parallel/mesh.py), and for K5 between processes of one host
+// (the successor's slots and flag words mapped by CUDA IPC,
+// parallel/ipc.py, through the ring_ipc_* functions below; on one card or
+// two), a kernel stores into the successor's buffers through its pointer
+// with 16-byte vector stores,
 // then __threadfence_system() and a system-scope release-add on one of the
 // successor's int32 flag words; waiters spin with system-scope acquire loads.
 // The flag words live on each card, one row of NWORDS per rank, allocated
@@ -99,6 +103,7 @@
 // at 128).
 
 #include <cooperative_groups.h>
+#include <cstring>
 #include <type_traits>
 
 // K4's f32 form runs knn_wgmma.cuh's tile with every 8-deep k-step's three
@@ -850,6 +855,60 @@ int ring_enable_peer_access(int dev, int peer) {
       e = cudaSuccess;
     }
   }
+  cudaSetDevice(prev);
+  return (int)e;
+}
+
+// CUDA IPC for the grid form across the processes of one host
+// (parallel/ipc.py): memory of its own on card `dev` (one cudaMalloc, so a
+// handle names exactly it), its handle, and the mapping of another
+// process's handle into card `dev` (peer access to the exporter's card
+// enabled lazily where it is another card). The calling thread's current
+// card is left as it was.
+int ring_ipc_handle_bytes() { return (int)sizeof(cudaIpcMemHandle_t); }
+
+int ring_ipc_alloc(int dev, long long bytes, void** out) {
+  int prev = 0;
+  cudaError_t e = cudaGetDevice(&prev);
+  if (e != cudaSuccess) return (int)e;
+  if ((e = cudaSetDevice(dev)) == cudaSuccess) e = cudaMalloc(out, (size_t)bytes);
+  cudaSetDevice(prev);
+  return (int)e;
+}
+
+int ring_ipc_free(int dev, void* p) {
+  int prev = 0;
+  cudaError_t e = cudaGetDevice(&prev);
+  if (e != cudaSuccess) return (int)e;
+  if ((e = cudaSetDevice(dev)) == cudaSuccess) e = cudaFree(p);
+  cudaSetDevice(prev);
+  return (int)e;
+}
+
+int ring_ipc_handle(void* p, unsigned char* out) {
+  cudaIpcMemHandle_t h;
+  const cudaError_t e = cudaIpcGetMemHandle(&h, p);
+  if (e == cudaSuccess) memcpy(out, &h, sizeof h);
+  return (int)e;
+}
+
+int ring_ipc_open(int dev, const unsigned char* handle, void** out) {
+  cudaIpcMemHandle_t h;
+  memcpy(&h, handle, sizeof h);
+  int prev = 0;
+  cudaError_t e = cudaGetDevice(&prev);
+  if (e != cudaSuccess) return (int)e;
+  if ((e = cudaSetDevice(dev)) == cudaSuccess)
+    e = cudaIpcOpenMemHandle(out, h, cudaIpcMemLazyEnablePeerAccess);
+  cudaSetDevice(prev);
+  return (int)e;
+}
+
+int ring_ipc_close(int dev, void* p) {
+  int prev = 0;
+  cudaError_t e = cudaGetDevice(&prev);
+  if (e != cudaSuccess) return (int)e;
+  if ((e = cudaSetDevice(dev)) == cudaSuccess) e = cudaIpcCloseMemHandle(p);
   cudaSetDevice(prev);
   return (int)e;
 }

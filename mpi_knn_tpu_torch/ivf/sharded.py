@@ -1,7 +1,7 @@
 """Sharded clustered (IVF) index: the bucket store distributed over the
 ring mesh with a routed candidate exchange (the JAX package's
-``ivf/sharded.py``), run by one controlling process or, one shard a
-process, by a pod of processes.
+``ivf/sharded.py``), run by one controlling process or by a pod of
+processes, each holding its own shards.
 
 Layout (derived, never stored: one saved index serves on any shard
 count):
@@ -48,15 +48,17 @@ Routed two-stage search, per tile step (every shard's j-th tile at once):
    the unsharded index's results.
 
 Across processes (a mesh from ``parallel/mesh.make_ring_mesh`` after
-``parallel/distributed.init_multihost``, one rank a process): each process
-holds its own shard's slice and a centroid replica, is the home of its
-run of tiles, and the request tables and candidate tiles move by
-``torch.distributed.all_to_all_single`` (the reference's
-``jax.lax.all_to_all``; ``distributed.all_to_all_rows``) at the same
-shapes, so S processes return the unsharded index's results bit for bit,
-as S ranks of one process do. Every process passes the whole batch and
-gets the whole result back. Mutation of a store that spans processes, and
-serving it through a session, are refused by name.
+``parallel/distributed.init_multihost``, n ranks a process): each process
+holds its own n shards' slices (each on its rank's device) and their
+centroid replicas, is the home of their runs of tiles, and the request
+tables and candidate tiles move by ``torch.distributed.all_to_all_single``
+(the reference's ``jax.lax.all_to_all``; ``distributed.all_to_all_rows``)
+at the same shapes: one exchange a step carries every (home, owner) pair
+between two processes, staged on the process's first device. So a pod of
+S shards returns the unsharded index's results bit for bit, as S ranks of
+one process do. Every process passes the whole batch and gets the whole
+result back. Mutation of a store that spans processes, and serving it
+through a session, are refused by name.
 
 Per-shard stats, summed over a batch's tiles: ``[routed, dropped,
 served]`` (routes this shard's queries issued and kept, routes dropped at
@@ -223,26 +225,55 @@ def _score_home(q_x, centroids, nprobe: int, per_shard: int, shards: int,
     return (qx, q_sq, dest_t, rank_t, dropped_t), req
 
 
-def routed_query_tile_across(q_x, q_ids, centroids, slice_, cfg: KNNConfig,
-                             nprobe: int, route_cap: int, shards: int):
-    """One tile step in one process of a pod (one shard a process): this
-    process's home tile ``q_x`` (its ``q_ids``), its centroid replica and
-    its own store slice. The request tables and the candidate tiles move
-    between processes by ``all_to_all_single``. Returns ((q_tile, k)
-    dists, ids) and this shard's (N_STATS,) int64 stats."""
-    per_shard, cap = slice_[0].shape[:2]
-    home, req = _score_home(q_x, centroids, nprobe, per_shard, shards, route_cap)
-    req_in = distributed.all_to_all_rows(req)  # row h: home h's requests
-    answer, served = _gather_slice(req_in, slice_, per_shard)
-    back = [None if t is None else distributed.all_to_all_rows(t) for t in answer]
+def routed_query_tile_across(q_x, q_ids, centroids, slices, cfg: KNNConfig,
+                             nprobe: int, route_cap: int, shards: int, devices):
+    """One tile step in one process of a pod holding n shards: per local
+    shard i its home tile ``q_x[i]`` (its ``q_ids[i]``), centroid replica
+    ``centroids[i]`` and store slice ``slices[i]`` on ``devices[i]``. The
+    request tables and the candidate tiles move between processes by
+    ``all_to_all_single``, every (home, owner) pair of two processes in
+    one exchange, on ``devices[0]``. Returns per local shard ((q_tile, k)
+    dists, ids) and the (n, N_STATS) int64 stats on ``devices[0]``."""
+    n = len(slices)
+    procs, dev0 = shards // n, devices[0]
+    per_shard, cap = slices[0][0].shape[:2]
+    homes, reqs = [], []
+    for i in range(n):
+        home, req = _score_home(q_x[i], centroids[i], nprobe, per_shard, shards,
+                                route_cap)
+        homes.append(home)
+        reqs.append(req.to(dev0))
+    # (process, local home, local owner, route): part p to process p
+    send = torch.stack(reqs).reshape(n, procs, n, route_cap).transpose(0, 1)
+    got = distributed.all_to_all_rows(send.contiguous())
+    answers, served = [], []
+    for o in range(n):  # as owner: every home's requests, in home order
+        req_in = got[:, :, o].reshape(shards, route_cap).to(devices[o])
+        answer, count = _gather_slice(req_in, slices[o], per_shard)
+        answers.append(answer)
+        served.append(count.to(dev0))
 
-    def tile(part):
-        t = back[part]
-        return None if t is None else t.reshape((shards * route_cap,) + t.shape[2:])
+    def back(part):  # (process, local owner, local home, route, ...)
+        if answers[0][part] is None:
+            return None
+        t = torch.stack([a[part].to(dev0).reshape((procs, n, route_cap)
+                                                  + a[part].shape[2:])
+                         for a in answers], 1)
+        return distributed.all_to_all_rows(t.contiguous())
 
-    res, (routed, dropped) = _finish_home(home, q_ids, tile, cfg, nprobe,
-                                          route_cap, cap)
-    return res, torch.stack([routed, dropped, served.to(routed.device)])
+    returned = [back(part) for part in range(4)]
+    out, stats = [], []
+    for i in range(n):
+        def tile(part, i=i):
+            t = returned[part]
+            return None if t is None else t[:, :, i].reshape(
+                (shards * route_cap,) + t.shape[4:]).to(devices[i])
+
+        res, (routed, dropped) = _finish_home(homes[i], q_ids[i], tile, cfg,
+                                              nprobe, route_cap, cap)
+        out.append(res)
+        stats.append(torch.stack([routed.to(dev0), dropped.to(dev0), served[i]]))
+    return out, torch.stack(stats)
 
 
 def routed_query_tile(q_x, q_ids, centroids, slices, cfg: KNNConfig,
@@ -310,8 +341,8 @@ class ShardedIVFIndex:
     ``bucket_scales`` are the whole store ``(S·per_shard, cap, ·)`` and
     ``slices`` views of it; over distinct cards they are None and
     ``slices`` holds each shard's tensors on its card; across processes
-    (``spans_processes``) ``slices`` holds this process's shard alone, None
-    at the others, and ``device`` is this process's."""
+    (``spans_processes``) ``slices`` holds this process's shards alone,
+    None at the others, and ``device`` is this process's first."""
 
     cfg: KNNConfig  # backend "serial", a concrete nprobe, ivf_shards set
     m: int
@@ -339,6 +370,13 @@ class ShardedIVFIndex:
     replicas: dict = dataclasses.field(default_factory=dict)
     spans_processes: bool = False
     _cache: dict = dataclasses.field(default_factory=dict)
+
+    @property
+    def local_shards(self) -> range:
+        """The shards this process holds (every shard in one process)."""
+        if not self.spans_processes:
+            return range(self.shards)
+        return self.mesh.local_ranks(distributed.process_index())
 
     @property
     def store_dtype(self) -> str:
@@ -440,10 +478,6 @@ def _mesh_for(shards: int | None, mesh, cfg: KNNConfig, device):
     mesh = RingMesh([canonical_device(d) for d in mesh],
                     getattr(mesh, "axis_name", cfg.mesh_axis),
                     owners=getattr(mesh, "owners", None))
-    if _spans_processes(mesh) and mesh.owners != list(range(len(mesh))):
-        raise ValueError(
-            f"a sharded clustered index across processes takes one shard a "
-            f"process; the mesh's ranks belong to processes {mesh.owners}")
     shards = len(mesh) if shards is None else shards
     if len(mesh) != shards:
         raise ValueError(
@@ -463,8 +497,8 @@ def shard_ivf_index(index: IVFIndex, shards: int | None = None, mesh=None,
     per_shard = -(-index.partitions // shards)
     padc = per_shard * shards - index.partitions
     across = _spans_processes(mesh)
-    me = distributed.process_index() if across else 0
-    dev = mesh[me]
+    mine = mesh.local_ranks(distributed.process_index()) if across else range(shards)
+    dev = mesh[mine[0]]
 
     def padded(t, fill):
         if t is None:
@@ -481,7 +515,7 @@ def shard_ivf_index(index: IVFIndex, shards: int | None = None, mesh=None,
         ivf_route_cap=(route_cap if route_cap is not None
                        else index.cfg.ivf_route_cap))
     replicas = {}
-    for d in [] if across else mesh:
+    for d in [mesh[s] for s in mine]:
         d = torch.device(d)
         if d != dev and str(d) not in replicas:
             replicas[str(d)] = (index.centroids.to(d), index.centroid_sqs.to(d))
@@ -500,7 +534,7 @@ def shard_ivf_index(index: IVFIndex, shards: int | None = None, mesh=None,
             **common)
     p = per_shard
     shard_store = [tuple(None if t is None else t[s * p:(s + 1) * p].to(d)
-                         for t in store) if s == me or not across else None
+                         for t in store) if s in mine else None
                    for s, d in enumerate(mesh)]
     return ShardedIVFIndex(buckets=None, bucket_ids=None, bucket_sqs=None,
                            shard_store=shard_store, **common)
@@ -516,9 +550,9 @@ def unshard_ivf_index(index: ShardedIVFIndex, device=None) -> IVFIndex:
 
     def whole(part):
         if index.spans_processes:
-            t = index.held_slice[part]
-            return (None if t is None else
-                    distributed.all_gather_rows(t).to(dev)[:Pn])
+            held = [index.slices[s][part] for s in index.local_shards]
+            return (None if held[0] is None else distributed.all_gather_rows(
+                torch.cat([t.to(index.device) for t in held])).to(dev)[:Pn])
         ts = [s[part] for s in index.slices]
         if ts[0] is None:
             return None
@@ -620,25 +654,29 @@ def run_sharded_tiles(index: ShardedIVFIndex, q_tiles, qid_tiles,
 def _run_tiles_across(index: ShardedIVFIndex, q_tiles, qid_tiles,
                       cfg: KNNConfig, route_cap: int):
     """:func:`run_sharded_tiles` in one process of a pod: this process is
-    the home of its run of tiles and the owner of its slice; the results
-    and stats of every process are gathered on each."""
-    S, me, dev = index.shards, distributed.process_index(), index.device
+    the home of its shards' runs of tiles and the owner of their slices;
+    the results and stats of every process are gathered on each (process
+    order is shard order)."""
+    S, dev, mine = index.shards, index.device, index.local_shards
     per = q_tiles.shape[0] // S
-    q_home = q_tiles[me * per:(me + 1) * per].to(dev)
-    id_home = qid_tiles[me * per:(me + 1) * per].to(dev)
-    cents = index.centroid_replica(dev)
-    own = index.slices[me]
-    d_out, i_out = [], []
-    stats = torch.zeros(N_STATS, dtype=torch.int64, device=dev)
+    devices = [torch.device(index.mesh[s]) for s in mine]
+    homes = [(q_tiles[h * per:(h + 1) * per].to(d), qid_tiles[h * per:(h + 1) * per].to(d))
+             for h, d in zip(mine, devices)]
+    cents = [index.centroid_replica(d) for d in devices]
+    own = [index.slices[s] for s in mine]
+    d_out, i_out = [[] for _ in mine], [[] for _ in mine]
+    stats = torch.zeros((len(mine), N_STATS), dtype=torch.int64, device=dev)
     for j in range(per):
-        (d, i), st = routed_query_tile_across(q_home[j], id_home[j], cents, own,
-                                              cfg, cfg.nprobe, route_cap, S)
+        res, st = routed_query_tile_across([q[j] for q, _ in homes],
+                                           [i[j] for _, i in homes], cents, own,
+                                           cfg, cfg.nprobe, route_cap, S, devices)
         stats += st
-        d_out.append(d)
-        i_out.append(i)
-    d = distributed.all_gather_rows(torch.stack(d_out))
-    i = distributed.all_gather_rows(torch.stack(i_out))
-    return d, i, distributed.all_gather_rows(stats[None])
+        for h, (d, i) in enumerate(res):
+            d_out[h].append(d.to(dev))
+            i_out[h].append(i.to(dev))
+    d = distributed.all_gather_rows(torch.stack([t for ts in d_out for t in ts]))
+    i = distributed.all_gather_rows(torch.stack([t for ts in i_out for t in ts]))
+    return d, i, distributed.all_gather_rows(stats)
 
 
 def search_ivf_sharded(index: ShardedIVFIndex, queries, query_ids=None,

@@ -38,7 +38,16 @@ rank's successor lies in another process (``RingTransport(boundary=
 True)``), K4 stores that rank's copy into a local ``outbox`` with the
 landing slot's layout (``landing_buffers``), in stream order on its card,
 and the caller's process group moves it on; the other links keep the
-in-kernel stores and flags. The flag words the kernels signal
+in-kernel stores and flags. K5's transport across the processes of one
+host (``RingTransport(links=(next, prev))``) keeps the in-kernel protocol
+on that link too: the last rank stores into the next process's first
+rank's landing slots and signals its flag words through pointers mapped
+by CUDA IPC (``parallel/ipc.py``), and the first rank's slots and the
+first and last ranks' flag words are this process's exports. Such a
+transport's flag words are made once and never made anew: a timed-out
+wait fails the pod. The plain version across processes (CPU pods) hands
+each round's outgoing block to the process group instead (``hand_on``).
+The flag words the kernels signal
 each other through live on each card and are made once per mesh
 (``ring_transport``); they only count up, so nothing is reset between calls.
 A timed-out wait inside a kernel raises ``RuntimeError`` here once the
@@ -135,15 +144,23 @@ class RingTransport:
     and the process group fills the first rank's landing slot).
     """
 
-    def __init__(self, devices, cross_card=None, boundary: bool = False):
+    def __init__(self, devices, cross_card=None, boundary: bool = False,
+                 links=None):
         self.devices = [_card(torch.device(d)) for d in devices]
         P = len(self.devices)
         if cross_card is None:
             cross_card = [self.devices[r] != self.devices[(r + 1) % P]
                           for r in range(P)]
+        if links is not None and not boundary:
+            raise ValueError("links to other processes go with a boundary transport")
         if boundary:
-            cross_card = list(cross_card[:P - 1]) + [False]
+            # K5 across processes keeps the flag protocol on the boundary
+            # link (mapped pointers); K4 hands that link to an outbox
+            cross_card = list(cross_card[:P - 1]) + [links is not None]
         self.boundary = boundary
+        self.links = links  # (next process, previous process), or None
+        self.mapped = {}  # per slot layout: (own first-rank slots, successor's)
+        self.remote_flags = None  # (successor's words, predecessor's words)
         self.succ_remote = [bool(c) for c in cross_card]
         self.pred_remote = [self.succ_remote[(r - 1) % P] for r in range(P)]
         self.cards = list(dict.fromkeys(self.devices))
@@ -166,17 +183,76 @@ class RingTransport:
                     f"launch takes at most {lib.ring_max_local()}")
         enable_peer_access(self.devices)
         words = lib.ring_words()
-        self.flags = {c: torch.zeros((len(self.local[c]), words),
-                                     dtype=torch.int32, device=c)
-                      for c in self.cards}
+        if self.links is None:
+            self.flags = {c: torch.zeros((len(self.local[c]), words),
+                                         dtype=torch.int32, device=c)
+                          for c in self.cards}
+        elif self.calls:
+            raise RuntimeError(
+                "the grid form's flag words across processes are made once: "
+                "a timed-out wait fails the pod; restart every process")
+        else:
+            from mpi_knn_tpu_torch.parallel import ipc
+
+            self.flags = {}
+            for c in self.cards:
+                shape = (len(self.local[c]), words)
+                buf = ipc.alloc(c, ipc.carved_bytes([(shape, torch.int32)]))
+                self.flags[c] = ipc.carve(buf, [(shape, torch.int32)])[0]
+                self.flags[c].zero_()
+                # zero before any neighbour can signal into them
+                torch.cuda.synchronize(c)
         self.epoch = self.calls = 0
+
+    def flag_row(self, r: int) -> torch.Tensor:
+        """Rank r's flag words (a row of its card's table)."""
+        card = self.devices[r]
+        return self.flags[card][self.local[card].index(r)]
+
+    def bind_links(self, block, ids, norms):
+        """For K5 across processes: the first rank's two landing slots
+        (exported; made once per layout) and the successor process's, as
+        pointers mapped into the last rank's card; the handles move between
+        the neighbours once per layout (``parallel/ipc.py``). Returns
+        (own slots (blk, ids, None, norms), successor's (blk, ids, norms)
+        pointers)."""
+        from mpi_knn_tpu_torch.parallel import distributed, ipc
+
+        key = (tuple(block.shape), block.dtype)
+        if key in self.mapped:
+            return self.mapped[key]
+        self._ensure_flags()
+        parts = [((2,) + tuple(block.shape), block.dtype),
+                 ((2,) + tuple(ids.shape), ids.dtype),
+                 ((2,) + tuple(norms.shape), norms.dtype)]
+        first, last = self.devices[0], self.devices[-1]
+        own = ipc.carve(ipc.alloc(first, ipc.carved_bytes(parts)), parts)
+        nxt, prv = self.links
+        from_next, from_prev = ipc.empty_records(4), ipc.empty_records(1)
+        distributed.swap_host(
+            [(ipc.pack([self.flag_row(0)] + own), prv, 100),
+             (ipc.pack([self.flag_row(len(self.devices) - 1)]), nxt, 101)],
+            [(from_next, nxt, 100), (from_prev, prv, 101)])
+        succ = ipc.open_records(from_next, last)
+        self.remote_flags = (succ[0], ipc.open_records(from_prev, first)[0])
+        self.mapped[key] = ((own[0], own[1], None, own[2]), tuple(succ[1:]))
+        return self.mapped[key]
+
+    def succ_words(self, r: int):
+        """Address of rank r's successor's flag words."""
+        if self.links is not None and r == len(self.devices) - 1:
+            return self.remote_flags[0]
+        return self.words((r + 1) % len(self.devices))
+
+    def pred_words(self, r: int):
+        """Address of rank r's predecessor's flag words."""
+        if self.links is not None and r == 0:
+            return self.remote_flags[1]
+        return self.words((r - 1) % len(self.devices))
 
     def words(self, r: int) -> int:
         """Address of rank r's flag words."""
-        card = self.devices[r]
-        row = self.local[card].index(r)
-        t = self.flags[card]
-        return t.data_ptr() + row * t.shape[1] * t.element_size()
+        return self.flag_row(r).data_ptr()
 
     def raise_on_error(self, name: str):
         """Read each card's error word (this waits for its stream); on an
@@ -187,23 +263,35 @@ class RingTransport:
                 self.flags = None
                 raise RuntimeError(
                     f"{name}: neighbour barrier timed out on {card} "
-                    f"(waiting for {_ERRORS.get(code, code)}); the ring's "
-                    "flag words were reset")
+                    f"(waiting for {_ERRORS.get(code, code)}); " + (
+                        "the ring's flag words were reset" if self.links is None
+                        else "the ring spans processes: every process of the "
+                        "pod fails, and the pod restarts"))
 
 
 _TRANSPORTS: dict = {}
 
 
-def ring_transport(devices, group: int = 0, boundary: bool = False) -> RingTransport:
+def ring_transport(devices, group: int = 0, boundary: bool = False,
+                   links=None) -> RingTransport:
     """The ring's transport state, made once per ring: per mesh and, on a
     2-D mesh, per dp group (each group's ring has flag words of its own,
     even where two groups name the same cards); ``boundary`` for one
-    process's ranks of a ring that spans processes."""
+    process's ranks of a ring that spans processes, and ``links`` (the
+    next and previous processes) for K5's transport across them."""
     cards = tuple(_card(torch.device(d)) for d in devices)
-    key = (group, cards, boundary)
+    links = None if links is None else tuple(links)
+    key = (group, cards, boundary or links is not None, links)
     if key not in _TRANSPORTS:
-        _TRANSPORTS[key] = RingTransport(cards, boundary=boundary)
+        _TRANSPORTS[key] = RingTransport(cards, boundary=key[2], links=links)
     return _TRANSPORTS[key]
+
+
+def drop_process_transports() -> None:
+    """Forget every transport with links to other processes (their flag
+    words and slots are this process's exports, freed at the pod's end)."""
+    for key in [k for k, t in _TRANSPORTS.items() if t.links is not None]:
+        del _TRANSPORTS[key]
 
 
 def traveler(t):
@@ -295,7 +383,8 @@ def ring_kernel_plan(which: str, wire_dtype, n_local: int, q_local: int,
 
 
 def _ptr(t):
-    return None if t is None else t.data_ptr()
+    """A tensor's address (an int is one already: a mapped pointer)."""
+    return None if t is None else t if isinstance(t, int) else t.data_ptr()
 
 
 def _check_ring(queries, query_ids, blocks, carries):
@@ -475,8 +564,8 @@ def _ranks(ring, queries, query_ids, blocks, carries, outs, qn, **per_rank):
         bh=_ptr(blocks[r][4]), bl=_ptr(blocks[r][5]),
         carry_d=_ptr(carries[r][0]), carry_i=_ptr(carries[r][1]),
         out_d=_ptr(outs[r][0]), out_i=_ptr(outs[r][1]),
-        flags=ring.words(r), succ_flags=ring.words((r + 1) % P),
-        pred_flags=ring.words((r - 1) % P),
+        flags=ring.words(r), succ_flags=ring.succ_words(r),
+        pred_flags=ring.pred_words(r),
         succ_remote=int(ring.succ_remote[r]),
         pred_remote=int(ring.pred_remote[r]),
         **{name: _ptr(ts[r]) for name, ts in per_rank.items()})
@@ -484,8 +573,9 @@ def _ranks(ring, queries, query_ids, blocks, carries, outs, qn, **per_rank):
 
 
 def _launch_per_card(ring, fn_name, name, ranks, queries, blocks, carries, kw,
-                     epoch, timeout_s):
-    """One launch per card over the ranks it holds, then the error check."""
+                     epoch, timeout_s, ring_size=None):
+    """One launch per card over the ranks it holds, then the error check.
+    ``ring_size`` is the whole ring's (default: this call's ranks)."""
     lib = _lib()
     fn = getattr(lib, fn_name)
     q0, blk0, (cd0, _) = queries[0], blocks[0][0], carries[0]
@@ -497,7 +587,8 @@ def _launch_per_card(ring, fn_name, name, ranks, queries, blocks, carries, kw,
             stream = torch.cuda.current_stream().cuda_stream
             rc = fn(ctypes.cast(arr, ctypes.c_void_p), len(local),
                     q0.shape[0], blk0.shape[0], q0.shape[1], cd0.shape[1],
-                    _WIRE[blk0.dtype], len(queries), int(kw["exclude_self"]),
+                    _WIRE[blk0.dtype], ring_size or len(queries),
+                    int(kw["exclude_self"]),
                     int(kw["exclude_zero"]), float(kw["zero_eps"]), epoch,
                     int(timeout_s * 1e9), err.data_ptr(),
                     precision_code(kw["precision"]), stream)
@@ -524,12 +615,22 @@ def fused_rotation_grid(ring: RingTransport, queries, query_ids, blocks,
                         carries, slots, *, c_tile: int,
                         exclude_self: bool = True, exclude_zero: bool = True,
                         zero_eps: float = 0.0, timeout_s: float = TIMEOUT_S,
-                        query_norms=None, precision=None):
+                        query_norms=None, precision=None, ring_size=None,
+                        hand_on=None):
     """The whole uni rotation: P rounds in which every rank merges its
     resident block, round 0 its own ``blocks[r]`` = (block, ids, None[,
     norms]) and round j the block in its slot j % 2 of ``slots[r]``
     (``landing_slots``), while the resident block streams (with its norms)
-    into the successor's slot (j + 1) % 2. Returns the final carries."""
+    into the successor's slot (j + 1) % 2. Returns the final carries.
+
+    On a ring that spans processes these are this process's ranks,
+    ``ring_size`` is the whole ring's P and ``ring`` a transport with
+    ``links``: on cards the last rank streams into the next process's
+    first rank's slots over CUDA IPC (the first rank's slots are the
+    transport's exports, in place of ``slots[0]``); the plain version
+    calls ``hand_on(outbox, landing)`` each round but the last, which
+    moves the last rank's outgoing traveler to the next process and fills
+    the first rank's ``landing`` from the previous one."""
     blocks = [traveler(b) for b in blocks]
     slots = [traveler(s) for s in slots]
     for blk, _, scl, *_ in blocks:
@@ -545,13 +646,22 @@ def fused_rotation_grid(ring: RingTransport, queries, query_ids, blocks,
         raise ValueError("caller must pad the block to a c_tile multiple")
     kw = dict(c_tile=c_tile, exclude_self=exclude_self,
               exclude_zero=exclude_zero, zero_eps=zero_eps, precision=precision)
+    if ring.boundary and (ring.links is None or (cpu and hand_on is None)):
+        raise ValueError("the grid form across processes needs a transport "
+                         "with links (and, off the cards, hand_on)")
     if cpu:
         return fused_rotation_grid_reference(queries, query_ids, blocks,
-                                             carries, slots, **kw)
+                                             carries, slots, ring_size=ring_size,
+                                             hand_on=hand_on, **kw)
     P = len(queries)
     qn, blocks = _card_norms(queries, blocks, query_norms)
     slots = [s if s[3] is not None else s[:3] + (b[3].new_empty((2,) + tuple(b[3].shape)),)
              for s, b in zip(slots, blocks)]
+    succ = [slots[(r + 1) % P] for r in range(P)]
+    if ring.links is not None:
+        own, remote = ring.bind_links(*(blocks[0][j] for j in (0, 1, 3)))
+        slots[0] = own
+        succ[-1] = (remote[0], remote[1], None, remote[2])
     ring._ensure_flags()
     ring.calls += 1
     carries = [(cd.contiguous(), ci.contiguous()) for cd, ci in carries]
@@ -559,34 +669,39 @@ def fused_rotation_grid(ring: RingTransport, queries, query_ids, blocks,
     cbufs = [(cd.new_empty((2,) + tuple(cd.shape)),
               ci.new_empty((2,) + tuple(ci.shape))) for cd, ci in carries]
     ranks = _ranks(ring, queries, query_ids, blocks, carries, outs, qn,
-                   dst_blk=[slots[(r + 1) % P][0] for r in range(P)],
-                   dst_bids=[slots[(r + 1) % P][1] for r in range(P)],
-                   dst_bn=[slots[(r + 1) % P][3] for r in range(P)],
+                   dst_blk=[s[0] for s in succ], dst_bids=[s[1] for s in succ],
+                   dst_bn=[s[3] for s in succ],
                    slot_blk=[s[0] for s in slots], slot_bids=[s[1] for s in slots],
                    slot_bn=[s[3] for s in slots],
                    cbuf_d=[c[0] for c in cbufs], cbuf_i=[c[1] for c in cbufs])
     _launch_per_card(ring, "rotation_grid_launch",
                      kernel_name("fused_rotation_grid", precision),
-                     ranks, queries, blocks, carries, kw, ring.calls, timeout_s)
+                     ranks, queries, blocks, carries, kw, ring.calls, timeout_s,
+                     ring_size=ring_size)
     return outs
 
 
 def fused_rotation_grid_reference(queries, query_ids, blocks, carries, slots,
                                   *, c_tile, exclude_self=True,
                                   exclude_zero=True, zero_eps=0.0,
-                                  precision=None):
+                                  precision=None, ring_size=None, hand_on=None):
     """Plain PyTorch version of ``fused_rotation_grid`` (any device): the P
     rounds of ``fused_round_dma_reference``, rank by rank, with no stream
-    in the last round."""
-    P = len(blocks)
+    in the last round. With ``hand_on`` the ranks are one process's part
+    of a ring of ``ring_size``: the last rank's traveler goes into an
+    outbox each round, which ``hand_on`` moves to the next process."""
+    P = ring_size or len(blocks)
     kw = dict(c_tile=c_tile, exclude_self=exclude_self,
               exclude_zero=exclude_zero, zero_eps=zero_eps, precision=precision)
     held = [traveler(b) for b in blocks]
     for r in range(P):
         if r < P - 1:
             land = [slot(s, (r + 1) % 2) for s in slots]
+            outbox = None if hand_on is None else landing_buffers(*held[-1])
             carries = fused_round_dma_reference(queries, query_ids, held,
-                                                carries, land, **kw)
+                                                carries, land, outbox=outbox, **kw)
+            if hand_on is not None:
+                hand_on(outbox, land[0])
             held = land
         else:
             carries = [block_merge_exact_reference(

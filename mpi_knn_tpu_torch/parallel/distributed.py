@@ -12,19 +12,30 @@ Process 0 listens on that address. A failed start-up raises
 ``RuntimeError`` naming the coordinator, the count and the id within
 ``timeout_seconds``; it never waits at a barrier for ever.
 
-The backend rule, stated once (``backend`` in the start-up info):
+A process drives ``local_devices`` ranks (``init_multihost(...,
+local_devices=n)``, the JAX report's ``local_devices``). The card rule,
+stated once: on CUDA, rank ``j`` of process ``p`` runs on card ``(p·n +
+j) % device_count`` (``Pod.cards``). On one card that is ``cuda:0`` n
+times in every process; on four cards with 2 processes × 2 ranks it is
+cards {0, 1} and {2, 3}. On the CPU every rank is the CPU device.
 
-- every process on a card of its own: NCCL moves CUDA tensors (a group of
-  its own, ``"nccl+gloo"``), gloo host objects (the default group);
-- processes that share a card, or run on the CPU: gloo alone (``"gloo"``),
-  and a CUDA tensor is staged through host memory on its way: NCCL refuses
-  two ranks of one communicator on one device.
+The backend rule, stated once (``backend`` in the start-up info), reads
+every process's cards as (host, card) pairs:
 
-The rule reads each process's card after the gloo group has formed, so
+- no (host, card) pair held by two processes: NCCL moves CUDA tensors (a
+  group of its own, ``"nccl+gloo"``), gloo host objects (the default
+  group). NCCL binds one card a process: a CUDA tensor on another of the
+  process's cards is staged through the process's first card (``Pod.card``)
+  on its way, one copy between the two cards (``EXCHANGES["hop_bytes"]``);
+- a card shared by two processes, or the CPU: gloo alone (``"gloo"``), and
+  a CUDA tensor is staged through host memory on its way: NCCL refuses two
+  ranks of one communicator on one device.
+
+The rule reads every process's cards after the gloo group has formed, so
 every process takes the same branch. No transport is swapped after a
-failure. A process drives one card, ``process_id % device_count``; a
-pod with several cards a process is not ported (``parallel/mesh.py``
-refuses more than one rank a process on CUDA).
+failure. Every process's hostname is kept (``Pod.hosts``): the grid
+form's transport across processes (``parallel/ipc.py``) reaches only the
+cards of one machine.
 """
 
 from __future__ import annotations
@@ -57,10 +68,14 @@ class Pod:
     process_id: int
     num_processes: int
     backend: str  # "gloo" or "nccl+gloo"
-    card: torch.device  # this process's device: its card, or the CPU
+    card: torch.device  # this process's first device (NCCL's card), or the CPU
     nccl: object | None  # the NCCL group for CUDA tensors, else None
     startup_seconds: float
     coordinator: str
+    # every rank's device in this process (the card rule), and every
+    # process's hostname in process order
+    cards: list = dataclasses.field(default_factory=list)
+    hosts: list = dataclasses.field(default_factory=list)
     # seconds of the last gather of a result across processes
     gather_seconds: float = 0.0
 
@@ -100,18 +115,19 @@ def init_multihost(coordinator_address: Optional[str] = None,
                    num_processes: Optional[int] = None,
                    process_id: Optional[int] = None,
                    timeout_seconds: int = 300,
-                   device=DEFAULT_DEVICE) -> dict:
+                   device=DEFAULT_DEVICE, local_devices: int = 1) -> dict:
     """Join (or skip, in a single-process run) the process group.
 
     With no arguments, reads ``JAX_COORDINATOR_ADDRESS`` /
     ``JAX_NUM_PROCESSES`` / ``JAX_PROCESS_ID`` and does nothing when none
     asks for more than one process. ``device`` is the kind the process
-    runs on ("cuda" unless the caller asks for the CPU); on CUDA the
-    process takes card ``process_id % device_count``.
+    runs on ("cuda" unless the caller asks for the CPU); the process
+    drives ``local_devices`` ranks, on CUDA on the cards of the card rule
+    (the module's docstring).
 
     Returns {process_id, num_processes, devices, local_devices, backend}
-    (with ``card``, ``coordinator`` and ``startup_seconds`` in a pod) for
-    the run report.
+    (with ``card``, ``cards``, ``hosts``, ``coordinator`` and
+    ``startup_seconds`` in a pod) for the run report.
     """
     global _POD
     coordinator_address = coordinator_address or os.environ.get(ENV_COORDINATOR)
@@ -135,11 +151,13 @@ def init_multihost(coordinator_address: Optional[str] = None,
     if not 0 <= process_id < num_processes:
         raise RuntimeError(f"multi-host init failed ({where}): the id must lie "
                            f"in [0, {num_processes})")
+    if local_devices < 1:
+        raise RuntimeError(f"multi-host init failed ({where}): local_devices "
+                           f"must be >= 1, got {local_devices}")
+    cards = pod_cards(dev, process_id, local_devices)
+    mine = cards[0]
     if dev.type == "cuda":
-        mine = torch.device("cuda", process_id % torch.cuda.device_count())
         torch.cuda.set_device(mine)
-    else:
-        mine = dev
     t0 = time.perf_counter()
     timeout = datetime.timedelta(seconds=timeout_seconds)
     try:
@@ -148,12 +166,11 @@ def init_multihost(coordinator_address: Optional[str] = None,
                                 timeout=timeout)
         host = socket.gethostname()
         seen = [None] * num_processes
-        dist.all_gather_object(seen, (host, dev.type, str(mine)))
-        used = [(h, c) for h, kind, c in seen if kind == "cuda"]
-        own_cards = (all(kind == "cuda" for _, kind, _ in seen)
-                     and len(set(used)) == len(used))
+        dist.all_gather_object(seen, (host, dev.type,
+                                      sorted({str(c) for c in cards})))
+        hosts = [h for h, _, _ in seen]
         nccl = None
-        if own_cards:
+        if backend_of(seen) == "nccl+gloo":
             nccl = dist.new_group(backend="nccl", timeout=timeout)
             # form the communicator now, inside the start-up's timeout
             probe = torch.ones(1, device=mine)
@@ -169,10 +186,12 @@ def init_multihost(coordinator_address: Optional[str] = None,
                    backend="nccl+gloo" if nccl is not None else "gloo",
                    card=mine, nccl=nccl,
                    startup_seconds=time.perf_counter() - t0,
-                   coordinator=coordinator_address)
+                   coordinator=coordinator_address, cards=cards, hosts=hosts)
     info = {"process_id": p.process_id, "num_processes": p.num_processes,
-            "devices": num_processes, "local_devices": 1, "backend": p.backend,
-            "card": str(p.card), "coordinator": p.coordinator,
+            "devices": num_processes * local_devices,
+            "local_devices": local_devices, "backend": p.backend,
+            "card": str(p.card), "cards": [str(c) for c in cards],
+            "hosts": hosts, "coordinator": p.coordinator,
             "startup_seconds": p.startup_seconds}
     log.info("distributed: process %d/%d over %s, %d global devices (%d local)",
              info["process_id"], info["num_processes"], info["backend"],
@@ -180,10 +199,48 @@ def init_multihost(coordinator_address: Optional[str] = None,
     return info
 
 
+def backend_of(seen) -> str:
+    """The backend rule over every process's (host, device kind, its
+    distinct cards): NCCL for CUDA tensors where every process is on cards
+    and no (host, card) pair is held by two processes, else gloo alone."""
+    used = [(h, c) for h, kind, cs in seen if kind == "cuda" for c in cs]
+    own_cards = (all(kind == "cuda" for _, kind, _ in seen)
+                 and len(set(used)) == len(used))
+    return "nccl+gloo" if own_cards else "gloo"
+
+
+def pod_cards(dev: torch.device, process_id: int, n: int) -> list:
+    """The devices of process ``process_id``'s ``n`` ranks: on CUDA card
+    ``(process_id·n + j) % device_count`` for rank j, else ``dev`` n
+    times."""
+    if dev.type != "cuda":
+        return [dev] * n
+    count = torch.cuda.device_count()
+    return [torch.device("cuda", (process_id * n + j) % count) for j in range(n)]
+
+
 def shutdown() -> None:
-    """Leave the process group (every process calls it at its end)."""
+    """Leave the process group (every process calls it at its end). The
+    mappings of other processes' memory (``parallel/ipc.py``) are closed
+    first, between two barriers: no process frees what another still maps,
+    and none closes a mapping a kernel of its neighbour still writes
+    through. A teardown that fails (a neighbour gone) is logged, and this
+    process's memory is then left to its exit."""
     global _POD
     if _POD is not None and dist.is_initialized():
+        from mpi_knn_tpu_torch.parallel import ipc
+
+        if ipc.active():
+            try:
+                for c in dict.fromkeys(_POD.cards):
+                    if c.type == "cuda":
+                        torch.cuda.synchronize(c)
+                dist.barrier()
+                ipc.close_mappings()
+                dist.barrier()
+                ipc.free_exports()
+            except Exception as e:  # never mask the error that ended the run
+                log.warning("distributed: the CUDA IPC teardown failed: %s", e)
         dist.destroy_process_group()
     _POD = None
 
@@ -205,6 +262,24 @@ def _group_of(t: torch.Tensor):
     return p.nccl if t.device.type == "cuda" and p.nccl is not None else None
 
 
+def _hops(t: torch.Tensor) -> bool:
+    """Whether ``t`` moves by NCCL from a card other than the process's
+    NCCL card, and so is staged through that card."""
+    p = _require_pod()
+    return p.nccl is not None and t.device.type == "cuda" and t.device != p.card
+
+
+def _nccl_side(t: torch.Tensor) -> torch.Tensor:
+    """``t`` as the process group sends it: a host copy where it is
+    staged, a copy on the NCCL card where it hops, else ``t`` itself."""
+    if _staged(t):
+        return t.cpu().contiguous()
+    if _hops(t):
+        EXCHANGES["hop_bytes"] += t.numel() * t.element_size()
+        return t.to(_require_pod().card).contiguous()
+    return t.contiguous()
+
+
 # point-to-point exchanges of this process: count, bytes sent, and host
 # seconds from each one's issue to its wait's return. Staged through host
 # memory, the clock starts once the card has finished the work that wrote
@@ -214,29 +289,35 @@ def _group_of(t: torch.Tensor):
 # merge, that merge's issue). A copy from pageable host memory waits for
 # the work queued before it on the stream, so under overlap the H2D share
 # includes the round's merge. Over NCCL ``seconds`` is the host's issue
-# and wait only, the transfer running on NCCL's stream.
+# and wait only, the transfer running on NCCL's stream; ``hop_bytes`` are
+# the bytes copied between a process's own cards on the way to or from
+# its NCCL card.
 EXCHANGES = {"exchanges": 0, "bytes_sent": 0, "seconds": 0.0,
-             "d2h_seconds": 0.0, "h2d_seconds": 0.0}
+             "d2h_seconds": 0.0, "h2d_seconds": 0.0, "hop_bytes": 0}
 
 
 def reset_exchange_stats() -> None:
     EXCHANGES.update(exchanges=0, bytes_sent=0, seconds=0.0, d2h_seconds=0.0,
-                     h2d_seconds=0.0)
+                     h2d_seconds=0.0, hop_bytes=0)
 
 
 class Exchange:
     """Sends and receives between processes, issued at once: ``wait``
     makes their results visible in stream order (NCCL: the current stream
-    waits for NCCL's; staged: the host buffers land on the card)."""
+    waits for NCCL's, and what landed on the NCCL card for another card
+    is copied there; staged: the host buffers land on the card)."""
 
-    def __init__(self, works, landings, t0: float):
+    def __init__(self, works, landings, t0: float, hops=()):
         self.works = works
         self.landings = landings  # (device tensor, host buffer)
+        self.hops = list(hops)  # (tensor on another card, NCCL card buffer)
         self.t0 = t0
 
     def wait(self) -> None:
         for w in self.works:
             w.wait()
+        for dst, buf in self.hops:
+            dst.copy_(buf)
         t1 = time.perf_counter()
         for dst, buf in self.landings:
             dst.copy_(buf)
@@ -244,25 +325,24 @@ class Exchange:
             EXCHANGES["h2d_seconds"] += time.perf_counter() - t1
         if self.t0 is not None:
             EXCHANGES["seconds"] += time.perf_counter() - self.t0
-        self.works, self.landings, self.t0 = [], [], None
+        self.works, self.landings, self.hops, self.t0 = [], [], [], None
 
 
 def exchange(sends, recvs) -> Exchange:
     """Point-to-point moves: ``sends`` (tensor, process, tag) go out,
     ``recvs`` (tensor, process, tag) are written, all issued now. Every
     process must issue its matching ops in the same order. A CUDA tensor
-    moves by NCCL when the pod has it, else through a host copy."""
+    moves by NCCL when the pod has it (through the NCCL card, from and to
+    the process's other cards), else through a host copy."""
     staged = [t for t, _, _ in sends if _staged(t)]
     if staged:  # the work that wrote them is not the exchange's
         torch.cuda.current_stream(staged[0].device).synchronize()
     t0 = time.perf_counter()
-    ops, landings = [], []
+    ops, landings, hops = [], [], []
     for t, peer, tag in sends:
         EXCHANGES["bytes_sent"] += t.numel() * t.element_size()
-        if _staged(t):
-            t = t.cpu()
-        ops.append(dist.P2POp(dist.isend, t.contiguous(), peer,
-                              group=_group_of(t), tag=tag))
+        t = _nccl_side(t)
+        ops.append(dist.P2POp(dist.isend, t, peer, group=_group_of(t), tag=tag))
     if staged:
         EXCHANGES["d2h_seconds"] += time.perf_counter() - t0
     for t, peer, tag in recvs:
@@ -270,17 +350,32 @@ def exchange(sends, recvs) -> Exchange:
         if _staged(t):
             t = torch.empty(t.shape, dtype=t.dtype)
             landings.append((dst, t))
+        elif _hops(t):
+            EXCHANGES["hop_bytes"] += t.numel() * t.element_size()
+            t = torch.empty(t.shape, dtype=t.dtype, device=_require_pod().card)
+            hops.append((dst, t))
         ops.append(dist.P2POp(dist.irecv, t, peer, group=_group_of(t), tag=tag))
     works = dist.batch_isend_irecv(ops) if ops else []
     EXCHANGES["exchanges"] += 1
-    return Exchange(works, landings, t0)
+    return Exchange(works, landings, t0, hops)
+
+
+def swap_host(sends, recvs) -> None:
+    """Point-to-point moves of host tensors through gloo, outside the
+    exchange counts (set-up messages such as ``parallel/ipc.py``'s
+    handles): ``sends`` / ``recvs`` as :func:`exchange` takes them, waited
+    for here."""
+    ops = ([dist.P2POp(dist.isend, t, peer, tag=tag) for t, peer, tag in sends]
+           + [dist.P2POp(dist.irecv, t, peer, tag=tag) for t, peer, tag in recvs])
+    for w in dist.batch_isend_irecv(ops) if ops else []:
+        w.wait()
 
 
 def all_gather_rows(t: torch.Tensor) -> torch.Tensor:
     """Every process's ``t`` (equal shapes), concatenated along rows in
     process order, on ``t``'s device."""
     p = _require_pod()
-    src = t.cpu() if _staged(t) else t.contiguous()
+    src = _nccl_side(t)
     parts = [torch.empty_like(src) for _ in range(p.num_processes)]
     dist.all_gather(parts, src, group=_group_of(src))
     return torch.cat(parts).to(t.device)
@@ -290,7 +385,7 @@ def all_to_all_rows(t: torch.Tensor) -> torch.Tensor:
     """``t``'s leading axis cut into one equal part per process, part j to
     process j; returns the parts received, in process order, with ``t``'s
     shape, on its device."""
-    src = t.cpu() if _staged(t) else t.contiguous()
+    src = _nccl_side(t)
     out = torch.empty_like(src)
     dist.all_to_all_single(out, src, group=_group_of(src))
     return out.to(t.device)

@@ -14,10 +14,14 @@ no bytes move between them.
 After ``parallel/distributed.init_multihost`` the mesh spans every
 process's ranks in process order (the JAX package's mesh over
 ``jax.devices()``): ``num_devices`` counts each process's ranks (logical
-ranks on the CPU; on CUDA one, the process's one card: more is refused),
-and ``RingMesh.owners`` records the process that owns each
-rank. A process holds and drives only its own ranks; the devices it
-records for another process's ranks are that process's names for them.
+ranks on the CPU; on CUDA the first ``num_devices`` of the cards the pod's
+card rule gave the process, default all of them), and
+``RingMesh.owners`` records the process that owns each rank. A process
+holds and drives only its own ranks; the devices it records for another
+process's ranks are that process's names for them. ``make_mesh2d`` in a
+pod builds the (dp × ring) grid over the same global ranks, ring axis
+minor (the JAX rule): a dp group may lie inside one process or span
+several, and each group's ``RingMesh`` has its own ``owners``.
 
 The in-kernel ring transport (``ring_fusion="fused"`` on cards: K4, K5)
 stores straight into the next card's memory, so it needs peer access
@@ -38,7 +42,7 @@ class RingMesh(list):
     """An ordered list of ``torch.device``s with the ring axis's name and,
     across processes, the process that owns each rank (``owners``; None
     in one process). Owners run in process order, each process's ranks
-    consecutive."""
+    consecutive (a dp group's ring may start at any process)."""
 
     def __init__(self, devices, axis_name: str = "ring", owners=None):
         super().__init__(torch.device(d) for d in devices)
@@ -48,12 +52,11 @@ class RingMesh(list):
         self.axis_names = (axis_name,)
         self.owners = None if owners is None else [int(o) for o in owners]
         if self.owners is not None and (
-                len(self.owners) != len(self)
-                or any(b not in (a, a + 1) for a, b in zip(self.owners, self.owners[1:]))
-                or self.owners[0] != 0):
+                len(self.owners) != len(self) or self.owners[0] < 0
+                or any(b not in (a, a + 1) for a, b in zip(self.owners, self.owners[1:]))):
             raise ValueError(
                 f"ring owners {self.owners} must name, rank by rank, processes "
-                "0, 1, ... in order, each process's ranks consecutive")
+                "in order, each process's ranks consecutive")
 
     def spans_processes(self) -> bool:
         return self.owners is not None and len(set(self.owners)) > 1
@@ -71,8 +74,11 @@ class Mesh2D(list):
     group, the ring on the minor axis. A grid may name one card several
     times, as a ring mesh may."""
 
-    def __init__(self, grid, dp_axis: str = "dp", ring_axis: str = "ring"):
-        super().__init__(RingMesh(row, ring_axis) for row in grid)
+    def __init__(self, grid, dp_axis: str = "dp", ring_axis: str = "ring",
+                 owners=None):
+        super().__init__(RingMesh(row, ring_axis,
+                                  owners=None if owners is None else owners[g])
+                         for g, row in enumerate(grid))
         if not self or len({len(r) for r in self}) != 1:
             raise ValueError("a 2-D mesh needs dp >= 1 groups of one ring size")
         self.axis_names = (dp_axis, ring_axis)
@@ -131,31 +137,32 @@ def make_ring_mesh(num_devices: Optional[int] = None, axis_name: str = "ring",
 
 
 def _pod_mesh(num_devices, axis_name: str, kind: str) -> RingMesh:
-    """Every process's ranks: ``num_devices`` logical CPU ranks each, or
-    each process's one card."""
+    """Every process's ranks in process order: ``num_devices`` logical CPU
+    ranks each, or the first ``num_devices`` of each process's cards
+    (default all). Every process must ask for the same count."""
     import torch.distributed as dist
 
     from mpi_knn_tpu_torch.parallel import distributed
 
     if kind == "cuda":
-        if num_devices not in (None, 1):
-            raise more_cards_a_process_error(num_devices)
-        mine = [distributed.pod().card]
+        cards = distributed.pod().cards
+        n = len(cards) if num_devices is None else num_devices
+        if n > len(cards):
+            raise ValueError(
+                f"{n} ranks a process, but the pod placed {len(cards)} "
+                f"({[str(c) for c in cards]}): pass local_devices={n} to "
+                "init_multihost (--devices on the CLI)")
+        mine = list(cards[:n])
     else:
         mine = [torch.device(kind)] * (num_devices or 1)
     every = [None] * distributed.process_count()
     dist.all_gather_object(every, [str(d) for d in mine])
+    if len({len(ds) for ds in every}) != 1:
+        raise ValueError(f"every process of a pod drives as many ranks: got "
+                         f"{[len(ds) for ds in every]}")
     devices = [d for ds in every for d in ds]
     owners = [p for p, ds in enumerate(every) for _ in ds]
     return RingMesh(devices, axis_name, owners=owners)
-
-
-def more_cards_a_process_error(num_devices) -> ValueError:
-    """The refusal of more than one card a process in a pod."""
-    return ValueError(
-        f"{num_devices} ranks a process on CUDA across processes are not "
-        "ported: a process drives one card (card process_id % device_count); "
-        "drop --devices or pass 1, and start one process a card")
 
 
 def make_mesh2d(dp: int, ring: int, dp_axis: str = "dp",
@@ -165,11 +172,24 @@ def make_mesh2d(dp: int, ring: int, dp_axis: str = "dp",
     visible cards when ``device`` is CUDA, logical ranks on the CPU): the
     queries shard over every device, the corpus rings within each dp group,
     so query throughput and corpus capacity scale apart. The ring is the
-    minor axis: a group's ranks are consecutive devices."""
+    minor axis: a group's ranks are consecutive devices. In a pod of
+    processes, and with ``devices`` not given, the grid is over every
+    process's ranks (dp·ring / processes each), in process order."""
+    from mpi_knn_tpu_torch.parallel import distributed
+
     if dp < 1 or ring < 1:
         raise ValueError(f"a 2-D mesh needs dp, ring >= 1, got {dp}×{ring}")
     need = dp * ring
     kind = torch.device(device).type
+    procs = distributed.process_count()
+    if devices is None and procs > 1:
+        if need % procs:
+            raise ValueError(f"a {dp}×{ring} mesh over {procs} processes: "
+                             f"{need} ranks do not split evenly")
+        flat = _pod_mesh(need // procs, ring_axis, kind)
+        return Mesh2D([flat[g * ring:(g + 1) * ring] for g in range(dp)],
+                      dp_axis, ring_axis,
+                      owners=[flat.owners[g * ring:(g + 1) * ring] for g in range(dp)])
     if devices is None:
         if kind == "cuda":
             devices = [torch.device("cuda", i)

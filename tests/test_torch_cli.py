@@ -335,19 +335,6 @@ def test_process_id_alone_is_refused_in_the_reference_words(monkeypatch):
     assert "refusing to silently run single-host" in str(port.value)
 
 
-def test_cuda_pod_with_several_cards_a_process_is_refused_by_name(monkeypatch):
-    """``--devices`` > 1 on CUDA in a pod exits before the process joins:
-    a process drives one card."""
-    for name in ("JAX_COORDINATOR_ADDRESS", "JAX_NUM_PROCESSES", "JAX_PROCESS_ID"):
-        monkeypatch.delenv(name, raising=False)
-    with pytest.raises(SystemExit) as e:
-        port_cli.main(["--data", "synthetic:64x8c2", "--devices", "2",
-                       "--coordinator", "127.0.0.1:1", "--num-processes", "2",
-                       "--process-id", "0"])
-    assert "a process drives one card" in str(e.value)
-    assert "2 ranks a process on CUDA across processes" in str(e.value)
-
-
 _RUN_ARGV = ["--data", "synthetic:256x16c4", "--k", "5", "--loo",
              "--backend", "ring-overlap", "--corpus-tile", "32"]
 _POD_ARGV = [*_RUN_ARGV, "--device", "cpu", "--devices", "4"]
@@ -411,7 +398,8 @@ def test_two_process_run_gives_the_jax_cli_ids(tmp_path):
     for pid, (report, nn, _) in enumerate(got):
         dist = report["notes"]["distributed"]
         assert (dist["process_id"], dist["num_processes"]) == (pid, 2)
-        assert dist["backend"] == "gloo" and dist["devices"] == 2
+        assert dist["backend"] == "gloo" and dist["devices"] == 8
+        assert dist["local_devices"] == 4
         assert report["backend"] == "ring-overlap"
         assert report["config"]["num_processes"] == 2
         assert "gather" in report["phase_seconds"]
@@ -446,6 +434,47 @@ def test_two_process_run_killed_and_resumed(tmp_path):
         assert "resuming ring at round 3/8" in out
         assert np.array_equal(nn["ids"], w["ids"])
         assert np.array_equal(nn["dists"], w["dists"])
+
+
+@pytest.mark.parametrize("extra,single", [
+    (["--devices", "2"], ["--devices", "4"]),
+    (["--dp", "2"], ["--devices", "8", "--dp", "2"]),
+])
+def test_two_process_run_with_ranks_a_process_and_dp(tmp_path, extra, single):
+    """The run CLI in two processes with ``--devices 2`` (a 4-rank ring)
+    and with ``--dp 2`` (a 2 × 4 grid, each dp group inside one process):
+    every process saves the port's single-process run over the same ranks,
+    bit for bit, and the JAX CLI's ids; the report counts the global
+    devices."""
+    got = _cli_pod(tmp_path, [*extra, "-q"], "d")
+    one, ref = tmp_path / "one", tmp_path / "ref"
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)  # as the pod's processes run
+    try:
+        assert port_cli.main([*_RUN_ARGV, "--device", "cpu", *single,
+                              "--save-neighbors", str(one)]) == 0
+    finally:
+        torch.set_num_threads(threads)
+    want = np.load(str(one) + ".npz")
+    assert jax_cli.main([*_RUN_ARGV, "--devices", "4", "--save-neighbors",
+                         str(ref)]) == 0
+    jax_ids = np.load(str(ref) + ".npz")["ids"]
+    for report, nn, _ in got:
+        dist = report["notes"]["distributed"]
+        local = 2 if extra[0] == "--devices" else 4
+        assert (dist["devices"], dist["local_devices"]) == (2 * local, local)
+        assert np.array_equal(nn["ids"], want["ids"])
+        assert np.array_equal(nn["dists"], want["dists"])
+        assert np.array_equal(nn["ids"], jax_ids)
+
+
+def test_dp_that_does_not_divide_the_pod_s_devices_is_refused():
+    """The JAX CLI's check over the global device count: processes ×
+    devices."""
+    args = port_cli.build_parser().parse_args(
+        [*_RUN_ARGV, "--device", "cpu", "--devices", "3", "--dp", "4"])
+    with pytest.raises(SystemExit, match="--dp 4 must divide the device count 6"):
+        port_cli._mesh2d(args, torch.device("cpu"), {"devices": 6})
 
 
 def test_missing_data_file_is_named():

@@ -2253,9 +2253,29 @@ def test_multiproc_on_one_card_is_the_single_process_ring(cuda_device):
 
     _build.build_all()  # the workers load what this process built
     X, _ = make_mnist_like(4096)
-    launches = chip_smoke.multiproc_phase(torch.device("cuda", 0), X, _mp_recall(X))
+    launches, _ = chip_smoke.multiproc_phase(torch.device("cuda", 0), X, _mp_recall(X))
     assert launches["fused_round_dma"] == 2 + 1  # the one-shot, the stopped run
     assert launches["fused_block_merge[exact]"] == 2 + 1  # bidir, the last round
+
+
+@pytest.mark.cuda
+def test_multiproc_ranks_on_one_card_is_the_single_process_ring(cuda_device):
+    """The smoke's pod at a small size with two ranks a process on the one
+    card (cuda:0 named twice in each of two processes): every form, the
+    grid form (K5 across the processes over CUDA IPC) and --dp 2 among
+    them, bit for bit the single-process P = 4 ring (--dp: the 2 × 2
+    mesh), with the smoke's launch and boundary gates; K5 once a process,
+    no block moved by the process group."""
+    import chip_smoke
+    from mpi_knn_tpu_torch.data.synthetic import make_mnist_like
+    from mpi_knn_tpu_torch.ops import _build
+
+    _build.build_all()
+    X, _ = make_mnist_like(4096)
+    _, ranks = chip_smoke.multiproc_phase(torch.device("cuda", 0), X,
+                                          _mp_recall(X), ranks=2)
+    assert ranks["fused_rotation_grid"] == 1 + 1  # the 1-D ring, --dp 2
+    assert ranks["fused_round_dma"] == 4 + 1 + 2 + 2  # 1-D, stopped, resumed, --dp
 
 
 @pytest.mark.cuda
@@ -2314,3 +2334,48 @@ def test_multiproc_across_cards_equals_the_single_process_ring(cuda_device, tmp_
     assert (tmp_path / "ck-proc0" / "knn_state.npz").exists()
     assert not any((tmp_path / f"ck-proc{p}" / "knn_state.npz").exists()
                    for p in (1, 2, 3))
+
+
+@pytest.mark.cuda
+def test_multiproc_ranks_across_cards_equals_the_single_process_ring(cuda_device,
+                                                                     tmp_path):
+    """Two processes of two cards each (cards {0, 1} and {2, 3}; NCCL
+    between the processes through each one's first card, K4's peer stores
+    inside each): fused-dma, bidir, xla, grid (K5 over CUDA IPC between
+    cards of one host), the resumable ring and --dp 2 bit for bit the
+    single-process 4-card ring (--dp: the 4-card 2 × 2 mesh). Skips below
+    four cards."""
+    import chip_smoke
+    from mpi_knn_tpu_torch.data.synthetic import make_mnist_like
+    from mpi_knn_tpu_torch.ops import _build
+    from mpi_knn_tpu_torch.parallel.mesh import make_mesh2d
+
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four cards")
+    _build.build_all()
+    cards = [torch.device("cuda", c) for c in range(4)]
+    m = 8192
+    X, _ = make_mnist_like(m)
+    Xd = torch.from_numpy(X).to(cards[0])
+    single = chip_smoke._single_forms(cards[0], Xd, cards, chip_smoke.MP_RANK_FORMS)
+    single.update(chip_smoke._single_forms(
+        cards[0], Xd, make_mesh2d(2, 2, devices=cards), chip_smoke.MP_DP_FORMS))
+    single[chip_smoke.MP_RESUMABLE] = single["fused-dma/K4"]
+    env = {"MP_RANKS": "2",
+           "NCCL_SOCKET_IFNAME": os.environ.get("NCCL_SOCKET_IFNAME", "lo")}
+    got = chip_smoke.multiproc_pod(str(tmp_path), m, 2, env=env)
+    for pid, (doc, arrays, _) in enumerate(got):
+        info = doc["info"]
+        assert info["backend"] == "nccl+gloo", info
+        assert info["cards"] == [f"cuda:{2 * pid}", f"cuda:{2 * pid + 1}"], info
+        for label, (ids, dists, _, _) in single.items():
+            assert np.array_equal(arrays[f"ranks/{label}/ids"], ids), label
+            assert np.array_equal(arrays[f"ranks/{label}/dists"], dists), label
+        ranks = doc["ranks"]
+        assert ranks["fused-grid/K5"]["launches"]["fused_rotation_grid"] == 2  # a card
+        assert ranks["fused-grid/K5"]["boundary"]["exchanges"] == 0
+        assert ranks["fused-dma/K4"]["boundary"]["exchanges"] == 3
+        assert ranks["fused-dma/K4"]["launches"]["fused_round_dma"] == 4 * 2
+        assert ranks[chip_smoke.MP_RESUMABLE]["rounds_resumed"] == [2, 3, 4]
+    assert (tmp_path / "ck-ranks-proc0" / "knn_state.npz").exists()
+    assert not (tmp_path / "ck-ranks-proc1" / "knn_state.npz").exists()

@@ -7,13 +7,16 @@ with ``TKNN_MH_WORKER`` set): every process joins a gloo pod on the CPU
 through the launch interface's environment variables, drives the ring over
 the global mesh (``MH_LOCAL_DEVICES`` logical ranks a process, in process
 order), and saves what it got. The pods are the reference's two shapes,
-2 processes × 4 ranks (uni) and 4 × 2 (bidir), on its data (64×12 from
-``default_rng(7)``, k=4, query_tile=4, corpus_tile=8).
+2 processes × 4 ranks (uni, the grid form's plain version among its
+forms) and 4 × 2 (bidir), on its data (64×12 from ``default_rng(7)``,
+k=4, query_tile=4, corpus_tile=8), and two ``--dp 2`` pods: 2 × 2 (each
+dp group inside a process) and 4 × 1 (each group spans two processes).
 
 Each form's result, the same on every process, is held against the JAX
 package's single-process serial ``all_knn`` (ids equal, distances within
 ``rtol=1e-5``, the reference worker's tolerance), and bit for bit against
-the port's single-process ring over the same 8 ranks. The resumable ring
+the port's single-process ring over the same 8 ranks (the dp pods: its
+single-process 2 × 2 mesh over 4 logical ranks). The resumable ring
 stops after 2 rounds and resumes with per-process (non-shared) checkpoint
 directories: process 0's broadcast decides the round. A 2-process sharded
 clustered index is held bit for bit against the unsharded index. Each pod
@@ -54,12 +57,19 @@ FORMS = {
     "ring-overlap/xla": ({"backend": "ring-overlap"}, None),
     "ring-overlap/fused": ({"backend": "ring-overlap", "ring_fusion": "fused"}, None),
     "dma": ({"backend": "ring-overlap", "ring_fusion": "fused"}, "dma"),
+    "grid": ({"backend": "ring-overlap", "ring_fusion": "fused",
+              "ring_fused_rotation": "grid"}, "grid"),
 }
 
 
 def _forms(schedule):
-    # the dma form is uni's (ring_form never picks it under bidir)
-    return [f for f in FORMS if schedule == "uni" or f != "dma"]
+    # the dma and grid forms are uni's (ring_form never picks them under
+    # bidir); the blocking schedule is undefined on a 2-D mesh
+    if schedule == "bidir":
+        return [f for f in FORMS if f not in ("dma", "grid")]
+    if schedule == "dp":
+        return [f for f in FORMS if f != "ring/xla"]
+    return list(FORMS)
 
 
 def _run_form(X, schedule, form, mesh):
@@ -68,7 +78,7 @@ def _run_form(X, schedule, form, mesh):
     from mpi_knn_tpu_torch.backends.ring import all_knn_ring
 
     over, override = FORMS[form]
-    cfg = _cfg(schedule, **over)
+    cfg = _cfg("uni" if schedule == "dp" else schedule, **over)
     d, i = all_knn_ring(X, X, np.arange(len(X), dtype=np.int32), cfg, mesh=mesh,
                         overlap=cfg.backend == "ring-overlap", device="cpu",
                         form=override)
@@ -77,7 +87,8 @@ def _run_form(X, schedule, form, mesh):
 
 
 def _resumable_cfg(schedule):
-    return _cfg(schedule, backend="ring-overlap", ring_fusion="fused")
+    return _cfg("uni" if schedule == "dp" else schedule, backend="ring-overlap",
+                ring_fusion="fused")
 
 
 # ---------------------------------------------------------------------------
@@ -93,15 +104,16 @@ def _worker_ring(X, schedule, mesh, tmp, pid, out):
         distributed.reset_exchange_stats()
         out[f"{form}/d"], out[f"{form}/i"] = _run_form(X, schedule, form, mesh)
         out[f"{form}/exchanges"] = np.asarray(distributed.EXCHANGES["exchanges"])
-    P = len(mesh)
+    P = len(mesh[0]) if schedule == "dp" else len(mesh)
     total = bidir_rounds(P)[0] if schedule == "bidir" else P
     ck = os.path.join(tmp, f"ck-proc{pid}")  # per process: not shared
     qids = np.arange(len(X), dtype=np.int32)
     rounds = []
+    stop = 1 if schedule == "dp" else 2  # a dp group's ring is 2 rounds
     all_knn_ring_resumable(X, X, qids, _resumable_cfg(schedule), mesh=mesh,
-                           checkpoint_dir=ck, stop_after_rounds=2, device="cpu",
+                           checkpoint_dir=ck, stop_after_rounds=stop, device="cpu",
                            progress_cb=lambda r, t: rounds.append(r))
-    assert rounds == [1, 2], rounds
+    assert rounds == list(range(1, stop + 1)), rounds
     ck_file = os.path.join(ck, "knn_state.npz")
     assert os.path.exists(ck_file) == (pid == 0), "only process 0 writes"
     rounds2 = []
@@ -112,34 +124,7 @@ def _worker_ring(X, schedule, mesh, tmp, pid, out):
     out["resumable/d"], out["resumable/i"] = d.numpy(), i.numpy()
 
 
-def _worker_refusals(X, mesh, out):
-    from mpi_knn_tpu_torch import all_knn
-    from mpi_knn_tpu_torch import cli as port_cli
-    from mpi_knn_tpu_torch.backends.ring import all_knn_ring
-    from mpi_knn_tpu_torch.parallel.mesh import make_mesh2d
-
-    qids = np.arange(len(X), dtype=np.int32)
-    cfg = _cfg("uni", backend="ring-overlap", ring_fusion="fused",
-               ring_fused_rotation="grid")
-    try:
-        all_knn_ring(X, X, qids, cfg, mesh=mesh, device="cpu", form="grid")
-    except ValueError as e:
-        out["grid_refusal"] = np.asarray(str(e))
-    try:
-        all_knn(X, config=_cfg("uni", backend="ring-overlap"),
-                mesh=make_mesh2d(2, 2, device="cpu"), device="cpu")
-    except ValueError as e:
-        out["mesh2d_refusal"] = np.asarray(str(e))
-    args = port_cli.build_parser().parse_args(
-        ["--data", "synthetic:64x8c2", "--k", "3", "--device", "cpu",
-         "--devices", "2", "--dp", "2", "--backend", "ring-overlap"])
-    try:
-        port_cli._run(args, {"num_processes": 2})
-    except SystemExit as e:
-        out["dp_cli_refusal"] = np.asarray(str(e))
-
-
-def _worker_ivf(tmp, out):
+def _worker_ivf(tmp, out, local):
     import torch
 
     from mpi_knn_tpu_torch.ivf import (
@@ -154,12 +139,12 @@ def _worker_ivf(tmp, out):
     idx = load_ivf_index(os.path.join(tmp, "index.npz"), device="cpu")
     Q = np.load(os.path.join(tmp, "queries.npy"))
     qids = np.arange(len(Q), dtype=np.int32)
-    mesh = make_ring_mesh(1, device="cpu")
-    assert mesh.owners == [0, 1], mesh.owners
+    mesh = make_ring_mesh(local, device="cpu")
+    assert mesh.owners == [p for p in (0, 1) for _ in range(local)], mesh.owners
     for cap, name in ((None, "safe"), (2, "tight")):
         sidx = shard_ivf_index(idx, mesh=mesh, route_cap=cap)
         assert sidx.spans_processes
-        assert sum(s is not None for s in sidx.slices) == 1
+        assert sum(s is not None for s in sidx.slices) == local
         d, i, stats = search_ivf_sharded(sidx, Q, query_ids=qids, device="cpu")
         out[f"{name}/d"], out[f"{name}/i"] = d.numpy(), i.numpy()
         out[f"{name}/stats"] = stats.numpy()
@@ -183,7 +168,7 @@ def _worker() -> int:
 
     mode, tmp = os.environ[WORKER_ENV], os.environ["MH_TMPDIR"]
     local = int(os.environ["MH_LOCAL_DEVICES"])
-    info = init_multihost(timeout_seconds=60, device="cpu")
+    info = init_multihost(timeout_seconds=60, device="cpu", local_devices=local)
     pid = info["process_id"]
     assert info["num_processes"] == int(os.environ["JAX_NUM_PROCESSES"]), info
     assert info["backend"] == "gloo", info
@@ -191,13 +176,20 @@ def _worker() -> int:
     try:
         X = _data()
         if mode == "ivf":
-            _worker_ivf(tmp, out)
+            _worker_ivf(tmp, out, local)
+        elif mode == "dp":
+            from mpi_knn_tpu_torch.parallel.mesh import make_mesh2d
+
+            ranks = local * info["num_processes"]
+            assert info["devices"] == ranks and info["local_devices"] == local
+            mesh = make_mesh2d(2, ranks // 2, device="cpu")
+            assert [len(set(g.owners)) for g in mesh] == (
+                [1, 1] if local == 2 else [2, 2]), [g.owners for g in mesh]
+            _worker_ring(X, mode, mesh, tmp, pid, out)
         else:
             mesh = make_ring_mesh(local, device="cpu")
             assert len(mesh) == local * info["num_processes"]
             _worker_ring(X, mode, mesh, tmp, pid, out)
-            if pid == 0 or mode == "uni":
-                _worker_refusals(X, mesh, out)
     finally:
         shutdown()
     np.savez(os.path.join(tmp, f"out-{pid}.npz"), **out)
@@ -247,12 +239,20 @@ def _pod(tmp: Path, mode: str, num_processes: int, local: int) -> list:
 
 
 POD_SHAPES = {"uni": (2, 4), "bidir": (4, 2)}
+# --dp 2 pods: each group inside a process (2 × 2), each across two (4 × 1)
+DP_SHAPES = {"2x2": (2, 2), "4x1": (4, 1)}
 
 
 @pytest.fixture(scope="module")
 def pods(tmp_path_factory):
     return {s: _pod(tmp_path_factory.mktemp(f"pod-{s}"), s, *POD_SHAPES[s])
             for s in POD_SHAPES}
+
+
+@pytest.fixture(scope="module")
+def dp_pods(tmp_path_factory):
+    return {s: _pod(tmp_path_factory.mktemp(f"pod-dp-{s}"), "dp", *DP_SHAPES[s])
+            for s in DP_SHAPES}
 
 
 @pytest.fixture(scope="module")
@@ -335,16 +335,52 @@ def test_resume_round_comes_from_process_zeros_broadcast(pods, schedule):
         assert out["resumed_rounds"].tolist() == list(range(3, total + 1))
 
 
-def test_grid_across_processes_is_refused_by_name(pods):
-    msg = str(pods["uni"][0]["grid_refusal"])
-    assert "ring_fused_rotation='grid'" in msg
-    assert "no per-round boundary at which the process group" in msg
+def _single_process_mesh2d(form):
+    """The port's single-process 2 × 2 mesh over 4 logical ranks."""
+    from mpi_knn_tpu_torch.backends.ring_resumable import all_knn_ring_resumable
+    from mpi_knn_tpu_torch.parallel.mesh import make_mesh2d
+
+    X = _data()
+    mesh = make_mesh2d(2, 2, device="cpu")
+    with _one_thread():
+        if form == "resumable":
+            d, i = all_knn_ring_resumable(
+                X, X, np.arange(len(X), dtype=np.int32), _resumable_cfg("dp"),
+                mesh=mesh, device="cpu")
+            return d.numpy(), i.numpy()
+        return _run_form(X, "dp", form, mesh)
 
 
-def test_dp_across_processes_is_refused_by_name(pods):
-    for out in pods["uni"]:
-        assert "2-D dp×ring mesh (--dp) across processes" in str(out["mesh2d_refusal"])
-        assert "--dp with more than one process" in str(out["dp_cli_refusal"])
+DP_CASES = [(s, f) for s in DP_SHAPES for f in _forms("dp") + ["resumable"]]
+
+
+@pytest.mark.parametrize("shape,form", DP_CASES)
+def test_dp_pod_equals_jax_serial_and_the_single_process_mesh(dp_pods, jax_serial,
+                                                              shape, form):
+    """--dp 2 across processes: every process holds the whole result, the
+    JAX package's serial ids, and the single-process 2 × 2 mesh's bits."""
+    got = dp_pods[shape]
+    gd, gi = got[0][f"{form}/d"], got[0][f"{form}/i"]
+    for other in got[1:]:
+        assert np.array_equal(other[f"{form}/i"], gi)
+        assert np.array_equal(other[f"{form}/d"], gd)
+    wd, wi = jax_serial
+    np.testing.assert_array_equal(gi, wi)
+    np.testing.assert_allclose(gd, wd, rtol=1e-5)
+    sd, si = _single_process_mesh2d(form)
+    assert np.array_equal(gi, si) and np.array_equal(gd, sd)
+
+
+@pytest.mark.parametrize("shape", list(DP_SHAPES))
+def test_dp_groups_move_blocks_only_where_they_span_processes(dp_pods, shape):
+    """A group inside one process moves nothing through the process group;
+    a group across two moves its traveler once a rotating round (P − 1),
+    and the resume is process 0's."""
+    for out in dp_pods[shape]:
+        for form in _forms("dp"):
+            want = 0 if shape == "2x2" else 2 - 1
+            assert int(out[f"{form}/exchanges"]) == want, form
+        assert out["resumed_rounds"].tolist() == [2]
 
 
 def test_coordinator_that_never_answers_raises_within_the_timeout():
@@ -377,20 +413,104 @@ def test_single_process_start_up_is_a_no_op(monkeypatch):
     assert np.array_equal(distributed.fetch_global(x), x)
 
 
-def test_cuda_pod_refuses_more_than_one_card_a_process(monkeypatch):
-    """On CUDA a process of a pod drives one card: a mesh of more ranks a
-    process is refused by name before any collective is issued."""
+def _fake_pod(monkeypatch, cards, hosts=("h0", "h0"), process_id=0):
+    """A pod of len(hosts) processes as process ``process_id`` sees it,
+    without a process group."""
     import torch
 
     from mpi_knn_tpu_torch.parallel import distributed
-    from mpi_knn_tpu_torch.parallel.mesh import make_ring_mesh
 
+    cards = [torch.device(c) for c in cards]
     monkeypatch.setattr(distributed, "_POD", distributed.Pod(
-        process_id=0, num_processes=2, backend="nccl+gloo",
-        card=torch.device("cuda", 0), nccl=None, startup_seconds=0.0,
-        coordinator="127.0.0.1:1"))
-    with pytest.raises(ValueError, match="a process drives one card"):
-        make_ring_mesh(2, device="cuda")
+        process_id=process_id, num_processes=len(hosts), backend="gloo",
+        card=cards[0], nccl=None, startup_seconds=0.0, coordinator="127.0.0.1:1",
+        cards=cards, hosts=list(hosts)))
+
+
+@pytest.mark.parametrize("count,procs,n,want", [
+    (1, 2, 2, [["cuda:0", "cuda:0"], ["cuda:0", "cuda:0"]]),
+    (4, 2, 2, [["cuda:0", "cuda:1"], ["cuda:2", "cuda:3"]]),
+    (4, 4, 1, [["cuda:0"], ["cuda:1"], ["cuda:2"], ["cuda:3"]]),
+    (2, 2, 4, [["cuda:0", "cuda:1", "cuda:0", "cuda:1"]] * 2),
+])
+def test_cuda_pod_places_n_ranks_a_process_by_the_card_rule(monkeypatch, count,
+                                                            procs, n, want):
+    """Rank j of process p on card (p·n + j) % device_count."""
+    import torch
+
+    from mpi_knn_tpu_torch.parallel import distributed
+
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: count)
+    got = [[str(c) for c in distributed.pod_cards(torch.device("cuda"), p, n)]
+           for p in range(procs)]
+    assert got == want
+    assert distributed.pod_cards(torch.device("cpu"), 1, n) == [torch.device("cpu")] * n
+
+
+@pytest.mark.parametrize("seen,want", [
+    ([("h", "cuda", ["cuda:0"]), ("h", "cuda", ["cuda:0"])], "gloo"),
+    ([("h", "cuda", ["cuda:0", "cuda:1"]), ("h", "cuda", ["cuda:2", "cuda:3"])],
+     "nccl+gloo"),
+    ([("h", "cuda", ["cuda:0", "cuda:1"]), ("h", "cuda", ["cuda:1", "cuda:2"])], "gloo"),
+    ([("a", "cuda", ["cuda:0"]), ("b", "cuda", ["cuda:0"])], "nccl+gloo"),
+    ([("h", "cpu", ["cpu"]), ("h", "cpu", ["cpu"])], "gloo"),
+])
+def test_backend_follows_the_card_rule(seen, want):
+    """NCCL where no (host, card) pair is held by two processes, else gloo
+    through host memory."""
+    from mpi_knn_tpu_torch.parallel.distributed import backend_of
+
+    assert backend_of(seen) == want
+
+
+def test_cuda_pod_mesh_takes_each_process_s_ranks(monkeypatch):
+    """On a faked CUDA pod of 2 processes × 2 cards the 1-D mesh and the
+    2-D grid are every process's cards in process order, ring minor; a
+    mesh of more ranks a process than the pod placed is refused by name."""
+    import torch.distributed as dist
+
+    from mpi_knn_tpu_torch.parallel.mesh import make_mesh2d, make_ring_mesh
+
+    _fake_pod(monkeypatch, ["cuda:0", "cuda:1"])
+
+    def gather(out, obj):
+        out[0], out[1] = obj, [f"cuda:{2 + i}" for i in range(len(obj))]
+
+    monkeypatch.setattr(dist, "all_gather_object", gather)
+    mesh = make_ring_mesh(device="cuda")
+    assert [str(d) for d in mesh] == ["cuda:0", "cuda:1", "cuda:2", "cuda:3"]
+    assert mesh.owners == [0, 0, 1, 1] and list(mesh.local_ranks(0)) == [0, 1]
+    one = make_ring_mesh(1, device="cuda")
+    assert [str(d) for d in one] == ["cuda:0", "cuda:2"] and one.owners == [0, 1]
+    grid = make_mesh2d(2, 2, device="cuda")
+    assert [[str(d) for d in g] for g in grid] == [["cuda:0", "cuda:1"],
+                                                   ["cuda:2", "cuda:3"]]
+    assert [g.owners for g in grid] == [[0, 0], [1, 1]]
+    across = make_mesh2d(1, 4, device="cuda")
+    assert across[0].owners == [0, 0, 1, 1] and across[0].spans_processes()
+    with pytest.raises(ValueError, match="the pod placed 2"):
+        make_ring_mesh(3, device="cuda")
+
+
+def test_grid_across_hosts_is_refused_by_name(monkeypatch):
+    """The grid form's transport across processes is CUDA IPC, which
+    reaches one machine's cards: a ring whose neighbouring processes run
+    on two hosts refuses it before anything moves; on one host the rule
+    lets it through."""
+    from mpi_knn_tpu_torch.backends.ring import ProcessSpan, all_knn_ring
+    from mpi_knn_tpu_torch.parallel.mesh import RingMesh
+
+    X = _data()
+    mesh = RingMesh(["cpu"] * 4, owners=[0, 0, 1, 1])
+    over, form = FORMS["grid"]
+    _fake_pod(monkeypatch, ["cpu", "cpu"], hosts=("h0", "h1"))
+    assert not ProcessSpan(mesh).one_host()
+    with pytest.raises(ValueError, match="ring_fused_rotation='grid' across hosts") as e:
+        all_knn_ring(X, X, np.arange(len(X), dtype=np.int32), _cfg("uni", **over),
+                     mesh=mesh, device="cpu", form=form)
+    assert "CUDA IPC" in str(e.value) and "['h0', 'h1']" in str(e.value)
+    _fake_pod(monkeypatch, ["cpu", "cpu"], hosts=("h0", "h0"))
+    assert ProcessSpan(mesh).one_host()
 
 
 def test_round_dma_outbox_takes_the_boundary_ranks_copy():
@@ -436,7 +556,7 @@ def test_round_dma_outbox_takes_the_boundary_ranks_copy():
 
 
 # ---------------------------------------------------------------------------
-# the sharded clustered index, one shard a process
+# the sharded clustered index across processes: one and two shards a process
 
 
 @pytest.fixture(scope="module")
@@ -450,14 +570,24 @@ def ivf_pod(tmp_path_factory):
     save_ivf_index(p, str(tmp / "index.npz"))
     Q = X[:48] + np.float32(0.01)
     np.save(tmp / "queries.npy", Q)
-    return j, p, Q, _pod(tmp, "ivf", 2, 1)
+    return j, p, Q, _pod(tmp, "ivf", 2, 1), tmp
 
 
-def _sharded_q_tile(p, nq):
-    """The query tile a 2-shard batch of ``nq`` rows runs at."""
+@pytest.fixture(scope="module")
+def ivf_pod_2x2(ivf_pod):
+    """The same index over 2 processes × 2 shards."""
+    tmp = ivf_pod[4] / "2x2"
+    tmp.mkdir()
+    for name in ("index.npz", "queries.npy"):
+        (tmp / name).symlink_to(ivf_pod[4] / name)
+    return _pod(tmp, "ivf", 2, 2)
+
+
+def _sharded_q_tile(p, nq, shards=2):
+    """The query tile a batch of ``nq`` rows runs at over ``shards``."""
     from mpi_knn_tpu_torch.ivf.sharded import sharded_query_shapes
 
-    return sharded_query_shapes(p.cfg, p.nprobe, p.bucket_cap, p.dim, nq, 2)[0]
+    return sharded_query_shapes(p.cfg, p.nprobe, p.bucket_cap, p.dim, nq, shards)[0]
 
 
 @pytest.mark.parametrize("cap", ["safe", "tight"])
@@ -466,7 +596,7 @@ def test_two_process_sharded_index_equals_the_unsharded_one(ivf_pod, cap):
 
     from mpi_knn_tpu_torch.ivf import search_ivf, search_ivf_sharded, shard_ivf_index
 
-    _, p, Q, outs = ivf_pod
+    _, p, Q, outs, _ = ivf_pod
     qids = np.arange(len(Q), dtype=np.int32)
     with _one_thread():
         one = shard_ivf_index(p, shards=2, route_cap=None if cap == "safe" else 2)
@@ -489,14 +619,42 @@ def test_two_process_sharded_index_agrees_with_jax_search_ivf(ivf_pod):
     from mpi_knn_tpu import ivf as jivf
     from tests.test_torch_ivf import _assert_same_search
 
-    j, p, Q, outs = ivf_pod
+    j, p, Q, outs, _ = ivf_pod
     qids = np.arange(len(Q), dtype=np.int32)
     jd, ji = jivf.search_ivf(j, Q, query_ids=qids)
     _assert_same_search(p, Q, (outs[0]["safe/d"], outs[0]["safe/i"]), (jd, ji))
 
 
-def test_process_spanning_store_refuses_mutation_and_sessions(ivf_pod):
-    for out in ivf_pod[3]:
+@pytest.mark.parametrize("cap", ["safe", "tight"])
+def test_two_shards_a_process_equal_four_shards_in_one_process(ivf_pod, ivf_pod_2x2,
+                                                               cap):
+    """2 processes × 2 shards: every process's results and per-shard stats
+    bit for bit the one-process 4-shard index (and, at the safe cap, the
+    unsharded index at the same query tile)."""
+    import torch
+
+    from mpi_knn_tpu_torch.ivf import search_ivf, search_ivf_sharded, shard_ivf_index
+
+    _, p, Q, _, _ = ivf_pod
+    qids = np.arange(len(Q), dtype=np.int32)
+    with _one_thread():
+        one = shard_ivf_index(p, shards=4, route_cap=None if cap == "safe" else 2)
+        wd, wi, wstats = search_ivf_sharded(one, Q, query_ids=qids, device="cpu")
+    for out in ivf_pod_2x2:
+        assert np.array_equal(out[f"{cap}/i"], wi.numpy())
+        assert np.array_equal(out[f"{cap}/d"], wd.numpy())
+        assert np.array_equal(out[f"{cap}/stats"], wstats.numpy())
+    if cap == "safe":
+        with _one_thread():
+            d0, i0 = search_ivf(p, Q, query_ids=qids, device="cpu",
+                                query_tile=_sharded_q_tile(p, len(Q), 4))
+        assert torch.equal(i0, wi) and torch.equal(d0, wd)
+    else:
+        assert int(wstats[:, 1].sum()) > 0
+
+
+def test_process_spanning_store_refuses_mutation_and_sessions(ivf_pod, ivf_pod_2x2):
+    for out in ivf_pod[3] + ivf_pod_2x2:
         assert "spans processes cannot honor live mutation" in str(out["mutation_refusal"])
         assert "spans processes is not ported" in str(out["serve_refusal"])
 
