@@ -3383,48 +3383,6 @@ PROF_BATCHES = 8  # 256-row batches a profiled serving window takes
 PROF_BATCH = 256
 
 
-def stream_busy_ms(events, plane) -> tuple[float, float]:
-    """(the summed durations, the union of the intervals), in ms, of the
-    ``plane``'s events, stream by stream: a stream runs one operation at
-    a time, so the two differ only where an event was counted twice."""
-    lines = {}
-    for e in events:
-        if e["plane"] == plane and e["dur_ps"]:
-            lines.setdefault(e["line"], []).append(
-                (e["start_ps"], e["start_ps"] + e["dur_ps"]))
-    total = union = 0
-    for iv in lines.values():
-        iv.sort()
-        total += sum(b - a for a, b in iv)
-        end = None
-        for a, b in iv:
-            if end is None or a >= end:
-                union += b - a
-                end = b
-            elif b > end:
-                union += b - end
-                end = b
-    return total / 1e9, union / 1e9
-
-
-def stream_overlaps(events, plane, limit: int = 5) -> list:
-    """Up to ``limit`` pairs of the ``plane``'s events that overlap on one
-    stream: (stream, earlier name, its [start, end) ps, later name, its
-    [start, end) ps), what the double-count gate names when it fails."""
-    lines = {}
-    for e in events:
-        if e["plane"] == plane and e["dur_ps"]:
-            lines.setdefault(e["line"], []).append(
-                (e["start_ps"], e["start_ps"] + e["dur_ps"], e["name"]))
-    found = []
-    for line, iv in lines.items():
-        iv.sort()
-        for (a0, a1, an), (b0, b1, bn) in zip(iv, iv[1:]):
-            if b0 < a1 and len(found) < limit:
-                found.append((line, an, (a0, a1), bn, (b0, b1)))
-    return found
-
-
 def profile_window(name, out) -> dict:
     """Gate one profiled window's report (``ServeSession.profile``'s, or
     ``attribute_trace`` beside the counters' increments): the trace's
@@ -3439,6 +3397,8 @@ def profile_window(name, out) -> dict:
         kernel_symbol,
         launch_mismatches,
         parse_trace,
+        stream_busy_ps,
+        stream_overlaps,
     )
 
     events = [e for f in find_traces(out["trace_dir"]) for e in parse_trace(f)]
@@ -3450,7 +3410,8 @@ def profile_window(name, out) -> dict:
     for op, ms in out.get("top_ops_ms", {}).items():
         top[kernel_symbol(op)] = top.get(kernel_symbol(op), 0.0) + ms
     busy = out.get("busy_total_ms")
-    summed, union = stream_busy_ms(events, out.get("plane"))
+    summed_ps, union_ps = stream_busy_ps(events, out.get("plane"))
+    summed, union = summed_ps / 1e9, union_ps / 1e9
     line = {"phase": "profile", "window": name, "plane": out.get("plane"),
             "busy_ms": out.get("busy_ms"), "busy_total_ms": busy,
             "stream_union_ms": union, "wall_ms": out["wall_ms"],
@@ -3471,7 +3432,7 @@ def profile_window(name, out) -> dict:
     # each category is rounded to 1 us: the total is within that of the
     # events' own sum
     rounding = 1e-3 * (len(out["busy_ms"]) + 1)
-    if summed - union > 1e-9 or abs(busy - union) > rounding:
+    if summed_ps != union_ps or abs(busy - union) > rounding:
         raise AssertionError(
             f"profile {name}: device time counted twice: busy_total_ms {busy}, "
             f"events {summed} ms, their union per stream {union} ms; overlapping "
@@ -3485,14 +3446,15 @@ def profile_window(name, out) -> dict:
     return line
 
 
-def profile_phase(device, X, inputs) -> dict:
+def profile_phase(device, X, inputs, keep: str | None = None) -> dict:
     """``ServeSession.profile`` over the serve cell's pallas tiles exact
     index (60000x784, k=10, bucket base 1024) and its mixed rung, PROF_BATCHES
     batches of PROF_BATCH rows each; ``attribute_trace`` over the run CLI's
     ``--profile`` trace of a serial twolevel approx run at the main shape
     (the bin minimum's 1770 launches); one P=4 fused-dma ring batch on the
     one card (K4). Each window's gates are ``profile_window``'s. Returns
-    the launches each window's trace held, by counter."""
+    the launches each window's trace held, by counter. With ``keep`` the
+    traces are written under that directory and kept."""
     import torch
 
     from mpi_knn_tpu_torch import KNNConfig, cli
@@ -3503,7 +3465,7 @@ def profile_phase(device, X, inputs) -> dict:
     from mpi_knn_tpu_torch.ops import launch_counts
 
     t_phase = time.perf_counter()
-    tmp = tempfile.mkdtemp(prefix="tknn-profile-")
+    tmp = keep or tempfile.mkdtemp(prefix="tknn-profile-")
     Qs = inputs["Qs"]
     batches = [Qs[i * PROF_BATCH:(i + 1) * PROF_BATCH] for i in range(PROF_BATCHES)]
     launches = {}
@@ -3549,7 +3511,8 @@ def profile_phase(device, X, inputs) -> dict:
         profile_window("run_cli/serial/twolevel/approx", out)
         launches["run_cli/serial/twolevel/approx"] = out["kernel_launches"]
     finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+        if keep is None:
+            shutil.rmtree(tmp, ignore_errors=True)
     torch.cuda.empty_cache()
     emit({"phase": "profile_done", "seconds": time.perf_counter() - t_phase})
     return launches
@@ -3988,8 +3951,10 @@ def multiproc_worker() -> int:
     return 0
 
 
-def multiproc_pod(out_dir: str, m: int, processes: int, env=None) -> list:
-    """Start ``processes`` workers of :func:`multiproc_worker` against a
+def multiproc_pod(out_dir: str, m: int, processes: int, env=None,
+                  worker: str = "--multiproc-worker") -> list:
+    """Start ``processes`` workers (``worker``: the flag of
+    :func:`multiproc_worker`, or of :func:`sharded_mutation_worker`) against a
     coordinator on a free local port and wait for them all, each within
     MP_TIMEOUT_S; a worker that fails or outlives it fails the pod (every
     worker is killed, and their output is raised). Returns per process
@@ -4006,7 +3971,7 @@ def multiproc_pod(out_dir: str, m: int, processes: int, env=None) -> list:
     here = os.path.dirname(os.path.abspath(__file__))
     t0 = time.perf_counter()
     procs = [subprocess.Popen(
-        [sys.executable, os.path.abspath(__file__), "--multiproc-worker"],
+        [sys.executable, os.path.abspath(__file__), worker],
         cwd=here, env=dict(base, JAX_PROCESS_ID=str(p)),
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for p in range(processes)]
@@ -4230,6 +4195,375 @@ def multiproc_ranks_gates(got, single, recall, ranks, dirs) -> dict:
         raise AssertionError(f"K5 across processes took {k5} ms: its waits come "
                              f"near their {TIMEOUT_S} s bound")
     return totals
+
+
+# ---- the sharded clustered store live across processes ------------------
+# README.md's sharded deployment (sift:100000, 256 partitions, nprobe 2,
+# --devices 4, 128-row mutation chunks) as SM_PROCESSES processes of
+# SM_RANKS shards each on the one card, beside the one-process 4-shard
+# store on the same card
+SM_PROCESSES = 2
+SM_RANKS = 2
+SM_UPSERTS = 20  # 128-row upserts, every fourth an update of an earlier chunk
+SM_DELETES = 20  # 128-row deletes of corpus ids, one after each upsert
+# rows at one spot, past any bucket's free slots after the retrain's
+# compaction: overflows, compacts, then grows the cap
+SM_BURST = 4096
+SM_CHECK = 32  # held-out queries searched after every step
+SM_QUIET = 4  # 512-row session batches with no churn, then SM_BATCHES with it
+SM_BATCHES = 16
+SM_BATCH = IVF_BATCH
+# the sessions' --route-cap: at the safe cap (256 routes a (home, owner)
+# pair) a 512-row batch of the pod on one card stages ~2.5 GB a process
+# through host memory (5.3-6.0 s a batch on one H100)
+SM_ROUTE_CAP = 64
+SM_DEADLINE_S = 60.0  # the session's deadline: decided once for the pod
+
+
+def sm_ops(churn, plan) -> list:
+    """The churn sequence from the saved pool: one upsert a pool chunk
+    (every fourth the ids of the chunk three before with fresh rows:
+    updates that move rows to other partitions), each of the first
+    ``plan["deletes"]`` followed by a delete of a chunk of corpus ids; a
+    compaction with retrain; the burst."""
+    pool, burst = churn["pool"], churn["burst"]
+    B, base = plan["chunk"], plan["id_base"]
+    ops = []
+    for j in range(len(pool) // B):
+        first = j - 3 if j % 4 == 3 else j
+        ops.append(("upsert", base + first * B + np.arange(B), pool[j * B:(j + 1) * B]))
+        if j < plan["deletes"]:
+            ops.append(("delete", np.arange(2 * B * j, 2 * B * (j + 1), 2), None))
+    ops.append(("compact", None, None))
+    ops.append(("burst", base + 10 * len(pool) + np.arange(len(burst)), burst))
+    return ops
+
+
+def sm_checksum(t) -> list:
+    """Two int64 sums over a tensor's 32-bit words where it lies (plain,
+    and weighted by odd positions): a change of any one word changes the
+    second. Equal checksums after every step, and equal bytes at the end,
+    hold the slices bit for bit without copying them to the host."""
+    import torch
+
+    w = t.contiguous().view(-1).view(torch.int32).to(torch.int64)
+    pos = torch.arange(w.numel(), device=w.device, dtype=torch.int64) * 2 + 1
+    return [int(w.sum()), int((w * pos).sum())]
+
+
+def sm_drive(device, mesh, out_dir, sync) -> tuple[dict, dict]:
+    """The phase's work on one process: the saved index sharded over
+    ``mesh`` (the pod's, or SHARDS ranks of one card), the churn of
+    :func:`sm_ops` through a session (each step timed, the held slices'
+    checksums and a search of SM_CHECK queries after it), then a fresh
+    index served at SM_ROUTE_CAP by a session of SM_QUIET quiet batches and
+    SM_BATCHES with a mutation between each. Returns (a JSON-able record,
+    arrays)."""
+    import torch
+
+    from mpi_knn_tpu_torch.ivf import load_ivf_index, search_ivf_sharded, shard_ivf_index
+    from mpi_knn_tpu_torch.parallel import distributed
+    from mpi_knn_tpu_torch.resilience import ResiliencePolicy
+    from mpi_knn_tpu_torch.serve import ServeSession
+
+    idx = load_ivf_index(os.path.join(out_dir, "index.npz"), device=device)
+    Q = np.load(os.path.join(out_dir, "queries.npy"))
+    churn = np.load(os.path.join(out_dir, "churn.npz"))
+    with open(os.path.join(out_dir, "plan.json")) as f:
+        plan = json.load(f)
+    pod = distributed.pod() is not None
+    rec, arrays = {"steps": [], "checksums": []}, {}
+    reset_counts()
+    sidx = shard_ivf_index(idx, mesh=mesh)
+    sess = ServeSession(sidx, device=device)
+    for n, (kind, ids, rows) in enumerate(sm_ops(churn, plan)):
+        if pod:
+            distributed.reset_collective_stats()
+        sync()
+        t0 = time.perf_counter()
+        if kind in ("upsert", "burst"):
+            sess.upsert(ids, rows)
+        elif kind == "delete":
+            sess.delete(ids)
+        else:
+            sess.compact(retrain=True)
+        sync()
+        step = {"kind": kind, "ms": 1e3 * (time.perf_counter() - t0),
+                "cap": sidx.bucket_cap,
+                **({k_: v for k_, v in distributed.COLLECTIVES.items()} if pod else {})}
+        rec["steps"].append(step)
+        rec["checksums"].append({
+            str(s): [sm_checksum(t) for t in sl if t is not None]
+            for s, sl in sidx.held()} | {"centroids": sm_checksum(sidx.centroids)})
+        d, i, _ = search_ivf_sharded(sidx, Q[:plan["check"]], device=device)
+        arrays[f"step{n}/d"], arrays[f"step{n}/i"] = d.cpu().numpy(), i.cpu().numpy()
+    for s, sl in sidx.held():
+        for k_, t in enumerate(sl):
+            if t is not None:
+                arrays[f"final/{s}/{k_}"] = t.cpu().numpy()
+    rec["compactions"] = sess.stats_snapshot()["mutation"]["compactions"]
+    del sess, sidx
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    # the session: quiet batches, then batches with churn between them
+    sidx = shard_ivf_index(idx, mesh=mesh)
+    over = {} if plan["route_cap"] is None else {"ivf_route_cap": plan["route_cap"]}
+    sess = ServeSession(sidx, device=device, resilience=ResiliencePolicy(
+        batch_deadline_s=plan["deadline_s"]), **over)
+    rows, B = plan["batch"], plan["chunk"]
+    sess.warm([rows])
+    pool = churn["pool"]
+    done = {}
+    for label, batches in (("quiet", plan["quiet"]), ("churn", plan["batches"])):
+        got = []
+        sync()
+        t0 = time.perf_counter()
+        for b in range(batches):
+            got += sess.submit(Q[b * rows:(b + 1) * rows])
+            if label == "churn":
+                if b % 2 == 0:
+                    c = b % (len(pool) // B)
+                    sess.upsert(plan["id_base"] + 20 * len(pool) + b * B + np.arange(B),
+                                pool[c * B:(c + 1) * B])
+                else:
+                    sess.delete(np.arange(b * B, (b + 1) * B))
+        got += sess.drain()
+        sync()
+        wall = time.perf_counter() - t0
+        done[label] = {"qps": batches * rows / wall, "wall_s": wall,
+                       "seqs": [r.seq for r in got],
+                       "rungs": [r.degraded or "full" for r in got],
+                       "breaches": sum(r.deadline_breached for r in got),
+                       "routed": sum(int(r.exchange[:, 0].sum()) for r in got),
+                       "dropped": sum(int(r.exchange[:, 1].sum()) for r in got)}
+        arrays[f"session/{label}/d"] = np.stack([r.dists for r in got])
+        arrays[f"session/{label}/i"] = np.stack([r.ids for r in got])
+    rec["session"] = done
+    rec["launches"] = {n: c for n, c in read_counts().items() if c}
+    return rec, arrays
+
+
+def sharded_mutation_worker() -> int:
+    """One process of the sharded_mutation phase's pod (``python
+    chip_smoke.py --sharded-mutation-worker``): joins the process group
+    from the launch environment with ``MP_RANKS`` shards (default
+    SM_RANKS) and runs :func:`sm_drive` on the saved index in ``MP_DIR``
+    over the pod's mesh; writes ``worker-<id>.json`` and ``.npz`` there."""
+    import torch
+
+    from mpi_knn_tpu_torch.parallel import distributed
+    from mpi_knn_tpu_torch.parallel.mesh import make_ring_mesh
+
+    out_dir = os.environ["MP_DIR"]
+    ranks = int(os.environ.get("MP_RANKS", str(SM_RANKS)))
+    info = distributed.init_multihost(timeout_seconds=120,
+                                      device=os.environ.get("MP_DEVICE", "cuda"),
+                                      local_devices=ranks)
+    pod = distributed.pod()
+
+    def sync():
+        for c in dict.fromkeys(pod.cards):
+            if c.type == "cuda":
+                torch.cuda.synchronize(c)
+
+    try:
+        rec, arrays = sm_drive(pod.card, make_ring_mesh(ranks, device=pod.card),
+                               out_dir, sync)
+    finally:
+        distributed.shutdown()
+    rec["info"] = info
+    pid = info["process_id"]
+    with open(os.path.join(out_dir, f"worker-{pid}.json"), "w") as f:
+        json.dump(rec, f)
+    np.savez(os.path.join(out_dir, f"worker-{pid}.npz"), **arrays)
+    print(f"sharded-mutation worker {pid} done", flush=True)
+    return 0
+
+
+def sm_prepare(device, out_dir):
+    """The deployment's index (256 partitions, headroom 0.5, 128-row
+    mutation chunks) built on ``device`` and saved with the held-out
+    queries and the churn's rows into ``out_dir``."""
+    from mpi_knn_tpu_torch import KNNConfig
+    from mpi_knn_tpu_torch.ivf import build_ivf_index, save_ivf_index
+
+    X, Q = ivf_data()
+    idx = build_ivf_index(X, KNNConfig(k=K, partitions=IVF_P, bucket_headroom=0.5,
+                                       mutation_bucket=MUT_BUCKET), device=device)
+    save_ivf_index(idx, os.path.join(out_dir, "index.npz"))
+    np.save(os.path.join(out_dir, "queries.npy"), Q)
+    pool = mutation_pool()[:SM_UPSERTS * MUT_BUCKET]
+    rng = np.random.default_rng(20)
+    burst = (pool[:1] + 0.01 * rng.standard_normal((SM_BURST, pool.shape[1]))
+             ).astype(np.float32)
+    np.savez(os.path.join(out_dir, "churn.npz"), pool=pool, burst=burst)
+    with open(os.path.join(out_dir, "plan.json"), "w") as f:
+        json.dump({"chunk": MUT_BUCKET, "id_base": MUT_ID_BASE, "deletes": SM_DELETES,
+                   "check": SM_CHECK, "batch": SM_BATCH, "quiet": SM_QUIET,
+                   "batches": SM_BATCHES,
+                   "route_cap": SM_ROUTE_CAP, "deadline_s": SM_DEADLINE_S}, f)
+    return idx
+
+
+def sm_gates(label, single, got, shards) -> None:
+    """Every pod process's steps against the one-process store: each
+    shard's checksums and the centroids' after every step, every step's
+    search, the final slices' bytes, both sessions' results, and the rung
+    of every seq on every process; no kernel launched."""
+    srec, sarr = single
+    for n in range(len(srec["steps"])):
+        for pid, (rec, arr, _) in enumerate(got):
+            mine = rec["checksums"][n]
+            for key, sums in mine.items():
+                if sums != srec["checksums"][n][key]:
+                    raise AssertionError(f"{label} step {n} ({srec['steps'][n]['kind']}): "
+                                         f"process {pid}'s {key} differs")
+            for part in ("d", "i"):
+                if not np.array_equal(arr[f"step{n}/{part}"], sarr[f"step{n}/{part}"]):
+                    raise AssertionError(f"{label} step {n}: process {pid}'s search differs")
+    held = set()
+    for pid, (rec, arr, _) in enumerate(got):
+        for key in arr:
+            if key.startswith("final/"):
+                held.add(key.split("/")[1])
+                if not np.array_equal(arr[key], sarr[key]):
+                    raise AssertionError(f"{label}: process {pid}'s {key} differs")
+        for part in ("quiet/d", "quiet/i", "churn/d", "churn/i"):
+            if not np.array_equal(arr[f"session/{part}"], sarr[f"session/{part}"]):
+                raise AssertionError(f"{label}: process {pid}'s session {part} differs")
+        if rec["launches"]:
+            raise AssertionError(f"{label}: kernels launched: {rec['launches']}")
+    if held != {str(s) for s in range(shards)}:
+        raise AssertionError(f"{label}: the final slices held {sorted(held)}")
+    for lab in ("quiet", "churn"):
+        rungs = [rec["session"][lab]["rungs"] for rec, _, _ in got]
+        seqs = [rec["session"][lab]["seqs"] for rec, _, _ in got]
+        if any(r != rungs[0] for r in rungs) or any(s != seqs[0] for s in seqs):
+            raise AssertionError(f"{label}: the processes' rungs or seqs differ")
+
+
+def sm_summary(label, single, got, startup=None) -> dict:
+    """The phase's printed line: per kind of step the median ms of the pod
+    (process 0) and of one process, compaction seconds, the bytes of the
+    agreements and of the compactions' row moves, the sessions' q/s."""
+    def med(rec, kind):
+        ms = [s["ms"] for s in rec["steps"] if s["kind"] == kind]
+        return statistics.median(ms) if ms else None
+
+    srec = single[0]
+    pods = [rec for rec, _, _ in got]
+    steps0 = pods[0]["steps"]
+    return {
+        "phase": label, "processes": len(got),
+        "upsert_ms_a_chunk": [med(r, "upsert") for r in pods],
+        "upsert_ms_a_chunk_one_process": med(srec, "upsert"),
+        "delete_ms_a_chunk": [med(r, "delete") for r in pods],
+        "delete_ms_a_chunk_one_process": med(srec, "delete"),
+        "compaction_s": [[s["ms"] / 1e3 for s in r["steps"] if s["kind"] == "compact"]
+                         for r in pods],
+        "compaction_s_one_process": [s["ms"] / 1e3 for s in srec["steps"]
+                                     if s["kind"] == "compact"],
+        "burst_s": [[s["ms"] / 1e3 for s in r["steps"] if s["kind"] == "burst"]
+                    for r in pods],
+        "burst_s_one_process": [s["ms"] / 1e3 for s in srec["steps"] if s["kind"] == "burst"],
+        "caps": sorted({s["cap"] for s in steps0}),
+        "compactions": [r["compactions"] for r in pods],
+        # across processes: the plans' agreement (a digest gathered from
+        # every process) and the compactions' rows (the retrain sample's
+        # share to process 0, the live rows to their new shard's process)
+        "agreement_bytes_a_mutation": statistics.median(
+            [s.get("agreement_bytes", 0) for s in steps0
+             if s["kind"] in ("upsert", "delete")]),
+        "compaction_agreement_bytes": [s.get("agreement_bytes", 0) for s in steps0
+                                       if s["kind"] in ("compact", "burst")],
+        "compaction_row_bytes_sent": [[s.get("row_bytes_sent", 0) for s in r["steps"]
+                                       if s["kind"] in ("compact", "burst")] for r in pods],
+        "compaction_row_seconds": [[s.get("row_seconds", 0.0) for s in r["steps"]
+                                    if s["kind"] in ("compact", "burst")] for r in pods],
+        "session_qps": {lab: [r["session"][lab]["qps"] for r in pods]
+                        for lab in ("quiet", "churn")},
+        "session_qps_one_process": {lab: srec["session"][lab]["qps"]
+                                    for lab in ("quiet", "churn")},
+        "session_breaches": [r["session"]["churn"]["breaches"] for r in pods],
+        "session_route_cap": SM_ROUTE_CAP,
+        "session_routed_dropped": [[r["session"][lab][k_] for lab in ("quiet", "churn")
+                                    for k_ in ("routed", "dropped")] for r in pods],
+        "launches": [r["launches"] for r in pods],
+        "launches_one_process": srec["launches"],
+        **({"startup": startup} if startup else {}),
+    }
+
+
+def sharded_mutation_phase(device) -> None:
+    """README.md's sharded deployment live across processes on the one
+    card: the one-process 4-shard store (a mesh naming the card SHARDS
+    times) and a pod of SM_PROCESSES processes × SM_RANKS shards (gloo,
+    the rows staged through host memory) take the same churn and the same
+    sessions; :func:`sm_gates` holds every process to the one-process
+    store bit for bit after every step."""
+    import torch
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="tknn-sm-")
+    try:
+        idx = sm_prepare(device, tmp)
+        del idx
+        single = sm_drive(device, [device] * SHARDS, tmp, sync_all)
+        torch.cuda.empty_cache()
+        t_pod = time.perf_counter()
+        got = multiproc_pod(tmp, IVF_M, SM_PROCESSES, env={"MP_RANKS": str(SM_RANKS)},
+                            worker="--sharded-mutation-worker")
+        pod_s = time.perf_counter() - t_pod
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    infos = [rec["info"] for rec, _, _ in got]
+    line = sm_summary("sharded_mutation", single, got, {
+        "backend": infos[0]["backend"], "cards": [i["cards"] for i in infos],
+        "startup_seconds": [i["startup_seconds"] for i in infos],
+        "worker_exit_seconds": [e for _, _, e in got], "pod_seconds": pod_s})
+    emit(line)
+    sm_gates("sharded_mutation", single, got, SHARDS)
+    if len(line["caps"]) < 2 or min(line["compactions"]) < 2:
+        raise AssertionError(f"sharded_mutation: the burst did not compact and grow: "
+                             f"caps {line['caps']}, compactions {line['compactions']}")
+    if single[0]["launches"]:
+        raise AssertionError(f"sharded_mutation: kernels launched: {single[0]['launches']}")
+    emit({"phase": "sharded_mutation_done", "seconds": time.perf_counter() - t_phase})
+
+
+def sharded_mutation_cards(cards) -> None:
+    """The sharded_mutation phase over four cards, each against the
+    one-process store on ``cards[0]`` named SHARDS times: one process with
+    its SHARDS slices on four distinct cards (the chunk's entries and a
+    compaction's rows move between cards by ``Tensor.to``), and two
+    processes of two cards each (NCCL between the processes through each
+    one's first card). :func:`sm_gates` for both."""
+    import torch
+
+    tmp = tempfile.mkdtemp(prefix="tknn-smc-")
+    try:
+        sm_prepare(cards[0], tmp)
+        single = sm_drive(cards[0], [cards[0]] * SHARDS, tmp, sync_all)
+        torch.cuda.empty_cache()
+        spread = sm_drive(cards[0], list(cards[:SHARDS]), tmp, sync_all)
+        torch.cuda.empty_cache()
+        t_pod = time.perf_counter()
+        got = multiproc_pod(tmp, IVF_M, SM_PROCESSES, worker="--sharded-mutation-worker",
+                            env={"MP_RANKS": str(SM_RANKS), "NCCL_SOCKET_IFNAME":
+                                 os.environ.get("NCCL_SOCKET_IFNAME", "lo")})
+        pod_s = time.perf_counter() - t_pod
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    one = [(*spread, 0.0)]
+    emit(sm_summary("sharded_mutation_cards/one_process_four_cards", single, one))
+    sm_gates("sharded_mutation_cards/one_process_four_cards", single, one, SHARDS)
+    infos = [rec["info"] for rec, _, _ in got]
+    emit(sm_summary("sharded_mutation_cards/two_processes_two_cards", single, got, {
+        "backend": infos[0]["backend"], "cards": [i["cards"] for i in infos],
+        "startup_seconds": [i["startup_seconds"] for i in infos], "pod_seconds": pod_s}))
+    if infos[0]["backend"] != "nccl+gloo":
+        raise AssertionError(f"processes on cards of their own must take NCCL: {infos[0]}")
+    sm_gates("sharded_mutation_cards/two_processes_two_cards", single, got, SHARDS)
 
 
 def main() -> int:
@@ -5702,6 +6036,9 @@ def main() -> int:
     multiproc_launches, multiproc_ranks_launches = multiproc_phase(
         device, X, recall, ranks=MP_RANKS)
     mark("multiproc")
+    # ---- the sharded clustered store live across processes ---------------
+    sharded_mutation_phase(device)
+    mark("sharded_mutation")
     frontend_launches = {n: fe_counts["a"].get(n, 0) + fe_counts["b"].get(n, 0)
                          for n in ("fused_knn_tiles", "stage_tf32_split",
                                    "fused_knn_tiles[compress]", "stage_bf16")}
@@ -5836,7 +6173,8 @@ def multiproc_cards_main() -> int:
     (P = 4 on cards 0-3, the 2×2 mesh for --dp 2, P = 2 on cards {0, 2}
     for the one-rank ring) and the boundary's exchanges, bytes, ms and
     bytes staged between a process's cards; fails unless every result is
-    bit for bit the single-process run's."""
+    bit for bit the single-process run's. Then the sharded clustered store
+    live over the four cards (:func:`sharded_mutation_cards`)."""
     import torch
 
     from mpi_knn_tpu_torch.data.synthetic import make_mnist_like
@@ -5888,6 +6226,8 @@ def multiproc_cards_main() -> int:
         if not equal:
             raise AssertionError(f"multiproc_cards {label}: a process's result "
                                  "differs from the single-process run")
+    # the sharded clustered store live over the four cards
+    sharded_mutation_cards(cards)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
@@ -5897,6 +6237,8 @@ def multiproc_cards_main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:] == ["--multiproc-worker"]:
         sys.exit(multiproc_worker())
+    if sys.argv[1:] == ["--sharded-mutation-worker"]:
+        sys.exit(sharded_mutation_worker())
     if sys.argv[1:] == ["--multiproc-cards"]:
         sys.exit(multiproc_cards_main())
     sys.exit(main())

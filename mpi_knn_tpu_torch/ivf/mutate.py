@@ -38,6 +38,18 @@ the reference's sequence does; ids are unique within a chunk
 The freelist is host state (a mirror of the id plane), deterministic
 (lowest free slot first) and derived from any saved index: "free slot"
 and "id −1 slot" are the same thing.
+
+A sharded store in slices (``ShardedIVFIndex.shard_store``: one slice a
+card, or each process's own slices) keeps one freelist over the whole
+padded store, derived from every slice's id plane in shard order, so its
+plans are the one-store index's. The ``sliced_*`` functions apply them:
+a chunk's rows, norms and scales are computed once where the chunk is,
+and each entry goes to the slice of its partition, on that slice's card;
+only the chunk moves, never a slice. A compaction assigns each slice on
+its card, scatters each live row into a fresh slice of its new partition
+(``Tensor.to`` to another card; one all-to-all of packed rows to another
+process), and every process ends with the same freelist, built from the
+plan. The result is the one-store index's, bit for bit.
 """
 
 from __future__ import annotations
@@ -115,6 +127,15 @@ class Freelist:
     def tombstone_fraction(self) -> float:
         return self.tombstones / max(1, self.live)
 
+    def id_plane(self) -> np.ndarray:
+        """The ``(total, cap)`` id plane this freelist mirrors (−1 free)."""
+        ids = np.full((self.total, self.cap), -1, np.int32)
+        if self.pos:
+            where = np.array(list(self.pos.values()), np.int64)
+            ids[where[:, 0], where[:, 1]] = np.fromiter(self.pos, np.int64,
+                                                        len(self.pos))
+        return ids
+
     def stats(self) -> dict:
         used = [self.cap - len(f) for f in self.free]
         return {
@@ -148,6 +169,10 @@ def freelist_of(index) -> Freelist:
                 if getattr(index, "tiles", None) is not None:
                     ids = index.tile_ids.cpu().numpy()
                     fl = Freelist(ids, ids.shape[0])
+                elif getattr(index, "shard_store", None) is not None:
+                    from mpi_knn_tpu_torch.ivf.sharded import store_id_plane
+
+                    fl = Freelist(store_id_plane(index), index.partitions)
                 else:
                     fl = Freelist(index.bucket_ids.cpu().numpy(), index.partitions)
                 index.__dict__["_freelist"] = fl
@@ -321,6 +346,68 @@ def ivf_delete_chunk(part, slot, bucket_ids):
     bucket_ids[part, slot] = -1
 
 
+def upload_ints(device, *arrays) -> list:
+    """Host int arrays (None stays None) to ``device`` as int64 in one copy,
+    so the host waits on the copy once, not once a vector."""
+    flat = torch.from_numpy(np.concatenate(
+        [np.asarray(a, np.int64) for a in arrays if a is not None])).to(device)
+    out, at = [], 0
+    for a in arrays:
+        out.append(None if a is None else flat[at:at + len(a)])
+        at += 0 if a is None else len(a)
+    return out
+
+
+def _shard_entries(index, part, slot):
+    """Per shard this process holds, in shard order: (shard, positions in
+    the plan, local partition, slot) of the plan's entries whose partition
+    lies in that shard (sentinel entries dropped)."""
+    part = np.asarray(part, np.int64)
+    slot = np.asarray(slot, np.int64)
+    shard = np.where(part < index.shards * index.per_shard,
+                     part // index.per_shard, -1)
+    for s in index.local_shards:
+        sel = np.flatnonzero(shard == s)
+        if sel.size:
+            yield s, sel, part[sel] - s * index.per_shard, slot[sel]
+
+
+def sliced_upsert_chunk(index, rows, ids: np.ndarray, part, slot, clear_part,
+                        clear_slot, cfg: KNNConfig):
+    """:func:`ivf_upsert_chunk` on a store in slices: the chunk's at-rest
+    rows, norms (and scales) computed once on ``rows``' device by the
+    build's math; then the old slots of moving ids are cleared and each
+    entry is written into the slice of its partition, on that slice's
+    card. Across processes each process writes only the shards it holds.
+    ``ids`` and the plan are host arrays."""
+    at_rest, scales, sqs = store_rows_and_sqs(rows, cfg, rows.shape[-1])
+    slices = index.slices
+    for s, _, lp, ls in _shard_entries(index, clear_part, clear_slot):
+        plane = slices[s][1]
+        lp, ls = upload_ints(plane.device, lp, ls)
+        plane[lp, ls] = -1
+    for s, sel, lp, ls in _shard_entries(index, part, slot):
+        buckets, bids, bsqs, bscl = slices[s]
+        dev = buckets.device
+        take = torch.from_numpy(sel).to(rows.device)
+        lp, ls, new_ids = upload_ints(dev, lp, ls, np.asarray(ids)[sel])
+        bids[lp, ls] = new_ids.to(torch.int32)
+        buckets[lp, ls] = at_rest[take].to(dev)
+        bsqs[lp, ls] = sqs[take].to(dev, bsqs.dtype)
+        if bscl is not None:
+            bscl[lp, ls] = scales[take].to(dev)
+
+
+def sliced_delete_chunk(index, part, slot):
+    """:func:`ivf_delete_chunk` on a store in slices: each tombstone on
+    the card of its partition's slice (the shards this process holds)."""
+    slices = index.slices
+    for s, _, lp, ls in _shard_entries(index, part, slot):
+        plane = slices[s][1]
+        lp, ls = upload_ints(plane.device, lp, ls)
+        plane[lp, ls] = -1
+
+
 def ivf_compact_assign(buckets, bucket_scales, centroids, centroid_sqs,
                        cfg: KNNConfig) -> torch.Tensor:
     """Partition of every slot of the resident store against (possibly
@@ -368,10 +455,12 @@ def ivf_compact_scatter(dst_part, dst_slot, src_buckets, src_ids, src_sqs,
 COMPACT_SAMPLE = 16384  # deterministic live-row sample of the retrain
 
 
-def gather_live_sample(index, limit: int = COMPACT_SAMPLE) -> np.ndarray:
+def gather_live_sample(index, limit: int = COMPACT_SAMPLE) -> np.ndarray | None:
     """Up to ``limit`` live rows (dequantized, in the centered frame),
     evenly spaced in id order, by one small device gather: the retrain
-    never copies the whole store to the host."""
+    never copies the whole store to the host. A store in slices gathers
+    each slice's share on its card; across processes the shares go to
+    process 0, which retrains (the others get None)."""
     fl = freelist_of(index)
     ids = sorted(fl.pos)
     if not ids:
@@ -382,24 +471,109 @@ def gather_live_sample(index, limit: int = COMPACT_SAMPLE) -> np.ndarray:
         [fl.pos[ids[i]][0] * fl.cap + fl.pos[ids[i]][1] for i in take],
         dtype=np.int64,
     )
-    flat_t = torch.from_numpy(flat).to(index.device)
-    sel = index.buckets.reshape(-1, index.buckets.shape[-1])[flat_t]
-    if index.bucket_scales is not None:
-        sel = dequantize_rows(sel, index.bucket_scales.reshape(-1)[flat_t],
-                              index.store_dtype, index.dim)
+    if getattr(index, "shard_store", None) is None:
+        flat_t = torch.from_numpy(flat).to(index.device)
+        sel = index.buckets.reshape(-1, index.buckets.shape[-1])[flat_t]
+        scl = (None if index.bucket_scales is None
+               else index.bucket_scales.reshape(-1)[flat_t])
+    else:
+        sel, scl = _sliced_sample(index, flat, fl.cap)
+        if sel is None:
+            return None
+    if scl is not None:
+        sel = dequantize_rows(sel, scl, index.store_dtype, index.dim)
     return sel.to(torch.float32).cpu().numpy()
 
 
-def retrain_centroids(index, cfg: KNNConfig, sample: np.ndarray):
+def _sliced_sample(index, flat: np.ndarray, cap: int):
+    """The at-rest rows and scales at the store's flat slots ``flat``,
+    from the slices that hold them, in ``flat``'s order on the index's
+    device. Across processes every process sends its share to process 0
+    (one all-to-all of packed rows) and only process 0 gets (rows,
+    scales); the others get (None, None)."""
+    from mpi_knn_tpu_torch.ivf.sharded import move_rows, pack_rows, unpack_rows
+    from mpi_knn_tpu_torch.parallel import distributed
+
+    span = index.per_shard * cap
+    shard = flat // span
+    like = index.held_slice
+    likes = (like[0][0, 0][None], None if like[3] is None else like[3][0, :1])
+    rows = torch.empty((flat.size,) + tuple(like[0].shape[2:]), dtype=like[0].dtype,
+                       device=index.device)
+    scales = (None if like[3] is None
+              else torch.empty(flat.size, dtype=like[3].dtype, device=index.device))
+
+    def place(pos, got_rows, got_scales):
+        at = torch.from_numpy(pos).to(index.device)
+        rows[at] = got_rows.to(index.device)
+        if scales is not None:
+            scales[at] = got_scales.to(index.device)
+
+    mine = []
+    for s, sl in index.held():
+        pos = np.flatnonzero(shard == s)
+        if not pos.size:
+            continue
+        at = torch.from_numpy(flat[pos] - s * span).to(sl[0].device)
+        got = (sl[0].reshape((-1,) + tuple(sl[0].shape[2:]))[at],
+               None if sl[3] is None else sl[3].reshape(-1)[at])
+        mine.append((pos, got))
+    if not index.spans_processes:
+        for pos, got in mine:
+            place(pos, *got)
+        return rows, scales
+    owners = index.shard_owners()[shard]
+    procs, me = distributed.process_count(), distributed.process_index()
+    counts = np.zeros((procs, procs), np.int64)
+    counts[:, 0] = np.bincount(owners, minlength=procs)
+    counts[0, 0] = 0
+    width = pack_rows([likes[0], likes[1]]).shape[1]
+    sends = {}
+    if me != 0 and mine:
+        sends[0] = torch.cat([pack_rows([g[0].to(index.device),
+                                         None if g[1] is None else g[1].to(index.device)])
+                              for _, g in mine])
+    got = move_rows(index, sends, counts, width)
+    if me != 0:
+        return None, None
+    for pos, g in mine:
+        place(pos, *g)
+    owner = index.shard_owners()
+    for q, buf in got.items():
+        # process q packed its shards' shares in shard order
+        pos = np.concatenate([np.flatnonzero(shard == s)
+                              for s in range(index.shards) if owner[s] == q])
+        place(pos, *unpack_rows(buf, likes))
+    return rows, scales
+
+
+def retrain_centroids(index, cfg: KNNConfig, sample: np.ndarray | None):
     """K-means (the port's ``ivf/kmeans.py``) over a live-row sample,
     seeded with ``ivf_seed``, on the index's device → (centroids,
     centroid_sqs). It touches no resident tensor, so callers run it off
-    the mutation lock."""
+    the mutation lock. Across processes process 0 trains on the sample it
+    gathered and broadcasts the centroids: every process ends with the
+    same table, bit for bit."""
     from mpi_knn_tpu_torch.ivf.kmeans import kmeans
 
-    res = kmeans(sample, index.partitions, iters=cfg.kmeans_iters,
-                 seed=cfg.ivf_seed, init=cfg.kmeans_init, device=index.device)
-    return res.centroids, sq_norms(res.centroids)
+    spans = getattr(index, "spans_processes", False)
+    if spans:
+        from mpi_knn_tpu_torch.parallel import distributed
+
+        if distributed.process_index() != 0:
+            sample = None
+    centroids = None
+    if sample is not None:
+        res = kmeans(sample, index.partitions, iters=cfg.kmeans_iters,
+                     seed=cfg.ivf_seed, init=cfg.kmeans_init, device=index.device)
+        centroids = res.centroids
+    if spans:
+        host = (centroids.cpu().numpy() if centroids is not None
+                else np.zeros(tuple(index.centroids.shape), np.float32))
+        with distributed.collective("compaction retrain"):
+            host = distributed.broadcast_host(host)
+        centroids = torch.from_numpy(host).to(index.device)
+    return centroids, sq_norms(centroids)
 
 
 def plan_compact(index, cfg: KNNConfig, centroids, centroid_sqs,
@@ -409,11 +583,15 @@ def plan_compact(index, cfg: KNNConfig, centroids, centroid_sqs,
     layout. Returns ``(dst_part, dst_slot, new_cap, stats)``; the scatter
     is the caller's. ``new_cap`` is the current cap whenever the
     re-clustered live set fits; ``min_cap`` forces growth (the backstop for
-    a burst that must fit after this pass)."""
+    a burst that must fit after this pass). A store in slices is assigned
+    slice by slice on each slice's card (gathered across processes)."""
     fl = freelist_of(index)
-    parts = ivf_compact_assign(index.buckets, index.bucket_scales, centroids,
-                               centroid_sqs, index.cfg).cpu().numpy()
-    ids_flat = index.bucket_ids.reshape(-1).cpu().numpy()
+    if getattr(index, "shard_store", None) is None:
+        parts = ivf_compact_assign(index.buckets, index.bucket_scales, centroids,
+                                   centroid_sqs, index.cfg).cpu().numpy()
+    else:
+        parts = _sliced_assign(index, centroids, centroid_sqs)
+    ids_flat = fl.id_plane().reshape(-1)
     live = ids_flat >= 0
     counts = np.bincount(parts[live], minlength=index.partitions)
     need = int(counts.max()) if counts.size else 1
@@ -426,7 +604,7 @@ def plan_compact(index, cfg: KNNConfig, centroids, centroid_sqs,
     # destination layout: the live rows, in flat-slot order, take
     # consecutive slots of their new partition (deterministic)
     n = ids_flat.shape[0]
-    dst_part = np.full(n, index.buckets.shape[0], np.int32)
+    dst_part = np.full(n, fl.total, np.int32)
     dst_slot = np.zeros(n, np.int32)
     src = np.flatnonzero(live)
     lp = parts[src]
@@ -444,6 +622,35 @@ def plan_compact(index, cfg: KNNConfig, centroids, centroid_sqs,
     return dst_part, dst_slot, int(new_cap), stats
 
 
+def _sliced_assign(index, centroids, centroid_sqs) -> np.ndarray:
+    """:func:`ivf_compact_assign` over every slice, each on its card
+    against the centroids there, as one host array in shard order
+    (gathered from every process across processes)."""
+    parts = []
+    for _, sl in index.held():
+        dev = sl[0].device
+        parts.append(ivf_compact_assign(sl[0], sl[3], centroids.to(dev),
+                                        centroid_sqs.to(dev), index.cfg).cpu())
+    mine = torch.cat(parts)
+    if index.spans_processes:
+        from mpi_knn_tpu_torch.parallel import distributed
+
+        with distributed.collective("compaction assignment"):
+            mine = distributed.all_gather_rows(mine)
+    return mine.numpy()
+
+
+def freelist_after_compact(fl: Freelist, dst_part, dst_slot, new_cap: int,
+                           partitions: int) -> Freelist:
+    """The freelist of the compacted store, from the plan alone (no read
+    of the store, no collective): each live id at its new slot."""
+    ids = fl.id_plane().reshape(-1)
+    src = np.flatnonzero(np.asarray(dst_part) < fl.total)
+    plane = np.full((fl.total, new_cap), -1, np.int32)
+    plane[np.asarray(dst_part)[src], np.asarray(dst_slot)[src]] = ids[src]
+    return Freelist(plane, partitions)
+
+
 def should_compact(index, cfg: KNNConfig) -> str | None:
     """The trigger: "fill" or "tombstones" when a compaction threshold is
     crossed, else None."""
@@ -457,13 +664,97 @@ def should_compact(index, cfg: KNNConfig) -> str | None:
 
 def make_dst_store(index, new_cap: int):
     """A fresh destination store for a compaction, on the index's device:
-    ids −1 (every slot free), rows, norms and scales zero."""
-    P = index.buckets.shape[0]
-    dev = index.device
-    buckets = torch.zeros((P, new_cap, index.buckets.shape[-1]),
-                          dtype=index.buckets.dtype, device=dev)
-    ids = torch.full((P, new_cap), -1, dtype=torch.int32, device=dev)
-    sqs = torch.zeros((P, new_cap), dtype=index.bucket_sqs.dtype, device=dev)
-    scales = (torch.zeros((P, new_cap), dtype=torch.float32, device=dev)
-              if index.bucket_scales is not None else None)
-    return buckets, ids, sqs, scales
+    ids −1 (every slot free), rows, norms and scales zero. A store in
+    slices gets one slice a held shard, on that shard's card (None for
+    the shards of other processes)."""
+    if getattr(index, "shard_store", None) is not None:
+        held = set(index.local_shards)
+        return [_empty_store(sl, sl[0].shape[0], new_cap) if s in held else None
+                for s, sl in enumerate(index.slices)]
+    return _empty_store((index.buckets, index.bucket_ids, index.bucket_sqs,
+                         index.bucket_scales), index.buckets.shape[0], new_cap)
+
+
+def _empty_store(like, buckets: int, cap: int):
+    rows, _, sqs, scales = like
+    dev = rows.device
+    return (torch.zeros((buckets, cap) + tuple(rows.shape[2:]), dtype=rows.dtype,
+                        device=dev),
+            torch.full((buckets, cap), -1, dtype=torch.int32, device=dev),
+            torch.zeros((buckets, cap), dtype=sqs.dtype, device=dev),
+            None if scales is None else torch.zeros((buckets, cap),
+                                                    dtype=torch.float32, device=dev))
+
+
+def sliced_compact_scatter(index, dst_part, dst_slot, dst) -> None:
+    """:func:`ivf_compact_scatter` on a store in slices: every live row
+    from its old slice into the fresh slice ``dst[s]`` of its new
+    partition. The rows of each held source slice are gathered on its
+    card; those whose new shard this process holds move by ``Tensor.to``,
+    the rest by one all-to-all of packed rows to the process that holds
+    it. Every process iterates the moves in one order, (source shard,
+    destination shard, old slot), so the receiver knows each row's slot
+    without being told."""
+    from mpi_knn_tpu_torch.ivf.sharded import move_rows, pack_rows, unpack_rows
+    from mpi_knn_tpu_torch.parallel import distributed
+
+    slices = index.slices
+    like = index.held_slice
+    cap = like[0].shape[1]
+    per = index.per_shard
+    dst_part = np.asarray(dst_part, np.int64)
+    dst_slot = np.asarray(dst_slot, np.int64)
+    src = np.flatnonzero(dst_part < index.shards * per)
+    src_shard = src // (per * cap)
+    dst_shard = dst_part[src] // per
+    order = np.lexsort((src, dst_shard, src_shard))
+    src, src_shard, dst_shard = src[order], src_shard[order], dst_shard[order]
+    owner = index.shard_owners()
+    me = distributed.process_index()
+
+    def write(sel, parts):
+        for d in np.unique(dst_shard[sel]):
+            m = dst_shard[sel] == d
+            drows, dids, dsqs, dscl = dst[d]
+            dev = drows.device
+            at = torch.from_numpy(np.flatnonzero(m)).to(parts[0].device)
+            lp, ls = upload_ints(dev, dst_part[src[sel][m]] - d * per,
+                                dst_slot[src[sel][m]])
+            drows[lp, ls] = parts[0][at].to(dev)
+            dids[lp, ls] = parts[1][at].to(dev)
+            dsqs[lp, ls] = parts[2][at].to(dev)
+            if dscl is not None:
+                dscl[lp, ls] = parts[3][at].to(dev)
+
+    procs = distributed.process_count() if index.spans_processes else 1
+    sends = {q: [] for q in range(procs)}
+    for s, sl in index.held():
+        sel = np.flatnonzero(src_shard == s)
+        if not sel.size:
+            continue
+        at = torch.from_numpy(src[sel] - s * per * cap).to(sl[0].device)
+        parts = [None if t is None else t.reshape((-1,) + tuple(t.shape[2:]))[at]
+                 for t in sl]
+        stay = owner[dst_shard[sel]] == me
+        write(sel[stay], [None if t is None
+                          else t[torch.from_numpy(np.flatnonzero(stay)).to(t.device)]
+                          for t in parts])
+        for q in range(procs):
+            go = np.flatnonzero(owner[dst_shard[sel]] == q)
+            if q != me and go.size:
+                g = torch.from_numpy(go).to(parts[0].device)
+                sends[q].append(pack_rows([None if t is None else t[g].to(index.device)
+                                           for t in parts]))
+    if not index.spans_processes:
+        return
+    pairs = owner[src_shard] * procs + owner[dst_shard]
+    counts = np.bincount(pairs, minlength=procs * procs).reshape(procs, procs)
+    np.fill_diagonal(counts, 0)
+    likes = [like[0][0, 0][None], like[1][0, :1], like[2][0, :1],
+             None if like[3] is None else like[3][0, :1]]
+    width = pack_rows(likes).shape[1]
+    got = move_rows(index, {q: torch.cat(v) for q, v in sends.items() if v},
+                    counts, width)
+    for q, buf in got.items():
+        sel = np.flatnonzero((owner[src_shard] == q) & (owner[dst_shard] == me))
+        write(sel, unpack_rows(buf, likes))

@@ -21,8 +21,13 @@ logical ranks on the CPU), the store stays one set of tensors there and
 each shard's slice is a view of it; the mutation path (``ivf/mutate.py``,
 ``serve/mutate.py``) then writes the store in place, as for the
 unsharded index, with a freelist whose sentinel is the store's total
-bucket count. Over distinct cards each slice lives on its own card, and
-the store is not mutable.
+bucket count. Over distinct cards, and across processes, each slice lives
+on its own card (``shard_store``), and the mutation path writes each
+slice in place on its card with the same freelist over the whole padded
+store: a chunk's entries go to the shards that own their partitions, and
+a compaction moves a live row to the card (or the process) of its new
+partition. :attr:`ShardedIVFIndex.slices`, ``held`` and ``local_shards``
+are the one place that knows where a shard lives.
 
 Routed two-stage search, per tile step (every shard's j-th tile at once):
 
@@ -58,7 +63,10 @@ between two processes, staged on the process's first device. So a pod of
 S shards returns the unsharded index's results bit for bit, as S ranks of
 one process do. Every process passes the whole batch and gets the whole
 result back. Mutation of a store that spans processes, and serving it
-through a session, are refused by name.
+through a session, follow the reference's multi-controller model: every
+process makes the same calls with the same arguments in the same order,
+each applies what falls into its own shards, and the processes agree on
+each plan (``distributed.agree``) before any write.
 
 Per-shard stats, summed over a batch's tiles: ``[routed, dropped,
 served]`` (routes this shard's queries issued and kept, routes dropped at
@@ -69,6 +77,7 @@ probe was dropped retires all +inf with ids −1: a counted loss.
 from __future__ import annotations
 
 import dataclasses
+import time
 
 import numpy as np
 import torch
@@ -407,6 +416,25 @@ class ShardedIVFIndex:
             return self.centroids, self.centroid_sqs
         return self.replicas[str(dev)]
 
+    def held(self) -> list:
+        """(shard, slice) of every shard this process holds, in shard
+        order."""
+        slices = self.slices
+        return [(s, slices[s]) for s in self.local_shards]
+
+    def shard_owners(self) -> np.ndarray:
+        """The process that holds each shard (all 0 in one process)."""
+        if not self.spans_processes:
+            return np.zeros(self.shards, np.int64)
+        return np.asarray(self.mesh.owners, np.int64)
+
+    def set_centroids(self, centroids, centroid_sqs) -> None:
+        """New (retrained) centroids on ``device`` and on every card that
+        holds a replica, so no search scores against stale ones."""
+        self.centroids, self.centroid_sqs = centroids, centroid_sqs
+        for key in self.replicas:
+            self.replicas[key] = (centroids.to(key), centroid_sqs.to(key))
+
     @property
     def live_rows(self) -> int:
         from mpi_knn_tpu_torch.ivf.mutate import freelist_of
@@ -457,6 +485,72 @@ class ShardedIVFIndex:
         if want.nprobe is None:
             want = want.replace(nprobe=self.nprobe)
         return want
+
+
+# ---------------------------------------------------------------------------
+# A sliced store's rows between cards and processes (the mutation path)
+
+
+def store_id_plane(index: ShardedIVFIndex) -> np.ndarray:
+    """The whole padded store's id plane ``(S·per_shard, cap)`` on the
+    host, in shard order: the slices' ids copied from their cards, and
+    across processes gathered from every process (a collective)."""
+    held = torch.cat([sl[1].to(index.device) for _, sl in index.held()]).cpu()
+    if index.spans_processes:
+        with distributed.collective("freelist derivation"):
+            held = distributed.all_gather_rows(held)
+    return held.numpy()
+
+
+def pack_rows(parts) -> torch.Tensor:
+    """Row-aligned tensors (None skipped) as one ``(n, bytes)`` uint8
+    tensor: each row's bytes side by side, so one exchange moves them."""
+    parts = [t for t in parts if t is not None]
+    n = parts[0].shape[0]
+    return torch.cat([t.contiguous().reshape(n, -1).view(torch.uint8)
+                      for t in parts], 1)
+
+
+def unpack_rows(buf: torch.Tensor, likes) -> list:
+    """:func:`pack_rows` undone: ``likes`` are tensors (or None) with the
+    parts' dtypes and trailing shapes."""
+    out, at, n = [], 0, buf.shape[0]
+    for like in likes:
+        if like is None:
+            out.append(None)
+            continue
+        tail = tuple(like.shape[1:])
+        width = int(np.prod(tail, dtype=np.int64)) * like.element_size()
+        out.append(buf[:, at:at + width].contiguous().view(like.dtype)
+                   .reshape((n,) + tail))
+        at += width
+    return out
+
+
+def move_rows(index: ShardedIVFIndex, sends: dict, counts: np.ndarray,
+              width: int) -> dict:
+    """One all-to-all of packed rows across the pod: ``sends[q]`` (uint8,
+    ``(counts[me, q], width)``) goes to process q, and the rows process q
+    sends here come back as ``{q: (counts[q, me], width)}`` on the
+    index's device. ``counts`` (P, P) is known to every process (it comes
+    from a plan they agreed on), so only the rows move, padded to its
+    largest entry; none moves, and no collective runs, where it is 0."""
+    procs, me = distributed.process_count(), distributed.process_index()
+    most = int(counts.max()) if counts.size else 0
+    if most == 0:
+        return {}
+    t0 = time.perf_counter()
+    buf = torch.zeros((procs, most, width), dtype=torch.uint8, device=index.device)
+    for q, rows in sends.items():
+        buf[q, :rows.shape[0]] = rows.to(index.device)
+    with distributed.collective("store row exchange"):
+        got = distributed.all_to_all_rows(buf)
+    distributed.COLLECTIVES["row_moves"] += 1
+    distributed.COLLECTIVES["row_bytes_sent"] += int(
+        (counts[me].sum() - counts[me, me]) * width)
+    distributed.COLLECTIVES["row_seconds"] += time.perf_counter() - t0
+    return {q: got[q, :int(counts[q, me])] for q in range(procs)
+            if q != me and counts[q, me]}
 
 
 def _mesh_for(shards: int | None, mesh, cfg: KNNConfig, device):
@@ -526,14 +620,16 @@ def shard_ivf_index(index: IVFIndex, shards: int | None = None, mesh=None,
         centroids=index.centroids.to(dev), centroid_sqs=index.centroid_sqs.to(dev),
         tuned_recall=index.tuned_recall, build_seconds=dict(index.build_seconds),
         replicas=replicas, spans_processes=across)
+    # the sharded index owns its store: mutation writes it in place, and
+    # must never reach the unsharded index's tensors through a shared view
     if _one_device(mesh) and not across:
         return ShardedIVFIndex(
-            buckets=store[0].to(dev), bucket_ids=store[1].to(dev),
-            bucket_sqs=store[2].to(dev),
-            bucket_scales=None if store[3] is None else store[3].to(dev),
+            buckets=store[0].to(dev, copy=True), bucket_ids=store[1].to(dev, copy=True),
+            bucket_sqs=store[2].to(dev, copy=True),
+            bucket_scales=None if store[3] is None else store[3].to(dev, copy=True),
             **common)
     p = per_shard
-    shard_store = [tuple(None if t is None else t[s * p:(s + 1) * p].to(d)
+    shard_store = [tuple(None if t is None else t[s * p:(s + 1) * p].to(d, copy=True)
                          for t in store) if s in mine else None
                    for s, d in enumerate(mesh)]
     return ShardedIVFIndex(buckets=None, bucket_ids=None, bucket_sqs=None,

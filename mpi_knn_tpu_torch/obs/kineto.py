@@ -47,6 +47,7 @@ so that time is inside the kernel's own duration.
 
 from __future__ import annotations
 
+import decimal
 import glob
 import gzip
 import json
@@ -177,9 +178,20 @@ def categorize(name: str) -> str:
 
 
 def _ps(x, what: str) -> int:
-    if isinstance(x, bool) or not isinstance(x, (int, float)):
+    """Microseconds → integer picoseconds, exactly: the trace's decimals
+    are parsed as :class:`decimal.Decimal`, because a float64 at
+    ``ts`` ≈ 1.46e12 µs steps by 244 ps, and two events that abut in the
+    file could otherwise overlap (or part) by a fraction of a nanosecond
+    once parsed."""
+    if isinstance(x, bool) or not isinstance(x, (int, float, decimal.Decimal)):
         raise ParseError(f"event {what} is not a number: {x!r}")
-    return int(round(float(x) * 1e6))  # microseconds -> picoseconds
+    ps = decimal.Decimal(x) * _PS_PER_US
+    if not ps.is_finite():
+        raise ParseError(f"event {what} is not finite: {x!r}")
+    return int(ps.to_integral_value(rounding=decimal.ROUND_HALF_EVEN))
+
+
+_PS_PER_US = decimal.Decimal(1_000_000)
 
 
 def _self_time(evs: list) -> list:
@@ -221,8 +233,8 @@ def parse_trace_bytes(raw: bytes) -> list[dict]:
         except (OSError, EOFError) as e:
             raise ParseError(f"bad gzip stream: {e}") from e
     try:
-        doc = json.loads(raw)
-    except (UnicodeDecodeError, ValueError) as e:
+        doc = json.loads(raw, parse_float=decimal.Decimal)
+    except (UnicodeDecodeError, ValueError, decimal.InvalidOperation) as e:
         raise ParseError(f"not a JSON trace: {e}") from e
     events = doc.get("traceEvents") if isinstance(doc, dict) else doc
     if not isinstance(events, list):
@@ -302,6 +314,51 @@ def launch_mismatches(events: list, counters: dict) -> list:
             bad.append({"symbols": list(symbols), "counters": list(names),
                         "trace": trace, "counted": counted})
     return bad
+
+
+def _stream_intervals(events: list, plane: str) -> dict:
+    """The ``plane``'s events with a duration, per line (stream), as
+    sorted ``(start_ps, end_ps, name)``."""
+    lines: dict = {}
+    for e in events:
+        if e["plane"] == plane and e["dur_ps"]:
+            lines.setdefault(e["line"], []).append(
+                (e["start_ps"], e["start_ps"] + e["dur_ps"], e["name"]))
+    for iv in lines.values():
+        iv.sort()
+    return lines
+
+
+def stream_busy_ps(events: list, plane: str) -> tuple[int, int]:
+    """(the summed durations, the union of the intervals), in integer
+    picoseconds, of the ``plane``'s events, stream by stream: a stream runs
+    one operation at a time, so the two differ only where an event was
+    recorded twice or overlaps another on its stream."""
+    total = union = 0
+    for iv in _stream_intervals(events, plane).values():
+        total += sum(b - a for a, b, _ in iv)
+        end = None
+        for a, b, _ in iv:
+            if end is None or a >= end:
+                union += b - a
+                end = b
+            elif b > end:
+                union += b - end
+                end = b
+    return total, union
+
+
+def stream_overlaps(events: list, plane: str, limit: int = 5) -> list:
+    """Up to ``limit`` pairs of the ``plane``'s events that overlap on one
+    stream: (stream, earlier name, its [start, end) ps, later name, its
+    [start, end) ps). A duplicate record and an event inside another are
+    both such pairs."""
+    found = []
+    for line, iv in _stream_intervals(events, plane).items():
+        for (a0, a1, an), (b0, b1, bn) in zip(iv, iv[1:]):
+            if b0 < a1 and len(found) < limit:
+                found.append((line, an, (a0, a1), bn, (b0, b1)))
+    return found
 
 
 def overlap_ps(a: list, b: list) -> int:

@@ -40,8 +40,10 @@ cards of one machine.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import datetime
+import hashlib
 import logging
 import os
 import socket
@@ -389,6 +391,82 @@ def all_to_all_rows(t: torch.Tensor) -> torch.Tensor:
     out = torch.empty_like(src)
     dist.all_to_all_single(out, src, group=_group_of(src))
     return out.to(t.device)
+
+
+# the collectives of live mutation and of a session over a store that
+# spans processes (this process's side): agreements on a plan or a batch
+# (count, bytes of the values gathered), and moves of packed store rows
+# (count, bytes sent to other processes, host seconds)
+COLLECTIVES = {"agreements": 0, "agreement_bytes": 0, "row_moves": 0,
+               "row_bytes_sent": 0, "row_seconds": 0.0}
+
+
+def reset_collective_stats() -> None:
+    COLLECTIVES.update(agreements=0, agreement_bytes=0, row_moves=0,
+                       row_bytes_sent=0, row_seconds=0.0)
+
+
+class PlanMismatchError(RuntimeError):
+    """The processes of a pod reached one operation with different plans
+    (or at different points of their call sequence): a store they share
+    would diverge, so the operation stops on every process instead."""
+
+
+@contextlib.contextmanager
+def collective(op: str):
+    """Name ``op`` in the error of a collective that fails. A process that
+    never joins fails the others within the process group's timeout
+    (``init_multihost(timeout_seconds=)``), and one that left fails them at
+    once: either way every waiting process raises, naming the operation,
+    and none hangs."""
+    try:
+        yield
+    except PlanMismatchError:
+        raise
+    except Exception as e:
+        raise RuntimeError(
+            f"{op}: the collective across the pod's processes failed (a "
+            "process that never joins fails it within the process group's "
+            f"timeout): {type(e).__name__}: {e}") from e
+
+
+def all_gather_object(obj, op: str) -> list:
+    """Every process's host ``obj``, in process order (gloo), as the
+    collective ``op``."""
+    seen = [None] * _require_pod().num_processes
+    with collective(op):
+        dist.all_gather_object(seen, obj)
+    return seen
+
+
+def digest_of(*parts) -> str:
+    """A short digest of host arrays (dtype, shape and bytes; None
+    counts): what the processes compare to agree on a plan."""
+    h = hashlib.sha256()
+    for a in parts:
+        if a is None:
+            h.update(b"none")
+            continue
+        a = np.ascontiguousarray(a)
+        h.update(f"{a.dtype.str}{a.shape}".encode())
+        h.update(a.tobytes())
+    return h.hexdigest()[:16]
+
+
+def agree(op: str, value: str) -> None:
+    """Every process's ``value`` of ``op`` (a plan's digest, a batch's
+    sequence and rung) must equal process 0's: one gather of the values,
+    and a :class:`PlanMismatchError` on every process naming both values
+    where one differs."""
+    seen = all_gather_object(value, op)
+    COLLECTIVES["agreements"] += 1
+    COLLECTIVES["agreement_bytes"] += sum(len(str(v)) for v in seen)
+    bad = [p for p, v in enumerate(seen) if v != seen[0]]
+    if bad:
+        raise PlanMismatchError(
+            f"{op}: the processes disagree: process 0 has {seen[0]!r}, "
+            f"process {bad[0]} has {seen[bad[0]]!r}; every process must make "
+            "the same calls with the same arguments in the same order")
 
 
 def broadcast_object(obj, src: int = 0):

@@ -1,7 +1,8 @@
 """Streamed query serving over a :class:`~mpi_knn_tpu_torch.serve.index.
 CorpusIndex`: row buckets, per-(bucket, config) state built once, and
-bounded dispatch-ahead (the JAX package's ``serve/engine.py``, one
-controlling process).
+bounded dispatch-ahead (the JAX package's ``serve/engine.py``; over a
+sharded store that spans processes, one session a process, see
+:class:`ServeSession`).
 
 Buckets: every batch is padded up to the smallest ``query_bucket · 2^j``
 rows. PyTorch compiles nothing, so where the JAX engine compiles each
@@ -766,19 +767,37 @@ class ServeSession:
     rung reads at construction (``staged_bytes``: the resident bytes that
     added). ``resilience=None`` (the default) keeps one rung and no
     deadline, retry or sentinel.
+
+    Over a sharded clustered store that spans processes, every process
+    constructs a session and calls ``submit`` / ``drain`` / ``upsert`` /
+    ``delete`` / ``compact`` in the same order, from one thread, so every
+    collective the session issues runs in that order on every process.
+    Each batch starts with an agreement on its seq, rows and rung (a
+    process at another point raises :class:`~mpi_knn_tpu_torch.parallel.
+    distributed.PlanMismatchError` naming both, and never hangs), and what
+    one process would decide from its own clock is decided once: a batch
+    counts as over the deadline where any process saw it so (one gather
+    at retire), so every process sheds at the same seq; an overflow's
+    compaction follows the agreed upsert plan. A transient fault's retry
+    is taken before the batch's first collective, so it delays the pod and
+    reorders nothing. The background ``Compactor`` is refused there.
     """
 
     def __init__(self, index: CorpusIndex, config: KNNConfig | None = None,
                  resilience: ResiliencePolicy | None = None,
                  device=DEFAULT_DEVICE, **overrides):
         _check_device(index, device)
-        if getattr(index, "spans_processes", False):
-            raise ValueError(
-                "serving a sharded clustered index that spans processes is "
-                "not ported (a session's batches, warm-up and ladder run in "
-                "one process); search it with search_ivf_sharded on every "
-                "process, or serve it in one process")
         self.index = index
+        # a store that spans processes: every process's session makes the
+        # same calls in the same order, and agrees on each batch; its
+        # freelist (a gather of every process's id planes) is derived here,
+        # a point every process reaches, so each later call's first
+        # collective is an agreement
+        self._spans = bool(getattr(index, "spans_processes", False))
+        if self._spans:
+            from mpi_knn_tpu_torch.ivf.mutate import freelist_of
+
+            freelist_of(index)
         self.cfg = index.compatible_cfg(
             (config or index.cfg).replace(**overrides))
         self._metrics = obs_metrics.get_registry()
@@ -1055,6 +1074,11 @@ class ServeSession:
             **({"tenants": comp} if tenants is not None else {}))
         pol = self.policy
         try:
+            if self._spans:
+                from mpi_knn_tpu_torch.parallel import distributed
+
+                distributed.agree("serving batch",
+                                  f"seq={self._seq} rows={rows} rung={label}")
             if pol is not None and pol.max_retries > 0:
                 out = retry_with_backoff(
                     lambda: self._attempt(queries, cfg),
@@ -1295,7 +1319,14 @@ class ServeSession:
         pol = self.policy
         if pol is None or pol.batch_deadline_s is None:
             return
-        if res.latency_s - sum(res.backoffs) <= pol.batch_deadline_s:
+        breached = res.latency_s - sum(res.backoffs) > pol.batch_deadline_s
+        if self._spans:
+            # decided once for the pod: a breach any process saw
+            from mpi_knn_tpu_torch.parallel import distributed
+
+            breached = any(distributed.all_gather_object(
+                breached, f"deadline of serving batch seq={res.seq}"))
+        if not breached:
             self._consecutive_breaches = 0
             return
         res.deadline_breached = True

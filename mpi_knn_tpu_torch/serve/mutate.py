@@ -33,11 +33,21 @@ with the chunk and never written.
 
 Layouts: the serial ``CorpusIndex`` tile stack (headroom rows, a flat
 freelist), the clustered ``IVFIndex`` (per-bucket freelists,
-centroid-scored placement) and the sharded ``ShardedIVFIndex`` whose
-shards share one device (the same scatters into the whole padded store,
-the freelist's sentinel one past its total bucket count, so S = 1 mutates
-bit for bit as the unsharded store). The ring and pallas layouts refuse,
-and so does a sharded store spread over distinct cards.
+centroid-scored placement) and the sharded ``ShardedIVFIndex``: where its
+shards share one device, the same scatters into the whole padded store
+(the freelist's sentinel one past its total bucket count, so S = 1
+mutates bit for bit as the unsharded store); where its slices lie on
+distinct cards or in several processes, the ``ivf/mutate.sliced_*``
+scatters, each slice written in place on its card. The ring and pallas
+layouts refuse.
+
+A store that spans processes follows the reference's multi-controller
+model: every process calls ``upsert_rows`` / ``delete_rows`` /
+``compact_index`` with the same arguments in the same order, plans from
+the same freelist, and agrees on the plan (``distributed.agree``: the
+plans' digests, an overflow included) before any write; a plan that
+differs stops every process with both digests named. The background
+``Compactor`` is refused there: its trigger reads one process's clock.
 
 The reference's XLA half has no counterpart in eager PyTorch and is left
 out: ``lower_mutation``, ``get_mutation_executable``,
@@ -78,6 +88,7 @@ from mpi_knn_tpu_torch.ivf.mutate import (
     ivf_assign_chunk,
     ivf_compact_scatter,
     ivf_delete_chunk,
+    freelist_after_compact,
     ivf_upsert_chunk,
     make_dst_store,
     plan_compact,
@@ -85,7 +96,11 @@ from mpi_knn_tpu_torch.ivf.mutate import (
     plan_upsert,
     retrain_centroids,
     should_compact,
+    sliced_compact_scatter,
+    sliced_delete_chunk,
+    sliced_upsert_chunk,
     store_rows_and_sqs,
+    upload_ints,
 )
 from mpi_knn_tpu_torch.ops.distance import center_rows
 from mpi_knn_tpu_torch.resilience.heartbeat import maybe_beat
@@ -191,18 +206,20 @@ def _require_mutable(index) -> None:
             "the pallas kernel masks by row count, not ids — serve "
             "mutable corpora from the serial, ivf, or ivf-sharded layouts"
         )
+
+
+def _sliced(index) -> bool:
+    return getattr(index, "shard_store", None) is not None
+
+
+def _agree(index, op: str, *plan) -> None:
+    """Across processes: every process's plan for ``op`` must be process
+    0's (their digests compared), before anything is written."""
     if getattr(index, "spans_processes", False):
-        raise ValueError(
-            "a sharded clustered store that spans processes cannot honor "
-            "live mutation in this port (each process holds one slice, and "
-            "a mutation would have to reach every process's freelist in "
-            "one order); mutate it unsharded, or in one process")
-    if getattr(index, "shard_store", None) is not None:
-        raise ValueError(
-            "a sharded clustered store spread over distinct cards cannot "
-            "honor live mutation in this port (one controlling process "
-            "mutates a store that lies on one device); serve it from a "
-            "mesh that names one card, or unsharded")
+        from mpi_knn_tpu_torch.parallel import distributed
+
+        distributed.agree(op, distributed.digest_of(*[
+            t.cpu().numpy() if isinstance(t, torch.Tensor) else t for t in plan]))
 
 
 def serial_upsert_chunk(rows, new_ids, tpos, spos, clear_t, clear_s,
@@ -228,9 +245,12 @@ def serial_upsert_chunk(rows, new_ids, tpos, spos, clear_t, clear_s,
 
 
 def _store(index) -> tuple:
-    """The resident store tensors a mutation writes, in call order."""
+    """The resident store tensors a mutation writes, in call order (a
+    store in slices: those of the first slice this process holds)."""
     if index.backend == "serial":
         return (index.tiles, index.tile_ids, index.tile_sqs)
+    if _sliced(index):
+        return index.held_slice
     return (index.buckets, index.bucket_ids, index.bucket_sqs,
             index.bucket_scales)
 
@@ -298,18 +318,6 @@ def _prep_stream(index):
     return stream
 
 
-def _upload(device, *arrays) -> list:
-    """Host int arrays (None stays None) to ``device`` as int64 in one copy,
-    so the host waits on the copy once, not once a vector."""
-    flat = torch.from_numpy(np.concatenate(
-        [np.asarray(a, np.int64) for a in arrays if a is not None])).to(device)
-    out, at = [], 0
-    for a in arrays:
-        out.append(None if a is None else flat[at:at + len(a)])
-        at += 0 if a is None else len(a)
-    return out
-
-
 def _on(stream):
     return contextlib.nullcontext() if stream is None else torch.cuda.stream(stream)
 
@@ -336,7 +344,13 @@ def _pad_rows(rows: torch.Tensor, bucket: int) -> torch.Tensor:
     return torch.cat([rows, rows.new_zeros((bucket - n, rows.shape[1]))])
 
 
-def _swap_store(index, buckets, bucket_ids, bucket_sqs, bucket_scales):
+def _swap_store(index, dst):
+    """Swap in a compaction's destination: the whole store, or a store in
+    slices' new slices (None for other processes' shards)."""
+    if _sliced(index):
+        index.shard_store = dst
+        return
+    buckets, bucket_ids, bucket_sqs, bucket_scales = dst
     index.buckets = buckets
     index.bucket_ids = bucket_ids
     index.bucket_sqs = bucket_sqs
@@ -395,13 +409,26 @@ def upsert_rows(index, ids, rows, config: KNNConfig | None = None) -> dict:
                     # (updated in place, no slot consumed), new ids fill
                     # the lowest tile with headroom first
                     parts = _serial_pick_tiles(fl, ids)
-                part, slot, clear_p, clear_s, commit = plan_upsert(fl, ids, parts)
-                new_ids, *idx = _upload(dev, ids, *_kept(part, slot, fl.total),
-                                        *(_kept(clear_p, clear_s, fl.total)
-                                          or (None, None)))
-                chunk = (rows_p, new_ids.to(torch.int32), *idx)
+                try:
+                    part, slot, clear_p, clear_s, commit = plan_upsert(fl, ids, parts)
+                except BucketOverflowError as e:
+                    # across processes the overflow is a plan, agreed too
+                    _agree(index, "upsert plan", np.asarray(e.partitions), ids, parts)
+                    raise
+                _agree(index, "upsert plan", ids, rows, parts, part, slot,
+                       clear_p, clear_s)
+                if _sliced(index):
+                    chunk = (rows_p,)
+                else:
+                    new_ids, *idx = upload_ints(
+                        dev, ids, *_kept(part, slot, fl.total),
+                        *(_kept(clear_p, clear_s, fl.total) or (None, None)))
+                    chunk = (rows_p, new_ids.to(torch.int32), *idx)
             _join(index, prep, chunk)
-            if clustered:
+            if _sliced(index):
+                sliced_upsert_chunk(index, rows_p, ids, part, slot, clear_p,
+                                    clear_s, index.cfg)
+            elif clustered:
                 ivf_upsert_chunk(*chunk, *_store(index), index.cfg)
             else:
                 serial_upsert_chunk(*chunk, *_store(index), index.cfg)
@@ -466,10 +493,14 @@ def delete_rows(index, ids, config: KNNConfig | None = None) -> dict:
         with mutation_lock(index):
             fl = freelist_of(index)
             part, slot, commit, missing = plan_delete(fl, ids)
+            _agree(index, "delete plan", ids, part, slot)
             target = _kept(part, slot, fl.total)
-            if target is not None:
+            if target is not None and _sliced(index):
+                _join(index, prep, ())
+                sliced_delete_chunk(index, *target)
+            elif target is not None:
                 with _on(prep):
-                    target = _upload(index.device, *target)
+                    target = upload_ints(index.device, *target)
                 # the id plane: bucket_ids, or the serial layout's tile_ids
                 # at (tile, slot)
                 _join(index, prep, target)
@@ -509,13 +540,14 @@ def warm_mutation(index, cfg: KNNConfig | None = None, sizes=(None,)) -> dict:
     dev = index.device
     with mutation_lock(index):
         order_stream(index)
-        scratch = [None if t is None else t[:1].clone() for t in _store(index)]
+        scratch = [None if t is None else t[:1].to(dev).clone()
+                   for t in _store(index)]
         for n in sizes:
             bucket = bucket_rows(n if n is not None else cfg.mutation_bucket,
                                  cfg.mutation_bucket)
             rows_p = _pad_rows(_center_rows(
                 index, np.zeros((1, index.dim), np.float32)), bucket)
-            zero, one = _upload(dev, [0], [-1])
+            zero, one = upload_ints(dev, [0], [-1])
             new_id = one.to(torch.int32)
             if clustered:
                 ivf_assign_chunk(rows_p, index.centroids, index.centroid_sqs)
@@ -566,6 +598,9 @@ def compact_index(index, config: KNNConfig | None = None, retrain: bool = True,
         )
     cfg = config or index.cfg
     t0 = time.perf_counter()
+    # across processes, first agree that every process compacts here: the
+    # collectives below are not agreements themselves
+    _agree(index, "compaction", np.asarray([int(retrain), min_cap or 0]))
     with _span("compact", backend=index.backend, reason=reason, retrain=retrain):
         maybe_beat("compact-plan")
         # the sample gather holds the lock (one small device gather); the
@@ -583,26 +618,38 @@ def compact_index(index, config: KNNConfig | None = None, retrain: bool = True,
             stream = order_stream(index)
             dst_part, dst_slot, new_cap, stats = plan_compact(
                 index, cfg, centroids, centroid_sqs, min_cap=min_cap)
+            _agree(index, "compaction plan", dst_part, dst_slot,
+                   np.asarray([new_cap]), centroids)
             stats["retrained"] = bool(retrain)
             maybe_beat("compact-scatter")
             dst = make_dst_store(index, new_cap)
-            old = _store(index)
-            ivf_compact_scatter(dst_part, dst_slot, *old, *dst)
-            if stream is not None:
+            if _sliced(index):
+                old = [t for _, sl in index.held() for t in sl]
+                sliced_compact_scatter(index, dst_part, dst_slot, dst)
+            else:
+                old = _store(index)
+                ivf_compact_scatter(dst_part, dst_slot, *old, *dst)
+            for t in old:
                 # batches enqueued before this point read the old store:
-                # its memory waits for the chain's stream before reuse
-                for t in old:
-                    if t is not None:
-                        t.record_stream(stream)
-            _swap_store(index, *dst)
-            index.centroids = centroids
-            index.centroid_sqs = centroid_sqs
+                # its memory waits for the stream that ordered them (the
+                # chain's on the index's card; a slice's card's current)
+                if t is not None and t.is_cuda:
+                    t.record_stream(stream if t.device == index.device
+                                    else torch.cuda.current_stream(t.device))
+            fl = freelist_after_compact(freelist_of(index), dst_part, dst_slot,
+                                        new_cap, index.partitions)
+            _swap_store(index, dst)
+            if hasattr(index, "set_centroids"):
+                index.set_centroids(centroids, centroid_sqs)  # and replicas
+            else:
+                index.centroids = centroids
+                index.centroid_sqs = centroid_sqs
             cap_changed = new_cap != index.bucket_cap
             index.bucket_cap = new_cap
             if cap_changed:
                 index._cache.clear()
                 index.__dict__.pop("_cache_key_locks", None)
-            index.__dict__.pop("_freelist", None)  # derived again from the store
+            index.__dict__["_freelist"] = fl  # the plan's, no read of the store
             maybe_beat("compact-swap")
         _stamp_gauges(index)
     wall = time.perf_counter() - t0
@@ -620,6 +667,14 @@ class Compactor:
 
     def __init__(self, session, interval_s: float = 0.25, retrain: bool = True):
         _require_mutable(session.index)
+        if getattr(session.index, "spans_processes", False):
+            raise ValueError(
+                "the background compactor cannot run on a store that spans "
+                "processes: its trigger reads this process's clock and "
+                "freelist on a thread of its own, so the processes would "
+                "compact at different points of their call sequences; call "
+                "ServeSession.compact() (or compact_index) at the same point "
+                "on every process")
         if session.index.backend == "serial":
             raise ValueError(
                 "the serial layout has no compaction pass — the "

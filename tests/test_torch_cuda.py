@@ -2379,3 +2379,68 @@ def test_multiproc_ranks_across_cards_equals_the_single_process_ring(cuda_device
         assert ranks[chip_smoke.MP_RESUMABLE]["rounds_resumed"] == [2, 3, 4]
     assert (tmp_path / "ck-ranks-proc0" / "knn_state.npz").exists()
     assert not (tmp_path / "ck-ranks-proc1" / "knn_state.npz").exists()
+
+
+def _sm_small(monkeypatch):
+    """The smoke's sharded_mutation phase at a test's size: 20000 rows of
+    the deployment's distribution, 64 partitions, 256-row session batches
+    (the pod's workers read the sizes from the saved plan)."""
+    import chip_smoke
+
+    monkeypatch.setattr(chip_smoke, "IVF_M", 20000)
+    monkeypatch.setattr(chip_smoke, "IVF_P", 64)
+    monkeypatch.setattr(chip_smoke, "IVF_QUERIES", 4096)
+    monkeypatch.setattr(chip_smoke, "SM_BATCH", 256)
+    return chip_smoke
+
+
+@pytest.mark.cuda
+def test_sharded_mutation_across_cards_equals_one_card(cuda_device, monkeypatch,
+                                                       tmp_path):
+    """One process, four shards over the visible cards (slices on distinct
+    cards): the smoke's churn (upserts, partition-moving updates, deletes,
+    a compaction with retrain, a burst that overflows, compacts and grows)
+    and sessions with churn between batches; after every step each
+    shard's checksums, the centroids and a search equal the one-card
+    store's, and the final slices and every session batch bit for bit.
+    Skips below two cards."""
+    from mpi_knn_tpu_torch.ops import _build
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs at least two cards")
+    cs = _sm_small(monkeypatch)
+    _build.build_all()
+    cards = [torch.device("cuda", c % n) for c in range(cs.SHARDS)]
+    cs.sm_prepare(cards[0], str(tmp_path))
+    single = cs.sm_drive(cards[0], [cards[0]] * cs.SHARDS, str(tmp_path), cs.sync_all)
+    spread = cs.sm_drive(cards[0], cards, str(tmp_path), cs.sync_all)
+    cs.sm_gates("across_cards", single, [(*spread, 0.0)], cs.SHARDS)
+
+
+@pytest.mark.cuda
+def test_multiproc_sharded_mutation_on_one_card(cuda_device, monkeypatch):
+    """The smoke's sharded_mutation phase at a small size: two processes of
+    two shards each on the one card (gloo) against the one-process 4-shard
+    store, bit for bit after every step and in both sessions, both
+    processes on the same rung at every seq."""
+    from mpi_knn_tpu_torch.ops import _build
+
+    cs = _sm_small(monkeypatch)
+    _build.build_all()
+    cs.sharded_mutation_phase(torch.device("cuda", 0))
+
+
+@pytest.mark.cuda
+def test_multiproc_sharded_mutation_across_cards(cuda_device, monkeypatch):
+    """The four-card form of the smoke's sharded_mutation run at a small
+    size: one process with its four slices on four cards, and two
+    processes of two cards each over NCCL, each bit for bit the one-card
+    store. Skips below four cards."""
+    from mpi_knn_tpu_torch.ops import _build
+
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four cards")
+    cs = _sm_small(monkeypatch)
+    _build.build_all()
+    cs.sharded_mutation_cards([torch.device("cuda", c) for c in range(4)])

@@ -376,21 +376,184 @@ def test_sharded_mutation_equals_the_unsharded_store(shards):
         assert torch.equal(sidx.buckets, plain.buckets)
 
 
+def _apart(index):
+    """``index`` with its slices apart, each a tensor set of its own (the
+    layout of a store over distinct cards, here on the one CPU)."""
+    return dataclasses.replace(
+        index, shard_store=[tuple(None if t is None else t.clone() for t in sl)
+                            for sl in index.slices],
+        buckets=None, bucket_ids=None, bucket_sqs=None, bucket_scales=None,
+        _cache={})
+
+
 def test_mutation_refuses_a_store_over_distinct_devices():
+    """A store whose slices live apart (as over two cards) searches as the
+    unsharded index and, since slices take mutation on their own cards,
+    takes an upsert as the one-store index does (no longer refused)."""
     from mpi_knn_tpu_torch.serve.mutate import upsert_rows
 
     X = _clustered(np.random.default_rng(11), m=256, d=16, centers=4)
     idx = build_ivf_index(X, KNNConfig(k=3, partitions=4, nprobe=2),
                           device=CPU)
-    sidx = shard_ivf_index(idx, shards=2)
-    # a store whose slices live apart (as over two cards)
-    sidx = dataclasses.replace(sidx, shard_store=sidx.slices, buckets=None,
-                               bucket_ids=None, bucket_sqs=None)
+    one = shard_ivf_index(idx, shards=2)
+    sidx = _apart(shard_ivf_index(build_ivf_index(X, KNNConfig(k=3, partitions=4,
+                                                               nprobe=2),
+                                                  device=CPU), shards=2))
     d, i, _ = search_ivf_sharded(sidx, X[:8], device=CPU)
     d0, i0 = search_ivf(idx, X[:8], device=CPU)
     assert torch.equal(i, i0) and torch.equal(d, d0)
-    with pytest.raises(ValueError, match="distinct cards"):
-        upsert_rows(sidx, [9000], X[:1])
+    for index in (one, sidx):
+        upsert_rows(index, [9000], X[:1] + 0.5)
+    assert torch.equal(torch.cat([sl[1] for sl in sidx.slices]), one.bucket_ids)
+    probe = X[:8] + np.float32(0.55)  # near the new row, past the zero rule
+    d, i, _ = search_ivf_sharded(sidx, probe, device=CPU)
+    d1, i1, _ = search_ivf_sharded(one, probe, device=CPU)
+    assert torch.equal(i, i1) and torch.equal(d, d1) and int(i[0, 0]) == 9000
+
+
+@pytest.mark.parametrize("shards", [1, 4])
+def test_mutating_a_sharded_index_leaves_its_source_untouched(shards):
+    """The sharded index owns its store: an upsert, a delete and a
+    compaction of it write nothing into the unsharded index it was cut
+    from (on the same device a slice could otherwise be a view of it)."""
+    from mpi_knn_tpu_torch.serve.mutate import compact_index, delete_rows, upsert_rows
+
+    X = _clustered(np.random.default_rng(16), m=256, d=16, centers=4)
+    idx = build_ivf_index(X, KNNConfig(**MUT), device=CPU)
+    before = [t.clone() for t in (idx.buckets, idx.bucket_ids, idx.bucket_sqs)]
+    sidx = shard_ivf_index(idx, shards=shards)
+    upsert_rows(sidx, np.arange(9000, 9016), X[:16] + 1.0)
+    delete_rows(sidx, np.arange(0, 8))
+    compact_index(sidx, retrain=False)
+    for a, b in zip(before, (idx.buckets, idx.bucket_ids, idx.bucket_sqs)):
+        assert torch.equal(a, b)
+
+
+def _churn(dim, seed=31):
+    """The churn sequence: new ids, updates that move rows to other
+    partitions, deletes, compaction without and with retrain, and a burst
+    at one spot that overflows, compacts and then grows the cap."""
+    rng = np.random.default_rng(seed)
+    ops = []
+    for j in range(2):
+        new = np.arange(5000 + 16 * j, 5016 + 16 * j)
+        ops.append(("upsert", new, (rng.standard_normal((16, dim)) * 4).astype(np.float32)))
+        ops.append(("upsert", new[:6], (rng.standard_normal((6, dim)) * 4).astype(np.float32)))
+        ops.append(("delete", np.concatenate([np.arange(12 * j, 12 * j + 6), new[10:12]])))
+    ops.append(("compact", False))
+    ops.append(("compact", True))
+    burst = (np.full((1, dim), 3.0) + 0.01 * rng.standard_normal((250, dim))).astype(np.float32)
+    ops.append(("upsert", np.arange(9000, 9250), burst))
+    return ops
+
+
+def _apply(sess, op):
+    kind, *args = op
+    if kind == "upsert":
+        sess.upsert(*args)
+    elif kind == "delete":
+        sess.delete(*args)
+    else:
+        sess.compact(retrain=args[0])
+
+
+MUT = dict(k=5, partitions=10, nprobe=3, query_tile=8, query_bucket=32,
+           bucket_headroom=0.5, mutation_bucket=16, kmeans_iters=8)
+
+
+def _store_of(index):
+    return [torch.cat([sl[part] for sl in index.slices])
+            for part in range(4) if index.slices[0][part] is not None]
+
+
+@pytest.mark.parametrize("shards", [1, 4])
+@pytest.mark.parametrize("dtype", ["float32", "int8", "int4"])
+def test_slices_apart_store_mutates_as_the_one_store_index(dtype, shards):
+    """The churn through sessions on a store whose slices lie apart and on
+    the one-store sharded index: after every step the concatenated slices,
+    the centroids and a search equal the one-store index's bit for bit; at
+    S = 1 both equal the unsharded index's."""
+    X = _clustered(np.random.default_rng(14), m=600, d=16, centers=10)
+    cfg = KNNConfig(dtype=dtype, **MUT)
+    one = shard_ivf_index(build_ivf_index(X, cfg, device=CPU), shards=shards)
+    apart = _apart(shard_ivf_index(build_ivf_index(X, cfg, device=CPU), shards=shards))
+    plain = build_ivf_index(X, cfg, device=CPU)
+    Q = X[:40] + np.float32(0.01)
+    sessions = [ServeSession(ix, device=CPU) for ix in (one, apart, plain)]
+    caps = set()
+    for n, op in enumerate(_churn(16)):
+        for sess in sessions if shards == 1 else sessions[:2]:
+            _apply(sess, op)
+        for a, b in zip(_store_of(apart), _store_of(one)):
+            assert torch.equal(a, b), n
+        assert torch.equal(apart.centroids, one.centroids)
+        d, i, _ = search_ivf_sharded(apart, Q, device=CPU)
+        d1, i1, _ = search_ivf_sharded(one, Q, device=CPU)
+        assert torch.equal(i, i1) and torch.equal(d, d1), n
+        if shards == 1:
+            whole = (plain.buckets, plain.bucket_ids, plain.bucket_sqs,
+                     plain.bucket_scales)
+            for a, b in zip(_store_of(apart), [t for t in whole if t is not None]):
+                assert torch.equal(a, b), n
+            q_tile = psharded.sharded_query_shapes(
+                one.cfg, one.nprobe, one.bucket_cap, one.dim, len(Q), 1)[0]
+            d0, i0 = search_ivf(plain, Q, device=CPU, query_tile=q_tile)
+            assert torch.equal(i, i0) and torch.equal(d, d0), n
+        caps.add(apart.bucket_cap)
+    assert sessions[1].stats_snapshot()["mutation"]["compactions"] >= 3
+    assert len(caps) == 2  # the burst grew the cap
+
+
+def _apply_jax(jidx, op):
+    """``op`` through the JAX package's mutation functions on its sharded
+    index, an overflow handled as the session does (compact, retry, grow)
+    but without retraining: the JAX package's sharded retrain leaves the
+    new centroids on one device, and its next upsert is then refused
+    (``Received incompatible devices``), so its retrain comes last."""
+    from mpi_knn_tpu.serve import mutate as jsm
+
+    kind, *args = op
+    if kind == "delete":
+        jsm.delete_rows(jidx, *args)
+    elif kind == "compact":
+        jsm.compact_index(jidx, retrain=args[0])
+    else:
+        try:
+            jsm.upsert_rows(jidx, *args)
+        except jsm.BucketOverflowError:
+            jsm.compact_index(jidx, retrain=False)
+            try:
+                jsm.upsert_rows(jidx, *args)
+            except jsm.BucketOverflowError:
+                jsm.compact_index(jidx, retrain=False,
+                                  min_cap=jidx.bucket_cap + len(args[0]))
+                jsm.upsert_rows(jidx, *args)
+
+
+def test_slices_apart_mutation_agrees_with_jax_sharded_mutation():
+    """The churn on a 4-slice store apart and through the JAX package's
+    sharded mutation on its virtual devices (the JAX index carried over;
+    the retrain compaction last, see ``_apply_jax``): at nprobe =
+    partitions the searches after every step agree, sorted distances
+    within 1e-4 and ids up to ties."""
+    X = _clustered(np.random.default_rng(15), m=600, d=16, centers=10)
+    j, p = _pair(X, **{**MUT, "nprobe": 10})
+    jidx = jivf.shard_ivf_index(j, shards=4)
+    apart = _apart(shard_ivf_index(p, shards=4))
+    Q = X[:40] + np.float32(0.01)
+    qids = np.arange(len(Q), dtype=np.int32)
+    psess = ServeSession(apart, device=CPU)
+    ops = _churn(16)
+    ops = ops[:-3] + ops[-1:] + ops[-3:-1]  # the burst before the compactions
+    for n, op in enumerate(ops):
+        _apply_jax(jidx, op)
+        _apply(psess, op)
+        d, i, _ = search_ivf_sharded(apart, Q, query_ids=qids, device=CPU)
+        jd, ji, _ = jivf.search_ivf_sharded(jidx, Q, query_ids=qids)
+        np.testing.assert_allclose(d.numpy(), np.asarray(jd), rtol=1e-4, atol=1e-4)
+        assert recall_against_oracle(i.numpy(), np.asarray(jd), np.asarray(ji),
+                                     MUT["k"]) >= 0.999, n
+    assert apart.bucket_cap > p.bucket_cap  # the burst grew the cap
 
 
 # ---------------------------------------------------------------------------

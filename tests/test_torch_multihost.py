@@ -25,6 +25,7 @@ has a timeout that kills every worker and fails with their output.
 
 import contextlib
 import os
+import re
 import socket
 import subprocess
 import sys
@@ -125,16 +126,12 @@ def _worker_ring(X, schedule, mesh, tmp, pid, out):
 
 
 def _worker_ivf(tmp, out, local):
-    import torch
-
     from mpi_knn_tpu_torch.ivf import (
         load_ivf_index,
         search_ivf_sharded,
         shard_ivf_index,
     )
     from mpi_knn_tpu_torch.parallel.mesh import make_ring_mesh
-    from mpi_knn_tpu_torch.serve import ServeSession
-    from mpi_knn_tpu_torch.serve.mutate import upsert_rows
 
     idx = load_ivf_index(os.path.join(tmp, "index.npz"), device="cpu")
     Q = np.load(os.path.join(tmp, "queries.npy"))
@@ -148,14 +145,147 @@ def _worker_ivf(tmp, out, local):
         d, i, stats = search_ivf_sharded(sidx, Q, query_ids=qids, device="cpu")
         out[f"{name}/d"], out[f"{name}/i"] = d.numpy(), i.numpy()
         out[f"{name}/stats"] = stats.numpy()
+    out.update(_drive_mutation(_mut_index(tmp, mesh=mesh), Q))
+    out.update(_drive_session(_mut_index(tmp, mesh=mesh), Q))
+    _worker_faults(_mut_index(tmp, mesh=mesh), Q, out)
+
+
+# ---------------------------------------------------------------------------
+# live mutation and a session over the sharded store: one driver for the
+# pod's processes and for the one-process store they are held against
+
+MUT_CFG = dict(k=K, partitions=8, nprobe=3, query_tile=8, bucket_headroom=0.5,
+               mutation_bucket=16, query_bucket=16, kmeans_iters=8)
+SESSION_BATCHES = 16
+
+
+def _mut_index(tmp, mesh=None, shards=None):
+    """The saved mutable index (``MUT_CFG``) sharded over ``mesh`` (the
+    pod's) or ``shards`` logical ranks of this process."""
+    from mpi_knn_tpu_torch.ivf import load_ivf_index, shard_ivf_index
+
+    idx = load_ivf_index(os.path.join(tmp, "mut_index.npz"), device="cpu")
+    return (shard_ivf_index(idx, mesh=mesh) if mesh is not None
+            else shard_ivf_index(idx, shards=shards))
+
+
+def _churn_ops(dim):
+    """The churn sequence: upserts of new ids, updates that move rows to
+    other partitions, deletes, compaction without and with retrain, and a
+    burst at one spot that overflows, compacts and then grows the cap."""
+    rng = np.random.default_rng(21)
+    ops = []
+    for j in range(3):
+        new = np.arange(5000 + 16 * j, 5016 + 16 * j)
+        ops.append(("upsert", new, (rng.standard_normal((16, dim)) * 4).astype(np.float32)))
+        ops.append(("upsert", new[:6], (rng.standard_normal((6, dim)) * 4).astype(np.float32)))
+        ops.append(("delete", np.concatenate([np.arange(12 * j, 12 * j + 6), new[10:12]])))
+    ops.append(("compact", False))
+    ops.append(("compact", True))
+    burst = (np.full((1, dim), 3.0) + 0.01 * rng.standard_normal((300, dim))).astype(np.float32)
+    ops.append(("upsert", np.arange(9000, 9300), burst))
+    return ops
+
+
+def _store_arrays(index, prefix, out):
+    from mpi_knn_tpu_torch.ivf import unshard_ivf_index
+
+    whole = unshard_ivf_index(index)
+    for name in ("buckets", "bucket_ids", "bucket_sqs", "centroids", "centroid_sqs"):
+        out[f"{prefix}/{name}"] = getattr(whole, name).numpy()
+    out[f"{prefix}/cap"] = np.asarray(index.bucket_cap)
+
+
+def _drive_mutation(index, Q) -> dict:
+    """The churn through a session on ``index``; after every step the
+    whole store and a search of ``Q``."""
+    from mpi_knn_tpu_torch.ivf import search_ivf_sharded
+    from mpi_knn_tpu_torch.serve import ServeSession
+
+    out = {}
+    sess = ServeSession(index, device="cpu")
+    qids = np.arange(len(Q), dtype=np.int32)
+    for n, (kind, *args) in enumerate(_churn_ops(index.dim)):
+        if kind == "upsert":
+            sess.upsert(*args)
+        elif kind == "delete":
+            sess.delete(*args)
+        else:
+            sess.compact(retrain=args[0])
+        _store_arrays(index, f"churn/{n}", out)
+        d, i, _ = search_ivf_sharded(index, Q, query_ids=qids, device="cpu")
+        out[f"churn/{n}/d"], out[f"churn/{n}/i"] = d.numpy(), i.numpy()
+    out["churn/compactions"] = np.asarray(sess.stats_snapshot()["mutation"]["compactions"])
+    return out
+
+
+def _drive_session(index, Q) -> dict:
+    """SESSION_BATCHES 16-row batches through a session, with upserts,
+    deletes and a compaction between them; each retired batch's results,
+    seq and rung."""
+    from mpi_knn_tpu_torch.serve import ServeSession
+
+    rng = np.random.default_rng(22)
+    sess = ServeSession(index, device="cpu")
+    done = []
+    for b in range(SESSION_BATCHES):
+        done += sess.submit(Q[(16 * b) % len(Q):][:16])
+        if b % 3 == 0:
+            sess.upsert(np.arange(6000 + 8 * b, 6008 + 8 * b),
+                        (rng.standard_normal((8, index.dim)) * 4).astype(np.float32))
+        elif b % 3 == 1:
+            sess.delete(np.arange(100 + 4 * b, 104 + 4 * b))
+        elif b == 8:
+            sess.compact(retrain=True)
+    done += sess.drain()
+    return {"session/d": np.stack([r.dists for r in done]),
+            "session/i": np.stack([r.ids for r in done]),
+            "session/seq": np.asarray([r.seq for r in done]),
+            "session/rung": np.asarray([r.degraded or "full" for r in done])}
+
+
+def _worker_faults(index, Q, out):
+    """What the pod must refuse, and the decision it must take once: a
+    plan that differs on one process (process 1's ids are off by one)
+    stops both before any write; a deadline only process 1 breaks sheds
+    both processes' ladders at the same seq; the background compactor is
+    refused by name; a process that leaves fails the other's next
+    collective, named. Runs last: process 1 leaves here."""
+    from mpi_knn_tpu_torch.ivf import unshard_ivf_index
+    from mpi_knn_tpu_torch.parallel import distributed
+    from mpi_knn_tpu_torch.resilience import ResiliencePolicy
+    from mpi_knn_tpu_torch.serve import ServeSession
+    from mpi_knn_tpu_torch.serve.mutate import delete_rows, upsert_rows
+
+    pid = distributed.process_index()
+    before = unshard_ivf_index(index).bucket_ids.clone()
+    ids = np.arange(8000, 8008) + (1 if pid == 1 else 0)
     try:
-        upsert_rows(sidx, [10**6], torch.zeros((1, idx.dim)))
-    except ValueError as e:
-        out["mutation_refusal"] = np.asarray(str(e))
+        upsert_rows(index, ids, Q[:8])
+    except distributed.PlanMismatchError as e:
+        out["faults/mismatch"] = np.asarray(str(e))
+    out["faults/unwritten"] = np.asarray(
+        bool((unshard_ivf_index(index).bucket_ids == before).all()))
+    pol = ResiliencePolicy(batch_deadline_s=0.0 if pid == 1 else 1e6,
+                           degrade_after=2)
+    sess = ServeSession(index, resilience=pol, device="cpu")
+    done = []
+    for b in range(6):
+        done += sess.submit(Q[:16])
+    done += sess.drain()
+    out["faults/rungs"] = np.asarray([r.degraded or "full" for r in done])
+    out["faults/shed_after"] = np.asarray([e["after_batch"] for e in sess.degradations])
     try:
-        ServeSession(sidx, device="cpu")
+        sess.start_compactor()
     except ValueError as e:
-        out["serve_refusal"] = np.asarray(str(e))
+        out["faults/compactor"] = np.asarray(str(e))
+    # a process that leaves the pod: process 1 skips this delete and shuts
+    # down, and process 0's agreement fails at once, naming the operation
+    if pid == 0:
+        try:
+            delete_rows(index, [0])
+        except RuntimeError as e:
+            out["faults/left"] = np.asarray(str(e))
 
 
 def _worker() -> int:
@@ -568,6 +698,12 @@ def ivf_pod(tmp_path_factory):
     X = _clustered(np.random.default_rng(0), m=512, d=16, centers=8)
     j, p = _pair(X, k=K, partitions=8, nprobe=3, query_tile=8)
     save_ivf_index(p, str(tmp / "index.npz"))
+    from mpi_knn_tpu_torch import KNNConfig
+    from mpi_knn_tpu_torch.ivf import build_ivf_index
+
+    with _one_thread():
+        save_ivf_index(build_ivf_index(X, KNNConfig(**MUT_CFG), device="cpu"),
+                       str(tmp / "mut_index.npz"))
     Q = X[:48] + np.float32(0.01)
     np.save(tmp / "queries.npy", Q)
     return j, p, Q, _pod(tmp, "ivf", 2, 1), tmp
@@ -578,7 +714,7 @@ def ivf_pod_2x2(ivf_pod):
     """The same index over 2 processes × 2 shards."""
     tmp = ivf_pod[4] / "2x2"
     tmp.mkdir()
-    for name in ("index.npz", "queries.npy"):
+    for name in ("index.npz", "mut_index.npz", "queries.npy"):
         (tmp / name).symlink_to(ivf_pod[4] / name)
     return _pod(tmp, "ivf", 2, 2)
 
@@ -654,9 +790,116 @@ def test_two_shards_a_process_equal_four_shards_in_one_process(ivf_pod, ivf_pod_
 
 
 def test_process_spanning_store_refuses_mutation_and_sessions(ivf_pod, ivf_pod_2x2):
+    """A store that spans processes takes mutation and serves through a
+    session (no longer refused): every process of both pods ran the churn
+    and a session to their ends, and the background compactor alone is
+    refused by name."""
     for out in ivf_pod[3] + ivf_pod_2x2:
-        assert "spans processes cannot honor live mutation" in str(out["mutation_refusal"])
-        assert "spans processes is not ported" in str(out["serve_refusal"])
+        assert int(out["churn/compactions"]) >= 2
+        assert len(out["session/seq"]) == SESSION_BATCHES
+        assert "spans processes" in str(out["faults/compactor"])
+
+
+@contextlib.contextmanager
+def _single_mut(tmp, shards):
+    """The one-process store of ``shards`` logical ranks, one BLAS thread."""
+    with _one_thread():
+        yield _mut_index(tmp, shards=shards)
+
+
+@pytest.fixture(scope="module")
+def single_mutation(ivf_pod):
+    """The one-process churn and session at 2 and 4 shards, and the
+    unsharded store's churn."""
+    from mpi_knn_tpu_torch.ivf import load_ivf_index
+
+    tmp, Q = ivf_pod[4], ivf_pod[2]
+    got = {}
+    for shards in (2, 4):
+        with _single_mut(tmp, shards) as one:
+            got[shards] = _drive_mutation(one, Q)
+        with _single_mut(tmp, shards) as one:
+            got[shards].update(_drive_session(one, Q))
+    return got
+
+
+POD_OF = {"2x1": (lambda a, b: a[3], 2), "2x2": (lambda a, b: b, 4)}
+
+
+@pytest.mark.parametrize("pod", list(POD_OF))
+def test_pod_churn_equals_the_one_process_store(ivf_pod, ivf_pod_2x2,
+                                                single_mutation, pod):
+    """Upserts, partition-moving updates, deletes, compaction with and
+    without retrain and an overflow that compacts and then grows the cap,
+    on a store of 2 × 1 and 2 × 2 shards over two processes: after every
+    step every process's whole store (gathered), centroids and search
+    equal the one-process store's of as many shards, bit for bit."""
+    pick, shards = POD_OF[pod]
+    want = single_mutation[shards]
+    steps = len(_churn_ops(16))
+    caps = set()
+    for out in pick(ivf_pod, ivf_pod_2x2):
+        for n in range(steps):
+            for key in ("buckets", "bucket_ids", "bucket_sqs", "centroids",
+                        "centroid_sqs", "cap", "d", "i"):
+                k_ = f"churn/{n}/{key}"
+                assert np.array_equal(out[k_], want[k_]), k_
+            caps.add(int(out[f"churn/{n}/cap"]))
+        assert int(out["churn/compactions"]) == int(want["churn/compactions"]) >= 3
+    assert len(caps) >= 2  # the burst grew the cap
+
+
+@pytest.mark.parametrize("pod", list(POD_OF))
+def test_pod_session_equals_the_one_process_session(ivf_pod, ivf_pod_2x2,
+                                                    single_mutation, pod):
+    """A session on each process of the pod answers SESSION_BATCHES
+    batches with mutations between them bit for bit the one-process
+    session, every process on the same rung at every seq."""
+    pick, shards = POD_OF[pod]
+    want = single_mutation[shards]
+    outs = pick(ivf_pod, ivf_pod_2x2)
+    for out in outs:
+        for key in ("session/d", "session/i", "session/seq", "session/rung"):
+            assert np.array_equal(out[key], want[key]), key
+    assert list(outs[0]["session/seq"]) == list(range(SESSION_BATCHES))
+
+
+@pytest.mark.parametrize("pod", list(POD_OF))
+def test_pod_plan_that_differs_raises_naming_both_digests(ivf_pod, ivf_pod_2x2, pod):
+    """Process 1's upsert ids are off by one: both processes raise before
+    anything is written, naming process 0's digest and process 1's."""
+    outs = POD_OF[pod][0](ivf_pod, ivf_pod_2x2)
+    msgs = [str(out["faults/mismatch"]) for out in outs]
+    assert msgs[0] == msgs[1] and "upsert plan" in msgs[0]
+    digests = re.findall(r"has '([0-9a-f]{16})'", msgs[0])
+    assert len(digests) == 2 and digests[0] != digests[1]
+    assert all(bool(out["faults/unwritten"]) for out in outs)
+
+
+@pytest.mark.parametrize("pod", list(POD_OF))
+def test_pod_deadline_breach_on_one_process_sheds_both_at_the_same_seq(
+        ivf_pod, ivf_pod_2x2, pod):
+    """Only process 1's deadline is broken (0 s against process 0's
+    1e6 s): the breach is decided once for the pod, so both processes
+    shed at the same seqs and serve every batch on the same rung."""
+    outs = POD_OF[pod][0](ivf_pod, ivf_pod_2x2)
+    assert len(outs[0]["faults/shed_after"]) >= 1
+    assert np.array_equal(outs[0]["faults/shed_after"], outs[1]["faults/shed_after"])
+    assert np.array_equal(outs[0]["faults/rungs"], outs[1]["faults/rungs"])
+    assert "full" != outs[0]["faults/rungs"][-1]
+
+
+@pytest.mark.parametrize("pod", list(POD_OF))
+def test_pod_process_that_leaves_fails_the_collective_naming_it(ivf_pod, ivf_pod_2x2,
+                                                                pod):
+    """Process 1 leaves the pod where process 0 deletes: process 0's plan
+    agreement raises at once, naming the operation, and never hangs (a
+    process that stays but never joins fails it within the group's
+    timeout the same way)."""
+    outs = POD_OF[pod][0](ivf_pod, ivf_pod_2x2)
+    msg = str(outs[0]["faults/left"])
+    assert msg.startswith("delete plan: the collective across the pod's processes failed")
+    assert "faults/left" not in outs[1]
 
 
 if __name__ == "__main__" and os.environ.get(WORKER_ENV):

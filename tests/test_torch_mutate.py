@@ -34,10 +34,14 @@ Waiting for their slices (ROADMAP.md): the restart against a warm cache
 the mutation path, so the port's cache of kernel libraries has nothing to
 restart there; ``tests/test_torch_aotcache.py`` holds the cache) and the
 compile counts (``test_zero_compiles_under_sustained_ragged_churn``; the
-doctor's mutation probe counts the builds of a second pass), the sharded
-store (``test_s1_sharded_mutation_bit_identical``,
+doctor's mutation probe counts the builds of a second pass).
+
+The reference's sharded-store cases (``test_s1_sharded_mutation_bit_identical``,
 ``test_sharded_mutation_and_compact``,
-``test_4shard_build_with_tombstones_reloads_on_fewer_shards``; A item 4).
+``test_4shard_build_with_tombstones_reloads_on_fewer_shards``) run on the
+one-store sharded index and on a store whose slices lie apart (the layout
+of a store over distinct cards), beside the JAX package's sharded mutation
+on its virtual devices.
 """
 
 import dataclasses
@@ -894,6 +898,118 @@ def test_a_churning_thread_beside_a_depth_2_session(rng):
 
 # ---------------------------------------------------------------------------
 # The mutate CLI against the JAX package's
+
+
+# ---------------------------------------------------------------------------
+# the sharded store: one store on one device, and slices apart
+
+
+def _apart(index):
+    """A sharded index with its slices apart, each a tensor set of its own
+    (the layout of a store over distinct cards, here on the one CPU)."""
+    return dataclasses.replace(
+        index, shard_store=[tuple(None if t is None else t.clone() for t in sl)
+                            for sl in index.slices],
+        buckets=None, bucket_ids=None, bucket_sqs=None, bucket_scales=None,
+        _cache={})
+
+
+def _sharded_store(index) -> dict:
+    names = ("buckets", "bucket_ids", "bucket_sqs")
+    return {n: torch.cat([sl[k] for sl in index.slices]).numpy()
+            for k, n in enumerate(names)}
+
+
+def test_s1_sharded_mutation_bit_identical(rng):
+    """The reference's case: upserts and deletes on the unsharded index and
+    on a one-shard index leave the same store; here also on a one-shard
+    store in slices of their own, and all three equal the JAX package's
+    one-shard sharded mutation of the same index (norms to 1e-6)."""
+    from mpi_knn_tpu.ivf.sharded import shard_ivf_index as jshard
+    from mpi_knn_tpu_torch.ivf import shard_ivf_index
+
+    X, cents = _blobs(rng)
+    j, _ = _pair(X, nprobe=4)
+    a, b, c = (ivf_index_from_reference(_state(j), CPU) for _ in range(3))
+    b = shard_ivf_index(b, shards=1)
+    c = _apart(shard_ivf_index(c, shards=1))
+    js = jshard(j, shards=1)
+    ids = np.arange(2000, 2032)
+    rows = (cents[rng.integers(0, 8, 32)]
+            + rng.standard_normal((32, 16))).astype(np.float32)
+    for index, mod in ((a, sm), (b, sm), (c, sm), (js, jsm)):
+        mod.upsert_rows(index, ids, rows)
+        mod.delete_rows(index, ids[:8])
+    want = _store_np(a)
+    for got in (_sharded_store(b), _sharded_store(c)):
+        for name, w in got.items():
+            assert np.array_equal(w, want[name]), name
+    # against JAX: rows and ids bit for bit, norms within 1e-6 (its f32
+    # norms are summed in another order, as _assert_same_store holds them)
+    assert np.array_equal(want["buckets"], np.asarray(js.buckets))
+    assert np.array_equal(want["bucket_ids"], np.asarray(js.bucket_ids))
+    np.testing.assert_allclose(want["bucket_sqs"], np.asarray(js.bucket_sqs),
+                               rtol=1e-6, atol=1e-6)
+
+
+def test_sharded_mutation_and_compact(rng):
+    """The reference's case on four shards whose slices lie apart: deleted
+    ids never come back, the upserted rows answer for themselves before
+    and after a compaction, which keeps every live row; the store stays the
+    one-store index's bit for bit."""
+    from mpi_knn_tpu_torch.ivf import search_ivf_sharded, shard_ivf_index
+
+    X, cents = _blobs(rng)
+    one = shard_ivf_index(_ivf(X, nprobe=8), shards=4)
+    idx = _apart(shard_ivf_index(_ivf(X, nprobe=8), shards=4))
+    ids = np.arange(3000, 3032)
+    rows = (cents[rng.integers(0, 8, 32)]
+            + rng.standard_normal((32, 16))).astype(np.float32)
+    probes = rows[16:20] + np.float32(0.1)
+    for index in (one, idx):
+        sm.upsert_rows(index, ids, rows)
+        sm.delete_rows(index, ids[:16])
+    d, i, _ = search_ivf_sharded(idx, probes, config=idx.cfg.replace(k=3),
+                                 device=CPU)
+    assert not set(ids[:16].tolist()) & set(i.ravel().tolist())
+    assert set(i[:, 0].tolist()) == set(ids[16:20].tolist())
+    for index in (one, idx):
+        st = sm.compact_index(index, reason="test")
+        assert st["live"] == 256 + 16
+    d, i, _ = search_ivf_sharded(idx, probes, config=idx.cfg.replace(k=3),
+                                 device=CPU)
+    assert set(i[:, 0].tolist()) == set(ids[16:20].tolist())
+    for name, got in _sharded_store(idx).items():
+        assert np.array_equal(got, _sharded_store(one)[name]), name
+
+
+def test_4shard_build_with_tombstones_reloads_on_fewer_shards(rng, tmp_path):
+    """The reference's case: a four-shard store (slices apart) with
+    upserts and tombstones saves as one file that reloads unsharded and
+    on one and two shards (the two apart) with the same live rows and the
+    same answers, the deleted ids absent."""
+    from mpi_knn_tpu_torch.ivf import search_ivf_sharded, shard_ivf_index
+
+    X, cents = _blobs(rng)
+    idx = _apart(shard_ivf_index(_ivf(X, nprobe=8), shards=4))
+    ids = np.arange(6000, 6016)
+    rows = (cents[rng.integers(0, 8, 16)]
+            + rng.standard_normal((16, 16))).astype(np.float32)
+    sm.upsert_rows(idx, ids, rows)
+    sm.delete_rows(idx, ids[:8])
+    path = save_ivf_index(idx, str(tmp_path / "shard.npz"))
+    plain = load_ivf_index(path, device=CPU)
+    d0, i0 = search_ivf(plain, rows[8:12], config=plain.cfg.replace(k=3),
+                        device=CPU)
+    for s, apart in ((1, False), (2, True)):
+        re_ = shard_ivf_index(load_ivf_index(path, device=CPU), shards=s)
+        if apart:
+            re_ = _apart(re_)
+        assert freelist_of(re_).live == 256 + 8
+        d, i, _ = search_ivf_sharded(re_, rows[8:12],
+                                     config=re_.cfg.replace(k=3), device=CPU)
+        assert torch.equal(i, i0)
+        assert not set(ids[:8].tolist()) & set(i.ravel().tolist())
 
 
 @pytest.fixture

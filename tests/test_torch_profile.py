@@ -162,6 +162,67 @@ def test_nested_host_events_count_self_time():
     assert sum(rep["busy_ms_by_category"].values()) == pytest.approx(0.012)
 
 
+def _abutting_trace(n: int, extra=()) -> bytes:
+    """A device stream of ``n`` kernels, each starting where the one before
+    ends, at a torch.profiler trace's timestamps (``ts`` ≈ 1.46e12 µs, three
+    decimals), the bin minimum and an SGEMM in turn; ``extra`` (ts, dur)
+    pairs are planted on the same stream. Written as JSON numbers, as
+    Kineto writes them."""
+    from decimal import Decimal
+
+    ts, out = Decimal("1460000000000.123"), []
+    durs = (Decimal("75.211"), Decimal("6.489"))
+    rows = []
+    for i in range(n):
+        rows.append((("sgemm", "warp_chunks_kernel")[i % 2], ts, durs[i % 2]))
+        ts += durs[i % 2]
+    rows += [("planted", Decimal(a), Decimal(b)) for a, b in extra]
+    for name, t, d in rows:
+        out.append('{"ph": "X", "cat": "kernel", "name": "%s", "ts": %s, '
+                   '"dur": %s, "args": {"device": 0, "stream": 7}}' % (name, t, d))
+    return ('{"traceEvents": [' + ", ".join(out) + "]}").encode()
+
+
+def test_abutting_events_at_trace_timestamps_parse_without_overlap():
+    """C.14: 3540 abutting kernels at ts ≈ 1.46e12 µs parse to integer
+    picoseconds exactly, so their durations sum to their union on the
+    stream and no two overlap. The float parse the port used before reads
+    the same events as overlapping (a float64 steps by 244 ps there)."""
+    raw = _abutting_trace(3540)
+    events = kineto.parse_trace_bytes(raw)
+    summed, union = kineto.stream_busy_ps(events, PLANE)
+    assert summed == union == 1770 * (75_211_000 + 6_489_000)
+    assert kineto.stream_overlaps(events, PLANE) == []
+    for a, b in zip(events, events[1:]):
+        assert a["start_ps"] + a["dur_ps"] == b["start_ps"]
+    floats = [(int(round(float(e["ts"]) * 1e6)), int(round(float(e["dur"]) * 1e6)))
+              for e in json.loads(raw)["traceEvents"]]
+    assert sum(max(0, s0 + d0 - s1)
+               for (s0, d0), (s1, _) in zip(floats, floats[1:])) > 0
+
+
+@pytest.mark.parametrize("planted", ["duplicate", "inside"])
+def test_a_duplicate_or_nested_event_still_fails_the_union(planted):
+    """The double-count gate still sees what it is for: an event recorded
+    twice, or one whole event inside another on its stream, makes the
+    durations exceed the union, and ``stream_overlaps`` names the pair."""
+    extra = {"duplicate": [("1460000000000.123", "75.211")],
+             "inside": [("1460000000010.5", "2.25")]}[planted]
+    events = kineto.parse_trace_bytes(_abutting_trace(8, extra))
+    summed, union = kineto.stream_busy_ps(events, PLANE)
+    assert summed - union == {"duplicate": 75_211_000, "inside": 2_250_000}[planted]
+    pairs = kineto.stream_overlaps(events, PLANE)
+    assert len(pairs) == 1 and "planted" in (pairs[0][1], pairs[0][3])
+    assert pairs[0][0] == "stream 7"
+
+
+def test_trace_times_must_be_finite_numbers():
+    bad = b'{"traceEvents": [{"ph": "X", "cat": "kernel", "name": "k", ' \
+          b'"ts": NaN, "dur": 1.5, "args": {}}]}'
+    with pytest.raises(kineto.ParseError, match="not finite"):
+        kineto.parse_trace_bytes(bad)
+
+
 @pytest.mark.parametrize("name,cat", [
     ("(anonymous namespace)::fused_knn_tiles_kernel(CUtensorMap_st, "
      "(anonymous namespace)::ExactEpi<knn::wg::TileItems>)", "matmul"),
