@@ -151,8 +151,19 @@ is not 0:
    batches (q/s, p50, p99), every batch bit for bit the one-shot search;
    k-means run twice, the same bits; save, load by mmap, the same
    results; the query CLI's ``--index-load`` run; nprobe = partitions
-   against the serial backend. No kernel of the port runs on this path
-   (its launch counts stay 0): no Pallas site lies on the JAX package's;
+   against the serial backend. The capacity planner (``plan.py``) on the
+   float32 store, the allocator's peak reset before its build: the
+   predicted bucket_cap at least the built one, the predicted peak at
+   least the ``max_memory_allocated`` growth over the build (nprobe
+   tuned), the one-shot search and serving, the served q/s at most the
+   roofline's, the recall at least the predicted minus 0.01; the profile's
+   figures beside the card's (``total_memory``, a 1 GiB copy's bytes/s,
+   peer or on the card); then ``plan`` for the README deployment through
+   the package's CLI (exit 0, the H100 profile), its emitted
+   ``build-index`` and ``serve`` run as emitted (the serve with a port and
+   ready file appended), ``/healthz`` naming the H100 profile and a peak
+   at or under the plan's. No kernel of the port runs on this path (its
+   launch counts stay 0): no Pallas site lies on the JAX package's;
 11. mutate (``mutate_phase``): live mutation at the README's mutable
    deployment (that corpus with ``bucket_headroom=0.5``,
    ``mutation_bucket=128``; float32 and int8 stores; 128-row chunks under
@@ -181,8 +192,10 @@ is not 0:
    the flight records valid; three restarted children on one persistent
    kernel cache (cold: every library built by nvcc and stored; warm: none
    built; a truncated entry: rebuilt loudly), their results bit for bit
-   and their seconds to the first answer; the doctor on the card and
-   with an injected hang (its supervisor never initializes CUDA); then
+   and their seconds to the first answer; the doctor on the card (its
+   plan line ok: the tiny corpus's predicted peak over the K1 probe's
+   measured one) and with an injected hang (its supervisor never
+   initializes CUDA); then
    timed windows with and without a policy and a flight record, and each
    rung's q/s, p99 and recall@10;
 13. frontend (``frontend_phase``): the serving front end at the serve
@@ -1775,6 +1788,10 @@ IVF_SUBSET = 16384  # rows of the nprobe = partitions check against serial
 IVF_STORES = (("float32", 0.95, IVF_QUERIES), ("int4", 0.80, IVF_QUERIES),
               ("int8", 0.95, IVF_QUERIES))
 IVF_STAGES = ("score", "gather", "dequantize", "products", "selection")
+PLAN_PROFILE = "h100-sxm-80gb"  # the planner's profile of this card
+PLAN_RECALL_SLACK = 0.01  # measured recall >= predicted - this
+PLAN_BOOT_S = 300  # the plan's serve command's limit to answer /healthz
+PLAN_COPY_BYTES = 1 << 30  # the profile's copy figure: one 1 GiB copy
 
 
 def ivf_data():
@@ -1915,6 +1932,217 @@ def ivf_serve(index, Q, device) -> dict:
             "batches": len(batches), "entries_built": warm["built"]}
 
 
+def plan_profile(device) -> dict:
+    """The profile's figures beside the card's: ``total_memory`` against
+    ``hbm_bytes``, and a 1 GiB copy's bytes/s (to the second card when the
+    machine has one, else on the card: device to device) against
+    ``ici_bw``, median of 10 by CUDA events."""
+    import torch
+
+    from mpi_knn_tpu_torch.analysis.cost import get_profile
+
+    prof = get_profile(PLAN_PROFILE)
+    total = torch.cuda.get_device_properties(device).total_memory
+    peer = torch.cuda.device_count() >= 2
+    src = torch.empty(PLAN_COPY_BYTES // 4, dtype=torch.float32, device=device)
+    dst = torch.empty_like(src, device=torch.device("cuda", 1) if peer else device)
+    times = []
+    for rep in range(13):
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        dst.copy_(src)
+        b.record()
+        sync_all()
+        if rep >= 3:
+            times.append(a.elapsed_time(b))
+    ms = statistics.median(times)
+    out = {"phase": "plan_profile", "profile": PLAN_PROFILE,
+           "total_memory": total, "hbm_bytes_declared": prof["hbm_bytes"],
+           "copy": "peer (cuda:0 -> cuda:1)" if peer else "device to device",
+           "copy_ms": ms, "copy_bytes_per_s": PLAN_COPY_BYTES / (ms / 1e3),
+           "ici_bw_declared": prof["ici_bw"],
+           "peak_flops_declared": prof["peak_flops"],
+           "hbm_bw_declared": prof["hbm_bw"]}
+    emit(out)
+    del src, dst
+    torch.cuda.empty_cache()
+    if prof["hbm_bytes"] > total:
+        raise AssertionError(f"plan: the profile budgets {prof['hbm_bytes']} "
+                             f"B on a card of {total} B")
+    return out
+
+
+def ivf_plan_check(index, dtype: str, growth: int, rows: int,
+                   served: dict | None = None, rec: float | None = None) -> dict:
+    """The planner's prediction for one store as the phase built and ran it
+    (ivf, 256 partitions, the tuned nprobe, IVF_BATCH-row batches, a
+    one-shot search of ``rows`` rows), beside what was measured: bucket_cap
+    and the peak on every store; where the store was served, served q/s
+    against the roofline and recall against the prediction. The gates of
+    ``ivf_phase``'s docstring."""
+    from mpi_knn_tpu_torch import plan
+    from mpi_knn_tpu_torch.analysis.cost import get_profile
+
+    cand = plan.Candidate("ivf", dtype, partitions=IVF_P, nprobe=index.nprobe)
+    wl = plan.Workload(m=IVF_M, d=index.dim, k=K, recall_target=RECALL_TARGET,
+                       bucket=IVF_BATCH)
+    peak = plan.predict_peak_hbm(cand, wl, tuned_build=True, batch_rows=rows)
+    out = {"phase": "ivf_plan", "store": dtype, "profile": PLAN_PROFILE,
+           "candidate": {"backend": "ivf", "dtype": dtype,
+                         "partitions": IVF_P, "nprobe": index.nprobe,
+                         "batch": IVF_BATCH, "one_shot_rows": rows},
+           "bucket_cap": {"predicted": plan.bucket_cap_for(IVF_M, IVF_P, 0.0),
+                          "built": index.bucket_cap},
+           "peak_bytes": {"predicted": peak["peak_hbm_bytes"],
+                          "measured_growth": growth,
+                          "measured_over_predicted": growth / peak["peak_hbm_bytes"],
+                          "stages": peak["stages"]}}
+    ok = (out["bucket_cap"]["predicted"] >= index.bucket_cap
+          and peak["peak_hbm_bytes"] >= growth)
+    if served is not None:
+        roof = plan.predict_qps(cand, wl, get_profile(PLAN_PROFILE))
+        out["qps"] = {"roofline": roof["qps"], "bound": roof["bound"],
+                      "served": served["qps"]}
+        ok = ok and served["qps"] <= roof["qps"]
+    if rec is not None:
+        calib = plan.load_calibration()
+        fraction = index.nprobe / IVF_P
+        recall = plan.predict_recall(fraction, dtype, calib)
+        out["recall_at_10"] = {
+            "predicted": recall, "measured": rec,
+            # below the smallest calibrated fraction the planner plans no
+            # nprobe; the prediction there is the model's extrapolation
+            "within_calibration": fraction >= calib["points"][0][0]}
+        ok = ok and rec >= recall - PLAN_RECALL_SLACK
+    emit(out)
+    if not ok:
+        raise AssertionError(f"ivf {dtype}: the planner's prediction misses: {out}")
+    return out
+
+
+def ivf_peak_bfloat16(X, Q, device) -> dict:
+    """The bfloat16 store's peak against the planner's (the one at-rest
+    dtype the phase does not serve): the allocator's peak reset, the build
+    (nprobe tuned) and one one-shot search of Q."""
+    import torch
+
+    from mpi_knn_tpu_torch import KNNConfig
+    from mpi_knn_tpu_torch.ivf import build_ivf_index, search_ivf
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    base = torch.cuda.memory_allocated(device)
+    index = build_ivf_index(X, KNNConfig(k=K, partitions=IVF_P, dtype="bfloat16"),
+                            device=device)
+    d, i = search_ivf(index, Q, device=device)
+    torch.cuda.synchronize()
+    if not bool(torch.isfinite(d).all()) or bool((i < 0).any()):
+        raise AssertionError("ivf bfloat16: non-finite results")
+    out = ivf_plan_check(index, "bfloat16",
+                         torch.cuda.max_memory_allocated(device) - base, len(Q))
+    del index, d, i
+    torch.cuda.empty_cache()
+    return out
+
+
+def plan_cli(tmp, restrict, queries, od, oi) -> dict:
+    """``plan`` for the README deployment through the package's CLI (with
+    ``restrict``'s search-space flags appended), then its emitted commands
+    as emitted: ``build-index`` where the plan has one, and ``serve`` with
+    ``--port 0 --ready-file`` appended (the smoke's rendezvous). Gates: the
+    built store's bucket_cap within the plan's, ``/healthz`` naming the
+    H100 profile and a peak at or under the plan's, and the served
+    store's recall@10 on ``queries`` (the phase's oracle rows, tie-aware
+    against ``od`` / ``oi``) at least the plan's prediction -
+    PLAN_RECALL_SLACK; then the server is stopped."""
+    import contextlib
+    import io
+    import shlex
+    import urllib.request
+
+    from mpi_knn_tpu_torch import cli
+    from mpi_knn_tpu_torch.ivf import load_ivf_index
+
+    argv = ["plan", "--corpus", str(IVF_M), "--dim", "128", "--k", str(K),
+            "--recall-target", "0.95", "--devices", "1", *restrict]
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv + ["--data", f"sift:{IVF_M}", "--index-out",
+                              os.path.join(tmp, "plan.ivf.npz"), "-q"])
+    doc = json.loads(buf.getvalue()) if rc == 0 else {}
+    if rc != 0 or doc["fleet"]["profile"] != PLAN_PROFILE:
+        raise AssertionError(f"plan_cli: plan exited {rc}: {buf.getvalue()}")
+    pred, cmds = doc["predicted"], doc["commands"]
+    build_s = cap = None
+    if "build_index" in cmds:
+        t0 = time.perf_counter()
+        built = subprocess.run(shlex.split(cmds["build_index"]),
+                               capture_output=True, text=True, timeout=PLAN_BOOT_S)
+        build_s = time.perf_counter() - t0
+        if built.returncode != 0:
+            raise AssertionError(f"plan_cli: build-index: {built.stderr[-2000:]}")
+        cap = load_ivf_index(os.path.join(tmp, "plan.ivf.npz"),
+                             device="cpu").bucket_cap
+    elif doc["config"]["backend"] != "serial":
+        raise AssertionError(f"plan_cli: no build-index for {doc['config']}")
+    ready = os.path.join(tmp, "serve.url")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(shlex.split(cmds["serve"])
+                            + ["--port", "0", "--ready-file", ready, "-q"],
+                            stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
+                            text=True, start_new_session=True)
+    try:
+        hz = None
+        while time.perf_counter() - t0 < PLAN_BOOT_S:
+            if proc.poll() is not None:
+                raise AssertionError(f"plan_cli: serve exited {proc.returncode}: "
+                                     f"{proc.stderr.read()[-2000:]}")
+            if os.path.exists(ready) and open(ready).read().strip():
+                url = open(ready).read().strip()
+                hz = json.loads(urllib.request.urlopen(url + "/healthz",
+                                                       timeout=10).read())
+                if hz["ready"]:
+                    break
+            time.sleep(0.2)
+        boot_s = time.perf_counter() - t0
+        if not (hz and hz["ready"]):
+            raise AssertionError(f"plan_cli: serve not ready in {PLAN_BOOT_S} s")
+        q = json.dumps({"queries": queries.tolist()}).encode()
+        req = urllib.request.Request(url + "/query", data=q, headers={
+            "Content-Type": "application/json"})
+        answer = json.loads(urllib.request.urlopen(req, timeout=60).read())
+        hz = json.loads(urllib.request.urlopen(url + "/healthz", timeout=10).read())
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+    got = np.asarray(answer["ids"])
+    rec = tie_recall(got, od, oi) if got.shape == (len(queries), K) else -1.0
+    prof = hz["device_profile"] or {}
+    out = {"phase": "plan_cli", "argv": " ".join(argv), "rc": rc,
+           "profile": doc["fleet"]["profile"], "config": doc["config"],
+           "predicted": {k: pred[k] for k in (
+               "recall_at_k", "bucket_cap", "resident_bytes", "peak_hbm_bytes",
+               "qps", "roofline_bound", "wire_bytes_per_batch")},
+           "commands": cmds, "build_index_s": build_s,
+           "built_bucket_cap": cap, "serve_ready_s": boot_s,
+           "healthz": {"device_profile": prof.get("name"),
+                       "peak_hbm_bytes": hz["peak_hbm_bytes"],
+                       "backend": hz["backend"]},
+           "answered_rows": len(answer["ids"]), "recall_at_10": rec,
+           "serve_rc": proc.returncode}
+    emit(out)
+    if not ((cap is None or cap <= pred["bucket_cap"])
+            and prof.get("name") == PLAN_PROFILE
+            and 0 < hz["peak_hbm_bytes"] <= pred["peak_hbm_bytes"]
+            and rec >= pred["recall_at_k"] - PLAN_RECALL_SLACK):
+        raise AssertionError(f"plan_cli: {out}")
+    return out
+
+
 def ivf_phase(device) -> dict:
     """The clustered index at the README's deployment (``IVF_*``): per store
     (float32, int4, int8) the build (seconds by stage; nprobe tuned to
@@ -1932,7 +2160,18 @@ def ivf_phase(device) -> dict:
     partitions on an IVF_SUBSET-row index against the serial ``all_knn``:
     ids tie-aware >= 0.999, distances within 1e-5. The launch counts are
     set to 0 before and read after: no kernel of the port runs on this
-    path (no Pallas site lies on the JAX package's)."""
+    path (no Pallas site lies on the JAX package's).
+
+    The planner against the card (``ivf_plan``, ``plan_cli``): the
+    allocator's peak is reset before each store's build, and its growth
+    over the build, the one-shot search and serving is held at or under
+    the planner's predicted peak for that store (a bfloat16 store is built
+    and searched once for its peak alone); on every served store the
+    predicted bucket_cap is at least the built one and the served q/s at
+    most the roofline's, and its recall at least the predicted recall -
+    PLAN_RECALL_SLACK. Then ``plan`` for the
+    README deployment, and the same restricted to ``--backend ivf``, each
+    with its emitted commands run as emitted (``plan_cli``)."""
     import torch
 
     from mpi_knn_tpu_torch import KNNConfig, all_knn, cli
@@ -1954,6 +2193,7 @@ def ivf_phase(device) -> dict:
     own = np.sort(np.random.default_rng(7).choice(IVF_M, IVF_ORACLE_ROWS,
                                                   replace=False))
     cd, ci = ivf_oracle(X, X[own], device, self_rows=own)
+    profile = plan_profile(device)
     reset_counts()
     results = {}
     for dtype, bar, nq in IVF_STORES:
@@ -1961,6 +2201,10 @@ def ivf_phase(device) -> dict:
             emit({"phase": "ivf_cut", "store": dtype, "queries": nq,
                   "of": IVF_QUERIES})
         Qn = Q[:nq]
+        # the planner's check: the allocator's growth from here
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        mem_base = torch.cuda.memory_allocated(device)
         t0 = time.perf_counter()
         index = build_ivf_index(X, KNNConfig(k=K, partitions=IVF_P, dtype=dtype),
                                 device=device)
@@ -2032,6 +2276,10 @@ def ivf_phase(device) -> dict:
                                  "the one-shot search")
         results[dtype] = {"build_s": build_s, "nprobe": index.nprobe,
                           "recall": rec, "qps": served["qps"]}
+        torch.cuda.synchronize()
+        ivf_plan_check(index, dtype,
+                       torch.cuda.max_memory_allocated(device) - mem_base, nq,
+                       served, rec)
 
         if dtype == "float32":
             again = kmeans(torch.from_numpy(X - index.mu).to(device, torch.float32), IVF_P,
@@ -2070,6 +2318,8 @@ def ivf_phase(device) -> dict:
         del index
         torch.cuda.empty_cache()
 
+    ivf_peak_bfloat16(X, Q, device)
+
     # nprobe = partitions: the full scan against the serial backend
     Xs = X[:IVF_SUBSET]
     rows = np.linspace(0, IVF_SUBSET - 1, IVF_ORACLE_ROWS).astype(np.int64)
@@ -2088,9 +2338,15 @@ def ivf_phase(device) -> dict:
     if agree < 0.999 or not close:
         raise AssertionError(f"ivf: nprobe = partitions disagrees with serial "
                              f"(ids {agree}, distances within 1e-5: {close})")
+    del full
+    torch.cuda.empty_cache()
+    for restrict in ((), ("--backend", "ivf")):
+        with tempfile.TemporaryDirectory() as tmp:
+            plan_cli(tmp, restrict, Q[sample], od, oi)
     counts = {name: n for name, n in read_counts().items() if n}
     emit({"phase": "ivf_launches", "launches": counts,
-          "seconds": time.perf_counter() - t_phase, "stores": results})
+          "seconds": time.perf_counter() - t_phase, "stores": results,
+          "copy_bytes_per_s": profile["copy_bytes_per_s"]})
     if counts:
         raise AssertionError(f"ivf: kernels launched on the IVF path: {counts}")
     return results
@@ -2781,8 +3037,10 @@ def ops_phase(device, X, inputs, keep_cache=None) -> None:
             raise AssertionError("ops: the children's results differ from each "
                                  "other or from this process's")
         probe = verdict.get("probe") or {}
+        plan_line = verdict.get("plan") or {}
         emit({"phase": "ops_doctor", "ok": verdict["ok"], "status": verdict["status"],
               "probe": probe, "aot_cache": verdict["aot_cache"],
+              "plan": plan_line,
               "mutation": verdict["mutation"], "elapsed_s": verdict["elapsed_s"],
               "supervisor": doctor_proc,
               "hang": {"status": hang_verdict["status"], "reason": hang_verdict["reason"],
@@ -2793,6 +3051,10 @@ def ops_phase(device, X, inputs, keep_cache=None) -> None:
                                                   "cuda_initialized": False}
                 and (probe.get("launches") == 1 or not card)
                 and rt.get("bit_identical") and rt.get("dlopen_ok", not card)
+                and plan_line.get("ok")
+                and plan_line.get("profile") == (PLAN_PROFILE if card else "cpu-test")
+                and plan_line["predicted_peak_hbm_bytes"]
+                >= plan_line["probe_measured_peak_bytes"] > 0
                 and verdict["mutation"]["second_pass_builds"] == 0):
             raise AssertionError(f"ops: doctor {verdict}, supervisor {doctor_proc}")
         if (hang_proc["rc"], hang_verdict["status"]) != (1, "timeout") \

@@ -20,6 +20,15 @@ if _sub == ["router"]:
     from mpi_knn_tpu_torch.frontend.cli import router_main
 
     sys.exit(router_main(sys.argv[2:]))
+# the planner and the lint read source text and JSON: no card
+if _sub == ["plan"]:
+    from mpi_knn_tpu_torch.plan import main as _plan
+
+    sys.exit(_plan(sys.argv[2:]))
+if _sub == ["lint"]:
+    from mpi_knn_tpu_torch.analysis.cli import main as _lint
+
+    sys.exit(_lint(sys.argv[2:]))
 
 from mpi_knn_tpu_torch.cli import main  # noqa: E402
 

@@ -100,11 +100,7 @@ import time
 import numpy as np
 import torch
 
-from mpi_knn_tpu_torch.backends.serial import (
-    cap_corpus_tile,
-    knn_chunk_update,
-    torch_dtype,
-)
+from mpi_knn_tpu_torch.backends.serial import knn_chunk_update, torch_dtype
 from mpi_knn_tpu_torch.config import KNNConfig
 from mpi_knn_tpu_torch.device import DEFAULT_DEVICE
 from mpi_knn_tpu_torch.ops.fused_ring import (
@@ -136,11 +132,8 @@ from mpi_knn_tpu_torch.parallel.mesh import (
     is_mesh2d,
     make_ring_mesh,
 )
-from mpi_knn_tpu_torch.parallel.partition import (
-    make_global_ids,
-    pad_rows_any,
-    pad_to_multiple,
-)
+from mpi_knn_tpu_torch.parallel.partition import make_global_ids, pad_rows_any
+from mpi_knn_tpu_torch.shapes import ring_tiles
 
 
 def bidir_rounds(num_dev: int) -> tuple[int, int]:
@@ -174,18 +167,6 @@ def fused_blocking_undefined_error() -> ValueError:
         "backend='ring-overlap', or ring_fusion='xla' for the blocking "
         "A/B baseline."
     )
-
-
-def ring_tiles(cfg: KNNConfig, m: int, nq: int, dp: int, ring_n: int):
-    """Per-rank tile sizes and padded global sizes: (q_tile, c_tile,
-    q_pad, c_pad), the JAX package's policy."""
-    num_dev = dp * ring_n
-    c_tile = min(cfg.corpus_tile, -(-m // ring_n))
-    q_tile = min(cfg.query_tile, -(-nq // num_dev))
-    c_tile = cap_corpus_tile(q_tile, c_tile, cfg.max_tile_elems)
-    c_pad = pad_to_multiple(m, ring_n * c_tile)
-    q_pad = pad_to_multiple(nq, num_dev * q_tile)
-    return q_tile, c_tile, q_pad, c_pad
 
 
 def ring_wire_bytes_per_batch(cfg: KNNConfig, c_pad: int, dim: int,

@@ -31,6 +31,7 @@ from mpi_knn_tpu_torch.parallel.partition import (
     pad_rows_any,
     pad_to_multiple,
 )
+from mpi_knn_tpu_torch.shapes import effective_tiles
 
 TORCH_DTYPES = {
     "float32": torch.float32,
@@ -157,23 +158,6 @@ def serve_chunk(q_tiles, qid_tiles, carry_d, carry_i, tiles, tile_ids,
         out_d.append(d)
         out_i.append(i)
     return torch.stack(out_d), torch.stack(out_i)
-
-
-def cap_corpus_tile(q_tile: int, c_tile: int, max_tile_elems: int) -> int:
-    """Shrink c_tile until q_tile × c_tile <= max_tile_elems (rounded down
-    to a 128 multiple while that keeps it >= 128)."""
-    cap = max(1, max_tile_elems // max(q_tile, 1))
-    if cap >= 128:
-        cap = cap // 128 * 128
-    return min(c_tile, cap)
-
-
-def effective_tiles(cfg: KNNConfig, m: int, nq: int) -> tuple[int, int]:
-    """Clamp configured tiles to the (aligned) problem size and to
-    ``cfg.max_tile_elems``."""
-    q_tile = min(cfg.query_tile, pad_to_multiple(nq, 8))
-    c_tile = min(cfg.corpus_tile, pad_to_multiple(m, 128))
-    return q_tile, cap_corpus_tile(q_tile, c_tile, cfg.max_tile_elems)
 
 
 def prepare_tiles(corpus, queries, query_ids, cfg: KNNConfig, q_tile, c_tile,

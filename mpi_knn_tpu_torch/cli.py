@@ -25,6 +25,9 @@
     python -m mpi_knn_tpu_torch router --spawn 2 --cache-dir kc -- \\
         --data mnist --k 10 --backend pallas
     python -m mpi_knn_tpu_torch doctor                    # resilience/doctor.py
+    python -m mpi_knn_tpu_torch plan --corpus 100000 --dim 128 --k 10 \
+        --recall-target 0.95                              # plan.py
+    python -m mpi_knn_tpu_torch lint --host               # analysis/host/
 
 Flags. Data: ``--data`` (``mnist``, ``digits``, ``synthetic:MxDcC``,
 ``sift:M``, a ``.fvecs`` / ``.bvecs`` file, or a ``.mat`` file in the C
@@ -59,8 +62,9 @@ count). The report's ``notes["distributed"]`` holds the start-up info,
 and its phase ``gather`` the seconds of the result's gather inside
 ``knn``.
 
-Not yet ported (exit 2, naming what was asked): the subcommands ``lint``
-and ``plan``.
+``plan`` is the capacity planner (``plan.py``) and ``lint --host`` the
+host concurrency lint (``analysis/host/``). Not yet ported (exit 2,
+naming what was asked): ``lint`` without ``--host``.
 """
 
 from __future__ import annotations
@@ -89,7 +93,8 @@ from mpi_knn_tpu_torch.config import (
 )
 from mpi_knn_tpu_torch.device import DEFAULT_DEVICE
 
-UNPORTED_SUBCOMMANDS = ("lint", "plan")
+# refused by name: ``lint`` runs only with ``--host`` (analysis/cli.py)
+UNPORTED_SUBCOMMANDS = ("lint",)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -388,10 +393,16 @@ def main(argv=None) -> int:
         from mpi_knn_tpu_torch.resilience.doctor import main as doctor_main
 
         return doctor_main(argv[1:])
+    if argv and argv[0] == "plan":
+        # the capacity planner (plan.py)
+        from mpi_knn_tpu_torch.plan import main as plan_main
+
+        return plan_main(argv[1:])
     if argv and argv[0] in UNPORTED_SUBCOMMANDS:
-        print(f"error: subcommand {argv[0]!r}: not yet ported to "
-              "mpi_knn_tpu_torch (see ROADMAP.md)", file=sys.stderr)
-        return 2
+        # ``lint --host`` runs; the rest of ``lint`` is refused by name
+        from mpi_knn_tpu_torch.analysis.cli import main as lint_main
+
+        return lint_main(argv[1:])
     parser = build_parser()
     args = parser.parse_args(argv)
     if args.save_every is not None and args.save_every <= 0:

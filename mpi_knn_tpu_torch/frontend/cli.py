@@ -85,6 +85,11 @@ def build_serve_parser() -> argparse.ArgumentParser:
     d.add_argument("--nprobe", type=int, default=None,
                    help="partitions probed per query (None with "
                    "--partitions = recall-targeted auto-tune)")
+    d.add_argument("--index-load", default=None, metavar="PATH.npz",
+                   help="serve a clustered index saved by build-index "
+                   "instead of building one: its partitions, nprobe and "
+                   "at-rest dtype (int8 / int4 included) are the file's; "
+                   "--data must name its corpus (its dim is checked)")
     d.add_argument("--bucket-headroom", type=float, default=0.0,
                    help="fractional spare capacity per bucket/tile for "
                    "LIVE mutation (POST /upsert, /delete): pre-allocated "
@@ -156,6 +161,37 @@ def build_serve_parser() -> argparse.ArgumentParser:
                    "plain versions of the kernels")
     n.add_argument("-q", "--quiet", action="store_true")
     return p
+
+
+def _load_served_index(args, cfg: KNNConfig, X, device):
+    """The clustered index ``--index-load`` names, on ``device``, and its
+    config with the query-side knobs of ``cfg``; the build-side flags must
+    not be given (they are the file's). ValueError names what does not
+    fit."""
+    from mpi_knn_tpu_torch.ivf import load_ivf_index
+
+    if args.partitions is not None or args.nprobe is not None:
+        raise ValueError("--partitions / --nprobe are the loaded index's "
+                         "own; drop them with --index-load")
+    try:
+        index = load_ivf_index(args.index_load, device=device)
+    except (OSError, KeyError) as e:
+        raise ValueError(f"cannot load index {args.index_load!r}: {e}") from e
+    if X.shape[1] != index.dim:
+        raise ValueError(f"--data {args.data!r} has dim {X.shape[1]} but the "
+                         f"loaded index was built at dim {index.dim}")
+    if args.backend in ("ring", "ring-overlap"):
+        # the sharded deployment: the layout is derived from --devices
+        from mpi_knn_tpu_torch.ivf import shard_ivf_index
+
+        index = shard_ivf_index(index, shards=args.devices)
+    return index, index.compatible_cfg(index.cfg.replace(
+        k=cfg.k, query_tile=cfg.query_tile,
+        precision_policy=cfg.precision_policy,
+        query_bucket=cfg.query_bucket, dispatch_depth=cfg.dispatch_depth,
+        mutation_bucket=cfg.mutation_bucket,
+        compact_fill_threshold=cfg.compact_fill_threshold,
+        compact_tombstone_fraction=cfg.compact_tombstone_fraction))
 
 
 def serve_main(argv=None) -> int:
@@ -239,7 +275,9 @@ def serve_main(argv=None) -> int:
         return 2
     t0 = time.perf_counter()
     try:
-        if args.partitions is not None:
+        if args.index_load is not None:
+            index, cfg = _load_served_index(args, cfg, X, device)
+        elif args.partitions is not None:
             # the clustered index serves through the same engine and
             # front end, and is the layout the background compactor
             # supervises
@@ -251,7 +289,7 @@ def serve_main(argv=None) -> int:
         # a ResiliencePolicy (even the default) builds the degradation
         # ladder the queue-driven shed walks; without one the session
         # would have only its full rung
-        session = ServeSession(index, resilience=ResiliencePolicy(),
+        session = ServeSession(index, cfg, resilience=ResiliencePolicy(),
                                device=device)
     except ValueError as e:
         print(f"error: {e}", file=sys.stderr)

@@ -139,6 +139,11 @@ class Frontend:
         # path that moves a lagging replica
         self._applied_seq = 0
         self.started_s = time.monotonic()
+        # the shipped device profile of the session's device, read once
+        from mpi_knn_tpu_torch.analysis.cost import detected_profile
+
+        self._profile_facts: dict | None = detected_profile(
+            getattr(session.index, "device", None))
         # start-up readiness: set once the warm-up (every rung's entries
         # and the first dispatch of each bucket) has finished. While
         # unset, admission is PER BUCKET: a request whose row bucket's
@@ -450,10 +455,11 @@ class Frontend:
                 # entry (engine.index_peak_hbm_bytes): an operator sizing
                 # a box reads it here next to dim/k/backend
                 "peak_hbm_bytes": posture.get("peak_hbm_bytes", 0),
-                # the declared roofline inputs of this hardware: the port
-                # ships no device profile yet (the planner's analysis
-                # layer is not ported), so null, never a guessed device
-                "device_profile": None,
+                # the declared roofline inputs of this hardware: the
+                # shipped device profile the planner predicted q/s under
+                # (analysis/cost.py), null off the profile map — never a
+                # guessed device
+                "device_profile": self._profile_facts,
             }
 
     # -- pump -------------------------------------------------------------

@@ -77,6 +77,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="bucket store at rest: bfloat16 halves it; int8 / "
                    "int4 keep block-scaled codes and per-row scales "
                    "(ops/quant.py)")
+    k.add_argument("--bucket-headroom", type=float, default=0.0,
+                   help="spare slots per bucket for live mutation (the "
+                   "serve front end's flag, baked into the saved store)")
     k.add_argument("--kmeans-iters", type=int, default=25,
                    help="fixed Lloyd iteration count")
     k.add_argument("--kmeans-init", choices=list(KMEANS_INITS),
@@ -118,6 +121,7 @@ def main(argv=None) -> int:
             recall_target=args.recall_target,
             partitions=args.partitions,
             nprobe=args.nprobe,
+            bucket_headroom=args.bucket_headroom,
             kmeans_iters=args.kmeans_iters,
             kmeans_init=args.kmeans_init,
             ivf_seed=args.seed,

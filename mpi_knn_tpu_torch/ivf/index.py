@@ -53,12 +53,9 @@ from mpi_knn_tpu_torch.ops.quant import (
     quantize_rows,
     row_wire_bytes,
 )
-from mpi_knn_tpu_torch.parallel.partition import pad_to_multiple
 from mpi_knn_tpu_torch.serve.index import canonical_device
+from mpi_knn_tpu_torch.shapes import TUNE_SAMPLE, padded_bucket_cap
 from mpi_knn_tpu_torch.utils.timing import PhaseTimer
-
-# held-out sample size of the nprobe tuning
-TUNE_SAMPLE = 256
 IVF_DTYPES = ("float32", "bfloat16") + QUANT_DTYPES
 
 
@@ -268,9 +265,7 @@ def build_ivf_index(corpus, config: Optional[KNNConfig] = None,
     with timer.phase("layout"):
         assign = res.assignments.long()
         need = max(int(res.counts.max()), 1)
-        cap = pad_to_multiple(
-            max(1, int(np.ceil(need * (1.0 + cfg.bucket_headroom)))), 8
-        )
+        cap = padded_bucket_cap(need, cfg.bucket_headroom)
         # rows by cluster, each row's slot its rank within its cluster
         order = torch.argsort(assign, stable=True)
         sa = assign[order]

@@ -31,11 +31,7 @@ import torch
 from mpi_knn_tpu_torch.config import KMEANS_INITS
 from mpi_knn_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from mpi_knn_tpu_torch.ops.distance import pairwise_sq_l2, sq_norms
-
-# row-block width of the assignment pass (the JAX package's)
-ASSIGN_BLOCK = 2048
-# rows a one-hot block of the update covers: bounds its (k, rows) f64 matrix
-SUM_BLOCK = 65536
+from mpi_knn_tpu_torch.shapes import ASSIGN_BLOCK, SUM_BLOCK
 
 
 @dataclasses.dataclass

@@ -64,6 +64,7 @@ from mpi_knn_tpu_torch.config import KNNConfig
 from mpi_knn_tpu_torch.ops.distance import pairwise_sq_l2, sq_norms
 from mpi_knn_tpu_torch.ops.quant import QUANT_DTYPES, dequantize_rows, quantize_rows
 from mpi_knn_tpu_torch.parallel.partition import pad_to_multiple
+from mpi_knn_tpu_torch.shapes import padded_bucket_cap
 
 
 class BucketOverflowError(RuntimeError):
@@ -595,9 +596,7 @@ def plan_compact(index, cfg: KNNConfig, centroids, centroid_sqs,
     live = ids_flat >= 0
     counts = np.bincount(parts[live], minlength=index.partitions)
     need = int(counts.max()) if counts.size else 1
-    headroom_cap = pad_to_multiple(
-        max(1, int(np.ceil(need * (1.0 + cfg.bucket_headroom)))), 8
-    )
+    headroom_cap = padded_bucket_cap(need, cfg.bucket_headroom)
     new_cap = index.bucket_cap if need <= index.bucket_cap else headroom_cap
     if min_cap is not None:
         new_cap = max(new_cap, pad_to_multiple(int(min_cap), 8))
@@ -653,9 +652,11 @@ def freelist_after_compact(fl: Freelist, dst_part, dst_slot, new_cap: int,
 
 def should_compact(index, cfg: KNNConfig) -> str | None:
     """The trigger: "fill" or "tombstones" when a compaction threshold is
-    crossed, else None."""
+    crossed, else None. With no ``bucket_headroom`` there is no fill
+    trigger: a pass re-packs the fullest bucket as full as it found it
+    (:func:`plan_compact`), so it would fire again on every check."""
     fl = freelist_of(index)
-    if fl.max_fill >= cfg.compact_fill_threshold:
+    if cfg.bucket_headroom > 0 and fl.max_fill >= cfg.compact_fill_threshold:
         return "fill"
     if fl.tombstones > 0 and fl.tombstone_fraction >= cfg.compact_tombstone_fraction:
         return "tombstones"

@@ -18,9 +18,9 @@ Per query tile:
 
 The finish widens its candidates to f64 (``ops/rerank.py``). At a real
 deployment a query row gathers thousands of candidates, so the finish runs
-over row chunks whose f64 copy stays under ``RERANK_CHUNK_BYTES``; a row's
-result does not depend on the chunk or the tile it falls in, so a served
-batch equals the one-shot search of the same rows bit for bit.
+over row chunks whose f64 copy stays under ``shapes.RERANK_CHUNK_BYTES``; a
+row's result does not depend on the chunk or the tile it falls in, so a
+served batch equals the one-shot search of the same rows bit for bit.
 
 Bucket padding slots carry id −1, which ``mask_tile`` forces to +inf.
 Every point lives in exactly one partition, so ``nprobe == partitions`` is
@@ -43,9 +43,8 @@ from mpi_knn_tpu_torch.ops.rerank import (
 )
 from mpi_knn_tpu_torch.ops.topk import mask_tile, preselect_smallest
 from mpi_knn_tpu_torch.parallel.partition import pad_rows_any, pad_to_multiple
+from mpi_knn_tpu_torch.shapes import finish_rows, ivf_q_tile
 
-# bytes of the exact finish's f64 copy of one row chunk's candidates
-RERANK_CHUNK_BYTES = 1 << 30
 
 
 def resident(index):
@@ -60,12 +59,6 @@ def compress_keys_batched(q_x, q_sq, rows, row_sqs):
     operands, f32 sums (the batched ``ops.rerank.compress_tile``)."""
     xy = torch.einsum("qd,qvd->qv", bf16_round(q_x), bf16_round(rows))
     return q_sq[:, None] - 2.0 * xy + row_sqs
-
-
-def finish_rows(v: int, d: int) -> int:
-    """Query rows a chunk of the exact finish takes at v candidates of
-    width d."""
-    return max(1, RERANK_CHUNK_BYTES // (8 * v * d))
 
 
 def finish_candidates(q_x, q_ids, q_sq, rows, ids, sqs, cfg: KNNConfig):
@@ -148,10 +141,8 @@ def ivf_query_shapes(cfg: KNNConfig, nprobe: int, bucket_cap: int, dim: int,
     gather holds q_tile · nprobe · bucket_cap · dim elements, so q_tile
     halves until that fits ``cfg.max_tile_elems``; a single row past it is
     refused."""
-    q_tile = min(cfg.query_tile, pad_to_multiple(nq, 8))
+    q_tile = ivf_q_tile(cfg, nprobe, bucket_cap, dim, nq)
     per_row = max(1, nprobe * bucket_cap * dim)
-    while q_tile > 1 and q_tile * per_row > cfg.max_tile_elems:
-        q_tile = max(1, q_tile // 2)
     if q_tile * per_row > cfg.max_tile_elems:
         raise ValueError(
             f"one query row's probe gather (nprobe={nprobe} × bucket_cap="

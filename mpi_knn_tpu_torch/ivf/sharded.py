@@ -91,37 +91,18 @@ from mpi_knn_tpu_torch.ops.quant import QUANT_DTYPES, dequantize_rows, row_wire_
 from mpi_knn_tpu_torch.parallel import distributed
 from mpi_knn_tpu_torch.parallel.mesh import RingMesh, make_ring_mesh
 from mpi_knn_tpu_torch.parallel.partition import pad_rows_any, pad_to_multiple
+from mpi_knn_tpu_torch.shapes import (  # noqa: F401
+    exchange_bytes_per_tile,
+    exchange_elems,
+    resolve_route_cap,
+    sharded_q_tile,
+    sharded_tile_elems,
+)
 
 # per-shard exchange stats: routes this shard's queries issued and kept,
 # routes dropped at the cap, real requests this shard answered as owner
 STATS_FIELDS = ("routed", "dropped", "served")
 N_STATS = len(STATS_FIELDS)
-
-
-def resolve_route_cap(cfg: KNNConfig, q_tile: int, nprobe: int) -> int:
-    """The static per-(home, owner) route capacity of one query tile:
-    ``cfg.ivf_route_cap`` clamped to the safe cap ``q_tile·nprobe``, or the
-    safe cap itself when unset (no probe can drop)."""
-    safe = max(1, q_tile * nprobe)
-    if cfg.ivf_route_cap is None:
-        return safe
-    return min(cfg.ivf_route_cap, safe)
-
-
-def exchange_elems(shards: int, route_cap: int, cap: int, dim: int) -> int:
-    """Elements of one tile's largest exchange buffer, the (S, route_cap,
-    cap, d) candidate rows."""
-    return shards * route_cap * cap * dim
-
-
-def exchange_bytes_per_tile(shards: int, route_cap: int, cap: int, dim: int,
-                            itemsize: int, scale_bytes: int = 0) -> int:
-    """Bytes one query tile's exchange moves a shard: the int32 request
-    table, then per route the rows at the store's width (a quantized
-    store's packed code lanes at itemsize 1), ids (int32), norms (f32) and
-    ``scale_bytes`` (4 for a quantized store's per-row scale)."""
-    per_route = 4 + cap * (dim * itemsize + 4 + 4 + scale_bytes)
-    return shards * route_cap * per_route
 
 
 def exchange_wire_args(index) -> tuple[int, int, int]:
@@ -138,18 +119,11 @@ def sharded_query_shapes(cfg: KNNConfig, nprobe: int, bucket_cap: int,
     both one tile's finish (q_tile·nprobe·cap·d) and its exchange buffer
     (S·route_cap·cap·d) fit ``cfg.max_tile_elems``; q_pad is a multiple of
     S·q_tile, so every shard holds as many whole tiles."""
-    per_row = max(1, nprobe * bucket_cap * dim)
-    q_tile = min(cfg.query_tile, pad_to_multiple(max(1, -(-nq // shards)), 8))
-
-    def biggest(qt: int) -> int:
-        rc = resolve_route_cap(cfg, qt, nprobe)
-        return max(qt * per_row, exchange_elems(shards, rc, bucket_cap, dim))
-
-    while q_tile > 1 and biggest(q_tile) > cfg.max_tile_elems:
-        q_tile = max(1, q_tile // 2)
-    if biggest(q_tile) > cfg.max_tile_elems:
+    q_tile = sharded_q_tile(cfg, nprobe, bucket_cap, dim, nq, shards)
+    biggest = sharded_tile_elems(cfg, nprobe, bucket_cap, dim, shards, q_tile)
+    if biggest > cfg.max_tile_elems:
         raise ValueError(
-            f"one sharded query tile's working set ({biggest(q_tile)} "
+            f"one sharded query tile's working set ({biggest} "
             f"elems: nprobe={nprobe} × bucket_cap={bucket_cap} × d={dim} "
             f"per row, exchanged over {shards} shards) exceeds "
             f"max_tile_elems={cfg.max_tile_elems}; lower nprobe/"

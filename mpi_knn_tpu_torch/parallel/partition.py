@@ -6,14 +6,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from mpi_knn_tpu_torch.shapes import pad_to_multiple  # noqa: F401 (re-exported)
 from mpi_knn_tpu_torch.types import INVALID_ID
-
-
-def pad_to_multiple(n: int, multiple: int) -> int:
-    """Smallest padded size >= n that is a multiple of `multiple` (>= 1)."""
-    if multiple <= 0:
-        raise ValueError(f"multiple must be positive, got {multiple}")
-    return ((n + multiple - 1) // multiple) * multiple
 
 
 def pad_rows_any(x, target_rows: int, fill=0.0, dtype=None, device=None):

@@ -12,7 +12,7 @@ one JSON line with exit status 0 / 1::
     python -m mpi_knn_tpu_torch doctor --timeout 30      # beat-starvation bound
     python -m mpi_knn_tpu_torch doctor --cache-dir DIR   # + the cache round trip
 
-The child prints four lines, which the supervisor folds into the verdict:
+The child prints five lines, which the supervisor folds into the verdict:
 
 1. the device probe: one launch of K1 (``fused_knn_tiles``) on a 512×32
    corpus of small-integer values, held bit for bit against its plain
@@ -23,19 +23,26 @@ The child prints four lines, which the supervisor folds into the verdict:
 3. with a cache directory (``--cache-dir`` or ``TKNN_AOT_CACHE``), the
    cache's store / load round trip through the production entry format,
    on a card with the probe's own library (written back out and loaded);
-4. the mutation probe: a throwaway 64-row clustered index takes upsert →
+4. the plan line: the capacity planner (``plan.py``) plans a tiny corpus
+   (m 4096, d 64, k 10, recall 0.9, bucket 256) against this device's
+   shipped profile (``cpu-test`` off the map, as in the reference), and
+   its predicted peak bytes must cover the probe's measured peak: on a
+   card ``torch.cuda.max_memory_allocated`` around the K1 probe, reset
+   before it; on the CPU the probe's tensor bytes;
+5. the mutation probe: a throwaway 64-row clustered index takes upsert →
    query → delete → query twice; the second pass must build nothing, an
    upserted id must be found and a deleted one never come back.
 
 ``--platform auto`` is the card (the port's default device): a host whose
 card is missing or broken fails the probe; it never probes the CPU in its
-place. The reference's memory and plan lines (``doctor.py:141-213``) stand
-on its static memory analysis and capacity planner, which the port does
-not have: the verdict leaves them out.
+place. The reference's memory line (``doctor.py:141-165``) stands on its
+liveness analysis of compiled HLO, which the port does not have yet
+(ROADMAP A.5c): the verdict leaves it out.
 
 Verdict schema: ``{"ok": bool, "status": "ok"|"timeout"|"crashed",
 "probe": {...} | null, "metrics": <registry snapshot> | null,
-"aot_cache": {...} | null, "mutation": {...} | null, "beats": N,
+"aot_cache": {...} | null, "plan": {...} | null, "mutation": {...} | null,
+"beats": N,
 "last_beat": label, "elapsed_s": s, "reason": str|null,
 "stderr_tail": str|null, "flight": <banked span summary> | null}``.
 
@@ -86,10 +93,19 @@ def _probe_child(platform: str, cache_dir: str | None = None) -> int:
     X = torch.from_numpy((rng.integers(0, 8, (512, 32)) * 0.25)
                          .astype(np.float32)).to(dev)
     before = fused_knn.LAUNCHES["fused_knn_tiles"]
+    if card:
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
     t0 = time.perf_counter()
     gd, gi = fused_knn.fused_knn_tiles(X, X, 512, 4, 128, 256)
     if card:
         torch.cuda.synchronize(dev)
+        # the probe's peak: its corpus was allocated before the reset
+        probe_peak = (torch.cuda.max_memory_allocated(dev) - base
+                      + X.numel() * X.element_size())
+    else:
+        probe_peak = sum(t.numel() * t.element_size() for t in (X, gd, gi))
     probe_s = time.perf_counter() - t0
     launches = fused_knn.LAUNCHES["fused_knn_tiles"] - before
     maybe_beat("kernel")
@@ -119,10 +135,56 @@ def _probe_child(platform: str, cache_dir: str | None = None) -> int:
         # stats after the round trip, so the count includes its entry
         print(json.dumps({"aot_cache": {**cache.stats(), **rt}}), flush=True)
         maybe_beat("aot-cache-done")
+    maybe_beat("plan-probe")
+    print(json.dumps({"plan": _plan_probe(dev, probe_peak)}), flush=True)
+    maybe_beat("plan-done")
     maybe_beat("mutation-probe")
     print(json.dumps({"mutation": _mutation_probe(dev)}), flush=True)
     maybe_beat("mutation-done")
     return 0
+
+
+def _plan_probe(dev, probe_peak: int) -> dict:
+    """The capacity planner's round trip (the reference's
+    ``doctor.py:166-213``): plan a tiny corpus against this device's
+    shipped profile (``cpu-test`` off the map, so off-map hardware still
+    exercises the planner) and hold the plan's predicted peak against the
+    probe's measured one. The probe is deliberately tiny, so a feasible
+    plan whose prediction does NOT cover it means the planner's memory
+    model is broken on this host."""
+    import torch
+
+    from mpi_knn_tpu_torch import plan as planner
+    from mpi_knn_tpu_torch.analysis.cost import (
+        DEFAULT_PROFILE,
+        profile_for_device,
+    )
+
+    name = profile_for_device(
+        dev.type,
+        torch.cuda.get_device_name(dev) if dev.type == "cuda" else "",
+    ) or DEFAULT_PROFILE
+    wl = planner.Workload(m=4096, d=64, k=10, recall_target=0.9, qps=0.0,
+                          bucket=256)
+    fleet = planner.Fleet(devices=1, profile=name)
+    try:
+        doc = planner.plan(wl, fleet)
+    except planner.Infeasible as e:
+        return {"ok": False, "profile": name,
+                "reason": f"tiny-corpus plan infeasible — "
+                          f"{e.constraint}: {e.detail}"}
+    except (OSError, ValueError, KeyError) as e:
+        return {"ok": False, "profile": name,
+                "reason": f"planner calibration unavailable: {e}"}
+    predicted = doc["predicted"]["peak_hbm_bytes"]
+    return {
+        "ok": bool(predicted >= probe_peak),
+        "profile": name,
+        "config": doc["config"],
+        "predicted_peak_hbm_bytes": predicted,
+        "probe_measured_peak_bytes": int(probe_peak),
+        "predicted_qps": doc["predicted"]["qps"],
+    }
 
 
 def _mutation_probe(dev) -> dict:
@@ -195,6 +257,7 @@ def run_probe(
                 lines.update(doc)
     probe = lines.get("probe")
     aot = lines.get("aot_cache")
+    plan = lines.get("plan")
     mutation = lines.get("mutation")
     healthy = (
         probe is not None and probe["agrees_with_plain"]
@@ -202,6 +265,7 @@ def run_probe(
         and (aot is None or (aot["store_ok"] and aot["load_ok"]
                              and aot["bit_identical"]
                              and aot.get("dlopen_ok", True)))
+        and plan is not None and plan["ok"]
         and mutation is not None and mutation["ok"]
     )
     return {
@@ -211,6 +275,9 @@ def run_probe(
         "probe": probe,
         "metrics": lines.get("metrics"),
         "aot_cache": aot,
+        # the capacity planner's round trip: a feasible tiny-corpus plan
+        # whose predicted peak covers the probe's measured one
+        "plan": plan,
         "mutation": mutation,
         "beats": res.beats,
         "last_beat": res.last_beat_label,

@@ -457,6 +457,7 @@ def _serve_loaded_index(args, X, source, device, policy) -> int:
 def _stream_and_report(args, session, index, X, source, build_s) -> int:
     """Stream the query batches, print per-batch latency lines, emit the
     summary and the report (the JAX serving summary's keys)."""
+    from mpi_knn_tpu_torch.analysis.cost import detected_profile
     from mpi_knn_tpu_torch.serve.engine import index_peak_hbm_bytes
 
     cfg = session.cfg
@@ -500,8 +501,9 @@ def _stream_and_report(args, session, index, X, source, build_s) -> int:
         "latency_p99_ms": round(float(np.percentile(lats, 99)) * 1e3, 3)
         if len(lats) else None,
         "peak_hbm_bytes": index_peak_hbm_bytes(index),
-        # the JAX CLI's shipped roofline profile: none for this card yet
-        "device_profile": None,
+        # the shipped device profile the planner predicted q/s under
+        # (analysis/cost.py), null off the profile map
+        "device_profile": detected_profile(index.device),
     }
     if index.backend in ("ivf", "ivf-sharded"):
         summary["partitions"] = index.partitions

@@ -106,7 +106,8 @@ MISSES = 0
 
 def reset_misses():
     global MISSES
-    MISSES = 0
+    with _LOCK_MUTEX:
+        MISSES = 0
 
 
 def bucket_rows(n: int, base: int) -> int:
@@ -1070,7 +1071,7 @@ class ServeSession:
         sid = obs_spans.begin_span(
             "batch", cat="serve", seq=self._seq, rows=rows, rung=label,
             **({"shards": self.index.shards}
-               if self.exchange is not None else {}),
+               if self.index.backend == "ivf-sharded" else {}),
             **({"tenants": comp} if tenants is not None else {}))
         pol = self.policy
         try:

@@ -51,6 +51,7 @@ from mpi_knn_tpu_torch.parallel.partition import (
     pad_rows_any,
     pad_to_multiple,
 )
+from mpi_knn_tpu_torch.shapes import serving_c_tile, serving_corpus_rows
 
 SERVED_BACKENDS = ("serial", "pallas", "ring", "ring-overlap")
 
@@ -347,20 +348,12 @@ def _build_index_resident(corpus, cfg: KNNConfig, mesh, dev,
                            c_tile=c_tile, mu=mu, device=dev,
                            corpus_padded=corpus_p, staged=staged)
 
-    from mpi_knn_tpu_torch.backends.serial import (
-        cap_corpus_tile,
-        tile_sq_norms,
-        torch_dtype,
-    )
+    from mpi_knn_tpu_torch.backends.serial import tile_sq_norms, torch_dtype
 
-    c_tile = cap_corpus_tile(cfg.query_tile,
-                             min(cfg.corpus_tile, pad_to_multiple(m, 128)),
-                             cfg.max_tile_elems)
+    c_tile = serving_c_tile(cfg, m)
     # bucket_headroom: extra id −1 rows past the corpus (masked, never
     # answers), the reference's capacity for live upserts
-    c_pad = pad_to_multiple(
-        max(m, int(np.ceil(m * (1.0 + cfg.bucket_headroom)))), c_tile
-    )
+    c_pad = serving_corpus_rows(m, cfg.bucket_headroom, c_tile)
     tiles = pad_rows_any(corpus, c_pad, dtype=torch_dtype(cfg.dtype),
                          device=dev).reshape(-1, c_tile, dim)
     tile_ids = torch.from_numpy(

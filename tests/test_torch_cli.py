@@ -321,6 +321,7 @@ def test_unported_subcommands_exit_2_by_name(sub, capsys):
     assert port_cli.main([sub, "--anything"]) == 2
     err = capsys.readouterr().err
     assert f"'{sub}'" in err and "not yet ported to mpi_knn_tpu_torch" in err
+    assert "A.5c" in err and "lint --host" in err
 
 
 def test_process_id_alone_is_refused_in_the_reference_words(monkeypatch):

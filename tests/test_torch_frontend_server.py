@@ -176,15 +176,18 @@ def test_concurrent_answers_match_the_reference(pair):
 
 
 def test_healthz_keys_and_facts_match_the_reference(pair):
-    """Same keys, and the same index facts and posture values. The one key
-    left out of the value comparison is ``device_profile``: the reference
-    reads its planner's shipped device profile ("cpu-test" on the CPU, a
-    TPU profile on a TPU); the port has no planner yet and answers null."""
+    """Same keys, and the same index facts and posture values. Both read
+    their planner's shipped device profile for the device they serve on:
+    "cpu-test" on the CPU, the same name and figures on both sides."""
     servers, _ = pair
     port = loadgen.probe_server(servers["port"][0].url)
     ref = loadgen.probe_server(servers["ref"][0].url)
     assert set(port) == set(ref)
-    assert port["device_profile"] is None
+    assert port["device_profile"]["name"] == ref["device_profile"]["name"] \
+        == "cpu-test"
+    # the figures; each side's _doc names its own sources
+    assert {k: v for k, v in port["device_profile"].items() if k != "_doc"} \
+        == {k: v for k, v in ref["device_profile"].items() if k != "_doc"}
     for key in ("ok", "ready", "dim", "k", "backend", "max_batch_rows",
                 "rung", "ladder", "warming"):
         assert port[key] == ref[key], key

@@ -662,6 +662,23 @@ def test_fill_trigger(rng):
     assert should_compact(idx, idx.cfg.replace(compact_fill_threshold=1.0)) is None
 
 
+def test_no_fill_trigger_without_headroom(rng):
+    """A store built with no headroom has its fullest bucket full from the
+    build, and a pass re-packs it as full: no fill trigger, so the
+    compactor's tick leaves it (and the engine's entries) alone. Deletes
+    still trigger by tombstones."""
+    X, _ = _blobs(rng, m=512)
+    idx = _ivf(X, bucket_headroom=0.0)
+    assert freelist_of(idx).max_fill >= idx.cfg.compact_fill_threshold
+    assert should_compact(idx, idx.cfg) is None
+    ses = ServeSession(idx, device=CPU)
+    ses.warm([32])
+    entries = len(idx._cache)
+    assert sm.Compactor(ses).tick() is None and len(idx._cache) == entries
+    sm.delete_rows(idx, np.arange(0, 200))
+    assert should_compact(idx, idx.cfg) == "tombstones"
+
+
 def test_compact_preserves_answers(rng):
     X, cents = _blobs(rng, m=512)
     idx = _ivf(X, nprobe=8)

@@ -444,7 +444,7 @@ def test_query_cli_end_to_end(tmp_path, capsys):
     assert doc["throughput_qps"] > 0 and doc["latency_p50_ms"] is not None
     assert doc["tenants"]["t1"]["queries"] == 40
     assert isinstance(doc["peak_hbm_bytes"], int) and doc["peak_hbm_bytes"] > 0
-    assert doc["device_profile"] is None
+    assert doc["device_profile"]["name"] == "cpu-test"
 
 
 def test_query_cli_reached_from_the_package_main(tmp_path):
