@@ -162,7 +162,8 @@ is not 0:
    the package's CLI (exit 0, the H100 profile), its emitted
    ``build-index`` and ``serve`` run as emitted (the serve with a port and
    ready file appended), ``/healthz`` naming the H100 profile and a peak
-   at or under the plan's. No kernel of the port runs on this path (its
+   at or under the plan's; the same for ``plan --backend ivf``, the two
+   deployments side by side. No kernel of the port runs on this path (its
    launch counts stay 0): no Pallas site lies on the JAX package's;
 11. mutate (``mutate_phase``): live mutation at the README's mutable
    deployment (that corpus with ``bucket_headroom=0.5``,
@@ -261,7 +262,21 @@ is not 0:
    (K4 and K5 as the single process's, per-rank kernels and --dp half),
    the boundary's moves, and K5's ms a process beside the single
    process's, within a quarter of its waits' bound;
-18. kernels: one line with every kernel mode's launches, error, times and
+18. sharded_mutation (``sharded_mutation_phase``): the sharded store
+   mutated, compacted and served across two processes of the one card,
+   bit for bit the one-process store;
+19. lint (``lint_phase``): ``python -m mpi_knn_tpu_torch lint --device
+   cuda --memory --cost`` over the JAX package's 79 cells, in four
+   children side by side (``LINT_PARTS``): 0 findings on every cell but
+   the 4 refusals (``LINT_SKIPS``), R8's counted FLOPs (the kernels'
+   side-band among them) equal to the closed form, R7's trace peak inside
+   ``ALLOCATOR_BAND`` of the allocator's growth, one ``lint_scheme`` line
+   a scheme; then four cells again at the main path's other settings
+   (``LINT_VARIANTS``: the sweep variant exact and mixed, the grid
+   rotation, the approximate top-k), the same gates; K1, K2, K1[c],
+   K2[c], K3a, K3b, K4, K5, the bin minimum and the prologues launched
+   (``lint_launches`` in the kernels line);
+20. kernels: one line with every kernel mode's launches, error, times and
    bound, the prologues (`stage_tf32_split`, `stage_tf32[wire]`,
    `stage_tf32_split[ring]`, `stage_bf16`, `stage_bf16[wire]`,
    `stage_norms`), the "default" / "high" forms and the approx kernel (f32
@@ -320,6 +335,7 @@ The last line is {"ok": true, "device": {...}}. Without a card, or without
 the package beside it, the script exits non-zero and prints no result.
 """
 
+import concurrent.futures
 import json
 import os
 import re
@@ -328,6 +344,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -2045,6 +2062,12 @@ def ivf_peak_bfloat16(X, Q, device) -> dict:
     return out
 
 
+# the planner runs in this process with its stdout redirected, which is
+# process-wide: the two plans of the ivf phase take turns, their children
+# run together
+PLAN_STDOUT_LOCK = threading.Lock()
+
+
 def plan_cli(tmp, restrict, queries, od, oi) -> dict:
     """``plan`` for the README deployment through the package's CLI (with
     ``restrict``'s search-space flags appended), then its emitted commands
@@ -2066,7 +2089,7 @@ def plan_cli(tmp, restrict, queries, od, oi) -> dict:
     argv = ["plan", "--corpus", str(IVF_M), "--dim", "128", "--k", str(K),
             "--recall-target", "0.95", "--devices", "1", *restrict]
     buf = io.StringIO()
-    with contextlib.redirect_stdout(buf):
+    with PLAN_STDOUT_LOCK, contextlib.redirect_stdout(buf):
         rc = cli.main(argv + ["--data", f"sift:{IVF_M}", "--index-out",
                               os.path.join(tmp, "plan.ivf.npz"), "-q"])
     doc = json.loads(buf.getvalue()) if rc == 0 else {}
@@ -2340,9 +2363,16 @@ def ivf_phase(device) -> dict:
                              f"(ids {agree}, distances within 1e-5: {close})")
     del full
     torch.cuda.empty_cache()
-    for restrict in ((), ("--backend", "ivf")):
+    # the plan for the README deployment, and with --backend ivf, each
+    # deployed by its own commands: the two deployments' children (a
+    # serve, a build-index and a serve) run side by side on the card
+    def deploy(restrict):
         with tempfile.TemporaryDirectory() as tmp:
-            plan_cli(tmp, restrict, Q[sample], od, oi)
+            return plan_cli(tmp, restrict, Q[sample], od, oi)
+
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        for f in [pool.submit(deploy, r) for r in ((), ("--backend", "ivf"))]:
+            f.result()
     counts = {name: n for name, n in read_counts().items() if n}
     emit({"phase": "ivf_launches", "launches": counts,
           "seconds": time.perf_counter() - t_phase, "stores": results,
@@ -3162,7 +3192,7 @@ FE_ROWS = (16, 256)  # rows a request (raw f32)
 # per-tenant offered requests/s of each size, lowest first: 16-row
 # requests at 0.5k-33k rows/s in all, 256-row ones at 8k-131k
 FE_RATES = {16: (4.0, 32.0, 256.0), 256: (4.0, 16.0, 64.0)}
-FE_SECONDS = 1.5  # a rate's open-loop schedule (requests = rate x this, >= 8)
+FE_SECONDS = 1.0  # a rate's open-loop schedule (requests = rate x this, >= 8)
 FE_CHECK = 4  # requests a tenant in the checked pass (16 and 256 rows alternated)
 FE_SHED_ROWS = 4096  # the overload front end's shed threshold
 FE_SLOW_S = 0.06  # the injected slow dispatch of the overload burst
@@ -4828,6 +4858,161 @@ def sharded_mutation_cards(cards) -> None:
     sm_gates("sharded_mutation_cards/two_processes_two_cards", single, got, SHARDS)
 
 
+LINT_TIMEOUT_S = 600  # the lint children's limit: the 79 cells on the card
+# the matrix split by backend over children that run side by side (each
+# its own process: the allocator's peak R7 reads is a process's)
+LINT_PARTS = (("--backend", "serial", "--backend", "pallas"),
+              ("--backend", "ring"),
+              ("--backend", "ring-overlap", "--fusion", "xla"),
+              ("--backend", "ring-overlap", "--fusion", "fused"),
+              ("--backend", "ivf", "--backend", "ivf-sharded"))
+# the cells the port's own entry refuses, as the JAX package's lint skips
+# them: the fused backend computes in float32 only
+LINT_SKIPS = {"pallas/l2/bfloat16", "pallas/l2/float64",
+              "pallas/cosine/bfloat16", "pallas/cosine/float64"}
+# the matrix has no cell at the main path's other settings: four of its
+# cells run again at them (``lowering.VARIANT_FIELDS``), so the lint also
+# reaches K2, K2[c], K5 and the bin minimum
+LINT_VARIANTS = (("pallas/l2/float32", {"pallas_variant": "sweep"}),
+                 ("pallas/l2/float32/mixed", {"pallas_variant": "sweep"}),
+                 ("ring-overlap/l2/float32/fused", {"ring_fused_rotation": "grid"}),
+                 ("serial/l2/float32", {"topk_method": "approx"}))
+# the kernels the cells and the variants launch on the card
+LINT_KERNELS = ("fused_knn_tiles", "fused_knn_sweep", "fused_knn_tiles[compress]",
+                "fused_knn_sweep[compress]", "fused_block_merge[exact]",
+                "fused_block_merge[compress]", "fused_round_dma",
+                "fused_rotation_grid", "approx_min_k", "stage_tf32_split",
+                "stage_bf16", "stage_tf32[wire]", "stage_bf16[wire]",
+                "stage_tf32_split[ring]")
+
+
+def lint_scheme(t: dict) -> str:
+    """The scheme a cell of the lint report belongs to."""
+    if t["mutate"]:
+        return "mutate"
+    if t["backend"] in ("ivf", "ivf-sharded"):
+        return t["backend"]
+    if t["fusion"] == "fused":
+        return "fused"
+    if t["backend"] in ("ring", "ring-overlap"):
+        return f"ring {t['schedule']}"
+    return f"dense {t['policy']}"
+
+
+def lint_phase() -> dict:
+    """``lint --device cuda --memory --cost`` over the whole matrix, in
+    children of this checkout (``LINT_PARTS``), then ``LINT_VARIANTS`` in
+    this process: every cell 0 findings (R8's counted FLOPs, the kernels'
+    side-band ones among them, equal to the closed form; R7's trace peak
+    inside ``ALLOCATOR_BAND`` of the allocator's growth), the named
+    refusals only. Returns the launches the side-band records counted, a
+    kernel each."""
+    t0 = time.perf_counter()
+    reports, rcs = [], []
+    with tempfile.TemporaryDirectory(prefix="tknn-lint-") as out:
+        procs, ended, errs = [], {}, []
+        for i, part in enumerate(LINT_PARTS):
+            errs.append(open(os.path.join(out, f"{i}.err"), "w+"))
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "mpi_knn_tpu_torch", "lint", "--device",
+                 "cuda", "--memory", "--cost", "-q", "--out",
+                 os.path.join(out, str(i)), *part],
+                cwd=os.path.dirname(os.path.abspath(__file__)),
+                stdout=subprocess.DEVNULL, stderr=errs[-1]))
+        try:
+            # each child's seconds: poll until every one has ended
+            while len(ended) < len(procs):
+                if time.perf_counter() - t0 > LINT_TIMEOUT_S:
+                    raise AssertionError(f"lint: children past {LINT_TIMEOUT_S} s")
+                for i, proc in enumerate(procs):
+                    if i not in ended and proc.poll() is not None:
+                        ended[i] = time.perf_counter() - t0
+                time.sleep(0.1)
+            for i, proc in enumerate(procs):
+                errs[i].seek(0)
+                err = errs[i].read()
+                rcs.append(proc.returncode)
+                path = os.path.join(out, str(i), "report.json")
+                if not os.path.exists(path):
+                    raise AssertionError(f"lint {LINT_PARTS[i]}: exit "
+                                         f"{proc.returncode}, no report:\n"
+                                         f"{err[-3000:]}")
+                reports.append(json.loads(open(path).read()))
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+            for f in errs:
+                f.close()
+    children_s = time.perf_counter() - t0
+    report = {"platform": {r["platform"] for r in reports},
+              "device_name": reports[0]["device_name"]}
+    targets = [t for r in reports for t in r["targets"]]
+    # the variants, in this process (its kernels are built)
+    from mpi_knn_tpu_torch.analysis import engine, lowering
+
+    cells = {t.label: t for t in lowering.default_targets()}
+    variants = [engine.lint_target(cells[label], device="cuda", overrides=ov)
+                for label, ov in LINT_VARIANTS]
+    for v in variants:
+        emit({"phase": "lint_variant", "label": v.target.label,
+              "overrides": v.overrides, "findings": len(v.findings),
+              "launches": v.launches, "counted_flops": v.cost["mxu_flops"],
+              "kernel_flops": v.cost["kernel_flops"],
+              "analytical_flops": v.cost["analytical_flops"],
+              "trace_peak_alloc": v.memory["peak_alloc_bytes"],
+              "allocator_growth": v.memory["measured_bytes"]})
+    seconds = time.perf_counter() - t0
+    skipped = {t["label"] for t in targets if t["skipped"] is not None}
+    findings = [(t["label"], f["rule"], f["message"]) for t in targets
+                for f in t["findings"]] + [
+        (v.target.label, f.rule, f.message) for v in variants for f in v.findings]
+    launches, schemes = {}, {}
+    for t in targets + [v.to_json() for v in variants]:
+        for name, n in t["launches"].items():
+            launches[name] = launches.get(name, 0) + n
+        if t["skipped"] is not None:
+            continue
+        c, m = t["cost"], t["memory"]
+        s = schemes.setdefault(lint_scheme(t), {
+            "cells": 0, "kernel_flops": 0, "counted_flops": 0,
+            "analytical_flops": 0, "flops_equal": True, "trace_peak_alloc": [],
+            "allocator_growth": []})
+        s["cells"] += 1
+        s["kernel_flops"] += c["kernel_flops"]
+        s["counted_flops"] += c["mxu_flops"]
+        s["analytical_flops"] += c["analytical_flops"]
+        s["flops_equal"] &= c["mxu_flops"] == c["analytical_flops"]
+        s["trace_peak_alloc"].append(m["peak_alloc_bytes"])
+        s["allocator_growth"].append(m["measured_bytes"])
+    for name, s in schemes.items():
+        peaks, growth = s.pop("trace_peak_alloc"), s.pop("allocator_growth")
+        emit({"phase": "lint_scheme", "scheme": name, **s,
+              "trace_peak_alloc_max": max(peaks),
+              "allocator_growth_max": max(growth),
+              "growth_minus_peak": [min(g - p for g, p in zip(growth, peaks)),
+                                    max(g - p for g, p in zip(growth, peaks))]})
+    out = {"phase": "lint", "rcs": rcs, "seconds": seconds,
+           "children_seconds": children_s,
+           "children": [{"args": " ".join(p), "seconds": ended[i],
+                         "cells": len(r["targets"])}
+                        for i, (p, r) in enumerate(zip(LINT_PARTS, reports))],
+           "platform": sorted(report["platform"]),
+           "device_name": report["device_name"], "cells": len(targets),
+           "skipped": sorted(skipped), "findings": findings[:20],
+           "launches": launches}
+    emit(out)
+    missing = [n for n in LINT_KERNELS if not launches.get(n)]
+    if (any(rcs) or findings or skipped != LINT_SKIPS
+            or any(v.skipped for v in variants)
+            or len({t["label"] for t in targets}) != 79
+            or report["platform"] != {"cuda"}
+            or missing or not all(s["flops_equal"] for s in schemes.values())):
+        raise AssertionError(f"lint: {out}, kernels not launched: {missing}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -6301,6 +6486,9 @@ def main() -> int:
     # ---- the sharded clustered store live across processes ---------------
     sharded_mutation_phase(device)
     mark("sharded_mutation")
+    # ---- the lint: rules R1-R8 over every cell of the matrix, recorded ----
+    lint_launches = lint_phase()
+    mark("lint")
     frontend_launches = {n: fe_counts["a"].get(n, 0) + fe_counts["b"].get(n, 0)
                          for n in ("fused_knn_tiles", "stage_tf32_split",
                                    "fused_knn_tiles[compress]", "stage_bf16")}
@@ -6414,7 +6602,10 @@ def main() -> int:
             if name in multiproc_launches else {}),
          # the pod of MP_RANKS ranks a process (process 0's; each equal)
          **({"multiproc_ranks_launches": multiproc_ranks_launches[name]}
-            if name in multiproc_ranks_launches else {})}
+            if name in multiproc_ranks_launches else {}),
+         # the lint phase's cells (its side-band records, one a launch)
+         **({"lint_launches": lint_launches[name]}
+            if name in lint_launches else {})}
         for name in replaces
     ]})
     mark("kernels_line")

@@ -20,7 +20,8 @@ if _sub == ["router"]:
     from mpi_knn_tpu_torch.frontend.cli import router_main
 
     sys.exit(router_main(sys.argv[2:]))
-# the planner and the lint read source text and JSON: no card
+# the planner and the lint route here too (the lint imports torch only
+# when it runs its matrix; ``lint --host`` never does)
 if _sub == ["plan"]:
     from mpi_knn_tpu_torch.plan import main as _plan
 

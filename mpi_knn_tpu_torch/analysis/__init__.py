@@ -1,13 +1,15 @@
-"""The port's analysis layer (the JAX package's ``analysis/``): the host
-concurrency lint (:mod:`~mpi_knn_tpu_torch.analysis.host`), the device
-profiles, closed-form FLOPs and roofline (:mod:`~mpi_knn_tpu_torch.
-analysis.cost`) and the memory model of the port's layouts
+"""The port's analysis layer (the JAX package's ``analysis/``): the rule
+engine R1–R8 over the port's recorded runs (:mod:`~mpi_knn_tpu_torch.
+analysis.engine`, ``rules``, ``lowering``, ``ledger``; the recorder is
+``utils/op_trace.py``), the host concurrency lint
+(:mod:`~mpi_knn_tpu_torch.analysis.host`), the device profiles,
+closed-form FLOPs and roofline (:mod:`~mpi_knn_tpu_torch.analysis.cost`)
+and the memory model of the port's layouts
 (:mod:`~mpi_knn_tpu_torch.analysis.memory`) the capacity planner
 (``mpi_knn_tpu_torch/plan.py``) reads.
 
-The JAX package's rule engine over compiled XLA programs (R1–R8) has no
-counterpart yet. Nothing here imports torch at import time; the names
-below load on first use.
+Nothing here imports torch at import time; the names below load on first
+use.
 """
 
 from __future__ import annotations
@@ -22,6 +24,19 @@ _EXPORTS = {
     "load_profiles": "mpi_knn_tpu_torch.analysis.cost",
     "profile_for_device": "mpi_knn_tpu_torch.analysis.cost",
     "roofline": "mpi_knn_tpu_torch.analysis.cost",
+    # the rule engine over recorded runs
+    "Finding": "mpi_knn_tpu_torch.analysis.rules",
+    "LintContext": "mpi_knn_tpu_torch.analysis.engine",
+    "LintReport": "mpi_knn_tpu_torch.analysis.engine",
+    "LintTarget": "mpi_knn_tpu_torch.analysis.lowering",
+    "RULES": "mpi_knn_tpu_torch.analysis.rules",
+    "TargetResult": "mpi_knn_tpu_torch.analysis.engine",
+    "UnsupportedTarget": "mpi_knn_tpu_torch.analysis.lowering",
+    "default_targets": "mpi_knn_tpu_torch.analysis.lowering",
+    "lint_target": "mpi_knn_tpu_torch.analysis.engine",
+    "lower_target": "mpi_knn_tpu_torch.analysis.lowering",
+    "run_matrix": "mpi_knn_tpu_torch.analysis.engine",
+    "run_rules": "mpi_knn_tpu_torch.analysis.engine",
     # host lint
     "run_host_lint": "mpi_knn_tpu_torch.analysis.host.engine",
     "HostReport": "mpi_knn_tpu_torch.analysis.host.engine",

@@ -12,8 +12,10 @@ so the planners agree on the CPU) and one for the H100 the port runs on,
 each figure of which names its source in the file.
 
 The half of the reference that reads XLA HLO (its dot inventory,
-collective census, HBM-traffic model, cost ledger and rule R8) has no
-counterpart here yet: eager PyTorch has no compiled module to read.
+collective census, HBM-traffic model, cost ledger and rule R8) reads a
+recorded eager run here instead (``utils/op_trace.py``): :func:`r8_check`
+holds the run's counted product FLOPs to the closed form, and
+:func:`cost_entry` is the cost ledger's entry.
 
 Torch-free at import: :func:`detected_profile` imports torch lazily.
 """
@@ -98,10 +100,15 @@ def analytical_mxu_flops(facts: dict) -> int:
       over the probed width ``v = nprobe·bucket_cap`` plus the mixed
       rerank ``2·q·rblocks·w·d``; the sharded layout runs the same work
       at its per-shard ``q``.
+    - ``assign`` (the port's): a clustered mutation's centroid score of
+      the ``rows`` it places, ``2·rows·partitions·d`` (the JAX package
+      scores them outside the mutation program it lints).
     """
     scheme = facts["scheme"]
     if scheme == "zero":
         return 0
+    if scheme == "assign":
+        return 2 * facts["rows"] * facts["partitions"] * facts["d"]
     d = facts["d"]
     q = facts["q"]
     w = facts.get("w", 0)
@@ -141,3 +148,107 @@ def roofline(flops: int, hbm_bytes: int, ici_bytes: int, queries: int,
         "qps": (queries / wall_s) if wall_s > 0 else float("inf"),
         "bound": bound,
     }
+
+
+# ---------------------------------------------------------------------------
+# R8-cost over a recorded run (``analysis/rules.py`` wraps it)
+
+COST_TOL_REL = 0.02
+COST_TOL_ABS = 4096
+
+
+def hbm_bytes(trace) -> int:
+    """Bytes the run moves through device memory: every op that is not a
+    view reads its inputs and writes its outputs once; a kernel moves
+    what its side-band record declares."""
+    from mpi_knn_tpu_torch.analysis.rules import VIEW_NAMES
+
+    total = 0
+    for op in trace.ops:
+        if op.kind == "kernel":
+            total += int(op.info.get("bytes", 0))
+        elif op.name.split(".")[1] not in VIEW_NAMES:
+            total += sum(t.nbytes for t in op.inputs + op.outputs)
+    return total
+
+
+def link_bytes(trace) -> int:
+    """Bytes between ranks: the driver's copies, the sharded exchange and
+    the kernels' own wire bytes."""
+    return (sum(e.get("bytes", 0) for e in trace.events("send", "exchange"))
+            + sum(int(k.info.get("wire_bytes", 0)) for k in trace.kernels()))
+
+
+def cost_entry(trace, facts: dict, copies: int, profile_name: str) -> tuple:
+    """(ledger entry, problems) of one cell."""
+    counted = trace.counted_flops()
+    analytical = analytical_mxu_flops(facts) * copies
+    problems = []
+    if counted != analytical:
+        direction = ("does work the closed form cannot name"
+                     if counted > analytical
+                     else "lost a product the closed form prices")
+        problems.append(
+            f"counted product FLOPs {counted} != analytical {analytical} "
+            f"({copies} × the facts {facts!r}) — the run {direction}")
+    big = max(trace.products() + [k for k in trace.kernels() if k.flops],
+              key=lambda o: o.flops, default=None)
+    hbm, ici = hbm_bytes(trace), link_bytes(trace)
+    queries = facts.get("queries", facts.get("q", 1))
+    entry = {
+        "mxu_flops": counted,
+        "analytical_flops": analytical,
+        "kernel_flops": sum(k.flops for k in trace.kernels()),
+        "hbm_bytes": hbm,
+        "ici_bytes": ici,
+        "intensity": round(counted / hbm, 6) if hbm else 0.0,
+        "queries": queries,
+        "largest_product": None if big is None else {
+            "flops": big.flops, "op": big.name, "index": big.index},
+        "profile": profile_name,
+        "roofline": roofline(counted, hbm, ici, queries,
+                             get_profile(profile_name)),
+    }
+    return entry, problems
+
+
+def r8_check(ctx, trace) -> list:
+    """(message, evidence) pairs of R8; stashes the ledger entry in
+    ``ctx.meta["r8_analysis"]``."""
+    facts = ctx.meta.get("cost")
+    if facts is None:
+        return [("the cell declares no cost facts: its FLOPs cannot be "
+                 "certified", {})]
+    profile = ctx.meta.get("profile") or DEFAULT_PROFILE
+    entry, problems = cost_entry(trace, facts, ctx.meta.get("cost_copies", 1),
+                                 profile)
+    ctx.meta["r8_analysis"] = entry
+    return [(msg, {"mxu_flops": entry["mxu_flops"],
+                   "analytical_flops": entry["analytical_flops"]})
+            for msg in problems]
+
+
+def _product_culprit(cell: dict) -> str:
+    big = cell.get("largest_product") or {}
+    return (f"largest product {big.get('flops')} FLOP {big.get('op')!r} at op "
+            f"{big.get('index')}")
+
+
+def _ledger_spec():
+    from mpi_knn_tpu_torch.analysis import ledger
+
+    return ledger.LedgerSpec(
+        kind="cost", schema_version=1,
+        source="mpi_knn_tpu_torch.analysis.cost",
+        regen_cmd="python -m mpi_knn_tpu_torch lint --device cpu --cost",
+        tol_rel=COST_TOL_REL, tol_abs=COST_TOL_ABS,
+        metrics=(
+            ledger.MetricSpec(key="mxu_flops", noun="product work",
+                              unit="FLOPs", culprit=_product_culprit),
+            ledger.MetricSpec(key="hbm_bytes", noun="memory traffic"),
+            ledger.MetricSpec(key="ici_bytes", noun="link traffic"),
+        ),
+    )
+
+
+LEDGER_SPEC = _ledger_spec()

@@ -76,7 +76,12 @@ survivors (12·q·k a tile).
 
 The tile, chunk and block widths are the port's own rules, read from
 ``shapes.py`` (the search and build code read the same functions) under
-the ``KNNConfig`` the caller passes. Nothing here imports torch.
+the ``KNNConfig`` the caller passes.
+
+Rule R7 (:func:`r7_check`) holds a recorded run's live-bytes peak
+(``utils/op_trace.py``) to the JAX package's budget and cross-checks it
+against this model on the CPU (``MODEL_BAND``) and against the caching
+allocator on the card (``ALLOCATOR_BAND``). Nothing here imports torch.
 """
 
 from __future__ import annotations
@@ -278,3 +283,147 @@ def dense_step_peak(q: int, c: int, k: int, tiles: int) -> int:
     return live(4 * q * c, 4 * q * c, 4 * q * c, 4 * q * c, 4 * q * c,
                 q * c, q * c, 4 * q * c, 4 * q * c, 8 * q * c,
                 12 * q * k * (tiles + 1), 4 * q)
+
+
+# ---------------------------------------------------------------------------
+# R7-peak-memory over a recorded run (``analysis/rules.py`` wraps it)
+
+R7_TEMP_SLACK = 6  # the JAX package's working-set slack
+# The band R7 holds a cell's trace peak to on the card: the caching
+# allocator's peak growth over the cell must lie within
+# [peak_alloc − lo, peak_alloc + hi], ``peak_alloc`` the trace's peak with
+# every storage rounded as :func:`alloc` rounds it. Below: the allocator
+# cannot hold less than the storages the trace saw live at once, but a
+# cell may free a storage made before it (1 MiB of slack for that, an
+# unsplit block's worth). Above: the cuBLAS workspace of a stream that
+# first calls cuBLAS inside the cell, and one unsplit large block.
+ALLOCATOR_BAND = (ALLOC_LARGE, CUBLAS_WORKSPACE + ALLOC_LARGE)
+# the band R7 holds the trace's rounded peak to against the port's model
+# on the CPU, as a fraction of the modelled bytes: the model counts the
+# tensors each stage holds at its largest moment, but not the few index
+# vectors of under 1 KiB beside them (0.6 % at the lint's clustered cells)
+MODEL_BAND = (0.25, 1.05)
+
+LEDGER_TOL_REL = 0.02
+LEDGER_TOL_ABS = 4096
+
+
+def temp_budget_bytes(meta: dict) -> int:
+    """The working-set allowance (the JAX package's): 6× the larger of the
+    strict bound, 4·q_tile·c_tile and the registered extras, plus the
+    extras only the peak needs, at the accumulation width."""
+    from mpi_knn_tpu_torch.analysis.rules import R2_SLACK
+
+    tile = R2_SLACK * meta["q_tile"] * meta["c_tile"]
+    base = max(meta.get("budget_elems") or 0, tile, meta.get("extra_elems", 0))
+    return (R7_TEMP_SLACK * base + meta.get("peak_extra_elems", 0)) \
+        * meta["acc_bytes"]
+
+
+def peak_budget_bytes(meta: dict) -> int:
+    """The cell's inputs as the call stages them (``args_bytes``), its
+    outputs, and the working-set allowance; never a largest-input floor.
+    A served batch's device results count as outputs: the slot the engine
+    preallocates is the host's staging, which the results are copied
+    into. A mutation writes its store in place and has none."""
+    outs = 0 if meta.get("mutate") else meta.get("out_bytes", 0)
+    return meta.get("args_bytes", 0) + outs + temp_budget_bytes(meta)
+
+
+def model_peak_bytes(target, meta: dict, cfg) -> int | None:
+    """The port's model of a one-shot cell's transient peak, where it has
+    one: an unsharded clustered search (a query tile's stages, plus the
+    batch's own tensors), or a serial exact f32 search with the exact
+    selection (a step at the cell's tiles, plus its padded inputs and
+    results). None elsewhere."""
+    if target.mutate or target.serve or target.backend == "ivf-sharded":
+        return None
+    if target.backend == "ivf":
+        c = meta["cost"]
+        q_pad = c["q"]
+        stages = ivf_tile_stages(meta["q_tile"], c["nprobe"], c["bucket_cap"],
+                                 c["d"], c["partitions"], cfg.k, cfg.dtype)
+        return max(stages.values()) + ivf_batch_bytes(q_pad, meta["q_tile"],
+                                                      c["d"], cfg.k)
+    if target.backend == "serial" and target.policy == "exact" \
+            and target.dtype == "float32" and cfg.topk_method == "exact":
+        c = meta["cost"]
+        tiles = c["c"] // meta["c_tile"]
+        return (dense_step_peak(meta["q_tile"], meta["c_tile"], cfg.k, tiles)
+                + live(meta.get("args_bytes", 0), meta.get("out_bytes", 0)))
+    return None
+
+
+def ledger_entry(trace, budget: int, measured, model) -> dict:
+    big = max(trace.allocations(), key=lambda a: a[1], default=None)
+    return {
+        "peak_bytes": int(trace.peak_bytes),
+        "peak_alloc_bytes": int(trace.peak_alloc),
+        "budget_bytes": int(budget),
+        "allocations": len(trace.allocations()),
+        "largest_alloc": None if big is None else {
+            "bytes": int(big[1]), "op": big[0].name, "index": big[0].index},
+        "measured_bytes": measured,
+        "model_bytes": model,
+    }
+
+
+def r7_check(ctx, trace) -> list:
+    """(message, evidence) pairs of R7; stashes the ledger entry in
+    ``ctx.meta["r7_analysis"]``."""
+    meta = ctx.meta
+    budget = peak_budget_bytes(meta)
+    measured = meta.get("allocator_growth")
+    model = (model_peak_bytes(ctx.target, meta, ctx.cfg)
+             if ctx.stage == "cpu" else None)
+    entry = ledger_entry(trace, budget, measured, model)
+    meta["r7_analysis"] = entry
+    out = []
+    if trace.peak_bytes > budget:
+        big = entry["largest_alloc"] or {}
+        out.append((
+            f"peak live bytes {trace.peak_bytes} > budget {budget} (inputs "
+            f"{meta.get('args_bytes', 0)} + un-donated outputs + "
+            f"{R7_TEMP_SLACK}× working set) — largest allocation "
+            f"{big.get('bytes')}B {big.get('op')!r} at op {big.get('index')}",
+            {"peak_bytes": trace.peak_bytes, "budget_bytes": budget}))
+    if measured is not None:
+        lo = trace.peak_alloc - ALLOCATOR_BAND[0]
+        hi = trace.peak_alloc + ALLOCATOR_BAND[1]
+        if not lo <= measured <= hi:
+            out.append((
+                f"the allocator's peak growth {measured} lies outside "
+                f"[{lo}, {hi}] around the trace's rounded peak "
+                f"{trace.peak_alloc}: the trace lost or invented storages",
+                {"measured": measured, "peak_alloc": trace.peak_alloc}))
+    if model is not None:
+        lo, hi = MODEL_BAND[0] * model, MODEL_BAND[1] * model
+        if not lo <= trace.peak_alloc <= hi:
+            out.append((
+                f"the trace's rounded peak {trace.peak_alloc} lies outside "
+                f"[{int(lo)}, {int(hi)}] of the model's {model}: the model "
+                "or the code moved",
+                {"model": model, "peak_alloc": trace.peak_alloc}))
+    return out
+
+
+def _peak_culprit(cell: dict) -> str:
+    big = cell.get("largest_alloc") or {}
+    return (f"largest allocation {big.get('bytes')}B {big.get('op')!r} at op "
+            f"{big.get('index')}")
+
+
+def _ledger_spec():
+    from mpi_knn_tpu_torch.analysis import ledger
+
+    return ledger.LedgerSpec(
+        kind="memory", schema_version=1,
+        source="mpi_knn_tpu_torch.analysis.memory",
+        regen_cmd="python -m mpi_knn_tpu_torch lint --device cpu --memory",
+        tol_rel=LEDGER_TOL_REL, tol_abs=LEDGER_TOL_ABS,
+        metrics=(ledger.MetricSpec(key="peak_bytes", noun="peak",
+                                   culprit=_peak_culprit),),
+    )
+
+
+LEDGER_SPEC = _ledger_spec()

@@ -134,6 +134,7 @@ from mpi_knn_tpu_torch.parallel.mesh import (
 )
 from mpi_knn_tpu_torch.parallel.partition import make_global_ids, pad_rows_any
 from mpi_knn_tpu_torch.shapes import ring_tiles
+from mpi_knn_tpu_torch.utils.op_trace import note_transfer
 
 
 def bidir_rounds(num_dev: int) -> tuple[int, int]:
@@ -252,6 +253,10 @@ def across_processes(groups) -> bool:
         distributed.process_count() > 1)
 
 
+# the parts of a traveler, in its tuple's order (the transport log's names)
+TRAVELER_PARTS = ("block", "ids", "scale", "norms", "hi", "lo")
+
+
 class _Transport:
     """Moves every rank's traveler to the rank ``shift`` steps on. Under
     overlap a copy between two cards runs on side streams, started before
@@ -282,6 +287,10 @@ class _Transport:
                 dst %= P
             elif not 0 <= dst < P:
                 continue  # leaves the process
+            for part, t in zip(TRAVELER_PARTS, travelers[r]):
+                if t is not None:
+                    note_transfer("send", src=r, dst=dst, shift=shift, part=part,
+                                  bytes=t.numel() * t.element_size())
             out[dst] = tuple(self._move(t, self.devices[r], self.devices[dst])
                              for t in travelers[r])
         if self.span is not None:
@@ -307,6 +316,7 @@ class _Transport:
         return moved
 
     def land(self):
+        note_transfer("wait")
         for x in self.pending:
             x.wait()
         self.pending = []
@@ -472,6 +482,7 @@ class RingRun:
 
     def _merge_all(self, held):
         for r in range(len(self.devices)):
+            note_transfer("merge", rank=r)
             self.carries[r] = _merge(self.q_sh[r], self.qid_sh[r], held[r],
                                      self.carries[r], self.cfg, self.q_tile,
                                      self.c_tile, self.q_norms[r])
@@ -485,6 +496,7 @@ class RingRun:
     def round(self, merge_bwd: bool, rotate: bool, last: bool = False):
         """Merge the resident block(s), and move them on when ``rotate``
         (the dma form's ``last`` round leaves its outbox unsent)."""
+        note_transfer("round", rotate=rotate, merge_bwd=merge_bwd, form=self.form)
         if self.form == "dma" and rotate:
             land = [slot(s, self.parity) for s in self.slots]
             self.carries = fused_round_dma(

@@ -62,9 +62,10 @@ count). The report's ``notes["distributed"]`` holds the start-up info,
 and its phase ``gather`` the seconds of the result's gather inside
 ``knn``.
 
-``plan`` is the capacity planner (``plan.py``) and ``lint --host`` the
-host concurrency lint (``analysis/host/``). Not yet ported (exit 2,
-naming what was asked): ``lint`` without ``--host``.
+``plan`` is the capacity planner (``plan.py``); ``lint`` the rule matrix
+R1–R8 over the port's recorded runs (``analysis/cli.py``), and ``lint
+--host`` the host concurrency lint (``analysis/host/``). Every subcommand
+of the JAX package's CLI is ported.
 """
 
 from __future__ import annotations
@@ -93,8 +94,8 @@ from mpi_knn_tpu_torch.config import (
 )
 from mpi_knn_tpu_torch.device import DEFAULT_DEVICE
 
-# refused by name: ``lint`` runs only with ``--host`` (analysis/cli.py)
-UNPORTED_SUBCOMMANDS = ("lint",)
+# the JAX package's subcommands the port refuses by name: none
+UNPORTED_SUBCOMMANDS = ()
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -398,8 +399,8 @@ def main(argv=None) -> int:
         from mpi_knn_tpu_torch.plan import main as plan_main
 
         return plan_main(argv[1:])
-    if argv and argv[0] in UNPORTED_SUBCOMMANDS:
-        # ``lint --host`` runs; the rest of ``lint`` is refused by name
+    if argv and argv[0] == "lint":
+        # the rule matrix, or with --host the host concurrency lint
         from mpi_knn_tpu_torch.analysis.cli import main as lint_main
 
         return lint_main(argv[1:])

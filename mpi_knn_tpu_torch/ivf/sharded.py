@@ -98,6 +98,7 @@ from mpi_knn_tpu_torch.shapes import (  # noqa: F401
     sharded_q_tile,
     sharded_tile_elems,
 )
+from mpi_knn_tpu_torch.utils.op_trace import note_transfer
 
 # per-shard exchange stats: routes this shard's queries issued and kept,
 # routes dropped at the cap, real requests this shard answered as owner
@@ -208,6 +209,17 @@ def _score_home(q_x, centroids, nprobe: int, per_shard: int, shards: int,
     return (qx, q_sq, dest_t, rank_t, dropped_t), req
 
 
+# the exchange's returns, in an owner's answer's order
+EXCHANGE_RETURNS = ("rows", "ids", "norms", "scales")
+
+
+def note_exchange(part: str, tables) -> None:
+    """Log one all-to-all of the candidate exchange (its ``part``, the
+    bytes every shard sends) in an open trace (``utils/op_trace.py``)."""
+    note_transfer("exchange", part=part,
+                  bytes=sum(t.numel() * t.element_size() for t in tables))
+
+
 def routed_query_tile_across(q_x, q_ids, centroids, slices, cfg: KNNConfig,
                              nprobe: int, route_cap: int, shards: int, devices):
     """One tile step in one process of a pod holding n shards: per local
@@ -277,6 +289,7 @@ def routed_query_tile(q_x, q_ids, centroids, slices, cfg: KNNConfig,
         req.append(r)
 
     # owner side: the requests from every home, then the requested buckets
+    note_exchange("requests", req)
     returned, served = [], []
     for o in range(shards):
         req_in = torch.stack([req[h][o].to(devices[o]) for h in range(shards)])
@@ -284,6 +297,9 @@ def routed_query_tile(q_x, q_ids, centroids, slices, cfg: KNNConfig,
         returned.append(answer)
         served.append(n)
 
+    for part, name in enumerate(EXCHANGE_RETURNS):
+        if returned[0][part] is not None:
+            note_exchange(name, [a[part] for a in returned])
     out, stats = [], []
     for h in range(shards):
         dev = devices[h]

@@ -44,6 +44,7 @@ import torch
 
 from mpi_knn_tpu_torch.ops import _build
 from mpi_knn_tpu_torch.types import INVALID_ID
+from mpi_knn_tpu_torch.utils.op_trace import note_launch, tensor_bytes
 
 LAUNCHES = {"approx_min_k": 0, "approx_min_k[f64]": 0}
 
@@ -363,7 +364,11 @@ def _launch(d, ld, rows, c, n_pad, L, out, vals, pos=None, ids=None,
     if err:
         raise RuntimeError(f"approx_min_k launch failed (CUDA error {err}; "
                            f"plan {plan})")
-    LAUNCHES["approx_min_k[f64]" if d.dtype == torch.float64 else "approx_min_k"] += 1
+    note_launch(LAUNCHES,
+                "approx_min_k[f64]" if d.dtype == torch.float64 else "approx_min_k",
+                lambda: dict(operands=(d, ids), outputs=(vals, pos, out_ids),
+                             precision="none",
+                             bytes=tensor_bytes(d, ids, vals, pos, out_ids)))
 
 
 def _stream(index: int) -> int:

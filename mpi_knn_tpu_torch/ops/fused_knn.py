@@ -71,6 +71,7 @@ from mpi_knn_tpu_torch.ops.distance import (
     sq_norms,
 )
 from mpi_knn_tpu_torch.types import INVALID_ID
+from mpi_knn_tpu_torch.utils.op_trace import note_launch, tensor_bytes
 
 _ZERO_RTOL = 1e-6  # the f32 zero-exclusion rtol (ops/topk.py)
 STAGE_K = 32  # the compress tile's slice depth: staged widths are its multiples
@@ -83,6 +84,8 @@ SWEEP_COLS = 256  # its columns per chunk (knn_wgmma_bf16.cuh COLS)
 ITEM_OVERHEAD_CHUNKS = 30
 MAX_SLICES = 64
 SPLIT_K = 16  # the exact tile's k-block: the planes' pitch is its multiple
+# the side-band's precision form of each f32 operand policy
+PRECISION_FORMS = {"highest": "tf32x3", "default": "bf16x1f32", "high": "bf16x3"}
 
 LAUNCHES = {"fused_knn_tiles": 0, "fused_knn_sweep": 0,
             "fused_knn_tiles[compress]": 0, "fused_knn_sweep[compress]": 0,
@@ -167,9 +170,10 @@ def _check(queries, corpus, k, q_tile, c_tile):
         raise ValueError(f"unsupported device {queries.device}")
 
 
-def _call(fn, name, device, tensors, out_shape, *args):
+def _call(fn, name, device, tensors, out_shape, *args, flops=0, precision=""):
     """Launch ``fn(*tensors' pointers, out_d, out_i, *args, stream)`` into
-    fresh (dists, ids) of ``out_shape``."""
+    fresh (dists, ids) of ``out_shape``; ``flops`` and ``precision`` are
+    the side-band record's (``utils/op_trace.py``)."""
     out_d = torch.empty(out_shape, dtype=torch.float32, device=device)
     out_i = torch.empty(out_shape, dtype=torch.int32, device=device)
     with torch.cuda.device(device):
@@ -178,7 +182,9 @@ def _call(fn, name, device, tensors, out_shape, *args):
                 out_i.data_ptr(), *args, stream)
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {rc}")
-    LAUNCHES[name] += 1
+    note_launch(LAUNCHES, name, lambda: dict(
+        operands=tensors, outputs=(out_d, out_i), flops=flops,
+        precision=precision, bytes=tensor_bytes(*tensors, out_d, out_i)))
     return out_d, out_i
 
 
@@ -213,7 +219,9 @@ def stage_tf32_split(rows):
                                             width, stream)
     if rc != 0:
         raise RuntimeError(f"stage_tf32_split launch failed: cudaError {rc}")
-    LAUNCHES["stage_tf32_split"] += 1
+    note_launch(LAUNCHES, "stage_tf32_split", lambda: dict(
+        operands=(rows,), outputs=(hi, lo, norms), precision="tf32-split",
+        bytes=tensor_bytes(rows, hi, lo, norms)))
     return hi, lo, norms
 
 
@@ -245,7 +253,9 @@ def stage_f32_norms(rows):
         rc = _lib().stage_norms_launch(rows.data_ptr(), norms.data_ptr(), n, d, stream)
     if rc != 0:
         raise RuntimeError(f"stage_norms launch failed: cudaError {rc}")
-    LAUNCHES["stage_norms"] += 1
+    note_launch(LAUNCHES, "stage_norms", lambda: dict(
+        operands=(rows,), outputs=(norms,), precision="tf32x3",
+        bytes=tensor_bytes(rows, norms)))
     return norms
 
 
@@ -406,7 +416,9 @@ def stage_bf16_rows(rows):
                                           norms.data_ptr(), n, d, width, stream)
     if rc != 0:
         raise RuntimeError(f"stage_bf16 launch failed: cudaError {rc}")
-    LAUNCHES["stage_bf16"] += 1
+    note_launch(LAUNCHES, "stage_bf16", lambda: dict(
+        operands=(rows,), outputs=(out, norms), precision="bf16",
+        bytes=tensor_bytes(rows, out, norms)))
     return out, norms
 
 
@@ -422,19 +434,24 @@ def stage_bf16_rows_reference(rows, width=None):
 
 def launch_compress(base: str, staged_q, staged_c, m_corpus: int, k: int,
                     c_tile: int, exclude_self: bool = True,
-                    all_pairs: bool = True, slices: int | None = None):
+                    all_pairs: bool = True, slices: int | None = None,
+                    dim: int | None = None):
     """The compress kernel ``base`` ("fused_knn_tiles" or
     "fused_knn_sweep") on the prologue's ((Q, w) bf16, (Q,)) queries and
     ((C, w) bf16, (C,)) corpus, on the card: (n_c, Q, k) or (Q, k) raw
     dists and ids. ``slices`` forces the sweep's corpus split (default:
-    ``compress_sweep_plan``'s); the output is the same for every split."""
+    ``compress_sweep_plan``'s); the output is the same for every split.
+    ``dim``: the rows' width before staging (default: the staged width),
+    the side-band's logical FLOPs 2·Q·C·dim."""
     (qb, qn), (cb, cn) = staged_q, staged_c
     Q, C = qb.shape[0], cb.shape[0]
     name = base + "[compress]"
+    flops = 2 * Q * C * (qb.shape[1] if dim is None else dim)
     if base == "fused_knn_tiles":
         return _call(_lib().fused_knn_tiles_compress_launch, name, qb.device,
                      (qb, qn, cb, cn), (C // c_tile, Q, k), Q, C, qb.shape[1],
-                     m_corpus, k, c_tile, int(exclude_self), int(all_pairs))
+                     m_corpus, k, c_tile, int(exclude_self), int(all_pairs),
+                     flops=flops, precision="bf16")
     plan = compress_sweep_plan(Q, min(C, m_corpus), _sm_count(qb.device), slices)
     S = plan["slices"]
     dev = qb.device
@@ -455,7 +472,10 @@ def launch_compress(base: str, staged_q, staged_c, m_corpus: int, k: int,
             int(all_pairs), S, stream)
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {rc}")
-    LAUNCHES[name] += 1
+    note_launch(LAUNCHES, name, lambda: dict(
+        operands=(qb, qn, cb, cn), outputs=(out_d, out_i, part_d, part_i),
+        flops=flops, precision="bf16",
+        bytes=tensor_bytes(qb, qn, cb, cn, out_d, out_i)))
     return out_d, out_i
 
 
@@ -562,20 +582,25 @@ def bf16_tile_dots(staged_q, staged_c, slices: int = 1, sink: bool = False):
 def launch_exact(base: str, staged_q, staged_c, m_corpus: int, k: int,
                  c_tile: int, exclude_self: bool = True,
                  exclude_zero: bool = True, all_pairs: bool = True,
-                 zero_eps: float = 0.0):
+                 zero_eps: float = 0.0, dim: int | None = None):
     """The exact kernel ``base`` ("fused_knn_tiles" or "fused_knn_sweep")
     on the prologue's (hi, lo, norms) of the queries and of the corpus, on
-    the card: (n_c, Q, k) or (Q, k) dists and ids."""
+    the card: (n_c, Q, k) or (Q, k) dists and ids. ``dim``: the rows'
+    width before the split (default: the planes'), the side-band's
+    logical FLOPs 2·Q·C·dim."""
     (qh, ql, qn), (ch, cl, cn) = staged_q, staged_c
     Q, C = qh.shape[0], ch.shape[0]
     tensors = (qh, ql, qn, ch, cl, cn)
     shape_args = (Q, C, qh.shape[1], m_corpus, k)
     flags = (int(exclude_self), int(exclude_zero), int(all_pairs), float(zero_eps))
+    side = dict(flops=2 * Q * C * (qh.shape[1] if dim is None else dim),
+                precision="tf32x3")
     if base == "fused_knn_tiles":
         return _call(_lib().fused_knn_tiles_launch, base, qh.device,
-                     tensors, (C // c_tile, Q, k), *shape_args, c_tile, *flags)
+                     tensors, (C // c_tile, Q, k), *shape_args, c_tile, *flags,
+                     **side)
     return _call(_lib().fused_knn_sweep_launch, base, qh.device, tensors,
-                 (Q, k), *shape_args, *flags)
+                 (Q, k), *shape_args, *flags, **side)
 
 
 def launch_mma(base: str, queries, corpus, staged_q, staged_c, m_corpus: int,
@@ -593,7 +618,8 @@ def launch_mma(base: str, queries, corpus, staged_q, staged_c, m_corpus: int,
     return _call(_lib().fused_knn_mma_launch, f"{base}[{p}]", queries.device,
                  (queries, qn, corpus, cn), shape, Q, C, D, m_corpus, k, c_tile,
                  int(exclude_self), int(exclude_zero), int(all_pairs),
-                 float(zero_eps), precision_code(p), int(sweep))
+                 float(zero_eps), precision_code(p), int(sweep),
+                 flops=2 * Q * C * D, precision=PRECISION_FORMS[p])
 
 
 def mma_plan(base: str, Q: int, C: int, c_tile: int, k: int, precision) -> dict:
@@ -683,15 +709,16 @@ def _launch_card(base, queries, corpus, m_corpus, k, c_tile, exclude_self,
     """One card call of kernel ``base``: the prologue(s), then the kernel of
     the mode and precision."""
     staged = _stage_call(queries, corpus, staged_corpus, compress, precision)
+    dim = queries.shape[1]
     if compress:
         return launch_compress(base, *staged, m_corpus, k, c_tile, exclude_self,
-                               all_pairs)
+                               all_pairs, dim=dim)
     if resolve_precision(precision) != "highest":
         return launch_mma(base, queries, corpus, *staged, m_corpus, k, c_tile,
                           precision, exclude_self, exclude_zero, all_pairs,
                           zero_eps)
     return launch_exact(base, *staged, m_corpus, k, c_tile, exclude_self,
-                        exclude_zero, all_pairs, zero_eps)
+                        exclude_zero, all_pairs, zero_eps, dim=dim)
 
 
 def _check_precision(compress, precision):

@@ -52,6 +52,7 @@ from mpi_knn_tpu_torch.ops.distance import (
 )
 from mpi_knn_tpu_torch.ops.fused_knn import (
     _ZERO_RTOL,
+    PRECISION_FORMS,
     _select,
     stage_bf16_rows_reference,
     staged_width,
@@ -63,6 +64,7 @@ from mpi_knn_tpu_torch.ops.rerank import (
     rerank_exact_topk,
 )
 from mpi_knn_tpu_torch.ops.topk import preselect_smallest, smallest_k
+from mpi_knn_tpu_torch.utils.op_trace import note_launch, tensor_bytes
 
 LAUNCHES = {"fused_block_merge[exact]": 0, "fused_block_merge[compress]": 0,
             "fused_block_merge[default]": 0, "fused_block_merge[high]": 0,
@@ -128,10 +130,12 @@ def _check(queries, query_ids, block, block_ids, block_scale):
             raise ValueError("operands must be contiguous")
 
 
-def _rc(rc, name):
+def _rc(rc, name, info=None):
+    """Raise on a failed launch, else count it (``info``: its side-band
+    record, ``utils/op_trace.note_launch``)."""
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {rc}")
-    LAUNCHES[name] += 1
+    note_launch(LAUNCHES, name, info)
 
 
 def _wire_rows(block, block_scale):
@@ -163,7 +167,9 @@ def stage_wire_norms(rows, scale):
         rc = _lib().stage_tf32_wire_launch(
             rows.data_ptr(), scale.data_ptr() if scale is not None else None,
             _WIRE[rows.dtype], norms.data_ptr(), n, d, stream)
-    _rc(rc, "stage_tf32[wire]")
+    _rc(rc, "stage_tf32[wire]", lambda: dict(
+        operands=(rows, scale), outputs=(norms,), precision="tf32x3",
+        bytes=tensor_bytes(rows, scale, norms)))
     return norms
 
 
@@ -227,7 +233,14 @@ def block_merge_exact(queries, query_ids, block, block_ids, block_scale,
             block.shape[0], queries.shape[1], k, c_tile, _WIRE[block.dtype],
             int(exclude_self), int(exclude_zero), float(zero_eps),
             precision_code(precision), stream)
-    _rc(rc, exact_merge_name(precision))
+    _rc(rc, exact_merge_name(precision), lambda: dict(
+        operands=(queries, qn, query_ids, block, block_scale, bn, block_ids,
+                  carry_d, carry_i),
+        outputs=(out_d, out_i),
+        flops=2 * Q * block.shape[0] * queries.shape[1],
+        precision=PRECISION_FORMS[resolve_precision(precision)],
+        bytes=tensor_bytes(queries, qn, query_ids, block, block_scale, bn,
+                           block_ids, carry_d, carry_i, out_d, out_i)))
     return out_d, out_i
 
 
@@ -298,7 +311,7 @@ def block_merge_compress(queries, query_ids, block, block_ids, block_scale,
     return block_merge_compress_staged(
         stage_wire_rows(queries, None), query_ids,
         stage_wire_rows(block, block_scale), block_ids, ov=ov, c_tile=c_tile,
-        exclude_self=exclude_self)
+        exclude_self=exclude_self, dim=queries.shape[1])
 
 
 def stage_wire_rows(rows, scale):
@@ -318,15 +331,20 @@ def stage_wire_rows(rows, scale):
             rows.data_ptr(), scale.data_ptr() if scale is not None else None,
             _WIRE[rows.dtype], out.data_ptr(), norms.data_ptr(), n, d, width,
             stream)
-    _rc(rc, "stage_bf16[wire]")
+    _rc(rc, "stage_bf16[wire]", lambda: dict(
+        operands=(rows, scale), outputs=(out, norms), precision="bf16",
+        bytes=tensor_bytes(rows, scale, out, norms)))
     return out, norms
 
 
 def block_merge_compress_staged(staged_q, query_ids, staged_b, block_ids, *,
                                 ov: int, c_tile: int,
-                                exclude_self: bool = True):
+                                exclude_self: bool = True,
+                                dim: int | None = None):
     """K3b on the card, on the prologue's ((Q, w) bf16, (Q,)) queries and
-    ((b, w) bf16, (b,)) block -> (b // c_tile, Q, ov) int32 positions."""
+    ((b, w) bf16, (b,)) block -> (b // c_tile, Q, ov) int32 positions.
+    ``dim``: the rows' width before staging (default w), the side-band's
+    logical FLOPs 2·Q·b·dim."""
     (qb, qn), (bb, bn) = staged_q, staged_b
     Q, b = qb.shape[0], bb.shape[0]
     shape = (b // c_tile, Q, ov)
@@ -342,7 +360,11 @@ def block_merge_compress_staged(staged_q, query_ids, staged_b, block_ids, *,
             scratch.data_ptr() if scratch is not None else None,
             pos.data_ptr(), Q, b, qb.shape[1], ov, c_tile, int(exclude_self),
             stream)
-    _rc(rc, "fused_block_merge[compress]")
+    _rc(rc, "fused_block_merge[compress]", lambda: dict(
+        operands=(qb, qn, query_ids, bb, bn, block_ids), outputs=(pos, scratch),
+        flops=2 * Q * b * (qb.shape[1] if dim is None else dim),
+        precision="bf16",
+        bytes=tensor_bytes(qb, qn, query_ids, bb, bn, block_ids, pos)))
     return pos
 
 

@@ -67,13 +67,18 @@ import torch
 
 from mpi_knn_tpu_torch.ops import _build
 from mpi_knn_tpu_torch.ops.distance import precision_code, resolve_precision
-from mpi_knn_tpu_torch.ops.fused_knn import split_width, stage_tf32_split_reference
+from mpi_knn_tpu_torch.ops.fused_knn import (
+    PRECISION_FORMS,
+    split_width,
+    stage_tf32_split_reference,
+)
 from mpi_knn_tpu_torch.ops.fused_ring import (
     _WIRE,
     _check,
     block_merge_exact_reference,
     stage_wire_norms,
 )
+from mpi_knn_tpu_torch.utils.op_trace import note_launch, tensor_bytes
 
 LAUNCHES = {"fused_round_dma": 0, "fused_rotation_grid": 0,
             "fused_round_dma[default]": 0, "fused_rotation_grid[default]": 0,
@@ -346,7 +351,9 @@ def stage_round_planes(rows):
                                              d, width, stream)
     if rc != 0:
         raise RuntimeError(f"stage_tf32_split[ring] launch failed: cudaError {rc}")
-    LAUNCHES["stage_tf32_split[ring]"] += 1
+    note_launch(LAUNCHES, "stage_tf32_split[ring]", lambda: dict(
+        operands=(rows,), outputs=(hi, lo, norms), precision="tf32-split",
+        bytes=tensor_bytes(rows, hi, lo, norms)))
     return hi, lo, norms
 
 
@@ -526,8 +533,11 @@ def fused_round_dma(ring: RingTransport, queries, query_ids, blocks, carries,
                    dst_scale=[t[2] for t in land_of], dst_bn=[t[3] for t in land_of],
                    dst_bh=[t[4] for t in land_of], dst_bl=[t[5] for t in land_of],
                    qh=[t[0] for t in qp], ql=[t[1] for t in qp])
+    moved = [tensor_bytes(*(b for b, dst in zip(blocks[r], land_of[r])
+                            if dst is not None)) for r in range(P)]
     _launch_per_card(ring, "round_dma_launch", kernel_name("fused_round_dma", precision),
-                     ranks, queries, blocks, carries, kw, ring.epoch, timeout_s)
+                     ranks, queries, blocks, carries, kw, ring.epoch, timeout_s,
+                     side=(outs, 1, moved))
     return outs
 
 
@@ -573,9 +583,26 @@ def _ranks(ring, queries, query_ids, blocks, carries, outs, qn, **per_rank):
 
 
 def _launch_per_card(ring, fn_name, name, ranks, queries, blocks, carries, kw,
-                     epoch, timeout_s, ring_size=None):
+                     epoch, timeout_s, ring_size=None, *, side):
     """One launch per card over the ranks it holds, then the error check.
-    ``ring_size`` is the whole ring's (default: this call's ranks)."""
+    ``ring_size`` is the whole ring's (default: this call's ranks).
+    ``side`` = (outs, rounds, per rank bytes it sends) for the side-band
+    record: the logical FLOPs of ``rounds`` merges a rank and the wire
+    bytes the kernel moves itself."""
+    outs, rounds, moved = side
+
+    def record(local):
+        return lambda: dict(
+            operands=[t for r in local for t in (queries[r], *blocks[r],
+                                                 *carries[r])],
+            outputs=[t for r in local for t in outs[r]],
+            flops=rounds * sum(2 * queries[r].shape[0] * blocks[r][0].shape[0]
+                               * queries[r].shape[1] for r in local),
+            precision=PRECISION_FORMS[resolve_precision(kw["precision"])],
+            bytes=sum(tensor_bytes(queries[r], *blocks[r], *carries[r], *outs[r])
+                      for r in local),
+            wire_bytes=sum(moved[r] for r in local), ranks=len(local))
+
     lib = _lib()
     fn = getattr(lib, fn_name)
     q0, blk0, (cd0, _) = queries[0], blocks[0][0], carries[0]
@@ -595,7 +622,7 @@ def _launch_per_card(ring, fn_name, name, ranks, queries, blocks, carries, kw,
         if rc != 0:
             ring.flags = None
             raise RuntimeError(f"{name} launch failed on {card}: cudaError {rc}")
-        LAUNCHES[name] += 1
+        note_launch(LAUNCHES, name, record(local))
     ring.raise_on_error(name)
 
 
@@ -674,10 +701,12 @@ def fused_rotation_grid(ring: RingTransport, queries, query_ids, blocks,
                    slot_blk=[s[0] for s in slots], slot_bids=[s[1] for s in slots],
                    slot_bn=[s[3] for s in slots],
                    cbuf_d=[c[0] for c in cbufs], cbuf_i=[c[1] for c in cbufs])
+    rounds = ring_size or P
+    moved = [(rounds - 1) * tensor_bytes(b[0], b[1], b[3]) for b in blocks]
     _launch_per_card(ring, "rotation_grid_launch",
                      kernel_name("fused_rotation_grid", precision),
                      ranks, queries, blocks, carries, kw, ring.calls, timeout_s,
-                     ring_size=ring_size)
+                     ring_size=ring_size, side=(outs, rounds, moved))
     return outs
 
 

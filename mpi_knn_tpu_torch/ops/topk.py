@@ -57,9 +57,12 @@ def _pad_cols(dists, ids, width: int):
 
 
 def _sorted_k(dists, ids, k: int):
-    """k smallest along the last axis by a stable ascending sort."""
+    """k smallest along the last axis by a stable ascending sort. The k
+    columns are copied out: a view would keep the whole sorted row buffer
+    alive as long as the result (a batch's every query tile's, until the
+    batch is stacked)."""
     vals, pos = torch.sort(dists, dim=-1, stable=True)
-    return vals[..., :k], torch.gather(ids, -1, pos[..., :k])
+    return vals[..., :k].contiguous(), torch.gather(ids, -1, pos[..., :k])
 
 
 def _fold_topk(dists, ids, k: int, width: int):

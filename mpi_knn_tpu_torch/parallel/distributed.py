@@ -55,6 +55,7 @@ import torch
 import torch.distributed as dist
 
 from mpi_knn_tpu_torch.device import DEFAULT_DEVICE, resolve_device
+from mpi_knn_tpu_torch.utils.op_trace import note_transfer
 
 log = logging.getLogger("mpi_knn_tpu_torch")
 
@@ -343,6 +344,8 @@ def exchange(sends, recvs) -> Exchange:
     ops, landings, hops = [], [], []
     for t, peer, tag in sends:
         EXCHANGES["bytes_sent"] += t.numel() * t.element_size()
+        note_transfer("collective", op="send", peer=peer,
+                      bytes=t.numel() * t.element_size())
         t = _nccl_side(t)
         ops.append(dist.P2POp(dist.isend, t, peer, group=_group_of(t), tag=tag))
     if staged:
@@ -379,6 +382,8 @@ def all_gather_rows(t: torch.Tensor) -> torch.Tensor:
     p = _require_pod()
     src = _nccl_side(t)
     parts = [torch.empty_like(src) for _ in range(p.num_processes)]
+    note_transfer("collective", op="all_gather",
+                  bytes=src.numel() * src.element_size())
     dist.all_gather(parts, src, group=_group_of(src))
     return torch.cat(parts).to(t.device)
 
@@ -389,6 +394,8 @@ def all_to_all_rows(t: torch.Tensor) -> torch.Tensor:
     shape, on its device."""
     src = _nccl_side(t)
     out = torch.empty_like(src)
+    note_transfer("collective", op="all_to_all",
+                  bytes=src.numel() * src.element_size())
     dist.all_to_all_single(out, src, group=_group_of(src))
     return out.to(t.device)
 
@@ -480,6 +487,7 @@ def broadcast_host(a: np.ndarray, src: int = 0) -> np.ndarray:
     """Process ``src``'s array on every process; the others pass an array
     of the same shape and dtype (host memory, gloo)."""
     t = torch.from_numpy(np.ascontiguousarray(a))
+    note_transfer("collective", op="broadcast", bytes=t.numel() * t.element_size())
     dist.broadcast(t, src=src)
     return t.numpy()
 

@@ -12,7 +12,7 @@ one JSON line with exit status 0 / 1::
     python -m mpi_knn_tpu_torch doctor --timeout 30      # beat-starvation bound
     python -m mpi_knn_tpu_torch doctor --cache-dir DIR   # + the cache round trip
 
-The child prints five lines, which the supervisor folds into the verdict:
+The child prints six lines, which the supervisor folds into the verdict:
 
 1. the device probe: one launch of K1 (``fused_knn_tiles``) on a 512×32
    corpus of small-integer values, held bit for bit against its plain
@@ -23,25 +23,32 @@ The child prints five lines, which the supervisor folds into the verdict:
 3. with a cache directory (``--cache-dir`` or ``TKNN_AOT_CACHE``), the
    cache's store / load round trip through the production entry format,
    on a card with the probe's own library (written back out and loaded);
-4. the plan line: the capacity planner (``plan.py``) plans a tiny corpus
+4. the memory line (below);
+5. the plan line: the capacity planner (``plan.py``) plans a tiny corpus
    (m 4096, d 64, k 10, recall 0.9, bucket 256) against this device's
    shipped profile (``cpu-test`` off the map, as in the reference), and
    its predicted peak bytes must cover the probe's measured peak: on a
    card ``torch.cuda.max_memory_allocated`` around the K1 probe, reset
    before it; on the CPU the probe's tensor bytes;
-5. the mutation probe: a throwaway 64-row clustered index takes upsert →
+6. the mutation probe: a throwaway 64-row clustered index takes upsert →
    query → delete → query twice; the second pass must build nothing, an
    upserted id must be found and a deleted one never come back.
 
 ``--platform auto`` is the card (the port's default device): a host whose
 card is missing or broken fails the probe; it never probes the CPU in its
-place. The reference's memory line (``doctor.py:141-165``) stands on its
-liveness analysis of compiled HLO, which the port does not have yet
-(ROADMAP A.5c): the verdict leaves it out.
+place.
+
+The memory line (the reference's ``doctor.py:141-165``) follows the device
+probe: the K1 launch is recorded (``utils/op_trace.py``) and its
+live-bytes peak held, on a card, against ``torch.cuda.max_memory_allocated``
+growth around the same launch within R7's band
+(``analysis/memory.ALLOCATOR_BAND``), and on the CPU, where the measured
+figure is null, against the memory model's step within R7's model band.
 
 Verdict schema: ``{"ok": bool, "status": "ok"|"timeout"|"crashed",
 "probe": {...} | null, "metrics": <registry snapshot> | null,
-"aot_cache": {...} | null, "plan": {...} | null, "mutation": {...} | null,
+"aot_cache": {...} | null, "memory": {...} | null, "plan": {...} | null,
+"mutation": {...} | null,
 "beats": N,
 "last_beat": label, "elapsed_s": s, "reason": str|null,
 "stderr_tail": str|null, "flight": <banked span summary> | null}``.
@@ -81,6 +88,7 @@ def _probe_child(platform: str, cache_dir: str | None = None) -> int:
     from mpi_knn_tpu_torch.obs.metrics import get_registry
     from mpi_knn_tpu_torch.ops import fused_knn
     from mpi_knn_tpu_torch.serve import aotcache
+    from mpi_knn_tpu_torch.utils.op_trace import record
 
     maybe_beat("torch-import")
     dev = resolve_device(DEFAULT_DEVICE if platform == "auto" else platform)
@@ -98,12 +106,14 @@ def _probe_child(platform: str, cache_dir: str | None = None) -> int:
         torch.cuda.reset_peak_memory_stats(dev)
         base = torch.cuda.memory_allocated(dev)
     t0 = time.perf_counter()
-    gd, gi = fused_knn.fused_knn_tiles(X, X, 512, 4, 128, 256)
+    (gd, gi), trace = record(lambda: fused_knn.fused_knn_tiles(
+        X, X, 512, 4, 128, 256), dev.type)
+    growth = None
     if card:
         torch.cuda.synchronize(dev)
+        growth = torch.cuda.max_memory_allocated(dev) - base
         # the probe's peak: its corpus was allocated before the reset
-        probe_peak = (torch.cuda.max_memory_allocated(dev) - base
-                      + X.numel() * X.element_size())
+        probe_peak = growth + X.numel() * X.element_size()
     else:
         probe_peak = sum(t.numel() * t.element_size() for t in (X, gd, gi))
     probe_s = time.perf_counter() - t0
@@ -135,6 +145,8 @@ def _probe_child(platform: str, cache_dir: str | None = None) -> int:
         # stats after the round trip, so the count includes its entry
         print(json.dumps({"aot_cache": {**cache.stats(), **rt}}), flush=True)
         maybe_beat("aot-cache-done")
+    maybe_beat("memory-probe")
+    print(json.dumps({"memory": _memory_probe(trace, growth)}), flush=True)
     maybe_beat("plan-probe")
     print(json.dumps({"plan": _plan_probe(dev, probe_peak)}), flush=True)
     maybe_beat("plan-done")
@@ -142,6 +154,31 @@ def _probe_child(platform: str, cache_dir: str | None = None) -> int:
     print(json.dumps({"mutation": _mutation_probe(dev)}), flush=True)
     maybe_beat("mutation-done")
     return 0
+
+
+def _memory_probe(trace, growth) -> dict:
+    """The memory line (the reference's ``doctor.py:141-165``): the K1
+    probe's recorded live-bytes peak (``utils/op_trace.py``, R7's
+    figure), held on a card against the caching allocator's peak growth
+    around the same launch within R7's band, and on the CPU (where
+    nothing is measured) against the port's model of a (Q, c_tile) step
+    of the plain kernel (``analysis/memory.dense_step_peak``) within R7's
+    model band."""
+    from mpi_knn_tpu_torch.analysis import memory
+
+    peak = trace.peak_alloc
+    if growth is not None:
+        lo = peak - memory.ALLOCATOR_BAND[0]
+        hi = peak + memory.ALLOCATOR_BAND[1]
+        return {"ok": bool(lo <= growth <= hi), "trace_peak_bytes": peak,
+                "measured_bytes": growth, "model_bytes": None,
+                "band": [lo, hi]}
+    # the probe: Q = 512 queries against 2 corpus tiles of 256, k = 4
+    model = memory.dense_step_peak(512, 256, 4, 2)
+    lo, hi = (f * model for f in memory.MODEL_BAND)
+    return {"ok": bool(lo <= peak <= hi), "trace_peak_bytes": peak,
+            "measured_bytes": None, "model_bytes": model,
+            "band": [int(lo), int(hi)]}
 
 
 def _plan_probe(dev, probe_peak: int) -> dict:
@@ -259,12 +296,14 @@ def run_probe(
     aot = lines.get("aot_cache")
     plan = lines.get("plan")
     mutation = lines.get("mutation")
+    memory = lines.get("memory")
     healthy = (
         probe is not None and probe["agrees_with_plain"]
         and (probe["platform"] == "cpu" or probe["launches"] == 1)
         and (aot is None or (aot["store_ok"] and aot["load_ok"]
                              and aot["bit_identical"]
                              and aot.get("dlopen_ok", True)))
+        and memory is not None and memory["ok"]
         and plan is not None and plan["ok"]
         and mutation is not None and mutation["ok"]
     )
@@ -275,6 +314,9 @@ def run_probe(
         "probe": probe,
         "metrics": lines.get("metrics"),
         "aot_cache": aot,
+        # the probe's recorded peak against the allocator (card) or the
+        # model (CPU)
+        "memory": memory,
         # the capacity planner's round trip: a feasible tiny-corpus plan
         # whose predicted peak covers the probe's measured one
         "plan": plan,

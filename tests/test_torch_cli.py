@@ -316,12 +316,21 @@ def test_profile_writes_a_trace(tmp_path):
     assert trace["traceEvents"]
 
 
-@pytest.mark.parametrize("sub", port_cli.UNPORTED_SUBCOMMANDS)
-def test_unported_subcommands_exit_2_by_name(sub, capsys):
-    assert port_cli.main([sub, "--anything"]) == 2
-    err = capsys.readouterr().err
-    assert f"'{sub}'" in err and "not yet ported to mpi_knn_tpu_torch" in err
-    assert "A.5c" in err and "lint --host" in err
+def test_every_subcommand_is_ported():
+    assert port_cli.UNPORTED_SUBCOMMANDS == ()
+
+
+@pytest.mark.parametrize("sub", ["lint"])
+def test_lint_runs_through_the_run_cli(sub, tmp_path, capsys):
+    """``lint`` (once refused by name) runs its matrix: a filtered sweep on
+    the CPU exits 0 and writes its report."""
+    assert port_cli.main([sub, "--device", "cpu", "--backend", "serial",
+                          "--metric", "l2", "--dtype", "float64", "--out",
+                          str(tmp_path)]) == 0
+    assert "0 finding(s) on cpu" in capsys.readouterr().out
+    doc = json.loads((tmp_path / "report.json").read_text())
+    assert doc["ok"] and [t["label"] for t in doc["targets"]] == [
+        "serial/l2/float64"]
 
 
 def test_process_id_alone_is_refused_in_the_reference_words(monkeypatch):

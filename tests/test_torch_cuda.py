@@ -1857,6 +1857,9 @@ def test_the_doctor_on_the_card_and_a_supervisor_that_never_touches_it(
     assert v["probe"]["launches"] == 1 and v["probe"]["agrees_with_plain"]
     assert v["aot_cache"]["dlopen_ok"] and v["aot_cache"]["bit_identical"]
     assert v["mutation"]["ok"] and v["mutation"]["second_pass_builds"] == 0
+    # the memory line: the recorded K1 probe against the allocator
+    assert v["memory"]["ok"] and v["memory"]["model_bytes"] is None
+    assert v["memory"]["band"][0] <= v["memory"]["measured_bytes"] <= v["memory"]["band"][1]
 
 
 # ---------------------------------------------------------------------------
@@ -2444,3 +2447,41 @@ def test_multiproc_sharded_mutation_across_cards(cuda_device, monkeypatch):
     cs = _sm_small(monkeypatch)
     _build.build_all()
     cs.sharded_mutation_cards([torch.device("cuda", c) for c in range(4)])
+
+
+# ---------------------------------------------------------------------------
+# the lint on the card
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("label,overrides,kernel", [
+    ("pallas/l2/float32", None, "fused_knn_tiles"),
+    ("pallas/l2/float32/mixed", None, "fused_knn_tiles[compress]"),
+    ("ring-overlap/l2/float32/fused", None, "fused_round_dma"),
+    ("ring-overlap/l2/float32/mixed/fused", None, "fused_block_merge[compress]"),
+    ("ring-overlap/l2/float32/bidir/fused", None, "fused_block_merge[exact]"),
+    ("ivf/l2/float32/mixed/int8/serve", None, None),
+    ("pallas/l2/float32", {"pallas_variant": "sweep"}, "fused_knn_sweep"),
+    ("pallas/l2/float32/mixed", {"pallas_variant": "sweep"},
+     "fused_knn_sweep[compress]"),
+    ("ring-overlap/l2/float32/fused", {"ring_fused_rotation": "grid"},
+     "fused_rotation_grid"),
+    ("serial/l2/float32", {"topk_method": "approx"}, "approx_min_k")])
+def test_lint_cells_on_the_card(cuda_device, label, overrides, kernel):
+    """A cell of each kernel the matrix reaches, and the variants that
+    reach the rest, on the hand kernels: no finding, the kernel launched,
+    the side-band's FLOPs inside the counted ones that equal the closed
+    form, the allocator's growth inside R7's band."""
+    from mpi_knn_tpu_torch.analysis import engine, lowering
+    from mpi_knn_tpu_torch.analysis.memory import ALLOCATOR_BAND
+
+    (target,) = [t for t in lowering.default_targets() if t.label == label]
+    res = engine.lint_target(target, device=cuda_device, overrides=overrides)
+    assert res.findings == [] and res.stages == ["cuda"]
+    assert kernel is None or res.launches.get(kernel, 0) > 0
+    assert res.cost["mxu_flops"] == res.cost["analytical_flops"]
+    # the product kernels' side-band FLOPs (the bin minimum has none)
+    assert (res.cost["kernel_flops"] > 0) == label.startswith(("pallas", "ring"))
+    m = res.memory
+    assert (m["peak_alloc_bytes"] - ALLOCATOR_BAND[0] <= m["measured_bytes"]
+            <= m["peak_alloc_bytes"] + ALLOCATOR_BAND[1])

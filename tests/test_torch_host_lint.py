@@ -500,7 +500,9 @@ def test_host_rule_filter_and_usage_error(tmp_path):
 
 def test_package_main_routes_lint_without_torch(tmp_path):
     """``python -m mpi_knn_tpu_torch lint --host`` exits 0 writing its own
-    report; ``lint`` alone exits 2 naming A.5c; neither loads torch."""
+    report and loads no torch; ``lint`` without ``--host`` runs the rule
+    matrix (a filtered CPU sweep exits 0 with its report), and refuses
+    ``--cache-dir`` by name."""
     out = tmp_path / "lint"
     probe = ("import runpy, sys; sys.argv = ['mpi_knn_tpu_torch'] + "
              "sys.argv[1:]\ntry:\n    runpy.run_module('mpi_knn_tpu_torch', "
@@ -513,10 +515,17 @@ def test_package_main_routes_lint_without_torch(tmp_path):
     assert ok.returncode == 0, ok.stderr
     assert ok.stdout.split() == ["False", "False"]
     assert json.loads((out / "host_report.json").read_text())["ok"]
-    bad = subprocess.run([sys.executable, "-m", "mpi_knn_tpu_torch", "lint"],
-                         cwd=REPO, capture_output=True, text=True,
-                         timeout=120)
-    assert bad.returncode == 2 and "A.5c" in bad.stderr
+    rules = tmp_path / "rules"
+    run = subprocess.run(
+        [sys.executable, "-m", "mpi_knn_tpu_torch", "lint", "--device", "cpu",
+         "--backend", "ivf", "--mutate", "delete", "-q", "--out", str(rules)],
+        cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert run.returncode == 0, run.stderr
+    assert json.loads((rules / "report.json").read_text())["ok"]
+    bad = subprocess.run([sys.executable, "-m", "mpi_knn_tpu_torch", "lint",
+                          "--cache-dir", str(tmp_path)], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert bad.returncode == 2 and "--cache-dir" in bad.stderr
 
 
 def test_committed_report_is_the_sweep():

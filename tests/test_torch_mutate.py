@@ -29,12 +29,12 @@ JAX package beside them: the same mutations give the same counters and
 gauges in both registries, and the port's flight record passes both
 packages' validators.
 
-Waiting for their slices (ROADMAP.md): the restart against a warm cache
-(``test_zero_compiles_after_restart_with_warm_cache``: no kernel lies on
-the mutation path, so the port's cache of kernel libraries has nothing to
-restart there; ``tests/test_torch_aotcache.py`` holds the cache) and the
-compile counts (``test_zero_compiles_under_sustained_ragged_churn``; the
-doctor's mutation probe counts the builds of a second pass).
+The reference's zero-compile cases are ported under their names: the
+same ragged churn after ``warm_mutation`` builds no kernel and no engine
+entry (``obs/metrics.watch_compiles``), and a fresh index beside a kernel
+cache that an earlier index mutated with builds nothing and warns nothing
+(no kernel lies on the mutation path; ``tests/test_torch_aotcache.py``
+holds the cache itself).
 
 The reference's sharded-store cases (``test_s1_sharded_mutation_bit_identical``,
 ``test_sharded_mutation_and_compact``,
@@ -1234,3 +1234,73 @@ def test_cli_cache_dir_mutates_with_the_cache_on(saved, capsys):
     for g in got + want:
         g.pop("path", None)
     assert got == want
+
+
+# ---------------------------------------------------------------------------
+# zero steady-state compiles (the reference's tests/test_mutation.py:244,
+# :278)
+
+
+def test_zero_compiles_under_sustained_ragged_churn(rng):
+    """After ``warm_mutation`` and the reference's warm-up round, the same
+    ragged churn (upserts, batches, deletes of 3, 17, 32, 1, 29 and 8
+    rows) builds no kernel and no new engine entry, with the reference's
+    upsert and call counts."""
+    from mpi_knn_tpu_torch.obs.metrics import watch_compiles
+
+    X, cents = _blobs(rng, m=384)
+    idx = _ivf(X)
+    ses = ServeSession(idx, device=CPU)
+    ses.warm([32])
+    sm.warm_mutation(idx)
+    ses.upsert(np.arange(5000, 5010),
+               rng.standard_normal((10, 16)).astype(np.float32))
+    ses.submit(rng.standard_normal((20, 16)).astype(np.float32))
+    ses.drain()
+    ses.delete(np.arange(5000, 5005))
+    ses.reset_stats()
+    nid = 100000
+    with watch_compiles() as counts:
+        for n in (3, 17, 32, 1, 29, 8):
+            ses.upsert(np.arange(nid, nid + n),
+                       (cents[rng.integers(0, 8, n)]
+                        + rng.standard_normal((n, 16))).astype(np.float32))
+            ses.submit(rng.standard_normal(
+                (max(1, n % 21), 16)).astype(np.float32))
+            ses.delete(np.arange(nid, nid + max(1, n // 2)))
+            nid += n
+        ses.drain()
+        assert counts == [], f"churn compiled {counts}"
+    st = ses.stats_snapshot()["mutation"]
+    assert st["upserts"] == 90 and st["calls"] == 12
+
+
+def test_zero_compiles_after_restart_with_warm_cache(rng, tmp_path):
+    """The restart half: a fresh index of the same shapes, with a kernel
+    cache that an earlier index's mutations and compaction ran beside,
+    mutates with no build (no kernel lies on the mutation path, so the
+    cache is never read) and no warning."""
+    import warnings
+
+    from mpi_knn_tpu_torch.obs.metrics import watch_compiles
+    from mpi_knn_tpu_torch.serve import aotcache
+
+    aotcache.reset_for_tests()
+    aotcache.set_cache_dir(tmp_path / "aot")
+    try:
+        X, _ = _blobs(rng)
+        a = _ivf(X)
+        sm.upsert_rows(a, np.arange(1000, 1010),
+                       rng.standard_normal((10, 16)).astype(np.float32))
+        sm.delete_rows(a, [1000])
+        sm.compact_index(a, reason="seed-cache")
+        b = _ivf(X)
+        with warnings.catch_warnings():
+            warnings.simplefilter("error")
+            with watch_compiles() as counts:
+                sm.upsert_rows(b, np.arange(2000, 2010),
+                               rng.standard_normal((10, 16)).astype(np.float32))
+                sm.delete_rows(b, [2000])
+            assert counts == []
+    finally:
+        aotcache.reset_for_tests()

@@ -495,6 +495,11 @@ def test_doctor_healthy_on_the_cpu():
     assert v["ok"] is True and v["status"] == "ok", v
     assert v["probe"]["platform"] == "cpu" and v["probe"]["agrees_with_plain"]
     assert v["mutation"]["ok"] and v["mutation"]["second_pass_builds"] == 0
+    # the memory line: on the CPU the recorded peak against the model
+    mem = v["memory"]
+    assert mem["ok"] and mem["measured_bytes"] is None
+    assert mem["band"][0] <= mem["trace_peak_bytes"] <= mem["band"][1]
+    assert mem["model_bytes"] > 0
     assert v["aot_cache"] is None and v["beats"] >= 5
     snap = v["metrics"]["metrics"]
     assert snap["doctor_kernel_launches_total"]["value"] == 0  # the plain version
