@@ -2,7 +2,8 @@
 """On-card smoke test of the PyTorch/CUDA port (mpi_knn_tpu_torch).
 
     python3 chip_smoke.py        # needs one CUDA card; builds csrc/ with nvcc
-    python3 chip_smoke.py --multiproc-cards   # four cards: the 2 x 2 pod timed
+    python3 chip_smoke.py --multiproc-cards   # four cards: the 2 x 2 pod timed,
+                                              # and told apart into two hosts
 
 Phases, each printing one JSON line; any failure raises, so the exit code
 is not 0:
@@ -191,8 +192,8 @@ is not 0:
    rung, nothing built after warm, K1 and K1[c] launched; the registry's
    counters equal to the session's own and its Prometheus text re-parsed;
    the flight records valid; three restarted children on one persistent
-   kernel cache (cold: every library built by nvcc and stored; warm: none
-   built; a truncated entry: rebuilt loudly), their results bit for bit
+   kernel cache (cold: each library they load built by nvcc and stored;
+   warm: none built; a truncated entry: rebuilt loudly), their results bit for bit
    and their seconds to the first answer; the doctor on the card (its
    plan line ok: the tiny corpus's predicted peak over the K1 probe's
    measured one) and with an injected hang (its supervisor never
@@ -262,6 +263,17 @@ is not 0:
    (K4 and K5 as the single process's, per-rank kernels and --dp half),
    the boundary's moves, and K5's ms a process beside the single
    process's, within a quarter of its waits' bound;
+17b. multiproc_hosts (``multiproc_hosts_phase``): the same 2 x 2 pod on
+   the one card with each worker reporting a host of its own, so both
+   boundary links of every process are proxy links: K5 over the host
+   proxy (the last rank's stores into an outbox and a mirror row on its
+   card, a proxy thread moving each hop over gloo during the one launch).
+   Each process bit for bit the single-process K5 ring and the IPC form,
+   recall@10 >= 0.999, 1 K5 launch a process, no CUDA IPC mapping, the
+   proxy's bytes 3 hops of block + ids + norms each way, the call within a
+   quarter of its waits' bound; device-input ms beside the IPC form's and
+   the single process's, and ms a hop by part (copy out, gloo, copy in,
+   flag);
 18. sharded_mutation (``sharded_mutation_phase``): the sharded store
    mutated, compacted and served across two processes of the one card,
    bit for bit the one-process store;
@@ -405,6 +417,37 @@ def sass_mma_counts(lib_path) -> dict:
 
 def emit(obj):
     print(json.dumps(obj), flush=True)
+
+
+def f64_oracle(corpus, sample, queries=None, rtol=0.0):
+    """f64 ids of the k nearest ``corpus`` rows of the rows ``sample`` of
+    ``queries`` (default: of ``corpus``): each row's own id excluded
+    (leave-one-out), and zero distance (d <= rtol (q^2 + c^2), or d <= 1e-9
+    when rtol is 0), ties to the lower id."""
+    c = corpus.astype(np.float64)
+    q = (c if queries is None else queries.astype(np.float64))[sample]
+    q_sq, c_sq = (q ** 2).sum(1)[:, None], (c ** 2).sum(1)[None, :]
+    d = q_sq + c_sq - 2.0 * (q @ c.T)
+    d[d <= (rtol * (q_sq + c_sq) if rtol else 1e-9)] = np.inf
+    d[np.arange(len(sample)), sample] = np.inf
+    return np.argsort(d, axis=1, kind="stable")[:, :K]
+
+
+def f64_recall(X):
+    """The recall@10 yardstick of a leave-one-out run over ``X``: a function
+    of a result's ids that reads its 256 evenly spaced rows against
+    :func:`f64_oracle` (or against ``want``, ids of those rows)."""
+    import torch
+
+    sample = np.linspace(0, len(X) - 1, num=256, dtype=np.int64)
+    want_ids = f64_oracle(X, sample)
+
+    def recall(ids, want=want_ids) -> float:
+        got = ids[torch.as_tensor(sample, device=ids.device)].cpu().numpy()
+        return float((want[:, :, None] == got[:, None, :]).any(-1).mean())
+
+    recall.sample = sample
+    return recall
 
 
 def nvidia_smi_line() -> str:
@@ -2686,6 +2729,10 @@ OPS_SLOW_S = 0.15  # an injected slow dispatch: 0.15 s > the deadline
 OPS_WALK = 8  # slow batches of the pallas walk (the IVF walk takes 2 more)
 OPS_RESTART_BATCHES = 4  # batches a restarted child serves
 OPS_TRUNCATED = "approx_topk"  # the library whose entry the third child finds cut
+# the libraries a restarted child loads before it serves: the served pallas
+# index's (K1, K1[c] and their prologues) and the one the third child finds
+# cut; the ring's libraries, which it never loads, stay out of its nvcc time
+OPS_LIBRARIES = ("fused_knn", OPS_TRUNCATED)
 
 # A restarted process: the cache at argv[1], the corpus and queries saved
 # at argv[2]; loads every kernel library (through the cache), builds the
@@ -2701,13 +2748,13 @@ from mpi_knn_tpu_torch.obs.metrics import get_registry
 from mpi_knn_tpu_torch.ops import _build
 from mpi_knn_tpu_torch.serve import ServeSession, aotcache, build_index
 
-cache_dir, data_dir, device, k, bucket, batch, nb = sys.argv[1:8]
+cache_dir, data_dir, device, k, bucket, batch, nb, libs = sys.argv[1:9]
 aotcache.set_cache_dir(cache_dir)
 dev = torch.device(device)
 torch.zeros(1, device=dev)
 t_device = time.perf_counter()
 if dev.type == "cuda":
-    _build.load_all([(name, ()) for name in _build.SOURCES])
+    _build.load_all([(name, ()) for name in libs.split(",")])
 t_libs = time.perf_counter()
 X = np.load(data_dir + "/X.npy")
 Q = np.load(data_dir + "/Q.npy")
@@ -2842,9 +2889,10 @@ def ops_phase(device, X, inputs, keep_cache=None) -> None:
     - the registry's counters equal that session's own (batches, queries,
       retries, breaches, degradations, poisoned), and its snapshot
       round-trips the Prometheus text;
-    - the cache: three children with one cache directory, cold (every
-      library built by nvcc and stored), warm (no build, one hit a
-      library) and, on a copy, with the OPS_TRUNCATED entry cut in half
+    - the cache: three children with one cache directory, each loading
+      OPS_LIBRARIES before it serves: cold (each built by nvcc and
+      stored), warm (no build, one hit a library) and, on a copy, with
+      the OPS_TRUNCATED entry cut in half
       (one error, that library rebuilt); their results bit for bit; the
       seconds to the first answer;
     - the doctor on the card, while the cold child builds (ok, K1's launch
@@ -2889,7 +2937,8 @@ def ops_phase(device, X, inputs, keep_cache=None) -> None:
         np.save(os.path.join(tmp, "X.npy"), X)
         np.save(os.path.join(tmp, "Q.npy"), Qs[:OPS_RESTART_BATCHES * OPS_BATCH])
         cache_a, cache_b = os.path.join(tmp, "cache_a"), os.path.join(tmp, "cache_b")
-        child_args = (tmp, platform, K, SERVE_BUCKET, OPS_BATCH, OPS_RESTART_BATCHES)
+        child_args = (tmp, platform, K, SERVE_BUCKET, OPS_BATCH, OPS_RESTART_BATCHES,
+                      ",".join(OPS_LIBRARIES))
         t_cold = time.perf_counter()
         cold = ops_start(OPS_CHILD, cache_a, *child_args)
         children.append(cold)
@@ -3053,7 +3102,7 @@ def ops_phase(device, X, inputs, keep_cache=None) -> None:
         (warm_doc,) = ops_wait(warm, "warm child")
         here = ops_digest(list(plain.stream(
             [Qs[i * OPS_BATCH:(i + 1) * OPS_BATCH] for i in range(OPS_RESTART_BATCHES)])))
-        n_libs = len(_build.SOURCES)
+        n_libs = len(OPS_LIBRARIES)
         emit({"phase": "ops_cache", "cold": cold_doc, "warm": warm_doc,
               "cold_child_wall_s": cold_s, "libraries": n_libs,
               "equals_this_process": cold_doc["digest"] == here})
@@ -4118,6 +4167,14 @@ MP_RANK_EXCHANGES = {"fused-dma/K4": MP_P - 1,
                      "dp2/fused-dma/K4": 0, "dp2/fused-grid/K5": 0}
 # the resumable ring at P = MP_P stopped after one round, then resumed:
 # rounds 2 .. P-1 one K4 launch each (one card), the last K3a once a rank
+# the grid form over the 2 x MP_RANKS pod told apart into two hosts (each
+# worker reports a host of its own): K5 over the host proxy at both
+# boundaries, one launch a process, the boundary's hops moved by the proxy
+MP_HOSTS_FORM = ("fused-grid/K5",
+                 {"ring_fusion": "fused", "ring_fused_rotation": "grid"})
+MP_HOSTS = ("mp-host-0", "mp-host-1")
+# four processes of one rank on two hosts: each has an "ipc" and a proxy link
+MP_HOSTS_MIXED = ("mp-host-0", "mp-host-0", "mp-host-1", "mp-host-1")
 MP_RANK_RESUMABLE = {
     "stopped": {"fused_round_dma": 1, "stage_tf32_split[ring]": 2 * MP_RANKS},
     "resumed": {"fused_round_dma": MP_P - 2, "fused_block_merge[exact]": MP_RANKS,
@@ -4150,6 +4207,12 @@ def multiproc_worker() -> int:
     out_dir, m = os.environ["MP_DIR"], int(os.environ["MP_M"])
     stop = int(os.environ.get("MP_STOP", "1"))
     ranks = int(os.environ.get("MP_RANKS", "1"))
+    told_apart = os.environ.get("MP_HOSTS")
+    if told_apart:  # the host this worker reports (the package has no switch)
+        import socket
+
+        host = told_apart.split(",")[int(os.environ["JAX_PROCESS_ID"])]
+        socket.gethostname = lambda: host
     # "cpu" rehearses the pod on the kernels' plain versions
     info = distributed.init_multihost(timeout_seconds=120,
                                       device=os.environ.get("MP_DEVICE", "cuda"),
@@ -4208,32 +4271,65 @@ def multiproc_worker() -> int:
         arrays[f"{prefix}{MP_RESUMABLE}/ids"] = i.cpu().numpy()
         arrays[f"{prefix}{MP_RESUMABLE}/dists"] = d.cpu().numpy()
 
+    def hosts_k5(Xd, mesh):
+        """The grid form over the pod told apart into hosts: K5 over the
+        host proxy at both boundaries (MP_HOSTS_FORM), a first call with
+        the counts set to 0 just before it, then a timed one."""
+        from mpi_knn_tpu_torch.backends.ring import ProcessSpan
+        from mpi_knn_tpu_torch.parallel import hostlink, ipc
+
+        label, over = MP_HOSTS_FORM
+        cfg = KNNConfig(k=K, backend="ring-overlap", **over)
+        reset_counts()
+        hostlink.reset_proxy_stats()
+        got = all_knn(Xd, config=cfg, mesh=mesh, device=dev)
+        sync()
+        counts = {n: c for n, c in read_counts().items() if c}
+        first = dict(hostlink.PROXY)
+        hostlink.reset_proxy_stats()
+        t0 = time.perf_counter()
+        all_knn(Xd, config=cfg, mesh=mesh, device=dev)
+        sync()
+        ms = 1e3 * (time.perf_counter() - t0)
+        res["hosts"] = {label: {
+            "launches": counts, "device_input_ms": ms,
+            "gather_ms": 1e3 * distributed.pod().gather_seconds,
+            "link_kinds": list(ProcessSpan(mesh).link_kinds()),
+            "ipc_mappings": len(ipc._MAPPINGS), "proxy_first": first,
+            "proxy": dict(hostlink.PROXY)}}
+        arrays[f"hosts/{label}/ids"] = got.ids.cpu().numpy()
+        arrays[f"hosts/{label}/dists"] = got.dists.cpu().numpy()
+
     try:
         X, _ = make_mnist_like(m)
         Xd = torch.from_numpy(X).to(dev)
-        mesh = make_ring_mesh(1, device=dev)
-        forms(Xd, mesh, MP_FORMS, res["forms"])
-        resumable(Xd, mesh, stop, res["forms"])
-        if ranks > 1:
-            mesh = make_ring_mesh(ranks, device=dev)
-            forms(Xd, mesh, MP_RANK_FORMS, res["ranks"], "ranks/")
-            resumable(Xd, mesh, 1, res["ranks"], "ranks/")
-            grid = make_mesh2d(MP_DP, ranks * info["num_processes"] // MP_DP,
-                               device=dev)
-            forms(Xd, grid, MP_DP_FORMS, res["ranks"], "ranks/")
-        if os.environ.get("MP_IVF"):
-            from mpi_knn_tpu_torch.ivf import (
-                load_ivf_index,
-                search_ivf_sharded,
-                shard_ivf_index,
-            )
+        if told_apart:
+            hosts_k5(Xd, make_ring_mesh(ranks, device=dev))
+        else:
+            mesh = make_ring_mesh(1, device=dev)
+            forms(Xd, mesh, MP_FORMS, res["forms"])
+            resumable(Xd, mesh, stop, res["forms"])
+            if ranks > 1:
+                mesh = make_ring_mesh(ranks, device=dev)
+                forms(Xd, mesh, MP_RANK_FORMS, res["ranks"], "ranks/")
+                resumable(Xd, mesh, 1, res["ranks"], "ranks/")
+                grid = make_mesh2d(MP_DP, ranks * info["num_processes"] // MP_DP,
+                                   device=dev)
+                forms(Xd, grid, MP_DP_FORMS, res["ranks"], "ranks/")
+            if os.environ.get("MP_IVF"):
+                from mpi_knn_tpu_torch.ivf import (
+                    load_ivf_index,
+                    search_ivf_sharded,
+                    shard_ivf_index,
+                )
 
-            idx = load_ivf_index(os.path.join(out_dir, "index.npz"), device=dev)
-            Q = np.load(os.path.join(out_dir, "queries.npy"))
-            sidx = shard_ivf_index(idx, mesh=make_ring_mesh(1, device=dev))
-            sd, si, stats = search_ivf_sharded(sidx, Q, device=dev)
-            arrays["ivf/ids"], arrays["ivf/dists"] = si.cpu().numpy(), sd.cpu().numpy()
-            arrays["ivf/stats"] = stats.cpu().numpy()
+                idx = load_ivf_index(os.path.join(out_dir, "index.npz"), device=dev)
+                Q = np.load(os.path.join(out_dir, "queries.npy"))
+                sidx = shard_ivf_index(idx, mesh=make_ring_mesh(1, device=dev))
+                sd, si, stats = search_ivf_sharded(sidx, Q, device=dev)
+                arrays["ivf/ids"] = si.cpu().numpy()
+                arrays["ivf/dists"] = sd.cpu().numpy()
+                arrays["ivf/stats"] = stats.cpu().numpy()
     finally:
         distributed.shutdown()
     with open(os.path.join(out_dir, f"worker-{pid}.json"), "w") as f:
@@ -4334,7 +4430,10 @@ def multiproc_phase(device, X, recall, ranks: int = 1):
     form's boundary moves MP_EXCHANGES. With ``ranks`` > 1 the same pod
     also drives ``ranks`` ranks a process (:func:`multiproc_ranks_gates`).
     Returns the launches of process 0 by kernel, summed over the forms, of
-    the one-rank pod and of the pod of ``ranks`` ranks a process."""
+    the one-rank pod and of the pod of ``ranks`` ranks a process, and (with
+    ``ranks`` > 1) the grid form's references for
+    :func:`multiproc_hosts_phase`: the single-process ring's (ids, dists,
+    ms) and the IPC form's (ids, dists, ms a process, launches)."""
     import torch
 
     t_phase = time.perf_counter()
@@ -4381,7 +4480,148 @@ def multiproc_phase(device, X, recall, ranks: int = 1):
         rank_totals = multiproc_ranks_gates(got, single_ranks, recall, ranks,
                                             rank_dirs)
     emit({"phase": "multiproc_done", "seconds": time.perf_counter() - t_phase})
-    return totals, rank_totals
+    k5 = None
+    if ranks > 1:  # the single-process K5 ring and the IPC form, for multiproc_hosts
+        label = MP_HOSTS_FORM[0]
+        wi, wd, wcounts, wms = single_ranks[label]
+        k5 = {"single": (wi, wd, wms, wcounts),
+              "ipc": (got[0][1][f"ranks/{label}/ids"],
+                      got[0][1][f"ranks/{label}/dists"],
+                      [doc["ranks"][label]["device_input_ms"] for doc, _, _ in got],
+                      got[0][0]["ranks"][label]["launches"])}
+    return totals, rank_totals, k5
+
+
+def multiproc_hosts_phase(X, recall, k5, cards=None, hosts=MP_HOSTS) -> dict:
+    """The grid form across hosts: the main shape through a pod of
+    len(hosts) processes whose workers report the hosts ``hosts`` (env
+    ``MP_HOSTS``), MP_P ranks in all. With the default two hosts (2 x 2)
+    both boundary links of each process are proxy links; with
+    MP_HOSTS_MIXED (4 x 1) each process has one "ipc" link and one proxy
+    link. K5 runs over the host proxy (``parallel/hostlink.py``) at every
+    proxy link. On the one card (``cards`` None) the processes share it
+    (gloo); on four cards (``nccl+gloo``) each process drives its own.
+    Gates: each process's ids and distances bit for bit the single-process
+    K5 ring's and the IPC form's (``k5`` from :func:`multiproc_phase`),
+    recall@10 >= RECALL_GATE, each link's kind by the hosts, one K5 launch
+    a card a process and the single process's other launches shared out,
+    no CUDA IPC mapping for a proxy link, the proxy's bytes a process
+    (P - 1) hops of block + ids + norms on each proxy link, and the whole
+    call a process under TIMEOUT_S / 4. Prints each process's device-input
+    ms beside the IPC form's and the single process's, and the ms a hop by
+    part (copy out, gloo, copy in, flag). Returns process 0's launches by
+    kernel."""
+    from mpi_knn_tpu_torch import KNNConfig
+    from mpi_knn_tpu_torch.ops.fused_rotation import TIMEOUT_S
+    from mpi_knn_tpu_torch.parallel.hostlink import link_kind
+    from mpi_knn_tpu_torch.shapes import ring_tiles
+
+    t_phase = time.perf_counter()
+    label, over = MP_HOSTS_FORM
+    m, d = X.shape
+    n_proc, P = len(hosts), MP_P
+    ranks = P // n_proc
+    tmp = tempfile.mkdtemp(prefix="tknn-mph-")
+    try:
+        env = {"MP_RANKS": str(ranks), "MP_HOSTS": ",".join(hosts)}
+        if cards:
+            env["NCCL_SOCKET_IFNAME"] = os.environ.get("NCCL_SOCKET_IFNAME", "lo")
+        got = multiproc_pod(tmp, m, n_proc, env=env)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    infos = [doc["info"] for doc, _, _ in got]
+    per = [doc["hosts"][label] for doc, _, _ in got]
+    si, sd, sms, scounts = k5["single"]
+    ii, idist, ims, _ = k5["ipc"]
+    equal_single = all(np.array_equal(a[f"hosts/{label}/ids"], si)
+                       and np.array_equal(a[f"hosts/{label}/dists"], sd)
+                       for _, a, _ in got)
+    equal_ipc = all(np.array_equal(a[f"hosts/{label}/ids"], ii)
+                    and np.array_equal(a[f"hosts/{label}/dists"], idist)
+                    for _, a, _ in got)
+    import torch
+
+    rec = recall(torch.from_numpy(got[0][1][f"hosts/{label}/ids"]))
+    c_pad = ring_tiles(KNNConfig(k=K, backend="ring-overlap", **over), m, m, 1, P)[3]
+    b = c_pad // P
+    hop = b * d * 4 + b * 4 + b * 4  # block (f32), ids, norms
+    hops = P - 1
+    kinds = [[link_kind(list(hosts), p, (p + 1) % n_proc),
+              link_kind(list(hosts), p, (p - 1) % n_proc)] for p in range(n_proc)]
+    parts = {}
+    for f, k in zip(per, kinds):
+        pr, moved = f["proxy"], max(1, (k[0] == "proxy") * hops)
+        parts.setdefault("copy_out_ms_per_hop", []).append(
+            1e3 * pr["copy_out_s"] / moved)
+        parts.setdefault("gloo_ms_per_hop", []).append(1e3 * pr["gloo_s"] / hops)
+        parts.setdefault("copy_in_ms_per_hop", []).append(
+            1e3 * pr["copy_in_s"] / max(1, (k[1] == "proxy") * hops))
+        parts.setdefault("flag_ms_per_hop", []).append(
+            1e3 * pr["flag_s"] / max(1, (k[1] == "proxy") * hops))
+        parts.setdefault("wait_ms_per_call", []).append(1e3 * pr["wait_s"])
+    line = {"phase": "multiproc_cards_hosts_k5" if cards else "multiproc_hosts_k5",
+            "path": label, "m": m, "k": K, "processes": n_proc,
+            "ranks_a_process": ranks, "ring": P, "hosts": infos[0]["hosts"],
+            "backend": infos[0]["backend"], "cards": [i["cards"] for i in infos],
+            "link_kinds": [f["link_kinds"] for f in per],
+            f"bit_equal_single_process_p{P}": equal_single,
+            "bit_equal_ipc_form": equal_ipc, "recall_at_10": rec,
+            "launches": [f["launches"] for f in per],
+            f"single_process_p{P}_launches": scounts,
+            "ipc_mappings": [f["ipc_mappings"] for f in per],
+            "device_input_ms": [f["device_input_ms"] for f in per],
+            "ipc_form_device_input_ms": ims,
+            f"single_process_p{P}_device_input_ms": sms,
+            "gather_ms": [f["gather_ms"] for f in per],
+            "proxy": [f["proxy"] for f in per],
+            "proxy_first_call": [f["proxy_first"] for f in per],
+            "hop_bytes": hop, **parts, "wait_bound_s": TIMEOUT_S,
+            "startup_seconds": [i["startup_seconds"] for i in infos],
+            "worker_exit_seconds": [e for _, _, e in got],
+            "seconds": time.perf_counter() - t_phase}
+    emit(line)
+    name = f"{line['phase']} {n_proc}x{ranks}"
+    if not (equal_single and equal_ipc):
+        raise AssertionError(f"{name}: a process's result differs from the "
+                             "single-process K5 ring or the IPC form")
+    if rec < RECALL_GATE:
+        raise AssertionError(f"{name}: recall@10 {rec}")
+    if infos[0]["hosts"] != list(hosts) or line["link_kinds"] != kinds:
+        raise AssertionError(f"{name}: hosts {infos[0]['hosts']} and links "
+                             f"{line['link_kinds']}, expected {list(hosts)}, {kinds}")
+    if not cards and infos[0]["backend"] != "gloo":
+        raise AssertionError("processes sharing one card must take gloo, whatever "
+                             f"hosts they report: {infos[0]}")
+    for f, i, k in zip(per, infos, kinds):
+        # one K5 launch a card a process; the rest the single process's share
+        n_cards = len(set(i["cards"]))
+        want = {n: n_cards if n == "fused_rotation_grid" else c * ranks // P
+                for n, c in scounts.items()}
+        if f["launches"] != want:
+            raise AssertionError(f"{name}: launches {line['launches']}, expected "
+                                 f"{want} a process")
+        # an "ipc" link past the last rank maps the successor's flag words and
+        # slots (2 allocations), one before the first its predecessor's words
+        mappings = 2 * (k[0] == "ipc") + (k[1] == "ipc")
+        if f["ipc_mappings"] != mappings:
+            raise AssertionError(f"{name}: {f['ipc_mappings']} CUDA IPC mappings "
+                                 f"for links {k}, expected {mappings}: a proxy "
+                                 "link opens none")
+        for pr in (f["proxy"], f["proxy_first"]):
+            sent = hops if k[0] == "proxy" else 0
+            got_hops = hops if k[1] == "proxy" else 0
+            if not (pr["hops_sent"] == sent and pr["hops_received"] == got_hops
+                    and pr["bytes_sent"] == sent * hop
+                    and pr["bytes_received"] == got_hops * hop
+                    and pr["block_bytes"] == sent * b * d * 4):
+                raise AssertionError(f"{name}: the proxy moved {pr}, expected "
+                                     f"{sent} hops out and {got_hops} in of {hop} "
+                                     "bytes each")
+    if max(line["device_input_ms"]) > 1e3 * TIMEOUT_S / 4:
+        raise AssertionError(f"{name}: K5 across hosts took "
+                             f"{line['device_input_ms']} ms: its waits come near "
+                             f"their {TIMEOUT_S} s bound")
+    return dict(per[0]["launches"])
 
 
 def _multiproc_gates(got, single, recall, key, prefix, P, exchanges, dirs,
@@ -5066,7 +5306,9 @@ def main() -> int:
 
     mark("build")
     # ---- every kernel: tensor-core instructions and resources -------------
-    mma = {src: sass_mma_counts(_build._lib_path(src)) for src in _build.SOURCES}
+    with concurrent.futures.ThreadPoolExecutor(len(_build.SOURCES)) as pool:
+        mma = dict(zip(_build.SOURCES, pool.map(
+            lambda src: sass_mma_counts(_build._lib_path(src)), _build.SOURCES)))
     emit({"phase": "sass", "mma_by_function": mma})
     # kernel mode -> the functions of its library whose SASS must hold the
     # instruction: wgmma (HGMMA) for the exact K1/K2, K4's f32 form and
@@ -6138,27 +6380,11 @@ def main() -> int:
 
     mark("duplicates_and_yardsticks")
     # ---- the main paths ---------------------------------------------------
-    sample256 = np.linspace(0, M_FULL - 1, num=256, dtype=np.int64)
-
-    def oracle(corpus, rtol):
-        """f64 ids of the 256 sampled rows' k nearest corpus rows: self
-        excluded, and zero distance (d <= rtol (q^2 + c^2), or d <= 1e-9
-        when rtol is 0), ties to the lower id."""
-        c = corpus.astype(np.float64)
-        q = c[sample256] if corpus is X else Xc[sample256].astype(np.float64)
-        q_sq, c_sq = (q ** 2).sum(1)[:, None], (c ** 2).sum(1)[None, :]
-        d = q_sq + c_sq - 2.0 * (q @ c.T)
-        d[d <= (rtol * (q_sq + c_sq) if rtol else 1e-9)] = np.inf
-        d[np.arange(len(sample256)), sample256] = np.inf  # leave-one-out
-        return np.argsort(d, axis=1, kind="stable")[:, :K]
-
-    want_ids = oracle(X, 0.0)  # the reference's workload, on the input data
+    recall = f64_recall(X)  # the reference's workload, on the input data
+    sample256 = recall.sample
     # what the int8 wire hands the rerank: each row's dequantized codes
-    want_wire = oracle(dequantize_rows(*quantize_rows(Xcd)).cpu().numpy(), 1e-6)
-
-    def recall(ids, want=want_ids) -> float:
-        got = ids[torch.as_tensor(sample256, device=ids.device)].cpu().numpy()
-        return float((want[:, :, None] == got[:, None, :]).any(-1).mean())
+    want_wire = f64_oracle(dequantize_rows(*quantize_rows(Xcd)).cpu().numpy(),
+                           sample256, queries=Xc, rtol=1e-6)
 
     Xd = torch.from_numpy(X).to(device)
 
@@ -6480,9 +6706,12 @@ def main() -> int:
     mesh2d_launches = mesh2d_phase(device, X, recall)
     mark("mesh2d")
     # ---- more than one process: the ring through a pod on the one card ---
-    multiproc_launches, multiproc_ranks_launches = multiproc_phase(
+    multiproc_launches, multiproc_ranks_launches, k5_refs = multiproc_phase(
         device, X, recall, ranks=MP_RANKS)
     mark("multiproc")
+    # ---- K5 across hosts: the pod told apart into two hosts ---------------
+    multiproc_hosts_launches = multiproc_hosts_phase(X, recall, k5_refs)
+    mark("multiproc_hosts")
     # ---- the sharded clustered store live across processes ---------------
     sharded_mutation_phase(device)
     mark("sharded_mutation")
@@ -6603,6 +6832,9 @@ def main() -> int:
          # the pod of MP_RANKS ranks a process (process 0's; each equal)
          **({"multiproc_ranks_launches": multiproc_ranks_launches[name]}
             if name in multiproc_ranks_launches else {}),
+         # the same pod told apart into two hosts: K5 over the host proxy
+         **({"multiproc_hosts_launches": multiproc_hosts_launches[name]}
+            if name in multiproc_hosts_launches else {}),
          # the lint phase's cells (its side-band records, one a launch)
          **({"lint_launches": lint_launches[name]}
             if name in lint_launches else {})}
@@ -6626,8 +6858,11 @@ def multiproc_cards_main() -> int:
     (P = 4 on cards 0-3, the 2×2 mesh for --dp 2, P = 2 on cards {0, 2}
     for the one-rank ring) and the boundary's exchanges, bytes, ms and
     bytes staged between a process's cards; fails unless every result is
-    bit for bit the single-process run's. Then the sharded clustered store
-    live over the four cards (:func:`sharded_mutation_cards`)."""
+    bit for bit the single-process run's. Then the same pod told apart
+    into two hosts (:func:`multiproc_hosts_phase`: K5 over the host proxy
+    at both boundaries, gated as on the one card, the backend nccl+gloo),
+    and the sharded clustered store live over the four cards
+    (:func:`sharded_mutation_cards`)."""
     import torch
 
     from mpi_knn_tpu_torch.data.synthetic import make_mnist_like
@@ -6679,6 +6914,19 @@ def multiproc_cards_main() -> int:
         if not equal:
             raise AssertionError(f"multiproc_cards {label}: a process's result "
                                  "differs from the single-process run")
+    # K5 across hosts on the four cards: the same 2 x 2 pod told apart into
+    # two hosts, then 4 x 1 on two hosts (an "ipc" and a proxy link each);
+    # backend nccl+gloo: no NCCL call may run during K5
+    label = MP_HOSTS_FORM[0]
+    wi, wd, wcounts, wms = single[("ranks", label)]
+    k5 = {"single": (wi, wd, wms, wcounts),
+          "ipc": (got[0][1][f"ranks/{label}/ids"],
+                  got[0][1][f"ranks/{label}/dists"],
+                  [doc["ranks"][label]["device_input_ms"] for doc, _, _ in got],
+                  got[0][0]["ranks"][label]["launches"])}
+    recall = f64_recall(X)
+    multiproc_hosts_phase(X, recall, k5, cards=cards)
+    multiproc_hosts_phase(X, recall, k5, cards=cards, hosts=MP_HOSTS_MIXED)
     # the sharded clustered store live over the four cards
     sharded_mutation_cards(cards)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -89,9 +89,10 @@ class HostTarget:
 
 def default_targets() -> list[HostTarget]:
     """The JAX package's seven threaded-module targets, and the port's
-    own eighth: ``ops._build``, the kernel libraries' builds behind the
-    cache (nvcc processes started together, loaded under a module
-    lock)."""
+    own eighth and ninth: ``ops._build``, the kernel libraries' builds
+    behind the cache (nvcc processes started together, loaded under a
+    module lock), and ``parallel.hostlink``, the grid form's host proxy
+    (one thread a call, started before K5's launch and joined after it)."""
 
     def p(rel: str) -> str:
         return str(_PKG / rel)
@@ -118,6 +119,8 @@ def default_targets() -> list[HostTarget]:
             (("resilience.worker", p("resilience/worker.py")),),
         ),
         HostTarget("ops._build", (("ops._build", p("ops/_build.py")),)),
+        HostTarget("parallel.hostlink",
+                   (("parallel.hostlink", p("parallel/hostlink.py")),)),
     ]
 
 

@@ -78,12 +78,17 @@ after the rotation (``distributed.Pod.gather_seconds``). A process may
 hold several ranks (cards, or one card named several times): between its
 own ranks K4 keeps its in-kernel stores (peer stores between cards, plain
 stores on one card), and only the boundary takes the outbox. The grid
-form (K5) keeps its one launch a card: across the processes of one host
-its last rank streams into the next process's first landing slot over
-CUDA IPC (``parallel/ipc.py``), so the process group moves no block; a
-ring whose neighbouring processes lie on different hosts refuses it by
-name (the rule reads the pod's hostnames once). On the CPU the grid
-form's plain version hands each round's block to the process group.
+form (K5) keeps its one launch a card, and on cards the process group
+moves no block between rounds: each boundary link's kind is decided once
+from the pod's hostnames (``ProcessSpan.link_kinds``). Across the processes of one
+host (``"ipc"``) the last rank streams into the next process's first
+landing slot over CUDA IPC (``parallel/ipc.py``); across hosts
+(``"proxy"``) it streams into an outbox on its own card, and a host proxy
+thread moves each hop over gloo during the launch
+(``parallel/hostlink.py``). On the CPU the grid form's plain version
+hands each round's block to the process group over an "ipc" link, and
+runs the plain stand-in for the kernel's side of the proxy protocol
+beside the same proxy over a "proxy" link.
 
 A 2-D mesh across processes (``make_mesh2d`` in a pod) runs each dp group
 as above: a group inside one process is a single-process ring there
@@ -126,6 +131,7 @@ from mpi_knn_tpu_torch.ops.quant import (
 )
 from mpi_knn_tpu_torch.ops.topk import init_topk
 from mpi_knn_tpu_torch.parallel import distributed
+from mpi_knn_tpu_torch.parallel.hostlink import link_kind
 from mpi_knn_tpu_torch.parallel.mesh import (
     RingMesh,
     as_mesh2d,
@@ -219,12 +225,21 @@ class ProcessSpan:
         self.next = mesh.owners[self.local.stop % self.P]
         self.prev = mesh.owners[(self.local.start - 1) % self.P]
 
-    def one_host(self) -> bool:
-        """Whether both neighbouring processes run on this process's host
-        (the pod's hostnames, gathered at start-up)."""
-        hosts = distributed.pod().hosts
-        me = hosts[distributed.process_index()]
-        return hosts[self.next] == me == hosts[self.prev]
+    def link_kinds(self) -> tuple:
+        """The kinds of the link past this process's last rank and of the
+        one before its first, by the link rule
+        (``parallel/hostlink.link_kind`` over the pod's hostnames):
+        ("ipc" or "proxy", "ipc" or "proxy")."""
+        hosts, me = distributed.pod().hosts, distributed.process_index()
+        return (link_kind(hosts, me, self.next), link_kind(hosts, me, self.prev))
+
+    def hand_on(self, leaving, arriving) -> None:
+        """The grid form's plain version over an "ipc" link: ``leaving``
+        to the next process and ``arriving`` from the previous one, either
+        None where only the other link is "ipc"."""
+        none = (None,) * 6
+        self.exchange(none if leaving is None else leaving,
+                      none if arriving is None else arriving, 1).wait()
 
     def exchange(self, leaving, arriving, shift: int):
         """Issue the boundary's move of one traveler: ``leaving`` to the
@@ -358,18 +373,6 @@ def grid_off_card_error() -> ValueError:
     )
 
 
-def grid_across_hosts_error(hosts) -> ValueError:
-    """The refusal of the grid form on a ring whose neighbouring processes
-    lie on different hosts."""
-    return ValueError(
-        "ring_fused_rotation='grid' across hosts is not ported: its one "
-        "launch streams each block into the next process's landing slot "
-        "over CUDA IPC, which reaches only the cards of one machine "
-        f"(the ring's processes run on {sorted(set(hosts))}); use "
-        "ring_fused_rotation='round' on a ring that spans hosts"
-    )
-
-
 def grid_resumable_error() -> ValueError:
     """The resumable ring's refusal of the grid form, in the JAX package's
     words."""
@@ -439,8 +442,6 @@ class RingRun:
     def __init__(self, cfg: KNNConfig, devices, overlap: bool, form: str,
                  q_sh, qid_sh, travelers, carries, q_tile: int, c_tile: int,
                  staged: bool = False, slots=None, group: int = 0, span=None):
-        if span is not None and form == "grid" and not span.one_host():
-            raise grid_across_hosts_error(distributed.pod().hosts)
         self.cfg, self.devices, self.overlap, self.form = (
             cfg, devices, overlap, form)
         self.span = span
@@ -470,9 +471,11 @@ class RingRun:
         if form == "driver":
             self.transport = _Transport(devices, overlap, span)
         else:
+            grid_links = span is not None and form == "grid"
             self.transport = ring_transport(
                 devices, group, boundary=span is not None,
-                links=(span.next, span.prev) if span and form == "grid" else None)
+                links=(span.next, span.prev) if grid_links else None,
+                kinds=span.link_kinds() if grid_links else None)
             self.slots = (slots if slots is not None
                           else [landing_slots(*t) for t in self.travelers[0]])
             self.parity = 0
@@ -533,8 +536,7 @@ class RingRun:
             self.transport, self.q_sh, self.qid_sh, self.travelers[0],
             self.carries, self.slots, **self._kernel_kw(),
             ring_size=None if span is None else span.P,
-            hand_on=None if span is None else (
-                lambda out, land: span.exchange(out, land, 1).wait()))
+            hand_on=None if span is None else span.hand_on)
 
     def rotate(self):
         """The whole schedule: one K5 launch per card (grid), or its rounds

@@ -838,7 +838,14 @@ cudaError_t launch(int which, int wire, Launch p, cudaStream_t stream) {
 extern "C" {
 
 int ring_max_local() { return MAX_LOCAL; }
-int ring_words() { return NWORDS; }
+// The protocol the host side restates (ops/fused_rotation.py's PROTOCOL),
+// for it to check at load: COPY_CTAS and the flag words it reads or writes.
+int ring_protocol(int* out) {
+  const int p[] = {COPY_CTAS, NWORDS, W_ERR, G_FROM_PRED, G_FROM_SUCC,
+                   G_LANDED, G_FREE};
+  for (int i = 0; i < 7; ++i) out[i] = p[i];
+  return 7;
+}
 int ring_rank_bytes() { return (int)sizeof(Rank); }
 
 // Peer access from card `dev` to card `peer`; "already enabled" counts as

@@ -38,15 +38,26 @@ rank's successor lies in another process (``RingTransport(boundary=
 True)``), K4 stores that rank's copy into a local ``outbox`` with the
 landing slot's layout (``landing_buffers``), in stream order on its card,
 and the caller's process group moves it on; the other links keep the
-in-kernel stores and flags. K5's transport across the processes of one
-host (``RingTransport(links=(next, prev))``) keeps the in-kernel protocol
-on that link too: the last rank stores into the next process's first
-rank's landing slots and signals its flag words through pointers mapped
-by CUDA IPC (``parallel/ipc.py``), and the first rank's slots and the
-first and last ranks' flag words are this process's exports. Such a
-transport's flag words are made once and never made anew: a timed-out
-wait fails the pod. The plain version across processes (CPU pods) hands
-each round's outgoing block to the process group instead (``hand_on``).
+in-kernel stores and flags. K5's transport across processes
+(``RingTransport(links=(next, prev), kinds=(next kind, prev kind))``)
+keeps the in-kernel protocol on both boundary links. The link kind is
+decided once from the pod's hostnames (``parallel/hostlink.link_kind``):
+an ``"ipc"`` link (the neighbour on this host) stores into the next
+process's first rank's landing slots and signals its flag words through
+pointers mapped by CUDA IPC (``parallel/ipc.py``), and the first rank's
+slots and the first and last ranks' flag words are this process's
+exports; a ``"proxy"`` link (the neighbour on another host) points the
+last rank's stores at an outbox of two slots and its remote adds at a
+mirror row, both on its own card, points the first rank's remote adds at
+a mirror row on its card, and lands into the caller's slots, while a
+host proxy thread carries each hop over gloo during the launch
+(``parallel/hostlink.py``). Such a transport's flag words are made once
+and never made anew: a timed-out wait fails the pod. The plain version
+across processes (CPU pods) hands each round's outgoing block to the
+process group over an ``"ipc"`` link (``hand_on``), and runs the plain
+stand-in for the kernel's side of the proxy protocol
+(``fused_rotation_grid_proxy_reference``) beside the same proxy where a
+link is a ``"proxy"`` one.
 The flag words the kernels signal
 each other through live on each card and are made once per mesh
 (``ring_transport``); they only count up, so nothing is reset between calls.
@@ -62,6 +73,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import time
 
 import torch
 
@@ -87,10 +99,16 @@ LAUNCHES = {"fused_round_dma": 0, "fused_rotation_grid": 0,
 
 TIMEOUT_S = 10.0  # bound of every spin-wait inside the kernels
 
-# flag words of one rank (csrc/fused_ring_dma.cu, enum Word)
-_W_ERR = 5
+# the ring's protocol, stated once on this side (csrc/fused_ring_dma.cu's
+# COPY_CTAS and enum Word; ``_lib`` checks them against the built library)
+COPY_CTAS = 8  # K5's copy items a hop, each one landed add
+NWORDS = 16    # flag words of one rank
+W_ERR, G_FROM_PRED, G_FROM_SUCC, G_LANDED, G_FREE = 5, 6, 7, 8, 9
+PROTOCOL = (COPY_CTAS, NWORDS, W_ERR, G_FROM_PRED, G_FROM_SUCC, G_LANDED, G_FREE)
+ERR_PROXY = 6  # the card's error word after a host proxy's failure
 _ERRORS = {1: "the neighbour barrier", 2: "the predecessor's block to land",
-           3: "its own copy-out", 4: "the barrier CTA", 5: "a slot release"}
+           3: "its own copy-out", 4: "the barrier CTA", 5: "a slot release",
+           ERR_PROXY: "the host proxy"}
 
 
 def reset_launch_counts():
@@ -121,11 +139,16 @@ def _lib() -> ctypes.CDLL:
     lib.round_stage_split_launch.argtypes = [ptr] * 4 + [i32] * 3 + [ptr]
     lib.ring_enable_peer_access.argtypes = [i32, i32]
     lib.ring_kernel_plan.argtypes = [i32] * 6 + [ctypes.POINTER(i32)]
-    for name in ("ring_enable_peer_access", "ring_max_local", "ring_words",
+    lib.ring_protocol.argtypes = [ctypes.POINTER(i32)]
+    for name in ("ring_enable_peer_access", "ring_max_local", "ring_protocol",
                  "ring_rank_bytes", "ring_kernel_plan", "round_stage_split_launch"):
         getattr(lib, name).restype = i32
     if lib.ring_rank_bytes() != ctypes.sizeof(_Rank):
         raise RuntimeError("csrc/fused_ring_dma.cu's Rank and _Rank differ")
+    built = (ctypes.c_int * len(PROTOCOL))()
+    if lib.ring_protocol(built) != len(PROTOCOL) or tuple(built) != PROTOCOL:
+        raise RuntimeError("csrc/fused_ring_dma.cu's COPY_CTAS and flag words "
+                           f"{tuple(built)} differ from PROTOCOL {PROTOCOL}")
     return lib
 
 
@@ -146,11 +169,13 @@ class RingTransport:
     ranks are one process's part of a longer ring: the last rank's
     successor and the first rank's predecessor lie in other processes, so
     that link takes no flags (K4 writes an outbox on the last rank's card,
-    and the process group fills the first rank's landing slot).
+    and the process group fills the first rank's landing slot). K5's
+    boundary transport has ``links`` (the next and previous processes) and
+    their ``kinds`` ("ipc" or "proxy" each, the module's docstring).
     """
 
     def __init__(self, devices, cross_card=None, boundary: bool = False,
-                 links=None):
+                 links=None, kinds=None):
         self.devices = [_card(torch.device(d)) for d in devices]
         P = len(self.devices)
         if cross_card is None:
@@ -160,12 +185,19 @@ class RingTransport:
             raise ValueError("links to other processes go with a boundary transport")
         if boundary:
             # K5 across processes keeps the flag protocol on the boundary
-            # link (mapped pointers); K4 hands that link to an outbox
+            # link (mapped pointers, or a proxy's buffers); K4 hands that
+            # link to an outbox
             cross_card = list(cross_card[:P - 1]) + [links is not None]
         self.boundary = boundary
         self.links = links  # (next process, previous process), or None
+        self.kinds = (None if links is None
+                      else tuple(kinds) if kinds is not None else ("ipc", "ipc"))
+        if self.kinds is not None and not set(self.kinds) <= {"ipc", "proxy"}:
+            raise ValueError(f"a link is 'ipc' or 'proxy', got {self.kinds}")
         self.mapped = {}  # per slot layout: (own first-rank slots, successor's)
         self.remote_flags = None  # (successor's words, predecessor's words)
+        self.mirror = (None, None)  # a proxy link's rows: (next side, prev side)
+        self.outboxes = {}  # a proxy link's outbox, per layout
         self.succ_remote = [bool(c) for c in cross_card]
         self.pred_remote = [self.succ_remote[(r - 1) % P] for r in range(P)]
         self.cards = list(dict.fromkeys(self.devices))
@@ -175,38 +207,52 @@ class RingTransport:
         self.epoch = 0   # K4 rounds run on this mesh
         self.calls = 0   # K5 launches per card run on this mesh
 
+    def proxied(self, side: int) -> bool:
+        """Whether the link past the last rank (side 0) or before the first
+        (side 1) is a proxy link."""
+        return self.kinds is not None and self.kinds[side] == "proxy"
+
     def _ensure_flags(self):
         if self.flags is not None:
             return
         from mpi_knn_tpu_torch.parallel.mesh import enable_peer_access
 
-        lib = _lib()
-        for card in self.cards:
-            if len(self.local[card]) > lib.ring_max_local():
-                raise ValueError(
-                    f"{card} holds {len(self.local[card])} ring ranks; one "
-                    f"launch takes at most {lib.ring_max_local()}")
-        enable_peer_access(self.devices)
-        words = lib.ring_words()
-        if self.links is None:
-            self.flags = {c: torch.zeros((len(self.local[c]), words),
-                                         dtype=torch.int32, device=c)
-                          for c in self.cards}
-        elif self.calls:
+        on_cards = all(c.type == "cuda" for c in self.cards)
+        if on_cards:
+            lib = _lib()
+            for card in self.cards:
+                if len(self.local[card]) > lib.ring_max_local():
+                    raise ValueError(
+                        f"{card} holds {len(self.local[card])} ring ranks; one "
+                        f"launch takes at most {lib.ring_max_local()}")
+            enable_peer_access(self.devices)
+        if self.links is not None and self.calls:
             raise RuntimeError(
                 "the grid form's flag words across processes are made once: "
                 "a timed-out wait fails the pod; restart every process")
+        if self.links is None or "ipc" not in self.kinds or not on_cards:
+            self.flags = {c: torch.zeros((len(self.local[c]), NWORDS),
+                                         dtype=torch.int32, device=c)
+                          for c in self.cards}
         else:
             from mpi_knn_tpu_torch.parallel import ipc
 
             self.flags = {}
             for c in self.cards:
-                shape = (len(self.local[c]), words)
+                shape = (len(self.local[c]), NWORDS)
                 buf = ipc.alloc(c, ipc.carved_bytes([(shape, torch.int32)]))
                 self.flags[c] = ipc.carve(buf, [(shape, torch.int32)])[0]
                 self.flags[c].zero_()
-                # zero before any neighbour can signal into them
-                torch.cuda.synchronize(c)
+        if self.links is not None:
+            # a proxy link's mirror rows: the adds the kernel makes to a
+            # neighbour's words, on the card of the rank that makes them
+            self.mirror = tuple(
+                torch.zeros(NWORDS, dtype=torch.int32, device=dev)
+                if self.proxied(side) else None
+                for side, dev in ((0, self.devices[-1]), (1, self.devices[0])))
+            for c in self.cards:
+                if c.type == "cuda":  # zero before any neighbour can signal
+                    torch.cuda.synchronize(c)
         self.epoch = self.calls = 0
 
     def flag_row(self, r: int) -> torch.Tensor:
@@ -214,34 +260,65 @@ class RingTransport:
         card = self.devices[r]
         return self.flags[card][self.local[card].index(r)]
 
-    def bind_links(self, block, ids, norms):
-        """For K5 across processes: the first rank's two landing slots
-        (exported; made once per layout) and the successor process's, as
-        pointers mapped into the last rank's card; the handles move between
-        the neighbours once per layout (``parallel/ipc.py``). Returns
+    def bind_links(self, own, block, ids, norms):
+        """For K5 across processes on cards: the first rank's two landing
+        slots and the successor's, per link kind. Over an "ipc" link the
+        first rank's slots are exported (made once per layout) and the
+        successor process's are pointers mapped into the last rank's card;
+        the handles move between the neighbours once per layout
+        (``parallel/ipc.py``). Over a "proxy" link the first rank lands into
+        ``own`` (the caller's slots) and the last rank stores into this
+        transport's outbox (made once per layout, ``outbox``). Returns
         (own slots (blk, ids, None, norms), successor's (blk, ids, norms)
-        pointers)."""
+        pointers or tensors)."""
         from mpi_knn_tpu_torch.parallel import distributed, ipc
 
         key = (tuple(block.shape), block.dtype)
-        if key in self.mapped:
-            return self.mapped[key]
-        self._ensure_flags()
-        parts = [((2,) + tuple(block.shape), block.dtype),
-                 ((2,) + tuple(ids.shape), ids.dtype),
-                 ((2,) + tuple(norms.shape), norms.dtype)]
-        first, last = self.devices[0], self.devices[-1]
-        own = ipc.carve(ipc.alloc(first, ipc.carved_bytes(parts)), parts)
-        nxt, prv = self.links
-        from_next, from_prev = ipc.empty_records(4), ipc.empty_records(1)
-        distributed.swap_host(
-            [(ipc.pack([self.flag_row(0)] + own), prv, 100),
-             (ipc.pack([self.flag_row(len(self.devices) - 1)]), nxt, 101)],
-            [(from_next, nxt, 100), (from_prev, prv, 101)])
-        succ = ipc.open_records(from_next, last)
-        self.remote_flags = (succ[0], ipc.open_records(from_prev, first)[0])
-        self.mapped[key] = ((own[0], own[1], None, own[2]), tuple(succ[1:]))
-        return self.mapped[key]
+        if key not in self.mapped:
+            self._ensure_flags()
+            parts = [((2,) + tuple(block.shape), block.dtype),
+                     ((2,) + tuple(ids.shape), ids.dtype),
+                     ((2,) + tuple(norms.shape), norms.dtype)]
+            first, last = self.devices[0], self.devices[-1]
+            nxt, prv = self.links
+            sends, recvs = [], []
+            exported = succ = None
+            if not self.proxied(1):
+                exported = ipc.carve(ipc.alloc(first, ipc.carved_bytes(parts)), parts)
+                from_prev = ipc.empty_records(1)
+                sends.append((ipc.pack([self.flag_row(0)] + exported), prv, 100))
+                recvs.append((from_prev, prv, 101))
+            if not self.proxied(0):
+                from_next = ipc.empty_records(4)
+                last_row = self.flag_row(len(self.devices) - 1)
+                sends.append((ipc.pack([last_row]), nxt, 101))
+                recvs.append((from_next, nxt, 100))
+            distributed.swap_host(sends, recvs)
+            if self.proxied(0):
+                succ = self.outbox(block, ids, norms)
+                succ_words = self.mirror[0].data_ptr()
+            else:
+                mapped = ipc.open_records(from_next, last)
+                succ, succ_words = tuple(mapped[1:]), mapped[0]
+            pred_words = (self.mirror[1].data_ptr() if self.proxied(1)
+                          else ipc.open_records(from_prev, first)[0])
+            self.remote_flags = (succ_words, pred_words)
+            self.mapped[key] = (None if exported is None else _as_traveler(exported),
+                                succ)
+        exported, succ = self.mapped[key]
+        return (tuple(own[:4]) if exported is None else exported), succ
+
+    def outbox(self, *parts):
+        """The outbox of a proxy link past the last rank: two slots in the
+        layout of ``parts`` (block, ids, norms) on the last rank's device
+        (where its stores and the proxy's copy out run), made once per
+        layout."""
+        key = tuple((tuple(t.shape), t.dtype) for t in parts)
+        if key not in self.outboxes:
+            self.outboxes[key] = tuple(
+                torch.empty((2,) + tuple(t.shape), dtype=t.dtype,
+                            device=self.devices[-1]) for t in parts)
+        return self.outboxes[key]
 
     def succ_words(self, r: int):
         """Address of rank r's successor's flag words."""
@@ -263,38 +340,76 @@ class RingTransport:
         """Read each card's error word (this waits for its stream); on an
         error drop the flag words, so the next call starts from zero."""
         for card in self.cards:
-            code = int(self.flags[card][0, _W_ERR].item())
+            code = int(self.flags[card][0, W_ERR].item())
             if code:
                 self.flags = None
                 raise RuntimeError(
                     f"{name}: neighbour barrier timed out on {card} "
                     f"(waiting for {_ERRORS.get(code, code)}); " + (
                         "the ring's flag words were reset" if self.links is None
-                        else "the ring spans processes: every process of the "
-                        "pod fails, and the pod restarts"))
+                        else _POD_FAILS))
+
+    def host_proxy(self, landing, outbox, ring_size: int, timeout_s: float):
+        """The host proxy of this call (``parallel/hostlink.py``) over the
+        proxy links, or None where both links are "ipc". ``landing`` /
+        ``outbox``: the first rank's slots and the last rank's outbox, each
+        (blk, ids, norms) of (2, ...) tensors."""
+        if not (self.proxied(0) or self.proxied(1)):
+            return None
+        from mpi_knn_tpu_torch.parallel import distributed, hostlink
+
+        nxt, prv = self.links
+        pod = distributed.pod()
+        where = (f"process {distributed.process_index()} of the pod at "
+                 f"{pod.coordinator} ({pod.num_processes} processes)"
+                 if pod is not None else "this process")
+        return hostlink.HostProxy(
+            nxt=nxt if self.proxied(0) else None,
+            prv=prv if self.proxied(1) else None,
+            outbox=outbox if self.proxied(0) else None,
+            landing=landing if self.proxied(1) else None, mirror=self.mirror,
+            last_row=self.flag_row(len(self.devices) - 1),
+            first_row=self.flag_row(0),
+            err_words=[self.flags[c][0] for c in self.cards], G=self.calls,
+            P=ring_size, timeout_s=timeout_s, where=where)
+
+    def fail_proxy(self, name: str, e: Exception):
+        """A proxy that failed: the flag words are dropped (the next call
+        on this transport is refused: the pod restarts) and ``name`` raises
+        on every process of the pod."""
+        self.flags = None
+        raise RuntimeError(f"{name}: {e}; {_POD_FAILS}") from e
+
+
+_POD_FAILS = ("the ring spans processes: every process of the pod fails, and "
+              "the pod restarts")
 
 
 _TRANSPORTS: dict = {}
 
 
 def ring_transport(devices, group: int = 0, boundary: bool = False,
-                   links=None) -> RingTransport:
+                   links=None, kinds=None) -> RingTransport:
     """The ring's transport state, made once per ring: per mesh and, on a
     2-D mesh, per dp group (each group's ring has flag words of its own,
     even where two groups name the same cards); ``boundary`` for one
     process's ranks of a ring that spans processes, and ``links`` (the
-    next and previous processes) for K5's transport across them."""
+    next and previous processes) with their ``kinds`` for K5's transport
+    across them."""
     cards = tuple(_card(torch.device(d)) for d in devices)
     links = None if links is None else tuple(links)
-    key = (group, cards, boundary or links is not None, links)
+    kinds = None if links is None else tuple(kinds or ("ipc", "ipc"))
+    key = (group, cards, boundary or links is not None, links, kinds)
     if key not in _TRANSPORTS:
-        _TRANSPORTS[key] = RingTransport(cards, boundary=key[2], links=links)
+        _TRANSPORTS[key] = RingTransport(cards, boundary=key[2], links=links,
+                                         kinds=kinds)
     return _TRANSPORTS[key]
 
 
 def drop_process_transports() -> None:
     """Forget every transport with links to other processes (their flag
-    words and slots are this process's exports, freed at the pod's end)."""
+    words and slots are this process's, exported over an "ipc" link and
+    freed at the pod's end)."""
     for key in [k for k, t in _TRANSPORTS.items() if t.links is not None]:
         del _TRANSPORTS[key]
 
@@ -583,9 +698,11 @@ def _ranks(ring, queries, query_ids, blocks, carries, outs, qn, **per_rank):
 
 
 def _launch_per_card(ring, fn_name, name, ranks, queries, blocks, carries, kw,
-                     epoch, timeout_s, ring_size=None, *, side):
+                     epoch, timeout_s, ring_size=None, *, side, proxy=None):
     """One launch per card over the ranks it holds, then the error check.
-    ``ring_size`` is the whole ring's (default: this call's ranks).
+    ``ring_size`` is the whole ring's (default: this call's ranks). A host
+    ``proxy`` (K5 over a proxy link) is started before the launches and
+    joined once every card has synchronized; its failure raises first.
     ``side`` = (outs, rounds, per rank bytes it sends) for the side-band
     record: the logical FLOPs of ``rounds`` merges a rank and the wire
     bytes the kernel moves itself."""
@@ -606,10 +723,12 @@ def _launch_per_card(ring, fn_name, name, ranks, queries, blocks, carries, kw,
     lib = _lib()
     fn = getattr(lib, fn_name)
     q0, blk0, (cd0, _) = queries[0], blocks[0][0], carries[0]
+    if proxy is not None:
+        proxy.start()
     for card in ring.cards:
         local = ring.local[card]
         arr = (_Rank * len(local))(*(ranks[r] for r in local))
-        err = ring.flags[card][0, _W_ERR]
+        err = ring.flags[card][0, W_ERR]
         with torch.cuda.device(card):
             stream = torch.cuda.current_stream().cuda_stream
             rc = fn(ctypes.cast(arr, ctypes.c_void_p), len(local),
@@ -621,9 +740,29 @@ def _launch_per_card(ring, fn_name, name, ranks, queries, blocks, carries, kw,
                     precision_code(kw["precision"]), stream)
         if rc != 0:
             ring.flags = None
+            if proxy is not None:
+                proxy.abort()
             raise RuntimeError(f"{name} launch failed on {card}: cudaError {rc}")
         note_launch(LAUNCHES, name, record(local))
+    if proxy is not None:
+        _finish_proxy(ring, proxy, name)
     ring.raise_on_error(name)
+
+
+def _finish_proxy(ring, proxy, name: str) -> None:
+    """Synchronize every card of ``ring`` (the kernels have ended: their
+    waits are bounded), then join the proxy; its failure raises."""
+    from mpi_knn_tpu_torch.parallel.hostlink import ProxyFailed
+
+    for card in ring.cards:
+        if card.type == "cuda":
+            torch.cuda.synchronize(card)
+    if any(int(ring.flags[c][0, W_ERR]) for c in ring.cards):
+        proxy.stop.set()  # the kernel has left: no word it would raise comes
+    try:
+        proxy.finish()
+    except ProxyFailed as e:
+        ring.fail_proxy(name, e)
 
 
 # ---------------------------------------------------------------- K5
@@ -652,12 +791,18 @@ def fused_rotation_grid(ring: RingTransport, queries, query_ids, blocks,
 
     On a ring that spans processes these are this process's ranks,
     ``ring_size`` is the whole ring's P and ``ring`` a transport with
-    ``links``: on cards the last rank streams into the next process's
-    first rank's slots over CUDA IPC (the first rank's slots are the
-    transport's exports, in place of ``slots[0]``); the plain version
-    calls ``hand_on(outbox, landing)`` each round but the last, which
-    moves the last rank's outgoing traveler to the next process and fills
-    the first rank's ``landing`` from the previous one."""
+    ``links`` and their kinds. On cards, over an "ipc" link the last rank
+    streams into the next process's first rank's slots over CUDA IPC (the
+    first rank's slots are the transport's exports, in place of
+    ``slots[0]``); over a "proxy" link it streams into the transport's
+    outbox and the first rank lands into ``slots[0]``, while a host proxy
+    (``parallel/hostlink.py``) carries every hop during the one launch.
+    The plain version calls ``hand_on(outbox, landing)`` each round but
+    the last over "ipc" links, which moves the last rank's outgoing
+    traveler to the next process and fills the first rank's ``landing``
+    from the previous one (one side None where only that link is "ipc"),
+    and runs ``fused_rotation_grid_proxy_reference`` beside the same
+    proxy where a link is a "proxy" one."""
     blocks = [traveler(b) for b in blocks]
     slots = [traveler(s) for s in slots]
     for blk, _, scl, *_ in blocks:
@@ -676,6 +821,10 @@ def fused_rotation_grid(ring: RingTransport, queries, query_ids, blocks,
     if ring.boundary and (ring.links is None or (cpu and hand_on is None)):
         raise ValueError("the grid form across processes needs a transport "
                          "with links (and, off the cards, hand_on)")
+    if cpu and ring.links is not None and (ring.proxied(0) or ring.proxied(1)):
+        return fused_rotation_grid_proxy_reference(
+            ring, queries, query_ids, blocks, carries, slots, ring_size=ring_size,
+            hand_on=hand_on, timeout_s=timeout_s, **kw)
     if cpu:
         return fused_rotation_grid_reference(queries, query_ids, blocks,
                                              carries, slots, ring_size=ring_size,
@@ -686,11 +835,15 @@ def fused_rotation_grid(ring: RingTransport, queries, query_ids, blocks,
              for s, b in zip(slots, blocks)]
     succ = [slots[(r + 1) % P] for r in range(P)]
     if ring.links is not None:
-        own, remote = ring.bind_links(*(blocks[0][j] for j in (0, 1, 3)))
+        own, remote = ring.bind_links(slots[0], *(blocks[0][j] for j in (0, 1, 3)))
         slots[0] = own
         succ[-1] = (remote[0], remote[1], None, remote[2])
     ring._ensure_flags()
     ring.calls += 1
+    rounds = ring_size or P
+    proxy = None if ring.links is None else ring.host_proxy(
+        (slots[0][0], slots[0][1], slots[0][3]), succ[-1][:2] + succ[-1][3:],
+        rounds, timeout_s)
     carries = [(cd.contiguous(), ci.contiguous()) for cd, ci in carries]
     outs = [(torch.empty_like(cd), torch.empty_like(ci)) for cd, ci in carries]
     cbufs = [(cd.new_empty((2,) + tuple(cd.shape)),
@@ -701,12 +854,11 @@ def fused_rotation_grid(ring: RingTransport, queries, query_ids, blocks,
                    slot_blk=[s[0] for s in slots], slot_bids=[s[1] for s in slots],
                    slot_bn=[s[3] for s in slots],
                    cbuf_d=[c[0] for c in cbufs], cbuf_i=[c[1] for c in cbufs])
-    rounds = ring_size or P
     moved = [(rounds - 1) * tensor_bytes(b[0], b[1], b[3]) for b in blocks]
     _launch_per_card(ring, "rotation_grid_launch",
                      kernel_name("fused_rotation_grid", precision),
                      ranks, queries, blocks, carries, kw, ring.calls, timeout_s,
-                     ring_size=ring_size, side=(outs, rounds, moved))
+                     ring_size=ring_size, side=(outs, rounds, moved), proxy=proxy)
     return outs
 
 
@@ -737,3 +889,122 @@ def fused_rotation_grid_reference(queries, query_ids, blocks, carries, slots,
                 queries[i], query_ids[i], *b[:3], *carries[i], **kw)
                 for i, b in enumerate(held)]
     return carries
+
+
+def fused_rotation_grid_proxy_reference(ring: RingTransport, queries, query_ids,
+                                        blocks, carries, slots, *, ring_size,
+                                        hand_on, c_tile, exclude_self=True,
+                                        exclude_zero=True, zero_eps=0.0,
+                                        precision=None, timeout_s=TIMEOUT_S):
+    """Plain stand-in for K5's side of the host-proxy protocol
+    (``parallel/hostlink.py``), on CPU ranks: this process's ranks of a
+    ring of ``ring_size`` whose boundary has a "proxy" link. It makes, in
+    the kernel's order, what the kernel makes: the barrier's adds to the
+    mirror rows and its waits on its own words; per round the waits for a
+    free outbox slot and for the landed hop, the merges (K3a's plain
+    merge, as ``fused_rotation_grid_reference``), the stores of every
+    rank's traveler into its successor's slot, the last rank's into the
+    outbox in ``COPY_CTAS`` parts with a landed add after each, and the
+    first rank's slot release. The proxy of the call runs beside it on
+    the same tensors. An "ipc" link of the same process moves through
+    ``hand_on`` as in the plain version. A wait that times out sets the
+    error word and the rotation stops, as the kernel does; the proxy's
+    failure, then the error word, raise."""
+    P, n = ring_size, len(blocks)
+    kw = dict(c_tile=c_tile, exclude_self=exclude_self,
+              exclude_zero=exclude_zero, zero_eps=zero_eps, precision=precision)
+    held = [traveler(b) for b in blocks]
+    ring._ensure_flags()
+    ring.calls += 1
+    G, frees = ring.calls, max(P - 2, 0)
+    nxt_p, prv_p = ring.proxied(0), ring.proxied(1)
+    m_next, m_prev = ring.mirror
+    first, last = ring.flag_row(0), ring.flag_row(n - 1)
+    err = ring.flags[ring.cards[0]][0]
+
+    def parts(t):
+        return tuple(x for x in (t[0], t[1], t[3]) if x is not None)
+
+    outbox = ring.outbox(*parts(held[-1])) if nxt_p else None
+    proxy = ring.host_proxy(parts(slots[0]), outbox, P, timeout_s).start()
+
+    def wait(row, word, target, code) -> bool:
+        t0 = time.perf_counter()
+        while int(row[word]) < target:
+            if time.perf_counter() - t0 > timeout_s:
+                if not int(err[W_ERR]):
+                    err[W_ERR] = code
+                return False
+            time.sleep(1e-4)
+        return True
+
+    def landed():
+        m_next[G_LANDED] += 1
+
+    def rotate():
+        nonlocal carries, held
+        if prv_p:
+            m_prev[G_FROM_SUCC] += 1
+        if nxt_p:
+            m_next[G_FROM_PRED] += 1
+        if ((nxt_p and not wait(last, G_FROM_SUCC, G, 1))
+                or (prv_p and not wait(first, G_FROM_PRED, G, 1))):
+            return
+        for r in range(P):
+            if int(err[W_ERR]):
+                return  # every rank leaves at the same round
+            if r >= 1:
+                if nxt_p and r <= P - 2 and not wait(
+                        last, G_FREE, (G - 1) * frees + r, 5):
+                    return
+                if prv_p and not wait(first, G_LANDED,
+                                      ((G - 1) * (P - 1) + r) * COPY_CTAS, 2):
+                    return
+                if not prv_p:  # the "ipc" link's hop r - 1, off the cards
+                    hand_on(None, slot(slots[0], r % 2))
+            carries = [block_merge_exact_reference(
+                queries[i], query_ids[i], *b[:3], *carries[i], **kw)
+                for i, b in enumerate(held)]
+            if r == P - 1:
+                return
+            nxt = (r + 1) % 2
+            for i in range(n):
+                if i < n - 1:
+                    _store(slot(slots[i + 1], nxt), held[i])
+                elif nxt_p:
+                    _store(_as_traveler([t[nxt] for t in outbox]), held[i], landed)
+                else:
+                    out = landing_buffers(*held[i])
+                    _store(out, held[i])
+                    hand_on(out, None)
+            if prv_p and r < P - 2:  # round r's reads of slot r % 2 retired
+                m_prev[G_FREE] += 1
+            held = [slot(s, nxt) for s in slots]
+
+    name = kernel_name("fused_rotation_grid", precision)
+    try:
+        rotate()
+    finally:
+        _finish_proxy(ring, proxy, name)
+    ring.raise_on_error(name)
+    return carries
+
+
+def _as_traveler(parts):
+    """(block, ids[, norms]) as a traveler."""
+    return (parts[0], parts[1], None, parts[2] if len(parts) > 2 else None)
+
+
+def _store(dst, src, after_part=None):
+    """A traveler's block, ids and norms into ``dst``'s buffers, in
+    ``COPY_CTAS`` equal parts of each, ``after_part`` called after each
+    part (the kernel's copy items and their landed adds)."""
+    pairs = [(d.view(-1), s.reshape(-1)) for d, s in zip(
+        (dst[0], dst[1], dst[3]), (src[0], src[1], src[3]))
+        if d is not None and s is not None]
+    for part in range(COPY_CTAS):
+        for d, s in pairs:
+            a, b = s.numel() * part // COPY_CTAS, s.numel() * (part + 1) // COPY_CTAS
+            d[a:b].copy_(s[a:b])
+        if after_part is not None:
+            after_part()

@@ -20,9 +20,11 @@ times in every process; on four cards with 2 processes × 2 ranks it is
 cards {0, 1} and {2, 3}. On the CPU every rank is the CPU device.
 
 The backend rule, stated once (``backend`` in the start-up info), reads
-every process's cards as (host, card) pairs:
+every process's cards by their physical identity (``card_ids``: each
+card's UUID), never by the host name, so processes that report distinct
+hosts on one card still share it:
 
-- no (host, card) pair held by two processes: NCCL moves CUDA tensors (a
+- no card held by two processes: NCCL moves CUDA tensors (a
   group of its own, ``"nccl+gloo"``), gloo host objects (the default
   group). NCCL binds one card a process: a CUDA tensor on another of the
   process's cards is staged through the process's first card (``Pod.card``)
@@ -33,9 +35,11 @@ every process's cards as (host, card) pairs:
 
 The rule reads every process's cards after the gloo group has formed, so
 every process takes the same branch. No transport is swapped after a
-failure. Every process's hostname is kept (``Pod.hosts``): the grid
-form's transport across processes (``parallel/ipc.py``) reaches only the
-cards of one machine.
+failure. Every process's hostname is kept (``Pod.hosts``): it decides the
+kind of each link of the grid form's transport across processes, stated
+once in ``parallel/hostlink.link_kind``: ``"ipc"`` where the neighbouring
+process runs on the same host (CUDA IPC, ``parallel/ipc.py``), ``"proxy"``
+where it does not (a host proxy over gloo, ``parallel/hostlink.py``).
 """
 
 from __future__ import annotations
@@ -169,8 +173,7 @@ def init_multihost(coordinator_address: Optional[str] = None,
                                 timeout=timeout)
         host = socket.gethostname()
         seen = [None] * num_processes
-        dist.all_gather_object(seen, (host, dev.type,
-                                      sorted({str(c) for c in cards})))
+        dist.all_gather_object(seen, (host, dev.type, card_ids(cards)))
         hosts = [h for h, _, _ in seen]
         nccl = None
         if backend_of(seen) == "nccl+gloo":
@@ -203,13 +206,22 @@ def init_multihost(coordinator_address: Optional[str] = None,
 
 
 def backend_of(seen) -> str:
-    """The backend rule over every process's (host, device kind, its
-    distinct cards): NCCL for CUDA tensors where every process is on cards
-    and no (host, card) pair is held by two processes, else gloo alone."""
-    used = [(h, c) for h, kind, cs in seen if kind == "cuda" for c in cs]
+    """The backend rule over every process's (host, device kind, the
+    physical identities of its distinct cards): NCCL for CUDA tensors where
+    every process is on cards and no card is held by two processes, else
+    gloo alone. The host name is not read: a card is known by its UUID."""
+    used = [c for _, kind, cs in seen if kind == "cuda" for c in cs]
     own_cards = (all(kind == "cuda" for _, kind, _ in seen)
                  and len(set(used)) == len(used))
     return "nccl+gloo" if own_cards else "gloo"
+
+
+def card_ids(cards) -> list:
+    """The sorted physical identities of ``cards``' distinct devices: each
+    CUDA card's UUID (``torch.cuda.get_device_properties(i).uuid``), the
+    device's name off the cards."""
+    return sorted({str(torch.cuda.get_device_properties(c.index).uuid)
+                   if c.type == "cuda" else str(c) for c in cards})
 
 
 def pod_cards(dev: torch.device, process_id: int, n: int) -> list:
@@ -244,6 +256,9 @@ def shutdown() -> None:
                 ipc.free_exports()
             except Exception as e:  # never mask the error that ended the run
                 log.warning("distributed: the CUDA IPC teardown failed: %s", e)
+        from mpi_knn_tpu_torch.ops.fused_rotation import drop_process_transports
+
+        drop_process_transports()  # a proxy link's buffers are this pod's
         dist.destroy_process_group()
     _POD = None
 

@@ -1,5 +1,5 @@
 """CUDA IPC between the processes of one host: the grid form's (K5's)
-transport across processes.
+transport across an "ipc" link.
 
 K5 (``ops/fused_rotation.fused_rotation_grid``) runs the whole rotation
 in one launch a card, so a block cannot wait for the process group at a
@@ -28,10 +28,15 @@ its cards and meets the others at a barrier, closes its mappings, meets
 them again, and only then frees what it exported, so no process frees
 memory another still maps.
 
-The rule for which transport K5 uses across processes is decided once,
-from the pod's hostnames (``Pod.hosts``): CUDA IPC reaches only the cards
-of one machine, so a ring whose neighbouring processes lie on different
-hosts refuses the grid form by name (``backends/ring.py``).
+Which transport K5 uses on each link across processes is decided once,
+from the pod's hostnames (``Pod.hosts``), by the link rule stated in
+``parallel/hostlink.link_kind``: CUDA IPC reaches only the cards of one
+machine, so a link whose neighbouring process runs on this host is
+``"ipc"`` (this module) and one whose neighbour runs on another host is
+``"proxy"`` (``parallel/hostlink.py``: the kernel's stores and flag adds
+go to buffers of the process's own, and a host proxy moves each hop over
+gloo during the launch). A proxy link opens no mapping and exports
+nothing.
 """
 
 from __future__ import annotations

@@ -2256,7 +2256,8 @@ def test_multiproc_on_one_card_is_the_single_process_ring(cuda_device):
 
     _build.build_all()  # the workers load what this process built
     X, _ = make_mnist_like(4096)
-    launches, _ = chip_smoke.multiproc_phase(torch.device("cuda", 0), X, _mp_recall(X))
+    launches, _, _ = chip_smoke.multiproc_phase(torch.device("cuda", 0), X,
+                                                _mp_recall(X))
     assert launches["fused_round_dma"] == 2 + 1  # the one-shot, the stopped run
     assert launches["fused_block_merge[exact]"] == 2 + 1  # bidir, the last round
 
@@ -2275,10 +2276,29 @@ def test_multiproc_ranks_on_one_card_is_the_single_process_ring(cuda_device):
 
     _build.build_all()
     X, _ = make_mnist_like(4096)
-    _, ranks = chip_smoke.multiproc_phase(torch.device("cuda", 0), X,
-                                          _mp_recall(X), ranks=2)
+    _, ranks, _ = chip_smoke.multiproc_phase(torch.device("cuda", 0), X,
+                                             _mp_recall(X), ranks=2)
     assert ranks["fused_rotation_grid"] == 1 + 1  # the 1-D ring, --dp 2
     assert ranks["fused_round_dma"] == 4 + 1 + 2 + 2  # 1-D, stopped, resumed, --dp
+
+
+@pytest.mark.cuda
+def test_multiproc_hosts_k5_on_one_card_is_the_ipc_form(cuda_device):
+    """The smoke's multiproc_hosts phase at a small size: the 2 × 2 pod on
+    the one card, its workers reporting hosts h0 and h1, runs K5 over the
+    host proxy at both boundaries, bit for bit the single-process K5 ring
+    and the IPC form, one K5 launch a process, no CUDA IPC mapping, the
+    proxy's bytes 3 hops of block + ids + norms (the phase's gates)."""
+    import chip_smoke
+    from mpi_knn_tpu_torch.data.synthetic import make_mnist_like
+    from mpi_knn_tpu_torch.ops import _build
+
+    _build.build_all()
+    X, _ = make_mnist_like(4096)
+    recall = _mp_recall(X)
+    _, _, k5 = chip_smoke.multiproc_phase(torch.device("cuda", 0), X, recall, ranks=2)
+    launches = chip_smoke.multiproc_hosts_phase(X, recall, k5)
+    assert launches["fused_rotation_grid"] == 1
 
 
 @pytest.mark.cuda

@@ -458,9 +458,9 @@ def test_findings_equal_the_reference_engine(tmp_path, name):
 
 def test_production_sweep_clean_via_cli(tmp_path):
     """``lint --host``: exit 0 over the JAX package's seven targets and the
-    port's ``ops._build``, zero findings, zero problems, every waiver with
-    a rationale, the lock graph acyclic from the report, and the port's
-    dispatch-versus-mutation lock in it."""
+    port's ``ops._build`` and ``parallel.hostlink``, zero findings, zero
+    problems, every waiver with a rationale, the lock graph acyclic from
+    the report, and the port's dispatch-versus-mutation lock in it."""
     from mpi_knn_tpu_torch.analysis.cli import main as lint_main
 
     assert lint_main(["--host", "-q", "--out", str(tmp_path)]) == 0
@@ -472,6 +472,7 @@ def test_production_sweep_clean_via_cli(tmp_path):
     assert names == {
         "frontend", "serve.engine", "serve.mutate", "serve.aotcache",
         "obs.metrics", "obs.spans", "resilience.worker", "ops._build",
+        "parallel.hostlink",
     }
     assert all(t["ok"] for t in doc["targets"])
     lg = doc["lock_graph"]
@@ -549,7 +550,7 @@ def test_report_shape_and_save(tmp_path):
         "H1-lock-discipline", "H2-lock-order", "H3-confinement",
         "H4-atomic-publish",
     }
-    assert doc["summary"]["targets"] == 8
+    assert doc["summary"]["targets"] == 9
     assert doc["summary"]["classes_checked"] >= 15
     s = doc["summary"]
     assert s["lock_graph_acyclic"] and s["findings"] == 0

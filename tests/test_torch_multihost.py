@@ -578,16 +578,17 @@ def test_cuda_pod_places_n_ranks_a_process_by_the_card_rule(monkeypatch, count,
 
 
 @pytest.mark.parametrize("seen,want", [
-    ([("h", "cuda", ["cuda:0"]), ("h", "cuda", ["cuda:0"])], "gloo"),
-    ([("h", "cuda", ["cuda:0", "cuda:1"]), ("h", "cuda", ["cuda:2", "cuda:3"])],
+    ([("h", "cuda", ["GPU-0"]), ("h", "cuda", ["GPU-0"])], "gloo"),
+    ([("h", "cuda", ["GPU-0", "GPU-1"]), ("h", "cuda", ["GPU-2", "GPU-3"])],
      "nccl+gloo"),
-    ([("h", "cuda", ["cuda:0", "cuda:1"]), ("h", "cuda", ["cuda:1", "cuda:2"])], "gloo"),
-    ([("a", "cuda", ["cuda:0"]), ("b", "cuda", ["cuda:0"])], "nccl+gloo"),
+    ([("h", "cuda", ["GPU-0", "GPU-1"]), ("h", "cuda", ["GPU-1", "GPU-2"])], "gloo"),
+    ([("a", "cuda", ["GPU-a0"]), ("b", "cuda", ["GPU-b0"])], "nccl+gloo"),
     ([("h", "cpu", ["cpu"]), ("h", "cpu", ["cpu"])], "gloo"),
+    ([("a", "cuda", ["GPU-0"]), ("b", "cuda", ["GPU-0"])], "gloo"),
 ])
 def test_backend_follows_the_card_rule(seen, want):
-    """NCCL where no (host, card) pair is held by two processes, else gloo
-    through host memory."""
+    """NCCL where no card (by its UUID) is held by two processes, else gloo
+    through host memory, whatever host names the processes report."""
     from mpi_knn_tpu_torch.parallel.distributed import backend_of
 
     assert backend_of(seen) == want
@@ -620,27 +621,6 @@ def test_cuda_pod_mesh_takes_each_process_s_ranks(monkeypatch):
     assert across[0].owners == [0, 0, 1, 1] and across[0].spans_processes()
     with pytest.raises(ValueError, match="the pod placed 2"):
         make_ring_mesh(3, device="cuda")
-
-
-def test_grid_across_hosts_is_refused_by_name(monkeypatch):
-    """The grid form's transport across processes is CUDA IPC, which
-    reaches one machine's cards: a ring whose neighbouring processes run
-    on two hosts refuses it before anything moves; on one host the rule
-    lets it through."""
-    from mpi_knn_tpu_torch.backends.ring import ProcessSpan, all_knn_ring
-    from mpi_knn_tpu_torch.parallel.mesh import RingMesh
-
-    X = _data()
-    mesh = RingMesh(["cpu"] * 4, owners=[0, 0, 1, 1])
-    over, form = FORMS["grid"]
-    _fake_pod(monkeypatch, ["cpu", "cpu"], hosts=("h0", "h1"))
-    assert not ProcessSpan(mesh).one_host()
-    with pytest.raises(ValueError, match="ring_fused_rotation='grid' across hosts") as e:
-        all_knn_ring(X, X, np.arange(len(X), dtype=np.int32), _cfg("uni", **over),
-                     mesh=mesh, device="cpu", form=form)
-    assert "CUDA IPC" in str(e.value) and "['h0', 'h1']" in str(e.value)
-    _fake_pod(monkeypatch, ["cpu", "cpu"], hosts=("h0", "h0"))
-    assert ProcessSpan(mesh).one_host()
 
 
 def test_round_dma_outbox_takes_the_boundary_ranks_copy():
