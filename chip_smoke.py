@@ -72,9 +72,10 @@ is not 0:
    make_mnist_like queries (seed 1, one equal to a corpus row) streamed
    through ServeSession in batches of 256 and in ragged batches of 1..2048
    rows (buckets 1024 and 2048), for tiles exact, sweep exact and tiles
-   mixed; sweep mixed (K2[c]) at its buckets only. At each bucket the
-   kernel's wrapper, reading the index's staged
-   corpus, is held against its plain version on the same card tensors
+   mixed; sweep mixed (K2[c]) and sweep exact at matmul_precision
+   "default" and "high" (K2 on the bf16 planes) at their buckets only. At
+   each bucket the kernel's wrapper, reading the index's staged corpus, is
+   held against its plain version on the same card tensors
    (``compare``), and the kernel alone is timed beside its launch plan
    (items, waves) and bound, and the batch's device work alone (the
    host->device copy, the query prologue, the kernel, the merge, the
@@ -119,11 +120,15 @@ is not 0:
    per tile on serial, once on pallas tiles); query mode at SIFT1M's shape
    (1000000x128 corpus, 10000 queries, both .fvecs) through pallas tiles,
    its saved ids equal to all_knn's;
-8. precision (in the kernel and main-path sections): K1, K2 (after their
-   norms prologue ``stage_norms``), K3a (the P=1 shape), K4 (one P=4
-   round) and K5 (the P=4 rotation) at matmul_precision "default" and
-   "high" against their plain versions, ids judged by their rounded-operand
-   keys; ``precision_error`` holds every final slot against f64 and against
+8. precision (in the kernel and main-path sections): K1, K2 (the bf16
+   wgmma tile after their prologue: the planes ``stage_planes``, held bit
+   for bit against their plain version, and the norms ``stage_norms``;
+   each timed beside the mma.sync kernel that ran these forms before,
+   ``csrc/mma_sync_baseline.cu``, a measurement build, and gated faster;
+   K2's output the same bit for bit at forced corpus splits), K3a (the P=1
+   shape), K4 (one P=4 round) and K5 (the P=4 rotation) at
+   matmul_precision "default" and "high" against their plain versions, ids
+   judged by their rounded-operand keys; ``precision_error`` holds every final slot against f64 and against
    the oracle of rounded operands (gate: the kernel within max(1e-6, 2x the
    plain's) of that oracle); the high products alone (three bf16 matmuls);
    main paths at each precision (pallas tiles and sweep, the 4-rank
@@ -291,8 +296,8 @@ is not 0:
 20. kernels: one line with every kernel mode's launches, error, times and
    bound, the prologues (`stage_tf32_split`, `stage_tf32[wire]`,
    `stage_tf32_split[ring]`, `stage_bf16`, `stage_bf16[wire]`,
-   `stage_norms`), the "default" / "high" forms and the approx kernel (f32
-   and f64) among them.
+   `stage_planes`, `stage_norms`), the "default" / "high" forms and the
+   approx kernel (f32 and f64) among them.
 
 Every kernel runs on the tensor cores. The exact K1 and K2 run wgmma: three
 TF32 passes of hi/lo planes that their prologue `stage_tf32_split` writes
@@ -348,6 +353,7 @@ the package beside it, the script exits non-zero and prints no result.
 """
 
 import concurrent.futures
+import ctypes
 import json
 import os
 import re
@@ -377,6 +383,9 @@ OV = 4 * K  # the mixed policy's overfetch width at the main path's tiles
 M_FULL = 60000
 Q_TILE, C_TILE = 512, 2048  # the fused backend's clamps at the main path
 SAMPLE_ROWS = 4096  # rows whose ids are judged in f64 at the largest shapes
+# csrc/mma_sync_baseline.cu: K1/K2 at "default" / "high" on the mma.sync
+# tile, built beside the kernels and timed against the bf16 wgmma tile
+MMA_BASELINE = "mma_sync_baseline"
 
 
 def source_of(kernel: str) -> str:
@@ -384,7 +393,7 @@ def source_of(kernel: str) -> str:
     if kernel.startswith("approx_min_k"):
         return "approx_topk.cu"
     if kernel.startswith("fused_knn") or kernel in ("stage_tf32_split", "stage_bf16",
-                                                    "stage_norms"):
+                                                    "stage_planes", "stage_norms"):
         return "fused_knn.cu"
     if kernel.startswith(("fused_block_merge", "stage")) and not kernel.endswith("[ring]"):
         return "fused_ring.cu"
@@ -880,6 +889,55 @@ def exact_error(name, q, c, got, want, strict=False) -> dict:
     return line
 
 
+def planes_alone(rows, planes):
+    """The "default" / "high" prologue's planes kernel alone (no norms),
+    written again into ``planes`` (hi, lo or None, norms) of ``rows``."""
+    import torch
+
+    from mpi_knn_tpu_torch.ops import fused_knn
+
+    hi, lo, _ = planes
+    n, d = rows.shape
+    rc = fused_knn._lib().stage_planes_launch(
+        rows.data_ptr(), hi.data_ptr(), None if lo is None else lo.data_ptr(), n, d,
+        hi.shape[1], torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise AssertionError(f"stage_planes launch failed: cudaError {rc}")
+
+
+def mma_baseline(base, q, c, norms, m_corpus, k, c_tile, precision):
+    """A launcher of the mma.sync form of K1 (base "fused_knn_tiles") or K2
+    ("fused_knn_sweep") at "default" / "high" (MMA_BASELINE, a measurement
+    build) on the f32 rows q, c and the corpus norms ``norms`` (q's are its
+    first rows), into outputs of its own on the current stream."""
+    import torch
+
+    from mpi_knn_tpu_torch.ops import _build
+    from mpi_knn_tpu_torch.ops.distance import precision_code
+
+    lib = _build.load(MMA_BASELINE)
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.fused_knn_mma_launch.argtypes = ([ptr] * 6 + [i32] * 9 + [ctypes.c_float]
+                                         + [i32] * 2 + [ptr])
+    lib.fused_knn_mma_launch.restype = i32
+    (Q, D), C = q.shape, c.shape[0]
+    sweep = base == "fused_knn_sweep"
+    shape = (Q, k) if sweep else (C // c_tile, Q, k)
+    out_d = torch.empty(shape, dtype=torch.float32, device=q.device)
+    out_i = torch.empty(shape, dtype=torch.int32, device=q.device)
+
+    def run():
+        rc = lib.fused_knn_mma_launch(
+            q.data_ptr(), norms.data_ptr(), c.data_ptr(), norms.data_ptr(),
+            out_d.data_ptr(), out_i.data_ptr(), Q, C, D, m_corpus, k, c_tile, 1, 1, 1,
+            0.0, precision_code(precision), int(sweep),
+            torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise AssertionError(f"{MMA_BASELINE} {base} launch failed: cudaError {rc}")
+
+    return run
+
+
 def kernel_cases(device):
     """(name, queries, corpus, m_corpus, all_pairs, exact, k, q_tile,
     c_tile) on the card."""
@@ -955,9 +1013,12 @@ def ring_small_cases(device, seed=1, id_base=0):
 
 SERVE_QUERIES = 10000  # make_mnist_like(10000, seed=1): the serve phase's stream
 SERVE_BUCKET = 1024
-SERVE_VARIANTS = (("tiles", "exact"), ("sweep", "exact"), ("tiles", "mixed"))
-# variants held and timed at their buckets only (no streams): K2[c]
-SERVE_KERNEL_ONLY = (("sweep", "mixed"),)
+SERVE_VARIANTS = (("tiles", "exact", None), ("sweep", "exact", None),
+                  ("tiles", "mixed", None))
+# variants held and timed at their buckets only (no streams): K2[c], and K2
+# at matmul_precision "default" / "high" on the index's staged planes
+SERVE_KERNEL_ONLY = (("sweep", "mixed", None), ("sweep", "exact", "default"),
+                     ("sweep", "exact", "high"))
 DUP_QUERY, DUP_ROW = 4321, 777  # the serve stream's query equal to a corpus row
 SERVE_RUNS = 3  # timed windows of each stream: the spread across runs
 SERVE_MIN_BATCHES = 120  # batches in one timed window, so p99 has >= 100
@@ -1064,15 +1125,18 @@ def serve_phase(device, X, inputs) -> dict:
     picks, want_ids = inputs["picks"], inputs["want_ids"]
     max_err = {}
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    for variant, policy in SERVE_VARIANTS + SERVE_KERNEL_ONLY:
-        label = f"pallas/{variant}/{policy}"
-        kernel_only = (variant, policy) in SERVE_KERNEL_ONLY
+    for variant, policy, precision in SERVE_VARIANTS + SERVE_KERNEL_ONLY:
+        label = f"pallas/{variant}/{policy}" + (f"/{precision}" if precision else "")
+        kernel_only = (variant, policy, precision) in SERVE_KERNEL_ONLY
         kw = dict(k=K, backend="pallas", pallas_variant=variant,
                   precision_policy=policy, query_bucket=SERVE_BUCKET,
-                  dispatch_depth=2)
+                  dispatch_depth=2, matmul_precision=precision)
         compress = policy == "mixed"
-        kernel = f"fused_knn_{variant}" + ("[compress]" if compress else "")
+        kernel = f"fused_knn_{variant}" + ("[compress]" if compress else
+                                           f"[{precision}]" if precision else "")
         q_stage = "stage_bf16" if compress else "stage_tf32_split"
+        build_want = ({"stage_planes": 1, "stage_norms": 1} if precision
+                      else {q_stage: 1})
         sync_all()
         mem0 = torch.cuda.memory_allocated(device)
         reset_counts()
@@ -1093,9 +1157,9 @@ def serve_phase(device, X, inputs) -> dict:
               "k": K, "index_build_ms": build_ms, "resident_bytes": resident,
               "nbytes_resident": index.nbytes_resident,
               "launches_at_build": build_counts, "warm": warm})
-        if build_counts != {q_stage: 1}:
+        if build_counts != build_want:
             raise AssertionError(f"serve {label}: build launches {build_counts}, "
-                                 f"expected {{{q_stage!r}: 1}}")
+                                 f"expected {build_want}")
         # at each bucket: the wrapper on the staged corpus against its plain
         # version on the same card tensors; the kernel alone beside its
         # launch plan and bound; the batch's device work alone, back to back
@@ -1109,14 +1173,14 @@ def serve_phase(device, X, inputs) -> dict:
             kk = 4 * K if compress else (
                 K if variant == "sweep" else min(K, index.c_tile))
             args = (qb, cp, M_FULL, kk, exec_.q_tile, index.c_tile)
-            opts = dict(all_pairs=False, compress=compress)
+            opts = dict(all_pairs=False, compress=compress, precision=precision)
             got = wrapper(*args, staged_corpus=index.staged, **opts)
             torch.cuda.synchronize()
             want = plain(*args, **opts)
             err = compare(f"{kernel}/serve_bucket{bucket}", got, want, qb, cp,
                           M_FULL, None, False, kk,
                           index.c_tile if variant == "tiles" else cp.shape[0],
-                          compress=compress)
+                          compress=compress, precision=precision)
             max_err[kernel] = max(max_err.get(kernel, 0.0), err)
             plain_ms = cuda_ms(lambda: plain(*args, **opts), reps=2)  # noqa: B023
             if compress:
@@ -1129,6 +1193,14 @@ def serve_phase(device, X, inputs) -> dict:
                     plan = fused_knn.compress_sweep_launch_plan(
                         bucket, cp.shape[0], M_FULL, kk,
                         fused_knn.compress_sweep_plan(bucket, M_FULL, sms)["slices"])
+            elif precision:  # K2 on the index's planes, at the plan's split
+                sq = fused_knn.stage_planes(qb, precision)
+                run = lambda: fused_knn.launch_planes(  # noqa: E731
+                    f"fused_knn_{variant}", sq, index.staged.part(precision),  # noqa: B023
+                    M_FULL, kk, index.c_tile, precision, all_pairs=False)  # noqa: B023
+                plan = fused_knn.planes_plan(
+                    f"fused_knn_{variant}", bucket, cp.shape[0], M_FULL, kk, index.c_tile,
+                    precision, fused_knn.compress_sweep_plan(bucket, M_FULL, sms)["slices"])
             else:
                 sq = fused_knn.stage_tf32_split(qb)
                 run = lambda: fused_knn.launch_exact(  # noqa: E731
@@ -1150,8 +1222,9 @@ def serve_phase(device, X, inputs) -> dict:
             device_part()
             card_ms[bucket] = cuda_ms(device_part, reps=10)
             exec_.release(slot)
-            ops = 2.0 * bucket * M_FULL * X.shape[1] * (1 if compress else 3)
-            peak = PEAK_BF16_FLOPS if compress else PEAK_TF32_FLOPS
+            passes = 1 if compress or precision == "default" else 3
+            ops = 2.0 * bucket * M_FULL * X.shape[1] * passes
+            peak = PEAK_BF16_FLOPS if compress or precision else PEAK_TF32_FLOPS
             emit({"phase": "serve_kernel", "path": label, "kernel": kernel,
                   "bucket": bucket, "max_abs_err": err, "ms": ms,
                   "plain_ms": plain_ms, "bound_ms": 1e3 * ops / peak,
@@ -5295,9 +5368,12 @@ def main() -> int:
           "allow_tf32": torch.backends.cuda.matmul.allow_tf32})
 
     # the exact wgmma tile at the other promotion intervals (k-steps of 8;
-    # 0: none), built beside the sources for the exact_error_interval phase
+    # 0: none), built alone beside the sources for the exact_error_interval
+    # phase; and the mma.sync form of K1/K2 at "default" / "high" that the
+    # bf16 wgmma tile replaced, the precision block's measurement baseline
     intervals = {f"KNN_WGMMA_PROMOTE={n}": 8 * n for n in (0, 1, 4)}
-    info = _build.build_all(variants=[("fused_knn", (d,)) for d in intervals])
+    info = _build.build_all(variants=[("fused_knn", (d, "KNN_EXACT_TILE_ONLY"))
+                                      for d in intervals] + [(MMA_BASELINE, ())])
     for label, entry in info.items():
         print(entry["log"], file=sys.stderr)
         name, *defines = label.split(" ")
@@ -5324,12 +5400,15 @@ def main() -> int:
                                       ("round_dma_kernelIL", "HMMA")],
                   "stage_tf32_split[ring]": [("stage_split_kernel", "HGMMA")],
                   "fused_rotation_grid": [("rotation_grid_kernel", "HMMA")]}
-    # the "default" / "high" forms: the mma.sync tile on Bf16x1F32 / Bf16x3
+    # the "default" / "high" forms: K1/K2 on the bf16 wgmma tile (one pass,
+    # or three on the hi / lo planes), the ring's on the mma.sync tile on
+    # Bf16x1F32 / Bf16x3
     policy = {"default": "Bf16x1F32", "high": "Bf16x3"}
+    planes_fn = {"default": "fused_knn_bf16x1_kernel", "high": "fused_knn_bf16x3_kernel"}
     for p in PRECISIONS:
-        for base, fn in (("fused_knn_tiles", "fused_knn_mma_kernel"),
-                         ("fused_knn_sweep", "fused_knn_mma_kernel"),
-                         ("fused_block_merge", "block_merge_exact_kernel"),
+        for base in ("fused_knn_tiles", "fused_knn_sweep"):
+            kernel_fns[f"{base}[{p}]"] = [(planes_fn[p], "HGMMA", None)]
+        for base, fn in (("fused_block_merge", "block_merge_exact_kernel"),
                          ("fused_round_dma", "round_dma_kernelIL"),
                          ("fused_rotation_grid", "rotation_grid_kernel")):
             kernel_fns[f"{base}[{p}]"] = [(fn, "HMMA", policy[p])]
@@ -5345,8 +5424,15 @@ def main() -> int:
             base = name.split("[")[0]
             if name == "stage_norms":
                 info = {}
-            elif base.startswith("fused_knn"):
-                info = fused_knn.mma_plan(base, 60416, 61440, C_TILE, K, p)
+            elif base.startswith("fused_knn"):  # the planes' tile: no mma.sync
+                fn = planes_fn[p]
+                found[f"hmma_in_sass[{fn}]"] = sum(v["HMMA"] for f, v in lib.items()
+                                                   if fn in f)
+                if found.pop(f"hmma_in_sass[{fn}]"):
+                    raise AssertionError(f"{name}: {fn} holds mma.sync (HMMA) instructions")
+                info = {"hmma_in_sass": 0, **fused_knn.planes_plan(
+                    base, 60416, 61440, M_FULL, K, C_TILE, p,
+                    fused_knn.compress_sweep_plan(60416, M_FULL, sms)["slices"])}
             elif base == "fused_block_merge":
                 info = {f"q_local_{ql}": fused_ring.exact_plan(torch.float32, ql, K, p)
                         for ql in (60416, 15360)}
@@ -5522,7 +5608,11 @@ def main() -> int:
     # builds of K2 and its prologue), on the same inputs: error and time
     stream = torch.cuda.current_stream().cuda_stream
     for define, depth in intervals.items():
-        variant = fused_knn.configure(_build.load("fused_knn", (define,)))
+        variant = _build.load("fused_knn", (define, "KNN_EXACT_TILE_ONLY"))
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int  # the two entry points it has
+        variant.stage_tf32_split_launch.argtypes = [ptr] * 4 + [i32] * 3 + [ptr]
+        variant.fused_knn_sweep_launch.argtypes = ([ptr] * 8 + [i32] * 8
+                                                   + [ctypes.c_float, ptr])
         planes = [torch.empty((C, D), dtype=torch.float32, device=device)
                   for _ in range(2)]
         var_norms = torch.empty(C, dtype=torch.float32, device=device)
@@ -5718,12 +5808,16 @@ def main() -> int:
           "width": width, **timing["stage_bf16"]})
 
     # ---- matmul_precision "default" / "high": K1 and K2 at the main shape:
-    # the f32 mma.sync tile with each operand rounded to bf16 (one pass) or
-    # split into bf16 hi + lo (three passes) in registers, after the norms
-    # prologue stage_norms (once: the queries are the corpus's first rows).
-    # Each against its plain version (ids judged by their rounded-operand
-    # keys on SAMPLE_ROWS rows), every final slot against f64 and against
-    # the oracle of rounded operands (precision_error)
+    # K2[c]'s bf16 wgmma tile on the prologue's planes (stage_planes: hi,
+    # and at "high" lo; once, the queries being the corpus's first rows)
+    # with the norms of stage_norms (the Tf32x3 tile's diagonal) and the
+    # exact epilogue. Each against its plain version (ids judged by their
+    # rounded-operand keys on SAMPLE_ROWS rows), every final slot against
+    # f64 and against the oracle of rounded operands (precision_error), and
+    # timed alternately with the mma.sync kernel that ran these forms
+    # before (MMA_BASELINE, on the f32 rows and the same norms): the new
+    # kernel must be the faster. K2's output at forced corpus splits must be
+    # the plan's bit for bit, at the main shape and at a 1024-row bucket.
     t_prec = time.perf_counter()
     norms = fused_knn.stage_f32_norms(cp)
     max_err["stage_norms"] = check_norms("stage_norms/mnist60k_corpus", norms,
@@ -5735,9 +5829,37 @@ def main() -> int:
         **norms_bound(C, D, 4.0)}
     emit({"phase": "kernel_time", "kernel": "stage_norms", "rows": C, "D": D,
           **timing["stage_norms"]})
-    staged_n = ((norms[:Q],), (norms,))
+    width = fused_knn.staged_width(D)
     for precision in PRECISIONS:
         passes = 1 if precision == "default" else 3
+        # the planes against their plain version, bit for bit, and the
+        # norms beside them stage_norms' own
+        planes = fused_knn.stage_planes(cp, precision)
+        want_planes = fused_knn.stage_planes_reference(cp, precision, width)
+        for part, g, w in zip(("hi", "lo"), planes[:2], want_planes[:2]):
+            if (g is None) != (w is None) or (
+                    g is not None and not torch.equal(g.view(torch.int16),
+                                                      w.view(torch.int16))):
+                raise AssertionError(f"stage_planes[{precision}]: the {part} plane differs")
+        if not torch.equal(planes[2], norms):
+            raise AssertionError("stage_planes: its norms are not stage_norms'")
+        max_err["stage_planes"] = 0.0
+        emit({"phase": "kernel_vs_plain", "case": f"stage_planes[{precision}]/mnist60k_corpus",
+              "exact": True, "max_abs_err": 0.0, "ok": True})
+        n_planes = 1 if precision == "default" else 2
+        timing[f"stage_planes[{precision}]"] = {
+            "ms": cuda_ms(lambda: planes_alone(cp, planes), reps=3),  # noqa: B023
+            "plain_ms": cuda_ms(lambda: fused_knn.stage_planes_reference(  # noqa: B023
+                cp, precision, width), reps=3),  # noqa: B023
+            "plain": "stage_planes_reference (planes and norms)", "planes": n_planes,
+            # the rows read once, the planes written once; a conversion an element
+            **bound(1.0 * C * D * n_planes, 4.0 * C * D + 2.0 * C * width * n_planes,
+                    PEAK_FP32_FLOPS)}
+        emit({"phase": "kernel_time", "kernel": "stage_planes", "precision": precision,
+              "rows": C, "D": D, "width": width, **timing[f"stage_planes[{precision}]"]})
+        del want_planes
+        staged_p = (tuple(None if t is None else t[:Q] for t in planes), planes)
+        main_slices = fused_knn.compress_sweep_plan(Q, M_FULL, sms)["slices"]
         for base in ("fused_knn_tiles", "fused_knn_sweep"):
             name = f"{base}[{precision}]"
             kern = getattr(fused_knn, base)
@@ -5746,8 +5868,15 @@ def main() -> int:
             kw = dict(precision=precision)
             got, want = kern(*args, **kw), plain(*args, **kw)  # also the warm-ups
             call_ms = cuda_ms(lambda: kern(*args, **kw), reps=1)  # noqa: B023
-            ms = cuda_ms(lambda: fused_knn.launch_mma(  # noqa: B023
-                base, qp, cp, *staged_n, M_FULL, K, C_TILE, precision), reps=2)  # noqa: B023
+            new = lambda: fused_knn.launch_planes(  # noqa: E731
+                base, *staged_p, M_FULL, K, C_TILE, precision)  # noqa: B023
+            old = mma_baseline(base, qp, cp, norms, M_FULL, K, C_TILE, precision)
+            old()
+            ab = {"new": [], "mma_sync": []}
+            for _ in range(2):  # alternately, new first
+                ab["new"].append(cuda_ms(new, reps=1))
+                ab["mma_sync"].append(cuda_ms(old, reps=1))
+            ms, old_ms = statistics.mean(ab["new"]), statistics.mean(ab["mma_sync"])
             plain_ms = cuda_ms(lambda: plain(*args, **kw), reps=1)  # noqa: B023
             max_err[name] = compare(f"{name}/mnist60k_main_shape", got, want, qp, cp,
                                     M_FULL, self_all, False, K,
@@ -5758,18 +5887,61 @@ def main() -> int:
             precision_error(name, precision, qp[:M_FULL], cp,
                             *((d[:M_FULL], i[:M_FULL]) for d, i in final))
             out_slots = (n_c if base == "fused_knn_tiles" else 1) * M_FULL * K
-            nbytes = 4.0 * (2 * M_FULL * D) + 8.0 * out_slots
+            nbytes = 2.0 * n_planes * (Q + C) * width + 8.0 * (Q + C) + 8.0 * out_slots
             timing[name] = {"ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
+                            "mma_sync_ms": old_ms, "ab_ms": ab,
+                            "speedup_vs_mma_sync": old_ms / ms,
                             **bound(passes * needed_ops, nbytes, PEAK_BF16_FLOPS),
                             "passes": passes,
                             "tflops": needed_ops / (ms * 1e-3) / 1e12}
-            plan = fused_knn.mma_plan(base, Q, C, C_TILE, K, precision)
-            plan["waves"] = plan["ctas"] / (plan["ctas_per_sm"] * sms)
+            plan = fused_knn.planes_plan(base, Q, C, M_FULL, K, C_TILE, precision,
+                                         main_slices)
             emit({"phase": "launch_plan", "kernel": name, "shape": "main_shape",
                   "sms": sms, **plan})
             emit({"phase": "kernel_time", "kernel": name, "Q": Q, "C": C, "D": D,
                   "k": K, **timing[name]})
-            del got, want, final
+            if ms >= old_ms:
+                raise AssertionError(f"{name}: the wgmma tile ({ms:.3f} ms) is not "
+                                     f"faster than the mma.sync kernel ({old_ms:.3f} ms)")
+            del got, want, final, old
+        # K1's cost an item beyond its chunks: K1 at corpus tiles three
+        # times as wide (a third of the items, the same chunks), against K2
+        wide = 3 * C_TILE
+        wide_ms = cuda_ms(lambda: fused_knn.launch_planes(  # noqa: B023
+            "fused_knn_tiles", *staged_p, M_FULL, K, wide, precision), reps=2)  # noqa: B023
+        items = {ct: -(-Q // fused_knn.SWEEP_ROWS) * (C // ct) for ct in (C_TILE, wide)}
+        per_cta = (items[C_TILE] - items[wide]) / sms
+        item_ms = (timing[f"fused_knn_tiles[{precision}]"]["ms"] - wide_ms) / per_cta
+        chunk_ms = timing[f"fused_knn_sweep[{precision}]"]["ms"] / (
+            -(-Q // fused_knn.SWEEP_ROWS) / sms * -(-M_FULL // fused_knn.SWEEP_COLS))
+        emit({"phase": "item_cost", "kernel": f"fused_knn_tiles[{precision}]",
+              "c_tiles": [C_TILE, wide], "items": [items[C_TILE], items[wide]],
+              "ms": [timing[f"fused_knn_tiles[{precision}]"]["ms"], wide_ms],
+              "sweep_ms": timing[f"fused_knn_sweep[{precision}]"]["ms"],
+              "item_ms_per_cta": item_ms, "chunk_ms_per_cta": chunk_ms,
+              "item_in_chunks": item_ms / chunk_ms})
+        # K2's corpus split: forced splits against the plan's, bit for bit
+        bucket_q = fused_knn.stage_planes(qp[M_FULL - 1024:M_FULL].contiguous(), precision)
+        for label, sq_, all_pairs in (("main_shape", staged_p[0], True),
+                                      ("bucket_1024", bucket_q, False)):
+            rows = sq_[0].shape[0]
+            plan = fused_knn.compress_sweep_plan(rows, M_FULL, sms)
+            want = fused_knn.launch_planes("fused_knn_sweep", sq_, planes, M_FULL, K,
+                                           C_TILE, precision, all_pairs=all_pairs)
+            ok = {S: same(fused_knn.launch_planes("fused_knn_sweep", sq_, planes, M_FULL,
+                                                  K, C_TILE, precision,
+                                                  all_pairs=all_pairs, slices=S), want)
+                  for S in (1, 2, 5)}
+            emit({"phase": "s_invariance", "kernel": f"fused_knn_sweep[{precision}]",
+                  "shape": label, "Q": rows, "plan_slices": plan["slices"],
+                  "bitwise_equal_at_slices": ok})
+            if not all(ok.values()):
+                raise AssertionError(f"K2[{precision}] at {label}: the output depends "
+                                     f"on the split {ok}")
+            del want
+        del planes, staged_p, bucket_q
+    # the kernels line's prologue entry: the planes at "high", both written
+    timing["stage_planes"] = timing["stage_planes[high]"]
     # the products alone at "high": three bf16 matmuls of the hi / lo copies
     qh, ch = qp.to(torch.bfloat16), cp.to(torch.bfloat16)
     ql, cl = (qp - qh.float()).to(torch.bfloat16), (cp - ch.float()).to(torch.bfloat16)
@@ -5785,7 +5957,7 @@ def main() -> int:
     emit({"phase": "product_alone", "call": "3 x torch.matmul(bf16, bf16.T) (high)",
           "Q": Q, "C": C, "width": D, "query_chunk": chunk, "ms": product_ms,
           "tflops_needed": 3 * needed_ops / (product_ms * 1e-3) / 1e12})
-    del qh, ch, ql, cl, norms, staged_n
+    del qh, ch, ql, cl, norms
     emit({"phase": "precision_kernels_done", "seconds": time.perf_counter() - t_prec})
     del qp, cp, staged, qb, cb, split
 
@@ -6607,11 +6779,12 @@ def main() -> int:
                                ("sweep", "fused_knn_sweep")):
             name = f"{kname}[{precision}]"
             line, _ = drive_clf(f"pallas/{variant}/exact/{precision}",
-                                {name: 1, "stage_norms": 1}, reps=1, oracle=rounded,
-                                backend="pallas", pallas_variant=variant,
+                                {name: 1, "stage_planes": 1, "stage_norms": 1}, reps=1,
+                                oracle=rounded, backend="pallas", pallas_variant=variant,
                                 matmul_precision=precision)
             launches[name] = line["launches"][name]
-            launches["stage_norms"] = line["launches"]["stage_norms"]
+            for prologue in ("stage_planes", "stage_norms"):
+                launches[prologue] = line["launches"][prologue]
         for form, kw, name, count in (
                 ("fused-dma", {}, f"fused_round_dma[{precision}]", 4 * cards),
                 ("fused/bidir", {"ring_schedule": "bidir"},
@@ -6765,6 +6938,7 @@ def main() -> int:
             ("fused_block_merge", "mpi_knn_tpu/ops/pallas_ring.py:337"),
             ("fused_round_dma", "mpi_knn_tpu/ops/pallas_ring.py:553"),
             ("fused_rotation_grid", "mpi_knn_tpu/ops/pallas_ring.py:806"))},
+        "stage_planes": "mpi_knn_tpu/ops/pallas_knn.py:249",
         "stage_norms": "mpi_knn_tpu/ops/pallas_knn.py:249",
         "approx_min_k[f64]": "mpi_knn_tpu/ops/topk.py:156,176 (lax.approx_min_k, f64)",
     }
@@ -6789,6 +6963,7 @@ def main() -> int:
         **{f"{base}[{p}]": library[("serial", p)] for p in PRECISIONS
            for base in ("fused_knn_tiles", "fused_knn_sweep", "fused_block_merge",
                         "fused_round_dma", "fused_rotation_grid")},
+        "stage_planes": None,  # no one PyTorch call writes the padded hi and lo planes
         "stage_norms": timing["stage_norms"]["library_ms"],
         "approx_min_k[f64]": approx["fused/f64/tile_k10"]["topk_ms"],
     }

@@ -39,17 +39,21 @@
 //             slice lists the last CTA of a group merges.
 //   default,  matmul_precision "default" / "high" (the TPU's DEFAULT: f32
 //   high      operands rounded to bf16, one pass; HIGH: bf16 hi + lo, three
-//             passes): fused_knn_mma_kernel runs knn_tile.cuh's mma.sync
-//             tile `sweep_mma<Bf16x1F32>` / `<Bf16x3>` on the f32 rows
-//             (cp.async), the operands rounded or split in registers, with
-//             the exact form's epilogue (k survivors, the zero rule, self,
-//             padding by the column range) and the f32 norms of the
-//             prologue stage_norms_launch (the Tf32x3 tile's diagonal).
-//             One CTA per (128 or 64 query rows, corpus tile): the tiles
-//             form's n_c corpus tiles, or the whole corpus for the sweep.
-//             The wgmma tile hosts neither: its operands are staged planes
-//             by TMA, and a bf16 plane set per precision would double the
-//             prologue's bytes for a first, simple form.
+//             passes): the prologue writes each row set's planes once
+//             (stage_planes_launch: hi = RNE(x), and at "high" lo =
+//             RNE(x - hi), zero-padded to a multiple of 32) beside its f32
+//             norms (stage_norms_launch: the Tf32x3 tile's diagonal, so the
+//             keys and the zero rule are the norms of before);
+//             fused_knn_bf16x1_kernel / fused_knn_bf16x3_kernel run K2[c]'s
+//             tile on them (TMA, wgmma m64n256k16 bf16: one pass, or a
+//             chunk's lo.hi and hi.lo passes and then its hi.hi, on a ring of
+//             3 stages of four boxes) with the exact form's epilogue: k
+//             survivors, the zero rule (checked where a marked key would
+//             win), self, padding by the column range, emit's rules, an
+//             item's first chunk primed. K2 walks (query group x corpus
+//             slice) items with the last-CTA merge, as K2[c]; K1's items are
+//             (query group x corpus tile), whose lists restart at each tile
+//             and land in the (n_c, Q, k) output.
 //
 // What bounds it on this card. The main path (60000 queries x 60000 corpus
 // rows x 784, k = 10) needs 2*60000*60000*784 ~ 5.64e12 FLOP. Exact mode
@@ -248,33 +252,51 @@ struct DotsEpi {
     wg::run_tile(&qh, &ql, &ch, &cl, epi, smem);                                      \
   }
 
-// K2[c]'s consumer hooks over knn_wgmma_bf16.cuh's tile: the keys of each
-// chunk filtered in registers into the warp's lists, and at the end of an
-// item its lists to the output rows (S = 1) or to the item's slice of the
-// scratch; the last CTA of a query group merges the group's S slices.
-// Each consumer warp inits, selects, emits and merges its own 16 rows.
-struct CompressSweepEpi {
+// KNN_EXACT_TILE_ONLY: a measurement build of the exact wgmma tile alone
+// (chip_smoke.py's promotion intervals), without the bf16 tile's kernels.
+#ifndef KNN_EXACT_TILE_ONLY
+// The consumer hooks over knn_wgmma_bf16.cuh's tile on P planes, of K2[c]
+// (P = 1, no zero rule) and of K1 / K2 at "default" (P = 1) and "high"
+// (P = 2) with the exact form's masks (ZERO): the keys of each chunk
+// filtered in registers into the warp's lists, and at the end of an item
+// its lists to the output rows. The sweep (tiles false) writes them to its
+// (Q, k) output (S = 1) or to the item's slice of the scratch, and the
+// last CTA of a query group merges the group's S slices; the tiles form
+// (tiles true: a slice is a corpus tile) writes slice s's lists to rows
+// s Q + q0 of its (n_c, Q, k) output and merges nothing. Each consumer
+// warp inits, selects, emits and merges its own 16 rows.
+template <int P, bool ZERO>
+struct SweepEpi {
   wgb::SweepWalk walk;
   const float* qn;   // (Q,) the prologue's query norms
   const float* cn;   // (C,) its corpus norms
-  float* out_d;      // (Q, k)
+  float* out_d;      // (Q, k), or (n_c, Q, k) (tiles)
   int* out_i;
-  float* part_d;     // (S, Q, k) when S > 1
+  float* part_d;     // (S, Q, k) when S > 1 (sweep)
   int* part_i;
   int* counters;     // (groups,): zero on entry, left at zero
   int Q, k, nkb;
   bool self;         // mask the column equal to the row (all pairs)
+  bool tiles;
+  wgb::ZeroRule zero;  // cn, or null: the rule off
   static constexpr bool has_norms = true;
+  static constexpr int planes = P;
   __device__ int items() const { return walk.items(); }
   __device__ wgb::Item item(int n) const { return walk.item(n); }
+  __device__ bool merges() const { return !tiles && walk.slices > 1; }
+  // the item's output block: its first row in out (or the scratch)
+  __device__ size_t out_row0(const wgb::Item& t) const {
+    return (merges() || tiles ? (size_t)t.slice * Q : 0) + t.q0;
+  }
   // the item's lists: shared memory, or the rows of its output block
-  __device__ wgb::Lists lists(const wgb::Item& t, const wgb::Ctx& c) const {
-    const bool split = walk.slices > 1;
-    return wgb::Lists{c.Lsd, c.Lsi, split ? part_d : out_d, split ? part_i : out_i,
-                      (split ? (size_t)t.slice * Q : 0) + t.q0, k};
+  using Lists = wgb::Lists<wgb::Ring<P>::KS>;
+  __device__ Lists lists(const wgb::Item& t, const wgb::Ctx& c) const {
+    const bool split = merges();
+    return Lists::at(c.Lsd, c.Lsi, split ? part_d : out_d, split ? part_i : out_i,
+                     out_row0(t), k);
   }
   __device__ void begin(const wgb::Item& t, const wgb::Ctx& c) const {
-    const wgb::Lists L = lists(t, c);
+    const Lists L = lists(t, c);
     for (int r = 16 * c.cwarp; r < 16 * c.cwarp + 16; ++r) {
       if (c.lane == 0) c.nanf[r] = c.bufn[r] = 0;
       if (t.q0 + r >= Q) continue;
@@ -289,21 +311,24 @@ struct CompressSweepEpi {
     const int row[2] = {r0, r0 + 8};
     const bool live[2] = {row[0] < Q, row[1] < Q};
     const float qs[2] = {live[0] ? qn[row[0]] : 0.f, live[1] ? qn[row[1]] : 0.f};
-    wgb::select_regs(acc, col0, t.c_end, row, live, qs, self, norms, release, lists(t, c),
-                     wrow0, c.nanf, c.bufn, c.cd, c.ci, c.lane);
+    wgb::select_regs<ZERO>(acc, col0, t.c_end, row, live, qs, self, norms, release,
+                           lists(t, c), wrow0, c.nanf, c.bufn, c.cd, c.lane, zero);
   }
   __device__ void end(const wgb::Item& t, const wgb::Ctx& c) const {
-    const wgb::Lists L = lists(t, c);
+    const Lists L = lists(t, c);
     const int wrow0 = 16 * c.cwarp;
     // the winners still buffered into their lists
     const unsigned rows = __ballot_sync(
         FULL, c.lane < 16 && t.q0 + wrow0 + c.lane < Q && c.bufn[wrow0 + (c.lane & 15)] > 0);
-    wgb::flush_rows(rows, L, wrow0, c.bufn, c.cd, c.ci, c.lane);
+    wgb::flush_rows(rows, L, wrow0, c.bufn, c.cd, c.lane);
+    const bool split = merges();
+    float* const gd = split ? part_d : out_d;
+    int* const gi = split ? part_i : out_i;
     for (int r = wrow0; r < wrow0 + 16; ++r) {  // emit: the lists to their rows
       if (t.q0 + r >= Q) continue;
       const bool poisoned = c.nanf[r] != 0;
-      float* od = L.gd + (L.row0 + r) * (size_t)k;
-      int* oi = L.gi + (L.row0 + r) * (size_t)k;
+      float* od = gd + (out_row0(t) + r) * (size_t)k;
+      int* oi = gi + (out_row0(t) + r) * (size_t)k;
       for (int j = c.lane; j < k; j += 32) {
         float d = L.d(r)[j];
         int id = L.i(r)[j];
@@ -313,7 +338,7 @@ struct CompressSweepEpi {
         oi[j] = id;
       }
     }
-    if (walk.slices == 1) return;
+    if (!merges()) return;
     // the group's last slice to finish merges them all: each thread's
     // scratch writes are released before the count, acquired after it
     __threadfence();
@@ -359,6 +384,8 @@ struct CompressSweepEpi {
   }
 };
 
+using CompressSweepEpi = SweepEpi<1, false>;
+
 // The bf16 tile's raw products (a test hook and the product-alone probe):
 // every item of the walk writes its accumulators to out (Q, C), or with
 // `sink` only folds them into a value that is stored when it equals an
@@ -368,6 +395,7 @@ struct Bf16DotsEpi {
   float* out;
   int Q, C, nkb, k, sink;
   static constexpr bool has_norms = false;
+  static constexpr int planes = 1;
   __device__ int items() const { return walk.items(); }
   __device__ wgb::Item item(int n) const { return walk.item(n); }
   __device__ void begin(const wgb::Item&, const wgb::Ctx&) const {}
@@ -397,11 +425,56 @@ struct Bf16DotsEpi {
       name(const __grid_constant__ CUtensorMap qm, const __grid_constant__ CUtensorMap cm, \
            const __grid_constant__ CUtensorMap nm, const Epi epi) {                   \
     extern __shared__ __align__(1024) unsigned char smem[];                          \
-    wgb::run_tile(&qm, &cm, Epi::has_norms ? &nm : nullptr, epi, smem);               \
+    wgb::run_tile(&qm, &cm, nullptr, nullptr, Epi::has_norms ? &nm : nullptr, epi, smem); \
   }
 
 WGB_KERNEL(fused_knn_sweep_compress_kernel, CompressSweepEpi)
 WGB_KERNEL(bf16_tile_dots_kernel, Bf16DotsEpi)
+// K1 and K2 at "default": the one bf16 copy of each operand
+using Bf16x1Epi = SweepEpi<1, true>;
+WGB_KERNEL(fused_knn_bf16x1_kernel, Bf16x1Epi)
+
+// K1 and K2 at "high": the hi and lo planes of each operand
+__global__ void __launch_bounds__(wgb::THREADS, 1)
+fused_knn_bf16x3_kernel(const __grid_constant__ CUtensorMap qh,
+                        const __grid_constant__ CUtensorMap ch,
+                        const __grid_constant__ CUtensorMap nm,
+                        const __grid_constant__ CUtensorMap ql,
+                        const __grid_constant__ CUtensorMap cl, const SweepEpi<2, true> epi) {
+  extern __shared__ __align__(1024) unsigned char smem[];
+  wgb::run_tile(&qh, &ch, &ql, &cl, &nm, epi, smem);
+}
+
+// The "default" / "high" prologue's planes: x (N, D) f32 -> hi (N, Dp)
+// bf16, rounded to nearest even, and with lo non-null lo = RNE(x - hi)
+// (x - hi exact in f32), both zero past D. A thread writes 8 bf16 of a row.
+__global__ void __launch_bounds__(256)
+stage_planes_kernel(const float* __restrict__ x, int N, int D, int Dp, bf16* __restrict__ hi,
+                    bf16* __restrict__ lo) {
+  const int per_row = Dp / 8;
+  const long long n = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (n >= (long long)N * per_row) return;
+  const int row = (int)(n / per_row), d0 = (int)(n % per_row) * 8;
+  alignas(16) bf16 h[8], l[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const float v = d0 + j < D ? x[(size_t)row * D + d0 + j] : 0.f;
+    h[j] = __float2bfloat16_rn(v);
+    l[j] = __float2bfloat16_rn(__fsub_rn(v, __bfloat162float(h[j])));
+  }
+  const size_t at = (size_t)row * Dp + d0;
+  *reinterpret_cast<uint4*>(hi + at) = *reinterpret_cast<const uint4*>(h);
+  if (lo != nullptr) *reinterpret_cast<uint4*>(lo + at) = *reinterpret_cast<const uint4*>(l);
+}
+
+// The walk of K1 (c_tile > 0: slices are the corpus tiles, c_tile columns
+// each, C a multiple of c_tile) or K2 (c_tile 0: the sweep in `slices`
+// slices) over columns [0, min(C, m_corpus)).
+wgb::SweepWalk planes_walk(int Q, int C, int m_corpus, int c_tile, int slices) {
+  const int c_end = C < m_corpus ? C : m_corpus;
+  if (c_tile > 0) return wgb::SweepWalk{Q, c_end, C / c_tile, c_tile};
+  return wgb::sweep_walk(Q, c_end, slices);
+}
 
 // The bf16 tile's maps of the query copy (Q, Dp) and the corpus copy (C, Dp).
 cudaError_t bf16_maps(CUtensorMap* qm, CUtensorMap* cm, const bf16* qb, const bf16* cb, int Q,
@@ -410,6 +483,8 @@ cudaError_t bf16_maps(CUtensorMap* qm, CUtensorMap* cm, const bf16* qb, const bf
   if (e == cudaSuccess) e = wgb::bf16_map(cm, cb, C, Dp, wgb::COLS);
   return e;
 }
+
+#endif  // KNN_EXACT_TILE_ONLY
 
 WG_KERNEL(fused_knn_tiles_kernel, ExactEpi<wg::TileItems>)
 WG_KERNEL(fused_knn_sweep_kernel, ExactEpi<wg::SweepItems>)
@@ -450,9 +525,8 @@ ExactEpi<Items> exact_epi(Items walk, const float* qn, const float* cn, float* o
   return ExactEpi<Items>{walk, src, qn, out_d, out_i, Q, k, Dp / wg::KB};
 }
 
-// The mma.sync f32 tile's (K3a's, K4's, K5's; at "default" / "high" also
-// K1's and K2's) raw products q . c under policy Op (a test hook, see
-// tile_dots).
+// The mma.sync f32 tile's (K3a's, K4's, K5's) raw products q . c under
+// policy Op (a test hook, see tile_dots).
 template <class Op>
 __global__ void __launch_bounds__(THREADS, 2)
 exact_tile_dots_kernel(const float* q, const float* c, float* out, int Q, int C, int D) {
@@ -461,68 +535,6 @@ exact_tile_dots_kernel(const float* q, const float* c, float* out, int Q, int C,
                      F32Operand<F32Rows>{F32Rows{c, D}, async_rows(c, D), D},
                      (D + TKD - 1) / TKD, Q, C, blockIdx.x * MQB, blockIdx.y * MCB, smem,
                      out);
-}
-
-// K1 and K2 at "default" / "high": the f32 rows q (Q, D) and c (C, D), the
-// prologue's norms, outputs (C / c_span, Q, k) (tiles) or (Q, k) (sweep:
-// c_span >= C).
-struct MmaParams {
-  const float* q;
-  const float* qn;
-  const float* c;
-  const float* cn;
-  float* out_d;
-  int* out_i;
-  int Q, C, D, m_corpus, k, c_span;
-  int exclude_self, exclude_zero, all_pairs;
-  float zero_eps;
-};
-
-// One CTA: query rows [q0, q0+ROWS) against the columns of its corpus tile
-// below m_corpus (padding is never computed), as the exact form masks
-// them. Capped at 128 registers a thread: two CTAs of 256 threads per SM.
-template <class Op, int ROWS>
-__global__ void __launch_bounds__(THREADS, 2) fused_knn_mma_kernel(MmaParams p) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int q0 = blockIdx.x * ROWS;
-  const int c_begin = blockIdx.y * p.c_span;
-  const int c_end = min(min(c_begin + p.c_span, p.C), p.m_corpus);
-  const size_t out_row0 = (size_t)blockIdx.y * p.Q + q0;
-  const AffineCols src{p.exclude_self && p.all_pairs, p.exclude_zero != 0, p.zero_eps, p.cn};
-  MmaLists<ROWS> L{carve_mma<ROWS>(smem, p.k), p.out_d, p.out_i, out_row0, p.k};
-  init_lists<ROWS>(L, q0, p.Q, -1);
-  sweep_mma<Op, ROWS>(src, F32Operand<F32Rows>{F32Rows{p.q, p.D}, async_rows(p.q, p.D), p.D},
-                      p.qn, p.Q,
-                      F32Operand<F32Rows>{F32Rows{p.c, p.D}, async_rows(p.c, p.D), p.D},
-                      (p.D + TKD - 1) / TKD, q0, c_begin, c_end, L);
-  emit<ROWS>(L, L.sm.nanf, p.out_d, p.out_i, p.Q, p.k, q0, out_row0, threadIdx.x / 32,
-             THREADS / 32);
-}
-
-// The CTA rows of a K1/K2 "default" / "high" launch (pick_rows: 64 where
-// 128-row CTAs would leave the card's resident slots empty), its kernel
-// and dynamic shared bytes.
-template <class Op>
-cudaError_t mma_plan(const MmaParams& p, int grid_y, int* rows, const void** kernel,
-                     size_t* smem) {
-  cudaError_t e = pick_rows((const void*)fused_knn_mma_kernel<Op, MQB>, p.k,
-                            (long long)((p.Q + MQB - 1) / MQB) * grid_y, rows);
-  if (e != cudaSuccess) return e;
-  if (*rows == MQB) {
-    *kernel = (const void*)fused_knn_mma_kernel<Op, MQB>;
-    *smem = mma_smem_bytes<MQB>(p.k);
-    return set_mma_smem<MQB>(*kernel, p.k);
-  }
-  *kernel = (const void*)fused_knn_mma_kernel<Op, NQB>;
-  *smem = mma_smem_bytes<NQB>(p.k);
-  return set_mma_smem<NQB>(*kernel, p.k);
-}
-
-cudaError_t mma_plan_of(int precision, const MmaParams& p, int grid_y, int* rows,
-                        const void** kernel, size_t* smem) {
-  if (precision == 1) return mma_plan<Bf16x1F32>(p, grid_y, rows, kernel, smem);
-  if (precision == 2) return mma_plan<Bf16x3>(p, grid_y, rows, kernel, smem);
-  return cudaErrorInvalidValue;
 }
 
 // The card's mma.sync rate, the ceiling of knn_tile.cuh's products: every warp
@@ -628,49 +640,6 @@ int fused_knn_sweep_launch(const float* qh, const float* ql, const float* qn,
   LAUNCH_WG(fused_knn_sweep_kernel, m, epi, (Q + wg::ROWS - 1) / wg::ROWS, k, stream);
 }
 
-// K1 (sweep 0) and K2 (sweep 1) at precision 1 ("default") or 2 ("high"),
-// on the f32 rows q (Q, D), c (C, D) and the norms of stage_norms_launch.
-// out_d / out_i: (C / c_tile, Q, k), C a multiple of c_tile (tiles), or
-// (Q, k) (sweep).
-int fused_knn_mma_launch(const float* q, const float* qn, const float* c, const float* cn,
-                         float* out_d, int* out_i, int Q, int C, int D, int m_corpus, int k,
-                         int c_tile, int exclude_self, int exclude_zero, int all_pairs,
-                         float zero_eps, int precision, int sweep, cudaStream_t stream) {
-  if (Q <= 0 || C <= 0 || D <= 0 || k <= 0 || (!sweep && (c_tile <= 0 || C % c_tile)))
-    return (int)cudaErrorInvalidValue;
-  const MmaParams p{q, qn, c, cn, out_d, out_i, Q, C, D, m_corpus, k, sweep ? C : c_tile,
-                    exclude_self, exclude_zero, all_pairs, zero_eps};
-  const int grid_y = sweep ? 1 : C / c_tile;
-  int rows = MQB;
-  const void* kernel = nullptr;
-  size_t smem = 0;
-  cudaError_t e = mma_plan_of(precision, p, grid_y, &rows, &kernel, &smem);
-  if (e != cudaSuccess) return (int)e;
-  void* args[] = {const_cast<MmaParams*>(&p)};
-  e = cudaLaunchKernel(kernel, dim3((Q + rows - 1) / rows, grid_y), dim3(THREADS), args, smem,
-                       stream);
-  if (e != cudaSuccess) return (int)e;
-  return (int)cudaGetLastError();
-}
-
-// The plan of that launch: query rows per CTA, CTAs, and the kernel's
-// registers, spilled bytes a thread and CTAs per SM.
-int fused_knn_mma_plan(int Q, int C, int k, int c_tile, int precision, int sweep,
-                       int* rows, int* ctas, int* regs, int* local_bytes, int* ctas_per_sm) {
-  if (Q <= 0 || C <= 0 || k <= 0 || (!sweep && (c_tile <= 0 || C % c_tile)))
-    return (int)cudaErrorInvalidValue;
-  const MmaParams p{nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, Q, C, 1, C, k,
-                    sweep ? C : c_tile, 0, 0, 0, 0.f};
-  const int grid_y = sweep ? 1 : C / c_tile;
-  const void* kernel = nullptr;
-  size_t smem = 0;
-  cudaError_t e = mma_plan_of(precision, p, grid_y, rows, &kernel, &smem);
-  if (e != cudaSuccess) return (int)e;
-  *ctas = (Q + *rows - 1) / *rows * grid_y;
-  return (int)(*rows == MQB ? mma_kernel_info<MQB>(kernel, k, regs, local_bytes, ctas_per_sm)
-                            : mma_kernel_info<NQB>(kernel, k, regs, local_bytes, ctas_per_sm));
-}
-
 // The "default" / "high" prologue: x (N, D) f32 -> norms (N,) f32, the
 // diagonal of the Tf32x3 tile (f32-accurate, as the reference's norms).
 int stage_norms_launch(const float* x, float* norms, int N, int D, cudaStream_t stream) {
@@ -691,6 +660,7 @@ int fused_knn_tiles_compress_launch(const bf16* qb, const float* qn,
   return (int)launch_compress(fused_knn_tiles_compress_kernel, p, C / c_tile, stream);
 }
 
+#ifndef KNN_EXACT_TILE_ONLY
 // K2[c] on the prologue's copies qb (Q, Dp), cb (C, Dp) and norms: the
 // final (Q, k) over columns [0, min(C, m_corpus)) in `slices` corpus
 // slices. With slices > 1, part_d / part_i are (slices, Q, k) scratch and
@@ -751,6 +721,90 @@ int bf16_tile_dots_launch(const bf16* qb, const bf16* cb, float* out, int Q, int
   bf16_tile_dots_kernel<<<grid, wgb::THREADS, wgb::smem_bytes(0), stream>>>(qm, cm, cm, epi);
   return (int)cudaGetLastError();
 }
+
+// K1 (c_tile > 0) and K2 (c_tile 0) at precision 1 ("default") or 2
+// ("high") on the prologue's planes qh, ql (Q, Dp), ch, cl (C, Dp) bf16
+// (ql, cl unread at "default") and norms qn (Q,), cn (C,): out_d / out_i
+// (C / c_tile, Q, k), C a multiple of c_tile, or (Q, k) over `slices`
+// corpus slices, with part_d / part_i (slices, Q, k) scratch and counters
+// (ceil(Q / 128),) int32 zeros (left at zero) when slices > 1.
+int fused_knn_planes_launch(const bf16* qh, const bf16* ql, const float* qn, const bf16* ch,
+                            const bf16* cl, const float* cn, float* out_d, int* out_i,
+                            float* part_d, int* part_i, int* counters, int Q, int C, int Dp,
+                            int m_corpus, int k, int c_tile, int exclude_self,
+                            int exclude_zero, int all_pairs, float zero_eps, int precision,
+                            int slices, cudaStream_t stream) {
+  if (Q <= 0 || C <= 0 || k <= 0 || Dp <= 0 || Dp % wgb::KB || (precision != 1 && precision != 2) ||
+      (c_tile > 0 && C % c_tile) || c_tile < 0 || (c_tile == 0 && slices <= 0) ||
+      (c_tile == 0 && slices > 1 && (part_d == nullptr || part_i == nullptr || counters == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap qm, cm, nm, qlm, clm;
+  cudaError_t e = bf16_maps(&qm, &cm, qh, ch, Q, C, Dp);
+  if (e == cudaSuccess) e = wgb::norms_map(&nm, cn, C);
+  if (e == cudaSuccess && precision == 2) e = bf16_maps(&qlm, &clm, ql, cl, Q, C, Dp);
+  if (e != cudaSuccess) return (int)e;
+  const wgb::SweepWalk walk = planes_walk(Q, C, m_corpus, c_tile, slices);
+  const wgb::ZeroRule zero{zero_eps, exclude_zero ? cn : nullptr};
+  const bool self = exclude_self && all_pairs;
+  int grid = 0, per_sm = 0;
+  if (precision == 1) {
+    const Bf16x1Epi epi{walk, qn, cn, out_d, out_i, part_d, part_i, counters, Q, k,
+                        Dp / wgb::KB, self, c_tile > 0, zero};
+    e = wgb::tile_grid<1>((const void*)fused_knn_bf16x1_kernel, k, walk.items(), &grid,
+                          &per_sm);
+    if (e != cudaSuccess) return (int)e;
+    fused_knn_bf16x1_kernel<<<grid, wgb::THREADS, wgb::smem_bytes<1>(k), stream>>>(qm, cm, nm,
+                                                                                  epi);
+  } else {
+    const SweepEpi<2, true> epi{walk, qn, cn, out_d, out_i, part_d, part_i, counters, Q, k,
+                                Dp / wgb::KB, self, c_tile > 0, zero};
+    e = wgb::tile_grid<2>((const void*)fused_knn_bf16x3_kernel, k, walk.items(), &grid,
+                          &per_sm);
+    if (e != cudaSuccess) return (int)e;
+    fused_knn_bf16x3_kernel<<<grid, wgb::THREADS, wgb::smem_bytes<2>(k), stream>>>(
+        qm, cm, nm, qlm, clm, epi);
+  }
+  return (int)cudaGetLastError();
+}
+
+// That launch's plan: items, the persistent grid, CTAs per SM, the columns
+// a slice (a tile) spans, the ring's stages, the dynamic shared bytes, and
+// the kernel's registers and spilled bytes a thread.
+int planes_plan(int Q, int C, int m_corpus, int k, int c_tile, int precision, int slices,
+                long long* items, int* grid, int* ctas_per_sm, int* span, int* stages,
+                int* smem, int* regs, int* local_bytes) {
+  if (Q <= 0 || C <= 0 || k <= 0 || (precision != 1 && precision != 2) || c_tile < 0 ||
+      (c_tile > 0 && C % c_tile) || (c_tile == 0 && slices <= 0))
+    return (int)cudaErrorInvalidValue;
+  const wgb::SweepWalk walk = planes_walk(Q, C, m_corpus, c_tile, slices);
+  *items = walk.items();
+  *span = walk.span;
+  const void* kernel = precision == 1 ? (const void*)fused_knn_bf16x1_kernel
+                                      : (const void*)fused_knn_bf16x3_kernel;
+  *stages = precision == 1 ? wgb::Ring<1>::STAGES : wgb::Ring<2>::STAGES;
+  *smem = (int)(precision == 1 ? wgb::smem_bytes<1>(k) : wgb::smem_bytes<2>(k));
+  cudaError_t e = precision == 1 ? wgb::tile_grid<1>(kernel, k, *items, grid, ctas_per_sm)
+                                 : wgb::tile_grid<2>(kernel, k, *items, grid, ctas_per_sm);
+  cudaFuncAttributes attr;
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, kernel);
+  if (e != cudaSuccess) return (int)e;
+  *regs = attr.numRegs;
+  *local_bytes = (int)attr.localSizeBytes;
+  return 0;
+}
+
+// The "default" / "high" prologue's planes: x (N, D) f32 -> hi (and with lo
+// non-null lo) (N, Dp) bf16; Dp a multiple of 32.
+int stage_planes_launch(const float* x, bf16* hi, bf16* lo, int N, int D, int Dp,
+                        cudaStream_t stream) {
+  if (N <= 0 || D <= 0 || Dp < D || Dp % wgb::KB) return (int)cudaErrorInvalidValue;
+  const long long threads = (long long)N * (Dp / 8);
+  stage_planes_kernel<<<(unsigned)((threads + 255) / 256), 256, 0, stream>>>(x, N, D, Dp, hi,
+                                                                             lo);
+  return (int)cudaGetLastError();
+}
+
+#endif  // KNN_EXACT_TILE_ONLY
 
 // The compress prologue: x (N, D) f32 -> out (N, Dp) bf16, norms (N,) f32.
 int stage_bf16_f32_launch(const float* x, bf16* out, float* norms, int N,
@@ -825,6 +879,7 @@ double wgmma_rate_launch(int iters, float* out, cudaStream_t stream) {
   return 2.0 * sms * 2 * (double)iters * 16 * 64 * 128 * 8;
 }
 
+#ifndef KNN_EXACT_TILE_ONLY
 // Registers, local (spilled) bytes a thread, CTAs per SM and dynamic shared
 // bytes of kernel `which` (0 tiles, 1 sweep: the exact wgmma kernels; 2,
 // 3 their compress forms: mma.sync K1[c], the bf16 wgmma K2[c]) at list
@@ -850,6 +905,7 @@ int kernel_info(int which, int k, int* regs, int* local_bytes, int* ctas_per_sm,
   *smem = (int)(which == 3 ? wgb::smem_bytes(k) : wg::smem_bytes(k));
   return 0;
 }
+#endif  // KNN_EXACT_TILE_ONLY
 
 // The exact kernels' launch plan at (Q, C, c_tile, k): items (query groups,
 // or query groups x corpus tiles), the persistent grid and CTAs per SM.

@@ -1,7 +1,21 @@
-// The compress sweep tile of K2[c] for Hopper (sm_90a): one bf16 `wgmma`
-// pass on TMA-staged copies, the survivors filtered in registers, and the
-// corpus split into slices when the query groups alone would leave SMs
-// idle.
+// The bf16 sweep tile of K2[c], and of K1 / K2 at matmul_precision
+// "default" / "high", for Hopper (sm_90a): bf16 `wgmma` on TMA-staged
+// planes, the survivors filtered in registers, and the corpus split into
+// slices when the query groups alone would leave SMs idle.
+//
+// The tile runs on P planes of each operand. P = 1: one bf16 copy, one
+// pass (K2[c]'s compress copy; "default"'s copy rounded to nearest even).
+// P = 2: "high"'s hi = bf16(x) and lo = bf16(x - hi); a chunk's k-blocks
+// are streamed twice into the one f32 accumulator (no second one fits for
+// promotion), first with four boxes a stage for the lo.hi and hi.lo
+// passes, then the hi boxes of two k-blocks a stage for hi.hi, on a ring
+// of 3 stages (chunk_product).
+// The exact forms' epilogue adds the zero rule, checked where a marked key
+// would win (ZeroRule), and primes an item's first chunk, whose every key
+// would beat the empty lists: each row's 32 keys of its first 4 column
+// groups are offered straight from registers and merged, so that the rest
+// meets full lists (select_regs). K1's items are 8 chunks each, so their
+// first chunks weigh (chip_smoke.py's item_cost line).
 //
 // Replaces, for K2[c] (mpi_knn_tpu/ops/pallas_knn.py::fused_knn_sweep with
 // compress=True), knn_tile.cuh's `sweep_mma<Bf16x1>`, whose CTA stored all
@@ -29,7 +43,8 @@
 //
 //   Selection in registers. In the wgmma accumulator layout a row's COLS
 //   columns sit in one quad of one warp, so a warp owns 16 rows, their
-//   lists (shared memory for k <= KS, else rows of the caller's buffer)
+//   lists (shared memory for k <= Ring<P>::KS, else rows of the caller's
+//   buffer)
 //   and a buffer of CAP winners a row. One pass turns each accumulator
 //   into its key q^2 - 2 q.c + c^2 in place (clamped at 0; +inf where the
 //   self or padding mask holds), with the chunk's column norms, which the
@@ -40,7 +55,8 @@
 //   accumulators never leave registers), checked against the current worst and appended to
 //   the row's buffer at slots counted by quad shuffles. A full buffer is
 //   merged into its list at once: a bitonic sort of its 32 entries and one
-//   bitonic merge with the list's 64 slots, all in warp shuffles. An
+//   bitonic merge with the list's 64 slots (32 for k <= 32, two rows at a
+//   time), all in warp shuffles. An
 //   item's end merges what its buffers hold. No barrier wider than a warp,
 //   so one warpgroup's selection may overlap the other's products.
 //
@@ -82,20 +98,32 @@ constexpr int KB = 32;               // bf16 per k-block: one 64-byte swizzled r
 constexpr int Q_BOX = ROWS * KB * 2;
 constexpr int C_BOX = COLS * KB * 2;
 constexpr int N_BOX = COLS * 4;      // the chunk's column norms (f32)
-constexpr int STAGE_BYTES = Q_BOX + C_BOX + 1024;  // + the norms' slot, 1 KB aligned
-constexpr int STAGES = 100 * 1024 / STAGE_BYTES;  // 4
 constexpr int THREADS = 384;         // producer warpgroup + two consumer warpgroups
 constexpr int CONSUMER_WARPS = 8;
 constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;
 constexpr int ACC = COLS / 2;        // accumulator registers a consumer thread
-constexpr int KS = 64;               // longest list kept in shared memory (2 slots a lane)
 constexpr int CAP = 32;              // a row's buffer of winners: one per lane
+constexpr int FIRST_GROUPS = CAP / 8;  // an item's first chunk's offered groups of 8 columns
+
+// The ring of a tile on P bf16 planes of each operand (1: one copy; 2: hi
+// and lo): a stage holds the P query boxes, the P corpus boxes and the
+// chunk's norms' slot, each 1 KB aligned. P = 1: 4 stages (100 KB); P = 2:
+// 3 stages (147 KB), the lists then kept in shared memory up to KS = 40.
+template <int P>
+struct Ring {
+  static constexpr int NORMS = P * (Q_BOX + C_BOX);  // the norms' slot
+  static constexpr int STAGE_BYTES = NORMS + 1024;
+  static constexpr int STAGES = (P == 1 ? 100 : 150) * 1024 / STAGE_BYTES;  // 4, 3
+  static constexpr int KS = P == 1 ? 64 : 40;  // longest list kept in shared memory
+};
 
 // Shared memory of one CTA, from a 1024-byte aligned base: the ring, its
 // barriers, the last-CTA flag, the rows' NaN flags and buffer counts, the
 // buffers (per warp 16 rows x CAP) and the lists.
+template <int P>
 struct Layout {
-  static constexpr size_t bars = (size_t)STAGES * STAGE_BYTES;  // full, empty
+  static constexpr int STAGES = Ring<P>::STAGES;
+  static constexpr size_t bars = (size_t)STAGES * Ring<P>::STAGE_BYTES;  // full, empty
   static constexpr size_t flag = bars + 8 * 2 * STAGES;
   static constexpr size_t nanf = flag + 16;
   static constexpr size_t bufn = nanf + sizeof(int) * ROWS;
@@ -104,9 +132,10 @@ struct Layout {
   static constexpr size_t align = 1024;
 };
 
+template <int P = 1>
 inline size_t smem_bytes(int k) {
-  size_t b = Layout::lists + Layout::align;
-  if (k <= KS) b += (sizeof(float) + sizeof(int)) * (size_t)ROWS * k;
+  size_t b = Layout<P>::lists + Layout<P>::align;
+  if (k <= Ring<P>::KS) b += (sizeof(float) + sizeof(int)) * (size_t)ROWS * k;
   return b;
 }
 
@@ -138,12 +167,11 @@ inline SweepWalk sweep_walk(int Q, int c_end, int slices) {
 
 // What a consumer thread holds.
 struct Ctx {
-  float* Lsd;   // [ROWS][k] when k <= KS
+  float* Lsd;   // [ROWS][k] when k <= the ring's KS
   int* Lsi;
   int* nanf;    // [ROWS]
   int* bufn;    // [ROWS] winners buffered
-  float* cd;    // this warp's buffers [16][CAP]
-  int* ci;
+  float* cd;    // this warp's buffers [16][CAP] (their ids: cand_ids(cd))
   int* flag;    // the CTA's last-CTA flag
   int g;        // consumer warpgroup (its 64 rows)
   int cwarp;    // consumer warp, 0..7: CTA rows 16 cwarp .. 16 cwarp + 15
@@ -151,24 +179,29 @@ struct Ctx {
   int ctid;     // consumer thread, 0..255
 };
 
-// A CTA's lists: shared memory for k <= KS, else rows (row0 + r) of the
-// caller's (rows, k) buffers.
+// A CTA's lists of k: the k entries of CTA row r at d(r), i(r); shared
+// memory (sd, si) for k <= KS (Ring<P>::KS, at most 64: 2 slots a lane),
+// else rows (row0 + r) of the caller's (rows, k) buffers (gd, gi). Two
+// pointers and k, so that the selection keeps few registers.
+template <int KS>
 struct Lists {
-  float* sd;
-  int* si;
-  float* gd;
-  int* gi;
-  size_t row0;
+  float* d0;
+  int* i0;
   int k;
-  __device__ float* d(int r) const {
-    return k <= KS ? sd + r * k : gd + (row0 + r) * (size_t)k;
+  __device__ static Lists at(float* sd, int* si, float* gd, int* gi, size_t row0, int k) {
+    return k <= KS ? Lists{sd, si, k} : Lists{gd + row0 * k, gi + row0 * k, k};
   }
-  __device__ int* i(int r) const {
-    return k <= KS ? si + r * k : gi + (row0 + r) * (size_t)k;
-  }
+  __device__ float* d(int r) const { return d0 + r * k; }
+  __device__ int* i(int r) const { return i0 + r * k; }
 };
 
 // ------------------------------------------------------------ primitives
+
+// The ids of a warp's candidate buffers cd: the int half of the buffers,
+// ROWS * CAP entries past the float half.
+__device__ __forceinline__ int* cand_ids(float* cd) {
+  return reinterpret_cast<int*>(cd + ROWS * CAP);
+}
 
 // d (+)= a . b for one warpgroup: a 64 x 16 bf16, b 256 x 16 bf16 (both
 // K-major in shared memory); scale_d = 0 overwrites d.
@@ -298,6 +331,18 @@ __device__ void merge_cands(float* Ld, int* Li, int k, const float* cd, const in
         bitonic_step(c, stride, size == 32 || (lane & size) == 0, lane);
   }
   unsigned long long a0 = lane < k ? pack_key(Ld[lane], Li[lane]) : pack_key(inf_f(), INT_MAX);
+  if (k <= 32) {  // the list's 32 slots alone: entry l against candidate 31 - l
+    a0 = min(a0, __shfl_sync(FULL, c, 31 - lane));
+#pragma unroll
+    for (int stride = 16; stride > 0; stride /= 2) bitonic_step(a0, stride, true, lane);
+    __syncwarp();
+    if (lane < k) {
+      Ld[lane] = key_d(a0);
+      Li[lane] = key_id(a0);
+    }
+    __syncwarp();
+    return;
+  }
   unsigned long long a1 =
       lane + 32 < k ? pack_key(Ld[lane + 32], Li[lane + 32]) : pack_key(inf_f(), INT_MAX);
   // the 64 smallest of the list and the candidates, in bitonic order:
@@ -323,17 +368,75 @@ __device__ void merge_cands(float* Ld, int* Li, int k, const float* cd, const in
   __syncwarp();
 }
 
+// Merge the buffers of the warp's rows ra and rb (rb < 0: none) into their
+// lists of k <= 32, as merge_cands does one row, the two rows' networks
+// interleaved so that each hides the other's shuffle latency.
+template <class LT>
+__device__ __forceinline__ void merge_two(const LT& L, int wrow0, int ra, int rb,
+                                          const int* bufn, float* cd, int lane) {
+  const int r[2] = {ra, rb}, k = L.k;
+  const int* ci = cand_ids(cd);
+  unsigned long long c[2], a[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const bool act = r[h] >= 0 && lane < bufn[wrow0 + max(r[h], 0)];
+    c[h] = act ? pack_key(cd[r[h] * CAP + lane], ci[r[h] * CAP + lane])
+               : pack_key(inf_f(), INT_MAX);
+  }
+#pragma unroll
+  for (int size = 2; size <= 32; size *= 2)
+#pragma unroll
+    for (int stride = size / 2; stride > 0; stride /= 2)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        bitonic_step(c[h], stride, size == 32 || (lane & size) == 0, lane);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    a[h] = r[h] >= 0 && lane < k
+               ? pack_key(L.d(wrow0 + r[h])[lane], L.i(wrow0 + r[h])[lane])
+               : pack_key(inf_f(), INT_MAX);
+    a[h] = min(a[h], __shfl_sync(FULL, c[h], 31 - lane));
+  }
+#pragma unroll
+  for (int stride = 16; stride > 0; stride /= 2)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) bitonic_step(a[h], stride, true, lane);
+  __syncwarp();  // every lane has read the lists before they change
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+    if (r[h] >= 0 && lane < k) {
+      L.d(wrow0 + r[h])[lane] = key_d(a[h]);
+      L.i(wrow0 + r[h])[lane] = key_id(a[h]);
+    }
+  __syncwarp();
+}
+
 // Merge the buffered winners of the warp's rows in `rows` (bit r: warp row
-// r) into their lists and empty the buffers.
+// r) into their lists and empty the buffers; lists of k <= 32 two rows at
+// a time.
 template <class LT>
 __device__ __forceinline__ void flush_rows(unsigned rows, const LT& L, int wrow0, int* bufn,
-                                           float* cd, int* ci, int lane) {
+                                           float* cd, int lane) {
+  const int* ci = cand_ids(cd);
   while (rows) {
     const int r = __ffs(rows) - 1;
     rows &= rows - 1;
-    merge_cands<false>(L.d(wrow0 + r), L.i(wrow0 + r), L.k, cd + r * CAP, ci + r * CAP,
-                       bufn[wrow0 + r], lane);
-    if (lane == 0) bufn[wrow0 + r] = 0;
+    int r2 = -1;
+    if (L.k <= 32) {
+      if (rows) {
+        r2 = __ffs(rows) - 1;
+        rows &= rows - 1;
+      }
+      merge_two(L, wrow0, r, r2, bufn, cd, lane);
+    } else {
+      merge_cands<false>(L.d(wrow0 + r), L.i(wrow0 + r), L.k, cd + r * CAP, ci + r * CAP,
+                         bufn[wrow0 + r], lane);
+    }
+    __syncwarp();
+    if (lane == 0) {
+      bufn[wrow0 + r] = 0;
+      if (r2 >= 0) bufn[wrow0 + r2] = 0;
+    }
     __syncwarp();
   }
 }
@@ -352,6 +455,22 @@ __device__ __forceinline__ float pick(const float (&a)[ACC], int h, int re) {
   }
 }
 
+// The exact forms' zero rule: a key d of column col in row norm qs is
+// masked when d <= eps if eps > 0, else when d <= 1e-6 (qs + cn[col]).
+// cn: the corpus norms in device memory; null: the rule is off.
+struct ZeroRule {
+  float eps;
+  const float* cn;
+  // the rule for a key whose column norm cs is at hand
+  __device__ __forceinline__ bool masks_norm(float d, float qs, float cs) const {
+    if (cn == nullptr) return false;
+    return d <= (eps > 0.f ? eps : __fmul_rn(1e-6f, __fadd_rn(qs, cs)));
+  }
+  __device__ __forceinline__ bool masks(float d, float qs, int col) const {
+    return cn != nullptr && masks_norm(d, qs, __ldg(cn + col));
+  }
+};
+
 // The selection of one chunk for a consumer warp's 16 rows (CTA rows wrow0
 // .. wrow0 + 15). acc: the wgmma accumulators of columns [col0, col0 +
 // COLS); this thread holds rows wrow0 + lane/4 (h = 0) and + 8 (h = 1),
@@ -364,14 +483,18 @@ __device__ __forceinline__ float pick(const float (&a)[ACC], int h, int re) {
 // (distance, column) in a bit mask. Then, one winner a thread and row at a
 // time, the marked keys are checked against the current worst again and
 // appended to the row's buffer (slots by quad shuffles); a buffer that
-// fills is merged into its list before the rest are checked.
-template <class LT>
+// fills is merged into its list before the rest are checked. With ZERO the
+// zero rule `zero` masks a marked key at that check: a masked key is +inf,
+// which never enters a list and is never NaN, so masking it only where it
+// would win changes nothing else.
+template <bool ZERO, class LT>
 __device__ __forceinline__ void select_regs(float (&acc)[ACC], int col0, int c_end,
                                             const int (&row)[2], const bool (&live)[2],
                                             const float (&qs)[2], bool self, const float* cs,
                                             uint32_t release, const LT& L, int wrow0,
-                                            int* nanf, int* bufn, float* cd, int* ci,
-                                            int lane) {
+                                            int* nanf, int* bufn, float* cd, int lane,
+                                            const ZeroRule& zero) {
+  int* const ci = cand_ids(cd);
   constexpr int E = ACC / 2, W = (E + 31) / 32;  // a row's elements in this thread
   const int cbase = col0 + 2 * (lane % 4), lr = lane / 4, k = L.k;
   float wd[2];
@@ -395,9 +518,68 @@ __device__ __forceinline__ void select_regs(float (&acc)[ACC], int col0, int c_e
       FULL, col0 + COLS > c_end || !live[0] || !live[1] ||
                 (self && ((row[0] >= col0 && row[0] < col0 + COLS) ||
                           (row[1] >= col0 && row[1] < col0 + COLS))));
+  // An item's first chunk (with ZERO, the exact forms: a live row's list
+  // empty, no winner buffered), where every key would win: the keys of its
+  // first 4 column groups (8 a thread and row, 32 a row) are formed whole,
+  // the zero rule included, offered straight from registers and merged at
+  // once, so that each list holds its row's best of them before the rest
+  // of the chunk is marked as any other chunk is.
+  const bool first =
+      ZERO &&
+      __any_sync(FULL, (live[0] && wd[0] == inf_f()) || (live[1] && wd[1] == inf_f())) &&
+      __all_sync(FULL, bufn[wrow0 + lr] == 0 && bufn[wrow0 + lr + 8] == 0);
+  if (first) {
+    int nb[2] = {0, 0};
+    static_for<FIRST_GROUPS>([&](auto jc) {
+      constexpr int j = decltype(jc)::value;
+      const int col = cbase + 8 * j;
+      const float2 c2 = *reinterpret_cast<const float2*>(cs + 8 * j + 2 * (lane % 4));
+#pragma unroll
+      for (int x = 0; x < 4; ++x) {
+        const int i = 4 * j + x, h = x / 2, e = x % 2;
+        const float c = e ? c2.y : c2.x;
+        const float d = sweep_key(qs[h], acc[i], c);
+        const bool valid = col + e < c_end && live[h] && !(self && col + e == row[h]);
+        nan[h] |= valid && d != d;
+        acc[i] = valid && !zero.masks_norm(d, qs[h], c) ? d : inf_f();
+      }
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        bool win[2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          win[h] = live[h] && lex_less(acc[4 * j + 2 * h + e], col + e, wd[h], wi[h]);
+        int tot2;
+        const int w2 = win[0] | win[1] << 16;
+        const int off2 = quad_scan(w2, lane, tot2) - w2;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int slot = (lr + 8 * h) * CAP + nb[h] + ((off2 >> (16 * h)) & 0xffff);
+          if (win[h]) {
+            cd[slot] = acc[4 * j + 2 * h + e];
+            ci[slot] = col + e;
+          }
+          nb[h] += (tot2 >> (16 * h)) & 0xffff;
+        }
+      }
+    });
+    const unsigned m0 = __ballot_sync(FULL, lane % 4 == 0 && nb[0] > 0);
+    const unsigned m1 = __ballot_sync(FULL, lane % 4 == 0 && nb[1] > 0);
+    unsigned rows = 0u;
+#pragma unroll
+    for (int q = 0; q < 8; ++q)
+      rows |= ((m0 >> (4 * q)) & 1u) << q | ((m1 >> (4 * q)) & 1u) << (q + 8);
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      if (lane % 4 == 0) bufn[wrow0 + lr + 8 * h] = nb[h];
+    __syncwarp();
+    flush_rows(rows, L, wrow0, bufn, cd, lane);
+    worst();
+  }
   if (masked) {
     static_for<ACC / 4>([&](auto jc) {
       constexpr int j = decltype(jc)::value;
+      if (j < FIRST_GROUPS && first) return;  // offered above
       const int col = cbase + 8 * j;
       const float2 c2 = *reinterpret_cast<const float2*>(cs + 8 * j + 2 * (lane % 4));
 #pragma unroll
@@ -418,6 +600,7 @@ __device__ __forceinline__ void select_regs(float (&acc)[ACC], int col0, int c_e
     float sum[2] = {0.f, 0.f};
     static_for<ACC / 4>([&](auto jc) {
       constexpr int j = decltype(jc)::value;
+      if (j < FIRST_GROUPS && first) return;  // offered above
       const float2 c2 = *reinterpret_cast<const float2*>(cs + 8 * j + 2 * (lane % 4));
 #pragma unroll
       for (int x = 0; x < 4; ++x) {
@@ -427,8 +610,8 @@ __device__ __forceinline__ void select_regs(float (&acc)[ACC], int col0, int c_e
         pm[h][re / 32] |= (unsigned)(acc[i] <= wd[h]) << (re % 32);
       }
     });
-    nan[0] = sum[0] != sum[0];
-    nan[1] = sum[1] != sum[1];
+    nan[0] |= sum[0] != sum[0];
+    nan[1] |= sum[1] != sum[1];
   }
   __syncwarp();
   if (lane == 0) wg::mbar_arrive(release);  // the norms are read
@@ -450,6 +633,7 @@ __device__ __forceinline__ void select_regs(float (&acc)[ACC], int col0, int c_e
       const float v = pick<0, ACC / 2>(acc, h, re[h]);  // unused when nothing is marked
       d[h] = v < 0.f ? 0.f : v;  // the clamp the unmasked key pass left out
       win[h] = has[h] && lex_less(d[h], col[h], wd[h], wi[h]);
+      if constexpr (ZERO) win[h] = win[h] && !zero.masks(d[h], qs[h], col[h]);
     }
     // both rows' slots by one quad scan (row 0 in the low half)
     int tot2;
@@ -483,7 +667,7 @@ __device__ __forceinline__ void select_regs(float (&acc)[ACC], int col0, int c_e
       for (int h = 0; h < 2; ++h)
         if (lane % 4 == 0 && full[h]) bufn[wrow0 + lr + 8 * h] = CAP;
       __syncwarp();
-      flush_rows(rows, L, wrow0, bufn, cd, ci, lane);
+      flush_rows(rows, L, wrow0, bufn, cd, lane);
 #pragma unroll
       for (int h = 0; h < 2; ++h)
         if (full[h]) nb[h] = 0;
@@ -499,24 +683,53 @@ __device__ __forceinline__ void select_regs(float (&acc)[ACC], int col0, int c_e
 
 // ------------------------------------------------------------ the tile
 
-// A consumer warpgroup's product of one chunk: acc = the sum over the
-// chunk's nkb k-blocks (ring stages it0 .. it0 + nkb - 1) of two 16-deep
-// wgmmas each. Releases each stage but the last once its wgmmas have
-// completed; the last holds the chunk's column norms, and the epilogue
-// releases it.
+// The ring stages of one chunk: its nkb k-blocks (P = 1), or (P = 2) its
+// k-blocks with their lo passes, then their hi.hi two k-blocks a stage.
+template <int P>
+__host__ __device__ constexpr int chunk_steps(int nkb) {
+  return P == 1 ? nkb : nkb + (nkb + 1) / 2;
+}
+
+// A consumer warpgroup's product of one chunk: acc = the sum of its ring
+// stages it0 .. it0 + chunk_steps<P>(nkb) - 1. P = 1: the copies, two
+// 16-deep wgmmas a k-block. P = 2: the chunk's k-blocks twice, first their
+// lo.hi and hi.lo passes (four boxes a stage), then their hi.hi (the hi
+// boxes of two k-blocks a stage, in the four slots): the small terms sum
+// while the accumulators are small, and only the hi.hi terms round at the
+// product's full size (no accumulator is left over for promotion: with
+// each 16-deep step's three passes in turn, the sum of ~150 roundings at
+// full size strayed past the precision gate of chip_smoke.py). Releases
+// each stage but the last once its wgmmas have completed; the last holds
+// the chunk's column norms, and the epilogue releases it.
+template <int P>
 __device__ __forceinline__ void chunk_product(float (&acc)[ACC], uint32_t ring, uint32_t full,
                                               uint32_t empty, uint32_t it0, int nkb, int g) {
+  constexpr int STAGES = Ring<P>::STAGES;
   const bool signals = threadIdx.x % 32 == 0;
-  for (int kb = 0; kb < nkb; ++kb) {
-    const uint32_t it = it0 + kb, st = it % STAGES;
+  for (int step = 0; step < chunk_steps<P>(nkb); ++step) {
+    const uint32_t it = it0 + step, st = it % STAGES;
     wg::mbar_wait(full + 8 * st, (it / STAGES) & 1);
-    const uint32_t stage = ring + st * STAGE_BYTES;
-    const uint32_t q = stage + g * 64 * 64, c = stage + Q_BOX;
+    const uint32_t stage = ring + st * Ring<P>::STAGE_BYTES;
+    const uint32_t q = stage + g * 64 * 64, c = stage + P * Q_BOX;
+    const uint32_t q2 = q + Q_BOX, c2 = c + C_BOX;  // P = 2: the second slots
     wg::wgmma_fence();
-    wgmma_bf16(acc, wg::desc_k64(q), wg::desc_k64(c), kb > 0 ? 1 : 0);
-    wgmma_bf16(acc, wg::desc_k64(q + 32), wg::desc_k64(c + 32), 1);
+    if (P == 1 || step >= nkb) {  // the copies, or hi.hi
+      wgmma_bf16(acc, wg::desc_k64(q), wg::desc_k64(c), step > 0 ? 1 : 0);
+      wgmma_bf16(acc, wg::desc_k64(q + 32), wg::desc_k64(c + 32), 1);
+      if (P == 2 && 2 * (step - nkb) + 1 < nkb) {  // the stage's second k-block
+        wgmma_bf16(acc, wg::desc_k64(q2), wg::desc_k64(c2), 1);
+        wgmma_bf16(acc, wg::desc_k64(q2 + 32), wg::desc_k64(c2 + 32), 1);
+      }
+    } else {  // lo.hi and hi.lo
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        wgmma_bf16(acc, wg::desc_k64(q2 + 32 * h), wg::desc_k64(c + 32 * h),
+                   step > 0 || h > 0 ? 1 : 0);
+        wgmma_bf16(acc, wg::desc_k64(q + 32 * h), wg::desc_k64(c2 + 32 * h), 1);
+      }
+    }
     wg::wgmma_commit();
-    if (kb > 0) {
+    if (step > 0) {
       wg::wgmma_wait<1>();
       if (signals) wg::mbar_arrive(empty + 8 * ((it - 1) % STAGES));
     }
@@ -526,19 +739,25 @@ __device__ __forceinline__ void chunk_product(float (&acc)[ACC], uint32_t ring, 
 }
 
 // The tile's body: the persistent walk of epi's items by one CTA of THREADS
-// threads over the query map qm (boxes of KB x ROWS), the corpus map cm
-// (boxes of KB x COLS) and the corpus norms' map nm (boxes of COLS, or
+// threads over Epi::planes planes: the query maps qm (and with two planes
+// the lo plane's ql; boxes of KB x ROWS), the corpus maps cm (and cl;
+// boxes of KB x COLS) and the corpus norms' map nm (boxes of COLS, or
 // null: no norms). Epi provides nkb (k-blocks), k, items(), item(n), and
 // the consumers' hooks begin(item, ctx), chunk(acc, item, col0, norms,
 // release, ctx), which arrives once a warp on `release` (the last stage's
 // empty barrier) when done with the norms, and end(item, ctx).
 template <class Epi>
-__device__ void run_tile(const CUtensorMap* qm, const CUtensorMap* cm, const CUtensorMap* nm,
-                         const Epi& epi, unsigned char* smem_raw) {
+__device__ void run_tile(const CUtensorMap* qm, const CUtensorMap* cm, const CUtensorMap* ql,
+                         const CUtensorMap* cl, const CUtensorMap* nm, const Epi& epi,
+                         unsigned char* smem_raw) {
+  constexpr int P = Epi::planes;
+  using R = Ring<P>;
+  using L = Layout<P>;
+  constexpr int STAGES = R::STAGES;
   const uint32_t raw = smem_addr(smem_raw);
-  const uint32_t ring = (raw + (uint32_t)Layout::align - 1) & ~((uint32_t)Layout::align - 1);
+  const uint32_t ring = (raw + (uint32_t)L::align - 1) & ~((uint32_t)L::align - 1);
   unsigned char* base = smem_raw + (ring - raw);
-  const uint32_t full = ring + (uint32_t)Layout::bars, empty = full + 8 * STAGES;
+  const uint32_t full = ring + (uint32_t)L::bars, empty = full + 8 * STAGES;
   if (threadIdx.x == 0) {
     for (int s = 0; s < STAGES; ++s) {
       wg::mbar_init(full + 8 * s, 1);
@@ -555,15 +774,27 @@ __device__ void run_tile(const CUtensorMap* qm, const CUtensorMap* cm, const CUt
       for (int n = blockIdx.x; n < items; n += gridDim.x) {
         const Item t = epi.item(n);
         for (int col0 = t.c_begin; col0 < t.c_end; col0 += COLS)
-          for (int kb = 0; kb < epi.nkb; ++kb, ++it) {
+          for (int step = 0; step < chunk_steps<P>(epi.nkb); ++step, ++it) {
+            // P = 2: the lo passes' stages (kb's four boxes), then hi.hi's
+            // (the hi boxes of kb and kb + 1, in the stage's four slots)
+            const bool lo = P == 2 && step < epi.nkb;
+            const int kb = P == 1 || lo ? step : 2 * (step - epi.nkb);
+            const bool second = P == 2 && (lo || kb + 1 < epi.nkb);
+            const CUtensorMap* q2 = lo ? ql : qm;
+            const CUtensorMap* c2 = lo ? cl : cm;
+            const int kb2 = lo ? kb : kb + 1;
             const uint32_t st = it % STAGES;
             wg::mbar_wait(empty + 8 * st, ((it / STAGES) & 1) ^ 1);
-            const uint32_t bar = full + 8 * st, dst = ring + st * STAGE_BYTES;
-            const bool norms = nm != nullptr && kb == epi.nkb - 1;
-            wg::mbar_expect_tx(bar, Q_BOX + C_BOX + (norms ? N_BOX : 0));
+            const uint32_t bar = full + 8 * st, dst = ring + st * R::STAGE_BYTES;
+            const bool norms = nm != nullptr && step == chunk_steps<P>(epi.nkb) - 1;
+            wg::mbar_expect_tx(bar, (second ? 2 : 1) * (Q_BOX + C_BOX) + (norms ? N_BOX : 0));
             wg::tma_load(dst, qm, bar, kb * KB, t.q0);
-            wg::tma_load(dst + Q_BOX, cm, bar, kb * KB, col0);
-            if (norms) tma_load_1d(dst + Q_BOX + C_BOX, nm, bar, col0);
+            wg::tma_load(dst + P * Q_BOX, cm, bar, kb * KB, col0);
+            if (second) {
+              wg::tma_load(dst + Q_BOX, q2, bar, kb2 * KB, t.q0);
+              wg::tma_load(dst + 2 * Q_BOX + C_BOX, c2, bar, kb2 * KB, col0);
+            }
+            if (norms) tma_load_1d(dst + R::NORMS, nm, bar, col0);
           }
       }
     }
@@ -575,25 +806,23 @@ __device__ void run_tile(const CUtensorMap* qm, const CUtensorMap* cm, const CUt
   ctx.g = ctx.ctid / 128;
   ctx.cwarp = ctx.ctid / 32;
   ctx.lane = ctx.ctid % 32;
-  ctx.flag = reinterpret_cast<int*>(base + Layout::flag);
-  ctx.nanf = reinterpret_cast<int*>(base + Layout::nanf);
-  ctx.bufn = reinterpret_cast<int*>(base + Layout::bufn);
-  ctx.cd = reinterpret_cast<float*>(base + Layout::cand) + ctx.cwarp * 16 * CAP;
-  ctx.ci = reinterpret_cast<int*>(base + Layout::cand + sizeof(float) * ROWS * CAP) +
-           ctx.cwarp * 16 * CAP;
-  ctx.Lsd = reinterpret_cast<float*>(base + Layout::lists);
-  ctx.Lsi = reinterpret_cast<int*>(ctx.Lsd + (epi.k <= KS ? ROWS * epi.k : 0));
+  ctx.flag = reinterpret_cast<int*>(base + L::flag);
+  ctx.nanf = reinterpret_cast<int*>(base + L::nanf);
+  ctx.bufn = reinterpret_cast<int*>(base + L::bufn);
+  ctx.cd = reinterpret_cast<float*>(base + L::cand) + ctx.cwarp * 16 * CAP;
+  ctx.Lsd = reinterpret_cast<float*>(base + L::lists);
+  ctx.Lsi = reinterpret_cast<int*>(ctx.Lsd + (epi.k <= R::KS ? ROWS * epi.k : 0));
   float acc[ACC];
   uint32_t it = 0;
   for (int n = blockIdx.x; n < items; n += gridDim.x) {
     const Item t = epi.item(n);
     epi.begin(t, ctx);
     for (int col0 = t.c_begin; col0 < t.c_end; col0 += COLS) {
-      chunk_product(acc, ring, full, empty, it, epi.nkb, ctx.g);
-      it += epi.nkb;
+      chunk_product<P>(acc, ring, full, empty, it, epi.nkb, ctx.g);
+      it += chunk_steps<P>(epi.nkb);
       const uint32_t last = (it - 1) % STAGES;
       epi.chunk(acc, t, col0,
-                reinterpret_cast<const float*>(base + last * STAGE_BYTES + Q_BOX + C_BOX),
+                reinterpret_cast<const float*>(base + last * R::STAGE_BYTES + R::NORMS),
                 empty + 8 * last, ctx);
     }
     epi.end(t, ctx);
@@ -635,17 +864,19 @@ inline cudaError_t norms_map(CUtensorMap* map, const float* x, int n) {
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-// The persistent grid of a kernel of this tile: min(items, SMs x CTAs per SM).
+// The persistent grid of a kernel of this tile on P planes: min(items, SMs
+// x CTAs per SM).
+template <int P = 1>
 inline cudaError_t tile_grid(const void* kernel, int k, long long items, int* grid,
                              int* ctas_per_sm) {
   int dev = 0, sms = 0;
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)smem_bytes(k));
+                                       (int)smem_bytes<P>(k));
   if (e == cudaSuccess) e = cudaGetDevice(&dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e == cudaSuccess)
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas_per_sm, kernel, THREADS,
-                                                      smem_bytes(k));
+                                                      smem_bytes<P>(k));
   if (e != cudaSuccess) return e;
   if (*ctas_per_sm < 1) return cudaErrorInvalidConfiguration;
   const long long slots = (long long)sms * *ctas_per_sm;

@@ -77,7 +77,8 @@ KERNEL_CATEGORIES = {
     "fused_knn_sweep_kernel": "matmul",
     "fused_knn_tiles_compress_kernel": "matmul",
     "fused_knn_sweep_compress_kernel": "matmul",
-    "fused_knn_mma_kernel": "matmul",  # K1 / K2 at "default" / "high"
+    "fused_knn_bf16x1_kernel": "matmul",  # K1 / K2 at "default"
+    "fused_knn_bf16x3_kernel": "matmul",  # K1 / K2 at "high"
     # K3a, K3b
     "block_merge_exact_kernel": "matmul",
     "block_merge_compress_kernel": "matmul",
@@ -93,6 +94,7 @@ KERNEL_CATEGORIES = {
     "stage_split_kernel": "copy",
     "stage_bf16_kernel": "copy",
     "stage_tf32_kernel": "copy",
+    "stage_planes_kernel": "copy",
     # test and measurement hooks
     "exact_tile_dots_kernel": "matmul",
     "split_tile_dots_kernel": "matmul",
@@ -110,9 +112,10 @@ KERNEL_FAMILIES = (
     (("fused_knn_sweep_kernel",), ("fused_knn_sweep",)),
     (("fused_knn_tiles_compress_kernel",), ("fused_knn_tiles[compress]",)),
     (("fused_knn_sweep_compress_kernel",), ("fused_knn_sweep[compress]",)),
-    (("fused_knn_mma_kernel",),
-     ("fused_knn_tiles[default]", "fused_knn_tiles[high]",
-      "fused_knn_sweep[default]", "fused_knn_sweep[high]")),
+    (("fused_knn_bf16x1_kernel",),
+     ("fused_knn_tiles[default]", "fused_knn_sweep[default]")),
+    (("fused_knn_bf16x3_kernel",),
+     ("fused_knn_tiles[high]", "fused_knn_sweep[high]")),
     (("block_merge_exact_kernel",),
      ("fused_block_merge[exact]", "fused_block_merge[default]",
       "fused_block_merge[high]")),
@@ -125,6 +128,7 @@ KERNEL_FAMILIES = (
     (("stage_split_kernel",), ("stage_tf32_split", "stage_tf32_split[ring]")),
     (("stage_bf16_kernel",), ("stage_bf16", "stage_bf16[wire]")),
     (("stage_tf32_kernel",), ("stage_tf32[wire]", "stage_norms")),
+    (("stage_planes_kernel",), ("stage_planes",)),
     (("warp_chunks_kernel", "cta_row_kernel"),
      ("approx_min_k", "approx_min_k[f64]")),
 )

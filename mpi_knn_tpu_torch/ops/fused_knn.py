@@ -38,12 +38,17 @@ not depend on the split.
 
 ``precision`` (the config's ``matmul_precision``) picks the exact mode's
 product: None and "highest" are the above; "default" and "high" are the
-JAX kernels' DEFAULT and HIGH dots, on the card knn_tile.cuh's mma.sync
-tile on the f32 rows with each operand rounded to bf16 (one pass) or split
-into bf16 hi + lo (three passes) in registers, after the prologue
-``stage_f32_norms`` (the f32 norms, once per row set), with the exact
-epilogue; their plain versions take ``ops/distance._mm_t`` at that
-precision. Launches count as ``fused_knn_tiles[default]`` and so on.
+JAX kernels' DEFAULT and HIGH dots; their plain versions take
+``ops/distance._mm_t`` at that precision. On the card the prologue
+``stage_planes`` writes each row set's bf16 planes once (hi rounded to
+nearest even, at "high" also lo = bf16(x − hi), zero-padded to a multiple
+of ``STAGE_K``) beside its f32 norms (``stage_f32_norms``, the Tf32x3
+tile's diagonal); the kernel (``launch_planes``) is K2[c]'s bf16 ``wgmma``
+tile on the planes (one pass, or a chunk's lo·hi and hi·lo passes and then
+its hi·hi) with the exact epilogue, K2 in the corpus slices
+``compress_sweep_plan`` picks. Launches count as
+``fused_knn_tiles[default]`` and so on, the prologue's as ``stage_planes``
+and ``stage_norms``.
 
 A serving index stages its corpus once (``stage_corpus`` -> ``StagedCorpus``)
 and hands it to every call as ``staged_corpus``: a call then launches the
@@ -52,7 +57,8 @@ prologue on its queries alone, and the kernel reads the resident planes.
 A wrapper takes its plain version only because the tensors it was given lie
 on the CPU. For CUDA tensors it launches the kernel or raises. Each launch
 adds one to ``LAUNCHES[name]``: the kernels' names carry ``[compress]`` in
-that mode, the prologues' are ``stage_tf32_split`` and ``stage_bf16``.
+that mode, the prologues' are ``stage_tf32_split``, ``stage_bf16``,
+``stage_planes`` and ``stage_norms``.
 """
 
 from __future__ import annotations
@@ -66,6 +72,8 @@ import torch
 from mpi_knn_tpu_torch.ops import _build
 from mpi_knn_tpu_torch.ops.distance import (
     _mm_t,
+    bf16_round,
+    bf16_split,
     precision_code,
     resolve_precision,
     sq_norms,
@@ -91,7 +99,8 @@ LAUNCHES = {"fused_knn_tiles": 0, "fused_knn_sweep": 0,
             "fused_knn_tiles[compress]": 0, "fused_knn_sweep[compress]": 0,
             "fused_knn_tiles[default]": 0, "fused_knn_sweep[default]": 0,
             "fused_knn_tiles[high]": 0, "fused_knn_sweep[high]": 0,
-            "stage_tf32_split": 0, "stage_bf16": 0, "stage_norms": 0}
+            "stage_tf32_split": 0, "stage_bf16": 0, "stage_planes": 0,
+            "stage_norms": 0}
 # the kernels of csrc/fused_knn.cu's kernel_info, by launch-count name
 _KERNELS = ("fused_knn_tiles", "fused_knn_sweep", "fused_knn_tiles[compress]",
             "fused_knn_sweep[compress]")
@@ -126,9 +135,11 @@ def configure(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.stage_tf32_split_launch.argtypes = [ptr] * 4 + [i32] * 3 + [ptr]
     lib.split_tile_dots_launch.argtypes = [ptr] * 5 + [i32] * 3 + [ptr]
     lib.exact_tile_dots_launch.argtypes = [ptr] * 3 + [i32] * 4 + [ptr]
-    lib.fused_knn_mma_launch.argtypes = ([ptr] * 6 + [i32] * 9 + [ctypes.c_float]
-                                         + [i32] * 2 + [ptr])
-    lib.fused_knn_mma_plan.argtypes = [i32] * 6 + [ctypes.POINTER(i32)] * 5
+    lib.fused_knn_planes_launch.argtypes = ([ptr] * 11 + [i32] * 9
+                                            + [ctypes.c_float] + [i32] * 2 + [ptr])
+    lib.planes_plan.argtypes = [i32] * 7 + [ctypes.POINTER(ctypes.c_longlong)] + [
+        ctypes.POINTER(i32)] * 7
+    lib.stage_planes_launch.argtypes = [ptr] * 3 + [i32] * 3 + [ptr]
     lib.stage_norms_launch.argtypes = [ptr, ptr, i32, i32, ptr]
     lib.kernel_info.argtypes = [i32, i32] + [ctypes.POINTER(i32)] * 4
     lib.exact_plan.argtypes = [i32] * 5 + [ctypes.POINTER(ctypes.c_longlong),
@@ -143,8 +154,8 @@ def configure(lib: ctypes.CDLL) -> ctypes.CDLL:
                lib.stage_tf32_split_launch, lib.split_tile_dots_launch,
                lib.exact_tile_dots_launch, lib.kernel_info, lib.exact_plan,
                lib.compress_sweep_plan, lib.bf16_tile_dots_launch,
-               lib.fused_knn_mma_launch, lib.fused_knn_mma_plan,
-               lib.stage_norms_launch):
+               lib.fused_knn_planes_launch, lib.planes_plan,
+               lib.stage_planes_launch, lib.stage_norms_launch):
         fn.restype = i32
     return lib
 
@@ -259,6 +270,52 @@ def stage_f32_norms(rows):
     return norms
 
 
+def stage_planes(rows, precision):
+    """The "default" / "high" prologue on an f32 (n, d) row set -> (hi, lo,
+    norms): the bf16 planes ((n, staged_width(d)), zero past d) hi = the
+    rows rounded to nearest even and, at "high", lo = bf16(x − hi) (None at
+    "default"), and the (n,) f32 squared norms of ``stage_f32_norms``. On
+    the card two launches: the planes (``stage_planes``) and the norms."""
+    _rows_f32(rows)
+    p = resolve_precision(precision)
+    n, d = rows.shape
+    width = staged_width(d)
+    if rows.device.type == "cpu":
+        return stage_planes_reference(rows, p, width)
+    hi = torch.empty((n, width), dtype=torch.bfloat16, device=rows.device)
+    lo = (torch.empty((n, width), dtype=torch.bfloat16, device=rows.device)
+          if p == "high" else None)
+    with torch.cuda.device(rows.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = _lib().stage_planes_launch(rows.data_ptr(), hi.data_ptr(),
+                                        None if lo is None else lo.data_ptr(),
+                                        n, d, width, stream)
+    if rc != 0:
+        raise RuntimeError(f"stage_planes launch failed: cudaError {rc}")
+    planes = (hi,) if lo is None else (hi, lo)
+    note_launch(LAUNCHES, "stage_planes", lambda: dict(
+        operands=(rows,), outputs=planes, precision=PRECISION_FORMS[p],
+        bytes=tensor_bytes(rows, *planes)))
+    return hi, lo, stage_f32_norms(rows)
+
+
+def stage_planes_reference(rows, precision, width=None):
+    """Plain version of the "default" / "high" prologue (any device): the
+    planes of ``bf16_round`` / ``bf16_split`` as bf16, zero-padded to
+    ``width`` (default: d), lo None at "default", and the rows' f32 squared
+    norms."""
+    n, d = rows.shape
+    width = d if width is None else width
+    high = resolve_precision(precision) == "high"
+    parts = bf16_split(rows) if high else (bf16_round(rows),)
+    planes = []
+    for part in parts:
+        plane = torch.zeros((n, width), dtype=torch.bfloat16, device=rows.device)
+        plane[:, :d] = part.to(torch.bfloat16)
+        planes.append(plane)
+    return planes[0], planes[1] if high else None, sq_norms(rows)
+
+
 def _stage_exact(queries, corpus):
     """The prologue for an exact call: (staged queries, staged corpus). When
     the queries are the corpus' first rows (all-pairs mode), the corpus is
@@ -275,31 +332,43 @@ class StagedCorpus:
     """A corpus's prologue outputs, written once and read by every later
     call on that corpus (a serving index's resident planes): ``exact`` the
     (hi, lo, norms) of ``stage_tf32_split``, ``compress`` the (bf16 copy,
-    norms) of ``stage_bf16_rows``, ``norms`` the (norms,) of
-    ``stage_f32_norms`` ("default" / "high"), None where not staged. The
-    tensors stay at one address for the object's life, so the kernels' TMA
-    maps, encoded per launch from the pointers, always find them."""
+    norms) of ``stage_bf16_rows``, ``default`` and ``high`` the (hi, lo,
+    norms) of ``stage_planes`` at that precision (lo None at "default"),
+    None where not staged. The tensors stay at one address for the
+    object's life, so the kernels' TMA maps, encoded per launch from the
+    pointers, always find them."""
 
     exact: tuple | None = None
     compress: tuple | None = None
-    norms: tuple | None = None
+    default: tuple | None = None
+    high: tuple | None = None
 
     @property
     def nbytes(self) -> int:
         return sum(t.numel() * t.element_size()
-                   for part in (self.exact, self.compress, self.norms)
-                   if part is not None for t in part)
+                   for part in (self.exact, self.compress, self.default, self.high)
+                   if part is not None for t in part if t is not None)
+
+    def part(self, which: str):
+        """The staged part ``which`` (a ``staged_part`` name), or None; a
+        "default" call reads the hi plane and norms of a "high" staging,
+        which are the "default" planes."""
+        got = getattr(self, which)
+        if got is None and which == "default" and self.high is not None:
+            return self.high[0], None, self.high[2]
+        return got
 
 
 def stage_corpus(corpus, compress: bool = False,
                  precision=None) -> StagedCorpus:
     """Run one prologue once on a padded f32 corpus on the card: the exact
     planes, with ``compress`` the compress copy, or at ``precision``
-    "default" / "high" the norms."""
+    "default" / "high" its bf16 planes and norms."""
     if compress:
         return StagedCorpus(compress=stage_bf16_rows(corpus))
-    if resolve_precision(precision) != "highest":
-        return StagedCorpus(norms=(stage_f32_norms(corpus),))
+    p = resolve_precision(precision)
+    if p != "highest":
+        return StagedCorpus(**{p: stage_planes(corpus, p)})
     return StagedCorpus(exact=stage_tf32_split(corpus))
 
 
@@ -307,34 +376,36 @@ def staged_part(compress: bool, precision=None) -> str:
     """The ``StagedCorpus`` field a call reads."""
     if compress:
         return "compress"
-    return "exact" if resolve_precision(precision) == "highest" else "norms"
+    p = resolve_precision(precision)
+    return "exact" if p == "highest" else p
 
 
 def _stage_call(queries, corpus, staged_corpus, compress: bool, precision=None):
     """(staged queries, staged corpus) of one card call: the corpus's from
-    ``staged_corpus`` when given (one prologue launch, on the queries),
-    else both staged here. At "default" / "high" each is a 1-tuple of
-    norms (once in all when the queries are the corpus's first rows)."""
+    ``staged_corpus`` when given (one prologue on the queries), else both
+    staged here (once in all when the queries are the corpus's first
+    rows)."""
     which = staged_part(compress, precision)
     if staged_corpus is None:
         if compress:
             return stage_bf16_rows(queries), stage_bf16_rows(corpus)
-        if which == "norms":
+        if which != "exact":
             if (queries.data_ptr() == corpus.data_ptr()
                     and queries.shape[0] <= corpus.shape[0]):
-                cn = stage_f32_norms(corpus)
-                return (cn[:queries.shape[0]],), (cn,)
-            return (stage_f32_norms(queries),), (stage_f32_norms(corpus),)
+                staged_c = stage_planes(corpus, which)
+                return (tuple(None if t is None else t[:queries.shape[0]]
+                              for t in staged_c), staged_c)
+            return stage_planes(queries, which), stage_planes(corpus, which)
         return _stage_exact(queries, corpus)
-    part = getattr(staged_corpus, which)
+    part = staged_corpus.part(which)
     if part is None:
         raise ValueError(f"staged_corpus holds no {which} prologue output")
     if part[0].shape[0] != corpus.shape[0] or part[0].device != corpus.device:
         raise ValueError("staged_corpus was not staged from this corpus")
     if compress:
         return stage_bf16_rows(queries), part
-    if which == "norms":
-        return (stage_f32_norms(queries),), part
+    if which != "exact":
+        return stage_planes(queries, which), part
     return stage_tf32_split(queries), part
 
 
@@ -355,10 +426,9 @@ def tf32_split(x):
 
 def exact_tile_dots(queries, corpus, precision=None):
     """The mma.sync f32 tile's raw products queries · corpusᵀ ((Q, C) f32)
-    at ``precision``, the tile of K3a, K4 and K5 (and at "default" /
-    "high" of K1 and K2): a test hook for the card (the ring prologue's
-    norms are the "highest" product's diagonal); on the CPU, ``_mm_t`` at
-    that precision. Not counted in ``LAUNCHES``."""
+    at ``precision``, the tile of K3a, K4 and K5: a test hook for the card
+    (the ring prologue's norms are the "highest" product's diagonal); on
+    the CPU, ``_mm_t`` at that precision. Not counted in ``LAUNCHES``."""
     _check(queries, corpus, 1, 1, 1)
     if queries.device.type == "cpu":
         return _mm_t(queries, corpus, precision)
@@ -512,7 +582,7 @@ def compress_sweep_plan(Q: int, c_end: int, sms: int, slices: int | None = None,
     slice + ``ITEM_OVERHEAD_CHUNKS``): a few query groups are spread over
     the card, and a last wave's waste is weighed against each slice's
     set-up and merge. The kernel (csrc/knn_wgmma_bf16.cuh ``sweep_walk``)
-    cuts the same spans."""
+    cuts the same spans; K2 at "default" / "high" takes the same plan."""
     groups = -(-Q // SWEEP_ROWS)
     chunks = max(1, -(-c_end // cols))
 
@@ -603,37 +673,76 @@ def launch_exact(base: str, staged_q, staged_c, m_corpus: int, k: int,
                  (Q, k), *shape_args, *flags, **side)
 
 
-def launch_mma(base: str, queries, corpus, staged_q, staged_c, m_corpus: int,
-               k: int, c_tile: int, precision, exclude_self: bool = True,
-               exclude_zero: bool = True, all_pairs: bool = True,
-               zero_eps: float = 0.0):
+def launch_planes(base: str, staged_q, staged_c, m_corpus: int, k: int,
+                  c_tile: int, precision, exclude_self: bool = True,
+                  exclude_zero: bool = True, all_pairs: bool = True,
+                  zero_eps: float = 0.0, slices: int | None = None,
+                  dim: int | None = None):
     """The "default" / "high" kernel ``base`` ("fused_knn_tiles" or
-    "fused_knn_sweep") on the f32 rows and the prologue's norms ((qn,),
-    (cn,)), on the card: (n_c, Q, k) or (Q, k) dists and ids."""
+    "fused_knn_sweep") on the prologue's (hi, lo, norms) of the queries and
+    of the corpus (``stage_planes``), on the card: (n_c, Q, k) or (Q, k)
+    dists and ids. ``slices`` forces the sweep's corpus split (default:
+    ``compress_sweep_plan``'s); the output is the same for every split.
+    ``dim``: the rows' width before staging (default: the planes'), the
+    side-band's logical FLOPs 2·Q·C·dim."""
     p = resolve_precision(precision)
-    (qn,), (cn,) = staged_q, staged_c
-    (Q, D), C = queries.shape, corpus.shape[0]
+    (qh, ql, qn), (ch, cl, cn) = staged_q, staged_c
+    if p == "high" and (ql is None or cl is None):
+        raise ValueError('"high" reads the lo planes: stage them at "high"')
+    Q, C, dev = qh.shape[0], ch.shape[0], qh.device
+    name = f"{base}[{p}]"
     sweep = base == "fused_knn_sweep"
-    shape = (Q, k) if sweep else (C // c_tile, Q, k)
-    return _call(_lib().fused_knn_mma_launch, f"{base}[{p}]", queries.device,
-                 (queries, qn, corpus, cn), shape, Q, C, D, m_corpus, k, c_tile,
-                 int(exclude_self), int(exclude_zero), int(all_pairs),
-                 float(zero_eps), precision_code(p), int(sweep),
-                 flops=2 * Q * C * D, precision=PRECISION_FORMS[p])
-
-
-def mma_plan(base: str, Q: int, C: int, c_tile: int, k: int, precision) -> dict:
-    """The "default" / "high" kernel's launch plan (needs the card): query
-    rows per CTA (128, or 64 where 128-row CTAs would not fill the card),
-    CTAs, the kernel's registers, spilled bytes a thread and CTAs per SM."""
-    vals = [ctypes.c_int() for _ in range(5)]
-    rc = _lib().fused_knn_mma_plan(Q, C, k, c_tile, precision_code(precision),
-                                   int(base == "fused_knn_sweep"),
-                                   *(ctypes.byref(v) for v in vals))
+    S = 1
+    if sweep:
+        plan = compress_sweep_plan(Q, min(C, m_corpus), _sm_count(dev), slices)
+        S = plan["slices"]
+    out_d = torch.empty((Q, k) if sweep else (C // c_tile, Q, k),
+                        dtype=torch.float32, device=dev)
+    out_i = torch.empty(out_d.shape, dtype=torch.int32, device=dev)
+    part_d = part_i = counters = None
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        if S > 1:
+            part_d = torch.empty((S, Q, k), dtype=torch.float32, device=dev)
+            part_i = torch.empty((S, Q, k), dtype=torch.int32, device=dev)
+            counters = _group_counters(dev, stream, plan["groups"])
+        rc = _lib().fused_knn_planes_launch(
+            qh.data_ptr(), ptr(ql), qn.data_ptr(), ch.data_ptr(), ptr(cl),
+            cn.data_ptr(), out_d.data_ptr(), out_i.data_ptr(), ptr(part_d),
+            ptr(part_i), ptr(counters), Q, C, qh.shape[1], m_corpus, k,
+            0 if sweep else c_tile, int(exclude_self), int(exclude_zero),
+            int(all_pairs), float(zero_eps), precision_code(p), S, stream)
     if rc != 0:
-        raise RuntimeError(f"fused_knn_mma_plan failed: cudaError {rc}")
-    return dict(zip(("rows_per_cta", "ctas", "registers", "spilled_bytes",
-                     "ctas_per_sm"), (v.value for v in vals)))
+        raise RuntimeError(f"{name} launch failed: cudaError {rc}")
+    operands = tuple(t for t in (qh, ql, qn, ch, cl, cn) if t is not None)
+    note_launch(LAUNCHES, name, lambda: dict(
+        operands=operands, outputs=(out_d, out_i, part_d, part_i),
+        flops=2 * Q * C * (qh.shape[1] if dim is None else dim),
+        precision=PRECISION_FORMS[p],
+        bytes=tensor_bytes(*operands, out_d, out_i)))
+    return out_d, out_i
+
+
+def planes_plan(base: str, Q: int, C: int, m_corpus: int, k: int, c_tile: int,
+                precision, slices: int = 1) -> dict:
+    """The "default" / "high" kernel's launch plan as the built kernel sees
+    it (needs the card): items (query groups x corpus tiles, or x the
+    sweep's ``slices``), the persistent grid, CTAs per SM, the columns of a
+    slice or tile, the ring's stages, the dynamic shared bytes, and the
+    kernel's registers and spilled bytes a thread."""
+    items = ctypes.c_longlong()
+    vals = [ctypes.c_int() for _ in range(7)]
+    sweep = base == "fused_knn_sweep"
+    rc = _lib().planes_plan(Q, C, m_corpus, k, 0 if sweep else c_tile,
+                            precision_code(precision), slices, ctypes.byref(items),
+                            *(ctypes.byref(v) for v in vals))
+    if rc != 0:
+        raise RuntimeError(f"planes_plan failed: cudaError {rc}")
+    plan = dict(zip(("grid", "ctas_per_sm", "span", "stages", "smem_bytes",
+                     "registers", "spilled_bytes"), (v.value for v in vals)))
+    return {"rows_per_cta": SWEEP_ROWS, "slices": slices if sweep else C // c_tile,
+            "items": items.value, **plan, "waves": items.value / plan["grid"]}
 
 
 def wgmma_rate(device, iters: int = 4096) -> float:
@@ -714,9 +823,9 @@ def _launch_card(base, queries, corpus, m_corpus, k, c_tile, exclude_self,
         return launch_compress(base, *staged, m_corpus, k, c_tile, exclude_self,
                                all_pairs, dim=dim)
     if resolve_precision(precision) != "highest":
-        return launch_mma(base, queries, corpus, *staged, m_corpus, k, c_tile,
-                          precision, exclude_self, exclude_zero, all_pairs,
-                          zero_eps)
+        return launch_planes(base, *staged, m_corpus, k, c_tile, precision,
+                             exclude_self, exclude_zero, all_pairs, zero_eps,
+                             dim=dim)
     return launch_exact(base, *staged, m_corpus, k, c_tile, exclude_self,
                         exclude_zero, all_pairs, zero_eps, dim=dim)
 
@@ -880,15 +989,22 @@ def fused_knn_sweep_reference(queries, corpus, m_corpus, k, q_tile, c_tile,
 
 def fused_knn_sweep_split_reference(queries, corpus, m_corpus, k, q_tile,
                                     c_tile, exclude_self=True, all_pairs=True,
-                                    slices=1, cols=SWEEP_COLS):
-    """Plain model of K2[c]'s corpus split (tests only): the compress sweep
-    over each of ``slices`` slices of the columns [0, min(C, m_corpus)),
-    cut as ``compress_sweep_plan`` cuts them, then the slices' lists merged
-    by (distance, column) as the group's last CTA merges them. Equal bit
-    for bit to ``fused_knn_sweep_reference(..., compress=True)`` for every
-    S."""
+                                    slices=1, cols=SWEEP_COLS, precision=None,
+                                    exclude_zero=True, zero_eps=0.0):
+    """Plain model of the bf16 sweep tile's corpus split (tests only): the
+    sweep over each of ``slices`` slices of the columns [0, min(C,
+    m_corpus)), cut as ``compress_sweep_plan`` cuts them, then the slices'
+    lists merged by (distance, column) as the group's last CTA merges them.
+    ``precision`` None is K2[c] (the compress sweep: the zero mask off);
+    "default" / "high" is K2 at that precision with the exact masks
+    (``exclude_zero``, ``zero_eps``). Equal bit for bit to
+    ``fused_knn_sweep_reference`` of the same mode for every S."""
     _check(queries, corpus, k, q_tile, c_tile)
-    qb, q_sq = stage_bf16_rows_reference(queries)
+    compress = precision is None
+    if compress:
+        q, q_sq = stage_bf16_rows_reference(queries)
+    else:
+        q, q_sq = queries, sq_norms(queries)
     c_end = min(corpus.shape[0], m_corpus)
     plan = compress_sweep_plan(queries.shape[0], c_end, 1, slices, cols)
     Q, dev = queries.shape[0], queries.device
@@ -898,9 +1014,10 @@ def fused_knn_sweep_split_reference(queries, corpus, m_corpus, k, q_tile,
         d = torch.full((Q, k), float("inf"), device=dev)
         ids = torch.full((Q, k), INVALID_ID, dtype=torch.int32, device=dev)
         if c1 > c0:
-            sd, si = _select(*_masked_tile(qb, q_sq, corpus[c0:c1], c0, m_corpus,
-                                           exclude_self, False, all_pairs, 0.0,
-                                           compress=True), k)
+            sd, si = _select(*_masked_tile(
+                q, q_sq, corpus[c0:c1], c0, m_corpus, exclude_self,
+                exclude_zero and not compress, all_pairs, zero_eps,
+                compress=compress, precision=precision), k)
             d[:, :sd.shape[1]], ids[:, :si.shape[1]] = sd, si
         lists_d.append(d)
         lists_i.append(ids)

@@ -12,7 +12,8 @@ exact prologue over the whole corpus. ``CorpusIndex`` does them once:
   its kernels read (``fused_knn.StagedCorpus``), staged at build for the
   build config: the TF32 hi/lo planes with their norms, or, where the
   config compresses (mixed), the bf16 copy with its norms (at
-  ``matmul_precision`` "default" / "high": the norms alone). Each batch then
+  ``matmul_precision`` "default" / "high": the bf16 planes with the norms;
+  a "high" index serves "default" from its hi plane). Each batch then
   stages its queries alone. A per-call config that needs the part not
   staged is refused;
 - ring layout (``ring``, ``ring-overlap``; the JAX package's
@@ -147,7 +148,7 @@ class CorpusIndex:
             return 0
         compress = _compresses(cfg, self.c_tile)
         which = fused_knn.staged_part(compress, cfg.matmul_precision)
-        if getattr(self.staged, which) is not None:
+        if self.staged.part(which) is not None:
             return 0
         with mutation_lock(self):
             order_stream(self)
@@ -184,7 +185,7 @@ class CorpusIndex:
         if staged and self.staged is not None:
             which = fused_knn.staged_part(_compresses(want, self.c_tile),
                                           want.matmul_precision)
-            if getattr(self.staged, which) is None:
+            if self.staged.part(which) is None:
                 raise ValueError(
                     f"precision_policy={want.precision_policy!r} with "
                     f"k={want.k}, matmul_precision={want.matmul_precision!r} "

@@ -227,7 +227,8 @@ def test_compress_wrappers_count_stage_launches(cuda_device):
         "fused_knn_tiles[compress]": 1, "fused_knn_sweep[compress]": 1,
         "fused_knn_tiles[default]": 0, "fused_knn_sweep[default]": 0,
         "fused_knn_tiles[high]": 0, "fused_knn_sweep[high]": 0,
-        "stage_tf32_split": 0, "stage_bf16": 4, "stage_norms": 0}
+        "stage_tf32_split": 0, "stage_bf16": 4, "stage_planes": 0,
+        "stage_norms": 0}
     assert fused_ring.LAUNCHES == {"fused_block_merge[exact]": 0,
                                    "fused_block_merge[compress]": 1,
                                    "fused_block_merge[default]": 0,
@@ -260,7 +261,8 @@ def test_exact_wrappers_count_stage_launches(cuda_device):
         "fused_knn_tiles[compress]": 0, "fused_knn_sweep[compress]": 0,
         "fused_knn_tiles[default]": 0, "fused_knn_sweep[default]": 0,
         "fused_knn_tiles[high]": 0, "fused_knn_sweep[high]": 0,
-        "stage_tf32_split": 3, "stage_bf16": 0, "stage_norms": 0}
+        "stage_tf32_split": 3, "stage_bf16": 0, "stage_planes": 0,
+        "stage_norms": 0}
     assert fused_ring.LAUNCHES == {"fused_block_merge[exact]": 2,
                                    "fused_block_merge[compress]": 0,
                                    "fused_block_merge[default]": 0,
@@ -1167,6 +1169,125 @@ def test_precision_knn_kernels_equal_plain_on_small_integers(cuda_device, name,
     assert fused_knn.LAUNCHES["stage_norms"] == before[1] + (1 if all_pairs else 2)
     assert torch.equal(got[1], want[1])
     _same(got[0], want[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["fused_knn_tiles", "fused_knn_sweep"])
+@pytest.mark.parametrize("precision", PRECISIONS)
+@pytest.mark.parametrize("all_pairs", [True, False])
+@pytest.mark.parametrize("dim,k", [(24, 1), (33, 10), (100, 65)])
+def test_precision_knn_kernels_on_ragged_shapes(cuda_device, name, precision,
+                                                all_pairs, dim, k):
+    """K1 / K2 at "default" / "high" (the bf16 wgmma tile on the staged
+    planes) off its shapes: widths padded to 32, 64 and 128, corpus tiles
+    of 384 columns (a chunk of 256 straddles two), m_corpus ragged (760 of
+    768 rows), a duplicate pair (the zero rule), self in all pairs, a NaN
+    query row, and multiples of 1/64 up to 300/64, some of 9 significant
+    bits, so that "high"'s lo planes are not all zero: x = hi + lo exactly,
+    and every product and sum is exact in f32."""
+    rng = np.random.default_rng(22)
+    X = np.zeros((768, dim), np.float32)
+    X[:760] = rng.integers(-300, 301, (760, dim)) / 64.0
+    X[5] = X[60] = rng.integers(-127, 128, dim) / 16.0  # exact in bf16: d = 0
+    X = torch.from_numpy(X).to(cuda_device)
+    Q = X if all_pairs else X[:300] + 0.0625  # all pairs: staged once
+    if not all_pairs:
+        Q[9] = float("nan")
+    args = (Q, X, 760, k, 4, 384)
+    key = f"{name}[{precision}]"
+    before = (fused_knn.LAUNCHES[key], fused_knn.LAUNCHES["stage_planes"])
+    gd, gi = getattr(fused_knn, name)(*args, all_pairs=all_pairs, precision=precision)
+    torch.cuda.synchronize()
+    wd, wi = getattr(fused_knn, name + "_reference")(*args, all_pairs=all_pairs,
+                                                   precision=precision)
+    assert fused_knn.LAUNCHES[key] == before[0] + 1
+    assert fused_knn.LAUNCHES["stage_planes"] == before[1] + (1 if all_pairs else 2)
+    assert torch.equal(gi, wi)
+    _same(gd, wd)
+    if not all_pairs:
+        assert bool(torch.isnan(gd[9]).all()) and bool((gi[9] == -1).all())
+    else:
+        assert 5 not in gi[5].tolist() and 60 not in gi[5].tolist()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", PRECISIONS)
+def test_precision_prologue_equals_plain(cuda_device, precision):
+    """``stage_planes`` on random normal rows with a zero row and a
+    duplicate: the planes bit for bit the plain version's (hi = bf16(x), lo
+    = bf16(x − hi)), the norms bit for bit ``stage_f32_norms``'s."""
+    rng = np.random.default_rng(23)
+    X = rng.standard_normal((1000, 101)).astype(np.float32) * 3.0
+    X[7] = 0.0
+    X[8] = X[9]
+    X = torch.from_numpy(X).to(cuda_device)
+    before = fused_knn.LAUNCHES["stage_planes"], fused_knn.LAUNCHES["stage_norms"]
+    hi, lo, norms = fused_knn.stage_planes(X, precision)
+    torch.cuda.synchronize()
+    assert (fused_knn.LAUNCHES["stage_planes"], fused_knn.LAUNCHES["stage_norms"]) == (
+        before[0] + 1, before[1] + 1)
+    whi, wlo, _ = fused_knn.stage_planes_reference(X, precision,
+                                                   fused_knn.staged_width(101))
+    assert hi.shape == (1000, 128) and torch.equal(hi, whi)
+    assert (lo is None) == (precision == "default")
+    if lo is not None:
+        assert torch.equal(lo, wlo)
+    assert torch.equal(norms, fused_knn.stage_f32_norms(X))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", PRECISIONS)
+def test_precision_sweep_is_split_invariant(cuda_device, precision):
+    """K2 at "default" / "high" on centered MNIST-like rows: the output at
+    S = 1, 2, 5 (and the plan's) is the same bit for bit, and holds to the
+    plain version's within its keys' rounding."""
+    from mpi_knn_tpu_torch.data.synthetic import make_mnist_like
+
+    X, _ = make_mnist_like(4096)
+    X = torch.from_numpy(X - X.astype(np.float64).mean(0)).float().to(cuda_device)
+    staged = fused_knn.stage_planes(X, precision)
+    runs = [fused_knn.launch_planes("fused_knn_sweep", staged, staged, 4096, 10, 1024,
+                                    precision, slices=s)
+            for s in (None, 1, 2, 5)]
+    torch.cuda.synchronize()
+    for gd, gi in runs[1:]:
+        assert torch.equal(gi, runs[0][1])
+        _same(gd, runs[0][0])
+    gd, gi = runs[0]
+    wd, wi = fused_knn.fused_knn_sweep_reference(X, X, 4096, 10, 128, 1024,
+                                                 precision=precision)
+    assert float((gi == wi).float().mean()) > 0.99
+    assert bool(((gd - wd).abs() <= 1e-4 * wd.abs().clamp_min(1.0)).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", PRECISIONS)
+def test_precision_sweep_serving_bucket_on_a_staged_corpus(cuda_device, precision):
+    """A 1024-row bucket against a corpus staged once at the precision:
+    the plan splits the corpus, one query prologue (planes and norms) and
+    one kernel launch, bit for bit the plain version's."""
+    rng = np.random.default_rng(24)
+    C = torch.from_numpy((rng.integers(-300, 301, (12288, 64)) / 64.0).astype(np.float32))
+    C[12000:] = 0.0
+    Q = torch.from_numpy((rng.integers(-300, 301, (1024, 64)) / 64.0).astype(np.float32))
+    C[40] = Q[3] = torch.from_numpy(rng.integers(-127, 128, 64) / 16.0)  # d = 0
+    C, Q = C.to(cuda_device), Q.to(cuda_device)
+    staged = fused_knn.stage_corpus(C, precision=precision)
+    assert staged.part(precision) is not None and staged.nbytes > 0
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    assert fused_knn.compress_sweep_plan(1024, 12000, sms)["slices"] > 1
+    fused_knn.reset_launch_counts()
+    gd, gi = fused_knn.fused_knn_sweep(Q, C, 12000, 10, 1024, 2048, all_pairs=False,
+                                       staged_corpus=staged, precision=precision)
+    torch.cuda.synchronize()
+    assert fused_knn.LAUNCHES[f"fused_knn_sweep[{precision}]"] == 1
+    assert fused_knn.LAUNCHES["stage_planes"] == 1
+    assert fused_knn.LAUNCHES["stage_norms"] == 1
+    wd, wi = fused_knn.fused_knn_sweep_reference(Q, C, 12000, 10, 1024, 2048,
+                                                 all_pairs=False, precision=precision)
+    assert torch.equal(gi, wi)
+    _same(gd, wd)
+    assert 40 not in gi[3].tolist()  # the zero rule
 
 
 @pytest.mark.cuda

@@ -162,4 +162,5 @@ def test_launch_counts_untouched_by_plain_versions():
         "fused_knn_tiles[compress]": 0, "fused_knn_sweep[compress]": 0,
         "fused_knn_tiles[default]": 0, "fused_knn_sweep[default]": 0,
         "fused_knn_tiles[high]": 0, "fused_knn_sweep[high]": 0,
-        "stage_tf32_split": 0, "stage_bf16": 0, "stage_norms": 0}
+        "stage_tf32_split": 0, "stage_bf16": 0, "stage_planes": 0,
+        "stage_norms": 0}

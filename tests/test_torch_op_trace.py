@@ -131,23 +131,30 @@ def stubbed(monkeypatch):
 Q, C, D, K, CT = 64, 256, 40, 4, 128
 
 
-def _staged(rows, compress=False):
+def _staged(rows, compress=False, precision=None):
     if compress:
         return fused_knn.stage_bf16_rows_reference(
             rows, fused_knn.staged_width(rows.shape[1]))
+    if precision is not None:
+        return fused_knn.stage_planes_reference(
+            rows, precision, fused_knn.staged_width(rows.shape[1]))
     return fused_knn.stage_tf32_split_reference(
         rows, fused_knn.split_width(rows.shape[1]))
 
 
 @pytest.mark.parametrize("case", ["tiles", "sweep", "tiles-default",
-                                  "tiles-compress"])
-def test_k1_k2_record_one_launch_with_the_closed_form_flops(stubbed, case):
+                                  "sweep-high", "tiles-compress"])
+def test_k1_k2_record_one_launch_with_the_closed_form_flops(stubbed, case,
+                                                            monkeypatch):
+    monkeypatch.setattr(fused_knn, "_sm_count", lambda dev: 132)
     q, c = torch.randn(Q, D), torch.randn(C, D)
 
     def run():
-        if case == "tiles-default":
-            return fused_knn.launch_mma("fused_knn_tiles", q, c, (q[:, 0],),
-                                        (c[:, 0],), C, K, CT, "default")
+        if case in ("tiles-default", "sweep-high"):
+            base, p = case.split("-")
+            return fused_knn.launch_planes(
+                f"fused_knn_{base}", _staged(q, precision=p),
+                _staged(c, precision=p), C, K, CT, p, dim=D)
         if case == "tiles-compress":
             return fused_knn.launch_compress(
                 "fused_knn_tiles", _staged(q, True), _staged(c, True), C, K, CT,
@@ -161,6 +168,7 @@ def test_k1_k2_record_one_launch_with_the_closed_form_flops(stubbed, case):
     want = {"tiles": ("fused_knn_tiles", "tf32x3"),
             "sweep": ("fused_knn_sweep", "tf32x3"),
             "tiles-default": ("fused_knn_tiles[default]", "bf16x1f32"),
+            "sweep-high": ("fused_knn_sweep[high]", "bf16x3"),
             "tiles-compress": ("fused_knn_tiles[compress]", "bf16")}[case]
     assert (rec.name, rec.info["precision"]) == want
     assert rec.flops == 2 * Q * C * D  # the product, not TF32x3's 3 passes
