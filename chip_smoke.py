@@ -126,15 +126,25 @@ is not 0:
    each timed beside the mma.sync kernel that ran these forms before,
    ``csrc/mma_sync_baseline.cu``, a measurement build, and gated faster;
    K2's output the same bit for bit at forced corpus splits), K3a (the P=1
-   shape), K4 (one P=4 round) and K5 (the P=4 rotation) at
-   matmul_precision "default" and "high" against their plain versions, ids
-   judged by their rounded-operand keys; ``precision_error`` holds every final slot against f64 and against
+   shape, and timed at the P=4 shard its bidir launches run), K4 (one P=4
+   round) and K5 (the P=4 rotation) at matmul_precision "default" and
+   "high" against their plain versions, ids judged by their rounded-operand
+   keys. K4 and K5 on the f32 wire run the bf16 wgmma tile with the ring's
+   epilogue (K4 on travelers its prologue staged: ``stage_planes`` and
+   ``stage_norms``; K5 staging its planes on the card each round); each is
+   timed alternately with the mma.sync kernel that ran it before
+   (``RING_BASELINE``, a measurement build of csrc/fused_ring_dma.cu, on
+   the same inputs: ``mma_sync_ms``) and gated faster, its plan gated on
+   the wgmma tile, its SASS gated HGMMA > 0 and HMMA 0.
+   ``precision_error`` holds every final slot against f64 and against
    the oracle of rounded operands (gate: the kernel within max(1e-6, 2x the
    plain's) of that oracle); the high products alone (three bf16 matmuls);
    main paths at each precision (pallas tiles and sweep, the 4-rank
    fused-dma, bidir and grid rings) with recall@10 >= 0.999 against the
    oracle of the operands the precision multiplies (the input data's
-   recall beside it); the
+   recall beside it), the grid ring bit for bit the dma ring
+   (``transport_vs_dma``, which also prints whether each equals the
+   driver-transport K3a ring at that precision); the
    planted duplicate's rank and d^2 under each precision
    (``precision_duplicates``); the serial twolevel approx path at float64
    (the f64 bin minimum, one launch a tile);
@@ -260,7 +270,9 @@ is not 0:
    between a process's own ranks, the outbox at the boundary), bidir K3a,
    Tensor.to with the xla merge, the grid form K5 (one launch a process;
    the boundary's block streamed into the next process's landing slot
-   over CUDA IPC, so the process group moves none), the resumable
+   over CUDA IPC, so the process group moves none), the grid form at
+   matmul_precision "default" (K5 on the bf16 wgmma tile, its planes made
+   on each card, the same slots and exports), the resumable
    fused-dma ring stopped after 1 round and resumed, and --dp 2 over the
    same four ranks (fused-dma and grid, each group inside one process):
    each bit for bit the single-process P=4 ring on [cuda:0]*4 (--dp: the
@@ -386,6 +398,10 @@ SAMPLE_ROWS = 4096  # rows whose ids are judged in f64 at the largest shapes
 # csrc/mma_sync_baseline.cu: K1/K2 at "default" / "high" on the mma.sync
 # tile, built beside the kernels and timed against the bf16 wgmma tile
 MMA_BASELINE = "mma_sync_baseline"
+# K4 and K5 on the f32 wire at "default" / "high" as they ran on the
+# mma.sync tile before the bf16 wgmma forms: a measurement build of
+# csrc/fused_ring_dma.cu that no wrapper loads, timed beside its successor
+RING_BASELINE = ("fused_ring_dma", ("RING_MMA_SYNC_BASELINE",))
 
 
 def source_of(kernel: str) -> str:
@@ -938,6 +954,19 @@ def mma_baseline(base, q, c, norms, m_corpus, k, c_tile, precision):
     return run
 
 
+def ring_baseline():
+    """A context in which ``fused_rotation``'s wrappers launch
+    RING_BASELINE, the measurement build of K4 and K5 on the f32 wire at
+    "default" / "high" on the mma.sync tile (the forms the bf16 ones
+    replaced), on the same inputs and transport."""
+    from unittest import mock
+
+    from mpi_knn_tpu_torch.ops import _build, fused_rotation
+
+    lib = fused_rotation.configure(_build.load(*RING_BASELINE))
+    return mock.patch.object(fused_rotation, "_lib", lambda: lib)
+
+
 def kernel_cases(device):
     """(name, queries, corpus, m_corpus, all_pairs, exact, k, q_tile,
     c_tile) on the card."""
@@ -1337,7 +1366,7 @@ SERVE_RING = (
     ("P4/fused-grid/exact", 4, dict(ring_fusion="fused", ring_fused_rotation="grid"),
      {"fused_rotation_grid": 1, "stage_tf32[wire]": 4}),
     ("P4/fused-dma/default", 4, dict(ring_fusion="fused", matmul_precision="default"),
-     {"fused_round_dma[default]": 4, "stage_tf32[wire]": 4}),
+     {"fused_round_dma[default]": 4, "stage_planes": 4, "stage_norms": 4}),
     ("P1/fused/mixed", 1, dict(ring_fusion="fused", precision_policy="mixed"),
      {"fused_block_merge[compress]": 1, "stage_bf16[wire]": 2}),
     ("P1/fused/mixed/int8", 1, dict(ring_fusion="fused", precision_policy="mixed",
@@ -1391,8 +1420,8 @@ def serve_ring_phase(device, X, inputs):
         int8 = extra.get("ring_transfer_dtype") == "int8"
         oracle = (want_wire if int8 else want_rounded[precision] if precision
                   else inputs["want_ids"])
-        form_stage = next(iter(k for k in per_batch if k.startswith("stage")))
-        expect_build = {} if "compress" in next(iter(per_batch)) else {form_stage: P}
+        expect_build = ({} if "compress" in next(iter(per_batch)) else
+                        {k: P for k in per_batch if k.startswith("stage")})
         sync_all()
         mem0 = torch.cuda.memory_allocated(device)
         reset_counts()
@@ -4225,7 +4254,11 @@ MP_PER_CARD = ("fused_round_dma", "fused_rotation_grid")
 MP_RANKS = 2
 MP_P = MP_PROCESSES * MP_RANKS
 MP_RANK_FORMS = MP_FORMS + (
-    ("fused-grid/K5", {"ring_fusion": "fused", "ring_fused_rotation": "grid"}),)
+    ("fused-grid/K5", {"ring_fusion": "fused", "ring_fused_rotation": "grid"}),
+    # K5 at "default" across the processes: the bf16 tile, its planes made
+    # on the card each round, the slots and IPC exports those of the f32 wire
+    ("fused-grid/K5/default", {"ring_fusion": "fused", "ring_fused_rotation": "grid",
+                               "matmul_precision": "default"}))
 MP_DP = 2
 MP_DP_FORMS = (
     ("dp2/fused-dma/K4", {"ring_fusion": "fused"}),
@@ -4237,6 +4270,7 @@ MP_DP_FORMS = (
 MP_RANK_EXCHANGES = {"fused-dma/K4": MP_P - 1,
                      "fused/bidir/K3a": 2 * (MP_P // 2),
                      "ring-overlap/xla": MP_P - 1, "fused-grid/K5": 0,
+                     "fused-grid/K5/default": 0,
                      "dp2/fused-dma/K4": 0, "dp2/fused-grid/K5": 0}
 # the resumable ring at P = MP_P stopped after one round, then resumed:
 # rounds 2 .. P-1 one K4 launch each (one card), the last K3a once a rank
@@ -4551,7 +4585,7 @@ def multiproc_phase(device, X, recall, ranks: int = 1):
     rank_totals = {}
     if ranks > 1:
         rank_totals = multiproc_ranks_gates(got, single_ranks, recall, ranks,
-                                            rank_dirs)
+                                            rank_dirs, precision_oracles(X, MP_RANK_FORMS))
     emit({"phase": "multiproc_done", "seconds": time.perf_counter() - t_phase})
     k5 = None
     if ranks > 1:  # the single-process K5 ring and the IPC form, for multiproc_hosts
@@ -4698,11 +4732,15 @@ def multiproc_hosts_phase(X, recall, k5, cards=None, hosts=MP_HOSTS) -> dict:
 
 
 def _multiproc_gates(got, single, recall, key, prefix, P, exchanges, dirs,
-                     resumable_counts=None, phase="multiproc", ranks=1) -> dict:
+                     resumable_counts=None, phase="multiproc", ranks=1,
+                     rounded=None) -> dict:
     """The gates of one ring of the pod (``key`` in each worker's json,
     ``prefix`` of its arrays) against the single-process runs ``single``
-    over the same P ranks; emits a line a form. Returns process 0's
-    launches by kernel, summed over the forms."""
+    over the same P ranks; emits a line a form. ``rounded`` maps a form at
+    a matmul_precision to (rows, ids) of the oracle of its rounded
+    operands, which its recall reads. Returns process 0's launches by
+    kernel, summed over the forms."""
+    rounded = rounded or {}
     import torch
 
     m = len(got[0][1][f"{prefix}{MP_RESUMABLE}/ids"])
@@ -4714,6 +4752,10 @@ def _multiproc_gates(got, single, recall, key, prefix, P, exchanges, dirs,
                     and np.array_equal(a[f"{prefix}{label}/dists"], wd)
                     for _, a, _ in got)
         rec = recall(torch.from_numpy(got[0][1][f"{prefix}{label}/ids"]))
+        if label in rounded:  # a precision form: against its rounded operands
+            sample, want_ids = rounded[label]
+            ids = got[0][1][f"{prefix}{label}/ids"][sample]
+            rec = float((want_ids[:, :, None] == ids[:, None, :]).any(-1).mean())
         line = {"phase": phase, "path": label, "m": m, "k": K,
                 "processes": MP_PROCESSES, "ranks_a_process": ranks, "ring": P,
                 f"bit_equal_single_process_p{P}": equal, "recall_at_10": rec,
@@ -4746,8 +4788,8 @@ def _multiproc_gates(got, single, recall, key, prefix, P, exchanges, dirs,
             schedule_ok = all(f["boundary"]["exchanges"] == exchanges[label]
                               for f in per)
             dp = label.startswith("dp")  # each process runs one dp group
-            want = {n: c if n in MP_PER_CARD and not dp else c // MP_PROCESSES
-                    for n, c in wcounts.items()}
+            want = {n: c if n.split("[")[0] in MP_PER_CARD and not dp
+                    else c // MP_PROCESSES for n, c in wcounts.items()}
         emit(line)
         if not equal:
             raise AssertionError(f"{phase} {label}: a process's result differs "
@@ -4769,7 +4811,21 @@ def _multiproc_gates(got, single, recall, key, prefix, P, exchanges, dirs,
     return totals
 
 
-def multiproc_ranks_gates(got, single, recall, ranks, dirs) -> dict:
+def precision_oracles(X, table) -> dict:
+    """Per form of ``table`` at a matmul_precision: (256 evenly spaced rows,
+    the f64 ids of their K nearest) of the oracle of the operands that
+    precision multiplies, over the centered rows of X (leave-one-out)."""
+    forms = {label: over["matmul_precision"] for label, over in table
+             if over.get("matmul_precision")}
+    if not forms:
+        return {}
+    c = centered(X).astype(np.float64)
+    sample = np.linspace(0, len(X) - 1, num=256, dtype=np.int64)
+    return {label: (sample, serve_oracle(c[sample], c, precision=p, self_rows=sample))
+            for label, p in forms.items()}
+
+
+def multiproc_ranks_gates(got, single, recall, ranks, dirs, rounded=None) -> dict:
     """The pod of ``ranks`` ranks a process (2 × 2 on the one card: cuda:0
     named twice in each process): fused-dma (K4's in-kernel stores between
     a process's own ranks, the outbox at the boundary), bidir K3a,
@@ -4791,7 +4847,7 @@ def multiproc_ranks_gates(got, single, recall, ranks, dirs) -> dict:
     totals = _multiproc_gates(
         got, single, recall, "ranks", "ranks/", P, MP_RANK_EXCHANGES, dirs,
         resumable_counts=(MP_RANK_RESUMABLE["stopped"], MP_RANK_RESUMABLE["resumed"]),
-        phase="multiproc_ranks", ranks=ranks)
+        phase="multiproc_ranks", ranks=ranks, rounded=rounded)
     k5 = [doc["ranks"]["fused-grid/K5"]["device_input_ms"] for doc, _, _ in got]
     emit({"phase": "multiproc_ranks_k5", "device_input_ms": k5,
           "single_process_ms": single["fused-grid/K5"][3],
@@ -5373,7 +5429,8 @@ def main() -> int:
     # bf16 wgmma tile replaced, the precision block's measurement baseline
     intervals = {f"KNN_WGMMA_PROMOTE={n}": 8 * n for n in (0, 1, 4)}
     info = _build.build_all(variants=[("fused_knn", (d, "KNN_EXACT_TILE_ONLY"))
-                                      for d in intervals] + [(MMA_BASELINE, ())])
+                                      for d in intervals] + [(MMA_BASELINE, ()),
+                                                             RING_BASELINE])
     for label, entry in info.items():
         print(entry["log"], file=sys.stderr)
         name, *defines = label.split(" ")
@@ -5399,19 +5456,22 @@ def main() -> int:
                   "fused_round_dma": [("round_dma_kernel_wgmma", "HGMMA"),
                                       ("round_dma_kernelIL", "HMMA")],
                   "stage_tf32_split[ring]": [("stage_split_kernel", "HGMMA")],
-                  "fused_rotation_grid": [("rotation_grid_kernel", "HMMA")]}
+                  "fused_rotation_grid": [("rotation_grid_kernelIL", "HMMA")]}
     # the "default" / "high" forms: K1/K2 on the bf16 wgmma tile (one pass,
-    # or three on the hi / lo planes), the ring's on the mma.sync tile on
-    # Bf16x1F32 / Bf16x3
+    # or three on the hi / lo planes), K4 and K5 on the f32 wire on the same
+    # tile (their instantiation at one plane or two: ILi1E / ILi2E), K3a on
+    # the mma.sync tile on Bf16x1F32 / Bf16x3
     policy = {"default": "Bf16x1F32", "high": "Bf16x3"}
     planes_fn = {"default": "fused_knn_bf16x1_kernel", "high": "fused_knn_bf16x3_kernel"}
+    ring_planes = {"default": "ILi1E", "high": "ILi2E"}
     for p in PRECISIONS:
         for base in ("fused_knn_tiles", "fused_knn_sweep"):
             kernel_fns[f"{base}[{p}]"] = [(planes_fn[p], "HGMMA", None)]
-        for base, fn in (("fused_block_merge", "block_merge_exact_kernel"),
-                         ("fused_round_dma", "round_dma_kernelIL"),
-                         ("fused_rotation_grid", "rotation_grid_kernel")):
-            kernel_fns[f"{base}[{p}]"] = [(fn, "HMMA", policy[p])]
+        kernel_fns[f"fused_block_merge[{p}]"] = [("block_merge_exact_kernel", "HMMA",
+                                                  policy[p])]
+        for base, fn in (("fused_round_dma", "round_dma_kernel_bf16"),
+                         ("fused_rotation_grid", "rotation_grid_kernel_bf16")):
+            kernel_fns[f"{base}[{p}]"] = [(fn, "HGMMA", ring_planes[p])]
     kernel_fns["stage_norms"] = [("stage_tf32_kernel", "HMMA", None)]
     for name, checks in kernel_fns.items():
         lib = mma[source_of(name).removesuffix(".cu")]
@@ -5436,10 +5496,21 @@ def main() -> int:
             elif base == "fused_block_merge":
                 info = {f"q_local_{ql}": fused_ring.exact_plan(torch.float32, ql, K, p)
                         for ql in (60416, 15360)}
-            else:
+            else:  # the bf16 tile: no mma.sync, and the plan's wgmma_tile
+                fn, _, pol = checks[0]
+                hmma = sum(v["HMMA"] for f, v in lib.items() if fn in f and pol in f)
+                if hmma:
+                    raise AssertionError(f"{name}: {fn} holds mma.sync (HMMA) instructions")
                 which = "round" if base == "fused_round_dma" else "grid"
-                info = {f"{n}_ranks_per_card": fused_rotation.ring_kernel_plan(
-                    which, torch.float32, n, 15360, K, p) for n in (4, 1)}
+                info = {"hmma_in_sass": 0, **{
+                    f"{n}_ranks_per_card": fused_rotation.ring_kernel_plan(
+                        which, torch.float32, n, 15360, K, p) for n in (4, 1)}}
+                for n in (4, 1):
+                    plan = info[f"{n}_ranks_per_card"]
+                    plan["waves_per_round"] = plan["items_per_round"] / plan["grid"]
+                    if plan["wgmma_tile"] != 1:
+                        raise AssertionError(f"{name}: the plan's tile is not the "
+                                             f"wgmma one: {plan}")
             emit({"phase": "kernel_resources", "kernel": name, "k": K, **found, **info})
             for key, n in found.items():
                 if n <= 0:
@@ -6106,44 +6177,54 @@ def main() -> int:
         del staged_q, staged_b, q_norms, b_norms
 
     # K3a at "default" / "high" at the ring's P=1 MNIST shape, from an empty
-    # carry: the mma.sync tile on Bf16x1F32 / Bf16x3 with the f32 norms of
+    # carry, and at the P = 4 shard its 16 launches on the bidir main path
+    # run (rank 0's queries against rank 1's block, on the carry of its own
+    # block): the mma.sync tile on Bf16x1F32 / Bf16x3 with the f32 norms of
     # stage_tf32[wire]
-    ops, q_tile, c_tile = ring_operands(1, 0, 0)
-    qs, qids = ops[0], ops[1]
-    q_norms = fused_ring.stage_wire_norms(qs, None)
-    b_norms = fused_ring.stage_wire_norms(ops[2], None)
-    carry = init_topk(qs.shape[0], K, device=device)
-    real = qids >= 0
-    real_q, real_b = int(real.sum()), int((ops[3] >= 0).sum())
-    for precision in PRECISIONS:
-        name = f"fused_block_merge[{precision}]"
-        call = lambda: fused_ring.block_merge_exact(  # noqa: E731
-            *ops, *carry, c_tile=c_tile, precision=precision)  # noqa: B023
-        alone = lambda: fused_ring.block_merge_exact(  # noqa: E731
-            *ops, *carry, c_tile=c_tile, query_norms=q_norms, block_norms=b_norms,
-            precision=precision)  # noqa: B023
-        pcall = lambda: fused_ring.block_merge_exact_reference(  # noqa: E731
-            *ops, *carry, c_tile=c_tile, precision=precision)  # noqa: B023
-        got, want = call(), pcall()
-        ms, call_ms, plain_ms = (cuda_ms(f, reps=1) for f in (alone, call, pcall))
-        max_err[name] = compare(f"{name}/p1_mnist60k", got, want, qs, Xcd, M_FULL, qids,
-                                False, K, None, sample=sample, precision=precision)
-        precision_error(name, precision, qs[real], Xcd,
-                        *((d[real], i[real]) for d, i in (got, want)))
-        plan = fused_ring.exact_plan(torch.float32, qs.shape[0], K, precision)
-        plan["waves"] = plan["ctas"] / (plan["ctas_per_sm"] * sms)
-        emit({"phase": "launch_plan", "kernel": name, "shape": "p1_mnist60k",
-              "sms": sms, **plan})
-        ops_needed = 2.0 * real_q * real_b * D
-        nbytes = 4.0 * real_q * D + 4.0 * real_b * D + 16.0 * qs.shape[0] * K
-        entry = {"ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
-                 **bound((1 if precision == "default" else 3) * ops_needed, nbytes,
-                         PEAK_BF16_FLOPS)}
-        ring_timing[(name, "p1_mnist60k")] = entry
-        emit({"phase": "kernel_time", "kernel": name, "shape": "p1_mnist60k",
-              "q_local": qs.shape[0], "b": ops[2].shape[0], "D": D, "k": K, **entry})
-        del got, want
-    del ops, qs, qids, q_norms, b_norms, carry, real
+    for shape, P, rq, rb in (("p1_mnist60k", 1, 0, 0), ("p4_shard", 4, 0, 1)):
+        ops, q_tile, c_tile = ring_operands(P, rq, rb)
+        qs, qids = ops[0], ops[1]
+        q_norms = fused_ring.stage_wire_norms(qs, None)
+        b_norms = fused_ring.stage_wire_norms(ops[2], None)
+        real = qids >= 0
+        real_q, real_b = int(real.sum()), int((ops[3] >= 0).sum())
+        sub = sample[sample < qs.shape[0]] if P > 1 else sample
+        for precision in PRECISIONS:
+            name = f"fused_block_merge[{precision}]"
+            carry = (init_topk(qs.shape[0], K, device=device) if rq == rb else
+                     fused_ring.block_merge_exact_reference(
+                         *ring_operands(P, rq, rq)[0], *init_topk(qs.shape[0], K,
+                                                                  device=device),
+                         c_tile=c_tile, precision=precision))
+            call = lambda: fused_ring.block_merge_exact(  # noqa: E731
+                *ops, *carry, c_tile=c_tile, precision=precision)  # noqa: B023
+            alone = lambda: fused_ring.block_merge_exact(  # noqa: E731
+                *ops, *carry, c_tile=c_tile, query_norms=q_norms,  # noqa: B023
+                block_norms=b_norms, precision=precision)  # noqa: B023
+            pcall = lambda: fused_ring.block_merge_exact_reference(  # noqa: E731
+                *ops, *carry, c_tile=c_tile, precision=precision)  # noqa: B023
+            got, want = call(), pcall()
+            ms, call_ms, plain_ms = (cuda_ms(f, reps=1) for f in (alone, call, pcall))
+            err = compare(f"{name}/{shape}", got, want, qs, Xcd, M_FULL, qids, False, K,
+                          None, sample=sub, precision=precision)
+            max_err[name] = max(max_err.get(name, 0.0), err)
+            if P == 1:
+                precision_error(name, precision, qs[real], Xcd,
+                                *((d[real], i[real]) for d, i in (got, want)))
+            plan = fused_ring.exact_plan(torch.float32, qs.shape[0], K, precision)
+            plan["waves"] = plan["ctas"] / (plan["ctas_per_sm"] * sms)
+            emit({"phase": "launch_plan", "kernel": name, "shape": shape,
+                  "sms": sms, **plan})
+            ops_needed = 2.0 * real_q * real_b * D
+            nbytes = 4.0 * real_q * D + 4.0 * real_b * D + 16.0 * qs.shape[0] * K
+            entry = {"ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
+                     **bound((1 if precision == "default" else 3) * ops_needed, nbytes,
+                             PEAK_BF16_FLOPS)}
+            ring_timing[(name, shape)] = entry
+            emit({"phase": "kernel_time", "kernel": name, "shape": shape,
+                  "q_local": qs.shape[0], "b": ops[2].shape[0], "D": D, "k": K, **entry})
+            del got, want, carry
+        del ops, qs, qids, q_norms, b_norms, real
 
     mark("ring_merges")
     # ---- the ring transport (K4, K5) against its plain versions ----------
@@ -6383,8 +6464,14 @@ def main() -> int:
     del q_sh, qid_sh, travelers, blocks0, blocks4, blocks, carries, init, q_norms, staged_q
 
     # K4 (one P=4 round: round 1) and K5 (the P=4 rotation) at "default" /
-    # "high": the mma.sync round kernel on the f32 wire (no planes) and the
-    # grid kernel, their travelers carrying the norms of stage_tf32[wire]
+    # "high" on the f32 wire: the bf16 wgmma tile with the ring's epilogue
+    # (RingEpi). K4 on travelers its prologue staged (stage_planes: the bf16
+    # planes, stage_norms' norms) with the queries' planes, K5 on the norms
+    # of stage_tf32[wire], its planes made on the card each round. Each
+    # against its plain version (ids by their rounded-operand keys) and the
+    # rounded oracle (precision_error), and timed alternately with the
+    # mma.sync kernels that ran these forms before (RING_BASELINE, on the
+    # same inputs): the new kernel must be the faster
     q_tile, c_tile, q_sh, qid_sh, travelers = ring.ring_shards(
         cfg_fused, Xc, Xc, row_ids, devices4)
     blocks0 = [(b, i, s, fused_ring.stage_wire_norms(b, s)) for b, i, s in travelers[0]]
@@ -6394,15 +6481,32 @@ def main() -> int:
     one_card = tr.local[tr.cards[0]]
     q_all = torch.cat([q.to(device) for q in q_sh])
     qid_all = torch.cat([t.to(device) for t in qid_sh])
+    real = qid_all >= 0
+
+    def alternately(fn, kernel):
+        """(mean new ms, mean mma.sync ms, both lists): two device times of
+        each, new first."""
+        ab = {"new": [], "mma_sync": []}
+        for _ in range(2):
+            ab["new"].append(launch_device_ms(fn, 1, kernel))
+            with ring_baseline():
+                ab["mma_sync"].append(launch_device_ms(fn, 1, kernel))
+        return statistics.mean(ab["new"]), statistics.mean(ab["mma_sync"]), ab
+
     for precision in PRECISIONS:
         passes = 1 if precision == "default" else 3
-        blocks = lands(blocks0, 1)
+        staged_q = [fused_rotation.stage_ring_planes(q, precision) for q in q_sh]
+        blocks_p = [(b, i, s, n, hi, lo) for (b, i, s), (hi, lo, n) in zip(
+            travelers[0], (fused_rotation.stage_ring_planes(b, precision)
+                           for b, _, _ in travelers[0]))]
+        blocks = lands(blocks_p, 1)
         carries = fused_rotation.fused_round_dma_reference(
-            q_sh, qid_sh, blocks0, init, blocks, c_tile=c_tile, precision=precision)
+            q_sh, qid_sh, blocks_p, init, blocks, c_tile=c_tile, precision=precision)
         land, want_land = lands(blocks, 0), lands(blocks, 0)
         k4 = lambda: fused_rotation.fused_round_dma(  # noqa: E731
             tr, q_sh, qid_sh, blocks, carries, land, c_tile=c_tile,  # noqa: B023
-            query_norms=q_norms, precision=precision)  # noqa: B023
+            precision=precision, query_norms=[t[2] for t in staged_q],  # noqa: B023
+            query_planes=[t[:2] for t in staged_q])  # noqa: B023
         k4_plain = lambda: fused_rotation.fused_round_dma_reference(  # noqa: E731
             q_sh, qid_sh, blocks, carries, want_land, c_tile=c_tile,  # noqa: B023
             precision=precision)  # noqa: B023
@@ -6410,22 +6514,42 @@ def main() -> int:
         got, want = k4(), k4_plain()
         sync_all()
         same_landing(f"{name}/p4_round", land, blocks)
-        ms = launch_device_ms(k4, 2, "round_dma_kernel")
+        with ring_baseline():
+            k4()  # the mma.sync form's first launch, outside the timing
+        ms, old_ms, ab = alternately(k4, "round_dma_kernel")
         call_ms, plain_ms = mesh_ms(k4, 1, devices4), mesh_ms(k4_plain, 1, devices4)
         max_err[name] = compare(f"{name}/p4_round", cat(got), cat(want), q_all, Xcd,
                                 M_FULL, qid_all, False, K, None, sample=sample,
                                 precision=precision)
+        precision_error(name, precision, q_all[real], Xcd,
+                        *((d[real], i[real]) for d, i in (cat(got), cat(want))))
         plan = fused_rotation.ring_kernel_plan("round", torch.float32, len(one_card),
                                                q_sh[0].shape[0], K, precision)
+        plan["waves"] = plan["items_per_round"] / plan["grid"]
+        with ring_baseline():
+            old_plan = fused_rotation.ring_kernel_plan(
+                "round", torch.float32, len(one_card), q_sh[0].shape[0], K, precision)
         emit({"phase": "launch_plan", "kernel": name, "shape": "p4_round",
-              "sms": sms, **plan})
+              "sms": sms, **plan, "mma_sync_plan": old_plan})
+        if plan["wgmma_tile"] != 1:
+            raise AssertionError(f"{name}: not on the wgmma tile: {plan}")
         ops, nbytes = real_ops_bytes(q_sh, qid_sh, blocks, one_card, 1)
+        for r in one_card:  # the query planes, the block's norms and planes
+            nbytes += sum(t.numel() * t.element_size()
+                          for t in (*staged_q[r][:2], *blocks[r][3:]) if t is not None)
+        for r in one_card:  # the landed traveler, written once
+            nbytes += sum(t.numel() * t.element_size()
+                          for t in blocks[r] if t is not None)
         transport_timing[(name, "p4_round")] = {
-            "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
+            "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms, "mma_sync_ms": old_ms,
+            "ab_ms": ab, "speedup_vs_mma_sync": old_ms / ms,
             **bound(passes * ops, nbytes, PEAK_BF16_FLOPS)}
         emit({"phase": "kernel_time", "kernel": name, "shape": "p4_round", "ranks": 4,
               **transport_timing[(name, "p4_round")]})
-        del got, want, land, want_land, blocks, carries
+        if ms >= old_ms:
+            raise AssertionError(f"{name}: the bf16 wgmma form ({ms:.3f} ms) is not "
+                                 f"faster than the mma.sync kernel ({old_ms:.3f} ms)")
+        del got, want, land, want_land, blocks, carries, staged_q, blocks_p
         name = f"fused_rotation_grid[{precision}]"
         slots, want_slots = ([landing_slots(*b) for b in blocks0] for _ in range(2))
         k5 = lambda: fused_rotation.fused_rotation_grid(  # noqa: E731
@@ -6436,25 +6560,36 @@ def main() -> int:
             precision=precision)  # noqa: B023
         got, want = k5(), k5_plain()
         sync_all()
-        ms = launch_device_ms(k5, 2, "rotation_grid_kernel")
+        with ring_baseline():
+            k5()
+        ms, old_ms, ab = alternately(k5, "rotation_grid_kernel")
         call_ms, plain_ms = mesh_ms(k5, 1, devices4), mesh_ms(k5_plain, 1, devices4)
         max_err[name] = compare(f"{name}/p4_rotation", cat(got), cat(want), q_all, Xcd,
                                 M_FULL, qid_all, False, K, None, sample=sample,
                                 precision=precision)
-        real = qid_all >= 0
         precision_error(name, precision, q_all[real], Xcd,
                         *((d[real], i[real]) for d, i in (cat(got), cat(want))))
+        plan = fused_rotation.ring_kernel_plan("grid", torch.float32, len(one_card),
+                                               q_sh[0].shape[0], K, precision)
+        plan["waves"] = plan["items_per_round"] / plan["grid"]
+        with ring_baseline():
+            old_plan = fused_rotation.ring_kernel_plan(
+                "grid", torch.float32, len(one_card), q_sh[0].shape[0], K, precision)
+        if plan["wgmma_tile"] != 1:
+            raise AssertionError(f"{name}: not on the wgmma tile: {plan}")
         ops, nbytes = real_ops_bytes(q_sh, qid_sh, blocks0, one_card, 4)
         transport_timing[(name, "p4_rotation")] = {
-            "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
+            "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms, "mma_sync_ms": old_ms,
+            "ab_ms": ab, "speedup_vs_mma_sync": old_ms / ms,
             **bound(passes * ops, nbytes, PEAK_BF16_FLOPS),
-            "plan": fused_rotation.ring_kernel_plan("grid", torch.float32,
-                                                    len(one_card), q_sh[0].shape[0],
-                                                    K, precision)}
+            "plan": plan, "mma_sync_plan": old_plan}
         emit({"phase": "kernel_time", "kernel": name, "shape": "p4_rotation",
               "ranks": 4, **transport_timing[(name, "p4_rotation")]})
+        if ms >= old_ms:
+            raise AssertionError(f"{name}: the bf16 wgmma form ({ms:.3f} ms) is not "
+                                 f"faster than the mma.sync kernel ({old_ms:.3f} ms)")
         del got, want, slots, want_slots
-    del q_sh, qid_sh, travelers, blocks0, q_norms, init, q_all, qid_all
+    del q_sh, qid_sh, travelers, blocks0, q_norms, init, q_all, qid_all, real
 
     mark("ring_transport")
     # ---- planted duplicates through the mixed and exact paths on the card --
@@ -6785,17 +6920,48 @@ def main() -> int:
             launches[name] = line["launches"][name]
             for prologue in ("stage_planes", "stage_norms"):
                 launches[prologue] = line["launches"][prologue]
-        for form, kw, name, count in (
-                ("fused-dma", {}, f"fused_round_dma[{precision}]", 4 * cards),
+        # K4 stages the bf16 planes and norms of each rank's queries and
+        # block once a call (stage_planes, stage_norms: 8 each); bidir and
+        # grid the norms alone (K5 makes its planes on the card)
+        planes_p = {"stage_planes": 8, "stage_norms": 8}
+        for form, kw, name, count, stage in (
+                ("fused-dma", {}, f"fused_round_dma[{precision}]", 4 * cards, planes_p),
                 ("fused/bidir", {"ring_schedule": "bidir"},
-                 f"fused_block_merge[{precision}]", 16),
+                 f"fused_block_merge[{precision}]", 16, norms8),
                 ("fused-grid", {"ring_fused_rotation": "grid"},
-                 f"fused_rotation_grid[{precision}]", cards)):
+                 f"fused_rotation_grid[{precision}]", cards, norms8)):
             cfg = KNNConfig(k=K, backend="ring-overlap", ring_fusion="fused",
                             matmul_precision=precision, **kw)
             line, _ = drive_mesh(f"ring-overlap/{form}/P4/exact/{precision}", cfg,
-                                 {name: count, **norms8}, reps=1, oracle=rounded)
+                                 {name: count, **stage}, reps=1, oracle=rounded)
             launches[name] = line["launches"][name]
+        # one tile and one epilogue: the grid ring equals the dma ring bit for
+        # bit; beside them whether each equals the driver-transport K3a ring
+        # (the mma.sync tile's sum order), printed, not gated
+        k3a_p = ring.all_knn_ring(Xc, Xc, row_ids, KNNConfig(
+            k=K, backend="ring-overlap", ring_fusion="fused", matmul_precision=precision),
+            mesh=mesh, device=device, form="driver")
+        dma_r = results[f"ring-overlap/fused-dma/P4/exact/{precision}"]
+        grid_r = results[f"ring-overlap/fused-grid/P4/exact/{precision}"]
+
+        def same_as(a, b):
+            return torch.equal(a[1], b[1]) and torch.equal(a[0], b[0])
+
+        line = {"phase": "transport_vs_dma", "precision": precision,
+                "grid_bitwise_equal_to_dma": same_as((grid_r.dists, grid_r.ids),
+                                                     (dma_r.dists, dma_r.ids)),
+                "dma_bitwise_equal_to_k3a_ring": same_as((dma_r.dists, dma_r.ids), k3a_p),
+                "grid_bitwise_equal_to_k3a_ring": same_as((grid_r.dists, grid_r.ids),
+                                                          k3a_p)}
+        if not line["dma_bitwise_equal_to_k3a_ring"]:
+            differ = dma_r.dists != k3a_p[0]
+            line.update(dists_differing=int(differ.sum()),
+                        ids_differing=int((dma_r.ids != k3a_p[1]).sum()),
+                        max_abs_dist_diff=float((dma_r.dists - k3a_p[0]).abs().max()))
+        emit(line)
+        if not line["grid_bitwise_equal_to_dma"]:
+            raise AssertionError(f"{precision}: the grid ring differs from the dma ring")
+        del k3a_p
 
     # an exact duplicate pair (3, 7) and a near-twin (11, 42) at d^2 = 64
     # under each precision: the pair's rank and d^2 in row 3 (-1: dropped by

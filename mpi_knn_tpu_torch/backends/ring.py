@@ -17,8 +17,8 @@ JAX package chooses between its ppermutes and the kernel's own copies:
   on a card): each round is one launch of K4 (``ops/fused_rotation.
   fused_round_dma``) per card, which merges and copies the resident block
   into the successor's landing slot; two slots per rank, swapped each
-  round. On the f32 wire K4 runs the wgmma tile, on the bf16 and int8
-  wires the mma.sync one.
+  round. On the f32 wire K4 runs a wgmma tile (TF32 at "highest", bf16
+  at "default" / "high"), on the bf16 and int8 wires the mma.sync one.
 - ``"grid"`` (fused, ``ring_fused_rotation="grid"``, on cards): the whole
   rotation is one launch of K5 per card.
 - ``"driver"``, otherwise: the blocks move with ``Tensor.to(mesh[r + 1])``.
@@ -35,14 +35,17 @@ int8 wire. Where the merge is exact (K3a, K4, K5), ``RingRun`` stages the
 squared norms of each rank's queries and block once per call, and each
 block's norms travel with it as a fourth part of its traveler: for the
 mma.sync tile by ``fused_ring.stage_wire_norms``; for the dma form on the
-f32 wire by K4's prologue ``fused_rotation.stage_round_planes``, which
-also writes the TF32 hi/lo planes its wgmma tile reads, and those travel
-as the fifth and sixth parts. The two prologues' norms are equal bit for
-bit (K4's tile is promoted every 8 deep, as the mma.sync one), so the
-resumable ring's last round (K3a) may take K4's. At ``matmul_precision``
-"default" / "high" every merge (K3a, K4, K5 and the xla form's product)
-takes that precision; K4 then runs the mma.sync tile on every wire and
-its travelers carry norms alone. Padding and tiling come from
+f32 wire by K4's prologue ``fused_rotation.stage_ring_planes``, which
+also writes the planes its wgmma tile reads (TF32 hi / lo at "highest",
+``fused_knn.stage_planes``' bf16 hi and, at "high", lo at "default" /
+"high"), and those travel as the fifth and sixth parts. The prologues'
+norms are equal bit for bit (the "highest" tile is promoted every 8 deep,
+as the mma.sync one; ``stage_norms`` is the mma.sync tile's own
+diagonal), so the resumable ring's last round (K3a) may take K4's. At
+``matmul_precision`` "default" / "high" every merge (K3a, K4, K5 and the
+xla form's product) takes that precision; on the bf16 and int8 wires K4
+then runs the mma.sync tile and its travelers carry norms alone, and K5
+stages its planes on each card itself. Padding and tiling come from
 ``ring_tiles``, so the layouts are the JAX package's. ``RingRun`` holds
 one call's ranks and runs its rounds; the resumable ring
 (``backends/ring_resumable.py``) drives the same rounds one at a time, and
@@ -120,7 +123,7 @@ from mpi_knn_tpu_torch.ops.fused_rotation import (
     landing_slots,
     ring_transport,
     slot,
-    stage_round_planes,
+    stage_ring_planes,
     traveler,
     uses_planes,
 )
@@ -406,23 +409,25 @@ def ring_form(cfg: KNNConfig, devices) -> str:
 def staged_parts(cfg: KNNConfig, form: str, c_tile: int, wire_dtype) -> tuple:
     """What a ring of ``form`` reads beside each traveler's block: ("norms",)
     where the merge is exact (K3a, K4, K5), ("norms", "planes") for K4's
-    wgmma tile (the dma form on the f32 wire at "highest"), else ()."""
+    wgmma tiles (the dma form on the f32 wire: TF32 planes at "highest",
+    bf16 ones at "default" / "high"), else ()."""
     if not (cfg.ring_fusion == "fused" and merges_exactly(cfg, c_tile)):
         return ()
-    if form == "dma" and uses_planes(wire_dtype, cfg.matmul_precision):
+    if form == "dma" and uses_planes(wire_dtype):
         return ("norms", "planes")
     return ("norms",)
 
 
-def stage_travelers(parts: tuple, ts):
+def stage_travelers(parts: tuple, ts, precision=None):
     """Per rank (block, ids, scale) -> the traveler (block, ids, scale,
     norms, hi, lo) with the prologue outputs ``parts`` asks for, each once:
-    K4's own prologue for planes (its norms with them), else the exact
-    prologue's norms."""
+    K4's own prologue at ``precision`` for planes (``stage_ring_planes``:
+    TF32 hi / lo at "highest", bf16 at "default" / "high", lo None at
+    "default"; its norms with them), else the exact prologue's norms."""
     if "planes" in parts:
         return [(b, i, s, n, hi, lo)
                 for (b, i, s), (hi, lo, n) in zip(
-                    ts, (stage_round_planes(b) for b, _, _ in ts))]
+                    ts, (stage_ring_planes(b, precision) for b, _, _ in ts))]
     return [(b, i, s, stage_wire_norms(b, s) if parts else None, None, None)
             for b, i, s in ts]
 
@@ -433,7 +438,8 @@ class RingRun:
     schedule; ``rotation_grid`` the whole uni rotation (the grid form);
     ``rotate`` the whole schedule. Travelers are (block, ids, scale, norms,
     hi, lo): the norms are staged here, once per call, where the merge is
-    exact, else None; the planes for K4's wgmma tile, else None.
+    exact, else None; the planes for K4's wgmma tiles at the config's
+    precision, else None.
     ``staged`` travelers (full 6-tuples, as ``stage_travelers`` makes them
     once for a resident index) are taken as they are, and are only ever
     read: the rounds after the first read the landing ``slots`` (per rank
@@ -452,7 +458,7 @@ class RingRun:
         parts = staged_parts(cfg, form, c_tile, travelers[0][0][0].dtype)
         self.q_planes = None
         if "planes" in parts:
-            q_staged = [stage_round_planes(q) for q in q_sh]
+            q_staged = [stage_ring_planes(q, cfg.matmul_precision) for q in q_sh]
             self.q_norms = [n for _, _, n in q_staged]
             self.q_planes = [(hi, lo) for hi, lo, _ in q_staged]
         else:
@@ -460,7 +466,8 @@ class RingRun:
                             else [None] * len(q_sh))
 
         def with_norms(ts):
-            return list(ts) if staged else stage_travelers(parts, ts)
+            return (list(ts) if staged
+                    else stage_travelers(parts, ts, cfg.matmul_precision))
 
         # per direction: per rank (blk, ids, scale, norms); a backward
         # traveler that starts as the forward one shares its norms

@@ -455,16 +455,7 @@ stage_planes_kernel(const float* __restrict__ x, int N, int D, int Dp, bf16* __r
   const long long n = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (n >= (long long)N * per_row) return;
   const int row = (int)(n / per_row), d0 = (int)(n % per_row) * 8;
-  alignas(16) bf16 h[8], l[8];
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const float v = d0 + j < D ? x[(size_t)row * D + d0 + j] : 0.f;
-    h[j] = __float2bfloat16_rn(v);
-    l[j] = __float2bfloat16_rn(__fsub_rn(v, __bfloat162float(h[j])));
-  }
-  const size_t at = (size_t)row * Dp + d0;
-  *reinterpret_cast<uint4*>(hi + at) = *reinterpret_cast<const uint4*>(h);
-  if (lo != nullptr) *reinterpret_cast<uint4*>(lo + at) = *reinterpret_cast<const uint4*>(l);
+  wgb::stage_planes8<false>(x + (size_t)row * D, D, d0, hi, lo, (size_t)row * Dp + d0);
 }
 
 // The walk of K1 (c_tile > 0: slices are the corpus tiles, c_tile columns

@@ -3,45 +3,59 @@
 // same launch.
 //
 // Replaces two kernels of mpi_knn_tpu/ops/pallas_ring.py:
-//   round_dma_kernel_wgmma, round_dma_kernel  <- fused_round_dma
-//       (_dma_round_kernel, K4). One launch per card per round, covering
-//       every ring rank that card holds. On the f32 wire
-//       (round_dma_kernel_wgmma) one persistent CTA per SM runs
-//       knn_wgmma.cuh's tile over (local rank, 128-row query group) items,
-//       on TF32 hi/lo planes of the queries and of the block; the
-//       producer warpgroup's three spare warps run the transport: in CTA 0
-//       one thread the neighbour barrier, the others copy the resident
-//       block, its ids, norms and planes into the successor's landing
-//       buffers in units spread over the grid. On the bf16 and int8 wires
-//       (round_dma_kernel) CTA 0 runs the barrier, COPY_CTAS CTAs per rank
-//       stream the block, its ids and (int8) its scales, and the rest are
-//       K3a's merge CTAs on knn_tile.cuh's mma.sync tile, one per 128 (or
-//       64) query rows. The merges never wait on anything.
-//   rotation_grid_kernel  <- fused_rotation_grid (_grid_rotation_kernel,
-//       K5). The whole P-round uni rotation in one cooperative launch per
-//       card: persistent CTAs loop over (local rank, query group) merges
-//       and block-copy chunks each round, with a grid sync between
-//       rounds. Two slots per rank: round r reads slot r % 2 (round 0 the
-//       caller's block) and streams into the successor's slot (r + 1) % 2.
-//       The carry lives in a (2, Q, k) ping-pong buffer between rounds.
+//   round_dma_kernel_wgmma, round_dma_kernel_bf16, round_dma_kernel  <-
+//       fused_round_dma (_dma_round_kernel, K4). One launch per card per
+//       round, covering every ring rank that card holds. On the f32 wire
+//       one persistent CTA per SM runs a wgmma tile over (local rank,
+//       128-row query group) items: at "highest" knn_wgmma.cuh's on TF32
+//       hi/lo planes of the queries and of the block (round_dma_kernel_wgmma),
+//       at "default" / "high" knn_wgmma_bf16.cuh's on their bf16 planes
+//       (round_dma_kernel_bf16<P>: one plane, or hi and lo); the producer
+//       warpgroup's three spare warps run the transport: in CTA 0 one thread
+//       the neighbour barrier, the others copy the resident block, its ids,
+//       norms and planes into the successor's landing buffers in units spread
+//       over the grid. On the bf16 and int8 wires (round_dma_kernel) CTA 0
+//       runs the barrier, COPY_CTAS CTAs per rank stream the block, its ids
+//       and (int8) its scales, and the rest are K3a's merge CTAs on
+//       knn_tile.cuh's mma.sync tile, one per 128 (or 64) query rows. The
+//       merges never wait on anything.
+//   rotation_grid_kernel, rotation_grid_kernel_bf16  <- fused_rotation_grid
+//       (_grid_rotation_kernel, K5). The whole P-round uni rotation in one
+//       cooperative launch per card: persistent CTAs loop over (local rank,
+//       query group) merges and the block's copy each round, with grid syncs
+//       between rounds. Two slots per rank: round r reads slot r % 2 (round
+//       0 the caller's block) and streams into the successor's slot (r + 1)
+//       % 2. The carry lives in a (2, Q, k) ping-pong buffer between rounds.
+//       rotation_grid_kernel (the bf16 wire, and the f32 one at "highest")
+//       interleaves 64-row merge items on the mma.sync tile with copy items;
+//       rotation_grid_kernel_bf16<P> (the f32 wire at "default" / "high")
+//       runs the bf16 tile, one CTA per SM: each round the grid first writes
+//       the resident block's planes and norms (and in round 0 the queries'
+//       planes) into each rank's scratch on its own card, syncs, then merges
+//       while the producer's spare warps copy the f32 block, ids and norms
+//       on. The planes do not travel in K5: its slots, IPC exports and host
+//       proxy hops stay those of the f32 wire.
 //
 // The merge is K3a's: the same (distance, arrival) order, NaN rows and zero
-// rule, and its operand policy by matmul_precision (knn_tile.cuh): at
-// "default" and "high" K4 on every wire, the f32 one included, and K5 run
-// the mma.sync tile with Bf16x1F32 / Bf16x3 (round_dma_kernel,
-// rotation_grid_kernel); the wgmma form is "highest" alone. K5 and K4's bf16 and int8 wires run ring_merge.cuh's
-// exact_merge_group on knn_tile.cuh's Tf32x3 tile, as K3a does; K4's f32
-// wire runs the same merge (RoundEpi) on knn_wgmma.cuh's tile, built here
-// with promotion every 8-deep k-step (KNN_WGMMA_PROMOTE 1), where its
-// products, and its prologue's norms, equal the Tf32x3 tile's bit for bit
-// (chip_smoke.py's wgmma_8deep_vs_mma_sync on the main shape). So a K4 ring
+// rule, and its operand policy by matmul_precision. K5 at "highest" and K4's
+// and K5's bf16 and int8 wires run ring_merge.cuh's exact_merge_group on
+// knn_tile.cuh's tile (Tf32x3, or Bf16x1F32 / Bf16x3 at "default" / "high"),
+// as K3a does; K4's f32 wire at "highest" runs the same merge (RoundEpi) on
+// knn_wgmma.cuh's tile, built here with promotion every 8-deep k-step
+// (KNN_WGMMA_PROMOTE 1), where its products, and its prologue's norms,
+// equal the Tf32x3 tile's bit for bit (chip_smoke.py's
+// wgmma_8deep_vs_mma_sync on the main shape). So at "highest" a K4 ring
 // equals the driver-transport K3a ring bit for bit, and a K5 ring equals the
-// K4 ring. A block's norms (and for K4's f32 form its planes), written once
-// per call by a prologue, travel with it as its ids do: the copy units, CTAs
-// and work items move them too, so no round launches anything beside its
-// kernel. K4's f32 prologue (round_stage_split_launch) is knn_wgmma.cuh's
-// stage_split_kernel at this file's interval, so its norms are the diagonal
-// of K4's own tile.
+// K4 ring. At "default" / "high" on the f32 wire K4 and K5 run one merge
+// (RingEpi) on one bf16 tile over planes of one prologue's bits
+// (fused_knn's stage_planes; wgb::stage_planes8 in K5), so a K5 ring equals
+// the K4 ring bit for bit; K3a keeps the mma.sync tile's sum order. A
+// block's norms (and for K4's f32 forms its planes), written once per call
+// by a prologue, travel with it as its ids do: the copy units, CTAs and work
+// items move them too, so no round launches anything beside its kernel.
+// K4's f32 prologue at "highest" (round_stage_split_launch) is
+// knn_wgmma.cuh's stage_split_kernel at this file's interval, so its norms
+// are the diagonal of K4's own tile.
 //
 // Transport. One process drives every rank of its part of the ring (all of
 // it in one process). Ranks that share a card and a process are ordered by
@@ -69,7 +83,7 @@
 //   predecessor, the arrival (LANDED), as the last grid cell of
 //   _dma_round_kernel does; the next round's launch then reads the landing
 //   slot in stream order. Each rank signals COPY_CTAS times per round
-//   either way: the bf16/int8 form once per copy CTA, the f32 form once
+//   either way: the bf16/int8 form once per copy CTA, the f32 forms once
 //   per SPLIT copy units (counted on the rank's W_UNITS word).
 //
 //   K5 handshake (the reference's, :685-695, :736-749): one barrier per
@@ -81,7 +95,8 @@
 //   Slots are read with L1-bypassing loads (__ldcg): a slot is re-read in
 //   the same launch two rounds after an earlier read, rewritten meanwhile by
 //   a peer card or another SM, and neither an acquire by one thread nor a
-//   grid sync drops other SMs' L1 lines.
+//   grid sync drops other SMs' L1 lines. The bf16 form signals a hop's
+//   COPY_CTAS landed adds once per SPLIT copy units (its G_UNITS word).
 //
 // No hang. Every spin is bounded by %globaltimer (timeout_ns, ~10 s from the
 // wrapper). On timeout a CTA writes an error code into the card's error word
@@ -89,8 +104,9 @@
 // synchronized and raises.
 //
 // What bounds it. The merge's 2 Q B D FLOP, three times on the TF32 tensor
-// cores, as K3a (at the P=4 shard, 15360 x 16384 x 784: 3 x 3.95e11 FLOP,
-// 2.39 ms at the 494.7 TFLOP/s dense TF32 peak). The block move is ~51 MB
+// cores at "highest", as K3a (at the P=4 shard, 15360 x 16384 x 784: 3 x
+// 3.95e11 FLOP, 2.39 ms at the 494.7 TFLOP/s dense TF32 peak), once or
+// three times at the 989 TFLOP/s dense bf16 peak at "default" / "high". The block move is ~51 MB
 // per hop in f32 (~154 MB with the f32 form's planes): ~0.03 (~0.09) ms of
 // HBM time on one card, ~0.12 (~0.35) ms at NVLink rates, under the merge.
 // K4's f32 form feeds its wgmma tile as K1/K2 do (the L2 feed that holds
@@ -112,6 +128,7 @@
 // its own build, so K1 and K2 keep their interval.
 #define KNN_WGMMA_PROMOTE 1
 #include "knn_wgmma.cuh"
+#include "knn_wgmma_bf16.cuh"
 #include "ring_merge.cuh"
 
 namespace cg = cooperative_groups;
@@ -128,7 +145,7 @@ constexpr int SPLIT = 8;       // K4's f32 form: copy units per COPY_CTAS part
 enum Word {
   W_FROM_PRED = 0, W_FROM_SUCC = 1, W_LANDED = 2, W_SENT = 3, W_GO = 4,
   W_ERR = 5, G_FROM_PRED = 6, G_FROM_SUCC = 7, G_LANDED = 8, G_FREE = 9,
-  W_UNITS = 10, NWORDS = 16
+  W_UNITS = 10, G_UNITS = 11, NWORDS = 16
 };
 enum Err {
   ERR_BARRIER = 1, ERR_LANDED = 2, ERR_SENT = 3, ERR_GO = 4, ERR_FREE = 5
@@ -161,12 +178,15 @@ struct Rank {
   float* dst_bn;         // K4: successor's landing norms (or null: not
                          // moved); K5: its (2, B) slots
   float* slot_bn;        // K5: own (2, B) slots
-  const float* qh;       // K4, f32 wire: the queries' planes (Q, Dp)
-  const float* ql;
-  const float* bh;       // K4, f32 wire: the resident block's planes (B, Dp)
-  const float* bl;
-  float* dst_bh;         // K4, f32 wire: successor's landing planes (or
-  float* dst_bl;         // null: not moved)
+  const void* qh;        // f32 wire: the queries' planes (Q, Dp): TF32 f32 at
+  const void* ql;        // "highest" (K4), else bf16 (lo null at "default");
+                         // K5: the staging scratch its launch writes
+  const void* bh;        // f32 wire: the resident block's planes (B, Dp), as
+  const void* bl;        // the queries'; K5: the staging scratch
+  void* dst_bh;          // K4, f32 wire: successor's landing planes (or
+  void* dst_bl;          // null: not moved)
+  float* sbn;            // K5, f32 wire at "default" / "high": the resident
+                         // block's norms, staged each round (B,)
   int succ_remote;       // successor on another card
   int pred_remote;       // predecessor on another card
 };
@@ -498,10 +518,20 @@ struct RoundEpi {
   }
 };
 
-// A named barrier of the transport's copy threads (ids 1 and 2 are the
-// consumer warpgroups').
+// A named barrier of the transport's copy threads (ids 1 to 3 are the
+// tiles' consumer barriers).
 __device__ __forceinline__ void copy_sync(int nt) {
-  asm volatile("bar.sync 3, %0;" ::"r"(nt) : "memory");
+  asm volatile("bar.sync 5, %0;" ::"r"(nt) : "memory");
+}
+
+// The pitch of the bf16 planes at "default" / "high": D rounded up to the
+// bf16 tile's k-block (fused_knn.staged_width).
+__host__ __device__ inline int bf16_width(int D) { return (D + wgb::KB - 1) / wgb::KB * wgb::KB; }
+
+// Bytes of one of a block's planes: TF32 f32 at "highest", bf16 else.
+__device__ inline size_t plane_bytes(const Launch& p) {
+  return p.precision == 0 ? (size_t)p.B * wg::split_width(p.D) * sizeof(float)
+                          : (size_t)p.B * bf16_width(p.D) * sizeof(bf16);
 }
 
 // The transport of K4's f32 form, on warp w (1..3) of the producer
@@ -523,7 +553,7 @@ __device__ void round_transport(const Launch& p, int w) {
   const int first = blockIdx.x == 0 ? 64 : 32;  // the copy threads' first
   const int t = threadIdx.x - first, nt = 128 - first;
   const int per_rank = COPY_CTAS * SPLIT;
-  const size_t plane = (size_t)p.B * wg::split_width(p.D) * sizeof(float);
+  const size_t plane = plane_bytes(p);
   for (int u = blockIdx.x; u < p.n_local * per_rank; u += gridDim.x) {
     const Rank& R = p.r[u / per_rank];
     const int part = u % per_rank;
@@ -569,6 +599,188 @@ __global__ void __launch_bounds__(wg::THREADS, 1)
         return wg::TileMaps{m, m + 1, m + 2, m + 3};
       },
       [&](int w) { round_transport(p, w); }, epi, wg_smem);
+}
+
+// The f32 wire at "default" / "high" on knn_wgmma_bf16.cuh's tile: bf16
+// wgmma on P planes of the queries and of the block (P = 1: RNE(x); P = 2:
+// hi and lo, the chunk's lo.hi + hi.lo passes, then its hi.hi), which K4
+// reads as the traveler's fifth and sixth parts and K5 stages each round.
+// RingEpi is exact_merge_group's merge as the tile's consumer hooks: the
+// carry offered first (slot j has arrival j), then the block's columns
+// keyed by arrival k + col (the selection runs on columns shifted by k, so
+// a list entry's id is its arrival), the ids' masks (padding -1, self by
+// id) and the zero rule where a key is formed or would win, and at the
+// end arrivals mapped back to the carry's ids or the block's. A consumer
+// warp owns 16 consecutive rows of the item, as in SweepEpi.
+
+// The masks of a ring block's columns by id, for RingEpi (see NoMask):
+// bids at the shifted columns, and the thread's rows' ids where the self
+// mask holds (else -2, which no id equals).
+template <bool CG>
+struct RingMask {
+  const int* bids;
+  int qid[2];
+  __device__ __forceinline__ int id(int col, int c_end) const {
+    return col < c_end ? ld<CG>(bids + col) : -1;
+  }
+  __device__ __forceinline__ bool ok(int id, int h) const { return id >= 0 && id != qid[h]; }
+  // a padding id in the chunk, or an id within the warp's rows' range
+  __device__ bool any(int col0, int c_end, int lane) const {
+    int lo = INT_MAX, hi = INT_MIN;
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      if (qid[h] >= 0) {
+        lo = min(lo, qid[h]);
+        hi = max(hi, qid[h]);
+      }
+    lo = __reduce_min_sync(FULL, lo);
+    hi = __reduce_max_sync(FULL, hi);
+    bool hit = false;
+#pragma unroll
+    for (int j = 0; j < wgb::COLS / 32; ++j) {
+      const int col = col0 + lane + 32 * j;
+      if (col < c_end) {
+        const int id = ld<CG>(bids + col);
+        hit |= id < 0 || (id >= lo && id <= hi);
+      }
+    }
+    return hit;
+  }
+};
+
+// One rank's operands in a round of the bf16 forms: the block's ids and
+// norms, the carry in and out.
+struct RoundOps {
+  const int* bids;
+  const float* bn;
+  const float* cd;
+  const int* ci;
+  float* od;
+  int* oi;
+};
+
+// CG: K5 (round `round`, its slots, carry ping-pong and staged norms,
+// read past L1); else K4 (the Rank's operands as they are).
+template <int P, bool CG>
+struct RingEpi {
+  static constexpr int planes = P;
+  const Launch* p;
+  int groups, nkb, k, round;
+  using Lists = wgb::Lists<wgb::Ring<P>::KS>;
+  __device__ int items() const { return p->n_local * groups; }
+  // item n: query group n % groups of local rank n / groups (in `slice`)
+  __device__ wgb::Item item(int n) const {
+    const int g = n % groups;
+    return wgb::Item{g * wgb::ROWS, 0, p->B, g, n / groups};
+  }
+  __device__ RoundOps ops(const Rank& R) const {
+    if constexpr (!CG) {
+      return RoundOps{R.bids, R.bn, R.carry_d, R.carry_i, R.out_d, R.out_i};
+    } else {
+      const size_t ce = (size_t)p->Q * k, in = (size_t)((round + 1) % 2) * ce,
+                   out = (size_t)(round % 2) * ce;
+      const bool first = round == 0, last = round == p->ring_size - 1;
+      return RoundOps{first ? R.bids : R.slot_bids + (size_t)(round % 2) * p->B, R.sbn,
+                      first ? R.carry_d : R.cbuf_d + in, first ? R.carry_i : R.cbuf_i + in,
+                      last ? R.out_d : R.cbuf_d + out, last ? R.out_i : R.cbuf_i + out};
+    }
+  }
+  __device__ Lists lists(const wgb::Item& t, const wgb::Ctx& c, const RoundOps& o) const {
+    return Lists::at(c.Lsd, c.Lsi, o.od, o.oi, t.q0, k);
+  }
+  __device__ void begin(const wgb::Item& t, const wgb::Ctx& c) const {
+    const RoundOps o = ops(p->r[t.slice]);
+    const Lists L = lists(t, c, o);
+    const int Q = p->Q, wrow0 = 16 * c.cwarp;
+    for (int r = wrow0; r < wrow0 + 16; ++r) {
+      if (c.lane == 0) c.nanf[r] = c.bufn[r] = 0;
+      if (t.q0 + r >= Q) continue;
+      for (int j = c.lane; j < k; j += 32) { L.d(r)[j] = inf_f(); L.i(r)[j] = -1; }
+    }
+    __syncwarp();
+    for (int r = wrow0; r < wrow0 + 16; ++r) {  // the carry: slot j has arrival j
+      if (t.q0 + r >= Q) continue;
+      const float* cd = o.cd + (size_t)(t.q0 + r) * k;
+      bool any_nan = false;
+      for (int j0 = 0; j0 < k; j0 += 32) {
+        const int j = j0 + c.lane;
+        any_nan |= warp_offer(L.d(r), L.i(r), k, j < k ? ld<CG>(cd + j) : 0.f, j, j < k,
+                              c.lane);
+      }
+      if (any_nan && c.lane == 0) c.nanf[r] = 1;
+      __syncwarp();
+    }
+  }
+  __device__ __forceinline__ void chunk(float (&acc)[wgb::ACC], const wgb::Item& t, int col0,
+                                        const float* norms, uint32_t release,
+                                        const wgb::Ctx& c) const {
+    const Rank& R = p->r[t.slice];
+    const RoundOps o = ops(R);
+    const int wrow0 = 16 * c.cwarp, r0 = t.q0 + wrow0 + c.lane / 4;
+    const int row[2] = {r0, r0 + 8};
+    const bool live[2] = {row[0] < p->Q, row[1] < p->Q};
+    const float qs[2] = {live[0] ? R.qn[row[0]] : 0.f, live[1] ? R.qn[row[1]] : 0.f};
+    const bool self = p->exclude_self != 0;
+    const RingMask<CG> mask{o.bids - k, {self && live[0] ? R.qids[row[0]] : -2,
+                                         self && live[1] ? R.qids[row[1]] : -2}};
+    const wgb::ZeroRuleOf<CG> zero{p->zero_eps, p->exclude_zero ? o.bn - k : nullptr};
+    wgb::select_regs<true>(acc, col0 + k, t.c_end + k, row, live, qs, false, norms, release,
+                           lists(t, c, o), wrow0, c.nanf, c.bufn, c.cd, c.lane, zero, mask);
+  }
+  __device__ void end(const wgb::Item& t, const wgb::Ctx& c) const {
+    const RoundOps o = ops(p->r[t.slice]);
+    const Lists L = lists(t, c, o);
+    const int Q = p->Q, wrow0 = 16 * c.cwarp;
+    // the winners still buffered into their lists
+    const unsigned rows = __ballot_sync(
+        FULL, c.lane < 16 && t.q0 + wrow0 + c.lane < Q && c.bufn[wrow0 + (c.lane & 15)] > 0);
+    wgb::flush_rows(rows, L, wrow0, c.bufn, c.cd, c.lane);
+    for (int r = wrow0; r < wrow0 + 16; ++r) {  // arrivals become ids
+      const int row = t.q0 + r;
+      if (row >= Q) continue;
+      const bool poisoned = c.nanf[r] != 0;
+      float* od = o.od + (size_t)row * k;
+      int* oi = o.oi + (size_t)row * k;
+      for (int j = c.lane; j < k; j += 32) {
+        float d = L.d(r)[j];
+        const int a = L.i(r)[j];
+        int id = -1;
+        if (poisoned) d = nan_f();
+        else if (isfinite(d)) id = a < k ? ld<CG>(o.ci + (size_t)row * k + a) : ld<CG>(o.bids + (a - k));
+        od[j] = d;
+        oi[j] = id;
+      }
+    }
+  }
+};
+
+// The bf16 forms' launch parameters: per local rank the tensor maps of its
+// query planes hi, lo, its block planes hi, lo and the block norms, then
+// the Launch.
+struct RingWgb {
+  CUtensorMap maps[MAX_LOCAL][5];
+  Launch p;
+};
+
+__device__ __forceinline__ wgb::TileMaps maps_of(const RingWgb& a, int rank) {
+  const CUtensorMap* m = a.maps[rank];
+  return wgb::TileMaps{m, m + 2, m + 1, m + 3, m + 4};
+}
+
+// K4 at "default" (P = 1) / "high" (P = 2) on the f32 wire: one persistent
+// CTA per SM over the (local rank, 128-row query group) items, the traveler
+// moved by round_transport on the producer's spare warps, as the TF32 form.
+template <int P>
+__global__ void __launch_bounds__(wgb::THREADS, 1)
+    round_dma_kernel_bf16(const __grid_constant__ RingWgb a) {
+  extern __shared__ __align__(16) unsigned char wgb_smem[];
+  const Launch& p = a.p;
+  const RingEpi<P, false> epi{&p, (p.Q + wgb::ROWS - 1) / wgb::ROWS, bf16_width(p.D) / wgb::KB,
+                              p.k, 0};
+  wgb::init_ring<P>(wgb_smem);
+  uint32_t it = 0;
+  wgb::walk_tile<true>([&](const wgb::Item& t) { return maps_of(a, t.slice); },
+                       [&](int w) { round_transport(p, w); }, epi, wgb_smem, it);
 }
 
 // ---------------------------------------------------------------- K5
@@ -658,6 +870,135 @@ __global__ void __launch_bounds__(THREADS, 2) rotation_grid_kernel(Launch p) {
   }
 }
 
+// K5's block move of round r on the f32 wire at "default" / "high", on
+// warp w (1..3) of the producer warpgroup of every CTA while the tile
+// merges: each rank's resident block, ids and norms (round 0 the caller's,
+// then slot r % 2) into the successor's slot (r + 1) % 2, in COPY_CTAS *
+// SPLIT units spread over the grid. A unit is copied, fenced and, where the
+// successor is remote, counted on the rank's G_UNITS word; every SPLIT-th
+// count adds one to the successor's G_LANDED, so it sees COPY_CTAS landed
+// adds a hop, as from rotation_grid_kernel's copy items (the words only
+// count up: every launch starts at a multiple of SPLIT).
+__device__ void rotation_transport(const Launch& p, int r) {
+  const int t = threadIdx.x - 32, nt = 96;
+  const int per_rank = COPY_CTAS * SPLIT, cur = r % 2, nxt = (r + 1) % 2;
+  const size_t blk_bytes = (size_t)p.B * p.D * sizeof(float);
+  for (int u = blockIdx.x; u < p.n_local * per_rank; u += gridDim.x) {
+    const Rank& R = p.r[u / per_rank];
+    const int part = u % per_rank;
+    const void* src =
+        r == 0 ? R.blk : static_cast<const unsigned char*>(R.slot_blk) + cur * blk_bytes;
+    const int* sid = r == 0 ? R.bids : R.slot_bids + (size_t)cur * p.B;
+    const float* sbn = r == 0 ? R.bn : R.slot_bn + (size_t)cur * p.B;
+    copy_part<true>(static_cast<unsigned char*>(R.dst_blk) + nxt * blk_bytes, src, blk_bytes,
+                    part, per_rank, t, nt);
+    copy_part<true>(R.dst_bids + (size_t)nxt * p.B, sid, (size_t)p.B * sizeof(int), part,
+                    per_rank, t, nt);
+    copy_part<true>(R.dst_bn + (size_t)nxt * p.B, sbn, (size_t)p.B * sizeof(float), part,
+                    per_rank, t, nt);
+    __threadfence_system();
+    copy_sync(nt);
+    if (t == 0 && R.succ_remote &&
+        (fetch_add_acq_rel_sys(R.flags + G_UNITS, 1) + 1) % SPLIT == 0)
+      add_release_sys(R.succ_flags + G_LANDED, 1);
+  }
+}
+
+// K5's staging of round r at "default" / "high", by every thread of the
+// grid: each rank's resident block's planes (RNE hi, and with two planes
+// lo, as fused_knn's stage_planes) and norms into its scratch on this
+// card, and in round 0 its queries' planes. The tile's TMA reads them
+// after the grid sync; the stores are ordered before those reads (async
+// proxy) by the fence that follows them.
+template <int P>
+__device__ void stage_round(const Launch& p, int r) {
+  const int Dp = bf16_width(p.D), per_row = Dp / 8;
+  const size_t blk_bytes = (size_t)p.B * p.D * sizeof(float);
+  const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long nt = (long long)gridDim.x * blockDim.x;
+  for (int i = 0; i < p.n_local; ++i) {
+    const Rank& R = p.r[i];
+    const float* src = static_cast<const float*>(
+        r == 0 ? R.blk
+               : static_cast<const unsigned char*>(R.slot_blk) + (r % 2) * blk_bytes);
+    bf16* hi = static_cast<bf16*>(const_cast<void*>(R.bh));
+    bf16* lo = P == 2 ? static_cast<bf16*>(const_cast<void*>(R.bl)) : nullptr;
+    for (long long n = tid; n < (long long)p.B * per_row; n += nt) {
+      const int row = (int)(n / per_row), d0 = (int)(n % per_row) * 8;
+      wgb::stage_planes8<true>(src + (size_t)row * p.D, p.D, d0, hi, lo, (size_t)row * Dp + d0);
+    }
+    const float* bn = r == 0 ? R.bn : R.slot_bn + (size_t)(r % 2) * p.B;
+    for (long long n = tid; n < p.B; n += nt) R.sbn[n] = __ldcg(bn + n);
+    if (r > 0) continue;
+    bf16* qh = static_cast<bf16*>(const_cast<void*>(R.qh));
+    bf16* ql = P == 2 ? static_cast<bf16*>(const_cast<void*>(R.ql)) : nullptr;
+    for (long long n = tid; n < (long long)p.Q * per_row; n += nt) {
+      const int row = (int)(n / per_row), d0 = (int)(n % per_row) * 8;
+      wgb::stage_planes8<false>(R.q + (size_t)row * p.D, p.D, d0, qh, ql, (size_t)row * Dp + d0);
+    }
+  }
+  asm volatile("fence.proxy.async.global;" ::: "memory");
+}
+
+// K5 at "default" (P = 1) / "high" (P = 2) on the f32 wire: the schedule
+// of rotation_grid_kernel (its waits, grid syncs, slot releases, carry
+// ping-pong and L1-bypassing reads of the slots), one CTA per SM, each
+// round's merges on the bf16 tile with RingEpi over the planes this
+// launch stages into the ranks' scratch (stage_round, then a grid sync),
+// and the block's move on the producer's spare warps (rotation_transport).
+// The slots, and what crosses to another card or process, stay the f32
+// block, its ids and norms: the planes are made on each card.
+template <int P>
+__global__ void __launch_bounds__(wgb::THREADS, 1)
+    rotation_grid_kernel_bf16(const __grid_constant__ RingWgb a) {
+  extern __shared__ __align__(16) unsigned char wgb_smem[];
+  __shared__ int stop;
+  cg::grid_group grid = cg::this_grid();
+  const Launch& p = a.p;
+  const int Pr = p.ring_size, G = p.epoch;
+  const int frees = Pr > 2 ? Pr - 2 : 0;  // releases per call
+  wgb::init_ring<P>(wgb_smem);
+  uint32_t it = 0;
+  for (int r = 0; r < Pr; ++r) {
+    if (blockIdx.x == 0 && threadIdx.x == 0) {
+      int err = 0;
+      if (r == 0 && !neighbour_barrier(p, G_FROM_PRED, G_FROM_SUCC))
+        err = ERR_BARRIER;
+      for (int i = 0; i < p.n_local && !err; ++i) {
+        const Rank& R = p.r[i];
+        // the successor's slot (r+1)%2 is free: consume its r-th release
+        if (r >= 1 && r <= Pr - 2 && R.succ_remote &&
+            !wait_at_least(R.flags + G_FREE, (G - 1) * frees + r, p.timeout_ns))
+          err = ERR_FREE;
+        // the predecessor's round r-1 stream has landed in slot r%2
+        else if (r >= 1 && R.pred_remote &&
+                 !wait_at_least(R.flags + G_LANDED,
+                                ((G - 1) * (Pr - 1) + r) * COPY_CTAS, p.timeout_ns))
+          err = ERR_LANDED;
+      }
+      if (err) set_err(p.err, err);
+    }
+    grid.sync();
+    if (threadIdx.x == 0) stop = load_acquire_sys(p.err) != 0;
+    __syncthreads();
+    if (stop) return;  // every CTA leaves at the same round
+    stage_round<P>(p, r);
+    grid.sync();  // the scratch is staged; the copy-out may start
+    asm volatile("fence.proxy.async.global;" ::: "memory");
+    const RingEpi<P, true> epi{&p, (p.Q + wgb::ROWS - 1) / wgb::ROWS,
+                               bf16_width(p.D) / wgb::KB, p.k, r};
+    wgb::walk_tile<false>([&](const wgb::Item& t) { return maps_of(a, t.slice); },
+                          [&](int) {
+                            if (r < Pr - 1) rotation_transport(p, r);
+                          },
+                          epi, wgb_smem, it);
+    grid.sync();  // round r's reads of slot r%2 and its stream are retired
+    if (blockIdx.x == 0 && threadIdx.x == 0 && r < Pr - 2)
+      for (int i = 0; i < p.n_local; ++i)
+        if (p.r[i].pred_remote) add_release_sys(p.r[i].pred_flags + G_FREE, 1);
+  }
+}
+
 bool bad_launch(const Launch& p) {
   if (p.n_local < 1 || p.n_local > MAX_LOCAL || p.Q <= 0 || p.B <= 0 ||
       p.D <= 0 || p.k <= 0 || p.ring_size < 1 || p.epoch < 1 ||
@@ -706,25 +1047,53 @@ const void* grid_kernel() {
   return (const void*)rotation_grid_kernel<WIRE, NQB, Op>;
 }
 
-// which: 0 K4 (its f32 form at "highest" is round_dma_kernel_wgmma), 1 K5
-// (float wires only); precision 0 "highest", 1 "default", 2 "high"
+#ifndef RING_MMA_SYNC_BASELINE
+// The bf16 tile's forms on the f32 wire: K4 (which 0) or K5 (1) at
+// precision 1 ("default": one plane) or 2 ("high": two).
+const void* bf16_kernel(int which, int precision) {
+  if (which == 0)
+    return precision == 1 ? (const void*)round_dma_kernel_bf16<1>
+                          : (const void*)round_dma_kernel_bf16<2>;
+  return precision == 1 ? (const void*)rotation_grid_kernel_bf16<1>
+                        : (const void*)rotation_grid_kernel_bf16<2>;
+}
+#endif
+
+// which: 0 K4, 1 K5 (float wires only); precision 0 "highest", 1
+// "default", 2 "high". On the f32 wire K4 runs the TF32 wgmma tile at
+// "highest" and K4 and K5 the bf16 one at "default" / "high"; the other
+// forms run knn_tile.cuh's mma.sync tile. A build with
+// RING_MMA_SYNC_BASELINE (a measurement build, which no wrapper loads)
+// runs the f32 wire at "default" / "high" on the mma.sync kernels as
+// before the bf16 forms.
 const void* kernel_of(int which, int wire, int rows, int precision) {
   if (precision < 0 || precision > 2) return nullptr;
   if (which == 0 && wire == WIRE_F32 && precision == 0)
     return (const void*)round_dma_kernel_wgmma;
+#ifndef RING_MMA_SYNC_BASELINE
+  if (wire == WIRE_F32 && precision > 0 && (which == 0 || which == 1))
+    return bf16_kernel(which, precision);
+#endif
   return with_precision(precision, [&](auto op) -> const void* {
     using Op = decltype(op);
+    constexpr bool tf32 = std::is_same_v<Op, Tf32x3>;
     if (which == 0) {
       switch (wire) {
         case WIRE_F32:
-          if constexpr (!std::is_same_v<Op, Tf32x3>) return round_kernel<WIRE_F32, Op>(rows);
+#ifdef RING_MMA_SYNC_BASELINE
+          if constexpr (!tf32) return round_kernel<WIRE_F32, Op>(rows);
+#endif
           return nullptr;
         case WIRE_BF16: return round_kernel<WIRE_BF16, Op>(rows);
         case WIRE_INT8: return round_kernel<WIRE_INT8, Op>(rows);
       }
     } else if (which == 1) {
       switch (wire) {
-        case WIRE_F32: return grid_kernel<WIRE_F32, Op>();
+        case WIRE_F32:
+#ifndef RING_MMA_SYNC_BASELINE
+          if constexpr (!tf32) return nullptr;
+#endif
+          return grid_kernel<WIRE_F32, Op>();
         case WIRE_BF16: return grid_kernel<WIRE_BF16, Op>();
       }
     }
@@ -732,13 +1101,15 @@ const void* kernel_of(int which, int wire, int rows, int precision) {
   });
 }
 
-// A launch's plan on the current card: query rows per merge group (K4's
-// f32 form: 128; its other forms 128, or 64 where the card's resident slots
-// would go half empty; K5: 64), the grid (K4's f32 form and K5: persistent
-// CTAs; K4's other forms: barrier + copy + merge CTAs), the items a round
-// (merge items, and copy items where CTAs or work items take them), the
-// copy units a round, whether the tile is the wgmma one, and the kernel's
-// registers, spilled bytes and CTAs per SM.
+// A launch's plan on the current card: query rows per merge group (the
+// wgmma forms: 128; K4's other forms 128, or 64 where the card's resident
+// slots would go half empty; K5's mma.sync forms: 64), the grid (the wgmma
+// forms and K5: persistent CTAs, the bf16 forms one per SM; K4's other
+// forms: barrier + copy + merge CTAs), the items a round (merge items, and
+// copy items where CTAs or work items take them), the copy units a round,
+// whether the tile is a wgmma one (K4's f32 form at every precision, K5's
+// at "default" / "high"), and the kernel's registers, spilled bytes and
+// CTAs per SM.
 struct Plan {
   int rows, grid, items, regs, local_bytes, ctas_per_sm, copy_units, wgmma;
   const void* kernel;
@@ -761,11 +1132,38 @@ cudaError_t wgmma_plan(int n_local, int Q, int k, Plan* pl) {
   return cudaSuccess;
 }
 
+#ifndef RING_MMA_SYNC_BASELINE
+// The bf16 forms: a CTA on every SM, whatever the items (K5: a cooperative
+// grid, all of whose CTAs stage each round; K4: its copy units run on every
+// CTA's spare warps, so a round of few items, a serving batch's, still
+// moves the traveler at the card's rate and not at a few SMs').
+cudaError_t bf16_plan(int which, int precision, int n_local, int Q, int k, Plan* pl) {
+  pl->kernel = bf16_kernel(which, precision);
+  pl->rows = wgb::ROWS;
+  pl->items = n_local * ((Q + wgb::ROWS - 1) / wgb::ROWS);
+  pl->copy_units = n_local * COPY_CTAS * SPLIT;
+  pl->wgmma = 1;
+  const bool two = precision == 2;
+  pl->smem = two ? wgb::smem_bytes<2>(k) : wgb::smem_bytes<1>(k);
+  cudaError_t e = two ? wgb::tile_grid<2>(pl->kernel, k, LLONG_MAX, &pl->grid, &pl->ctas_per_sm)
+                      : wgb::tile_grid<1>(pl->kernel, k, LLONG_MAX, &pl->grid, &pl->ctas_per_sm);
+  cudaFuncAttributes attr;
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, pl->kernel);
+  if (e != cudaSuccess) return e;
+  pl->regs = attr.numRegs;
+  pl->local_bytes = (int)attr.localSizeBytes;
+  return cudaSuccess;
+}
+#endif
+
 cudaError_t plan_of(int which, int wire, int precision, int n_local, int Q, int k,
                     Plan* pl) {
   const void* k128 = kernel_of(which, wire, MQB, precision);
   if (k128 == nullptr || n_local < 1 || Q <= 0 || k <= 0) return cudaErrorInvalidValue;
   if (k128 == (const void*)round_dma_kernel_wgmma) return wgmma_plan(n_local, Q, k, pl);
+#ifndef RING_MMA_SYNC_BASELINE
+  if (wire == WIRE_F32 && precision > 0) return bf16_plan(which, precision, n_local, Q, k, pl);
+#endif
   cudaError_t e = cudaSuccess;
   if (which == 1)
     pl->rows = NQB;  // see grid_kernel
@@ -808,10 +1206,11 @@ cudaError_t launch_wgmma(const Launch& p, const Plan& pl, cudaStream_t stream) {
   for (int i = 0; i < p.n_local && e == cudaSuccess; ++i) {
     const Rank& R = p.r[i];
     if (!R.qh || !R.ql || !R.bh || !R.bl) return cudaErrorInvalidValue;
-    e = wg::plane_map(&a.maps[i][0], R.qh, p.Q, Dp);
-    if (e == cudaSuccess) e = wg::plane_map(&a.maps[i][1], R.ql, p.Q, Dp);
-    if (e == cudaSuccess) e = wg::plane_map(&a.maps[i][2], R.bh, p.B, Dp);
-    if (e == cudaSuccess) e = wg::plane_map(&a.maps[i][3], R.bl, p.B, Dp);
+    const auto f32 = [](const void* x) { return static_cast<const float*>(x); };
+    e = wg::plane_map(&a.maps[i][0], f32(R.qh), p.Q, Dp);
+    if (e == cudaSuccess) e = wg::plane_map(&a.maps[i][1], f32(R.ql), p.Q, Dp);
+    if (e == cudaSuccess) e = wg::plane_map(&a.maps[i][2], f32(R.bh), p.B, Dp);
+    if (e == cudaSuccess) e = wg::plane_map(&a.maps[i][3], f32(R.bl), p.B, Dp);
   }
   if (e != cudaSuccess) return e;
   a.p = p;
@@ -819,12 +1218,41 @@ cudaError_t launch_wgmma(const Launch& p, const Plan& pl, cudaStream_t stream) {
   return cudaLaunchKernel(pl.kernel, dim3(pl.grid), dim3(wg::THREADS), args, pl.smem, stream);
 }
 
+// The bf16 forms: per local rank the maps of its query and block planes
+// (pitch bf16_width(D); lo at "high" only) and of its block norms (K4: the
+// traveler's, 16-byte aligned as TMA reads them; K5: the staged ones),
+// then K4's persistent grid or K5's cooperative one.
+cudaError_t launch_bf16(int which, const Launch& p, const Plan& pl, cudaStream_t stream) {
+  static_assert(sizeof(RingWgb) <= 32764, "kernel parameters past 32 KB");
+  RingWgb a;  // ~15 KB, copied by the launch
+  const int Dp = bf16_width(p.D);
+  const bool two = p.precision == 2;
+  cudaError_t e = cudaSuccess;
+  for (int i = 0; i < p.n_local && e == cudaSuccess; ++i) {
+    const Rank& R = p.r[i];
+    const float* bn = which == 0 ? R.bn : R.sbn;
+    if (!R.qh || !R.bh || !bn || (two && (!R.ql || !R.bl))) return cudaErrorInvalidValue;
+    e = wgb::bf16_map(&a.maps[i][0], R.qh, p.Q, Dp, wgb::ROWS);
+    if (e == cudaSuccess && two) e = wgb::bf16_map(&a.maps[i][1], R.ql, p.Q, Dp, wgb::ROWS);
+    if (e == cudaSuccess) e = wgb::bf16_map(&a.maps[i][2], R.bh, p.B, Dp, wgb::COLS);
+    if (e == cudaSuccess && two) e = wgb::bf16_map(&a.maps[i][3], R.bl, p.B, Dp, wgb::COLS);
+    if (e == cudaSuccess) e = wgb::norms_map(&a.maps[i][4], bn, p.B);
+  }
+  if (e != cudaSuccess) return e;
+  a.p = p;
+  void* args[] = {&a};
+  return which == 0 ? cudaLaunchKernel(pl.kernel, dim3(pl.grid), dim3(wgb::THREADS), args,
+                                       pl.smem, stream)
+                    : cudaLaunchCooperativeKernel(pl.kernel, dim3(pl.grid),
+                                                  dim3(wgb::THREADS), args, pl.smem, stream);
+}
+
 cudaError_t launch(int which, int wire, Launch p, cudaStream_t stream) {
   Plan pl;
   cudaError_t e = plan_of(which, wire, p.precision, p.n_local, p.Q, p.k, &pl);
   if (e != cudaSuccess) return e;
   void* args[] = {&p};
-  e = pl.wgmma ? launch_wgmma(p, pl, stream)
+  e = pl.wgmma ? (p.precision == 0 ? launch_wgmma(p, pl, stream) : launch_bf16(which, p, pl, stream))
       : which == 0
           ? cudaLaunchKernel(pl.kernel, dim3(pl.grid), dim3(THREADS), args, pl.smem, stream)
           : cudaLaunchCooperativeKernel(pl.kernel, dim3(pl.grid), dim3(THREADS), args,
@@ -954,18 +1382,19 @@ int rotation_grid_launch(const void* ranks, int n_local, int Q, int B, int D,
 }
 
 // The plan of a K4 (which 0) or K5 (which 1) launch of n_local ranks on the
-// current card: out[0..8) = query rows per merge group, grid, items per
+// current card: out[0..9) = query rows per merge group, grid, items per
 // round (merge items, plus copy items where CTAs or work items take them),
 // registers, spilled bytes a thread, CTAs per SM, copy units per round,
-// and 1 where the tile is the wgmma one (K4's f32 form).
+// 1 where the tile is a wgmma one (the f32 wire's forms but K5's at
+// "highest"), and the dynamic shared bytes a CTA (out[8]).
 int ring_kernel_plan(int which, int wire, int precision, int n_local, int Q, int k,
                      int* out) {
   Plan pl;
   cudaError_t e = plan_of(which, wire, precision, n_local, Q, k, &pl);
   if (e != cudaSuccess) return (int)e;
-  const int vals[8] = {pl.rows, pl.grid, pl.items, pl.regs, pl.local_bytes,
-                       pl.ctas_per_sm, pl.copy_units, pl.wgmma};
-  for (int i = 0; i < 8; ++i) out[i] = vals[i];
+  const int vals[9] = {pl.rows, pl.grid, pl.items, pl.regs, pl.local_bytes,
+                       pl.ctas_per_sm, pl.copy_units, pl.wgmma, (int)pl.smem};
+  for (int i = 0; i < 9; ++i) out[i] = vals[i];
   return 0;
 }
 

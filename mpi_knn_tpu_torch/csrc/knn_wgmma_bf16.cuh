@@ -15,7 +15,12 @@
 // would beat the empty lists: each row's 32 keys of its first 4 column
 // groups are offered straight from registers and merged, so that the rest
 // meets full lists (select_regs). K1's items are 8 chunks each, so their
-// first chunks weigh (chip_smoke.py's item_cost line).
+// first chunks weigh (chip_smoke.py's item_cost line). K4 and K5 on the
+// ring's f32 wire at "default" / "high" run the same tile
+// (fused_ring_dma.cu's RingEpi): their items span several ranks' maps
+// (walk_tile's maps_of), their columns mask by id (select_regs' mask), K4's
+// transport runs on the producer's spare warps (walk_tile's side), and K5
+// walks once a round, its ring's step count carried from round to round.
 //
 // Replaces, for K2[c] (mpi_knn_tpu/ops/pallas_knn.py::fused_knn_sweep with
 // compress=True), knn_tile.cuh's `sweep_mma<Bf16x1>`, whose CTA stored all
@@ -457,8 +462,10 @@ __device__ __forceinline__ float pick(const float (&a)[ACC], int h, int re) {
 
 // The exact forms' zero rule: a key d of column col in row norm qs is
 // masked when d <= eps if eps > 0, else when d <= 1e-6 (qs + cn[col]).
-// cn: the corpus norms in device memory; null: the rule is off.
-struct ZeroRule {
+// cn: the corpus norms in device memory; null: the rule is off. CG reads
+// them past L1 (norms rewritten during the launch: K5's).
+template <bool CG>
+struct ZeroRuleOf {
   float eps;
   const float* cn;
   // the rule for a key whose column norm cs is at hand
@@ -467,8 +474,21 @@ struct ZeroRule {
     return d <= (eps > 0.f ? eps : __fmul_rn(1e-6f, __fadd_rn(qs, cs)));
   }
   __device__ __forceinline__ bool masks(float d, float qs, int col) const {
-    return cn != nullptr && masks_norm(d, qs, __ldg(cn + col));
+    return cn != nullptr && masks_norm(d, qs, CG ? __ldcg(cn + col) : __ldg(cn + col));
   }
+};
+using ZeroRule = ZeroRuleOf<false>;
+
+// The masks of a sweep's columns beyond the column range and the self
+// column (col == row): none. A ring's columns (fused_ring_dma.cu) mask
+// by their ids: id(col, c_end) is read once a column (below c_end), ok(id,
+// h) says whether it stays valid for the thread's row h, and any(col0,
+// c_end, lane), over the warp, whether the chunk at col0 may hold a column
+// it masks for some row of the warp.
+struct NoMask {
+  __device__ __forceinline__ int id(int, int) const { return 0; }
+  __device__ __forceinline__ bool ok(int, int) const { return true; }
+  __device__ __forceinline__ bool any(int, int, int) const { return false; }
 };
 
 // The selection of one chunk for a consumer warp's 16 rows (CTA rows wrow0
@@ -486,14 +506,16 @@ struct ZeroRule {
 // fills is merged into its list before the rest are checked. With ZERO the
 // zero rule `zero` masks a marked key at that check: a masked key is +inf,
 // which never enters a list and is never NaN, so masking it only where it
-// would win changes nothing else.
-template <bool ZERO, class LT>
+// would win changes nothing else. `mask` adds the masks of a ring's
+// columns by id (NoMask: none), checked where the keys are formed: in the
+// first chunk and in a chunk that mask.any flags.
+template <bool ZERO, class LT, class Z = ZeroRule, class M = NoMask>
 __device__ __forceinline__ void select_regs(float (&acc)[ACC], int col0, int c_end,
                                             const int (&row)[2], const bool (&live)[2],
                                             const float (&qs)[2], bool self, const float* cs,
                                             uint32_t release, const LT& L, int wrow0,
                                             int* nanf, int* bufn, float* cd, int lane,
-                                            const ZeroRule& zero) {
+                                            const Z& zero, const M& mask = M{}) {
   int* const ci = cand_ids(cd);
   constexpr int E = ACC / 2, W = (E + 31) / 32;  // a row's elements in this thread
   const int cbase = col0 + 2 * (lane % 4), lr = lane / 4, k = L.k;
@@ -514,10 +536,12 @@ __device__ __forceinline__ void select_regs(float (&acc)[ACC], int col0, int c_e
   // the masks touch a chunk only at the corpus end, past Q, and (all
   // pairs) where its columns meet the warp's rows; elsewhere every key is
   // valid and a mark is the cheaper d <= worst (ties are checked again)
+  const bool by_id = mask.any(col0, c_end, lane);  // the whole warp takes part
   const bool masked = __any_sync(
       FULL, col0 + COLS > c_end || !live[0] || !live[1] ||
                 (self && ((row[0] >= col0 && row[0] < col0 + COLS) ||
-                          (row[1] >= col0 && row[1] < col0 + COLS))));
+                          (row[1] >= col0 && row[1] < col0 + COLS))) ||
+                by_id);
   // An item's first chunk (with ZERO, the exact forms: a live row's list
   // empty, no winner buffered), where every key would win: the keys of its
   // first 4 column groups (8 a thread and row, 32 a row) are formed whole,
@@ -534,12 +558,14 @@ __device__ __forceinline__ void select_regs(float (&acc)[ACC], int col0, int c_e
       constexpr int j = decltype(jc)::value;
       const int col = cbase + 8 * j;
       const float2 c2 = *reinterpret_cast<const float2*>(cs + 8 * j + 2 * (lane % 4));
+      const int id[2] = {mask.id(col, c_end), mask.id(col + 1, c_end)};
 #pragma unroll
       for (int x = 0; x < 4; ++x) {
         const int i = 4 * j + x, h = x / 2, e = x % 2;
         const float c = e ? c2.y : c2.x;
         const float d = sweep_key(qs[h], acc[i], c);
-        const bool valid = col + e < c_end && live[h] && !(self && col + e == row[h]);
+        const bool valid = col + e < c_end && live[h] && !(self && col + e == row[h]) &&
+                           mask.ok(id[e], h);
         nan[h] |= valid && d != d;
         acc[i] = valid && !zero.masks_norm(d, qs[h], c) ? d : inf_f();
       }
@@ -582,11 +608,13 @@ __device__ __forceinline__ void select_regs(float (&acc)[ACC], int col0, int c_e
       if (j < FIRST_GROUPS && first) return;  // offered above
       const int col = cbase + 8 * j;
       const float2 c2 = *reinterpret_cast<const float2*>(cs + 8 * j + 2 * (lane % 4));
+      const int id[2] = {mask.id(col, c_end), mask.id(col + 1, c_end)};
 #pragma unroll
       for (int x = 0; x < 4; ++x) {
         const int i = 4 * j + x, h = x / 2, e = x % 2, re = 2 * j + e;
         const float d = sweep_key(qs[h], acc[i], e ? c2.y : c2.x);
-        const bool valid = col + e < c_end && live[h] && !(self && col + e == row[h]);
+        const bool valid = col + e < c_end && live[h] && !(self && col + e == row[h]) &&
+                           mask.ok(id[e], h);
         nan[h] |= valid && d != d;
         acc[i] = valid ? d : inf_f();
         pm[h][re / 32] |= (unsigned)lex_less(acc[i], col + e, wd[h], wi[h]) << (re % 32);
@@ -738,18 +766,63 @@ __device__ __forceinline__ void chunk_product(float (&acc)[ACC], uint32_t ring, 
   reg_fence(acc);
 }
 
-// The tile's body: the persistent walk of epi's items by one CTA of THREADS
-// threads over Epi::planes planes: the query maps qm (and with two planes
-// the lo plane's ql; boxes of KB x ROWS), the corpus maps cm (and cl;
-// boxes of KB x COLS) and the corpus norms' map nm (boxes of COLS, or
-// null: no norms). Epi provides nkb (k-blocks), k, items(), item(n), and
-// the consumers' hooks begin(item, ctx), chunk(acc, item, col0, norms,
+// The "default" / "high" planes of elements d0 .. d0 + 7 of the D-wide f32
+// row x: hi = RNE(x) and, with lo non-null, lo = RNE(x - hi) (x - hi exact
+// in f32), both zero past D, stored as 16 bytes at hi + at, lo + at. CG
+// reads x past L1 (K5's slots, rewritten during its launch).
+template <bool CG>
+__device__ __forceinline__ void stage_planes8(const float* x, int D, int d0, bf16* hi, bf16* lo,
+                                              size_t at) {
+  alignas(16) bf16 h[8], l[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const float v = d0 + j < D ? (CG ? __ldcg(x + d0 + j) : x[d0 + j]) : 0.f;
+    h[j] = __float2bfloat16_rn(v);
+    l[j] = __float2bfloat16_rn(__fsub_rn(v, __bfloat162float(h[j])));
+  }
+  *reinterpret_cast<uint4*>(hi + at) = *reinterpret_cast<const uint4*>(h);
+  if (lo != nullptr) *reinterpret_cast<uint4*>(lo + at) = *reinterpret_cast<const uint4*>(l);
+}
+
+// The tensor maps of an item: the query maps qm (and with two planes the
+// lo plane's ql; boxes of KB x ROWS), the corpus maps cm (and cl; boxes of
+// KB x COLS) and the corpus norms' map nm (boxes of COLS, or null: no
+// norms).
+struct TileMaps {
+  const CUtensorMap *qm, *cm, *ql, *cl, *nm;
+};
+
+// The ring's mbarriers, once per launch (thread 0, then the whole CTA).
+template <int P>
+__device__ void init_ring(unsigned char* smem_raw) {
+  using L = Layout<P>;
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t ring = (raw + (uint32_t)L::align - 1) & ~((uint32_t)L::align - 1);
+  const uint32_t full = ring + (uint32_t)L::bars, empty = full + 8 * Ring<P>::STAGES;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < Ring<P>::STAGES; ++s) {
+      wg::mbar_init(full + 8 * s, 1);
+      wg::mbar_init(empty + 8 * s, CONSUMER_WARPS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+}
+
+// The tile's body after init_ring: the persistent walk of epi's items by
+// one CTA of THREADS threads over Epi::planes planes, each item over the
+// maps maps_of(item). Epi provides nkb (k-blocks), k, items(), item(n),
+// and the consumers' hooks begin(item, ctx), chunk(acc, item, col0, norms,
 // release, ctx), which arrives once a warp on `release` (the last stage's
-// empty barrier) when done with the norms, and end(item, ctx).
-template <class Epi>
-__device__ void run_tile(const CUtensorMap* qm, const CUtensorMap* cm, const CUtensorMap* ql,
-                         const CUtensorMap* cl, const CUtensorMap* nm, const Epi& epi,
-                         unsigned char* smem_raw) {
+// empty barrier) when done with the norms, and end(item, ctx). side(w)
+// runs on warps w = 1..3 of the producer warpgroup, which issue no TMA.
+// `it` is the ring's step count, held by the producer's thread 0 and by
+// the consumers: a launch that walks again (K5's rounds) passes it on, and
+// skips the register reallocation (SETREG false), which would have to be
+// undone before the walk's threads meet again.
+template <bool SETREG, class MapsOf, class Side, class Epi>
+__device__ void walk_tile(const MapsOf& maps_of, const Side& side, const Epi& epi,
+                          unsigned char* smem_raw, uint32_t& it) {
   constexpr int P = Epi::planes;
   using R = Ring<P>;
   using L = Layout<P>;
@@ -758,21 +831,13 @@ __device__ void run_tile(const CUtensorMap* qm, const CUtensorMap* cm, const CUt
   const uint32_t ring = (raw + (uint32_t)L::align - 1) & ~((uint32_t)L::align - 1);
   unsigned char* base = smem_raw + (ring - raw);
   const uint32_t full = ring + (uint32_t)L::bars, empty = full + 8 * STAGES;
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < STAGES; ++s) {
-      wg::mbar_init(full + 8 * s, 1);
-      wg::mbar_init(empty + 8 * s, CONSUMER_WARPS);
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-  }
-  __syncthreads();
   const int items = epi.items();
   if (threadIdx.x < 128) {  // producer warpgroup
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(PRODUCER_REGS));
+    if (SETREG) asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(PRODUCER_REGS));
     if (threadIdx.x == 0) {
-      uint32_t it = 0;
       for (int n = blockIdx.x; n < items; n += gridDim.x) {
         const Item t = epi.item(n);
+        const TileMaps m = maps_of(t);
         for (int col0 = t.c_begin; col0 < t.c_end; col0 += COLS)
           for (int step = 0; step < chunk_steps<P>(epi.nkb); ++step, ++it) {
             // P = 2: the lo passes' stages (kb's four boxes), then hi.hi's
@@ -780,27 +845,29 @@ __device__ void run_tile(const CUtensorMap* qm, const CUtensorMap* cm, const CUt
             const bool lo = P == 2 && step < epi.nkb;
             const int kb = P == 1 || lo ? step : 2 * (step - epi.nkb);
             const bool second = P == 2 && (lo || kb + 1 < epi.nkb);
-            const CUtensorMap* q2 = lo ? ql : qm;
-            const CUtensorMap* c2 = lo ? cl : cm;
+            const CUtensorMap* q2 = lo ? m.ql : m.qm;
+            const CUtensorMap* c2 = lo ? m.cl : m.cm;
             const int kb2 = lo ? kb : kb + 1;
             const uint32_t st = it % STAGES;
             wg::mbar_wait(empty + 8 * st, ((it / STAGES) & 1) ^ 1);
             const uint32_t bar = full + 8 * st, dst = ring + st * R::STAGE_BYTES;
-            const bool norms = nm != nullptr && step == chunk_steps<P>(epi.nkb) - 1;
+            const bool norms = m.nm != nullptr && step == chunk_steps<P>(epi.nkb) - 1;
             wg::mbar_expect_tx(bar, (second ? 2 : 1) * (Q_BOX + C_BOX) + (norms ? N_BOX : 0));
-            wg::tma_load(dst, qm, bar, kb * KB, t.q0);
-            wg::tma_load(dst + P * Q_BOX, cm, bar, kb * KB, col0);
+            wg::tma_load(dst, m.qm, bar, kb * KB, t.q0);
+            wg::tma_load(dst + P * Q_BOX, m.cm, bar, kb * KB, col0);
             if (second) {
               wg::tma_load(dst + Q_BOX, q2, bar, kb2 * KB, t.q0);
               wg::tma_load(dst + 2 * Q_BOX + C_BOX, c2, bar, kb2 * KB, col0);
             }
-            if (norms) tma_load_1d(dst + R::NORMS, nm, bar, col0);
+            if (norms) tma_load_1d(dst + R::NORMS, m.nm, bar, col0);
           }
       }
+    } else if (threadIdx.x >= 32) {
+      side(threadIdx.x / 32);
     }
     return;
   }
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(CONSUMER_REGS));
+  if (SETREG) asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(CONSUMER_REGS));
   Ctx ctx;
   ctx.ctid = threadIdx.x - 128;
   ctx.g = ctx.ctid / 128;
@@ -813,7 +880,6 @@ __device__ void run_tile(const CUtensorMap* qm, const CUtensorMap* cm, const CUt
   ctx.Lsd = reinterpret_cast<float*>(base + L::lists);
   ctx.Lsi = reinterpret_cast<int*>(ctx.Lsd + (epi.k <= R::KS ? ROWS * epi.k : 0));
   float acc[ACC];
-  uint32_t it = 0;
   for (int n = blockIdx.x; n < items; n += gridDim.x) {
     const Item t = epi.item(n);
     epi.begin(t, ctx);
@@ -827,6 +893,18 @@ __device__ void run_tile(const CUtensorMap* qm, const CUtensorMap* cm, const CUt
     }
     epi.end(t, ctx);
   }
+}
+
+// The tile of one launch over one set of maps (see TileMaps), nothing on
+// the producer's spare warps.
+template <class Epi>
+__device__ void run_tile(const CUtensorMap* qm, const CUtensorMap* cm, const CUtensorMap* ql,
+                         const CUtensorMap* cl, const CUtensorMap* nm, const Epi& epi,
+                         unsigned char* smem_raw) {
+  init_ring<Epi::planes>(smem_raw);
+  uint32_t it = 0;
+  walk_tile<true>([=](const Item&) { return TileMaps{qm, cm, ql, cl, nm}; },
+                  [](int) {}, epi, smem_raw, it);
 }
 
 // ------------------------------------------------------------ host side

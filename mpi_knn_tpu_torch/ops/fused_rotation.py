@@ -11,24 +11,30 @@ barrier state they share.
   P-round uni rotation in one launch per card, over two slots per rank;
   float wires only.
 
-Both take ``precision`` (the config's ``matmul_precision``): at "default"
-and "high" the merge's product is K3a's at that precision (the mma.sync
-tile with Bf16x1F32 / Bf16x3, on every wire, the f32 one included), counted
-as ``fused_round_dma[default]`` and so on; the wgmma tile and its planes
-serve "highest" alone.
+Both take ``precision`` (the config's ``matmul_precision``), counted as
+``fused_round_dma[default]`` and so on. On the f32 wire at "default" and
+"high" both run ``csrc/knn_wgmma_bf16.cuh``'s bf16 wgmma tile (one pass on
+the RNE planes, or the lo.hi + hi.lo passes then hi.hi on the hi / lo
+planes) with K3a's merge; on the other wires, and K5 at "highest", K3a's
+mma.sync tile at the precision.
 
 A rank's traveler is (block, ids, scale or None, norms or None, hi or
 None, lo or None): the norms are the exact prologue's squared norms of the
 decoded block, made once per call and moved with the block by the kernels
-themselves, as its ids are. On the f32 wire K4 runs the wgmma tile of
-``csrc/knn_wgmma.cuh``, which reads TF32 hi/lo planes of the queries and
-of the block by TMA: its prologue ``stage_round_planes`` writes them with
-the norms, and the planes travel too. On the other wires, and in K5, the
-norms come from ``fused_ring.stage_wire_norms`` and the planes are None.
-A traveler without what its kernel reads is staged by the wrapper (one
-prologue launch), and the queries likewise (``query_norms``,
-``query_planes``). The plain versions compute their own norms in f32 and
-copy whatever the traveler holds.
+themselves, as its ids are. On the f32 wire K4 reads planes of the
+queries and of the block by TMA, and the block's travel with it: at
+"highest" the TF32 hi/lo planes of ``stage_round_planes`` (K4's tile is
+``csrc/knn_wgmma.cuh``'s), at "default" / "high" the bf16 planes of
+``fused_knn.stage_planes`` (lo None at "default"), each prologue with its
+norms (``stage_ring_planes`` picks). On the other wires, and in K5, the
+norms come from ``fused_ring.stage_wire_norms`` and the planes are None:
+K5 at "default" / "high" writes the planes of each round's block (and of
+its queries) into a scratch of its own on each card, so its slots and
+what crosses cards or processes stay the f32 wire's. A traveler without
+what its kernel reads is staged by the wrapper (one prologue launch), and
+the queries likewise (``query_norms``, ``query_planes``). The plain
+versions compute their own norms in f32 and copy whatever the traveler
+holds.
 
 A process drives every rank of its ring, or, on a ring that spans
 processes, its own ranks. A launch covers every rank its card holds,
@@ -82,7 +88,9 @@ from mpi_knn_tpu_torch.ops.distance import precision_code, resolve_precision
 from mpi_knn_tpu_torch.ops.fused_knn import (
     PRECISION_FORMS,
     split_width,
+    stage_planes,
     stage_tf32_split_reference,
+    staged_width,
 )
 from mpi_knn_tpu_torch.ops.fused_ring import (
     _WIRE,
@@ -122,14 +130,20 @@ class _Rank(ctypes.Structure):
         "q", "qids", "blk", "scale", "bids", "carry_d", "carry_i", "out_d",
         "out_i", "dst_blk", "dst_scale", "dst_bids", "flags", "succ_flags",
         "pred_flags", "slot_blk", "slot_bids", "cbuf_d", "cbuf_i", "qn", "bn",
-        "dst_bn", "slot_bn", "qh", "ql", "bh", "bl", "dst_bh", "dst_bl")] + [
+        "dst_bn", "slot_bn", "qh", "ql", "bh", "bl", "dst_bh", "dst_bl",
+        "sbn")] + [
         ("succ_remote", ctypes.c_int), ("pred_remote", ctypes.c_int)]
 
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
     """The kernel library, with its C signatures set once at first load."""
-    lib = _build.load("fused_ring_dma")
+    return configure(_build.load("fused_ring_dma"))
+
+
+def configure(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the C signatures of a build of csrc/fused_ring_dma.cu and check
+    its Rank layout and protocol against this module's."""
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     for name in ("round_dma_launch", "rotation_grid_launch"):
         fn = getattr(lib, name)
@@ -472,36 +486,48 @@ def stage_round_planes(rows):
     return hi, lo, norms
 
 
+def stage_ring_planes(rows, precision=None):
+    """K4's prologue on the f32 wire at ``precision`` -> (hi, lo, norms):
+    at "highest" ``stage_round_planes`` (TF32 planes), at "default" /
+    "high" ``fused_knn.stage_planes`` (bf16 planes of pitch
+    ``staged_width(d)``, lo None at "default", and the f32 norms of
+    ``stage_norms``)."""
+    p = resolve_precision(precision)
+    return stage_round_planes(rows) if p == "highest" else stage_planes(rows, p)
+
+
 def kernel_name(base: str, precision=None) -> str:
     """The launch-count name of K4 or K5 (``base``) at a matmul precision."""
     p = resolve_precision(precision)
     return base if p == "highest" else f"{base}[{p}]"
 
 
-def uses_planes(wire_dtype, precision=None) -> bool:
-    """Whether K4 runs the wgmma tile on hi/lo planes: the f32 wire at
-    "highest"."""
-    return wire_dtype == torch.float32 and resolve_precision(precision) == "highest"
+def uses_planes(wire_dtype) -> bool:
+    """Whether K4 runs a wgmma tile on planes its travelers carry: the f32
+    wire, at every precision (TF32 hi/lo at "highest", bf16 at "default" /
+    "high")."""
+    return wire_dtype == torch.float32
 
 
 def ring_kernel_plan(which: str, wire_dtype, n_local: int, q_local: int,
                      k: int, precision=None) -> dict:
     """The launch plan of K4 (``which="round"``) or K5 (``"grid"``) over
-    n_local ranks on the current card: query rows per merge group (K4's f32
-    form: 128; its other forms 128, or 64 where 128-row groups would not
-    fill the card's resident slots; K5: 64), the grid (persistent for K4's
-    f32 form and K5), the items per round (merge items, plus copy items
+    n_local ranks on the current card: query rows per merge group (the
+    wgmma forms: 128; K4's others 128, or 64 where 128-row groups would not
+    fill the card's resident slots; K5's mma.sync forms: 64), the grid
+    (persistent for the wgmma forms and K5), the items per round (merge
+    items, plus copy items
     where CTAs or work items take them), the kernel's registers, spilled
-    bytes a thread and CTAs per SM, the copy units per round and whether
-    the tile is the wgmma one."""
-    out = (ctypes.c_int * 8)()
+    bytes a thread and CTAs per SM, the copy units per round, whether the
+    tile is a wgmma one, and the dynamic shared bytes a CTA."""
+    out = (ctypes.c_int * 9)()
     rc = _lib().ring_kernel_plan(0 if which == "round" else 1, _WIRE[wire_dtype],
                                  precision_code(precision), n_local, q_local, k, out)
     if rc != 0:
         raise RuntimeError(f"ring_kernel_plan failed: cudaError {rc}")
     return dict(zip(("rows_per_group", "grid", "items_per_round", "registers",
-                     "spilled_bytes", "ctas_per_sm", "copy_units", "wgmma_tile"),
-                    out))
+                     "spilled_bytes", "ctas_per_sm", "copy_units", "wgmma_tile",
+                     "smem_bytes"), out))
 
 
 def _ptr(t):
@@ -563,35 +589,58 @@ def _card_norms(queries, blocks, query_norms):
     return qn, blocks
 
 
-def _check_staged(rows, norms, hi, lo):
-    """K4's prologue outputs for ``rows``: (n,) norms and (n, split_width(d))
-    planes, contiguous float32 on the rows' device."""
+def _plane_form(d: int, precision):
+    """The planes of K4's prologue at ``precision`` for rows of width d:
+    (dtype, pitch, whether lo is staged)."""
+    p = resolve_precision(precision)
+    if p == "highest":
+        return torch.float32, split_width(d), True
+    return torch.bfloat16, staged_width(d), p == "high"
+
+
+def _check_staged(rows, norms, hi, lo, precision=None):
+    """K4's prologue outputs for ``rows`` at ``precision``: (n,) float32
+    norms and (n, pitch) planes (``_plane_form``; lo None at "default"),
+    contiguous on the rows' device."""
     n, d = rows.shape
-    for t, shape in ((norms, (n,)), (hi, (n, split_width(d))), (lo, (n, split_width(d)))):
-        if (t is None or t.dtype != torch.float32 or tuple(t.shape) != shape
+    dtype, width, two = _plane_form(d, precision)
+    parts = [(norms, torch.float32, (n,)), (hi, dtype, (n, width))]
+    if two:
+        parts.append((lo, dtype, (n, width)))
+    elif lo is not None:
+        raise TypeError("the \"default\" planes have no lo plane")
+    for t, want, shape in parts:
+        if (t is None or t.dtype != want or tuple(t.shape) != shape
                 or t.device != rows.device or not t.is_contiguous()):
-            raise TypeError(f"K4's staged norms and planes must be contiguous float32 "
-                            f"(n,) and (n, {split_width(d)}) on {rows.device}")
+            raise TypeError(f"K4's staged norms and planes at {resolve_precision(precision)!r} "
+                            f"must be contiguous float32 (n,) and {dtype} (n, {width}) "
+                            f"on {rows.device}")
 
 
-def _card_planes(queries, blocks, query_norms, query_planes):
-    """On cards, for K4's wgmma tile: the query planes and norms and every
-    traveler's planes and norms, staged by its prologue where the caller
-    has none (norms and planes then come from one launch)."""
+def _card_planes(queries, blocks, query_norms, query_planes, precision=None):
+    """On cards, for K4's wgmma tiles: the query planes and norms and every
+    traveler's planes and norms at ``precision``, staged by its prologue
+    (``stage_ring_planes``) where the caller has none."""
+    two = _plane_form(1, precision)[2]
     if query_planes is None:
-        staged = [stage_round_planes(q) for q in queries]
+        staged = [stage_ring_planes(q, precision) for q in queries]
         query_planes = [s[:2] for s in staged]
         query_norms = [s[2] for s in staged]
     if query_norms is None:
         raise TypeError("query_planes need the query_norms of the same prologue")
     for q, n, (hi, lo) in zip(queries, query_norms, query_planes):
-        _check_staged(q, n, hi, lo)
+        _check_staged(q, n, hi, lo, precision)
     out = []
     for b in blocks:
-        if b[4] is None or b[5] is None or b[3] is None:
-            hi, lo, norms = stage_round_planes(b[0])
+        if b[4] is None or (two and b[5] is None) or b[3] is None:
+            hi, lo, norms = stage_ring_planes(b[0], precision)
             b = b[:3] + (norms, hi, lo)
-        _check_staged(b[0], *b[3:])
+        _check_staged(b[0], *b[3:], precision)
+        if b[3].data_ptr() % 16 and resolve_precision(precision) != "highest":
+            # the bf16 tile loads the norms by TMA, from a 16-byte boundary:
+            # the second of two landing slots lies off one when the block's
+            # rows are no multiple of 4 (never at ring_tiles' main shapes)
+            b = b[:3] + (b[3].clone(),) + b[4:]
         out.append(b)
     return list(query_norms), list(query_planes), out
 
@@ -611,9 +660,9 @@ def fused_round_dma(ring: RingTransport, queries, query_ids, blocks, carries,
     a boundary transport). Returns the merged carries; the landing buffers
     then hold each rank's next resident block. On the f32 wire the card's
     merge reads the planes of the queries (``query_planes``, one (hi, lo)
-    per rank, with ``query_norms`` from the same prologue) and of the block
-    (``stage_round_planes``) at "highest"; at "default" / "high" only the
-    norms."""
+    per rank, with ``query_norms`` from the same prologue) and of the block,
+    both of ``stage_ring_planes`` at ``precision``; on the other wires only
+    the norms."""
     blocks = [traveler(b) for b in blocks]
     landing = [traveler(t) for t in landing]
     cpu = _check_ring(queries, query_ids, blocks, carries)
@@ -632,8 +681,9 @@ def fused_round_dma(ring: RingTransport, queries, query_ids, blocks, carries,
         return fused_round_dma_reference(queries, query_ids, blocks, carries,
                                          landing, outbox=outbox, **kw)
     P = len(queries)
-    if uses_planes(blocks[0][0].dtype, precision):
-        qn, qp, blocks = _card_planes(queries, blocks, query_norms, query_planes)
+    if uses_planes(blocks[0][0].dtype):
+        qn, qp, blocks = _card_planes(queries, blocks, query_norms, query_planes,
+                                      precision)
     else:
         (qn, blocks), qp = _card_norms(queries, blocks, query_norms), [(None, None)] * P
     ring._ensure_flags()
@@ -679,22 +729,46 @@ def fused_round_dma_reference(queries, query_ids, blocks, carries, landing,
 
 def _ranks(ring, queries, query_ids, blocks, carries, outs, qn, **per_rank):
     """One ``_Rank`` per ring rank: the operands and flag words every
-    launch takes, plus the tensors of ``per_rank`` (field -> one per
-    rank)."""
-    P = len(queries)
-    return [_Rank(
-        q=_ptr(queries[r]), qn=_ptr(qn[r]), qids=_ptr(query_ids[r]),
-        blk=_ptr(blocks[r][0]), bids=_ptr(blocks[r][1]),
-        scale=_ptr(blocks[r][2]), bn=_ptr(blocks[r][3]),
-        bh=_ptr(blocks[r][4]), bl=_ptr(blocks[r][5]),
-        carry_d=_ptr(carries[r][0]), carry_i=_ptr(carries[r][1]),
-        out_d=_ptr(outs[r][0]), out_i=_ptr(outs[r][1]),
-        flags=ring.words(r), succ_flags=ring.succ_words(r),
-        pred_flags=ring.pred_words(r),
-        succ_remote=int(ring.succ_remote[r]),
-        pred_remote=int(ring.pred_remote[r]),
-        **{name: _ptr(ts[r]) for name, ts in per_rank.items()})
-        for r in range(P)]
+    launch takes, plus (or in place of them) the tensors of ``per_rank``
+    (field -> one per rank)."""
+    def fields(r):
+        f = dict(
+            q=_ptr(queries[r]), qn=_ptr(qn[r]), qids=_ptr(query_ids[r]),
+            blk=_ptr(blocks[r][0]), bids=_ptr(blocks[r][1]),
+            scale=_ptr(blocks[r][2]), bn=_ptr(blocks[r][3]),
+            bh=_ptr(blocks[r][4]), bl=_ptr(blocks[r][5]),
+            carry_d=_ptr(carries[r][0]), carry_i=_ptr(carries[r][1]),
+            out_d=_ptr(outs[r][0]), out_i=_ptr(outs[r][1]),
+            flags=ring.words(r), succ_flags=ring.succ_words(r),
+            pred_flags=ring.pred_words(r),
+            succ_remote=int(ring.succ_remote[r]),
+            pred_remote=int(ring.pred_remote[r]))
+        f.update({name: _ptr(ts[r]) for name, ts in per_rank.items()})
+        return f
+
+    return [_Rank(**fields(r)) for r in range(len(queries))]
+
+
+def _grid_scratch(queries, blocks, precision):
+    """K5's staging scratch on the f32 wire at "default" / "high", per
+    rank on its device: the query planes hi, lo (Q, pitch) and the block
+    planes hi, lo (B, pitch) bf16 (lo None at "default"), and the block
+    norms (B,) f32, which its launch writes each round (K5's planes do not
+    travel). None per field elsewhere."""
+    fields = ("qh", "ql", "bh", "bl", "sbn")
+    if blocks[0][0].dtype != torch.float32 or resolve_precision(precision) == "highest":
+        return {}
+    _, width, two = _plane_form(queries[0].shape[1], precision)
+
+    def planes(n, dev):
+        return tuple(torch.empty((n, width), dtype=torch.bfloat16, device=dev)
+                     if i == 0 or two else None for i in range(2))
+
+    per = []
+    for q, b in zip(queries, blocks):
+        per.append((*planes(q.shape[0], q.device), *planes(b[0].shape[0], q.device),
+                    torch.empty(b[0].shape[0], dtype=torch.float32, device=q.device)))
+    return {name: [t[j] for t in per] for j, name in enumerate(fields)}
 
 
 def _launch_per_card(ring, fn_name, name, ranks, queries, blocks, carries, kw,
@@ -853,7 +927,8 @@ def fused_rotation_grid(ring: RingTransport, queries, query_ids, blocks,
                    dst_bn=[s[3] for s in succ],
                    slot_blk=[s[0] for s in slots], slot_bids=[s[1] for s in slots],
                    slot_bn=[s[3] for s in slots],
-                   cbuf_d=[c[0] for c in cbufs], cbuf_i=[c[1] for c in cbufs])
+                   cbuf_d=[c[0] for c in cbufs], cbuf_i=[c[1] for c in cbufs],
+                   **_grid_scratch(queries, blocks, precision))
     moved = [(rounds - 1) * tensor_bytes(b[0], b[1], b[3]) for b in blocks]
     _launch_per_card(ring, "rotation_grid_launch",
                      kernel_name("fused_rotation_grid", precision),

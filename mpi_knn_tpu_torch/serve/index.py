@@ -45,7 +45,7 @@ from mpi_knn_tpu_torch.config import KNNConfig
 from mpi_knn_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from mpi_knn_tpu_torch.obs import spans as obs_spans
 from mpi_knn_tpu_torch.ops import fused_knn
-from mpi_knn_tpu_torch.ops.distance import l2_mean
+from mpi_knn_tpu_torch.ops.distance import l2_mean, resolve_precision
 from mpi_knn_tpu_torch.ops.rerank import mixed_applies
 from mpi_knn_tpu_torch.parallel.partition import (
     make_global_ids,
@@ -198,11 +198,17 @@ class CorpusIndex:
                 )
         if self.shards is not None and self.device.type == "cuda":
             need = _ring_parts(want, self.mesh, self.c_tile, self.shards)
-            if not set(need) <= set(self.ring_parts):
+            # K4's planes are those of the build's precision (TF32 at
+            # "highest", bf16 else)
+            planes_differ = "planes" in need and (
+                resolve_precision(want.matmul_precision)
+                != resolve_precision(self.cfg.matmul_precision))
+            if not set(need) <= set(self.ring_parts) or planes_differ:
                 raise ValueError(
-                    f"this config's ring form reads the shards' {need}, but "
-                    f"the index staged {self.ring_parts} at build; build an "
-                    "index with that config"
+                    f"this config's ring form reads the shards' {need} at "
+                    f"matmul_precision={want.matmul_precision!r}, but the index "
+                    f"staged {self.ring_parts} at build (matmul_precision="
+                    f"{self.cfg.matmul_precision!r}); build an index with that config"
                 )
         return want
 
@@ -261,7 +267,7 @@ def _build_ring(corpus, cfg: KNNConfig, mesh, dev, backend, m, dim, mu):
     parts = ()
     if dev.type == "cuda":  # the prologue outputs the build config's form reads
         parts = _ring_parts(cfg, devices, c_tile, raw)
-    shards = stage_travelers(parts, raw)
+    shards = stage_travelers(parts, raw, cfg.matmul_precision)
     return CorpusIndex(cfg=cfg, backend=backend, m=m, dim=dim, c_tile=c_tile,
                        mu=mu, device=dev, mesh=devices,
                        ring_meta=(None, cfg.mesh_axis, 1, P), shards=shards,

@@ -1342,8 +1342,8 @@ def test_precision_block_merge_equals_plain(cuda_device, wire, precision, dim):
 @pytest.mark.parametrize("precision", PRECISIONS)
 @pytest.mark.parametrize("P", [1, 4])
 def test_precision_round_dma_equals_plain(cuda_device, wire, precision, P):
-    """K4 at "default" / "high": the mma.sync round kernel on every wire,
-    the f32 one included (no planes)."""
+    """K4 at "default" / "high": the bf16 wgmma tile on the f32 wire (the
+    wrapper stages the planes), the mma.sync round kernel on the others."""
     queries, qids, blocks, carries = _ring_of(cuda_device, P, wire)
     ring = fused_rotation.RingTransport([cuda_device] * P)
     land = [fused_rotation.slot(fused_rotation.landing_slots(*b), 0) for b in blocks]
@@ -1359,7 +1359,7 @@ def test_precision_round_dma_equals_plain(cuda_device, wire, precision, P):
                                                     precision=precision)
     assert fused_rotation.LAUNCHES[key] == before + 1
     assert fused_rotation.ring_kernel_plan("round", blocks[0][0].dtype, P, 96, 10,
-                                           precision)["wgmma_tile"] == 0
+                                           precision)["wgmma_tile"] == int(wire == "float32")
     for r in range(P):
         assert torch.equal(got[r][1], want[r][1])
         _same(got[r][0], want[r][0])
@@ -1387,6 +1387,139 @@ def test_precision_rotation_grid_equals_plain(cuda_device, wire, precision):
     for r in range(4):
         assert torch.equal(got[r][1], want[r][1])
         _same(got[r][0], want[r][0])
+
+
+def _staged_ring(device, P, precision, q_local, b, dim, k):
+    """_ring_of's f32 operands with each traveler staged by K4's prologue
+    at ``precision`` (norms and bf16 planes), so that its landing slots
+    carry them too."""
+    queries, qids, blocks, carries = _ring_of(device, P, "float32", q_local, b, dim, k)
+    staged = []
+    for blk, bids, scale in blocks:
+        hi, lo, norms = fused_rotation.stage_ring_planes(blk, precision)
+        staged.append((blk, bids, scale, norms, hi, lo))
+    return queries, qids, staged, carries
+
+
+# (k, q_local, b, dim): lists in shared memory; k past them (64 at
+# "default", 40 at "high"); ragged rows, an odd B (a slot's norms off a
+# 16-byte boundary) and a width not a multiple of 32
+BF16_RING_SHAPES = {"k10": (10, 96, 256, 24), "k_past_lists": (70, 96, 256, 40),
+                    "ragged": (10, 203, 301, 50)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", PRECISIONS)
+@pytest.mark.parametrize("P", [1, 4])
+@pytest.mark.parametrize("shape", list(BF16_RING_SHAPES))
+def test_precision_bf16_transport_equals_plain(cuda_device, precision, P, shape):
+    """K4 (two rounds: the second reads landing slot 1) and K5 (the whole
+    rotation) on the f32 wire at "default" / "high", the bf16 wgmma tile,
+    against their plain versions bit for bit on small integers: a query's
+    duplicate in the block, a query whose id is in the block, -1 padding, a
+    carry that ties block entries, a NaN query row."""
+    k, q_local, b, dim = BF16_RING_SHAPES[shape]
+    queries, qids, blocks, carries = _staged_ring(cuda_device, P, precision, q_local,
+                                                  b, dim, k)
+    queries[0][9] = float("nan")
+    ring = fused_rotation.RingTransport([cuda_device] * P)
+    slot = fused_rotation.slot
+    slots = [fused_rotation.landing_slots(*t) for t in blocks]
+    want_slots = [fused_rotation.landing_slots(*t) for t in blocks]
+    kw = dict(c_tile=b, precision=precision)
+    key = f"fused_round_dma[{precision}]"
+    before = fused_rotation.LAUNCHES[key]
+    got = fused_rotation.fused_round_dma(ring, queries, qids, blocks, carries,
+                                         [slot(s, 1) for s in slots], **kw)
+    got = fused_rotation.fused_round_dma(ring, queries, qids, [slot(s, 1) for s in slots],
+                                         got, [slot(s, 0) for s in slots], **kw)
+    torch.cuda.synchronize()
+    want = fused_rotation.fused_round_dma_reference(
+        queries, qids, blocks, carries, [slot(s, 1) for s in want_slots], **kw)
+    want = fused_rotation.fused_round_dma_reference(
+        queries, qids, [slot(s, 1) for s in want_slots], want,
+        [slot(s, 0) for s in want_slots], **kw)
+    assert fused_rotation.LAUNCHES[key] == before + 2
+    for r in range(P):
+        assert torch.equal(got[r][1], want[r][1])
+        _same(got[r][0], want[r][0])
+        for have, sent in zip(slot(slots[(r + 2) % P], 0), blocks[r]):
+            assert (have is None) == (sent is None)
+            if sent is not None:
+                assert torch.equal(have.view(torch.uint8), sent.view(torch.uint8))
+    assert bool((got[0][1][9] == -1).all())
+    plain = [t[:3] for t in blocks]
+    key = f"fused_rotation_grid[{precision}]"
+    before = fused_rotation.LAUNCHES[key]
+    got = fused_rotation.fused_rotation_grid(
+        ring, queries, qids, plain, carries,
+        [fused_rotation.landing_slots(*t) for t in plain], **kw)
+    torch.cuda.synchronize()
+    want = fused_rotation.fused_rotation_grid_reference(
+        queries, qids, plain, carries,
+        [fused_rotation.landing_slots(*t) for t in plain], **kw)
+    assert fused_rotation.LAUNCHES[key] == before + 1
+    assert fused_rotation.ring_kernel_plan("grid", torch.float32, P, q_local, k,
+                                           precision)["wgmma_tile"] == 1
+    for r in range(P):
+        assert torch.equal(got[r][1], want[r][1])
+        _same(got[r][0], want[r][0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", PRECISIONS)
+def test_precision_round_dma_lands_bf16_planes(cuda_device, precision):
+    """After a K4 round on the f32 wire at "default" / "high" each landing
+    slot holds its predecessor's block, ids, norms and bf16 planes byte for
+    byte (no lo plane at "default"), and the wrapper staged nothing."""
+    queries, qids, blocks, carries = _staged_ring(cuda_device, 4, precision, 96, 256,
+                                                  100, 10)
+    q_staged = [fused_rotation.stage_ring_planes(q, precision) for q in queries]
+    ring = fused_rotation.RingTransport([cuda_device] * 4)
+    land = [fused_rotation.slot(fused_rotation.landing_slots(*b), 1) for b in blocks]
+    before = (fused_knn.LAUNCHES["stage_planes"], fused_knn.LAUNCHES["stage_norms"])
+    fused_rotation.fused_round_dma(
+        ring, queries, qids, blocks, carries, land, c_tile=64, precision=precision,
+        query_norms=[s[2] for s in q_staged], query_planes=[s[:2] for s in q_staged])
+    torch.cuda.synchronize()
+    assert (fused_knn.LAUNCHES["stage_planes"], fused_knn.LAUNCHES["stage_norms"]) == before
+    for r in range(4):
+        have, sent = land[(r + 1) % 4], blocks[r]
+        assert have[2] is None and (have[5] is None) == (precision == "default")
+        for part in (0, 1, 3, 4, 5):
+            if sent[part] is not None:
+                assert torch.equal(have[part].view(torch.uint8), sent[part].view(torch.uint8))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dim", [100, 784])
+def test_stage_norms_equal_the_ring_wire_norms(cuda_device, dim):
+    """The "default" / "high" prologue's norms (stage_norms, which K4's bf16
+    travelers carry) equal stage_wire_norms' (K3a's and K5's) bit for bit:
+    the resumable ring's K3a round and the grid ring may take either."""
+    X = _centered_mnist(cuda_device, m=3000)[:, :dim].contiguous()
+    assert torch.equal(fused_knn.stage_f32_norms(X), fused_ring.stage_wire_norms(X, None))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", PRECISIONS)
+def test_precision_grid_ring_equals_dma_ring(cuda_device, precision):
+    """The fused-grid ring (K5, planes made on the card each round) equals
+    the fused-dma ring (K4, planes staged once and travelling) bit for bit
+    at "default" / "high" on non-integer rows: one tile, one epilogue."""
+    from mpi_knn_tpu_torch import KNNConfig
+    from mpi_knn_tpu_torch.backends.ring import all_knn_ring
+
+    rng = np.random.default_rng(12)
+    X = (rng.standard_normal((1500, 50)) * 3.0).astype(np.float32)
+    ids = np.arange(1500, dtype=np.int32)
+    mesh = [cuda_device] * 4
+    kw = dict(k=10, backend="ring-overlap", ring_fusion="fused", query_tile=128,
+              corpus_tile=256, center=False, matmul_precision=precision)
+    dma = all_knn_ring(X, X, ids, KNNConfig(**kw), mesh=mesh, form="dma")
+    grid = all_knn_ring(X, X, ids, KNNConfig(ring_fused_rotation="grid", **kw), mesh=mesh,
+                        form="grid")
+    assert torch.equal(dma[1], grid[1]) and torch.equal(dma[0], grid[0])
 
 
 # ---------------------------------------------------------------------------

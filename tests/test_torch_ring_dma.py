@@ -223,3 +223,103 @@ def test_round_planes_are_the_plain_split():
     assert not hi[:, 20:].any() and not lo[:, 20:].any()
     with pytest.raises(TypeError):
         fused_rotation.stage_round_planes(x.to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("precision", ["default", "high"])
+def test_staged_parts_carry_bf16_planes_at_default_and_high(precision):
+    """At "default" / "high" the dma form on the f32 wire reads K4's planes
+    beside the norms (the bf16 wgmma tile), the grid form and the bf16 wire
+    the norms alone; the travelers then carry the bf16 planes of the plain
+    prologue, zero past d, with no lo plane at "default"."""
+    from mpi_knn_tpu_torch.ops import fused_knn
+
+    cfg = KNNConfig(k=5, ring_fusion="fused", matmul_precision=precision)
+    assert ring.staged_parts(cfg, "dma", C_TILE, torch.float32) == ("norms", "planes")
+    assert ring.staged_parts(cfg, "grid", C_TILE, torch.float32) == ("norms",)
+    assert ring.staged_parts(cfg, "dma", C_TILE, torch.bfloat16) == ("norms",)
+    rng = np.random.default_rng(7)
+    t = torch.from_numpy
+    ts = []
+    for r in range(2):
+        _, _, blk, bids, _, _ = _rank(rng, 5, r)
+        ts.append((t(blk), t(bids), None))
+    for (blk, bids, _), trav in zip(ts, ring.stage_travelers(("norms", "planes"), ts,
+                                                             precision)):
+        hi, lo, norms = fused_knn.stage_planes_reference(
+            blk, precision, fused_knn.staged_width(DIM))
+        assert trav[0] is blk and trav[1] is bids and trav[2] is None
+        assert trav[4].dtype == torch.bfloat16 and trav[4].shape == (B, 32)
+        assert torch.equal(trav[4], hi) and torch.equal(trav[3], norms)
+        assert (trav[5] is None) == (precision == "default")
+        if lo is not None:
+            assert torch.equal(trav[5], lo)
+        assert not trav[4][:, DIM:].any()
+
+
+@pytest.mark.parametrize("precision", ["default", "high"])
+@pytest.mark.parametrize("P", [1, 3])
+def test_round_reference_ignores_the_bf16_planes_and_lands_them(precision, P):
+    """A traveler carrying the "default" / "high" prologue's bf16 planes
+    and norms goes through the plain round, which reads neither: the merged
+    carry is the JAX package's Pallas merge at that precision, and the
+    landing slots hold the predecessor's block, ids, norms and planes (no
+    lo slot at "default")."""
+    k = 5
+    rng = np.random.default_rng(20 + P)
+    jcfg = jax_pkg.KNNConfig(k=k, matmul_precision=precision)
+    t = torch.from_numpy
+    ranks, want = [], []
+    for r in range(P):
+        q, qids, blk, bids, cd, ci = _rank(rng, k, r)
+        want.append(jax_merge(q, qids, blk, bids, None, cd, ci, cfg=jcfg,
+                              q_tile=Q_TILE, c_tile=C_TILE))
+        hi, lo, norms = fused_rotation.stage_ring_planes(t(blk), precision)
+        ranks.append((t(q), t(qids), (t(blk), t(bids), None, norms, hi, lo),
+                      (t(cd), t(ci))))
+    blocks = [rk[2] for rk in ranks]
+    landing = [fused_rotation.slot(fused_rotation.landing_slots(*b), 0)
+               for b in blocks]
+    got = fused_rotation.fused_round_dma(
+        fused_rotation.ring_transport(["cpu"] * P), [rk[0] for rk in ranks],
+        [rk[1] for rk in ranks], blocks, [rk[3] for rk in ranks], landing,
+        c_tile=C_TILE, precision=precision)
+    for r in range(P):
+        np.testing.assert_array_equal(got[r][1].numpy(), np.asarray(want[r][1]))
+        np.testing.assert_array_equal(got[r][0].numpy(), np.asarray(want[r][0]))
+        have, sent = landing[(r + 1) % P], blocks[r]
+        assert have[2] is None and (have[5] is None) == (precision == "default")
+        for part in (0, 1, 3, 4, 5):
+            if sent[part] is not None:
+                assert torch.equal(have[part], sent[part])
+
+
+@pytest.mark.parametrize("precision", ["default", "high"])
+def test_a_staged_ring_stages_its_queries_alone(monkeypatch, precision):
+    """Travelers staged once (as a resident ring index stages its shards)
+    are taken as they are: a dma ring over them runs K4's prologue on its
+    query shards only, and equals the driver-transport ring bit for bit."""
+    from mpi_knn_tpu_torch.ops.topk import init_topk
+
+    rng = np.random.default_rng(9)
+    X = np.concatenate([_rows(rng, 48), _rows(rng, 40)])
+    ids = np.arange(X.shape[0], dtype=np.int32)
+    devices = [torch.device("cpu")] * 4
+    cfg = KNNConfig(k=5, backend="ring-overlap", ring_fusion="fused",
+                    query_tile=8, corpus_tile=16, center=False,
+                    matmul_precision=precision)
+    q_tile, c_tile, q_sh, qid_sh, travelers = ring.ring_shards(cfg, X, X, ids, devices)
+    parts = ring.staged_parts(cfg, "dma", c_tile, torch.float32)
+    shards = ring.stage_travelers(parts, travelers[0], precision)
+    staged = []
+    real = ring.stage_ring_planes
+    monkeypatch.setattr(ring, "stage_ring_planes",
+                        lambda rows, p=None: staged.append(rows) or real(rows, p))
+    carries = [init_topk(q.shape[0], cfg.k, device="cpu") for q in q_sh]
+    run = ring.RingRun(cfg, devices, True, "dma", q_sh, qid_sh, [shards], carries,
+                       q_tile, c_tile, staged=True)
+    run.rotate()
+    assert [r.data_ptr() for r in staged] == [q.data_ptr() for q in q_sh]
+    want = ring.all_knn_ring(X, X, ids, cfg, mesh=devices, device="cpu", form="driver")
+    n = X.shape[0]
+    assert torch.equal(torch.cat([c[1] for c in run.carries])[:n], want[1])
+    assert torch.equal(torch.cat([c[0] for c in run.carries])[:n], want[0])
